@@ -1,0 +1,6 @@
+"""Op emitters; importing this package registers every op the port runs."""
+from . import tensor_ops    # noqa: F401
+from . import math_ops      # noqa: F401
+from . import nn_ops        # noqa: F401
+from . import attention_ops  # noqa: F401
+from . import io_ops        # noqa: F401
