@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path once on one CUDA card.
+"""Drive paddle_tpu_torch's serving path and training step once on one
+CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
-  (a) build every CUDA kernel of the path with nvcc (one process per
-      source, started together);
+  (a) build every CUDA kernel of the two paths with nvcc (one process per
+      source, started together): the flash-attention forward K1 and the
+      backward K2, K3a, K3b;
   (b) hold each kernel against its plain PyTorch version on the card, at
-      the shape the serving path gives it and at ragged edge shapes, and
-      time kernel, plain version and the PyTorch library call;
+      the shapes the paths give it and at ragged edge shapes, fp32 and
+      bf16, and time kernel, plain version and the PyTorch library call
+      (scaled_dot_product_attention; its backward is timed as fwd+bwd
+      minus fwd, timed only);
   (c) build the flagship LM (bench.py's transformer: vocab 32768, dim
       2048, 16 heads, 12 layers, ffn 8192, max_len 512, flash attention)
       with random weights from a seed, run its startup program on
@@ -17,14 +21,31 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       prefill_batch=1), and answer 8 requests (prompts of 32..480
       tokens, 32 new tokens each) through LMServer.submit/result, with
       every kernel launch counter set to 0 just before and read just
-      after: each kernel must have launched on the path (the flash
-      forward at least prefills x layers times);
+      after: the flash forward must launch at least prefills x layers
+      times;
   (d) each request's prefill logits and first token match the port's own
       full-recompute Predictor.run (rtol = atol = 1e-3);
-  (e) each engine stream equals its solo DecodePredictor.generate stream.
+  (e) each engine stream equals its solo DecodePredictor.generate stream;
+  (f), (g) prefill and decode-step timing, and their device time;
+  (t1) build the flagship training program as bench.py's _bench_lm does
+      (py_reader feed, fused LM head with chunk 4096, mean,
+      Momentum(0.001, 0.9) under contrib.mixed_precision.decorate), run
+      its startup program on CUDAPlace(0), then 2 warm-up and 5 timed
+      steps through ParallelExecutor(use_cuda=True); with the counters
+      set to 0 before the timed steps, K1 must launch >= 12 x steps
+      times, K2 exactly 12 x steps, K3 never; every loss is finite;
+  (t2) one step from a saved state with the kernels and the same step
+      with FLAGS_use_flash_attention=False (the plain versions): the
+      losses and the updates of layer0_qkv, layer11_down and lm_head
+      agree within TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL;
+  (t3) the same step under PADDLE_FLASH_BWD=split: K3a and K3b launch 12
+      times each, K2 never, and loss and updates match t2's kernel step;
+  (t4) step ms, tokens/s, MFU (bench.py's FLOPs per token over the bf16
+      dense peak), device-busy share and top device items from
+      torch.profiler over 3 steps, and peak device memory.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
-line, the serving timings, and as its last line
+line, the serving and training numbers, and as its last line
 {"ok": true, "device": {...}}. Without a CUDA device, or without the
 package beside it, it exits non-zero and prints no result.
 """
@@ -45,13 +66,24 @@ MODEL = dict(vocab=32768, dim=2048, heads=16, layers=12, ffn=8192,
              max_len=512, flash_attention=True)
 SLOTS, PREFILL_BATCH, N_REQUESTS, NEW_TOKENS = 8, 1, 8, 32
 SEED = 1234
+# the training step of bench.py's bench_transformer (:253-271)
+TRAIN_BATCH, HEAD_CHUNK, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = \
+    8, 4096, 2, 5, 3
+PARAMS_COMPARED = ('layer0_qkv.w_0', 'layer11_down.w_0', 'lm_head.w_0')
 
-KERNEL_ATOL = 1e-4          # fp32 kernel vs fp32 plain version
+# kernel vs plain version on the card: fp32 math in both; bf16 outputs
+# are rounded once (2^-8 relative), and K2's dq is summed with atomics
+KERNEL_ATOL = {'float32': 1e-4, 'bfloat16': 2e-2}
 RECOMPUTE_TOL = 1e-3        # prefill vs full recompute (rtol and atol)
+# kernel step vs plain step under bf16 AMP: |loss difference|, and the
+# largest update difference over the largest update of each parameter
+TRAIN_LOSS_TOL = 1e-2
+TRAIN_UPDATE_TOL = 5e-2
 
 # H100 SXM peaks (NVIDIA data sheet, dense): fp32 outside the tensor
-# cores and HBM3 bandwidth
+# cores, bf16 on the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989.4e12
 PEAK_BYTES_PER_S = 3.35e12
 
 
@@ -105,13 +137,28 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+def bracketed_ms(fns):
+    """Time each of fns {'ms', 'plain_ms', 'library_ms'} twice in the
+    order kernel, plain, library, library, plain, kernel, so the pairs
+    bracket drift in clocks; each time is the mean of its two runs."""
+    runs = {key: [] for key in fns}
+    for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms',
+                'ms'):
+        if key in fns:
+            runs[key].append(cuda_ms(fns[key]))
+    return {key: float(np.mean(v)) for key, v in runs.items()}
+
+
 # -- (a) ---------------------------------------------------------------------
+
+KERNEL_SOURCES = ('flash_attention_fwd', 'flash_attention_bwd')
+
 
 @phase('a: build kernels')
 def build_kernels():
     from paddle_tpu_torch.kernels import build
     t0 = time.perf_counter()
-    paths = build.build('flash_attention_fwd')
+    paths = build.build(*KERNEL_SOURCES)
     for name, path in paths.items():
         log('built %s -> %s' % (name, os.path.relpath(path, HERE)))
         for line in build.build_logs.get(name, '').splitlines():
@@ -122,89 +169,204 @@ def build_kernels():
 
 # -- (b) ---------------------------------------------------------------------
 
-def _qkv(rng, BH, T, d, device):
-    import torch
-    mk = lambda s: torch.from_numpy(  # noqa: E731
-        (rng.randn(BH, T, d) * s).astype('float32')).to(device)
-    return mk(0.5), mk(0.5), mk(1.0)
+# (name in the kernels line, TPU body it replaces, source, FLOP per
+# visited score per head-dim column, outputs [BH, T, d] it writes)
+KERNELS = {
+    'fwd': ('flash_attention_fwd', 'paddle_tpu/pallas/flash_attention.py:171',
+            'paddle_tpu_torch/csrc/flash_attention_fwd.cu', 4, 1),
+    'k2': ('flash_attention_bwd_kvmajor',
+           'paddle_tpu/pallas/flash_attention.py:512',
+           'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 10, 3),
+    'k3a': ('flash_attention_bwd_dq',
+            'paddle_tpu/pallas/flash_attention.py:339',
+            'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 6, 1),
+    'k3b': ('flash_attention_bwd_dkv',
+            'paddle_tpu/pallas/flash_attention.py:385',
+            'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 8, 2),
+}
 
 
-def flash_bound_ms(BH, T, d, causal):
-    """Least time for the work this call needs: the visited score pairs
-    (causal: T(T+1)/2 per row block) x 2 matmuls x 2 FLOP x d at the fp32
-    peak, against q, k, v read once and o, lse written once."""
+def flash_bound_ms(kind, BH, T, d, causal, dtype):
+    """Least time for the work of one call: the visited scores
+    (causal: T(T+1)/2 per head) x FLOP per score at the peak of the
+    call's type (fp32 CUDA cores, bf16 tensor cores), against every
+    input read once and every output written once (forward: q, k, v in,
+    o and fp32 lse out; backward: q, k, v, dO and fp32 lse, delta in,
+    its gradients out)."""
+    flop_per_col, n_out = KERNELS[kind][3], KERNELS[kind][4]
+    es = 4 if dtype == 'float32' else 2
     pairs = T * (T + 1) // 2 if causal else T * T
-    flops = 4.0 * BH * pairs * d
-    nbytes = 4.0 * (4 * BH * T * d + BH * T)
-    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    flops = float(flop_per_col) * BH * pairs * d
+    if kind == 'fwd':
+        nbytes = es * 4 * BH * T * d + 4 * BH * T
+    else:
+        nbytes = es * (4 + n_out) * BH * T * d + 2 * 4 * BH * T
+    peak = PEAK_FP32_FLOPS if dtype == 'float32' else PEAK_BF16_FLOPS
+    t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                  else 'bytes')
 
 
+def _inputs(rng, BH, T, d, dtype, device):
+    """q, k, v, dO from a seeded numpy stream, in the working dtype."""
+    import torch
+    mk = lambda s: torch.from_numpy(  # noqa: E731
+        (rng.randn(BH, T, d) * s).astype('float32')).to(device).to(
+            getattr(torch, dtype))
+    return mk(0.5), mk(0.5), mk(1.0), mk(1.0)
+
+
+def _max_err(got, want):
+    return max((g.float() - w.float()).abs().max().item()
+               for g, w in zip(got, want))
+
+
+def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
+    """Run K1, K2, K3a and K3b once at one shape and hold each against
+    its plain version; returns {kind: max_abs_err}."""
+    import torch
+    q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
+    scale = d ** -0.5
+    o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    torch.cuda.synchronize()
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
+    errs = {'fwd': _max_err((o, lse), (o_ref, lse_ref))}
+    finite = bool(torch.isfinite(o).all())
+    # the backward kernels get the plain forward's o and lse, so each is
+    # held to the plain backward on identical inputs
+    delta = fa.bwd_delta(o_ref, do)
+    dq, dk, dv = fa.flash_attention_bwd_reference(q, k, v, o_ref, lse_ref,
+                                                  do, causal, scale)
+    args = (q, k, v, do, lse_ref, delta, causal, scale)
+    got = {'k2': fa.flash_attention_bwd_kvmajor(*args),
+           'k3a': (fa.flash_attention_bwd_dq(*args),),
+           'k3b': fa.flash_attention_bwd_dkv(*args)}
+    torch.cuda.synchronize()
+    want = {'k2': (dq, dk, dv), 'k3a': (dq,), 'k3b': (dk, dv)}
+    for kind, out in got.items():
+        errs[kind] = _max_err(out, want[kind])
+        finite = finite and all(bool(torch.isfinite(t).all()) for t in out)
+    tol = KERNEL_ATOL[dtype]
+    bad = [kind for kind, e in errs.items() if not e <= tol]
+    log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g) %s'
+        % (BH, T, d, causal, dtype,
+           ', '.join('%s %.3e' % (KERNELS[kd][0], e)
+                     for kd, e in errs.items()),
+           tol, 'ok' if not bad and finite else 'MISMATCH'))
+    if bad or not finite:
+        raise AssertionError('%s disagree with their plain versions at '
+                             '[%d, %d, %d] %s (finite: %s)'
+                             % ([KERNELS[kd][0] for kd in bad], BH, T, d,
+                                dtype, finite))
+    return errs
+
+
+def _row(kind, dtype, shape, causal, err, times, bound):
+    name, replaces, source = KERNELS[kind][:3]
+    if kind == 'fwd' and dtype == 'bfloat16':
+        name = 'flash_attention_fwd_bf16'
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': None, 'max_abs_err': err,
+            'ms': times['ms'], 'plain_ms': times['plain_ms'],
+            'bound_ms': bound[0], 'bound_by': bound[1],
+            'library_ms': times.get('library_ms'),
+            'shape': list(shape), 'dtype': dtype, 'causal': causal}
+
+
 @phase('b: kernels vs plain versions')
 def check_kernels(cfg):
+    """Correctness at the paths' shapes and at ragged ones, then times at
+    the paths' shapes. Returns the kernels line's rows."""
     import torch
     import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     rng = np.random.RandomState(SEED)
     dev = torch.device('cuda', 0)
-    # the prefill program's attention: [prefill_batch * heads, T, dh]
-    BH, T, d = PREFILL_BATCH * cfg.heads, cfg.max_len, cfg.dim // cfg.heads
-    shapes = [(BH, T, d, True), (3, 200, 64, False), (2, 130, 128, True),
-              (4, 64, 64, True), (1, 1, 128, False)]
-    path_err = None
-    for bh, t, dd, causal in shapes:
-        q, k, v = _qkv(rng, bh, t, dd, dev)
-        scale = dd ** -0.5
-        o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
-        torch.cuda.synchronize()
-        o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
-        err = max((o - o_ref).abs().max().item(),
-                  (lse - lse_ref).abs().max().item())
-        ok = bool(torch.isfinite(o).all()) and err <= KERNEL_ATOL
-        log('flash_attention_fwd [%d, %d, %d] causal=%s: max_abs_err %.3e '
-            '(atol %g) %s' % (bh, t, dd, causal, err, KERNEL_ATOL,
-                              'ok' if ok else 'MISMATCH'))
-        if not ok:
-            raise AssertionError('flash_attention_fwd disagrees with its '
-                                 'plain version at [%d, %d, %d]'
-                                 % (bh, t, dd))
-        if path_err is None:
-            path_err = err
+    d = cfg.dim // cfg.heads
+    T = cfg.max_len
+    serve_bh = PREFILL_BATCH * cfg.heads      # the prefill's attention
+    train_bh = TRAIN_BATCH * cfg.heads        # the training step's
+    path_errs = {}
+    shapes = [(serve_bh, T, d, True, 'float32'),
+              (train_bh, T, d, True, 'bfloat16'),
+              (train_bh, T, d, True, 'float32')]
+    for dtype in ('float32', 'bfloat16'):
+        shapes += [(3, 200, 64, False, dtype), (2, 130, 128, True, dtype),
+                   (4, 64, 64, True, dtype), (1, 1, 128, False, dtype),
+                   (2, 1, 64, True, dtype)]
+    for BH, t, dd, causal, dtype in shapes:
+        errs = _check_shape(fa, rng, dev, BH, t, dd, causal, dtype)
+        if (BH, t, dd) == (serve_bh, T, d) and dtype == 'float32':
+            path_errs[('fwd', 'float32')] = errs['fwd']
+        if (BH, t, dd) == (train_bh, T, d) and dtype == 'bfloat16':
+            for kind, e in errs.items():
+                path_errs[(kind, 'bfloat16')] = e
 
-    q, k, v = _qkv(rng, BH, T, d, dev)
+    rows = []
     scale = d ** -0.5
-    # kernel, plain, library, library, plain, kernel: the pairs bracket
-    # drift in clocks; each time is the mean of its two runs
-    runs = {'ms': [], 'plain_ms': [], 'library_ms': []}
-    fns = {'ms': lambda: fa.flash_attention_fwd(q, k, v, True, scale),
-           'plain_ms': lambda: fa.flash_attention_reference(q, k, v, True,
-                                                            scale),
-           'library_ms': lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True)}
-    for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms',
-                'ms'):
-        runs[key].append(cuda_ms(fns[key]))
-    times = {key: float(np.mean(v)) for key, v in runs.items()}
-    lib_err = (F.scaled_dot_product_attention(q, k, v, is_causal=True)
-               - fa.flash_attention_reference(q, k, v, True, scale)[0]) \
-        .abs().max().item()
-    bound, bound_by = flash_bound_ms(BH, T, d, True)
-    log('flash_attention_fwd [%d, %d, %d] causal: kernel %.4f ms, plain '
-        '%.4f ms, library (scaled_dot_product_attention) %.4f ms '
-        '(max_abs_err vs plain %.2e), bound %.4f ms (%s)'
-        % (BH, T, d, times['ms'], times['plain_ms'], times['library_ms'],
-           lib_err, bound, bound_by))
-    return {'name': 'flash_attention_fwd', 'route': 'cuda',
-            'source': 'paddle_tpu_torch/csrc/flash_attention_fwd.cu',
-            'replaces': 'paddle_tpu/pallas/flash_attention.py:171',
-            'launches': None, 'max_abs_err': path_err,
-            'ms': times['ms'], 'kernel_ms': times['ms'],
-            'plain_ms': times['plain_ms'],
-            'bound_ms': bound, 'bound_by': bound_by,
-            'library_ms': times['library_ms'],
-            'shape': [BH, T, d], 'causal': True}
+    # K1 fp32 at the serving shape, as in the first slice
+    q, k, v, _ = _inputs(rng, serve_bh, T, d, 'float32', dev)
+    times = bracketed_ms({
+        'ms': lambda: fa.flash_attention_fwd(q, k, v, True, scale),
+        'plain_ms': lambda: fa.flash_attention_reference(q, k, v, True,
+                                                         scale),
+        'library_ms': lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True)})
+    rows.append(_row('fwd', 'float32', (serve_bh, T, d), True,
+                     path_errs[('fwd', 'float32')], times,
+                     flash_bound_ms('fwd', serve_bh, T, d, True,
+                                    'float32')))
+
+    # the training step's kernels: bf16 [BH, T, d] causal
+    q, k, v, do = _inputs(rng, train_bh, T, d, 'bfloat16', dev)
+    o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, True, scale)
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+
+    def sdpa_fwd():
+        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+
+    def sdpa_fwd_bwd():
+        sdpa_fwd().backward(do)
+
+    plain_bwd = lambda: fa.flash_attention_bwd_reference(  # noqa: E731
+        q, k, v, o, lse, do, True, scale)
+    fns = {
+        'fwd': {'ms': lambda: fa.flash_attention_fwd(q, k, v, True, scale),
+                'plain_ms': lambda: fa.flash_attention_reference(
+                    q, k, v, True, scale),
+                'library_ms': lambda: F.scaled_dot_product_attention(
+                    q, k, v, is_causal=True)},
+        'k2': {'ms': lambda: fa.flash_attention_bwd_kvmajor(*args),
+               'plain_ms': plain_bwd},
+        'k3a': {'ms': lambda: fa.flash_attention_bwd_dq(*args),
+                'plain_ms': plain_bwd},
+        'k3b': {'ms': lambda: fa.flash_attention_bwd_dkv(*args),
+                'plain_ms': plain_bwd},
+    }
+    # the library's backward alone: fwd+bwd minus fwd, in one bracket
+    lib = bracketed_ms({'ms': sdpa_fwd, 'plain_ms': sdpa_fwd_bwd})
+    lib_bwd_ms = lib['plain_ms'] - lib['ms']
+    log('library backward (scaled_dot_product_attention, bf16 causal '
+        '[%d, %d, %d]): fwd+bwd %.4f ms - fwd %.4f ms = %.4f ms'
+        % (train_bh, T, d, lib['plain_ms'], lib['ms'], lib_bwd_ms))
+    for kind, f in fns.items():
+        times = bracketed_ms(f)
+        if kind != 'fwd':
+            times['library_ms'] = lib_bwd_ms
+        rows.append(_row(kind, 'bfloat16', (train_bh, T, d), True,
+                         path_errs[(kind, 'bfloat16')], times,
+                         flash_bound_ms(kind, train_bh, T, d, True,
+                                        'bfloat16')))
+    for r in rows:
+        log('%s %s %s: kernel %.4f ms, plain %.4f ms, library %s ms, '
+            'bound %.4f ms (%s)'
+            % (r['name'], r['dtype'], r['shape'], r['ms'], r['plain_ms'],
+               'n/a' if r['library_ms'] is None
+               else '%.4f' % r['library_ms'], r['bound_ms'], r['bound_by']))
+    return rows
 
 
 # -- (c) ---------------------------------------------------------------------
@@ -400,6 +562,280 @@ def profile_path(dec, prompts, times_ms, sync):
                          for e in top)))
 
 
+# -- (t1)-(t4): the training step --------------------------------------------
+
+def train_flops_per_token(cfg):
+    """bench.py's _transformer_train_flops_per_token (:93-100) with
+    causal=False: 2 FLOP per MAC over qkv+proj, ffn, the full (T, not
+    T/2) attention and the head, x3 for forward + backward."""
+    d, f, t, v, n = cfg.dim, cfg.ffn, cfg.max_len, cfg.vocab, cfg.layers
+    per_layer = 4 * d * d + 2 * d * f
+    attn = 2 * t * d
+    return 3 * 2 * (n * (per_layer + attn) + d * v)
+
+
+class Trainer(object):
+    """The flagship training step built as bench.py's _bench_lm builds it
+    (:198-235), with its state on the card."""
+
+    def __init__(self, cfg, place):
+        import paddle_tpu_torch as fluid
+        from paddle_tpu_torch.models import transformer as tfm
+        self.fluid, self.cfg = fluid, cfg
+        self.main, startup = fluid.Program(), fluid.Program()
+        self.main.random_seed = startup.random_seed = SEED
+        with fluid.unique_name.guard(), \
+                fluid.program_guard(self.main, startup):
+            self.reader = fluid.layers.py_reader(
+                capacity=4,
+                shapes=[(-1, cfg.max_len, 1), (-1, cfg.max_len, 1)],
+                dtypes=['int64', 'int64'], name='tfm_reader',
+                use_double_buffer=True)
+            tokens, labels = fluid.layers.read_file(self.reader)
+            trunk = tfm.language_model_trunk(tokens, cfg)
+            cost = fluid.layers.fused_softmax_cross_entropy(
+                trunk, labels, cfg.vocab, chunk=HEAD_CHUNK, name='lm_head')
+            self.avg_cost = fluid.layers.mean(cost)
+            opt = fluid.optimizer.Momentum(learning_rate=0.001,
+                                           momentum=0.9)
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+            opt.minimize(self.avg_cost)
+        self.scope = fluid.Scope()
+        fluid.Executor(place).run(startup, scope=self.scope)
+        self.pe = fluid.ParallelExecutor(
+            use_cuda=True, loss_name=self.avg_cost.name,
+            main_program=self.main, scope=self.scope)
+        self.persistables = [v.name for v in self.main.list_vars()
+                             if v.persistable and
+                             self.scope.find_var(v.name) is not None]
+
+    def feed(self, provider):
+        if self.reader._started:
+            self.reader.reset()
+        self.reader.decorate_tensor_provider(provider)
+        self.reader.start()
+
+    def step(self):
+        return float(self.pe.run(fetch_list=[self.avg_cost.name])[0])
+
+    def snapshot(self):
+        return {n: self.scope.find_var(n).clone() for n in self.persistables}
+
+    def restore(self, saved):
+        for n, t in saved.items():
+            self.scope.find_var(n).copy_(t)
+
+
+def bench_provider(cfg, batch, rng):
+    """bench.py's token provider (:228-232)."""
+    def provider():
+        while True:
+            toks = rng.randint(0, cfg.vocab,
+                               size=(batch, cfg.max_len, 1)).astype('int64')
+            yield [toks, np.roll(toks, -1, axis=1)]
+    return provider
+
+
+@phase('t1: train the flagship LM (AMP Momentum, py_reader, '
+       'ParallelExecutor)')
+def train_steps(cfg, place, counters, sync):
+    import torch
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, place)
+    n_params = sum(int(np.prod(v.shape)) for v in tr.main.list_vars()
+                   if v.persistable and getattr(v, 'trainable', False))
+    ops = tr.main.global_block().ops
+    log('training program: %d ops of %d types, %d parameters (%.2f GB '
+        'fp32), batch %d x %d tokens, no depth cut; built and initialised '
+        'in %.1f s' % (len(ops), len(set(o.type for o in ops)), n_params,
+                       n_params * 4 / 1e9, TRAIN_BATCH, cfg.max_len,
+                       time.perf_counter() - t0))
+    tr.feed(bench_provider(cfg, TRAIN_BATCH, np.random.RandomState(0)))
+    losses = [tr.step() for _ in range(WARMUP_STEPS)]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(TIMED_STEPS)]
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = wall / TIMED_STEPS * 1e3
+    log('losses: %s' % ', '.join('%.6f' % x for x in losses))
+    log('timed steps: %d in %.3f s, %.3f ms per step; launches %s; peak '
+        'device memory %.2f GB' % (TIMED_STEPS, wall, step_ms,
+                                   json.dumps(launches), peak_gb))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('a training loss is not finite: %r' % losses)
+    need = cfg.layers * TIMED_STEPS
+    if launches['flash_attention_fwd'] < need:
+        raise AssertionError('K1 launched %d times in %d steps, want >= %d'
+                             % (launches['flash_attention_fwd'],
+                                TIMED_STEPS, need))
+    if launches['flash_attention_bwd_kvmajor'] != need:
+        raise AssertionError('K2 launched %d times in %d steps, want %d'
+                             % (launches['flash_attention_bwd_kvmajor'],
+                                TIMED_STEPS, need))
+    if launches['flash_attention_bwd_dq'] or \
+            launches['flash_attention_bwd_dkv']:
+        raise AssertionError('K3 launched on the default (kvmajor) arm: %r'
+                             % launches)
+    return tr, losses, step_ms, launches, peak_gb
+
+
+def _one_step(tr, saved, batch):
+    """Restore the saved state, run one step on `batch`, and return the
+    loss and the updates of PARAMS_COMPARED."""
+    tr.restore(saved)
+
+    def provider():
+        while True:
+            yield batch
+    tr.feed(provider)
+    loss = tr.step()
+    updates = {n: (tr.scope.find_var(n) - saved[n]).float()
+               for n in PARAMS_COMPARED}
+    return loss, updates
+
+
+def _compare(what, a, b):
+    """|loss difference| and, per parameter, max |update difference| over
+    max |update|; raises beyond TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL."""
+    loss_diff = abs(a[0] - b[0])
+    rel = {n: ((a[1][n] - b[1][n]).abs().max() /
+               b[1][n].abs().max().clamp_min(1e-30)).item()
+           for n in PARAMS_COMPARED}
+    log('%s: loss %.6f vs %.6f (|diff| %.3e, tol %g); update max '
+        'diff / max update: %s (tol %g)'
+        % (what, a[0], b[0], loss_diff, TRAIN_LOSS_TOL,
+           ', '.join('%s %.3e' % kv for kv in rel.items()),
+           TRAIN_UPDATE_TOL))
+    if not (np.isfinite(a[0]) and loss_diff <= TRAIN_LOSS_TOL
+            and all(r <= TRAIN_UPDATE_TOL for r in rel.values())):
+        raise AssertionError('%s disagree beyond the stated tolerance'
+                             % what)
+    return loss_diff, rel
+
+
+@phase('t2: kernel step vs plain-version step from one saved state')
+def check_plain_step(tr, counters):
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(SEED + 2)
+    toks = rng.randint(0, tr.cfg.vocab, size=(TRAIN_BATCH, tr.cfg.max_len,
+                                              1)).astype('int64')
+    batch = [toks, np.roll(toks, -1, axis=1)]
+    saved = tr.snapshot()
+    kernel = _one_step(tr, saved, batch)
+    fluid.set_flags({'FLAGS_use_flash_attention': False})
+    try:
+        for c in counters.values():
+            c.launches = 0
+        plain = _one_step(tr, saved, batch)
+        if any(c.launches for c in counters.values()):
+            raise AssertionError('a kernel launched in the plain step: %r'
+                                 % {n: c.launches
+                                    for n, c in counters.items()})
+    finally:
+        fluid.set_flags({'FLAGS_use_flash_attention': True})
+    diffs = _compare('kernel step vs plain step', kernel, plain)
+    return saved, batch, kernel, diffs
+
+
+@phase('t3: one step under the split backward arm (K3a + K3b)')
+def check_split_step(tr, saved, batch, kernel, counters):
+    prev = os.environ.get('PADDLE_FLASH_BWD')
+    os.environ['PADDLE_FLASH_BWD'] = 'split'
+    try:
+        for c in counters.values():
+            c.launches = 0
+        split = _one_step(tr, saved, batch)
+        launches = {n: c.launches for n, c in counters.items()}
+    finally:
+        if prev is None:
+            os.environ.pop('PADDLE_FLASH_BWD')
+        else:
+            os.environ['PADDLE_FLASH_BWD'] = prev
+    log('split-arm step launches: %s' % json.dumps(launches))
+    L = tr.cfg.layers
+    if launches['flash_attention_bwd_dq'] != L or \
+            launches['flash_attention_bwd_dkv'] != L or \
+            launches['flash_attention_bwd_kvmajor']:
+        raise AssertionError('split arm: want K3a and K3b %d times each and '
+                             'K2 never, got %r' % (L, launches))
+    diffs = _compare('split-arm step vs kvmajor step', split, kernel)
+    tr.restore(saved)
+    return launches, diffs
+
+
+@phase('t4: step time, tokens/s, MFU, device time')
+def profile_train(tr, step_ms, sync):
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    cfg = tr.cfg
+    tokens = TRAIN_BATCH * cfg.max_len
+    fl = train_flops_per_token(cfg)
+    tok_s = tokens / step_ms * 1e3
+    mfu = tok_s * fl / PEAK_BF16_FLOPS
+    log('train step: %.3f ms, %.1f tokens/s, %.1f TFLOP/s at %.3f GFLOP '
+        'per token (%.2f TFLOP per step), MFU %.4f of the %.1f TFLOP/s '
+        'bf16 dense peak' % (step_ms, tok_s, tok_s * fl / 1e12, fl / 1e9,
+                             fl * tokens / 1e12, mfu,
+                             PEAK_BF16_FLOPS / 1e12))
+    tr.feed(bench_provider(cfg, TRAIN_BATCH, np.random.RandomState(1)))
+    tr.step()
+    sync()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(PROFILE_STEPS):
+            tr.step()
+        sync()
+        prof_wall_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+    tr.reader.reset()
+    events = [e for e in prof.key_averages()
+              if getattr(e, 'device_type', None) == DeviceType.CUDA
+              and _device_us(e) > 0]
+    device_ms = sum(_device_us(e) for e in events) / PROFILE_STEPS / 1e3
+    busy = None
+    if device_ms == 0:
+        log('train step: device time not measured (the profiler saw no '
+            'device events)')
+    else:
+        busy = device_ms / step_ms
+        top = sorted(events, key=_device_us, reverse=True)[:10]
+        log('train step: device busy %.3f ms of %.3f ms unprofiled wall '
+            '(%.1f%%; %.3f ms wall under the profiler); top: %s'
+            % (device_ms, step_ms, 100.0 * busy, prof_wall_ms,
+               '; '.join('%s %.3f ms' % (e.key[:60],
+                                         _device_us(e) / PROFILE_STEPS / 1e3)
+                         for e in top)))
+        by_kind = {}
+        for e in events:
+            kind = _kernel_kind(e.key)
+            by_kind[kind] = by_kind.get(kind, 0.0) + \
+                _device_us(e) / PROFILE_STEPS / 1e3
+        log('train step device time by kind: %s'
+            % ', '.join('%s %.3f ms' % kv for kv in
+                        sorted(by_kind.items(), key=lambda kv: -kv[1])))
+    return tok_s, mfu, device_ms, busy
+
+
+def _kernel_kind(name):
+    """Coarse class of a device kernel by its name."""
+    low = name.lower()
+    for kind, marks in (('flash kernels (K1/K2/K3)', ('flash_',)),
+                        ('GEMMs (cuBLAS)', ('gemm', 'nvjet', 'cutlass')),
+                        ('reductions', ('reduce',)),
+                        ('copies', ('memcpy', 'memset', 'copy')),
+                        ('elementwise', ('elementwise', 'index', 'scatter',
+                                         'gather'))):
+        if any(m in low for m in marks):
+            return kind
+    return 'other'
+
+
 def main():
     try:
         import torch
@@ -421,7 +857,8 @@ def main():
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models.transformer import TransformerConfig
-    counters = {'flash_attention_fwd': fa.flash_attention_fwd}
+    counters = {KERNELS[kind][0]: getattr(fa, KERNELS[kind][0])
+                for kind in ('fwd', 'k2', 'k3a', 'k3b')}
 
     card = gpu_name_and_power_limit()
     log('card: %s' % card)
@@ -432,7 +869,7 @@ def main():
     sync = torch.cuda.synchronize
     try:
         build_kernels()
-        kernel = check_kernels(cfg)
+        rows = check_kernels(cfg)
         prompts = prompts_for(cfg.vocab, cfg.max_len)
         build_root = os.path.join(HERE, 'build')
         os.makedirs(build_root, exist_ok=True)
@@ -447,17 +884,47 @@ def main():
         prefill_ms, step_ms = time_path(dec, prompts, sync)
         profile_path(dec, prompts, {'prefill': prefill_ms,
                                     'decode_step': step_ms}, sync)
+        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        del pred, dec
+        torch.cuda.empty_cache()
+
+        tr, losses, train_ms, train_launches, train_peak_gb = train_steps(
+            cfg, place, counters, sync)
+        saved, batch, kernel_step, plain_diffs = check_plain_step(
+            tr, counters)
+        split_launches, split_diffs = check_split_step(
+            tr, saved, batch, kernel_step, counters)
+        del saved
+        tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
         traceback.print_exception(e.__cause__, file=sys.stderr)
         return 1
-    kernel['launches'] = launches['flash_attention_fwd']
+    # launches on each kernel's own main path: K1 fp32 in serving, K1
+    # bf16 and K2 in the timed training steps, K3a/K3b in the split step
+    path_launches = {'flash_attention_fwd': launches['flash_attention_fwd'],
+                     'flash_attention_fwd_bf16':
+                         train_launches['flash_attention_fwd'],
+                     'flash_attention_bwd_kvmajor':
+                         train_launches['flash_attention_bwd_kvmajor'],
+                     'flash_attention_bwd_dq':
+                         split_launches['flash_attention_bwd_dq'],
+                     'flash_attention_bwd_dkv':
+                         split_launches['flash_attention_bwd_dkv']}
+    for r in rows:
+        r['launches'] = path_launches[r['name']]
     log('serving: %.3f s for %d requests x %d tokens, prefill %.3f ms, '
         'decode step %.3f ms, peak device memory %.2f GB'
-        % (wall, N_REQUESTS, NEW_TOKENS, prefill_ms, step_ms,
-           torch.cuda.max_memory_allocated() / 1e9))
-    log(json.dumps({'kernels': [kernel]}))
+        % (wall, N_REQUESTS, NEW_TOKENS, prefill_ms, step_ms, serve_peak_gb))
+    log('training: step %.3f ms, %.1f tokens/s, MFU %.4f, device busy %s, '
+        'peak device memory %.2f GB, loss after %d steps %.6f; kernel vs '
+        'plain step loss |diff| %.3e, split vs kvmajor %.3e'
+        % (train_ms, tok_s, mfu,
+           'not measured' if busy is None else '%.1f%%' % (100 * busy),
+           train_peak_gb, len(losses), losses[-1], plain_diffs[0],
+           split_diffs[0]))
+    log(json.dumps({'kernels': rows}))
     log(card)
     log(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

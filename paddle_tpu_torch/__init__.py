@@ -12,8 +12,16 @@ package:
     with fluid.serving.LMServer(model_dir) as srv:
         tokens = srv.generate([1, 2, 3], max_new_tokens=16)
 
+    opt = fluid.contrib.mixed_precision.decorate(
+        fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9))
+    opt.minimize(avg_cost)               # append_backward + momentum ops
+    pe = fluid.ParallelExecutor(use_cuda=True, loss_name=avg_cost.name)
+    loss, = pe.run(fetch_list=[avg_cost.name])
+
 This package imports neither jax nor paddle_tpu. What is ported so far
-is the serving path of the transformer LM; ROADMAP.md lists the rest.
+is the serving path and the training step of the transformer LM
+(py_reader feed, backward, Momentum/SGD under bf16 AMP, one device);
+ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint
@@ -29,6 +37,15 @@ from . import executor
 from .executor import (Executor, Scope, global_scope, scope_guard,
                        CPUPlace, CUDAPlace, fetch_var, OpExecutionError)
 from . import io
+from . import backward
+from .backward import append_backward, calc_gradient
+from . import regularizer
+from . import clip
+from . import optimizer
+from . import contrib
+from . import reader
+from . import core
+from .parallel_executor import ParallelExecutor
 from . import flags
 from .flags import set_flags, get_flag, get_flags
 from . import inference
@@ -43,5 +60,7 @@ __all__ = [
     'Executor', 'Scope', 'global_scope', 'scope_guard', 'CPUPlace',
     'CUDAPlace', 'fetch_var', 'OpExecutionError', 'io', 'flags',
     'set_flags', 'get_flag', 'get_flags', 'inference', 'models',
-    'transpiler', 'serving',
+    'transpiler', 'serving', 'backward', 'append_backward',
+    'calc_gradient', 'regularizer', 'clip', 'optimizer', 'contrib',
+    'reader', 'core', 'ParallelExecutor',
 ]

@@ -1,4 +1,4 @@
-// Flash-attention forward, fp32, for Hopper (sm_90a).
+// Flash-attention forward (K1), fp32 or bf16 I/O, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel paddle_tpu/pallas/flash_attention.py
 // _fwd_kernel (:171), launched by _fwd_online (:684): softmax(q k^T *
@@ -11,7 +11,9 @@
 // T = 512, d = 128, causal) the visited half of the score matrix costs
 // 4 * BH * T^2 * d / 2 = 1.07 GFLOP against 16.8 MB of q, k, v and o,
 // i.e. ~64 FLOP per byte: ~16 us at the 67 TFLOP/s fp32 (non-tensor
-// core) peak against ~5 us for the bytes at 3.35 TB/s.
+// core) peak against ~5 us for the bytes at 3.35 TB/s. At the training
+// shape (BH = 128, bf16) it is 8.6 GFLOP against 67 MB: ~8.7 us at the
+// bf16 tensor-core peak, which this CUDA-core kernel does not reach.
 //
 // Design (right and simple first; tensor cores, wgmma and TMA are later
 // work):
@@ -32,40 +34,24 @@
 //  - causal tiles stop the sweep at the diagonal tile; keys at index >= T
 //    are masked, so any T works (no T % 128 rule as on the TPU);
 //  - masked scores are -1e30 and a fully masked row uses 0 as its safe
-//    max, exactly as the TPU kernel does, so exp() underflows to 0.
-#include <cuda_runtime.h>
+//    max, exactly as the TPU kernel does, so exp() underflows to 0;
+//  - bf16 I/O (the training path under AMP): q, k, v are widened to fp32
+//    as they are staged, m, l, the accumulator and lse stay fp32, and o
+//    is rounded to bf16 once, at the store. The fp32 instantiation is the
+//    serving path's kernel, unchanged.
+#include "flash_common.cuh"
 
 namespace {
 
-constexpr int kBlockQ = 64;
-constexpr int kBlockK = 64;
-constexpr int kThreads = 256;
-constexpr float kNegInf = -1e30f;
+using flash::kNegInf;
+using flash::kThreads;
+constexpr int kBlockQ = flash::kBlock;
+constexpr int kBlockK = flash::kBlock;
 
-template <int D>
-__device__ __forceinline__ void load_tile(float* dst, const float* src,
-                                          int row0, int T, float scale,
-                                          int tid) {
-  constexpr int kVec = D / 4;  // float4 per row
-  for (int idx = tid; idx < kBlockQ * kVec; idx += kThreads) {
-    const int r = idx / kVec;
-    const int c = (idx % kVec) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < T) {
-      val = *reinterpret_cast<const float4*>(src + (long)(row0 + r) * D + c);
-    }
-    float* d = dst + r * (D + 1) + c;
-    d[0] = val.x * scale;
-    d[1] = val.y * scale;
-    d[2] = val.z * scale;
-    d[3] = val.w * scale;
-  }
-}
-
-template <int D>
+template <int D, typename Elem>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
+flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                 const Elem* __restrict__ v, Elem* __restrict__ o,
                  float* __restrict__ lse, int T, int causal,
                  float sm_scale) {
   constexpr int LD = D + 1;         // padded row stride of Q, K, V tiles
@@ -84,7 +70,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int q0 = blockIdx.x * kBlockQ;
 
   // q is scaled as it is staged, as the TPU kernel scales q before q k^T
-  load_tile<D>(Qs, q + base, q0, T, sm_scale, tid);
+  flash::load_tile<D>(Qs, q + base, q0, T, sm_scale, tid);
 
   float m[4], l[4], acc[4][CPT];
 #pragma unroll
@@ -101,8 +87,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 
   for (int kt = 0; kt <= last; ++kt) {
     const int k0 = kt * kBlockK;
-    load_tile<D>(Ks, k + base, k0, T, 1.f, tid);
-    load_tile<D>(Vs, v + base, k0, T, 1.f, tid);
+    flash::load_tile<D>(Ks, k + base, k0, T, 1.f, tid);
+    flash::load_tile<D>(Vs, v + base, k0, T, 1.f, tid);
     __syncthreads();
 
     float s[4][4];
@@ -180,7 +166,8 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float safe_l = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
-      o[base + (long)row * D + tx + 16 * c] = acc[i][c] / safe_l;
+      o[base + (long)row * D + tx + 16 * c] =
+          flash::from_f32<Elem>(acc[i][c] / safe_l);
     if (tx == 0) {
       lse[(long)blockIdx.y * T + row] =
           m[i] <= kNegInf / 2 ? kNegInf : m[i] + logf(safe_l);
@@ -188,32 +175,55 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-template <int D>
-int launch(const float* q, const float* k, const float* v, float* o,
-           float* lse, int bh, int t, int causal, float sm_scale,
-           cudaStream_t stream) {
+template <int D, typename Elem>
+int launch(const Elem* q, const Elem* k, const Elem* v, Elem* o, float* lse,
+           int bh, int t, int causal, float sm_scale, cudaStream_t stream) {
   const int smem =
       (3 * kBlockQ * (D + 1) + kBlockQ * (kBlockK + 1)) * (int)sizeof(float);
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_fwd_kernel<D, Elem>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((t + kBlockQ - 1) / kBlockQ, bh);
-  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(q, k, v, o, lse, t,
-                                                         causal, sm_scale);
+  flash_fwd_kernel<D, Elem><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, lse, t, causal, sm_scale);
   return (int)cudaGetLastError();
+}
+
+template <typename Elem>
+int dispatch(const void* q, const void* k, const void* v, void* o,
+             float* lse, int bh, int t, int d, int causal, float sm_scale,
+             void* stream) {
+  const Elem* qe = static_cast<const Elem*>(q);
+  const Elem* ke = static_cast<const Elem*>(k);
+  const Elem* ve = static_cast<const Elem*>(v);
+  Elem* oe = static_cast<Elem*>(o);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (d == 64)
+    return launch<64, Elem>(qe, ke, ve, oe, lse, bh, t, causal, sm_scale, s);
+  if (d == 128)
+    return launch<128, Elem>(qe, ke, ve, oe, lse, bh, t, causal, sm_scale, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// q, k, v, o: [bh, t, d] contiguous fp32, 16-byte aligned; lse: [bh, t]
-// fp32. d is 64 or 128. Launches on `stream` and returns the CUDA error
-// code of the launch (0 on success); it does not synchronise.
-extern "C" int flash_attention_fwd_f32(const float* q, const float* k,
-                                       const float* v, float* o, float* lse,
+// q, k, v, o: [bh, t, d] contiguous, 16-byte aligned, fp32 (_f32) or
+// bf16 (_bf16); lse: [bh, t] fp32. d is 64 or 128. Launches on `stream`
+// and returns the CUDA error code of the launch (0 on success); it does
+// not synchronise.
+extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
+                                       const void* v, void* o, float* lse,
                                        int bh, int t, int d, int causal,
                                        float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64) return launch<64>(q, k, v, o, lse, bh, t, causal, sm_scale, s);
-  if (d == 128) return launch<128>(q, k, v, o, lse, bh, t, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return dispatch<float>(q, k, v, o, lse, bh, t, d, causal, sm_scale,
+                         stream);
+}
+
+extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
+                                        const void* v, void* o, float* lse,
+                                        int bh, int t, int d, int causal,
+                                        float sm_scale, void* stream) {
+  return dispatch<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, causal,
+                                 sm_scale, stream);
 }

@@ -7,6 +7,13 @@ place. There is no jit and no segment split: save/load ops are emitters
 like any other. Feeds go numpy -> tensor on the place; fetches come back
 as numpy unless return_numpy=False.
 
+Training blocks: a forward op whose grad op is in the block runs
+under torch.enable_grad() and leaves a record that the grad op consumes
+(registry.py, "recorded forward"); every other op runs under
+torch.no_grad(). A run-local value is dropped right after the last op
+that reads it, unless it is fetched, so activations and grads live only
+as long as the step needs them.
+
 Places: CUDAPlace(i) is the default. With no place given and no card
 present, Executor() raises instead of quietly running on the CPU; the
 CPU is used only when the caller passes CPUPlace().
@@ -20,6 +27,7 @@ import torch
 
 from . import registry
 from .framework import default_main_program, Program, Variable
+from .reader.pipeline import EOFException
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
            'CPUPlace', 'CUDAPlace', 'fetch_var', 'OpExecutionError',
@@ -191,11 +199,12 @@ def _to_numpy(value):
 
 class EmitContext(object):
     """What an op emitter sees: the run-local values, the scope behind
-    them, the block (for declared var metadata), the device and the
-    executor's random generator."""
+    them, the block (for declared var metadata), the device, the
+    executor's random generator, whether the program runs under AMP,
+    and the forward records of this run (registry.py)."""
 
-    __slots__ = ('local', 'scope', 'block', 'device', '_executor',
-                 '_program')
+    __slots__ = ('local', 'scope', 'block', 'device', 'amp', 'records',
+                 'overrides', '_executor', '_program')
 
     def __init__(self, executor, program, block, scope, local):
         self._executor = executor
@@ -204,8 +213,15 @@ class EmitContext(object):
         self.scope = scope
         self.local = local
         self.device = executor.device
+        self.amp = bool(getattr(program, '_use_bf16', False))
+        self.records = {}
+        # name -> tensor served in place of the stored value while a
+        # forward op is recorded (its detached, grad-requiring inputs)
+        self.overrides = None
 
     def get(self, name):
+        if self.overrides and name in self.overrides:
+            return self.overrides[name]
         if name in self.local:
             return self.local[name]
         val = self.scope.find_var(name)
@@ -227,15 +243,28 @@ class EmitContext(object):
         """Persistable outputs (parameters, K/V caches) go to the scope;
         everything else stays run-local."""
         self.local[name] = value
-        try:
-            var = self.block.var_recursive(name)
-        except KeyError:
-            var = None
-        if var is not None and var.persistable:
+        if self.is_persistable(name):
             self.scope.set_var(name, value)
 
     def var(self, name):
         return self.block.var_recursive(name)
+
+    def is_persistable(self, name):
+        try:
+            return bool(self.block.var_recursive(name).persistable)
+        except KeyError:
+            return False
+
+    def take_record(self, key):
+        """The forward record a grad op consumes; it is dropped here."""
+        rec = self.records.pop(key, None)
+        if rec is None:
+            raise RuntimeError(
+                'the forward op %r with outputs %s was not recorded in '
+                'this run: a grad op needs its forward op to run earlier '
+                'in the same Executor.run (the port never replays a '
+                'forward)' % (key[0], dict(key[1])))
+        return rec
 
     def generator(self, op):
         """torch.Generator for a random op: the op's own seed attr when
@@ -249,6 +278,51 @@ class EmitContext(object):
         return self._executor._generator(self._program)
 
 
+def _recorded_keys(block):
+    """Record keys of the forward ops that the block's grad ops consume."""
+    keys = set()
+    for op in block.ops:
+        if op.type.endswith('_grad') and op.has_attr('__fwd_outputs__'):
+            keys.add(registry.record_key(op.type[:-len('_grad')],
+                                         op.attr('__fwd_outputs__')))
+    return keys
+
+
+def _drop_plan(block, keep):
+    """op index -> run-local names whose last reader (or producer) is
+    that op; names in `keep` (fetches) are never dropped."""
+    last = {}
+    for i, op in enumerate(block.ops):
+        for n in op.input_arg_names():
+            last[n] = i
+        for n in op.output_arg_names():
+            last[n] = i
+    plan = {}
+    for n, i in last.items():
+        if n not in keep:
+            plan.setdefault(i, []).append(n)
+    return plan
+
+
+def _run_recorded(ctx, opdef, op):
+    """Run a forward op with autograd on, local to this op: its float
+    inputs in the differentiable slots become detached leaves."""
+    in_slots, _ = opdef.vjp_slots
+    leaves = {}
+    for n in registry.diff_input_names(op.inputs, in_slots):
+        t = ctx.get(n)
+        if isinstance(t, torch.Tensor) and t.is_floating_point():
+            leaves[n] = t.detach().requires_grad_()
+    ctx.overrides = leaves
+    try:
+        with torch.enable_grad():
+            opdef.emit(ctx, op)
+    finally:
+        ctx.overrides = None
+    outs = {n: ctx.local[n] for n in op.output_arg_names() if n in ctx.local}
+    ctx.records[registry.record_key(op.type, op.outputs)] = (leaves, outs)
+
+
 # ---------------------------------------------------------------------------
 # Executor
 # ---------------------------------------------------------------------------
@@ -259,6 +333,9 @@ class Executor(object):
         self.device = self.place.device
         self._gen = None
         self._gen_seed = None
+        # (program uid, block, op count, fetches) -> (recorded keys, drop
+        # plan); programs are not edited in place once they run
+        self._plans = {}
 
     def _generator(self, program):
         seed = program.random_seed
@@ -281,11 +358,23 @@ class Executor(object):
                     var.dtype != 'bfloat16' and \
                     arr.dtype != np.dtype(var.dtype):
                 arr = arr.astype(var.dtype)
-            t = torch.from_numpy(np.ascontiguousarray(arr)).to(self.device)
+            # (np.ascontiguousarray turns a 0-d array into shape (1,))
+            t = torch.from_numpy(np.ascontiguousarray(arr).reshape(
+                arr.shape)).to(self.device)
         if var is not None and var.dtype is not None and \
                 t.dtype != torch_dtype(var.dtype):
             t = t.to(torch_dtype(var.dtype))
         return t
+
+    def _plan(self, program, block, fetch_names):
+        key = (program._uid, block.idx, len(block.ops), tuple(fetch_names))
+        plan = self._plans.get(key)
+        if plan is None:
+            if len(self._plans) > 64:
+                self._plans.clear()
+            plan = self._plans[key] = (_recorded_keys(block),
+                                       _drop_plan(block, set(fetch_names)))
+        return plan
 
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
@@ -303,6 +392,7 @@ class Executor(object):
                  for name, value in feed.items()}
         block = program.global_block()
         ctx = EmitContext(self, program, block, scope, local)
+        want, drop = self._plan(program, block, fetch_names)
         with torch.no_grad():
             for pos, op in enumerate(block.ops):
                 if op.type in ('feed', 'fetch'):
@@ -312,14 +402,20 @@ class Executor(object):
                     raise KeyError('op %r has no emitter registered'
                                    % op.type)
                 try:
-                    opdef.emit(ctx, op)
-                except OpExecutionError:
+                    if want and opdef.vjp_slots is not None and \
+                            registry.record_key(op.type, op.outputs) in want:
+                        _run_recorded(ctx, opdef, op)
+                    else:
+                        opdef.emit(ctx, op)
+                except (OpExecutionError, EOFException):
                     raise
                 except Exception as e:
                     raise OpExecutionError(
                         'Error running %s\n  cause: %s: %s'
                         % (_describe_op(op, block, pos), type(e).__name__,
                            e)) from e
+                for name in drop.get(pos, ()):
+                    local.pop(name, None)
 
         results = []
         for name in fetch_names:

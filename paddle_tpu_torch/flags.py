@@ -6,6 +6,9 @@ Known flags:
                          hand-written kernel for CUDA tensors
                          (kernels/flash_attention.py); False selects the
                          plain PyTorch version explicitly
+  amp_bf16_param_grads   under AMP, round fp32 parameter grads to bf16
+                         where one grad op is their sole producer
+                         (registry.register_vjp_grad); off by default
   serving_slots          KV-cache slot-pool size per DecodePredictor
   serving_prefill_batch  prompts per prefill call
   serving_max_queue      ServingEngine admission queue bound
@@ -20,6 +23,7 @@ __all__ = ['set_flags', 'get_flag', 'get_flags']
 
 _DEFAULTS = {
     'use_flash_attention': True,
+    'amp_bf16_param_grads': False,
     'serving_slots': 8,
     'serving_prefill_batch': 1,
     'serving_max_queue': 256,

@@ -22,8 +22,15 @@ __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter',
     'default_main_program', 'default_startup_program', 'program_guard',
     'switch_main_program', 'switch_startup_program',
-    'convert_np_dtype', 'get_var',
+    'convert_np_dtype', 'get_var', 'grad_var_name', 'GRAD_VAR_SUFFIX',
 ]
+
+GRAD_VAR_SUFFIX = '@GRAD'
+
+
+def grad_var_name(var_name):
+    """Name of the gradient var of `var_name` (reference framework.py)."""
+    return var_name + GRAD_VAR_SUFFIX
 
 _DTYPE_ALIASES = {
     'float': 'float32', 'double': 'float64', 'half': 'float16',
@@ -96,6 +103,10 @@ class Variable(object):
     @property
     def ndim(self):
         return len(self.shape) if self.shape is not None else None
+
+    @property
+    def grad_name(self):
+        return grad_var_name(self.name)
 
 
 class Parameter(Variable):
@@ -231,6 +242,14 @@ class Block(object):
     def has_var(self, name):
         return name in self.vars
 
+    def has_var_recursive(self, name):
+        b = self
+        while b is not None:
+            if name in b.vars:
+                return True
+            b = b.parent_block
+        return False
+
     def var(self, name):
         v = self.vars.get(name)
         if v is None:
@@ -278,6 +297,9 @@ class Program(object):
         self.current_block_idx = 0
         self._uid = next(Program._uid_counter)
         self._is_test = False
+        # AMP (contrib/mixed_precision.py): bf16 compute, fp32 master
+        # weights; read by the Executor as EmitContext.amp
+        self._use_bf16 = False
         # seeds the Executor's torch.Generator for the startup program's
         # random ops (0 = a fresh random seed per Executor)
         self.random_seed = 0

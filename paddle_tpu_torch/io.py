@@ -156,8 +156,8 @@ def get_inference_program(target_vars, main_program=None):
 
 
 def load_numpy_params(scope, params, place, program=None):
-    """Fill `scope` from {name: ndarray}: each array becomes a tensor on
-    `place`. With `program`, every name must be one of its persistable
+    """Fill `scope` from {name: ndarray}: each array is copied into a
+    tensor on `place`. With `program`, every name must be one of its persistable
     vars with the same shape, and the array is cast to the declared
     dtype; a mismatch raises before anything is written."""
     tensors = {}
@@ -174,7 +174,8 @@ def load_numpy_params(scope, params, place, program=None):
             dtype = torch_dtype(var.dtype)
         else:
             dtype = torch_dtype(convert_np_dtype(arr.dtype))
-        tensors[name] = torch.from_numpy(np.ascontiguousarray(arr)).to(
-            device=place.device, dtype=dtype)
+        # a copy, never a view of the caller's array: the optimizer ops
+        # update parameters in place
+        tensors[name] = torch.tensor(arr, dtype=dtype, device=place.device)
     for name, t in tensors.items():
         scope.set_var(name, t)

@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its
 own, at first use, into `build/paddle_tpu_torch/<name>-<hash>.so` at the
-root of the checkout. The hash covers the source and the flags, so an
-edited source rebuilds and an unchanged one is reused. Nothing here runs
+root of the checkout. The hash covers the source, the shared headers
+(`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
+unchanged one is reused. Nothing here runs
 when the module is imported: the CPU tests import every module, and a
 machine without nvcc never reaches a build.
 """
@@ -45,8 +46,11 @@ def _nvcc():
 
 def _target(name):
     src = CSRC_DIR / (name + '.cu')
-    digest = hashlib.sha256(src.read_bytes() + ' '.join(NVCC_FLAGS)
-                            .encode()).hexdigest()[:16]
+    h = hashlib.sha256(src.read_bytes())
+    for header in sorted(CSRC_DIR.glob('*.cuh')):
+        h.update(header.read_bytes())
+    h.update(' '.join(NVCC_FLAGS).encode())
+    digest = h.hexdigest()[:16]
     return src, BUILD_DIR / ('%s-%s.so' % (name, digest))
 
 

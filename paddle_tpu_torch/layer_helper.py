@@ -105,6 +105,16 @@ class LayerHelper(object):
             name=attr.name, shape=shape, dtype=dtype,
             **{k: v for k, v in attr.to_kwargs().items() if k != 'name'})
 
+    def set_variable_initializer(self, var, initializer):
+        """Also create the var + its init op in the startup program."""
+        startup_block = self.startup_program.global_block()
+        if not startup_block.has_var(var.name):
+            sp_var = startup_block.create_var(
+                name=var.name, shape=var.shape, dtype=var.dtype,
+                persistable=True)
+            initializer(sp_var, startup_block)
+        return var
+
     # -- intermediate vars -------------------------------------------------
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
         return self.main_program.current_block().create_var(

@@ -10,7 +10,7 @@ from ..initializer import Constant
 __all__ = [
     'fc', 'embedding', 'layer_norm', 'softmax', 'matmul',
     'elementwise_add', 'reshape', 'transpose', 'slice', 'causal_mask_bias',
-    'position_embedding',
+    'position_embedding', 'mean', 'square_error_cost', 'cross_entropy',
 ]
 
 
@@ -164,4 +164,31 @@ def position_embedding(x, max_len, param_attr=None, name=None):
     helper.append_op(type='position_embedding',
                      inputs={'X': [x], 'Pos': [pos]},
                      outputs={'Out': [out]})
+    return out
+
+
+def mean(x, name=None):
+    helper = LayerHelper('mean', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='mean', inputs={'X': [x]}, outputs={'Out': [out]})
+    return out
+
+
+def square_error_cost(input, label):
+    helper = LayerHelper('square_error_cost')
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='square_error_cost',
+                     inputs={'X': [input], 'Y': [label]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def cross_entropy(input, label, soft_label=False, ignore_index=-100):
+    helper = LayerHelper('cross_entropy')
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='cross_entropy',
+                     inputs={'X': [input], 'Label': [label]},
+                     outputs={'Y': [out]},
+                     attrs={'soft_label': soft_label,
+                            'ignore_index': ignore_index})
     return out

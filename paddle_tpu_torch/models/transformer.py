@@ -1,5 +1,6 @@
-"""Decoder-only transformer LM and its cached prefill/decode programs
-(counterpart of paddle_tpu/models/transformer.py:26-180, 216-520).
+"""Decoder-only transformer LM, its training entry points and its cached
+prefill/decode programs (counterpart of paddle_tpu/models/transformer.py:
+26-188, 216-520).
 
 Only the single-device dense path is here: no tensor, sequence, expert
 or pipeline parallelism, no ring attention and no rematerialization.
@@ -98,10 +99,32 @@ def _trunk(tokens, cfg):
     return L.layer_norm(x, begin_norm_axis=2)
 
 
+def language_model_trunk(tokens, cfg):
+    """Embedding + positions + blocks + final norm, without a head: pair
+    with layers.fused_softmax_cross_entropy for the logits-free LM loss
+    (the training step bench.py measures)."""
+    return _trunk(tokens, cfg)
+
+
+def language_model(tokens, cfg):
+    """tokens: [B, T, 1] int64 ids. Returns softmax probabilities
+    [B, T, vocab]."""
+    return L.fc(input=_trunk(tokens, cfg), size=cfg.vocab,
+                num_flatten_dims=2, act='softmax')
+
+
 def language_model_logits(tokens, cfg):
     """tokens: [B, T, 1] int64 ids. Returns raw logits [B, T, vocab]."""
     return L.fc(input=_trunk(tokens, cfg), size=cfg.vocab,
                 num_flatten_dims=2, name='lm_head')
+
+
+def train_network(tokens, labels, cfg):
+    """Full LM training graph: next-token cross entropy over softmax
+    probabilities. Returns (probs, avg_cost)."""
+    probs = language_model(tokens, cfg)
+    avg_cost = L.mean(L.cross_entropy(input=probs, label=labels))
+    return probs, avg_cost
 
 
 # ---------------------------------------------------------------------------

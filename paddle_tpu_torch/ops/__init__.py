@@ -4,3 +4,5 @@ from . import math_ops      # noqa: F401
 from . import nn_ops        # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import io_ops        # noqa: F401
+from . import loss_ops      # noqa: F401
+from . import optimizer_ops  # noqa: F401

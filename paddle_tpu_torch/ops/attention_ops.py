@@ -15,19 +15,21 @@ import torch
 
 from ..flags import get_flag
 from ..kernels import flash_attention as fa
-from ..registry import register_op, op_emitter
+from ..registry import register_op, op_emitter, register_vjp_grad, amp_cast
 
 
 @op_emitter('flash_attention')
 def _flash_attention_emit(ctx, op):
-    """Blockwise online-softmax attention: the hand-written CUDA kernel
-    for CUDA tensors, its plain version for CPU tensors or with
+    """Blockwise online-softmax attention (bf16 under AMP): the
+    hand-written CUDA kernels in both passes for CUDA tensors, their
+    plain versions for CPU tensors or with
     FLAGS_use_flash_attention=False."""
-    out = fa.flash_attention(
-        ctx.get(op.single_input('Q')), ctx.get(op.single_input('K')),
-        ctx.get(op.single_input('V')), causal=op.attr('causal', True),
-        sm_scale=op.attr('sm_scale', None),
-        force_plain=not get_flag('use_flash_attention'))
+    q, k, v = amp_cast(ctx, ctx.get(op.single_input('Q')),
+                       ctx.get(op.single_input('K')),
+                       ctx.get(op.single_input('V')))
+    out = fa.flash_attention(q, k, v, causal=op.attr('causal', True),
+                             sm_scale=op.attr('sm_scale', None),
+                             force_plain=not get_flag('use_flash_attention'))
     ctx.set(op.single_output('Out'), out)
 
 
@@ -40,6 +42,7 @@ def _flash_infer(op, block):
 
 
 register_op('flash_attention', infer_shape=_flash_infer)
+register_vjp_grad('flash_attention', in_slots=('Q', 'K', 'V'))
 
 
 @op_emitter('kv_cache_write')

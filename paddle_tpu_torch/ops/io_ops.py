@@ -1,5 +1,5 @@
-"""save / load / save_combine / load_combine (counterpart of
-paddle_tpu/ops/io_ops.py).
+"""save / load / save_combine / load_combine and the py_reader's read op
+(counterpart of paddle_tpu/ops/io_ops.py).
 
 The tensor file format is the JAX package's, byte for byte
 (io_ops.py:29-48): a 4-byte magic, a little-endian uint32 header length,
@@ -88,7 +88,26 @@ def _load_combine_emit(ctx, op):
             ctx.set(name, _device(ctx, read_tensor(f)))
 
 
-register_op('save', emit=_save_emit)
-register_op('load', emit=_load_emit)
-register_op('save_combine', emit=_save_combine_emit)
-register_op('load_combine', emit=_load_combine_emit)
+register_op('save', emit=_save_emit, host=True, no_grad=True)
+register_op('load', emit=_load_emit, host=True, no_grad=True)
+register_op('save_combine', emit=_save_combine_emit, host=True,
+            no_grad=True)
+register_op('load_combine', emit=_load_combine_emit, host=True,
+            no_grad=True)
+
+
+def _read_emit(ctx, op):
+    """Pop one batch from the named py_reader. With double buffering the
+    tensors are already on the card; a batch on another device is moved
+    to the executor's."""
+    from ..reader.pipeline import get_reader
+    values = get_reader(op.attr('reader_name')).read()
+    outs = op.output('Out')
+    if len(values) != len(outs):
+        raise ValueError('py_reader %r yields %d slots, program expects %d'
+                         % (op.attr('reader_name'), len(values), len(outs)))
+    for name, val in zip(outs, values):
+        ctx.set(name, val.to(ctx.device))
+
+
+register_op('read', emit=_read_emit, host=True, no_grad=True)

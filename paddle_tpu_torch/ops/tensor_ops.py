@@ -1,5 +1,6 @@
 """Tensor creation / shape ops (counterpart of paddle_tpu/ops/tensor_ops.py:
-fill_constant :23, reshape2 :180, transpose2 :238, slice :276,
+fill_constant :23, fill_zeros_like :38, assign :47, reshape2 :180 (grad
+:208, reshape_grad_helper :222), transpose2 :238 (grad :259), slice :276,
 uniform_random :483, gaussian_random :503)."""
 from __future__ import annotations
 
@@ -7,7 +8,9 @@ import numpy as np
 import torch
 
 from ..executor import torch_dtype
-from ..registry import register_op, op_emitter
+from ..framework import grad_var_name
+from ..registry import (register_op, op_emitter, register_vjp_grad,
+                        same_shape_infer)
 
 
 @op_emitter('fill_constant')
@@ -24,7 +27,25 @@ def _fill_constant_infer(op, block):
     out.dtype = op.attr('dtype', 'float32')
 
 
-register_op('fill_constant', infer_shape=_fill_constant_infer)
+register_op('fill_constant', infer_shape=_fill_constant_infer, no_grad=True)
+
+
+@op_emitter('fill_zeros_like')
+def _fill_zeros_like_emit(ctx, op):
+    ctx.set(op.single_output('Out'),
+            torch.zeros_like(ctx.get(op.single_input('X'))))
+
+
+register_op('fill_zeros_like', infer_shape=same_shape_infer(), no_grad=True)
+
+
+@op_emitter('assign')
+def _assign_emit(ctx, op):
+    ctx.set(op.single_output('Out'), ctx.get(op.single_input('X')))
+
+
+register_op('assign', infer_shape=same_shape_infer())
+register_vjp_grad('assign')
 
 
 @op_emitter('reshape2')
@@ -59,7 +80,26 @@ def _reshape_infer(op, block):
         xs.dtype = x.dtype
 
 
-register_op('reshape2', infer_shape=_reshape_infer)
+def _reshape_grad(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    return [dict(type='reshape_grad_helper',
+                 inputs={'Out@GRAD': [grad_var_name(op.single_output('Out'))]},
+                 outputs={'X@GRAD': [grad_var_name(op.single_input('X'))]},
+                 attrs={'x_shape': list(x.shape)})]
+
+
+@op_emitter('reshape_grad_helper')
+def _reshape_grad_emit(ctx, op):
+    g = ctx.get(op.single_input('Out@GRAD'))
+    shape = list(op.attr('x_shape'))
+    if any(s < 0 for s in shape):
+        # a runtime batch dim: take it from the grad's total size
+        known = int(np.prod([s for s in shape if s >= 0]))
+        shape[shape.index(-1)] = g.numel() // max(known, 1)
+    ctx.set(op.single_output('X@GRAD'), g.reshape(shape))
+
+
+register_op('reshape2', infer_shape=_reshape_infer, grad=_reshape_grad)
 
 
 @op_emitter('transpose2')
@@ -84,7 +124,20 @@ def _transpose_infer(op, block):
         xs.dtype = x.dtype
 
 
-register_op('transpose2', infer_shape=_transpose_infer)
+def _transpose_grad(op, block):
+    """The grad of a transpose is the inverse transpose."""
+    axis = op.attr('axis')
+    inv = [0] * len(axis)
+    for i, a in enumerate(axis):
+        inv[a] = i
+    return [dict(type=op.type,
+                 inputs={'X': [grad_var_name(op.single_output('Out'))]},
+                 outputs={'Out': [grad_var_name(op.single_input('X'))],
+                          'XShape': []},
+                 attrs={'axis': inv})]
+
+
+register_op('transpose2', infer_shape=_transpose_infer, grad=_transpose_grad)
 
 
 def _clamp_bounds(s, e, dim):
@@ -118,6 +171,7 @@ def _slice_infer(op, block):
 
 
 register_op('slice', infer_shape=_slice_infer)
+register_vjp_grad('slice', in_slots=('Input',))
 
 
 # -- random initializers: drawn from the executor's torch.Generator ---------

@@ -1,16 +1,20 @@
 """paddle_tpu_torch flash attention (kernels/flash_attention.py) against
-the JAX package's Pallas kernel.
+the JAX package's Pallas kernels.
 
-On the CPU the port runs its plain version; here it is held to the TPU
-kernel `_fwd` run in Pallas interpret mode, on o and lse, at
-atol=rtol=2e-5: both are fp32 and compute the same function with the
-sums taken in another order. The CUDA kernel itself is held to the plain
-version on the card by chip_smoke.py.
+On the CPU the port runs its plain versions; here they are held to the
+TPU kernels run in Pallas interpret mode: the forward `_fwd` on o and
+lse, and the backward arms `_bwd_kvmajor` (K2) and `_bwd_split` (K3) on
+dq, dk, dv, at atol=rtol=2e-5 in fp32 (the same function with the sums
+taken in another order) and atol=rtol=2e-2 in bf16 (the TPU kernels
+round the scaled q, P and dS to bf16 before their products; the plain
+versions compute in fp32). The CUDA kernels themselves are held to the
+plain versions on the card by chip_smoke.py.
 """
 import os
 import subprocess
 import sys
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +26,7 @@ from paddle_tpu_torch import executor as texecutor
 from paddle_tpu_torch.kernels import flash_attention as fa
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 @pytest.fixture(autouse=True)
@@ -87,7 +92,7 @@ def test_import_builds_nothing_and_needs_no_nvcc():
             'import paddle_tpu_torch\n'
             'from paddle_tpu_torch.kernels import flash_attention as fa\n'
             'from paddle_tpu_torch.kernels import build\n'
-            'assert fa._fn is None and not build._libs\n'
+            'assert not fa._fns and not build._libs\n'
             'assert shutil.which("nvcc") is None\n'
             'print("ok")\n')
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,3 +100,86 @@ def test_import_builds_nothing_and_needs_no_nvcc():
                          text=True, timeout=120, cwd=root)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == 'ok'
+
+
+def _qkvdo(seed, BH=2, T=256, d=128):
+    q, k, v = _qkv(seed, BH, T, d)
+    do = np.random.RandomState(seed + 100).randn(BH, T, d).astype('float32')
+    return q, k, v, do
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('causal', [True, False])
+@pytest.mark.parametrize('arm', ['kvmajor', 'split'])
+def test_plain_backward_matches_pallas_arms(arm, causal, dtype):
+    """flash_attention_bwd_reference against the TPU backward arms, on
+    the same q, k, v, dO and the TPU forward's o and lse."""
+    q, k, v, do = _qkvdo(4 if causal else 5)
+    scale = 128 ** -0.5
+    jq, jk, jv, jdo = (jnp.asarray(a, dtype=dtype) for a in (q, k, v, do))
+    o, lse = jax_fa._fwd(jq, jk, jv, causal, scale, interpret=True)
+    delta = jnp.sum(jdo.astype(jnp.float32) * o.astype(jnp.float32),
+                    axis=-1, keepdims=True)
+    bq, bk = jax_fa._block_sizes(256, 128)
+    run = jax_fa._bwd_kvmajor if arm == 'kvmajor' else jax_fa._bwd_split
+    want = run(jq, jk, jv, jdo, lse, delta, causal, scale, True, bq, bk,
+               256 // bq, 256 // bk)
+    tdt = getattr(torch, dtype)
+    tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
+    to = torch.from_numpy(np.array(o, dtype='float32')).to(tdt)
+    tlse = torch.from_numpy(np.array(lse)[..., 0])
+    got = fa.flash_attention_bwd_reference(tq, tk, tv, to, tlse, tdo,
+                                           causal, scale)
+    tol = TOL if dtype == 'float32' else BF16_TOL
+    for g, w, name in zip(got, want, ('dq', 'dk', 'dv')):
+        assert g.dtype == tdt
+        np.testing.assert_allclose(g.float().numpy(),
+                                   np.asarray(w, dtype='float32'),
+                                   err_msg=name, **tol)
+
+
+def test_bf16_reference_matches_pallas_forward():
+    q, k, v = _qkv(6)
+    scale = 128 ** -0.5
+    o_jax, lse_jax = jax_fa._fwd(*(jnp.asarray(a, dtype='bfloat16')
+                                   for a in (q, k, v)), True, scale,
+                                 interpret=True)
+    o, lse = fa.flash_attention_reference(
+        *(torch.from_numpy(a).to(torch.bfloat16) for a in (q, k, v)), True,
+        scale)
+    assert o.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    np.testing.assert_allclose(o.float().numpy(),
+                               np.asarray(o_jax, dtype='float32'),
+                               **BF16_TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax)[..., 0],
+                               **BF16_TOL)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_autograd_function_matches_plain_autograd(causal):
+    """The FlashAttention Function on CPU tensors (plain forward, plain
+    backward, delta outside) gives plain autograd's grads through
+    flash_attention_reference."""
+    q, k, v, do = (torch.from_numpy(a) for a in _qkvdo(7, BH=2, T=96, d=64))
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    out = fa.flash_attention(*(t.reshape(1, 2, 96, 64) for t in leaves),
+                             causal=causal)
+    got = torch.autograd.grad(out, leaves, do.reshape(1, 2, 96, 64))
+    ref = [t.clone().requires_grad_() for t in (q, k, v)]
+    want_o, _ = fa.flash_attention_reference(*ref, causal, 64 ** -0.5)
+    want = torch.autograd.grad(want_o, ref, do)
+    np.testing.assert_allclose(out.detach().reshape(2, 96, 64).numpy(),
+                               want_o.detach().numpy(), **TOL)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=1e-5, rtol=0)
+
+
+def test_backward_wrappers_refuse_cpu_tensors():
+    q, k, v, do = (torch.from_numpy(a) for a in _qkvdo(8, T=64, d=64))
+    lse = torch.zeros(2, 64)
+    for wrapper in (fa.flash_attention_bwd_kvmajor, fa.flash_attention_bwd_dq,
+                    fa.flash_attention_bwd_dkv):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match='CUDA tensor'):
+            wrapper(q, k, v, do, lse, lse, True, 0.125)
+        assert wrapper.launches == before

@@ -108,3 +108,49 @@ def test_language_model_program_text_is_identical(flash):
     assert tprog.to_string() == jprog.to_string()
     assert tstartup.to_string() == jstartup.to_string()
     assert tprog.to_json() == jprog.to_json()
+
+
+@pytest.mark.parametrize('amp', [False, True])
+def test_training_program_text_is_identical(amp):
+    """bench.py's training step (py_reader, trunk, fused LM head, mean,
+    Momentum, optionally under decorate) after minimize: same grad ops,
+    same attrs, same vars, same startup program."""
+    kw = dict(vocab=128, dim=256, heads=2, layers=2, ffn=512, max_len=128,
+              use_tp=False, use_sp=False, flash_attention=True)
+
+    def build(fluid, unique_name, transformer):
+        prog, startup = fluid.Program(), fluid.Program()
+        with unique_name.guard(), fluid.program_guard(prog, startup):
+            rdr = fluid.layers.py_reader(
+                capacity=4, shapes=[(-1, 128, 1), (-1, 128, 1)],
+                dtypes=['int64', 'int64'], name='text_reader')
+            tokens, labels = fluid.layers.read_file(rdr)
+            cfg = transformer.TransformerConfig(**kw)
+            cost = fluid.layers.fused_softmax_cross_entropy(
+                transformer.language_model_trunk(tokens, cfg), labels,
+                cfg.vocab, chunk=4096, name='lm_head')
+            avg = fluid.layers.mean(cost)
+            opt = fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9)
+            if amp:
+                opt = fluid.contrib.mixed_precision.decorate(opt)
+            opt.minimize(avg)
+        return prog, startup
+
+    jprog, jstartup = build(jfluid, junique_name, jtransformer)
+    tprog, tstartup = build(tfluid, tunique_name, ttransformer)
+    assert tprog._use_bf16 == jprog._use_bf16 == amp
+    assert sum(op.type.endswith('_grad') for op in tprog.global_block().ops) \
+        > 20
+    assert tprog.to_string() == jprog.to_string()
+    assert tstartup.to_string() == jstartup.to_string()
+    assert tprog.to_json() == jprog.to_json()
+
+
+def test_parallel_executor_raises_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: use_cuda=True is valid')
+    with pytest.raises(RuntimeError, match='CPUPlace'):
+        tfluid.ParallelExecutor(use_cuda=True, main_program=tfluid.Program())
+    pe = tfluid.ParallelExecutor(use_cuda=False,
+                                 main_program=tfluid.Program())
+    assert pe.device.type == 'cpu'
