@@ -1,13 +1,13 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path and training step once on one
-CUDA card.
+"""Drive paddle_tpu_torch's serving path, the LM training step and the
+ResNet-50 training step once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
-  (a) build every CUDA kernel of the two paths with nvcc (one process per
-      source, started together): the flash-attention forward K1 and the
-      backward K2, K3a, K3b;
+  (a) build every CUDA kernel of the three paths with nvcc (one process
+      per source, started together): the flash-attention forward K1, the
+      backward K2, K3a, K3b, and the matmul + BN-statistics kernel K6;
   (b) hold each kernel against its plain PyTorch version on the card, at
       the shapes the paths give it and at ragged edge shapes, fp32 and
       bf16, and time kernel, plain version and the PyTorch library call
@@ -43,6 +43,34 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (t4) step ms, tokens/s, MFU (bench.py's FLOPs per token over the bf16
       dense peak), device-busy share and top device items from
       torch.profiler over 3 steps, and peak device memory.
+The LM is freed, then ResNet-50 (bench.py's bench_resnet, NCHW, built
+with FLAGS_use_pallas_fused_ops so every conv + BN is one conv2d_bn op):
+  (r1) the training step at 224 px, 1000 classes, batch RESNET_BATCH
+      (py_reader, train_network(depth=50), Momentum(0.01, 0.9) under
+      contrib.mixed_precision.decorate, startup on CUDAPlace(0),
+      ParallelExecutor(use_cuda=True)): 2 warm-up and 5 timed steps; K6
+      launches exactly 36 x steps, every loss is finite and the BN
+      running statistics move;
+  (b6) K6 against its plain version on the card at the largest, smallest
+      and widest of the step's 1x1 shapes (read from r1's program) and
+      at a ragged 300 x 70 x 130, fp32 and bf16; then kernel, plain
+      version and the library yardstick (torch.matmul, then the two
+      column sums; timed only) at every one of the step's 15 shapes,
+      summed over its 36 launches;
+  (r2) one step from a saved state with K6, each of its 36 launches also
+      held against the plain version on the step's own inputs, and the
+      same step with FLAGS_use_pallas_fused_ops cleared at run time (the
+      plain version): the losses agree within TRAIN_LOSS_TOL, and the
+      updates of the stem conv, a stage-1 1x1 conv and fc within
+      TRAIN_UPDATE_TOL or RESNET_SPREAD_FACTOR x the plain step's own
+      spread when its column sums are taken in fp64, whichever is larger
+      (the bf16 step amplifies any reordering of fp32 sums);
+  (r3) one conv_bn against conv2d + batch_norm with shared parameter
+      names, fp32, at a stage-1 1x1 shape and a 3x3 shape: Y and the
+      loss after 3 SGD steps agree within PAIR_TOL;
+  (r4) step ms, images/s, MFU (bench.py's FLOPs per image over the bf16
+      dense peak), device-busy share and device time by kernel kind from
+      torch.profiler over 3 steps, and peak device memory.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers, and as its last line
@@ -70,6 +98,23 @@ SEED = 1234
 TRAIN_BATCH, HEAD_CHUNK, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = \
     8, 4096, 2, 5, 3
 PARAMS_COMPARED = ('layer0_qkv.w_0', 'layer11_down.w_0', 'lm_head.w_0')
+
+# bench.py's bench_resnet (:128-189): ResNet-50 at 224 px, 1000 classes,
+# NCHW (the fused conv2d_bn op is NCHW-only), batch RESNET_BATCH
+RESNET = dict(depth=50, image_hw=224, class_dim=1000)
+RESNET_BATCH = 256
+RESNET_PARAMS_COMPARED = ('conv_bn_0.w_0', 'conv_bn_2.w_0', 'fc_0.w_0')
+# r2: the kernel step's update differences may reach this multiple of the
+# plain step's own spread when only its column sums change order (fp64)
+RESNET_SPREAD_FACTOR = 2.0
+K6_SOURCE = ('matmul_bn_stats', 'paddle_tpu/pallas/conv_bn.py:38',
+             'paddle_tpu_torch/csrc/conv_bn.cu')
+# K6 vs its plain version: |y - y_ref| <= tol * max(1, |y_ref|) (bf16 y
+# is the same fp32 value rounded once); each column sum within 1e-4 of
+# the column's sum of |y| (Σy) or of y² (Σy²): fp32 sums in another order
+K6_SUM_RTOL = 1e-4
+# fused conv_bn vs conv2d + batch_norm in fp32 (Y is normalised to O(1))
+PAIR_TOL = 1e-4
 
 # kernel vs plain version on the card: fp32 math in both; bf16 outputs
 # are rounded once (2^-8 relative), and K2's dq is summed with atomics
@@ -151,7 +196,7 @@ def bracketed_ms(fns):
 
 # -- (a) ---------------------------------------------------------------------
 
-KERNEL_SOURCES = ('flash_attention_fwd', 'flash_attention_bwd')
+KERNEL_SOURCES = ('flash_attention_fwd', 'flash_attention_bwd', 'conv_bn')
 
 
 @phase('a: build kernels')
@@ -685,9 +730,9 @@ def train_steps(cfg, place, counters, sync):
     return tr, losses, step_ms, launches, peak_gb
 
 
-def _one_step(tr, saved, batch):
+def _one_step(tr, saved, batch, params=PARAMS_COMPARED):
     """Restore the saved state, run one step on `batch`, and return the
-    loss and the updates of PARAMS_COMPARED."""
+    loss and the updates of `params`."""
     tr.restore(saved)
 
     def provider():
@@ -696,17 +741,22 @@ def _one_step(tr, saved, batch):
     tr.feed(provider)
     loss = tr.step()
     updates = {n: (tr.scope.find_var(n) - saved[n]).float()
-               for n in PARAMS_COMPARED}
+               for n in params}
     return loss, updates
 
 
-def _compare(what, a, b):
+def _update_diffs(a, b, params):
+    """Per parameter: max |update difference| over max |update| of b."""
+    return {n: ((a[1][n] - b[1][n]).abs().max() /
+                b[1][n].abs().max().clamp_min(1e-30)).item()
+            for n in params}
+
+
+def _compare(what, a, b, params=PARAMS_COMPARED):
     """|loss difference| and, per parameter, max |update difference| over
     max |update|; raises beyond TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL."""
     loss_diff = abs(a[0] - b[0])
-    rel = {n: ((a[1][n] - b[1][n]).abs().max() /
-               b[1][n].abs().max().clamp_min(1e-30)).item()
-           for n in PARAMS_COMPARED}
+    rel = _update_diffs(a, b, params)
     log('%s: loss %.6f vs %.6f (|diff| %.3e, tol %g); update max '
         'diff / max update: %s (tol %g)'
         % (what, a[0], b[0], loss_diff, TRAIN_LOSS_TOL,
@@ -771,8 +821,6 @@ def check_split_step(tr, saved, batch, kernel, counters):
 
 @phase('t4: step time, tokens/s, MFU, device time')
 def profile_train(tr, step_ms, sync):
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
     cfg = tr.cfg
     tokens = TRAIN_BATCH * cfg.max_len
     fl = train_flops_per_token(cfg)
@@ -786,6 +834,17 @@ def profile_train(tr, step_ms, sync):
     tr.feed(bench_provider(cfg, TRAIN_BATCH, np.random.RandomState(1)))
     tr.step()
     sync()
+    device_ms, busy = _profile_steps(tr, step_ms, sync, 'train step')
+    tr.reader.reset()
+    return tok_s, mfu, device_ms, busy
+
+
+def _profile_steps(tr, step_ms, sync, label):
+    """torch.profiler over PROFILE_STEPS steps: device time per step, its
+    share of the unprofiled step, the top kernels and the time by kernel
+    kind. Returns (device ms, busy share or None)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -793,39 +852,42 @@ def profile_train(tr, step_ms, sync):
             tr.step()
         sync()
         prof_wall_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
-    tr.reader.reset()
     events = [e for e in prof.key_averages()
               if getattr(e, 'device_type', None) == DeviceType.CUDA
               and _device_us(e) > 0]
     device_ms = sum(_device_us(e) for e in events) / PROFILE_STEPS / 1e3
-    busy = None
     if device_ms == 0:
-        log('train step: device time not measured (the profiler saw no '
-            'device events)')
-    else:
-        busy = device_ms / step_ms
-        top = sorted(events, key=_device_us, reverse=True)[:10]
-        log('train step: device busy %.3f ms of %.3f ms unprofiled wall '
-            '(%.1f%%; %.3f ms wall under the profiler); top: %s'
-            % (device_ms, step_ms, 100.0 * busy, prof_wall_ms,
-               '; '.join('%s %.3f ms' % (e.key[:60],
-                                         _device_us(e) / PROFILE_STEPS / 1e3)
-                         for e in top)))
-        by_kind = {}
-        for e in events:
-            kind = _kernel_kind(e.key)
-            by_kind[kind] = by_kind.get(kind, 0.0) + \
-                _device_us(e) / PROFILE_STEPS / 1e3
-        log('train step device time by kind: %s'
-            % ', '.join('%s %.3f ms' % kv for kv in
-                        sorted(by_kind.items(), key=lambda kv: -kv[1])))
-    return tok_s, mfu, device_ms, busy
+        log('%s: device time not measured (the profiler saw no device '
+            'events)' % label)
+        return device_ms, None
+    busy = device_ms / step_ms
+    top = sorted(events, key=_device_us, reverse=True)[:10]
+    log('%s: device busy %.3f ms of %.3f ms unprofiled wall (%.1f%%; %.3f '
+        'ms wall under the profiler); top: %s'
+        % (label, device_ms, step_ms, 100.0 * busy, prof_wall_ms,
+           '; '.join('%s %.3f ms' % (e.key[:60],
+                                     _device_us(e) / PROFILE_STEPS / 1e3)
+                     for e in top)))
+    by_kind = {}
+    for e in events:
+        kind = _kernel_kind(e.key)
+        by_kind[kind] = by_kind.get(kind, 0.0) + \
+            _device_us(e) / PROFILE_STEPS / 1e3
+    log('%s device time by kind: %s'
+        % (label, ', '.join('%s %.3f ms' % kv for kv in
+                            sorted(by_kind.items(), key=lambda kv: -kv[1]))))
+    return device_ms, busy
 
 
 def _kernel_kind(name):
     """Coarse class of a device kernel by its name."""
     low = name.lower()
     for kind, marks in (('flash kernels (K1/K2/K3)', ('flash_',)),
+                        ('K6 (matmul + BN statistics)',
+                         ('matmul_bn_stats', 'column_sums')),
+                        ('convolutions (cuDNN)',
+                         ('cudnn', 'fprop', 'dgrad', 'wgrad', 'implicit',
+                          'convolution', 'conv2d')),
                         ('GEMMs (cuBLAS)', ('gemm', 'nvjet', 'cutlass')),
                         ('reductions', ('reduce',)),
                         ('copies', ('memcpy', 'memset', 'copy')),
@@ -834,6 +896,471 @@ def _kernel_kind(name):
         if any(m in low for m in marks):
             return kind
     return 'other'
+
+
+# -- (b6), (r1)-(r4): ResNet-50 through the fused conv + BN op ----------------
+
+def resnet50_train_flops_per_image(image_hw, class_dim):
+    """bench.py's _resnet50_train_flops_per_image (:62-90): 2 FLOP per
+    MAC over the convs and fc, x3 for forward + backward."""
+    flops = 0
+
+    def conv(hw_in, cin, cout, k, stride):
+        hw_out = hw_in // stride
+        return hw_out, 2 * (hw_out ** 2) * cout * cin * k * k
+
+    hw, f = conv(image_hw, 3, 64, 7, 2)
+    flops += f
+    hw //= 2
+    cin = 64
+    for ch, count, stride in [(64, 3, 1), (128, 4, 2), (256, 6, 2),
+                              (512, 3, 2)]:
+        for i in range(count):
+            s = stride if i == 0 else 1
+            hw2, f1 = conv(hw, cin, ch, 1, s)
+            _, f2 = conv(hw2, ch, ch, 3, 1)
+            _, f3 = conv(hw2, ch, ch * 4, 1, 1)
+            flops += f1 + f2 + f3
+            if i == 0:
+                _, fp = conv(hw, cin, ch * 4, 1, s)
+                flops += fp
+            hw = hw2
+            cin = ch * 4
+    flops += 2 * cin * class_dim
+    return 3 * flops
+
+
+class ResNetTrainer(Trainer):
+    """bench.py's bench_resnet program (:136-158), NCHW, built with
+    FLAGS_use_pallas_fused_ops set, with its state on the card."""
+
+    def __init__(self, place, batch):
+        import paddle_tpu_torch as fluid
+        from paddle_tpu_torch.models import resnet
+        self.fluid, self.batch = fluid, batch
+        hw = RESNET['image_hw']
+        self.main, startup = fluid.Program(), fluid.Program()
+        self.main.random_seed = startup.random_seed = SEED
+        with fluid.unique_name.guard(), \
+                fluid.program_guard(self.main, startup):
+            self.reader = fluid.layers.py_reader(
+                capacity=4, shapes=[(-1, 3, hw, hw), (-1, 1)],
+                dtypes=['float32', 'int64'], name='resnet_reader',
+                use_double_buffer=True)
+            image, label = fluid.layers.read_file(self.reader)
+            _, self.avg_cost, _ = resnet.train_network(
+                image, label, class_dim=RESNET['class_dim'],
+                depth=RESNET['depth'])
+            opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+            opt = fluid.contrib.mixed_precision.decorate(opt)
+            opt.minimize(self.avg_cost)
+        self.scope = fluid.Scope()
+        fluid.Executor(place).run(startup, scope=self.scope)
+        self.pe = fluid.ParallelExecutor(
+            use_cuda=True, loss_name=self.avg_cost.name,
+            main_program=self.main, scope=self.scope)
+        self.persistables = [v.name for v in self.main.list_vars()
+                             if v.persistable and
+                             self.scope.find_var(v.name) is not None]
+
+
+def image_batch(rng, batch, device=None):
+    """bench.py's batch (:160-164): uniform images and random labels from
+    a seeded numpy stream, on `device` when given (bench.py puts them on
+    the chip once and feeds the same batch every step)."""
+    import torch
+    hw, classes = RESNET['image_hw'], RESNET['class_dim']
+    img = rng.rand(batch, 3, hw, hw).astype('float32')
+    lbl = rng.randint(0, classes, size=(batch, 1)).astype('int64')
+    if device is None:
+        return [img, lbl]
+    return [torch.from_numpy(img).to(device), torch.from_numpy(lbl).to(device)]
+
+
+def k6_path_shapes(program, batch):
+    """{(M, K, N): launches per step} of the 1x1 conv2d_bn ops of the
+    program (the ones that run K6), with M = batch x Ho x Wo."""
+    shapes = {}
+    block = program.global_block()
+    for op in block.ops:
+        if op.type != 'conv2d_bn':
+            continue
+        w = block.var_recursive(op.single_input('Filter'))
+        if tuple(w.shape[2:]) != (1, 1) or \
+                list(op.attr('paddings', [0, 0])) != [0, 0]:
+            continue
+        y = block.var_recursive(op.single_output('Y'))
+        key = (batch * y.shape[2] * y.shape[3], w.shape[1], w.shape[0])
+        shapes[key] = shapes.get(key, 0) + 1
+    return shapes
+
+
+def k6_bound_ms(M, K, N, dtype):
+    """Least time for one call, (bytes time, operations time) in ms: x, w
+    read once, y and the two fp32 sums written once, against 2·M·K·N
+    FLOP at the peak of the call's type. The bound is the larger."""
+    es = 4 if dtype == 'float32' else 2
+    nbytes = es * (M * K + K * N + M * N) + 2 * 4 * N
+    peak = PEAK_FP32_FLOPS if dtype == 'float32' else PEAK_BF16_FLOPS
+    return nbytes / PEAK_BYTES_PER_S * 1e3, 2.0 * M * K * N / peak * 1e3
+
+
+def _k6_inputs(gen, M, K, N, dtype, dev):
+    import torch
+    x = torch.randn((M, K), generator=gen, device=dev)
+    w = torch.randn((K, N), generator=gen, device=dev) * (2.0 / K) ** 0.5
+    dt = getattr(torch, dtype)
+    return x.to(dt), w.to(dt)
+
+
+def _k6_check(k6, gen, dev, M, K, N, dtype):
+    """Run K6 once and hold it against its plain version; returns the
+    max abs error of y."""
+    import torch
+    x, w = _k6_inputs(gen, M, K, N, dtype, dev)
+    y, s, q = k6.matmul_bn_stats_kernel(x, w)
+    torch.cuda.synchronize()
+    yr, sr, qr = k6.matmul_bn_stats_reference(x, w)
+    abs_sum = torch.matmul(x.float(), w.float()).abs().sum(0)
+    tol = KERNEL_ATOL[dtype]
+    dy = (y.float() - yr.float()).abs()
+    ok_y = bool((dy <= tol * yr.float().abs().clamp_min(1.0)).all())
+    err_s = ((s - sr).abs() / abs_sum.clamp_min(1e-30)).max().item()
+    err_q = ((q - qr).abs() / qr.clamp_min(1e-30)).max().item()
+    finite = all(bool(torch.isfinite(t).all()) for t in (y, s, q))
+    ok = ok_y and err_s <= K6_SUM_RTOL and err_q <= K6_SUM_RTOL and finite
+    err = dy.max().item()
+    log('K6 [%d, %d, %d] %s: y max_abs_err %.3e (tol %g x max(1, |y|)), '
+        'colsum err %.3e of sum|y|, colsumsq err %.3e of sum y^2 (tol %g) %s'
+        % (M, K, N, dtype, err, tol, err_s, err_q, K6_SUM_RTOL,
+           'ok' if ok else 'MISMATCH'))
+    if not ok:
+        raise AssertionError('K6 disagrees with its plain version at '
+                             '[%d, %d, %d] %s (finite: %s)'
+                             % (M, K, N, dtype, finite))
+    return err
+
+
+@phase('b6: K6 (matmul + BN statistics) vs its plain version')
+def check_k6(path_shapes):
+    """Correctness at the largest, smallest and widest path shapes and a
+    ragged one, fp32 and bf16; then times of kernel, plain version and
+    yardstick at every path shape in bf16, summed over one step's
+    launches. Returns the kernels line's row."""
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 3)
+    nbytes = lambda s: s[0] * s[1] + s[1] * s[2] + s[0] * s[2]  # noqa: E731
+    picks = [max(path_shapes, key=nbytes), min(path_shapes, key=nbytes),
+             max(path_shapes, key=lambda s: (s[2], s[1]))]
+    path_err = 0.0
+    for shape in picks + [(300, 70, 130)]:
+        for dtype in ('float32', 'bfloat16'):
+            err = _k6_check(k6, gen, dev, *shape, dtype)
+            if shape in picks and dtype == 'bfloat16':
+                path_err = max(path_err, err)
+    torch.cuda.empty_cache()
+
+    totals = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
+              'bound_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
+    for (M, K, N), count in sorted(path_shapes.items()):
+        x, w = _k6_inputs(gen, M, K, N, 'bfloat16', dev)
+
+        def library():
+            yf = torch.matmul(x, w).float()
+            return yf.sum(0), (yf * yf).sum(0)
+
+        times = bracketed_ms({
+            'ms': lambda: k6.matmul_bn_stats_kernel(x, w),
+            'plain_ms': lambda: k6.matmul_bn_stats_reference(x, w),
+            'library_ms': library})
+        t_bytes, t_ops = k6_bound_ms(M, K, N, 'bfloat16')
+        log('K6 [%d, %d, %d] bf16 x %d per step: kernel %.4f ms, plain '
+            '%.4f ms, library %.4f ms, bound %.4f ms (%s)'
+            % (M, K, N, count, times['ms'], times['plain_ms'],
+               times['library_ms'], max(t_bytes, t_ops),
+               'bytes' if t_bytes >= t_ops else 'operations'))
+        for key in ('ms', 'plain_ms', 'library_ms'):
+            totals[key] += count * times[key]
+        totals['bound_ms'] += count * max(t_bytes, t_ops)
+        totals['bytes_ms'] += count * t_bytes
+        totals['ops_ms'] += count * t_ops
+        del x, w
+    torch.cuda.empty_cache()
+    n_launch = sum(path_shapes.values())
+    log('K6 per step (%d launches over %d shapes, bf16): kernel %.4f ms, '
+        'plain %.4f ms, library %.4f ms, bound %.4f ms (the sum of each '
+        'launch\'s bound; bytes alone %.4f ms, operations alone %.4f ms)'
+        % (n_launch, len(path_shapes), totals['ms'], totals['plain_ms'],
+           totals['library_ms'], totals['bound_ms'], totals['bytes_ms'],
+           totals['ops_ms']))
+    name, replaces, source = K6_SOURCE
+    return {'name': name, 'route': 'cuda', 'source': source,
+            'replaces': replaces, 'launches': None, 'max_abs_err': path_err,
+            'ms': totals['ms'], 'plain_ms': totals['plain_ms'],
+            'bound_ms': totals['bound_ms'],
+            'bound_by': ('bytes' if totals['bytes_ms'] >= totals['ops_ms']
+                         else 'operations'),
+            'library_ms': totals['library_ms'],
+            'shape': 'one step: %d launches over the %d 1x1 shapes at batch '
+                     '%d' % (n_launch, len(path_shapes), RESNET_BATCH),
+            'dtype': 'bfloat16'}
+
+
+@phase('r1: train ResNet-50 through the fused conv + BN op (AMP Momentum, '
+       'py_reader, ParallelExecutor)')
+def resnet_steps(place, sync):
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    t0 = time.perf_counter()
+    tr = ResNetTrainer(place, RESNET_BATCH)
+    ops = tr.main.global_block().ops
+    n_params = sum(int(np.prod(v.shape)) for v in tr.main.list_vars()
+                   if v.persistable and getattr(v, 'trainable', False))
+    path_shapes = k6_path_shapes(tr.main, RESNET_BATCH)
+    per_step = sum(path_shapes.values())
+    log('ResNet-50 program: %d ops of %d types (%d conv2d_bn, %d of them '
+        '1x1 on K6), %d parameters, batch %d x 3 x %d x %d, %d classes, no '
+        'depth cut; built and initialised in %.1f s'
+        % (len(ops), len(set(o.type for o in ops)),
+           sum(o.type == 'conv2d_bn' for o in ops), per_step, n_params,
+           RESNET_BATCH, RESNET['image_hw'], RESNET['image_hw'],
+           RESNET['class_dim'], time.perf_counter() - t0))
+    stats = [n for n in tr.persistables if n.endswith(('.mean', '.variance'))]
+    stats0 = {n: tr.scope.find_var(n).clone() for n in stats}
+    batch = image_batch(np.random.RandomState(0), RESNET_BATCH,
+                        torch.device('cuda', 0))
+
+    def provider():
+        while True:
+            yield batch
+    tr.feed(provider)
+    losses = [tr.step() for _ in range(WARMUP_STEPS)]
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    k6.matmul_bn_stats_kernel.launches = 0
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(TIMED_STEPS)]
+    sync()
+    wall = time.perf_counter() - t0
+    launches = k6.matmul_bn_stats_kernel.launches
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = wall / TIMED_STEPS * 1e3
+    moved = sum(not torch.equal(tr.scope.find_var(n), stats0[n])
+                for n in stats)
+    log('losses: %s' % ', '.join('%.6f' % x for x in losses))
+    log('timed steps: %d in %.3f s, %.3f ms per step, %.1f images/s; K6 '
+        'launches %d (want %d x %d); peak device memory %.2f GB; BN running '
+        'statistics moved: %d of %d'
+        % (TIMED_STEPS, wall, step_ms, RESNET_BATCH / step_ms * 1e3,
+           launches, per_step, TIMED_STEPS, peak_gb, moved, len(stats)))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('a ResNet loss is not finite: %r' % losses)
+    if per_step != 36 or launches != per_step * TIMED_STEPS:
+        raise AssertionError('K6 launched %d times in %d steps, want 36 x %d'
+                             ' (the program has %d 1x1 conv2d_bn ops)'
+                             % (launches, TIMED_STEPS, TIMED_STEPS, per_step))
+    if moved != len(stats) or not stats:
+        raise AssertionError('BN running statistics moved for %d of %d vars'
+                             % (moved, len(stats)))
+    return tr, path_shapes, losses, step_ms, launches, peak_gb
+
+
+def _reordered_reference(x, w):
+    """The plain version with its column sums taken in fp64: the same
+    math in another order of summation, timed and used only as the
+    yardstick of r2."""
+    import torch
+    y = torch.matmul(x.float(), w.float())
+    yd = y.double()
+    return y.to(x.dtype), yd.sum(0).float(), (yd * yd).sum(0).float()
+
+
+@phase('r2: K6 step vs plain-version step from one saved state')
+def check_resnet_plain_step(tr):
+    """One step with K6, every launch also held against the plain version
+    on its own inputs; the same step with FLAGS_use_pallas_fused_ops
+    cleared (the plain version); and the same step with the plain
+    version's column sums in fp64. The bf16 AMP step amplifies any change
+    in the order of the fp32 sums (it rounds every activation to bf16
+    after each op), so the updates of the kernel step are held to the
+    plain step within TRAIN_UPDATE_TOL or within RESNET_SPREAD_FACTOR
+    times the plain step's own spread under the fp64 sums, whichever is
+    larger."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    batch = image_batch(np.random.RandomState(SEED + 2), RESNET_BATCH)
+    saved = tr.snapshot()
+    kernel_fn, plain_fn = k6.matmul_bn_stats_kernel, \
+        k6.matmul_bn_stats_reference
+    worst = {'y': 0.0, 'colsum': 0.0, 'colsumsq': 0.0, 'flips': 0.0}
+
+    def checked_kernel(x, w):
+        y, s, q = kernel_fn(x, w)
+        yr, sr, qr = plain_fn(x, w)
+        abs_sum = torch.matmul(x.float(), w.float()).abs().sum(0)
+        dy = (y.float() - yr.float()).abs()
+        worst['y'] = max(worst['y'], (dy / yr.float().abs().clamp_min(
+            1.0)).max().item())
+        worst['colsum'] = max(worst['colsum'], ((s - sr).abs() /
+                                                abs_sum.clamp_min(1e-30))
+                              .max().item())
+        worst['colsumsq'] = max(worst['colsumsq'], ((q - qr).abs() /
+                                                    qr.clamp_min(1e-30))
+                                .max().item())
+        worst['flips'] = max(worst['flips'], (y != yr).float().mean().item())
+        return y, s, q
+
+    # the kernel counts its launches on the module's name, which is
+    # checked_kernel while it stands in
+    checked_kernel.launches = 0
+    k6.matmul_bn_stats_kernel = checked_kernel
+    try:
+        kernel = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
+    finally:
+        k6.matmul_bn_stats_kernel = kernel_fn
+    log('K6 on the step\'s own 36 inputs vs its plain version: y max diff / '
+        'max(1, |y|) %.3e (tol %g), bf16 y that differ %.2e of the '
+        'elements, colsum %.3e of sum|y|, colsumsq %.3e of sum y^2 (tol %g)'
+        % (worst['y'], KERNEL_ATOL['bfloat16'], worst['flips'],
+           worst['colsum'], worst['colsumsq'], K6_SUM_RTOL))
+    if checked_kernel.launches != 36:
+        raise AssertionError('K6 launched %d times in the kernel step, want '
+                             '36' % checked_kernel.launches)
+    if not (worst['y'] <= KERNEL_ATOL['bfloat16'] and
+            worst['colsum'] <= K6_SUM_RTOL and
+            worst['colsumsq'] <= K6_SUM_RTOL):
+        raise AssertionError('K6 disagrees with its plain version on the '
+                             'step\'s inputs: %r' % worst)
+    fluid.set_flags({'FLAGS_use_pallas_fused_ops': False})
+    try:
+        kernel_fn.launches = 0
+        plain = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
+        k6.matmul_bn_stats_reference = _reordered_reference
+        reordered = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
+        if kernel_fn.launches:
+            raise AssertionError('K6 launched %d times in the plain steps'
+                                 % kernel_fn.launches)
+    finally:
+        k6.matmul_bn_stats_reference = plain_fn
+        fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
+    tr.restore(saved)
+    spread = _update_diffs(reordered, plain, RESNET_PARAMS_COMPARED)
+    got = _update_diffs(kernel, plain, RESNET_PARAMS_COMPARED)
+    loss_diff = abs(kernel[0] - plain[0])
+    log('K6 step vs plain step: loss %.6f vs %.6f (|diff| %.3e, tol %g; '
+        'fp64-sum plain step %.6f, |diff| %.3e); update max diff / max '
+        'update: %s; the plain step\'s spread under fp64 sums: %s (tol: '
+        'the larger of %g and %g x that spread)'
+        % (kernel[0], plain[0], loss_diff, TRAIN_LOSS_TOL, reordered[0],
+           abs(reordered[0] - plain[0]),
+           ', '.join('%s %.3e' % kv for kv in got.items()),
+           ', '.join('%s %.3e' % kv for kv in spread.items()),
+           TRAIN_UPDATE_TOL, RESNET_SPREAD_FACTOR))
+    bad = [n for n in RESNET_PARAMS_COMPARED
+           if not got[n] <= max(TRAIN_UPDATE_TOL,
+                                RESNET_SPREAD_FACTOR * spread[n])]
+    if not np.isfinite(kernel[0]) or loss_diff > TRAIN_LOSS_TOL or bad:
+        raise AssertionError('K6 step vs plain step disagree beyond the '
+                             'stated tolerance (%s)' % bad)
+    return loss_diff, got, spread, worst
+
+
+def _pair_program(fluid, fused, channels, filters, fs, pad):
+    """test_pallas_fused.py's pair at a ResNet shape: conv_bn, or conv2d
+    + batch_norm, with shared parameter names, then mean and SGD(0.1)."""
+    prog, startup = fluid.Program(), fluid.Program()
+    prog.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        x = fluid.layers.data(name='x', shape=[channels, 56, 56],
+                              dtype='float32')
+        if fused:
+            y = fluid.layers.conv_bn(
+                x, num_filters=filters, filter_size=fs, padding=pad,
+                act='relu', param_attr=fluid.ParamAttr(name='cw'),
+                bn_param_attr=fluid.ParamAttr(name='bs'),
+                bn_bias_attr=fluid.ParamAttr(name='bb'))
+        else:
+            c = fluid.layers.conv2d(
+                x, num_filters=filters, filter_size=fs, padding=pad,
+                bias_attr=False, param_attr=fluid.ParamAttr(name='cw'))
+            y = fluid.layers.batch_norm(
+                c, act='relu', param_attr=fluid.ParamAttr(name='bs'),
+                bias_attr=fluid.ParamAttr(name='bb'))
+        loss = fluid.layers.mean(y)
+        fluid.optimizer.SGD(0.1).minimize(loss)
+    return prog, startup, y, loss
+
+
+@phase('r3: fused conv_bn vs conv2d + batch_norm on the card')
+def check_fused_pair(place):
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    xv = np.random.RandomState(SEED + 4).rand(8, 64, 56, 56).astype(
+        'float32')
+    worst = {}
+    for label, filters, fs, pad in (('1x1 64->256', 256, 1, 0),
+                                    ('3x3 64->64', 64, 3, 1)):
+        results, init = {}, None
+        for fused in (False, True):
+            prog, startup, y, loss = _pair_program(fluid, fused, 64,
+                                                   filters, fs, pad)
+            scope = fluid.Scope()
+            exe = fluid.Executor(place)
+            exe.run(startup, scope=scope)
+            if init is None:
+                init = scope.find_var('cw').clone()
+            else:
+                scope.find_var('cw').copy_(init)
+            k6.matmul_bn_stats_kernel.launches = 0
+            vals = [exe.run(prog, feed={'x': xv}, fetch_list=[y, loss],
+                            scope=scope) for _ in range(3)]
+            if fused and fs == 1 and k6.matmul_bn_stats_kernel.launches != 3:
+                raise AssertionError('the fused 1x1 pair launched K6 %d '
+                                     'times in 3 steps, want 3'
+                                     % k6.matmul_bn_stats_kernel.launches)
+            results[fused] = vals
+        dy = max(float(np.max(np.abs(a[0] - b[0]) /
+                              np.maximum(np.abs(b[0]), 1.0)))
+                 for a, b in zip(results[True], results[False]))
+        dl = max(abs(float(a[1]) - float(b[1])) /
+                 max(abs(float(b[1])), 1.0)
+                 for a, b in zip(results[True], results[False]))
+        worst[label] = (dy, dl)
+        log('fused vs unfused %s, [8, 64, 56, 56] fp32, 3 SGD steps: Y max '
+            'diff / max(1, |Y|) %.3e, loss %.3e (tol %g)'
+            % (label, dy, dl, PAIR_TOL))
+        if not (dy <= PAIR_TOL and dl <= PAIR_TOL):
+            raise AssertionError('fused and unfused %s disagree' % label)
+    return worst
+
+
+@phase('r4: ResNet-50 step time, images/s, MFU, device time')
+def profile_resnet(tr, step_ms, sync):
+    import torch
+    fl = resnet50_train_flops_per_image(RESNET['image_hw'],
+                                        RESNET['class_dim'])
+    img_s = RESNET_BATCH / step_ms * 1e3
+    mfu = img_s * fl / PEAK_BF16_FLOPS
+    log('ResNet-50 step: %.3f ms, %.1f images/s, %.1f TFLOP/s at %.3f GFLOP '
+        'per image, MFU %.4f of the %.1f TFLOP/s bf16 dense peak'
+        % (step_ms, img_s, img_s * fl / 1e12, fl / 1e9, mfu,
+           PEAK_BF16_FLOPS / 1e12))
+    batch = image_batch(np.random.RandomState(1), RESNET_BATCH,
+                        torch.device('cuda', 0))
+
+    def provider():
+        while True:
+            yield batch
+    tr.feed(provider)
+    tr.step()
+    sync()
+    device_ms, busy = _profile_steps(tr, step_ms, sync, 'ResNet-50 step')
+    tr.reader.reset()
+    return img_s, mfu, device_ms, busy
 
 
 def main():
@@ -896,6 +1423,21 @@ def main():
             tr, saved, batch, kernel_step, counters)
         del saved
         tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
+        # the LM is freed before the ResNet phases
+        del tr
+        torch.cuda.empty_cache()
+
+        fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
+        torch.cuda.reset_peak_memory_stats()
+        (rtr, path_shapes, r_losses, r_step_ms, r_launches,
+         r_peak_gb) = resnet_steps(place, sync)
+        k6_row = check_k6(path_shapes)
+        r_plain_diffs = check_resnet_plain_step(rtr)
+        pair_diffs = check_fused_pair(place)
+        img_s, r_mfu, r_device_ms, r_busy = profile_resnet(rtr, r_step_ms,
+                                                           sync)
+        del rtr
+        torch.cuda.empty_cache()
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
@@ -914,6 +1456,8 @@ def main():
                          split_launches['flash_attention_bwd_dkv']}
     for r in rows:
         r['launches'] = path_launches[r['name']]
+    k6_row['launches'] = r_launches
+    rows.append(k6_row)
     log('serving: %.3f s for %d requests x %d tokens, prefill %.3f ms, '
         'decode step %.3f ms, peak device memory %.2f GB'
         % (wall, N_REQUESTS, NEW_TOKENS, prefill_ms, step_ms, serve_peak_gb))
@@ -924,6 +1468,15 @@ def main():
            'not measured' if busy is None else '%.1f%%' % (100 * busy),
            train_peak_gb, len(losses), losses[-1], plain_diffs[0],
            split_diffs[0]))
+    log('ResNet-50 training (batch %d, 224 px, AMP Momentum): step %.3f ms, '
+        '%.1f images/s, MFU %.4f, device busy %s, peak device memory %.2f '
+        'GB, loss after %d steps %.6f, K6 launches %d; K6 vs plain step loss '
+        '|diff| %.3e; fused vs unfused Y %s'
+        % (RESNET_BATCH, r_step_ms, img_s, r_mfu,
+           'not measured' if r_busy is None else '%.1f%%' % (100 * r_busy),
+           r_peak_gb, len(r_losses), r_losses[-1], r_launches,
+           r_plain_diffs[0],
+           ', '.join('%s %.3e' % (k, v[0]) for k, v in pair_diffs.items())))
     log(json.dumps({'kernels': rows}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

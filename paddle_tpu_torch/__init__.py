@@ -20,7 +20,8 @@ package:
 
 This package imports neither jax nor paddle_tpu. What is ported so far
 is the serving path and the training step of the transformer LM
-(py_reader feed, backward, Momentum/SGD under bf16 AMP, one device);
+(py_reader feed, backward, Momentum/SGD under bf16 AMP, one device) and
+ResNet training through the fused conv + BN op (models.resnet, NCHW);
 ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)

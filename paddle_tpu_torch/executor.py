@@ -200,11 +200,12 @@ def _to_numpy(value):
 class EmitContext(object):
     """What an op emitter sees: the run-local values, the scope behind
     them, the block (for declared var metadata), the device, the
-    executor's random generator, whether the program runs under AMP,
-    and the forward records of this run (registry.py)."""
+    executor's random generator, whether the program runs under AMP or
+    for test (Program.clone(for_test=True): batch norm reads its running
+    statistics), and the forward records of this run (registry.py)."""
 
-    __slots__ = ('local', 'scope', 'block', 'device', 'amp', 'records',
-                 'overrides', '_executor', '_program')
+    __slots__ = ('local', 'scope', 'block', 'device', 'amp', 'is_test',
+                 'records', 'overrides', '_executor', '_program')
 
     def __init__(self, executor, program, block, scope, local):
         self._executor = executor
@@ -214,6 +215,7 @@ class EmitContext(object):
         self.local = local
         self.device = executor.device
         self.amp = bool(getattr(program, '_use_bf16', False))
+        self.is_test = bool(getattr(program, '_is_test', False))
         self.records = {}
         # name -> tensor served in place of the stored value while a
         # forward op is recorded (its detached, grad-requiring inputs)

@@ -6,6 +6,13 @@ Known flags:
                          hand-written kernel for CUDA tensors
                          (kernels/flash_attention.py); False selects the
                          plain PyTorch version explicitly
+  use_pallas_fused_ops   models.resnet builds each conv + BN as one
+                         conv2d_bn op, and its 1x1 path runs the
+                         hand-written matmul + BN-statistics kernel K6
+                         for CUDA tensors (kernels/conv_bn.py); read when
+                         the op runs, so clearing it selects the plain
+                         PyTorch version explicitly. Off by default, as
+                         in the JAX package
   amp_bf16_param_grads   under AMP, round fp32 parameter grads to bf16
                          where one grad op is their sole producer
                          (registry.register_vjp_grad); off by default
@@ -23,6 +30,7 @@ __all__ = ['set_flags', 'get_flag', 'get_flags']
 
 _DEFAULTS = {
     'use_flash_attention': True,
+    'use_pallas_fused_ops': False,
     'amp_bf16_param_grads': False,
     'serving_slots': 8,
     'serving_prefill_batch': 1,

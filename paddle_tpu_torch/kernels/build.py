@@ -18,7 +18,8 @@ import subprocess
 import threading
 from pathlib import Path
 
-__all__ = ['build', 'library', 'build_logs', 'CSRC_DIR', 'BUILD_DIR']
+__all__ = ['build', 'library', 'function', 'build_logs', 'CSRC_DIR',
+           'BUILD_DIR']
 
 _PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = _PKG_DIR / 'csrc'
@@ -28,6 +29,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 _lock = threading.Lock()
 _libs = {}
+_fns = {}
 # name -> nvcc's stderr (ptxas register / shared-memory / spill report)
 build_logs = {}
 
@@ -93,3 +95,18 @@ def library(name):
         with _lock:
             lib = _libs.setdefault(name, ctypes.CDLL(str(path)))
     return lib
+
+
+def function(lib_name, fn_name, argtypes):
+    """The C entry point `fn_name` of csrc/<lib_name>.cu with `argtypes`
+    declared and an int result (the CUDA error code of its launches),
+    loaded once."""
+    with _lock:
+        fn = _fns.get(fn_name)
+    if fn is None:
+        fn = getattr(library(lib_name), fn_name)
+        fn.argtypes = list(argtypes)
+        fn.restype = ctypes.c_int
+        with _lock:
+            fn = _fns.setdefault(fn_name, fn)
+    return fn

@@ -26,8 +26,11 @@ says what bounds it on an H100 and what its design does about that.
   its kernels, then launches K2 (the default arm, 'kvmajor') or K3a +
   K3b (PADDLE_FLASH_BWD=split, the deterministic arm: no atomics). The
   arm is read from the environment on every call; 'onepass' (K5) is not
-  ported and raises. CPU tensors, or force_plain=True
-  (FLAGS_use_flash_attention=False), take the plain versions.
+  ported and raises. The forward reads PADDLE_FLASH_FWD the same way on
+  every call: '' or 'online' is K1, 'twopass' (K4) is not ported and
+  raises, any other value raises ValueError. CPU tensors, or
+  force_plain=True (FLAGS_use_flash_attention=False), take the plain
+  versions.
 - `flash_attention` is the public entry ([B, H, T, d] or [BH, T, d]).
 """
 from __future__ import annotations
@@ -44,32 +47,26 @@ __all__ = ['flash_attention', 'flash_attention_fwd',
            'flash_attention_reference', 'flash_attention_bwd_kvmajor',
            'flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
            'flash_attention_bwd_reference', 'FlashAttention', 'bwd_arm',
+           'fwd_arm',
            'SUPPORTED_HEAD_DIMS', 'SUPPORTED_DTYPES']
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 BWD_ARMS = ('kvmajor', 'split', 'onepass')
+FWD_ARMS = ('online', 'twopass')
 _NEG_INF = -1e30
 _MAX_GRID_Y = 65535
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
-_fns = {}
-_fn_lock = threading.Lock()
 _count_lock = threading.Lock()
 
 
 def _kernel(lib_name, fn_name, n_ptrs):
     """The C entry point `fn_name` of csrc/<lib_name>.cu: n_ptrs pointers,
     then bh, t, d, causal (int), sm_scale (float) and the stream."""
-    with _fn_lock:
-        fn = _fns.get(fn_name)
-        if fn is None:
-            fn = getattr(build.library(lib_name), fn_name)
-            fn.argtypes = [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 + \
-                [ctypes.c_float, ctypes.c_void_p]
-            fn.restype = ctypes.c_int
-            _fns[fn_name] = fn
-    return fn
+    return build.function(lib_name, fn_name,
+                          [ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 4 +
+                          [ctypes.c_float, ctypes.c_void_p])
 
 
 def _count(wrapper):
@@ -266,12 +263,31 @@ def bwd_arm():
     return arm
 
 
+def fwd_arm():
+    """The forward arm for this call, from PADDLE_FLASH_FWD (read on
+    every call, never cached): '' or 'online' is K1. 'twopass' (K4) is
+    not ported and raises; any other value raises ValueError with the
+    JAX package's message, so a typo never measures K1 by mistake."""
+    arm = os.environ.get('PADDLE_FLASH_FWD', '').strip().lower()
+    if arm not in ('',) + FWD_ARMS:
+        raise ValueError('PADDLE_FLASH_FWD=%r: expected one of %s'
+                         % (arm, FWD_ARMS))
+    if arm == 'twopass':
+        raise NotImplementedError(
+            'PADDLE_FLASH_FWD=twopass selects K4 (_fwd_stats_kernel + '
+            '_fwd_acc_kernel, paddle_tpu/pallas/flash_attention.py:229, '
+            ':276), which is not ported yet (ROADMAP.md, Queue 2); use '
+            'online')
+    return 'online'
+
+
 class FlashAttention(torch.autograd.Function):
     """o = softmax(q·kᵀ·scale [+ causal mask])·v over [BH, T, d], with
     the flash kernels in both passes for CUDA tensors."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, force_plain):
+        fwd_arm()
         plain = force_plain or q.device.type == 'cpu'
         if plain:
             o, lse = flash_attention_reference(q, k, v, causal, sm_scale)

@@ -115,6 +115,14 @@ class LayerHelper(object):
             initializer(sp_var, startup_block)
         return var
 
+    def create_or_get_global_variable(self, name, **kwargs):
+        """A var of the main program's global block (batch norm's running
+        statistics), created on first use."""
+        block = self.main_program.global_block()
+        if block.has_var(name):
+            return block.var(name)
+        return block.create_var(name=name, **kwargs)
+
     # -- intermediate vars -------------------------------------------------
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):
         return self.main_program.current_block().create_var(

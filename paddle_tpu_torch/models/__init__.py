@@ -1,2 +1,3 @@
-"""Model builders: only the transformer LM is ported so far."""
+"""Model builders: the transformer LM and ResNet."""
+from . import resnet  # noqa: F401
 from . import transformer  # noqa: F401

@@ -5,4 +5,5 @@ from . import nn_ops        # noqa: F401
 from . import attention_ops  # noqa: F401
 from . import io_ops        # noqa: F401
 from . import loss_ops      # noqa: F401
+from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401

@@ -1,7 +1,7 @@
 """Math / elementwise / activation / reduction ops (counterpart of
 paddle_tpu/ops/math_ops.py: elementwise family :56-128, mul :135,
 matmul :198, unary activations :244-305, scale :308, clip :335,
-clip_by_norm :352, sum :380, mean :414, argmax :580).
+clip_by_norm :352, sum :380, mean :414, top_k :536, argmax :580).
 
 Grads come from recorded forwards (registry.register_vjp_grad): each
 emitter is plain differentiable PyTorch, and autograd reduces a
@@ -156,7 +156,8 @@ def _register_unary(op_type, fn):
     register_vjp_grad(op_type)
 
 
-# sqrt: the global-norm clip; abs: L1 decay
+# relu: the ResNet activations; sqrt: the global-norm clip; abs: L1 decay
+_register_unary('relu', torch.relu)
 _register_unary('sqrt', torch.sqrt)
 _register_unary('abs', torch.abs)
 # jax.nn.gelu defaults to the tanh approximation; the exact erf form
@@ -253,6 +254,28 @@ def _squared_l2_norm_emit(ctx, op):
 
 register_op('squared_l2_norm', infer_shape=_scalar_infer)
 register_vjp_grad('squared_l2_norm')
+
+
+@op_emitter('top_k')
+def _top_k_emit(ctx, op):
+    values, indices = torch.topk(ctx.get(op.single_input('X')),
+                                 op.attr('k', 1), dim=-1)
+    ctx.set(op.single_output('Out'), values)
+    ctx.set(op.single_output('Indices'), indices.to(torch.int64))
+
+
+def _top_k_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    shape = tuple(x.shape[:-1]) + (op.attr('k', 1),)
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape = shape
+    out.dtype = x.dtype
+    idx = block.var_recursive(op.single_output('Indices'))
+    idx.shape = shape
+    idx.dtype = 'int64'
+
+
+register_op('top_k', infer_shape=_top_k_infer, no_grad=True)
 
 
 @op_emitter('argmax')

@@ -1,16 +1,307 @@
-"""NN ops (counterpart of paddle_tpu/ops/nn_ops.py: layer_norm :518,
-softmax :563, cross_entropy :577, square_error_cost :688, lookup_table
-:794 (grad :822-866), causal_mask :965, position_embedding :982).
+"""NN ops (counterpart of paddle_tpu/ops/nn_ops.py: conv2d /
+depthwise_conv2d :28-92, pool2d :156-243, batch_norm :246-511,
+layer_norm :518, softmax :563, cross_entropy :577, square_error_cost
+:688, lookup_table :794 (grad :822-866), accuracy :878, causal_mask
+:965, position_embedding :982).
 
 Grads: recorded forwards (registry.register_vjp_grad), except
-lookup_table, whose grad op is a plain scatter-add (index_add_)."""
+lookup_table, whose grad op is a plain scatter-add (index_add_), and
+batch_norm, whose grad op is the JAX package's closed form.
+
+Convolutions go to F.conv2d (the JAX package leaves them to
+lax.conv, outside any Pallas kernel). On the card bf16 operands go to
+cuDNN, which accumulates in fp32, as the TPU's MXU does; on the CPU
+bf16 operands are widened to fp32 first, as the JAX package does off
+the TPU. Only NCHW is ported: data_format='NHWC' raises.
+"""
 from __future__ import annotations
 
 import torch
+import torch.nn.functional as F
 
 from ..framework import grad_var_name
 from ..registry import (register_op, op_emitter, same_shape_infer,
                         register_vjp_grad, amp_cast)
+
+
+def _nchw_only(op, attr='data_format'):
+    if op.attr(attr, 'NCHW') != 'NCHW':
+        raise NotImplementedError(
+            '%s with %s=%r: only NCHW is ported (ROADMAP.md, Queue 1)'
+            % (op.type, attr, op.attr(attr)))
+
+
+# -- conv2d / depthwise_conv2d ------------------------------------------------
+
+def _conv2d_common_emit(ctx, op):
+    _nchw_only(op)
+    x = ctx.get(op.single_input('Input'))
+    w = ctx.get(op.single_input('Filter'))
+    x, w = amp_cast(ctx, x, w)
+    groups = op.attr('groups', 1) or 1
+    if op.type == 'depthwise_conv2d':
+        groups = x.shape[1]
+    out_dtype = x.dtype
+    if x.dtype == torch.bfloat16 and x.device.type == 'cpu':
+        x, w = x.float(), w.float()
+    out = F.conv2d(x, w, None, stride=tuple(op.attr('strides', [1, 1])),
+                   padding=tuple(op.attr('paddings', [0, 0])),
+                   dilation=tuple(op.attr('dilations', [1, 1])),
+                   groups=groups)
+    ctx.set(op.single_output('Output'), out.to(out_dtype))
+
+
+def _conv_out_size(in_size, k, pad, stride, dilation):
+    if in_size < 0:
+        return -1
+    eff_k = dilation * (k - 1) + 1
+    return (in_size + 2 * pad - eff_k) // stride + 1
+
+
+def _conv2d_infer(op, block):
+    x = block.var_recursive(op.single_input('Input'))
+    w = block.var_recursive(op.single_input('Filter'))
+    strides = op.attr('strides', [1, 1])
+    paddings = op.attr('paddings', [0, 0])
+    dilations = op.attr('dilations', [1, 1])
+    nhwc = op.attr('data_format', 'NCHW') == 'NHWC'
+    if nhwc:
+        n, h, wd, _ = x.shape
+    else:
+        n, _, h, wd = x.shape
+    oc, _, kh, kw = w.shape
+    oh = _conv_out_size(h, kh, paddings[0], strides[0], dilations[0])
+    ow = _conv_out_size(wd, kw, paddings[1], strides[1], dilations[1])
+    out = block.var_recursive(op.single_output('Output'))
+    out.shape = (n, oh, ow, oc) if nhwc else (n, oc, oh, ow)
+    out.dtype = x.dtype
+
+
+for _conv_type in ('conv2d', 'depthwise_conv2d'):
+    register_op(_conv_type, emit=_conv2d_common_emit,
+                infer_shape=_conv2d_infer)
+    register_vjp_grad(_conv_type, in_slots=('Input', 'Filter'),
+                      out_slots=('Output',))
+
+
+# -- pool2d -------------------------------------------------------------------
+
+def _pool_spatial_pads(in_sizes, ksize, strides, paddings, ceil_mode):
+    """(lo, hi) pads per spatial dim; ceil_mode adds asymmetric right
+    padding so the window count is the ceil formula's."""
+    pads = []
+    for i, n in enumerate(in_sizes):
+        if ceil_mode:
+            out = (n - ksize[i] + 2 * paddings[i] + strides[i] - 1) \
+                // strides[i] + 1
+        else:
+            out = (n - ksize[i] + 2 * paddings[i]) // strides[i] + 1
+        extra = (out - 1) * strides[i] + ksize[i] - (n + 2 * paddings[i])
+        pads.append((paddings[i], paddings[i] + max(extra, 0)))
+    return pads
+
+
+@op_emitter('pool2d')
+def _pool2d_emit(ctx, op):
+    """Max or average pooling over explicit (lo, hi) pads: -inf pads for
+    max; for avg the window sum over zero pads, divided by the count of
+    real elements (exclusive, when padded) or by the window size."""
+    _nchw_only(op)
+    x = ctx.get(op.single_input('X'))
+    ptype = op.attr('pooling_type', 'max')
+    ksize = list(op.attr('ksize'))
+    strides = list(op.attr('strides', [1, 1]))
+    paddings = list(op.attr('paddings', [0, 0]))
+    if op.attr('global_pooling', False):
+        ksize = [x.shape[2], x.shape[3]]
+        strides = [1, 1]
+        paddings = [0, 0]
+    (hlo, hhi), (wlo, whi) = _pool_spatial_pads(
+        [x.shape[2], x.shape[3]], ksize, strides, paddings,
+        op.attr('ceil_mode', False))
+    pad = (wlo, whi, hlo, hhi)
+    padded = any(pad)
+    if ptype == 'max':
+        xp = F.pad(x, pad, value=float('-inf')) if padded else x
+        out = F.max_pool2d(xp, ksize, strides)
+    else:
+        xp = F.pad(x, pad) if padded else x
+        summed = F.avg_pool2d(xp, ksize, strides, divisor_override=1)
+        if op.attr('exclusive', True) and padded:
+            ones = F.pad(torch.ones_like(x[:1, :1]), pad)
+            counts = F.avg_pool2d(ones, ksize, strides, divisor_override=1)
+            out = summed / counts
+        else:
+            out = summed / (ksize[0] * ksize[1])
+    ctx.set(op.single_output('Out'), out.to(x.dtype))
+
+
+def _pool2d_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    nhwc = op.attr('data_format', 'NCHW') == 'NHWC'
+    if nhwc:
+        n, h, w, c = x.shape
+    else:
+        n, c, h, w = x.shape
+    out = block.var_recursive(op.single_output('Out'))
+    if op.attr('global_pooling', False):
+        out.shape = (n, 1, 1, c) if nhwc else (n, c, 1, 1)
+    else:
+        ksize = op.attr('ksize')
+        strides = op.attr('strides', [1, 1])
+        paddings = op.attr('paddings', [0, 0])
+
+        def osz(i, k, p, s):
+            if i < 0:
+                return -1
+            if op.attr('ceil_mode', False):
+                return (i - k + 2 * p + s - 1) // s + 1
+            return (i - k + 2 * p) // s + 1
+        oh = osz(h, ksize[0], paddings[0], strides[0])
+        ow = osz(w, ksize[1], paddings[1], strides[1])
+        out.shape = (n, oh, ow, c) if nhwc else (n, c, oh, ow)
+    out.dtype = x.dtype
+
+
+register_op('pool2d', infer_shape=_pool2d_infer)
+register_vjp_grad('pool2d')
+
+
+# -- batch_norm ---------------------------------------------------------------
+# MeanOut/VarianceOut are written as new tensors under the same
+# persistable names as Mean/Variance (ctx.set rebinds them in the Scope);
+# nothing is updated in place, so no autograd record that holds the old
+# tensor can see it change.
+
+def _bn_axes(x, layout):
+    """(reduced axes, per-channel broadcast shape) for NCHW or NHWC."""
+    ch = 1 if layout == 'NCHW' else x.ndim - 1
+    ch_shape = [1] * x.ndim
+    ch_shape[ch] = -1
+    return tuple(i for i in range(x.ndim) if i != ch), ch_shape
+
+
+def _bn_batch_stats(x, axes):
+    """Single-pass batch statistics in fp32: sum and sum of squares, with
+    the clamp that guards E[x²] - E[x]² against cancellation."""
+    xf = x.float()
+    m = 1
+    for i in axes:
+        m *= x.shape[i]
+    mean = torch.sum(xf, dim=axes) / m
+    var = torch.clamp(torch.sum(xf * xf, dim=axes) / m - mean * mean,
+                      min=0.0)
+    return mean, var
+
+
+@op_emitter('batch_norm')
+def _batch_norm_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    scale = ctx.get(op.single_input('Scale'))
+    bias = ctx.get(op.single_input('Bias'))
+    mean = ctx.get(op.single_input('Mean'))
+    var = ctx.get(op.single_input('Variance'))
+    eps = op.attr('epsilon', 1e-5)
+    momentum = op.attr('momentum', 0.9)
+    is_test = op.attr('is_test', False) or ctx.is_test
+    axes, ch_shape = _bn_axes(x, op.attr('data_layout', 'NCHW'))
+    if is_test:
+        use_mean, use_var = mean, var
+        mean_out, var_out = mean, var
+    else:
+        use_mean, use_var = _bn_batch_stats(x, axes)
+        mean_out = mean * momentum + use_mean * (1 - momentum)
+        var_out = var * momentum + use_var * (1 - momentum)
+    # the affine folded into one per-channel (a, b): y = x·a + b
+    inv_std = torch.rsqrt(use_var.float() + eps)
+    a = scale.float() * inv_std
+    b = bias.float() - use_mean.float() * a
+    y = x.float() * a.reshape(ch_shape) + b.reshape(ch_shape)
+    ctx.set(op.single_output('Y'), y.to(x.dtype))
+    for slot, val in (('MeanOut', mean_out), ('VarianceOut', var_out),
+                      ('SavedMean', use_mean), ('SavedVariance', use_var)):
+        if op.output(slot):
+            ctx.set(op.single_output(slot), val)
+
+
+def _batch_norm_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    layout = op.attr('data_layout', 'NCHW')
+    c = x.shape[1] if layout == 'NCHW' else x.shape[-1]
+    y = block.var_recursive(op.single_output('Y'))
+    y.shape = x.shape
+    y.dtype = x.dtype
+    for slot in ('MeanOut', 'VarianceOut', 'SavedMean', 'SavedVariance'):
+        if op.output(slot):
+            v = block.var_recursive(op.single_output(slot))
+            v.shape = (c,)
+            v.dtype = 'float32'
+
+
+def _batch_norm_grad(op, block):
+    """Grads of X, Scale and Bias only (the running statistics are
+    state); the grad op reads the saved batch statistics."""
+    attrs = dict(op.attrs)
+    attrs['__fwd_inputs__'] = {k: list(v) for k, v in op.inputs.items()}
+    attrs['__fwd_outputs__'] = {k: list(v) for k, v in op.outputs.items()}
+    inputs = {'X': list(op.input('X')), 'Scale': list(op.input('Scale')),
+              'Bias': list(op.input('Bias')), 'Mean': list(op.input('Mean')),
+              'Variance': list(op.input('Variance')),
+              'Y@GRAD': [grad_var_name(op.single_output('Y'))]}
+    if op.output('SavedMean'):
+        inputs['SavedMean'] = list(op.output('SavedMean'))
+    if op.output('SavedVariance'):
+        inputs['SavedVariance'] = list(op.output('SavedVariance'))
+    outputs = {'X@GRAD': [grad_var_name(op.single_input('X'))],
+               'Scale@GRAD': [grad_var_name(op.single_input('Scale'))],
+               'Bias@GRAD': [grad_var_name(op.single_input('Bias'))]}
+    return [dict(type='batch_norm_grad', inputs=inputs, outputs=outputs,
+                 attrs=attrs)]
+
+
+@op_emitter('batch_norm_grad')
+def _batch_norm_grad_emit(ctx, op):
+    """Closed-form BN backward, in fp32. Training mode (the batch
+    statistics carry gradient):
+        dx     = scale·inv_std/m · (m·dy - Σdy - x̂·Σ(dy·x̂))
+        dscale = Σ(dy·x̂),  dbias = Σdy
+    Test mode (running statistics are constants): dx = dy·scale·inv_std."""
+    fwd_inputs = op.attr('__fwd_inputs__')
+    x = ctx.get(fwd_inputs['X'][0])
+    scale = ctx.get(fwd_inputs['Scale'][0])
+    bias = ctx.get(fwd_inputs['Bias'][0])
+    gy = ctx.get(op.single_input('Y@GRAD'))
+    eps = op.attr('epsilon', 1e-5)
+    is_test = op.attr('is_test', False) or ctx.is_test
+    axes, ch_shape = _bn_axes(x, op.attr('data_layout', 'NCHW'))
+    m = 1
+    for i in axes:
+        m *= x.shape[i]
+    xf, gyf, scale_f = x.float(), gy.float(), scale.float()
+    if is_test:
+        mean = ctx.get(fwd_inputs['Mean'][0]).float()
+        var = ctx.get(fwd_inputs['Variance'][0]).float()
+    elif op.input('SavedMean') and op.input('SavedVariance'):
+        mean = ctx.get(op.single_input('SavedMean')).float()
+        var = ctx.get(op.single_input('SavedVariance')).float()
+    else:
+        mean, var = _bn_batch_stats(x, axes)
+    inv_std = torch.rsqrt(var + eps)
+    xhat = (xf - mean.reshape(ch_shape)) * inv_std.reshape(ch_shape)
+    sum_dy = torch.sum(gyf, dim=axes)
+    sum_dy_xhat = torch.sum(gyf * xhat, dim=axes)
+    if is_test:
+        gx = gyf * (scale_f * inv_std).reshape(ch_shape)
+    else:
+        coef = (scale_f * inv_std) / m
+        gx = coef.reshape(ch_shape) * (m * gyf - sum_dy.reshape(ch_shape)
+                                       - xhat * sum_dy_xhat.reshape(ch_shape))
+    ctx.set(op.single_output('X@GRAD'), gx.to(x.dtype))
+    ctx.set(op.single_output('Scale@GRAD'), sum_dy_xhat.to(scale.dtype))
+    ctx.set(op.single_output('Bias@GRAD'), sum_dy.to(bias.dtype))
+
+
+register_op('batch_norm', infer_shape=_batch_norm_infer, grad=_batch_norm_grad)
 
 
 @op_emitter('layer_norm')
@@ -162,6 +453,37 @@ def _lookup_table_grad_emit(ctx, op):
 
 register_op('lookup_table', infer_shape=_lookup_table_infer,
             grad=_lookup_table_grad_maker)
+
+
+# -- accuracy -----------------------------------------------------------------
+
+@op_emitter('accuracy')
+def _accuracy_emit(ctx, op):
+    pred_idx = ctx.get(op.single_input('Indices'))   # [N, k] top-k indices
+    label = ctx.get(op.single_input('Label'))        # [N, 1]
+    n = pred_idx.shape[0]
+    correct = torch.sum(torch.any(pred_idx == label.reshape(-1, 1), dim=1))
+    ctx.set(op.single_output('Accuracy'),
+            (correct.float() / n).to(torch.float32))
+    if op.output('Correct'):
+        ctx.set(op.single_output('Correct'), correct.to(torch.int32))
+    if op.output('Total'):
+        ctx.set(op.single_output('Total'),
+                torch.tensor(n, dtype=torch.int32, device=pred_idx.device))
+
+
+def _accuracy_infer(op, block):
+    acc = block.var_recursive(op.single_output('Accuracy'))
+    acc.shape = ()
+    acc.dtype = 'float32'
+    for slot in ('Correct', 'Total'):
+        if op.output(slot):
+            v = block.var_recursive(op.single_output(slot))
+            v.shape = ()
+            v.dtype = 'int32'
+
+
+register_op('accuracy', infer_shape=_accuracy_infer, no_grad=True)
 
 
 @op_emitter('causal_mask')

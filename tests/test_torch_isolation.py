@@ -66,6 +66,8 @@ def test_import_leaves_jax_out_of_sys_modules():
     code = ('import sys\n'
             'import paddle_tpu_torch\n'
             'import paddle_tpu_torch.kernels.flash_attention\n'
+            'import paddle_tpu_torch.kernels.conv_bn\n'
+            'import paddle_tpu_torch.models.resnet\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]\n'
             'print(bad)\n')

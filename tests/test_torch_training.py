@@ -361,6 +361,25 @@ def test_onepass_arm_raises(monkeypatch):
             .backward()
 
 
+@pytest.mark.parametrize('value,error', [
+    ('', None), ('online', None), ('twopass', NotImplementedError),
+    ('bogus', ValueError)])
+def test_flash_fwd_arm_is_read_on_every_call(monkeypatch, value, error):
+    """PADDLE_FLASH_FWD, as in the JAX package: online (or unset) runs
+    K1, twopass selects K4, which is not ported and raises, and a typo
+    raises ValueError with the JAX package's message."""
+    q = torch.randn(1, 2, 8, 16)
+    monkeypatch.setenv('PADDLE_FLASH_FWD', value)
+    if error is None:
+        out = tfluid.kernels.flash_attention.flash_attention(q, q, q)
+        assert out.shape == q.shape and torch.isfinite(out).all()
+        return
+    match = 'K4' if error is NotImplementedError else \
+        "PADDLE_FLASH_FWD='bogus': expected one of"
+    with pytest.raises(error, match=match):
+        tfluid.kernels.flash_attention.flash_attention(q, q, q)
+
+
 def _amp_fc_param_grads(fluid):
     prog, startup = fluid.Program(), fluid.Program()
     with fluid.program_guard(prog, startup):
