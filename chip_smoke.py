@@ -1,18 +1,27 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path, the LM training step and the
-ResNet-50 training step once on one CUDA card.
+"""Drive paddle_tpu_torch's serving path, the LM training step, the
+ResNet-50 training step, the long-context LM training step and the
+exp/exp2 probe once on one CUDA card.
 
     python3 chip_smoke.py
 
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
-  (a) build every CUDA kernel of the three paths with nvcc (one process
-      per source, started together): the flash-attention forward K1, the
-      backward K2, K3a, K3b, and the matmul + BN-statistics kernel K6;
-  (b) hold each kernel against its plain PyTorch version on the card, at
-      the shapes the paths give it and at ragged edge shapes, fp32 and
-      bf16, and time kernel, plain version and the PyTorch library call
-      (scaled_dot_product_attention; its backward is timed as fwd+bwd
-      minus fwd, timed only);
+  (a) build every CUDA kernel of the paths with nvcc (one process per
+      source, started together): the flash-attention forwards K1, K4a,
+      K4b, the backwards K2, K3a, K3b, K5, the matmul + BN-statistics
+      kernel K6 and the probe P;
+  (b) hold K1, K2, K3a and K3b against their plain PyTorch versions on
+      the card, at the shapes the paths give them and at ragged edge
+      shapes, fp32 and bf16, and time kernel, plain version and the
+      PyTorch library call (sdpa_yardstick: scaled_dot_product_attention
+      on 4-D views under a fused backend only; its backward is timed as
+      fwd+bwd minus fwd, timed only);
+  (b4) the same for K4a, K4b and K5 at the long-context path's shape
+      [16, 8192, 128] causal in bf16 and in fp32 (K4b's o also against
+      an fp64 evaluation, logged) and at phase b's ragged shapes, then
+      their times, K4a + K4b against the library forward and K5 against
+      the library backward (every "x the library" factor is taken on
+      torch.profiler device time, the library's only clock);
   (c) build the flagship LM (bench.py's transformer: vocab 32768, dim
       2048, 16 heads, 12 layers, ffn 8192, max_len 512, flash attention)
       with random weights from a seed, run its startup program on
@@ -33,7 +42,8 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       its startup program on CUDAPlace(0), then 2 warm-up and 5 timed
       steps through ParallelExecutor(use_cuda=True); with the counters
       set to 0 before the timed steps, K1 must launch >= 12 x steps
-      times, K2 exactly 12 x steps, K3 never; every loss is finite;
+      times, K2 exactly 12 x steps, K3, K4 and K5 never; every loss is
+      finite;
   (t2) one step from a saved state with the kernels and the same step
       with FLAGS_use_flash_attention=False (the plain versions): the
       losses and the updates of layer0_qkv, layer11_down and lm_head
@@ -71,20 +81,40 @@ with FLAGS_use_pallas_fused_ops so every conv + BN is one conv2d_bn op):
   (r4) step ms, images/s, MFU (bench.py's FLOPs per image over the bf16
       dense peak), device-busy share and device time by kernel kind from
       torch.profiler over 3 steps, and peak device memory.
+ResNet-50 is freed, then the long-context LM (bench.py's
+bench_long_context: vocab 32768, dim 1024, 8 heads, 4 layers, ffn 4096,
+max_len 8192, batch 2, fused LM head with chunk 8192, reader lc_reader,
+AMP Momentum, ParallelExecutor), under PADDLE_FLASH_FWD=twopass and
+PADDLE_FLASH_BWD=onepass (restored after each phase):
+  (l1) 2 warm-up and 5 timed steps: K4a, K4b and K5 launch exactly
+      4 x steps each, K1, K2, K3a and K3b never; every loss is finite;
+  (l2) one step from a saved state under twopass/onepass, under the
+      default arms (online/kvmajor) and with FLAGS_use_flash_attention
+      =False (plain): losses and the updates of layer0_qkv, layer3_down
+      and lm_head agree within TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL; the
+      two kernel steps are timed in turns;
+  (l3) step ms, tokens/s, MFU by bench.py's causal count and by the
+      executed FLOPs (take_extra_flops added), device-busy share and
+      device time by kernel kind over 3 steps, peak device memory.
+  (p) the probe P (paddle_tpu_torch/tools/probe_exp2.py) against its
+      plain version, then its exp and exp2 rates against the card's
+      special-function-unit rate.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
-line, the serving and training numbers, and as its last line
-{"ok": true, "device": {...}}. Without a CUDA device, or without the
-package beside it, it exits non-zero and prints no result.
+line, the serving and training numbers, its own wall time, and as its
+last line {"ok": true, "device": {...}}. Without a CUDA device, or
+without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
 import sys
 import tempfile
 import time
+import warnings
 
 import numpy as np
 
@@ -116,9 +146,23 @@ K6_SUM_RTOL = 1e-4
 # fused conv_bn vs conv2d + batch_norm in fp32 (Y is normalised to O(1))
 PAIR_TOL = 1e-4
 
+# bench.py's bench_long_context (:274-295): T=8192, batch 2, fused head
+# with chunk 8192, under the two alternative flash arms
+LC_MODEL = dict(vocab=32768, dim=1024, heads=8, layers=4, ffn=4096,
+                max_len=8192, flash_attention=True)
+LC_BATCH, LC_HEAD_CHUNK, LC_READER = 2, 8192, 'lc_reader'
+LC_ARMS = ('twopass', 'onepass')      # PADDLE_FLASH_FWD, PADDLE_FLASH_BWD
+LC_PARAMS_COMPARED = ('layer0_qkv.w_0', 'layer3_down.w_0', 'lm_head.w_0')
+
 # kernel vs plain version on the card: fp32 math in both; bf16 outputs
-# are rounded once (2^-8 relative), and K2's dq is summed with atomics
+# are rounded once (2^-8 relative), and K2's dq and K5's dk, dv are
+# summed with atomics. lse is fp32 in every dtype: K4a's is held to the
+# fp32 tolerance.
 KERNEL_ATOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+# P vs its plain version: expf / exp2f against torch.exp / torch.exp2,
+# each within a few ulps; the chain x <- f(-(x/2 + 1/4)) shrinks errors
+# (|d/dx| < 0.4), and its values lie in (0, 1]
+PROBE_ATOL = 1e-6
 RECOMPUTE_TOL = 1e-3        # prefill vs full recompute (rtol and atol)
 # kernel step vs plain step under bf16 AMP: |loss difference|, and the
 # largest update difference over the largest update of each parameter
@@ -196,7 +240,8 @@ def bracketed_ms(fns):
 
 # -- (a) ---------------------------------------------------------------------
 
-KERNEL_SOURCES = ('flash_attention_fwd', 'flash_attention_bwd', 'conv_bn')
+KERNEL_SOURCES = ('flash_attention_fwd', 'flash_attention_bwd', 'conv_bn',
+                  'probe_exp2')
 
 
 @phase('a: build kernels')
@@ -215,42 +260,89 @@ def build_kernels():
 # -- (b) ---------------------------------------------------------------------
 
 # (name in the kernels line, TPU body it replaces, source, FLOP per
-# visited score per head-dim column, outputs [BH, T, d] it writes)
+# visited score per head-dim column, [BH, T, d] matrices read, [BH, T, d]
+# matrices written, fp32 [BH, T] rows read or written)
 KERNELS = {
     'fwd': ('flash_attention_fwd', 'paddle_tpu/pallas/flash_attention.py:171',
-            'paddle_tpu_torch/csrc/flash_attention_fwd.cu', 4, 1),
+            'paddle_tpu_torch/csrc/flash_attention_fwd.cu', 4, 3, 1, 1),
     'k2': ('flash_attention_bwd_kvmajor',
            'paddle_tpu/pallas/flash_attention.py:512',
-           'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 10, 3),
+           'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 10, 4, 3, 2),
     'k3a': ('flash_attention_bwd_dq',
             'paddle_tpu/pallas/flash_attention.py:339',
-            'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 6, 1),
+            'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 6, 4, 1, 2),
     'k3b': ('flash_attention_bwd_dkv',
             'paddle_tpu/pallas/flash_attention.py:385',
-            'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 8, 2),
+            'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 8, 4, 2, 2),
+    'k4a': ('flash_attention_fwd_stats',
+            'paddle_tpu/pallas/flash_attention.py:229',
+            'paddle_tpu_torch/csrc/flash_attention_fwd.cu', 2, 2, 0, 1),
+    'k4b': ('flash_attention_fwd_acc',
+            'paddle_tpu/pallas/flash_attention.py:276',
+            'paddle_tpu_torch/csrc/flash_attention_fwd.cu', 4, 3, 1, 1),
+    'k5': ('flash_attention_bwd_onepass',
+           'paddle_tpu/pallas/flash_attention.py:436',
+           'paddle_tpu_torch/csrc/flash_attention_bwd.cu', 10, 4, 3, 2),
 }
+PROBE_SOURCE = ('probe_exp2_chain', 'tools/probe_exp2.py:26',
+                'paddle_tpu_torch/csrc/probe_exp2.cu')
 
 
 def flash_bound_ms(kind, BH, T, d, causal, dtype):
     """Least time for the work of one call: the visited scores
     (causal: T(T+1)/2 per head) x FLOP per score at the peak of the
     call's type (fp32 CUDA cores, bf16 tensor cores), against every
-    input read once and every output written once (forward: q, k, v in,
-    o and fp32 lse out; backward: q, k, v, dO and fp32 lse, delta in,
-    its gradients out)."""
-    flop_per_col, n_out = KERNELS[kind][3], KERNELS[kind][4]
+    input read once and every output written once (KERNELS: the
+    [BH, T, d] matrices in the call's dtype, the rows lse and delta in
+    fp32)."""
+    flop_per_col, n_in, n_out, n_rows = KERNELS[kind][3:]
     es = 4 if dtype == 'float32' else 2
     pairs = T * (T + 1) // 2 if causal else T * T
     flops = float(flop_per_col) * BH * pairs * d
-    if kind == 'fwd':
-        nbytes = es * 4 * BH * T * d + 4 * BH * T
-    else:
-        nbytes = es * (4 + n_out) * BH * T * d + 2 * 4 * BH * T
+    nbytes = es * (n_in + n_out) * BH * T * d + 4 * n_rows * BH * T
     peak = PEAK_FP32_FLOPS if dtype == 'float32' else PEAK_BF16_FLOPS
     t_ops = flops / peak * 1e3
     t_bytes = nbytes / PEAK_BYTES_PER_S * 1e3
     return max(t_ops, t_bytes), ('operations' if t_ops >= t_bytes
                                  else 'bytes')
+
+
+def sdpa_yardstick(q, k, v, causal):
+    """The library yardstick of the flash kernels, timed only: returns
+    (call, backend), where call() runs scaled_dot_product_attention on
+    4-D views [1, BH, T, d] of q, k, v ([BH, T, d], or [B, H, T, d] as
+    they are) under the one fused backend that takes them: flash
+    attention first, else memory-efficient attention. PyTorch's fused
+    backends refuse 3-D inputs, so without the views every call took the
+    unfused math path. Raises if no fused backend takes the inputs: the
+    math path is never timed."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    q4, k4, v4 = (t if t.dim() == 4 else t.unsqueeze(0) for t in (q, k, v))
+    errors = []
+    for backend in (SDPBackend.FLASH_ATTENTION,
+                    SDPBackend.EFFICIENT_ATTENTION):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q4, k4, v4,
+                                                      is_causal=causal)
+        try:
+            with warnings.catch_warnings():
+                # a refusing backend warns its reasons before it raises
+                warnings.simplefilter('ignore', UserWarning)
+                call()
+        except RuntimeError as e:
+            errors.append('%s: %s' % (backend.name, str(e).splitlines()[0]))
+            continue
+        return call, backend.name
+    raise RuntimeError('no fused scaled_dot_product_attention backend takes '
+                       '%s %s: %s' % (tuple(q4.shape), q4.dtype,
+                                      '; '.join(errors)))
+
+
+# edge shapes of every flash kernel check: (BH, T, d, causal)
+RAGGED_SHAPES = ((3, 200, 64, False), (2, 130, 128, True), (4, 64, 64, True),
+                 (1, 1, 128, False), (2, 1, 64, True))
 
 
 def _inputs(rng, BH, T, d, dtype, device):
@@ -316,7 +408,90 @@ def _row(kind, dtype, shape, causal, err, times, bound):
             'ms': times['ms'], 'plain_ms': times['plain_ms'],
             'bound_ms': bound[0], 'bound_by': bound[1],
             'library_ms': times.get('library_ms'),
+            'device_ms': times.get('device_ms'),
             'shape': list(shape), 'dtype': dtype, 'causal': causal}
+
+
+def _over_library(device_ms, library_ms):
+    """' (N.NNx the library)' from two torch.profiler device times, the
+    one clock both are read on; '' where either is missing."""
+    if device_ms is None or library_ms is None:
+        return ''
+    return ' (%.2fx the library by device time)' % (device_ms / library_ms)
+
+
+def _fmt_ms(x):
+    return 'n/a' if x is None else '%.4f' % x
+
+
+def _log_rows(rows):
+    for r in rows:
+        log('%s %s %s: kernel %.4f ms (device time %s ms), plain %.4f ms, '
+            'library %s ms, bound %.4f ms (%s)%s'
+            % (r['name'], r['dtype'], r['shape'], r['ms'],
+               _fmt_ms(r.get('device_ms')), r['plain_ms'],
+               _fmt_ms(r['library_ms']),
+               r['bound_ms'], r['bound_by'],
+               _over_library(r.get('device_ms'), r['library_ms'])))
+
+
+def _device_ms(fn, iters=10):
+    """Device time of one fn() from torch.profiler: the sum of its
+    kernels' time over `iters` calls, per call (None if the profiler saw
+    no device events). Unlike CUDA events around the calls, it leaves out
+    the time the card waits for the host."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(_device_us(e) for e in prof.key_averages()
+             if getattr(e, 'device_type', None) == DeviceType.CUDA)
+    return us / iters / 1e3 if us > 0 else None
+
+
+def _library_ms(fn):
+    """Device time of one library call fn() by torch.profiler, the only
+    clock the yardstick is read on: at small shapes the card runs the
+    library's calls faster than the host issues them, so CUDA events
+    around the calls would time the host. Raises if the profiler sees no
+    device time."""
+    ms = _device_ms(fn)
+    if ms is None:
+        raise RuntimeError('torch.profiler saw no device time in the '
+                           'library call')
+    return ms
+
+
+def _library_fwd_bwd(q, k, v, do, causal, label):
+    """The yardstick's forward, and its backward as fwd+bwd minus fwd,
+    both by _library_ms. Returns (fwd ms, bwd ms)."""
+    import torch
+    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
+    fwd, backend = sdpa_yardstick(qg, kg, vg, causal)
+    do4 = do.reshape(fwd().shape)
+
+    def fwd_bwd():
+        torch.autograd.grad(fwd(), (qg, kg, vg), do4)
+
+    fwd_ms, both_ms = _library_ms(fwd), _library_ms(fwd_bwd)
+    log('library (scaled_dot_product_attention, backend %s, %s %s causal=%s):'
+        ' device time fwd %.4f ms, bwd %.4f ms (fwd+bwd minus fwd)'
+        % (backend, label, list(q.shape), causal, fwd_ms, both_ms - fwd_ms))
+    return fwd_ms, both_ms - fwd_ms
+
+
+def _timed(fns):
+    """bracketed_ms of fns, plus the kernel's device time by
+    torch.profiler ('device_ms', None if not measured)."""
+    times = bracketed_ms(fns)
+    times['device_ms'] = _device_ms(fns['ms'])
+    return times
 
 
 @phase('b: kernels vs plain versions')
@@ -324,7 +499,6 @@ def check_kernels(cfg):
     """Correctness at the paths' shapes and at ragged ones, then times at
     the paths' shapes. Returns the kernels line's rows."""
     import torch
-    import torch.nn.functional as F
     from paddle_tpu_torch.kernels import flash_attention as fa
     rng = np.random.RandomState(SEED)
     dev = torch.device('cuda', 0)
@@ -336,10 +510,8 @@ def check_kernels(cfg):
     shapes = [(serve_bh, T, d, True, 'float32'),
               (train_bh, T, d, True, 'bfloat16'),
               (train_bh, T, d, True, 'float32')]
-    for dtype in ('float32', 'bfloat16'):
-        shapes += [(3, 200, 64, False, dtype), (2, 130, 128, True, dtype),
-                   (4, 64, 64, True, dtype), (1, 1, 128, False, dtype),
-                   (2, 1, 64, True, dtype)]
+    shapes += [s + (dtype,) for dtype in ('float32', 'bfloat16')
+               for s in RAGGED_SHAPES]
     for BH, t, dd, causal, dtype in shapes:
         errs = _check_shape(fa, rng, dev, BH, t, dd, causal, dtype)
         if (BH, t, dd) == (serve_bh, T, d) and dtype == 'float32':
@@ -352,12 +524,15 @@ def check_kernels(cfg):
     scale = d ** -0.5
     # K1 fp32 at the serving shape, as in the first slice
     q, k, v, _ = _inputs(rng, serve_bh, T, d, 'float32', dev)
-    times = bracketed_ms({
+    library, backend = sdpa_yardstick(q, k, v, True)
+    times = _timed({
         'ms': lambda: fa.flash_attention_fwd(q, k, v, True, scale),
         'plain_ms': lambda: fa.flash_attention_reference(q, k, v, True,
-                                                         scale),
-        'library_ms': lambda: F.scaled_dot_product_attention(
-            q, k, v, is_causal=True)})
+                                                         scale)})
+    times['library_ms'] = _library_ms(library)
+    log('library (scaled_dot_product_attention, backend %s, float32 %s '
+        'causal=True): device time fwd %.4f ms'
+        % (backend, [serve_bh, T, d], times['library_ms']))
     rows.append(_row('fwd', 'float32', (serve_bh, T, d), True,
                      path_errs[('fwd', 'float32')], times,
                      flash_bound_ms('fwd', serve_bh, T, d, True,
@@ -368,22 +543,13 @@ def check_kernels(cfg):
     o, lse = fa.flash_attention_fwd(q, k, v, True, scale)
     delta = fa.bwd_delta(o, do)
     args = (q, k, v, do, lse, delta, True, scale)
-    qg, kg, vg = (t.detach().clone().requires_grad_() for t in (q, k, v))
-
-    def sdpa_fwd():
-        return F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
-
-    def sdpa_fwd_bwd():
-        sdpa_fwd().backward(do)
-
+    lib_fwd_ms, lib_bwd_ms = _library_fwd_bwd(q, k, v, do, True, 'bf16')
     plain_bwd = lambda: fa.flash_attention_bwd_reference(  # noqa: E731
         q, k, v, o, lse, do, True, scale)
     fns = {
         'fwd': {'ms': lambda: fa.flash_attention_fwd(q, k, v, True, scale),
                 'plain_ms': lambda: fa.flash_attention_reference(
-                    q, k, v, True, scale),
-                'library_ms': lambda: F.scaled_dot_product_attention(
-                    q, k, v, is_causal=True)},
+                    q, k, v, True, scale)},
         'k2': {'ms': lambda: fa.flash_attention_bwd_kvmajor(*args),
                'plain_ms': plain_bwd},
         'k3a': {'ms': lambda: fa.flash_attention_bwd_dq(*args),
@@ -391,26 +557,148 @@ def check_kernels(cfg):
         'k3b': {'ms': lambda: fa.flash_attention_bwd_dkv(*args),
                 'plain_ms': plain_bwd},
     }
-    # the library's backward alone: fwd+bwd minus fwd, in one bracket
-    lib = bracketed_ms({'ms': sdpa_fwd, 'plain_ms': sdpa_fwd_bwd})
-    lib_bwd_ms = lib['plain_ms'] - lib['ms']
-    log('library backward (scaled_dot_product_attention, bf16 causal '
-        '[%d, %d, %d]): fwd+bwd %.4f ms - fwd %.4f ms = %.4f ms'
-        % (train_bh, T, d, lib['plain_ms'], lib['ms'], lib_bwd_ms))
     for kind, f in fns.items():
-        times = bracketed_ms(f)
-        if kind != 'fwd':
-            times['library_ms'] = lib_bwd_ms
+        times = _timed(f)
+        times['library_ms'] = lib_fwd_ms if kind == 'fwd' else lib_bwd_ms
         rows.append(_row(kind, 'bfloat16', (train_bh, T, d), True,
                          path_errs[(kind, 'bfloat16')], times,
                          flash_bound_ms(kind, train_bh, T, d, True,
                                         'bfloat16')))
-    for r in rows:
-        log('%s %s %s: kernel %.4f ms, plain %.4f ms, library %s ms, '
-            'bound %.4f ms (%s)'
-            % (r['name'], r['dtype'], r['shape'], r['ms'], r['plain_ms'],
-               'n/a' if r['library_ms'] is None
-               else '%.4f' % r['library_ms'], r['bound_ms'], r['bound_by']))
+    _log_rows(rows)
+    return rows
+
+
+def _acc_fp64_err(q, k, v, lse, causal, scale, outs):
+    """Max |x - o64| for each x in outs, where o64 = exp(s - lse)·v is
+    evaluated in fp64 (no all-masked rows): another order of sums and
+    another rounding than any fp32 evaluation."""
+    import torch
+    s = torch.matmul(q.double() * scale, k.double().transpose(-1, -2))
+    if causal:
+        T = q.shape[-2]
+        keep = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        s.masked_fill_(~keep, float('-inf'))
+    s.sub_(lse.double()[..., None]).exp_()
+    o64 = torch.matmul(s, v.double())
+    del s
+    return [(x.double() - o64).abs().max().item() for x in outs]
+
+
+def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
+    """Run K4a, K4b and K5 once at one shape and hold each against its
+    plain version on the same inputs (K4b gets the plain lse, K5 the
+    plain forward's o and lse); returns {kind: max_abs_err}. fp64=True
+    also logs K4b's and the plain version's distance from an fp64
+    evaluation. The plain intermediates are freed before returning."""
+    import torch
+    q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
+    scale = d ** -0.5
+    lse_ref = fa.flash_attention_stats_reference(q, k, causal, scale)
+    lse = fa.flash_attention_fwd_stats(q, k, causal, scale)
+    o = fa.flash_attention_fwd_acc(q, k, v, lse_ref, causal, scale)
+    torch.cuda.synchronize()
+    o_ref = fa.flash_attention_acc_reference(q, k, v, lse_ref, causal, scale)
+    errs = {'k4a': _max_err((lse,), (lse_ref,)),
+            'k4b': _max_err((o,), (o_ref,))}
+    if fp64:
+        e_kernel, e_plain = _acc_fp64_err(q, k, v, lse_ref, causal, scale,
+                                          (o, o_ref))
+        log('[%d, %d, %d] causal=%s %s: flash_attention_fwd_acc vs fp64 '
+            'max_abs_err %.3e, its plain version vs fp64 %.3e, mean |o| '
+            '%.3e' % (BH, T, d, causal, dtype, e_kernel, e_plain,
+                      o_ref.float().abs().mean().item()))
+    got = fa.flash_attention_bwd_onepass(q, k, v, do, lse_ref,
+                                         fa.bwd_delta(o_ref, do), causal,
+                                         scale)
+    torch.cuda.synchronize()
+    want = fa.flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do,
+                                            causal, scale)
+    errs['k5'] = _max_err(got, want)
+    finite = all(bool(torch.isfinite(t).all()) for t in (lse, o) + got)
+    tols = {'k4a': KERNEL_ATOL['float32'], 'k4b': KERNEL_ATOL[dtype],
+            'k5': KERNEL_ATOL[dtype]}
+    bad = [kind for kind, e in errs.items() if not e <= tols[kind]]
+    log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol lse %g, o and '
+        'grads %g) %s'
+        % (BH, T, d, causal, dtype,
+           ', '.join('%s %.3e' % (KERNELS[kd][0], e)
+                     for kd, e in errs.items()),
+           tols['k4a'], tols['k5'], 'ok' if not bad and finite
+           else 'MISMATCH'))
+    del q, k, v, do, lse, o, got, want, lse_ref, o_ref
+    torch.cuda.empty_cache()
+    if bad or not finite:
+        raise AssertionError('%s disagree with their plain versions at '
+                             '[%d, %d, %d] %s (finite: %s)'
+                             % ([KERNELS[kd][0] for kd in bad], BH, T, d,
+                                dtype, finite))
+    return errs
+
+
+@phase('b4: K4a, K4b, K5 vs plain versions at the long-context shape')
+def check_long_kernels(cfg):
+    """Correctness at the long-context path's shape (bf16 causal, and
+    fp32, where KERNEL_ATOL is ~1% of typical values: |o| ~1e-2 over up
+    to 8192 keys of a near-uniform softmax) and at phase b's ragged
+    shapes, fp32 and bf16; then times at the path's shape. Returns the
+    kernels line's rows."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    rng = np.random.RandomState(SEED + 6)
+    dev = torch.device('cuda', 0)
+    d, T = cfg.dim // cfg.heads, cfg.max_len
+    bh = LC_BATCH * cfg.heads
+    path_errs = _check_long_shape(fa, rng, dev, bh, T, d, True, 'bfloat16')
+    _check_long_shape(fa, rng, dev, bh, T, d, True, 'float32', fp64=True)
+    for dtype in ('float32', 'bfloat16'):
+        for shape in RAGGED_SHAPES:
+            _check_long_shape(fa, rng, dev, *shape, dtype)
+
+    scale = d ** -0.5
+    q, k, v, do = _inputs(rng, bh, T, d, 'bfloat16', dev)
+    lse = fa.flash_attention_fwd_stats(q, k, True, scale)
+    o = fa.flash_attention_fwd_acc(q, k, v, lse, True, scale)
+    delta = fa.bwd_delta(o, do)
+    args = (q, k, v, do, lse, delta, True, scale)
+    lib_fwd_ms, lib_bwd_ms = _library_fwd_bwd(q, k, v, do, True, 'bf16')
+    pair = _timed({
+        'ms': lambda: fa.flash_attention_fwd_acc(
+            q, k, v, fa.flash_attention_fwd_stats(q, k, True, scale), True,
+            scale),
+        'plain_ms': lambda: fa.flash_attention_acc_reference(
+            q, k, v, fa.flash_attention_stats_reference(q, k, True, scale),
+            True, scale)})
+    log('K4a + K4b (the twopass forward) at %s bf16 causal: kernels %.4f '
+        'ms (device time %s ms), plain %.4f ms, library forward %.4f ms%s'
+        % ([bh, T, d], pair['ms'], _fmt_ms(pair['device_ms']),
+           pair['plain_ms'], lib_fwd_ms,
+           _over_library(pair['device_ms'], lib_fwd_ms)))
+    fns = {
+        'k4a': {'ms': lambda: fa.flash_attention_fwd_stats(q, k, True,
+                                                           scale),
+                'plain_ms': lambda: fa.flash_attention_stats_reference(
+                    q, k, True, scale)},
+        'k4b': {'ms': lambda: fa.flash_attention_fwd_acc(q, k, v, lse, True,
+                                                         scale),
+                'plain_ms': lambda: fa.flash_attention_acc_reference(
+                    q, k, v, lse, True, scale)},
+        'k5': {'ms': lambda: fa.flash_attention_bwd_onepass(*args),
+               'plain_ms': lambda: fa.flash_attention_bwd_reference(
+                   q, k, v, o, lse, do, True, scale)},
+    }
+    rows = []
+    for kind, f in fns.items():
+        times = _timed(f)
+        # one PyTorch call computes K5's function (the library backward);
+        # none computes K4a's or K4b's alone (the pair's line is above)
+        times['library_ms'] = lib_bwd_ms if kind == 'k5' else None
+        rows.append(_row(kind, 'bfloat16', (bh, T, d), True, path_errs[kind],
+                         times, flash_bound_ms(kind, bh, T, d, True,
+                                               'bfloat16')))
+    _log_rows(rows)
+    fa.take_extra_flops()     # the timing launches are not a step's work
+    del q, k, v, do, lse, o, delta, args
+    torch.cuda.empty_cache()
     return rows
 
 
@@ -609,24 +897,27 @@ def profile_path(dec, prompts, times_ms, sync):
 
 # -- (t1)-(t4): the training step --------------------------------------------
 
-def train_flops_per_token(cfg):
-    """bench.py's _transformer_train_flops_per_token (:93-100) with
-    causal=False: 2 FLOP per MAC over qkv+proj, ffn, the full (T, not
-    T/2) attention and the head, x3 for forward + backward."""
+def train_flops_per_token(cfg, causal=False):
+    """bench.py's _transformer_train_flops_per_token (:93-100): 2 FLOP
+    per MAC over qkv+proj, ffn, attention and the head, x3 for forward +
+    backward. Attention counts T per token, or the useful T/2 when
+    causal (bench.py's long-context series)."""
     d, f, t, v, n = cfg.dim, cfg.ffn, cfg.max_len, cfg.vocab, cfg.layers
     per_layer = 4 * d * d + 2 * d * f
-    attn = 2 * t * d
+    attn = (t if causal else 2 * t) * d
     return 3 * 2 * (n * (per_layer + attn) + d * v)
 
 
 class Trainer(object):
-    """The flagship training step built as bench.py's _bench_lm builds it
-    (:198-235), with its state on the card."""
+    """An LM training step built as bench.py's _bench_lm builds it
+    (:198-235): py_reader `reader_name` fed `batch` sequences a step,
+    trunk, fused LM head with `head_chunk`, mean, Momentum(0.001, 0.9)
+    under AMP; its state on the card."""
 
-    def __init__(self, cfg, place):
+    def __init__(self, cfg, place, batch, head_chunk, reader_name):
         import paddle_tpu_torch as fluid
         from paddle_tpu_torch.models import transformer as tfm
-        self.fluid, self.cfg = fluid, cfg
+        self.fluid, self.cfg, self.batch = fluid, cfg, batch
         self.main, startup = fluid.Program(), fluid.Program()
         self.main.random_seed = startup.random_seed = SEED
         with fluid.unique_name.guard(), \
@@ -634,12 +925,12 @@ class Trainer(object):
             self.reader = fluid.layers.py_reader(
                 capacity=4,
                 shapes=[(-1, cfg.max_len, 1), (-1, cfg.max_len, 1)],
-                dtypes=['int64', 'int64'], name='tfm_reader',
+                dtypes=['int64', 'int64'], name=reader_name,
                 use_double_buffer=True)
             tokens, labels = fluid.layers.read_file(self.reader)
             trunk = tfm.language_model_trunk(tokens, cfg)
             cost = fluid.layers.fused_softmax_cross_entropy(
-                trunk, labels, cfg.vocab, chunk=HEAD_CHUNK, name='lm_head')
+                trunk, labels, cfg.vocab, chunk=head_chunk, name='lm_head')
             self.avg_cost = fluid.layers.mean(cost)
             opt = fluid.optimizer.Momentum(learning_rate=0.001,
                                            momentum=0.9)
@@ -686,16 +977,16 @@ def bench_provider(cfg, batch, rng):
 def train_steps(cfg, place, counters, sync):
     import torch
     t0 = time.perf_counter()
-    tr = Trainer(cfg, place)
+    tr = Trainer(cfg, place, TRAIN_BATCH, HEAD_CHUNK, 'tfm_reader')
     n_params = sum(int(np.prod(v.shape)) for v in tr.main.list_vars()
                    if v.persistable and getattr(v, 'trainable', False))
     ops = tr.main.global_block().ops
     log('training program: %d ops of %d types, %d parameters (%.2f GB '
         'fp32), batch %d x %d tokens, no depth cut; built and initialised '
         'in %.1f s' % (len(ops), len(set(o.type for o in ops)), n_params,
-                       n_params * 4 / 1e9, TRAIN_BATCH, cfg.max_len,
+                       n_params * 4 / 1e9, tr.batch, cfg.max_len,
                        time.perf_counter() - t0))
-    tr.feed(bench_provider(cfg, TRAIN_BATCH, np.random.RandomState(0)))
+    tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(0)))
     losses = [tr.step() for _ in range(WARMUP_STEPS)]
     sync()
     torch.cuda.reset_peak_memory_stats()
@@ -723,9 +1014,9 @@ def train_steps(cfg, place, counters, sync):
         raise AssertionError('K2 launched %d times in %d steps, want %d'
                              % (launches['flash_attention_bwd_kvmajor'],
                                 TIMED_STEPS, need))
-    if launches['flash_attention_bwd_dq'] or \
-            launches['flash_attention_bwd_dkv']:
-        raise AssertionError('K3 launched on the default (kvmajor) arm: %r'
+    others = [KERNELS[kd][0] for kd in ('k3a', 'k3b', 'k4a', 'k4b', 'k5')]
+    if any(launches[n] for n in others):
+        raise AssertionError('K3, K4 or K5 launched on the default arms: %r'
                              % launches)
     return tr, losses, step_ms, launches, peak_gb
 
@@ -773,7 +1064,7 @@ def _compare(what, a, b, params=PARAMS_COMPARED):
 def check_plain_step(tr, counters):
     import paddle_tpu_torch as fluid
     rng = np.random.RandomState(SEED + 2)
-    toks = rng.randint(0, tr.cfg.vocab, size=(TRAIN_BATCH, tr.cfg.max_len,
+    toks = rng.randint(0, tr.cfg.vocab, size=(tr.batch, tr.cfg.max_len,
                                               1)).astype('int64')
     batch = [toks, np.roll(toks, -1, axis=1)]
     saved = tr.snapshot()
@@ -822,7 +1113,7 @@ def check_split_step(tr, saved, batch, kernel, counters):
 @phase('t4: step time, tokens/s, MFU, device time')
 def profile_train(tr, step_ms, sync):
     cfg = tr.cfg
-    tokens = TRAIN_BATCH * cfg.max_len
+    tokens = tr.batch * cfg.max_len
     fl = train_flops_per_token(cfg)
     tok_s = tokens / step_ms * 1e3
     mfu = tok_s * fl / PEAK_BF16_FLOPS
@@ -831,7 +1122,7 @@ def profile_train(tr, step_ms, sync):
         'bf16 dense peak' % (step_ms, tok_s, tok_s * fl / 1e12, fl / 1e9,
                              fl * tokens / 1e12, mfu,
                              PEAK_BF16_FLOPS / 1e12))
-    tr.feed(bench_provider(cfg, TRAIN_BATCH, np.random.RandomState(1)))
+    tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(1)))
     tr.step()
     sync()
     device_ms, busy = _profile_steps(tr, step_ms, sync, 'train step')
@@ -882,7 +1173,11 @@ def _profile_steps(tr, step_ms, sync, label):
 def _kernel_kind(name):
     """Coarse class of a device kernel by its name."""
     low = name.lower()
-    for kind, marks in (('flash kernels (K1/K2/K3)', ('flash_',)),
+    if 'flash_bwd_q_kernel' in low and 'true>' in low:
+        return 'K5 (flash_bwd_q_kernel<..., true>)'
+    for kind, marks in (('K4a (flash_fwd_stats_kernel)', ('flash_fwd_stats',)),
+                        ('K4b (flash_fwd_acc_kernel)', ('flash_fwd_acc',)),
+                        ('flash kernels (K1/K2/K3)', ('flash_',)),
                         ('K6 (matmul + BN statistics)',
                          ('matmul_bn_stats', 'column_sums')),
                         ('convolutions (cuDNN)',
@@ -1363,7 +1658,237 @@ def profile_resnet(tr, step_ms, sync):
     return img_s, mfu, device_ms, busy
 
 
+# -- (l1)-(l3): the long-context LM under twopass / onepass ------------------
+
+@contextlib.contextmanager
+def flash_arms(fwd, bwd):
+    """PADDLE_FLASH_FWD / PADDLE_FLASH_BWD set to fwd / bwd (None: unset)
+    for the body, and restored after it."""
+    names = ('PADDLE_FLASH_FWD', 'PADDLE_FLASH_BWD')
+    prev = {n: os.environ.get(n) for n in names}
+    try:
+        for n, value in zip(names, (fwd, bwd)):
+            if value is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = value
+        yield
+    finally:
+        for n, value in prev.items():
+            if value is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = value
+
+
+@phase('l1: train the long-context LM under twopass / onepass (K4a, K4b, '
+       'K5)')
+def lc_steps(cfg, place, counters, sync):
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, place, LC_BATCH, LC_HEAD_CHUNK, LC_READER)
+    ops = tr.main.global_block().ops
+    n_params = sum(int(np.prod(v.shape)) for v in tr.main.list_vars()
+                   if v.persistable and getattr(v, 'trainable', False))
+    log('long-context program: vocab %d, dim %d, heads %d, layers %d, ffn '
+        '%d, max_len %d; %d ops of %d types, %d parameters, batch %d x %d '
+        'tokens, fused head chunk %d, no depth cut; built and initialised '
+        'in %.1f s'
+        % (cfg.vocab, cfg.dim, cfg.heads, cfg.layers, cfg.ffn, cfg.max_len,
+           len(ops), len(set(o.type for o in ops)), n_params, tr.batch,
+           cfg.max_len, LC_HEAD_CHUNK, time.perf_counter() - t0))
+    with flash_arms(*LC_ARMS):
+        tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(0)))
+        losses = [tr.step() for _ in range(WARMUP_STEPS)]
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        for c in counters.values():
+            c.launches = 0
+        fa.take_extra_flops()
+        t0 = time.perf_counter()
+        losses += [tr.step() for _ in range(TIMED_STEPS)]
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        extra_per_step = fa.take_extra_flops() / TIMED_STEPS
+        tr.reader.reset()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = wall / TIMED_STEPS * 1e3
+    log('losses: %s' % ', '.join('%.6f' % x for x in losses))
+    log('timed steps: %d in %.3f s, %.3f ms per step; launches %s; peak '
+        'device memory %.2f GB; extra FLOP noted by K4a %.4g per step'
+        % (TIMED_STEPS, wall, step_ms, json.dumps(launches), peak_gb,
+           extra_per_step))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('a long-context loss is not finite: %r'
+                             % losses)
+    need = cfg.layers * TIMED_STEPS
+    wrong = {n: c for n, c in launches.items()
+             if c != (need if n in [KERNELS[kd][0] for kd in
+                                    ('k4a', 'k4b', 'k5')] else 0)}
+    if wrong:
+        raise AssertionError('want K4a, K4b and K5 exactly %d times in %d '
+                             'steps and K1, K2, K3a, K3b never; got %r'
+                             % (need, TIMED_STEPS, wrong))
+    return tr, losses, step_ms, launches, peak_gb, extra_per_step
+
+
+def _timed_step(tr, saved, batch, sync):
+    """Wall ms of one step from the saved state (feed started first)."""
+    tr.restore(saved)
+
+    def provider():
+        while True:
+            yield batch
+    tr.feed(provider)
+    sync()
+    t0 = time.perf_counter()
+    tr.step()
+    sync()
+    return (time.perf_counter() - t0) * 1e3
+
+
+@phase('l2: twopass/onepass step vs default-arm step vs plain step')
+def check_lc_arms(tr, counters, sync):
+    import paddle_tpu_torch as fluid
+    cfg = tr.cfg
+    rng = np.random.RandomState(SEED + 5)
+    toks = rng.randint(0, cfg.vocab, size=(tr.batch, cfg.max_len,
+                                           1)).astype('int64')
+    batch = [toks, np.roll(toks, -1, axis=1)]
+    saved = tr.snapshot()
+    results, launches = {}, {}
+    for label, arms, flash in (('twopass/onepass', LC_ARMS, True),
+                               ('online/kvmajor', (None, None), True),
+                               ('plain', (None, None), False)):
+        with flash_arms(*arms):
+            fluid.set_flags({'FLAGS_use_flash_attention': flash})
+            try:
+                for c in counters.values():
+                    c.launches = 0
+                results[label] = _one_step(tr, saved, batch,
+                                           LC_PARAMS_COMPARED)
+                launches[label] = {n: c.launches
+                                   for n, c in counters.items()}
+            finally:
+                fluid.set_flags({'FLAGS_use_flash_attention': True})
+        log('%s step launches: %s' % (label, json.dumps(launches[label])))
+    L = cfg.layers
+    want = {'twopass/onepass': ('k4a', 'k4b', 'k5'),
+            'online/kvmajor': ('fwd', 'k2'), 'plain': ()}
+    for label, kinds in want.items():
+        names = [KERNELS[kd][0] for kd in kinds]
+        bad = {n: c for n, c in launches[label].items()
+               if c != (L if n in names else 0)}
+        if bad:
+            raise AssertionError('%s step: want %s %d times each and no '
+                                 'other flash kernel; got %r'
+                                 % (label, names, L, bad))
+    diffs = {
+        'plain': _compare('twopass/onepass step vs plain step',
+                          results['twopass/onepass'], results['plain'],
+                          LC_PARAMS_COMPARED),
+        'default': _compare('twopass/onepass step vs online/kvmajor step',
+                            results['twopass/onepass'],
+                            results['online/kvmajor'], LC_PARAMS_COMPARED)}
+    # the two kernel arms' steps in turns: A, B, B, A
+    times = {'twopass/onepass': [], 'online/kvmajor': []}
+    for label in ('twopass/onepass', 'online/kvmajor', 'online/kvmajor',
+                  'twopass/onepass'):
+        with flash_arms(*(LC_ARMS if label == 'twopass/onepass'
+                          else (None, None))):
+            times[label].append(_timed_step(tr, saved, batch, sync))
+    tr.reader.reset()
+    tr.restore(saved)
+    step_ms = {k: float(np.mean(v)) for k, v in times.items()}
+    log('one step from the saved state, in turns A B B A: twopass/onepass '
+        '%s ms, online/kvmajor %s ms (means %.3f / %.3f ms)'
+        % (', '.join('%.3f' % t for t in times['twopass/onepass']),
+           ', '.join('%.3f' % t for t in times['online/kvmajor']),
+           step_ms['twopass/onepass'], step_ms['online/kvmajor']))
+    return diffs, step_ms
+
+
+@phase('l3: long-context step time, tokens/s, MFU, device time')
+def profile_lc(tr, step_ms, extra_per_step, sync):
+    cfg = tr.cfg
+    tokens = tr.batch * cfg.max_len
+    fl = train_flops_per_token(cfg, causal=True)
+    tok_s = tokens / step_ms * 1e3
+    mfu = tok_s * fl / PEAK_BF16_FLOPS
+    executed = fl * tokens + extra_per_step
+    mfu_exec = executed / (step_ms / 1e3) / PEAK_BF16_FLOPS
+    log('long-context step: %.3f ms, %.1f tokens/s, MFU %.4f at bench.py\'s '
+        'causal %.4f GFLOP per token (%.3f TFLOP per step); by the executed '
+        'FLOPs (+ %.4g noted by K4a per step: %.3f TFLOP) MFU %.4f, of the '
+        '%.1f TFLOP/s bf16 dense peak'
+        % (step_ms, tok_s, mfu, fl / 1e9, fl * tokens / 1e12,
+           extra_per_step, executed / 1e12, mfu_exec,
+           PEAK_BF16_FLOPS / 1e12))
+    with flash_arms(*LC_ARMS):
+        tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(1)))
+        tr.step()
+        sync()
+        device_ms, busy = _profile_steps(tr, step_ms, sync,
+                                         'long-context step')
+        tr.reader.reset()
+    return tok_s, mfu, mfu_exec, device_ms, busy
+
+
+# -- (p): the exp / exp2 probe ------------------------------------------------
+
+@phase('p: the exp/exp2 probe P vs its plain version, and its rates')
+def check_probe():
+    import torch
+    from paddle_tpu_torch.tools import probe_exp2 as probe
+    x = probe.probe_input()
+    ragged = probe.probe_input((3, 7, 111))
+    errs = {}
+    for inp in (x, ragged):
+        for fn in probe.FNS:
+            for reps in (4, 8):
+                got = probe.exp_chain_kernel(inp, reps, fn)
+                torch.cuda.synchronize()
+                want = probe.exp_chain_reference(inp, reps, fn)
+                errs[(tuple(inp.shape), fn, reps)] = _max_err((got,), (want,))
+    worst = max(errs.values())
+    log('P vs its plain version: max_abs_err %s (atol %g) %s'
+        % (', '.join('%s %s x%d %.3e' % (list(sh), fn, r, e)
+                     for (sh, fn, r), e in errs.items()), PROBE_ATOL,
+           'ok' if worst <= PROBE_ATOL else 'MISMATCH'))
+    if not worst <= PROBE_ATOL:
+        raise AssertionError('P disagrees with its plain version')
+    # the probe's own run is P's main path
+    rate, how = probe.sfu_rate()
+    log('special-function-unit rate: %s' % how)
+    probe.exp_chain_kernel.launches = 0
+    rows = probe.measure(x)
+    launches = probe.exp_chain_kernel.launches
+    ratio = probe.report(rows, rate)
+    reps, fn, n = 8, 'exp2', x.numel()
+    times = bracketed_ms({
+        'ms': lambda: probe.exp_chain_kernel(x, reps, fn),
+        'plain_ms': lambda: probe.exp_chain_reference(x, reps, fn)})
+    # x read once and out written once; per element and step one exp2 on
+    # the special-function unit and a multiply and an add in fp32
+    t_bytes = 2 * 4 * n / PEAK_BYTES_PER_S * 1e3
+    t_ops = max(reps * n / rate, 2 * reps * n / PEAK_FP32_FLOPS) * 1e3
+    name, replaces, source = PROBE_SOURCE
+    row = {'name': name, 'route': 'cuda', 'source': source,
+           'replaces': replaces, 'launches': launches,
+           'max_abs_err': errs[(tuple(x.shape), fn, reps)],
+           'ms': times['ms'], 'plain_ms': times['plain_ms'],
+           'bound_ms': max(t_bytes, t_ops),
+           'bound_by': 'bytes' if t_bytes >= t_ops else 'operations',
+           'library_ms': None, 'shape': list(x.shape), 'dtype': 'float32',
+           'fn': fn, 'reps': reps}
+    _log_rows([row])
+    return row, rows, ratio
+
+
 def main():
+    t_start = time.perf_counter()
     try:
         import torch
     except ImportError:
@@ -1385,18 +1910,20 @@ def main():
     from paddle_tpu_torch.kernels import flash_attention as fa
     from paddle_tpu_torch.models.transformer import TransformerConfig
     counters = {KERNELS[kind][0]: getattr(fa, KERNELS[kind][0])
-                for kind in ('fwd', 'k2', 'k3a', 'k3b')}
+                for kind in KERNELS}
 
     card = gpu_name_and_power_limit()
     log('card: %s' % card)
     log('python %s, torch %s, cuda %s' % (sys.version.split()[0],
                                         torch.__version__, torch.version.cuda))
     cfg = TransformerConfig(**MODEL)
+    lc_cfg = TransformerConfig(**LC_MODEL)
     place = fluid.CUDAPlace(0)
     sync = torch.cuda.synchronize
     try:
         build_kernels()
         rows = check_kernels(cfg)
+        long_rows = check_long_kernels(lc_cfg)
         prompts = prompts_for(cfg.vocab, cfg.max_len)
         build_root = os.path.join(HERE, 'build')
         os.makedirs(build_root, exist_ok=True)
@@ -1438,13 +1965,24 @@ def main():
                                                            sync)
         del rtr
         torch.cuda.empty_cache()
+
+        (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
+         l_extra) = lc_steps(lc_cfg, place, counters, sync)
+        l_diffs, l_arm_ms = check_lc_arms(ltr, counters, sync)
+        l_tok_s, l_mfu, l_mfu_exec, l_device_ms, l_busy = profile_lc(
+            ltr, l_step_ms, l_extra, sync)
+        del ltr
+        torch.cuda.empty_cache()
+
+        probe_row, probe_rows, exp_over_exp2 = check_probe()
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
         traceback.print_exception(e.__cause__, file=sys.stderr)
         return 1
     # launches on each kernel's own main path: K1 fp32 in serving, K1
-    # bf16 and K2 in the timed training steps, K3a/K3b in the split step
+    # bf16 and K2 in the timed training steps, K3a/K3b in the split step,
+    # K4a/K4b/K5 in the timed long-context steps
     path_launches = {'flash_attention_fwd': launches['flash_attention_fwd'],
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'],
@@ -1454,10 +1992,13 @@ def main():
                          split_launches['flash_attention_bwd_dq'],
                      'flash_attention_bwd_dkv':
                          split_launches['flash_attention_bwd_dkv']}
+    for kind in ('k4a', 'k4b', 'k5'):
+        path_launches[KERNELS[kind][0]] = l_launches[KERNELS[kind][0]]
+    rows += long_rows
     for r in rows:
         r['launches'] = path_launches[r['name']]
     k6_row['launches'] = r_launches
-    rows.append(k6_row)
+    rows += [k6_row, probe_row]
     log('serving: %.3f s for %d requests x %d tokens, prefill %.3f ms, '
         'decode step %.3f ms, peak device memory %.2f GB'
         % (wall, N_REQUESTS, NEW_TOKENS, prefill_ms, step_ms, serve_peak_gb))
@@ -1477,6 +2018,18 @@ def main():
            r_peak_gb, len(r_losses), r_losses[-1], r_launches,
            r_plain_diffs[0],
            ', '.join('%s %.3e' % (k, v[0]) for k, v in pair_diffs.items())))
+    log('long-context training (T %d, batch %d, twopass/onepass): step %.3f '
+        'ms, %.1f tokens/s, MFU %.4f (causal count), %.4f (executed), '
+        'device busy %s, peak device memory %.2f GB, loss after %d steps '
+        '%.6f; loss |diff| vs plain %.3e, vs online/kvmajor %.3e; one step '
+        'twopass/onepass %.3f ms, online/kvmajor %.3f ms'
+        % (lc_cfg.max_len, LC_BATCH, l_step_ms, l_tok_s, l_mfu, l_mfu_exec,
+           'not measured' if l_busy is None else '%.1f%%' % (100 * l_busy),
+           l_peak_gb, len(l_losses), l_losses[-1], l_diffs['plain'][0],
+           l_diffs['default'][0], l_arm_ms['twopass/onepass'],
+           l_arm_ms['online/kvmajor']))
+    log('probe: one exp step costs %.3f x one exp2 step' % exp_over_exp2)
+    log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)
     log(json.dumps({'ok': True, 'device': {

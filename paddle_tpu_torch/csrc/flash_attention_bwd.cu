@@ -4,16 +4,19 @@
 //       paddle_tpu/pallas/flash_attention.py _bwd_kvmajor_kernel (:512),
 //       launched by _bwd_kvmajor (:952): the default, kv-major one-pass
 //       backward;
-//   K3a flash_bwd_dq_kernel<D, Elem>          replaces _dq_kernel (:339),
+//   K3a flash_bwd_q_kernel<D, Elem, false>   replaces _dq_kernel (:339),
 //       launched by _bwd_split (:871);
 //   K3b flash_bwd_kv_kernel<D, Elem, false>  replaces _dkv_kernel (:385),
 //       launched by _bwd_split (:898). K3a + K3b are the split arm
-//       (PADDLE_FLASH_BWD=split): deterministic, no atomics.
+//       (PADDLE_FLASH_BWD=split): deterministic, no atomics;
+//   K5  flash_bwd_q_kernel<D, Elem, true>    replaces _bwd_onepass_kernel
+//       (:436), launched by _bwd (:813): the qi-major one-pass backward
+//       (PADDLE_FLASH_BWD=onepass).
 //
 // Inputs: q, k, v, dO [BH, T, D] (fp32 or bf16), lse and
 // delta = rowsum(dO * O) [BH, T] fp32 (delta is computed by the wrapper
 // with a torch op, as the TPU package computes it outside its kernels).
-// All three kernels share the per-pair math pair_grads (the TPU's
+// All four kernels share the per-pair math pair_grads (the TPU's
 // _pair_grads, :365): for a (64-row q tile, 64-row k tile) pair
 //   S  = (q * scale) k^T            masked to -1e30: P is exactly 0 past
 //   P  = exp(S - lse)               the causal diagonal, for keys >= T
@@ -23,14 +26,16 @@
 // through the pre-scaled q and gets no extra factor), dQ += dS k (dq is
 // scaled once at the end).
 //
-// What bounds them on an H100: arithmetic. K2 does 5 matrix products
-// per visited pair (10 * D FLOP per score): at the training shape
-// (BH = 128, T = 512, D = 128, causal; 16.8M visited scores) that is
-// 21.5 GFLOP against 84 MB of bf16 q, k, v, dO, dq, dk, dv + fp32 lse,
-// delta, ~256 FLOP per byte. On the bf16 tensor cores the bound is
-// ~22 us; these kernels run the products as fp32 FMAs on the CUDA cores
-// (67 TFLOP/s peak), so they sit far above that bound. Tensor cores
-// (mma.sync / wgmma) and TMA are later work.
+// What bounds them on an H100: arithmetic. K2 and K5 do 5 matrix
+// products per visited pair (10 * D FLOP per score): at the training
+// shape (BH = 128, T = 512, D = 128, causal; 16.8M visited scores) that
+// is 21.5 GFLOP against 84 MB of bf16 q, k, v, dO, dq, dk, dv + fp32 lse,
+// delta, ~256 FLOP per byte, and at the long-context shape (BH = 16,
+// T = 8192, D = 128, causal; 536.9M visited scores) 687 GFLOP against
+// 50 MB. On the bf16 tensor cores the bounds are ~22 us and ~0.69 ms;
+// these kernels run the products as fp32 FMAs on the CUDA cores (67
+// TFLOP/s peak), so they sit far above them. Tensor cores (mma.sync /
+// wgmma) and TMA are later work.
 //
 // Design (right and simple first):
 //  - K2 and K3b: one block of 256 threads per (64-row k tile, bh): grid
@@ -45,8 +50,18 @@
 //    T = 512, D = 128 that is 256 KB per bh, over the 227 KB of shared
 //    memory). The wrapper scales it by sm_scale and casts it. The
 //    summation order varies from run to run;
-//  - K3a: one block per (64-row q tile, bh) loops over k tiles up to the
-//    diagonal and writes dQ directly;
+//  - K3a and K5: one block per (64-row q tile, bh) loops over k tiles up
+//    to the diagonal; dQ stays in fp32 registers and is written once,
+//    scaled;
+//  - K5's dK and dV: the TPU keeps them as full-sequence fp32 VMEM
+//    accumulators (:443-447, :847-849), 8 MB per bh at T = 8192, D = 128,
+//    far over the 227 KB of shared memory. Here each pair's partials
+//    P^T dO and dS^T (q * scale) are added into zeroed fp32 [BH, T, D]
+//    buffers with atomicAdd, and the wrapper casts them. That is twice
+//    K2's atomic traffic (2 x 64 x D atomics per pair against K2's one),
+//    and the last bits of dk and dv vary from run to run. No state is
+//    held across q tiles, so there is no residency rule (the TPU's guard,
+//    :799-801) and the arm runs at every T and dtype;
 //  - thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and columns
 //    tx + 16 j (i, j < 4) of each 64 x 64 pair tile, and rows ty + 16 i,
 //    columns tx + 16 c of each 64 x D gradient tile: every shared-memory
@@ -66,7 +81,7 @@ constexpr int smem_bytes() {
          (int)sizeof(float);
 }
 
-// The per-pair math shared by K2, K3a and K3b (module comment). Writes
+// The per-pair math shared by K2, K3a, K3b and K5 (module comment). Writes
 // P and dS of the pair to Ps and dSs ([q][k], row stride kBlock + 1).
 template <int D>
 __device__ __forceinline__ void pair_grads(
@@ -122,6 +137,70 @@ __device__ __forceinline__ void pair_grads(
   }
 }
 
+// One pair's dV += P^T dO and dK += dS^T (q * scale): rows are keys.
+template <int D>
+__device__ __forceinline__ void add_pair_dkv(const float* Ps,
+                                             const float* dSs,
+                                             const float* dOs,
+                                             const float* Qs, int tx, int ty,
+                                             float dk[4][D / 16],
+                                             float dv[4][D / 16]) {
+  constexpr int LD = D + 1;
+  constexpr int LDP = kBlock + 1;
+  constexpr int CPT = D / 16;
+#pragma unroll 4
+  for (int r = 0; r < kBlock; ++r) {
+    float pv[4], sv[4], ov[CPT], qv[CPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      pv[i] = Ps[r * LDP + ty + 16 * i];
+      sv[i] = dSs[r * LDP + ty + 16 * i];
+    }
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) {
+      ov[c] = dOs[r * LD + tx + 16 * c];
+      qv[c] = Qs[r * LD + tx + 16 * c];
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) {
+        dv[i][c] = fmaf(pv[i], ov[c], dv[i][c]);
+        dk[i][c] = fmaf(sv[i], qv[c], dk[i][c]);
+      }
+  }
+}
+
+// One pair's dQ += dS k: rows are queries.
+template <int D>
+__device__ __forceinline__ void add_pair_dq(const float* dSs,
+                                            const float* Ks, int tx, int ty,
+                                            float acc[4][D / 16]) {
+  constexpr int LD = D + 1;
+  constexpr int LDP = kBlock + 1;
+  constexpr int CPT = D / 16;
+#pragma unroll 4
+  for (int kc = 0; kc < kBlock; ++kc) {
+    float sv[4], kv[CPT];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * LDP + kc];
+#pragma unroll
+    for (int c = 0; c < CPT; ++c) kv[c] = Ks[kc * LD + tx + 16 * c];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void zero(float a[4][D / 16]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < D / 16; ++c) a[i][c] = 0.f;
+}
+
 // K2 (kDQ = true) and K3b (kDQ = false): one block per (k tile, bh).
 template <int D, typename Elem, bool kDQ>
 __global__ void __launch_bounds__(kThreads)
@@ -156,13 +235,8 @@ flash_bwd_kv_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   flash::load_tile<D>(Vs, v + base, k0, T, 1.f, tid);
 
   float dk_acc[4][CPT], dv_acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) {
-      dk_acc[i][c] = 0.f;
-      dv_acc[i][c] = 0.f;
-    }
+  zero<D>(dk_acc);
+  zero<D>(dv_acc);
 
   const int nq = (T + kBlock - 1) / kBlock;
   const int first = causal ? k0 / kBlock : 0;
@@ -178,48 +252,13 @@ flash_bwd_kv_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                   causal, tx, ty);
     __syncthreads();
 
-    // dV += P^T dO and dK += dS^T (q * scale): rows are keys
-#pragma unroll 4
-    for (int r = 0; r < kBlock; ++r) {
-      float pv[4], sv[4], ov[CPT], qv[CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        pv[i] = Ps[r * LDP + ty + 16 * i];
-        sv[i] = dSs[r * LDP + ty + 16 * i];
-      }
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) {
-        ov[c] = dOs[r * LD + tx + 16 * c];
-        qv[c] = Qs[r * LD + tx + 16 * c];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) {
-          dv_acc[i][c] = fmaf(pv[i], ov[c], dv_acc[i][c]);
-          dk_acc[i][c] = fmaf(sv[i], qv[c], dk_acc[i][c]);
-        }
-    }
+    add_pair_dkv<D>(Ps, dSs, dOs, Qs, tx, ty, dk_acc, dv_acc);
 
     if (kDQ) {
       // this k tile's share of dQ = dS k, added into the fp32 buffer
       float acc[4][CPT];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-#pragma unroll 4
-      for (int kc = 0; kc < kBlock; ++kc) {
-        float sv[4], kv[CPT];
-#pragma unroll
-        for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * LDP + kc];
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) kv[c] = Ks[kc * LD + tx + 16 * c];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
-      }
+      zero<D>(acc);
+      add_pair_dq<D>(dSs, Ks, tx, ty, acc);
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
         const int row = q0 + ty + 16 * i;
@@ -245,14 +284,17 @@ flash_bwd_kv_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
 }
 
-// K3a: one block per (q tile, bh); writes dq = sm_scale * sum_k dS k.
-template <int D, typename Elem>
+// K3a (kDKV = false) and K5 (kDKV = true): one block per (q tile, bh);
+// writes dq = sm_scale * sum_k dS k. K5 also adds each pair's dV and dK
+// partials into the zeroed fp32 buffers dk_acc and dv_acc.
+template <int D, typename Elem, bool kDKV>
 __global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                    const Elem* __restrict__ v, const Elem* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, Elem* __restrict__ dq,
-                    int T, int causal, float sm_scale) {
+flash_bwd_q_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
+                   const Elem* __restrict__ v, const Elem* __restrict__ dout,
+                   const float* __restrict__ lse,
+                   const float* __restrict__ delta, Elem* __restrict__ dq,
+                   float* __restrict__ dk_acc, float* __restrict__ dv_acc,
+                   int T, int causal, float sm_scale) {
   constexpr int LD = D + 1;
   constexpr int LDP = kBlock + 1;
   constexpr int CPT = D / 16;
@@ -279,10 +321,7 @@ flash_bwd_dq_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   flash::load_rows(delta_s, delta + rbase, q0, T, tid);
 
   float acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
+  zero<D>(acc);
 
   const int nk = (T + kBlock - 1) / kBlock;
   int last = nk - 1;
@@ -297,19 +336,26 @@ flash_bwd_dq_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
                   causal, tx, ty);
     __syncthreads();
 
-#pragma unroll 4
-    for (int kc = 0; kc < kBlock; ++kc) {
-      float sv[4], kv[CPT];
+    add_pair_dq<D>(dSs, Ks, tx, ty, acc);
+    if (kDKV) {
+      // this pair's share of dK and dV, added into the fp32 buffers
+      float dk_p[4][CPT], dv_p[4][CPT];
+      zero<D>(dk_p);
+      zero<D>(dv_p);
+      add_pair_dkv<D>(Ps, dSs, dOs, Qs, tx, ty, dk_p, dv_p);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) sv[i] = dSs[(ty + 16 * i) * LDP + kc];
+      for (int i = 0; i < 4; ++i) {
+        const int row = k0 + ty + 16 * i;
+        if (row >= T) continue;
 #pragma unroll
-      for (int c = 0; c < CPT; ++c) kv[c] = Ks[kc * LD + tx + 16 * c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int c = 0; c < CPT; ++c) acc[i][c] = fmaf(sv[i], kv[c], acc[i][c]);
+        for (int c = 0; c < CPT; ++c) {
+          const long at = base + (long)row * D + tx + 16 * c;
+          atomicAdd(dk_acc + at, dk_p[i][c]);
+          atomicAdd(dv_acc + at, dv_p[i][c]);
+        }
+      }
     }
-    __syncthreads();  // K, V and dS are overwritten by the next tile
+    __syncthreads();  // K, V, P and dS are overwritten by the next tile
   }
 
 #pragma unroll
@@ -323,74 +369,38 @@ flash_bwd_dq_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
   }
 }
 
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, int smem) {
-  return cudaFuncSetAttribute(kernel,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem);
-}
-
-template <int D, typename Elem, bool kDQ>
-int launch_kv(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, float* dq_acc, void* dk,
-              void* dv, int bh, int t, int causal, float sm_scale,
-              cudaStream_t stream) {
-  auto kernel = flash_bwd_kv_kernel<D, Elem, kDQ>;
-  const int smem = smem_bytes<D>();
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + kBlock - 1) / kBlock, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k),
-      static_cast<const Elem*>(v), static_cast<const Elem*>(dout), lse, delta,
-      dq_acc, static_cast<Elem*>(dk), static_cast<Elem*>(dv), t, causal,
-      sm_scale);
-  return (int)cudaGetLastError();
-}
-
-template <int D, typename Elem>
-int launch_dq(const void* q, const void* k, const void* v, const void* dout,
-              const float* lse, const float* delta, void* dq, int bh, int t,
-              int causal, float sm_scale, cudaStream_t stream) {
-  auto kernel = flash_bwd_dq_kernel<D, Elem>;
-  const int smem = smem_bytes<D>();
-  cudaError_t err = prepare(kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((t + kBlock - 1) / kBlock, bh);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const Elem*>(q), static_cast<const Elem*>(k),
-      static_cast<const Elem*>(v), static_cast<const Elem*>(dout), lse, delta,
-      static_cast<Elem*>(dq), t, causal, sm_scale);
-  return (int)cudaGetLastError();
-}
-
 template <typename Elem, bool kDQ>
 int kv(const void* q, const void* k, const void* v, const void* dout,
        const float* lse, const float* delta, float* dq_acc, void* dk,
        void* dv, int bh, int t, int d, int causal, float sm_scale,
        void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_kv<64, Elem, kDQ>(q, k, v, dout, lse, delta, dq_acc, dk,
-                                    dv, bh, t, causal, sm_scale, s);
-  if (d == 128)
-    return launch_kv<128, Elem, kDQ>(q, k, v, dout, lse, delta, dq_acc, dk,
-                                     dv, bh, t, causal, sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+  return flash::by_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return flash::run(flash_bwd_kv_kernel<D, Elem, kDQ>, smem_bytes<D>(), bh,
+                      t, stream, static_cast<const Elem*>(q),
+                      static_cast<const Elem*>(k),
+                      static_cast<const Elem*>(v),
+                      static_cast<const Elem*>(dout), lse, delta, dq_acc,
+                      static_cast<Elem*>(dk), static_cast<Elem*>(dv), t,
+                      causal, sm_scale);
+  });
 }
 
-template <typename Elem>
-int dq_only(const void* q, const void* k, const void* v, const void* dout,
-            const float* lse, const float* delta, void* dq, int bh, int t,
-            int d, int causal, float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch_dq<64, Elem>(q, k, v, dout, lse, delta, dq, bh, t, causal,
-                               sm_scale, s);
-  if (d == 128)
-    return launch_dq<128, Elem>(q, k, v, dout, lse, delta, dq, bh, t, causal,
-                                sm_scale, s);
-  return (int)cudaErrorInvalidValue;
+template <typename Elem, bool kDKV>
+int qmajor(const void* q, const void* k, const void* v, const void* dout,
+           const float* lse, const float* delta, void* dq, float* dk_acc,
+           float* dv_acc, int bh, int t, int d, int causal, float sm_scale,
+           void* stream) {
+  return flash::by_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return flash::run(flash_bwd_q_kernel<D, Elem, kDKV>, smem_bytes<D>(), bh,
+                      t, stream, static_cast<const Elem*>(q),
+                      static_cast<const Elem*>(k),
+                      static_cast<const Elem*>(v),
+                      static_cast<const Elem*>(dout), lse, delta,
+                      static_cast<Elem*>(dq), dk_acc, dv_acc, t, causal,
+                      sm_scale);
+  });
 }
 
 }  // namespace
@@ -424,16 +434,17 @@ extern "C" int flash_attention_bwd_dq_f32(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int bh, int t, int d,
     int causal, float sm_scale, void* stream) {
-  return dq_only<float>(q, k, v, dout, lse, delta, dq, bh, t, d, causal,
-                        sm_scale, stream);
+  return qmajor<float, false>(q, k, v, dout, lse, delta, dq, nullptr,
+                              nullptr, bh, t, d, causal, sm_scale, stream);
 }
 
 extern "C" int flash_attention_bwd_dq_bf16(
     const void* q, const void* k, const void* v, const void* dout,
     const float* lse, const float* delta, void* dq, int bh, int t, int d,
     int causal, float sm_scale, void* stream) {
-  return dq_only<__nv_bfloat16>(q, k, v, dout, lse, delta, dq, bh, t, d,
-                                causal, sm_scale, stream);
+  return qmajor<__nv_bfloat16, false>(q, k, v, dout, lse, delta, dq, nullptr,
+                                      nullptr, bh, t, d, causal, sm_scale,
+                                      stream);
 }
 
 // K3b.
@@ -451,4 +462,25 @@ extern "C" int flash_attention_bwd_dkv_bf16(
     int d, int causal, float sm_scale, void* stream) {
   return kv<__nv_bfloat16, false>(q, k, v, dout, lse, delta, nullptr, dk, dv,
                                   bh, t, d, causal, sm_scale, stream);
+}
+
+// K5. dk_acc, dv_acc: [bh, t, d] fp32, zeroed by the caller; receive the
+// summed dK and dV.
+extern "C" int flash_attention_bwd_onepass_f32(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, float* dk_acc,
+    float* dv_acc, int bh, int t, int d, int causal, float sm_scale,
+    void* stream) {
+  return qmajor<float, true>(q, k, v, dout, lse, delta, dq, dk_acc, dv_acc,
+                             bh, t, d, causal, sm_scale, stream);
+}
+
+extern "C" int flash_attention_bwd_onepass_bf16(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, float* dk_acc,
+    float* dv_acc, int bh, int t, int d, int causal, float sm_scale,
+    void* stream) {
+  return qmajor<__nv_bfloat16, true>(q, k, v, dout, lse, delta, dq, dk_acc,
+                                     dv_acc, bh, t, d, causal, sm_scale,
+                                     stream);
 }

@@ -1,5 +1,6 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile sizes, fp32/bf16 loads, and tile staging.
+// flash_attention_bwd.cu): tile sizes, fp32/bf16 loads, tile staging, and
+// the launch of one block per (64-row tile, bh).
 //
 // Every kernel stages 64-row tiles of [T, D] matrices (q, k, v, dO) in
 // shared memory as fp32 with a row stride of D + 1 floats: the column
@@ -9,6 +10,8 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace flash {
 
@@ -86,6 +89,29 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
                                           int row0, int T, int tid) {
   for (int r = tid; r < kBlock; r += kThreads)
     dst[r] = row0 + r < T ? src[row0 + r] : 0.f;
+}
+
+// Launch one block of kThreads per (64-row tile, bh), grid (ceil(t/64),
+// bh), with `smem` bytes of dynamic shared memory; returns the CUDA error
+// code of the launch.
+template <typename... KArgs, typename... Args>
+int run(void (*kernel)(KArgs...), int smem, int bh, int t, void* stream,
+        Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid((t + kBlock - 1) / kBlock, bh);
+  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
+// f(std::integral_constant<int, D>()) for a head dim d of 64 or 128.
+template <typename F>
+int by_dim(int d, F f) {
+  if (d == 64) return f(std::integral_constant<int, 64>());
+  if (d == 128) return f(std::integral_constant<int, 128>());
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace flash

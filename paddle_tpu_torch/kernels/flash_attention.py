@@ -4,9 +4,12 @@ kernels in paddle_tpu/pallas/flash_attention.py.
 | kernel | TPU body (launch site) | here |
 |---|---|---|
 | K1  | `_fwd_kernel` :171 (`_fwd_online` :684) | `flash_attention_fwd`, csrc/flash_attention_fwd.cu |
+| K4a | `_fwd_stats_kernel` :229 (`_fwd_twopass` :728) | `flash_attention_fwd_stats`, same file |
+| K4b | `_fwd_acc_kernel` :276 (`_fwd_twopass` :758) | `flash_attention_fwd_acc`, same file |
 | K2  | `_bwd_kvmajor_kernel` :512 (`_bwd_kvmajor` :952) | `flash_attention_bwd_kvmajor`, csrc/flash_attention_bwd.cu |
 | K3a | `_dq_kernel` :339 (`_bwd_split` :871) | `flash_attention_bwd_dq`, same file |
 | K3b | `_dkv_kernel` :385 (`_bwd_split` :898) | `flash_attention_bwd_dkv`, same file |
+| K5  | `_bwd_onepass_kernel` :436 (`_bwd` :813) | `flash_attention_bwd_onepass`, same file |
 
 The kernels are CUDA C++ for sm_90a, built with nvcc at first use
 (kernels/build.py) and called through ctypes on PyTorch's current
@@ -17,20 +20,35 @@ says what bounds it on an H100 and what its design does about that.
 - Each wrapper checks device, dtype, shape and contiguity, launches its
   kernel, raises if the launch fails, and counts its launches in
   `<wrapper>.launches`. A CPU tensor makes it raise.
-- `flash_attention_reference` and `flash_attention_bwd_reference` are
-  the plain PyTorch versions of the same functions: they serve CPU
-  tensors, and the card's checks hold the kernels against them.
-- `FlashAttention` is the autograd Function: its forward calls K1 and
-  saves (q, k, v, o, lse); its backward computes delta = rowsum(dO·O) in
-  fp32 with a torch op, as the JAX package's `_bwd` :785 does outside
-  its kernels, then launches K2 (the default arm, 'kvmajor') or K3a +
-  K3b (PADDLE_FLASH_BWD=split, the deterministic arm: no atomics). The
-  arm is read from the environment on every call; 'onepass' (K5) is not
-  ported and raises. The forward reads PADDLE_FLASH_FWD the same way on
-  every call: '' or 'online' is K1, 'twopass' (K4) is not ported and
-  raises, any other value raises ValueError. CPU tensors, or
-  force_plain=True (FLAGS_use_flash_attention=False), take the plain
-  versions.
+- `flash_attention_reference`, `flash_attention_stats_reference`,
+  `flash_attention_acc_reference` and `flash_attention_bwd_reference`
+  are the plain PyTorch versions of the same functions: they serve CPU
+  tensors, and the card's checks hold the kernels against them (K2, K3
+  and K5 compute one function, the plain backward).
+- `FlashAttention` is the autograd Function. Its forward reads
+  PADDLE_FLASH_FWD on every call: '' or 'online' is K1, 'twopass' is K4a
+  then K4b, any other value raises ValueError. It saves (q, k, v, o,
+  lse). Its backward computes delta = rowsum(dO·O) in fp32 with a torch
+  op, as the JAX package's `_bwd` :785 does outside its kernels, and
+  reads PADDLE_FLASH_BWD on every call: 'kvmajor' (the default) is K2,
+  'split' is K3a + K3b (deterministic: no atomics), 'onepass' is K5, any
+  other value raises. CPU tensors, or force_plain=True
+  (FLAGS_use_flash_attention=False), take the plain versions in the same
+  order (under twopass the stats version, then the acc version).
+- The TPU package swaps a forced arm for another when its VMEM residency
+  rules would be broken (`_fwd` :653-656 for twopass, `_bwd` :799-804
+  for onepass and kvmajor). Those rules are about VMEM and are not
+  ported: neither K4 nor the port's K5 keeps full-sequence state on
+  chip (K5 adds dK and dV into fp32 buffers in device memory), so a
+  forced arm runs as forced at every T. The one case where this differs
+  from the JAX package is fp32 at T = 8192, d = 128, where the JAX
+  package runs split in place of onepass; the results agree either way.
+- The twopass forward does a second q·kᵀ sweep that the 2-matmul
+  attention work model does not count. Each K4a launch notes that work,
+  2·BH·(visited scores of its 64 x 64 tiles)·d FLOP, and
+  `take_extra_flops()` drains the notes (the JAX package's
+  `_note_extra_flops` / `take_extra_flops`, :126-146). The plain
+  versions note nothing.
 - `flash_attention` is the public entry ([B, H, T, d] or [BH, T, d]).
 """
 from __future__ import annotations
@@ -44,10 +62,12 @@ import torch
 from . import build
 
 __all__ = ['flash_attention', 'flash_attention_fwd',
-           'flash_attention_reference', 'flash_attention_bwd_kvmajor',
+           'flash_attention_reference', 'flash_attention_fwd_stats',
+           'flash_attention_stats_reference', 'flash_attention_fwd_acc',
+           'flash_attention_acc_reference', 'flash_attention_bwd_kvmajor',
            'flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
-           'flash_attention_bwd_reference', 'FlashAttention', 'bwd_arm',
-           'fwd_arm',
+           'flash_attention_bwd_onepass', 'flash_attention_bwd_reference',
+           'FlashAttention', 'bwd_arm', 'fwd_arm', 'take_extra_flops',
            'SUPPORTED_HEAD_DIMS', 'SUPPORTED_DTYPES']
 
 SUPPORTED_HEAD_DIMS = (64, 128)
@@ -55,10 +75,12 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 BWD_ARMS = ('kvmajor', 'split', 'onepass')
 FWD_ARMS = ('online', 'twopass')
 _NEG_INF = -1e30
+_BLOCK = 64                 # rows of the kernels' q and k tiles
 _MAX_GRID_Y = 65535
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
 _count_lock = threading.Lock()
+_extra_flops = 0.0
 
 
 def _kernel(lib_name, fn_name, n_ptrs):
@@ -72,6 +94,25 @@ def _kernel(lib_name, fn_name, n_ptrs):
 def _count(wrapper):
     with _count_lock:
         wrapper.launches += 1
+
+
+def twopass_extra_flops(BH, T, d, causal):
+    """The second q·kᵀ sweep of one twopass forward, as the kernels
+    execute it: 2·d FLOP for every score of every visited 64 x 64 tile
+    pair (causal: the tiles up to the diagonal), padding included."""
+    n = -(-T // _BLOCK)
+    tiles = n * (n + 1) // 2 if causal else n * n
+    return 2.0 * BH * tiles * _BLOCK * _BLOCK * d
+
+
+def take_extra_flops():
+    """Drain the extra-work notes of the K4a launches since the last
+    drain: FLOP that ran but that the 2-matmul attention model does not
+    count."""
+    global _extra_flops
+    with _count_lock:
+        flops, _extra_flops = _extra_flops, 0.0
+    return flops
 
 
 def _check(who, ref, named):
@@ -141,22 +182,84 @@ def flash_attention_fwd(q, k, v, causal, sm_scale):
 flash_attention_fwd.launches = 0
 
 
-def flash_attention_reference(q, k, v, causal, sm_scale):
-    """Plain PyTorch version of K1: an explicit fp32 q·kᵀ·scale, a -1e30
-    causal mask, softmax, then ·v; o in q's dtype, lse fp32. Same
-    arguments and results as flash_attention_fwd, on any device."""
-    qf, kf, vf = q.float(), k.float(), v.float()
-    s = torch.matmul(qf * sm_scale, kf.transpose(-1, -2))
+def _masked_scores(q, k, causal, sm_scale):
+    """fp32 q·kᵀ·scale with -1e30 past the causal diagonal."""
+    s = torch.matmul(q.float() * sm_scale, k.float().transpose(-1, -2))
     if causal:
         T = q.shape[-2]
         mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
         s = s.masked_fill(~mask, _NEG_INF)
+    return s
+
+
+def flash_attention_reference(q, k, v, causal, sm_scale):
+    """Plain PyTorch version of K1: an explicit fp32 q·kᵀ·scale, a -1e30
+    causal mask, softmax, then ·v; o in q's dtype, lse fp32. Same
+    arguments and results as flash_attention_fwd, on any device."""
+    s = _masked_scores(q, k, causal, sm_scale)
     lse = torch.logsumexp(s, dim=-1)
-    o = torch.matmul(torch.softmax(s, dim=-1), vf).to(q.dtype)
+    o = torch.matmul(torch.softmax(s, dim=-1), v.float()).to(q.dtype)
     return o, lse
 
 
-# -- K2, K3a, K3b: backward ----------------------------------------------------
+# -- K4a, K4b: the two-pass forward --------------------------------------------
+
+def flash_attention_fwd_stats(q, k, causal, sm_scale):
+    """Launch K4a, pass 1 of the two-pass forward. q, k: [BH, T, d]
+    float32 or bfloat16, contiguous, on one CUDA device. Returns lse
+    [BH, T] float32 (-1e30 for an all-masked row). Notes the second q·kᵀ
+    sweep for take_extra_flops. Does not synchronise."""
+    who = 'flash_attention_fwd_stats'
+    _check(who, q, (('q', q), ('k', k)))
+    BH, T, d = q.shape
+    lse = torch.empty((BH, T), dtype=torch.float32, device=q.device)
+    fn = _kernel('flash_attention_fwd',
+                 'flash_attention_fwd_stats_' + _SUFFIX[q.dtype], 3)
+    _launch(who, fn, (q, k, lse), q, causal, sm_scale)
+    global _extra_flops
+    with _count_lock:
+        _extra_flops += twopass_extra_flops(BH, T, d, causal)
+        flash_attention_fwd_stats.launches += 1
+    return lse
+
+
+flash_attention_fwd_stats.launches = 0
+
+
+def flash_attention_fwd_acc(q, k, v, lse, causal, sm_scale):
+    """Launch K4b, pass 2: o = Σ exp(s − lse)·v over the visited keys,
+    with the shift zeroed where lse <= -5e29. q, k, v: [BH, T, d] in one
+    dtype; lse: [BH, T] float32 from K4a. Returns o in q's dtype."""
+    who = 'flash_attention_fwd_acc'
+    _check(who, q, (('q', q), ('k', k), ('v', v), ('lse', lse)))
+    o = torch.empty_like(q)
+    fn = _kernel('flash_attention_fwd',
+                 'flash_attention_fwd_acc_' + _SUFFIX[q.dtype], 5)
+    _launch(who, fn, (q, k, v, lse, o), q, causal, sm_scale)
+    _count(flash_attention_fwd_acc)
+    return o
+
+
+flash_attention_fwd_acc.launches = 0
+
+
+def flash_attention_stats_reference(q, k, causal, sm_scale):
+    """Plain PyTorch version of K4a: the row log-sum-exp of the masked
+    fp32 scores, [BH, T] float32, on any device."""
+    return torch.logsumexp(_masked_scores(q, k, causal, sm_scale), dim=-1)
+
+
+def flash_attention_acc_reference(q, k, v, lse, causal, sm_scale):
+    """Plain PyTorch version of K4b: exp(s − lse)·v in fp32, the shift
+    zeroed where lse <= -5e29 (an all-masked row), o in q's dtype."""
+    s = _masked_scores(q, k, causal, sm_scale)
+    lse = lse.float()
+    shift = torch.where(lse <= _NEG_INF / 2, torch.zeros_like(lse), lse)
+    p = torch.exp(s - shift[..., None])
+    return torch.matmul(p, v.float()).to(q.dtype)
+
+
+# -- K2, K3a, K3b, K5: backward ------------------------------------------------
 
 def _bwd_check(who, q, k, v, do, lse, delta):
     _check(who, q, (('q', q), ('k', k), ('v', v), ('do', do),
@@ -216,6 +319,27 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
 flash_attention_bwd_dkv.launches = 0
 
 
+def flash_attention_bwd_onepass(q, k, v, do, lse, delta, causal, sm_scale):
+    """Launch K5, the qi-major one-pass backward. Same arguments as
+    flash_attention_bwd_kvmajor; returns (dq, dk, dv) in q's dtype. dk
+    and dv are summed over q tiles with float32 atomics into zeroed
+    buffers, then cast here, so their last bits vary from run to run."""
+    who = 'flash_attention_bwd_onepass'
+    _bwd_check(who, q, k, v, do, lse, delta)
+    dq = torch.empty_like(q)
+    dk_acc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv_acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    fn = _kernel('flash_attention_bwd',
+                 'flash_attention_bwd_onepass_' + _SUFFIX[q.dtype], 9)
+    _launch(who, fn, (q, k, v, do, lse, delta, dq, dk_acc, dv_acc), q,
+            causal, sm_scale)
+    _count(flash_attention_bwd_onepass)
+    return dq, dk_acc.to(k.dtype), dv_acc.to(v.dtype)
+
+
+flash_attention_bwd_onepass.launches = 0
+
+
 def bwd_delta(o, do):
     """delta = rowsum(dO·O) in fp32, [BH, T]: what every backward arm
     reads beside lse (the JAX package's `_bwd` :785)."""
@@ -228,13 +352,9 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal, sm_scale):
     delta = rowsum(dO·O), dS = P∘(dP - delta); dv = Pᵀ·dO,
     dk = dSᵀ·(q·scale), dq = dS·k·scale. Returns (dq, dk, dv) in the
     input dtypes, on any device."""
-    qf, kf, vf, dof = q.float(), k.float(), v.float(), do.float()
-    qs = qf * sm_scale
-    s = torch.matmul(qs, kf.transpose(-1, -2))
-    if causal:
-        T = q.shape[-2]
-        mask = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
-        s = s.masked_fill(~mask, _NEG_INF)
+    kf, vf, dof = k.float(), v.float(), do.float()
+    qs = q.float() * sm_scale
+    s = _masked_scores(q, k, causal, sm_scale)
     p = torch.exp(s - lse.float()[..., None])
     dp = torch.matmul(dof, vf.transpose(-1, -2))
     ds = p * (dp - bwd_delta(o, do)[..., None])
@@ -246,39 +366,27 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal, sm_scale):
 
 def bwd_arm():
     """The backward arm for this call, from PADDLE_FLASH_BWD (read on
-    every call, never cached): 'kvmajor' (K2, the default) or 'split'
-    (K3a + K3b). 'onepass' (K5) is not ported and raises; an unknown
-    value raises too, so an A/B run never measures the default arm by
-    mistake."""
+    every call, never cached): 'kvmajor' (K2, the default), 'split' (K3a
+    + K3b) or 'onepass' (K5). An unknown value raises, so an A/B run
+    never measures the default arm by mistake."""
     arm = os.environ.get('PADDLE_FLASH_BWD', '').strip().lower() or \
         'kvmajor'
     if arm not in BWD_ARMS:
         raise ValueError('PADDLE_FLASH_BWD=%r: expected one of %s'
                          % (arm, BWD_ARMS))
-    if arm == 'onepass':
-        raise NotImplementedError(
-            'PADDLE_FLASH_BWD=onepass selects K5 (_bwd_onepass_kernel, '
-            'paddle_tpu/pallas/flash_attention.py:436), which is not '
-            'ported yet (ROADMAP.md, Queue 2); use kvmajor or split')
     return arm
 
 
 def fwd_arm():
     """The forward arm for this call, from PADDLE_FLASH_FWD (read on
-    every call, never cached): '' or 'online' is K1. 'twopass' (K4) is
-    not ported and raises; any other value raises ValueError with the
-    JAX package's message, so a typo never measures K1 by mistake."""
+    every call, never cached): '' or 'online' is K1, 'twopass' is K4a +
+    K4b; any other value raises ValueError with the JAX package's
+    message, so a typo never measures K1 by mistake."""
     arm = os.environ.get('PADDLE_FLASH_FWD', '').strip().lower()
     if arm not in ('',) + FWD_ARMS:
         raise ValueError('PADDLE_FLASH_FWD=%r: expected one of %s'
                          % (arm, FWD_ARMS))
-    if arm == 'twopass':
-        raise NotImplementedError(
-            'PADDLE_FLASH_FWD=twopass selects K4 (_fwd_stats_kernel + '
-            '_fwd_acc_kernel, paddle_tpu/pallas/flash_attention.py:229, '
-            ':276), which is not ported yet (ROADMAP.md, Queue 2); use '
-            'online')
-    return 'online'
+    return arm or 'online'
 
 
 class FlashAttention(torch.autograd.Function):
@@ -287,9 +395,15 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, force_plain):
-        fwd_arm()
+        twopass = fwd_arm() == 'twopass'
         plain = force_plain or q.device.type == 'cpu'
-        if plain:
+        if twopass:
+            stats, acc = ((flash_attention_stats_reference,
+                           flash_attention_acc_reference) if plain else
+                          (flash_attention_fwd_stats, flash_attention_fwd_acc))
+            lse = stats(q, k, causal, sm_scale)
+            o = acc(q, k, v, lse, causal, sm_scale)
+        elif plain:
             o, lse = flash_attention_reference(q, k, v, causal, sm_scale)
         else:
             o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
@@ -311,6 +425,9 @@ class FlashAttention(torch.autograd.Function):
             if arm == 'kvmajor':
                 dq, dk, dv = flash_attention_bwd_kvmajor(
                     q, k, v, do, lse, delta, causal, scale)
+            elif arm == 'onepass':
+                dq, dk, dv = flash_attention_bwd_onepass(
+                    q, k, v, do, lse, delta, causal, scale)
             else:
                 dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, causal,
                                             scale)
@@ -321,9 +438,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal=True, sm_scale=None, force_plain=False):
     """softmax(q·kᵀ·scale [+ causal mask])·v over [B, H, T, d] or
-    [BH, T, d]; sm_scale defaults to d ** -0.5. Differentiable: the
-    backward runs K2 (or K3 under PADDLE_FLASH_BWD=split) for CUDA
-    tensors and the plain backward for CPU tensors."""
+    [BH, T, d]; sm_scale defaults to d ** -0.5. Differentiable. CUDA
+    tensors run the kernels of the arms PADDLE_FLASH_FWD and
+    PADDLE_FLASH_BWD select (K1 and K2 by default), CPU tensors the
+    plain versions."""
     shape = q.shape
     T, d = shape[-2:]
     q, k, v = (t.reshape(-1, T, d).contiguous() for t in (q, k, v))

@@ -3,12 +3,14 @@ the JAX package's Pallas kernels.
 
 On the CPU the port runs its plain versions; here they are held to the
 TPU kernels run in Pallas interpret mode: the forward `_fwd` on o and
-lse, and the backward arms `_bwd_kvmajor` (K2) and `_bwd_split` (K3) on
-dq, dk, dv, at atol=rtol=2e-5 in fp32 (the same function with the sums
-taken in another order) and atol=rtol=2e-2 in bf16 (the TPU kernels
-round the scaled q, P and dS to bf16 before their products; the plain
-versions compute in fp32). The CUDA kernels themselves are held to the
-plain versions on the card by chip_smoke.py.
+lse, the two-pass forward `_fwd_twopass` (K4a, K4b) on lse and o, and
+the backward arms `_bwd_kvmajor` (K2), `_bwd_split` (K3) and the
+onepass arm of `_bwd` (K5) on dq, dk, dv, at atol=rtol=2e-5 in fp32
+(the same function with the sums taken in another order) and
+atol=rtol=2e-2 in bf16 (the TPU kernels round the scaled q, P and dS to
+bf16 before their products; the plain versions compute in fp32). The
+CUDA kernels themselves are held to the plain versions on the card by
+chip_smoke.py.
 """
 import os
 import subprocess
@@ -80,10 +82,15 @@ def test_cpu_tensor_takes_plain_version_and_launches_nothing():
 
 def test_kernel_wrapper_refuses_cpu_tensors():
     q, k, v = (torch.from_numpy(a) for a in _qkv(3, T=64, d=64))
-    before = fa.flash_attention_fwd.launches
-    with pytest.raises(ValueError, match='CUDA tensor'):
-        fa.flash_attention_fwd(q, k, v, True, 0.125)
-    assert fa.flash_attention_fwd.launches == before
+    lse = torch.zeros(2, 64)
+    for wrapper, args in ((fa.flash_attention_fwd, (q, k, v)),
+                          (fa.flash_attention_fwd_stats, (q, k)),
+                          (fa.flash_attention_fwd_acc, (q, k, v, lse))):
+        before = wrapper.launches
+        with pytest.raises(ValueError, match='CUDA tensor'):
+            wrapper(*args, True, 0.125)
+        assert wrapper.launches == before
+    assert fa.take_extra_flops() == 0.0
 
 
 def test_import_builds_nothing_and_needs_no_nvcc():
@@ -109,9 +116,27 @@ def _qkvdo(seed, BH=2, T=256, d=128):
     return q, k, v, do
 
 
+def _pallas_onepass(jq, jk, jv, o, lse, jdo, causal, scale):
+    """The JAX package's onepass arm (K5) through `_bwd` in interpret
+    mode, forced by its trace-time hook; the hook, the resolved arm and
+    `_bwd`'s jit cache are restored after."""
+    prev = jax_fa._FORCE_ARM, jax_fa._RESOLVED_ARM
+    jax_fa._FORCE_ARM = 'onepass'
+    jax_fa._bwd.clear_cache()
+    try:
+        out = jax_fa._bwd(jq, jk, jv, o, lse, jdo, causal, scale,
+                          interpret=True)
+        assert jax_fa._RESOLVED_ARM == 'onepass'
+        return out
+    finally:
+        jax_fa._FORCE_ARM, jax_fa._RESOLVED_ARM = prev
+        jax_fa._bwd.clear_cache()
+        assert jax_fa._RESOLVED_ARM == prev[1]
+
+
 @pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
 @pytest.mark.parametrize('causal', [True, False])
-@pytest.mark.parametrize('arm', ['kvmajor', 'split'])
+@pytest.mark.parametrize('arm', ['kvmajor', 'split', 'onepass'])
 def test_plain_backward_matches_pallas_arms(arm, causal, dtype):
     """flash_attention_bwd_reference against the TPU backward arms, on
     the same q, k, v, dO and the TPU forward's o and lse."""
@@ -122,9 +147,13 @@ def test_plain_backward_matches_pallas_arms(arm, causal, dtype):
     delta = jnp.sum(jdo.astype(jnp.float32) * o.astype(jnp.float32),
                     axis=-1, keepdims=True)
     bq, bk = jax_fa._block_sizes(256, 128)
-    run = jax_fa._bwd_kvmajor if arm == 'kvmajor' else jax_fa._bwd_split
-    want = run(jq, jk, jv, jdo, lse, delta, causal, scale, True, bq, bk,
-               256 // bq, 256 // bk)
+    if arm == 'onepass':
+        want = _pallas_onepass(jq, jk, jv, o, lse, jdo, causal, scale)
+    else:
+        run = jax_fa._bwd_kvmajor if arm == 'kvmajor' else \
+            jax_fa._bwd_split
+        want = run(jq, jk, jv, jdo, lse, delta, causal, scale, True, bq, bk,
+                   256 // bq, 256 // bk)
     tdt = getattr(torch, dtype)
     tq, tk, tv, tdo = (torch.from_numpy(a).to(tdt) for a in (q, k, v, do))
     to = torch.from_numpy(np.array(o, dtype='float32')).to(tdt)
@@ -179,8 +208,82 @@ def test_backward_wrappers_refuse_cpu_tensors():
     q, k, v, do = (torch.from_numpy(a) for a in _qkvdo(8, T=64, d=64))
     lse = torch.zeros(2, 64)
     for wrapper in (fa.flash_attention_bwd_kvmajor, fa.flash_attention_bwd_dq,
-                    fa.flash_attention_bwd_dkv):
+                    fa.flash_attention_bwd_dkv,
+                    fa.flash_attention_bwd_onepass):
         before = wrapper.launches
         with pytest.raises(ValueError, match='CUDA tensor'):
             wrapper(q, k, v, do, lse, lse, True, 0.125)
         assert wrapper.launches == before
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_twopass_plain_versions_match_pallas_twopass(causal):
+    """K4a's and K4b's plain versions against the TPU's two-pass forward
+    `_fwd_twopass` (128 x 128 blocks) in interpret mode: lse against its
+    lse, and o from the acc version, fed the TPU's lse, against its o."""
+    q, k, v = _qkv(20 if causal else 21)
+    scale = 128 ** -0.5
+    o_jax, lse_jax = jax_fa._fwd_twopass(
+        *(jnp.asarray(a) for a in (q, k, v)), causal, scale, True, 128, 128,
+        256 // 128, 256 // 128)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    lse = fa.flash_attention_stats_reference(tq, tk, causal, scale)
+    assert lse.shape == (2, 256) and lse.dtype == torch.float32
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_jax)[..., 0],
+                               **TOL)
+    o = fa.flash_attention_acc_reference(
+        tq, tk, tv, torch.from_numpy(np.array(lse_jax)[..., 0]), causal,
+        scale)
+    np.testing.assert_allclose(o.numpy(), np.asarray(o_jax), **TOL)
+
+
+def test_acc_plain_version_zeroes_the_shift_of_an_all_masked_row():
+    """lse <= -5e29 marks an all-masked row: the shift is zeroed, as in
+    `_fwd_acc_kernel` :303-307, so o stays finite."""
+    q, k, v = (torch.from_numpy(a) for a in _qkv(23, BH=1, T=8, d=64))
+    lse = fa.flash_attention_stats_reference(q, k, True, 0.125)
+    lse[0, 3] = -1e30
+    o = fa.flash_attention_acc_reference(q, k, v, lse, True, 0.125)
+    assert torch.isfinite(o).all()
+    s = (q[0, 3] * 0.125) @ k[0, :4].T
+    np.testing.assert_allclose(o[0, 3].numpy(), (torch.exp(s) @ v[0, :4])
+                               .numpy(), **TOL)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_alternative_arms_match_the_default_arms_on_cpu(monkeypatch, causal):
+    """PADDLE_FLASH_FWD=twopass and PADDLE_FLASH_BWD=onepass run on CPU
+    tensors (the stats and acc plain versions, the plain backward) and
+    give the default arms' o and grads."""
+    q, k, v, do = (torch.from_numpy(a).reshape(1, 2, 96, 64)
+                   for a in _qkvdo(24, BH=2, T=96, d=64))
+
+    def run():
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = fa.flash_attention(*leaves, causal=causal)
+        return [out] + list(torch.autograd.grad(out, leaves, do))
+
+    want = run()
+    monkeypatch.setenv('PADDLE_FLASH_FWD', 'twopass')
+    monkeypatch.setenv('PADDLE_FLASH_BWD', 'onepass')
+    got = run()
+    for g, w, name in zip(got, want, ('o', 'dq', 'dk', 'dv')):
+        np.testing.assert_allclose(g.detach().numpy(), w.detach().numpy(),
+                                   err_msg=name, **TOL)
+
+
+def test_twopass_extra_flops_count_the_visited_tiles(monkeypatch):
+    """The second q·kᵀ sweep of one twopass forward, as the port's 64 x 64
+    tiles execute it (padding included); the plain versions note
+    nothing."""
+    tiles = 128 * 129 // 2
+    assert fa.twopass_extra_flops(16, 8192, 128, True) == \
+        2.0 * 16 * tiles * 64 * 64 * 128
+    assert fa.twopass_extra_flops(2, 130, 64, False) == \
+        2.0 * 2 * 9 * 64 * 64 * 64
+    assert fa.twopass_extra_flops(1, 1, 64, True) == 2.0 * 64 * 64 * 64
+    fa.take_extra_flops()
+    monkeypatch.setenv('PADDLE_FLASH_FWD', 'twopass')
+    q = torch.randn(1, 2, 64, 64)
+    fa.flash_attention(q, q, q)
+    assert fa.take_extra_flops() == 0.0

@@ -51,6 +51,7 @@ def test_package_source_imports_no_jax_and_no_jax_package():
     files = [os.path.join(d, f) for d, _, fs in os.walk(PKG)
              for f in fs if f.endswith('.py')]
     assert len(files) > 20
+    assert os.path.join(PKG, 'tools', 'probe_exp2.py') in files
     bad = sorted((os.path.relpath(f, ROOT), mod) for f in files
                  for mod in _imported_roots(f) if mod in FORBIDDEN)
     assert not bad, bad
@@ -68,6 +69,7 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import paddle_tpu_torch.kernels.flash_attention\n'
             'import paddle_tpu_torch.kernels.conv_bn\n'
             'import paddle_tpu_torch.models.resnet\n'
+            'import paddle_tpu_torch.tools.probe_exp2\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]\n'
             'print(bad)\n')

@@ -12,6 +12,10 @@
   (|loss difference|, and ||update difference|| / ||update|| per
   parameter). bf16 rounds at other places in the two frameworks (gelu,
   bias-grad sums), which alone moves AMP updates by ~1e-2 in 3 steps.
+  The same for three AMP steps of a small long-context-shaped LM (T=256,
+  fused head) under the alternative flash arms: the JAX package forced to
+  twopass/onepass, the port under PADDLE_FLASH_FWD=twopass and
+  PADDLE_FLASH_BWD=onepass.
 - Each forward emitter runs once per step (no replay), a grad op whose
   forward was not recorded in the same run raises, and the fit_a_line
   drive converges.
@@ -25,6 +29,7 @@ import torch
 import paddle_tpu as jfluid
 from paddle_tpu import unique_name as junique_name
 from paddle_tpu.models import transformer as jtransformer
+from paddle_tpu.pallas import flash_attention as jax_fa
 import paddle_tpu_torch as tfluid
 from paddle_tpu_torch import framework as tframework
 from paddle_tpu_torch import registry as tregistry
@@ -36,6 +41,11 @@ LM_CFG = dict(vocab=256, dim=256, heads=2, layers=2, ffn=512, max_len=128,
               use_tp=False, use_sp=False, flash_attention=True)
 LM_BATCH, LM_STEPS, LM_CHUNK = 2, 3, 128
 LM_TOL = {False: 1e-4, True: 2e-2}     # keyed by AMP
+# bench.py's bench_long_context at a CPU size: two layers, T=256, the
+# fused head in two chunks (bench.py's 8192 over 2 x 8192 tokens)
+LC_CFG = dict(vocab=256, dim=256, heads=2, layers=2, ffn=512, max_len=256,
+              use_tp=False, use_sp=False, flash_attention=True)
+LC_CHUNK = 256
 
 
 @pytest.fixture(autouse=True)
@@ -184,21 +194,22 @@ def test_optimizer_update_matches_jax(op_type, attrs):
 
 # -- the flash LM through py_reader, three Momentum steps ----------------------
 
-def _build_train(fluid, unique_name, transformer, amp):
-    """bench.py's _bench_lm program at LM_CFG: py_reader, trunk, fused
+def _build_train(fluid, unique_name, transformer, amp, cfg=LM_CFG,
+                 chunk=LM_CHUNK, reader='lm_reader'):
+    """bench.py's _bench_lm program at `cfg`: py_reader, trunk, fused
     head, mean, Momentum (under decorate when amp)."""
     prog, startup = fluid.Program(), fluid.Program()
     prog.random_seed = startup.random_seed = 5
-    cfg = transformer.TransformerConfig(**LM_CFG)
+    cfg = transformer.TransformerConfig(**cfg)
     with unique_name.guard(), fluid.program_guard(prog, startup):
         rdr = fluid.layers.py_reader(
             capacity=4, shapes=[(-1, cfg.max_len, 1), (-1, cfg.max_len, 1)],
-            dtypes=['int64', 'int64'], name='lm_reader',
+            dtypes=['int64', 'int64'], name=reader,
             use_double_buffer=True)
         tokens, labels = fluid.layers.read_file(rdr)
         trunk = transformer.language_model_trunk(tokens, cfg)
         cost = fluid.layers.fused_softmax_cross_entropy(
-            trunk, labels, cfg.vocab, chunk=LM_CHUNK, name='lm_head')
+            trunk, labels, cfg.vocab, chunk=chunk, name='lm_head')
         avg = fluid.layers.mean(cost)
         opt = fluid.optimizer.Momentum(learning_rate=0.05, momentum=0.9)
         if amp:
@@ -207,21 +218,21 @@ def _build_train(fluid, unique_name, transformer, amp):
     return prog, startup, rdr, avg
 
 
-def _batches():
+def _batches(cfg=LM_CFG):
     rng = np.random.RandomState(11)
     out = []
     for _ in range(LM_STEPS):
-        toks = rng.randint(0, LM_CFG['vocab'],
-                           size=(LM_BATCH, LM_CFG['max_len'], 1))
+        toks = rng.randint(0, cfg['vocab'],
+                           size=(LM_BATCH, cfg['max_len'], 1))
         out.append([toks.astype('int64'),
                     np.roll(toks, -1, axis=1).astype('int64')])
     return out
 
 
-def _train(run, rdr, avg, fluid):
+def _train(run, rdr, avg, fluid, cfg=LM_CFG):
     """Run the reader's pass to its end with run(fetch_list=...); returns
     the per-step losses."""
-    batches = _batches()
+    batches = _batches(cfg)
     rdr.decorate_tensor_provider(lambda: iter(batches))
     rdr.start()
     losses = []
@@ -233,58 +244,94 @@ def _train(run, rdr, avg, fluid):
     return losses
 
 
-@pytest.fixture(scope='module')
-def jax_lm_runs():
-    """The JAX package's three steps, fp32 and AMP, with its flash
-    kernels in Pallas interpret mode: initial params, losses, final
-    params."""
-    runs = {}
-    jfluid.set_flags({'pallas_interpret': True})
-    try:
-        for amp in (False, True):
-            with jfluid.program_guard(jfluid.Program(), jfluid.Program()):
-                prog, startup, rdr, avg = _build_train(
-                    jfluid, junique_name, jtransformer, amp)
-            scope = jfluid.Scope()
-            with jfluid.scope_guard(scope):
-                jfluid.Executor(jfluid.CPUPlace()).run(startup)
-                names = [v.name for v in prog.list_vars() if v.persistable
-                         and scope.find_var(v.name) is not None]
-                init = {n: np.array(scope.find_var(n)) for n in names}
-                exe = jfluid.Executor(jfluid.CPUPlace())
-                losses = _train(lambda **kw: exe.run(prog, **kw), rdr, avg,
-                                jfluid)
-                final = {n: np.array(scope.find_var(n)) for n in names}
-            runs[amp] = dict(init=init, losses=losses, final=final,
-                             text=prog.to_string())
-    finally:
-        jfluid.set_flags({'pallas_interpret': False})
-    return runs
+def _jax_run(amp, cfg=LM_CFG, chunk=LM_CHUNK, reader='lm_reader'):
+    """The JAX package's steps on the CPU: initial params, losses, final
+    params and the program text."""
+    with jfluid.program_guard(jfluid.Program(), jfluid.Program()):
+        prog, startup, rdr, avg = _build_train(
+            jfluid, junique_name, jtransformer, amp, cfg, chunk, reader)
+    scope = jfluid.Scope()
+    with jfluid.scope_guard(scope):
+        jfluid.Executor(jfluid.CPUPlace()).run(startup)
+        names = [v.name for v in prog.list_vars() if v.persistable
+                 and scope.find_var(v.name) is not None]
+        init = {n: np.array(scope.find_var(n)) for n in names}
+        exe = jfluid.Executor(jfluid.CPUPlace())
+        losses = _train(lambda **kw: exe.run(prog, **kw), rdr, avg, jfluid,
+                        cfg)
+        final = {n: np.array(scope.find_var(n)) for n in names}
+    return dict(init=init, losses=losses, final=final,
+                text=prog.to_string())
 
 
-@pytest.mark.parametrize('amp', [False, True], ids=['fp32', 'amp_bf16'])
-def test_lm_momentum_steps_match_jax(jax_lm_runs, amp):
-    ref = jax_lm_runs[amp]
+def _port_run_matches(ref, amp, cfg=LM_CFG, chunk=LM_CHUNK,
+                      reader='lm_reader'):
+    """The port's steps from the JAX package's initial params, through
+    ParallelExecutor on the CPU, held to `ref` within LM_TOL[amp]."""
     prog, startup, rdr, avg = _build_train(tfluid, tunique_name,
-                                           ttransformer, amp)
+                                           ttransformer, amp, cfg, chunk,
+                                           reader)
     assert prog.to_string() == ref['text']
     scope = tfluid.Scope()
     tfluid.io.load_numpy_params(scope, ref['init'], tfluid.CPUPlace(),
                                 program=prog)
     pe = tfluid.ParallelExecutor(use_cuda=False, loss_name=avg.name,
                                  main_program=prog, scope=scope)
-    losses = _train(pe.run, rdr, avg, tfluid)
+    losses = _train(pe.run, rdr, avg, tfluid, cfg)
     tol = LM_TOL[amp]
     assert len(losses) == LM_STEPS and np.isfinite(losses).all()
     np.testing.assert_allclose(losses, ref['losses'], atol=tol, rtol=0)
     params = [v.name for v in prog.global_block().all_parameters()]
-    assert len(params) == 6 + 12 * LM_CFG['layers']
+    assert len(params) == 6 + 12 * cfg['layers']
     for name in params:
         want = ref['final'][name] - ref['init'][name]
         got = scope.find_var(name).numpy() - ref['init'][name]
         assert np.abs(want).max() > 0, name
         rel = np.linalg.norm(got - want) / np.linalg.norm(want)
         assert rel <= tol, (name, rel)
+
+
+@pytest.fixture(scope='module')
+def jax_lm_runs():
+    """The JAX package's three steps, fp32 and AMP, with its flash
+    kernels in Pallas interpret mode."""
+    jfluid.set_flags({'pallas_interpret': True})
+    try:
+        return {amp: _jax_run(amp) for amp in (False, True)}
+    finally:
+        jfluid.set_flags({'pallas_interpret': False})
+
+
+@pytest.mark.parametrize('amp', [False, True], ids=['fp32', 'amp_bf16'])
+def test_lm_momentum_steps_match_jax(jax_lm_runs, amp):
+    _port_run_matches(jax_lm_runs[amp], amp)
+
+
+def test_long_context_lm_steps_match_jax_under_alternative_arms(
+        monkeypatch):
+    """Three AMP Momentum steps of a long-context-shaped LM with the
+    JAX package's two-pass forward (K4) and onepass backward (K5), in
+    interpret mode at 128 x 128 blocks, against the port under
+    PADDLE_FLASH_FWD=twopass and PADDLE_FLASH_BWD=onepass."""
+    prev = jax_fa._FORCE_FWD_ARM, jax_fa._FORCE_ARM
+    jfluid.set_flags({'pallas_interpret': True, 'flash_block_q': 128,
+                      'flash_block_k': 128})
+    jax_fa._FORCE_FWD_ARM, jax_fa._FORCE_ARM = 'twopass', 'onepass'
+    jax_fa._fwd.clear_cache()
+    jax_fa._bwd.clear_cache()
+    try:
+        ref = _jax_run(True, LC_CFG, LC_CHUNK, 'lc_reader')
+        assert jax_fa._RESOLVED_FWD_ARM == 'twopass'
+        assert jax_fa._RESOLVED_ARM == 'onepass'
+    finally:
+        jax_fa._FORCE_FWD_ARM, jax_fa._FORCE_ARM = prev
+        jax_fa._fwd.clear_cache()
+        jax_fa._bwd.clear_cache()
+        jfluid.set_flags({'pallas_interpret': False, 'flash_block_q': 0,
+                          'flash_block_k': 0})
+    monkeypatch.setenv('PADDLE_FLASH_FWD', 'twopass')
+    monkeypatch.setenv('PADDLE_FLASH_BWD', 'onepass')
+    _port_run_matches(ref, True, LC_CFG, LC_CHUNK, 'lc_reader')
 
 
 def test_each_forward_emitter_runs_once_per_step(monkeypatch):
@@ -350,11 +397,17 @@ def test_fit_a_line_converges():
 
 
 def test_onepass_arm_raises(monkeypatch):
+    """PADDLE_FLASH_BWD=onepass (K5) runs: on CPU tensors it takes the
+    plain backward and gives the default arm's grads. The raise this
+    test checks is an unknown value's; the name is kept from before K5
+    was ported, when onepass itself raised NotImplementedError."""
     q = torch.randn(1, 2, 8, 16, requires_grad=True)
-    out = tfluid.kernels.flash_attention.flash_attention(q, q, q)
+    want, = torch.autograd.grad(
+        tfluid.kernels.flash_attention.flash_attention(q, q, q).sum(), [q])
     monkeypatch.setenv('PADDLE_FLASH_BWD', 'onepass')
-    with pytest.raises(NotImplementedError, match='K5'):
-        out.sum().backward()
+    got, = torch.autograd.grad(
+        tfluid.kernels.flash_attention.flash_attention(q, q, q).sum(), [q])
+    np.testing.assert_allclose(got.numpy(), want.numpy(), atol=1e-6, rtol=0)
     monkeypatch.setenv('PADDLE_FLASH_BWD', 'bogus')
     with pytest.raises(ValueError, match='PADDLE_FLASH_BWD'):
         tfluid.kernels.flash_attention.flash_attention(q, q, q).sum() \
@@ -362,22 +415,26 @@ def test_onepass_arm_raises(monkeypatch):
 
 
 @pytest.mark.parametrize('value,error', [
-    ('', None), ('online', None), ('twopass', NotImplementedError),
-    ('bogus', ValueError)])
+    ('', None), ('online', None), ('twopass', None), ('bogus', ValueError)])
 def test_flash_fwd_arm_is_read_on_every_call(monkeypatch, value, error):
     """PADDLE_FLASH_FWD, as in the JAX package: online (or unset) runs
-    K1, twopass selects K4, which is not ported and raises, and a typo
-    raises ValueError with the JAX package's message."""
+    K1, twopass runs K4a then K4b (their plain versions on the CPU, with
+    the same result), and a typo raises ValueError with the JAX
+    package's message."""
+    fa = tfluid.kernels.flash_attention
     q = torch.randn(1, 2, 8, 16)
     monkeypatch.setenv('PADDLE_FLASH_FWD', value)
     if error is None:
-        out = tfluid.kernels.flash_attention.flash_attention(q, q, q)
+        out = fa.flash_attention(q, q, q)
         assert out.shape == q.shape and torch.isfinite(out).all()
+        want, _ = fa.flash_attention_reference(q[0], q[0], q[0], True,
+                                               16 ** -0.5)
+        np.testing.assert_allclose(out[0].numpy(), want.numpy(), atol=1e-6,
+                                   rtol=0)
         return
-    match = 'K4' if error is NotImplementedError else \
-        "PADDLE_FLASH_FWD='bogus': expected one of"
-    with pytest.raises(error, match=match):
-        tfluid.kernels.flash_attention.flash_attention(q, q, q)
+    with pytest.raises(error, match="PADDLE_FLASH_FWD='bogus': expected "
+                                    "one of"):
+        fa.flash_attention(q, q, q)
 
 
 def _amp_fc_param_grads(fluid):
