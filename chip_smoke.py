@@ -18,10 +18,11 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       fwd+bwd minus fwd, timed only);
   (b4) the same for K4a, K4b and K5 at the long-context path's shape
       [16, 8192, 128] causal in bf16 and in fp32 (K4b's o also against
-      an fp64 evaluation, logged) and at phase b's ragged shapes, then
-      their times, K4a + K4b against the library forward and K5 against
-      the library backward (every "x the library" factor is taken on
-      torch.profiler device time, the library's only clock);
+      an fp64 evaluation, logged) and at phase b's ragged shapes, bf16
+      K4b's o also within O_RTOL of its plain version relative to |o| +
+      mean |o|; then their times, K4a + K4b against the library forward
+      and K5 against the library backward (every "x the library" factor
+      is taken on torch.profiler device time, the library's only clock);
   (c) build the flagship LM (bench.py's transformer: vocab 32768, dim
       2048, 16 heads, 12 layers, ffn 8192, max_len 512, flash attention)
       with random weights from a seed, run its startup program on
@@ -159,6 +160,11 @@ LC_PARAMS_COMPARED = ('layer0_qkv.w_0', 'layer3_down.w_0', 'lm_head.w_0')
 # summed with atomics. lse is fp32 in every dtype: K4a's is held to the
 # fp32 tolerance.
 KERNEL_ATOL = {'float32': 1e-4, 'bfloat16': 2e-2}
+# bf16 K4b also within a relative bound: max |o - o_ref| / (|o_ref| +
+# mean |o_ref|). At [16, 8192, 128] typical |o| (~1.8e-2) lies below the
+# bf16 atol, which would pass an o a few per cent off everywhere; o is
+# rounded to bf16 once (2^-8 relative at most)
+O_RTOL = 2e-2
 # P vs its plain version: expf / exp2f against torch.exp / torch.exp2,
 # each within a few ulps; the chain x <- f(-(x/2 + 1/4)) shrinks errors
 # (|d/dx| < 0.4), and its values lie in (0, 1]
@@ -252,7 +258,10 @@ def build_kernels():
     for name, path in paths.items():
         log('built %s -> %s' % (name, os.path.relpath(path, HERE)))
         for line in build.build_logs.get(name, '').splitlines():
-            if 'registers' in line or 'spill' in line:
+            # each kernel's name, registers and spills, and any warning
+            # (a serialised wgmma among them)
+            if any(w in line for w in ('Compiling entry', 'registers',
+                                       'spill', 'arning')):
                 log('  ptxas: %s' % line.strip())
     log('build seconds: %.2f' % (time.perf_counter() - t0))
 
@@ -584,12 +593,42 @@ def _acc_fp64_err(q, k, v, lse, causal, scale, outs):
     return [(x.double() - o64).abs().max().item() for x in outs]
 
 
+def _acc_one_bf16_p(q, k, v, lse, causal, scale):
+    """K4b's function with P = exp(s - lse) rounded once to v's dtype
+    before P·v, as the TPU kernel rounds it (no all-masked rows)."""
+    import torch
+    s = torch.matmul(q.float() * scale, k.float().transpose(-1, -2))
+    if causal:
+        T = q.shape[-2]
+        keep = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        s.masked_fill_(~keep, float('-inf'))
+    p = s.sub_(lse[..., None]).exp_().to(v.dtype)
+    del s
+    return torch.matmul(p.float(), v.float()).to(q.dtype)
+
+
+def o_rel_err(o, o_ref):
+    """max |o - o_ref| / (|o_ref| + mean |o_ref|), elementwise in fp32."""
+    o, o_ref = o.float(), o_ref.float()
+    ref = o_ref.abs()
+    return ((o - o_ref).abs() / (ref + ref.mean())).max().item()
+
+
+def check_acc_output(o, o_ref, dtype):
+    """K4b's o against its plain version: (max_abs_err, o_rel_err, ok);
+    ok needs the atol of the dtype and, in bf16, O_RTOL."""
+    err, rel = _max_err((o,), (o_ref,)), o_rel_err(o, o_ref)
+    ok = err <= KERNEL_ATOL[dtype] and (dtype != 'bfloat16' or rel <= O_RTOL)
+    return err, rel, ok
+
+
 def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     """Run K4a, K4b and K5 once at one shape and hold each against its
     plain version on the same inputs (K4b gets the plain lse, K5 the
-    plain forward's o and lse); returns {kind: max_abs_err}. fp64=True
-    also logs K4b's and the plain version's distance from an fp64
-    evaluation. The plain intermediates are freed before returning."""
+    plain forward's o and lse); returns {kind: max_abs_err}. K4b's o is
+    also held to O_RTOL in bf16. fp64=True also logs K4b's and the plain
+    version's distance from an fp64 evaluation. The plain intermediates
+    are freed before returning."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
     scale = d ** -0.5
@@ -598,8 +637,8 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     o = fa.flash_attention_fwd_acc(q, k, v, lse_ref, causal, scale)
     torch.cuda.synchronize()
     o_ref = fa.flash_attention_acc_reference(q, k, v, lse_ref, causal, scale)
-    errs = {'k4a': _max_err((lse,), (lse_ref,)),
-            'k4b': _max_err((o,), (o_ref,))}
+    o_err, o_rel, o_ok = check_acc_output(o, o_ref, dtype)
+    errs = {'k4a': _max_err((lse,), (lse_ref,)), 'k4b': o_err}
     if fp64:
         e_kernel, e_plain = _acc_fp64_err(q, k, v, lse_ref, causal, scale,
                                           (o, o_ref))
@@ -607,6 +646,14 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
             'max_abs_err %.3e, its plain version vs fp64 %.3e, mean |o| '
             '%.3e' % (BH, T, d, causal, dtype, e_kernel, e_plain,
                       o_ref.float().abs().mean().item()))
+    if fp64 and dtype == 'bfloat16':
+        log('[%d, %d, %d] causal=%s %s: with P rounded once to bf16 (the '
+            'TPU kernel\'s rounding; the kernel carries P as bf16 hi + lo) '
+            'the plain evaluation lies %.3e from its plain version, '
+            'relative (bound %g)'
+            % (BH, T, d, causal, dtype,
+               o_rel_err(_acc_one_bf16_p(q, k, v, lse_ref, causal, scale),
+                         o_ref), O_RTOL))
     got = fa.flash_attention_bwd_onepass(q, k, v, do, lse_ref,
                                          fa.bwd_delta(o_ref, do), causal,
                                          scale)
@@ -617,14 +664,16 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     finite = all(bool(torch.isfinite(t).all()) for t in (lse, o) + got)
     tols = {'k4a': KERNEL_ATOL['float32'], 'k4b': KERNEL_ATOL[dtype],
             'k5': KERNEL_ATOL[dtype]}
-    bad = [kind for kind, e in errs.items() if not e <= tols[kind]]
+    bad = [kind for kind, e in errs.items()
+           if not (o_ok if kind == 'k4b' else e <= tols[kind])]
     log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol lse %g, o and '
-        'grads %g) %s'
+        'grads %g); flash_attention_fwd_acc relative %.3e (bound %s) %s'
         % (BH, T, d, causal, dtype,
            ', '.join('%s %.3e' % (KERNELS[kd][0], e)
                      for kd, e in errs.items()),
-           tols['k4a'], tols['k5'], 'ok' if not bad and finite
-           else 'MISMATCH'))
+           tols['k4a'], tols['k5'], o_rel,
+           '%g' % O_RTOL if dtype == 'bfloat16' else 'none',
+           'ok' if not bad and finite else 'MISMATCH'))
     del q, k, v, do, lse, o, got, want, lse_ref, o_ref
     torch.cuda.empty_cache()
     if bad or not finite:
@@ -639,16 +688,17 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
 def check_long_kernels(cfg):
     """Correctness at the long-context path's shape (bf16 causal, and
     fp32, where KERNEL_ATOL is ~1% of typical values: |o| ~1e-2 over up
-    to 8192 keys of a near-uniform softmax) and at phase b's ragged
-    shapes, fp32 and bf16; then times at the path's shape. Returns the
-    kernels line's rows."""
+    to 8192 keys of a near-uniform softmax; bf16 K4b's o also within
+    O_RTOL) and at phase b's ragged shapes, fp32 and bf16; then times at
+    the path's shape. Returns the kernels line's rows."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
     rng = np.random.RandomState(SEED + 6)
     dev = torch.device('cuda', 0)
     d, T = cfg.dim // cfg.heads, cfg.max_len
     bh = LC_BATCH * cfg.heads
-    path_errs = _check_long_shape(fa, rng, dev, bh, T, d, True, 'bfloat16')
+    path_errs = _check_long_shape(fa, rng, dev, bh, T, d, True, 'bfloat16',
+                                  fp64=True)
     _check_long_shape(fa, rng, dev, bh, T, d, True, 'float32', fp64=True)
     for dtype in ('float32', 'bfloat16'):
         for shape in RAGGED_SHAPES:

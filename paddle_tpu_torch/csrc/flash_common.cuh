@@ -2,10 +2,12 @@
 // flash_attention_bwd.cu): tile sizes, fp32/bf16 loads, tile staging, and
 // the launch of one block per (64-row tile, bh).
 //
-// Every kernel stages 64-row tiles of [T, D] matrices (q, k, v, dO) in
-// shared memory as fp32 with a row stride of D + 1 floats: the column
-// reads of the tile products then hit distinct banks. bf16 inputs are
-// widened to fp32 as they are staged; all math is fp32.
+// The CUDA-core kernels (all but the bf16 K4a and K4b, which keep bf16
+// tiles for the tensor cores: hopper.cuh) stage 64-row tiles of [T, D]
+// matrices (q, k, v, dO) in shared memory as fp32 with a row stride of
+// D + 1 floats: the column reads of the tile products then hit distinct
+// banks. bf16 inputs are widened to fp32 as they are staged; all math is
+// fp32.
 #pragma once
 
 #include <cuda_bf16.h>

@@ -13,9 +13,11 @@ kernels in paddle_tpu/pallas/flash_attention.py.
 
 The kernels are CUDA C++ for sm_90a, built with nvcc at first use
 (kernels/build.py) and called through ctypes on PyTorch's current
-stream. They take float32 or bfloat16 q, k, v (and dO), compute in
-float32, and keep lse and delta in float32 [BH, T]. Each source's header
-says what bounds it on an H100 and what its design does about that.
+stream. They take float32 or bfloat16 q, k, v (and dO), accumulate in
+float32, and keep lse and delta in float32 [BH, T]; the bf16 K4a and K4b
+multiply bf16 tiles on the tensor cores, the rest run float32 FMAs on
+the CUDA cores. Each source's header says what bounds it on an H100 and
+what its design does about that.
 
 - Each wrapper checks device, dtype, shape and contiguity, launches its
   kernel, raises if the launch fails, and counts its launches in
@@ -45,10 +47,11 @@ says what bounds it on an H100 and what its design does about that.
   package runs split in place of onepass; the results agree either way.
 - The twopass forward does a second q·kᵀ sweep that the 2-matmul
   attention work model does not count. Each K4a launch notes that work,
-  2·BH·(visited scores of its 64 x 64 tiles)·d FLOP, and
+  2·BH·(visited scores of its q x k tiles)·d FLOP, and
   `take_extra_flops()` drains the notes (the JAX package's
-  `_note_extra_flops` / `take_extra_flops`, :126-146). The plain
-  versions note nothing.
+  `_note_extra_flops` / `take_extra_flops`, :126-146). The tiles are
+  the kernels': 128 x 128 for bf16 (the tensor-core K4a, K4b), 64 x 64
+  for fp32. The plain versions note nothing.
 - `flash_attention` is the public entry ([B, H, T, d] or [BH, T, d]).
 """
 from __future__ import annotations
@@ -75,7 +78,10 @@ SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
 BWD_ARMS = ('kvmajor', 'split', 'onepass')
 FWD_ARMS = ('online', 'twopass')
 _NEG_INF = -1e30
-_BLOCK = 64                 # rows of the kernels' q and k tiles
+# (q rows, keys) of the K4a / K4b tiles: the bf16 kernels run on the
+# tensor cores in 128 x 128 tiles, the fp32 ones on the CUDA cores in
+# 64 x 64
+_TWOPASS_TILES = {torch.bfloat16: (128, 128), torch.float32: (64, 64)}
 _MAX_GRID_Y = 65535
 _SUFFIX = {torch.float32: 'f32', torch.bfloat16: 'bf16'}
 
@@ -96,13 +102,22 @@ def _count(wrapper):
         wrapper.launches += 1
 
 
-def twopass_extra_flops(BH, T, d, causal):
+def twopass_extra_flops(BH, T, d, causal, dtype=torch.bfloat16):
     """The second q·kᵀ sweep of one twopass forward, as the kernels
-    execute it: 2·d FLOP for every score of every visited 64 x 64 tile
-    pair (causal: the tiles up to the diagonal), padding included."""
-    n = -(-T // _BLOCK)
-    tiles = n * (n + 1) // 2 if causal else n * n
-    return 2.0 * BH * tiles * _BLOCK * _BLOCK * d
+    execute it: 2·d FLOP for every score of every visited tile pair,
+    padding included. Both the q tile (bq) and the k tile (bk) follow
+    the kernel of `dtype` (_TWOPASS_TILES); the visited pairs are the JAX
+    package's count (`_fwd` :666-671) with the port's bq and bk and a
+    ragged last tile: causal, q tile i visits k tiles up to
+    ((i + 1)·bq − 1) // bk."""
+    bq, bk = _TWOPASS_TILES[dtype]
+    nq, nk = -(-T // bq), -(-T // bk)
+    if causal:
+        visited = sum(min(nk - 1, ((i + 1) * bq - 1) // bk) + 1
+                      for i in range(nq))
+    else:
+        visited = nq * nk
+    return 2.0 * BH * visited * bq * bk * d
 
 
 def take_extra_flops():
@@ -218,7 +233,7 @@ def flash_attention_fwd_stats(q, k, causal, sm_scale):
     _launch(who, fn, (q, k, lse), q, causal, sm_scale)
     global _extra_flops
     with _count_lock:
-        _extra_flops += twopass_extra_flops(BH, T, d, causal)
+        _extra_flops += twopass_extra_flops(BH, T, d, causal, q.dtype)
         flash_attention_fwd_stats.launches += 1
     return lse
 

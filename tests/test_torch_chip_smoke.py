@@ -82,6 +82,31 @@ def test_flash_bounds(kind, shape, dtype, ms, by):
     np.testing.assert_allclose(got[0], ms, rtol=1e-4)
 
 
+@pytest.mark.parametrize('causal', [True, False])
+def test_acc_check_refuses_small_rows_five_percent_off(causal):
+    """b4's check of bf16 K4b: an o 5% off on its rows of small |o| (the
+    second half of a 2048-key causal or full softmax, |o| ~2e-2) lies
+    within the bf16 atol of 2e-2 but not within the relative bound; the
+    plain version's own o, and one 1% off there, pass."""
+    rng = np.random.RandomState(0)
+    q, k, v, _ = chip_smoke._inputs(rng, 2, 2048, 64, 'bfloat16', 'cpu')
+    lse = fa.flash_attention_stats_reference(q, k, causal, 0.125)
+    o_ref = fa.flash_attention_acc_reference(q, k, v, lse, causal, 0.125)
+    assert o_ref.float()[:, 1024:].abs().mean() < 2.5e-2
+
+    def off(factor):
+        o = o_ref.float().clone()
+        o[:, 1024:] *= factor
+        return o.to(torch.bfloat16)
+
+    err, rel, ok = chip_smoke.check_acc_output(off(1.05), o_ref, 'bfloat16')
+    assert err <= chip_smoke.KERNEL_ATOL['bfloat16'] and not ok
+    assert rel > chip_smoke.O_RTOL
+    assert chip_smoke.check_acc_output(off(1.01), o_ref, 'bfloat16')[2]
+    assert chip_smoke.check_acc_output(o_ref, o_ref, 'bfloat16') == \
+        (0.0, 0.0, True)
+
+
 @pytest.mark.parametrize('model', ['MODEL', 'LC_MODEL'])
 @pytest.mark.parametrize('causal', [False, True])
 def test_train_flops_per_token_matches_bench(model, causal):

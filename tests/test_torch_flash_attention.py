@@ -273,15 +273,28 @@ def test_alternative_arms_match_the_default_arms_on_cpu(monkeypatch, causal):
 
 
 def test_twopass_extra_flops_count_the_visited_tiles(monkeypatch):
-    """The second q·kᵀ sweep of one twopass forward, as the port's 64 x 64
-    tiles execute it (padding included); the plain versions note
-    nothing."""
-    tiles = 128 * 129 // 2
+    """The second q·kᵀ sweep of one twopass forward, as the port's tiles
+    execute it (padding included): bf16 in the tensor-core kernels' 128 x
+    128 tiles, fp32 in 64 x 64; the JAX package's visited-tile count with
+    those bq and bk. The plain versions note nothing."""
+    tiles = 64 * 65 // 2
     assert fa.twopass_extra_flops(16, 8192, 128, True) == \
-        2.0 * 16 * tiles * 64 * 64 * 128
+        2.0 * 16 * tiles * 128 * 128 * 128
+    assert fa.twopass_extra_flops(16, 8192, 128, True, torch.bfloat16) == \
+        fa.twopass_extra_flops(16, 8192, 128, True)
     assert fa.twopass_extra_flops(2, 130, 64, False) == \
+        2.0 * 2 * 4 * 128 * 128 * 64
+    assert fa.twopass_extra_flops(1, 1, 64, True) == 2.0 * 128 * 128 * 64
+    # 300 keys: q tiles 0, 1, 2 visit 1, 2, 3 k tiles
+    assert fa.twopass_extra_flops(1, 300, 128, True) == \
+        2.0 * 6 * 128 * 128 * 128
+    tiles = 128 * 129 // 2
+    assert fa.twopass_extra_flops(16, 8192, 128, True, torch.float32) == \
+        2.0 * 16 * tiles * 64 * 64 * 128
+    assert fa.twopass_extra_flops(2, 130, 64, False, torch.float32) == \
         2.0 * 2 * 9 * 64 * 64 * 64
-    assert fa.twopass_extra_flops(1, 1, 64, True) == 2.0 * 64 * 64 * 64
+    assert fa.twopass_extra_flops(1, 1, 64, True, torch.float32) == \
+        2.0 * 64 * 64 * 64
     fa.take_extra_flops()
     monkeypatch.setenv('PADDLE_FLASH_FWD', 'twopass')
     q = torch.randn(1, 2, 64, 64)

@@ -396,12 +396,19 @@ def test_fit_a_line_converges():
     assert losses[-1] < 0.05 * losses[0]
 
 
+def _arm_q():
+    """The arm tests' q, [1, 2, 8, 16] float32 from a seeded stream: an
+    unseeded draw depended on which tests ran before in the process."""
+    return torch.from_numpy(
+        np.random.RandomState(31).randn(1, 2, 8, 16).astype('float32'))
+
+
 def test_onepass_arm_raises(monkeypatch):
     """PADDLE_FLASH_BWD=onepass (K5) runs: on CPU tensors it takes the
     plain backward and gives the default arm's grads. The raise this
     test checks is an unknown value's; the name is kept from before K5
     was ported, when onepass itself raised NotImplementedError."""
-    q = torch.randn(1, 2, 8, 16, requires_grad=True)
+    q = _arm_q().requires_grad_()
     want, = torch.autograd.grad(
         tfluid.kernels.flash_attention.flash_attention(q, q, q).sum(), [q])
     monkeypatch.setenv('PADDLE_FLASH_BWD', 'onepass')
@@ -420,17 +427,21 @@ def test_flash_fwd_arm_is_read_on_every_call(monkeypatch, value, error):
     """PADDLE_FLASH_FWD, as in the JAX package: online (or unset) runs
     K1, twopass runs K4a then K4b (their plain versions on the CPU, with
     the same result), and a typo raises ValueError with the JAX
-    package's message."""
+    package's message. The twopass plain path (stats, then acc) and the
+    one-pass plain version are the same function with the sums taken in
+    another order, so they agree to the port's fp32 parity tolerance,
+    atol = rtol = 2e-5 (tests/test_torch_flash_attention.py TOL), not to
+    the last bits: over 300 seeds they differ by up to 1.4e-6."""
     fa = tfluid.kernels.flash_attention
-    q = torch.randn(1, 2, 8, 16)
+    q = _arm_q()
     monkeypatch.setenv('PADDLE_FLASH_FWD', value)
     if error is None:
         out = fa.flash_attention(q, q, q)
         assert out.shape == q.shape and torch.isfinite(out).all()
         want, _ = fa.flash_attention_reference(q[0], q[0], q[0], True,
                                                16 ** -0.5)
-        np.testing.assert_allclose(out[0].numpy(), want.numpy(), atol=1e-6,
-                                   rtol=0)
+        np.testing.assert_allclose(out[0].numpy(), want.numpy(), atol=2e-5,
+                                   rtol=2e-5)
         return
     with pytest.raises(error, match="PADDLE_FLASH_FWD='bogus': expected "
                                     "one of"):
