@@ -8,19 +8,24 @@ exp/exp2 probe once on one CUDA card.
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (a) build every CUDA kernel of the paths with nvcc (one process per
       source, started together): the flash-attention forwards K1, K4a,
-      K4b, the backwards K2, K3a, K3b, K5, the matmul + BN-statistics
+      K4b, the backwards K2, K3a, K3b, K5 (bf16 K2 and K5 are one
+      tensor-core kernel, flash_bwd_wgmma_kernel, whose registers and
+      spills at d = 64 and 128 are logged), the matmul + BN-statistics
       kernel K6 and the probe P;
   (b) hold K1, K2, K3a and K3b against their plain PyTorch versions on
       the card, at the shapes the paths give them and at ragged edge
-      shapes, fp32 and bf16, and time kernel, plain version and the
+      shapes, fp32 and bf16 (bf16 K2's dq, dk, dv also within G_RTOL
+      relative to |g| + mean |g|), and time kernel, plain version and the
       PyTorch library call (sdpa_yardstick: scaled_dot_product_attention
       on 4-D views under a fused backend only; its backward is timed as
       fwd+bwd minus fwd, timed only);
   (b4) the same for K4a, K4b and K5 at the long-context path's shape
       [16, 8192, 128] causal in bf16 and in fp32 (K4b's o also against
-      an fp64 evaluation, logged) and at phase b's ragged shapes, bf16
-      K4b's o also within O_RTOL of its plain version relative to |o| +
-      mean |o|; then their times, K4a + K4b against the library forward
+      an fp64 evaluation, logged; K5's dq, dk, dv too, and the plain
+      evaluation with P and dS rounded once to bf16) and at phase b's
+      ragged shapes, bf16 K4b's o also within O_RTOL of its plain version
+      relative to |o| + mean |o| and bf16 K5's gradients within G_RTOL;
+      then their times, K4a + K4b against the library forward
       and K5 against the library backward (every "x the library" factor
       is taken on torch.profiler device time, the library's only clock);
   (c) build the flagship LM (bench.py's transformer: vocab 32768, dim
@@ -93,7 +98,9 @@ PADDLE_FLASH_BWD=onepass (restored after each phase):
       default arms (online/kvmajor) and with FLAGS_use_flash_attention
       =False (plain): losses and the updates of layer0_qkv, layer3_down
       and lm_head agree within TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL; the
-      two kernel steps are timed in turns;
+      two kernel steps are timed in turns (in bf16 their backwards run
+      the same kernel, so they differ in the forward, K1 against K4a +
+      K4b);
   (l3) step ms, tokens/s, MFU by bench.py's causal count and by the
       executed FLOPs (take_extra_flops added), device-busy share and
       device time by kernel kind over 3 steps, peak device memory.
@@ -165,6 +172,18 @@ KERNEL_ATOL = {'float32': 1e-4, 'bfloat16': 2e-2}
 # bf16 atol, which would pass an o a few per cent off everywhere; o is
 # rounded to bf16 once (2^-8 relative at most)
 O_RTOL = 2e-2
+# bf16 K2 and K5 (one tensor-core kernel) also within a relative bound on
+# each gradient: max |g - g_ref| / (|g_ref| + mean |g_ref|) for dq, dk and
+# dv. At [16, 8192, 128] mean |g| is ~1e-2 while the first rows and keys
+# of a head carry |g| near 1, so the atol alone would pass gradients a
+# few per cent off where |g| is small; each gradient is rounded to bf16
+# once (2^-8 relative at most). A gradient that is zero in exact
+# arithmetic (dq and dk at T = 1, a softmax over one key) comes out of
+# the fp32 plain version as rounding noise, so the mean in the
+# denominator is floored at the fp32 atol, far below mean |g| at the
+# paths' shapes (b4 logs it at [16, 8192, 128])
+G_RTOL = 2e-2
+G_FLOOR = 1e-4
 # P vs its plain version: expf / exp2f against torch.exp / torch.exp2,
 # each within a few ulps; the chain x <- f(-(x/2 + 1/4)) shrinks errors
 # (|d/dx| < 0.4), and its values lie in (0, 1]
@@ -263,7 +282,39 @@ def build_kernels():
             if any(w in line for w in ('Compiling entry', 'registers',
                                        'spill', 'arning')):
                 log('  ptxas: %s' % line.strip())
+    for entry, regs, stores, loads in ptxas_report(
+            build.build_logs.get('flash_attention_bwd', ''),
+            'flash_bwd_wgmma_kernel'):
+        log('ptxas %s: %d registers, %d bytes spill stores, %d bytes spill '
+            'loads' % (entry, regs, stores, loads))
     log('build seconds: %.2f' % (time.perf_counter() - t0))
+
+
+def ptxas_report(log_text, mark):
+    """[(kernel, registers, spill store bytes, spill load bytes)] for
+    every entry function of nvcc's -Xptxas -v log whose mangled name holds
+    `mark`; the kernel is named `mark<template arguments>`."""
+    import re
+    out, entry, spills = [], None, (0, 0)
+    for line in log_text.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            entry = None
+            if mark in m.group(1):
+                args = re.search(re.escape(mark) + r'I(.*?)EE', m.group(1))
+                entry = '%s<%s>' % (mark, ', '.join(
+                    re.findall(r'Li(\d+)E', (args.group(1) + 'E')
+                               if args else '')))
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      line)
+        if m:
+            spills = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r'Used (\d+) registers', line)
+        if m and entry:
+            out.append((entry, int(m.group(1))) + spills)
+            entry = None
+    return out
 
 
 # -- (b) ---------------------------------------------------------------------
@@ -370,7 +421,8 @@ def _max_err(got, want):
 
 def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     """Run K1, K2, K3a and K3b once at one shape and hold each against
-    its plain version; returns {kind: max_abs_err}."""
+    its plain version (K2's gradients also by check_grads: G_RTOL in
+    bf16); returns {kind: max_abs_err}."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
     scale = d ** -0.5
@@ -393,13 +445,18 @@ def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     for kind, out in got.items():
         errs[kind] = _max_err(out, want[kind])
         finite = finite and all(bool(torch.isfinite(t).all()) for t in out)
+    _, k2_rels, k2_ok = check_grads(got['k2'], want['k2'], dtype)
     tol = KERNEL_ATOL[dtype]
-    bad = [kind for kind, e in errs.items() if not e <= tol]
-    log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g) %s'
+    bad = [kind for kind, e in errs.items()
+           if not (k2_ok if kind == 'k2' else e <= tol)]
+    log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g); %s dq, dk, '
+        'dv relative %s (bound %s) %s'
         % (BH, T, d, causal, dtype,
            ', '.join('%s %.3e' % (KERNELS[kd][0], e)
                      for kd, e in errs.items()),
-           tol, 'ok' if not bad and finite else 'MISMATCH'))
+           tol, KERNELS['k2'][0], ', '.join('%.3e' % r for r in k2_rels),
+           '%g' % G_RTOL if dtype == 'bfloat16' else 'none',
+           'ok' if not bad and finite else 'MISMATCH'))
     if bad or not finite:
         raise AssertionError('%s disagree with their plain versions at '
                              '[%d, %d, %d] %s (finite: %s)'
@@ -607,28 +664,105 @@ def _acc_one_bf16_p(q, k, v, lse, causal, scale):
     return torch.matmul(p.float(), v.float()).to(q.dtype)
 
 
-def o_rel_err(o, o_ref):
-    """max |o - o_ref| / (|o_ref| + mean |o_ref|), elementwise in fp32."""
-    o, o_ref = o.float(), o_ref.float()
-    ref = o_ref.abs()
-    return ((o - o_ref).abs() / (ref + ref.mean())).max().item()
+def rel_err(x, ref, floor=0.0):
+    """max |x - ref| / (|ref| + max(mean |ref|, floor)), elementwise in
+    fp32: K4b's o (no floor) and the backward's gradients (G_RTOL's
+    comment says why their floor)."""
+    x, ref = x.float(), ref.float()
+    mag = ref.abs()
+    return ((x - ref).abs() /
+            (mag + max(mag.mean().item(), floor))).max().item()
 
 
 def check_acc_output(o, o_ref, dtype):
-    """K4b's o against its plain version: (max_abs_err, o_rel_err, ok);
+    """K4b's o against its plain version: (max_abs_err, rel_err, ok);
     ok needs the atol of the dtype and, in bf16, O_RTOL."""
-    err, rel = _max_err((o,), (o_ref,)), o_rel_err(o, o_ref)
+    err, rel = _max_err((o,), (o_ref,)), rel_err(o, o_ref)
     ok = err <= KERNEL_ATOL[dtype] and (dtype != 'bfloat16' or rel <= O_RTOL)
     return err, rel, ok
+
+
+def check_grads(got, want, dtype):
+    """(dq, dk, dv) against their plain versions: (max_abs_err, relative
+    error of each by rel_err with G_FLOOR, ok); ok needs the atol of the
+    dtype and, in bf16, G_RTOL on each gradient."""
+    err = _max_err(got, want)
+    rels = [rel_err(g, w, G_FLOOR) for g, w in zip(got, want)]
+    ok = err <= KERNEL_ATOL[dtype] and (dtype != 'bfloat16' or
+                                        max(rels) <= G_RTOL)
+    return err, rels, ok
+
+
+def _bwd_fp64(q, k, v, o, lse, do, causal, scale, heads=2):
+    """The backward's (dq, dk, dv) evaluated in fp64 from the same
+    inputs (o and lse as given), `heads` heads at a time; and the same
+    function in fp32 with P and dS rounded once to bf16 before their
+    products, as the TPU kernels round them (:409, :412). No all-masked
+    rows."""
+    import torch
+    BH, T, _ = q.shape
+    keep = (torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+            if causal else None)
+    g64 = [torch.empty(q.shape, dtype=torch.float64, device=q.device)
+           for _ in range(3)]
+    g16 = [torch.empty(q.shape, dtype=torch.float32, device=q.device)
+           for _ in range(3)]
+    for b0 in range(0, BH, heads):
+        sl = slice(b0, b0 + heads)
+        for out, dt in ((g64, torch.float64), (g16, torch.float32)):
+            qs, kf, vf, dof = (x[sl].to(dt) for x in (q, k, v, do))
+            qs = qs * scale
+            s = torch.matmul(qs, kf.transpose(-1, -2))
+            if causal:
+                s.masked_fill_(~keep, float('-inf'))
+            p = s.sub_(lse[sl].to(dt)[..., None]).exp_()
+            delta = (dof * o[sl].to(dt)).sum(-1)
+            ds = torch.matmul(dof, vf.transpose(-1, -2))
+            ds.sub_(delta[..., None]).mul_(p)
+            if dt == torch.float32:
+                p, ds = p.bfloat16().float(), ds.bfloat16().float()
+            out[2][sl] = torch.matmul(p.transpose(-1, -2), dof)
+            out[1][sl] = torch.matmul(ds.transpose(-1, -2), qs)
+            out[0][sl] = torch.matmul(ds, kf) * scale
+            del s, p, ds
+    return g64, g16
+
+
+def _log_bwd_fp64(q, k, v, o, lse, do, causal, scale, got, want, label):
+    """Log the kernel's and the plain version's (dq, dk, dv) against an
+    fp64 evaluation, and how far one bf16 rounding of P and dS puts the
+    gradients from the plain version, relative (G_RTOL's measure)."""
+    import torch
+    g64, g16 = _bwd_fp64(q, k, v, o, lse, do, causal, scale)
+    for who, grads in (('flash_attention_bwd_onepass', got),
+                       ('its plain version', want)):
+        log('%s: %s vs fp64 max_abs_err dq, dk, dv %s; relative %s'
+            % (label, who,
+               ', '.join('%.3e' % (g.double() - r).abs().max().item()
+                         for g, r in zip(grads, g64)),
+               ', '.join('%.3e' % rel_err(g, r, G_FLOOR)
+                         for g, r in zip(grads, g64))))
+    log('%s: mean |g| of the fp64 dq, dk, dv %s (G_FLOOR %g)'
+        % (label, ', '.join('%.3e' % r.abs().mean().item() for r in g64),
+           G_FLOOR))
+    if q.dtype == torch.bfloat16:
+        log('%s: with P and dS rounded once to bf16 (the TPU kernels\' '
+            'rounding; the kernel carries both as bf16 hi + lo) the plain '
+            'evaluation lies %s from its plain version, relative (bound '
+            '%g)' % (label, ', '.join('%.3e' % rel_err(g, w, G_FLOOR)
+                                      for g, w in zip(g16, want)), G_RTOL))
+    del g64, g16
+    torch.cuda.empty_cache()
 
 
 def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     """Run K4a, K4b and K5 once at one shape and hold each against its
     plain version on the same inputs (K4b gets the plain lse, K5 the
     plain forward's o and lse); returns {kind: max_abs_err}. K4b's o is
-    also held to O_RTOL in bf16. fp64=True also logs K4b's and the plain
-    version's distance from an fp64 evaluation. The plain intermediates
-    are freed before returning."""
+    also held to O_RTOL and K5's gradients to G_RTOL in bf16. fp64=True
+    also logs K4b's, K5's and their plain versions' distance from an
+    fp64 evaluation. The plain intermediates are freed before
+    returning."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
     scale = d ** -0.5
@@ -652,7 +786,7 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
             'the plain evaluation lies %.3e from its plain version, '
             'relative (bound %g)'
             % (BH, T, d, causal, dtype,
-               o_rel_err(_acc_one_bf16_p(q, k, v, lse_ref, causal, scale),
+               rel_err(_acc_one_bf16_p(q, k, v, lse_ref, causal, scale),
                          o_ref), O_RTOL))
     got = fa.flash_attention_bwd_onepass(q, k, v, do, lse_ref,
                                          fa.bwd_delta(o_ref, do), causal,
@@ -660,19 +794,24 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     torch.cuda.synchronize()
     want = fa.flash_attention_bwd_reference(q, k, v, o_ref, lse_ref, do,
                                             causal, scale)
-    errs['k5'] = _max_err(got, want)
+    errs['k5'], g_rels, g_ok = check_grads(got, want, dtype)
+    if fp64:
+        _log_bwd_fp64(q, k, v, o_ref, lse_ref, do, causal, scale, got, want,
+                      '[%d, %d, %d] causal=%s %s' % (BH, T, d, causal, dtype))
     finite = all(bool(torch.isfinite(t).all()) for t in (lse, o) + got)
     tols = {'k4a': KERNEL_ATOL['float32'], 'k4b': KERNEL_ATOL[dtype],
             'k5': KERNEL_ATOL[dtype]}
     bad = [kind for kind, e in errs.items()
-           if not (o_ok if kind == 'k4b' else e <= tols[kind])]
+           if not ({'k4b': o_ok, 'k5': g_ok}.get(kind, e <= tols[kind]))]
     log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol lse %g, o and '
-        'grads %g); flash_attention_fwd_acc relative %.3e (bound %s) %s'
+        'grads %g); flash_attention_fwd_acc relative %.3e, '
+        'flash_attention_bwd_onepass dq, dk, dv relative %s (bounds %s) %s'
         % (BH, T, d, causal, dtype,
            ', '.join('%s %.3e' % (KERNELS[kd][0], e)
                      for kd, e in errs.items()),
            tols['k4a'], tols['k5'], o_rel,
-           '%g' % O_RTOL if dtype == 'bfloat16' else 'none',
+           ', '.join('%.3e' % r for r in g_rels),
+           '%g / %g' % (O_RTOL, G_RTOL) if dtype == 'bfloat16' else 'none',
            'ok' if not bad and finite else 'MISMATCH'))
     del q, k, v, do, lse, o, got, want, lse_ref, o_ref
     torch.cuda.empty_cache()
@@ -1223,6 +1362,8 @@ def _profile_steps(tr, step_ms, sync, label):
 def _kernel_kind(name):
     """Coarse class of a device kernel by its name."""
     low = name.lower()
+    if 'flash_bwd_wgmma_kernel' in low:
+        return 'K2/K5 bf16 (flash_bwd_wgmma_kernel)'
     if 'flash_bwd_q_kernel' in low and 'true>' in low:
         return 'K5 (flash_bwd_q_kernel<..., true>)'
     for kind, marks in (('K4a (flash_fwd_stats_kernel)', ('flash_fwd_stats',)),
@@ -1801,6 +1942,11 @@ def _timed_step(tr, saved, batch, sync):
 
 @phase('l2: twopass/onepass step vs default-arm step vs plain step')
 def check_lc_arms(tr, counters, sync):
+    """One step from a saved state under each of twopass/onepass,
+    online/kvmajor and the plain versions, with their launch counts. In
+    bf16 the onepass and kvmajor backwards launch the same tensor-core
+    kernel (flash_bwd_wgmma_kernel) through their own wrappers, so the
+    two kernel steps differ in the forward only: K4a + K4b against K1."""
     import paddle_tpu_torch as fluid
     cfg = tr.cfg
     rng = np.random.RandomState(SEED + 5)

@@ -1,43 +1,43 @@
 // Flash-attention backward for Hopper (sm_90a), fp32 or bf16 I/O:
 //
-//   K2  flash_bwd_kv_kernel<D, Elem, true>   replaces the TPU kernel
-//       paddle_tpu/pallas/flash_attention.py _bwd_kvmajor_kernel (:512),
-//       launched by _bwd_kvmajor (:952): the default, kv-major one-pass
-//       backward;
+//   K2  replaces the TPU kernel paddle_tpu/pallas/flash_attention.py
+//       _bwd_kvmajor_kernel (:512), launched by _bwd_kvmajor (:952): the
+//       default, kv-major one-pass backward. fp32: flash_bwd_kv_kernel<D,
+//       float, true>; bf16: flash_bwd_wgmma_kernel<D>;
 //   K3a flash_bwd_q_kernel<D, Elem, false>   replaces _dq_kernel (:339),
 //       launched by _bwd_split (:871);
 //   K3b flash_bwd_kv_kernel<D, Elem, false>  replaces _dkv_kernel (:385),
 //       launched by _bwd_split (:898). K3a + K3b are the split arm
 //       (PADDLE_FLASH_BWD=split): deterministic, no atomics;
-//   K5  flash_bwd_q_kernel<D, Elem, true>    replaces _bwd_onepass_kernel
-//       (:436), launched by _bwd (:813): the qi-major one-pass backward
-//       (PADDLE_FLASH_BWD=onepass).
+//   K5  replaces _bwd_onepass_kernel (:436), launched by _bwd (:813): the
+//       one-pass backward of PADDLE_FLASH_BWD=onepass. fp32:
+//       flash_bwd_q_kernel<D, float, true>; bf16: flash_bwd_wgmma_kernel<D>,
+//       the same kernel as bf16 K2 (K2 and K5 compute one function from
+//       the same arguments, so the contract lets one kv-major kernel
+//       serve both arms).
 //
 // Inputs: q, k, v, dO [BH, T, D] (fp32 or bf16), lse and
 // delta = rowsum(dO * O) [BH, T] fp32 (delta is computed by the wrapper
 // with a torch op, as the TPU package computes it outside its kernels).
-// All four kernels share the per-pair math pair_grads (the TPU's
-// _pair_grads, :365): for a (64-row q tile, 64-row k tile) pair
-//   S  = (q * scale) k^T            masked to -1e30: P is exactly 0 past
-//   P  = exp(S - lse)               the causal diagonal, for keys >= T
-//   dP = dO v^T                     and for rows >= T, so any T works
+// Every kernel computes the per-pair math of the TPU's _pair_grads
+// (:365): for a (q tile, k tile) pair
+//   S  = (q * scale) k^T            masked: P is exactly 0 past the causal
+//   P  = exp(S - lse)               diagonal, for keys >= T and for rows
+//   dP = dO v^T                     >= T, so any T works
 //   dS = P * (dP - delta)
-// and then dV += P^T dO, dK += dS^T (q * scale) (dk carries the scale
-// through the pre-scaled q and gets no extra factor), dQ += dS k (dq is
-// scaled once at the end).
+// and then dV += P^T dO, dK += scale dS^T q, dQ += scale dS k.
 //
-// What bounds them on an H100: arithmetic. K2 and K5 do 5 matrix
-// products per visited pair (10 * D FLOP per score): at the training
-// shape (BH = 128, T = 512, D = 128, causal; 16.8M visited scores) that
-// is 21.5 GFLOP against 84 MB of bf16 q, k, v, dO, dq, dk, dv + fp32 lse,
-// delta, ~256 FLOP per byte, and at the long-context shape (BH = 16,
-// T = 8192, D = 128, causal; 536.9M visited scores) 687 GFLOP against
-// 50 MB. On the bf16 tensor cores the bounds are ~22 us and ~0.69 ms;
-// these kernels run the products as fp32 FMAs on the CUDA cores (67
-// TFLOP/s peak), so they sit far above them. Tensor cores (mma.sync /
-// wgmma) and TMA are later work.
+// What bounds them on an H100: arithmetic. Five matrix products per
+// visited pair (10 * D FLOP per score): at the training shape (BH = 128,
+// T = 512, D = 128, causal; 16.8M visited scores) 21.5 GFLOP against
+// 84 MB of bf16 q, k, v, dO, dq, dk, dv + fp32 lse, delta, ~256 FLOP per
+// byte, and at the long-context shape (BH = 16, T = 8192, D = 128,
+// causal; 536.9M visited scores) 687 GFLOP against 50 MB. On the bf16
+// tensor cores the bounds are ~22 us and ~0.69 ms.
 //
-// Design (right and simple first):
+// fp32 K2, K5 and K3a, K3b in both dtypes (right and simple first) run
+// the products as fp32 FMAs on the CUDA cores (67 TFLOP/s peak; tensor
+// cores would mean TF32, which the fp32 contract does not allow):
 //  - K2 and K3b: one block of 256 threads per (64-row k tile, bh): grid
 //    (ceil(T/64), BH). K and V stay in shared memory; the block loops over
 //    q tiles from the first one the causal mask lets through,
@@ -50,25 +50,60 @@
 //    T = 512, D = 128 that is 256 KB per bh, over the 227 KB of shared
 //    memory). The wrapper scales it by sm_scale and casts it. The
 //    summation order varies from run to run;
-//  - K3a and K5: one block per (64-row q tile, bh) loops over k tiles up
-//    to the diagonal; dQ stays in fp32 registers and is written once,
-//    scaled;
-//  - K5's dK and dV: the TPU keeps them as full-sequence fp32 VMEM
-//    accumulators (:443-447, :847-849), 8 MB per bh at T = 8192, D = 128,
-//    far over the 227 KB of shared memory. Here each pair's partials
-//    P^T dO and dS^T (q * scale) are added into zeroed fp32 [BH, T, D]
-//    buffers with atomicAdd, and the wrapper casts them. That is twice
-//    K2's atomic traffic (2 x 64 x D atomics per pair against K2's one),
-//    and the last bits of dk and dv vary from run to run. No state is
-//    held across q tiles, so there is no residency rule (the TPU's guard,
-//    :799-801) and the arm runs at every T and dtype;
+//  - K3a and fp32 K5: one block per (64-row q tile, bh) loops over k
+//    tiles up to the diagonal; dQ stays in fp32 registers and is written
+//    once, scaled;
+//  - fp32 K5's dK and dV: the TPU keeps them as full-sequence fp32 VMEM
+//    accumulators (:443-447, :847-849), 8 MB per bh at T = 8192,
+//    D = 128, far over shared memory. Here each pair's partials are added
+//    into zeroed fp32 [BH, T, D] buffers with atomicAdd (2 x 64 x D per
+//    pair), and the wrapper casts them;
 //  - thread (ty, tx) of a 16 x 16 grid owns rows ty + 16 i and columns
 //    tx + 16 j (i, j < 4) of each 64 x 64 pair tile, and rows ty + 16 i,
-//    columns tx + 16 c of each 64 x D gradient tile: every shared-memory
-//    load feeds two FMAs;
-//  - at D = 128 the six tiles (Q, dO, K, V at stride D + 1, P and dS at
-//    stride 65) take 162 KB of dynamic shared memory: one block per SM.
+//    columns tx + 16 c of each 64 x D gradient tile; at D = 128 the six
+//    tiles take 162 KB of shared memory: one block per SM.
+//
+// bf16 K2 and K5, flash_bwd_wgmma_kernel (namespace tc), run all products
+// on the tensor cores (hopper.cuh), kv-major, so dK and dV never leave
+// registers and dQ is the only output summed with atomics:
+//  - one block of two warpgroups (256 threads) per (128-key tile, bh);
+//    warpgroup wg owns keys [64 wg, 64 wg + 64). The grid is 1-D and
+//    starts with key tile 0, which under causal visits the most q tiles;
+//  - k and v are loaded once as bf16 in the 128-byte swizzle; the block
+//    loops over 64-row q tiles from k0 / 64 (causal) to the last, with q,
+//    dO and their lse and delta rows in a 2-stage cp.async ring, so the
+//    next tile's copy overlaps this tile's products;
+//  - per q tile and warpgroup, S^T = K Q^T and dP^T = V dO^T are wgmma
+//    m64n64k16 with both operands K-major in shared memory; P^T =
+//    exp2(S^T scale log2(e) - lse log2(e)) on ex2.approx, dS^T = P^T *
+//    (dP^T - delta), each thread reading lse and delta of its accumulator
+//    columns from shared memory; only tiles that straddle the causal
+//    diagonal or T are masked;
+//  - dV += P^T dO and dK += dS^T Q take P^T and dS^T straight from the
+//    accumulators as wgmma's register A operand, with dO and Q read
+//    MN-major; dV and dK stay fp32 in registers for the whole loop and
+//    are written once as bf16 (dK times scale): deterministic;
+//  - dQ = dS K: both warpgroups store dS^T as bf16 into shared memory and
+//    meet at a barrier; wgmma reads dS transposed (MN-major A) and K
+//    MN-major. At D = 128 each warpgroup takes 64 of the D columns over
+//    all 128 keys, at D = 64 all columns over its own 64 keys; each adds
+//    its part into the zeroed fp32 dq buffer with sm_90's float2
+//    atomicAdd (one atomic per two visited scores at D = 128), which the
+//    wrapper scales and casts.
+//    dq's last bits vary from run to run;
+//  - accuracy: P and dS enter every product as two bf16 operands, hi =
+//    bf16(x) and lo = bf16(x - hi), as K4b feeds P: with one bf16
+//    rounding, as the TPU kernels round p and ds (:409, :412), the
+//    gradients of the first rows and keys of a head (few keys, P ~ 1/n)
+//    lie several per cent of mean |g| from the fp32 plain version, over
+//    chip_smoke.py's bound on |g - g_ref| / (|g_ref| + mean |g_ref|)
+//    (phase b4 logs that evaluation). That is 8 products per pair
+//    instead of 5 (1.1 ms of tensor-core time at the long-context shape);
+//  - shared memory at D = 128: k, v 64 KB, the q and dO ring 64 KB, dS^T
+//    hi and lo 32 KB, 162 KB in all: one block per SM; fp32 dK and dV
+//    take 128 registers a thread, S^T and dP^T 64 more.
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -403,6 +438,318 @@ int qmajor(const void* q, const void* k, const void* v, const void* dout,
   });
 }
 
+
+// -- bf16 K2 and K5 on the tensor cores --------------------------------------
+
+namespace tc {
+
+constexpr int kBK = 128;       // keys per block: 64 per warpgroup
+constexpr int kBQ = 64;        // q rows per step of the q loop
+constexpr int kThreads = 256;  // two warpgroups
+constexpr int kStages = 2;     // (q, dO, lse, delta) tiles in the ring
+constexpr float kLog2e = 1.4426950408889634f;
+
+// Dynamic shared memory, byte offsets from the 1024-aligned k tile: the k
+// and v tiles; kStages (q tile, dO tile) pairs; dS^T as bf16 hi and lo
+// ([kBK keys, kBQ q], one 64-column panel each); kStages (lse, delta)
+// rows of kBQ floats.
+template <int D>
+struct Smem {
+  static constexpr int kKV = kBK * D * 2;  // bytes of the k (or v) tile
+  static constexpr int kQ = kBQ * D * 2;   // bytes of a q (or dO) tile
+  static constexpr int kDS = kBK * kBQ * 2;
+  static constexpr int kRing = 2 * kKV;
+  static constexpr int kDSHi = kRing + kStages * 2 * kQ;
+  static constexpr int kDSLo = kDSHi + kDS;
+  static constexpr int kRows = kDSLo + kDS;
+  static constexpr int kBytes = 1024 + kRows + kStages * 2 * kBQ * 4;
+};
+
+extern __shared__ uint8_t smem_tc[];
+
+// Start the cp.async copies of q tile `tile` (q, dO, lse, delta rows;
+// zeros past T) into ring stage tile % kStages, if it exists, and close
+// the group either way, so that group n always holds tile n.
+template <int D>
+__device__ __forceinline__ void fetch(uint32_t k_s, const __nv_bfloat16* q,
+                                      const __nv_bfloat16* dout,
+                                      const float* lse, const float* delta,
+                                      int tile, int n_tiles, int T) {
+  if (tile < n_tiles) {
+    const int stage = tile % kStages;
+    const uint32_t slot = k_s + Smem<D>::kRing + stage * 2 * Smem<D>::kQ;
+    const int q0 = tile * kBQ;
+    hopper::load_tile_async<kBQ, D, kThreads>(slot, q, q0, T, threadIdx.x);
+    hopper::load_tile_async<kBQ, D, kThreads>(slot + Smem<D>::kQ, dout, q0,
+                                              T, threadIdx.x);
+    if (threadIdx.x < 2 * kBQ) {  // lse rows, then delta rows
+      const int r = threadIdx.x % kBQ;
+      const bool valid = q0 + r < T;
+      hopper::cp_async_4(
+          k_s + Smem<D>::kRows + (stage * 2 * kBQ + threadIdx.x) * 4,
+          (threadIdx.x < kBQ ? lse : delta) + (valid ? q0 + r : 0), valid);
+    }
+  }
+  hopper::cp_async_commit();
+}
+
+// Wait for this tile's copies, make every thread's copies visible to
+// wgmma, and (the barrier) let the stage of the tile before be reused.
+__device__ __forceinline__ void tile_ready() {
+  hopper::cp_async_wait<kStages - 2>();
+  hopper::fence_view_async_shared();
+  __syncthreads();
+}
+
+// S^T = K Q^T into s and dP^T = V dO^T into dp for this warpgroup's 64
+// keys and one q tile: D / 16 wgmma m64n64k16 each, both operands K-major.
+// Returns with s complete and dp still in flight (one wgmma group).
+template <int D>
+__device__ __forceinline__ void scores_t(float (&s)[32], float (&dp)[32],
+                                         uint32_t k_s, uint32_t q_t, int wg) {
+  const uint32_t v_s = k_s + Smem<D>::kKV;
+  const uint32_t do_t = q_t + Smem<D>::kQ;
+  hopper::fence_regs(s);
+  hopper::fence_regs(dp);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    // 16 columns of d: panel kk / 4, bytes 32 (kk % 4) into each row
+    const uint32_t a =
+        (kk / 4) * (kBK * 128) + wg * (64 * 128) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (kBQ * 128) + (kk % 4) * 32;
+    hopper::mma_ss_n64<0, 0>(s, hopper::desc_sw128(k_s + a, 0, 1024),
+                             hopper::desc_sw128(q_t + b, 0, 1024), kk > 0);
+  }
+  hopper::wgmma_commit();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t a =
+        (kk / 4) * (kBK * 128) + wg * (64 * 128) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (kBQ * 128) + (kk % 4) * 32;
+    hopper::mma_ss_n64<0, 0>(dp, hopper::desc_sw128(v_s + a, 0, 1024),
+                             hopper::desc_sw128(do_t + b, 0, 1024), kk > 0);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<1>();
+  hopper::fence_regs(s);
+}
+
+// dV += P^T dO and dK += dS^T Q for this warpgroup: P^T and dS^T as hi +
+// lo bf16 A operands from registers, dO and Q MN-major (kBQ / 16 k steps
+// of 4 wgmma). Waits for them.
+template <int D>
+__device__ __forceinline__ void accumulate_dkv(
+    float (&dv)[D / 2], float (&dk)[D / 2], uint32_t (&p_hi)[4][4],
+    uint32_t (&p_lo)[4][4], uint32_t (&d_hi)[4][4], uint32_t (&d_lo)[4][4],
+    uint32_t q_t) {
+  hopper::fence_regs(dv);
+  hopper::fence_regs(dk);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBQ / 16; ++kk) {
+    // q rows 16 kk .. 16 kk + 15: two 8-row atoms of every column panel
+    const uint64_t b_q =
+        hopper::desc_sw128(q_t + kk * (16 * 128), kBQ * 128, 1024);
+    const uint64_t b_do = hopper::desc_sw128(
+        q_t + Smem<D>::kQ + kk * (16 * 128), kBQ * 128, 1024);
+    hopper::mma_rs<D>(dv, p_hi[kk], b_do);
+    hopper::mma_rs<D>(dv, p_lo[kk], b_do);
+    hopper::mma_rs<D>(dk, d_hi[kk], b_q);
+    hopper::mma_rs<D>(dk, d_lo[kk], b_q);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dv);
+  hopper::fence_regs(dk);
+#pragma unroll
+  for (int kk = 0; kk < kBQ / 16; ++kk) {
+    hopper::fence_regs(p_hi[kk]);
+    hopper::fence_regs(p_lo[kk]);
+    hopper::fence_regs(d_hi[kk]);
+    hopper::fence_regs(d_lo[kk]);
+  }
+}
+
+// This warpgroup's part of dQ = dS K for one q tile, from the dS^T hi and
+// lo tiles (read MN-major: q runs along the rows) and the k tile
+// (MN-major): at D = 128 columns [64 wg, 64 wg + 64) over all kBK keys,
+// at D = 64 every column over the warpgroup's own 64 keys.
+template <int D>
+__device__ __forceinline__ void dq_part(float (&dq)[32], uint32_t k_s,
+                                        int wg) {
+  constexpr int kSteps = D == 128 ? kBK / 16 : 64 / 16;
+  const int ks0 = D == 128 ? 0 : kSteps * wg;
+  const uint32_t k_panel = k_s + (D == 128 ? wg * (kBK * 128) : 0);
+  hopper::fence_regs(dq);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int i = 0; i < kSteps; ++i) {
+    // keys 16 ks .. 16 ks + 15: two 8-row atoms of the k panel and of dS^T
+    const uint32_t rows = (ks0 + i) * (16 * 128);
+    const uint64_t b = hopper::desc_sw128(k_panel + rows, kBK * 128, 1024);
+    hopper::mma_ss_n64<1, 1>(
+        dq, hopper::desc_sw128(k_s + Smem<D>::kDSHi + rows, kBK * 128, 1024),
+        b, i > 0);
+    hopper::mma_ss_n64<1, 1>(
+        dq, hopper::desc_sw128(k_s + Smem<D>::kDSLo + rows, kBK * 128, 1024),
+        b, 1);
+  }
+  hopper::wgmma_commit();
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(dq);
+}
+
+// bf16 K2 and K5: dk, dv written once; dq_acc (fp32, zeroed) receives
+// sum dS k, not yet scaled by sm_scale.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_bwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       const __nv_bfloat16* __restrict__ dout,
+                       const float* __restrict__ lse,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dq_acc,
+                       __nv_bfloat16* __restrict__ dk,
+                       __nv_bfloat16* __restrict__ dv, int bh_count, int T,
+                       int causal, float sm_scale) {
+  const uint32_t k_s = hopper::align_1024(smem_tc);
+  const float* rows = reinterpret_cast<const float*>(
+      smem_tc + (k_s - hopper::smem_addr(smem_tc)) + Smem<D>::kRows);
+  const int bh = blockIdx.x % bh_count;
+  const int k0 = (int)(blockIdx.x / bh_count) * kBK;  // heaviest first
+  const int wg = threadIdx.x / 128;
+  const int warp = (threadIdx.x / 32) % 4;
+  const int g = (threadIdx.x % 32) / 4;
+  const int t = threadIdx.x % 4;
+  const int kw0 = k0 + 64 * wg;          // this warpgroup's first key
+  const int key = kw0 + 16 * warp + g;   // accumulator rows key, key + 8
+  const long base = (long)bh * T * D;
+  const long rbase = (long)bh * T;
+  const int n_tiles = (T + kBQ - 1) / kBQ;
+  const int first = causal ? k0 / kBQ : 0;
+  const float c = sm_scale * kLog2e;
+
+  hopper::load_tile_async<kBK, D, kThreads>(k_s, k + base, k0, T,
+                                            threadIdx.x);
+  hopper::load_tile_async<kBK, D, kThreads>(k_s + Smem<D>::kKV, v + base, k0,
+                                            T, threadIdx.x);
+  fetch<D>(k_s, q + base, dout + base, lse + rbase, delta + rbase, first,
+           n_tiles, T);  // one group with k and v
+
+  float dv_acc[D / 2], dk_acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) {
+    dv_acc[i] = 0.f;
+    dk_acc[i] = 0.f;
+  }
+
+  for (int qt = first; qt < n_tiles; ++qt) {
+    tile_ready();
+    fetch<D>(k_s, q + base, dout + base, lse + rbase, delta + rbase, qt + 1,
+             n_tiles, T);
+    const int q0 = qt * kBQ;
+    const int stage = qt % kStages;
+    const uint32_t q_t = k_s + Smem<D>::kRing + stage * 2 * Smem<D>::kQ;
+    const float* lse_t = rows + stage * 2 * kBQ;
+    const float* delta_t = lse_t + kBQ;
+
+    // accumulator register 4 j + 2 h + e: key row key + 8 h, q column
+    // q0 + 8 j + 2 t + e
+    float s[32], dp[32];
+    scores_t<D>(s, dp, k_s, q_t, wg);
+    const bool edge =
+        q0 + kBQ > T || kw0 + 64 > T || (causal && kw0 + 63 > q0);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 l = *reinterpret_cast<const float2*>(lse_t + 8 * j + 2 * t);
+      const float shift[2] = {l.x * kLog2e, l.y * kLog2e};
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float p = hopper::ex2(fmaf(s[4 * j + 2 * h + e], c, -shift[e]));
+          if (edge) {
+            const int qi = q0 + 8 * j + 2 * t + e, kj = key + 8 * h;
+            if (qi >= T || kj >= T || (causal && kj > qi)) p = 0.f;
+          }
+          s[4 * j + 2 * h + e] = p;
+        }
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(dp);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 dl =
+          *reinterpret_cast<const float2*>(delta_t + 8 * j + 2 * t);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        dp[4 * j + 2 * h] = s[4 * j + 2 * h] * (dp[4 * j + 2 * h] - dl.x);
+        dp[4 * j + 2 * h + 1] =
+            s[4 * j + 2 * h + 1] * (dp[4 * j + 2 * h + 1] - dl.y);
+      }
+    }
+
+    // the accumulator of q columns 16 kk .. 16 kk + 15 is, register for
+    // register, the A fragment of the k step kk of P^T dO and dS^T Q
+    uint32_t p_hi[4][4], p_lo[4][4], d_hi[4][4], d_lo[4][4];
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        hopper::split_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1],
+                           p_hi[kk][i], p_lo[kk][i]);
+        hopper::split_bf16(dp[8 * kk + 2 * i], dp[8 * kk + 2 * i + 1],
+                           d_hi[kk][i], d_lo[kk][i]);
+        // dS^T into the swizzled [kBK keys, kBQ q] tiles: fragment
+        // register i holds key row 8 (i % 2) + 16 warp + g of this
+        // warpgroup and q columns 16 kk + 8 (i / 2) + 2 t, + 1
+        const int r = 64 * wg + 16 * warp + g + 8 * (i % 2);
+        const uint32_t at =
+            r * 128 + (((2 * kk + i / 2) ^ (r & 7)) << 4) + 4 * t;
+        hopper::st_shared_b32(k_s + Smem<D>::kDSHi + at, d_hi[kk][i]);
+        hopper::st_shared_b32(k_s + Smem<D>::kDSLo + at, d_lo[kk][i]);
+      }
+    accumulate_dkv<D>(dv_acc, dk_acc, p_hi, p_lo, d_hi, d_lo, q_t);
+
+    // both warpgroups' dS^T are in shared memory and visible to wgmma
+    hopper::fence_view_async_shared();
+    __syncthreads();
+    float dq[32];
+    dq_part<D>(dq, k_s, wg);
+    const int col0 = D == 128 ? 64 * wg : 0;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int r = q0 + 16 * warp + g + 8 * h;
+      if (r >= T) continue;
+      float* out = dq_acc + base + (long)r * D + col0 + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 8; ++j)  // sm_90's 8-byte atomic add
+        atomicAdd(reinterpret_cast<float2*>(out + 8 * j),
+                  make_float2(dq[4 * j + 2 * h], dq[4 * j + 2 * h + 1]));
+    }
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = key + 8 * h;
+    if (r >= T) continue;
+    __nv_bfloat16* out_v = dv + base + (long)r * D + 2 * t;
+    __nv_bfloat16* out_k = dk + base + (long)r * D + 2 * t;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      *reinterpret_cast<uint32_t*>(out_v + 8 * j) =
+          hopper::pack_bf16(dv_acc[4 * j + 2 * h], dv_acc[4 * j + 2 * h + 1]);
+      *reinterpret_cast<uint32_t*>(out_k + 8 * j) =
+          hopper::pack_bf16(dk_acc[4 * j + 2 * h] * sm_scale,
+                            dk_acc[4 * j + 2 * h + 1] * sm_scale);
+    }
+  }
+}
+
+}  // namespace tc
+
 }  // namespace
 
 // Every entry point: q, k, v, dout and the gradients are [bh, t, d]
@@ -419,14 +766,6 @@ extern "C" int flash_attention_bwd_kvmajor_f32(
     int bh, int t, int d, int causal, float sm_scale, void* stream) {
   return kv<float, true>(q, k, v, dout, lse, delta, dq_acc, dk, dv, bh, t, d,
                          causal, sm_scale, stream);
-}
-
-extern "C" int flash_attention_bwd_kvmajor_bf16(
-    const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
-    int bh, int t, int d, int causal, float sm_scale, void* stream) {
-  return kv<__nv_bfloat16, true>(q, k, v, dout, lse, delta, dq_acc, dk, dv,
-                                 bh, t, d, causal, sm_scale, stream);
 }
 
 // K3a.
@@ -475,12 +814,23 @@ extern "C" int flash_attention_bwd_onepass_f32(
                              bh, t, d, causal, sm_scale, stream);
 }
 
-extern "C" int flash_attention_bwd_onepass_bf16(
+// bf16 K2 and K5 (both arms): the tensor-core kernel. dq_acc: [bh, t, d]
+// fp32, zeroed by the caller; receives sum dS k (not yet scaled by
+// sm_scale); dk, dv: bf16.
+extern "C" int flash_attention_bwd_wgmma_bf16(
     const void* q, const void* k, const void* v, const void* dout,
-    const float* lse, const float* delta, void* dq, float* dk_acc,
-    float* dv_acc, int bh, int t, int d, int causal, float sm_scale,
-    void* stream) {
-  return qmajor<__nv_bfloat16, true>(q, k, v, dout, lse, delta, dq, dk_acc,
-                                     dv_acc, bh, t, d, causal, sm_scale,
-                                     stream);
+    const float* lse, const float* delta, float* dq_acc, void* dk, void* dv,
+    int bh, int t, int d, int causal, float sm_scale, void* stream) {
+  return flash::by_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return hopper::launch_1d(
+        tc::flash_bwd_wgmma_kernel<D>, tc::Smem<D>::kBytes,
+        (long)bh * ((t + tc::kBK - 1) / tc::kBK), tc::kThreads, stream,
+        static_cast<const __nv_bfloat16*>(q),
+        static_cast<const __nv_bfloat16*>(k),
+        static_cast<const __nv_bfloat16*>(v),
+        static_cast<const __nv_bfloat16*>(dout), lse, delta, dq_acc,
+        static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), bh,
+        t, causal, sm_scale);
+  });
 }

@@ -499,10 +499,6 @@ __device__ __forceinline__ void tile_ready() {
   __syncthreads();
 }
 
-__device__ __forceinline__ uint32_t aligned_base(void* raw) {
-  return (hopper::smem_addr(raw) + 1023u) & ~1023u;
-}
-
 extern __shared__ uint8_t smem_tc[];
 
 // K4a (bf16): lse only. m is the running row max of S c (log2 units), l
@@ -513,7 +509,7 @@ flash_fwd_stats_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                              const __nv_bfloat16* __restrict__ k,
                              float* __restrict__ lse, int bh_count, int T,
                              int causal, float sm_scale) {
-  const uint32_t q_s = aligned_base(smem_tc);
+  const uint32_t q_s = hopper::align_1024(smem_tc);
   const uint32_t ring = q_s + Smem<D>::kTile;
   const Place p = place(bh_count);
   const long base = (long)p.bh * T * D;
@@ -582,13 +578,8 @@ __device__ __forceinline__ void accumulate_pv(float (&acc)[D / 2],
     // keys 16 kk .. 16 kk + 15: two 8-row atoms of every column panel
     const uint64_t b =
         hopper::desc_sw128(v_s + kk * (16 * 128), kBK * 128, 1024);
-    if constexpr (D == 128) {
-      hopper::mma_rs_n128(acc, hi[kk], b, 1);
-      hopper::mma_rs_n128(acc, lo[kk], b, 1);
-    } else {
-      hopper::mma_rs_n64(acc, hi[kk], b, 1);
-      hopper::mma_rs_n64(acc, lo[kk], b, 1);
-    }
+    hopper::mma_rs<D>(acc, hi[kk], b);
+    hopper::mma_rs<D>(acc, lo[kk], b);
   }
   hopper::wgmma_commit();
   hopper::wgmma_wait<0>();
@@ -609,7 +600,7 @@ flash_fwd_acc_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const float* __restrict__ lse,
                            __nv_bfloat16* __restrict__ o, int bh_count, int T,
                            int causal, float sm_scale) {
-  const uint32_t q_s = aligned_base(smem_tc);
+  const uint32_t q_s = hopper::align_1024(smem_tc);
   const uint32_t ring = q_s + Smem<D>::kTile;
   const Place p = place(bh_count);
   const long base = (long)p.bh * T * D;
@@ -675,18 +666,8 @@ flash_fwd_acc_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
 template <typename... KArgs, typename... Args>
 int run(void (*kernel)(KArgs...), int smem, int bh, int t, void* stream,
         Args... args) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(kernel,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-  if (err != cudaSuccess) return (int)err;
-  const long blocks = (long)bh * ((t + kBQ - 1) / kBQ);
-  if (blocks > 0x7fffffffL) return (int)cudaErrorInvalidConfiguration;
-  kernel<<<(unsigned)blocks, kThreads, smem,
-           static_cast<cudaStream_t>(stream)>>>(args...);
-  return (int)cudaGetLastError();
+  return hopper::launch_1d(kernel, smem, (long)bh * ((t + kBQ - 1) / kBQ),
+                           kThreads, stream, args...);
 }
 
 }  // namespace tc

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_attention_fwd.cu, K4a and K4b in bf16): bf16 tiles in shared
-// memory with the 128-byte swizzle, filled by cp.async; wgmma matrix
-// descriptors; the warpgroup products; and exp2 on the special-function
-// unit.
+// (flash_attention_fwd.cu: K4a and K4b in bf16; flash_attention_bwd.cu:
+// K2 and K5 in bf16): bf16 tiles in shared memory with the 128-byte
+// swizzle, filled by cp.async; wgmma matrix descriptors; the warpgroup
+// products; exp2 on the special-function unit; the 1-D launch.
 //
 // Tile layout. A [rows, D] bf16 tile is kept as D / 64 panels of 64
 // columns; panel p holds columns [64 p, 64 p + 64) of every row, 128
@@ -55,6 +55,24 @@ __device__ __forceinline__ void cp_async_wait() {
 // (wgmma's operand reads); a __syncthreads() after it covers the block.
 __device__ __forceinline__ void fence_view_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// 4 bytes global -> shared (an fp32 row value); zeros when !valid.
+__device__ __forceinline__ void cp_async_4(uint32_t dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst),
+               "l"(src), "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+// The first 1024-byte boundary (a swizzle atom) at or after raw, as a
+// shared-memory address.
+__device__ __forceinline__ uint32_t align_1024(const void* raw) {
+  return (smem_addr(raw) + 1023u) & ~1023u;
 }
 
 // Stage rows [row0, row0 + ROWS) of a [T, D] bf16 matrix into the
@@ -178,6 +196,31 @@ __device__ __forceinline__ void mma_ss_n128(float (&d)[64], uint64_t a,
       : "l"(a), "l"(b), "r"(scale_d));
 }
 
+// D[64 x 64] (+)= A[64 x 16] . B[16 x 64], A and B in shared memory;
+// kTransA / kTransB = 0 reads the operand K-major, 1 MN-major
+// (transposed: for A, M runs along the 128-byte rows and the reduced
+// dimension down the panel).
+template <int kTransA, int kTransB>
+__device__ __forceinline__ void mma_ss_n64(float (&d)[32], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, "
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, "
+      "%26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, %36;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(a), "l"(b), "r"(scale_d), "n"(kTransA), "n"(kTransB));
+}
+
 // D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A in registers (a, the
 // m16n8k16 A-fragment layout: warp w of the warpgroup holds rows 16 w to
 // 16 w + 15), B in shared memory MN-major (descriptor b, transposed).
@@ -235,6 +278,37 @@ __device__ __forceinline__ void mma_rs_n64(float (&d)[32],
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
         "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// D[64 x D] += A[64 x 16] . B[16 x D] for D = 64 or 128, A in registers,
+// B MN-major in shared memory.
+template <int D>
+__device__ __forceinline__ void mma_rs(float (&d)[D / 2],
+                                       const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 128)
+    mma_rs_n128(d, a, b, 1);
+  else
+    mma_rs_n64(d, a, b, 1);
+}
+
+// Launch `blocks` blocks of `threads` on a 1-D grid with `smem` bytes of
+// dynamic shared memory and the carveout at its most shared memory;
+// returns the CUDA error code of the launch.
+template <typename... KArgs, typename... Args>
+int launch_1d(void (*kernel)(KArgs...), int smem, long blocks, int threads,
+              void* stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributePreferredSharedMemoryCarveout,
+                             (int)cudaSharedmemCarveoutMaxShared);
+  if (err != cudaSuccess) return (int)err;
+  if (blocks < 1 || blocks > 0x7fffffffL)
+    return (int)cudaErrorInvalidConfiguration;
+  kernel<<<(unsigned)blocks, threads, smem,
+           static_cast<cudaStream_t>(stream)>>>(args...);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace hopper

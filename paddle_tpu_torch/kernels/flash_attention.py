@@ -15,9 +15,14 @@ The kernels are CUDA C++ for sm_90a, built with nvcc at first use
 (kernels/build.py) and called through ctypes on PyTorch's current
 stream. They take float32 or bfloat16 q, k, v (and dO), accumulate in
 float32, and keep lse and delta in float32 [BH, T]; the bf16 K4a and K4b
-multiply bf16 tiles on the tensor cores, the rest run float32 FMAs on
-the CUDA cores. Each source's header says what bounds it on an H100 and
-what its design does about that.
+multiply bf16 tiles on the tensor cores, and so do the bf16 K2 and K5;
+the rest run float32 FMAs on the CUDA cores. In bf16 the kvmajor (K2)
+and onepass (K5) arms launch one kernel, `flash_bwd_wgmma_kernel`
+(`_bwd_entry`): both compute the same function from the same arguments,
+and that kernel is kv-major, so dk and dv are summed in registers
+(deterministic) and only dq goes through float32 atomics. Each source's
+header says what bounds it on an H100 and what its design does about
+that.
 
 - Each wrapper checks device, dtype, shape and contiguity, launches its
   kernel, raises if the launch fails, and counts its launches in
@@ -41,10 +46,11 @@ what its design does about that.
   rules would be broken (`_fwd` :653-656 for twopass, `_bwd` :799-804
   for onepass and kvmajor). Those rules are about VMEM and are not
   ported: neither K4 nor the port's K5 keeps full-sequence state on
-  chip (K5 adds dK and dV into fp32 buffers in device memory), so a
-  forced arm runs as forced at every T. The one case where this differs
-  from the JAX package is fp32 at T = 8192, d = 128, where the JAX
-  package runs split in place of onepass; the results agree either way.
+  chip (bf16 K5 sums dq in an fp32 buffer in device memory, fp32 K5 dK
+  and dV), so a forced arm runs as forced at every T. The one case
+  where this differs from the JAX package is fp32 at T = 8192, d = 128,
+  where the JAX package runs split in place of onepass; the results
+  agree either way.
 - The twopass forward does a second q·kᵀ sweep that the 2-matmul
   attention work model does not count. Each K4a launch notes that work,
   2·BH·(visited scores of its q x k tiles)·d FLOP, and
@@ -281,22 +287,44 @@ def _bwd_check(who, q, k, v, do, lse, delta):
                     ('lse', lse), ('delta', delta)))
 
 
+def _bwd_entry(arm, dtype):
+    """The C entry point of csrc/flash_attention_bwd.cu that the kvmajor
+    or onepass arm launches for `dtype`: in bf16 both take the
+    tensor-core kernel flash_bwd_wgmma_kernel, in float32 each its
+    CUDA-core kernel (K2 kv-major, K5 q-major)."""
+    if arm not in ('kvmajor', 'onepass'):
+        raise ValueError('_bwd_entry: arm %r is not kvmajor or onepass'
+                         % (arm,))
+    if dtype == torch.bfloat16:
+        return 'flash_attention_bwd_wgmma_bf16'
+    return 'flash_attention_bwd_%s_%s' % (arm, _SUFFIX[dtype])
+
+
+def _bwd_kv_major(who, arm, q, k, v, do, lse, delta, causal, sm_scale):
+    """Launch the kv-major backward of `arm` for q's dtype: dk and dv
+    written once, dq summed over key tiles with float32 atomics into a
+    zeroed buffer, then scaled and cast here."""
+    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    fn = _kernel('flash_attention_bwd', _bwd_entry(arm, q.dtype), 9)
+    _launch(who, fn, (q, k, v, do, lse, delta, dq_acc, dk, dv), q, causal,
+            sm_scale)
+    return (dq_acc * sm_scale).to(q.dtype), dk, dv
+
+
 def flash_attention_bwd_kvmajor(q, k, v, do, lse, delta, causal, sm_scale):
     """Launch K2, the kv-major one-pass backward. q, k, v, do: [BH, T, d]
     in one dtype (float32 or bfloat16); lse, delta: [BH, T] float32.
-    Returns (dq, dk, dv) in q's dtype. dq is summed over k-tiles with
-    float32 atomics into a zeroed buffer, then scaled and cast here, so
-    its last bits vary from run to run."""
+    Returns (dq, dk, dv) in q's dtype. bf16 runs the tensor-core kernel
+    (the onepass arm's too). dq is summed over key tiles with float32
+    atomics into a zeroed buffer, then scaled and cast here, so its last
+    bits vary from run to run; dk and dv are deterministic."""
     who = 'flash_attention_bwd_kvmajor'
     _bwd_check(who, q, k, v, do, lse, delta)
-    dq_acc = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
-    dk, dv = torch.empty_like(k), torch.empty_like(v)
-    fn = _kernel('flash_attention_bwd',
-                 'flash_attention_bwd_kvmajor_' + _SUFFIX[q.dtype], 9)
-    _launch(who, fn, (q, k, v, do, lse, delta, dq_acc, dk, dv), q, causal,
-            sm_scale)
+    out = _bwd_kv_major(who, 'kvmajor', q, k, v, do, lse, delta, causal,
+                        sm_scale)
     _count(flash_attention_bwd_kvmajor)
-    return (dq_acc * sm_scale).to(q.dtype), dk, dv
+    return out
 
 
 flash_attention_bwd_kvmajor.launches = 0
@@ -335,17 +363,24 @@ flash_attention_bwd_dkv.launches = 0
 
 
 def flash_attention_bwd_onepass(q, k, v, do, lse, delta, causal, sm_scale):
-    """Launch K5, the qi-major one-pass backward. Same arguments as
-    flash_attention_bwd_kvmajor; returns (dq, dk, dv) in q's dtype. dk
-    and dv are summed over q tiles with float32 atomics into zeroed
-    buffers, then cast here, so their last bits vary from run to run."""
+    """Launch K5, the one-pass backward of PADDLE_FLASH_BWD=onepass. Same
+    arguments as flash_attention_bwd_kvmajor; returns (dq, dk, dv) in q's
+    dtype. bf16 runs the tensor-core kernel that bf16 K2 runs (kv-major:
+    dk and dv deterministic, dq summed with float32 atomics). float32
+    runs the q-major CUDA-core kernel: dk and dv are summed over q tiles
+    with float32 atomics into zeroed buffers, then cast here, so their
+    last bits vary from run to run."""
     who = 'flash_attention_bwd_onepass'
     _bwd_check(who, q, k, v, do, lse, delta)
+    if q.dtype == torch.bfloat16:
+        out = _bwd_kv_major(who, 'onepass', q, k, v, do, lse, delta, causal,
+                            sm_scale)
+        _count(flash_attention_bwd_onepass)
+        return out
     dq = torch.empty_like(q)
     dk_acc = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
     dv_acc = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
-    fn = _kernel('flash_attention_bwd',
-                 'flash_attention_bwd_onepass_' + _SUFFIX[q.dtype], 9)
+    fn = _kernel('flash_attention_bwd', _bwd_entry('onepass', q.dtype), 9)
     _launch(who, fn, (q, k, v, do, lse, delta, dq, dk_acc, dv_acc), q,
             causal, sm_scale)
     _count(flash_attention_bwd_onepass)
@@ -382,8 +417,9 @@ def flash_attention_bwd_reference(q, k, v, o, lse, do, causal, sm_scale):
 def bwd_arm():
     """The backward arm for this call, from PADDLE_FLASH_BWD (read on
     every call, never cached): 'kvmajor' (K2, the default), 'split' (K3a
-    + K3b) or 'onepass' (K5). An unknown value raises, so an A/B run
-    never measures the default arm by mistake."""
+    + K3b) or 'onepass' (K5; in bf16 the same kernel as K2). An unknown
+    value raises, so an A/B run never measures the default arm by
+    mistake."""
     arm = os.environ.get('PADDLE_FLASH_BWD', '').strip().lower() or \
         'kvmajor'
     if arm not in BWD_ARMS:

@@ -1,7 +1,8 @@
 """chip_smoke.py's helpers that run without a card: the attention
-yardstick, the bounds of the flash kernels, the FLOP count of the LM
-steps and the arm switch; and the script's refusal to run without a
-card."""
+yardstick, the bounds of the flash kernels, the checks of K4b's o and of
+the backward's gradients, the device-time classes and the ptxas report,
+the FLOP count of the LM steps and the arm switch; and the script's
+refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -105,6 +106,95 @@ def test_acc_check_refuses_small_rows_five_percent_off(causal):
     assert chip_smoke.check_acc_output(off(1.01), o_ref, 'bfloat16')[2]
     assert chip_smoke.check_acc_output(o_ref, o_ref, 'bfloat16') == \
         (0.0, 0.0, True)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_grad_check_refuses_small_rows_five_percent_off(causal):
+    """b's and b4's check of bf16 K2 and K5: a dk 5% off on the rows of
+    its second half (the last 1024 of 2048 keys: |dk| at most ~6e-2)
+    lies within the bf16 atol of 2e-2 but not within G_RTOL; the plain
+    version's own gradients, and a dk 1% off there, pass."""
+    rng = np.random.RandomState(0)
+    q, k, v, do = chip_smoke._inputs(rng, 2, 2048, 64, 'bfloat16', 'cpu')
+    o, lse = fa.flash_attention_reference(q, k, v, causal, 0.125)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                            0.125)
+    assert want[1].float()[:, 1024:].abs().max() < 6e-2
+
+    def off(factor):
+        dk = want[1].float().clone()
+        dk[:, 1024:] *= factor
+        return want[0], dk.to(torch.bfloat16), want[2]
+
+    err, rels, ok = chip_smoke.check_grads(off(1.05), want, 'bfloat16')
+    assert err <= chip_smoke.KERNEL_ATOL['bfloat16'] and not ok
+    assert rels[0] == rels[2] == 0.0 and rels[1] > chip_smoke.G_RTOL
+    assert chip_smoke.check_grads(off(1.01), want, 'bfloat16')[2]
+    assert chip_smoke.check_grads(want, want, 'bfloat16') == \
+        (0.0, [0.0, 0.0, 0.0], True)
+    # fp32 holds the atol alone
+    assert chip_smoke.check_grads(off(1.05), want, 'float32')[2] is \
+        (err <= chip_smoke.KERNEL_ATOL['float32'])
+
+
+def test_grad_check_floors_a_gradient_that_is_zero():
+    """At T = 1 a softmax over one key has zero gradient in q and k: the
+    fp32 plain version's dq and dk are rounding noise (~5e-8), and the
+    kernel's exact zeros pass; a gradient 1e-3 off there does not."""
+    rng = np.random.RandomState(3)
+    q, k, v, do = chip_smoke._inputs(rng, 1, 1, 128, 'bfloat16', 'cpu')
+    o, lse = fa.flash_attention_reference(q, k, v, False, 128 ** -0.5)
+    want = fa.flash_attention_bwd_reference(q, k, v, o, lse, do, False,
+                                            128 ** -0.5)
+    assert want[0].float().abs().max() < 1e-6
+    zeros = (torch.zeros_like(want[0]), torch.zeros_like(want[1]), want[2])
+    err, rels, ok = chip_smoke.check_grads(zeros, want, 'bfloat16')
+    assert ok and max(rels) < 1e-2
+    wrong = (torch.full_like(want[0], 1e-3), want[1], want[2])
+    assert not chip_smoke.check_grads(wrong, want, 'bfloat16')[2]
+
+
+@pytest.mark.parametrize('name,kind', [
+    ('void (anonymous namespace)::tc::flash_bwd_wgmma_kernel<128>('
+     '__nv_bfloat16 const*, __nv_bfloat16 const*, float*, int, int, int, '
+     'float)', 'K2/K5 bf16 (flash_bwd_wgmma_kernel)'),
+    ('void (anonymous namespace)::tc::flash_bwd_wgmma_kernel<64>(...)',
+     'K2/K5 bf16 (flash_bwd_wgmma_kernel)'),
+    ('_ZN55_GLOBAL__N__0741eedf_22_flash_attention_bwd_cu_2d643e7a2tc22'
+     'flash_bwd_wgmma_kernelILi128EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_PfP'
+     'S2_S8_iiif', 'K2/K5 bf16 (flash_bwd_wgmma_kernel)'),
+    ('void (anonymous namespace)::flash_bwd_q_kernel<128, float, true>('
+     'float const*, float const*, float*, float*, float*, int, int, '
+     'float)', 'K5 (flash_bwd_q_kernel<..., true>)'),
+    ('void (anonymous namespace)::flash_bwd_kv_kernel<128, float, true>('
+     'float const*)', 'flash kernels (K1/K2/K3)'),
+    ('void (anonymous namespace)::tc::flash_fwd_acc_wgmma_kernel<128>()',
+     'K4b (flash_fwd_acc_kernel)'),
+])
+def test_kernel_kind_classes_the_backward_kernels(name, kind):
+    """t4's and l3's device-time breakdowns give the tensor-core backward
+    (bf16 K2 and K5) a line of its own, by its demangled name (as the
+    profiler reports it) or its mangled one (as ptxas does); fp32 K5
+    keeps its line."""
+    assert chip_smoke._kernel_kind(name) == kind
+
+
+def test_ptxas_report_reads_registers_and_spills():
+    log = '''ptxas info    : Compiling entry function '_ZN2tc22flash_bwd_wgmma_kernelILi128EEEvPK13__nv_bfloat16i' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc22flash_bwd_wgmma_kernelILi128EEEvPK13__nv_bfloat16i
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN18flash_bwd_q_kernelILi128EfLb1EEEvPKfi' for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN2tc22flash_bwd_wgmma_kernelILi64EEEvPK13__nv_bfloat16i' for 'sm_90a'
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 212 registers, used 1 barriers
+'''
+    assert chip_smoke.ptxas_report(log, 'flash_bwd_wgmma_kernel') == [
+        ('flash_bwd_wgmma_kernel<128>', 255, 0, 0),
+        ('flash_bwd_wgmma_kernel<64>', 212, 12, 8)]
+    assert chip_smoke.ptxas_report(log, 'no_such_kernel') == []
 
 
 @pytest.mark.parametrize('model', ['MODEL', 'LC_MODEL'])

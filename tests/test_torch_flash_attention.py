@@ -13,6 +13,7 @@ CUDA kernels themselves are held to the plain versions on the card by
 chip_smoke.py.
 """
 import os
+import re
 import subprocess
 import sys
 
@@ -214,6 +215,25 @@ def test_backward_wrappers_refuse_cpu_tensors():
         with pytest.raises(ValueError, match='CUDA tensor'):
             wrapper(q, k, v, do, lse, lse, True, 0.125)
         assert wrapper.launches == before
+
+
+@pytest.mark.parametrize('arm', ['kvmajor', 'onepass'])
+def test_bwd_entry_is_the_tensor_core_kernel_in_bf16(arm):
+    """bf16 K2 and K5 launch one C entry point, the tensor-core kernel;
+    float32 keeps each arm's CUDA-core kernel. Every entry the wrappers
+    name is defined in csrc/flash_attention_bwd.cu, and the CUDA-core
+    bf16 entries of K2 and K5 are gone (no fallback to them exists)."""
+    assert fa._bwd_entry(arm, torch.bfloat16) == \
+        'flash_attention_bwd_wgmma_bf16'
+    assert fa._bwd_entry(arm, torch.float32) == \
+        'flash_attention_bwd_%s_f32' % arm
+    with pytest.raises(ValueError, match='split'):
+        fa._bwd_entry('split', torch.bfloat16)
+    src = (fa.build.CSRC_DIR / 'flash_attention_bwd.cu').read_text()
+    defined = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert {fa._bwd_entry(arm, dt) for dt in fa.SUPPORTED_DTYPES} <= defined
+    assert 'flash_attention_bwd_%s_bf16' % arm not in defined
+    assert 'flash_bwd_wgmma_kernel<D>' in src
 
 
 @pytest.mark.parametrize('causal', [True, False])

@@ -487,6 +487,47 @@ def test_amp_bf16_param_grads_flag_matches_jax():
                                    atol=2e-2, rtol=2e-2, err_msg=name)
 
 
+def _fc_two_inputs(fluid, unique_name):
+    """fc over two inputs (a mul per input, a sum op, then the bias),
+    with seeded numpy parameters: the forward and the grads of both
+    weights and the bias of mean((fc - y)^2)."""
+    prog, startup = fluid.Program(), fluid.Program()
+    with unique_name.guard(), fluid.program_guard(prog, startup):
+        x1 = fluid.layers.data(name='x1', shape=[8], dtype='float32')
+        x2 = fluid.layers.data(name='x2', shape=[2, 3], dtype='float32')
+        y = fluid.layers.data(name='y', shape=[5], dtype='float32')
+        pred = fluid.layers.fc(input=[x1, x2], size=5)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        params_grads = fluid.append_backward(loss)
+    assert [op.type for op in prog.global_block().ops][:4] == \
+        ['mul', 'mul', 'sum', 'elementwise_add']
+    r = np.random.RandomState(21)
+    scope = fluid.Scope()
+    params = prog.global_block().all_parameters()
+    for p in params:
+        scope.set_var(p.name, r.randn(*p.shape).astype('float32'))
+    got = fluid.Executor(fluid.CPUPlace()).run(
+        prog, feed={'x1': r.randn(4, 8).astype('float32'),
+                    'x2': r.randn(4, 2, 3).astype('float32'),
+                    'y': r.randn(4, 5).astype('float32')},
+        fetch_list=[pred.name] + [g.name for _, g in params_grads],
+        scope=scope)
+    names = ['pred'] + [g.name for _, g in params_grads]
+    return [p.name for p in params], dict(zip(names, got))
+
+
+def test_fc_over_two_inputs_matches_jax():
+    """fc(input=[x1, x2]) sums the two mul results with a sum op before
+    the bias, as the JAX package does (the port raised here before)."""
+    want_params, want = _fc_two_inputs(jfluid, junique_name)
+    got_params, got = _fc_two_inputs(tfluid, tunique_name)
+    assert got_params == want_params and len(got_params) == 3
+    assert sorted(got) == sorted(want) and len(got) == 4
+    for name, w in want.items():
+        np.testing.assert_allclose(np.asarray(got[name]), np.asarray(w),
+                                   atol=GRAD_ATOL, rtol=0, err_msg=name)
+
+
 def _sgd_regularized_steps(fluid, unique_name, decay, clip, init=None):
     prog, startup = fluid.Program(), fluid.Program()
     with unique_name.guard(), fluid.program_guard(prog, startup):
