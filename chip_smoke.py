@@ -8,14 +8,17 @@ exp/exp2 probe once on one CUDA card.
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (a) build every CUDA kernel of the paths with nvcc (one process per
       source, started together): the flash-attention forwards K1, K4a,
-      K4b, the backwards K2, K3a, K3b, K5 (bf16 K2 and K5 are one
-      tensor-core kernel, flash_bwd_wgmma_kernel, whose registers and
-      spills at d = 64 and 128 are logged), the matmul + BN-statistics
-      kernel K6 and the probe P;
+      K4b (bf16 K1 is the tensor-core flash_fwd_wgmma_kernel), the
+      backwards K2, K3a, K3b, K5 (bf16 K2 and K5 are one tensor-core
+      kernel, flash_bwd_wgmma_kernel), the matmul + BN-statistics kernel
+      K6 and the probe P; the registers and spills of both tensor-core
+      kernels at d = 64 and 128 are logged;
   (b) hold K1, K2, K3a and K3b against their plain PyTorch versions on
       the card, at the shapes the paths give them and at ragged edge
-      shapes, fp32 and bf16 (bf16 K2's dq, dk, dv also within G_RTOL
-      relative to |g| + mean |g|), and time kernel, plain version and the
+      shapes, fp32 and bf16 (K1 by check_fwd_output: lse within the fp32
+      atol in both dtypes, bf16 o also within O_RTOL relative to |o| +
+      mean |o|; bf16 K2's dq, dk, dv also within G_RTOL relative to
+      |g| + mean |g|), and time kernel, plain version and the
       PyTorch library call (sdpa_yardstick: scaled_dot_product_attention
       on 4-D views under a fused backend only; its backward is timed as
       fwd+bwd minus fwd, timed only);
@@ -25,7 +28,9 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       evaluation with P and dS rounded once to bf16) and at phase b's
       ragged shapes, bf16 K4b's o also within O_RTOL of its plain version
       relative to |o| + mean |o| and bf16 K5's gradients within G_RTOL;
-      then their times, K4a + K4b against the library forward
+      bf16 K1 (the default arm's forward there) at the same shapes by
+      check_fwd_output (its o also against fp64, logged); then their
+      times, K1 and K4a + K4b against the library forward
       and K5 against the library backward (every "x the library" factor
       is taken on torch.profiler device time, the library's only clock);
   (c) build the flagship LM (bench.py's transformer: vocab 32768, dim
@@ -100,7 +105,7 @@ PADDLE_FLASH_BWD=onepass (restored after each phase):
       and lm_head agree within TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL; the
       two kernel steps are timed in turns (in bf16 their backwards run
       the same kernel, so they differ in the forward, K1 against K4a +
-      K4b);
+      K4b), and each arm's device time by kernel kind over 3 steps;
   (l3) step ms, tokens/s, MFU by bench.py's causal count and by the
       executed FLOPs (take_extra_flops added), device-busy share and
       device time by kernel kind over 3 steps, peak device memory.
@@ -282,11 +287,12 @@ def build_kernels():
             if any(w in line for w in ('Compiling entry', 'registers',
                                        'spill', 'arning')):
                 log('  ptxas: %s' % line.strip())
-    for entry, regs, stores, loads in ptxas_report(
-            build.build_logs.get('flash_attention_bwd', ''),
-            'flash_bwd_wgmma_kernel'):
-        log('ptxas %s: %d registers, %d bytes spill stores, %d bytes spill '
-            'loads' % (entry, regs, stores, loads))
+    for source, mark in (('flash_attention_fwd', 'flash_fwd_wgmma_kernel'),
+                         ('flash_attention_bwd', 'flash_bwd_wgmma_kernel')):
+        for entry, regs, stores, loads in ptxas_report(
+                build.build_logs.get(source, ''), mark):
+            log('ptxas %s: %d registers, %d bytes spill stores, %d bytes '
+                'spill loads' % (entry, regs, stores, loads))
     log('build seconds: %.2f' % (time.perf_counter() - t0))
 
 
@@ -421,15 +427,17 @@ def _max_err(got, want):
 
 def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     """Run K1, K2, K3a and K3b once at one shape and hold each against
-    its plain version (K2's gradients also by check_grads: G_RTOL in
-    bf16); returns {kind: max_abs_err}."""
+    its plain version (K1 by check_fwd_output, K2's gradients also by
+    check_grads: G_RTOL in bf16); returns {kind: max_abs_err}."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
     scale = d ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
-    errs = {'fwd': _max_err((o, lse), (o_ref, lse_ref))}
+    o_err, o_rel, lse_err, fwd_ok = check_fwd_output(o, lse, o_ref, lse_ref,
+                                                     dtype)
+    errs = {'fwd': max(o_err, lse_err)}
     finite = bool(torch.isfinite(o).all())
     # the backward kernels get the plain forward's o and lse, so each is
     # held to the plain backward on identical inputs
@@ -448,14 +456,16 @@ def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     _, k2_rels, k2_ok = check_grads(got['k2'], want['k2'], dtype)
     tol = KERNEL_ATOL[dtype]
     bad = [kind for kind, e in errs.items()
-           if not (k2_ok if kind == 'k2' else e <= tol)]
-    log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g); %s dq, dk, '
-        'dv relative %s (bound %s) %s'
+           if not ({'fwd': fwd_ok, 'k2': k2_ok}.get(kind, e <= tol))]
+    log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g); %s o %.3e, '
+        'lse %.3e (atol %g), o relative %.3e; %s dq, dk, dv relative %s '
+        '(bounds %s) %s'
         % (BH, T, d, causal, dtype,
            ', '.join('%s %.3e' % (KERNELS[kd][0], e)
                      for kd, e in errs.items()),
-           tol, KERNELS['k2'][0], ', '.join('%.3e' % r for r in k2_rels),
-           '%g' % G_RTOL if dtype == 'bfloat16' else 'none',
+           tol, KERNELS['fwd'][0], o_err, lse_err, KERNEL_ATOL['float32'],
+           o_rel, KERNELS['k2'][0], ', '.join('%.3e' % r for r in k2_rels),
+           '%g / %g' % (O_RTOL, G_RTOL) if dtype == 'bfloat16' else 'none',
            'ok' if not bad and finite else 'MISMATCH'))
     if bad or not finite:
         raise AssertionError('%s disagree with their plain versions at '
@@ -682,6 +692,16 @@ def check_acc_output(o, o_ref, dtype):
     return err, rel, ok
 
 
+def check_fwd_output(o, lse, o_ref, lse_ref, dtype):
+    """K1's (o, lse) against its plain version: (o max_abs_err, o rel_err,
+    lse max_abs_err, ok); ok needs o as check_acc_output holds K4b's (the
+    atol of the dtype and, in bf16, O_RTOL) and lse within the fp32 atol
+    in both dtypes, as K4a's lse is held."""
+    o_err, o_rel, o_ok = check_acc_output(o, o_ref, dtype)
+    lse_err = _max_err((lse,), (lse_ref,))
+    return o_err, o_rel, lse_err, o_ok and lse_err <= KERNEL_ATOL['float32']
+
+
 def check_grads(got, want, dtype):
     """(dq, dk, dv) against their plain versions: (max_abs_err, relative
     error of each by rel_err with G_FLOOR, ok); ok needs the atol of the
@@ -758,10 +778,11 @@ def _log_bwd_fp64(q, k, v, o, lse, do, causal, scale, got, want, label):
 def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     """Run K4a, K4b and K5 once at one shape and hold each against its
     plain version on the same inputs (K4b gets the plain lse, K5 the
-    plain forward's o and lse); returns {kind: max_abs_err}. K4b's o is
+    plain forward's o and lse); in bf16 also K1, the default arm's
+    forward, by check_fwd_output. Returns {kind: max_abs_err}. K4b's o is
     also held to O_RTOL and K5's gradients to G_RTOL in bf16. fp64=True
-    also logs K4b's, K5's and their plain versions' distance from an
-    fp64 evaluation. The plain intermediates are freed before
+    also logs K4b's, K1's, K5's and their plain versions' distance from
+    an fp64 evaluation. The plain intermediates are freed before
     returning."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
@@ -773,13 +794,30 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     o_ref = fa.flash_attention_acc_reference(q, k, v, lse_ref, causal, scale)
     o_err, o_rel, o_ok = check_acc_output(o, o_ref, dtype)
     errs = {'k4a': _max_err((lse,), (lse_ref,)), 'k4b': o_err}
+    fwd_ok, k1_outs = True, ()
+    if dtype == 'bfloat16':
+        o1, lse1 = fa.flash_attention_fwd(q, k, v, causal, scale)
+        torch.cuda.synchronize()
+        o1_ref, lse1_ref = fa.flash_attention_reference(q, k, v, causal,
+                                                        scale)
+        o1_err, o1_rel, lse1_err, fwd_ok = check_fwd_output(
+            o1, lse1, o1_ref, lse1_ref, dtype)
+        errs['fwd'] = max(o1_err, lse1_err)
+        k1_outs = (o1, o1_ref)
+        log('[%d, %d, %d] causal=%s %s: flash_attention_fwd o %.3e, lse '
+            '%.3e (atol o %g, lse %g), o relative %.3e (bound %g) %s'
+            % (BH, T, d, causal, dtype, o1_err, lse1_err, KERNEL_ATOL[dtype],
+               KERNEL_ATOL['float32'], o1_rel, O_RTOL,
+               'ok' if fwd_ok else 'MISMATCH'))
     if fp64:
-        e_kernel, e_plain = _acc_fp64_err(q, k, v, lse_ref, causal, scale,
-                                          (o, o_ref))
-        log('[%d, %d, %d] causal=%s %s: flash_attention_fwd_acc vs fp64 '
-            'max_abs_err %.3e, its plain version vs fp64 %.3e, mean |o| '
-            '%.3e' % (BH, T, d, causal, dtype, e_kernel, e_plain,
-                      o_ref.float().abs().mean().item()))
+        e64 = _acc_fp64_err(q, k, v, lse_ref, causal, scale,
+                            (o, o_ref) + k1_outs)
+        log('[%d, %d, %d] causal=%s %s: vs fp64 max_abs_err '
+            'flash_attention_fwd_acc %.3e, its plain version %.3e%s; mean '
+            '|o| %.3e' % (BH, T, d, causal, dtype, e64[0], e64[1],
+                          ', flash_attention_fwd %.3e, its plain version '
+                          '%.3e' % tuple(e64[2:]) if k1_outs else '',
+                          o_ref.float().abs().mean().item()))
     if fp64 and dtype == 'bfloat16':
         log('[%d, %d, %d] causal=%s %s: with P rounded once to bf16 (the '
             'TPU kernel\'s rounding; the kernel carries P as bf16 hi + lo) '
@@ -798,11 +836,13 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     if fp64:
         _log_bwd_fp64(q, k, v, o_ref, lse_ref, do, causal, scale, got, want,
                       '[%d, %d, %d] causal=%s %s' % (BH, T, d, causal, dtype))
-    finite = all(bool(torch.isfinite(t).all()) for t in (lse, o) + got)
+    finite = all(bool(torch.isfinite(t).all())
+                 for t in (lse, o) + got + k1_outs[:1])
     tols = {'k4a': KERNEL_ATOL['float32'], 'k4b': KERNEL_ATOL[dtype],
             'k5': KERNEL_ATOL[dtype]}
-    bad = [kind for kind, e in errs.items()
-           if not ({'k4b': o_ok, 'k5': g_ok}.get(kind, e <= tols[kind]))]
+    oks = {'k4a': errs['k4a'] <= tols['k4a'], 'k4b': o_ok, 'k5': g_ok,
+           'fwd': fwd_ok}
+    bad = [kind for kind in errs if not oks[kind]]
     log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol lse %g, o and '
         'grads %g); flash_attention_fwd_acc relative %.3e, '
         'flash_attention_bwd_onepass dq, dk, dv relative %s (bounds %s) %s'
@@ -813,7 +853,7 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
            ', '.join('%.3e' % r for r in g_rels),
            '%g / %g' % (O_RTOL, G_RTOL) if dtype == 'bfloat16' else 'none',
            'ok' if not bad and finite else 'MISMATCH'))
-    del q, k, v, do, lse, o, got, want, lse_ref, o_ref
+    del q, k, v, do, lse, o, got, want, lse_ref, o_ref, k1_outs
     torch.cuda.empty_cache()
     if bad or not finite:
         raise AssertionError('%s disagree with their plain versions at '
@@ -823,13 +863,15 @@ def _check_long_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     return errs
 
 
-@phase('b4: K4a, K4b, K5 vs plain versions at the long-context shape')
+@phase('b4: K4a, K4b, K5 and bf16 K1 vs plain versions at the '
+       'long-context shape')
 def check_long_kernels(cfg):
     """Correctness at the long-context path's shape (bf16 causal, and
     fp32, where KERNEL_ATOL is ~1% of typical values: |o| ~1e-2 over up
-    to 8192 keys of a near-uniform softmax; bf16 K4b's o also within
-    O_RTOL) and at phase b's ragged shapes, fp32 and bf16; then times at
-    the path's shape. Returns the kernels line's rows."""
+    to 8192 keys of a near-uniform softmax; bf16 K4b's and K1's o also
+    within O_RTOL) and at phase b's ragged shapes, fp32 and bf16; then
+    times at the path's shape (K1 bf16 too: the default arm's forward).
+    Returns the kernels line's rows."""
     import torch
     from paddle_tpu_torch.kernels import flash_attention as fa
     rng = np.random.RandomState(SEED + 6)
@@ -863,6 +905,9 @@ def check_long_kernels(cfg):
            pair['plain_ms'], lib_fwd_ms,
            _over_library(pair['device_ms'], lib_fwd_ms)))
     fns = {
+        'fwd': {'ms': lambda: fa.flash_attention_fwd(q, k, v, True, scale),
+                'plain_ms': lambda: fa.flash_attention_reference(
+                    q, k, v, True, scale)},
         'k4a': {'ms': lambda: fa.flash_attention_fwd_stats(q, k, True,
                                                            scale),
                 'plain_ms': lambda: fa.flash_attention_stats_reference(
@@ -878,9 +923,10 @@ def check_long_kernels(cfg):
     rows = []
     for kind, f in fns.items():
         times = _timed(f)
-        # one PyTorch call computes K5's function (the library backward);
-        # none computes K4a's or K4b's alone (the pair's line is above)
-        times['library_ms'] = lib_bwd_ms if kind == 'k5' else None
+        # one PyTorch call computes K1's function (the library forward)
+        # and K5's (the library backward); none computes K4a's or K4b's
+        # alone (the pair's line is above)
+        times['library_ms'] = {'fwd': lib_fwd_ms, 'k5': lib_bwd_ms}.get(kind)
         rows.append(_row(kind, 'bfloat16', (bh, T, d), True, path_errs[kind],
                          times, flash_bound_ms(kind, bh, T, d, True,
                                                'bfloat16')))
@@ -1364,6 +1410,8 @@ def _kernel_kind(name):
     low = name.lower()
     if 'flash_bwd_wgmma_kernel' in low:
         return 'K2/K5 bf16 (flash_bwd_wgmma_kernel)'
+    if 'flash_fwd_wgmma_kernel' in low:
+        return 'K1 bf16 (flash_fwd_wgmma_kernel)'
     if 'flash_bwd_q_kernel' in low and 'true>' in low:
         return 'K5 (flash_bwd_q_kernel<..., true>)'
     for kind, marks in (('K4a (flash_fwd_stats_kernel)', ('flash_fwd_stats',)),
@@ -1946,7 +1994,9 @@ def check_lc_arms(tr, counters, sync):
     online/kvmajor and the plain versions, with their launch counts. In
     bf16 the onepass and kvmajor backwards launch the same tensor-core
     kernel (flash_bwd_wgmma_kernel) through their own wrappers, so the
-    two kernel steps differ in the forward only: K4a + K4b against K1."""
+    two kernel steps differ in the forward only: K4a + K4b against K1.
+    Returns the losses' and updates' differences, each arm's mean wall
+    ms of one step, the launches and each arm's device ms per step."""
     import paddle_tpu_torch as fluid
     cfg = tr.cfg
     rng = np.random.RandomState(SEED + 5)
@@ -2003,7 +2053,20 @@ def check_lc_arms(tr, counters, sync):
         % (', '.join('%.3f' % t for t in times['twopass/onepass']),
            ', '.join('%.3f' % t for t in times['online/kvmajor']),
            step_ms['twopass/onepass'], step_ms['online/kvmajor']))
-    return diffs, step_ms
+    # the arms' device time per step, which the host's noise in the wall
+    # times above does not reach
+    device_ms = {}
+    for label, arms in (('twopass/onepass', LC_ARMS),
+                        ('online/kvmajor', (None, None))):
+        with flash_arms(*arms):
+            tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(2)))
+            tr.step()
+            sync()
+            device_ms[label], _ = _profile_steps(
+                tr, step_ms[label], sync, 'long-context %s step' % label)
+            tr.reader.reset()
+    tr.restore(saved)
+    return diffs, step_ms, launches, device_ms
 
 
 @phase('l3: long-context step time, tokens/s, MFU, device time')
@@ -2164,7 +2227,8 @@ def main():
 
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
          l_extra) = lc_steps(lc_cfg, place, counters, sync)
-        l_diffs, l_arm_ms = check_lc_arms(ltr, counters, sync)
+        l_diffs, l_arm_ms, l_arm_launches, l_arm_dev = check_lc_arms(
+            ltr, counters, sync)
         l_tok_s, l_mfu, l_mfu_exec, l_device_ms, l_busy = profile_lc(
             ltr, l_step_ms, l_extra, sync)
         del ltr
@@ -2178,7 +2242,8 @@ def main():
         return 1
     # launches on each kernel's own main path: K1 fp32 in serving, K1
     # bf16 and K2 in the timed training steps, K3a/K3b in the split step,
-    # K4a/K4b/K5 in the timed long-context steps
+    # K4a/K4b/K5 in the timed long-context steps, K1 bf16 at T = 8192 in
+    # l2's default-arm step
     path_launches = {'flash_attention_fwd': launches['flash_attention_fwd'],
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'],
@@ -2188,11 +2253,15 @@ def main():
                          split_launches['flash_attention_bwd_dq'],
                      'flash_attention_bwd_dkv':
                          split_launches['flash_attention_bwd_dkv']}
+    long_launches = {'flash_attention_fwd_bf16':
+                     l_arm_launches['online/kvmajor']['flash_attention_fwd']}
     for kind in ('k4a', 'k4b', 'k5'):
-        path_launches[KERNELS[kind][0]] = l_launches[KERNELS[kind][0]]
-    rows += long_rows
+        long_launches[KERNELS[kind][0]] = l_launches[KERNELS[kind][0]]
     for r in rows:
         r['launches'] = path_launches[r['name']]
+    for r in long_rows:
+        r['launches'] = long_launches[r['name']]
+    rows += long_rows
     k6_row['launches'] = r_launches
     rows += [k6_row, probe_row]
     log('serving: %.3f s for %d requests x %d tokens, prefill %.3f ms, '
@@ -2218,12 +2287,14 @@ def main():
         'ms, %.1f tokens/s, MFU %.4f (causal count), %.4f (executed), '
         'device busy %s, peak device memory %.2f GB, loss after %d steps '
         '%.6f; loss |diff| vs plain %.3e, vs online/kvmajor %.3e; one step '
-        'twopass/onepass %.3f ms, online/kvmajor %.3f ms'
+        'twopass/onepass %.3f ms, online/kvmajor %.3f ms; device ms per '
+        'step twopass/onepass %.3f, online/kvmajor %.3f'
         % (lc_cfg.max_len, LC_BATCH, l_step_ms, l_tok_s, l_mfu, l_mfu_exec,
            'not measured' if l_busy is None else '%.1f%%' % (100 * l_busy),
            l_peak_gb, len(l_losses), l_losses[-1], l_diffs['plain'][0],
            l_diffs['default'][0], l_arm_ms['twopass/onepass'],
-           l_arm_ms['online/kvmajor']))
+           l_arm_ms['online/kvmajor'], l_arm_dev['twopass/onepass'],
+           l_arm_dev['online/kvmajor']))
     log('probe: one exp step costs %.3f x one exp2 step' % exp_over_exp2)
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))

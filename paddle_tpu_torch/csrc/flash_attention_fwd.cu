@@ -1,8 +1,9 @@
 // Flash-attention forward for Hopper (sm_90a), fp32 or bf16 I/O:
 //
-//   K1  flash_fwd_kernel        replaces the TPU kernel
-//       paddle_tpu/pallas/flash_attention.py _fwd_kernel (:171), launched
-//       by _fwd_online (:684): the default, online-softmax forward;
+//   K1  flash_fwd_kernel (fp32), flash_fwd_wgmma_kernel (bf16)  replace
+//       the TPU kernel paddle_tpu/pallas/flash_attention.py _fwd_kernel
+//       (:171), launched by _fwd_online (:684): the default,
+//       online-softmax forward;
 //   K4a flash_fwd_stats_kernel (fp32), flash_fwd_stats_wgmma_kernel
 //       (bf16)  replace _fwd_stats_kernel (:229), launched by
 //       _fwd_twopass (:728): pass 1 of the two-pass forward, the row max
@@ -17,18 +18,22 @@
 // return the row log-sum-exp lse [BH, T] fp32 beside o [BH, T, d], which
 // the backward kernels consume.
 //
-// What bounds them on an H100: arithmetic. K1 does 4 * D FLOP per
-// visited score (q k^T and p v): at the serving shape (BH = 16, T = 512,
-// d = 128, causal) 1.07 GFLOP against 16.8 MB of q, k, v and o, ~64 FLOP
-// per byte. At the long-context shape (BH = 16, T = 8192, d = 128, bf16,
-// causal; 536.9M visited scores) K4a does 2 * D FLOP per score (q k^T
-// only; 137 GFLOP, 0.14 ms at the 989 TFLOP/s bf16 tensor-core peak) and
-// K4b 4 * D (275 GFLOP, 0.28 ms) against ~100 MB of bytes (0.03 ms); each
-// also takes one exp per score on the special-function unit (16 a clock
-// per SM: 0.14 ms for 537M), which ties with K4a's products.
+// What bounds them on an H100. K1 does 4 * D FLOP per visited score
+// (q k^T and p v). fp32 at the serving shape (BH = 16, T = 512, d = 128,
+// causal): 1.07 GFLOP against 16.8 MB of q, k, v and o, ~64 FLOP per
+// byte, so arithmetic at the 67 TFLOP/s of the CUDA cores. bf16 at the
+// flagship training shape (BH = 128, T = 512, d = 128, causal): 8.6
+// GFLOP against 67 MB, bytes (0.020 ms at 3.35 TB/s against 0.009 ms of
+// tensor-core time); at the long-context shape (BH = 16, T = 8192,
+// d = 128, causal; 536.9M visited scores): 275 GFLOP against 134 MB,
+// operations (0.28 ms at the 989 TFLOP/s bf16 tensor-core peak). K4a
+// does 2 * D FLOP per score (q k^T only; 137 GFLOP, 0.14 ms there), K4b
+// 4 * D. Each also takes one exp per score on the special-function unit
+// (16 a clock per SM: 0.14 ms for 537M), which ties with K4a's products.
 //
-// K1 and the fp32 K4a, K4b (right and simple first) run the products as
-// fp32 FMAs on the CUDA cores:
+// fp32 K1, K4a and K4b (right and simple first) run the products as fp32
+// FMAs on the CUDA cores (tensor cores would mean TF32, which the fp32
+// contract does not allow):
 //  - one block of 256 threads per (64-row q tile, bh): grid
 //    (ceil(T/64), BH). Nothing carries between blocks, so the TPU's
 //    sequential ki grid axis becomes a loop inside the block;
@@ -52,23 +57,19 @@
 //    accumulator); K4b accumulates p = exp(s - lse) times v with no
 //    running max, no rescale and no final division. Neither keeps
 //    full-sequence state on chip, so there is no residency rule (the
-//    TPU's VMEM guard, :653-656) and the arm runs at every T;
-//  - K1 in bf16 (the flagship training path under AMP) widens q, k, v to
-//    fp32 as they are staged, and rounds o to bf16 once, at the store.
-//    fp32 K4a and K4b stay on the CUDA cores: tensor cores would mean
-//    TF32, which the fp32 contract does not allow.
+//    TPU's VMEM guard, :653-656) and the arm runs at every T.
 //
-// The bf16 K4a and K4b (the long-context training path) run on the
-// tensor cores (hopper.cuh):
+// The bf16 K1, K4a and K4b (the training paths under AMP) run on the
+// tensor cores (hopper.cuh, namespace tc):
 //  - one block of two warpgroups (256 threads) per (128-row q tile, bh);
 //    warpgroup wg owns q rows [64 wg, 64 wg + 64). The grid is 1-D and
 //    walks the q tiles from the last (the most causal k tiles) to the
 //    first, over every bh, so the light tiles fill the tail;
 //  - q, k and v stay bf16 in shared memory, 128 x d tiles in the
 //    128-byte swizzle that wgmma reads without bank conflicts; k (and v)
-//    tiles of 128 keys stream through a ring of kStages buffers filled by
-//    cp.async (zeros past T), so the next tile's copy overlaps this
-//    tile's products;
+//    tiles of 128 keys stream through a ring of buffers filled by cp.async
+//    (zeros past T), so the next tile's copy overlaps this tile's
+//    products;
 //  - S = Q K^T is wgmma m64n128k16 per warpgroup with both operands in
 //    shared memory and fp32 accumulators in registers; sm_scale * log2(e)
 //    multiplies the fp32 scores (q is not rounded after scaling, so lse
@@ -88,8 +89,24 @@
 //    head (few keys, p ~ 1/n) are off by up to 2^-9 |v|, far above
 //    chip_smoke.py's bound on |o - o_ref| / (|o_ref| + mean |o_ref|) at
 //    T = 8192, where mean |o| is ~1.8e-2 (phase b4 logs that evaluation);
-//  - ptxas (sm_90a, d = 128): K4a 126 registers (two blocks of 97 KB
-//    shared memory per SM), K4b 222 (one block of 161 KB), no spills.
+//  - K1 is K4a and K4b fused into one sweep: per k tile the row max of
+//    S c (log2 units) is reduced over the 4 lanes of a row, the
+//    correction exp2(m_old - m_new) rescales the D / 2 fp32 accumulators
+//    and the lane's partial row sum l, and P = exp2(S c - m) goes from
+//    the S accumulator into P V as hi + lo, as in K4b. A row that sees no
+//    key yet shifts by 0 (the TPU's safe max, :199-204) and gets p = 0.
+//    At the end l is reduced over the 4 lanes, o = acc / l is rounded
+//    once to bf16 and lse = (m + log2 l) ln 2. Three products of 2 D
+//    FLOP per visited score make the long-context shape 0.42 TFLOP of
+//    tensor-core work, as K4b's. The exponentials of tile j overlap the
+//    tensor cores' P V of tile j - 1: each step issues S_j, then
+//    P_{j-1} V_{j-1}, and waits for S_j alone (wgmma groups retire in
+//    order), so only the rescale of O and the hi/lo split wait for P V.
+//    That keeps tiles j - 1 and j in shared memory while j + 1 lands: a
+//    ring of kFwdSlots = 3 (k, v) slots (225 KB at d = 128);
+//  - ptxas (sm_90a): K4a 126 registers at d = 128 (two blocks of 97 KB
+//    shared memory per SM), K4b 222 (one block of 161 KB), K1 (bf16)
+//    252 at d = 128 and 200 at d = 64 (one block a SM), no spills.
 #include "flash_common.cuh"
 #include "hopper.cuh"
 
@@ -194,11 +211,12 @@ __device__ __forceinline__ float row_lse(float m, float l) {
   return m <= kNegInf / 2 ? kNegInf : m + logf(fmaxf(l, 1e-30f));
 }
 
-// K1: one sweep with the online-softmax recurrence; writes o and lse.
-template <int D, typename Elem>
+// K1 (fp32): one sweep with the online-softmax recurrence; writes o and
+// lse.
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
-                 const Elem* __restrict__ v, Elem* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int T, int causal,
                  float sm_scale) {
   constexpr int LD = D + 1;
@@ -261,8 +279,7 @@ flash_fwd_kernel(const Elem* __restrict__ q, const Elem* __restrict__ k,
     const float safe_l = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < CPT; ++c)
-      o[base + (long)row * D + tx + 16 * c] =
-          flash::from_f32<Elem>(acc[i][c] / safe_l);
+      o[base + (long)row * D + tx + 16 * c] = acc[i][c] / safe_l;
     if (tx == 0) lse[(long)blockIdx.y * T + row] = row_lse(m[i], l[i]);
   }
 }
@@ -384,7 +401,7 @@ flash_fwd_acc_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-// -- bf16 K4a, K4b on the tensor cores -----------------------------------------
+// -- bf16 K1, K4a, K4b on the tensor cores ------------------------------------
 
 namespace tc {
 
@@ -392,17 +409,21 @@ constexpr int kBQ = 128;         // q rows per block: 64 per warpgroup
 constexpr int kBK = 128;         // keys per k tile (one m64n128 product)
 constexpr int kThreads = 256;    // two warpgroups
 constexpr int kStages = 2;       // k (and v) tiles in the ring
+constexpr int kFwdSlots = 3;     // bf16 K1's ring: P V of tile j - 1 and
+                                 // S of tile j read while j + 1 lands
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
 
 // Dynamic shared memory: 1024 bytes of alignment slack, the q tile, then
-// kStages k tiles (K4a) or kStages (k tile, v tile) pairs (K4b).
+// kStages k tiles (K4a), kStages (k tile, v tile) pairs (K4b) or
+// kFwdSlots pairs (K1).
 template <int D>
 struct Smem {
   static_assert(kBQ == kBK, "q, k and v tiles share one size");
   static constexpr int kTile = kBQ * D * 2;  // bytes of one bf16 tile
   static constexpr int kStats = 1024 + kTile + kStages * kTile;
   static constexpr int kAcc = 1024 + kTile + kStages * 2 * kTile;
+  static constexpr int kFwd = 1024 + kTile + kFwdSlots * 2 * kTile;
 };
 
 // Where this thread sits: its q tile, bh, warpgroup, and its two
@@ -436,11 +457,13 @@ __device__ __forceinline__ bool straddles(const Place& p, int k0, int T,
   return k0 + kBK > T || (causal && k0 + kBK - 1 > p.warp_row);
 }
 
-// S = Q K^T for this warpgroup's 64 rows and one k tile: D / 16 wgmma
-// m64n128k16, both operands K-major in shared memory; fp32 in s.
+// Issue S = Q K^T for this warpgroup's 64 rows and one k tile as one
+// wgmma group: D / 16 m64n128k16, both operands K-major in shared
+// memory; fp32 in s once the group is waited for.
 template <int D>
-__device__ __forceinline__ void scores(float (&s)[kBK / 2], uint32_t q_s,
-                                       uint32_t k_s, int wg) {
+__device__ __forceinline__ void issue_scores(float (&s)[kBK / 2],
+                                             uint32_t q_s, uint32_t k_s,
+                                             int wg) {
   hopper::fence_regs(s);
   hopper::wgmma_fence();
 #pragma unroll
@@ -453,6 +476,13 @@ __device__ __forceinline__ void scores(float (&s)[kBK / 2], uint32_t q_s,
                         hopper::desc_sw128(b, 0, 1024), kk > 0);
   }
   hopper::wgmma_commit();
+}
+
+// S = Q K^T (issue_scores), waited for.
+template <int D>
+__device__ __forceinline__ void scores(float (&s)[kBK / 2], uint32_t q_s,
+                                       uint32_t k_s, int wg) {
+  issue_scores<D>(s, q_s, k_s, wg);
   hopper::wgmma_wait<0>();
   hopper::fence_regs(s);
 }
@@ -475,13 +505,13 @@ __device__ __forceinline__ void mask(float (&s)[kBK / 2], const Place& p,
 // Start the cp.async copies of k tile `tile` (and its v tile) into ring
 // slot tile % kStages, if it exists, and close the group either way, so
 // that group n always holds tile n.
-template <int D, bool WITH_V>
+template <int D, bool WITH_V, int SLOTS = kStages>
 __device__ __forceinline__ void fetch(uint32_t ring, const __nv_bfloat16* k,
                                       const __nv_bfloat16* v, int tile,
                                       int n_tiles, int T) {
   if (tile < n_tiles) {
     constexpr int kSlot = (WITH_V ? 2 : 1) * Smem<D>::kTile;
-    const uint32_t slot = ring + (tile % kStages) * kSlot;
+    const uint32_t slot = ring + (tile % SLOTS) * kSlot;
     hopper::load_tile_async<kBK, D, kThreads>(slot, k, tile * kBK, T,
                                               threadIdx.x);
     if (WITH_V)
@@ -500,6 +530,54 @@ __device__ __forceinline__ void tile_ready() {
 }
 
 extern __shared__ uint8_t smem_tc[];
+
+// The online-softmax step of one k tile (K4a, K1): fold S's row maxima
+// (4 lanes a row) into m, rescale the lane's l, and overwrite s with
+// P = exp2(S c - m), adding it to l. Returns each row half's correction
+// exp2(m_old - m_new), which K1's O still has to take. A row that sees
+// no key yet shifts by 0: its s = -inf give p = 0, as the TPU's safe
+// max does (:199-204).
+__device__ __forceinline__ void online_softmax(float (&s)[kBK / 2],
+                                               float (&m)[2], float (&l)[2],
+                                               float c, float (&corr)[2]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float mx = -INFINITY;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+      mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[h], mx * c);
+    const float safe = m_new == -INFINITY ? 0.f : m_new;
+    corr[h] = hopper::ex2(m[h] - safe);
+    m[h] = m_new;
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kBK / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& x = s[4 * j + 2 * h + e];
+        x = hopper::ex2(fmaf(x, c, -safe));
+        sum += x;
+      }
+    l[h] = l[h] * corr[h] + sum;
+  }
+}
+
+// P (K4b, K1) as the A fragments of P V, each value as hi + lo: the S
+// accumulator of keys 16 kk .. 16 kk + 15 is, register for register,
+// the A fragment of the k step kk of P V.
+__device__ __forceinline__ void split_p(const float (&pr)[kBK / 2],
+                                        uint32_t (&hi)[kBK / 16][4],
+                                        uint32_t (&lo)[kBK / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      hopper::split_bf16(pr[8 * kk + 2 * i], pr[8 * kk + 2 * i + 1],
+                         hi[kk][i], lo[kk][i]);
+}
 
 // K4a (bf16): lse only. m is the running row max of S c (log2 units), l
 // this lane's share of the row's sum of exp2(S c - m).
@@ -530,25 +608,8 @@ flash_fwd_stats_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     scores<D>(s, q_s, ring + (kt % kStages) * Smem<D>::kTile, p.wg);
     const int k0 = kt * kBK;
     if (straddles(p, k0, T, causal)) mask(s, p, k0, T, causal);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-        mx = fmaxf(mx, fmaxf(s[4 * j + 2 * h], s[4 * j + 2 * h + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[h], mx * c);
-      const float safe = m_new == -INFINITY ? 0.f : m_new;
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kBK / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 2; ++e)
-          sum += hopper::ex2(fmaf(s[4 * j + 2 * h + e], c, -safe));
-      l[h] = l[h] * hopper::ex2(m[h] - safe) + sum;
-      m[h] = m_new;
-    }
+    float corr[2];
+    online_softmax(s, m, l, c, corr);
   }
 
 #pragma unroll
@@ -563,14 +624,14 @@ flash_fwd_stats_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
   }
 }
 
-// O += P V for this warpgroup: P as hi + lo, two bf16 A operands from
-// registers, against the v tile MN-major in shared memory (2 kBK / 16
-// wgmma).
+// Issue O += P V for this warpgroup as one wgmma group: P as hi + lo,
+// two bf16 A operands from registers, against the v tile MN-major in
+// shared memory (2 kBK / 16 wgmma).
 template <int D>
-__device__ __forceinline__ void accumulate_pv(float (&acc)[D / 2],
-                                              uint32_t (&hi)[kBK / 16][4],
-                                              uint32_t (&lo)[kBK / 16][4],
-                                              uint32_t v_s) {
+__device__ __forceinline__ void issue_pv(float (&acc)[D / 2],
+                                         uint32_t (&hi)[kBK / 16][4],
+                                         uint32_t (&lo)[kBK / 16][4],
+                                         uint32_t v_s) {
   hopper::fence_regs(acc);
   hopper::wgmma_fence();
 #pragma unroll
@@ -582,13 +643,31 @@ __device__ __forceinline__ void accumulate_pv(float (&acc)[D / 2],
     hopper::mma_rs<D>(acc, lo[kk], b);
   }
   hopper::wgmma_commit();
-  hopper::wgmma_wait<0>();
+}
+
+// After the wait for a P V group: keep the compiler from touching acc,
+// hi and lo before this point.
+template <int D>
+__device__ __forceinline__ void pv_done(float (&acc)[D / 2],
+                                        uint32_t (&hi)[kBK / 16][4],
+                                        uint32_t (&lo)[kBK / 16][4]) {
   hopper::fence_regs(acc);
 #pragma unroll
   for (int kk = 0; kk < kBK / 16; ++kk) {
     hopper::fence_regs(hi[kk]);
     hopper::fence_regs(lo[kk]);
   }
+}
+
+// O += P V (issue_pv), waited for.
+template <int D>
+__device__ __forceinline__ void accumulate_pv(float (&acc)[D / 2],
+                                              uint32_t (&hi)[kBK / 16][4],
+                                              uint32_t (&lo)[kBK / 16][4],
+                                              uint32_t v_s) {
+  issue_pv<D>(acc, hi, lo, v_s);
+  hopper::wgmma_wait<0>();
+  pv_done<D>(acc, hi, lo);
 }
 
 // K4b (bf16): o = sum over k tiles of exp2(S c - lse log2(e)) V.
@@ -634,18 +713,11 @@ flash_fwd_acc_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     scores<D>(s, q_s, slot, p.wg);
     const int k0 = kt * kBK;
     if (straddles(p, k0, T, causal)) mask(s, p, k0, T, causal);
-    // the S accumulator of keys 16 kk .. 16 kk + 15 is, register for
-    // register, the A fragment of the k step kk of P V
+#pragma unroll
+    for (int i = 0; i < kBK / 2; ++i)
+      s[i] = hopper::ex2(fmaf(s[i], c, -shift[(i / 2) % 2]));
     uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float sh = shift[i % 2];
-        hopper::split_bf16(hopper::ex2(fmaf(s[8 * kk + 2 * i], c, -sh)),
-                           hopper::ex2(fmaf(s[8 * kk + 2 * i + 1], c, -sh)),
-                           hi[kk][i], lo[kk][i]);
-      }
+    split_p(s, hi, lo);
     accumulate_pv<D>(acc, hi, lo, slot + Smem<D>::kTile);
   }
 
@@ -658,6 +730,90 @@ flash_fwd_acc_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     for (int j = 0; j < D / 8; ++j)
       *reinterpret_cast<uint32_t*>(out + 8 * j) =
           hopper::pack_bf16(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// K1 (bf16): one sweep with the online softmax; writes o and lse. m is
+// the running row max of S c (log2 units), l this lane's share of the
+// row's sum of exp2(S c - m), acc the row's O, both scaled by exp2(-m).
+// Tile j's exponentials run while the tensor cores do tile j - 1's P V:
+// each step issues S_j, then P_{j-1} V_{j-1}, and waits for S_j alone.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fwd_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                       const __nv_bfloat16* __restrict__ k,
+                       const __nv_bfloat16* __restrict__ v,
+                       __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                       int bh_count, int T, int causal, float sm_scale) {
+  const uint32_t q_s = hopper::align_1024(smem_tc);
+  const uint32_t ring = q_s + Smem<D>::kTile;
+  const Place p = place(bh_count);
+  const long base = (long)p.bh * T * D;
+  const int n_tiles = k_tiles(p.q0, T, causal);
+  const float c = sm_scale * kLog2e;
+  auto slot = [&](int tile) {
+    return ring + (tile % kFwdSlots) * 2 * Smem<D>::kTile;
+  };
+
+  hopper::load_tile_async<kBQ, D, kThreads>(q_s, q + base, p.q0, T,
+                                            threadIdx.x);
+  fetch<D, true, kFwdSlots>(ring, k + base, v + base, 0, n_tiles, T);
+
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.f, 0.f}, corr[2];
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float s[kBK / 2];
+  uint32_t hi[kBK / 16][4], lo[kBK / 16][4];
+
+  tile_ready();
+  fetch<D, true, kFwdSlots>(ring, k + base, v + base, 1, n_tiles, T);
+  scores<D>(s, q_s, slot(0), p.wg);
+  if (straddles(p, 0, T, causal)) mask(s, p, 0, T, causal);
+  online_softmax(s, m, l, c, corr);
+  split_p(s, hi, lo);
+  for (int kt = 1; kt < n_tiles; ++kt) {
+    // tile kt has landed and every thread is past step kt - 1, whose
+    // wait retired the last reader of tile kt - 2's slot, where kt + 1
+    // goes
+    tile_ready();
+    fetch<D, true, kFwdSlots>(ring, k + base, v + base, kt + 1, n_tiles, T);
+    issue_scores<D>(s, q_s, slot(kt), p.wg);
+    issue_pv<D>(acc, hi, lo, slot(kt - 1) + Smem<D>::kTile);
+    hopper::wgmma_wait<1>();  // S_kt; P V of tile kt - 1 still runs
+    hopper::fence_regs(s);
+    const int k0 = kt * kBK;
+    if (straddles(p, k0, T, causal)) mask(s, p, k0, T, causal);
+    online_softmax(s, m, l, c, corr);
+    hopper::wgmma_wait<0>();
+    pv_done<D>(acc, hi, lo);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        acc[4 * j + 2 * h] *= corr[h];
+        acc[4 * j + 2 * h + 1] *= corr[h];
+      }
+    split_p(s, hi, lo);
+  }
+  accumulate_pv<D>(acc, hi, lo, slot(n_tiles - 1) + Smem<D>::kTile);
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float lt = l[h];
+    lt += __shfl_xor_sync(0xffffffffu, lt, 1);
+    lt += __shfl_xor_sync(0xffffffffu, lt, 2);
+    const int r = p.row + 8 * h;
+    if (r >= T) continue;
+    const float inv = 1.f / fmaxf(lt, 1e-30f);
+    __nv_bfloat16* out = o + base + (long)r * D + p.col;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(out + 8 * j) = hopper::pack_bf16(
+          acc[4 * j + 2 * h] * inv, acc[4 * j + 2 * h + 1] * inv);
+    if (p.lane % 4 == 0)
+      lse[(long)p.bh * T + r] =
+          m[h] == -INFINITY ? kNegInf : (m[h] + log2f(lt)) * kLn2;
   }
 }
 
@@ -678,17 +834,24 @@ constexpr int tiles_bytes(int d_tiles, int p_tiles, int rows) {
          (int)sizeof(float);
 }
 
-template <typename Elem>
-int launch_fwd(const void* q, const void* k, const void* v, void* o,
+// K1: fp32 on the CUDA cores, bf16 on the tensor cores.
+int launch_fwd(const float* q, const float* k, const float* v, float* o,
                float* lse, int bh, int t, int d, int causal, float sm_scale,
                void* stream) {
   return flash::by_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    return flash::run(flash_fwd_kernel<D, Elem>, tiles_bytes<D>(3, 1, 0),
-                      bh, t, stream, static_cast<const Elem*>(q),
-                      static_cast<const Elem*>(k),
-                      static_cast<const Elem*>(v), static_cast<Elem*>(o),
-                      lse, t, causal, sm_scale);
+    return flash::run(flash_fwd_kernel<D>, tiles_bytes<D>(3, 1, 0), bh, t,
+                      stream, q, k, v, o, lse, t, causal, sm_scale);
+  });
+}
+
+int launch_fwd(const __nv_bfloat16* q, const __nv_bfloat16* k,
+               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int bh,
+               int t, int d, int causal, float sm_scale, void* stream) {
+  return flash::by_dim(d, [&](auto dim) {
+    constexpr int D = decltype(dim)::value;
+    return tc::run(tc::flash_fwd_wgmma_kernel<D>, tc::Smem<D>::kFwd, bh, t,
+                   stream, q, k, v, o, lse, bh, t, causal, sm_scale);
   });
 }
 
@@ -745,16 +908,20 @@ extern "C" int flash_attention_fwd_f32(const void* q, const void* k,
                                        const void* v, void* o, float* lse,
                                        int bh, int t, int d, int causal,
                                        float sm_scale, void* stream) {
-  return launch_fwd<float>(q, k, v, o, lse, bh, t, d, causal, sm_scale,
-                           stream);
+  return launch_fwd(static_cast<const float*>(q), static_cast<const float*>(k),
+                    static_cast<const float*>(v), static_cast<float*>(o), lse,
+                    bh, t, d, causal, sm_scale, stream);
 }
 
 extern "C" int flash_attention_fwd_bf16(const void* q, const void* k,
                                         const void* v, void* o, float* lse,
                                         int bh, int t, int d, int causal,
                                         float sm_scale, void* stream) {
-  return launch_fwd<__nv_bfloat16>(q, k, v, o, lse, bh, t, d, causal,
-                                   sm_scale, stream);
+  return launch_fwd(static_cast<const __nv_bfloat16*>(q),
+                    static_cast<const __nv_bfloat16*>(k),
+                    static_cast<const __nv_bfloat16*>(v),
+                    static_cast<__nv_bfloat16*>(o), lse, bh, t, d, causal,
+                    sm_scale, stream);
 }
 
 // K4a: writes lse.

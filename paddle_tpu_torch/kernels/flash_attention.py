@@ -14,10 +14,12 @@ kernels in paddle_tpu/pallas/flash_attention.py.
 The kernels are CUDA C++ for sm_90a, built with nvcc at first use
 (kernels/build.py) and called through ctypes on PyTorch's current
 stream. They take float32 or bfloat16 q, k, v (and dO), accumulate in
-float32, and keep lse and delta in float32 [BH, T]; the bf16 K4a and K4b
-multiply bf16 tiles on the tensor cores, and so do the bf16 K2 and K5;
-the rest run float32 FMAs on the CUDA cores. In bf16 the kvmajor (K2)
-and onepass (K5) arms launch one kernel, `flash_bwd_wgmma_kernel`
+float32, and keep lse and delta in float32 [BH, T]; in bf16 K1, K4a,
+K4b, K2 and K5 multiply bf16 tiles on the tensor cores (K1 is
+`flash_fwd_wgmma_kernel`: K4a's online max and K4b's P·V with P as bf16
+hi + lo, fused into one sweep); fp32 K1, K4a, K4b, K2, K5 and K3a, K3b
+in both dtypes run float32 FMAs on the CUDA cores. In bf16 the kvmajor
+(K2) and onepass (K5) arms launch one kernel, `flash_bwd_wgmma_kernel`
 (`_bwd_entry`): both compute the same function from the same arguments,
 and that kernel is kv-major, so dk and dv are summed in registers
 (deterministic) and only dq goes through float32 atomics. Each source's

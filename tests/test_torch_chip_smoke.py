@@ -1,8 +1,9 @@
 """chip_smoke.py's helpers that run without a card: the attention
-yardstick, the bounds of the flash kernels, the checks of K4b's o and of
-the backward's gradients, the device-time classes and the ptxas report,
-the FLOP count of the LM steps and the arm switch; and the script's
-refusal to run without a card."""
+yardstick, the bounds of the flash kernels, the checks of K1's o and
+lse, of K4b's o and of the backward's gradients, the kernel checks of
+phases b and b4 run on the plain versions, the device-time classes and
+the ptxas report, the FLOP count of the LM steps and the arm switch; and
+the script's refusal to run without a card."""
 import os
 import shutil
 import subprocess
@@ -70,14 +71,15 @@ def test_library_time_is_device_time_or_raises(monkeypatch):
     ('k5', (16, 8192, 128), 'bfloat16', 0.69464, 'operations'),
     ('fwd', (16, 512, 128), 'float32', 0.016057, 'operations'),
     ('fwd', (128, 512, 128), 'bfloat16', 0.020111, 'bytes'),
+    ('fwd', (16, 8192, 128), 'bfloat16', 0.27786, 'operations'),
     ('k2', (128, 512, 128), 'bfloat16', 0.035213, 'bytes'),
     ('k3a', (128, 512, 128), 'bfloat16', 0.025197, 'bytes'),
     ('k3b', (128, 512, 128), 'bfloat16', 0.030205, 'bytes'),
 ])
 def test_flash_bounds(kind, shape, dtype, ms, by):
     """K4a does 2 FLOP per visited score per column and writes lse only,
-    K4b 4, K5 10 with 3 outputs; the earlier kernels' bounds are those
-    PERF.md recorded."""
+    K4b and K1 4 (K1 at the long-context shape: K4b's bound), K5 10 with
+    3 outputs; the earlier kernels' bounds are those PERF.md recorded."""
     got = chip_smoke.flash_bound_ms(kind, *shape, True, dtype)
     assert got[1] == by
     np.testing.assert_allclose(got[0], ms, rtol=1e-4)
@@ -106,6 +108,98 @@ def test_acc_check_refuses_small_rows_five_percent_off(causal):
     assert chip_smoke.check_acc_output(off(1.01), o_ref, 'bfloat16')[2]
     assert chip_smoke.check_acc_output(o_ref, o_ref, 'bfloat16') == \
         (0.0, 0.0, True)
+
+
+@pytest.mark.parametrize('causal', [True, False])
+def test_fwd_check_refuses_small_rows_five_percent_off(causal):
+    """b's and b4's check of K1: a bf16 o 5% off on its rows of small |o|
+    (the second half of a 2048-key causal or full softmax, |o| ~2e-2)
+    lies within the bf16 atol of 2e-2 but not within O_RTOL; an lse
+    1e-3 off is refused in both dtypes (the fp32 atol, as K4a's lse);
+    the plain version's own outputs, and an o 1% off there, pass."""
+    rng = np.random.RandomState(0)
+    q, k, v, _ = chip_smoke._inputs(rng, 2, 2048, 64, 'bfloat16', 'cpu')
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, 0.125)
+    assert o_ref.float()[:, 1024:].abs().mean() < 2.5e-2
+
+    def off(factor):
+        o = o_ref.float().clone()
+        o[:, 1024:] *= factor
+        return o.to(torch.bfloat16)
+
+    check = chip_smoke.check_fwd_output
+    err, rel, lse_err, ok = check(off(1.05), lse_ref, o_ref, lse_ref,
+                                  'bfloat16')
+    assert err <= chip_smoke.KERNEL_ATOL['bfloat16'] and not ok
+    assert rel > chip_smoke.O_RTOL and lse_err == 0.0
+    assert check(off(1.01), lse_ref, o_ref, lse_ref, 'bfloat16')[3]
+    assert check(o_ref, lse_ref, o_ref, lse_ref, 'bfloat16') == \
+        (0.0, 0.0, 0.0, True)
+    for dtype in ('bfloat16', 'float32'):
+        err, rel, lse_err, ok = check(o_ref, lse_ref + 1e-3, o_ref, lse_ref,
+                                      dtype)
+        assert (err, rel) == (0.0, 0.0) and not ok
+        np.testing.assert_allclose(lse_err, 1e-3, rtol=1e-2)
+
+
+def _plain_wrappers(monkeypatch):
+    """Every flash wrapper of phases b and b4 replaced by its plain
+    version (the backward ones recompute o from the plain forward), and
+    torch.cuda.synchronize by a no-op: the checks then run on the CPU."""
+    def bwd(q, k, v, do, lse, delta, causal, scale):
+        o, _ = fa.flash_attention_reference(q, k, v, causal, scale)
+        return fa.flash_attention_bwd_reference(q, k, v, o, lse, do, causal,
+                                                scale)
+    for name, fn in (
+            ('flash_attention_fwd', fa.flash_attention_reference),
+            ('flash_attention_fwd_stats', fa.flash_attention_stats_reference),
+            ('flash_attention_fwd_acc', fa.flash_attention_acc_reference),
+            ('flash_attention_bwd_kvmajor', bwd),
+            ('flash_attention_bwd_onepass', bwd),
+            ('flash_attention_bwd_dq', lambda *a: bwd(*a)[0]),
+            ('flash_attention_bwd_dkv', lambda *a: bwd(*a)[1:])):
+        monkeypatch.setattr(fa, name, fn)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+    monkeypatch.setattr(torch.cuda, 'empty_cache', lambda: None)
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_kernel_checks_pass_the_plain_versions(monkeypatch, capsys, dtype):
+    """Phase b's and b4's checks at a ragged causal shape, run on the CPU
+    with the plain versions in place of the kernels: every kind passes
+    (K1 with zero error; b4's K5 gets the acc version's o, which lies a
+    rounding step from the plain forward's), and b4 holds K1 in bf16
+    only (fp32 K1 runs on no path at the long-context T) and logs its
+    distance from fp64."""
+    _plain_wrappers(monkeypatch)
+    rng = np.random.RandomState(1)
+    errs = chip_smoke._check_shape(fa, rng, 'cpu', 2, 130, 64, True, dtype)
+    assert set(errs) == {'fwd', 'k2', 'k3a', 'k3b'}
+    assert max(errs.values()) == 0.0
+    errs = chip_smoke._check_long_shape(fa, rng, 'cpu', 2, 130, 64, True,
+                                        dtype, fp64=True)
+    kinds = {'k4a', 'k4b', 'k5'} | ({'fwd'} if dtype == 'bfloat16' else set())
+    assert set(errs) == kinds
+    assert errs.get('fwd', 0.0) == errs['k4a'] == errs['k4b'] == 0.0
+    out = capsys.readouterr().out
+    assert 'MISMATCH' not in out
+    bf16 = dtype == 'bfloat16'
+    assert (': flash_attention_fwd o ' in out) is bf16
+    assert (', flash_attention_fwd ' in out.split('vs fp64')[-1]) is bf16
+
+
+def test_kernel_checks_refuse_a_wrong_forward(monkeypatch):
+    """A K1 whose lse is 1e-3 off fails phase b's check and b4's."""
+    _plain_wrappers(monkeypatch)
+
+    def wrong(q, k, v, causal, scale):
+        o, lse = fa.flash_attention_reference(q, k, v, causal, scale)
+        return o, lse + 1e-3
+    monkeypatch.setattr(fa, 'flash_attention_fwd', wrong)
+    rng = np.random.RandomState(2)
+    for check in (chip_smoke._check_shape, chip_smoke._check_long_shape):
+        with pytest.raises(AssertionError, match='flash_attention_fwd'):
+            check(fa, rng, 'cpu', 2, 130, 64, True, 'bfloat16')
 
 
 @pytest.mark.parametrize('causal', [True, False])
@@ -177,6 +271,59 @@ def test_kernel_kind_classes_the_backward_kernels(name, kind):
     profiler reports it) or its mangled one (as ptxas does); fp32 K5
     keeps its line."""
     assert chip_smoke._kernel_kind(name) == kind
+
+
+@pytest.mark.parametrize('name,kind', [
+    ('void (anonymous namespace)::tc::flash_fwd_wgmma_kernel<128>('
+     '__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, '
+     '__nv_bfloat16*, float*, int, int, int, float)',
+     'K1 bf16 (flash_fwd_wgmma_kernel)'),
+    ('void (anonymous namespace)::tc::flash_fwd_wgmma_kernel<64>(...)',
+     'K1 bf16 (flash_fwd_wgmma_kernel)'),
+    ('_ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_fwd_cu_6928a1a22tc22'
+     'flash_fwd_wgmma_kernelILi128EEEvPK13__nv_bfloat16S4_S4_PS2_Pfiiif',
+     'K1 bf16 (flash_fwd_wgmma_kernel)'),
+    ('void (anonymous namespace)::flash_fwd_kernel<128>(float const*, '
+     'float const*, float const*, float*, float*, int, int, float)',
+     'flash kernels (K1/K2/K3)'),
+    ('void (anonymous namespace)::flash_bwd_q_kernel<128, __nv_bfloat16, '
+     'false>(...)', 'flash kernels (K1/K2/K3)'),
+    ('void (anonymous namespace)::tc::flash_fwd_stats_wgmma_kernel<128>()',
+     'K4a (flash_fwd_stats_kernel)'),
+])
+def test_kernel_kind_classes_the_forward_kernels(name, kind):
+    """t4's and l3's breakdowns give bf16 K1 (the tensor-core forward) a
+    line of its own, by its demangled or mangled name; fp32 K1 and K3a,
+    K3b keep the CUDA-core flash line, and K4a keeps its own."""
+    assert chip_smoke._kernel_kind(name) == kind
+
+
+_FWD_PTXAS = '''\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_\
+flash_attention_fwd_cu_6928a1a22tc26flash_fwd_acc_wgmma_kernelILi128EEEvPK13\
+__nv_bfloat16S4_S4_PKfPS2_iiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 222 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_\
+flash_attention_fwd_cu_6928a1a22tc22flash_fwd_wgmma_kernelILi128EEEvPK13\
+__nv_bfloat16S4_S4_PS2_Pfiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 253 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_\
+flash_attention_fwd_cu_6928a1a22tc22flash_fwd_wgmma_kernelILi64EEEvPK13\
+__nv_bfloat16S4_S4_PS2_Pfiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 205 registers, used 1 barriers
+'''
+
+
+def test_ptxas_report_reads_the_forward_kernel():
+    """Phase a's report of bf16 K1 from nvcc's -Xptxas -v lines for the
+    forward's source: each instantiation once, K4b's tensor-core kernel
+    not mistaken for it."""
+    assert chip_smoke.ptxas_report(_FWD_PTXAS, 'flash_fwd_wgmma_kernel') == [
+        ('flash_fwd_wgmma_kernel<128>', 253, 0, 0),
+        ('flash_fwd_wgmma_kernel<64>', 205, 0, 0)]
 
 
 def test_ptxas_report_reads_registers_and_spills():

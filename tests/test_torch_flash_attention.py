@@ -236,6 +236,22 @@ def test_bwd_entry_is_the_tensor_core_kernel_in_bf16(arm):
     assert 'flash_bwd_wgmma_kernel<D>' in src
 
 
+def test_fwd_entry_is_the_tensor_core_kernel_in_bf16():
+    """bf16 K1 launches the tensor-core kernel through its C entry
+    point; float32 keeps the CUDA-core kernel, which is no longer
+    instantiated for bf16, so no bf16 CUDA-core forward remains to fall
+    back to."""
+    src = (fa.build.CSRC_DIR / 'flash_attention_fwd.cu').read_text()
+    defined = set(re.findall(r'extern "C" int (\w+)\(', src))
+    assert {'flash_attention_fwd_' + fa._SUFFIX[dt]
+            for dt in fa.SUPPORTED_DTYPES} <= defined
+    assert 'flash_fwd_wgmma_kernel<D>' in src
+    assert 'tc::run(tc::flash_fwd_wgmma_kernel<D>' in src
+    assert 'flash_fwd_kernel<D, __nv_bfloat16>' not in src
+    assert not re.search(r'flash_fwd_kernel<\w+,\s*(__nv_bfloat16|Elem)>',
+                         src)
+
+
 @pytest.mark.parametrize('causal', [True, False])
 def test_twopass_plain_versions_match_pallas_twopass(causal):
     """K4a's and K4b's plain versions against the TPU's two-pass forward
