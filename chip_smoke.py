@@ -10,18 +10,21 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       source, started together): the flash-attention forwards K1, K4a,
       K4b (bf16 K1 is the tensor-core flash_fwd_wgmma_kernel), the
       backwards K2, K3a, K3b, K5 (bf16 K2 and K5 are one tensor-core
-      kernel, flash_bwd_wgmma_kernel), the matmul + BN-statistics kernel
-      K6 and the probe P; the registers and spills of both tensor-core
-      kernels at d = 64 and 128 are logged;
+      kernel, flash_bwd_wgmma_kernel; bf16 K3a and K3b the tensor-core
+      flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel), the
+      matmul + BN-statistics kernel K6 and the probe P; the registers
+      and spills of the tensor-core K1, K2/K5, K3a and K3b at d = 64 and
+      128 are logged;
   (b) hold K1, K2, K3a and K3b against their plain PyTorch versions on
       the card, at the shapes the paths give them and at ragged edge
       shapes, fp32 and bf16 (K1 by check_fwd_output: lse within the fp32
       atol in both dtypes, bf16 o also within O_RTOL relative to |o| +
-      mean |o|; bf16 K2's dq, dk, dv also within G_RTOL relative to
-      |g| + mean |g|), and time kernel, plain version and the
-      PyTorch library call (sdpa_yardstick: scaled_dot_product_attention
-      on 4-D views under a fused backend only; its backward is timed as
-      fwd+bwd minus fwd, timed only);
+      mean |o|; bf16 K2's dq, dk, dv, K3a's dq and K3b's dk, dv also
+      within G_RTOL relative to |g| + mean |g|; K3a and K3b launched
+      twice give bit-identical outputs), and time kernel, plain version
+      and the PyTorch library call (sdpa_yardstick:
+      scaled_dot_product_attention on 4-D views under a fused backend
+      only; its backward is timed as fwd+bwd minus fwd, timed only);
   (b4) the same for K4a, K4b and K5 at the long-context path's shape
       [16, 8192, 128] causal in bf16 and in fp32 (K4b's o also against
       an fp64 evaluation, logged; K5's dq, dk, dv too, and the plain
@@ -61,6 +64,8 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       agree within TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL;
   (t3) the same step under PADDLE_FLASH_BWD=split: K3a and K3b launch 12
       times each, K2 never, and loss and updates match t2's kernel step;
+      then the split step's wall ms and its device time by kernel kind
+      from torch.profiler over 3 steps;
   (t4) step ms, tokens/s, MFU (bench.py's FLOPs per token over the bf16
       dense peak), device-busy share and top device items from
       torch.profiler over 3 steps, and peak device memory.
@@ -288,7 +293,10 @@ def build_kernels():
                                        'spill', 'arning')):
                 log('  ptxas: %s' % line.strip())
     for source, mark in (('flash_attention_fwd', 'flash_fwd_wgmma_kernel'),
-                         ('flash_attention_bwd', 'flash_bwd_wgmma_kernel')):
+                         ('flash_attention_bwd', 'flash_bwd_wgmma_kernel'),
+                         ('flash_attention_bwd', 'flash_bwd_dq_wgmma_kernel'),
+                         ('flash_attention_bwd',
+                          'flash_bwd_dkv_wgmma_kernel')):
         for entry, regs, stores, loads in ptxas_report(
                 build.build_logs.get(source, ''), mark):
             log('ptxas %s: %d registers, %d bytes spill stores, %d bytes '
@@ -427,8 +435,11 @@ def _max_err(got, want):
 
 def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     """Run K1, K2, K3a and K3b once at one shape and hold each against
-    its plain version (K1 by check_fwd_output, K2's gradients also by
-    check_grads: G_RTOL in bf16); returns {kind: max_abs_err}."""
+    its plain version (K1 by check_fwd_output; the gradients of K2, K3a
+    and K3b by check_grads: G_RTOL in bf16), and launch K3a and K3b a
+    second time on the same inputs: the split arm is the deterministic
+    one, so both launches must give the same bits. Returns {kind:
+    max_abs_err}."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
     scale = d ** -0.5
@@ -448,31 +459,46 @@ def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     got = {'k2': fa.flash_attention_bwd_kvmajor(*args),
            'k3a': (fa.flash_attention_bwd_dq(*args),),
            'k3b': fa.flash_attention_bwd_dkv(*args)}
+    again = {'k3a': (fa.flash_attention_bwd_dq(*args),),
+             'k3b': fa.flash_attention_bwd_dkv(*args)}
     torch.cuda.synchronize()
     want = {'k2': (dq, dk, dv), 'k3a': (dq,), 'k3b': (dk, dv)}
+    rels, oks = {}, {'fwd': fwd_ok}
     for kind, out in got.items():
-        errs[kind] = _max_err(out, want[kind])
+        errs[kind], rels[kind], oks[kind] = check_grads(out, want[kind], dtype)
         finite = finite and all(bool(torch.isfinite(t).all()) for t in out)
-    _, k2_rels, k2_ok = check_grads(got['k2'], want['k2'], dtype)
-    tol = KERNEL_ATOL[dtype]
-    bad = [kind for kind, e in errs.items()
-           if not ({'fwd': fwd_ok, 'k2': k2_ok}.get(kind, e <= tol))]
+    same = {kind: all(torch.equal(a, b) for a, b in zip(got[kind], out))
+            for kind, out in again.items()}
+    bad = [kind for kind in errs if not oks[kind]]
+    varied = [kind for kind, s in same.items() if not s]
     log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g); %s o %.3e, '
-        'lse %.3e (atol %g), o relative %.3e; %s dq, dk, dv relative %s '
-        '(bounds %s) %s'
+        'lse %.3e (atol %g), o relative %.3e; relative %s (bounds %s); '
+        'second launch bit-identical: %s %s'
         % (BH, T, d, causal, dtype,
            ', '.join('%s %.3e' % (KERNELS[kd][0], e)
                      for kd, e in errs.items()),
-           tol, KERNELS['fwd'][0], o_err, lse_err, KERNEL_ATOL['float32'],
-           o_rel, KERNELS['k2'][0], ', '.join('%.3e' % r for r in k2_rels),
+           KERNEL_ATOL[dtype], KERNELS['fwd'][0], o_err, lse_err,
+           KERNEL_ATOL['float32'], o_rel,
+           '; '.join('%s %s %s' % (KERNELS[kd][0], _GRAD_NAMES[kd],
+                                   ', '.join('%.3e' % r for r in rs))
+                     for kd, rs in rels.items()),
            '%g / %g' % (O_RTOL, G_RTOL) if dtype == 'bfloat16' else 'none',
-           'ok' if not bad and finite else 'MISMATCH'))
-    if bad or not finite:
-        raise AssertionError('%s disagree with their plain versions at '
-                             '[%d, %d, %d] %s (finite: %s)'
-                             % ([KERNELS[kd][0] for kd in bad], BH, T, d,
-                                dtype, finite))
+           ', '.join('%s %s' % (KERNELS[kd][0], 'yes' if s else 'NO')
+                     for kd, s in same.items()),
+           'ok' if not bad and not varied and finite else 'MISMATCH'))
+    faults = (['%s disagree with their plain versions'
+               % [KERNELS[kd][0] for kd in bad]] if bad else []) + \
+        (['%s give other bits on a second launch'
+          % [KERNELS[kd][0] for kd in varied]] if varied else []) + \
+        ([] if finite else ['a result is not finite'])
+    if faults:
+        raise AssertionError('%s at [%d, %d, %d] %s'
+                             % ('; '.join(faults), BH, T, d, dtype))
     return errs
+
+
+# the gradients each backward kind returns, in the order it returns them
+_GRAD_NAMES = {'k2': 'dq, dk, dv', 'k3a': 'dq', 'k3b': 'dk, dv'}
 
 
 def _row(kind, dtype, shape, causal, err, times, bound):
@@ -514,21 +540,26 @@ def _log_rows(rows):
 def _device_ms(fn, iters=10):
     """Device time of one fn() from torch.profiler: the sum of its
     kernels' time over `iters` calls, per call (None if the profiler saw
-    no device events). Unlike CUDA events around the calls, it leaves out
-    the time the card waits for the host."""
+    no device events in two windows: it has once returned an empty
+    window for a kernel that the next window traced). Unlike CUDA events
+    around the calls, it leaves out the time the card waits for the
+    host."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
-    us = sum(_device_us(e) for e in prof.key_averages()
-             if getattr(e, 'device_type', None) == DeviceType.CUDA)
-    return us / iters / 1e3 if us > 0 else None
+    for _ in range(2):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(_device_us(e) for e in prof.key_averages()
+                 if getattr(e, 'device_type', None) == DeviceType.CUDA)
+        if us > 0:
+            return us / iters / 1e3
+    return None
 
 
 def _library_ms(fn):
@@ -1320,19 +1351,17 @@ def check_plain_step(tr, counters):
 
 
 @phase('t3: one step under the split backward arm (K3a + K3b)')
-def check_split_step(tr, saved, batch, kernel, counters):
-    prev = os.environ.get('PADDLE_FLASH_BWD')
-    os.environ['PADDLE_FLASH_BWD'] = 'split'
-    try:
+def check_split_step(tr, saved, batch, kernel, counters, sync):
+    """One step from the saved state under PADDLE_FLASH_BWD=split, held
+    to the kvmajor kernel step; then the split step's wall ms over
+    TIMED_STEPS steps and its device time by kernel kind over
+    PROFILE_STEPS. Returns (launches, differences, wall ms, device
+    ms)."""
+    with flash_arms(None, 'split'):
         for c in counters.values():
             c.launches = 0
         split = _one_step(tr, saved, batch)
         launches = {n: c.launches for n, c in counters.items()}
-    finally:
-        if prev is None:
-            os.environ.pop('PADDLE_FLASH_BWD')
-        else:
-            os.environ['PADDLE_FLASH_BWD'] = prev
     log('split-arm step launches: %s' % json.dumps(launches))
     L = tr.cfg.layers
     if launches['flash_attention_bwd_dq'] != L or \
@@ -1341,8 +1370,19 @@ def check_split_step(tr, saved, batch, kernel, counters):
         raise AssertionError('split arm: want K3a and K3b %d times each and '
                              'K2 never, got %r' % (L, launches))
     diffs = _compare('split-arm step vs kvmajor step', split, kernel)
+    with flash_arms(None, 'split'):
+        tr.feed(bench_provider(tr.cfg, tr.batch, np.random.RandomState(3)))
+        tr.step()
+        sync()
+        t0 = time.perf_counter()
+        for _ in range(TIMED_STEPS):
+            tr.step()
+        sync()
+        step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
+        device_ms, _ = _profile_steps(tr, step_ms, sync, 'split-arm step')
+        tr.reader.reset()
     tr.restore(saved)
-    return launches, diffs
+    return launches, diffs, step_ms, device_ms
 
 
 @phase('t4: step time, tokens/s, MFU, device time')
@@ -1410,6 +1450,10 @@ def _kernel_kind(name):
     low = name.lower()
     if 'flash_bwd_wgmma_kernel' in low:
         return 'K2/K5 bf16 (flash_bwd_wgmma_kernel)'
+    if 'flash_bwd_dq_wgmma_kernel' in low:
+        return 'K3a bf16 (flash_bwd_dq_wgmma_kernel)'
+    if 'flash_bwd_dkv_wgmma_kernel' in low:
+        return 'K3b bf16 (flash_bwd_dkv_wgmma_kernel)'
     if 'flash_fwd_wgmma_kernel' in low:
         return 'K1 bf16 (flash_fwd_wgmma_kernel)'
     if 'flash_bwd_q_kernel' in low and 'true>' in low:
@@ -2205,8 +2249,8 @@ def main():
             cfg, place, counters, sync)
         saved, batch, kernel_step, plain_diffs = check_plain_step(
             tr, counters)
-        split_launches, split_diffs = check_split_step(
-            tr, saved, batch, kernel_step, counters)
+        split_launches, split_diffs, split_ms, split_device_ms = \
+            check_split_step(tr, saved, batch, kernel_step, counters, sync)
         del saved
         tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
         # the LM is freed before the ResNet phases
@@ -2269,11 +2313,13 @@ def main():
         % (wall, N_REQUESTS, NEW_TOKENS, prefill_ms, step_ms, serve_peak_gb))
     log('training: step %.3f ms, %.1f tokens/s, MFU %.4f, device busy %s, '
         'peak device memory %.2f GB, loss after %d steps %.6f; kernel vs '
-        'plain step loss |diff| %.3e, split vs kvmajor %.3e'
+        'plain step loss |diff| %.3e, split vs kvmajor %.3e; split-arm step '
+        '%.3f ms, device %s ms (kvmajor %s ms)'
         % (train_ms, tok_s, mfu,
            'not measured' if busy is None else '%.1f%%' % (100 * busy),
            train_peak_gb, len(losses), losses[-1], plain_diffs[0],
-           split_diffs[0]))
+           split_diffs[0], split_ms, _fmt_ms(split_device_ms or None),
+           _fmt_ms(device_ms or None)))
     log('ResNet-50 training (batch %d, 224 px, AMP Momentum): step %.3f ms, '
         '%.1f images/s, MFU %.4f, device busy %s, peak device memory %.2f '
         'GB, loss after %d steps %.6f, K6 launches %d; K6 vs plain step loss '

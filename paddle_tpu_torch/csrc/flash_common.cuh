@@ -1,16 +1,14 @@
 // Shared pieces of the flash-attention kernels (flash_attention_fwd.cu,
-// flash_attention_bwd.cu): tile sizes, fp32/bf16 loads, tile staging, and
-// the launch of one block per (64-row tile, bh).
+// flash_attention_bwd.cu): tile sizes, fp32 loads, tile staging, and the
+// launch of one block per (64-row tile, bh).
 //
-// The CUDA-core kernels (all but the bf16 K4a and K4b, which keep bf16
+// The CUDA-core kernels (every fp32 flash kernel; the bf16 ones keep bf16
 // tiles for the tensor cores: hopper.cuh) stage 64-row tiles of [T, D]
 // matrices (q, k, v, dO) in shared memory as fp32 with a row stride of
 // D + 1 floats: the column reads of the tile products then hit distinct
-// banks. bf16 inputs are widened to fp32 as they are staged; all math is
-// fp32.
+// banks. All their math is fp32.
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -27,12 +25,8 @@ template <>
 __device__ __forceinline__ float from_f32<float>(float x) {
   return x;
 }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);  // round to nearest even
-}
 
-// One 16-byte load of consecutive elements, widened to fp32.
+// One 16-byte load of consecutive elements.
 template <typename Elem>
 struct Vec;
 template <>
@@ -44,20 +38,6 @@ struct Vec<float> {
     out[1] = v.y;
     out[2] = v.z;
     out[3] = v.w;
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void load(const __nv_bfloat16* p, float* out) {
-    const uint4 raw = *reinterpret_cast<const uint4*>(p);
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float2 f = __bfloat1622float2(h[i]);
-      out[2 * i] = f.x;
-      out[2 * i + 1] = f.y;
-    }
   }
 };
 

@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks of the tensor-core flash kernels
-// (flash_attention_fwd.cu: K4a and K4b in bf16; flash_attention_bwd.cu:
-// K2 and K5 in bf16): bf16 tiles in shared memory with the 128-byte
-// swizzle, filled by cp.async; wgmma matrix descriptors; the warpgroup
-// products; exp2 on the special-function unit; the 1-D launch.
+// (flash_attention_fwd.cu: K1, K4a and K4b in bf16;
+// flash_attention_bwd.cu: K2, K3a, K3b and K5 in bf16): bf16 tiles in
+// shared memory with the 128-byte swizzle, filled by cp.async; wgmma
+// matrix descriptors; the warpgroup products; exp2 on the
+// special-function unit; the 1-D launch.
 //
 // Tile layout. A [rows, D] bf16 tile is kept as D / 64 panels of 64
 // columns; panel p holds columns [64 p, 64 p + 64) of every row, 128

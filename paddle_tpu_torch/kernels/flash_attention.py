@@ -14,17 +14,22 @@ kernels in paddle_tpu/pallas/flash_attention.py.
 The kernels are CUDA C++ for sm_90a, built with nvcc at first use
 (kernels/build.py) and called through ctypes on PyTorch's current
 stream. They take float32 or bfloat16 q, k, v (and dO), accumulate in
-float32, and keep lse and delta in float32 [BH, T]; in bf16 K1, K4a,
-K4b, K2 and K5 multiply bf16 tiles on the tensor cores (K1 is
+float32, and keep lse and delta in float32 [BH, T]. In bf16 every kernel
+multiplies bf16 tiles on the tensor cores (K1 is
 `flash_fwd_wgmma_kernel`: K4a's online max and K4b's P·V with P as bf16
-hi + lo, fused into one sweep); fp32 K1, K4a, K4b, K2, K5 and K3a, K3b
-in both dtypes run float32 FMAs on the CUDA cores. In bf16 the kvmajor
-(K2) and onepass (K5) arms launch one kernel, `flash_bwd_wgmma_kernel`
-(`_bwd_entry`): both compute the same function from the same arguments,
-and that kernel is kv-major, so dk and dv are summed in registers
-(deterministic) and only dq goes through float32 atomics. Each source's
-header says what bounds it on an H100 and what its design does about
-that.
+hi + lo, fused into one sweep); in float32 every kernel runs float32
+FMAs on the CUDA cores. In bf16 the kvmajor (K2) and onepass (K5) arms
+launch one kernel, `flash_bwd_wgmma_kernel` (`_bwd_entry`): both compute
+the same function from the same arguments, and that kernel is kv-major,
+so dk and dv are summed in registers (deterministic) and only dq goes
+through float32 atomics. The split arm (K3a + K3b) has no atomics in
+either dtype: bf16 K3a (`flash_bwd_dq_wgmma_kernel`) is q-major and sums
+dq in registers, bf16 K3b (`flash_bwd_dkv_wgmma_kernel`) is K2's
+kv-major body without dq, so each gradient is summed in one order and
+written once, and the arm gives the same bits on every run. Both are
+bound by bytes at the flagship shape, and neither writes a float32
+buffer. Each source's header says what bounds it on an H100 and what
+its design does about that.
 
 - Each wrapper checks device, dtype, shape and contiguity, launches its
   kernel, raises if the launch fails, and counts its launches in
@@ -333,8 +338,10 @@ flash_attention_bwd_kvmajor.launches = 0
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, causal, sm_scale):
-    """Launch K3a, the split backward's dq sweep (no atomics). Same
-    arguments as flash_attention_bwd_kvmajor; returns dq."""
+    """Launch K3a, the split backward's dq sweep: q-major, dq summed in
+    registers and written once (no atomics, the same bits on every
+    run); bf16 runs the tensor-core kernel. Same arguments as
+    flash_attention_bwd_kvmajor; returns dq."""
     who = 'flash_attention_bwd_dq'
     _bwd_check(who, q, k, v, do, lse, delta)
     dq = torch.empty_like(q)
@@ -349,7 +356,9 @@ flash_attention_bwd_dq.launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, do, lse, delta, causal, sm_scale):
-    """Launch K3b, the split backward's dk/dv sweep. Same arguments as
+    """Launch K3b, the split backward's dk/dv sweep: kv-major, dk and dv
+    summed in registers and written once (no atomics, the same bits on
+    every run); bf16 runs the tensor-core kernel. Same arguments as
     flash_attention_bwd_kvmajor; returns (dk, dv)."""
     who = 'flash_attention_bwd_dkv'
     _bwd_check(who, q, k, v, do, lse, delta)

@@ -47,6 +47,17 @@ def test_sdpa_yardstick_takes_a_fused_backend_on_3d_inputs(dtype):
                                atol=tol, rtol=tol)
 
 
+def test_device_time_takes_a_second_window_before_giving_up(monkeypatch):
+    """The profiler has returned an empty window for a kernel that the
+    next window traced: a window with no device events is taken again
+    once, and only then is the device time not measured (None). On the
+    CPU every window is empty: one warm-up call and two windows."""
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+    calls = []
+    assert chip_smoke._device_ms(lambda: calls.append(1), iters=3) is None
+    assert len(calls) == 1 + 2 * 3
+
+
 def test_library_time_is_device_time_or_raises(monkeypatch):
     """The yardstick is read on torch.profiler's device time only: where
     the profiler sees none, the timing raises and never falls back to
@@ -183,6 +194,10 @@ def test_kernel_checks_pass_the_plain_versions(monkeypatch, capsys, dtype):
     assert errs.get('fwd', 0.0) == errs['k4a'] == errs['k4b'] == 0.0
     out = capsys.readouterr().out
     assert 'MISMATCH' not in out
+    assert 'second launch bit-identical: flash_attention_bwd_dq yes, ' \
+        'flash_attention_bwd_dkv yes ok' in out
+    assert 'flash_attention_bwd_dq dq 0.000e+00; flash_attention_bwd_dkv ' \
+        'dk, dv 0.000e+00, 0.000e+00' in out
     bf16 = dtype == 'bfloat16'
     assert (': flash_attention_fwd o ' in out) is bf16
     assert (', flash_attention_fwd ' in out.split('vs fp64')[-1]) is bf16
@@ -200,6 +215,64 @@ def test_kernel_checks_refuse_a_wrong_forward(monkeypatch):
     for check in (chip_smoke._check_shape, chip_smoke._check_long_shape):
         with pytest.raises(AssertionError, match='flash_attention_fwd'):
             check(fa, rng, 'cpu', 2, 130, 64, True, 'bfloat16')
+
+
+@pytest.mark.parametrize('kind', ['k3a', 'k3b'])
+def test_kernel_checks_refuse_a_split_backward_five_percent_off(
+        monkeypatch, kind):
+    """Phase b holds bf16 K3a's dq and K3b's dk, dv to G_RTOL as it holds
+    K2's: a K3a whose dq, or a K3b whose dk, is 5% off on the rows of
+    its second half (|g| below ~8e-2 there, so within the bf16 atol of
+    2e-2) is refused, and so is one that disagrees only there."""
+    _plain_wrappers(monkeypatch)
+    name = chip_smoke.KERNELS[kind][0]
+    plain = getattr(fa, name)
+
+    moved = []
+
+    def off(*args):
+        out = plain(*args)
+        want = out if kind == 'k3a' else out[0]
+        g = want.float().clone()
+        g[:, g.shape[1] // 2:] *= 1.05
+        g = g.to(want.dtype)
+        moved.append((g.float() - want.float()).abs().max().item())
+        return g if kind == 'k3a' else (g, out[1])
+    monkeypatch.setattr(fa, name, off)
+    rng = np.random.RandomState(4)
+    with pytest.raises(AssertionError, match="'%s'] disagree" % name):
+        chip_smoke._check_shape(fa, rng, 'cpu', 2, 2048, 64, True,
+                                'bfloat16')
+    assert 0 < moved[0] <= chip_smoke.KERNEL_ATOL['bfloat16']
+
+
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+@pytest.mark.parametrize('kind', ['k3a', 'k3b'])
+def test_kernel_checks_refuse_a_split_backward_that_varies(monkeypatch,
+                                                           kind, dtype):
+    """The split arm exists to be deterministic: phase b launches K3a
+    and K3b twice on the same inputs, and a second launch whose output
+    differs from the first in one bit fails the phase, in both dtypes."""
+    _plain_wrappers(monkeypatch)
+    name = chip_smoke.KERNELS[kind][0]
+    plain = getattr(fa, name)
+    calls = []
+
+    def varies(*args):
+        out = plain(*args)
+        calls.append(1)
+        if len(calls) == 2:
+            first = out if kind == 'k3a' else out[-1]
+            bits = first.view(torch.int16 if first.dtype == torch.bfloat16
+                              else torch.int32)
+            bits.view(-1)[7] ^= 1
+        return out
+    monkeypatch.setattr(fa, name, varies)
+    rng = np.random.RandomState(5)
+    with pytest.raises(AssertionError, match="'%s'] give other bits on a "
+                       "second launch" % name):
+        chip_smoke._check_shape(fa, rng, 'cpu', 2, 130, 64, True, dtype)
+    assert len(calls) == 2
 
 
 @pytest.mark.parametrize('causal', [True, False])
@@ -264,12 +337,32 @@ def test_grad_check_floors_a_gradient_that_is_zero():
      'float const*)', 'flash kernels (K1/K2/K3)'),
     ('void (anonymous namespace)::tc::flash_fwd_acc_wgmma_kernel<128>()',
      'K4b (flash_fwd_acc_kernel)'),
+    ('void (anonymous namespace)::tc::flash_bwd_dq_wgmma_kernel<128>('
+     '__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, '
+     '__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, '
+     'int, int, int, float)', 'K3a bf16 (flash_bwd_dq_wgmma_kernel)'),
+    ('void (anonymous namespace)::tc::flash_bwd_dq_wgmma_kernel<64>(...)',
+     'K3a bf16 (flash_bwd_dq_wgmma_kernel)'),
+    ('_ZN55_GLOBAL__N__32e0028d_22_flash_attention_bwd_cu_2d643e7a2tc25'
+     'flash_bwd_dq_wgmma_kernelILi128EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_'
+     'PS2_iiif', 'K3a bf16 (flash_bwd_dq_wgmma_kernel)'),
+    ('void (anonymous namespace)::tc::flash_bwd_dkv_wgmma_kernel<128>('
+     '__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16 const*, '
+     '__nv_bfloat16 const*, float const*, float const*, __nv_bfloat16*, '
+     '__nv_bfloat16*, int, int, int, float)',
+     'K3b bf16 (flash_bwd_dkv_wgmma_kernel)'),
+    ('_ZN55_GLOBAL__N__32e0028d_22_flash_attention_bwd_cu_2d643e7a2tc26'
+     'flash_bwd_dkv_wgmma_kernelILi64EEEvPK13__nv_bfloat16S4_S4_S4_PKfS6_'
+     'PS2_S8_iiif', 'K3b bf16 (flash_bwd_dkv_wgmma_kernel)'),
+    ('void (anonymous namespace)::flash_bwd_q_kernel<128, float, false>('
+     'float const*)', 'flash kernels (K1/K2/K3)'),
 ])
 def test_kernel_kind_classes_the_backward_kernels(name, kind):
-    """t4's and l3's device-time breakdowns give the tensor-core backward
-    (bf16 K2 and K5) a line of its own, by its demangled name (as the
-    profiler reports it) or its mangled one (as ptxas does); fp32 K5
-    keeps its line."""
+    """t3's, t4's and l3's device-time breakdowns give the tensor-core
+    backwards (bf16 K2 and K5; bf16 K3a; bf16 K3b) a line each, by the
+    demangled name (as the profiler reports it) or the mangled one (as
+    ptxas does), none in another's; fp32 K5 keeps its line, and fp32
+    K3a, K3b the CUDA-core flash line."""
     assert chip_smoke._kernel_kind(name) == kind
 
 
@@ -342,6 +435,55 @@ ptxas info    : Used 212 registers, used 1 barriers
         ('flash_bwd_wgmma_kernel<128>', 255, 0, 0),
         ('flash_bwd_wgmma_kernel<64>', 212, 12, 8)]
     assert chip_smoke.ptxas_report(log, 'no_such_kernel') == []
+
+
+_BWD_PTXAS = '''\
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__32e0028d_22_\
+flash_attention_bwd_cu_2d643e7a2tc25flash_bwd_dq_wgmma_kernelILi128EEEvPK13\
+__nv_bfloat16S4_S4_S4_PKfS6_PS2_iiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 216 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__32e0028d_22_\
+flash_attention_bwd_cu_2d643e7a2tc26flash_bwd_dkv_wgmma_kernelILi128EEEvPK13\
+__nv_bfloat16S4_S4_S4_PKfS6_PS2_S8_iiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 230 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__32e0028d_22_\
+flash_attention_bwd_cu_2d643e7a2tc22flash_bwd_wgmma_kernelILi128EEEvPK13\
+__nv_bfloat16S4_S4_S4_PKfS6_PfPS2_S8_iiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 255 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__32e0028d_22_\
+flash_attention_bwd_cu_2d643e7a2tc25flash_bwd_dq_wgmma_kernelILi64EEEvPK13\
+__nv_bfloat16S4_S4_S4_PKfS6_PS2_iiif' for 'sm_90a'
+    16 bytes stack frame, 12 bytes spill stores, 8 bytes spill loads
+ptxas info    : Used 168 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__32e0028d_22_\
+flash_attention_bwd_cu_2d643e7a2tc26flash_bwd_dkv_wgmma_kernelILi64EEEvPK13\
+__nv_bfloat16S4_S4_S4_PKfS6_PS2_S8_iiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 190 registers, used 1 barriers
+'''
+
+
+@pytest.mark.parametrize('mark,want', [
+    ('flash_bwd_dq_wgmma_kernel', [('flash_bwd_dq_wgmma_kernel<128>', 216,
+                                    0, 0),
+                                   ('flash_bwd_dq_wgmma_kernel<64>', 168,
+                                    12, 8)]),
+    ('flash_bwd_dkv_wgmma_kernel', [('flash_bwd_dkv_wgmma_kernel<128>', 230,
+                                     0, 0),
+                                    ('flash_bwd_dkv_wgmma_kernel<64>', 190,
+                                     0, 0)]),
+    ('flash_bwd_wgmma_kernel', [('flash_bwd_wgmma_kernel<128>', 255, 0,
+                                 0)]),
+])
+def test_ptxas_report_reads_the_split_backward_kernels(mark, want):
+    """Phase a's report of bf16 K3a and K3b from nvcc's -Xptxas -v lines
+    for the backward's source: each instantiation once, with its own
+    spills; neither is mistaken for the K2/K5 kernel, nor that one for
+    them."""
+    assert chip_smoke.ptxas_report(_BWD_PTXAS, mark) == want
 
 
 @pytest.mark.parametrize('model', ['MODEL', 'LC_MODEL'])

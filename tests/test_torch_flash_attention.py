@@ -12,6 +12,7 @@ bf16 before their products; the plain versions compute in fp32). The
 CUDA kernels themselves are held to the plain versions on the card by
 chip_smoke.py.
 """
+import inspect
 import os
 import re
 import subprocess
@@ -234,6 +235,29 @@ def test_bwd_entry_is_the_tensor_core_kernel_in_bf16(arm):
     assert {fa._bwd_entry(arm, dt) for dt in fa.SUPPORTED_DTYPES} <= defined
     assert 'flash_attention_bwd_%s_bf16' % arm not in defined
     assert 'flash_bwd_wgmma_kernel<D>' in src
+
+
+@pytest.mark.parametrize('wrapper,kernel', [
+    ('flash_attention_bwd_dq', 'flash_bwd_dq_wgmma_kernel'),
+    ('flash_attention_bwd_dkv', 'flash_bwd_dkv_wgmma_kernel')])
+def test_split_entries_are_the_tensor_core_kernels_in_bf16(wrapper, kernel):
+    """bf16 K3a and K3b launch the tensor-core kernels through the C entry
+    points their wrappers name; float32 keeps the CUDA-core kernels, and
+    no CUDA-core K3 is instantiated for bf16, so none remains to fall
+    back to."""
+    assert "'%s_' + _SUFFIX[q.dtype]" % wrapper in \
+        inspect.getsource(getattr(fa, wrapper))
+    src = (fa.build.CSRC_DIR / 'flash_attention_bwd.cu').read_text()
+    bodies = dict(re.findall(r'extern "C" int (\w+)\((.*?)\n}\n', src,
+                             re.S))
+    bf16, f32 = bodies[wrapper + '_bf16'], bodies[wrapper + '_f32']
+    assert 'hopper::launch_1d(\n        tc::%s<D>,' % kernel in bf16
+    assert 'tc::' not in f32 and '<float, false>' in f32
+    assert '__global__ void __launch_bounds__(kThreads, 1)\n%s(' % kernel \
+        in src
+    assert not re.search(r'(qmajor|kv)<__nv_bfloat16', src)
+    assert not re.search(r'flash_bwd_(q|kv)_kernel<\w+,\s*__nv_bfloat16',
+                         src)
 
 
 def test_fwd_entry_is_the_tensor_core_kernel_in_bf16():
