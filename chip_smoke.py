@@ -13,15 +13,17 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       kernel, flash_bwd_wgmma_kernel; bf16 K3a and K3b the tensor-core
       flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel), the
       matmul + BN-statistics kernel K6 and the probe P; the registers
-      and spills of the tensor-core K1, K2/K5, K3a and K3b at d = 64 and
-      128 are logged;
+      and spills of fp32 K1 (flash_fwd_f32_kernel) and of the
+      tensor-core K1, K2/K5, K3a and K3b at d = 64 and 128 are logged;
   (b) hold K1, K2, K3a and K3b against their plain PyTorch versions on
       the card, at the shapes the paths give them and at ragged edge
       shapes, fp32 and bf16 (K1 by check_fwd_output: lse within the fp32
       atol in both dtypes, bf16 o also within O_RTOL relative to |o| +
       mean |o|; bf16 K2's dq, dk, dv, K3a's dq and K3b's dk, dv also
-      within G_RTOL relative to |g| + mean |g|; K3a and K3b launched
-      twice give bit-identical outputs), and time kernel, plain version
+      within G_RTOL relative to |g| + mean |g|; K1, K3a and K3b launched
+      twice give bit-identical outputs; fp32 K1's o and lse at the
+      serving shape and its plain version's are also held against an
+      fp64 evaluation, logged), and time kernel, plain version
       and the PyTorch library call (sdpa_yardstick:
       scaled_dot_product_attention on 4-D views under a fused backend
       only; its backward is timed as fwd+bwd minus fwd, timed only);
@@ -49,7 +51,8 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (d) each request's prefill logits and first token match the port's own
       full-recompute Predictor.run (rtol = atol = 1e-3);
   (e) each engine stream equals its solo DecodePredictor.generate stream;
-  (f), (g) prefill and decode-step timing, and their device time;
+  (f), (g) prefill and decode-step timing, and their device time (fp32
+      K1's device ms and launches per prefill beside the top kernels);
   (t1) build the flagship training program as bench.py's _bench_lm does
       (py_reader feed, fused LM head with chunk 4096, mean,
       Momentum(0.001, 0.9) under contrib.mixed_precision.decorate), run
@@ -292,7 +295,8 @@ def build_kernels():
             if any(w in line for w in ('Compiling entry', 'registers',
                                        'spill', 'arning')):
                 log('  ptxas: %s' % line.strip())
-    for source, mark in (('flash_attention_fwd', 'flash_fwd_wgmma_kernel'),
+    for source, mark in (('flash_attention_fwd', 'flash_fwd_f32_kernel'),
+                         ('flash_attention_fwd', 'flash_fwd_wgmma_kernel'),
                          ('flash_attention_bwd', 'flash_bwd_wgmma_kernel'),
                          ('flash_attention_bwd', 'flash_bwd_dq_wgmma_kernel'),
                          ('flash_attention_bwd',
@@ -433,22 +437,29 @@ def _max_err(got, want):
                for g, w in zip(got, want))
 
 
-def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
+def _check_shape(fa, rng, dev, BH, T, d, causal, dtype, fp64=False):
     """Run K1, K2, K3a and K3b once at one shape and hold each against
     its plain version (K1 by check_fwd_output; the gradients of K2, K3a
-    and K3b by check_grads: G_RTOL in bf16), and launch K3a and K3b a
-    second time on the same inputs: the split arm is the deterministic
-    one, so both launches must give the same bits. Returns {kind:
-    max_abs_err}."""
+    and K3b by check_grads: G_RTOL in bf16), and launch K1, K3a and K3b
+    a second time on the same inputs: K1 sums each row's keys in one
+    order (engine streams must equal solo streams, phase e) and the split
+    arm is the deterministic one, so both launches must give the same
+    bits. fp64=True also logs K1's and its plain version's distance from
+    an fp64 evaluation. Returns {kind: max_abs_err}."""
     import torch
     q, k, v, do = _inputs(rng, BH, T, d, dtype, dev)
     scale = d ** -0.5
     o, lse = fa.flash_attention_fwd(q, k, v, causal, scale)
+    o2, lse2 = fa.flash_attention_fwd(q, k, v, causal, scale)
     torch.cuda.synchronize()
     o_ref, lse_ref = fa.flash_attention_reference(q, k, v, causal, scale)
     o_err, o_rel, lse_err, fwd_ok = check_fwd_output(o, lse, o_ref, lse_ref,
                                                      dtype)
     errs = {'fwd': max(o_err, lse_err)}
+    if fp64:
+        _log_fwd_fp64(q, k, v, causal, scale, (o, lse), (o_ref, lse_ref),
+                      '[%d, %d, %d] causal=%s %s' % (BH, T, d, causal,
+                                                     dtype))
     finite = bool(torch.isfinite(o).all())
     # the backward kernels get the plain forward's o and lse, so each is
     # held to the plain backward on identical inputs
@@ -467,8 +478,10 @@ def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     for kind, out in got.items():
         errs[kind], rels[kind], oks[kind] = check_grads(out, want[kind], dtype)
         finite = finite and all(bool(torch.isfinite(t).all()) for t in out)
-    same = {kind: all(torch.equal(a, b) for a, b in zip(got[kind], out))
-            for kind, out in again.items()}
+    same = {'fwd': torch.equal(o, o2) and torch.equal(lse, lse2)}
+    same.update((kind, all(torch.equal(a, b)
+                           for a, b in zip(got[kind], out)))
+                for kind, out in again.items())
     bad = [kind for kind in errs if not oks[kind]]
     varied = [kind for kind, s in same.items() if not s]
     log('[%d, %d, %d] causal=%s %s: max_abs_err %s (atol %g); %s o %.3e, '
@@ -494,6 +507,26 @@ def _check_shape(fa, rng, dev, BH, T, d, causal, dtype):
     if faults:
         raise AssertionError('%s at [%d, %d, %d] %s'
                              % ('; '.join(faults), BH, T, d, dtype))
+    return errs
+
+
+def _log_fwd_fp64(q, k, v, causal, scale, got, plain, label):
+    """Log K1's (o, lse) and its plain version's distance from K1's
+    function evaluated in fp64 from the same inputs: shows the fp32
+    contract (exact fp32 products, no TF32) rather than assuming it."""
+    import torch
+    s = torch.matmul(q.double() * scale, k.double().transpose(-1, -2))
+    if causal:
+        T = q.shape[-2]
+        keep = torch.ones((T, T), dtype=torch.bool, device=q.device).tril()
+        s.masked_fill_(~keep, float('-inf'))
+    lse64 = torch.logsumexp(s, dim=-1)
+    o64 = torch.matmul(s.sub_(lse64[..., None]).exp_(), v.double())
+    del s
+    errs = [(x.double() - want).abs().max().item()
+            for pair in (got, plain) for x, want in zip(pair, (o64, lse64))]
+    log('%s: vs fp64 max_abs_err flash_attention_fwd o %.3e, lse %.3e; its '
+        'plain version o %.3e, lse %.3e' % ((label,) + tuple(errs)))
     return errs
 
 
@@ -620,8 +653,10 @@ def check_kernels(cfg):
     shapes += [s + (dtype,) for dtype in ('float32', 'bfloat16')
                for s in RAGGED_SHAPES]
     for BH, t, dd, causal, dtype in shapes:
-        errs = _check_shape(fa, rng, dev, BH, t, dd, causal, dtype)
-        if (BH, t, dd) == (serve_bh, T, d) and dtype == 'float32':
+        serving = (BH, t, dd, dtype) == (serve_bh, T, d, 'float32')
+        errs = _check_shape(fa, rng, dev, BH, t, dd, causal, dtype,
+                            fp64=serving)
+        if serving:
             path_errs[('fwd', 'float32')] = errs['fwd']
         if (BH, t, dd) == (train_bh, T, d) and dtype == 'bfloat16':
             for kind, e in errs.items():
@@ -1154,9 +1189,13 @@ def profile_path(dec, prompts, times_ms, sync):
                 'events)' % name)
             continue
         top = sorted(events, key=_device_us, reverse=True)[:6]
-        log('%s: device busy %.3f ms of %.3f ms wall (%.1f%%); top: %s'
+        k1 = [e for e in events if _kernel_kind(e.key).startswith('K1 fp32')]
+        log('%s: device busy %.3f ms of %.3f ms wall (%.1f%%); K1 fp32 '
+            '(flash_fwd_f32_kernel) %.4f ms in %d launches per call; top: %s'
             % (name, device_ms, times_ms[name],
                100.0 * device_ms / times_ms[name],
+               sum(_device_us(e) for e in k1) / n / 1e3,
+               sum(e.count for e in k1) // n,
                '; '.join('%s %.3f ms' % (e.key[:48], _device_us(e) / n / 1e3)
                          for e in top)))
 
@@ -1456,6 +1495,8 @@ def _kernel_kind(name):
         return 'K3b bf16 (flash_bwd_dkv_wgmma_kernel)'
     if 'flash_fwd_wgmma_kernel' in low:
         return 'K1 bf16 (flash_fwd_wgmma_kernel)'
+    if 'flash_fwd_f32_kernel' in low:
+        return 'K1 fp32 (flash_fwd_f32_kernel)'
     if 'flash_bwd_q_kernel' in low and 'true>' in low:
         return 'K5 (flash_bwd_q_kernel<..., true>)'
     for kind, marks in (('K4a (flash_fwd_stats_kernel)', ('flash_fwd_stats',)),

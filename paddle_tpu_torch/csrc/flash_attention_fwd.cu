@@ -1,6 +1,6 @@
 // Flash-attention forward for Hopper (sm_90a), fp32 or bf16 I/O:
 //
-//   K1  flash_fwd_kernel (fp32), flash_fwd_wgmma_kernel (bf16)  replace
+//   K1  flash_fwd_f32_kernel (fp32), flash_fwd_wgmma_kernel (bf16)  replace
 //       the TPU kernel paddle_tpu/pallas/flash_attention.py _fwd_kernel
 //       (:171), launched by _fwd_online (:684): the default,
 //       online-softmax forward;
@@ -31,17 +31,75 @@
 // 4 * D. Each also takes one exp per score on the special-function unit
 // (16 a clock per SM: 0.14 ms for 537M), which ties with K4a's products.
 //
-// fp32 K1, K4a and K4b (right and simple first) run the products as fp32
-// FMAs on the CUDA cores (tensor cores would mean TF32, which the fp32
-// contract does not allow):
+// fp32 K1 (the serving prefill's forward; 12 launches a prefill at
+// [16, 512, 128] causal) runs the products as exact fp32 FMAs on the
+// CUDA cores: tensor cores would mean TF32, which puts o ~1.4e-3 from
+// fp32 there, against the 1e-4 the fp32 contract allows, and 3xTF32
+// would buy at most ~1.5x over the CUDA cores' peak. Its bound is
+// operations: 1.076 GFLOP of visited scores, 0.0161 ms at 67 TFLOP/s
+// (the 32 x 32 tiles execute 1.141 GFLOP, the diagonal tiles whole).
+// flash_fwd_f32_kernel (namespace f32):
+//  - fill the card and balance it: one block of 256 threads (8 warps)
+//    per (32-row q tile, bh), 256 blocks at the serving shape, on a 1-D
+//    grid that walks the q tiles heaviest first (tc::place's order). At
+//    d = 128 a block takes 98,176 bytes of shared memory (q tile, rings
+//    of two 32-key k tiles and two v tiles, two P slots) and at most 128
+//    registers (__launch_bounds__(256, 2)), so two blocks share an SM
+//    and all 256 are resident in one wave (57,216 bytes at d = 64). With
+//    blocks placed one a SM, then a second a SM, the plain walk would
+//    give SM j ranks j and 132 + j: 24 tile pairs of 32 x 32 on the
+//    busiest SM (1.46x the mean of 16.5). So the walk folds at the SM
+//    count: blocks from 132 on take the order from its lightest end, SM j
+//    holds ranks j and 255 - j, 17 pairs at most (1.03x the mean, 8.9
+//    MFLOP: 0.0176 ms at one SM's 0.51 TFLOP/s). The heaviest block
+//    holds 16 pairs (8.4 MFLOP) and runs nearly alone on its SM, so it
+//    has 8 warps. A row's keys stay in one block: no atomics, and the
+//    block merges its two key halves in one fixed order;
+//  - keep the FMA pipes fed: the warps split the work by product, one k
+//    tile apart (warp specialisation): warps 0-3 compute S_j and P_j,
+//    warps 4-7 O += P_{j-1} V_{j-1} meanwhile. A score warp holds 4 rows
+//    x 4 keys a lane over half of d (warps 2, 3 hand their partial
+//    scores to warps 0, 1, which add them and run the softmax): per 4
+//    columns of d 8 LDS.128 against 64 FFMA. A P V warp holds 8 rows x
+//    d / 16 columns a lane over half of the tile's keys (warps 6, 7 hand
+//    their O to warps 4, 5 at the end): per key 8 LDS.32 of P and d / 64
+//    LDS.128 of V against d / 2 FFMA. Counted as wavefronts with a
+//    16-byte load served a quarter-warp at a time (one address a quarter
+//    for q and P, 8 keys in distinct bank quads for k: q and k rows are
+//    padded to d + 4 floats; 2 addresses in distinct banks for an
+//    LDS.32 of P): S 32 wavefronts for 64 FFMA (2 a wavefront), P V 16
+//    for 64 at d = 128 (4; 8 / 3 at 64). If a quarter-warp broadcast
+//    costs no wavefront of its own, S is at 8 and P V at 5.3. The four
+//    schedulers of an SM issue up to 4 FFMA a clock against one
+//    shared-memory wavefront;
+//  - overlap copies with the math: the score warps fill the k ring and
+//    the P V warps the v ring by 16-byte cp.async (rows >= T
+//    zero-filled), tile j + 1 while tile j is multiplied; q is scaled by
+//    sm_scale log2(e) as it is staged (one rounding) and stays resident.
+//    No block-wide barrier in the sweep: each role waits for its ring
+//    at its own named barrier (128 threads), P and the rows'
+//    corrections pass through two slots, each with a "full" and a
+//    "free" named barrier (bar.arrive by the writer, bar.sync by the
+//    reader), and the partial scores through one more;
+//  - exp2: S is in log2 units, P = ex2.approx(S - m) on the
+//    special-function unit; m, l and O stay fp32 in registers (l as each
+//    lane's share, reduced once at the end) and lse = (m + log2 l) ln 2
+//    at the store. Only the last k tile of a block (the one across the
+//    causal diagonal or T) is masked;
+//  - every sum runs in one order that depends on T, the row and causal
+//    only (a score: d in order over each half, then lower + upper half;
+//    O: keys in order over each half of every tile, tiles in order, then
+//    lower + upper half), so a second launch gives the same bits.
+//
+// fp32 K4a and K4b (right and simple first) run the products as fp32
+// FMAs on the CUDA cores too:
 //  - one block of 256 threads per (64-row q tile, bh): grid
 //    (ceil(T/64), BH). Nothing carries between blocks, so the TPU's
 //    sequential ki grid axis becomes a loop inside the block;
 //  - each K (and V) tile of 64 rows is staged in shared memory as fp32
 //    with a row stride of d + 1 floats, so the column reads of the score
-//    product hit 16 distinct banks. Above 48 KB (K1 113 KB, K4a 66 KB,
-//    K4b 113 KB at d = 128) shared memory is dynamic after
-//    cudaFuncSetAttribute;
+//    product hit 16 distinct banks. Above 48 KB (K4a 66 KB, K4b 113 KB
+//    at d = 128) shared memory is dynamic after cudaFuncSetAttribute;
 //  - thread (ty, tx) of a 16 x 16 grid owns score rows ty + 16 i and
 //    columns tx + 16 j (i, j < 4) and output columns tx + 16 c: a 4 x 4
 //    register tile, so each shared-memory load feeds two FMAs;
@@ -51,8 +109,9 @@
 //  - causal tiles stop the sweep at the diagonal tile; keys at index >= T
 //    are masked, so any T works (no T % 128 rule as on the TPU);
 //  - masked scores are -1e30 and a fully masked row uses 0 as its safe
-//    max (K1, K4a) or shift (K4b), exactly as the TPU kernels do, so
-//    exp() underflows to 0; K1 and K4a write lse = -1e30 for such a row;
+//    max (K4a) or shift (K4b), exactly as the TPU kernels do, so exp()
+//    underflows to 0; K4a writes lse = -1e30 for such a row (as fp32 K1
+//    does);
 //  - K4a reads no V and keeps only m and l per row (no output
 //    accumulator); K4b accumulates p = exp(s - lse) times v with no
 //    running max, no rescale and no final division. Neither keeps
@@ -209,79 +268,6 @@ __device__ __forceinline__ int last_k_tile(int q0, int T, int causal) {
 
 __device__ __forceinline__ float row_lse(float m, float l) {
   return m <= kNegInf / 2 ? kNegInf : m + logf(fmaxf(l, 1e-30f));
-}
-
-// K1 (fp32): one sweep with the online-softmax recurrence; writes o and
-// lse.
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o,
-                 float* __restrict__ lse, int T, int causal,
-                 float sm_scale) {
-  constexpr int LD = D + 1;
-  constexpr int CPT = D / 16;  // output columns per thread
-  extern __shared__ float smem[];
-  float* Qs = smem;
-  float* Ks = Qs + kBlockQ * LD;
-  float* Vs = Ks + kBlockK * LD;
-  float* Ps = Vs + kBlockK * LD;
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;
-  const int ty = tid >> 4;
-  const long base = (long)blockIdx.y * T * D;
-  const int q0 = blockIdx.x * kBlockQ;
-  flash::load_tile<D>(Qs, q + base, q0, T, sm_scale, tid);
-
-  float m[4], l[4], acc[4][CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < CPT; ++c) acc[i][c] = 0.f;
-  }
-
-  const int last = last_k_tile(q0, T, causal);
-  for (int kt = 0; kt <= last; ++kt) {
-    const int k0 = kt * kBlockK;
-    flash::load_tile<D>(Ks, k + base, k0, T, 1.f, tid);
-    flash::load_tile<D>(Vs, v + base, k0, T, 1.f, tid);
-    __syncthreads();
-
-    float s[4][4];
-    masked_scores<D>(Qs, Ks, q0, k0, T, causal, tx, ty, s);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float corr;
-      const float safe_m = online_row(s[i], m[i], corr);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = expf(s[i][j] - safe_m);
-        Ps[(ty + 16 * i) * kLDP + tx + 16 * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * corr + row_sum(rs);
-#pragma unroll
-      for (int c = 0; c < CPT; ++c) acc[i][c] *= corr;
-    }
-    __syncthreads();
-    accumulate_pv<D>(Ps, Vs, tx, ty, acc);
-    __syncthreads();  // K, V and P are overwritten by the next tile
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= T) continue;
-    const float safe_l = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < CPT; ++c)
-      o[base + (long)row * D + tx + 16 * c] = acc[i][c] / safe_l;
-    if (tx == 0) lse[(long)blockIdx.y * T + row] = row_lse(m[i], l[i]);
-  }
 }
 
 // K4a: the row max and lse only; reads no V, holds no accumulator.
@@ -828,6 +814,396 @@ int run(void (*kernel)(KArgs...), int smem, int bh, int t, void* stream,
 
 }  // namespace tc
 
+// -- fp32 K1 on the CUDA cores ------------------------------------------------
+
+namespace f32 {
+
+constexpr int kBQ = 32;          // q rows per block
+constexpr int kBK = 32;          // keys per k (and v) tile
+constexpr int kThreads = 256;    // 4 score warps, then 4 P V warps
+constexpr int kLDP = kBK + 8;    // row stride of the P tile
+// named barriers (0 is __syncthreads): the score warps' and the P V
+// warps' own (their ring waits), the hand-over of the upper half of d's
+// partial scores, and per P slot "full" and "free"
+constexpr int kBarS = 1, kBarPV = 2, kBarHalf = 3, kBarFull = 4,
+              kBarFree = 6;
+
+// Dynamic shared memory, in floats: the q tile, two k tiles and two v
+// tiles (the rings), two P slots (32 x kBK, then the 32 rows'
+// corrections), the partial scores of the upper half of d (16 a lane of
+// two warps), then the rows' l for the end. q and k rows are padded by 4
+// floats, so the 16-byte column reads of 8 consecutive k rows start in
+// distinct bank quads; v rows are read along the row and need none.
+// After the sweep the k ring holds the second key half's O.
+template <int D>
+struct Smem {
+  static constexpr int kLDQ = D + 4;
+  static constexpr int kQ = kBQ * kLDQ;
+  static constexpr int kK = kBK * kLDQ;
+  static constexpr int kV = kBK * D;
+  static constexpr int kP = kBQ * kLDP + kBQ;
+  static constexpr int kHalf = 2 * 32 * 16;
+  static constexpr int kBytes =
+      (kQ + 2 * (kK + kV) + 2 * kP + kHalf + kBQ) * 4;
+  static_assert(kBQ * D <= 2 * kK, "the k ring holds O for the merge");
+};
+
+__device__ __forceinline__ float4 lds4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+template <int ID>
+__device__ __forceinline__ void bar_sync(int n) {
+  asm volatile("bar.sync %0, %1;\n" ::"n"(ID), "r"(n) : "memory");
+}
+
+// Arrive at named barrier ID without waiting; this thread's earlier
+// shared-memory writes are visible to the threads that wait there.
+template <int ID>
+__device__ __forceinline__ void bar_arrive(int n) {
+  asm volatile("bar.arrive %0, %1;\n" ::"n"(ID), "r"(n) : "memory");
+}
+
+// The barrier of P slot `slot` of a pair (ID, ID + 1).
+template <int ID>
+__device__ __forceinline__ void slot_sync(int slot, int n) {
+  if (slot)
+    bar_sync<ID + 1>(n);
+  else
+    bar_sync<ID>(n);
+}
+
+template <int ID>
+__device__ __forceinline__ void slot_arrive(int slot, int n) {
+  if (slot)
+    bar_arrive<ID + 1>(n);
+  else
+    bar_arrive<ID>(n);
+}
+
+// Start the cp.async copies of rows [row0, row0 + kBK) of a [T, D]
+// matrix into dst (row stride ld floats) by the 128 threads t of one
+// role, rows >= T zero-filled, and close the group.
+template <int D>
+__device__ __forceinline__ void fetch(float* dst, int ld, const float* src,
+                                      int row0, int T, int t) {
+#pragma unroll
+  for (int it = 0; it < kBK * D / 4 / 128; ++it) {
+    const int i = it * 128 + t;
+    const int r = i / (D / 4), c = 4 * (i % (D / 4));
+    const bool valid = row0 + r < T;
+    hopper::cp_async_16(hopper::smem_addr(dst + r * ld + c),
+                        src + (long)(valid ? row0 + r : 0) * D + c, valid);
+  }
+  hopper::cp_async_commit();
+}
+
+// s = Q K^T over D / 2 columns of d for this lane's 4 rows (q_row + 4 i
+// rows) and 4 keys (k_row + 8 j rows), the columns summed in order. Per
+// 4 columns a warp issues 8 LDS.128 against 64 FFMA. A 16-byte load is
+// served a quarter-warp (8 lanes) at a time, one wavefront each at
+// best: here one q address a quarter (broadcast) and 8 consecutive keys
+// in distinct bank quads, so 32 wavefronts for 64 FFMA.
+template <int D>
+__device__ __forceinline__ void tile_scores(const float* q_row,
+                                            const float* k_row,
+                                            float (&s)[4][4]) {
+  constexpr int LD = Smem<D>::kLDQ;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
+#pragma unroll
+  for (int d = 0; d < D / 2; d += 4) {
+    float4 a[4], b[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) a[i] = lds4(q_row + 4 * i * LD + d);
+#pragma unroll
+    for (int j = 0; j < 4; ++j) b[j] = lds4(k_row + 8 * j * LD + d);
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        s[i][j] = fmaf(a[i].x, b[j].x, s[i][j]);
+        s[i][j] = fmaf(a[i].y, b[j].y, s[i][j]);
+        s[i][j] = fmaf(a[i].z, b[j].z, s[i][j]);
+        s[i][j] = fmaf(a[i].w, b[j].w, s[i][j]);
+      }
+  }
+}
+
+__device__ __forceinline__ void fma4(float4& acc, float p, const float4& v) {
+  acc.x = fmaf(p, v.x, acc.x);
+  acc.y = fmaf(p, v.y, acc.y);
+  acc.z = fmaf(p, v.z, acc.z);
+  acc.w = fmaf(p, v.w, acc.w);
+}
+
+__device__ __forceinline__ void scale4(float4& x, float f) {
+  x.x *= f;
+  x.y *= f;
+  x.z *= f;
+  x.w *= f;
+}
+
+__device__ __forceinline__ float4 add4(const float4& a, const float4& b) {
+  return make_float4(a.x + b.x, a.y + b.y, a.z + b.z, a.w + b.w);
+}
+
+// acc += P V over kBK / 2 keys, in order, for this lane's 8 rows (p_row
+// + 2 i rows) and D / 16 columns (v_col + 64 c + 0..3). Per key a warp
+// issues 8 LDS.32 of P (2 addresses: one wavefront each) and D / 64
+// LDS.128 of V (8 consecutive chunks a quarter-warp: 4 wavefronts each)
+// against D / 2 FFMA: 4 FFMA a wavefront at d = 128, 8 / 3 at 64.
+template <int D>
+__device__ __forceinline__ void tile_pv(const float* p_row,
+                                        const float* v_col,
+                                        float4 (&acc)[8][D / 64]) {
+#pragma unroll 4
+  for (int kk = 0; kk < kBK / 2; ++kk) {
+    float p[8];
+    float4 vv[D / 64];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) p[i] = p_row[2 * i * kLDP + kk];
+#pragma unroll
+    for (int c = 0; c < D / 64; ++c) vv[c] = lds4(v_col + kk * D + 64 * c);
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int c = 0; c < D / 64; ++c) fma4(acc[i][c], p[i], vv[c]);
+  }
+}
+
+// K1 (fp32): one sweep with the online softmax; writes o and lse. Block
+// b of the 1-D grid takes q tile rank(b) of the heaviest-first order
+// (tc::place's walk: the last q tiles, with the most causal k tiles,
+// first, over every bh); blocks from `fold` on take the order from its
+// end, so that with every block resident at once the second block of an
+// SM is light where its first is heavy. The block's warps split the
+// work by product, one k tile apart: warps 0-3 compute S_j = Q K_j^T,
+// the online softmax and P_j, warps 4-7 O += P_{j-1} V_{j-1} meanwhile.
+// Score warp w takes q rows [16 (w % 2), + 16) over the half w / 2 of d;
+// warps 2 and 3 hand their partial scores to warps 0 and 1, which add
+// them to theirs (lower half + upper half) and run the softmax. P V warp
+// 4 + w takes the same rows over keys [16 (w / 2), + 16) of each tile;
+// at the end warps 6 and 7 hand their O to warps 4 and 5 (lower keys +
+// upper keys). Each role fills its own ring (k tiles, v tiles) by
+// cp.async and waits for it at its own named barrier; P and the rows'
+// corrections pass through two slots in shared memory, handed over by a
+// "full" and a "free" named barrier each. In S lane (rg, kg) = (lane /
+// 8, lane % 8) holds rows rg + 4 i and keys kg + 8 j; m is the running
+// row max of S in log2 units (q is scaled by sm_scale log2(e) as it is
+// staged), l the lane's share of the row's sum of exp2(S - m). In P V
+// lane (rg2, cg) = (lane / 16, lane % 16) holds rows rg2 + 2 i and
+// columns 4 cg + 64 c .. + 3.
+template <int D>
+__global__ void __launch_bounds__(kThreads, 2)
+flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, float* __restrict__ o,
+                     float* __restrict__ lse, int bh_count, int T,
+                     int causal, int fold, float sm_scale) {
+  using S = Smem<D>;
+  extern __shared__ float4 smem_f32[];
+  float* Qs = reinterpret_cast<float*>(smem_f32);
+  float* Ks = Qs + S::kQ;
+  float* Vs = Ks + 2 * S::kK;
+  float* Ps = Vs + 2 * S::kV;
+  float4* Hs = reinterpret_cast<float4*>(Ps + 2 * S::kP);
+  float* Ls = Ps + 2 * S::kP + S::kHalf;
+
+  const int b = (int)blockIdx.x < fold
+                    ? (int)blockIdx.x
+                    : fold + (int)gridDim.x - 1 - (int)blockIdx.x;
+  const int bh = b % bh_count;
+  const int q0 = ((T + kBQ - 1) / kBQ - 1 - b / bh_count) * kBQ;
+  const long base = (long)bh * T * D;
+  const int nk = (T + kBK - 1) / kBK;
+  const int n_tiles = causal ? min(nk, q0 / kBK + 1) : nk;
+  const float c = sm_scale * tc::kLog2e;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const bool scores = warp < 4;
+  const int t = threadIdx.x % 128;  // thread of its role
+  const int row0 = 16 * (warp % 2);
+  const int second = (warp % 4) / 2;  // upper half of d (S), of keys (P V)
+
+  if (scores)
+    fetch<D>(Ks, S::kLDQ, k + base, 0, T, t);
+  else
+    fetch<D>(Vs, D, v + base, 0, T, t);
+  // q stays resident, scaled once as it is staged; rows >= T are zeros
+  for (int i = threadIdx.x; i < kBQ * D / 4; i += kThreads) {
+    const int r = i / (D / 4), col = 4 * (i % (D / 4));
+    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (q0 + r < T)
+      x = *reinterpret_cast<const float4*>(q + base + (long)(q0 + r) * D + col);
+    scale4(x, c);
+    *reinterpret_cast<float4*>(Qs + r * S::kLDQ + col) = x;
+  }
+  __syncthreads();
+
+  const int rg2 = lane / 16, cg = lane % 16;  // P V
+  float4 acc[8][D / 64];
+  float4* Hw = Hs + (warp % 2) * 4 * 32 + lane;  // this lane's partials
+  if (scores) {
+    const int rg = lane / 8, kg = lane % 8;
+    float m[4], l[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      m[i] = -INFINITY;
+      l[i] = 0.f;
+    }
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      // k tile kt has landed, and every score warp is past tile kt - 1,
+      // whose ring slot tile kt + 1 takes, and past reading the partial
+      // scores of tile kt - 1
+      hopper::cp_async_wait<0>();
+      bar_sync<kBarS>(128);
+      if (kt + 1 < n_tiles)
+        fetch<D>(Ks + ((kt + 1) % 2) * S::kK, S::kLDQ, k + base,
+                 (kt + 1) * kBK, T, t);
+      float s[4][4];
+      tile_scores<D>(Qs + (row0 + rg) * S::kLDQ + second * (D / 2),
+                     Ks + (kt % 2) * S::kK + kg * S::kLDQ + second * (D / 2),
+                     s);
+      if (second) {
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          Hw[32 * i] = make_float4(s[i][0], s[i][1], s[i][2], s[i][3]);
+        bar_arrive<kBarHalf>(128);
+        continue;
+      }
+      bar_sync<kBarHalf>(128);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 h = Hw[32 * i];
+        s[i][0] += h.x;
+        s[i][1] += h.y;
+        s[i][2] += h.z;
+        s[i][3] += h.w;
+      }
+      if (kt == n_tiles - 1) {  // the only tile past the diagonal or T
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int j = 0; j < 4; ++j) {
+            const int key = kt * kBK + kg + 8 * j;
+            if (key >= T || (causal && key > q0 + row0 + rg + 4 * i))
+              s[i][j] = -INFINITY;
+          }
+      }
+      float* P = Ps + (kt % 2) * S::kP;
+      if (kt >= 2) slot_sync<kBarFree>(kt % 2, 192);  // P V of kt - 2
+      // online softmax over the 8 lanes of a row; a row that sees no key
+      // yet shifts by 0 (the TPU's safe max, :199-204) and gets p = 0
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+        const float m_new = fmaxf(m[i], mx);
+        const float safe = m_new == -INFINITY ? 0.f : m_new;
+        const float corr = hopper::ex2(m[i] - safe);
+        m[i] = m_new;
+        float sum = 0.f;
+        const int r = row0 + rg + 4 * i;
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float p = hopper::ex2(s[i][j] - safe);
+          P[r * kLDP + kg + 8 * j] = p;
+          sum += p;
+        }
+        l[i] = l[i] * corr + sum;
+        if (kg == 0) P[kBQ * kLDP + r] = corr;
+      }
+      slot_arrive<kBarFull>(kt % 2, 192);
+    }
+    if (!second) {
+      // l over the 8 lanes of a row; lse = (m + log2 l) ln 2
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        float lt = l[i];
+#pragma unroll
+        for (int off = 1; off < 8; off <<= 1)
+          lt += __shfl_xor_sync(0xffffffffu, lt, off);
+        const int r = row0 + rg + 4 * i;
+        if (kg == 0) {
+          Ls[r] = lt;
+          if (q0 + r < T)
+            lse[(long)bh * T + q0 + r] =
+                m[i] == -INFINITY ? kNegInf : (m[i] + log2f(lt)) * tc::kLn2;
+        }
+      }
+    }
+  } else {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int cc = 0; cc < D / 64; ++cc)
+        acc[i][cc] = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int kt = 0; kt < n_tiles; ++kt) {
+      // v tile kt has landed, and every P V warp is past tile kt - 1
+      hopper::cp_async_wait<0>();
+      bar_sync<kBarPV>(128);
+      if (kt + 1 < n_tiles)
+        fetch<D>(Vs + ((kt + 1) % 2) * S::kV, D, v + base, (kt + 1) * kBK,
+                 T, t);
+      const float* P = Ps + (kt % 2) * S::kP;
+      slot_sync<kBarFull>(kt % 2, 192);  // P of tile kt
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float corr = P[kBQ * kLDP + row0 + rg2 + 2 * i];
+#pragma unroll
+        for (int cc = 0; cc < D / 64; ++cc) scale4(acc[i][cc], corr);
+      }
+      const int key0 = second * (kBK / 2);
+      tile_pv<D>(P + (row0 + rg2) * kLDP + key0,
+                 Vs + (kt % 2) * S::kV + key0 * D + 4 * cg, acc);
+      if (kt + 2 < n_tiles) slot_arrive<kBarFree>(kt % 2, 192);
+    }
+  }
+  // the rows' l; the k ring is free, and takes the upper keys' O
+  __syncthreads();
+  float4* Os = reinterpret_cast<float4*>(Ks) + (warp % 2) * 8 * (D / 64) * 32;
+  if (!scores && second) {
+#pragma unroll
+    for (int i = 0; i < 8; ++i)
+#pragma unroll
+      for (int cc = 0; cc < D / 64; ++cc)
+        Os[(i * (D / 64) + cc) * 32 + lane] = acc[i][cc];
+  }
+  __syncthreads();
+  if (scores || second) return;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const int r = row0 + rg2 + 2 * i;
+    if (q0 + r >= T) continue;
+    const float li = fmaxf(Ls[r], 1e-30f);
+#pragma unroll
+    for (int cc = 0; cc < D / 64; ++cc) {
+      const float4 a = add4(acc[i][cc], Os[(i * (D / 64) + cc) * 32 + lane]);
+      *reinterpret_cast<float4*>(o + base + (long)(q0 + r) * D + 64 * cc +
+                                 4 * cg) =
+          make_float4(a.x / li, a.y / li, a.z / li, a.w / li);
+    }
+  }
+}
+
+// The grid's fold: with at most two blocks a SM (every block resident at
+// once), blocks [0, SMs) take the heaviest q tiles, one a SM, and the
+// rest the lightest first, so each SM's pair sums to about the mean.
+// With more blocks, none (the plain heaviest-first walk).
+inline int fold_point(long blocks) {
+  int dev = 0, sms = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) !=
+          cudaSuccess)
+    return (int)blocks;
+  return blocks <= 2L * sms ? sms : (int)blocks;
+}
+
+}  // namespace f32
+
 template <int D>
 constexpr int tiles_bytes(int d_tiles, int p_tiles, int rows) {
   return (d_tiles * kBlockQ * (D + 1) + p_tiles * kBlockQ * kLDP + rows) *
@@ -840,8 +1216,11 @@ int launch_fwd(const float* q, const float* k, const float* v, float* o,
                void* stream) {
   return flash::by_dim(d, [&](auto dim) {
     constexpr int D = decltype(dim)::value;
-    return flash::run(flash_fwd_kernel<D>, tiles_bytes<D>(3, 1, 0), bh, t,
-                      stream, q, k, v, o, lse, t, causal, sm_scale);
+    const long blocks = (long)bh * ((t + f32::kBQ - 1) / f32::kBQ);
+    return hopper::launch_1d(f32::flash_fwd_f32_kernel<D>,
+                             f32::Smem<D>::kBytes, blocks, f32::kThreads,
+                             stream, q, k, v, o, lse, bh, t, causal,
+                             f32::fold_point(blocks), sm_scale);
   });
 }
 

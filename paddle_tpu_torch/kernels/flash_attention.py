@@ -17,8 +17,14 @@ stream. They take float32 or bfloat16 q, k, v (and dO), accumulate in
 float32, and keep lse and delta in float32 [BH, T]. In bf16 every kernel
 multiplies bf16 tiles on the tensor cores (K1 is
 `flash_fwd_wgmma_kernel`: K4a's online max and K4b's P·V with P as bf16
-hi + lo, fused into one sweep); in float32 every kernel runs float32
-FMAs on the CUDA cores. In bf16 the kvmajor (K2) and onepass (K5) arms
+hi + lo, fused into one sweep); in float32 every kernel runs exact
+float32 FMAs on the CUDA cores (no TF32). fp32 K1, the serving
+prefill's forward, is `flash_fwd_f32_kernel`: 32-row q tiles on a 1-D
+grid folded so that each SM's two blocks sum to about the mean work,
+8 warps a block split by product (score warps and P·V warps, one k tile
+apart, handing P over through shared memory at named barriers),
+cp.async rings, exp2, and every sum in one fixed order, so it gives the
+same bits on every launch. In bf16 the kvmajor (K2) and onepass (K5) arms
 launch one kernel, `flash_bwd_wgmma_kernel` (`_bwd_entry`): both compute
 the same function from the same arguments, and that kernel is kv-major,
 so dk and dv are summed in registers (deterministic) and only dq goes

@@ -5,6 +5,7 @@ phases b and b4 run on the plain versions, the device-time classes and
 the ptxas report, the FLOP count of the LM steps and the arm switch; and
 the script's refusal to run without a card."""
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -194,8 +195,8 @@ def test_kernel_checks_pass_the_plain_versions(monkeypatch, capsys, dtype):
     assert errs.get('fwd', 0.0) == errs['k4a'] == errs['k4b'] == 0.0
     out = capsys.readouterr().out
     assert 'MISMATCH' not in out
-    assert 'second launch bit-identical: flash_attention_bwd_dq yes, ' \
-        'flash_attention_bwd_dkv yes ok' in out
+    assert 'second launch bit-identical: flash_attention_fwd yes, ' \
+        'flash_attention_bwd_dq yes, flash_attention_bwd_dkv yes ok' in out
     assert 'flash_attention_bwd_dq dq 0.000e+00; flash_attention_bwd_dkv ' \
         'dk, dv 0.000e+00, 0.000e+00' in out
     bf16 = dtype == 'bfloat16'
@@ -273,6 +274,86 @@ def test_kernel_checks_refuse_a_split_backward_that_varies(monkeypatch,
                        "second launch" % name):
         chip_smoke._check_shape(fa, rng, 'cpu', 2, 130, 64, True, dtype)
     assert len(calls) == 2
+
+
+@pytest.mark.parametrize('which', ['o', 'lse'])
+@pytest.mark.parametrize('dtype', ['float32', 'bfloat16'])
+def test_kernel_checks_refuse_a_forward_that_varies(monkeypatch, dtype,
+                                                    which):
+    """K1 sums each row's keys in one order, and phase e needs that
+    (engine streams equal solo streams): phase b launches it twice on
+    the same inputs, and a second launch whose o or lse differs from the
+    first in one bit fails the phase, in both dtypes."""
+    _plain_wrappers(monkeypatch)
+    plain = fa.flash_attention_fwd
+    calls = []
+
+    def varies(*args):
+        o, lse = plain(*args)
+        calls.append(1)
+        if len(calls) == 2:
+            out = o if which == 'o' else lse
+            bits = out.view(torch.int16 if out.dtype == torch.bfloat16
+                            else torch.int32)
+            bits.view(-1)[7] ^= 1
+        return o, lse
+    monkeypatch.setattr(fa, 'flash_attention_fwd', varies)
+    rng = np.random.RandomState(6)
+    with pytest.raises(AssertionError, match="'flash_attention_fwd'] give "
+                       "other bits on a second launch"):
+        chip_smoke._check_shape(fa, rng, 'cpu', 2, 130, 64, True, dtype)
+    assert len(calls) == 2
+
+
+def _tf32(x):
+    """x rounded to TF32 (10 mantissa bits, to nearest), as fp32."""
+    bits = x.float().contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_fwd_check_refuses_a_tf32_forward():
+    """fp32 K1's contract is exact fp32 products: an o computed with q,
+    k, p and v rounded to TF32 (single-pass tensor-core products) at the
+    serving shape [16, 512, 128] causal lies ~1e-3 from the plain
+    version, ten times the fp32 atol, and check_fwd_output refuses it;
+    the plain version's own outputs pass."""
+    rng = np.random.RandomState(chip_smoke.SEED)
+    q, k, v, _ = chip_smoke._inputs(rng, 16, 512, 128, 'float32', 'cpu')
+    scale = 128 ** -0.5
+    o_ref, lse_ref = fa.flash_attention_reference(q, k, v, True, scale)
+    s = torch.matmul(_tf32(q), _tf32(k).transpose(-1, -2)) * scale
+    keep = torch.ones((512, 512), dtype=torch.bool).tril()
+    s = s.masked_fill(~keep, -1e30)
+    lse = torch.logsumexp(s, dim=-1)
+    o = torch.matmul(_tf32(torch.exp(s - lse[..., None])), _tf32(v))
+    check = chip_smoke.check_fwd_output
+    o_err, _, lse_err, ok = check(o, lse, o_ref, lse_ref, 'float32')
+    assert not ok and o_err > 5 * chip_smoke.KERNEL_ATOL['float32']
+    assert not check(o, lse_ref, o_ref, lse_ref, 'float32')[3]
+    assert check(o_ref, lse_ref, o_ref, lse_ref, 'float32') == \
+        (0.0, 0.0, 0.0, True)
+
+
+def test_kernel_checks_log_the_forward_against_fp64(monkeypatch, capsys):
+    """Phase b's fp64=True logs K1's o and lse and its plain version's
+    distance from an fp64 evaluation; the plain fp32 version lies within
+    a few fp32 roundings of it."""
+    _plain_wrappers(monkeypatch)
+    rng = np.random.RandomState(7)
+    chip_smoke._check_shape(fa, rng, 'cpu', 2, 130, 128, True, 'float32',
+                            fp64=True)
+    out = capsys.readouterr().out
+    line = [ln for ln in out.splitlines() if 'vs fp64' in ln]
+    assert len(line) == 1 and line[0].startswith(
+        '[2, 130, 128] causal=True float32: vs fp64 max_abs_err '
+        'flash_attention_fwd o ')
+    errs = [float(x) for x in re.findall(r'\d\.\d{3}e[-+]\d+', line[0])]
+    assert len(errs) == 4 and errs[:2] == errs[2:] and max(errs) < 1e-6
+    q, k, v, _ = chip_smoke._inputs(np.random.RandomState(7), 2, 130, 128,
+                                    'float32', 'cpu')
+    got = fa.flash_attention_reference(q, k, v, True, 128 ** -0.5)
+    assert chip_smoke._log_fwd_fp64(q, k, v, True, 128 ** -0.5, got, got,
+                                    'x') == pytest.approx(errs, rel=1e-2)
 
 
 @pytest.mark.parametrize('causal', [True, False])
@@ -383,6 +464,12 @@ def test_kernel_kind_classes_the_backward_kernels(name, kind):
      'false>(...)', 'flash kernels (K1/K2/K3)'),
     ('void (anonymous namespace)::tc::flash_fwd_stats_wgmma_kernel<128>()',
      'K4a (flash_fwd_stats_kernel)'),
+    ('void (anonymous namespace)::flash_fwd_f32_kernel<128>(float const*, '
+     'float const*, float const*, float*, float*, int, int, int, int, '
+     'float)', 'K1 fp32 (flash_fwd_f32_kernel)'),
+    ('_ZN55_GLOBAL__N__9cd0acc9_22_flash_attention_fwd_cu_6928a1a220'
+     'flash_fwd_f32_kernelILi64EEEvPKfS2_S2_PfS3_iiiif',
+     'K1 fp32 (flash_fwd_f32_kernel)'),
 ])
 def test_kernel_kind_classes_the_forward_kernels(name, kind):
     """t4's and l3's breakdowns give bf16 K1 (the tensor-core forward) a
@@ -407,6 +494,21 @@ flash_attention_fwd_cu_6928a1a22tc22flash_fwd_wgmma_kernelILi64EEEvPK13\
 __nv_bfloat16S4_S4_PS2_Pfiiif' for 'sm_90a'
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 205 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_\
+flash_attention_fwd_cu_6928a1a220flash_fwd_f32_kernelILi128EEEvPKfS2_S2_PfS3_\
+iiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_\
+flash_attention_fwd_cu_6928a1a216flash_fwd_kernelILi128EEEvPKfS2_S2_PfS3_iif' \
+for 'sm_90a'
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 96 registers, used 1 barriers
+ptxas info    : Compiling entry function '_ZN55_GLOBAL__N__9cd0acc9_22_\
+flash_attention_fwd_cu_6928a1a220flash_fwd_f32_kernelILi64EEEvPKfS2_S2_PfS3_\
+iiiif' for 'sm_90a'
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 90 registers, used 1 barriers
 '''
 
 
@@ -417,6 +519,19 @@ def test_ptxas_report_reads_the_forward_kernel():
     assert chip_smoke.ptxas_report(_FWD_PTXAS, 'flash_fwd_wgmma_kernel') == [
         ('flash_fwd_wgmma_kernel<128>', 253, 0, 0),
         ('flash_fwd_wgmma_kernel<64>', 205, 0, 0)]
+
+
+@pytest.mark.parametrize('mark,want', [
+    ('flash_fwd_f32_kernel', [('flash_fwd_f32_kernel<128>', 128, 0, 0),
+                              ('flash_fwd_f32_kernel<64>', 90, 0, 0)]),
+    ('flash_fwd_kernel', [('flash_fwd_kernel<128>', 96, 4, 4)]),
+])
+def test_ptxas_report_reads_the_fp32_forward_kernel(mark, want):
+    """Phase a's report of fp32 K1 from nvcc's -Xptxas -v lines for the
+    forward's source: each instantiation of flash_fwd_f32_kernel once,
+    with its own spills, neither mistaken for a kernel whose name holds
+    flash_fwd_kernel nor that one for it."""
+    assert chip_smoke.ptxas_report(_FWD_PTXAS, mark) == want
 
 
 def test_ptxas_report_reads_registers_and_spills():

@@ -262,9 +262,10 @@ def test_split_entries_are_the_tensor_core_kernels_in_bf16(wrapper, kernel):
 
 def test_fwd_entry_is_the_tensor_core_kernel_in_bf16():
     """bf16 K1 launches the tensor-core kernel through its C entry
-    point; float32 keeps the CUDA-core kernel, which is no longer
-    instantiated for bf16, so no bf16 CUDA-core forward remains to fall
-    back to."""
+    point; float32 launches the CUDA-core kernel flash_fwd_f32_kernel,
+    which is instantiated for float32 only, so no bf16 CUDA-core forward
+    remains to fall back to, and the old fp32 kernel flash_fwd_kernel is
+    gone."""
     src = (fa.build.CSRC_DIR / 'flash_attention_fwd.cu').read_text()
     defined = set(re.findall(r'extern "C" int (\w+)\(', src))
     assert {'flash_attention_fwd_' + fa._SUFFIX[dt]
@@ -274,6 +275,14 @@ def test_fwd_entry_is_the_tensor_core_kernel_in_bf16():
     assert 'flash_fwd_kernel<D, __nv_bfloat16>' not in src
     assert not re.search(r'flash_fwd_kernel<\w+,\s*(__nv_bfloat16|Elem)>',
                          src)
+    launchers = re.findall(r'\nint launch_fwd\((.*?)\n}\n', src, re.S)
+    f32 = [body for body in launchers if body.startswith('const float* q')]
+    assert len(f32) == 1
+    assert 'hopper::launch_1d(f32::flash_fwd_f32_kernel<D>' in f32[0]
+    assert 'f32::fold_point(blocks)' in f32[0]
+    assert not re.search(r'\bflash_fwd_kernel\b', src)
+    assert 'atomic' not in src[src.index('namespace f32 {'):
+                               src.index('}  // namespace f32')]
 
 
 @pytest.mark.parametrize('causal', [True, False])
