@@ -12,9 +12,12 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       backwards K2, K3a, K3b, K5 (bf16 K2 and K5 are one tensor-core
       kernel, flash_bwd_wgmma_kernel; bf16 K3a and K3b the tensor-core
       flash_bwd_dq_wgmma_kernel and flash_bwd_dkv_wgmma_kernel), the
-      matmul + BN-statistics kernel K6 and the probe P; the registers
-      and spills of fp32 K1 (flash_fwd_f32_kernel) and of the
-      tensor-core K1, K2/K5, K3a and K3b at d = 64 and 128 are logged;
+      matmul + BN-statistics kernel K6 (bf16: the tensor-core
+      matmul_bn_stats_wgmma_kernel; fp32 and ragged bf16: the generic
+      matmul_bn_stats_kernel) and the probe P; the registers and spills
+      of fp32 K1 (flash_fwd_f32_kernel), of the tensor-core K1, K2/K5,
+      K3a and K3b at d = 64 and 128 and of bf16 K6 at BN = 64 and 128
+      are logged;
   (b) hold K1, K2, K3a and K3b against their plain PyTorch versions on
       the card, at the shapes the paths give them and at ragged edge
       shapes, fp32 and bf16 (K1 by check_fwd_output: lse within the fp32
@@ -78,16 +81,25 @@ with FLAGS_use_pallas_fused_ops so every conv + BN is one conv2d_bn op):
       (py_reader, train_network(depth=50), Momentum(0.01, 0.9) under
       contrib.mixed_precision.decorate, startup on CUDAPlace(0),
       ParallelExecutor(use_cuda=True)): 2 warm-up and 5 timed steps; K6
-      launches exactly 36 x steps, every loss is finite and the BN
-      running statistics move;
-  (b6) K6 against its plain version on the card at the largest, smallest
-      and widest of the step's 1x1 shapes (read from r1's program) and
-      at a ragged 300 x 70 x 130, fp32 and bf16; then kernel, plain
-      version and the library yardstick (torch.matmul, then the two
-      column sums; timed only) at every one of the step's 15 shapes,
-      summed over its 36 launches;
-  (r2) one step from a saved state with K6, each of its 36 launches also
-      held against the plain version on the step's own inputs, and the
+      launches exactly 36 x steps, every one the tensor-core kernel
+      (the per-kernel counts), every loss is finite and the BN running
+      statistics move;
+  (b6) K6 against its plain version on the card (k6_check_shapes): in
+      bf16 on the tensor-core kernel at the largest, smallest and widest
+      of the step's 1x1 shapes (read from r1's program), a path shape
+      for every tile width the plan uses and one with K = 64, and at the
+      smallest with one row more; on the generic kernel at the three
+      picks in fp32 and at a ragged 300 x 70 x 130 in both dtypes. Each
+      is launched twice: the second launch gives the same bits, and the
+      per-kernel counts show which kernel ran (a path shape on any other
+      kernel fails). Then kernel, plain version, the library yardstick
+      (torch.matmul, then the two column sums) and the product alone
+      (torch.matmul; both timed only) at every one of the step's 15
+      shapes by CUDA events, and kernel and product alone by
+      torch.profiler device time, summed over its 36 launches;
+  (r2) one step from a saved state with K6, each of its 36 launches (all
+      on the tensor-core kernel) also held against the plain version on
+      the step's own inputs, and the
       same step with FLAGS_use_pallas_fused_ops cleared at run time (the
       plain version): the losses agree within TRAIN_LOSS_TOL, and the
       updates of the stem conv, a stage-1 1x1 conv and fc within
@@ -264,13 +276,16 @@ def cuda_ms(fn, iters=20, warmup=3):
     return start.elapsed_time(end) / iters
 
 
+BRACKET_ORDER = ('ms', 'plain_ms', 'library_ms', 'matmul_ms')
+
+
 def bracketed_ms(fns):
-    """Time each of fns {'ms', 'plain_ms', 'library_ms'} twice in the
-    order kernel, plain, library, library, plain, kernel, so the pairs
-    bracket drift in clocks; each time is the mean of its two runs."""
+    """Time each of fns {'ms', 'plain_ms', 'library_ms', 'matmul_ms'}
+    twice in the order kernel, plain, library, product alone, then back
+    (product alone, library, plain, kernel), so the pairs bracket drift
+    in clocks; each time is the mean of its two runs."""
     runs = {key: [] for key in fns}
-    for key in ('ms', 'plain_ms', 'library_ms', 'library_ms', 'plain_ms',
-                'ms'):
+    for key in BRACKET_ORDER + BRACKET_ORDER[::-1]:
         if key in fns:
             runs[key].append(cuda_ms(fns[key]))
     return {key: float(np.mean(v)) for key, v in runs.items()}
@@ -300,7 +315,8 @@ def build_kernels():
                          ('flash_attention_bwd', 'flash_bwd_wgmma_kernel'),
                          ('flash_attention_bwd', 'flash_bwd_dq_wgmma_kernel'),
                          ('flash_attention_bwd',
-                          'flash_bwd_dkv_wgmma_kernel')):
+                          'flash_bwd_dkv_wgmma_kernel'),
+                         ('conv_bn', 'matmul_bn_stats_wgmma_kernel')):
         for entry, regs, stores, loads in ptxas_report(
                 build.build_logs.get(source, ''), mark):
             log('ptxas %s: %d registers, %d bytes spill stores, %d bytes '
@@ -1497,6 +1513,8 @@ def _kernel_kind(name):
         return 'K1 bf16 (flash_fwd_wgmma_kernel)'
     if 'flash_fwd_f32_kernel' in low:
         return 'K1 fp32 (flash_fwd_f32_kernel)'
+    if 'matmul_bn_stats_wgmma_kernel' in low:
+        return 'K6 (matmul + BN statistics)'
     if 'flash_bwd_q_kernel' in low and 'true>' in low:
         return 'K5 (flash_bwd_q_kernel<..., true>)'
     for kind, marks in (('K4a (flash_fwd_stats_kernel)', ('flash_fwd_stats',)),
@@ -1632,13 +1650,22 @@ def _k6_inputs(gen, M, K, N, dtype, dev):
     return x.to(dt), w.to(dt)
 
 
-def _k6_check(k6, gen, dev, M, K, N, dtype):
-    """Run K6 once and hold it against its plain version; returns the
-    max abs error of y."""
+def _k6_check(k6, gen, dev, M, K, N, dtype, want):
+    """Launch K6 twice on the same inputs and hold it against its plain
+    version: y within KERNEL_ATOL of max(1, |y|), the sums within
+    K6_SUM_RTOL, the second launch the same bits, and both launches by
+    the kernel `want` (from the per-kernel counts). Returns the max abs
+    error of y."""
     import torch
     x, w = _k6_inputs(gen, M, K, N, dtype, dev)
+    counts = k6.matmul_bn_stats_kernel.launches_by_kernel
+    before = dict(counts)
     y, s, q = k6.matmul_bn_stats_kernel(x, w)
+    y2, s2, q2 = k6.matmul_bn_stats_kernel(x, w)
     torch.cuda.synchronize()
+    ran = {k: n - before.get(k, 0) for k, n in counts.items()
+           if n != before.get(k, 0)}
+    same = all(torch.equal(a, b) for a, b in ((y, y2), (s, s2), (q, q2)))
     yr, sr, qr = k6.matmul_bn_stats_reference(x, w)
     abs_sum = torch.matmul(x.float(), w.float()).abs().sum(0)
     tol = KERNEL_ATOL[dtype]
@@ -1649,10 +1676,18 @@ def _k6_check(k6, gen, dev, M, K, N, dtype):
     finite = all(bool(torch.isfinite(t).all()) for t in (y, s, q))
     ok = ok_y and err_s <= K6_SUM_RTOL and err_q <= K6_SUM_RTOL and finite
     err = dy.max().item()
-    log('K6 [%d, %d, %d] %s: y max_abs_err %.3e (tol %g x max(1, |y|)), '
-        'colsum err %.3e of sum|y|, colsumsq err %.3e of sum y^2 (tol %g) %s'
-        % (M, K, N, dtype, err, tol, err_s, err_q, K6_SUM_RTOL,
-           'ok' if ok else 'MISMATCH'))
+    log('K6 [%d, %d, %d] %s on %s: y max_abs_err %.3e (tol %g x max(1, '
+        '|y|)), colsum err %.3e of sum|y|, colsumsq err %.3e of sum y^2 (tol '
+        '%g), second launch bit-identical %s %s'
+        % (M, K, N, dtype, ', '.join('%s x %d' % kv for kv in ran.items())
+           or 'no kernel', err, tol, err_s, err_q, K6_SUM_RTOL,
+           'yes' if same else 'NO', 'ok' if ok and same else 'MISMATCH'))
+    if ran != {want: 2}:
+        raise AssertionError('K6 at [%d, %d, %d] %s ran %s, want %s twice'
+                             % (M, K, N, dtype, ran, want))
+    if not same:
+        raise AssertionError('K6 at [%d, %d, %d] %s: a second launch on the '
+                             'same inputs gave other bits' % (M, K, N, dtype))
     if not ok:
         raise AssertionError('K6 disagrees with its plain version at '
                              '[%d, %d, %d] %s (finite: %s)'
@@ -1660,29 +1695,69 @@ def _k6_check(k6, gen, dev, M, K, N, dtype):
     return err
 
 
+def k6_check_shapes(k6, path_shapes, sms):
+    """[(shape, dtype, kernel that must run, on the path)] of phase b6:
+    the largest, smallest and widest path shapes, a path shape for every
+    tile width the plan uses and one with K = 64 (a single k slice) in
+    bf16, all on the tensor-core kernel; the smallest path shape with
+    one row more (M not a multiple of the tile), the routing's pick; the
+    three picks in fp32 and the ragged 300 x 70 x 130 in both dtypes, on
+    the generic kernel."""
+    nbytes = lambda s: s[0] * s[1] + s[1] * s[2] + s[0] * s[2]  # noqa: E731
+    shapes = sorted(path_shapes)
+    picks = [max(shapes, key=nbytes), min(shapes, key=nbytes),
+             max(shapes, key=lambda s: (s[2], s[1]))]
+    by_bn = {}
+    for s in shapes:
+        by_bn.setdefault(k6._plan(*s, sms).bn, s)
+    k64 = [s for s in shapes if s[1] == 64][:1]
+    path = []
+    for s in picks + [by_bn[bn] for bn in sorted(by_bn)] + k64:
+        if s not in path:
+            path.append(s)
+    M, K, N = picks[1]
+    out = [(s, 'bfloat16', k6.WGMMA_KERNEL, True) for s in path]
+    out.append(((M + 1, K, N), 'bfloat16',
+                k6._route(M + 1, K, N, _torch_dtype('bfloat16')), False))
+    out += [(s, 'float32', k6.GENERIC_KERNEL, False) for s in picks]
+    out += [((300, 70, 130), dt, k6.GENERIC_KERNEL, False)
+            for dt in ('float32', 'bfloat16')]
+    return out
+
+
+def _torch_dtype(name):
+    import torch
+    return getattr(torch, name)
+
+
+def check_k6_outputs(k6, gen, dev, path_shapes, sms):
+    """Every shape of k6_check_shapes through _k6_check; returns the max
+    abs error of y over the bf16 path shapes."""
+    path_err = 0.0
+    for shape, dtype, want, on_path in k6_check_shapes(k6, path_shapes, sms):
+        err = _k6_check(k6, gen, dev, *shape, dtype, want)
+        if on_path:
+            path_err = max(path_err, err)
+    return path_err
+
+
 @phase('b6: K6 (matmul + BN statistics) vs its plain version')
 def check_k6(path_shapes):
-    """Correctness at the largest, smallest and widest path shapes and a
-    ragged one, fp32 and bf16; then times of kernel, plain version and
-    yardstick at every path shape in bf16, summed over one step's
-    launches. Returns the kernels line's row."""
+    """Correctness and bit-identical second launches at the shapes of
+    k6_check_shapes; then times of kernel, plain version, yardstick and
+    the product alone at every path shape in bf16, summed over one
+    step's launches. Returns the kernels line's row."""
     import torch
     from paddle_tpu_torch.kernels import conv_bn as k6
     dev = torch.device('cuda', 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(SEED + 3)
-    nbytes = lambda s: s[0] * s[1] + s[1] * s[2] + s[0] * s[2]  # noqa: E731
-    picks = [max(path_shapes, key=nbytes), min(path_shapes, key=nbytes),
-             max(path_shapes, key=lambda s: (s[2], s[1]))]
-    path_err = 0.0
-    for shape in picks + [(300, 70, 130)]:
-        for dtype in ('float32', 'bfloat16'):
-            err = _k6_check(k6, gen, dev, *shape, dtype)
-            if shape in picks and dtype == 'bfloat16':
-                path_err = max(path_err, err)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    path_err = check_k6_outputs(k6, gen, dev, path_shapes, sms)
     torch.cuda.empty_cache()
 
     totals = {'ms': 0.0, 'plain_ms': 0.0, 'library_ms': 0.0,
+              'matmul_ms': 0.0, 'device_ms': 0.0, 'matmul_device_ms': 0.0,
               'bound_ms': 0.0, 'bytes_ms': 0.0, 'ops_ms': 0.0}
     for (M, K, N), count in sorted(path_shapes.items()):
         x, w = _k6_inputs(gen, M, K, N, 'bfloat16', dev)
@@ -1694,14 +1769,34 @@ def check_k6(path_shapes):
         times = bracketed_ms({
             'ms': lambda: k6.matmul_bn_stats_kernel(x, w),
             'plain_ms': lambda: k6.matmul_bn_stats_reference(x, w),
-            'library_ms': library})
+            'library_ms': library,
+            'matmul_ms': lambda: torch.matmul(x, w)})
+        # device time alone (the events above also hold any time the
+        # card waits for the host between calls)
+        for key, fn in (('device_ms', lambda: k6.matmul_bn_stats_kernel(x, w)),
+                        ('matmul_device_ms', lambda: torch.matmul(x, w))):
+            times[key] = _device_ms(fn)
+            if times[key] is None:
+                raise RuntimeError('torch.profiler saw no device time in K6 '
+                                   'or the product at [%d, %d, %d]'
+                                   % (M, K, N))
         t_bytes, t_ops = k6_bound_ms(M, K, N, 'bfloat16')
+        plan = k6._plan(M, K, N, sms)
         log('K6 [%d, %d, %d] bf16 x %d per step: kernel %.4f ms, plain '
-            '%.4f ms, library %.4f ms, bound %.4f ms (%s)'
+            '%.4f ms, library %.4f ms, product alone %.4f ms, bound %.4f ms '
+            '(%s); device: kernel %.4f ms (%.2f TB/s, %.1f TFLOP/s), '
+            'product alone %.4f ms; plan BN %d, %d tiles on %d CTAs, %d '
+            'stages, w %s'
             % (M, K, N, count, times['ms'], times['plain_ms'],
-               times['library_ms'], max(t_bytes, t_ops),
-               'bytes' if t_bytes >= t_ops else 'operations'))
-        for key in ('ms', 'plain_ms', 'library_ms'):
+               times['library_ms'], times['matmul_ms'], max(t_bytes, t_ops),
+               'bytes' if t_bytes >= t_ops else 'operations',
+               times['device_ms'],
+               t_bytes * PEAK_BYTES_PER_S / 1e12 / times['device_ms'],
+               2.0 * M * K * N / times['device_ms'] / 1e9,
+               times['matmul_device_ms'], plan.bn, plan.tiles, plan.grid,
+               plan.stages, 'resident' if plan.resident else 'streamed'))
+        for key in ('ms', 'plain_ms', 'library_ms', 'matmul_ms', 'device_ms',
+                    'matmul_device_ms'):
             totals[key] += count * times[key]
         totals['bound_ms'] += count * max(t_bytes, t_ops)
         totals['bytes_ms'] += count * t_bytes
@@ -1710,11 +1805,14 @@ def check_k6(path_shapes):
     torch.cuda.empty_cache()
     n_launch = sum(path_shapes.values())
     log('K6 per step (%d launches over %d shapes, bf16): kernel %.4f ms, '
-        'plain %.4f ms, library %.4f ms, bound %.4f ms (the sum of each '
-        'launch\'s bound; bytes alone %.4f ms, operations alone %.4f ms)'
+        'plain %.4f ms, library %.4f ms, product alone %.4f ms, bound %.4f '
+        'ms (the sum of each launch\'s bound; bytes alone %.4f ms, '
+        'operations alone %.4f ms); device: kernel %.4f ms, product alone '
+        '%.4f ms'
         % (n_launch, len(path_shapes), totals['ms'], totals['plain_ms'],
-           totals['library_ms'], totals['bound_ms'], totals['bytes_ms'],
-           totals['ops_ms']))
+           totals['library_ms'], totals['matmul_ms'], totals['bound_ms'],
+           totals['bytes_ms'], totals['ops_ms'], totals['device_ms'],
+           totals['matmul_device_ms']))
     name, replaces, source = K6_SOURCE
     return {'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces, 'launches': None, 'max_abs_err': path_err,
@@ -1723,6 +1821,10 @@ def check_k6(path_shapes):
             'bound_by': ('bytes' if totals['bytes_ms'] >= totals['ops_ms']
                          else 'operations'),
             'library_ms': totals['library_ms'],
+            'matmul_ms': totals['matmul_ms'],
+            'device_ms': totals['device_ms'],
+            'matmul_device_ms': totals['matmul_device_ms'],
+            'kernel': k6.WGMMA_KERNEL,
             'shape': 'one step: %d launches over the %d 1x1 shapes at batch '
                      '%d' % (n_launch, len(path_shapes), RESNET_BATCH),
             'dtype': 'bfloat16'}
@@ -1759,28 +1861,35 @@ def resnet_steps(place, sync):
     losses = [tr.step() for _ in range(WARMUP_STEPS)]
     sync()
     torch.cuda.reset_peak_memory_stats()
-    k6.matmul_bn_stats_kernel.launches = 0
+    k6.reset_launches()
     t0 = time.perf_counter()
     losses += [tr.step() for _ in range(TIMED_STEPS)]
     sync()
     wall = time.perf_counter() - t0
     launches = k6.matmul_bn_stats_kernel.launches
+    by_kernel = dict(k6.matmul_bn_stats_kernel.launches_by_kernel)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = wall / TIMED_STEPS * 1e3
     moved = sum(not torch.equal(tr.scope.find_var(n), stats0[n])
                 for n in stats)
     log('losses: %s' % ', '.join('%.6f' % x for x in losses))
     log('timed steps: %d in %.3f s, %.3f ms per step, %.1f images/s; K6 '
-        'launches %d (want %d x %d); peak device memory %.2f GB; BN running '
-        'statistics moved: %d of %d'
+        'launches %d (want %d x %d; by kernel: %s); peak device memory %.2f '
+        'GB; BN running statistics moved: %d of %d'
         % (TIMED_STEPS, wall, step_ms, RESNET_BATCH / step_ms * 1e3,
-           launches, per_step, TIMED_STEPS, peak_gb, moved, len(stats)))
+           launches, per_step, TIMED_STEPS,
+           ', '.join('%s %d' % kv for kv in by_kernel.items()), peak_gb,
+           moved, len(stats)))
     if not all(np.isfinite(losses)):
         raise AssertionError('a ResNet loss is not finite: %r' % losses)
     if per_step != 36 or launches != per_step * TIMED_STEPS:
         raise AssertionError('K6 launched %d times in %d steps, want 36 x %d'
                              ' (the program has %d 1x1 conv2d_bn ops)'
                              % (launches, TIMED_STEPS, TIMED_STEPS, per_step))
+    if by_kernel.get(k6.WGMMA_KERNEL) != launches:
+        raise AssertionError('K6 launched %s in the timed steps: every '
+                             'launch must be %s' % (by_kernel,
+                                                    k6.WGMMA_KERNEL))
     if moved != len(stats) or not stats:
         raise AssertionError('BN running statistics moved for %d of %d vars'
                              % (moved, len(stats)))
@@ -1836,6 +1945,7 @@ def check_resnet_plain_step(tr):
     # the kernel counts its launches on the module's name, which is
     # checked_kernel while it stands in
     checked_kernel.launches = 0
+    checked_kernel.launches_by_kernel = {}
     k6.matmul_bn_stats_kernel = checked_kernel
     try:
         kernel = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
@@ -1846,9 +1956,10 @@ def check_resnet_plain_step(tr):
         'elements, colsum %.3e of sum|y|, colsumsq %.3e of sum y^2 (tol %g)'
         % (worst['y'], KERNEL_ATOL['bfloat16'], worst['flips'],
            worst['colsum'], worst['colsumsq'], K6_SUM_RTOL))
-    if checked_kernel.launches != 36:
-        raise AssertionError('K6 launched %d times in the kernel step, want '
-                             '36' % checked_kernel.launches)
+    if checked_kernel.launches_by_kernel != {k6.WGMMA_KERNEL: 36}:
+        raise AssertionError('K6 launched %s in the kernel step, want %s x 36'
+                             % (checked_kernel.launches_by_kernel,
+                                k6.WGMMA_KERNEL))
     if not (worst['y'] <= KERNEL_ATOL['bfloat16'] and
             worst['colsum'] <= K6_SUM_RTOL and
             worst['colsumsq'] <= K6_SUM_RTOL):

@@ -1,8 +1,9 @@
-// Hopper (sm_90a) building blocks of the tensor-core flash kernels
+// Hopper (sm_90a) building blocks of the tensor-core kernels
 // (flash_attention_fwd.cu: K1, K4a and K4b in bf16;
-// flash_attention_bwd.cu: K2, K3a, K3b and K5 in bf16): bf16 tiles in
-// shared memory with the 128-byte swizzle, filled by cp.async; wgmma
-// matrix descriptors; the warpgroup products; exp2 on the
+// flash_attention_bwd.cu: K2, K3a, K3b and K5 in bf16; conv_bn.cu: K6 in
+// bf16): bf16 tiles in shared memory with the 128-byte swizzle, filled
+// by cp.async or by TMA; wgmma matrix descriptors; the warpgroup
+// products; mbarriers, TMA loads and stores, named barriers; exp2 on the
 // special-function unit; the 1-D launch.
 //
 // Tile layout. A [rows, D] bf16 tile is kept as D / 64 panels of 64
@@ -290,6 +291,145 @@ __device__ __forceinline__ void mma_rs(float (&d)[D / 2],
     mma_rs_n128(d, a, b, 1);
   else
     mma_rs_n64(d, a, b, 1);
+}
+
+// D[64 x 128] (+)= A[64 x 16] . B[16 x 128], A K-major and B MN-major
+// (transposed: N runs along the 128-byte rows, the reduced dimension
+// down the panel), both in shared memory; scale_d = 0 overwrites D. The
+// matmul + BN-statistics kernel (conv_bn.cu) reads x as A and w [K, N]
+// as B this way.
+__device__ __forceinline__ void mma_ss_mn_n128(float (&d)[64], uint64_t a,
+                                             uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+// The same for N = 64 or 128.
+template <int N>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[N / 2], uint64_t a,
+                                          uint64_t b, int scale_d) {
+  if constexpr (N == 128)
+    mma_ss_mn_n128(d, a, b, scale_d);
+  else
+    mma_ss_n64<0, 1>(d, a, b, scale_d);
+}
+
+// --- mbarriers and the tensor memory accelerator (TMA) ----------------------
+// A tile copy by TMA is issued by one thread and completes on an mbarrier
+// in shared memory: the barrier's phase ends when its arrivals are in and
+// the bytes it was told to expect have landed. try_wait.parity(P) returns
+// once the phase of parity P has ended; a new barrier is in phase 0, so a
+// wait for parity 1 passes at once.
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+// Make the barriers' initialisation visible to the async proxy (TMA); a
+// __syncthreads() after it covers the block.
+__device__ __forceinline__ void fence_mbar_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Arrive and add `bytes` to the transactions the current phase waits for.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar,
+                                                      uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::
+                   "r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+// The box at element coordinates (c0 innermost, c1) of the 2-D tensor
+// map at generic address tmap into shared memory at dst, completing on
+// bar; elements outside the tensor arrive as zeros.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* tmap,
+                                            int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(tmap)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// Shared memory at src into the box at (c0, c1) of the tensor map; the
+// parts of the box outside the tensor are not written. Completes as a
+// bulk group of the issuing thread (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_2d(const void* tmap, int c0, int c1,
+                                             uint32_t src) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%1, %2}], "
+      "[%3];\n" ::"l"(reinterpret_cast<uint64_t>(tmap)),
+      "r"(c0), "r"(c1), "r"(src)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's bulk groups still read shared
+// memory (their source may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+// Wait until all of this thread's bulk groups have completed, writes
+// included.
+__device__ __forceinline__ void bulk_wait_all() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Synchronise `count` threads (whole warps) on named barrier `id` (1..15;
+// 0 is __syncthreads()).
+__device__ __forceinline__ void named_barrier(int id, int count) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(count) : "memory");
 }
 
 // Launch `blocks` blocks of `threads` on a 1-D grid with `smem` bytes of

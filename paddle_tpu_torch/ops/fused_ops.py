@@ -13,6 +13,8 @@
   statistics.
 - k x k convolutions take the composite path: F.conv2d, then two-pass
   fp32 mean and variance.
+- act is any activation the JAX package takes from jax.nn by name
+  (ACTIVATIONS), applied in fp32 before y is cast to the stream dtype.
 
 FLAGS_use_pallas_fused_ops is read when the op runs: set, CUDA tensors
 launch the hand-written kernel K6 (and a failed build or launch
@@ -30,6 +32,41 @@ from ..flags import get_flag
 from ..kernels.conv_bn import matmul_bn_stats
 from ..registry import register_op, op_emitter, register_vjp_grad, amp_cast
 from .nn_ops import _conv_out_size
+
+# The activations a Fluid program names in conv2d_bn's act, each as the
+# jax.nn function of that name computes it, with its defaults: gelu's
+# tanh approximation, leaky_relu's slope 0.01, elu and celu at alpha 1,
+# hard_sigmoid = relu6(x + 3) / 6.
+ACTIVATIONS = {
+    'relu': torch.relu,
+    'sigmoid': torch.sigmoid,
+    'tanh': torch.tanh,
+    'gelu': lambda x: F.gelu(x, approximate='tanh'),
+    'elu': F.elu,
+    'softplus': lambda x: torch.logaddexp(x, torch.zeros_like(x)),
+    'silu': F.silu,
+    'swish': F.silu,
+    'relu6': F.relu6,
+    'leaky_relu': lambda x: F.leaky_relu(x, 0.01),
+    'hard_tanh': F.hardtanh,
+    'soft_sign': F.softsign,
+    'log_sigmoid': F.logsigmoid,
+    'selu': F.selu,
+    'celu': F.celu,
+    'hard_sigmoid': F.hardsigmoid,
+    'hard_swish': F.hardswish,
+}
+
+
+def _activation(act):
+    """conv2d_bn's act by name; an unknown name raises, as the JAX
+    package's getattr(jax.nn, act) does."""
+    try:
+        return ACTIVATIONS[act]
+    except KeyError:
+        raise ValueError('conv2d_bn act=%r: not an activation of jax.nn '
+                         'that the port knows (%s)'
+                         % (act, ', '.join(sorted(ACTIVATIONS)))) from None
 
 
 @op_emitter('conv2d_bn')
@@ -85,11 +122,8 @@ def _conv2d_bn_emit(ctx, op):
              * torch.rsqrt(use_var.float() + eps).reshape(ch)
              * scale.float().reshape(ch) + bias.float().reshape(ch))
 
-    if act == 'relu':
-        y = torch.relu(y)
-    elif act:
-        raise NotImplementedError('conv2d_bn act=%r: only relu is ported'
-                                  % act)
+    if act:
+        y = _activation(act)(y)
     ctx.set(op.single_output('Y'), y.to(out_dtype))
 
     if is_test:

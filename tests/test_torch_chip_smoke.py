@@ -1,9 +1,11 @@
 """chip_smoke.py's helpers that run without a card: the attention
 yardstick, the bounds of the flash kernels, the checks of K1's o and
 lse, of K4b's o and of the backward's gradients, the kernel checks of
-phases b and b4 run on the plain versions, the device-time classes and
-the ptxas report, the FLOP count of the LM steps and the arm switch; and
-the script's refusal to run without a card."""
+phases b and b4 run on the plain versions, phase b6's checks of K6 run
+on stand-ins built from its plain version (one right, three wrong), the
+bracketed timing order, the device-time classes and the ptxas report,
+the FLOP count of the LM steps and the arm switch; and the script's
+refusal to run without a card."""
 import os
 import re
 import shutil
@@ -18,6 +20,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 import bench
 import chip_smoke
+from paddle_tpu_torch.kernels import conv_bn as k6
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models.transformer import TransformerConfig
 
@@ -476,6 +479,166 @@ def test_kernel_kind_classes_the_forward_kernels(name, kind):
     line of its own, by its demangled or mangled name; fp32 K1 and K3a,
     K3b keep the CUDA-core flash line, and K4a keeps its own."""
     assert chip_smoke._kernel_kind(name) == kind
+
+
+@pytest.mark.parametrize('name', [
+    'void tc::matmul_bn_stats_wgmma_kernel<128>(CUtensorMap_st, '
+    'CUtensorMap_st, CUtensorMap_st, float*, float*, int, int, int, int, '
+    'int)',
+    '_ZN2tc28matmul_bn_stats_wgmma_kernelILi64EEEv14CUtensorMap_stS1_S1_'
+    'PfS2_iiiii',
+    'void (anonymous namespace)::matmul_bn_stats_kernel<__nv_bfloat16>('
+    '__nv_bfloat16 const*, __nv_bfloat16 const*, __nv_bfloat16*, float*, '
+    'float*, int, int, int)',
+    'void (anonymous namespace)::column_sums_kernel(float const*, float '
+    'const*, float*, float*, int, int)',
+])
+def test_kernel_kind_classes_the_k6_kernels(name):
+    """r4's breakdown keeps every K6 kernel, the tensor-core one (a CUDA
+    kernel with tensor maps, no GEMM by name), the generic one and the
+    column sums, on K6's line, so the step's K6 time compares across
+    PRs."""
+    assert chip_smoke._kernel_kind(name) == 'K6 (matmul + BN statistics)'
+
+
+_K6_PTXAS = """\
+ptxas info    : Compiling entry function '_ZN2tc28matmul_bn_stats_wgmma_\
+kernelILi64EEEv14CUtensorMap_stS1_S1_PfS2_iiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc28matmul_bn_stats_wgmma_\
+kernelILi64EEEv14CUtensorMap_stS1_S1_PfS2_iiiii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers
+ptxas info    : Compiling entry function '_ZN2tc28matmul_bn_stats_wgmma_\
+kernelILi128EEEv14CUtensorMap_stS1_S1_PfS2_iiiii' for 'sm_90a'
+ptxas info    : Function properties for _ZN2tc28matmul_bn_stats_wgmma_\
+kernelILi128EEEv14CUtensorMap_stS1_S1_PfS2_iiiii
+    104 bytes stack frame, 172 bytes spill stores, 168 bytes spill loads
+ptxas info    : Used 168 registers, used 16 barriers, 104 bytes cumulative \
+stack size
+ptxas info    : Compiling entry function '_ZN43_GLOBAL__N__1614e45a_10_\
+conv_bn_cu_59f2cc9722matmul_bn_stats_kernelI13__nv_bfloat16EEvPKT_S4_PS2_\
+PfS6_iii' for 'sm_90a'
+ptxas info    : Function properties for _ZN43_GLOBAL__N__1614e45a_10_\
+conv_bn_cu_59f2cc9722matmul_bn_stats_kernelI13__nv_bfloat16EEvPKT_S4_PS2_\
+PfS6_iii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 66 registers, used 1 barriers, 36864 bytes smem
+"""
+
+
+def test_ptxas_report_reads_the_k6_kernel():
+    """Phase a's report of the tensor-core K6 from nvcc's -Xptxas -v
+    lines (in the form an sm_90a build prints them): one line per tile
+    width with its registers and spills, and none for the generic
+    kernel."""
+    assert chip_smoke.ptxas_report(_K6_PTXAS,
+                                   'matmul_bn_stats_wgmma_kernel') == [
+        ('matmul_bn_stats_wgmma_kernel<64>', 168, 0, 0),
+        ('matmul_bn_stats_wgmma_kernel<128>', 168, 172, 168)]
+
+
+def test_bracketed_ms_times_the_product_alone_in_its_turn(monkeypatch):
+    """b6 times kernel, plain version, library and the product alone in
+    the order k, p, l, m, m, l, p, k, each the mean of its two runs."""
+    order = []
+    monkeypatch.setattr(chip_smoke, 'cuda_ms',
+                        lambda fn: (order.append(fn()), float(len(order)))[1])
+    got = chip_smoke.bracketed_ms({k: (lambda k=k: k) for k in (
+        'ms', 'plain_ms', 'library_ms', 'matmul_ms')})
+    assert order == ['ms', 'plain_ms', 'library_ms', 'matmul_ms',
+                     'matmul_ms', 'library_ms', 'plain_ms', 'ms']
+    assert got == {'ms': 4.5, 'plain_ms': 4.5, 'library_ms': 4.5,
+                   'matmul_ms': 4.5}
+
+
+# b6 on the CPU at small shapes: every bf16 path shape and the M + 1 one
+# are tensor-core shapes; fp32 and the ragged one are generic.
+_K6_PATH = {(512, 64, 256): 2, (256, 128, 64): 1, (384, 256, 128): 1}
+
+
+def _k6_stand_in(monkeypatch, route=None, alter=None):
+    """k6.matmul_bn_stats_kernel replaced by its plain version, counting
+    each launch under the kernel `route(M, K, N, dtype)` picks (k6._route
+    by default); alter(call, y, s, q) may change the outputs of a call
+    (0 for the first). torch.cuda.synchronize becomes a no-op."""
+    route = route or (lambda M, K, N, dtype: k6._route(M, K, N, dtype))
+    calls = []
+
+    def stand_in(x, w):
+        (M, K), N = x.shape, w.shape[1]
+        kernel = route(M, K, N, x.dtype)
+        counts = stand_in.launches_by_kernel
+        counts[kernel] = counts.get(kernel, 0) + 1
+        y, s, q = k6.matmul_bn_stats_reference(x, w)
+        calls.append((M, K, N))
+        if alter is not None:
+            y, s, q = alter(len(calls) - 1, y, s, q)
+        return y, s, q
+    stand_in.launches_by_kernel = {}
+    monkeypatch.setattr(k6, 'matmul_bn_stats_kernel', stand_in)
+    monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+    return calls
+
+
+def _run_b6_checks():
+    gen = torch.Generator()
+    gen.manual_seed(3)
+    return chip_smoke.check_k6_outputs(k6, gen, 'cpu', _K6_PATH, 132)
+
+
+def test_k6_checks_pass_the_plain_version(monkeypatch, capsys):
+    """b6's shapes (the picks, a shape per tile width, K = 64, M + 1 in
+    bf16; the picks in fp32; the ragged 300 x 70 x 130 in both), each
+    launched twice, pass when the kernel is the plain version, and the
+    log names the kernel that ran."""
+    calls = _k6_stand_in(monkeypatch)
+    assert _run_b6_checks() == 0.0
+    shapes = chip_smoke.k6_check_shapes(k6, _K6_PATH, 132)
+    assert len(calls) == 2 * len(shapes)
+    assert ((257, 128, 64), 'bfloat16', k6.WGMMA_KERNEL, False) in shapes
+    assert {s for s, dt, _, on_path in shapes if on_path} == set(_K6_PATH)
+    assert ((300, 70, 130), 'bfloat16', k6.GENERIC_KERNEL, False) in shapes
+    out = capsys.readouterr().out
+    assert 'MISMATCH' not in out
+    assert 'bfloat16 on matmul_bn_stats_wgmma_kernel x 2' in out
+    assert 'float32 on matmul_bn_stats_kernel x 2' in out
+
+
+def test_k6_checks_refuse_a_second_launch_one_bit_off(monkeypatch):
+    """A K6 whose second launch on the same inputs differs from the first
+    in one bit of y fails b6."""
+    def flip(call, y, s, q):
+        if call % 2:
+            y = y.clone()
+            bits = y.view(torch.int16) if y.dtype == torch.bfloat16 else \
+                y.view(torch.int32)
+            bits.view(-1)[7] ^= 1
+        return y, s, q
+    _k6_stand_in(monkeypatch, alter=flip)
+    with pytest.raises(AssertionError, match='second launch'):
+        _run_b6_checks()
+
+
+def test_k6_checks_refuse_y_five_percent_off_in_a_few_rows(monkeypatch):
+    """A K6 whose y is 5% off in three rows (its sums right) fails b6."""
+    def off(call, y, s, q):
+        y = y.clone()
+        y[:3] = (y[:3].float() * 1.05).to(y.dtype)
+        return y, s, q
+    _k6_stand_in(monkeypatch, alter=off)
+    with pytest.raises(AssertionError, match='disagrees'):
+        _run_b6_checks()
+
+
+def test_k6_checks_refuse_a_path_shape_on_the_generic_kernel(monkeypatch):
+    """A path shape that ran the generic kernel in bf16 fails b6, though
+    its outputs are right."""
+    _k6_stand_in(monkeypatch,
+                 route=lambda M, K, N, dtype: k6.GENERIC_KERNEL)
+    with pytest.raises(AssertionError,
+                       match='ran .*matmul_bn_stats_kernel.*, want '
+                             'matmul_bn_stats_wgmma_kernel'):
+        _run_b6_checks()
 
 
 _FWD_PTXAS = '''\

@@ -4,6 +4,13 @@
   package's Pallas kernel in interpret mode and its XLA version, fp32 and
   bf16; the autograd Function's hand-written backward against jax.grad
   through `matmul_bn_stats`.
+- K6's routing and the tensor-core kernel's launch plan at ResNet-50's
+  15 1x1 shapes (read from the port's program) and at edge shapes: every
+  path shape on the tensor-core kernel, fp32 and ragged shapes on the
+  generic one; every output tile covered once, an m-tile's n-blocks
+  adjacent, shared memory within the card's 227 KB.
+- conv2d_bn's act: every jax.nn activation a Fluid program names, in a
+  1x1 and a 3x3 program, forward and grads against the JAX package.
 - Every op the slice adds (conv2d, depthwise_conv2d, pool2d, batch_norm,
   conv2d_bn, relu, top_k, accuracy), forward and grad, as one-op
   programs in both packages' executors: fp32 to atol 1e-5 plus rtol
@@ -18,6 +25,7 @@ FLAGS_pallas_interpret set, as its own tests run it (restored in
 `finally`). Weights carry across by name with io.load_numpy_params, BN
 running statistics included.
 """
+import collections
 import contextlib
 
 import jax
@@ -141,6 +149,125 @@ def test_kernel_wrapper_refuses_cpu_tensors():
         tconv_bn.matmul_bn_stats_kernel(torch.randn(4, 3), torch.randn(3, 2))
 
 
+# -- K6: routing and the tensor-core kernel's launch plan ---------------------
+
+H100_SMS = 132
+
+
+def _resnet50_k6_shapes(batch=256):
+    """{(M, K, N): launches per step} of ResNet-50's 1x1 conv2d_bn ops at
+    224 px, from the port's own program (chip_smoke's reading of it)."""
+    import chip_smoke
+    prog, startup = tfluid.Program(), tfluid.Program()
+    prev = tfluid.get_flags(['use_pallas_fused_ops'])
+    tfluid.set_flags({'use_pallas_fused_ops': True})
+    try:
+        with tfluid.program_guard(prog, startup):
+            image = tfluid.layers.data(name='image', shape=[3, 224, 224],
+                                       dtype='float32')
+            label = tfluid.layers.data(name='label', shape=[1],
+                                       dtype='int64')
+            tresnet.train_network(image, label, class_dim=1000, depth=50)
+    finally:
+        tfluid.set_flags(prev)
+    return chip_smoke.k6_path_shapes(prog, batch)
+
+
+RESNET50_K6_SHAPES = {
+    (802816, 64, 64): 1, (802816, 64, 256): 4, (802816, 256, 64): 2,
+    (200704, 128, 512): 4, (200704, 256, 128): 1, (200704, 256, 512): 1,
+    (200704, 512, 128): 3, (50176, 256, 1024): 6, (50176, 512, 256): 1,
+    (50176, 512, 1024): 1, (50176, 1024, 256): 5, (12544, 512, 2048): 3,
+    (12544, 1024, 512): 1, (12544, 1024, 2048): 1, (12544, 2048, 512): 2}
+
+
+def test_resnet50_path_shapes_all_route_to_the_tensor_core_kernel():
+    """The 36 launches of a ResNet-50 step at batch 256 fall on 15 1x1
+    shapes, and every one of them takes the tensor-core kernel in bf16."""
+    shapes = _resnet50_k6_shapes()
+    assert shapes == RESNET50_K6_SHAPES
+    assert sum(shapes.values()) == 36
+    for M, K, N in shapes:
+        assert tconv_bn._route(M, K, N, torch.bfloat16) == \
+            tconv_bn.WGMMA_KERNEL
+
+
+@pytest.mark.parametrize('M,K,N,dtype,aligned,want', [
+    (300, 70, 130, torch.bfloat16, True, 'generic'),
+    (256, 64, 130, torch.bfloat16, True, 'generic'),
+    (256, 70, 64, torch.bfloat16, True, 'generic'),
+    (802816, 64, 256, torch.float32, True, 'generic'),
+    (12544, 1024, 512, torch.float32, True, 'generic'),
+    (12544, 1024, 512, torch.bfloat16, False, 'generic'),
+    (12545, 1024, 512, torch.bfloat16, True, 'wgmma'),
+    (1000, 72, 136, torch.bfloat16, True, 'wgmma'),
+    (8, 8, 8, torch.bfloat16, True, 'wgmma'),
+])
+def test_route_by_shape_dtype_and_alignment(M, K, N, dtype, aligned, want):
+    """Rows TMA cannot address (K or N not a multiple of 8, or x, w not
+    16-byte aligned) and fp32 take the generic kernel; any other bf16
+    shape, ragged M included, takes the tensor-core kernel."""
+    kernel = {'generic': tconv_bn.GENERIC_KERNEL,
+              'wgmma': tconv_bn.WGMMA_KERNEL}[want]
+    assert tconv_bn._route(M, K, N, dtype, aligned) == kernel
+
+
+PLAN_SHAPES = sorted(RESNET50_K6_SHAPES) + [
+    (12545, 1024, 512), (1000, 72, 136), (300, 64, 64), (8, 8, 8),
+    (4096, 256, 4096), (128, 4096, 8)]
+
+
+@pytest.mark.parametrize('M,K,N', PLAN_SHAPES)
+def test_plan_covers_every_tile_once_with_m_tiles_adjacent(M, K, N):
+    """The persistent grid's walk visits every 128 x bn output tile
+    exactly once; a CTA keeps one n-block (the grid is a multiple of the
+    n-block count); the tiles in flight at one time (one per CTA) hold
+    every n-block of their m-tiles, which are consecutive; the shared
+    memory fits the card and agrees with the tile sizes."""
+    plan = tconv_bn._plan(M, K, N, H100_SMS)
+    assert plan.bm == 128 and plan.bn in (64, 128)
+    assert plan.gm == -(-M // 128) and plan.gn == -(-N // plan.bn)
+    assert plan.tiles == plan.gm * plan.gn
+    assert plan.grid <= H100_SMS and plan.grid % plan.gn == 0
+    assert 2 <= plan.stages <= tconv_bn.MAX_STAGES
+    assert plan.smem <= tconv_bn.SMEM_LIMIT == 232448
+    assert plan.smem == tconv_bn._smem_bytes(plan.bn, plan.stages,
+                                             plan.resident, K)
+    assert plan.resident == (-(-K // 64) * 64 * plan.bn * 2 <= 64 * 1024)
+    walk = tconv_bn._walk(plan)
+    assert len(walk) == plan.grid
+    seen = collections.Counter(t for tiles in walk for t in tiles)
+    assert len(seen) == plan.tiles and set(seen.values()) == {1}
+    assert {(m, n) for m in range(plan.gm) for n in range(plan.gn)} == \
+        set(seen)
+    for c, tiles in enumerate(walk):
+        assert {n for _, n in tiles} <= {c % plan.gn}
+    for step in range(max(len(t) for t in walk)):
+        wave = [tiles[step] for tiles in walk if step < len(tiles)]
+        m_tiles = sorted({m for m, _ in wave})
+        assert m_tiles == list(range(m_tiles[0], m_tiles[-1] + 1))
+        for m in m_tiles:
+            assert sorted(n for mm, n in wave if mm == m) == \
+                list(range(plan.gn))
+
+
+def test_plan_picks_per_resnet_shape():
+    """The plans the kernel's note records for ResNet-50's shapes on 132
+    SMs: bn 128, 64 at N = 64; grid 132, 128 where 132 is no multiple of
+    the n-blocks (N = 1024, 2048); w resident where its [K, bn] block
+    fits 64 KB; [12544, K, 512] in 392 tiles, 2.97 waves."""
+    got = {s: tconv_bn._plan(*s, H100_SMS) for s in RESNET50_K6_SHAPES}
+    for (M, K, N), plan in got.items():
+        assert plan.bn == (64 if N == 64 else 128), ((M, K, N), plan)
+        assert plan.grid == (128 if N in (1024, 2048) else 132)
+        assert plan.resident == (K * plan.bn * 2 <= 64 * 1024)
+    assert got[12544, 1024, 512].tiles == 392
+    assert {s for s, p in got.items() if not p.resident} == {
+        (200704, 512, 128), (50176, 512, 256), (50176, 512, 1024),
+        (50176, 1024, 256), (12544, 512, 2048), (12544, 1024, 512),
+        (12544, 1024, 2048), (12544, 2048, 512)}
+
+
 # -- one-op programs: forward and grads ---------------------------------------
 
 def _op_cases():
@@ -261,6 +388,53 @@ def _run_op(fluid, case):
         got = fluid.Executor(fluid.CPUPlace()).run(
             prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
     return {n: np.asarray(g) for n, g in zip(fetch, got)}
+
+
+ACT_NAMES = ('sigmoid', 'tanh', 'gelu', 'elu', 'softplus', 'silu', 'swish',
+             'relu6', 'leaky_relu', 'hard_tanh', 'soft_sign', 'log_sigmoid',
+             'selu', 'celu', 'hard_sigmoid', 'hard_swish')
+
+
+def _act_case(act, fs):
+    """A conv2d_bn one-op case with act, 1x1 (K6's path) or 3x3 padded
+    (the composite path); the BN scale is widened so y spans [-6, 6] and
+    reaches every piece of the piecewise activations."""
+    r = np.random.RandomState(7)
+    inputs = {'Input': _f(r, 2, 8, 6, 6), 'Filter': _f(r, 12, 8, fs, fs),
+              'Scale': 2.0 * _f(r, 12), 'Bias': _f(r, 12),
+              'Mean': _f(r, 12), 'Variance': np.abs(_f(r, 12)) + 0.5}
+    attrs = {'strides': [1, 1], 'paddings': [fs // 2] * 2, 'momentum': 0.9,
+             'epsilon': 1e-5, 'act': act, 'is_test': False}
+    return ('conv2d_bn-%dx%d-%s' % (fs, fs, act), 'conv2d_bn', inputs, attrs,
+            'Y', ('MeanOut', 'VarianceOut', 'SavedMean', 'SavedVariance'))
+
+
+@pytest.mark.parametrize('fs', [1, 3])
+@pytest.mark.parametrize('act', ACT_NAMES)
+def test_conv2d_bn_activation_matches_jax(act, fs):
+    """Every activation the JAX package's conv2d_bn takes from jax.nn by
+    name, with jax.nn's defaults (gelu's tanh approximation, leaky_relu
+    slope 0.01, hard_sigmoid = relu6(x + 3) / 6): Y, the BN outputs and
+    the grads of Input, Filter, Scale and Bias agree in fp32 (atol 1e-5,
+    rtol 1e-6)."""
+    case = _act_case(act, fs)
+    want = _run_op(jfluid, case)
+    got = _run_op(tfluid, case)
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        np.testing.assert_allclose(got[name], w.astype('float32'),
+                                   atol=OP_ATOL, rtol=OP_RTOL,
+                                   err_msg='%s %s' % (act, name))
+
+
+def test_conv2d_bn_unknown_activation_raises():
+    """A name jax.nn does not have fails in both packages."""
+    case = _act_case('no_such_act', 1)
+    with pytest.raises(Exception, match="no attribute 'no_such_act'"):
+        _run_op(jfluid, case)
+    with pytest.raises(Exception, match="act='no_such_act': not an "
+                                        "activation of jax.nn"):
+        _run_op(tfluid, case)
 
 
 @pytest.mark.parametrize('case', OP_CASES, ids=[c[0] for c in OP_CASES])
