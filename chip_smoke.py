@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
-"""Drive paddle_tpu_torch's serving path, the LM training step, the
-ResNet-50 training step, the long-context LM training step and the
-exp/exp2 probe once on one CUDA card.
+"""Drive paddle_tpu_torch's serving path, the LM training step (under
+Momentum and under the Transformer recipe's Adam), the ResNet-50
+training step, the long-context LM training step and the exp/exp2 probe
+once on one CUDA card.
 
     python3 chip_smoke.py
 
@@ -41,6 +42,13 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
       times, K1 and K4a + K4b against the library forward
       and K5 against the library backward (every "x the library" factor
       is taken on torch.profiler device time, the library's only clock);
+  (h) the flash_attention op on CUDA tensors at shapes the kernels do
+      not take (UNTAKEN_FLASH: head dim 16 and 32 in fp32 and bf16, 64 in
+      fp16, causal): each output has the plain version's bits, the
+      plain-on-card counter (FlashAttention.plain_cuda_calls) counts the
+      call and no kernel launches. Phases c3, t1, t3, l1 and a1 require
+      that counter to stay 0 over their timed work; t2, l2 and a2 run the
+      plain versions on purpose and reset it after;
   (c) build the flagship LM (bench.py's transformer: vocab 32768, dim
       2048, 16 heads, 12 layers, ffn 8192, max_len 512, flash attention)
       with random weights from a seed, run its startup program on
@@ -75,8 +83,35 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (t4) step ms, tokens/s, MFU (bench.py's FLOPs per token over the bf16
       dense peak), device-busy share and top device items from
       torch.profiler over 3 steps, and peak device memory.
-The LM is freed, then ResNet-50 (bench.py's bench_resnet, NCHW, built
-with FLAGS_use_pallas_fused_ops so every conv + BN is one conv2d_bn op):
+The LM is freed, then the same LM with TransformerConfig's own use_tp /
+use_sp (the one-device parallel layers and annotations) trains under
+the Transformer recipe: Adam(noam_decay(2048, 4000), beta1 0.9, beta2
+0.98, epsilon 1e-9) with GradientClipByGlobalNorm(1.0) set by
+set_gradient_clip, under contrib.mixed_precision.decorate:
+  (a1) 2 warm-up and 5 timed steps through ParallelExecutor: K1 >= 12 x
+      steps and K2 exactly 12 x steps launches, K3-K5 never, no plain
+      call, every loss finite; the rate and the step counter fetched in
+      every step, every beta power read after the warm-up steps and the
+      last one; step ms, tokens/s, MFU, device busy share (one
+      torch.profiler step) and peak memory;
+  (a2) those records: the rate within SCHEDULE_RTOL of noam_decay, the
+      counter s in the s-th step, every beta power beta^(s+1); then one
+      step from a saved state with the kernels and one plain step: loss
+      within TRAIN_LOSS_TOL and each ADAM_PARAMS_COMPARED weight's step
+      gradient (from its first moment) within TRAIN_UPDATE_TOL of the
+      largest; the updates are logged;
+  (a3) the eleven optimizer updates (sgd, momentum and the nine of this
+      slice) at OPT_SHAPES on the card against the same emitter on CPU
+      copies, within OPT_TOL of max(1, |ref|);
+  (a4) every op type registered after A4_EARLIER_OPS, forward and grads,
+      on the card against CPU copies (rtol OP_RTOL, atol OP_ATOL; integer
+      and bool outputs exact; the script fails if such an op type has no
+      case and no entry in A4_HELD_ELSEWHERE); dropout (is_test bits,
+      kept entries and share over DROPOUT_N elements, grad dOut·Mask)
+      and truncated_gaussian_random's draw.
+The Adam LM is freed, then ResNet-50 (bench.py's bench_resnet, NCHW,
+built with FLAGS_use_pallas_fused_ops so every conv + BN is one
+conv2d_bn op):
   (r1) the training step at 224 px, 1000 classes, batch RESNET_BATCH
       (py_reader, train_network(depth=50), Momentum(0.01, 0.9) under
       contrib.mixed_precision.decorate, startup on CUDAPlace(0),
@@ -134,8 +169,8 @@ PADDLE_FLASH_BWD=onepass (restored after each phase):
       special-function-unit rate.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
-line, the serving and training numbers, its own wall time, and as its
-last line {"ok": true, "device": {...}}. Without a CUDA device, or
+line, the serving and training numbers (an Adam line among them), its
+own wall time, and as its last line {"ok": true, "device": {...}}. Without a CUDA device, or
 without the package beside it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
@@ -154,13 +189,40 @@ import numpy as np
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 MODEL = dict(vocab=32768, dim=2048, heads=16, layers=12, ffn=8192,
-             max_len=512, flash_attention=True)
+             max_len=512, flash_attention=True, use_tp=False, use_sp=False)
 SLOTS, PREFILL_BATCH, N_REQUESTS, NEW_TOKENS = 8, 1, 8, 32
 SEED = 1234
 # the training step of bench.py's bench_transformer (:253-271)
 TRAIN_BATCH, HEAD_CHUNK, WARMUP_STEPS, TIMED_STEPS, PROFILE_STEPS = \
     8, 4096, 2, 5, 3
 PARAMS_COMPARED = ('layer0_qkv.w_0', 'layer11_down.w_0', 'lm_head.w_0')
+
+# a1-a4: the same LM with TransformerConfig's own use_tp / use_sp (True:
+# the one-device tensor- and sequence-parallel layers and annotations),
+# trained with the Transformer recipe Fluid users ran: Adam over
+# noam_decay(d_model, 4000), beta2 0.98, epsilon 1e-9, global-norm clip 1
+ADAM_MODEL = {k: v for k, v in MODEL.items() if k not in ('use_tp', 'use_sp')}
+ADAM = dict(warmup_steps=4000, beta1=0.9, beta2=0.98, epsilon=1e-9,
+            clip_norm=1.0)
+# PARAMS_COMPARED's three weights under the parallel layers' names (there
+# 'layer0_qkv.w_0' is the qkv bias, whose key third has no gradient)
+ADAM_PARAMS_COMPARED = ('layer0_qkv_0.w', 'layer11_down_0.w', 'lm_head.w_0')
+# the rate, the step counter and the beta powers against their closed
+# forms, relative
+SCHEDULE_RTOL = 1e-6
+# a3: the eleven optimizer updates on the card against the same emitter
+# on CPU copies, |out - ref| <= OPT_TOL * max(1, |ref|)
+OPT_SHAPES = ((2048, 8192), (1,), (1000, 37))
+OPT_TOL = 1e-5
+# a4: the op types of the training core on the card against the same
+# emitters on CPU copies (fp32); integer and bool outputs exact
+OP_RTOL, OP_ATOL = 1e-5, 1e-6
+DROPOUT_P, DROPOUT_N = 0.3, 1 << 20
+# h: shapes the flash kernels do not take ([B, H, T, d], dtype), routed
+# to the plain version on the card
+UNTAKEN_FLASH = (((2, 4, 128, 16), 'float32'), ((2, 4, 128, 16), 'bfloat16'),
+                 ((2, 4, 128, 32), 'float32'), ((2, 4, 128, 32), 'bfloat16'),
+                 ((2, 4, 128, 64), 'float16'))
 
 # bench.py's bench_resnet (:128-189): ResNet-50 at 224 px, 1000 classes,
 # NCHW (the fused conv2d_bn op is NCHW-only), batch RESNET_BATCH
@@ -1065,8 +1127,10 @@ def load_and_prepare(model_dir, place):
 @phase('c3: serve requests through LMServer')
 def serve(dec, prompts, counters, sync):
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
     for c in counters.values():
         c.launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
     t0 = time.perf_counter()
     with fluid.serving.LMServer(dec) as srv:
         handles = [srv.submit(p, max_new_tokens=NEW_TOKENS)
@@ -1076,6 +1140,7 @@ def serve(dec, prompts, counters, sync):
         wall = time.perf_counter() - t0
         stats = srv.stats()
     launches = {name: c.launches for name, c in counters.items()}
+    require_no_plain(fa, 'c3')
     if stats['prefills'] != len(prompts) or stats['completed'] != \
             len(prompts):
         raise AssertionError('engine stats %r' % (stats,))
@@ -1233,12 +1298,17 @@ class Trainer(object):
     """An LM training step built as bench.py's _bench_lm builds it
     (:198-235): py_reader `reader_name` fed `batch` sequences a step,
     trunk, fused LM head with `head_chunk`, mean, Momentum(0.001, 0.9)
-    under AMP; its state on the card."""
+    under AMP; its state on the card. With adam=True the optimizer is
+    the Transformer recipe (ADAM): Adam over noam_decay with the
+    global-norm clip set by set_gradient_clip, under AMP; self.lr is
+    then the schedule's rate, a var of the program."""
 
-    def __init__(self, cfg, place, batch, head_chunk, reader_name):
+    def __init__(self, cfg, place, batch, head_chunk, reader_name,
+                 adam=False):
         import paddle_tpu_torch as fluid
         from paddle_tpu_torch.models import transformer as tfm
         self.fluid, self.cfg, self.batch = fluid, cfg, batch
+        self.lr = None
         self.main, startup = fluid.Program(), fluid.Program()
         self.main.random_seed = startup.random_seed = SEED
         with fluid.unique_name.guard(), \
@@ -1253,8 +1323,17 @@ class Trainer(object):
             cost = fluid.layers.fused_softmax_cross_entropy(
                 trunk, labels, cfg.vocab, chunk=head_chunk, name='lm_head')
             self.avg_cost = fluid.layers.mean(cost)
-            opt = fluid.optimizer.Momentum(learning_rate=0.001,
-                                           momentum=0.9)
+            if adam:
+                fluid.clip.set_gradient_clip(
+                    fluid.clip.GradientClipByGlobalNorm(ADAM['clip_norm']))
+                self.lr = fluid.layers.noam_decay(
+                    d_model=cfg.dim, warmup_steps=ADAM['warmup_steps'])
+                opt = fluid.optimizer.Adam(
+                    learning_rate=self.lr, beta1=ADAM['beta1'],
+                    beta2=ADAM['beta2'], epsilon=ADAM['epsilon'])
+            else:
+                opt = fluid.optimizer.Momentum(learning_rate=0.001,
+                                               momentum=0.9)
             opt = fluid.contrib.mixed_precision.decorate(opt)
             opt.minimize(self.avg_cost)
         self.scope = fluid.Scope()
@@ -1297,6 +1376,7 @@ def bench_provider(cfg, batch, rng):
        'ParallelExecutor)')
 def train_steps(cfg, place, counters, sync):
     import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
     t0 = time.perf_counter()
     tr = Trainer(cfg, place, TRAIN_BATCH, HEAD_CHUNK, 'tfm_reader')
     n_params = sum(int(np.prod(v.shape)) for v in tr.main.list_vars()
@@ -1313,11 +1393,13 @@ def train_steps(cfg, place, counters, sync):
     torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
     t0 = time.perf_counter()
     losses += [tr.step() for _ in range(TIMED_STEPS)]
     sync()
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
+    require_no_plain(fa, 't1')
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     step_ms = wall / TIMED_STEPS * 1e3
     log('losses: %s' % ', '.join('%.6f' % x for x in losses))
@@ -1364,6 +1446,20 @@ def _update_diffs(a, b, params):
             for n in params}
 
 
+def _first_order_diffs(a, b, grads, params):
+    """Per parameter: sum |g|·|update difference| over sum |g|·|update of
+    b|, g from `grads`: how far the first-order change of the loss, g·u,
+    that a's update u buys strays from b's, element by element. 1 for an
+    update of 0, 2 for b's reversed; an element whose gradient is near 0,
+    which Adam may step either way, weighs next to nothing."""
+    out = {}
+    for n in params:
+        w = grads[n].abs()
+        out[n] = ((w * (a[n] - b[n]).abs()).sum() /
+                  (w * b[n].abs()).sum().clamp_min(1e-30)).item()
+    return out
+
+
 def _compare(what, a, b, params=PARAMS_COMPARED):
     """|loss difference| and, per parameter, max |update difference| over
     max |update|; raises beyond TRAIN_LOSS_TOL / TRAIN_UPDATE_TOL."""
@@ -1384,6 +1480,7 @@ def _compare(what, a, b, params=PARAMS_COMPARED):
 @phase('t2: kernel step vs plain-version step from one saved state')
 def check_plain_step(tr, counters):
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
     rng = np.random.RandomState(SEED + 2)
     toks = rng.randint(0, tr.cfg.vocab, size=(tr.batch, tr.cfg.max_len,
                                               1)).astype('int64')
@@ -1401,6 +1498,7 @@ def check_plain_step(tr, counters):
                                     for n, c in counters.items()})
     finally:
         fluid.set_flags({'FLAGS_use_flash_attention': True})
+        fa.FlashAttention.plain_cuda_calls = 0
     diffs = _compare('kernel step vs plain step', kernel, plain)
     return saved, batch, kernel, diffs
 
@@ -1412,6 +1510,8 @@ def check_split_step(tr, saved, batch, kernel, counters, sync):
     TIMED_STEPS steps and its device time by kernel kind over
     PROFILE_STEPS. Returns (launches, differences, wall ms, device
     ms)."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    fa.FlashAttention.plain_cuda_calls = 0
     with flash_arms(None, 'split'):
         for c in counters.values():
             c.launches = 0
@@ -1436,6 +1536,7 @@ def check_split_step(tr, saved, batch, kernel, counters, sync):
         step_ms = (time.perf_counter() - t0) / TIMED_STEPS * 1e3
         device_ms, _ = _profile_steps(tr, step_ms, sync, 'split-arm step')
         tr.reader.reset()
+    require_no_plain(fa, 't3')
     tr.restore(saved)
     return launches, diffs, step_ms, device_ms
 
@@ -1460,23 +1561,23 @@ def profile_train(tr, step_ms, sync):
     return tok_s, mfu, device_ms, busy
 
 
-def _profile_steps(tr, step_ms, sync, label):
-    """torch.profiler over PROFILE_STEPS steps: device time per step, its
-    share of the unprofiled step, the top kernels and the time by kernel
-    kind. Returns (device ms, busy share or None)."""
+def _profile_steps(tr, step_ms, sync, label, steps=PROFILE_STEPS):
+    """torch.profiler over `steps` steps: device time per step, its share
+    of the unprofiled step, the top kernels and the time by kernel kind.
+    Returns (device ms, busy share or None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(PROFILE_STEPS):
+        for _ in range(steps):
             tr.step()
         sync()
-        prof_wall_ms = (time.perf_counter() - t0) / PROFILE_STEPS * 1e3
+        prof_wall_ms = (time.perf_counter() - t0) / steps * 1e3
     events = [e for e in prof.key_averages()
               if getattr(e, 'device_type', None) == DeviceType.CUDA
               and _device_us(e) > 0]
-    device_ms = sum(_device_us(e) for e in events) / PROFILE_STEPS / 1e3
+    device_ms = sum(_device_us(e) for e in events) / steps / 1e3
     if device_ms == 0:
         log('%s: device time not measured (the profiler saw no device '
             'events)' % label)
@@ -1487,13 +1588,13 @@ def _profile_steps(tr, step_ms, sync, label):
         'ms wall under the profiler); top: %s'
         % (label, device_ms, step_ms, 100.0 * busy, prof_wall_ms,
            '; '.join('%s %.3f ms' % (e.key[:60],
-                                     _device_us(e) / PROFILE_STEPS / 1e3)
+                                     _device_us(e) / steps / 1e3)
                      for e in top)))
     by_kind = {}
     for e in events:
         kind = _kernel_kind(e.key)
         by_kind[kind] = by_kind.get(kind, 0.0) + \
-            _device_us(e) / PROFILE_STEPS / 1e3
+            _device_us(e) / steps / 1e3
     log('%s device time by kind: %s'
         % (label, ', '.join('%s %.3f ms' % kv for kv in
                             sorted(by_kind.items(), key=lambda kv: -kv[1]))))
@@ -1533,6 +1634,712 @@ def _kernel_kind(name):
         if any(m in low for m in marks):
             return kind
     return 'other'
+
+
+# -- (h): shapes the flash kernels do not take --------------------------------
+
+def require_no_plain(fa, label):
+    """Fail where a timed path ran the plain flash version on the card: the
+    route (fa.kernel_takes) must never hide the kernels where they should
+    launch."""
+    n = fa.FlashAttention.plain_cuda_calls
+    if n:
+        raise AssertionError('%s: %d flash_attention calls ran the plain '
+                             'version on the card, want 0' % (label, n))
+
+
+def _flash_op_program(fluid, shape, dtype):
+    """One flash_attention op (causal, default scale) on fed q, k, v."""
+    prog = fluid.Program()
+    block = prog.global_block()
+    ins = {slot: [block.create_var(name=slot.lower(), shape=shape,
+                                   dtype=dtype, is_data=True)]
+           for slot in ('Q', 'K', 'V')}
+    block.append_op(type='flash_attention', inputs=ins,
+                    outputs={'Out': [block.create_var(name='out')]},
+                    attrs={'causal': True, 'sm_scale': None})
+    return prog
+
+
+@phase('h: the flash_attention op at shapes the kernels do not take')
+def check_untaken_flash(place, counters):
+    """Each UNTAKEN_FLASH case through the op on CUDA tensors: the output
+    has the plain version's bits, the plain-on-card counter counts the
+    call, and no kernel launches."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    exe = fluid.Executor(place)
+    rng = np.random.RandomState(SEED + 7)
+    for shape, dtype in UNTAKEN_FLASH:
+        feed = {n: torch.from_numpy((rng.randn(*shape) * 0.5).astype(
+            'float32')).to(exe.device).to(getattr(torch, dtype))
+            for n in ('q', 'k', 'v')}
+        for c in counters.values():
+            c.launches = 0
+        fa.FlashAttention.plain_cuda_calls = 0
+        out, = exe.run(_flash_op_program(fluid, shape, dtype), feed=feed,
+                       fetch_list=['out'], scope=fluid.Scope(),
+                       return_numpy=False)
+        torch.cuda.synchronize()
+        plain = fa.FlashAttention.plain_cuda_calls
+        launches = {n: c.launches for n, c in counters.items() if c.launches}
+        B, H, T, d = shape
+        want, _ = fa.flash_attention_reference(
+            *(feed[n].reshape(B * H, T, d) for n in ('q', 'k', 'v')), True,
+            d ** -0.5)
+        same = out.device.type == 'cuda' and out.dtype == want.dtype and \
+            torch.equal(out.reshape(want.shape), want)
+        log('flash_attention op %s %s on the card: plain calls %d, kernel '
+            'launches %s, bits equal to the plain version: %s'
+            % (list(shape), dtype, plain, launches or 'none', same))
+        if plain != 1 or launches or not same:
+            raise AssertionError('%s %s: want one plain call, no kernel '
+                                 'launch and the plain version\'s bits'
+                                 % (list(shape), dtype))
+    fa.FlashAttention.plain_cuda_calls = 0
+
+
+# -- (a1)-(a4): the training core ----------------------------------------------
+
+def noam_rate(step, d_model):
+    """noam_decay's rate in the step-th step (the counter reads step)."""
+    return d_model ** -0.5 * min(step ** -0.5,
+                                 step * ADAM['warmup_steps'] ** -1.5)
+
+
+def _beta_pows(tr):
+    """Every Adam beta power of the step, read in one copy per kind:
+    {'beta1': array, 'beta2': array}."""
+    import torch
+    out = {}
+    for key in ('beta1', 'beta2'):
+        names = [n for n in tr.persistables if '_%s_pow_acc_' % key in n]
+        out[key] = torch.cat([tr.scope.find_var(n).reshape(-1).float()
+                              for n in names]).cpu().numpy()
+    return out
+
+
+def check_adam_records(records, d_model):
+    """In each record of step s: the rate noam_rate(s), the step counter
+    s, and every beta power read after the step beta^(s + 1), within
+    SCHEDULE_RTOL. Raises on the first that is not; returns the worst
+    relative errors of the rate and of the beta powers."""
+    worst = {'lr': 0.0, 'beta': 0.0}
+    for r in records:
+        s = r['step']
+        if r['counter'] != s:
+            raise AssertionError('step %d: the step counter reads %d'
+                                 % (s, r['counter']))
+        err = abs(r['lr'] / noam_rate(s, d_model) - 1.0)
+        worst['lr'] = max(worst['lr'], err)
+        if err > SCHEDULE_RTOL:
+            raise AssertionError('step %d: the rate is %.9g, noam_decay '
+                                 'gives %.9g' % (s, r['lr'],
+                                                 noam_rate(s, d_model)))
+        for key in ('beta1', 'beta2'):
+            if r.get(key) is None:
+                continue
+            want = ADAM[key] ** (s + 1)
+            err = float(np.abs(np.asarray(r[key], 'float64') / want
+                               - 1.0).max())
+            worst['beta'] = max(worst['beta'], err)
+            if err > SCHEDULE_RTOL:
+                raise AssertionError('step %d: a %s power is %.3e off '
+                                     '%s^%d' % (s, key, err, key, s + 1))
+    return worst
+
+
+@phase('a1: train the flagship LM under AMP Adam + noam_decay + global-norm '
+       'clip (py_reader, ParallelExecutor)')
+def adam_steps(cfg, place, counters, sync):
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    t0 = time.perf_counter()
+    tr = Trainer(cfg, place, TRAIN_BATCH, HEAD_CHUNK, 'adam_reader',
+                 adam=True)
+    n_params = sum(int(np.prod(v.shape)) for v in tr.main.list_vars()
+                   if v.persistable and getattr(v, 'trainable', False))
+    ops = tr.main.global_block().ops
+    counts = {}
+    for o in ops:
+        counts[o.type] = counts.get(o.type, 0) + 1
+    log('Adam training program: %d ops of %d types, %d parameters (%.2f GB '
+        'fp32), use_tp %s, use_sp %s, batch %d x %d tokens, no depth cut; '
+        'built and initialised in %.1f s; op types: %s'
+        % (len(ops), len(counts), n_params, n_params * 4 / 1e9, cfg.use_tp,
+           cfg.use_sp, tr.batch, cfg.max_len, time.perf_counter() - t0,
+           json.dumps(dict(sorted(counts.items())))))
+    tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(0)))
+    records, losses = [], []
+
+    def step(s):
+        loss, lr, counter = tr.pe.run(fetch_list=[
+            tr.avg_cost.name, tr.lr.name, '@STEP_COUNTER@'])
+        losses.append(float(loss))
+        records.append(dict(step=s, lr=float(np.asarray(lr).reshape(-1)[0]),
+                            counter=int(np.asarray(counter).reshape(-1)[0])))
+
+    for s in range(1, WARMUP_STEPS + 1):
+        step(s)
+        records[-1].update(_beta_pows(tr))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    for c in counters.values():
+        c.launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
+    t0 = time.perf_counter()
+    for s in range(WARMUP_STEPS + 1, WARMUP_STEPS + TIMED_STEPS + 1):
+        step(s)
+    sync()
+    wall = time.perf_counter() - t0
+    launches = {name: c.launches for name, c in counters.items()}
+    require_no_plain(fa, 'a1')
+    records[-1].update(_beta_pows(tr))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    step_ms = wall / TIMED_STEPS * 1e3
+    tokens = tr.batch * cfg.max_len
+    fl = train_flops_per_token(cfg)
+    tok_s = tokens / step_ms * 1e3
+    mfu = tok_s * fl / PEAK_BF16_FLOPS
+    log('losses: %s' % ', '.join('%.6f' % x for x in losses))
+    log('rates: %s' % ', '.join('%.6e' % r['lr'] for r in records))
+    log('timed steps: %d in %.3f s, %.3f ms per step, %.1f tokens/s, MFU '
+        '%.4f at %.3f GFLOP per token; launches %s; peak device memory %.2f '
+        'GB' % (TIMED_STEPS, wall, step_ms, tok_s, mfu, fl / 1e9,
+                json.dumps(launches), peak_gb))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('an Adam training loss is not finite: %r'
+                             % losses)
+    need = cfg.layers * TIMED_STEPS
+    if launches['flash_attention_fwd'] < need or \
+            launches['flash_attention_bwd_kvmajor'] != need:
+        raise AssertionError('want K1 >= %d and K2 exactly %d launches in %d '
+                             'steps, got %r' % (need, need, TIMED_STEPS,
+                                                launches))
+    others = [KERNELS[kd][0] for kd in ('k3a', 'k3b', 'k4a', 'k4b', 'k5')]
+    if any(launches[n] for n in others):
+        raise AssertionError('K3, K4 or K5 launched in the Adam step: %r'
+                             % launches)
+    device_ms, busy = _profile_steps(tr, step_ms, sync, 'Adam step',
+                                     steps=1)
+    tr.reader.reset()
+    return dict(tr=tr, losses=losses, step_ms=step_ms, launches=launches,
+                peak_gb=peak_gb, records=records, tok_s=tok_s, mfu=mfu,
+                device_ms=device_ms, busy=busy, n_ops=len(ops))
+
+
+def _adam_step(tr, saved, batch):
+    """_one_step for the Adam LM: (loss, {param: (1 - beta1)·g}) and the
+    updates of ADAM_PARAMS_COMPARED, where g is the step's clipped
+    gradient, read from the Adam op's first moment: m1 - beta1·m1_saved."""
+    loss, updates = _one_step(tr, saved, batch, ADAM_PARAMS_COMPARED)
+    grads = {}
+    for p in ADAM_PARAMS_COMPARED:
+        m1, = [n for n in tr.persistables if n.startswith(p + '_moment1_')]
+        grads[p] = (tr.scope.find_var(m1) -
+                    ADAM['beta1'] * saved[m1]).float()
+    return (loss, grads), updates
+
+
+@phase('a2: Adam kernel step vs plain step; the rate, the counter and the '
+       'beta powers over a1\'s steps')
+def check_adam_step(tr, records, counters):
+    """The records of a1 (check_adam_records), then one step from a saved
+    state with the kernels and with FLAGS_use_flash_attention=False, held
+    to t2's bounds: the losses within TRAIN_LOSS_TOL, and each compared
+    weight's step gradient, as the Adam op took it into its first moment,
+    within TRAIN_UPDATE_TOL of the largest. Each compared weight's update
+    is held within TRAIN_UPDATE_TOL too, weighted by the plain step's
+    gradient (_first_order_diffs): Adam's step is about lr·sign(m)
+    element by element, so an element whose gradient lies within the two
+    steps' bf16 rounding of zero steps the other way, and the largest
+    update is no scale for that difference."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    worst = check_adam_records(records, tr.cfg.dim)
+    log('over %d steps: the rate within %.2e of noam_decay, every beta power '
+        'within %.2e of beta^(s+1) (%d accumulators), the counter s in the '
+        's-th step (tol %g)' % (len(records), worst['lr'], worst['beta'],
+                                2 * len(records[-1]['beta1']),
+                                SCHEDULE_RTOL))
+    rng = np.random.RandomState(SEED + 8)
+    toks = rng.randint(0, tr.cfg.vocab, size=(tr.batch, tr.cfg.max_len,
+                                              1)).astype('int64')
+    batch = [toks, np.roll(toks, -1, axis=1)]
+    saved = tr.snapshot()
+    for c in counters.values():
+        c.launches = 0
+    kernel, kernel_upd = _adam_step(tr, saved, batch)
+    L = tr.cfg.layers
+    if counters['flash_attention_fwd'].launches < L or \
+            counters['flash_attention_bwd_kvmajor'].launches != L:
+        raise AssertionError('the kernel step launched %r'
+                             % {n: c.launches for n, c in counters.items()})
+    fluid.set_flags({'FLAGS_use_flash_attention': False})
+    try:
+        for c in counters.values():
+            c.launches = 0
+        plain, plain_upd = _adam_step(tr, saved, batch)
+        if any(c.launches for c in counters.values()):
+            raise AssertionError('a kernel launched in the plain step: %r'
+                                 % {n: c.launches
+                                    for n, c in counters.items()})
+    finally:
+        fluid.set_flags({'FLAGS_use_flash_attention': True})
+        fa.FlashAttention.plain_cuda_calls = 0
+    tr.reader.reset()
+    tr.restore(saved)
+    diffs = _compare('Adam kernel step vs plain step, step gradients',
+                     kernel, plain, ADAM_PARAMS_COMPARED)
+    upd = _first_order_diffs(kernel_upd, plain_upd, plain[1],
+                             ADAM_PARAMS_COMPARED)
+    log('Adam kernel step vs plain step, updates: sum |g|·|diff| / sum '
+        '|g|·|update| %s (tol %g)'
+        % (', '.join('%s %.3e' % kv for kv in upd.items()),
+           TRAIN_UPDATE_TOL))
+    if not all(r <= TRAIN_UPDATE_TOL for r in upd.values()):
+        raise AssertionError('Adam kernel step vs plain step: updates '
+                             'disagree beyond the stated tolerance')
+    return worst, diffs, upd
+
+
+def optimizer_cases(rng, shape):
+    """The eleven update ops at `shape`, inputs from rng: [(op type,
+    inputs, attrs, output slots)]. Accumulators that a root or a division
+    reads are positive, except Ftrl's squared one, which is 0 at every
+    other element, as it starts, with a gradient of 0 at every third."""
+    def f():
+        return rng.randn(*shape).astype('float32')
+
+    def pos():
+        return (rng.rand(*shape) + 0.1).astype('float32')
+
+    def one(v):
+        return np.array([v], 'float32')
+
+    def fresh(a, step):
+        # Ftrl's accumulators start at 0 and a gradient may be exactly 0
+        a.flat[::step] = 0.0
+        return a
+    cases = [
+        ('sgd', {}, {}, ['ParamOut']),
+        ('momentum', {'Velocity': f()}, {'mu': 0.9, 'use_nesterov': True},
+         ['ParamOut', 'VelocityOut']),
+        ('adam', {'Moment1': f(), 'Moment2': pos(),
+                  'Beta1Pow': one(0.9 ** 3), 'Beta2Pow': one(0.98 ** 3)},
+         {'beta1': 0.9, 'beta2': 0.98, 'epsilon': 1e-9, 'lazy_mode': False},
+         ['ParamOut', 'Moment1Out', 'Moment2Out', 'Beta1PowOut',
+          'Beta2PowOut']),
+        ('adagrad', {'Moment': pos()}, {'epsilon': 1e-6},
+         ['ParamOut', 'MomentOut']),
+        ('decayed_adagrad', {'Moment': pos()},
+         {'decay': 0.95, 'epsilon': 1e-6}, ['ParamOut', 'MomentOut']),
+        ('adamax', {'Moment': f(), 'InfNorm': pos(),
+                    'Beta1Pow': one(0.9 ** 2)},
+         {'beta1': 0.9, 'beta2': 0.999, 'epsilon': 1e-8},
+         ['ParamOut', 'MomentOut', 'InfNormOut']),
+        ('adadelta', {'AvgSquaredGrad': pos(), 'AvgSquaredUpdate': pos()},
+         {'rho': 0.95, 'epsilon': 1e-6},
+         ['ParamOut', 'AvgSquaredGradOut', 'AvgSquaredUpdateOut']),
+        ('rmsprop', {'MeanSquare': pos(), 'Moment': f()},
+         {'decay': 0.9, 'epsilon': 1e-6, 'momentum': 0.5},
+         ['ParamOut', 'MeanSquareOut', 'MomentOut']),
+        ('ftrl', {'SquaredAccumulator': fresh(pos(), 2),
+                  'LinearAccumulator': f(), 'Grad': fresh(f(), 3)},
+         {'l1': 0.1, 'l2': 0.2, 'lr_power': -0.5},
+         ['ParamOut', 'SquaredAccumOut', 'LinearAccumOut']),
+        ('proximal_gd', {}, {'l1': 0.1, 'l2': 0.2}, ['ParamOut']),
+        ('proximal_adagrad', {'Moment': pos()}, {'l1': 0.1, 'l2': 0.2},
+         ['ParamOut', 'MomentOut']),
+    ]
+    return [(t, dict({'Param': f(), 'Grad': f(),
+                      'LearningRate': one(0.01)}, **accs), attrs, outs)
+            for t, accs, attrs, outs in cases]
+
+
+def run_update(fluid, place, op_type, inputs, attrs, outs):
+    """One update op on `place`, fed copies of `inputs`; its outputs as
+    CPU tensors."""
+    prog = fluid.Program()
+    block = prog.global_block()
+    ins = {s: [block.create_var(name='in_' + s.lower(), shape=a.shape,
+                                dtype='float32', is_data=True)]
+           for s, a in inputs.items()}
+    out_vars = {s: [block.create_var(name='out_' + s.lower())] for s in outs}
+    block.append_op(type=op_type, inputs=ins, outputs=out_vars, attrs=attrs)
+    got = fluid.Executor(place).run(
+        prog, feed={'in_' + s.lower(): a.copy() for s, a in inputs.items()},
+        fetch_list=['out_' + s.lower() for s in outs], scope=fluid.Scope(),
+        return_numpy=False)
+    return [g.detach().cpu() for g in got]
+
+
+def check_update(label, got, want):
+    """Every output within OPT_TOL of max(1, |ref|), finite and of the
+    reference's shape; raises otherwise. Returns the worst error."""
+    worst = 0.0
+    for g, w in zip(got, want):
+        g = np.asarray(g, 'float64')
+        w = np.asarray(w, 'float64')
+        if g.shape != w.shape or not np.isfinite(g).all():
+            raise AssertionError('%s: an output of shape %s (want %s) or '
+                                 'not finite' % (label, g.shape, w.shape))
+        worst = max(worst, float((np.abs(g - w) /
+                                  np.maximum(1.0, np.abs(w))).max()))
+    if len(got) != len(want) or worst > OPT_TOL:
+        raise AssertionError('%s: an update is %.3e off the CPU one (tol '
+                             '%g)' % (label, worst, OPT_TOL))
+    return worst
+
+
+@phase('a3: the eleven optimizer updates on the card vs on CPU copies')
+def check_optimizer_ops(place):
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(SEED + 9)
+    worst = {}
+    for shape in OPT_SHAPES:
+        for op_type, inputs, attrs, outs in optimizer_cases(rng, shape):
+            label = '%s %s' % (op_type, list(shape))
+            got = run_update(fluid, place, op_type, inputs, attrs, outs)
+            want = run_update(fluid, fluid.CPUPlace(), op_type, inputs,
+                              attrs, outs)
+            worst[op_type] = max(worst.get(op_type, 0.0),
+                                 check_update(label, got, want))
+    log('optimizer updates on the card vs CPU copies at %s, max error of '
+        'max(1, |ref|): %s (tol %g)'
+        % (', '.join(str(list(s)) for s in OPT_SHAPES),
+           ', '.join('%s %.2e' % kv for kv in worst.items()), OPT_TOL))
+    return worst
+
+
+# op types registered before the training core (phases b to t hold them)
+A4_EARLIER_OPS = (
+    'abs', 'accuracy', 'argmax', 'assign', 'batch_norm', 'causal_mask',
+    'clip', 'clip_by_norm', 'conv2d', 'conv2d_bn', 'cross_entropy',
+    'decode_mask', 'depthwise_conv2d', 'elementwise_add', 'elementwise_div',
+    'elementwise_max', 'elementwise_mul', 'fill_constant', 'fill_zeros_like',
+    'flash_attention', 'fused_softmax_cross_entropy', 'gather_time',
+    'gaussian_random', 'gelu', 'kv_cache_append', 'kv_cache_write',
+    'layer_norm', 'load', 'load_combine', 'lookup_table', 'matmul', 'mean',
+    'momentum', 'mul', 'pool2d', 'position_embedding',
+    'position_embedding_at', 'read', 'relu', 'reshape2',
+    'reshape_grad_helper', 'save', 'save_combine', 'scale', 'sgd',
+    'sharding_constraint', 'slice', 'softmax', 'sqrt', 'square_error_cost',
+    'squared_l2_norm', 'sum', 'top_k', 'transpose2', 'uniform_random')
+# op types of the training core that a4's table leaves to other checks
+A4_HELD_ELSEWHERE = {
+    'dropout': 'a4\'s own checks: is_test bits, kept entries, kept share, '
+               'grad = dOut·Mask',
+    'truncated_gaussian_random': 'a4\'s own check of the draw: the card\'s '
+                                 'stream is not the CPU\'s',
+}
+for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
+           'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
+    A4_HELD_ELSEWHERE[_t] = 'a3'
+
+_UNARY_CASES = {
+    'sigmoid': {}, 'logsigmoid': {}, 'tanh': {}, 'tanh_shrink': {},
+    'exp': {}, 'square': {}, 'ceil': {}, 'floor': {}, 'round': {},
+    'sin': {}, 'cos': {}, 'softplus': {}, 'softsign': {}, 'relu6': {},
+    'softshrink': {'lambda': 0.5}, 'leaky_relu': {'alpha': 0.1},
+    'elu': {'alpha': 1.0}, 'hard_sigmoid': {}, 'brelu': {'t_max': 2.0},
+    'swish': {'beta': 1.5}, 'stanh': {}, 'thresholded_relu': {},
+    'hard_shrink': {'threshold': 0.5}}
+_POSITIVE_UNARY_CASES = {'log': {}, 'rsqrt': {}, 'reciprocal': {},
+                         'pow': {'factor': 2.5}}
+
+
+def training_op_cases(rng):
+    """a4's table, inputs from rng: [(name, op type, {slot: array or
+    [(var name, array)]}, attrs, {slot: [var names]} or None for {'Out':
+    ['out']}, [input var names whose grads are held])]. An array input of
+    slot S is the var in_<s>."""
+    def f(*s):
+        return rng.randn(*s).astype('float32')
+
+    def pos(*s):
+        return (rng.rand(*s) * 0.8 + 0.3).astype('float32')
+    x, y = f(4, 6), f(4, 6)
+    cases = []
+
+    def add(op, inputs=None, attrs=None, outputs=None, check=('in_x',),
+            name=None):
+        cases.append((name or op, op, inputs or {}, attrs or {}, outputs,
+                      list(check)))
+    for op, attrs in _UNARY_CASES.items():
+        add(op, {'X': 3 * f(4, 6)}, attrs)
+    for op, attrs in _POSITIVE_UNARY_CASES.items():
+        add(op, {'X': pos(4, 6)}, attrs)
+    add('logit', {'X': np.clip(pos(4, 6), 0.2, 0.8)})
+    add('elementwise_sub', {'X': f(2, 3, 4), 'Y': f(3)}, {'axis': 1},
+        check=('in_x', 'in_y'))
+    add('elementwise_min', {'X': x, 'Y': y}, check=('in_x', 'in_y'))
+    add('elementwise_pow', {'X': pos(4, 6), 'Y': pos(4, 6) + 1.0},
+        check=('in_x', 'in_y'))
+    add('elementwise_mod', {'X': pos(4, 6) * 3, 'Y': pos(4, 6) + 1.0})
+    add('elementwise_floordiv', {'X': pos(4, 6) * 3, 'Y': pos(4, 6) + 0.5})
+    for red in ('sum', 'mean', 'max', 'min', 'prod'):
+        add('reduce_' + red, {'X': pos(3, 4, 5) if red == 'prod'
+                              else f(3, 4, 5)},
+            {'dim': [1], 'keep_dim': red == 'sum', 'reduce_all': False})
+    for op in ('less_than', 'less_equal', 'greater_than', 'greater_equal',
+               'equal', 'not_equal'):
+        add(op, {'X': x, 'Y': np.where(rng.rand(4, 6) < 0.3, x, y)},
+            check=())
+    b1, b2 = rng.rand(4, 6) < 0.5, rng.rand(4, 6) < 0.5
+    for op in ('logical_and', 'logical_or', 'logical_xor'):
+        add(op, {'X': b1, 'Y': b2}, check=())
+    add('logical_not', {'X': b1}, check=())
+    xinf = x.copy()
+    xinf[2, 3] = np.inf
+    add('isfinite', {'X': [('fin_a', x), ('fin_b', xinf)]}, check=())
+    add('argsort', {'X': f(5, 7)}, {'axis': -1},
+        {'Out': ['as_out'], 'Indices': ['as_idx']}, check=())
+    add('cumsum', {'X': x}, {'axis': 1, 'exclusive': True, 'reverse': True})
+    add('where', {'Cond': x > 0, 'X': x, 'Y': y}, check=('in_x', 'in_y'))
+    add('increment', {'X': np.array([4.5], 'float32')}, {'step': 1.0},
+        check=())
+    add('cast', {'X': 3 * x}, {'in_dtype': 'float32', 'out_dtype': 'int64'},
+        check=())
+    add('concat', {'X': [('cc_a', x), ('cc_b', y)]}, {'axis': 1},
+        check=('cc_a', 'cc_b'))
+    add('split', {'X': f(5, 4)}, {'sections': [2, 3], 'axis': 0},
+        {'Out': ['sp_a', 'sp_b']})
+    add('stack', {'X': [('st_a', x), ('st_b', y)]}, {'axis': 1},
+        {'Y': ['stack_y']}, check=('st_a', 'st_b'))
+    add('expand', {'X': f(2, 3)}, {'expand_times': [2, 3]})
+    add('gather', {'X': x, 'Index': np.array([3, 0, 2], 'int64')})
+    add('scatter', {'X': x, 'Ids': np.array([2, 0], 'int64'),
+                    'Updates': f(2, 6)}, {'overwrite': True},
+        check=('in_x', 'in_updates'))
+    add('one_hot', {'X': np.array([[1], [0], [4]], 'int64')}, {'depth': 5},
+        check=())
+    add('pad', {'X': f(2, 3, 4)}, {'paddings': [0, 1, 2, 0, 1, 1],
+                                   'pad_value': -1.5})
+    add('shape', {'Input': f(2, 3, 4)}, check=())
+    add('reshape', {'X': x}, {'shape': [3, -1]})
+    add('transpose', {'X': f(2, 3, 4)}, {'axis': [2, 0, 1]})
+    add('squeeze', {'X': f(4, 1, 6)}, {'axes': [1]})
+    add('unsqueeze', {'X': x}, {'axes': [1]})
+    add('squeeze2', {'X': f(4, 1, 6)}, {'axes': [1]},
+        {'Out': ['out'], 'XShape': ['xshape']})
+    add('unsqueeze2', {'X': x}, {'axes': [0]},
+        {'Out': ['out'], 'XShape': ['xshape']})
+    add('range', attrs={'start': 2, 'end': 11, 'step': 3, 'dtype': 'int64'},
+        check=())
+    add('reverse', {'X': x}, {'axis': [0, 1]})
+    add('label_smooth', {'X': pos(4, 6)}, {'epsilon': 0.1})
+    add('assign_value', attrs={'shape': [2, 3], 'dtype': 'float32',
+                               'values': [0.5, -1.0, 2.0, 3.5, 0.0, 1.25]},
+        check=())
+    add('softmax_with_cross_entropy',
+        {'Logits': 2 * f(4, 7),
+         'Label': np.array([[0], [6], [-100], [3]], 'int64')},
+        {'soft_label': False, 'ignore_index': -100},
+        {'Softmax': ['swce_sm'], 'Loss': ['swce_loss']}, check=('in_logits',))
+    add('sigmoid_cross_entropy_with_logits',
+        {'X': 3 * f(4, 3), 'Label': (rng.rand(4, 3) < 0.5).astype('float32')},
+        {'ignore_index': -100})
+    return cases
+
+
+def uncovered_op_types(cases):
+    """Op types of the port registered after A4_EARLIER_OPS that neither
+    the table nor A4_HELD_ELSEWHERE holds."""
+    from paddle_tpu_torch import registry
+    new = {t for t in registry._REGISTRY if not t.endswith('_grad')} - \
+        set(A4_EARLIER_OPS)
+    return sorted(new - {c[1] for c in cases} - set(A4_HELD_ELSEWHERE))
+
+
+def run_op_case(fluid, place, case):
+    """One case's op on `place`, fed copies: {var name: numpy array} of
+    its outputs and of the held inputs' grads against a fixed cotangent
+    on its Loss, Out or Y outputs."""
+    import torch
+    _, op_type, inputs, attrs, outputs, check = case
+    prog = fluid.Program()
+    block = prog.global_block()
+    feed, ins = {}, {}
+    for slot, val in inputs.items():
+        named = val if isinstance(val, list) else \
+            [('in_' + slot.lower(), val)]
+        ins[slot] = []
+        for name, arr in named:
+            ins[slot].append(block.create_var(
+                name=name, shape=arr.shape, dtype=arr.dtype.name,
+                is_data=True, stop_gradient=name not in check))
+            feed[name] = arr.copy()
+    outputs = outputs or {'Out': ['out']}
+    outs = {slot: [block.create_var(name=n) for n in names]
+            for slot, names in outputs.items()}
+    fetch = [n for names in outputs.values() for n in names]
+    with fluid.program_guard(prog, fluid.Program()):
+        block.append_op(type=op_type, inputs=ins, outputs=outs,
+                        attrs=dict(attrs))
+        if check:
+            targets = outs.get('Loss') or outs.get('Out') or outs['Y']
+            cots = []
+            for i, t in enumerate(targets):
+                cot = block.create_var(name='cot_%d' % i, shape=t.shape,
+                                       dtype='float32', is_data=True,
+                                       stop_gradient=True)
+                feed[cot.name] = np.asarray(np.random.RandomState(
+                    i + 1).randn(*t.shape), 'float32')
+                cots.append(cot)
+            grads = fluid.backward.calc_gradient(
+                targets, [block.var(n) for n in check],
+                target_gradients=cots)
+            fetch += [g.name for g in grads]
+    got = fluid.Executor(place).run(prog, feed=feed, fetch_list=fetch,
+                                    scope=fluid.Scope(), return_numpy=False)
+    return {n: (g.detach().float() if g.dtype == torch.bfloat16 else
+                g.detach()).cpu().numpy() for n, g in zip(fetch, got)}
+
+
+def check_op_outputs(label, got, want):
+    """fp32 within OP_ATOL + OP_RTOL·|ref|; integer and bool outputs
+    exact; the same names and shapes. Raises; returns the worst fp32
+    error over (OP_ATOL + OP_RTOL·|ref|)."""
+    if sorted(got) != sorted(want):
+        raise AssertionError('%s: outputs %s, want %s'
+                             % (label, sorted(got), sorted(want)))
+    worst = 0.0
+    for n, w in want.items():
+        g = got[n]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError('%s: %s is %s %s, want %s %s'
+                                 % (label, n, g.dtype, g.shape, w.dtype,
+                                    w.shape))
+        if w.dtype.kind in 'biu':
+            if not np.array_equal(g, w):
+                raise AssertionError('%s: %s differs' % (label, n))
+            continue
+        both_inf = np.isinf(w) & (g == w)
+        err = np.where(both_inf, 0.0, np.abs(g.astype('float64') - w) /
+                       (OP_ATOL + OP_RTOL * np.abs(w)))
+        worst = max(worst, float(err.max()) if err.size else 0.0)
+        if not (err <= 1.0).all():
+            raise AssertionError('%s: %s is %.3g x the tolerance off'
+                                 % (label, n, float(np.nanmax(err))))
+    return worst
+
+
+def _dropout_program(fluid, shape, impl, is_test):
+    """dropout (seed 0: the executor's generator) of a fed x, its grad
+    against a fed cotangent."""
+    prog = fluid.Program()
+    block = prog.global_block()
+    with fluid.program_guard(prog, fluid.Program()):
+        x = block.create_var(name='x', shape=shape, dtype='float32',
+                             is_data=True, stop_gradient=False)
+        out, mask = block.create_var(name='out'), block.create_var(
+            name='mask', stop_gradient=True)
+        block.append_op(type='dropout', inputs={'X': [x]},
+                        outputs={'Out': [out], 'Mask': [mask]},
+                        attrs={'dropout_prob': DROPOUT_P, 'is_test': is_test,
+                               'seed': 0, 'dropout_implementation': impl})
+        cot = block.create_var(name='cot', shape=shape, dtype='float32',
+                               is_data=True, stop_gradient=True)
+        grad, = fluid.backward.calc_gradient([out], [x],
+                                             target_gradients=[cot])
+    prog.random_seed = SEED
+    return prog, grad.name
+
+
+def check_dropout(place):
+    """is_test: the card's outputs are the CPU's bits. Training, over
+    DROPOUT_N elements: dropped entries 0, kept ones x (downgrade_in_infer)
+    or x / (1 - p) (upscale_in_train; within 1e-6 relative, as the mask's
+    1 / (1 - p)), the kept share within 0.01 of 1 - p, and the grad
+    exactly dOut·Mask. Returns the kept shares."""
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(SEED + 11)
+    shares = {}
+    for impl in ('downgrade_in_infer', 'upscale_in_train'):
+        x = (rng.randn(4, 6) + 3).astype('float32')
+        res = []
+        for p in (place, fluid.CPUPlace()):
+            prog, gname = _dropout_program(fluid, x.shape, impl, True)
+            res.append(fluid.Executor(p).run(
+                prog, feed={'x': x.copy(), 'cot': np.ones_like(x)},
+                fetch_list=['out', 'mask'], scope=fluid.Scope()))
+        for g, w in zip(*res):
+            if not np.array_equal(g, w):
+                raise AssertionError('dropout %s is_test: the card\'s '
+                                     'output is not the CPU\'s' % impl)
+        x = (rng.randn(DROPOUT_N // 1024, 1024) + 3).astype('float32')
+        dout = rng.randn(*x.shape).astype('float32')
+        prog, gname = _dropout_program(fluid, x.shape, impl, False)
+        out, mask, dx = fluid.Executor(place).run(
+            prog, feed={'x': x.copy(), 'cot': dout},
+            fetch_list=['out', 'mask', gname], scope=fluid.Scope())
+        keep = mask > 0
+        kept = x / np.float32(1.0 - DROPOUT_P) \
+            if impl == 'upscale_in_train' else x
+        scale = 1.0 / (1.0 - DROPOUT_P) if impl == 'upscale_in_train' \
+            else 1.0
+        share = float(keep.mean())
+        shares[impl] = share
+        # x / (1 - p) on the card may be x times the rounded reciprocal:
+        # within a few ulps
+        if not (np.allclose(out[keep], kept[keep], rtol=1e-6, atol=0)
+                and not out[~keep].any()
+                and np.allclose(mask[keep], scale, rtol=1e-6, atol=0)
+                and abs(share - (1.0 - DROPOUT_P)) <= 0.01
+                and np.array_equal(dx, dout * mask)):
+            raise AssertionError('dropout %s on the card: kept share %.4f, '
+                                 'or an entry, the mask or the grad wrong'
+                                 % (impl, share))
+    return shares
+
+
+def check_truncated_normal(place):
+    """The card's truncated_gaussian_random draw: within mean +- 2 std,
+    its mean and std (0.8796 of std at a 2-sigma cut) within 0.01."""
+    import paddle_tpu_torch as fluid
+    prog = fluid.Program()
+    prog.random_seed = SEED
+    block = prog.global_block()
+    block.append_op(type='truncated_gaussian_random',
+                    outputs={'Out': [block.create_var(name='w')]},
+                    attrs={'shape': [1024, 1024], 'mean': 0.0, 'std': 1.0,
+                           'dtype': 'float32'})
+    w, = fluid.Executor(place).run(prog, fetch_list=['w'],
+                                   scope=fluid.Scope())
+    if not (np.abs(w).max() <= 2.0 and abs(w.mean()) < 0.01
+            and abs(w.std() - 0.8796) < 0.01):
+        raise AssertionError('truncated_gaussian_random: |w| max %.4f, mean '
+                             '%.4f, std %.4f' % (np.abs(w).max(), w.mean(),
+                                                 w.std()))
+    return float(w.mean()), float(w.std())
+
+
+@phase('a4: the training core\'s op types on the card vs on CPU copies, '
+       'forward and grads')
+def check_training_ops(place):
+    import paddle_tpu_torch as fluid
+    cases = training_op_cases(np.random.RandomState(SEED + 10))
+    missing = uncovered_op_types(cases)
+    if missing:
+        raise AssertionError('op types of the training core with no case '
+                             'and no other check: %s' % missing)
+    worst = {}
+    for case in cases:
+        got = run_op_case(fluid, place, case)
+        want = run_op_case(fluid, fluid.CPUPlace(), case)
+        worst[case[0]] = check_op_outputs(case[0], got, want)
+    shares = check_dropout(place)
+    mean_std = check_truncated_normal(place)
+    top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
+    log('%d op cases on the card vs CPU copies (%d op types), worst error '
+        'over the tolerance (rtol %g, atol %g): %s; dropout kept shares %s '
+        '(1 - p = %.2f); truncated normal mean %.4f, std %.4f'
+        % (len(cases), len({c[1] for c in cases}), OP_RTOL, OP_ATOL,
+           ', '.join('%s %.3f' % kv for kv in top), json.dumps(shares),
+           1.0 - DROPOUT_P, mean_std[0], mean_std[1]))
+    return max(worst.values())
 
 
 # -- (b6), (r1)-(r4): ResNet-50 through the fused conv + BN op ----------------
@@ -2140,12 +2947,14 @@ def lc_steps(cfg, place, counters, sync):
         torch.cuda.reset_peak_memory_stats()
         for c in counters.values():
             c.launches = 0
+        fa.FlashAttention.plain_cuda_calls = 0
         fa.take_extra_flops()
         t0 = time.perf_counter()
         losses += [tr.step() for _ in range(TIMED_STEPS)]
         sync()
         wall = time.perf_counter() - t0
         launches = {name: c.launches for name, c in counters.items()}
+        require_no_plain(fa, 'l1')
         extra_per_step = fa.take_extra_flops() / TIMED_STEPS
         tr.reader.reset()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
@@ -2194,6 +3003,7 @@ def check_lc_arms(tr, counters, sync):
     Returns the losses' and updates' differences, each arm's mean wall
     ms of one step, the launches and each arm's device ms per step."""
     import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
     cfg = tr.cfg
     rng = np.random.RandomState(SEED + 5)
     toks = rng.randint(0, cfg.vocab, size=(tr.batch, cfg.max_len,
@@ -2215,6 +3025,7 @@ def check_lc_arms(tr, counters, sync):
                                    for n, c in counters.items()}
             finally:
                 fluid.set_flags({'FLAGS_use_flash_attention': True})
+                fa.FlashAttention.plain_cuda_calls = 0
         log('%s step launches: %s' % (label, json.dumps(launches[label])))
     L = cfg.layers
     want = {'twopass/onepass': ('k4a', 'k4b', 'k5'),
@@ -2372,6 +3183,7 @@ def main():
     log('python %s, torch %s, cuda %s' % (sys.version.split()[0],
                                         torch.__version__, torch.version.cuda))
     cfg = TransformerConfig(**MODEL)
+    adam_cfg = TransformerConfig(**ADAM_MODEL)
     lc_cfg = TransformerConfig(**LC_MODEL)
     place = fluid.CUDAPlace(0)
     sync = torch.cuda.synchronize
@@ -2379,6 +3191,7 @@ def main():
         build_kernels()
         rows = check_kernels(cfg)
         long_rows = check_long_kernels(lc_cfg)
+        check_untaken_flash(place, counters)
         prompts = prompts_for(cfg.vocab, cfg.max_len)
         build_root = os.path.join(HERE, 'build')
         os.makedirs(build_root, exist_ok=True)
@@ -2405,9 +3218,16 @@ def main():
             check_split_step(tr, saved, batch, kernel_step, counters, sync)
         del saved
         tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
-        # the LM is freed before the ResNet phases
+        # the LM is freed before the Adam LM, and that one before ResNet
         del tr
         torch.cuda.empty_cache()
+
+        adam = adam_steps(adam_cfg, place, counters, sync)
+        adam_worst, adam_diffs, adam_upd = check_adam_step(
+            adam.pop('tr'), adam['records'], counters)
+        torch.cuda.empty_cache()
+        opt_worst = check_optimizer_ops(place)
+        op_worst = check_training_ops(place)
 
         fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
         torch.cuda.reset_peak_memory_stats()
@@ -2472,6 +3292,24 @@ def main():
            train_peak_gb, len(losses), losses[-1], plain_diffs[0],
            split_diffs[0], split_ms, _fmt_ms(split_device_ms or None),
            _fmt_ms(device_ms or None)))
+    log('Adam training (the flagship LM, batch %d, AMP Adam + noam_decay + '
+        'global-norm clip, use_tp/use_sp on): step %.3f ms, %.1f tokens/s, '
+        'MFU %.4f, device busy %s, peak device memory %.2f GB, %d ops, loss '
+        'after %d steps %.6f; K1 %d and K2 %d launches in %d steps; kernel '
+        'vs plain step loss |diff| %.3e, updates within %.3e (gradient-'
+        'weighted); rate within %.2e of noam_decay, '
+        'beta powers within %.2e; optimizer updates on the card within '
+        '%.2e of the CPU\'s; training-core ops within %.3f of their '
+        'tolerance'
+        % (TRAIN_BATCH, adam['step_ms'], adam['tok_s'], adam['mfu'],
+           'not measured' if adam['busy'] is None
+           else '%.1f%%' % (100 * adam['busy']),
+           adam['peak_gb'], adam['n_ops'], len(adam['losses']),
+           adam['losses'][-1], adam['launches']['flash_attention_fwd'],
+           adam['launches']['flash_attention_bwd_kvmajor'], TIMED_STEPS,
+           adam_diffs[0], max(adam_upd.values()), adam_worst['lr'],
+           adam_worst['beta'],
+           max(opt_worst.values()), op_worst))
     log('ResNet-50 training (batch %d, 224 px, AMP Momentum): step %.3f ms, '
         '%.1f images/s, MFU %.4f, device busy %s, peak device memory %.2f '
         'GB, loss after %d steps %.6f, K6 launches %d; K6 vs plain step loss '

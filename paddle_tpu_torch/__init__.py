@@ -12,17 +12,23 @@ package:
     with fluid.serving.LMServer(model_dir) as srv:
         tokens = srv.generate([1, 2, 3], max_new_tokens=16)
 
+    lr = fluid.layers.noam_decay(d_model=2048, warmup_steps=4000)
     opt = fluid.contrib.mixed_precision.decorate(
-        fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9))
-    opt.minimize(avg_cost)               # append_backward + momentum ops
+        fluid.optimizer.Adam(learning_rate=lr, beta2=0.98, epsilon=1e-9))
+    opt.minimize(avg_cost)               # append_backward + adam ops
     pe = fluid.ParallelExecutor(use_cuda=True, loss_name=avg_cost.name)
     loss, = pe.run(fetch_list=[avg_cost.name])
 
 This package imports neither jax nor paddle_tpu. What is ported so far
-is the serving path and the training step of the transformer LM
-(py_reader feed, backward, Momentum/SGD under bf16 AMP, one device) and
-ResNet training through the fused conv + BN op (models.resnet, NCHW);
-ROADMAP.md lists the rest.
+is the serving path; the training step of the transformer LM (py_reader
+feed, backward, bf16 AMP, one device; the default TransformerConfig's
+tensor- and sequence-parallel layers in their one-device form); ResNet
+training through the fused conv + BN op (models.resnet, NCHW); and the
+training core a plain Fluid program reaches: the eleven optimizers (SGD,
+Momentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
+Ftrl, ProximalGD, ProximalAdagrad) on dense gradients, the six
+learning-rate schedules, the Variable operators, and the math, tensor,
+loss and dropout ops with their layers. ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint

@@ -16,6 +16,10 @@ Known flags:
   amp_bf16_param_grads   under AMP, round fp32 parameter grads to bf16
                          where one grad op is their sole producer
                          (registry.register_vjp_grad); off by default
+  bf16_momentum          Momentum creates its velocity accumulators in
+                         bf16 (optimizer.py); the update math runs in the
+                         parameter's dtype and stores back in bf16
+                         (ops/optimizer_ops.py); off by default
   serving_slots          KV-cache slot-pool size per DecodePredictor
   serving_prefill_batch  prompts per prefill call
   serving_max_queue      ServingEngine admission queue bound
@@ -32,6 +36,7 @@ _DEFAULTS = {
     'use_flash_attention': True,
     'use_pallas_fused_ops': False,
     'amp_bf16_param_grads': False,
+    'bf16_momentum': False,
     'serving_slots': 8,
     'serving_prefill_batch': 1,
     'serving_max_queue': 256,

@@ -269,8 +269,16 @@ class Block(object):
                 if isinstance(v, Parameter)]
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+
+    def _prepend_op(self, type, inputs=None, outputs=None, attrs=None):
+        """An op that runs first in the block (the step counter's
+        increment, layers.autoincreased_step_counter)."""
+        return self._insert_op(0, type, inputs, outputs, attrs)
+
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
         op = Operator(self, type, inputs, outputs, attrs)
-        self.ops.append(op)
+        self.ops.insert(index, op)
         from . import registry
         registry.infer_shape(op, self)
         return op

@@ -71,6 +71,15 @@ its design does about that.
   `_note_extra_flops` / `take_extra_flops`, :126-146). The tiles are
   the kernels': 128 x 128 for bf16 (the tensor-core K4a, K4b), 64 x 64
   for fp32. The plain versions note nothing.
+- `kernel_takes(q)` is the one route between kernels and plain
+  versions: the kernels take a CUDA q of a dtype in SUPPORTED_DTYPES
+  with a head dim in SUPPORTED_HEAD_DIMS (and BH within the grid);
+  every other shape, dtype and device goes to the plain versions, as
+  the JAX package sends what its kernel does not tile to the naive
+  contraction (`_supported`, :1009-1050). `FlashAttention.plain_cuda_calls`
+  counts the forwards that ran the plain versions on a CUDA tensor,
+  whatever the reason (the route or force_plain), so a run can require
+  that none did where the kernels should launch.
 - `flash_attention` is the public entry ([B, H, T, d] or [BH, T, d]).
 """
 from __future__ import annotations
@@ -90,7 +99,7 @@ __all__ = ['flash_attention', 'flash_attention_fwd',
            'flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
            'flash_attention_bwd_onepass', 'flash_attention_bwd_reference',
            'FlashAttention', 'bwd_arm', 'fwd_arm', 'take_extra_flops',
-           'SUPPORTED_HEAD_DIMS', 'SUPPORTED_DTYPES']
+           'kernel_takes', 'SUPPORTED_HEAD_DIMS', 'SUPPORTED_DTYPES']
 
 SUPPORTED_HEAD_DIMS = (64, 128)
 SUPPORTED_DTYPES = (torch.float32, torch.bfloat16)
@@ -457,14 +466,30 @@ def fwd_arm():
     return arm or 'online'
 
 
+def kernel_takes(q):
+    """True where the kernels take q [BH, T, d] (k and v are of its shape
+    and dtype): a CUDA tensor, a dtype in SUPPORTED_DTYPES, a head dim
+    in SUPPORTED_HEAD_DIMS and 1 <= BH <= the grid's limit."""
+    return (q.device.type == 'cuda' and q.dim() == 3
+            and q.dtype in SUPPORTED_DTYPES
+            and q.shape[-1] in SUPPORTED_HEAD_DIMS
+            and 1 <= q.shape[0] <= _MAX_GRID_Y and q.shape[1] >= 1)
+
+
 class FlashAttention(torch.autograd.Function):
     """o = softmax(q·kᵀ·scale [+ causal mask])·v over [BH, T, d], with
-    the flash kernels in both passes for CUDA tensors."""
+    the flash kernels in both passes where kernel_takes(q), the plain
+    versions elsewhere or under force_plain."""
+
+    plain_cuda_calls = 0
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, force_plain):
         twopass = fwd_arm() == 'twopass'
-        plain = force_plain or q.device.type == 'cpu'
+        plain = force_plain or not kernel_takes(q)
+        if plain and q.device.type == 'cuda':
+            with _count_lock:
+                FlashAttention.plain_cuda_calls += 1
         if twopass:
             stats, acc = ((flash_attention_stats_reference,
                            flash_attention_acc_reference) if plain else
@@ -506,10 +531,10 @@ class FlashAttention(torch.autograd.Function):
 
 def flash_attention(q, k, v, causal=True, sm_scale=None, force_plain=False):
     """softmax(q·kᵀ·scale [+ causal mask])·v over [B, H, T, d] or
-    [BH, T, d]; sm_scale defaults to d ** -0.5. Differentiable. CUDA
-    tensors run the kernels of the arms PADDLE_FLASH_FWD and
-    PADDLE_FLASH_BWD select (K1 and K2 by default), CPU tensors the
-    plain versions."""
+    [BH, T, d]; sm_scale defaults to d ** -0.5. Differentiable. Where
+    kernel_takes(q), the kernels of the arms PADDLE_FLASH_FWD and
+    PADDLE_FLASH_BWD select (K1 and K2 by default) run; CPU tensors and
+    shapes or dtypes the kernels do not take run the plain versions."""
     shape = q.shape
     T, d = shape[-2:]
     q, k, v = (t.reshape(-1, T, d).contiguous() for t in (q, k, v))

@@ -1,17 +1,30 @@
-"""NN layer functions (counterpart of paddle_tpu/layers/nn.py). Each
-layer appends ops to the current block; nothing executes here."""
+"""NN layer functions (counterpart of paddle_tpu/layers/nn.py, with the
+JAX package's signatures and defaults). Each layer appends ops to the
+current block; nothing executes here. conv2d_transpose, prelu, lrn,
+smooth_l1, huber_loss and the sequence, detection and sampling layers
+are not ported (ROADMAP.md, Queue 1)."""
 from __future__ import annotations
 
 import numpy as np
 
+from ..framework import Variable
 from ..layer_helper import LayerHelper
 from ..initializer import Constant, Normal
 
 __all__ = [
     'fc', 'embedding', 'conv2d', 'pool2d', 'batch_norm', 'conv_bn',
-    'layer_norm', 'softmax', 'matmul', 'elementwise_add', 'reshape',
-    'transpose', 'slice', 'causal_mask_bias', 'position_embedding', 'mean',
-    'square_error_cost', 'cross_entropy', 'accuracy', 'topk', 'relu',
+    'layer_norm', 'dropout', 'cross_entropy', 'square_error_cost',
+    'accuracy', 'softmax', 'softmax_with_cross_entropy',
+    'sigmoid_cross_entropy_with_logits', 'mean', 'mul', 'elementwise_add',
+    'elementwise_sub', 'elementwise_mul', 'elementwise_div',
+    'elementwise_max', 'elementwise_min', 'elementwise_pow', 'reduce_sum',
+    'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod', 'reshape',
+    'transpose', 'split', 'topk', 'matmul', 'scale', 'clip', 'clip_by_norm',
+    'one_hot', 'relu', 'log', 'l2_normalize', 'pad', 'label_smooth',
+    'flatten', 'stack', 'expand', 'squeeze', 'unsqueeze', 'gather',
+    'scatter', 'slice', 'shape', 'autoincreased_step_counter',
+    'logical_and', 'logical_or', 'logical_xor', 'logical_not',
+    'where_select', 'causal_mask_bias', 'position_embedding',
 ]
 
 
@@ -275,14 +288,6 @@ def matmul(x, y, transpose_x=False, transpose_y=False, alpha=1.0, name=None):
     return out
 
 
-def elementwise_add(x, y, axis=-1, act=None, name=None):
-    helper = LayerHelper('elementwise_add', act=act, name=name)
-    out = helper.create_variable_for_type_inference(dtype=x.dtype)
-    helper.append_op(type='elementwise_add', inputs={'X': [x], 'Y': [y]},
-                     outputs={'Out': [out]}, attrs={'axis': axis})
-    return helper.append_activation(out)
-
-
 def reshape(x, shape, actual_shape=None, act=None, inplace=False, name=None):
     helper = LayerHelper('reshape2', act=act, name=name)
     out = helper.create_variable_for_type_inference(dtype=x.dtype)
@@ -397,3 +402,328 @@ def cross_entropy(input, label, soft_label=False, ignore_index=-100):
                      attrs={'soft_label': soft_label,
                             'ignore_index': ignore_index})
     return out
+
+
+def dropout(x, dropout_prob, is_test=False, seed=None, name=None,
+            dropout_implementation='downgrade_in_infer'):
+    helper = LayerHelper('dropout', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    mask = helper.create_variable_for_type_inference(
+        dtype=x.dtype, stop_gradient=True)
+    helper.append_op(
+        type='dropout', inputs={'X': [x]},
+        outputs={'Out': [out], 'Mask': [mask]},
+        attrs={'dropout_prob': dropout_prob, 'is_test': is_test,
+               'seed': seed if seed is not None else 0,
+               'dropout_implementation': dropout_implementation})
+    return out
+
+
+def softmax_with_cross_entropy(logits, label, soft_label=False,
+                               ignore_index=-100, return_softmax=False):
+    helper = LayerHelper('softmax_with_cross_entropy')
+    softmax_out = helper.create_variable_for_type_inference(
+        dtype=logits.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=logits.dtype)
+    helper.append_op(type='softmax_with_cross_entropy',
+                     inputs={'Logits': [logits], 'Label': [label]},
+                     outputs={'Softmax': [softmax_out], 'Loss': [loss]},
+                     attrs={'soft_label': soft_label,
+                            'ignore_index': ignore_index})
+    if return_softmax:
+        return loss, softmax_out
+    return loss
+
+
+def sigmoid_cross_entropy_with_logits(x, label, ignore_index=-100, name=None):
+    helper = LayerHelper('sigmoid_cross_entropy_with_logits', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='sigmoid_cross_entropy_with_logits',
+                     inputs={'X': [x], 'Label': [label]},
+                     outputs={'Out': [out]},
+                     attrs={'ignore_index': ignore_index})
+    return out
+
+
+def mul(x, y, x_num_col_dims=1, y_num_col_dims=1, name=None):
+    helper = LayerHelper('mul', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='mul', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]},
+                     attrs={'x_num_col_dims': x_num_col_dims,
+                            'y_num_col_dims': y_num_col_dims})
+    return out
+
+
+def _elementwise(op_type):
+    def layer(x, y, axis=-1, act=None, name=None):
+        helper = LayerHelper(op_type, act=act, name=name)
+        out = helper.create_variable_for_type_inference(dtype=x.dtype)
+        helper.append_op(type=op_type, inputs={'X': [x], 'Y': [y]},
+                         outputs={'Out': [out]}, attrs={'axis': axis})
+        return helper.append_activation(out)
+    layer.__name__ = op_type
+    return layer
+
+
+elementwise_add = _elementwise('elementwise_add')
+elementwise_sub = _elementwise('elementwise_sub')
+elementwise_mul = _elementwise('elementwise_mul')
+elementwise_div = _elementwise('elementwise_div')
+elementwise_max = _elementwise('elementwise_max')
+elementwise_min = _elementwise('elementwise_min')
+elementwise_pow = _elementwise('elementwise_pow')
+
+
+def _reduce(op_type):
+    def layer(input, dim=None, keep_dim=False, name=None):
+        helper = LayerHelper(op_type, name=name)
+        out = helper.create_variable_for_type_inference(dtype=input.dtype)
+        if dim is not None and not isinstance(dim, (list, tuple)):
+            dim = [dim]
+        helper.append_op(
+            type=op_type, inputs={'X': [input]}, outputs={'Out': [out]},
+            attrs={'dim': dim if dim is not None else [0],
+                   'keep_dim': keep_dim, 'reduce_all': dim is None})
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+reduce_sum = _reduce('reduce_sum')
+reduce_mean = _reduce('reduce_mean')
+reduce_max = _reduce('reduce_max')
+reduce_min = _reduce('reduce_min')
+reduce_prod = _reduce('reduce_prod')
+
+
+def split(input, num_or_sections, dim=-1, name=None):
+    helper = LayerHelper('split', name=name)
+    input_shape = input.shape
+    dim = dim if dim >= 0 else dim + len(input_shape)
+    if isinstance(num_or_sections, int):
+        num = num_or_sections
+        sections = []
+    else:
+        num = len(num_or_sections)
+        sections = list(num_or_sections)
+    outs = [helper.create_variable_for_type_inference(dtype=input.dtype)
+            for _ in range(num)]
+    helper.append_op(type='split', inputs={'X': [input]},
+                     outputs={'Out': outs},
+                     attrs={'num': num if not sections else 0,
+                            'sections': sections, 'axis': dim})
+    return outs
+
+
+def scale(x, scale=1.0, bias=0.0, bias_after_scale=True, act=None, name=None):
+    helper = LayerHelper('scale', act=act, name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='scale', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'scale': float(scale), 'bias': float(bias),
+                            'bias_after_scale': bias_after_scale})
+    return helper.append_activation(out)
+
+
+def clip(x, min, max, name=None):
+    helper = LayerHelper('clip', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='clip', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'min': float(min), 'max': float(max)})
+    return out
+
+
+def clip_by_norm(x, max_norm, name=None):
+    helper = LayerHelper('clip_by_norm', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='clip_by_norm', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'max_norm': float(max_norm)})
+    return out
+
+
+def one_hot(input, depth):
+    helper = LayerHelper('one_hot')
+    out = helper.create_variable_for_type_inference(dtype='float32')
+    helper.append_op(type='one_hot', inputs={'X': [input]},
+                     outputs={'Out': [out]}, attrs={'depth': depth})
+    return out
+
+
+def log(x, name=None):
+    helper = LayerHelper('log', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='log', inputs={'X': [x]}, outputs={'Out': [out]})
+    return out
+
+
+def l2_normalize(x, axis, epsilon=1e-12, name=None):
+    """x / sqrt(sum(x^2, axis) + eps), composed from primitive ops
+    (the JAX package's composition)."""
+    sq = elementwise_mul(x, x)
+    summed = reduce_sum(sq, dim=axis, keep_dim=True)
+    from .ops import sqrt as _sqrt
+    norm = _sqrt(elementwise_add(summed, fill_const_like(summed, epsilon)))
+    return elementwise_div(x, norm, axis=0 if axis != 0 else 0)
+
+
+def fill_const_like(x, value):
+    from .tensor import fill_constant
+    return fill_constant(shape=list(x.shape), dtype=x.dtype, value=value)
+
+
+def pad(x, paddings, pad_value=0.0, name=None):
+    helper = LayerHelper('pad', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='pad', inputs={'X': [x]}, outputs={'Out': [out]},
+                     attrs={'paddings': list(paddings),
+                            'pad_value': float(pad_value)})
+    return out
+
+
+def label_smooth(label, prior_dist=None, epsilon=0.1, dtype='float32',
+                 name=None):
+    helper = LayerHelper('label_smooth', name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    inputs = {'X': [label]}
+    if prior_dist is not None:
+        inputs['PriorDist'] = [prior_dist]
+    helper.append_op(type='label_smooth', inputs=inputs,
+                     outputs={'Out': [out]}, attrs={'epsilon': float(epsilon)})
+    return out
+
+
+def flatten(x, axis=1, name=None):
+    helper = LayerHelper('flatten', name=name)
+    lead = int(np.prod(x.shape[:axis])) if axis > 0 else 1
+    rest = int(np.prod(x.shape[axis:]))
+    return reshape(x, [-1 if any(s < 0 for s in x.shape[:axis]) else lead,
+                       rest])
+
+
+def stack(x, axis=0):
+    helper = LayerHelper('stack')
+    if isinstance(x, Variable):
+        x = [x]
+    out = helper.create_variable_for_type_inference(dtype=x[0].dtype)
+    helper.append_op(type='stack', inputs={'X': x}, outputs={'Y': [out]},
+                     attrs={'axis': axis})
+    return out
+
+
+def expand(x, expand_times, name=None):
+    helper = LayerHelper('expand', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='expand', inputs={'X': [x]},
+                     outputs={'Out': [out]},
+                     attrs={'expand_times': list(expand_times)})
+    return out
+
+
+def squeeze(input, axes, name=None):
+    helper = LayerHelper('squeeze2', name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='squeeze2', inputs={'X': [input]},
+                     outputs={'Out': [out], 'XShape': [x_shape]},
+                     attrs={'axes': list(axes)})
+    return out
+
+
+def unsqueeze(input, axes, name=None):
+    helper = LayerHelper('unsqueeze2', name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    x_shape = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='unsqueeze2', inputs={'X': [input]},
+                     outputs={'Out': [out], 'XShape': [x_shape]},
+                     attrs={'axes': list(axes)})
+    return out
+
+
+def gather(input, index):
+    helper = LayerHelper('gather')
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='gather', inputs={'X': [input], 'Index': [index]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def scatter(input, index, updates, name=None, overwrite=True):
+    helper = LayerHelper('scatter', name=name)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='scatter',
+                     inputs={'X': [input], 'Ids': [index],
+                             'Updates': [updates]},
+                     outputs={'Out': [out]}, attrs={'overwrite': overwrite})
+    return out
+
+
+def shape(input):
+    helper = LayerHelper('shape')
+    out = helper.create_variable_for_type_inference(dtype='int64')
+    helper.append_op(type='shape', inputs={'Input': [input]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def binary_bool_op(op_type, x, y, out=None, name=None):
+    """Shared builder for bool-valued binary ops (comparisons + logicals)."""
+    helper = LayerHelper(op_type, name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype='bool')
+    helper.append_op(type=op_type, inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def _logical_binary(op_type):
+    def layer(x, y, out=None, name=None):
+        return binary_bool_op(op_type, x, y, out=out, name=name)
+    layer.__name__ = op_type
+    return layer
+
+
+logical_and = _logical_binary('logical_and')
+logical_or = _logical_binary('logical_or')
+logical_xor = _logical_binary('logical_xor')
+
+
+def logical_not(x, out=None, name=None):
+    helper = LayerHelper('logical_not', name=name)
+    if out is None:
+        out = helper.create_variable_for_type_inference(dtype='bool')
+    helper.append_op(type='logical_not', inputs={'X': [x]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def where_select(cond, x, y, name=None):
+    """Row-wise/elementwise select: out = cond ? x : y (broadcasting cond
+    over trailing dims)."""
+    helper = LayerHelper('where_select', name=name)
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='where', inputs={'Cond': [cond], 'X': [x],
+                                           'Y': [y]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def autoincreased_step_counter(counter_name=None, begin=1, step=1):
+    """The global step counter (int64 [1], persistable), incremented by
+    an increment op PREPENDED to the main program's global block, so it
+    runs first in every step; it starts at begin - 1. The learning-rate
+    schedules read it (learning_rate_scheduler.py)."""
+    helper = LayerHelper('global_step_counter')
+    counter_name = counter_name or '@STEP_COUNTER@'
+    counter = helper.create_or_get_global_variable(
+        name=counter_name, dtype='int64', shape=[1], persistable=True)
+    if not any(op.type == 'increment' and
+               op.output('Out') == [counter_name]
+               for op in helper.main_program.global_block().ops):
+        helper.set_variable_initializer(
+            counter, Constant(value=float(begin - 1)))
+        helper.main_program.global_block()._prepend_op(
+            type='increment', inputs={'X': [counter]},
+            outputs={'Out': [counter]}, attrs={'step': float(step)})
+        counter.stop_gradient = True
+    return counter

@@ -2,10 +2,11 @@
 prefill/decode programs (counterpart of paddle_tpu/models/transformer.py:
 26-188, 216-520).
 
-Only the single-device dense path is here: no tensor, sequence, expert
-or pipeline parallelism, no ring attention and no rematerialization.
-Programs built with the same config and names are the same Program text
-as the JAX package's, so weights carry across by name.
+One device: the tensor- and sequence-parallel annotations of the
+default config (use_tp, use_sp) are built and inert; expert and
+pipeline parallelism, ring attention and rematerialization are not
+ported. Programs built with the same config and names are the same
+Program text as the JAX package's, so weights carry across by name.
 
 Cached-attention mode: a loaded LM program is read by
 transpiler/decode_transpiler.py into a DecodeSpec (dims plus the exact
@@ -34,34 +35,61 @@ from .. import unique_name
 from ..framework import Program, default_main_program, program_guard
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
+from ..parallel.api import sharding_constraint
+from ..parallel.layers import (column_parallel_fc, row_parallel_fc,
+                               vocab_parallel_embedding,
+                               sequence_parallel_scope)
 
 
 class TransformerConfig(object):
+    """The JAX package's config with its defaults (use_tp=True,
+    use_sp=True): on one card the tensor- and sequence-parallel
+    annotations are inert (parallel/layers.py), so the default config
+    builds and trains the same Program as the JAX package. Expert and
+    pipeline parallelism and ring attention are not ported and raise;
+    rematerialization is not ported, and the config does not take it."""
+
     def __init__(self, vocab=1000, dim=64, heads=4, layers=2, ffn=128,
-                 max_len=64, use_tp=False, use_sp=False,
+                 max_len=64, moe_experts=0, use_tp=True, use_sp=True,
+                 pp_stages=0, ring_attention=False,
                  flash_attention=False):
-        if use_tp or use_sp:
-            raise NotImplementedError(
-                'tensor / sequence parallelism is not ported yet; build '
-                'with use_tp=False, use_sp=False')
+        for name, value in (
+                ('moe_experts', moe_experts), ('pp_stages', pp_stages),
+                ('ring_attention', ring_attention)):
+            if value:
+                raise NotImplementedError(
+                    'TransformerConfig(%s=%r) is not ported (ROADMAP.md, '
+                    'Queue 1 item 7)' % (name, value))
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.ffn, self.max_len = layers, ffn, max_len
+        self.moe_experts, self.pp_stages = moe_experts, pp_stages
         self.use_tp, self.use_sp = use_tp, use_sp
+        self.ring_attention = ring_attention
         # blockwise attention (kernels/flash_attention.py): no [T, T]
         # score tensor
         self.flash_attention = flash_attention
 
 
 def _attention(x, cfg, prefix):
+    """Multi-head self-attention; under use_tp qkv is column-parallel and
+    the output projection row-parallel, with the JAX package's
+    constraints."""
     D, H = cfg.dim, cfg.heads
     dh = D // H
     T = cfg.max_len
-    qkv = L.fc(input=x, size=3 * D, num_flatten_dims=2, name=prefix + '_qkv')
+    if cfg.use_tp:
+        qkv = column_parallel_fc(x, 3 * D, name=prefix + '_qkv')
+    else:
+        qkv = L.fc(input=x, size=3 * D, num_flatten_dims=2,
+                   name=prefix + '_qkv')
 
     def heads(sl_start, sl_end):
         part = L.slice(qkv, axes=[2], starts=[sl_start], ends=[sl_end])
         part = L.reshape(part, shape=[-1, T, H, dh])
-        return L.transpose(part, perm=[0, 2, 1, 3])        # [B, H, T, dh]
+        part = L.transpose(part, perm=[0, 2, 1, 3])        # [B, H, T, dh]
+        if cfg.use_tp:
+            part = sharding_constraint(part, ('dp', 'tp', None, None))
+        return part
 
     q, k, v = heads(0, D), heads(D, 2 * D), heads(2 * D, 3 * D)
     if cfg.flash_attention:
@@ -72,10 +100,16 @@ def _attention(x, cfg, prefix):
         ctx = L.matmul(probs, v)                           # [B, H, T, dh]
     ctx = L.transpose(ctx, perm=[0, 2, 1, 3])
     ctx = L.reshape(ctx, shape=[-1, T, D])
+    if cfg.use_tp:
+        ctx = sharding_constraint(ctx, ('dp', None, 'tp'))
+        return row_parallel_fc(ctx, D, name=prefix + '_proj')
     return L.fc(input=ctx, size=D, num_flatten_dims=2, name=prefix + '_proj')
 
 
 def _ffn(x, cfg, prefix):
+    if cfg.use_tp:
+        h = column_parallel_fc(x, cfg.ffn, act='gelu', name=prefix + '_up')
+        return row_parallel_fc(h, cfg.dim, name=prefix + '_down')
     h = L.fc(input=x, size=cfg.ffn, act='gelu', num_flatten_dims=2,
              name=prefix + '_up')
     return L.fc(input=h, size=cfg.dim, num_flatten_dims=2,
@@ -84,15 +118,22 @@ def _ffn(x, cfg, prefix):
 
 def _block(x, cfg, i):
     prefix = 'layer%d' % i
-    x = L.elementwise_add(x, _attention(L.layer_norm(x, begin_norm_axis=2),
-                                        cfg, prefix))
-    return L.elementwise_add(x, _ffn(L.layer_norm(x, begin_norm_axis=2),
-                                     cfg, prefix))
+    ln1 = L.layer_norm(x, begin_norm_axis=2)
+    if cfg.use_sp:
+        ln1 = sequence_parallel_scope(ln1)
+    x = L.elementwise_add(x, _attention(ln1, cfg, prefix))
+    ln2 = L.layer_norm(x, begin_norm_axis=2)
+    if cfg.use_sp:
+        ln2 = sequence_parallel_scope(ln2)
+    return L.elementwise_add(x, _ffn(ln2, cfg, prefix))
 
 
 def _trunk(tokens, cfg):
     """Embedding + positions + blocks + final norm."""
-    emb = L.embedding(tokens, size=[cfg.vocab, cfg.dim])
+    if cfg.use_tp:
+        emb = vocab_parallel_embedding(tokens, [cfg.vocab, cfg.dim])
+    else:
+        emb = L.embedding(tokens, size=[cfg.vocab, cfg.dim])
     x = L.elementwise_add(emb, L.position_embedding(emb, cfg.max_len))
     for i in range(cfg.layers):
         x = _block(x, cfg, i)

@@ -21,9 +21,11 @@ from ..registry import register_op, op_emitter, register_vjp_grad, amp_cast
 @op_emitter('flash_attention')
 def _flash_attention_emit(ctx, op):
     """Blockwise online-softmax attention (bf16 under AMP): the
-    hand-written CUDA kernels in both passes for CUDA tensors, their
-    plain versions for CPU tensors or with
-    FLAGS_use_flash_attention=False."""
+    hand-written CUDA kernels in both passes where fa.kernel_takes(q)
+    (a CUDA tensor, fp32 or bf16, head dim 64 or 128), their plain
+    versions for every other shape, dtype or device, or with
+    FLAGS_use_flash_attention=False; fa.FlashAttention.plain_cuda_calls
+    counts the plain forwards on a CUDA tensor."""
     q, k, v = amp_cast(ctx, ctx.get(op.single_input('Q')),
                        ctx.get(op.single_input('K')),
                        ctx.get(op.single_input('V')))

@@ -1,14 +1,22 @@
 """Math / elementwise / activation / reduction ops (counterpart of
 paddle_tpu/ops/math_ops.py: elementwise family :56-128, mul :135,
-matmul :198, unary activations :244-305, scale :308, clip :335,
-clip_by_norm :352, sum :380, mean :414, top_k :536, argmax :580).
+matmul :198, unary activations :244-306, scale :308, clip :335,
+clip_by_norm :352, sum :380, mean :414, reduce family :429-472,
+comparisons and logical ops :479-511, isfinite :514, top_k :536,
+argsort :560, argmax :580, cumsum :602, increment :617, where :646).
 
 Grads come from recorded forwards (registry.register_vjp_grad): each
 emitter is plain differentiable PyTorch, and autograd reduces a
 broadcast Y (the elementwise `axis` contract) back to Y's shape.
 Under AMP (ctx.amp) mul/matmul run in bf16 and an elementwise op
 between a bf16 activation and an fp32 parameter casts the parameter
-down, as the JAX package does; an fp32 non-parameter still promotes."""
+down, as the JAX package does; an fp32 non-parameter still promotes.
+
+Attr defaults are the JAX emitters', not those of the PyTorch function
+of the same name: hard_sigmoid's slope 0.2 and offset 0.5, leaky_relu's
+alpha 0.02, stanh's scale_a 2/3 and scale_b 1.7159, gelu's tanh form.
+elementwise_mod is floor-mod (jnp.mod, torch.remainder),
+elementwise_floordiv floors, and round rounds half to even."""
 from __future__ import annotations
 
 import numpy as np
@@ -67,11 +75,16 @@ def _elementwise_infer(op, block):
     out.lod_level = x.lod_level
 
 
-# add: the model; mul, div, max: gradient clipping and L1 decay
 _register_elementwise('add', torch.add)
+_register_elementwise('sub', torch.sub)
 _register_elementwise('mul', torch.mul)
 _register_elementwise('div', torch.div)
 _register_elementwise('max', torch.maximum)
+_register_elementwise('min', torch.minimum)
+_register_elementwise('pow', torch.pow)
+_register_elementwise('mod', torch.remainder)
+_register_elementwise('floordiv',
+                      lambda x, y: torch.div(x, y, rounding_mode='floor'))
 
 
 # -- mul: the fc matmul with dim flattening (x_num_col_dims) -----------------
@@ -149,20 +162,70 @@ register_vjp_grad('matmul', in_slots=('X', 'Y'))
 
 
 def _register_unary(op_type, fn):
+    """fn(x, op) -> Out; attrs are read from op with the JAX emitter's
+    defaults."""
     def emit(ctx, op):
-        ctx.set(op.single_output('Out'), fn(ctx.get(op.single_input('X'))))
+        ctx.set(op.single_output('Out'),
+                fn(ctx.get(op.single_input('X')), op))
 
     register_op(op_type, emit=emit, infer_shape=same_shape_infer())
     register_vjp_grad(op_type)
 
 
-# relu: the ResNet activations; sqrt: the global-norm clip; abs: L1 decay
-_register_unary('relu', torch.relu)
-_register_unary('sqrt', torch.sqrt)
-_register_unary('abs', torch.abs)
-# jax.nn.gelu defaults to the tanh approximation; the exact erf form
-# differs by ~1e-3
-_register_unary('gelu', lambda x: F.gelu(x, approximate='tanh'))
+def _where0(cond, x):
+    return torch.where(cond, x, torch.zeros_like(x))
+
+
+def _softshrink(x, op):
+    lam = op.attr('lambda', 0.5)
+    return torch.where(x > lam, x - lam, _where0(x < -lam, x + lam))
+
+
+_UNARY = {
+    'relu': lambda x, op: torch.relu(x),
+    'sigmoid': lambda x, op: torch.sigmoid(x),
+    'logsigmoid': lambda x, op: F.logsigmoid(x),
+    'tanh': lambda x, op: torch.tanh(x),
+    'tanh_shrink': lambda x, op: x - torch.tanh(x),
+    'exp': lambda x, op: torch.exp(x),
+    'log': lambda x, op: torch.log(x),
+    'square': lambda x, op: torch.square(x),
+    'sqrt': lambda x, op: torch.sqrt(x),
+    'rsqrt': lambda x, op: 1.0 / torch.sqrt(x),
+    'abs': lambda x, op: torch.abs(x),
+    'ceil': lambda x, op: torch.ceil(x),
+    'floor': lambda x, op: torch.floor(x),
+    'round': lambda x, op: torch.round(x),           # half to even
+    'reciprocal': lambda x, op: 1.0 / x,
+    'sin': lambda x, op: torch.sin(x),
+    'cos': lambda x, op: torch.cos(x),
+    'softplus': lambda x, op: torch.logaddexp(x, torch.zeros_like(x)),
+    'softsign': lambda x, op: x / (1 + torch.abs(x)),
+    'relu6': lambda x, op: torch.clamp(x, 0, 6),
+    'softshrink': _softshrink,
+    'leaky_relu': lambda x, op: torch.where(
+        x >= 0, x, x * op.attr('alpha', 0.02)),
+    'elu': lambda x, op: torch.where(
+        x >= 0, x, op.attr('alpha', 1.0) * (torch.exp(x) - 1)),
+    'pow': lambda x, op: torch.pow(x, op.attr('factor', 1.0)),
+    'hard_sigmoid': lambda x, op: torch.clamp(
+        x * op.attr('slope', 0.2) + op.attr('offset', 0.5), 0.0, 1.0),
+    'brelu': lambda x, op: torch.clamp(x, op.attr('t_min', 0.0),
+                                       op.attr('t_max', 24.0)),
+    'swish': lambda x, op: x * torch.sigmoid(op.attr('beta', 1.0) * x),
+    # jax.nn.gelu defaults to the tanh approximation; the exact erf form
+    # differs by ~1e-3
+    'gelu': lambda x, op: F.gelu(x, approximate='tanh'),
+    'stanh': lambda x, op: op.attr('scale_b', 1.7159) * torch.tanh(
+        op.attr('scale_a', 2.0 / 3.0) * x),
+    'thresholded_relu': lambda x, op: _where0(
+        x > op.attr('threshold', 1.0), x),
+    'hard_shrink': lambda x, op: _where0(
+        torch.abs(x) > op.attr('threshold', 0.5), x),
+    'logit': lambda x, op: torch.log(x / (1.0 - x)),
+}
+for _type, _fn in _UNARY.items():
+    _register_unary(_type, _fn)
 
 
 @op_emitter('scale')
@@ -246,6 +309,103 @@ register_op('mean', infer_shape=_scalar_infer)
 register_vjp_grad('mean')
 
 
+def _reduce_dims(op, ndim):
+    if op.attr('reduce_all', False):
+        return tuple(range(ndim))
+    return tuple(sorted(set(d % ndim for d in op.attr('dim', [0]))))
+
+
+def _prod(x, dim, keepdim):
+    for d in sorted(dim, reverse=True):
+        x = torch.prod(x, dim=d, keepdim=keepdim)
+    return x
+
+
+def _register_reduce(name, fn):
+    op_type = 'reduce_' + name
+
+    def emit(ctx, op):
+        x = ctx.get(op.single_input('X'))
+        ctx.set(op.single_output('Out'),
+                fn(x, dim=_reduce_dims(op, x.ndim),
+                   keepdim=op.attr('keep_dim', False)))
+
+    def infer(op, block):
+        x = block.var_recursive(op.single_input('X'))
+        if x.shape is None:
+            return
+        dims = set(_reduce_dims(op, len(x.shape)))
+        keep = op.attr('keep_dim', False)
+        out = block.var_recursive(op.single_output('Out'))
+        out.shape = tuple(1 if i in dims else s
+                          for i, s in enumerate(x.shape)
+                          if keep or i not in dims)
+        out.dtype = x.dtype
+
+    register_op(op_type, infer_shape=infer, emit=emit)
+    register_vjp_grad(op_type)
+
+
+_register_reduce('sum', torch.sum)
+_register_reduce('mean', torch.mean)
+_register_reduce('max', torch.amax)
+_register_reduce('min', torch.amin)
+_register_reduce('prod', _prod)
+
+
+# -- comparisons / logical ops (no grad) --------------------------------------
+
+def _register_compare(op_type, fn):
+    def emit(ctx, op):
+        ctx.set(op.single_output('Out'),
+                fn(ctx.get(op.single_input('X')),
+                   ctx.get(op.single_input('Y'))))
+
+    def infer(op, block):
+        x = block.var_recursive(op.single_input('X'))
+        out = block.var_recursive(op.single_output('Out'))
+        out.shape = x.shape
+        out.dtype = 'bool'
+
+    register_op(op_type, emit=emit, infer_shape=infer, no_grad=True)
+
+
+for _type, _fn in (('less_than', torch.lt), ('less_equal', torch.le),
+                   ('greater_than', torch.gt), ('greater_equal', torch.ge),
+                   ('equal', torch.eq), ('not_equal', torch.ne),
+                   ('logical_and', torch.logical_and),
+                   ('logical_or', torch.logical_or),
+                   ('logical_xor', torch.logical_xor)):
+    _register_compare(_type, _fn)
+
+
+@op_emitter('logical_not')
+def _logical_not_emit(ctx, op):
+    ctx.set(op.single_output('Out'),
+            torch.logical_not(ctx.get(op.single_input('X'))))
+
+
+register_op('logical_not', infer_shape=same_shape_infer(), no_grad=True)
+
+
+@op_emitter('isfinite')
+def _isfinite_emit(ctx, op):
+    """One bool: every element of every input is finite."""
+    finite = torch.ones((), dtype=torch.bool, device=ctx.device)
+    for n in op.input('X'):
+        finite = finite & torch.all(torch.isfinite(ctx.get(n)))
+    ctx.set(op.single_output('Out'), finite)
+
+
+def _isfinite_infer(op, block):
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape = ()
+    out.dtype = 'bool'
+
+
+register_op('isfinite', infer_shape=_isfinite_infer, no_grad=True)
+
+
 @op_emitter('squared_l2_norm')
 def _squared_l2_norm_emit(ctx, op):
     x = ctx.get(op.single_input('X'))
@@ -278,6 +438,26 @@ def _top_k_infer(op, block):
 register_op('top_k', infer_shape=_top_k_infer, no_grad=True)
 
 
+@op_emitter('argsort')
+def _argsort_emit(ctx, op):
+    """Ascending and stable, as jnp.argsort."""
+    values, indices = torch.sort(ctx.get(op.single_input('X')),
+                                 dim=op.attr('axis', -1), stable=True)
+    ctx.set(op.single_output('Out'), values)
+    ctx.set(op.single_output('Indices'), indices.to(torch.int64))
+
+
+def _argsort_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    for slot, dtype in (('Out', x.dtype), ('Indices', 'int64')):
+        v = block.var_recursive(op.single_output(slot))
+        v.shape = x.shape
+        v.dtype = dtype
+
+
+register_op('argsort', infer_shape=_argsort_infer, no_grad=True)
+
+
 @op_emitter('argmax')
 def _argmax_emit(ctx, op):
     x = ctx.get(op.single_input('X'))
@@ -296,3 +476,63 @@ def _argmax_infer(op, block):
 
 
 register_op('argmax', infer_shape=_argmax_infer)
+
+
+@op_emitter('cumsum')
+def _cumsum_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    axis = op.attr('axis', -1)
+    reverse = op.attr('reverse', False)
+    out = torch.cumsum(torch.flip(x, (axis,)) if reverse else x, dim=axis)
+    if reverse:
+        out = torch.flip(out, (axis,))
+    if op.attr('exclusive', False):
+        out = out - x
+    ctx.set(op.single_output('Out'), out)
+
+
+register_op('cumsum', infer_shape=same_shape_infer())
+register_vjp_grad('cumsum')
+
+
+@op_emitter('increment')
+def _increment_emit(ctx, op):
+    """X + step in X's dtype. On the step counter (Out = X, persistable)
+    the new value goes back to the Scope every run."""
+    x = ctx.get(op.single_input('X'))
+    step = op.attr('step', 1.0)
+    ctx.set(op.single_output('Out'),
+            x + (step if x.is_floating_point() else int(step)))
+
+
+register_op('increment', infer_shape=same_shape_infer(), no_grad=True)
+
+
+# -- where: elementwise / row-wise select -------------------------------------
+
+@op_emitter('where')
+def _where_emit(ctx, op):
+    cond = ctx.get(op.single_input('Cond'))
+    x = ctx.get(op.single_input('X'))
+    y = ctx.get(op.single_input('Y'))
+    # align cond's rank to x's: drop size-1 trailing axes ([B, 1] cond
+    # against [B] operands), then pad with size-1 trailing axes for a
+    # row-wise select
+    while cond.ndim > x.ndim and cond.shape[-1] == 1:
+        cond = cond.reshape(cond.shape[:-1])
+    if cond.ndim > x.ndim:
+        raise ValueError('where: cond rank %d not broadcastable to operand '
+                         'rank %d' % (cond.ndim, x.ndim))
+    cond = cond.reshape(tuple(cond.shape) + (1,) * (x.ndim - cond.ndim))
+    ctx.set(op.single_output('Out'), torch.where(cond.bool(), x, y))
+
+
+def _where_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape = x.shape
+    out.dtype = x.dtype
+
+
+register_op('where', infer_shape=_where_infer)
+register_vjp_grad('where', in_slots=('X', 'Y'), nondiff_slots=('Cond',))

@@ -1,12 +1,14 @@
 """NN ops (counterpart of paddle_tpu/ops/nn_ops.py: conv2d /
 depthwise_conv2d :28-92, pool2d :156-243, batch_norm :246-511,
-layer_norm :518, softmax :563, cross_entropy :577, square_error_cost
-:688, lookup_table :794 (grad :822-866), accuracy :878, causal_mask
-:965, position_embedding :982).
+layer_norm :518, softmax :563, cross_entropy :577,
+softmax_with_cross_entropy :607, sigmoid_cross_entropy_with_logits
+:643, square_error_cost :688, dropout :737-787, lookup_table :794 (grad
+:822-866), accuracy :878, causal_mask :965, position_embedding :982).
 
 Grads: recorded forwards (registry.register_vjp_grad), except
-lookup_table, whose grad op is a plain scatter-add (index_add_), and
-batch_norm, whose grad op is the JAX package's closed form.
+lookup_table, whose grad op is a plain scatter-add (index_add_),
+batch_norm, whose grad op is the JAX package's closed form, and
+dropout, whose grad op multiplies by the forward's Mask output.
 
 Convolutions go to F.conv2d (the JAX package leaves them to
 lax.conv, outside any Pallas kernel). On the card bf16 operands go to
@@ -387,6 +389,59 @@ register_vjp_grad('cross_entropy', in_slots=('X',), out_slots=('Y',),
                   nondiff_slots=('Label',))
 
 
+@op_emitter('softmax_with_cross_entropy')
+def _swce_emit(ctx, op):
+    logits = ctx.get(op.single_input('Logits'))
+    label = ctx.get(op.single_input('Label'))
+    # normalised in fp32 whatever the stream's dtype, as the JAX package
+    # does: a 32k-way logsumexp loses precision in bf16
+    log_sm = F.log_softmax(logits.float(), dim=-1)
+    ctx.set(op.single_output('Softmax'), torch.exp(log_sm).to(logits.dtype))
+    if op.attr('soft_label', False):
+        loss = -torch.sum(label * log_sm, dim=-1, keepdim=True)
+    else:
+        lbl = label.reshape(label.shape[:-1]) if label.shape[-1] == 1 \
+            else label
+        ignored = (lbl == op.attr('ignore_index', -100))[..., None]
+        picked = torch.gather(log_sm, -1,
+                              lbl.long().masked_fill(
+                                  ignored[..., 0], 0)[..., None])
+        loss = (-picked).masked_fill(ignored, 0.0)
+    ctx.set(op.single_output('Loss'), loss)
+
+
+def _swce_infer(op, block):
+    x = block.var_recursive(op.single_input('Logits'))
+    loss = block.var_recursive(op.single_output('Loss'))
+    loss.shape = tuple(x.shape[:-1]) + (1,)
+    loss.dtype = x.dtype
+    sm = block.var_recursive(op.single_output('Softmax'))
+    sm.shape = x.shape
+    sm.dtype = x.dtype
+
+
+register_op('softmax_with_cross_entropy', infer_shape=_swce_infer)
+register_vjp_grad('softmax_with_cross_entropy', in_slots=('Logits',),
+                  out_slots=('Loss',), nondiff_slots=('Label',))
+
+
+@op_emitter('sigmoid_cross_entropy_with_logits')
+def _sce_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    label = ctx.get(op.single_input('Label'))
+    # the numerically stable form of binary cross-entropy on logits
+    loss = torch.clamp(x, min=0) - x * label + \
+        torch.log1p(torch.exp(-torch.abs(x)))
+    ctx.set(op.single_output('Out'),
+            loss.masked_fill(label == op.attr('ignore_index', -100), 0.0))
+
+
+register_op('sigmoid_cross_entropy_with_logits',
+            infer_shape=same_shape_infer())
+register_vjp_grad('sigmoid_cross_entropy_with_logits', in_slots=('X',),
+                  nondiff_slots=('Label',))
+
+
 @op_emitter('square_error_cost')
 def _square_error_emit(ctx, op):
     x = ctx.get(op.single_input('X'))
@@ -396,6 +451,61 @@ def _square_error_emit(ctx, op):
 
 register_op('square_error_cost', infer_shape=same_shape_infer())
 register_vjp_grad('square_error_cost', in_slots=('X', 'Y'))
+
+
+# -- dropout: the mask comes from the executor's generator -------------------
+
+@op_emitter('dropout')
+def _dropout_emit(ctx, op):
+    """Out and Mask (grad = dOut·Mask). downgrade_in_infer: Out = x·keep
+    in training, x·(1 − p) in test; upscale_in_train: Out = x·keep/(1 −
+    p) in training, x in test, and the Mask carries the 1/(1 − p)."""
+    x = ctx.get(op.single_input('X'))
+    p = op.attr('dropout_prob', 0.5)
+    upscale = op.attr('dropout_implementation',
+                      'downgrade_in_infer') == 'upscale_in_train'
+    if op.attr('is_test', False) or ctx.is_test:
+        out = x if upscale else x * (1.0 - p)
+        mask = torch.ones_like(x)
+    else:
+        keep = torch.rand(x.shape, generator=ctx.generator(op),
+                          device=x.device) < (1.0 - p)
+        mask = keep.to(x.dtype)
+        kept = x
+        if upscale:
+            mask = mask / (1.0 - p)
+            kept = x / (1.0 - p)
+        out = torch.where(keep, kept, torch.zeros_like(x))
+    ctx.set(op.single_output('Out'), out)
+    if op.output('Mask'):
+        ctx.set(op.single_output('Mask'), mask)
+
+
+def _dropout_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    for slot in ('Out', 'Mask'):
+        if op.output(slot):
+            v = block.var_recursive(op.single_output(slot))
+            v.shape = x.shape
+            v.dtype = x.dtype
+
+
+def _dropout_grad(op, block):
+    return [dict(type='dropout_grad',
+                 inputs={'Mask': list(op.output('Mask')),
+                         'Out@GRAD': [grad_var_name(op.single_output('Out'))]},
+                 outputs={'X@GRAD': [grad_var_name(op.single_input('X'))]},
+                 attrs=dict(op.attrs))]
+
+
+@op_emitter('dropout_grad')
+def _dropout_grad_emit(ctx, op):
+    ctx.set(op.single_output('X@GRAD'),
+            ctx.get(op.single_input('Out@GRAD')) *
+            ctx.get(op.single_input('Mask')))
+
+
+register_op('dropout', infer_shape=_dropout_infer, grad=_dropout_grad)
 
 
 @op_emitter('lookup_table')

@@ -1,2 +1,4 @@
-"""Parallelism: only the single-device sharding_constraint is ported."""
-from .api import sharding_constraint  # noqa: F401
+"""Parallelism, one-device forms: the sharding annotations (api.py) and
+the tensor- and sequence-parallel layers (layers.py)."""
+from .api import shard_tensor, sharding_constraint  # noqa: F401
+from . import layers  # noqa: F401

@@ -4,7 +4,13 @@ lse, of K4b's o and of the backward's gradients, the kernel checks of
 phases b and b4 run on the plain versions, phase b6's checks of K6 run
 on stand-ins built from its plain version (one right, three wrong), the
 bracketed timing order, the device-time classes and the ptxas report,
-the FLOP count of the LM steps and the arm switch; and the script's
+the FLOP count of the LM steps and the arm switch; the checks of phases
+h and a1-a4 (the path check refuses one plain call on the card, a2
+refuses a rate 1e-4 off, a beta power one step behind and a wrong step
+counter, and its update measure forgives sign flips where the gradient
+is rounding noise but refuses a step 10% short, a3 refuses one update element 1e-3 off, a4's table covers every
+op type of the training core and refuses an output 1e-4 off, its
+dropout and truncated-normal checks pass on the CPU); and the script's
 refusal to run without a card."""
 import os
 import re
@@ -819,3 +825,160 @@ def test_refuses_to_run_without_a_card_or_the_package(tmp_path, alone):
                          text=True, timeout=300, cwd=cwd, env=env)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+# -- phases h and a1-a4: the training core ------------------------------------
+
+def test_path_check_refuses_one_plain_call_on_the_card(monkeypatch):
+    monkeypatch.setattr(fa.FlashAttention, 'plain_cuda_calls', 0)
+    chip_smoke.require_no_plain(fa, 't1')
+    monkeypatch.setattr(fa.FlashAttention, 'plain_cuda_calls', 1)
+    with pytest.raises(AssertionError, match='1 flash_attention calls ran '
+                                             'the plain version'):
+        chip_smoke.require_no_plain(fa, 't1')
+
+
+def _adam_records(steps=7):
+    """What a1 records when the schedule and the accumulators are right:
+    the rate in fp32 as the program computes it, the counter, and the
+    beta powers after the first two steps and the last one."""
+    recs = []
+    for s in range(1, steps + 1):
+        r = dict(step=s, counter=s,
+                 lr=float(np.float32(chip_smoke.noam_rate(s, 2048))))
+        if s <= 2 or s == steps:
+            for key in ('beta1', 'beta2'):
+                r[key] = np.full(300, chip_smoke.ADAM[key] ** (s + 1),
+                                 'float32')
+        recs.append(r)
+    return recs
+
+
+def test_schedule_check_refuses_a_rate_off_and_a_beta_power_behind():
+    """a2 holds a1's records: a rate 1e-4 off noam_decay, a Beta1Pow one
+    step behind, or a counter one off fails it."""
+    worst = chip_smoke.check_adam_records(_adam_records(), 2048)
+    assert worst['lr'] < 1e-7 and worst['beta'] < 1e-7
+    recs = _adam_records()
+    recs[4]['lr'] *= 1 + 1e-4
+    with pytest.raises(AssertionError, match='step 5: the rate'):
+        chip_smoke.check_adam_records(recs, 2048)
+    recs = _adam_records()
+    recs[-1]['beta1'][17] = chip_smoke.ADAM['beta1'] ** 7
+    with pytest.raises(AssertionError, match='beta1 power'):
+        chip_smoke.check_adam_records(recs, 2048)
+    recs = _adam_records()
+    recs[3]['counter'] = 3
+    with pytest.raises(AssertionError, match='counter reads 3'):
+        chip_smoke.check_adam_records(recs, 2048)
+
+
+def test_update_measure_forgives_flips_at_zero_and_refuses_a_wrong_step():
+    """a2's update measure: Adam's lr·sign(g) step flipped where the
+    gradient is rounding noise stays far inside TRAIN_UPDATE_TOL; the
+    step 10% short, left out or reversed does not."""
+    import torch
+    rng = np.random.RandomState(2)
+    g = torch.from_numpy(rng.randn(4096).astype('float32'))
+    g[:40] *= 1e-4                           # within rounding of zero
+    step = -1e-3 * torch.sign(g)
+    flipped = step.clone()
+    flipped[:40] *= -1
+    grads = {'w': g}
+
+    def measure(upd):
+        return chip_smoke._first_order_diffs({'w': upd}, {'w': step},
+                                             grads, ['w'])['w']
+    assert measure(step) == 0.0
+    assert measure(flipped) < 1e-3
+    assert measure(0.9 * step) > chip_smoke.TRAIN_UPDATE_TOL
+    assert measure(0 * step) == pytest.approx(1.0)
+    assert measure(-step) == pytest.approx(2.0)
+
+
+def test_noam_rate_is_the_schedule():
+    assert chip_smoke.noam_rate(1, 2048) == pytest.approx(
+        2048 ** -0.5 * 4000 ** -1.5)
+    assert chip_smoke.noam_rate(4000, 2048) == pytest.approx(
+        2048 ** -0.5 * 4000 ** -0.5)
+    assert chip_smoke.noam_rate(16000, 2048) == pytest.approx(
+        2048 ** -0.5 * 16000 ** -0.5)
+
+
+@pytest.mark.parametrize('op_index', [0, 2, 8])
+def test_update_check_refuses_one_element_1e3_off(op_index):
+    """a3's check on the CPU against itself passes; one element of
+    ParamOut 1e-3 off fails it."""
+    import paddle_tpu_torch as tfluid
+    rng = np.random.RandomState(0)
+    op_type, inputs, attrs, outs = chip_smoke.optimizer_cases(
+        rng, (40, 37))[op_index]
+    got = chip_smoke.run_update(tfluid, tfluid.CPUPlace(), op_type, inputs,
+                                attrs, outs)
+    want = chip_smoke.run_update(tfluid, tfluid.CPUPlace(), op_type, inputs,
+                                 attrs, outs)
+    assert chip_smoke.check_update(op_type, got, want) == 0.0
+    got[0] = got[0].clone()
+    got[0].view(-1)[5] += 1e-3
+    with pytest.raises(AssertionError, match='off the CPU one'):
+        chip_smoke.check_update(op_type, got, want)
+
+
+def test_optimizer_cases_are_the_eleven_updates():
+    cases = chip_smoke.optimizer_cases(np.random.RandomState(0), (3,))
+    assert [c[0] for c in cases] == [
+        'sgd', 'momentum', 'adam', 'adagrad', 'decayed_adagrad', 'adamax',
+        'adadelta', 'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad']
+
+
+def test_training_op_table_covers_every_new_op_type(monkeypatch):
+    """a4's table with its named exceptions covers every op type the
+    port registers beyond A4_EARLIER_OPS; a case run twice on the CPU
+    passes a4's check, and one fp32 output element 1e-4 off fails it.
+    The dropout and truncated-normal checks pass on the CPU."""
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch import registry
+    cases = chip_smoke.training_op_cases(np.random.RandomState(1))
+    assert chip_smoke.uncovered_op_types(cases) == []
+    assert set(chip_smoke.A4_EARLIER_OPS) <= set(registry._REGISTRY)
+    place = tfluid.CPUPlace()
+    for case in cases:
+        got = chip_smoke.run_op_case(tfluid, place, case)
+        want = chip_smoke.run_op_case(tfluid, place, case)
+        assert chip_smoke.check_op_outputs(case[0], got, want) == 0.0
+    case = [c for c in cases if c[0] == 'softplus'][0]
+    got = chip_smoke.run_op_case(tfluid, place, case)
+    want = {n: v.copy() for n, v in got.items()}
+    got['out'][1, 2] += 1e-4
+    with pytest.raises(AssertionError, match='out is'):
+        chip_smoke.check_op_outputs('softplus', got, want)
+    monkeypatch.setattr(chip_smoke, 'DROPOUT_N', 1 << 16)
+    shares = chip_smoke.check_dropout(place)
+    assert all(abs(v - 0.7) < 0.01 for v in shares.values())
+    chip_smoke.check_truncated_normal(place)
+
+
+def test_adam_model_is_the_flagship_with_the_parallel_layers():
+    """a1's LM is MODEL with TransformerConfig's own use_tp / use_sp (the
+    earlier phases keep them off), and a2's parameters are its qkv, down
+    and head weights under the parallel layers' names."""
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch.models import transformer
+    assert chip_smoke.MODEL['use_tp'] is False
+    cfg = TransformerConfig(**chip_smoke.ADAM_MODEL)
+    assert cfg.use_tp and cfg.use_sp and cfg.flash_attention
+    assert cfg.dim // cfg.heads == 128 and cfg.layers == 12
+    small = dict(chip_smoke.ADAM_MODEL, vocab=64, dim=32, heads=2, ffn=64,
+                 max_len=16)
+    prog, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.unique_name.guard(), tfluid.program_guard(prog, startup):
+        toks = tfluid.layers.data(name='t', shape=[1, 16, 1], dtype='int64',
+                                  append_batch_size=False)
+        trunk = transformer.language_model_trunk(
+            toks, transformer.TransformerConfig(**small))
+        tfluid.layers.fused_softmax_cross_entropy(trunk, toks, 64,
+                                                  name='lm_head')
+    params = {p.name: p for p in prog.global_block().all_parameters()}
+    for name in chip_smoke.ADAM_PARAMS_COMPARED:
+        assert len(params[name].shape) == 2, name
+    assert params['layer0_qkv.w_0'].shape == (3 * 32,)
