@@ -1,10 +1,19 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, the LM training step (under
-Momentum and under the Transformer recipe's Adam), the ResNet-50
-training step, the long-context LM training step and the exp/exp2 probe
-once on one CUDA card.
+Momentum and under the Transformer recipe's Adam, and with every block a
+rematerialization scope), the ResNet-50 training step, the long-context
+LM training step and the exp/exp2 probe once on one CUDA card.
 
     python3 chip_smoke.py
+
+Every program runs through the Executor's default path on the card: a
+prepared program's device segments run eagerly once, are captured as
+CUDA graphs on the second run and replayed from then on (the kernel
+wrappers' launch counts are added again at each replay, so every count
+below counts replays). The first step of t1, a1, r1 and l1 runs under
+no_host_sync (torch.cuda.set_sync_debug_mode('error')): a device op
+that synchronises with the host fails the run. r2 runs its steps op by
+op, since its stand-in kernel must run where Python runs.
 
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (a) build every CUDA kernel of the paths with nvcc (one process per
@@ -167,6 +176,39 @@ PADDLE_FLASH_BWD=onepass (restored after each phase):
   (p) the probe P (paddle_tpu_torch/tools/probe_exp2.py) against its
       plain version, then its exp and exp2 rates against the card's
       special-function-unit rate.
+The captured path itself:
+  (x1) after t4 (the Momentum step, under PADDLE_FLASH_BWD=split), after
+      a2 (the Adam step), after r4 (ResNet-50) and after l3 (the
+      long-context step, twopass/onepass): WARMUP_STEPS + X_TIMED_STEPS
+      steps op by op (use_program_cache=False) and the same steps
+      through a new ParallelExecutor (eager, captured, replayed) from one
+      saved state on the same batches: every loss within TRAIN_LOSS_TOL,
+      the updates within TRAIN_UPDATE_TOL (t2's measure; a2's
+      gradient-weighted one for Adam; r2's rule for ResNet-50), the
+      capture count equal to the program's device segments and
+      unchanged over the timed steps; whether the bits are equal, and
+      each way's ms per step, peak memory and (one more step under
+      torch.profiler) device ms and busy share, are logged;
+  (x2) after g: the prefill and decode programs' first runs under
+      no_host_sync; after two generations on a new decode predictor its
+      jit_cache_stats read 2 prepared programs, 2 captured segments and
+      2 misses (the JAX package's tests/test_serving.py:197-200); the
+      engine run op by op gives c3's streams exactly; its prefill and
+      decode step by the host clock beside f's, and their device time;
+  (x3) after x1 (Momentum), on a new ParallelExecutor: a replayed step
+      under PADDLE_FLASH_BWD=kvmajor launches K2 12 times and K3 never,
+      one under split K3a and K3b 12 times each and K2 never: two
+      prepared programs; a weight replaced with Scope.set_var after the
+      capture: the next replayed step's loss is the eager step's with
+      the new weight; a fetch returned with return_numpy=False is the
+      same after the next run;
+  (x4) before a1: the flagship LM (AMP Momentum, batch TRAIN_BATCH)
+      with TransformerConfig(remat=None, 'nothing', 'dots') from the
+      same weights and batches, captured: K1 12 launches a step without
+      remat and 24 with it, K2 12; losses within TRAIN_LOSS_TOL and the
+      updates within TRAIN_UPDATE_TOL of remat=None's; each policy's
+      step ms and peak device memory (logged, with whether 'nothing' <
+      'dots' < None holds).
 
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line among them), its
@@ -178,6 +220,7 @@ from __future__ import annotations
 import contextlib
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -232,6 +275,9 @@ RESNET_PARAMS_COMPARED = ('conv_bn_0.w_0', 'conv_bn_2.w_0', 'fc_0.w_0')
 # r2: the kernel step's update differences may reach this multiple of the
 # plain step's own spread when only its column sums change order (fp64)
 RESNET_SPREAD_FACTOR = 2.0
+# the ResNet step's peak device memory, captured graphs' pools included,
+# stays under this on the 80 GB card (PERF.md section 2)
+RESNET_PEAK_GB = 70.0
 K6_SOURCE = ('matmul_bn_stats', 'paddle_tpu/pallas/conv_bn.py:38',
              'paddle_tpu_torch/csrc/conv_bn.cu')
 # K6 vs its plain version: |y - y_ref| <= tol * max(1, |y_ref|) (bf16 y
@@ -648,19 +694,24 @@ def _log_rows(rows):
                _over_library(r.get('device_ms'), r['library_ms'])))
 
 
+# torch.profiler windows taken before a device time is given up as not
+# measured: the profiler has returned an empty window for a kernel that
+# a later window traced, twice in a row once
+DEVICE_MS_WINDOWS = 3
+
+
 def _device_ms(fn, iters=10):
     """Device time of one fn() from torch.profiler: the sum of its
     kernels' time over `iters` calls, per call (None if the profiler saw
-    no device events in two windows: it has once returned an empty
-    window for a kernel that the next window traced). Unlike CUDA events
-    around the calls, it leaves out the time the card waits for the
-    host."""
+    no device events in DEVICE_MS_WINDOWS windows).
+    Unlike CUDA events around the calls, it leaves out the time the card
+    waits for the host."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(2):
+    for _ in range(DEVICE_MS_WINDOWS):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
@@ -1204,8 +1255,8 @@ def check_solo(dec, prompts, streams):
     log('engine streams equal solo generate for %d requests' % len(prompts))
 
 
-@phase('f: prefill and decode-step timing')
-def time_path(dec, prompts, sync):
+def _time_path(dec, prompts, sync):
+    """(prefill ms, decode-step ms) of `dec` by the host clock."""
     p = prompts[-1]
     dec.prefill([p], [0])
     sync()
@@ -1232,6 +1283,9 @@ def time_path(dec, prompts, sync):
     return prefill_ms, step_ms
 
 
+time_path = phase('f: prefill and decode-step timing')(_time_path)
+
+
 def _device_us(evt):
     for attr in ('self_device_time_total', 'self_cuda_time_total'):
         if hasattr(evt, attr):
@@ -1239,11 +1293,10 @@ def _device_us(evt):
     return 0.0
 
 
-@phase('g: device time inside the prefill and the decode step')
-def profile_path(dec, prompts, times_ms, sync):
+def _profile_path(dec, prompts, times_ms, sync, label=''):
     """torch.profiler over a few calls of each: device time per call,
     its share of the unprofiled wall time (phase f), and the kernels
-    that take most of it."""
+    that take most of it. Returns {call: device ms}."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     p = prompts[-1]
@@ -1252,6 +1305,7 @@ def profile_path(dec, prompts, times_ms, sync):
     calls = {'prefill': lambda: dec.prefill([p], [0]),
              'decode_step': lambda: dec.decode_step(toks, poss)}
     n = 5
+    out = {}
     for name, fn in calls.items():
         fn()
         sync()
@@ -1266,19 +1320,25 @@ def profile_path(dec, prompts, times_ms, sync):
                   and _device_us(e) > 0]
         device_ms = sum(_device_us(e) for e in events) / n / 1e3
         if device_ms == 0:
-            log('%s: device time not measured (the profiler saw no device '
-                'events)' % name)
+            log('%s%s: device time not measured (the profiler saw no device '
+                'events)' % (label, name))
             continue
+        out[name] = device_ms
         top = sorted(events, key=_device_us, reverse=True)[:6]
         k1 = [e for e in events if _kernel_kind(e.key).startswith('K1 fp32')]
-        log('%s: device busy %.3f ms of %.3f ms wall (%.1f%%); K1 fp32 '
+        log('%s%s: device busy %.3f ms of %.3f ms wall (%.1f%%); K1 fp32 '
             '(flash_fwd_f32_kernel) %.4f ms in %d launches per call; top: %s'
-            % (name, device_ms, times_ms[name],
+            % (label, name, device_ms, times_ms[name],
                100.0 * device_ms / times_ms[name],
                sum(_device_us(e) for e in k1) / n / 1e3,
                sum(e.count for e in k1) // n,
                '; '.join('%s %.3f ms' % (e.key[:48], _device_us(e) / n / 1e3)
                          for e in top)))
+    return out
+
+
+profile_path = phase('g: device time inside the prefill and the decode '
+                     'step')(_profile_path)
 
 
 # -- (t1)-(t4): the training step --------------------------------------------
@@ -1351,8 +1411,35 @@ class Trainer(object):
         self.reader.decorate_tensor_provider(provider)
         self.reader.start()
 
-    def step(self):
-        return float(self.pe.run(fetch_list=[self.avg_cost.name])[0])
+    def step(self, sync_checked=False):
+        """One step through the ParallelExecutor. sync_checked: under
+        no_host_sync, so an op that synchronises with the host raises
+        (run it as the prepared program's first, eager run)."""
+        if not sync_checked:
+            return float(self.pe.run(fetch_list=[self.avg_cost.name])[0])
+        with no_host_sync():
+            out = self.pe.run(fetch_list=[self.avg_cost.name],
+                              return_numpy=False)
+        return float(out[0])
+
+    def drop_graphs(self):
+        """Close self.pe: its captured graphs, and the memory pool they
+        hold, go back to the card (the next step prepares anew)."""
+        self.pe.close()
+        free_device_memory()
+
+    def fresh_executor(self):
+        """A new ParallelExecutor in place of self.pe, which is closed
+        first: its jit_cache_stats() count from 0."""
+        self.drop_graphs()
+        self.pe = self.fluid.ParallelExecutor(
+            use_cuda=True, loss_name=self.avg_cost.name,
+            main_program=self.main, scope=self.scope)
+
+    def batch_of(self, rng):
+        toks = rng.randint(0, self.cfg.vocab, size=(
+            self.batch, self.cfg.max_len, 1)).astype('int64')
+        return [toks, np.roll(toks, -1, axis=1)]
 
     def snapshot(self):
         return {n: self.scope.find_var(n).clone() for n in self.persistables}
@@ -1388,9 +1475,11 @@ def train_steps(cfg, place, counters, sync):
                        n_params * 4 / 1e9, tr.batch, cfg.max_len,
                        time.perf_counter() - t0))
     tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(0)))
-    losses = [tr.step() for _ in range(WARMUP_STEPS)]
-    sync()
+    # the peak covers the eager warm-up, the capture and the replays
     torch.cuda.reset_peak_memory_stats()
+    losses = [tr.step(sync_checked=True)]
+    losses += [tr.step() for _ in range(WARMUP_STEPS - 1)]
+    sync()
     for c in counters.values():
         c.launches = 0
     fa.FlashAttention.plain_cuda_calls = 0
@@ -1400,7 +1489,7 @@ def train_steps(cfg, place, counters, sync):
     wall = time.perf_counter() - t0
     launches = {name: c.launches for name, c in counters.items()}
     require_no_plain(fa, 't1')
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = peak_memory_gb()
     step_ms = wall / TIMED_STEPS * 1e3
     log('losses: %s' % ', '.join('%.6f' % x for x in losses))
     log('timed steps: %d in %.3f s, %.3f ms per step; launches %s; peak '
@@ -1421,19 +1510,26 @@ def train_steps(cfg, place, counters, sync):
     if any(launches[n] for n in others):
         raise AssertionError('K3, K4 or K5 launched on the default arms: %r'
                              % launches)
+    check_replay_launches('t1', tr.step, sync)
     return tr, losses, step_ms, launches, peak_gb
 
 
-def _one_step(tr, saved, batch, params=PARAMS_COMPARED):
+def _one_step(tr, saved, batch, params=PARAMS_COMPARED, eager=None):
     """Restore the saved state, run one step on `batch`, and return the
-    loss and the updates of `params`."""
+    loss and the updates of `params`. eager: an Executor that runs the
+    step op by op (use_program_cache=False) in place of the
+    ParallelExecutor's captured path."""
     tr.restore(saved)
 
     def provider():
         while True:
             yield batch
     tr.feed(provider)
-    loss = tr.step()
+    if eager is None:
+        loss = tr.step()
+    else:
+        loss = float(eager.run(tr.main, fetch_list=[tr.avg_cost.name],
+                               scope=tr.scope, use_program_cache=False)[0])
     updates = {n: (tr.scope.find_var(n) - saved[n]).float()
                for n in params}
     return loss, updates
@@ -1561,17 +1657,19 @@ def profile_train(tr, step_ms, sync):
     return tok_s, mfu, device_ms, busy
 
 
-def _profile_steps(tr, step_ms, sync, label, steps=PROFILE_STEPS):
-    """torch.profiler over `steps` steps: device time per step, its share
-    of the unprofiled step, the top kernels and the time by kernel kind.
-    Returns (device ms, busy share or None)."""
+def _profile_steps(tr, step_ms, sync, label, steps=PROFILE_STEPS,
+                   step=None):
+    """torch.profiler over `steps` steps (tr.step, or `step`): device
+    time per step, its share of the unprofiled step, the top kernels and
+    the time by kernel kind. Returns (device ms, busy share or None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    step = step or tr.step
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
-            tr.step()
+            step()
         sync()
         prof_wall_ms = (time.perf_counter() - t0) / steps * 1e3
     events = [e for e in prof.key_averages()
@@ -1634,6 +1732,97 @@ def _kernel_kind(name):
         if any(m in low for m in marks):
             return kind
     return 'other'
+
+
+# torch.profiler's name of each kernel a wrapper launches once a call ->
+# its group in LAUNCH_GROUPS; the fp32 backward kernels are told apart
+# by their last template argument (csrc/flash_attention_bwd.cu)
+LAUNCH_SYMBOLS = {
+    'flash_fwd_wgmma_kernel': 'K1', 'flash_fwd_f32_kernel': 'K1',
+    'flash_fwd_stats_wgmma_kernel': 'K4a', 'flash_fwd_stats_kernel': 'K4a',
+    'flash_fwd_acc_wgmma_kernel': 'K4b', 'flash_fwd_acc_kernel': 'K4b',
+    'flash_bwd_wgmma_kernel': 'K2/K5', ('flash_bwd_kv_kernel', 'true'):
+    'K2/K5', ('flash_bwd_q_kernel', 'true'): 'K2/K5',
+    'flash_bwd_dq_wgmma_kernel': 'K3a', ('flash_bwd_q_kernel', 'false'):
+    'K3a', 'flash_bwd_dkv_wgmma_kernel': 'K3b',
+    ('flash_bwd_kv_kernel', 'false'): 'K3b',
+    'matmul_bn_stats_wgmma_kernel': 'K6', 'matmul_bn_stats_kernel': 'K6'}
+# group -> the wrappers whose launch counts it answers to
+LAUNCH_GROUPS = {'K1': ('flash_attention_fwd',),
+                 'K4a': ('flash_attention_fwd_stats',),
+                 'K4b': ('flash_attention_fwd_acc',),
+                 'K2/K5': ('flash_attention_bwd_kvmajor',
+                           'flash_attention_bwd_onepass'),
+                 'K3a': ('flash_attention_bwd_dq',),
+                 'K3b': ('flash_attention_bwd_dkv',),
+                 'K6': ('matmul_bn_stats_kernel',)}
+
+
+def launch_group(name):
+    """The LAUNCH_GROUPS group of a profiled kernel's name, or None."""
+    m = re.search(r'(\w+_kernel)(?:<([^()]*)>)?', name)
+    if m is None:
+        return None
+    args = (m.group(2) or '').split(',')
+    return LAUNCH_SYMBOLS.get(m.group(1)) or \
+        LAUNCH_SYMBOLS.get((m.group(1), args[-1].strip()))
+
+
+def wrapper_counts():
+    """{wrapper name: launches} of every wrapper in LAUNCH_GROUPS."""
+    from paddle_tpu_torch.kernels import conv_bn, flash_attention as fa
+    counts = {n: getattr(fa, n).launches for names in LAUNCH_GROUPS.values()
+              for n in names if n != 'matmul_bn_stats_kernel'}
+    counts['matmul_bn_stats_kernel'] = conv_bn.matmul_bn_stats_kernel.launches
+    return counts
+
+
+def launch_mismatch(seen, before, after):
+    """{group: (profiled launches, counted launches)} where the two
+    differ: `seen` {group: kernels the profiler saw}, the counts
+    wrapper_counts() read before and after the profiled calls."""
+    counted = {g: sum(after[n] - before[n] for n in names)
+               for g, names in LAUNCH_GROUPS.items()}
+    return {g: (seen.get(g, 0), counted[g]) for g in LAUNCH_GROUPS
+            if seen.get(g, 0) != counted[g]}
+
+
+def check_replay_launches(label, step, sync):
+    """One step() under torch.profiler (on a captured program: a replay,
+    whose counts are what its capture recorded): for every kernel group,
+    the kernels the profiler saw launch equal what the wrappers' counts
+    gained. Fails on a mismatch, or where no profiler window of
+    DEVICE_MS_WINDOWS shows a device event. Returns {group: launches}."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(DEVICE_MS_WINDOWS):
+        before = wrapper_counts()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            step()
+            sync()
+        after = wrapper_counts()
+        seen = {}
+        events = [e for e in prof.key_averages()
+                  if getattr(e, 'device_type', None) == DeviceType.CUDA]
+        for e in events:
+            group = launch_group(e.key)
+            if group:
+                seen[group] = seen.get(group, 0) + e.count
+        if not events:
+            continue
+        wrong = launch_mismatch(seen, before, after)
+        log('%s: one replayed step under the profiler: kernel launches %s, '
+            'the same as the wrappers\' counts: %s'
+            % (label, json.dumps(seen), not wrong))
+        if wrong:
+            raise AssertionError('%s: the profiler saw other launches than '
+                                 'the wrappers counted, {group: (profiled, '
+                                 'counted)}: %r' % (label, wrong))
+        return seen
+    raise AssertionError('%s: the profiler saw no device events in %d '
+                         'windows: the launch counts were not checked'
+                         % (label, DEVICE_MS_WINDOWS))
 
 
 # -- (h): shapes the flash kernels do not take --------------------------------
@@ -1774,17 +1963,23 @@ def adam_steps(cfg, place, counters, sync):
     records, losses = [], []
 
     def step(s):
-        loss, lr, counter = tr.pe.run(fetch_list=[
-            tr.avg_cost.name, tr.lr.name, '@STEP_COUNTER@'])
+        fetches = [tr.avg_cost.name, tr.lr.name, '@STEP_COUNTER@']
+        if s == 1:
+            with no_host_sync():
+                out = tr.pe.run(fetch_list=fetches, return_numpy=False)
+            loss, lr, counter = (t.cpu().numpy() for t in out)
+        else:
+            loss, lr, counter = tr.pe.run(fetch_list=fetches)
         losses.append(float(loss))
         records.append(dict(step=s, lr=float(np.asarray(lr).reshape(-1)[0]),
                             counter=int(np.asarray(counter).reshape(-1)[0])))
 
+    # the peak covers the eager warm-up, the capture and the replays
+    torch.cuda.reset_peak_memory_stats()
     for s in range(1, WARMUP_STEPS + 1):
         step(s)
         records[-1].update(_beta_pows(tr))
     sync()
-    torch.cuda.reset_peak_memory_stats()
     for c in counters.values():
         c.launches = 0
     fa.FlashAttention.plain_cuda_calls = 0
@@ -1796,7 +1991,7 @@ def adam_steps(cfg, place, counters, sync):
     launches = {name: c.launches for name, c in counters.items()}
     require_no_plain(fa, 'a1')
     records[-1].update(_beta_pows(tr))
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = peak_memory_gb()
     step_ms = wall / TIMED_STEPS * 1e3
     tokens = tr.batch * cfg.max_len
     fl = train_flops_per_token(cfg)
@@ -2033,6 +2228,8 @@ A4_HELD_ELSEWHERE = {
                'grad = dOut·Mask',
     'truncated_gaussian_random': 'a4\'s own check of the draw: the card\'s '
                                  'stream is not the CPU\'s',
+    'remat_block': 'x4: the flagship LM with each block a remat scope, '
+                   'against remat=None',
 }
 for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
@@ -2407,6 +2604,9 @@ class ResNetTrainer(Trainer):
                              if v.persistable and
                              self.scope.find_var(v.name) is not None]
 
+    def batch_of(self, rng):
+        return image_batch(rng, self.batch)
+
 
 def image_batch(rng, batch, device=None):
     """bench.py's batch (:160-164): uniform images and random labels from
@@ -2665,9 +2865,11 @@ def resnet_steps(place, sync):
         while True:
             yield batch
     tr.feed(provider)
-    losses = [tr.step() for _ in range(WARMUP_STEPS)]
-    sync()
+    # the peak covers the eager warm-up, the capture and the replays
     torch.cuda.reset_peak_memory_stats()
+    losses = [tr.step(sync_checked=True)]
+    losses += [tr.step() for _ in range(WARMUP_STEPS - 1)]
+    sync()
     k6.reset_launches()
     t0 = time.perf_counter()
     losses += [tr.step() for _ in range(TIMED_STEPS)]
@@ -2675,7 +2877,8 @@ def resnet_steps(place, sync):
     wall = time.perf_counter() - t0
     launches = k6.matmul_bn_stats_kernel.launches
     by_kernel = dict(k6.matmul_bn_stats_kernel.launches_by_kernel)
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = peak_memory_gb()
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
     step_ms = wall / TIMED_STEPS * 1e3
     moved = sum(not torch.equal(tr.scope.find_var(n), stats0[n])
                 for n in stats)
@@ -2700,6 +2903,11 @@ def resnet_steps(place, sync):
     if moved != len(stats) or not stats:
         raise AssertionError('BN running statistics moved for %d of %d vars'
                              % (moved, len(stats)))
+    if reserved_gb > RESNET_PEAK_GB:
+        raise AssertionError('peak reserved device memory %.2f GB over the '
+                             '%g GB the batch of %d is held to'
+                             % (reserved_gb, RESNET_PEAK_GB, RESNET_BATCH))
+    check_replay_launches('r1', tr.step, sync)
     return tr, path_shapes, losses, step_ms, launches, peak_gb
 
 
@@ -2729,6 +2937,8 @@ def check_resnet_plain_step(tr):
     from paddle_tpu_torch.kernels import conv_bn as k6
     batch = image_batch(np.random.RandomState(SEED + 2), RESNET_BATCH)
     saved = tr.snapshot()
+    # the captured step's pool and an eager step do not fit together
+    tr.drop_graphs()
     kernel_fn, plain_fn = k6.matmul_bn_stats_kernel, \
         k6.matmul_bn_stats_reference
     worst = {'y': 0.0, 'colsum': 0.0, 'colsumsq': 0.0, 'flips': 0.0}
@@ -2754,8 +2964,10 @@ def check_resnet_plain_step(tr):
     checked_kernel.launches = 0
     checked_kernel.launches_by_kernel = {}
     k6.matmul_bn_stats_kernel = checked_kernel
+    # op by op: a captured graph replays without calling the stand-in
+    eager = fluid.Executor(fluid.CUDAPlace(0))
     try:
-        kernel = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
+        kernel = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED, eager)
     finally:
         k6.matmul_bn_stats_kernel = kernel_fn
     log('K6 on the step\'s own 36 inputs vs its plain version: y max diff / '
@@ -2775,9 +2987,10 @@ def check_resnet_plain_step(tr):
     fluid.set_flags({'FLAGS_use_pallas_fused_ops': False})
     try:
         kernel_fn.launches = 0
-        plain = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
+        plain = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED, eager)
         k6.matmul_bn_stats_reference = _reordered_reference
-        reordered = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED)
+        reordered = _one_step(tr, saved, batch, RESNET_PARAMS_COMPARED,
+                              eager)
         if kernel_fn.launches:
             raise AssertionError('K6 launched %d times in the plain steps'
                                  % kernel_fn.launches)
@@ -2893,6 +3106,7 @@ def profile_resnet(tr, step_ms, sync):
         while True:
             yield batch
     tr.feed(provider)
+    tr.step()       # r2 left a new executor: the warm-up, then the capture
     tr.step()
     sync()
     device_ms, busy = _profile_steps(tr, step_ms, sync, 'ResNet-50 step')
@@ -2942,9 +3156,11 @@ def lc_steps(cfg, place, counters, sync):
            cfg.max_len, LC_HEAD_CHUNK, time.perf_counter() - t0))
     with flash_arms(*LC_ARMS):
         tr.feed(bench_provider(cfg, tr.batch, np.random.RandomState(0)))
-        losses = [tr.step() for _ in range(WARMUP_STEPS)]
-        sync()
+        # the peak covers the eager warm-up, the capture and the replays
         torch.cuda.reset_peak_memory_stats()
+        losses = [tr.step(sync_checked=True)]
+        losses += [tr.step() for _ in range(WARMUP_STEPS - 1)]
+        sync()
         for c in counters.values():
             c.launches = 0
         fa.FlashAttention.plain_cuda_calls = 0
@@ -2956,8 +3172,10 @@ def lc_steps(cfg, place, counters, sync):
         launches = {name: c.launches for name, c in counters.items()}
         require_no_plain(fa, 'l1')
         extra_per_step = fa.take_extra_flops() / TIMED_STEPS
+        check_replay_launches('l1', tr.step, sync)
+        fa.take_extra_flops()  # the checked step's notes
         tr.reader.reset()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    peak_gb = peak_memory_gb()
     step_ms = wall / TIMED_STEPS * 1e3
     log('losses: %s' % ', '.join('%.6f' % x for x in losses))
     log('timed steps: %d in %.3f s, %.3f ms per step; launches %s; peak '
@@ -3010,6 +3228,9 @@ def check_lc_arms(tr, counters, sync):
                                            1)).astype('int64')
     batch = [toks, np.roll(toks, -1, axis=1)]
     saved = tr.snapshot()
+    # the three steps below run eagerly (each its prepared program's
+    # first run), with no captured pool held
+    tr.drop_graphs()
     results, launches = {}, {}
     for label, arms, flash in (('twopass/onepass', LC_ARMS, True),
                                ('online/kvmajor', (None, None), True),
@@ -3045,7 +3266,11 @@ def check_lc_arms(tr, counters, sync):
         'default': _compare('twopass/onepass step vs online/kvmajor step',
                             results['twopass/onepass'],
                             results['online/kvmajor'], LC_PARAMS_COMPARED)}
-    # the two kernel arms' steps in turns: A, B, B, A
+    # each kernel arm's capture, then its replayed steps in turns: A, B,
+    # B, A
+    for arms in (LC_ARMS, (None, None)):
+        with flash_arms(*arms):
+            _timed_step(tr, saved, batch, sync)
     times = {'twopass/onepass': [], 'online/kvmajor': []}
     for label in ('twopass/onepass', 'online/kvmajor', 'online/kvmajor',
                   'twopass/onepass'):
@@ -3153,6 +3378,668 @@ def check_probe():
     return row, rows, ratio
 
 
+# -- (x1)-(x4): the Executor's captured path ----------------------------------
+
+# x1 and x4: WARMUP_STEPS steps (the eager warm-up, then the capture) and
+# then X_TIMED_STEPS replays
+X_TIMED_STEPS = 3
+# x4: the policies, and K1's launches per block and step under each
+REMAT_POLICIES = (None, 'nothing', 'dots')
+# x4's dropout check: the width of its input and the bound on dL/dw
+# against the forward's masked batch mean (fp32 sums in two orders)
+REMAT_DROPOUT_WIDTH = 1024
+REMAT_DROPOUT_RTOL = 1e-5
+# x4's seeded dropout: the op's own seed attr
+DROPOUT_OP_SEED = 7
+# x5: the reader's second, smaller batch on ResNet-50's captured executor
+RESNET_SECOND_BATCH = 64
+
+
+@contextlib.contextmanager
+def no_host_sync():
+    """torch.cuda.set_sync_debug_mode('error') for the body: any op that
+    synchronises with the host raises. A device op must not: it would
+    fail inside a CUDA graph capture."""
+    import torch
+    torch.cuda.set_sync_debug_mode('error')
+    try:
+        yield
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+
+
+def device_segments(program):
+    """The number of device segments the Executor splits the program's
+    global block into."""
+    from paddle_tpu_torch.executor import PreparedProgram, _DeviceSegment
+    return sum(isinstance(s, _DeviceSegment)
+               for s in PreparedProgram(program, 0, [], []).steps)
+
+
+def _x_run(tr, saved, batches, step, sync, names, label, stats=None):
+    """From the saved state, feed `batches` in turn and run WARMUP_STEPS +
+    X_TIMED_STEPS steps of step(), then one more under torch.profiler.
+    Returns the losses of the first ones, {name: value after them}, the
+    timed ms per step, the peak device memory, the profiled step's
+    device ms and busy share and, with `stats` (an executor's
+    jit_cache_stats), compiled_segments after the warm-up steps and at
+    the end of the timed ones."""
+    import itertools
+    import torch
+    tr.restore(saved)
+    tr.feed(lambda: itertools.cycle(batches))
+    sync()
+    torch.cuda.reset_peak_memory_stats()
+    losses = [step() for _ in range(WARMUP_STEPS)]
+    sync()
+    mid = stats()['compiled_segments'] if stats else None
+    t0 = time.perf_counter()
+    losses += [step() for _ in range(X_TIMED_STEPS)]
+    sync()
+    ms = (time.perf_counter() - t0) / X_TIMED_STEPS * 1e3
+    end = stats()['compiled_segments'] if stats else None
+    peak_gb = peak_memory_gb()
+    device_ms, busy = _profile_steps(tr, ms, sync, label, steps=1,
+                                     step=step)
+    tr.reader.reset()
+    state = {n: tr.scope.find_var(n).clone() for n in names}
+    return dict(losses=losses, state=state, ms=ms, compiled=(mid, end),
+                peak_gb=peak_gb, device_ms=device_ms, busy=busy)
+
+
+def _fmt_busy(busy):
+    return 'not measured' if busy is None else '%.1f%%' % (100 * busy)
+
+
+def check_x1(label, eager, captured, saved, params, n_segments, form,
+             grads=None, eager2=None):
+    """Hold the captured run to the eager one: every loss within
+    TRAIN_LOSS_TOL, each parameter's update (value after the steps minus
+    saved) within TRAIN_UPDATE_TOL by t2's measure ('max'), by a2's
+    gradient-weighted measure ('weighted', grads {param: g}) or by r2's
+    rule ('spread': within the larger of TRAIN_UPDATE_TOL and
+    RESNET_SPREAD_FACTOR x a second eager run's own spread); the
+    capture count equal to the program's device segments after the
+    warm-up steps and unchanged over the timed ones. Returns (worst loss
+    difference, {param: update measure}, bits equal)."""
+    loss_diff = max(abs(a - b) for a, b in zip(captured['losses'],
+                                               eager['losses']))
+
+    def updates(run):
+        return {n: (run['state'][n] - saved[n]).float() for n in params}
+    ue, uc = updates(eager), updates(captured)
+    if form == 'weighted':
+        got = _first_order_diffs(uc, ue, grads, params)
+        bound = {n: TRAIN_UPDATE_TOL for n in params}
+    else:
+        got = _update_diffs((0, uc), (0, ue), params)
+        bound = {n: TRAIN_UPDATE_TOL for n in params}
+        if form == 'spread':
+            spread = _update_diffs((0, updates(eager2)), (0, ue), params)
+            bound = {n: max(TRAIN_UPDATE_TOL,
+                            RESNET_SPREAD_FACTOR * spread[n])
+                     for n in params}
+    bits = (captured['losses'] == eager['losses'] and
+            all(bool((captured['state'][n] == eager['state'][n]).all())
+                for n in eager['state']))
+    log('%s captured vs eager: loss max |diff| %.3e (tol %g); updates: %s '
+        '(%s); the same bits: %s; captured segments %s after the warm-up '
+        'and the timed steps (the program has %d)'
+        % (label, loss_diff, TRAIN_LOSS_TOL,
+           ', '.join('%s %.3e (tol %.3e)' % (n, got[n], bound[n])
+                     for n in params),
+           {'max': 'max diff / max update', 'weighted':
+            'sum |g|·|diff| / sum |g|·|update|',
+            'spread': 'max diff / max update'}[form], bits,
+           captured['compiled'], n_segments))
+    if not all(np.isfinite(captured['losses'])) or \
+            loss_diff > TRAIN_LOSS_TOL or \
+            any(got[n] > bound[n] for n in params):
+        raise AssertionError('%s: the captured steps disagree with the eager '
+                             'steps beyond the stated tolerance' % label)
+    if captured['compiled'] != (n_segments, n_segments):
+        raise AssertionError('%s: %r segments captured after the warm-up and '
+                             'the timed steps, want %d both times'
+                             % (label, captured['compiled'], n_segments))
+    return loss_diff, got, bits
+
+
+@phase('x1: captured steps vs eager steps from one saved state')
+def check_captured_steps(tr, label, params, form, place, sync):
+    """WARMUP_STEPS + X_TIMED_STEPS steps of `tr`'s program through a new
+    ParallelExecutor (eager, captured, then replayed) and the same steps
+    op by op (use_program_cache=False), from one saved state on the same
+    batches: check_x1. Returns the comparison and both runs' ms per
+    timed step and busy shares."""
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(SEED + 11)
+    batches = [tr.batch_of(rng) for _ in range(WARMUP_STEPS +
+                                               X_TIMED_STEPS)]
+    saved = tr.snapshot()
+    names = list(params)
+    m1 = {}
+    if form == 'weighted':
+        for p in params:
+            m1[p], = [n for n in tr.persistables
+                      if n.startswith(p + '_moment1_')]
+        names += list(m1.values())
+    tr.fresh_executor()
+    captured = _x_run(tr, saved, batches, tr.step, sync, names,
+                      '%s captured' % label, tr.pe.jit_cache_stats)
+    # the captured run first, then its pool dropped: a ResNet-50 pool
+    # and an eager step do not fit together, and a pool captured after
+    # eager runs sits beside the blocks they leave pinned, near the
+    # card's size
+    tr.drop_graphs()
+    eager_exe = fluid.Executor(place)
+
+    def eager_step():
+        return float(eager_exe.run(tr.main, fetch_list=[tr.avg_cost.name],
+                                   scope=tr.scope,
+                                   use_program_cache=False)[0])
+    eager = _x_run(tr, saved, batches, eager_step, sync, names,
+                   '%s op by op' % label)
+    eager2 = (_x_run(tr, saved, batches, eager_step, sync, names,
+                     '%s op by op, again' % label)
+              if form == 'spread' else None)
+    tr.restore(saved)
+    grads = ({p: eager['state'][m1[p]].float() for p in params}
+             if form == 'weighted' else None)
+    out = check_x1(label, eager, captured, saved, params,
+                   device_segments(tr.main), form, grads, eager2)
+    log('%s: op by op %.3f ms a step (%d timed steps), device %s ms, busy '
+        '%s, peak %.2f GB; captured %.3f ms, device %s ms, busy %s, peak '
+        '%.2f GB' % (label, eager['ms'], X_TIMED_STEPS,
+                     _fmt_ms(eager['device_ms'] or None),
+                     _fmt_busy(eager['busy']), eager['peak_gb'],
+                     captured['ms'], _fmt_ms(captured['device_ms'] or None),
+                     _fmt_busy(captured['busy']), captured['peak_gb']))
+    return dict(loss_diff=out[0], updates=out[1], bits=out[2],
+                eager_ms=eager['ms'], captured_ms=captured['ms'],
+                eager_busy=eager['busy'], captured_busy=captured['busy'])
+
+
+def check_decode_stats(stats):
+    """After a generation loop on a new decode predictor: the JAX
+    package's own numbers (tests/test_serving.py:197-200)."""
+    want = {'prepared_programs': 2, 'compiled_segments': 2,
+            'segment_misses': 2}
+    got = {k: stats[k] for k in want}
+    if got != want or stats['segment_hits'] < 1:
+        raise AssertionError('decode predictor stats %r, want %r and '
+                             'segment_hits >= 1' % (stats, want))
+
+
+@phase('x2: the serving path captured vs eager; the decode predictor\'s '
+       'stats')
+def check_serving_capture(dec, prompts, streams, sync, captured_ms):
+    """The prefill and decode programs' first (eager) runs under
+    no_host_sync, on feeds already on the card; a generation loop's
+    jit_cache_stats (check_decode_stats); the engine's streams with
+    every op run eagerly equal c3's captured streams exactly; the eager
+    prefill and decode step by the host clock beside f's captured ones."""
+    import functools
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.executor import Executor
+    fresh = dec.clone()
+    dev = fresh.device
+    tokens, pos, slots = fresh._pad_prompts([prompts[0]], [0])
+    feeds = [({'prefill_tokens': torch.from_numpy(tokens).to(dev),
+               'prefill_pos': torch.from_numpy(pos).to(dev),
+               'prefill_slots': torch.from_numpy(slots).to(dev)},
+              fresh._pair.prefill_program, fresh._pair.prefill_fetches),
+             ({'decode_tokens': torch.ones((fresh.slots, 1, 1),
+                                           dtype=torch.int64, device=dev),
+               'decode_step_idx': torch.full((fresh.slots,), len(prompts[0]),
+                                             dtype=torch.int32, device=dev)},
+              fresh._pair.decode_program, fresh._pair.decode_fetches)]
+    sync()
+    with no_host_sync():
+        for feed, program, fetches in feeds:
+            fresh._exe.run(program, feed=feed, fetch_list=fetches,
+                           scope=fresh._scope, return_numpy=False)
+    del fresh
+    gen = dec.clone()
+    for p in prompts[:2]:
+        gen.generate(p, 8)
+    stats = gen.jit_cache_stats()
+    log('decode predictor after two generations: %s' % json.dumps(stats))
+    check_decode_stats(stats)
+    del gen
+    eager = dec.clone()
+    eager._exe.run = functools.partial(Executor.run, eager._exe,
+                                       use_program_cache=False)
+    with fluid.serving.LMServer(eager) as srv:
+        handles = [srv.submit(p, max_new_tokens=NEW_TOKENS)
+                   for p in prompts]
+        eager_streams = [srv.result(h, timeout=600) for h in handles]
+    differ = [i for i, (a, b) in enumerate(zip(streams, eager_streams))
+              if a != b]
+    log('engine streams captured vs eager: %d of %d equal'
+        % (len(prompts) - len(differ), len(prompts)))
+    if differ:
+        raise AssertionError('requests %s: the captured engine\'s stream '
+                             'differs from the eager engine\'s' % differ)
+    prefill_ms, step_ms = _time_path(eager, prompts, sync)
+    _profile_path(eager, prompts, {'prefill': prefill_ms,
+                                   'decode_step': step_ms}, sync,
+                  'op by op ')
+    log('op by op: prefill %.3f ms, decode step %.3f ms; captured (f): '
+        'prefill %.3f ms, decode step %.3f ms'
+        % (prefill_ms, step_ms, captured_ms['prefill'],
+           captured_ms['decode_step']))
+    return dict(stats=stats, eager_prefill_ms=prefill_ms,
+                eager_step_ms=step_ms)
+
+
+def check_arm_launches(kvmajor, split, layers):
+    """One step each: K2 `layers` times under kvmajor and never under
+    split, K3a and K3b `layers` times each under split and never under
+    kvmajor."""
+    k2, k3a, k3b = (KERNELS[k][0] for k in ('k2', 'k3a', 'k3b'))
+    want_kv = {k2: layers, k3a: 0, k3b: 0}
+    want_split = {k2: 0, k3a: layers, k3b: layers}
+    if {k: kvmajor[k] for k in want_kv} != want_kv or \
+            {k: split[k] for k in want_split} != want_split:
+        raise AssertionError('arm launches kvmajor %r, split %r; want %r and '
+                             '%r' % (kvmajor, split, want_kv, want_split))
+
+
+def check_replaced_weight(captured, eager, before):
+    """The loss of the captured step after Scope.set_var replaced a
+    weight is the eager step's with the new weight (within
+    TRAIN_LOSS_TOL) and nearer to it than to the step with the old
+    weight: the graph read the new one."""
+    if not abs(captured - eager) <= TRAIN_LOSS_TOL or \
+            not abs(captured - eager) < abs(captured - before):
+        raise AssertionError('after Scope.set_var: captured loss %.6f, eager '
+                             'with the new weight %.6f, with the old %.6f'
+                             % (captured, eager, before))
+
+
+@phase('x3: the cache key (the flash arms), a weight replaced after the '
+       'capture, a fetch kept')
+def check_cache_key(tr, counters, place, sync):
+    """On a new ParallelExecutor over the flagship LM's program: a step
+    under PADDLE_FLASH_BWD=kvmajor and then under split, each the third
+    run of its prepared program (replayed): K2 in the first, K3a + K3b in
+    the second, two prepared programs (check_arm_launches). Then a
+    weight replaced with Scope.set_var after the capture: the next
+    (replayed) step equals an eager step with the new weight
+    (check_replaced_weight). Then a fetch returned with
+    return_numpy=False is the same after the next run."""
+    import torch
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(SEED + 12)
+    batch = tr.batch_of(rng)
+    saved = tr.snapshot()
+    pe = fluid.ParallelExecutor(use_cuda=True, loss_name=tr.avg_cost.name,
+                                main_program=tr.main, scope=tr.scope)
+    loss_name = tr.avg_cost.name
+
+    def replayed_step(fetches=(loss_name,), return_numpy=True):
+        out = None
+        for _ in range(3):         # warm-up, capture, replay
+            tr.restore(saved)
+            for c in counters.values():
+                c.launches = 0
+            out = pe.run(fetch_list=list(fetches),
+                         return_numpy=return_numpy)
+        return out
+
+    def provider():
+        while True:
+            yield batch
+    tr.feed(provider)
+    launches = {}
+    for arm in ('kvmajor', 'split'):
+        with flash_arms(None, arm):
+            replayed_step()
+            launches[arm] = {n: c.launches for n, c in counters.items()}
+    log('one replayed step under kvmajor: %s; under split: %s; prepared '
+        'programs %d' % (json.dumps(launches['kvmajor']),
+                         json.dumps(launches['split']),
+                         pe.jit_cache_stats()['prepared_programs']))
+    check_arm_launches(launches['kvmajor'], launches['split'],
+                       tr.cfg.layers)
+    if pe.jit_cache_stats()['prepared_programs'] != 2:
+        raise AssertionError('want a prepared program for each arm, got %r'
+                             % pe.jit_cache_stats())
+    name = PARAMS_COMPARED[0]
+    with flash_arms(None, 'split'):
+        before = float(replayed_step()[0])
+        new_w = saved[name] * 0.5
+        tr.restore(saved)
+        tr.scope.set_var(name, new_w.clone())
+        captured = float(pe.run(fetch_list=[loss_name])[0])
+        tr.restore(saved)
+        tr.scope.set_var(name, new_w.clone())
+        eager = float(fluid.Executor(place).run(
+            tr.main, fetch_list=[loss_name], scope=tr.scope,
+            use_program_cache=False)[0])
+    log('after Scope.set_var(%r, w / 2): captured step loss %.6f, eager '
+        'step %.6f, the step with the old weight %.6f'
+        % (name, captured, eager, before))
+    check_replaced_weight(captured, eager, before)
+    tr.scope.set_var(name, saved[name].clone())
+    out = replayed_step((loss_name, name), return_numpy=False)
+    kept = [t.clone() for t in out]
+    pe.run(fetch_list=[loss_name, name], return_numpy=False)
+    sync()
+    if not all(torch.equal(a, b) for a, b in zip(out, kept)):
+        raise AssertionError('a fetch returned with return_numpy=False '
+                             'changed in the next run')
+    log('fetches returned with return_numpy=False (the loss and %s) are '
+        'unchanged by the next run' % name)
+    tr.reader.reset()
+    tr.restore(saved)
+    return launches
+
+
+def check_remat(runs, layers):
+    """x4's bounds: under each policy K1 launches layers (None) or 2 x
+    layers (a remat scope runs its forward again in the backward) per
+    step and K2 layers; 'nothing' and 'dots' hold every loss within
+    TRAIN_LOSS_TOL and each compared update within TRAIN_UPDATE_TOL (t2's
+    measure) of remat=None's."""
+    k1, k2 = KERNELS['fwd'][0], KERNELS['k2'][0]
+    base = runs[None]
+    for policy, run in runs.items():
+        want = layers * (1 if policy is None else 2)
+        if run['per_step'][k1] != want or run['per_step'][k2] != layers:
+            raise AssertionError('remat=%r: K1 %r and K2 %r launches per '
+                                 'step, want %d and %d'
+                                 % (policy, run['per_step'][k1],
+                                    run['per_step'][k2], want, layers))
+        if policy is None:
+            continue
+        loss_diff = max(abs(a - b) for a, b in zip(run['losses'],
+                                                   base['losses']))
+        upd = _update_diffs((0, run['updates']), (0, base['updates']),
+                            PARAMS_COMPARED)
+        run['loss_diff'], run['update_diffs'] = loss_diff, upd
+        if not all(np.isfinite(run['losses'])) or \
+                loss_diff > TRAIN_LOSS_TOL or \
+                any(v > TRAIN_UPDATE_TOL for v in upd.values()):
+            raise AssertionError('remat=%r vs None: loss |diff| %.3e, '
+                                 'updates %r beyond the stated tolerance'
+                                 % (policy, loss_diff, upd))
+
+
+def remat_dropout_program(fluid):
+    """test_recompute.py:52's program: a dropout and a 1-output fc in
+    one remat scope, SGD(0): (the program, its startup, the dropout's
+    output h, the fc's weight grad name)."""
+    prog, startup = fluid.Program(), fluid.Program()
+    prog.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        x = fluid.layers.data(name='x', shape=[REMAT_DROPOUT_WIDTH],
+                              dtype='float32')
+
+        def body(xv):
+            h = fluid.layers.dropout(xv, dropout_prob=0.5)
+            return [h, fluid.layers.fc(input=h, size=1, name='w',
+                                       bias_attr=False)]
+        h, y = fluid.layers.recompute(body, x)
+        fluid.optimizer.SGD(0.0).minimize(fluid.layers.mean(y))
+    return prog, startup, h, 'w.w_0@GRAD'
+
+
+def check_remat_dropout(fluid, place, runs=4):
+    """remat_dropout_program run `runs` times through one executor (on
+    the card: the warm-up, the capture, then replays): in every run dL/dw,
+    which the recompute computes, is the batch mean of h, which the
+    forward drew (the same mask in both, within REMAT_DROPOUT_RTOL), and
+    the mask is new in every run. Returns the masks' kept shares."""
+    prog, startup, h, grad = remat_dropout_program(fluid)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    xv = np.random.RandomState(SEED).rand(
+        64, REMAT_DROPOUT_WIDTH).astype('float32') + 0.5
+    shares, masks = [], []
+    for _ in range(runs):
+        hv, g = exe.run(prog, feed={'x': xv}, fetch_list=[h, grad],
+                        scope=scope)
+        np.testing.assert_allclose(g.ravel(), hv.mean(0),
+                                   rtol=REMAT_DROPOUT_RTOL)
+        masks.append(hv != 0)
+        shares.append(float(masks[-1].mean()))
+    if not all(0.4 < k < 0.6 for k in shares) or \
+            any((a == b).all() for a, b in zip(masks, masks[1:])):
+        raise AssertionError('dropout in the remat scope: kept shares %r, '
+                             'or a mask repeated between runs' % shares)
+    return shares, exe.jit_cache_stats()
+
+
+def check_seeded_dropout(fluid, place, runs=4):
+    """A dropout with its own seed attr (DROPOUT_OP_SEED) run `runs`
+    times through one executor (on the card: the warm-up, the capture,
+    then replays) and once op by op: the seed promises the same mask
+    every time. Returns the kept share and the executor's stats."""
+    prog = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog,
+                                                        fluid.Program()):
+        x = fluid.layers.data(name='x', shape=[REMAT_DROPOUT_WIDTH],
+                              dtype='float32')
+        h = fluid.layers.dropout(x, dropout_prob=0.5, seed=DROPOUT_OP_SEED)
+    feed = {'x': np.ones((64, REMAT_DROPOUT_WIDTH), 'float32')}
+    exe = fluid.Executor(place)
+    masks = [exe.run(prog, feed=feed, fetch_list=[h])[0] != 0
+             for _ in range(runs)]
+    masks.append(fluid.Executor(place).run(
+        prog, feed=feed, fetch_list=[h], use_program_cache=False)[0] != 0)
+    share = float(masks[0].mean())
+    if not 0.4 < share < 0.6 or \
+            any(not np.array_equal(m, masks[0]) for m in masks[1:]):
+        raise AssertionError('a dropout with seed %d: kept share %.4f, or '
+                             'not the same mask in each of %d runs and op '
+                             'by op' % (DROPOUT_OP_SEED, share, runs))
+    return share, exe.jit_cache_stats()
+
+
+@phase('x4: the flagship LM with remat None, nothing and dots (captured)')
+def remat_steps(place, counters, sync):
+    """The flagship LM (AMP Momentum, batch TRAIN_BATCH, py_reader) built
+    with TransformerConfig(remat=policy) for each of REMAT_POLICIES, from
+    the same initial weights and batches: WARMUP_STEPS + X_TIMED_STEPS
+    steps each through ParallelExecutor (captured), the launches per
+    timed step, the timed ms per step and the peak device memory of all
+    of its steps; check_remat. Each trainer is freed before the next."""
+    import gc
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    shares, stats = check_remat_dropout(fluid, place)
+    log('dropout in a remat scope, 4 runs (eager, captured, replayed): the '
+        'recompute\'s grad is the forward\'s masked batch mean in every '
+        'run (rtol %g), kept shares %s, executor stats %s'
+        % (REMAT_DROPOUT_RTOL, ', '.join('%.4f' % k for k in shares),
+           json.dumps(stats)))
+    if stats['compiled_segments'] != 1:
+        raise AssertionError('the dropout program was not captured: %r'
+                             % stats)
+    share, stats = check_seeded_dropout(fluid, place)
+    log('dropout with seed %d, 4 runs (eager, captured, replayed) and op '
+        'by op: the same mask each time, kept share %.4f, executor stats %s'
+        % (DROPOUT_OP_SEED, share, json.dumps(stats)))
+    if stats['compiled_segments'] != 1:
+        raise AssertionError('the seeded dropout program was not captured: '
+                             '%r' % stats)
+    rng = np.random.RandomState(SEED + 13)
+    runs, init, batches = {}, None, None
+    for policy in REMAT_POLICIES:
+        tr = Trainer(TransformerConfig(remat=policy, **MODEL), place,
+                     TRAIN_BATCH, HEAD_CHUNK, 'remat_reader')
+        params = [v.name for v in tr.main.list_vars()
+                  if getattr(v, 'trainable', False) and v.persistable]
+        if init is None:
+            init = {n: tr.scope.find_var(n).clone() for n in params}
+            batches = [tr.batch_of(rng) for _ in range(WARMUP_STEPS +
+                                                       X_TIMED_STEPS)]
+        for n in params:
+            tr.scope.find_var(n).copy_(init[n])
+        saved = {n: init[n] for n in PARAMS_COMPARED}
+        tr.feed(lambda: iter(batches))
+        gc.collect()
+        torch.cuda.empty_cache()
+        sync()
+        torch.cuda.reset_peak_memory_stats()
+        losses = [tr.step() for _ in range(WARMUP_STEPS)]
+        sync()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        losses += [tr.step() for _ in range(X_TIMED_STEPS)]
+        sync()
+        ms = (time.perf_counter() - t0) / X_TIMED_STEPS * 1e3
+        peak_gb = peak_memory_gb()
+        per_step = {n: c.launches / X_TIMED_STEPS
+                    for n, c in counters.items()}
+        updates = {n: (tr.scope.find_var(n) - saved[n]).float()
+                   for n in PARAMS_COMPARED}
+        n_remat = sum(op.type == 'remat_block'
+                      for op in tr.main.global_block().ops)
+        log('remat=%r: %d remat scopes, %d ops; losses %s; %.3f ms a step, '
+            'peak device memory %.2f GB; launches per step %s'
+            % (policy, n_remat, len(tr.main.global_block().ops),
+               ', '.join('%.6f' % x for x in losses), ms, peak_gb,
+               json.dumps(per_step)))
+        runs[policy] = dict(losses=losses, ms=ms, peak_gb=peak_gb,
+                            per_step=per_step, updates=updates)
+        tr.reader.reset()
+        del tr, saved
+        gc.collect()
+        torch.cuda.empty_cache()
+    check_remat(runs, MODEL['layers'])
+    for policy in REMAT_POLICIES[1:]:
+        log('remat=%r vs None: loss max |diff| %.3e (tol %g), updates %s '
+            '(tol %g)' % (policy, runs[policy]['loss_diff'], TRAIN_LOSS_TOL,
+                          ', '.join('%s %.3e' % kv for kv in
+                                    runs[policy]['update_diffs'].items()),
+                          TRAIN_UPDATE_TOL))
+    peaks = [runs[p]['peak_gb'] for p in REMAT_POLICIES]
+    log('peak device memory None %.2f, nothing %.2f, dots %.2f GB: %s'
+        % (peaks[0], peaks[1], peaks[2],
+           'nothing < dots < None, as expected'
+           if peaks[1] < peaks[2] < peaks[0] else
+           'NOT in the expected order nothing < dots < None'))
+    return runs
+
+
+def check_second_shape_runs(runs, params, n_segments, stats0, stats,
+                            reserved_gb):
+    """x5's bounds over its runs ({label: (loss, {param: update})}): the
+    second batch's replay ('small replayed') and its capture run
+    ('small captured') within TRAIN_LOSS_TOL and TRAIN_UPDATE_TOL (t2's
+    measure) of its op-by-op step, the first batch's replay after that
+    capture ('big again') of its replay before it ('big'); one prepared
+    program, n_segments more captures, and the reserved peak within
+    RESNET_PEAK_GB. Returns {pair: (loss |diff|, worst update measure,
+    same bits)}."""
+    out = {}
+    for a, b in (('small replayed', 'small op by op'),
+                 ('small captured', 'small op by op'),
+                 ('big again', 'big')):
+        loss_diff = abs(runs[a][0] - runs[b][0])
+        upd = _update_diffs(runs[a], runs[b], params)
+        bits = runs[a][0] == runs[b][0] and all(
+            bool((runs[a][1][n] == runs[b][1][n]).all()) for n in params)
+        out['%s vs %s' % (a, b)] = (loss_diff, max(upd.values()), bits)
+        if not np.isfinite(runs[a][0]) or loss_diff > TRAIN_LOSS_TOL or \
+                any(v > TRAIN_UPDATE_TOL for v in upd.values()):
+            raise AssertionError('x5: %s vs %s: loss |diff| %.3e, updates '
+                                 '%r beyond the stated tolerance'
+                                 % (a, b, loss_diff, upd))
+    if stats['prepared_programs'] != stats0['prepared_programs'] or \
+            stats['compiled_segments'] != \
+            stats0['compiled_segments'] + n_segments:
+        raise AssertionError('x5: stats %r after %r: want the same prepared '
+                             'programs and %d more captured segments'
+                             % (stats, stats0, n_segments))
+    if reserved_gb > RESNET_PEAK_GB:
+        raise AssertionError('x5: peak reserved device memory %.2f GB over '
+                             '%g GB' % (reserved_gb, RESNET_PEAK_GB))
+    return out
+
+
+@phase('x5: a second batch size of ResNet-50 on the captured executor')
+def check_second_shape(tr, place, sync):
+    """tr's executor holds r1's step at RESNET_BATCH, captured. Each from
+    one saved state, through that executor and its reader: the step at
+    RESNET_BATCH (a replay); RESNET_SECOND_BATCH three times (its
+    warm-up, its capture in the executor's one pool beside the first
+    graph, a replay); the smaller step op by op; RESNET_BATCH's replay
+    again. check_second_shape_runs holds them."""
+    import itertools
+    import torch
+    import paddle_tpu_torch as fluid
+    params = RESNET_PARAMS_COMPARED
+    rng = np.random.RandomState(SEED + 17)
+    dev = torch.device('cuda', 0)
+    big = image_batch(rng, RESNET_BATCH, dev)
+    small = image_batch(rng, RESNET_SECOND_BATCH, dev)
+    saved = tr.snapshot()
+    eager_exe = fluid.Executor(place)
+
+    def op_by_op():
+        return float(eager_exe.run(tr.main, fetch_list=[tr.avg_cost.name],
+                                   scope=tr.scope,
+                                   use_program_cache=False)[0])
+
+    def from_saved(batch, step=tr.step):
+        tr.restore(saved)
+        tr.feed(lambda: itertools.repeat(batch))
+        loss = step()
+        sync()
+        tr.reader.reset()
+        return loss, {n: (tr.scope.find_var(n) - saved[n]).float()
+                      for n in params}
+    stats0 = tr.pe.jit_cache_stats()
+    torch.cuda.reset_peak_memory_stats()
+    runs = {'big': from_saved(big)}
+    from_saved(small)
+    runs['small captured'] = from_saved(small)
+    runs['small replayed'] = from_saved(small)
+    runs['small op by op'] = from_saved(small, op_by_op)
+    runs['big again'] = from_saved(big)
+    tr.restore(saved)
+    stats = tr.pe.jit_cache_stats()
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    log('batch %d then %d on one executor: losses %s; stats %s after %s; '
+        'peak device memory reserved %.2f GB'
+        % (RESNET_BATCH, RESNET_SECOND_BATCH,
+           ', '.join('%s %.6f' % (k, v[0]) for k, v in runs.items()),
+           json.dumps(stats), json.dumps(stats0), reserved_gb))
+    out = check_second_shape_runs(runs, params, device_segments(tr.main),
+                                  stats0, stats, reserved_gb)
+    log('x5: %s' % '; '.join('%s: loss |diff| %.3e, updates within %.3e, '
+                             'the same bits %s' % ((k,) + v)
+                             for k, v in out.items()))
+    return out
+
+
+def peak_memory_gb():
+    """Peak allocated device memory since the last reset, in GB (a
+    captured graph's pool counts while its tensors are alive in the
+    capture; torch.cuda.max_memory_reserved() is logged beside it)."""
+    import torch
+    log('peak device memory allocated %.2f GB, reserved %.2f GB'
+        % (torch.cuda.max_memory_allocated() / 1e9,
+           torch.cuda.max_memory_reserved() / 1e9))
+    return torch.cuda.max_memory_allocated() / 1e9
+
+
+def free_device_memory():
+    """Collect what the freed trainers left (their executors' captured
+    graphs and pools) and return the cached blocks to the card."""
+    import gc
+    import torch
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -3207,8 +4094,11 @@ def main():
         profile_path(dec, prompts, {'prefill': prefill_ms,
                                     'decode_step': step_ms}, sync)
         serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+        x2 = check_serving_capture(dec, prompts, streams, sync,
+                                   {'prefill': prefill_ms,
+                                    'decode_step': step_ms})
         del pred, dec
-        torch.cuda.empty_cache()
+        free_device_memory()
 
         tr, losses, train_ms, train_launches, train_peak_gb = train_steps(
             cfg, place, counters, sync)
@@ -3218,14 +4108,26 @@ def main():
             check_split_step(tr, saved, batch, kernel_step, counters, sync)
         del saved
         tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
-        # the LM is freed before the Adam LM, and that one before ResNet
+        with flash_arms(None, 'split'):
+            x1 = {'Momentum': check_captured_steps(
+                tr, 'the Momentum step (split arm)', PARAMS_COMPARED, 'max',
+                place, sync)}
+        x3 = check_cache_key(tr, counters, place, sync)
+        # the LM is freed before the remat LMs, those before the Adam LM,
+        # and that one before ResNet
         del tr
-        torch.cuda.empty_cache()
+        free_device_memory()
+        x4 = remat_steps(place, counters, sync)
 
         adam = adam_steps(adam_cfg, place, counters, sync)
+        atr = adam.pop('tr')
         adam_worst, adam_diffs, adam_upd = check_adam_step(
-            adam.pop('tr'), adam['records'], counters)
-        torch.cuda.empty_cache()
+            atr, adam['records'], counters)
+        x1['Adam'] = check_captured_steps(
+            atr, 'the Adam step', ADAM_PARAMS_COMPARED, 'weighted', place,
+            sync)
+        del atr
+        free_device_memory()
         opt_worst = check_optimizer_ops(place)
         op_worst = check_training_ops(place)
 
@@ -3234,12 +4136,16 @@ def main():
         (rtr, path_shapes, r_losses, r_step_ms, r_launches,
          r_peak_gb) = resnet_steps(place, sync)
         k6_row = check_k6(path_shapes)
+        x5 = check_second_shape(rtr, place, sync)
         r_plain_diffs = check_resnet_plain_step(rtr)
         pair_diffs = check_fused_pair(place)
         img_s, r_mfu, r_device_ms, r_busy = profile_resnet(rtr, r_step_ms,
                                                            sync)
+        x1['ResNet-50'] = check_captured_steps(
+            rtr, 'the ResNet-50 step', RESNET_PARAMS_COMPARED, 'spread',
+            place, sync)
         del rtr
-        torch.cuda.empty_cache()
+        free_device_memory()
 
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
          l_extra) = lc_steps(lc_cfg, place, counters, sync)
@@ -3247,8 +4153,12 @@ def main():
             ltr, counters, sync)
         l_tok_s, l_mfu, l_mfu_exec, l_device_ms, l_busy = profile_lc(
             ltr, l_step_ms, l_extra, sync)
+        with flash_arms(*LC_ARMS):
+            x1['long-context'] = check_captured_steps(
+                ltr, 'the long-context step (twopass/onepass)',
+                LC_PARAMS_COMPARED, 'max', place, sync)
         del ltr
-        torch.cuda.empty_cache()
+        free_device_memory()
 
         probe_row, probe_rows, exp_over_exp2 = check_probe()
     except PhaseError as e:
@@ -3332,6 +4242,22 @@ def main():
            l_arm_ms['online/kvmajor'], l_arm_dev['twopass/onepass'],
            l_arm_dev['online/kvmajor']))
     log('probe: one exp step costs %.3f x one exp2 step' % exp_over_exp2)
+    log('captured path: %s; decode predictor stats %s, eager prefill %.3f '
+        'ms and decode step %.3f ms; remat peak GB / step ms / K1 per step: '
+        '%s; arms %s; ResNet-50 at batch %d then %d on one executor: %s'
+        % ('; '.join('%s %.3f ms captured vs %.3f ms op by op, loss |diff| '
+                     '%.3e, same bits %s' % (k, v['captured_ms'],
+                                             v['eager_ms'], v['loss_diff'],
+                                             v['bits'])
+                     for k, v in x1.items()),
+           json.dumps(x2['stats']), x2['eager_prefill_ms'],
+           x2['eager_step_ms'],
+           ', '.join('%s %.2f / %.3f / %g' % (p, r['peak_gb'], r['ms'],
+                                               r['per_step'][
+                                                   KERNELS['fwd'][0]])
+                     for p, r in x4.items()),
+           json.dumps(x3), RESNET_BATCH, RESNET_SECOND_BATCH,
+           '; '.join('%s same bits %s' % (k, v[2]) for k, v in x5.items())))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -1,9 +1,11 @@
 """paddle_tpu_torch: the PyTorch/CUDA port of paddle_tpu.
 
 Same Program IR, layers and serving surface as the JAX package, run
-eagerly op by op with PyTorch; the TPU's Pallas kernels become kernels
-written by hand for Hopper (kernels/, csrc/). Usage mirrors the JAX
-package:
+with PyTorch: on the card the Executor captures each device segment of
+a program once as a CUDA graph and replays it (where the JAX package
+jit-compiles it), on the CPU it runs op by op; the TPU's Pallas kernels
+become kernels written by hand for Hopper (kernels/, csrc/). Usage
+mirrors the JAX package:
 
     import paddle_tpu_torch as fluid
     exe = fluid.Executor()               # CUDAPlace(0); CPUPlace() on request
@@ -28,7 +30,9 @@ training core a plain Fluid program reaches: the eleven optimizers (SGD,
 Momentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
 Ftrl, ProximalGD, ProximalAdagrad) on dense gradients, the six
 learning-rate schedules, the Variable operators, and the math, tensor,
-loss and dropout ops with their layers. ROADMAP.md lists the rest.
+loss and dropout ops with their layers; rematerialization
+(layers.recompute, TransformerConfig(remat=)). ROADMAP.md lists the
+rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint

@@ -228,6 +228,7 @@ class Block(object):
         if var.name in self.vars:
             raise ValueError('duplicate var %s in block %d' % (var.name, self.idx))
         self.vars[var.name] = var
+        self.program._bump_version()
         return var
 
     def create_parameter(self, **kwargs):
@@ -237,6 +238,7 @@ class Block(object):
         if param.name in global_block.vars:
             raise ValueError('duplicate parameter %s' % param.name)
         global_block.vars[param.name] = param
+        self.program._bump_version()
         return param
 
     def has_var(self, name):
@@ -279,6 +281,7 @@ class Block(object):
     def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
         op = Operator(self, type, inputs, outputs, attrs)
         self.ops.insert(index, op)
+        self.program._bump_version()
         from . import registry
         registry.infer_shape(op, self)
         return op
@@ -304,6 +307,8 @@ class Program(object):
         self.blocks = [Block(self, 0)]
         self.current_block_idx = 0
         self._uid = next(Program._uid_counter)
+        # bumped on every mutation; keys the Executor's prepared programs
+        self._version = 0
         self._is_test = False
         # AMP (contrib/mixed_precision.py): bf16 compute, fp32 master
         # weights; read by the Executor as EmitContext.amp
@@ -317,6 +322,23 @@ class Program(object):
 
     def current_block(self):
         return self.blocks[self.current_block_idx]
+
+    def _bump_version(self):
+        self._version += 1
+
+    def _create_block(self, parent_idx=None):
+        """Append a sub-block of the current block (or of `parent_idx`)
+        and make it current: layers then build into it until
+        _rollback."""
+        new_idx = len(self.blocks)
+        parent = self.current_block_idx if parent_idx is None else parent_idx
+        self.blocks.append(Block(self, new_idx, parent))
+        self.current_block_idx = new_idx
+        self._bump_version()
+        return self.current_block()
+
+    def _rollback(self):
+        self.current_block_idx = self.current_block().parent_idx
 
     def block(self, idx):
         return self.blocks[idx]

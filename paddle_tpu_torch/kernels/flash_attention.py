@@ -90,7 +90,7 @@ import threading
 
 import torch
 
-from . import build
+from . import build, note
 
 __all__ = ['flash_attention', 'flash_attention_fwd',
            'flash_attention_reference', 'flash_attention_fwd_stats',
@@ -128,6 +128,7 @@ def _kernel(lib_name, fn_name, n_ptrs):
 def _count(wrapper):
     with _count_lock:
         wrapper.launches += 1
+        note(('launches', wrapper.__name__))
 
 
 def twopass_extra_flops(BH, T, d, causal, dtype=torch.bfloat16):
@@ -261,8 +262,10 @@ def flash_attention_fwd_stats(q, k, causal, sm_scale):
     _launch(who, fn, (q, k, lse), q, causal, sm_scale)
     global _extra_flops
     with _count_lock:
-        _extra_flops += twopass_extra_flops(BH, T, d, causal, q.dtype)
-        flash_attention_fwd_stats.launches += 1
+        extra = twopass_extra_flops(BH, T, d, causal, q.dtype)
+        _extra_flops += extra
+        note(('extra_flops',), extra)
+    _count(flash_attention_fwd_stats)
     return lse
 
 
@@ -490,6 +493,7 @@ class FlashAttention(torch.autograd.Function):
         if plain and q.device.type == 'cuda':
             with _count_lock:
                 FlashAttention.plain_cuda_calls += 1
+                note(('plain_cuda_calls',))
         if twopass:
             stats, acc = ((flash_attention_stats_reference,
                            flash_attention_acc_reference) if plain else

@@ -4,8 +4,9 @@ prefill/decode programs (counterpart of paddle_tpu/models/transformer.py:
 
 One device: the tensor- and sequence-parallel annotations of the
 default config (use_tp, use_sp) are built and inert; expert and
-pipeline parallelism, ring attention and rematerialization are not
-ported. Programs built with the same config and names are the same
+pipeline parallelism and ring attention are not ported.
+TransformerConfig(remat=) runs each block in a rematerialization scope
+(layers.recompute), as in the JAX package. Programs built with the same config and names are the same
 Program text as the JAX package's, so weights carry across by name.
 
 Cached-attention mode: a loaded LM program is read by
@@ -46,13 +47,16 @@ class TransformerConfig(object):
     use_sp=True): on one card the tensor- and sequence-parallel
     annotations are inert (parallel/layers.py), so the default config
     builds and trains the same Program as the JAX package. Expert and
-    pipeline parallelism and ring attention are not ported and raise;
-    rematerialization is not ported, and the config does not take it."""
+    pipeline parallelism and ring attention are not ported and raise.
+    remat: None (keep every activation), 'nothing' (each block keeps
+    only its output; the backward runs the block again) or 'dots' (it
+    also keeps the matrix products' outputs); any other truthy value
+    means 'nothing', as in the JAX package."""
 
     def __init__(self, vocab=1000, dim=64, heads=4, layers=2, ffn=128,
                  max_len=64, moe_experts=0, use_tp=True, use_sp=True,
                  pp_stages=0, ring_attention=False,
-                 flash_attention=False):
+                 flash_attention=False, remat=None):
         for name, value in (
                 ('moe_experts', moe_experts), ('pp_stages', pp_stages),
                 ('ring_attention', ring_attention)):
@@ -68,6 +72,7 @@ class TransformerConfig(object):
         # blockwise attention (kernels/flash_attention.py): no [T, T]
         # score tensor
         self.flash_attention = flash_attention
+        self.remat = remat
 
 
 def _attention(x, cfg, prefix):
@@ -136,7 +141,12 @@ def _trunk(tokens, cfg):
         emb = L.embedding(tokens, size=[cfg.vocab, cfg.dim])
     x = L.elementwise_add(emb, L.position_embedding(emb, cfg.max_len))
     for i in range(cfg.layers):
-        x = _block(x, cfg, i)
+        if cfg.remat:
+            policy = 'dots' if cfg.remat == 'dots' else 'nothing'
+            x = L.recompute(lambda h, i=i: _block(h, cfg, i), x,
+                            policy=policy)
+        else:
+            x = _block(x, cfg, i)
     return L.layer_norm(x, begin_norm_axis=2)
 
 

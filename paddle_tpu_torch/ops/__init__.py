@@ -7,3 +7,4 @@ from . import io_ops        # noqa: F401
 from . import loss_ops      # noqa: F401
 from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401
+from . import control_flow_ops  # noqa: F401

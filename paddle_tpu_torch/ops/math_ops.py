@@ -89,22 +89,41 @@ _register_elementwise('floordiv',
 
 # -- mul: the fc matmul with dim flattening (x_num_col_dims) -----------------
 
-@op_emitter('mul')
-def _mul_emit(ctx, op):
+def dot_operands(ctx, op):
+    """(a, b, alpha, shape) of a mul or matmul op: Out = (a @ b ·
+    alpha).reshape(shape) (shape None: as it is), with a and b formed as
+    the op forms them (mul's dim flattening, matmul's transposes, the
+    AMP cast). The remat scope's 'dots' policy serves a saved product
+    through the same operands (ops/control_flow_ops.py)."""
     x = ctx.get(op.single_input('X'))
     y = ctx.get(op.single_input('Y'))
-    xnc = op.attr('x_num_col_dims', 1)
-    ync = op.attr('y_num_col_dims', 1)
-    y2 = y.reshape(int(np.prod(y.shape[:ync])), -1)
-    k = int(np.prod(x.shape[xnc:]))
-    if k != y2.shape[0]:
-        raise ValueError('mul: cannot align x shape %s (x_num_col_dims %d) '
-                         'with contraction size %d'
-                         % (tuple(x.shape), xnc, y2.shape[0]))
-    x2, y2 = amp_cast(ctx, x.reshape(-1, k), y2)
-    out = torch.matmul(x2, y2)
-    ctx.set(op.single_output('Out'),
-            out.reshape(tuple(x.shape[:xnc]) + tuple(y.shape[ync:])))
+    if op.type == 'mul':
+        xnc = op.attr('x_num_col_dims', 1)
+        ync = op.attr('y_num_col_dims', 1)
+        y2 = y.reshape(int(np.prod(y.shape[:ync])), -1)
+        k = int(np.prod(x.shape[xnc:]))
+        if k != y2.shape[0]:
+            raise ValueError('mul: cannot align x shape %s (x_num_col_dims '
+                             '%d) with contraction size %d'
+                             % (tuple(x.shape), xnc, y2.shape[0]))
+        a, b = amp_cast(ctx, x.reshape(-1, k), y2)
+        return a, b, 1.0, tuple(x.shape[:xnc]) + tuple(y.shape[ync:])
+    if op.attr('transpose_X', False) and x.ndim > 1:
+        x = x.transpose(-1, -2)
+    if op.attr('transpose_Y', False) and y.ndim > 1:
+        y = y.transpose(-1, -2)
+    a, b = amp_cast(ctx, x, y)
+    return a, b, op.attr('alpha', 1.0), None
+
+
+def _dot_emit(ctx, op):
+    a, b, alpha, shape = dot_operands(ctx, op)
+    out = torch.matmul(a, b)
+    if alpha != 1.0:
+        out = out * alpha
+    if shape is not None:
+        out = out.reshape(shape)
+    ctx.set(op.single_output('Out'), out)
 
 
 def _mul_infer(op, block):
@@ -118,24 +137,8 @@ def _mul_infer(op, block):
     out.lod_level = x.lod_level
 
 
-register_op('mul', infer_shape=_mul_infer)
+register_op('mul', emit=_dot_emit, infer_shape=_mul_infer)
 register_vjp_grad('mul', in_slots=('X', 'Y'))
-
-
-@op_emitter('matmul')
-def _matmul_emit(ctx, op):
-    x = ctx.get(op.single_input('X'))
-    y = ctx.get(op.single_input('Y'))
-    if op.attr('transpose_X', False) and x.ndim > 1:
-        x = x.transpose(-1, -2)
-    if op.attr('transpose_Y', False) and y.ndim > 1:
-        y = y.transpose(-1, -2)
-    x, y = amp_cast(ctx, x, y)
-    out = torch.matmul(x, y)
-    alpha = op.attr('alpha', 1.0)
-    if alpha != 1.0:
-        out = out * alpha
-    ctx.set(op.single_output('Out'), out)
 
 
 def _matmul_infer(op, block):
@@ -157,7 +160,7 @@ def _matmul_infer(op, block):
     out.dtype = x.dtype
 
 
-register_op('matmul', infer_shape=_matmul_infer)
+register_op('matmul', emit=_dot_emit, infer_shape=_matmul_infer)
 register_vjp_grad('matmul', in_slots=('X', 'Y'))
 
 

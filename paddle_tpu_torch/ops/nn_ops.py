@@ -579,7 +579,7 @@ def _accuracy_emit(ctx, op):
         ctx.set(op.single_output('Correct'), correct.to(torch.int32))
     if op.output('Total'):
         ctx.set(op.single_output('Total'),
-                torch.tensor(n, dtype=torch.int32, device=pred_idx.device))
+                torch.full((), n, dtype=torch.int32, device=pred_idx.device))
 
 
 def _accuracy_infer(op, block):

@@ -60,14 +60,28 @@ register_op('assign', infer_shape=same_shape_infer())
 register_vjp_grad('assign')
 
 
+def device_constant(ctx, op, key, make):
+    """A new device tensor equal to make()'s host data. make() runs
+    once per op, device and key, and its tensor is kept on the op: a
+    CUDA graph under capture cannot copy from host memory, so every
+    later run copies the kept tensor on the device."""
+    kept = op.__dict__.setdefault('_device_constants', {})
+    t = kept.get((ctx.device, key))
+    if t is None:
+        t = kept[(ctx.device, key)] = torch.as_tensor(
+            make(), device=ctx.device)
+    return t.clone()
+
+
 @op_emitter('assign_value')
 def _assign_value_emit(ctx, op):
     dtype = op.attr('dtype', 'float32')
-    values = np.asarray(op.attr('values'), dtype=dtype)
-    ctx.set(op.single_output('Out'),
-            torch.as_tensor(values.reshape(op.attr('shape')),
-                            dtype=torch_dtype(convert_np_dtype(dtype)),
-                            device=ctx.device))
+
+    def make():
+        values = np.asarray(op.attr('values'), dtype=dtype)
+        return torch.as_tensor(values.reshape(op.attr('shape')),
+                               dtype=torch_dtype(convert_np_dtype(dtype)))
+    ctx.set(op.single_output('Out'), device_constant(ctx, op, None, make))
 
 
 def _assign_value_infer(op, block):
@@ -103,10 +117,9 @@ register_vjp_grad('cast')
 
 @op_emitter('shape')
 def _shape_emit(ctx, op):
-    x = ctx.get(op.single_input('Input'))
-    ctx.set(op.single_output('Out'),
-            torch.tensor(tuple(x.shape), dtype=torch.int64,
-                         device=ctx.device))
+    shape = tuple(ctx.get(op.single_input('Input')).shape)
+    ctx.set(op.single_output('Out'), device_constant(
+        ctx, op, shape, lambda: torch.tensor(shape, dtype=torch.int64)))
 
 
 def _shape_infer(op, block):

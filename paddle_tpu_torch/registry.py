@@ -22,7 +22,12 @@ a replay would run every forward twice. Here:
   run), calls torch.autograd.grad on it with the incoming cotangents,
   writes the grads to its actual output names and drops the record;
 - a grad op whose forward was not recorded in the same run raises: the
-  port never replays a forward.
+  port never replays a forward, with one exception by design:
+  `remat_block_grad` (ops/control_flow_ops.py), the rematerialization
+  scope's grad, re-runs its sub-block from the recorded inputs under
+  torch.enable_grad() and differentiates that; its forward runs under
+  torch.no_grad() and records only its inputs, outputs and random
+  state.
 
 Ops with hand-written grad makers (lookup_table, reshape2, transpose2)
 keep them, with plain emitters for their grad ops.
@@ -35,8 +40,8 @@ from .framework import grad_var_name
 
 __all__ = ['OpDef', 'register_op', 'get_op', 'infer_shape',
            'op_emitter', 'same_shape_infer', 'simple_grad_maker',
-           'elementwise_unary_grad', 'register_vjp_grad', 'record_key',
-           'amp_cast']
+           'elementwise_unary_grad', 'register_vjp_grad', 'vjp_grad_maker',
+           'input_grads', 'write_input_grads', 'record_key', 'amp_cast']
 
 
 class OpDef(object):
@@ -157,15 +162,13 @@ def diff_input_names(inputs, in_slots):
     return names
 
 
-def register_vjp_grad(fwd_type, in_slots=('X',), out_slots=('Out',),
-                      nondiff_slots=()):
-    """Register `<fwd_type>_grad`. The grad maker is the JAX package's
-    (same grad op text, `__fwd_inputs__`/`__fwd_outputs__` attrs); the
-    emitter differentiates the forward recorded earlier in the same run
-    (module docstring) and never re-runs the forward."""
-    grad_type = fwd_type + '_grad'
-
+def vjp_grad_maker(in_slots=('X',), out_slots=('Out',), nondiff_slots=()):
+    """The JAX package's register_vjp_grad maker: the grad op takes the
+    forward's inputs and its outputs' grads, produces one grad per
+    DISTINCT forward input and carries `__fwd_inputs__` and
+    `__fwd_outputs__`; the grad op text is the same in both packages."""
     def maker(op, block):
+        grad_type = op.type + '_grad'
         inputs = {}
         for s in list(in_slots) + list(nondiff_slots):
             if op.input(s):
@@ -193,51 +196,72 @@ def register_vjp_grad(fwd_type, in_slots=('X',), out_slots=('Out',),
                                     for k, v in op.outputs.items()}
         return [dict(type=grad_type, inputs=inputs, outputs=outputs,
                      attrs=attrs)]
+    return maker
 
+
+def input_grads(ctx, op, out_names, outs, leaves):
+    """torch.autograd.grad of the forward outputs `outs` (name ->
+    tensor) with respect to `leaves` (name -> leaf), the cotangents read
+    from the grad op's `<name>@GRAD` inputs; an unused leaf gets zeros.
+    Returns {input name: grad}."""
+    ys, cots = [], []
+    for n in out_names:
+        y = outs[n]
+        if not y.requires_grad:
+            continue
+        ys.append(y)
+        cots.append(ctx.get(grad_var_name(n)).to(y.dtype))
+    xs = list(leaves.values())
+    grads = [None] * len(xs)
+    if ys and xs:
+        grads = torch.autograd.grad(ys, xs, grad_outputs=cots,
+                                    allow_unused=True)
+    return {n: (g if g is not None else torch.zeros_like(x))
+            for (n, x), g in zip(leaves.items(), grads)}
+
+
+def write_input_grads(ctx, op, in_slots, grad_by_input):
+    """Write each forward input's grad to the grad op's ACTUAL output
+    name: backward.py may have renamed it (fan-out) or blanked it
+    (no-grad inputs). FLAGS_amp_bf16_param_grads: under AMP, an fp32
+    PARAMETER grad is rounded to bf16 where this op is its sole
+    producer (the canonical @GRAD name); fan-out parts stay fp32 until
+    their sum."""
+    fwd_inputs = op.attr('__fwd_inputs__')
+    bf16_param_grads = False
+    if ctx.amp:
+        from .flags import get_flag
+        bf16_param_grads = bool(get_flag('amp_bf16_param_grads'))
+    for s in in_slots:
+        for fwd_n, out_n in zip(fwd_inputs.get(s, []),
+                                op.output(s + '@GRAD')):
+            if not out_n or fwd_n not in grad_by_input:
+                continue
+            g = grad_by_input[fwd_n]
+            if (bf16_param_grads and g.dtype == torch.float32
+                    and out_n == grad_var_name(fwd_n)
+                    and ctx.is_persistable(fwd_n)):
+                g = g.to(torch.bfloat16)
+            ctx.set(out_n, g)
+
+
+def register_vjp_grad(fwd_type, in_slots=('X',), out_slots=('Out',),
+                      nondiff_slots=()):
+    """Register `<fwd_type>_grad`. The grad maker is the JAX package's
+    (vjp_grad_maker); the emitter differentiates the forward recorded
+    earlier in the same run (module docstring) and never re-runs the
+    forward."""
     def emit(ctx, op):
-        fwd_inputs = op.attr('__fwd_inputs__')
         fwd_outputs = op.attr('__fwd_outputs__')
         leaves, outs = ctx.take_record(record_key(fwd_type, fwd_outputs))
         out_names = [n for s in out_slots for n in fwd_outputs.get(s, [])]
-        ys, cots = [], []
-        for n in out_names:
-            y = outs[n]
-            if not y.requires_grad:
-                continue
-            ys.append(y)
-            cots.append(ctx.get(grad_var_name(n)).to(y.dtype))
-        xs = list(leaves.values())
-        grads = [None] * len(xs)
-        if ys and xs:
-            grads = torch.autograd.grad(ys, xs, grad_outputs=cots,
-                                        allow_unused=True)
-        grad_by_input = {
-            n: (g if g is not None else torch.zeros_like(x))
-            for (n, x), g in zip(leaves.items(), grads)}
-        # FLAGS_amp_bf16_param_grads: under AMP, round an fp32 PARAMETER
-        # grad to bf16 when this op is its sole producer (the canonical
-        # @GRAD name); fan-out parts stay fp32 until their sum
-        bf16_param_grads = False
-        if ctx.amp:
-            from .flags import get_flag
-            bf16_param_grads = bool(get_flag('amp_bf16_param_grads'))
-        # write to the op's ACTUAL output names: backward.py may have
-        # renamed them (fan-out) or blanked them (no-grad inputs)
-        for s in in_slots:
-            for fwd_n, out_n in zip(fwd_inputs.get(s, []),
-                                    op.output(s + '@GRAD')):
-                if not out_n or fwd_n not in grad_by_input:
-                    continue
-                g = grad_by_input[fwd_n]
-                if (bf16_param_grads and g.dtype == torch.float32
-                        and out_n == grad_var_name(fwd_n)
-                        and ctx.is_persistable(fwd_n)):
-                    g = g.to(torch.bfloat16)
-                ctx.set(out_n, g)
+        write_input_grads(ctx, op, in_slots,
+                          input_grads(ctx, op, out_names, outs, leaves))
 
-    opdef = register_op(fwd_type, grad=maker)
+    opdef = register_op(fwd_type, grad=vjp_grad_maker(in_slots, out_slots,
+                                                      nondiff_slots))
     opdef.vjp_slots = (tuple(in_slots), tuple(out_slots))
-    register_op(grad_type, emit=emit)
+    register_op(fwd_type + '_grad', emit=emit)
 
 
 # -- mixed precision ---------------------------------------------------------

@@ -73,6 +73,12 @@ class DecodePredictor(object):
     def device(self):
         return self._exe.device
 
+    def jit_cache_stats(self):
+        """The executor's prepared programs and captured segments
+        (Executor.jit_cache_stats): after a generation loop, 2 prepared
+        programs (prefill, decode), each captured once on the card."""
+        return self._exe.jit_cache_stats()
+
     # -- lifecycle ---------------------------------------------------------
     def reset(self):
         """Zero every ring cache (all slots forget everything)."""

@@ -206,7 +206,8 @@ class ServingEngine(object):
                    'workers': len(self._predictors),
                    'slots_per_worker': p0.slots,
                    'cache_capacity': (len(self._predictors) * p0.slots
-                                      * p0.max_len)}
+                                      * p0.max_len),
+                   'jit': p0.jit_cache_stats()}
             out.update(self._counts)
         return out
 

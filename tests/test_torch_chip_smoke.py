@@ -58,14 +58,16 @@ def test_sdpa_yardstick_takes_a_fused_backend_on_3d_inputs(dtype):
 
 
 def test_device_time_takes_a_second_window_before_giving_up(monkeypatch):
-    """The profiler has returned an empty window for a kernel that the
-    next window traced: a window with no device events is taken again
-    once, and only then is the device time not measured (None). On the
-    CPU every window is empty: one warm-up call and two windows."""
+    """The profiler has returned an empty window for a kernel that a
+    later window traced (twice in a row once): a window with no device
+    events is taken again, up to DEVICE_MS_WINDOWS (three) windows, and
+    only then is the device time not measured (None). On the CPU every
+    window is empty: one warm-up call and three windows."""
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
     calls = []
+    assert chip_smoke.DEVICE_MS_WINDOWS == 3
     assert chip_smoke._device_ms(lambda: calls.append(1), iters=3) is None
-    assert len(calls) == 1 + 2 * 3
+    assert len(calls) == 1 + 3 * chip_smoke.DEVICE_MS_WINDOWS
 
 
 def test_library_time_is_device_time_or_raises(monkeypatch):
@@ -982,3 +984,227 @@ def test_adam_model_is_the_flagship_with_the_parallel_layers():
     for name in chip_smoke.ADAM_PARAMS_COMPARED:
         assert len(params[name].shape) == 2, name
     assert params['layer0_qkv.w_0'].shape == (3 * 32,)
+
+
+# -- x1-x4: the captured path -----------------------------------------------------
+
+def test_captured_path_phases_exist_run_in_order_and_fail_the_run():
+    """x1-x5 are phases (a failure is a PhaseError, which main() turns
+    into exit 1 with no result line), called by main() in this order:
+    x2 after g on the serving predictor; x1 (Momentum) and x3 after t4;
+    x4 before a1; x1 (Adam) after a2; x5 after b6 on r1's executor,
+    before r2 closes it; x1 (ResNet-50) after r4; x1 (long-context)
+    after l3."""
+    import inspect
+    for fn, name in ((chip_smoke.check_captured_steps, 'x1'),
+                     (chip_smoke.check_serving_capture, 'x2'),
+                     (chip_smoke.check_cache_key, 'x3'),
+                     (chip_smoke.remat_steps, 'x4'),
+                     (chip_smoke.check_second_shape, 'x5')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * len(inspect.signature(fn).parameters))
+    src = inspect.getsource(chip_smoke.main)
+    order = ['profile_path(', 'check_serving_capture(', 'profile_train(',
+             "'the Momentum step", 'check_cache_key(', 'remat_steps(',
+             'adam_steps(', 'check_adam_step(', "'the Adam step'",
+             'check_k6(', 'check_second_shape(', 'check_resnet_plain_step(',
+             'profile_resnet(', "'the ResNet-50 step'", 'lc_steps(',
+             'profile_lc(', "'the long-context step"]
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    last = src[src.rindex('log(json.dumps({'):]
+    assert "'ok': True" in last and "'platform': 'gpu'" in last
+
+
+def _x_run_of(losses, state, compiled=(1, 1)):
+    return dict(losses=list(losses), state=state, ms=1.0, compiled=compiled)
+
+
+def test_x1_check_holds_the_captured_run_to_the_eager_one():
+    r = np.random.RandomState(0)
+    saved = {'w': torch.from_numpy(r.randn(8, 8).astype('f4'))}
+    after = {'w': saved['w'] + 0.01 * torch.from_numpy(
+        r.randn(8, 8).astype('f4'))}
+    eager = _x_run_of([2.0, 1.9, 1.8], after)
+    same = _x_run_of([2.0, 1.9, 1.8], {'w': after['w'].clone()})
+    assert chip_smoke.check_x1('t', eager, same, saved, ['w'], 1,
+                               'max')[2] is True
+    with pytest.raises(AssertionError, match='disagree'):
+        chip_smoke.check_x1('t', eager, _x_run_of([2.0, 1.9, 1.82], after),
+                            saved, ['w'], 1, 'max')
+    off = {'w': saved['w'] + 1.1 * (after['w'] - saved['w'])}
+    with pytest.raises(AssertionError, match='disagree'):
+        chip_smoke.check_x1('t', eager, _x_run_of(eager['losses'], off),
+                            saved, ['w'], 1, 'max')
+    grads = {'w': torch.ones(8, 8)}
+    with pytest.raises(AssertionError, match='disagree'):
+        chip_smoke.check_x1('t', eager, _x_run_of(eager['losses'], off),
+                            saved, ['w'], 1, 'weighted', grads)
+    # r2's rule: a second eager run as far off forgives it
+    loose = chip_smoke.check_x1('t', eager, _x_run_of(eager['losses'], off),
+                                saved, ['w'], 1, 'spread',
+                                eager2=_x_run_of(eager['losses'], off))
+    assert loose[1]['w'] == pytest.approx(0.1, rel=1e-3)
+    with pytest.raises(AssertionError, match='segments captured'):
+        chip_smoke.check_x1('t', eager, _x_run_of(eager['losses'], after,
+                                                  (1, 2)),
+                            saved, ['w'], 1, 'max')
+
+
+def test_x2_to_x4_checks_refuse_what_they_bound():
+    good = {'prepared_programs': 2, 'compiled_segments': 2,
+            'segment_misses': 2, 'segment_hits': 40}
+    chip_smoke.check_decode_stats(good)
+    for key, value in (('compiled_segments', 1), ('prepared_programs', 3),
+                       ('segment_misses', 4), ('segment_hits', 0)):
+        with pytest.raises(AssertionError):
+            chip_smoke.check_decode_stats(dict(good, **{key: value}))
+    names = {chip_smoke.KERNELS[k][0]: k for k in chip_smoke.KERNELS}
+    zero = {n: 0 for n in names}
+    kv = dict(zero, flash_attention_bwd_kvmajor=12)
+    split = dict(zero, flash_attention_bwd_dq=12, flash_attention_bwd_dkv=12)
+    chip_smoke.check_arm_launches(kv, split, 12)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_arm_launches(kv, dict(split,
+                                               flash_attention_bwd_kvmajor=12),
+                                      12)
+    chip_smoke.check_replaced_weight(4.5, 4.5, 4.6)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_replaced_weight(4.6, 4.5, 4.6)   # the old weight
+    upd = {n: torch.ones(3) for n in chip_smoke.PARAMS_COMPARED}
+    runs = {None: dict(losses=[3.0, 2.9], updates=upd,
+                       per_step=dict(zero, flash_attention_fwd=12,
+                                     flash_attention_bwd_kvmajor=12))}
+    for policy in ('nothing', 'dots'):
+        runs[policy] = dict(losses=[3.0, 2.9], updates=upd,
+                            per_step=dict(zero, flash_attention_fwd=24,
+                                          flash_attention_bwd_kvmajor=12))
+    chip_smoke.check_remat(runs, 12)
+    runs['dots']['per_step']['flash_attention_fwd'] = 12
+    with pytest.raises(AssertionError, match='K1'):
+        chip_smoke.check_remat(runs, 12)
+    runs['dots']['per_step']['flash_attention_fwd'] = 24
+    runs['nothing']['losses'] = [3.0, 2.88]
+    with pytest.raises(AssertionError, match='beyond'):
+        chip_smoke.check_remat(runs, 12)
+
+
+def test_remat_dropout_check_passes_on_the_cpu_and_refuses_a_new_mask(
+        monkeypatch):
+    """x4's dropout check on the CPU (eager): the recompute's mask is the
+    forward's in every run; with a recompute generator of its own seed
+    whose state is not set from the forward's (another mask), the check
+    fails."""
+    import torch
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch import executor as texecutor
+    shares, stats = chip_smoke.check_remat_dropout(tfluid, tfluid.CPUPlace())
+    assert len(shares) == 4 and stats['compiled_segments'] == 0
+    pair = texecutor.Executor._remat_generators
+
+    class Unset(torch.Generator):
+        def set_state(self, state):
+            return self
+
+    def other_recompute_generator(self, program, op):
+        fwd, _ = pair(self, program, op)
+        other = Unset()
+        other.manual_seed(99)
+        return fwd, other
+    monkeypatch.setattr(texecutor.Executor, '_remat_generators',
+                        other_recompute_generator)
+    with pytest.raises(AssertionError):
+        chip_smoke.check_remat_dropout(tfluid, tfluid.CPUPlace())
+
+
+# -- the launch counts of a replay, held to the profiler --------------------------
+
+def test_launch_groups_name_every_kernel_a_wrapper_launches():
+    """Each kernel a wrapper launches once a call, by the name the
+    profiler gives it, falls in its wrapper's group; other kernels (K6's
+    column sums, PyTorch's own) fall in none."""
+    group = chip_smoke.launch_group
+    assert group('void tc::flash_fwd_wgmma_kernel<128>(__nv_bfloat16 '
+                 'const*, float*, int)') == 'K1'
+    assert group('void flash_fwd_f32_kernel<64>(float const*)') == 'K1'
+    assert group('void tc::flash_fwd_stats_wgmma_kernel<128>(x)') == 'K4a'
+    assert group('void flash_fwd_acc_kernel<64>(float const*)') == 'K4b'
+    assert group('void tc::flash_bwd_wgmma_kernel<128>(x)') == 'K2/K5'
+    assert group('void flash_bwd_kv_kernel<64, float, true>(x)') == 'K2/K5'
+    assert group('void flash_bwd_q_kernel<64, float, true>(x)') == 'K2/K5'
+    assert group('void flash_bwd_q_kernel<64, float, false>(x)') == 'K3a'
+    assert group('void flash_bwd_kv_kernel<64, float, false>(x)') == 'K3b'
+    assert group('void tc::flash_bwd_dq_wgmma_kernel<128>(x)') == 'K3a'
+    assert group('void tc::flash_bwd_dkv_wgmma_kernel<128>(x)') == 'K3b'
+    assert group('void tc::matmul_bn_stats_wgmma_kernel<128>(CUtensorMap)'
+                 ) == 'K6'
+    assert group('void matmul_bn_stats_kernel<float>(float const*)') == 'K6'
+    assert group('column_sums_kernel(float const*, float const*)') is None
+    assert group('void at::native::vectorized_elementwise_kernel<4, '
+                 'at::native::FillFunctor<float> >(int)') is None
+    assert group('Memcpy DtoD (Device -> Device)') is None
+    counts = chip_smoke.wrapper_counts()
+    assert set(counts) == {n for names in chip_smoke.LAUNCH_GROUPS.values()
+                           for n in names}
+
+
+def test_replay_launch_check_refuses_a_mismatch_and_no_events():
+    """The counts a replay adds back must be what the profiler saw
+    launch; with no device event in any window (the CPU) the check
+    fails rather than pass unchecked."""
+    before = {n: 0 for names in chip_smoke.LAUNCH_GROUPS.values()
+              for n in names}
+    after = dict(before, flash_attention_fwd=12,
+                 flash_attention_bwd_kvmajor=12)
+    assert chip_smoke.launch_mismatch({'K1': 12, 'K2/K5': 12}, before,
+                                      after) == {}
+    assert chip_smoke.launch_mismatch({'K1': 12}, before, after) == \
+        {'K2/K5': (0, 12)}
+    assert chip_smoke.launch_mismatch(
+        {'K1': 12, 'K2/K5': 12, 'K6': 1}, before, after) == {'K6': (1, 0)}
+    calls = []
+    with pytest.raises(AssertionError, match='no device events'):
+        chip_smoke.check_replay_launches('t', lambda: calls.append(1),
+                                         lambda: None)
+    assert len(calls) == chip_smoke.DEVICE_MS_WINDOWS
+
+
+def test_seeded_dropout_check_passes_on_the_cpu_and_refuses_a_new_mask(
+        monkeypatch):
+    """x4's seeded dropout on the CPU: the same mask in every run and op
+    by op; where the op's seed is not honoured (each run draws anew),
+    the check fails."""
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch import executor as texecutor
+    share, stats = chip_smoke.check_seeded_dropout(tfluid, tfluid.CPUPlace())
+    assert 0.4 < share < 0.6 and stats['compiled_segments'] == 0
+    gen = torch.Generator()
+    gen.manual_seed(5)
+    monkeypatch.setattr(texecutor.EmitContext, 'generator',
+                        lambda self, op: gen)
+    with pytest.raises(AssertionError, match='same mask'):
+        chip_smoke.check_seeded_dropout(tfluid, tfluid.CPUPlace())
+
+
+def test_x5_check_refuses_what_it_bounds():
+    params = ['w']
+    upd = {'w': torch.ones(4)}
+    runs = {k: (2.0, upd) for k in ('big', 'big again', 'small captured',
+                                    'small replayed', 'small op by op')}
+    stats0 = {'prepared_programs': 1, 'compiled_segments': 1}
+    stats = {'prepared_programs': 1, 'compiled_segments': 2}
+    out = chip_smoke.check_second_shape_runs(runs, params, 1, stats0, stats,
+                                             50.0)
+    assert all(v == (0.0, 0.0, True) for v in out.values())
+    for bad in (dict(runs, **{'big again': (2.5, upd)}),
+                dict(runs, **{'small replayed': (2.0,
+                                                 {'w': 1.1 * upd['w']})})):
+        with pytest.raises(AssertionError, match='beyond'):
+            chip_smoke.check_second_shape_runs(bad, params, 1, stats0, stats,
+                                               50.0)
+    with pytest.raises(AssertionError, match='prepared'):
+        chip_smoke.check_second_shape_runs(
+            runs, params, 1, stats0, dict(stats, prepared_programs=2), 50.0)
+    with pytest.raises(AssertionError, match='reserved'):
+        chip_smoke.check_second_shape_runs(runs, params, 1, stats0, stats,
+                                           chip_smoke.RESNET_PEAK_GB + 1)

@@ -426,6 +426,10 @@ for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
     COVERED_ELSEWHERE[_t] = ('test_torch_optimizers',
                              'test_update_op_matches_jax', 'update parity')
+COVERED_ELSEWHERE['remat_block'] = (
+    'test_torch_recompute', 'test_adam_steps_match_the_jax_package',
+    'LM steps with every block a remat scope, and its grad, vs the JAX '
+    'package')
 
 EXCEPTIONS = {
     'reshape_grad_helper': 'the grad op of reshape2 and reshape, run by '
