@@ -156,6 +156,47 @@ conv2d_bn op):
   (r4) step ms, images/s, MFU (bench.py's FLOPs per image over the bf16
       dense peak), device-busy share and device time by kernel kind from
       torch.profiler over 3 steps, and peak device memory.
+r1's executor is closed (two batch-256 graph pools do not fit on the
+card) and ResNet-50 freed; then ResNet-50 as bench.py builds it for an
+accelerator, under N1_FLAGS (FLAGS_use_pallas_fused_ops off, as bench.py
+leaves it, and FLAGS_amp_bf16_param_grads on, as its main() sets it):
+  (n1) train_network(nhwc=True) at 224 px, 1000 classes, batch
+      RESNET_BATCH, AMP Momentum(0.01, 0.9), ParallelExecutor: the
+      program has 53 conv2d and 53 batch_norm ops at NHWC, no conv2d_bn
+      and one transpose (the NCHW feed's, at the stem); 2 warm-up steps
+      (the first under no_host_sync) and 5 timed captured steps: K6
+      never launches, every loss is finite, every BN running statistic
+      moves, one segment is captured, reserved memory stays under
+      RESNET_PEAK_GB;
+  (n3) its step ms, images/s, MFU, busy share and device time by kernel
+      kind (every copy kernel by name), beside r4's;
+  (n2) one NHWC step and one step of the same program built NCHW
+      (without the fused flag: the same parameter names) from one saved
+      state and batch, op by op: losses within TRAIN_LOSS_TOL, the
+      updates of NHWC_PARAMS_COMPARED by r2's rule (TRAIN_UPDATE_TOL or
+      RESNET_SPREAD_FACTOR x the NCHW step's own spread when its batch
+      statistics are summed in fp64);
+  (i2) n1's program at batch NAN_CHECK_BATCH: a step under
+      FLAGS_check_nan_inf runs op by op (the capture count does not
+      move) to a captured step's loss within NAN_CHECK_TOL, and a batch
+      with one NaN pixel raises OpExecutionError naming the first op that
+      reads the image (nothing else is caught);
+then
+  (s1) the space-to-depth stem: the retiled 4x4 conv through the port
+      (models.resnet.space_to_depth and conv2d) with s2d_filter's
+      weights equals the 7x7/2 conv within S2D_TOL in fp32, and
+      train_network(space_to_depth=True), NCHW with the fused flag, at
+      batch RESNET_BATCH: 2 + 3 steps, finite losses, K6 36 launches a
+      step, step ms logged;
+  (i1) bench_inference's ResNet-50 leg: resnet_imagenet(is_test=True,
+      nhwc=True) at batch INFER_BATCH, 224 px, fp32, its BN affine and
+      running statistics drawn from the seed (inference_model), saved
+      with save_inference_model and loaded by AnalysisPredictor: with
+      ir_optim 53 -> 0 batch_norm ops and 53 more elementwise_add, the
+      output within INFER_TOL of an ir_optim=False predictor's, a clone
+      the same bits; p50 and p99 ms a call from a host feed, and device
+      images/s from a device-resident feed, N/2N differenced as
+      bench.py's serving_throughput does.
 ResNet-50 is freed, then the long-context LM (bench.py's
 bench_long_context: vocab 32768, dim 1024, 8 heads, 4 layers, ffn 4096,
 max_len 8192, batch 2, fused LM head with chunk 8192, reader lc_reader,
@@ -1658,10 +1699,12 @@ def profile_train(tr, step_ms, sync):
 
 
 def _profile_steps(tr, step_ms, sync, label, steps=PROFILE_STEPS,
-                   step=None):
+                   step=None, by_kind_out=None):
     """torch.profiler over `steps` steps (tr.step, or `step`): device
-    time per step, its share of the unprofiled step, the top kernels and
-    the time by kernel kind. Returns (device ms, busy share or None)."""
+    time per step, its share of the unprofiled step, the top kernels,
+    the time by kernel kind (written into `by_kind_out` when given) and
+    every copy kernel by name. Returns (device ms, busy share or
+    None)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     step = step or tr.step
@@ -1696,6 +1739,14 @@ def _profile_steps(tr, step_ms, sync, label, steps=PROFILE_STEPS,
     log('%s device time by kind: %s'
         % (label, ', '.join('%s %.3f ms' % kv for kv in
                             sorted(by_kind.items(), key=lambda kv: -kv[1]))))
+    copies = sorted((e for e in events if _kernel_kind(e.key) == 'copies'),
+                    key=_device_us, reverse=True)
+    log('%s copies by name: %s'
+        % (label, '; '.join('%s %.3f ms (%d calls)'
+                            % (e.key[:80], _device_us(e) / steps / 1e3,
+                               e.count // steps) for e in copies) or 'none'))
+    if by_kind_out is not None:
+        by_kind_out.update(by_kind)
     return device_ms, busy
 
 
@@ -2571,30 +2622,43 @@ def resnet50_train_flops_per_image(image_hw, class_dim):
     return 3 * flops
 
 
-class ResNetTrainer(Trainer):
-    """bench.py's bench_resnet program (:136-158), NCHW, built with
-    FLAGS_use_pallas_fused_ops set, with its state on the card."""
+def resnet_program(nhwc=False, space_to_depth=False,
+                   reader_name='resnet_reader'):
+    """bench.py's bench_resnet program (:136-158), built under the flags
+    set now: py_reader, train_network(depth=50, nhwc=, space_to_depth=),
+    Momentum(0.01, 0.9) under contrib.mixed_precision.decorate. Returns
+    (main, startup, reader, image, avg_cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    hw = RESNET['image_hw']
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        reader = fluid.layers.py_reader(
+            capacity=4, shapes=[(-1, 3, hw, hw), (-1, 1)],
+            dtypes=['float32', 'int64'], name=reader_name,
+            use_double_buffer=True)
+        image, label = fluid.layers.read_file(reader)
+        _, avg_cost, _ = resnet.train_network(
+            image, label, class_dim=RESNET['class_dim'],
+            depth=RESNET['depth'], nhwc=nhwc, space_to_depth=space_to_depth)
+        opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+        opt = fluid.contrib.mixed_precision.decorate(opt)
+        opt.minimize(avg_cost)
+    return main, startup, reader, image, avg_cost
 
-    def __init__(self, place, batch):
+
+class ResNetTrainer(Trainer):
+    """resnet_program's step with its state on the card: NCHW with
+    FLAGS_use_pallas_fused_ops set (r1), NHWC as bench.py builds it for
+    an accelerator (n1), or NCHW with the space-to-depth stem (s1)."""
+
+    def __init__(self, place, batch, nhwc=False, space_to_depth=False,
+                 reader_name='resnet_reader'):
         import paddle_tpu_torch as fluid
-        from paddle_tpu_torch.models import resnet
         self.fluid, self.batch = fluid, batch
-        hw = RESNET['image_hw']
-        self.main, startup = fluid.Program(), fluid.Program()
-        self.main.random_seed = startup.random_seed = SEED
-        with fluid.unique_name.guard(), \
-                fluid.program_guard(self.main, startup):
-            self.reader = fluid.layers.py_reader(
-                capacity=4, shapes=[(-1, 3, hw, hw), (-1, 1)],
-                dtypes=['float32', 'int64'], name='resnet_reader',
-                use_double_buffer=True)
-            image, label = fluid.layers.read_file(self.reader)
-            _, self.avg_cost, _ = resnet.train_network(
-                image, label, class_dim=RESNET['class_dim'],
-                depth=RESNET['depth'])
-            opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
-            opt = fluid.contrib.mixed_precision.decorate(opt)
-            opt.minimize(self.avg_cost)
+        (self.main, startup, self.reader, self.image,
+         self.avg_cost) = resnet_program(nhwc, space_to_depth, reader_name)
         self.scope = fluid.Scope()
         fluid.Executor(place).run(startup, scope=self.scope)
         self.pe = fluid.ParallelExecutor(
@@ -3088,16 +3152,19 @@ def check_fused_pair(place):
     return worst
 
 
-@phase('r4: ResNet-50 step time, images/s, MFU, device time')
-def profile_resnet(tr, step_ms, sync):
+def _profile_resnet(tr, step_ms, sync, label):
+    """images/s and MFU of a ResNet-50 step of step_ms (bench.py's FLOPs
+    per image over the bf16 dense peak), then a fresh batch, two steps
+    and PROFILE_STEPS profiled. Returns (images/s, MFU, device ms, busy
+    share, {kernel kind: device ms})."""
     import torch
     fl = resnet50_train_flops_per_image(RESNET['image_hw'],
                                         RESNET['class_dim'])
     img_s = RESNET_BATCH / step_ms * 1e3
     mfu = img_s * fl / PEAK_BF16_FLOPS
-    log('ResNet-50 step: %.3f ms, %.1f images/s, %.1f TFLOP/s at %.3f GFLOP '
-        'per image, MFU %.4f of the %.1f TFLOP/s bf16 dense peak'
-        % (step_ms, img_s, img_s * fl / 1e12, fl / 1e9, mfu,
+    log('%s: %.3f ms, %.1f images/s, %.1f TFLOP/s at %.3f GFLOP per image, '
+        'MFU %.4f of the %.1f TFLOP/s bf16 dense peak'
+        % (label, step_ms, img_s, img_s * fl / 1e12, fl / 1e9, mfu,
            PEAK_BF16_FLOPS / 1e12))
     batch = image_batch(np.random.RandomState(1), RESNET_BATCH,
                         torch.device('cuda', 0))
@@ -3106,12 +3173,552 @@ def profile_resnet(tr, step_ms, sync):
         while True:
             yield batch
     tr.feed(provider)
-    tr.step()       # r2 left a new executor: the warm-up, then the capture
+    tr.step()       # after a new executor: the warm-up, then the capture
     tr.step()
     sync()
-    device_ms, busy = _profile_steps(tr, step_ms, sync, 'ResNet-50 step')
+    by_kind = {}
+    device_ms, busy = _profile_steps(tr, step_ms, sync, label,
+                                     by_kind_out=by_kind)
     tr.reader.reset()
-    return img_s, mfu, device_ms, busy
+    return img_s, mfu, device_ms, busy, by_kind
+
+
+@phase('r4: ResNet-50 step time, images/s, MFU, device time')
+def profile_resnet(tr, step_ms, sync):
+    return _profile_resnet(tr, step_ms, sync, 'ResNet-50 step')
+
+
+# -- (n1)-(n3), (i2): bench.py's accelerator ResNet-50 (NHWC) ---------------
+
+# bench.py builds ResNet-50 NHWC on an accelerator (bench_resnet :148),
+# with FLAGS_use_pallas_fused_ops at its default and bf16 parameter
+# grads (main :524-527); set for n1-n3 and i2, restored after
+N1_FLAGS = {'FLAGS_use_pallas_fused_ops': False,
+            'FLAGS_amp_bf16_param_grads': True}
+# the stem conv, a stage-1 1x1 conv and fc of the unfused program
+NHWC_PARAMS_COMPARED = ('conv2d_0.w_0', 'conv2d_2.w_0', 'fc_0.w_0')
+RESNET_CONV_BN = 53          # conv + BN pairs of ResNet-50
+NAN_CHECK_BATCH = 32
+NAN_CHECK_TOL = 1e-5         # the flagged step's loss vs the captured one
+S2D_TOL = 1e-5               # tests/test_resnet_s2d.py's bound
+S2D_BATCH = 8
+S2D_TIMED_STEPS = 3
+INFER_BATCH = 16             # bench_inference's ResNet leg (:377-410)
+INFER_ITERS = 20
+INFER_TOL = 2e-4             # tests/test_parity_modules.py:252
+
+
+@contextlib.contextmanager
+def flags_set(flags):
+    """set_flags(flags) for the body, the earlier values restored after."""
+    import paddle_tpu_torch as fluid
+    prev = fluid.get_flags(list(flags))
+    fluid.set_flags(flags)
+    try:
+        yield
+    finally:
+        fluid.set_flags(prev)
+
+
+def check_nhwc_program(program):
+    """bench.py's accelerator ResNet-50: RESNET_CONV_BN conv2d and
+    batch_norm ops, all NHWC, no conv2d_bn, one transpose (the stem's, of
+    the NCHW feed). Returns the op count."""
+    ops = program.global_block().ops
+    convs = [op for op in ops if op.type == 'conv2d']
+    bns = [op for op in ops if op.type == 'batch_norm']
+    fused = sum(op.type == 'conv2d_bn' for op in ops)
+    transposes = sum(op.type == 'transpose2' for op in ops)
+    log('NHWC program: %d ops, %d conv2d (%d NHWC), %d batch_norm (%d NHWC), '
+        '%d conv2d_bn, %d transpose2'
+        % (len(ops), len(convs),
+           sum(op.attr('data_format') == 'NHWC' for op in convs), len(bns),
+           sum(op.attr('data_layout') == 'NHWC' for op in bns), fused,
+           transposes))
+    if not (len(convs) == len(bns) == RESNET_CONV_BN and fused == 0 and
+            transposes == 1 and
+            all(op.attr('data_format') == 'NHWC' for op in convs) and
+            all(op.attr('data_layout') == 'NHWC' for op in bns)):
+        raise AssertionError('the NHWC program is not bench.py\'s: want %d '
+                             'NHWC conv2d and batch_norm ops, no conv2d_bn '
+                             'and one transpose' % RESNET_CONV_BN)
+    return len(ops)
+
+
+@phase('n1: bench.py\'s accelerator ResNet-50 (NHWC, conv2d + batch_norm, '
+       'bf16 parameter grads)')
+def nhwc_steps(place, sync):
+    import torch
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    t0 = time.perf_counter()
+    tr = ResNetTrainer(place, RESNET_BATCH, nhwc=True)
+    n_ops = check_nhwc_program(tr.main)
+    log('built and initialised in %.1f s' % (time.perf_counter() - t0))
+    stats = [n for n in tr.persistables if n.endswith(('.mean', '.variance'))]
+    stats0 = {n: tr.scope.find_var(n).clone() for n in stats}
+    batch = image_batch(np.random.RandomState(0), RESNET_BATCH,
+                        place.device)
+
+    def provider():
+        while True:
+            yield batch
+    tr.feed(provider)
+    torch.cuda.reset_peak_memory_stats()
+    losses = [tr.step(sync_checked=True)]
+    losses += [tr.step() for _ in range(WARMUP_STEPS - 1)]
+    sync()
+    k6.reset_launches()
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(TIMED_STEPS)]
+    sync()
+    wall = time.perf_counter() - t0
+    launches = k6.matmul_bn_stats_kernel.launches
+    peak_gb = peak_memory_gb()
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9
+    step_ms = wall / TIMED_STEPS * 1e3
+    moved = sum(not torch.equal(tr.scope.find_var(n), stats0[n])
+                for n in stats)
+    segments = device_segments(tr.main)
+    captured = tr.pe.jit_cache_stats()['compiled_segments']
+    log('losses: %s' % ', '.join('%.6f' % x for x in losses))
+    log('timed steps: %d in %.3f s, %.3f ms per step, %.1f images/s; K6 '
+        'launches %d; BN running statistics moved: %d of %d; captured '
+        'segments %d (the program has %d); peak device memory %.2f GB '
+        'allocated, %.2f GB reserved'
+        % (TIMED_STEPS, wall, step_ms, RESNET_BATCH / step_ms * 1e3,
+           launches, moved, len(stats), captured, segments, peak_gb,
+           reserved_gb))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('an NHWC loss is not finite: %r' % losses)
+    if launches:
+        raise AssertionError('K6 launched %d times on the NHWC path' %
+                             launches)
+    if moved != len(stats) or len(stats) != 2 * RESNET_CONV_BN:
+        raise AssertionError('BN running statistics moved for %d of %d vars'
+                             % (moved, len(stats)))
+    if captured != segments or segments != 1:
+        raise AssertionError('%d segments captured, the program has %d: '
+                             'want one' % (captured, segments))
+    if reserved_gb > RESNET_PEAK_GB:
+        raise AssertionError('peak reserved device memory %.2f GB over the '
+                             '%g GB the batch of %d is held to'
+                             % (reserved_gb, RESNET_PEAK_GB, RESNET_BATCH))
+    return tr, dict(losses=losses, step_ms=step_ms, peak_gb=peak_gb,
+                    reserved_gb=reserved_gb, n_ops=n_ops)
+
+
+@phase('n3: the NHWC step\'s time, images/s, MFU, device time')
+def profile_nhwc(tr, step_ms, sync):
+    return _profile_resnet(tr, step_ms, sync, 'NHWC ResNet-50 step')
+
+
+def _bn_batch_stats_fp64(x, axes):
+    """batch_norm's batch statistics with the sums taken in fp64: the
+    same math in another order of summation (n2's yardstick)."""
+    import torch
+    xd = x.double()
+    m = 1
+    for i in axes:
+        m *= x.shape[i]
+    mean = torch.sum(xd, dim=axes) / m
+    var = torch.clamp(torch.sum(xd * xd, dim=axes) / m - mean * mean,
+                      min=0.0)
+    return mean.float(), var.float()
+
+
+@phase('n2: the NHWC step vs the NCHW step from one saved state')
+def check_nhwc_vs_nchw(tr, place):
+    """One step of n1's program from its saved state, and one step of the
+    same program built NCHW (without the fused flag, so the same
+    parameter names) from the same state and batch, both op by op: the
+    losses within TRAIN_LOSS_TOL, the updates of NHWC_PARAMS_COMPARED by
+    t2's measure within TRAIN_UPDATE_TOL or RESNET_SPREAD_FACTOR x the
+    NCHW step's own spread when its batch statistics are summed in fp64,
+    whichever is larger (r2's rule: the bf16 step amplifies any
+    reordering of fp32 sums)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.ops import nn_ops
+    batch = image_batch(np.random.RandomState(SEED + 5), RESNET_BATCH)
+    saved = tr.snapshot()
+    # the captured step's pool and an eager step do not fit together
+    tr.drop_graphs()
+    # a reader of its own: the read op finds its reader by name
+    nchw = ResNetTrainer(place, RESNET_BATCH, reader_name='resnet_nchw')
+    if sorted(nchw.persistables) != sorted(tr.persistables):
+        raise AssertionError('the NCHW and NHWC programs name their '
+                             'persistables differently')
+    eager = fluid.Executor(place)
+    params = NHWC_PARAMS_COMPARED
+    nhwc = _one_step(tr, saved, batch, params, eager)
+    plain = _one_step(nchw, saved, batch, params, eager)
+    stats_fn = nn_ops._bn_batch_stats
+    nn_ops._bn_batch_stats = _bn_batch_stats_fp64
+    try:
+        reordered = _one_step(nchw, saved, batch, params, eager)
+    finally:
+        nn_ops._bn_batch_stats = stats_fn
+    tr.restore(saved)
+    nchw.drop_graphs()
+    spread = _update_diffs(reordered, plain, params)
+    got = _update_diffs(nhwc, plain, params)
+    loss_diff = abs(nhwc[0] - plain[0])
+    bound = {n: max(TRAIN_UPDATE_TOL, RESNET_SPREAD_FACTOR * spread[n])
+             for n in params}
+    log('NHWC step vs NCHW step: loss %.6f vs %.6f (|diff| %.3e, tol %g; '
+        'fp64-sum NCHW step %.6f, |diff| %.3e); update max diff / max '
+        'update: %s; the NCHW step\'s spread under fp64 sums: %s (tol: the '
+        'larger of %g and %g x that spread)'
+        % (nhwc[0], plain[0], loss_diff, TRAIN_LOSS_TOL, reordered[0],
+           abs(reordered[0] - plain[0]),
+           ', '.join('%s %.3e' % kv for kv in got.items()),
+           ', '.join('%s %.3e' % kv for kv in spread.items()),
+           TRAIN_UPDATE_TOL, RESNET_SPREAD_FACTOR))
+    bad = [n for n in params if not got[n] <= bound[n]]
+    if not np.isfinite(nhwc[0]) or loss_diff > TRAIN_LOSS_TOL or bad:
+        raise AssertionError('the NHWC and NCHW steps disagree beyond the '
+                             'stated tolerance (%s)' % bad)
+    return dict(loss_diff=loss_diff, updates=got, spread=spread)
+
+
+def first_reader_of(program, name):
+    """(index, op) of the first op of the program's global block that
+    reads `name`."""
+    for i, op in enumerate(program.global_block().ops):
+        if name in op.input_arg_names():
+            return i, op
+    raise AssertionError('no op reads %r' % name)
+
+
+def check_nan_error(program, image, run_bad):
+    """run_bad() must raise OpExecutionError for a NaN in `image`, naming
+    the first op that reads it; any other outcome fails (nothing else is
+    caught). Returns the message."""
+    from paddle_tpu_torch.executor import OpExecutionError
+    pos, op = first_reader_of(program, image)
+    try:
+        run_bad()
+    except OpExecutionError as e:
+        msg = str(e)
+    else:
+        raise AssertionError('FLAGS_check_nan_inf: a NaN in %r raised no '
+                             'OpExecutionError' % image)
+    want = 'op #%d %r' % (pos, op.type)
+    log('a NaN pixel under FLAGS_check_nan_inf: %s' % msg.splitlines()[0])
+    if 'NaN/Inf detected in output' not in msg or want not in msg:
+        raise AssertionError('FLAGS_check_nan_inf named another op than '
+                             '%s, the first reader of %r: %s'
+                             % (want, image, msg))
+    return msg
+
+
+@phase('i2: FLAGS_check_nan_inf on the card (n1\'s program at batch %d)'
+       % NAN_CHECK_BATCH)
+def check_nan_inf_mode(tr, sync):
+    """From one saved state: a captured step (warm-up, then the capture
+    and its replay) and a step under FLAGS_check_nan_inf, which runs op
+    by op (the capture count does not move) to the captured step's loss
+    within NAN_CHECK_TOL; then a batch with one NaN pixel must raise
+    OpExecutionError naming the first op that reads the image."""
+    rng = np.random.RandomState(SEED + 7)
+    batch = image_batch(rng, NAN_CHECK_BATCH)
+    saved = tr.snapshot()
+    tr.fresh_executor()
+    _one_step(tr, saved, batch, ())
+    captured = _one_step(tr, saved, batch, ())[0]
+    before = tr.pe.jit_cache_stats()['compiled_segments']
+    with flags_set({'FLAGS_check_nan_inf': True}):
+        t0 = time.perf_counter()
+        checked = _one_step(tr, saved, batch, ())[0]
+        sync()
+        checked_ms = (time.perf_counter() - t0) * 1e3
+        after = tr.pe.jit_cache_stats()['compiled_segments']
+        bad = [batch[0].copy(), batch[1]]
+        hw = RESNET['image_hw']
+        bad[0][NAN_CHECK_BATCH // 2, 1, hw // 2, hw // 3] = float('nan')
+        try:
+            msg = check_nan_error(tr.main, tr.image.name,
+                                  lambda: _one_step(tr, saved, bad, ()))
+        finally:
+            tr.reader.reset()
+    tr.restore(saved)
+    tr.drop_graphs()
+    diff = abs(checked - captured)
+    log('batch %d: captured step loss %.6f, checked step (op by op, every '
+        'output scanned) %.6f, |diff| %.3e (tol %g), %.1f ms; captured '
+        'segments %d before the checked step, %d after'
+        % (NAN_CHECK_BATCH, captured, checked, diff, NAN_CHECK_TOL,
+           checked_ms, before, after))
+    if after != before or before < 1:
+        raise AssertionError('the checked step was captured (%d -> %d)'
+                             % (before, after))
+    if not np.isfinite(checked) or diff > NAN_CHECK_TOL:
+        raise AssertionError('the checked step\'s loss is not the captured '
+                             'step\'s')
+    return dict(loss_diff=diff, checked_ms=checked_ms, message=msg)
+
+
+# -- (s1): the space-to-depth stem ----------------------------------------------
+
+def s2d_filter(w):
+    """[O, C, 7, 7] -> [O, 4C, 4, 4]: the space-to-depth stem's filter,
+    w'[o, c*4+di*2+dj, m, n] = w[o, c, 2m+di-1, 2n+dj-1], zero outside
+    the 7x7 support."""
+    import torch
+    O, C = w.shape[:2]
+    w4 = w.new_zeros((O, C * 4, 4, 4))
+    chans = torch.arange(C, device=w.device) * 4
+    for di in range(2):
+        for dj in range(2):
+            for m in range(4):
+                for n in range(4):
+                    u, v = 2 * m + di - 1, 2 * n + dj - 1
+                    if 0 <= u < 7 and 0 <= v < 7:
+                        w4[:, chans + di * 2 + dj, m, n] = w[:, :, u, v]
+    return w4
+
+
+def s2d_stem_conv(x, w4):
+    """The retiled stem through the port on x's device: models.resnet's
+    space_to_depth (reshape, transpose, reshape, pad) and a 4x4 conv2d
+    with filter w4, fp32."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    _, C, H, W = x.shape
+    prog, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        xv = fluid.layers.data(name='x', shape=[C, H, W], dtype='float32')
+        out = fluid.layers.conv2d(
+            resnet.space_to_depth(xv), num_filters=w4.shape[0],
+            filter_size=4, bias_attr=False,
+            param_attr=fluid.ParamAttr(name='stem4.w'))
+    place = fluid.CPUPlace() if x.device.type == 'cpu' \
+        else fluid.CUDAPlace(x.device.index or 0)
+    scope = fluid.Scope()
+    scope.set_var('stem4.w', w4)
+    return fluid.Executor(place).run(prog, feed={'x': x}, fetch_list=[out],
+                                     scope=scope, return_numpy=False)[0]
+
+
+@phase('s1: the space-to-depth stem (exactness; ResNet-50 with it, NCHW, '
+       'K6)')
+def s2d_steps(place, sync):
+    import torch
+    import torch.nn.functional as F
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    dev = place.device
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    hw = RESNET['image_hw']
+    x = torch.rand((S2D_BATCH, 3, hw, hw), generator=gen, device=dev)
+    w = torch.randn((64, 3, 7, 7), generator=gen, device=dev) * 0.1
+    want = F.conv2d(x, w, stride=2, padding=3)
+    got = s2d_stem_conv(x, s2d_filter(w))
+    err = (got - want).abs().max().item()
+    log('the retiled 4x4 stem vs the 7x7/2 conv, [%d, 3, %d, %d] fp32: max '
+        '|diff| %.3e (tol %g, relative to max |y| %.3f)'
+        % (S2D_BATCH, hw, hw, err, S2D_TOL, want.abs().max().item()))
+    if tuple(got.shape) != tuple(want.shape) or \
+            not err <= S2D_TOL * max(1.0, want.abs().max().item()):
+        raise AssertionError('the space-to-depth stem is not the 7x7 stem')
+    # r1's configuration: NCHW, every conv + BN one conv2d_bn, whose 1x1
+    # path runs K6 (the flag is read when the program is built and when
+    # the op runs)
+    with flags_set({'FLAGS_use_pallas_fused_ops': True}):
+        tr = ResNetTrainer(place, RESNET_BATCH, space_to_depth=True)
+        path_shapes = k6_path_shapes(tr.main, RESNET_BATCH)
+        per_step = sum(path_shapes.values())
+        ops = [op.type for op in tr.main.global_block().ops]
+        batch = image_batch(np.random.RandomState(0), RESNET_BATCH, dev)
+
+        def provider():
+            while True:
+                yield batch
+        tr.feed(provider)
+        losses = [tr.step() for _ in range(WARMUP_STEPS)]
+        sync()
+        k6.reset_launches()
+        t0 = time.perf_counter()
+        losses += [tr.step() for _ in range(S2D_TIMED_STEPS)]
+        sync()
+        step_ms = (time.perf_counter() - t0) / S2D_TIMED_STEPS * 1e3
+    launches = k6.matmul_bn_stats_kernel.launches
+    log('s2d program: %d conv2d_bn, %d pad; losses: %s; %d timed steps, '
+        '%.3f ms per step, %.1f images/s; K6 launches %d (want %d x %d)'
+        % (ops.count('conv2d_bn'), ops.count('pad'),
+           ', '.join('%.6f' % v for v in losses), S2D_TIMED_STEPS, step_ms,
+           RESNET_BATCH / step_ms * 1e3, launches, per_step,
+           S2D_TIMED_STEPS))
+    tr.drop_graphs()
+    if not all(np.isfinite(losses)):
+        raise AssertionError('an s2d loss is not finite: %r' % losses)
+    if ops.count('pad') != 1 or per_step != 36 or \
+            launches != per_step * S2D_TIMED_STEPS:
+        raise AssertionError('K6 launched %d times in %d s2d steps, want 36 '
+                             'a step' % (launches, S2D_TIMED_STEPS))
+    return dict(stem_err=err, losses=losses, step_ms=step_ms,
+                launches=launches)
+
+
+# -- (i1): bench_inference's ResNet-50 leg ----------------------------------------
+
+def inference_model(model_dir, place, batch, hw, classes, depth, seed):
+    """bench_inference's ResNet program (resnet_imagenet(is_test=True,
+    nhwc=True)), initialised on `place`, saved with save_inference_model
+    into model_dir. So that the fold is not the identity, each batch
+    norm's affine is drawn from `seed`, and its running statistics are
+    the batch statistics it sees in one training-mode forward over a
+    batch drawn from `seed` (as training would leave them: the
+    activations stay normalised, and the softmax is not saturated).
+    Returns the input name."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+
+    def build(is_test):
+        main, startup = fluid.Program(), fluid.Program()
+        main.random_seed = startup.random_seed = seed
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            image = fluid.layers.data(name='image', shape=[3, hw, hw],
+                                      dtype='float32')
+            pred = resnet.resnet_imagenet(image, class_dim=classes,
+                                          depth=depth, is_test=is_test,
+                                          nhwc=True)
+        return main, startup, pred
+    main, startup, pred = build(True)
+    calib = build(False)[0]
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(seed)
+    bns = [op for op in main.global_block().ops if op.type == 'batch_norm']
+    for op in bns:
+        c = main.global_block().var(op.single_input('Scale')).shape[0]
+        fluid.io.load_numpy_params(scope, {
+            op.single_input('Scale'): (1.0 + 0.1 * rng.randn(c)).astype(
+                'float32'),
+            op.single_input('Bias'): (0.1 * rng.randn(c)).astype('float32')},
+            place, program=main)
+    # the same network in training mode (the same names): each batch
+    # norm's SavedMean / SavedVariance
+    saved = [op.single_output(s) for op in calib.global_block().ops
+             if op.type == 'batch_norm'
+             for s in ('SavedMean', 'SavedVariance')]
+    stats = exe.run(calib, feed={'image': rng.rand(batch, 3, hw, hw)
+                                 .astype('float32')},
+                    fetch_list=saved, scope=scope, use_program_cache=False)
+    for op, mean, var in zip(bns, stats[0::2], stats[1::2]):
+        fluid.io.load_numpy_params(scope, {op.single_input('Mean'): mean,
+                                           op.single_input('Variance'): var},
+                                   place, program=main)
+    with fluid.scope_guard(scope):
+        fluid.io.save_inference_model(model_dir, ['image'], [pred], exe,
+                                      main_program=main)
+    return 'image'
+
+
+def op_counts(predictor):
+    types = [op.type for op in predictor._program.global_block().ops]
+    return {t: types.count(t) for t in ('batch_norm', 'elementwise_add',
+                                        'conv2d')}
+
+
+def check_fold(folded, plain, img, runs=3):
+    """The folded predictor against the ir_optim=False one on `img`:
+    batch_norm ops gone, each replaced by one elementwise_add, outputs
+    within INFER_TOL; a clone of the folded one gives its bits. Each
+    predictor runs `runs` times (on the card: warm-up, capture, replay)
+    and its last output is compared. Returns (max |diff|, op counts)."""
+    cf, cp = op_counts(folded), op_counts(plain)
+    outs = {}
+    clone = folded.clone()
+    for name, p in (('folded', folded), ('plain', plain), ('clone', clone)):
+        for _ in range(runs):
+            outs[name] = p.run([img])[0]
+    err = float(np.abs(outs['folded'] - outs['plain']).max())
+    same = bool(np.array_equal(outs['clone'], outs['folded']))
+    log('ir_optim: batch_norm %d -> %d, elementwise_add %d -> %d, conv2d %d '
+        '-> %d; folded vs unfolded output max |diff| %.3e (tol %g; outputs '
+        'in [%.3e, %.3e]); the clone gives the same bits: %s'
+        % (cp['batch_norm'], cf['batch_norm'], cp['elementwise_add'],
+           cf['elementwise_add'], cp['conv2d'], cf['conv2d'], err,
+           INFER_TOL, outs['plain'].min(), outs['plain'].max(), same))
+    if not (cf['batch_norm'] == 0 and cp['batch_norm'] > 0 and
+            cf['elementwise_add'] == cp['elementwise_add'] +
+            cp['batch_norm'] and cf['conv2d'] == cp['conv2d']):
+        raise AssertionError('the fold did not replace every batch_norm by '
+                             'one elementwise_add: %r vs %r' % (cf, cp))
+    if not np.isfinite(outs['folded']).all() or err > INFER_TOL or not same:
+        raise AssertionError('the folded predictor disagrees with the '
+                             'unfolded one or with its clone')
+    return err, cf, cp
+
+
+def _latency_ms(fn, iters):
+    """bench.py's _latency_stats: p50, p99 and mean ms of fn()."""
+    lats = []
+    for _ in range(iters):
+        t0 = time.perf_counter()
+        fn()
+        lats.append(time.perf_counter() - t0)
+    lats.sort()
+    p50 = lats[len(lats) // 2]
+    p99 = lats[min(len(lats) - 1, int(len(lats) * 0.99))]
+    return p50 * 1e3, p99 * 1e3, sum(lats) / len(lats) * 1e3
+
+
+def serving_throughput(predictor, feed, batch, iters, sync):
+    """bench.py's serving_throughput (:313-342): predictor.run(feed,
+    return_numpy=False) on a device-resident feed, synchronised once,
+    N/2N differenced; N doubles until the differenced work is more than
+    half the shorter run. Returns (images/s, ms per batch) or (None,
+    None)."""
+    def _loop(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            predictor.run(feed, return_numpy=False)
+        sync()
+        return time.perf_counter() - t0
+    _loop(3)
+    for _ in range(4):
+        w1, w2 = _loop(iters), _loop(2 * iters)
+        d = w2 - w1
+        if d > 0.5 * w1:
+            return batch * iters / d, d / iters * 1e3
+        iters *= 2
+    return None, None
+
+
+@phase('i1: bench_inference\'s ResNet-50 leg (batch %d, 224 px, NHWC) '
+       'through AnalysisPredictor\'s batch-norm fold' % INFER_BATCH)
+def inference_leg(place, sync):
+    import torch
+    from paddle_tpu_torch.inference import AnalysisConfig, AnalysisPredictor
+    hw = RESNET['image_hw']
+    build_root = os.path.join(HERE, 'build')
+    os.makedirs(build_root, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build_root) as model_dir:
+        name = inference_model(model_dir, place, INFER_BATCH, hw,
+                               RESNET['class_dim'], RESNET['depth'], SEED)
+        folded = AnalysisPredictor(AnalysisConfig(model_dir, place=place))
+        plain = AnalysisPredictor(AnalysisConfig(model_dir, place=place)
+                                  .switch_ir_optim(False))
+    img = np.random.RandomState(SEED + 9).rand(
+        INFER_BATCH, 3, hw, hw).astype('float32')
+    err, cf, cp = check_fold(folded, plain, img)
+    del plain
+    p50, p99, mean = _latency_ms(lambda: folded.run([img]), INFER_ITERS)
+    feed = {name: torch.from_numpy(img).to(place.device)}
+    thr, ms = serving_throughput(folded, feed, INFER_BATCH, INFER_ITERS,
+                                 sync)
+    log('ResNet-50 inference, batch %d, fp32, folded: host feed p50 %.3f ms, '
+        'p99 %.3f ms, mean %.3f ms (%.1f images/s); device-resident feed '
+        '%s images/s (%s ms a batch, N/2N differenced)'
+        % (INFER_BATCH, p50, p99, mean, INFER_BATCH / mean * 1e3,
+           'not measured' if thr is None else '%.1f' % thr,
+           'not measured' if ms is None else '%.3f' % ms))
+    if thr is None:
+        raise AssertionError('the device throughput was not measured: the '
+                             'differenced work never dominated')
+    return dict(err=err, p50=p50, p99=p99, images_s=thr, batch_ms=ms,
+                folded=cf, plain=cp)
 
 
 # -- (l1)-(l3): the long-context LM under twopass / onepass ------------------
@@ -4139,12 +4746,28 @@ def main():
         x5 = check_second_shape(rtr, place, sync)
         r_plain_diffs = check_resnet_plain_step(rtr)
         pair_diffs = check_fused_pair(place)
-        img_s, r_mfu, r_device_ms, r_busy = profile_resnet(rtr, r_step_ms,
-                                                           sync)
+        img_s, r_mfu, r_device_ms, r_busy, r_kinds = profile_resnet(
+            rtr, r_step_ms, sync)
         x1['ResNet-50'] = check_captured_steps(
             rtr, 'the ResNet-50 step', RESNET_PARAMS_COMPARED, 'spread',
             place, sync)
+        # r1's executor is closed before n1: two batch-256 graph pools do
+        # not fit on the card together
+        rtr.drop_graphs()
         del rtr
+        free_device_memory()
+
+        with flags_set(N1_FLAGS):
+            ntr, n1 = nhwc_steps(place, sync)
+            n_img_s, n_mfu, n_device_ms, n_busy, n_kinds = profile_nhwc(
+                ntr, n1['step_ms'], sync)
+            n2 = check_nhwc_vs_nchw(ntr, place)
+            i2 = check_nan_inf_mode(ntr, sync)
+        del ntr
+        free_device_memory()
+        s1 = s2d_steps(place, sync)
+        free_device_memory()
+        i1 = inference_leg(place, sync)
         free_device_memory()
 
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
@@ -4229,6 +4852,23 @@ def main():
            r_peak_gb, len(r_losses), r_losses[-1], r_launches,
            r_plain_diffs[0],
            ', '.join('%s %.3e' % (k, v[0]) for k, v in pair_diffs.items())))
+    log('ResNet-50 as bench.py builds it for an accelerator (NHWC, conv2d '
+        '+ batch_norm, bf16 parameter grads, batch %d): step %.3f ms, %.1f '
+        'images/s, MFU %.4f, device %s ms, busy %s, copies %.3f ms and '
+        'elementwise %.3f ms a step (NCHW r4: %.3f ms, %.1f images/s, device '
+        '%s ms, busy %s, copies %.3f ms, elementwise %.3f ms), peak %.2f GB '
+        'allocated / %.2f GB reserved, %d ops; NHWC vs NCHW step loss |diff| '
+        '%.3e; check_nan_inf step %.1f ms, loss |diff| %.3e; s2d stem max '
+        '|diff| %.3e, s2d step %.3f ms; inference batch %d p50 %.3f ms, p99 '
+        '%.3f ms, device %.1f images/s, folded vs unfolded %.3e'
+        % (RESNET_BATCH, n1['step_ms'], n_img_s, n_mfu,
+           _fmt_ms(n_device_ms or None), _fmt_busy(n_busy),
+           n_kinds.get('copies', 0.0), n_kinds.get('elementwise', 0.0),
+           r_step_ms, img_s, _fmt_ms(r_device_ms or None), _fmt_busy(r_busy),
+           r_kinds.get('copies', 0.0), r_kinds.get('elementwise', 0.0),
+           n1['peak_gb'], n1['reserved_gb'], n1['n_ops'], n2['loss_diff'],
+           i2['checked_ms'], i2['loss_diff'], s1['stem_err'], s1['step_ms'],
+           INFER_BATCH, i1['p50'], i1['p99'], i1['images_s'], i1['err']))
     log('long-context training (T %d, batch %d, twopass/onepass): step %.3f '
         'ms, %.1f tokens/s, MFU %.4f (causal count), %.4f (executed), '
         'device busy %s, peak device memory %.2f GB, loss after %d steps '

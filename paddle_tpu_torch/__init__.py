@@ -62,6 +62,7 @@ from .flags import set_flags, get_flag, get_flags
 from . import inference
 from . import models
 from . import transpiler
+from .transpiler import InferenceTranspiler
 from . import serving
 
 __all__ = [
@@ -73,5 +74,5 @@ __all__ = [
     'set_flags', 'get_flag', 'get_flags', 'inference', 'models',
     'transpiler', 'serving', 'backward', 'append_backward',
     'calc_gradient', 'regularizer', 'clip', 'optimizer', 'contrib',
-    'reader', 'core', 'ParallelExecutor',
+    'reader', 'core', 'ParallelExecutor', 'InferenceTranspiler',
 ]

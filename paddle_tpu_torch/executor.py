@@ -20,7 +20,12 @@ device segment of a block into one XLA computation and replays it; here:
   segments. A capture that fails raises OpExecutionError;
 - on the CPU, and with use_program_cache=False anywhere, every op runs
   eagerly, and nothing is captured (jit_cache_stats: the JAX package's
-  four keys; compiled_segments counts captures).
+  four keys; compiled_segments counts captures);
+- under FLAGS_check_nan_inf every device segment runs op by op, eagerly
+  and never captured, and each floating output (bf16 included) is read
+  back and scanned: the first NaN or Inf raises OpExecutionError naming
+  the op and the output, with the JAX package's message. These per-op
+  host reads happen in this mode only.
 Each op's emitter (registry.py) computes with PyTorch on the place's
 tensors. Feeds go numpy -> tensor on the place; fetches come back as
 numpy unless return_numpy=False (then, on the captured path, a copy: the
@@ -59,7 +64,7 @@ import numpy as np
 import torch
 
 from . import kernels, registry
-from .flags import get_flags
+from .flags import get_flag, get_flags
 from .framework import default_main_program, Program, Variable
 from .reader.pipeline import EOFException
 
@@ -406,6 +411,19 @@ def _run_recorded(ctx, opdef, op):
         ctx.overrides = None
     outs = {n: ctx.local[n] for n in op.output_arg_names() if n in ctx.local}
     ctx.records[registry.record_key(op.type, op.outputs)] = (leaves, outs)
+
+
+def check_finite(ctx, op, pos):
+    """FLAGS_check_nan_inf: raise OpExecutionError naming the op and the
+    first of its floating outputs that holds a NaN or an Inf (one host
+    read per output)."""
+    for name in op.output_arg_names():
+        val = ctx.local.get(name)
+        if isinstance(val, torch.Tensor) and val.is_floating_point() and \
+                not bool(torch.isfinite(val).all()):
+            raise OpExecutionError(
+                'NaN/Inf detected in output %r of %s'
+                % (name, _describe_op(op, ctx.block, pos)))
 
 
 def run_op(ctx, op, pos):
@@ -765,12 +783,18 @@ class Executor(object):
         ctx = EmitContext(self, program, prepared.block, scope, local)
         ctx.wanted = prepared.wanted
         drop = prepared.drop
+        check_nan_inf = get_flag('check_nan_inf')
         with torch.no_grad():
             for step in prepared.steps:
                 if isinstance(step, _HostStep):
                     run_op(ctx, step.op, step.op_offset)
                     for name in drop.get(step.op_offset, ()):
                         local.pop(name, None)
+                    continue
+                if check_nan_inf:
+                    # op by op, never captured, as the JAX package runs
+                    # the segment eagerly in this mode
+                    self._run_ops(step, ctx, drop, checked=True)
                     continue
                 ctx.generators = step.generators
                 ctx.op_generators = step.op_generators
@@ -801,10 +825,12 @@ class Executor(object):
         return results
 
     @staticmethod
-    def _run_ops(step, ctx, drop):
+    def _run_ops(step, ctx, drop, checked=False):
         local = ctx.local
         for op, pos in zip(step.ops, step.op_offsets):
             run_op(ctx, op, pos)
+            if checked:
+                check_finite(ctx, op, pos)
             for name in drop.get(pos, ()):
                 local.pop(name, None)
 

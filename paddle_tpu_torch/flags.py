@@ -2,6 +2,11 @@
 holding only the flags this package reads).
 
 Known flags:
+  check_nan_inf          the Executor runs each device segment op by op,
+                         eagerly (never captured), and raises
+                         OpExecutionError naming the first op whose
+                         floating output holds a NaN or an Inf (a debug
+                         mode: one host read an op); off by default
   use_flash_attention    route the flash_attention op through the
                          hand-written kernel for CUDA tensors
                          (kernels/flash_attention.py); False selects the
@@ -20,6 +25,10 @@ Known flags:
                          bf16 (optimizer.py); the update math runs in the
                          parameter's dtype and stores back in bf16
                          (ops/optimizer_ops.py); off by default
+  ckpt_verify            io.save_vars writes a CHECKPOINT_DIGESTS manifest
+                         of the files it wrote, and io.load_vars verifies
+                         the files it reads against it before loading
+                         (checkpoint/manifest.py); off by default
   serving_slots          KV-cache slot-pool size per DecodePredictor
   serving_prefill_batch  prompts per prefill call
   serving_max_queue      ServingEngine admission queue bound
@@ -33,10 +42,12 @@ import os
 __all__ = ['set_flags', 'get_flag', 'get_flags']
 
 _DEFAULTS = {
+    'check_nan_inf': False,
     'use_flash_attention': True,
     'use_pallas_fused_ops': False,
     'amp_bf16_param_grads': False,
     'bf16_momentum': False,
+    'ckpt_verify': False,
     'serving_slots': 8,
     'serving_prefill_batch': 1,
     'serving_max_queue': 256,

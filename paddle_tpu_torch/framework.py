@@ -286,6 +286,10 @@ class Block(object):
         registry.infer_shape(op, self)
         return op
 
+    def remove_op(self, index):
+        self.ops.pop(index)
+        self.program._bump_version()
+
     def to_string(self):
         lines = ['-- block %d (parent %d) --' % (self.idx, self.parent_idx)]
         for v in self.vars.values():

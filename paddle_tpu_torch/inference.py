@@ -6,9 +6,9 @@ clone() shares that Scope, so serving workers do not duplicate the
 weights in device memory. With no place given the place is CUDAPlace(0),
 and a machine without a card raises (pass CPUPlace() to run on the CPU).
 
-AnalysisPredictor here runs no offline graph pass yet: the JAX package's
-batch-norm folding (transpiler/inference_transpiler.py) comes with the
-ResNet slice of the port.
+AnalysisPredictor runs the JAX package's offline graph pass on the
+loaded program when AnalysisConfig.ir_optim is set (the default): the
+InferenceTranspiler's batch-norm folding.
 """
 from __future__ import annotations
 
@@ -98,10 +98,32 @@ def create_predictor(config):
 
 
 class AnalysisConfig(Config):
-    pass
+    """Config plus the IR-optimization switch AnalysisPredictor reads."""
+
+    def __init__(self, model_dir, model_filename=None,
+                 params_filename=None, place=None, ir_optim=True):
+        super(AnalysisConfig, self).__init__(
+            model_dir, model_filename=model_filename,
+            params_filename=params_filename, place=place)
+        self.ir_optim = ir_optim
+
+    def switch_ir_optim(self, flag=True):
+        self.ir_optim = flag
+        return self
 
 
 class AnalysisPredictor(Predictor):
+    """A Predictor that folds each conv2d -> batch_norm pair of the
+    loaded program (transpiler.InferenceTranspiler) when its config's
+    ir_optim is set; a clone shares the folded program and weights."""
+
+    def __init__(self, config, _clone_of=None):
+        super(AnalysisPredictor, self).__init__(config, _clone_of=_clone_of)
+        if _clone_of is None and getattr(config, 'ir_optim', True):
+            from .transpiler import InferenceTranspiler
+            InferenceTranspiler().transpile(
+                self._program, self._place, scope=self._scope)
+
     def prepare_decoding(self, slots=None, prefill_batch=None):
         """Transpile the loaded LM into the KV-cached prefill + decode
         pair and return a serving.DecodePredictor over this predictor's

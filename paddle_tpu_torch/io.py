@@ -6,16 +6,22 @@ the same byte for byte, so a directory saved by either package loads in
 the other. `load_numpy_params` is the second route for weights: it fills
 a Scope from {name: ndarray}, e.g. the JAX package's parameters read with
 np.asarray(scope.find_var(name)).
+
+Under FLAGS_ckpt_verify, save_vars records the files it wrote in the
+directory's CHECKPOINT_DIGESTS manifest and load_vars verifies the files
+it reads before any reaches the scope (checkpoint/manifest.py).
 """
 from __future__ import annotations
 
 import json
 import os
+import sys
 
 import numpy as np
 import torch
 
 from .executor import torch_dtype
+from .flags import get_flag
 from .framework import (Program, Parameter, Variable, convert_np_dtype,
                         default_main_program)
 
@@ -73,11 +79,19 @@ def _select_vars(main_program, vars, predicate, filter_fn):
     return vars
 
 
+def _io_files(vars, filename):
+    return [filename] if filename is not None else [v.name for v in vars]
+
+
 def save_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, filter_fn=None):
     main_program = main_program or default_main_program()
     vars = _select_vars(main_program, vars, predicate, filter_fn)
     executor.run(_build_io_program(vars, dirname, filename, 'save'))
+    if get_flag('ckpt_verify'):
+        from .checkpoint import manifest
+        manifest.write_digests(dirname, files=_io_files(vars, filename),
+                               merge=True)
 
 
 def save_params(executor, dirname, main_program=None, filename=None,
@@ -96,6 +110,20 @@ def load_vars(executor, dirname, main_program=None, vars=None,
               predicate=None, filename=None, filter_fn=None):
     main_program = main_program or default_main_program()
     vars = _select_vars(main_program, vars, predicate, filter_fn)
+    if get_flag('ckpt_verify'):
+        # the files this load reads, verified before any reaches the
+        # scope; a mismatch raises CheckpointCorruptError naming the var
+        from .checkpoint import manifest
+        names = {v.name for v in vars}
+        if manifest.read_digests(dirname) is None:
+            sys.stderr.write(
+                'WARNING: FLAGS_ckpt_verify set but %s has no %s '
+                'manifest (pre-digest save?); loading unverified\n'
+                % (dirname, manifest.DIGESTS_FILE))
+        else:
+            manifest.verify_or_raise(
+                dirname, files=_io_files(vars, filename),
+                var_of=lambda rel: rel if rel in names else None)
     executor.run(_build_io_program(vars, dirname, filename, 'load'))
 
 
@@ -113,9 +141,11 @@ def load_persistables(executor, dirname, main_program=None, filename=None,
 
 def save_inference_model(dirname, feeded_var_names, target_vars, executor,
                          main_program=None, model_filename=None,
-                         params_filename=None):
+                         params_filename=None, export_for_deployment=True):
     """Prune to the inference subgraph, write `__model__` and the
-    persistables."""
+    persistables. export_for_deployment is taken for the JAX package's
+    signature, which ignores it too: the pruned program is always the
+    deployment one."""
     main_program = main_program or default_main_program()
     if isinstance(feeded_var_names, str):
         feeded_var_names = [feeded_var_names]

@@ -83,9 +83,9 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,
            groups=None, param_attr=None, bias_attr=None, use_cudnn=True,
            act=None, name=None, data_format='NCHW'):
-    """2-D convolution; the filter is OIHW. use_cudnn is accepted for the
-    JAX package's signature. data_format='NHWC' builds, and raises when
-    the op runs: only NCHW is ported."""
+    """2-D convolution over data_format 'NCHW' or 'NHWC'; the filter is
+    OIHW in both. use_cudnn is accepted for the JAX package's
+    signature."""
     helper = LayerHelper('conv2d', param_attr=param_attr,
                          bias_attr=bias_attr, act=act, name=name)
     dtype = input.dtype

@@ -2,12 +2,14 @@
 paddle_tpu/models/resnet.py): bottleneck or basic blocks, a
 conv -> BN -> relu stem, stage widths 64/128/256/512.
 
-NCHW only. With FLAGS_use_pallas_fused_ops set when the program is
-built, every conv + BN is ONE conv2d_bn op (ops/fused_ops.py), whose
-1x1 path runs the matmul + BN-statistics kernel K6; otherwise each is a
-conv2d op and a batch_norm op. The JAX package's space-to-depth stem
-and its NHWC layout are not ported (they need the pad op and NHWC
-convolutions; ROADMAP.md): space_to_depth=True and nhwc=True raise.
+Layout NCHW or NHWC (nhwc=True: the feed stays NCHW and is transposed
+once at the stem; every activation after it is channels-last). With
+FLAGS_use_pallas_fused_ops set when the program is built, every NCHW
+conv + BN is ONE conv2d_bn op (ops/fused_ops.py), whose 1x1 path runs
+the matmul + BN-statistics kernel K6; otherwise, and always at NHWC,
+each is a conv2d op and a batch_norm op, as in the JAX package.
+space_to_depth=True replaces the 7x7/2 stem conv with its exact 4x4
+retiling (space_to_depth_stem).
 """
 from __future__ import annotations
 
@@ -17,9 +19,7 @@ from ..flags import get_flag
 
 def conv_bn_layer(input, ch_out, filter_size, stride, padding, act='relu',
                   is_test=False, fmt='NCHW'):
-    if fmt != 'NCHW':
-        raise NotImplementedError('ResNet in %s: only NCHW is ported' % fmt)
-    if get_flag('use_pallas_fused_ops'):
+    if get_flag('use_pallas_fused_ops') and fmt == 'NCHW':
         return layers.conv_bn(input, num_filters=ch_out,
                               filter_size=filter_size, stride=stride,
                               padding=padding, act=act, is_test=is_test)
@@ -32,7 +32,7 @@ def conv_bn_layer(input, ch_out, filter_size, stride, padding, act='relu',
 
 
 def shortcut(input, ch_out, stride, is_test=False, fmt='NCHW'):
-    ch_in = input.shape[1]
+    ch_in = input.shape[1 if fmt == 'NCHW' else -1]
     if ch_in != ch_out or stride != 1:
         return conv_bn_layer(input, ch_out, 1, stride, 0, act=None,
                              is_test=is_test, fmt=fmt)
@@ -75,24 +75,52 @@ _DEPTH_CFG = {
 }
 
 
+def space_to_depth(input):
+    """The space-to-depth stem's input: [B, C, H, W] repacked to
+    [B, 4C, H/2, W/2] (channel = (c, di, dj)) and padded by (2, 1) per
+    spatial dim, where the 4x4 kernel spans m-2 in [-2, 1]."""
+    _, C, H, W = input.shape
+    x = layers.reshape(input, shape=[-1, C, H // 2, 2, W // 2, 2])
+    x = layers.transpose(x, perm=[0, 1, 3, 5, 2, 4])  # [B,C,di,dj,h,w]
+    x = layers.reshape(x, shape=[-1, C * 4, H // 2, W // 2])
+    return layers.pad(x, paddings=[0, 0, 0, 0, 2, 1, 2, 1])
+
+
+def space_to_depth_stem(input, is_test=False):
+    """The space-to-depth stem: an exact retiling of the 7x7/stride-2
+    stem conv into a 4x4/stride-1 conv over space_to_depth(input):
+    every output equals the original conv's, with
+    w'[o, c*4+di*2+dj, m, n] = w[o, c, 2m+di-1, 2n+dj-1], zero outside
+    the 7x7 support."""
+    return conv_bn_layer(space_to_depth(input), ch_out=64, filter_size=4,
+                         stride=1, padding=0, is_test=is_test)
+
+
 def resnet_imagenet(input, class_dim=1000, depth=50, is_test=False,
                     space_to_depth=False, nhwc=False):
-    if space_to_depth or nhwc:
-        raise NotImplementedError(
-            'resnet_imagenet(space_to_depth=%r, nhwc=%r): the space-to-depth '
-            'stem and the NHWC layout are not ported (ROADMAP.md, Queue 1)'
-            % (space_to_depth, nhwc))
     block_func, stages = _DEPTH_CFG[depth]
-    conv = conv_bn_layer(input, ch_out=64, filter_size=7, stride=2,
-                         padding=3, is_test=is_test)
+    fmt = 'NHWC' if nhwc else 'NCHW'
+    if space_to_depth:
+        if nhwc:
+            raise ValueError('space_to_depth stem is NCHW-only; it cannot '
+                             'be combined with nhwc=True')
+        conv = space_to_depth_stem(input, is_test=is_test)
+    else:
+        if nhwc:
+            # the one [N,3,H,W] -> [N,H,W,3] transpose of the feed
+            input = layers.transpose(input, perm=[0, 2, 3, 1])
+        conv = conv_bn_layer(input, ch_out=64, filter_size=7, stride=2,
+                             padding=3, is_test=is_test, fmt=fmt)
     pool = layers.pool2d(input=conv, pool_type='max', pool_size=3,
-                         pool_stride=2, pool_padding=1)
+                         pool_stride=2, pool_padding=1, data_format=fmt)
     res = pool
     for i, count in enumerate(stages):
         res = layer_warp(block_func, res, 64 * (2 ** i), count,
-                         1 if i == 0 else 2, is_test=is_test)
+                         1 if i == 0 else 2, is_test=is_test, fmt=fmt)
     pool = layers.pool2d(input=res, pool_size=7, pool_type='avg',
-                         global_pooling=True)
+                         global_pooling=True, data_format=fmt)
+    # the pooled [N,1,1,C] (NHWC) flattens to the [N,C] that NCHW's
+    # [N,C,1,1] does: the fc head is the same in both layouts
     return layers.fc(input=pool, size=class_dim, act='softmax')
 
 

@@ -14,7 +14,15 @@ Convolutions go to F.conv2d (the JAX package leaves them to
 lax.conv, outside any Pallas kernel). On the card bf16 operands go to
 cuDNN, which accumulates in fp32, as the TPU's MXU does; on the CPU
 bf16 operands are widened to fp32 first, as the JAX package does off
-the TPU. Only NCHW is ported: data_format='NHWC' raises.
+the TPU.
+
+NHWC (data_format / data_layout 'NHWC'; filters stay OIHW): a contiguous
+NHWC tensor permuted to NCHW order is a channels-last view, which
+F.conv2d and the pooling ops take as it is and answer in channels-last
+memory, so permuting the result back gives a contiguous NHWC tensor
+with no copy of the activations. The conv's filter is handed over in
+channels-last memory too, so cuDNN runs channels-last even where the
+input view is not (the stem, whose NCHW feed is transposed by a view).
 """
 from __future__ import annotations
 
@@ -26,20 +34,30 @@ from ..registry import (register_op, op_emitter, same_shape_infer,
                         register_vjp_grad, amp_cast)
 
 
-def _nchw_only(op, attr='data_format'):
-    if op.attr(attr, 'NCHW') != 'NCHW':
-        raise NotImplementedError(
-            '%s with %s=%r: only NCHW is ported (ROADMAP.md, Queue 1)'
-            % (op.type, attr, op.attr(attr)))
+def _nhwc(op):
+    return op.attr('data_format', 'NCHW') == 'NHWC'
+
+
+def _nchw_view(x, nhwc):
+    """The NCHW-ordered view of an NHWC tensor (channels-last memory)."""
+    return x.permute(0, 3, 1, 2) if nhwc else x
+
+
+def _nhwc_view(y, nhwc):
+    """An NCHW-ordered result back in NHWC order (a view)."""
+    return y.permute(0, 2, 3, 1) if nhwc else y
 
 
 # -- conv2d / depthwise_conv2d ------------------------------------------------
 
 def _conv2d_common_emit(ctx, op):
-    _nchw_only(op)
     x = ctx.get(op.single_input('Input'))
     w = ctx.get(op.single_input('Filter'))
     x, w = amp_cast(ctx, x, w)
+    nhwc = _nhwc(op)
+    x = _nchw_view(x, nhwc)
+    if nhwc:
+        w = w.contiguous(memory_format=torch.channels_last)
     groups = op.attr('groups', 1) or 1
     if op.type == 'depthwise_conv2d':
         groups = x.shape[1]
@@ -50,7 +68,7 @@ def _conv2d_common_emit(ctx, op):
                    padding=tuple(op.attr('paddings', [0, 0])),
                    dilation=tuple(op.attr('dilations', [1, 1])),
                    groups=groups)
-    ctx.set(op.single_output('Output'), out.to(out_dtype))
+    ctx.set(op.single_output('Output'), _nhwc_view(out.to(out_dtype), nhwc))
 
 
 def _conv_out_size(in_size, k, pad, stride, dilation):
@@ -108,8 +126,8 @@ def _pool2d_emit(ctx, op):
     """Max or average pooling over explicit (lo, hi) pads: -inf pads for
     max; for avg the window sum over zero pads, divided by the count of
     real elements (exclusive, when padded) or by the window size."""
-    _nchw_only(op)
-    x = ctx.get(op.single_input('X'))
+    nhwc = _nhwc(op)
+    x = _nchw_view(ctx.get(op.single_input('X')), nhwc)
     ptype = op.attr('pooling_type', 'max')
     ksize = list(op.attr('ksize'))
     strides = list(op.attr('strides', [1, 1]))
@@ -135,7 +153,7 @@ def _pool2d_emit(ctx, op):
             out = summed / counts
         else:
             out = summed / (ksize[0] * ksize[1])
-    ctx.set(op.single_output('Out'), out.to(x.dtype))
+    ctx.set(op.single_output('Out'), _nhwc_view(out.to(x.dtype), nhwc))
 
 
 def _pool2d_infer(op, block):

@@ -1208,3 +1208,158 @@ def test_x5_check_refuses_what_it_bounds():
     with pytest.raises(AssertionError, match='reserved'):
         chip_smoke.check_second_shape_runs(runs, params, 1, stats0, stats,
                                            chip_smoke.RESNET_PEAK_GB + 1)
+
+
+# -- n1-n3, s1, i1, i2: bench.py's accelerator ResNet-50 and its serving ------
+
+def test_new_resnet_phases_exist_run_in_order_and_fail_the_run():
+    """n1-n3, i2, s1 and i1 are phases (a failure is a PhaseError, which
+    main() turns into exit 1 with no result line). main() closes r1's
+    executor (drop_graphs: Executor.close()) before n1, runs n1, n3, n2
+    and i2 under N1_FLAGS, then s1 and i1, before the long-context LM."""
+    import inspect
+    for fn, name in ((chip_smoke.nhwc_steps, 'n1'),
+                     (chip_smoke.check_nhwc_vs_nchw, 'n2'),
+                     (chip_smoke.profile_nhwc, 'n3'),
+                     (chip_smoke.s2d_steps, 's1'),
+                     (chip_smoke.inference_leg, 'i1'),
+                     (chip_smoke.check_nan_inf_mode, 'i2')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * len(inspect.signature(fn).parameters))
+    src = inspect.getsource(chip_smoke.main)
+    order = ["'the ResNet-50 step'", 'rtr.drop_graphs()', 'del rtr',
+             'with flags_set(N1_FLAGS):', 'nhwc_steps(', 'profile_nhwc(',
+             'check_nhwc_vs_nchw(', 'check_nan_inf_mode(', 'del ntr',
+             's2d_steps(', 'inference_leg(', 'lc_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+
+
+def test_n1_sets_bf16_param_grads_leaves_the_fused_flag_off_and_restores():
+    """N1_FLAGS is bench.py's accelerator setting (main :524-527, and the
+    fused flag at its default); under it the port builds bench.py's
+    NHWC ResNet-50, which check_nhwc_program accepts, and the flags come
+    back after the block. r1's fused NCHW program is refused."""
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch import unique_name as tunique_name
+    assert chip_smoke.N1_FLAGS == {'FLAGS_use_pallas_fused_ops': False,
+                                   'FLAGS_amp_bf16_param_grads': True}
+    before = tfluid.get_flags(['use_pallas_fused_ops',
+                               'amp_bf16_param_grads'])
+    tfluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
+    old_gen = tunique_name.switch()
+    try:
+        with chip_smoke.flags_set(chip_smoke.N1_FLAGS):
+            assert tfluid.get_flag('amp_bf16_param_grads') is True
+            assert tfluid.get_flag('use_pallas_fused_ops') is False
+            main = chip_smoke.resnet_program(nhwc=True)[0]
+        assert tfluid.get_flag('use_pallas_fused_ops') is True
+        assert tfluid.get_flag('amp_bf16_param_grads') is False
+        assert chip_smoke.check_nhwc_program(main) > 500
+        fused = chip_smoke.resnet_program()[0]
+        with pytest.raises(AssertionError, match='not bench'):
+            chip_smoke.check_nhwc_program(fused)
+    finally:
+        tfluid.set_flags(before)
+        tunique_name.switch(old_gen)
+
+
+def _nan_program():
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch import unique_name as tunique_name
+    main, startup = tfluid.Program(), tfluid.Program()
+    old_gen = tunique_name.switch()
+    try:
+        with tfluid.program_guard(main, startup):
+            x = tfluid.layers.data(name='image', shape=[3, 8, 8],
+                                   dtype='float32')
+            h = tfluid.layers.transpose(x, perm=[0, 2, 3, 1])
+            y = tfluid.layers.conv2d(h, 4, 3, padding=1, bias_attr=False,
+                                     data_format='NHWC')
+            loss = tfluid.layers.mean(y)
+    finally:
+        tunique_name.switch(old_gen)
+    return main, startup, loss
+
+
+def test_i2_check_names_the_first_reader_and_fails_without_an_error():
+    """check_nan_error on the CPU: the port's OpExecutionError names the
+    transpose that first reads the image; a run that raises nothing
+    fails the phase; any other exception is not caught."""
+    import paddle_tpu_torch as tfluid
+    main, startup, loss = _nan_program()
+    scope = tfluid.Scope()
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    bad = np.ones((2, 3, 8, 8), 'float32')
+    bad[1, 2, 3, 4] = np.nan
+
+    def run(x):
+        return exe.run(main, feed={'image': x}, fetch_list=[loss],
+                       scope=scope)
+    with chip_smoke.flags_set({'FLAGS_check_nan_inf': True}):
+        msg = chip_smoke.check_nan_error(main, 'image', lambda: run(bad))
+        assert "op #0 'transpose2'" in msg
+        with pytest.raises(AssertionError, match='raised no'):
+            chip_smoke.check_nan_error(main, 'image',
+                                       lambda: run(np.ones_like(bad)))
+
+    def other():
+        raise ValueError('not the check')
+    with pytest.raises(ValueError, match='not the check'):
+        chip_smoke.check_nan_error(main, 'image', other)
+    # without the flag the NaN flows through and nothing is raised
+    assert np.isnan(run(bad)[0]).all()
+
+
+def test_i1_fold_check_passes_on_the_cpu_and_refuses_a_wrong_fold(
+        tmp_path, monkeypatch):
+    """i1 at a small size on the CPU: the folded predictor has no
+    batch_norm and one more elementwise_add for each, its output within
+    INFER_TOL of the unfolded one's, its clone the same bits; a fold that
+    forgets the bias fails."""
+    import paddle_tpu_torch as tfluid
+    from paddle_tpu_torch.inference import AnalysisConfig, AnalysisPredictor
+    from paddle_tpu_torch.transpiler import inference_transpiler as itr
+    place = tfluid.CPUPlace()
+    name = chip_smoke.inference_model(str(tmp_path), place, 2, 32, 10, 18,
+                                      chip_smoke.SEED)
+    img = np.random.RandomState(0).rand(2, 3, 32, 32).astype('float32')
+
+    def predictors():
+        return (AnalysisPredictor(AnalysisConfig(str(tmp_path), place=place)),
+                AnalysisPredictor(AnalysisConfig(str(tmp_path), place=place)
+                                  .switch_ir_optim(False)))
+    assert name == 'image'
+    err, cf, cp = chip_smoke.check_fold(*predictors(), img)
+    assert err <= chip_smoke.INFER_TOL and cp['batch_norm'] == 20
+    assert cf == dict(cp, batch_norm=0,
+                      elementwise_add=cp['elementwise_add'] + 20)
+    fold = itr.InferenceTranspiler._fold
+
+    def no_bias(self, block, scope, i, conv_op, bn_op):
+        fold(self, block, scope, i, conv_op, bn_op)
+        b = conv_op.single_input('Filter') + '.bn_fold_bias'
+        scope.set_var(b, scope.find_var(b) * 0)
+    monkeypatch.setattr(itr.InferenceTranspiler, '_fold', no_bias)
+    with pytest.raises(AssertionError, match='disagrees'):
+        chip_smoke.check_fold(*predictors(), img)
+
+
+def test_s2d_filter_and_the_fp64_statistics_are_exact_yardsticks():
+    """s1's filter retiling round-trips every tap of the 7x7 filter, and
+    n2's fp64 batch statistics equal batch_norm's own within fp32."""
+    from paddle_tpu_torch.ops import nn_ops
+    w = torch.randn(4, 3, 7, 7, dtype=torch.float64)
+    w4 = chip_smoke.s2d_filter(w)
+    assert w4.shape == (4, 12, 4, 4)
+    assert torch.count_nonzero(w4) == torch.count_nonzero(w) == 4 * 3 * 49
+    assert torch.equal(torch.sort(w4[w4 != 0]).values,
+                       torch.sort(w.flatten()).values)
+    x = torch.randn(4, 5, 6, 7)
+    for axes in ((0, 2, 3), (0, 1, 2)):
+        m, v = nn_ops._bn_batch_stats(x, axes)
+        m2, v2 = chip_smoke._bn_batch_stats_fp64(x, axes)
+        assert m2.dtype == v2.dtype == torch.float32
+        np.testing.assert_allclose(m2.numpy(), m.numpy(), atol=1e-6)
+        np.testing.assert_allclose(v2.numpy(), v.numpy(), rtol=1e-5)

@@ -731,8 +731,12 @@ def test_resnet_program_text_is_identical(fused, amp):
 
 
 def test_unported_layouts_raise():
-    image = tfluid.layers.data(name='image', shape=[3, 32, 32],
-                               dtype='float32')
-    for kw in ({'space_to_depth': True}, {'nhwc': True}):
-        with pytest.raises(NotImplementedError, match='not ported'):
-            tresnet.resnet_imagenet(image, class_dim=10, depth=50, **kw)
+    """NHWC and the space-to-depth stem are ported (tests/
+    test_torch_nhwc.py); what still raises is what the JAX package
+    refuses too: the two together (ValueError in both packages)."""
+    for fluid, resnet in ((jfluid, jresnet), (tfluid, tresnet)):
+        image = fluid.layers.data(name='image', shape=[3, 32, 32],
+                                  dtype='float32')
+        with pytest.raises(ValueError, match='NCHW-only'):
+            resnet.resnet_imagenet(image, class_dim=10, depth=50,
+                                   space_to_depth=True, nhwc=True)
