@@ -73,6 +73,45 @@ Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (e) each engine stream equals its solo DecodePredictor.generate stream;
   (f), (g) prefill and decode-step timing, and their device time (fp32
       K1's device ms and launches per prefill beside the top kernels);
+then the same weights served from the paged KV cache (16-token pages,
+the auto pool of 8 x 32 + 1 pages, 64-token prefill chunks), where
+neither package runs a Pallas kernel: the paged prefill, decode and
+verify programs are kv_page_* ops, matmul, a mask op and softmax. Streams
+that the two paths sum in another order are held by the margin rule
+(margin_rule: equal, or where they first differ both tokens within
+MARGIN_TOL of the reference path's best logit there):
+  (v1) LMServer(paged=True) answers c3's 8 requests x 32 tokens: the
+      streams vs c3's by the margin rule (the dense decode's logits),
+      each paged prefill's logits vs the dense prefill's within
+      RECOMPUTE_TOL, no kernel launch, tokens/s, the capture counts the
+      same before and after the run (each program captured once), and
+      after the drain no page held but the prefix cache's (none once it
+      is evicted; PagePool.check());
+  (v2) 8 requests over one 256-token system prompt (4 chunks, 16
+      pages): the first prefills cold, each of the 7 others one chunk
+      (its suffix), prefix_hits 7 reusing 1792 tokens, and every stream
+      the tokens of its own cold solo stream (the chunks line up);
+  (v3) 8 streams of 200–270 + 96 tokens on two tiers over
+      TIGHT_KV_PAGES (half the auto pool): under 'swap' preemptions > 0,
+      every request done, and every stream (the swap-resumed ones
+      among them) the tokens of its unpreempted solo stream; under
+      'reprefill' the streams by the margin rule; swap bytes and the
+      resume latency's p50; a deadline_ms spent at submit raises
+      DeadlineExceededError, one spent mid-decode fails its request
+      with it and its pages come back;
+  (v4) LMServer(speculative=True, spec_k=4) with draft_layers 1 and
+      12: streams vs v1's by the margin rule, accept rate, tokens a
+      verify iteration, tokens/s, a verify iteration's and a draft
+      step's ms;
+  (v5) ServingEngine(workers=2): request_swap installs a new head
+      weight while both workers decode; each worker's last step before
+      the swap has the bits of a predictor with its own copy of the old
+      weights, its first step after it those of one with the new
+      weights, and no worker captures again (the executor copies the
+      new weight into the captured tensor at the next replay);
+  (v6) the paged decode step over 8 live streams, wall and device ms
+      and busy share beside g's dense step, and the paged prefill's ms
+      a chunk.
   (t1) build the flagship training program as bench.py's _bench_lm does
       (py_reader feed, fused LM head with chunk 4096, mean,
       Momentum(0.001, 0.9) under contrib.mixed_precision.decorate), run
@@ -363,6 +402,18 @@ G_FLOOR = 1e-4
 # (|d/dx| < 0.4), and its values lie in (0, 1]
 PROBE_ATOL = 1e-6
 RECOMPUTE_TOL = 1e-3        # prefill vs full recompute (rtol and atol)
+# v1-v6: the flagship LM served from the paged cache (FLAGS_serving_*
+# defaults: 16-token pages, the auto pool of slots x pages a slot + 1
+# pages, 64-token prefill chunks); v3 on half that pool
+PAGE_TOKENS, PREFILL_CHUNK, TIGHT_KV_PAGES = 16, 64, 129
+SYSTEM_PROMPT = 256         # v2: 4 chunks, 16 pages
+V3_STREAMS, V3_NEW_TOKENS, V3_SWAP_HOST_MB = 8, 96, 8192
+SPEC_K = 4                  # v4: FLAGS_spec_k's default
+SWAP_NEW_TOKENS = 24        # v5
+# the margin rule: two greedy streams agree if equal, or if where they
+# first differ both tokens are within this of the reference path's best
+# logit (d's prefill vs recompute bound)
+MARGIN_TOL = RECOMPUTE_TOL
 # kernel step vs plain step under bf16 AMP: |loss difference|, and the
 # largest update difference over the largest update of each parameter
 TRAIN_LOSS_TOL = 1e-2
@@ -1382,6 +1433,658 @@ profile_path = phase('g: device time inside the prefill and the decode '
                      'step')(_profile_path)
 
 
+# -- (v1)-(v6): paged serving, preemption, speculation, weight swap -----------
+
+def forced_logits(dec, prompt, forced, slot=0):
+    """The logits `dec` (dense or paged) gives for the token at index
+    len(forced) of a stream: a cold prefill of `prompt`, then one decode
+    step for each token of `forced`, fed in turn."""
+    dec.reset()
+    _, logits = dec.prefill([prompt], [slot], return_logits=True)
+    out = logits[0]
+    toks = np.zeros((dec.slots,), np.int64)
+    poss = np.zeros((dec.slots,), np.int32)
+    for i, tok in enumerate(forced):
+        toks[slot], poss[slot] = tok, len(prompt) + i
+        _, logits = dec.decode_step(toks, poss, return_logits=True)
+        out = logits[slot]
+    return out
+
+
+def margin_rule(ref, got, logits_at, bound=MARGIN_TOL):
+    """Two greedy streams of one request agree if they are equal, or if
+    at the first index i where they differ both tokens lie within
+    `bound` of the best logit the reference path gives there
+    (logits_at(i)): a near tie that another summation order may break
+    the other way. Returns None for equal streams, else (i, gap), gap
+    the larger of the two tokens' distances from the best logit; raises
+    AssertionError otherwise."""
+    ref, got = [int(t) for t in ref], [int(t) for t in got]
+    if ref == got:
+        return None
+    if len(ref) != len(got):
+        raise AssertionError('streams of %d and %d tokens'
+                             % (len(ref), len(got)))
+    i = next(j for j, (a, b) in enumerate(zip(ref, got)) if a != b)
+    logits = np.asarray(logits_at(i), np.float64)
+    gap = float(logits.max() - min(logits[ref[i]], logits[got[i]]))
+    if not gap <= bound:
+        raise AssertionError(
+            'streams differ first at token %d (%d vs %d), %.3e below the '
+            'best logit: outside the margin rule\'s %.0e'
+            % (i, ref[i], got[i], gap, bound))
+    return i, gap
+
+
+def hold_streams(label, prompts, refs, gots, ref_dec):
+    """margin_rule for every request, the reference path's logits from
+    `ref_dec` (forced_logits). Logs and returns {'equal', 'ties'}."""
+    ties = []
+    for p, ref, got in zip(prompts, refs, gots):
+        tie = margin_rule(ref, got, lambda i, p=p, ref=ref:
+                          forced_logits(ref_dec, p, ref[:i]))
+        if tie is not None:
+            ties.append(tie)
+    log('%s: %d of %d streams equal; %s'
+        % (label, len(prompts) - len(ties), len(prompts),
+           'near ties at (token, gap) %s' % ties if ties else
+           'no near tie'))
+    return {'equal': len(prompts) - len(ties), 'ties': ties}
+
+
+def seeded_prompts(seed, lens, vocab):
+    rng = np.random.RandomState(seed)
+    return [rng.randint(1, vocab, size=int(n)).tolist() for n in lens]
+
+
+def _paged_kw(**kw):
+    return dict(slots=SLOTS, page_tokens=PAGE_TOKENS,
+                prefill_chunk=PREFILL_CHUNK, **kw)
+
+
+def _capture_stats(dec):
+    stats = dec.jit_cache_stats()
+    return {k: stats[k] for k in ('prepared_programs', 'compiled_segments',
+                                  'segment_misses')}
+
+
+def _drain_prefix(dec):
+    """After a drain no stream holds a page: the pool holds only the
+    prefix cache's own refs; evicting the cache empties it."""
+    st = dec.pool_stats()
+    if st['pages_in_use'] != st['prefix_pages']:
+        raise AssertionError('after the drain %d pages in use, the prefix '
+                             'cache holds %d' % (st['pages_in_use'],
+                                                 st['prefix_pages']))
+    while dec._prefix.evict_one():
+        pass
+    dec._pool.check()
+    if dec.pool_stats()['pages_in_use'] != 0:
+        raise AssertionError('pages in use after evicting the prefix cache')
+    return st['prefix_pages']
+
+
+@phase('v1: paged serving through LMServer(paged=True)')
+def paged_serving(pred, dense_dec, prompts, dense_streams, counters, sync):
+    """8 requests x 32 tokens through LMServer(paged=True) at the auto
+    pool size: streams vs c3's dense streams by the margin rule, every
+    paged prefill's logits vs the dense prefill's within RECOMPUTE_TOL,
+    no flash launch (the paged path is plain ops), the capture counts
+    unchanged over the run, and after the drain no page held."""
+    import paddle_tpu_torch as fluid
+    srv = fluid.serving.LMServer(pred, **_paged_kw(paged=True))
+    dec = srv._decode
+    try:
+        if dec.num_pages != SLOTS * dec.pages_per_slot + 1:
+            raise AssertionError('auto pool of %d pages' % dec.num_pages)
+        # warm-up: a 3-chunk prompt runs the prefill program 3 times and
+        # the decode program 4 times (eager, capture, replays)
+        warm = seeded_prompts(SEED + 20, [3 * PREFILL_CHUNK], dec.vocab)[0]
+        srv.generate(warm, 4, timeout=600)
+        sync()
+        before = _capture_stats(dec)
+        base = srv.stats()
+        for c in counters.values():
+            c.launches = 0
+        t0 = time.perf_counter()
+        handles = [srv.submit(p, max_new_tokens=NEW_TOKENS) for p in prompts]
+        streams = [srv.result(h, timeout=600) for h in handles]
+        sync()
+        wall = time.perf_counter() - t0
+        launches = {name: c.launches for name, c in counters.items()}
+        stats = {k: v - base[k] for k, v in srv.stats().items()
+                 if k in ('completed', 'prefills', 'decode_steps')}
+        after = _capture_stats(dec)
+    finally:
+        srv.close()
+    if any(launches.values()):
+        raise AssertionError('the paged path launched %s' % launches)
+    # one capture a program on the card (nothing is captured on the CPU)
+    captured = 2 if dec.device.type == 'cuda' else 0
+    if before != after or before['compiled_segments'] != captured:
+        raise AssertionError('capture counts %s before v1\'s run, %s after'
+                             % (before, after))
+    held = _drain_prefix(dec)
+    if stats['completed'] != len(prompts) or \
+            any(len(s) != NEW_TOKENS for s in streams):
+        raise AssertionError('engine stats %r' % stats)
+    tok_s = len(prompts) * NEW_TOKENS / wall
+    log('paged main path: %d requests, %d prefill chunks, %d decode steps, '
+        '%.3f s, %.1f generated tokens/s; pool %d pages x %d tokens, %d '
+        'held by the prefix cache after the drain (0 after eviction); '
+        'captures %s before and after'
+        % (len(prompts), stats['prefills'], stats['decode_steps'], wall,
+           tok_s, dec.num_pages, dec.page_tokens, held, json.dumps(after)))
+    agree = hold_streams('paged vs dense streams (margin rule)', prompts,
+                         dense_streams, streams, dense_dec)
+    worst = 0.0
+    for p in prompts:
+        _, want = dense_dec.prefill([p], [0], return_logits=True)
+        dec.reset()
+        _, got = dec.prefill([p], [0], return_logits=True)
+        if not np.isfinite(got).all():
+            raise AssertionError('paged prefill logits not finite')
+        np.testing.assert_allclose(got, want, rtol=RECOMPUTE_TOL,
+                                   atol=RECOMPUTE_TOL)
+        worst = max(worst, float(np.abs(got - want).max()))
+    dec.reset()
+    log('paged vs dense prefill logits: max_abs_diff %.3e over %d prompts '
+        '(chunks of %d)' % (worst, len(prompts), PREFILL_CHUNK))
+    return dict(dec=dec, streams=streams, wall=wall, tok_s=tok_s,
+                stats=stats, captures=after, prefill_err=worst,
+                agree=agree)
+
+
+@phase('v2: prefix sharing over a 256-token system prompt')
+def prefix_sharing(dec, sync):
+    """One request over the system prompt prefills cold and registers
+    its pages; 7 more sharing it each prefill their suffix only (one
+    chunk, from position 256 = 4 chunks), and every stream has the
+    tokens of its own cold solo stream (the chunks line up)."""
+    import paddle_tpu_torch as fluid
+    system = seeded_prompts(SEED + 21, [SYSTEM_PROMPT], dec.vocab)[0]
+    suffixes = seeded_prompts(SEED + 22, np.linspace(8, 40, N_REQUESTS),
+                              dec.vocab)
+    prompts = [system + s for s in suffixes]
+    dec.reset()
+    with fluid.serving.LMServer(dec) as srv:
+        first = srv.generate(prompts[0], NEW_TOKENS, timeout=600)
+        cold = srv.stats()
+        t0 = time.perf_counter()
+        handles = [srv.submit(p, max_new_tokens=NEW_TOKENS)
+                   for p in prompts[1:]]
+        streams = [first] + [srv.result(h, timeout=600) for h in handles]
+        sync()
+        wall = time.perf_counter() - t0
+        warm = srv.stats()
+    kv = warm['kv']
+    hits = len(prompts) - 1
+    chunks = warm['prefills'] - cold['prefills']
+    if kv['prefix_hits'] != hits or \
+            kv['prefix_tokens_reused'] != hits * SYSTEM_PROMPT:
+        raise AssertionError('prefix hits %d, tokens reused %d; want %d and '
+                             '%d' % (kv['prefix_hits'],
+                                     kv['prefix_tokens_reused'], hits,
+                                     hits * SYSTEM_PROMPT))
+    if chunks != hits:
+        raise AssertionError('%d prefill chunks for %d hits: a hit must '
+                             'prefill its suffix only' % (chunks, hits))
+    _drain_prefix(dec)
+    differ = []
+    for i, (p, s) in enumerate(zip(prompts, streams)):
+        dec.reset()
+        if dec.generate(p, NEW_TOKENS) != s:
+            differ.append(i)
+    dec.reset()
+    if differ:
+        raise AssertionError('requests %s: the shared-prefix stream differs '
+                             'from its cold solo stream' % differ)
+    log('prefix sharing: %d-token system prompt; cold request %d prefill '
+        'chunks, each of %d hits 1 (its suffix from token %d); prefix_hits '
+        '%d, prefix_tokens_reused %d; %d streams equal their cold solo '
+        'streams; %.3f s for the %d hits'
+        % (SYSTEM_PROMPT, cold['prefills'], hits, SYSTEM_PROMPT,
+           kv['prefix_hits'], kv['prefix_tokens_reused'], len(prompts),
+           wall, hits))
+    return dict(hits=kv['prefix_hits'], reused=kv['prefix_tokens_reused'],
+                cold_chunks=cold['prefills'], warm_chunks=chunks)
+
+
+def _contended_run(pred, prompts, sync):
+    """V3_STREAMS long streams on a pool of TIGHT_KV_PAGES pages: the
+    first half at priority 0, the second at priority 1 once the first
+    decode. Returns (streams, stats, preempted ids, swap-restored ids,
+    resume latencies in ms, swap bytes)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import telemetry
+    dec = pred.prepare_decoding(**_paged_kw(paged=True,
+                                            kv_pages=TIGHT_KV_PAGES))
+    eng = fluid.serving.ServingEngine(dec)
+    preempted, restored, resumes = set(), set(), []
+    preempt_lane, resume = eng._preempt_lane, eng._resume
+    restore_stream = dec.restore_stream
+
+    def record_preempt(pred_, lanes, slot, wstate, policy):
+        preempted.add(lanes[slot].req.id)
+        return preempt_lane(pred_, lanes, slot, wstate, policy)
+
+    def record_resume(req):
+        if req.preempted_at is not None:
+            resumes.append((time.perf_counter() - req.preempted_at) * 1e3)
+        return resume(req)
+
+    def record_restore(slot, snapshot, prompt=None):
+        restore_stream(slot, snapshot, prompt=prompt)
+        restored.add(tuple(prompt[:16]))
+    eng._preempt_lane, eng._resume = record_preempt, record_resume
+    dec.restore_stream = record_restore
+    half = len(prompts) // 2
+    telemetry.enable()
+    telemetry.reset()
+    try:
+        eng.start()
+        low = [eng.submit(p, V3_NEW_TOKENS, priority=0)
+               for p in prompts[:half]]
+        deadline = time.monotonic() + 600
+        while not all(r.tokens for r in low):
+            if time.monotonic() > deadline:
+                raise AssertionError('the low tier never decoded')
+            time.sleep(0.002)
+        high = [eng.submit(p, V3_NEW_TOKENS, priority=1)
+                for p in prompts[half:]]
+        reqs = low + high
+        streams = [r.result(600) for r in reqs]
+        sync()
+        stats = eng.stats()
+        swap_bytes = telemetry.snapshot()['counters']['serving.swap_bytes']
+    finally:
+        eng.stop(timeout=60)
+        telemetry.disable(final_flush=False)
+        telemetry.reset()
+    _drain_prefix(dec)
+    ids = [r.id for r in reqs]
+    return (dec, streams, stats, [i for i, r in enumerate(ids)
+                                  if r in preempted],
+            [i for i, p in enumerate(prompts) if tuple(p[:16]) in restored],
+            resumes, swap_bytes)
+
+
+@phase('v3: exhaustion, preemption and deadlines on half the pool')
+def preemption(pred, ref_dec, sync):
+    """V3_STREAMS long streams on two tiers over TIGHT_KV_PAGES pages.
+    Under 'swap' (host budget V3_SWAP_HOST_MB): preemptions > 0, every
+    request finishes, and every stream (swap-resumed ones included) has
+    the tokens of its unpreempted solo stream. Under 'reprefill' the
+    resumed streams hold by the margin rule. A deadline spent at submit
+    raises DeadlineExceededError; one spent mid-decode fails the request
+    with it and its pages come back."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.serving import DeadlineExceededError
+    prompts = seeded_prompts(SEED + 23, np.linspace(200, 270, V3_STREAMS),
+                             ref_dec.vocab)
+    solo = []
+    for p in prompts:
+        ref_dec.reset()
+        solo.append(ref_dec.generate(p, V3_NEW_TOKENS))
+    ref_dec.reset()
+    out = {}
+    for policy, flags in (('swap', {'FLAGS_serving_preempt_policy': 'swap',
+                                    'FLAGS_serving_swap_host_mb':
+                                        V3_SWAP_HOST_MB}),
+                          ('reprefill', {'FLAGS_serving_preempt_policy':
+                                         'reprefill'})):
+        with flags_set(flags):
+            dec, streams, stats, preempted, restored, resumes, nbytes = \
+                _contended_run(pred, prompts, sync)
+        if stats['preemptions'] < 1 or stats['completed'] != len(prompts):
+            raise AssertionError('%s: stats %r' % (policy, stats))
+        p50 = float(np.percentile(resumes, 50)) if resumes else None
+        if policy == 'swap':
+            if not restored or stats['swap_host_bytes'] != 0:
+                raise AssertionError('swap: %d streams restored from host '
+                                     'RAM, %d bytes still held'
+                                     % (len(restored),
+                                        stats['swap_host_bytes']))
+            differ = [i for i in range(len(prompts)) if streams[i] != solo[i]]
+            if differ:
+                raise AssertionError('swap: streams %s differ from their '
+                                     'unpreempted solo streams (preempted '
+                                     '%s, restored %s)'
+                                     % (differ, preempted, restored))
+            agree = {'equal': len(prompts), 'ties': []}
+        else:
+            agree = hold_streams('reprefill: streams vs unpreempted solo '
+                                 '(margin rule)', prompts, solo, streams,
+                                 ref_dec)
+        log('%s: %d streams x %d tokens on %d pages: %d preemptions, %d '
+            'resumes (preempted requests %s; restored from host RAM %s), '
+            'swap bytes %d, resume latency p50 %s ms over %d, %d streams '
+            'equal their solo streams'
+            % (policy, len(prompts), V3_NEW_TOKENS, TIGHT_KV_PAGES,
+               stats['preemptions'], stats['resumes'], preempted, restored,
+               nbytes, 'not measured' if p50 is None else '%.3f' % p50,
+               len(resumes), agree['equal']))
+        out[policy] = dict(preemptions=stats['preemptions'],
+                           resumes=stats['resumes'], swap_bytes=nbytes,
+                           resume_p50_ms=p50, equal=agree['equal'])
+    # deadlines: spent at submit, and spent mid-decode
+    decode_step = ref_dec.decode_step
+    spend = {}
+
+    def step_then_spend(tokens, positions, return_logits=False):
+        ids = decode_step(tokens, positions, return_logits)
+        req = spend.get('req')
+        if req is not None and len(req.tokens) >= 3:
+            spend.pop('req').deadline_at = time.perf_counter() - 1.0
+        return ids
+    ref_dec.decode_step = step_then_spend
+    with fluid.serving.LMServer(ref_dec) as srv:
+        try:
+            srv.submit(prompts[0], 4, deadline_ms=0)
+        except DeadlineExceededError:
+            pass
+        else:
+            raise AssertionError('a spent deadline_ms was admitted')
+        h = srv.submit(prompts[0], V3_NEW_TOKENS, deadline_ms=600000.0)
+        spend['req'] = srv._req(h)
+        try:
+            srv.result(h, timeout=600)
+        except RuntimeError as e:
+            error = str(e)
+        else:
+            raise AssertionError('the request outlived its deadline')
+        if 'DeadlineExceededError: expired mid-decode' not in error:
+            raise AssertionError('deadline failure %r' % error)
+        srv.drain(timeout=60)
+        n_tokens = len(srv.poll(h)['tokens'])
+    del ref_dec.decode_step
+    _drain_prefix(ref_dec)
+    log('deadline: spent at submit raises DeadlineExceededError; spent '
+        'after %d tokens: %r, its pages back (the pool empties)'
+        % (n_tokens, error))
+    return out
+
+
+def _step_ms(fn, sync, n=10):
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+@phase('v4: speculative decoding through LMServer(speculative=True)')
+def speculative(pred, prompts, paged_streams, ref_dec, sync):
+    """For draft_layers 1 (the default) and the target's full depth: 8
+    requests x 32 tokens with spec_k SPEC_K, streams vs v1's paged
+    streams by the margin rule; accept rate, tokens a verify iteration,
+    tokens/s, and one verify iteration's and one draft step's ms."""
+    import paddle_tpu_torch as fluid
+    layers = ref_dec._pair.spec.layers
+    out = {}
+    for draft_layers in (1, layers):
+        srv = fluid.serving.LMServer(pred, **_paged_kw(
+            speculative=True, spec_k=SPEC_K, draft_layers=draft_layers))
+        spec = srv._decode
+        try:
+            warm = seeded_prompts(SEED + 24, [2 * PREFILL_CHUNK],
+                                  spec.vocab)[0]
+            srv.generate(warm, 12, timeout=600)
+            spec.reset()
+            sync()
+            t0 = time.perf_counter()
+            handles = [srv.submit(p, max_new_tokens=NEW_TOKENS)
+                       for p in prompts]
+            streams = [srv.result(h, timeout=600) for h in handles]
+            sync()
+            wall = time.perf_counter() - t0
+            st = spec.spec_stats()
+        finally:
+            srv.close()
+        agree = hold_streams('speculative (draft_layers %d) vs paged '
+                             'streams (margin rule)' % draft_layers, prompts,
+                             paged_streams, streams, ref_dec)
+        # one verify iteration with fixed proposals (no draft work), and
+        # one draft decode step, over 8 live streams at fixed positions
+        spec.reset()
+        for s, p in enumerate(prompts):
+            spec.prefill([p], [s])
+        toks = np.ones((spec.slots,), np.int64)
+        poss = np.array([len(p) for p in prompts], np.int32)
+        spec._draft_chain = lambda live, t, p, b: {s: [1] * b[s]
+                                                   for s in live}
+        verify_ms = _step_ms(lambda: spec.spec_step(toks, poss), sync)
+        del spec._draft_chain
+        draft_ms = _step_ms(lambda: spec.draft.decode_step(toks, poss), sync)
+        spec.reset()
+        row = dict(accept_rate=st['accept_rate'],
+                   tokens_per_step=st['effective_tokens_per_step'],
+                   k_live=st['k_live'], steps=st['steps'],
+                   fallback_steps=st['fallback_steps'],
+                   tok_s=len(prompts) * NEW_TOKENS / wall, wall=wall,
+                   verify_ms=verify_ms, draft_ms=draft_ms,
+                   equal=agree['equal'])
+        log('speculative, spec_k %d, draft_layers %d: accept rate %.4f, '
+            '%.3f tokens a verify iteration, k_live %d, %d iterations, %d '
+            'fallbacks; %.3f s, %.1f generated tokens/s; verify iteration '
+            '%.3f ms, draft step %.3f ms'
+            % (SPEC_K, draft_layers, row['accept_rate'],
+               row['tokens_per_step'], row['k_live'], row['steps'],
+               row['fallback_steps'], wall, row['tok_s'], verify_ms,
+               draft_ms))
+        out[draft_layers] = row
+        del srv, spec
+        free_device_memory()
+    return out
+
+
+def predictor_with(pred, replace=None):
+    """A predictor over `pred`'s program with its own copy of every
+    weight (what loading the saved model again gives), `replace`
+    ({name: array}) put in its place first."""
+    import torch
+    from paddle_tpu_torch.executor import Scope
+    fresh = pred.clone()
+    scope = Scope()
+    for name, val in pred._scope._vars.items():
+        if isinstance(val, torch.Tensor):
+            scope.set_var(name, val.clone())
+    for name, arr in (replace or {}).items():
+        cur = scope.find_var(name)
+        scope.set_var(name, torch.from_numpy(arr).to(cur.device, cur.dtype))
+    fresh._scope = scope
+    return fresh
+
+
+def _step_log(dec, epoch):
+    """Wrap dec.decode_step: each call is recorded as (epoch[0] when it
+    ran, its live slots, tokens, positions, logits) and returns the ids,
+    as the engine expects."""
+    decode_step = dec.decode_step
+    steps = []
+
+    def recorded(tokens, positions, return_logits=False):
+        live = [s for s in sorted(dec._tables) if s not in dec._pending]
+        ids, logits = decode_step(tokens, positions, return_logits=True)
+        steps.append((epoch[0], live, np.array(tokens), np.array(positions),
+                      logits))
+        return (ids, logits) if return_logits else ids
+    dec.decode_step = recorded
+    return steps
+
+
+def _replayed(step, reqs, fresh):
+    """One live lane of a recorded step, found by its fed token and
+    position among the finished requests, replayed on `fresh`: (the
+    recorded logits row, the replay's)."""
+    _, live, tokens, positions, logits = step
+    for s in live:
+        hits = [r for r in reqs
+                if 0 <= positions[s] - len(r.prompt) < len(r.tokens)
+                and r.tokens[positions[s] - len(r.prompt)] == tokens[s]]
+        if len(hits) == 1:
+            r = hits[0]
+            j = int(positions[s]) - len(r.prompt)
+            return logits[s], forced_logits(fresh, r.prompt,
+                                            r.tokens[:j + 1])
+    raise AssertionError('no lane of the step names one request')
+
+
+@phase('v5: weight swap at a step boundary, two workers')
+def weight_swap(pred, dec, sync):
+    """ServingEngine(workers=2) over v1's paged predictor;
+    request_swap(install) replaces the head weight while both workers
+    decode. Each worker's last step before the swap has the bits of a
+    predictor with its own copy of the old weights, its first step after
+    the swap those of one with the new weights; no worker captures
+    again."""
+    import paddle_tpu_torch as fluid
+    head = dec._pair.spec.head[0]
+    old = pred._scope.find_var(head)
+    new = np.random.RandomState(SEED + 25).randn(*old.shape).astype(
+        'float32') * float(old.std())
+    fresh_old = predictor_with(pred).prepare_decoding(**_paged_kw(paged=True))
+    fresh_new = predictor_with(pred, {head: new}).prepare_decoding(
+        **_paged_kw(paged=True))
+    staged = dec.stage_weights({head: new})
+    prompts = seeded_prompts(SEED + 26, np.linspace(40, 100, 2 * SLOTS),
+                             dec.vocab)
+    dec.reset()
+    eng = fluid.serving.ServingEngine(dec, workers=2)
+    workers = eng._predictors
+    warm = seeded_prompts(SEED + 20, [3 * PREFILL_CHUNK], dec.vocab)[0]
+    for w in workers[1:]:
+        w.generate(warm, 4)                # the clone's captures
+        w.reset()
+    epoch = [0]
+    logs = [_step_log(w, epoch) for w in workers]
+    before = [_capture_stats(w) for w in workers]
+    waited = []
+
+    def install():
+        waited.append(time.perf_counter())
+        dec.install_weights(staged)
+        epoch[0] = 1
+    eng.start()
+    try:
+        reqs = [eng.submit(p, max_new_tokens=SWAP_NEW_TOKENS)
+                for p in prompts]
+        deadline = time.monotonic() + 120
+        while min(sum(1 for s in lg if s[0] == 0) for lg in logs) < 2:
+            if time.monotonic() > deadline:
+                raise AssertionError('a worker never decoded')
+            time.sleep(0.001)
+        t0 = time.perf_counter()
+        eng.request_swap(install)
+        swap_wait_ms = (waited[0] - t0) * 1e3
+        for r in reqs:
+            r.result(600)
+        sync()
+    finally:
+        eng.stop(timeout=60)
+    after = [_capture_stats(w) for w in workers]
+    for w in workers:
+        del w.decode_step
+    if before != after:
+        raise AssertionError('capture counts %s before the swap, %s after'
+                             % (before, after))
+    checked = []
+    for wid, lg in enumerate(logs):
+        last_old = [s for s in lg if s[0] == 0][-1]
+        first_new = [s for s in lg if s[0] == 1][0]
+        for label, step, fresh in (('before', last_old, fresh_old),
+                                   ('after', first_new, fresh_new)):
+            got, want = _replayed(step, reqs, fresh)
+            if not np.array_equal(got, want):
+                raise AssertionError(
+                    'worker %d, the step %s the swap: max |diff| %.3e from '
+                    'a predictor with the %s weights'
+                    % (wid, label, float(np.abs(got - want).max()),
+                       'old' if label == 'before' else 'new'))
+            checked.append('%d %s' % (wid, label))
+    for p in (dec, fresh_old, fresh_new):
+        p.reset()
+    _drain_prefix(dec)
+    log('weight swap: %s replaced while %d workers decoded %d requests; '
+        'swap_wait %.3f ms; steps %s have the bits of a predictor with the '
+        'old / new weights; captures %s before and after'
+        % (head, len(workers), len(reqs), swap_wait_ms, ', '.join(checked),
+           json.dumps(after)))
+    return dict(swap_wait_ms=swap_wait_ms, checked=checked)
+
+
+@phase('v6: the paged decode step and prefill chunk, timed')
+def paged_timing(dec, prompts, dense, sync):
+    """The paged decode step over 8 live streams (those of the c3
+    prompts) by the host clock and its device time (torch.profiler),
+    with its busy share beside g's dense step; the paged prefill's ms a
+    chunk (the longest prompt, cold)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    dec.reset()
+    for s, p in enumerate(prompts):
+        dec.prefill([p], [s])
+    toks = np.ones((dec.slots,), np.int64)
+    poss = np.array([len(p) for p in prompts], np.int32)
+    step_ms = _step_ms(lambda: dec.decode_step(toks, poss), sync, n=20)
+    p = prompts[-1]
+    chunks = -(-len(p) // PREFILL_CHUNK)
+
+    def cold_prefill():
+        dec.reset()
+        sync()
+        t0 = time.perf_counter()
+        dec.prefill([p], [0])
+        sync()
+        return time.perf_counter() - t0
+    cold_prefill()
+    prefill_ms = min(cold_prefill() for _ in range(3)) * 1e3
+    device = {}
+    for name, fn, n in (('decode_step', lambda: dec.decode_step(toks, poss),
+                         5),
+                        ('prefill', lambda: dec.prefill([p], [0]), 1)):
+        if name == 'prefill':
+            dec.reset()
+        sync()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n):
+                fn()
+            sync()
+        events = [e for e in prof.key_averages()
+                  if getattr(e, 'device_type', None) == DeviceType.CUDA
+                  and _device_us(e) > 0]
+        ms = sum(_device_us(e) for e in events) / n / 1e3
+        device[name] = ms or None
+        top = sorted(events, key=_device_us, reverse=True)[:5]
+        log('paged %s top device items: %s' % (name, '; '.join(
+            '%s %.3f ms' % (e.key[:48], _device_us(e) / n / 1e3)
+            for e in top)))
+    dec.reset()
+    if device['decode_step'] is None:
+        log('paged decode step: device time not measured')
+    busy = None if device['decode_step'] is None \
+        else device['decode_step'] / step_ms
+    log('paged decode step (8 streams at %d..%d tokens): %.3f ms wall, '
+        'device %s ms, busy %s; dense step (f, g): %.3f ms wall, device %s '
+        'ms, busy %s; paged prefill of %d tokens: %.3f ms, %.3f ms a chunk '
+        'of %d (device %s ms a chunk)'
+        % (int(poss.min()), int(poss.max()), step_ms,
+           _fmt_ms(device['decode_step']), _fmt_busy(busy), dense['step_ms'],
+           _fmt_ms(dense['device_ms']), _fmt_busy(
+               None if not dense['device_ms'] else
+               dense['device_ms'] / dense['step_ms']),
+           len(p), prefill_ms, prefill_ms / chunks, PREFILL_CHUNK,
+           _fmt_ms(None if device['prefill'] is None
+                   else device['prefill'] / chunks)))
+    return dict(step_ms=step_ms, device_ms=device['decode_step'], busy=busy,
+                prefill_ms=prefill_ms, chunk_ms=prefill_ms / chunks,
+                chunk_device_ms=(None if device['prefill'] is None
+                                 else device['prefill'] / chunks))
+
+
 # -- (t1)-(t4): the training step --------------------------------------------
 
 def train_flops_per_token(cfg, causal=False):
@@ -2389,6 +3092,33 @@ def training_op_cases(rng):
     add('sigmoid_cross_entropy_with_logits',
         {'X': 3 * f(4, 3), 'Label': (rng.rand(4, 3) < 0.5).astype('float32')},
         {'ignore_index': -100})
+    # the paged-cache ops (v1-v6 run them at full width), in place on
+    # their fed pool; at most one dead row a case (dead rows all land on
+    # the null page's row 0, in no set order)
+    i32 = np.int32
+    add('kv_page_cow', {'Pool': f(4, 2, 2, 2), 'Src': np.array([2, 0, 3], i32),
+                        'Dst': np.array([1, 0, 2], i32)}, check=())
+    add('kv_page_write', {'Pool': f(5, 2, 2, 3), 'X': f(1, 4, 2, 3),
+                          'Table': np.array([[3, 1]], i32),
+                          'Positions': np.array([1, 2, 3, 4], i32),
+                          'Len': np.array([3], i32)}, check=())
+    add('kv_page_append', {'Pool': f(4, 2, 2, 2), 'X': f(3, 1, 2, 2),
+                           'Table': np.array([[2, 3], [0, 0], [1, 0]], i32),
+                           'Positions': np.array([3, 0, 1], i32)}, check=())
+    add('kv_page_append', {'Pool': f(6, 2, 2, 2), 'X': f(2, 3, 2, 2),
+                           'Table': np.array([[2, 3], [4, 5]], i32),
+                           'Positions': np.array([[1, 2, 3], [2, 3, 4]], i32)},
+        check=(), name='kv_page_append_rows')
+    add('kv_page_gather', {'Pool': f(4, 2, 2, 2),
+                           'Table': np.array([[1, 3], [2, 0]], i32)}, check=())
+    add('paged_decode_mask', {'X': f(2, 2, 1, 6),
+                              'Positions': np.array([1, 5], i32)}, check=())
+    add('spec_verify_mask', {'X': f(2, 2, 3, 6),
+                             'Positions': np.array([[1, 2, 3], [3, 4, 9]], i32)},
+        check=())
+    add('paged_prefill_mask', {'X': f(1, 2, 3, 6),
+                               'Positions': np.array([2, 3, 4], i32)},
+        check=())
     return cases
 
 
@@ -4698,13 +5428,22 @@ def main():
         check_recompute(pred, dec, prompts, streams)
         check_solo(dec, prompts, streams)
         prefill_ms, step_ms = time_path(dec, prompts, sync)
-        profile_path(dec, prompts, {'prefill': prefill_ms,
-                                    'decode_step': step_ms}, sync)
+        g_device = profile_path(dec, prompts, {'prefill': prefill_ms,
+                                               'decode_step': step_ms}, sync)
         serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
         x2 = check_serving_capture(dec, prompts, streams, sync,
                                    {'prefill': prefill_ms,
                                     'decode_step': step_ms})
-        del pred, dec
+        v1 = paged_serving(pred, dec, prompts, streams, counters, sync)
+        pdec = v1.pop('dec')
+        v2 = prefix_sharing(pdec, sync)
+        v3 = preemption(pred, pdec, sync)
+        v4 = speculative(pred, prompts, v1['streams'], pdec, sync)
+        v5 = weight_swap(pred, pdec, sync)
+        v6 = paged_timing(pdec, prompts,
+                          {'step_ms': step_ms,
+                           'device_ms': g_device.get('decode_step')}, sync)
+        del pred, dec, pdec
         free_device_memory()
 
         tr, losses, train_ms, train_launches, train_peak_gb = train_steps(
@@ -4882,6 +5621,25 @@ def main():
            l_arm_ms['online/kvmajor'], l_arm_dev['twopass/onepass'],
            l_arm_dev['online/kvmajor']))
     log('probe: one exp step costs %.3f x one exp2 step' % exp_over_exp2)
+    log('paged serving (8 slots, %d-token pages, %d-token chunks): v1 %.1f '
+        'tokens/s, %d of %d streams equal to dense, prefill logits within '
+        '%.3e; v2 %d prefix hits reusing %d tokens (%d chunks cold, %d for '
+        'the hits); v3 swap %d preemptions, %d swap bytes, resume p50 %s '
+        'ms, reprefill %d preemptions, %d of %d streams equal; v4 accept '
+        'rate %s, tokens a verify iteration %s, tokens/s %s; v5 swap_wait '
+        '%.3f ms; v6 paged step %.3f ms wall, device %s ms, busy %s, '
+        '%.3f ms a prefill chunk'
+        % (PAGE_TOKENS, PREFILL_CHUNK, v1['tok_s'], v1['agree']['equal'],
+           N_REQUESTS, v1['prefill_err'], v2['hits'], v2['reused'],
+           v2['cold_chunks'], v2['warm_chunks'], v3['swap']['preemptions'],
+           v3['swap']['swap_bytes'], _fmt_ms(v3['swap']['resume_p50_ms']),
+           v3['reprefill']['preemptions'], v3['reprefill']['equal'],
+           V3_STREAMS,
+           ' / '.join('%.4f' % r['accept_rate'] for r in v4.values()),
+           ' / '.join('%.3f' % r['tokens_per_step'] for r in v4.values()),
+           ' / '.join('%.1f' % r['tok_s'] for r in v4.values()),
+           v5['swap_wait_ms'], v6['step_ms'], _fmt_ms(v6['device_ms']),
+           _fmt_busy(v6['busy']), v6['chunk_ms']))
     log('captured path: %s; decode predictor stats %s, eager prefill %.3f '
         'ms and decode step %.3f ms; remat peak GB / step ms / K1 per step: '
         '%s; arms %s; ResNet-50 at batch %d then %d on one executor: %s'

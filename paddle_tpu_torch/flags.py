@@ -34,6 +34,43 @@ Known flags:
   serving_max_queue      ServingEngine admission queue bound
   serving_idle_wait      seconds an idle serving worker sleeps between
                          queue checks
+  serving_page_tokens    paged KV cache: tokens per page (page-pool
+                         granularity for alloc/COW/prefix sharing)
+  serving_kv_pages       paged KV cache: physical pages in the pool
+                         (0 = auto-size to dense-equivalent capacity,
+                         slots * ceil(max_len/page_tokens) + 1)
+  serving_prefill_chunk  chunked prefill: tokens admitted per engine
+                         iteration while a prompt prefills, so long
+                         prompts never stall live decode lanes
+  serving_preempt_policy paged-cache exhaustion response
+                         (serving/preempt.py): 'swap' preempts the
+                         lowest-tier longest-idle stream and copies its
+                         pages to host RAM (falling back to
+                         drop-and-re-prefill when the host budget is
+                         dry), 'reprefill' always drops pages and
+                         re-prefills from the accumulated tokens on
+                         resume, 'off' fails the victim with the typed
+                         CacheExhaustedError
+  serving_swap_host_mb   host-RAM budget (MiB per engine) for swapped
+                         KV pages; a preemption past the budget
+                         degrades to the re-prefill path instead of
+                         growing host memory unboundedly
+  spec_k                 speculative decoding (serving/speculative.py):
+                         draft proposals per verify pass (the ceiling:
+                         the predictor adapts k between 1 and this from
+                         the rolling accept rate)
+  spec_draft_layers      self-draft depth: the draft model is the
+                         target truncated to its first N transformer
+                         blocks (same weights, no extra weight memory);
+                         ignored when an explicit draft program is
+                         given
+  obs_dir                telemetry export directory (obs/telemetry.py):
+                         when set, recording is on from import and a
+                         snapshot line is appended every
+                         obs_flush_secs seconds; '' = off
+  obs_flush_secs         telemetry export period in seconds
+  obs_role               role name in the telemetry file name ('' = the
+                         process id)
 """
 from __future__ import annotations
 
@@ -52,6 +89,16 @@ _DEFAULTS = {
     'serving_prefill_batch': 1,
     'serving_max_queue': 256,
     'serving_idle_wait': 0.05,
+    'serving_page_tokens': 16,
+    'serving_kv_pages': 0,
+    'serving_prefill_chunk': 64,
+    'serving_preempt_policy': 'swap',
+    'serving_swap_host_mb': 64,
+    'spec_k': 4,
+    'spec_draft_layers': 1,
+    'obs_dir': '',
+    'obs_flush_secs': 2.0,
+    'obs_role': '',
 }
 
 _FLAGS = dict(_DEFAULTS)

@@ -124,13 +124,39 @@ class AnalysisPredictor(Predictor):
             InferenceTranspiler().transpile(
                 self._program, self._place, scope=self._scope)
 
-    def prepare_decoding(self, slots=None, prefill_batch=None):
+    def prepare_decoding(self, slots=None, prefill_batch=None,
+                         paged=False, page_tokens=None, kv_pages=None,
+                         prefill_chunk=None, speculative=False,
+                         spec_k=None, draft_layers=None,
+                         draft_predictor=None):
         """Transpile the loaded LM into the KV-cached prefill + decode
         pair and return a serving.DecodePredictor over this predictor's
         weight Scope. slots / prefill_batch default to
-        FLAGS_serving_slots / FLAGS_serving_prefill_batch. Raises
+        FLAGS_serving_slots / FLAGS_serving_prefill_batch. paged=True
+        returns a serving.PagedDecodePredictor instead: page-pool cache
+        with copy-on-write prefix sharing and chunked prefill
+        (page_tokens / kv_pages / prefill_chunk default from
+        FLAGS_serving_*). speculative=True (implies paged) returns a
+        serving.SpeculativeDecodePredictor: draft/verify greedy
+        speculation (spec_k / draft_layers default from FLAGS_spec_*;
+        draft_predictor supplies an explicit smaller draft LM instead
+        of the layer-cut self-draft). Raises
         transpiler.DecodeTranspileError if the program is not a
         decoder-only LM."""
+        if speculative:
+            from .serving import SpeculativeDecodePredictor
+            return SpeculativeDecodePredictor(
+                self, slots=slots, spec_k=spec_k,
+                draft_layers=draft_layers,
+                draft_predictor=draft_predictor,
+                page_tokens=page_tokens, kv_pages=kv_pages,
+                prefill_chunk=prefill_chunk)
+        if paged:
+            from .serving import PagedDecodePredictor
+            return PagedDecodePredictor(self, slots=slots,
+                                        page_tokens=page_tokens,
+                                        kv_pages=kv_pages,
+                                        prefill_chunk=prefill_chunk)
         from .serving import DecodePredictor
         return DecodePredictor(self, slots=slots,
                                prefill_batch=prefill_batch)

@@ -22,6 +22,15 @@ Scope without a copy:
            append at position % T, attention over the cache, next-token
            logits.
 
+Paged mode (serving/paged.py) replaces the rings by one
+[num_pages, page_tokens, H, dh] pool per layer and K/V and a per-slot
+page table fed each run (build_paged_prefill_program,
+build_paged_decode_program, build_verify_program). Allocation, copy-on-
+write and prefix sharing are host decisions that change feed values
+only, so each program is captured once. Paged attention is the plain
+ops (kv_page_gather, matmul, a mask op, softmax, matmul), as in the JAX
+package, which reaches no Pallas kernel on this path either.
+
 Every shape is fixed when the programs are built; slot liveness is a
 mask (decode_mask), never a shape. The JAX builders also emit
 sharding_constraint ops for mesh serving; on one device those are the
@@ -215,6 +224,19 @@ class DecodeSpec(object):
 
     def cache_shape(self, slots):
         return (slots, self.max_len, self.heads, self.dh)
+
+    def pool_names(self, layer=None):
+        """Paged K/V pool var names, shared by the paged programs."""
+        if layer is not None:
+            return ('kv_pool.layer%d.k' % layer,
+                    'kv_pool.layer%d.v' % layer)
+        out = []
+        for i in range(self.layers):
+            out.extend(self.pool_names(i))
+        return out
+
+    def pool_shape(self, num_pages, page_tokens):
+        return (num_pages, page_tokens, self.heads, self.dh)
 
     def param_names(self):
         names = [self.emb_w, self.pos_w,
@@ -410,3 +432,208 @@ def build_decode_program(spec, slots):
                            shape=[-1, spec.vocab])
         ids = L.argmax(logits, axis=-1)
     return prog, ['decode_tokens', 'decode_step_idx'], [logits, ids]
+
+
+# ---------------------------------------------------------------------------
+# Paged-cache mode (serving/paged.py): page-table builders
+# (paddle_tpu/models/transformer.py:561-866)
+# ---------------------------------------------------------------------------
+
+def _create_pool_vars(spec, num_pages, page_tokens):
+    """Per-layer K/V page-pool vars: persistable (kept in the Scope and
+    written in place by the page ops) and is_cache (never saved)."""
+    block = default_main_program().global_block()
+    return [tuple(block.create_var(
+        name=n, shape=spec.pool_shape(num_pages, page_tokens),
+        dtype='float32', persistable=True, stop_gradient=True,
+        is_cache=True) for n in spec.pool_names(i))
+        for i in range(spec.layers)]
+
+
+def _paged_gather(pool_var, table):
+    g = _tmp_var()
+    _block_op('kv_page_gather', inputs={'Pool': [pool_var],
+                                        'Table': [table]},
+              outputs={'Out': [g]})                    # [B, J, H, dh]
+    return _heads_first(g)                             # [B, H, J, dh]
+
+
+def _paged_attention(x, spec, blk, pool, table, positions, cow_src,
+                     cow_dst, rows, write, mask):
+    """COW the forked pages, write this run's K/V rows through the table
+    (`write`: 'kv_page_write' with its extra inputs, or
+    'kv_page_append'), then attend every query row over the gathered
+    history with the `mask` op."""
+    q4, k4, v4 = _qkv_parts(x, spec, blk, rows)        # [B, rows, H, dh]
+    op_type, extra = write
+    for pool_var, new in ((pool[0], k4), (pool[1], v4)):
+        _block_op('kv_page_cow',
+                  inputs={'Pool': [pool_var], 'Src': [cow_src],
+                          'Dst': [cow_dst]},
+                  outputs={'Out': [pool_var]})
+        inputs = {'Pool': [pool_var], 'X': [new], 'Table': [table],
+                  'Positions': [positions]}
+        inputs.update(extra)
+        _block_op(op_type, inputs=inputs, outputs={'Out': [pool_var]})
+    scores = L.matmul(_heads_first(q4), _paged_gather(pool[0], table),
+                      transpose_y=True,
+                      alpha=1.0 / np.sqrt(spec.dh))    # [B, H, rows, J]
+    masked = _tmp_var()
+    _block_op(mask, inputs={'X': [scores], 'Positions': [positions]},
+              outputs={'Out': [masked]})
+    ctx = L.matmul(L.softmax(masked), _paged_gather(pool[1], table))
+    ctx = L.reshape(_heads_first(ctx), shape=[-1, rows, spec.dim])
+    return _named_fc(ctx, spec.dim, blk['proj'])
+
+
+def _paged_pos_embedding(spec, index):
+    """Positional rows by absolute index (paged positions never wrap):
+    Index [rows] -> [rows, 1, D]; Index [S, R] -> [S, R, D]."""
+    helper = LayerHelper('position_embedding',
+                         param_attr=_named_attr(spec.pos_w))
+    pos_var = helper.create_parameter(
+        attr=helper.param_attr, shape=[spec.pos_len, spec.dim],
+        dtype='float32')
+    pos = _tmp_var()
+    _block_op('position_embedding_at',
+              inputs={'Pos': [pos_var], 'Index': [index]},
+              outputs={'Out': [pos]})
+    return pos
+
+
+def _paged_trunk(spec, tokens, pos, attention):
+    x = L.elementwise_add(L.embedding(tokens, size=[spec.vocab, spec.dim],
+                                      param_attr=_named_attr(spec.emb_w)),
+                          pos)
+    for i in range(spec.layers):
+        x = _cached_block(x, spec, i,
+                          lambda ln, blk, _i=i: attention(ln, blk, _i))
+    return _named_ln(x, spec.final_ln)
+
+
+def _int_data(name, shape, dtype='int32'):
+    return L.data(name, shape, append_batch_size=False, dtype=dtype)
+
+
+def build_paged_prefill_program(spec, chunk, num_pages, page_tokens,
+                                pages_per_slot):
+    """One prefill CHUNK through one stream's page table.
+
+    Feeds:  prefill_tokens [1, C, 1] int64 (chunk tokens, zero-padded),
+            prefill_positions [C] int32 (absolute position a row: chunk
+            start + arange; rows >= Len are padding),
+            prefill_len [1] int32 (live rows this chunk),
+            prefill_last [1] int32 (Len - 1, the row whose logits are
+            taken),
+            prefill_page_table [1, P] int32 (the stream's table; entries
+            past the written extent are 0, the null page),
+            prefill_cow_src / prefill_cow_dst [1] int32 (the page copy
+            to apply before the write; (0, 0) when none).
+    A prefix hit arrives with its shared pages in the table and its
+    chunk starting at the first unshared position. Only the final
+    chunk's logits mean anything.
+    Returns (program, feed_names, fetch_vars[logits [1, V], ids [1]]).
+    """
+    prog, startup = Program(), Program()
+    prog._is_test = True
+    with program_guard(prog, startup):
+        tokens = _int_data('prefill_tokens', [1, chunk, 1], 'int64')
+        positions = _int_data('prefill_positions', [chunk])
+        length = _int_data('prefill_len', [1])
+        last = _int_data('prefill_last', [1])
+        table = _int_data('prefill_page_table', [1, pages_per_slot])
+        cow_src = _int_data('prefill_cow_src', [1])
+        cow_dst = _int_data('prefill_cow_dst', [1])
+        pools = _create_pool_vars(spec, num_pages, page_tokens)
+        pos = L.reshape(_paged_pos_embedding(spec, positions),
+                        shape=[-1, chunk, spec.dim])         # [1, C, D]
+        write = ('kv_page_write', {'Len': [length]})
+        x = _paged_trunk(spec, tokens, pos, lambda ln, blk, i:
+                         _paged_attention(ln, spec, blk, pools[i], table,
+                                          positions, cow_src, cow_dst,
+                                          chunk, write,
+                                          'paged_prefill_mask'))
+        gathered = _tmp_var()
+        _block_op('gather_time', inputs={'X': [x], 'Index': [last]},
+                  outputs={'Out': [gathered]})               # [1, D]
+        logits = _named_fc(gathered, spec.vocab, spec.head,
+                           num_flatten_dims=1)
+        ids = L.argmax(logits, axis=-1)
+    return prog, ['prefill_tokens', 'prefill_positions', 'prefill_len',
+                  'prefill_last', 'prefill_page_table', 'prefill_cow_src',
+                  'prefill_cow_dst'], [logits, ids]
+
+
+def build_paged_decode_program(spec, slots, num_pages, page_tokens,
+                               pages_per_slot):
+    """One-token decode step over the whole slot pool, page-indexed.
+
+    Feeds:  decode_tokens [slots, 1, 1] int64,
+            decode_step_idx [slots] int32 (absolute position of the
+            incoming token; the write lands at
+            pool[table[pos // pt], pos % pt], never wrapped),
+            decode_page_table [slots, P] int32 (all-zero rows for idle
+            or mid-prefill slots: their appends hit the null page),
+            decode_cow_src / decode_cow_dst [slots] int32.
+    Returns (program, feed_names, fetch_vars[logits [slots, V],
+    ids [slots]]).
+    """
+    prog, startup = Program(), Program()
+    prog._is_test = True
+    with program_guard(prog, startup):
+        tokens = _int_data('decode_tokens', [slots, 1, 1], 'int64')
+        step_idx = _int_data('decode_step_idx', [slots])
+        table = _int_data('decode_page_table', [slots, pages_per_slot])
+        cow_src = _int_data('decode_cow_src', [slots])
+        cow_dst = _int_data('decode_cow_dst', [slots])
+        pools = _create_pool_vars(spec, num_pages, page_tokens)
+        pos = _paged_pos_embedding(spec, step_idx)           # [S, 1, D]
+        write = ('kv_page_append', {})
+        x = _paged_trunk(spec, tokens, pos, lambda ln, blk, i:
+                         _paged_attention(ln, spec, blk, pools[i], table,
+                                          step_idx, cow_src, cow_dst, 1,
+                                          write, 'paged_decode_mask'))
+        logits = L.reshape(_named_fc(x, spec.vocab, spec.head),
+                           shape=[-1, spec.vocab])
+        ids = L.argmax(logits, axis=-1)
+    return prog, ['decode_tokens', 'decode_step_idx', 'decode_page_table',
+                  'decode_cow_src', 'decode_cow_dst'], [logits, ids]
+
+
+def build_verify_program(spec, slots, k1, num_pages, page_tokens,
+                         pages_per_slot):
+    """Speculative verify: the target model over K1 = k+1 proposed
+    positions for every slot in one run.
+
+    Feeds:  verify_tokens [slots, K1, 1] int64 (row 0 the stream's last
+            committed token, rows 1..k the draft proposals),
+            verify_positions [slots, K1] int32 (base..base+k for live
+            slots; a padding row carries P * pt, which the append sends
+            to the null page),
+            verify_page_table [slots, P] int32,
+            verify_cow_src / verify_cow_dst [slots] int32 (at most one
+            fork a slot: only the shared frontier page can fork).
+    Returns (program, feed_names, fetch_vars[logits [slots*K1, V],
+    ids [slots, K1]]): ids[s, r] is the target's next token after verify
+    row r.
+    """
+    prog, startup = Program(), Program()
+    prog._is_test = True
+    with program_guard(prog, startup):
+        tokens = _int_data('verify_tokens', [slots, k1, 1], 'int64')
+        positions = _int_data('verify_positions', [slots, k1])
+        table = _int_data('verify_page_table', [slots, pages_per_slot])
+        cow_src = _int_data('verify_cow_src', [slots])
+        cow_dst = _int_data('verify_cow_dst', [slots])
+        pools = _create_pool_vars(spec, num_pages, page_tokens)
+        pos = _paged_pos_embedding(spec, positions)          # [S, K1, D]
+        write = ('kv_page_append', {})
+        x = _paged_trunk(spec, tokens, pos, lambda ln, blk, i:
+                         _paged_attention(ln, spec, blk, pools[i], table,
+                                          positions, cow_src, cow_dst, k1,
+                                          write, 'spec_verify_mask'))
+        logits3 = _named_fc(x, spec.vocab, spec.head)        # [S, K1, V]
+        ids = L.argmax(logits3, axis=-1)                     # [S, K1]
+        logits = L.reshape(logits3, shape=[-1, spec.vocab])
+    return prog, ['verify_tokens', 'verify_positions', 'verify_page_table',
+                  'verify_cow_src', 'verify_cow_dst'], [logits, ids]

@@ -1,13 +1,20 @@
 """Attention and KV-cache ops (counterpart of
 paddle_tpu/ops/attention_ops.py: flash_attention :57, kv_cache_write :84,
 kv_cache_append :96, decode_mask :113, position_embedding_at :134,
-gather_time :149).
+gather_time :149, and the paged-cache ops :177-315: kv_page_cow,
+kv_page_write, kv_page_append, kv_page_gather, paged_decode_mask,
+spec_verify_mask, paged_prefill_mask).
 
-The cache ops update the Scope's cache tensor IN PLACE and return that
-same tensor: the JAX package rebuilt the array functionally and relied
-on buffer donation (paddle_tpu/executor.py:907) to reuse the memory.
-Every shape is fixed when the prefill/decode programs are built; slot
-positions are feeds and validity is masking, never a dynamic shape.
+The cache and pool ops update the Scope's tensor IN PLACE and return
+that same tensor: the JAX package rebuilt the array functionally and
+relied on buffer donation (paddle_tpu/executor.py:907) to reuse the
+memory, and a captured CUDA graph reads and writes the addresses it
+captured. Every shape is fixed when the programs are built; slot
+positions and page tables are feeds and validity is masking, never a
+dynamic shape. Masked scores are set to -1e9 (as in causal_mask), so
+they underflow to exact zeros in the softmax; the pools are zeroed when
+they are made, so a masked lane reads finite garbage and 0 x garbage
+stays 0.
 """
 from __future__ import annotations
 
@@ -114,6 +121,136 @@ def _gather_time_emit(ctx, op):
     ctx.set(op.single_output('Out'), x[rows, idx])
 
 
+# ---------------------------------------------------------------------------
+# Paged KV-cache ops (serving/paging.py + serving/paged.py)
+#
+# One [num_pages, page_tokens, H, dk] pool per layer and K/V, and a
+# per-slot page TABLE (a feed) mapping logical position j to
+# pool[table[j // pt], j % pt]. Physical page 0 is the null page: never
+# allocated, the target of dead rows and of unpopulated table entries,
+# always masked on read. Validity is absolute (j <= position): pages are
+# allocated on demand, not wrapped, so exhaustion is a typed host-side
+# error. Dead rows go to the null page by torch.where, never by a
+# boolean index (a data-dependent shape).
+# ---------------------------------------------------------------------------
+
+@op_emitter('kv_page_cow')
+def _kv_page_cow_emit(ctx, op):
+    """Copy-on-write page copies, in place: Pool [N, pt, H, dk], Src [n],
+    Dst [n] -> pool[dst[i]] = pool[src[i]]. Every source is gathered
+    before any destination is written, so a page freed and reallocated
+    within the same step still gives its pre-step contents. (0, 0)
+    pairs are the no-op padding (the null page onto itself)."""
+    pool = ctx.get(op.single_input('Pool'))
+    src = ctx.get(op.single_input('Src')).long()
+    dst = ctx.get(op.single_input('Dst')).long()
+    pool.index_copy_(0, dst, pool.index_select(0, src))
+    ctx.set(op.single_output('Out'), pool)
+
+
+@op_emitter('kv_page_write')
+def _kv_page_write_emit(ctx, op):
+    """Chunked prefill: write a chunk's K or V rows through one page
+    table, in place. Pool [N, pt, H, dk], X [1, C, H, dk], Table [1, P],
+    Positions [C] (absolute position of each chunk row), Len [1] (live
+    rows; rows >= Len are padding). Row i lands at
+    pool[table[positions[i] // pt], positions[i] % pt]; dead rows go to
+    the null page at offset 0, which is never read unmasked."""
+    pool = ctx.get(op.single_input('Pool'))
+    x = ctx.get(op.single_input('X'))
+    table = ctx.get(op.single_input('Table')).long().reshape(-1)
+    positions = ctx.get(op.single_input('Positions')).long()
+    length = ctx.get(op.single_input('Len')).long().reshape(-1)
+    pt, P = pool.shape[1], table.shape[0]
+    live = torch.arange(positions.shape[0], device=pool.device) < length[0]
+    page = torch.where(live, table[(positions // pt).clamp(0, P - 1)], 0)
+    off = torch.where(live, positions % pt, 0)
+    pool[page, off] = x.reshape((-1,) + tuple(x.shape[2:])).to(pool.dtype)
+    ctx.set(op.single_output('Out'), pool)
+
+
+@op_emitter('kv_page_append')
+def _kv_page_append_emit(ctx, op):
+    """Decode: append one K or V row per slot through its page table, in
+    place. Pool [N, pt, H, dk], X [slots, 1, H, dk], Table [slots, P],
+    Positions [slots] (absolute position of the incoming token). Idle or
+    mid-prefill slots are fed an all-zero table row and position 0, so
+    their writes land in the null page. With 2-D Positions [slots, R]
+    and X [slots, R, H, dk], R rows a slot are appended at once (the
+    speculative verify pass); a padding row carries a position
+    >= P * pt and goes to the null page."""
+    pool = ctx.get(op.single_input('Pool'))
+    x = ctx.get(op.single_input('X'))
+    table = ctx.get(op.single_input('Table')).long()
+    positions = ctx.get(op.single_input('Positions')).long()
+    pt, P = pool.shape[1], table.shape[1]
+    rows = torch.arange(table.shape[0], device=pool.device)
+    if positions.ndim == 2:
+        idx = positions // pt
+        live = idx < P
+        page = torch.where(live, table[rows[:, None], idx.clamp(0, P - 1)],
+                           0)
+        off = torch.where(live, positions % pt, 0)
+        pool[page, off] = x.to(pool.dtype)
+    else:
+        page = table[rows, (positions // pt).clamp(0, P - 1)]
+        pool[page, positions % pt] = x[:, 0].to(pool.dtype)
+    ctx.set(op.single_output('Out'), pool)
+
+
+@op_emitter('kv_page_gather')
+def _kv_page_gather_emit(ctx, op):
+    """Each row's logical K or V sequence from the pool: Pool
+    [N, pt, H, dk], Table [B, P] -> [B, P*pt, H, dk]. Unpopulated table
+    entries gather the null page, which the paged masks hide."""
+    pool = ctx.get(op.single_input('Pool'))
+    table = ctx.get(op.single_input('Table')).long()
+    B, P = table.shape
+    ctx.set(op.single_output('Out'),
+            pool[table].reshape(B, P * pool.shape[1], pool.shape[2],
+                                pool.shape[3]))
+
+
+def _masked_beyond(x, positions, valid_shape):
+    """x with -1e9 wherever logical index j > the row's position;
+    `valid_shape` broadcasts [.., J] validity against x."""
+    j = torch.arange(x.shape[-1], device=x.device)
+    valid = (j <= positions[..., None]).reshape(valid_shape)
+    return x.masked_fill(~valid, -1e9)
+
+
+@op_emitter('paged_decode_mask')
+def _paged_decode_mask_emit(ctx, op):
+    """Paged decode scores X [slots, H, 1, J], Positions [slots]: logical
+    index j holds the token at position j and is valid iff
+    j <= positions[s] (this step's own token included)."""
+    x = ctx.get(op.single_input('X'))
+    positions = ctx.get(op.single_input('Positions')).long()
+    ctx.set(op.single_output('Out'),
+            _masked_beyond(x, positions, (x.shape[0], 1, 1, x.shape[-1])))
+
+
+@op_emitter('spec_verify_mask')
+def _spec_verify_mask_emit(ctx, op):
+    """Speculative verify scores X [slots, H, K1, J], Positions
+    [slots, K1]: row r of slot s sees j iff j <= positions[s, r]."""
+    x = ctx.get(op.single_input('X'))
+    positions = ctx.get(op.single_input('Positions')).long()
+    ctx.set(op.single_output('Out'),
+            _masked_beyond(x, positions,
+                           (x.shape[0], 1, x.shape[2], x.shape[-1])))
+
+
+@op_emitter('paged_prefill_mask')
+def _paged_prefill_mask_emit(ctx, op):
+    """A prefill chunk's scores X [1, H, C, J] against the gathered
+    history, Positions [C]: chunk row i sees j iff j <= positions[i]."""
+    x = ctx.get(op.single_input('X'))
+    positions = ctx.get(op.single_input('Positions')).long()
+    ctx.set(op.single_output('Out'),
+            _masked_beyond(x, positions, (1, 1, x.shape[2], x.shape[-1])))
+
+
 def _kv_cache_update_infer(op, block):
     cache = block.var_recursive(op.single_input('Cache'))
     out = block.var_recursive(op.single_output('Out'))
@@ -146,9 +283,31 @@ def _gather_time_infer(op, block):
     out.dtype = x.dtype
 
 
+def _kv_pool_update_infer(op, block):
+    pool = block.var_recursive(op.single_input('Pool'))
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape = pool.shape
+    out.dtype = pool.dtype
+
+
+def _kv_page_gather_infer(op, block):
+    pool = block.var_recursive(op.single_input('Pool'))
+    table = block.var_recursive(op.single_input('Table'))
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape = (table.shape[0], table.shape[1] * pool.shape[1],
+                 pool.shape[2], pool.shape[3])
+    out.dtype = pool.dtype
+
+
 register_op('kv_cache_write', infer_shape=_kv_cache_update_infer)
 register_op('kv_cache_append', infer_shape=_kv_cache_update_infer)
 register_op('decode_mask', infer_shape=_decode_mask_infer)
 register_op('position_embedding_at',
             infer_shape=_position_embedding_at_infer)
 register_op('gather_time', infer_shape=_gather_time_infer)
+for _type in ('kv_page_cow', 'kv_page_write', 'kv_page_append'):
+    register_op(_type, infer_shape=_kv_pool_update_infer, no_grad=True)
+register_op('kv_page_gather', infer_shape=_kv_page_gather_infer,
+            no_grad=True)
+for _type in ('paged_decode_mask', 'spec_verify_mask', 'paged_prefill_mask'):
+    register_op(_type, infer_shape=_decode_mask_infer, no_grad=True)

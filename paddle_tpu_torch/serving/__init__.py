@@ -1,16 +1,48 @@
 """KV-cache incremental decoding + continuous-batching serving
-(counterpart of paddle_tpu/serving/, dense ring cache only).
+(counterpart of paddle_tpu/serving/; no mesh, replicas, fleet router or
+disaggregated prefill).
 
-- decode.py  DecodePredictor: a loaded LM transpiled into a prefill +
-             decode program pair with per-layer [slots, T, H, dh] K/V
-             ring caches in a child Scope, weights shared with the base
-             Predictor through the parent Scope.
-- engine.py  ServingEngine: continuous batching over the slot pool with
-             FIFO admission; worker threads share weights via clone().
-- api.py     LMServer: blocking generate() and async submit/poll/result.
+- decode.py       DecodePredictor: a loaded LM transpiled into a
+                  prefill + decode program pair with per-layer
+                  [slots, T, H, dh] K/V ring caches in a child Scope,
+                  weights shared with the base Predictor through the
+                  parent Scope; stage_weights / install_weights.
+- paging.py       Host-side paged-cache bookkeeping: PagePool
+                  (refcounted free list over [num_pages, page_tokens,
+                  H, dh] pools, typed retryable CacheExhaustedError when
+                  dry), PageTable (a stream's logical -> physical map
+                  with copy-on-write forks), PrefixCache (content-hash
+                  chain over full pages + partial tails).
+- paged.py        PagedDecodePredictor: the DecodePredictor contract
+                  over the page pool: chunked prefill, the page index as
+                  a feed (no new capture per admission), transactional
+                  on-demand page allocation, swap out / in.
+- speculative.py  SpeculativeDecodePredictor: draft/verify speculation
+                  over the paged cache (a layer-cut self-draft or an
+                  explicit draft LM proposes up to FLAGS_spec_k tokens a
+                  stream, one verify pass scores all k+1 rows a slot).
+- preempt.py      Preempt-first capacity policy: victim selection
+                  (lowest tier, longest idle) and the host-RAM swap
+                  budget (FLAGS_serving_swap_host_mb).
+- engine.py       ServingEngine: continuous batching over the slot pool
+                  with priority tiers, deadlines, preemption, chunked
+                  prefill interleaved with decode, and step-boundary
+                  weight swaps; worker threads share weights via
+                  clone().
+- api.py          LMServer: blocking generate() and async
+                  submit/poll/result, dense, paged or speculative.
 """
 from .decode import DecodePredictor
-from .engine import ServingEngine, Request
+from .paging import (CacheExhaustedError, PagePool, PageTable,
+                     PrefixCache, chain_keys)
+from .paged import PagedDecodePredictor
+from .speculative import DraftModel, SpeculativeDecodePredictor
+from .engine import ServingEngine, Request, DeadlineExceededError
+from .preempt import HostSwapBudget
 from .api import LMServer
 
-__all__ = ['DecodePredictor', 'ServingEngine', 'Request', 'LMServer']
+__all__ = ['DecodePredictor', 'PagedDecodePredictor',
+           'DraftModel', 'SpeculativeDecodePredictor',
+           'CacheExhaustedError', 'PagePool', 'PageTable', 'PrefixCache',
+           'chain_keys', 'ServingEngine', 'Request',
+           'DeadlineExceededError', 'HostSwapBudget', 'LMServer']

@@ -1,5 +1,5 @@
 """LMServer: the user-facing serving surface (counterpart of
-paddle_tpu/serving/api.py).
+paddle_tpu/serving/api.py; no mesh, no online refresh).
 
 Construct from a saved-model directory (or an AnalysisPredictor, or a
 prepared DecodePredictor), then either block in generate() or go async
@@ -22,7 +22,18 @@ __all__ = ['LMServer']
 
 class LMServer(object):
     def __init__(self, model_dir_or_predictor, place=None, slots=None,
-                 prefill_batch=None, workers=1, max_queue=None):
+                 prefill_batch=None, workers=1, max_queue=None,
+                 paged=False, page_tokens=None, kv_pages=None,
+                 prefill_chunk=None, speculative=False, spec_k=None,
+                 draft_layers=None):
+        """model_dir_or_predictor: a save_inference_model directory, an
+        AnalysisPredictor, or an already-prepared DecodePredictor.
+        paged=True serves from the page-pool cache (serving/paged.py):
+        copy-on-write prefix sharing plus chunked prefill, sized by
+        page_tokens / kv_pages / prefill_chunk (each None defaults from
+        FLAGS_serving_*). speculative=True (implies paged) serves
+        through draft/verify speculation (serving/speculative.py);
+        spec_k / draft_layers default from FLAGS_spec_*."""
         obj = model_dir_or_predictor
         if isinstance(obj, DecodePredictor):
             dec = obj
@@ -30,8 +41,11 @@ class LMServer(object):
             if isinstance(obj, str):
                 from ..inference import AnalysisConfig, AnalysisPredictor
                 obj = AnalysisPredictor(AnalysisConfig(obj, place=place))
-            dec = obj.prepare_decoding(slots=slots,
-                                       prefill_batch=prefill_batch)
+            dec = obj.prepare_decoding(
+                slots=slots, prefill_batch=prefill_batch, paged=paged,
+                page_tokens=page_tokens, kv_pages=kv_pages,
+                prefill_chunk=prefill_chunk, speculative=speculative,
+                spec_k=spec_k, draft_layers=draft_layers)
         self._decode = dec
         self._engine = ServingEngine(dec, workers=workers,
                                      max_queue=max_queue)
@@ -46,9 +60,16 @@ class LMServer(object):
                                      eos_id=eos_id, timeout=timeout)
 
     # -- async -------------------------------------------------------------
-    def submit(self, prompt, max_new_tokens=16, eos_id=None):
-        """Enqueue; returns an opaque handle for poll()/result()."""
-        req = self._engine.submit(prompt, max_new_tokens, eos_id=eos_id)
+    def submit(self, prompt, max_new_tokens=16, eos_id=None, priority=0,
+               deadline_ms=None):
+        """Enqueue; returns an opaque handle for poll()/result().
+        priority is the SLO tier (higher = more important, 0 = the
+        default lowest tier, the only tier admission ever rejects),
+        deadline_ms the optional end-to-end budget (None = no deadline;
+        see ServingEngine.submit for the expiry semantics)."""
+        req = self._engine.submit(prompt, max_new_tokens, eos_id=eos_id,
+                                  priority=priority,
+                                  deadline_ms=deadline_ms)
         self._requests[req.id] = req
         return req.id
 
@@ -73,6 +94,32 @@ class LMServer(object):
 
     def cancel(self, handle):
         self._engine.cancel(self._req(handle))
+
+    # -- prefix pages --------------------------------------------------------
+    @property
+    def paged(self):
+        """True when serving from the page-pool cache."""
+        return bool(getattr(self._decode, 'paged', False))
+
+    def export_prefix(self, prompt):
+        """Longest resident full-page chain for `prompt` as host copies
+        (see ServingEngine.export_prefix); None when non-paged or cold."""
+        return self._engine.export_prefix(prompt)
+
+    def install_prefix(self, prompt, keys, data, skip=0):
+        """Install an exported page run (see ServingEngine.
+        install_prefix); returns (installed, deduped) page counts."""
+        return self._engine.install_prefix(prompt, keys, data, skip=skip)
+
+    def resident_keys(self, prompt):
+        """Hex keys of the locally resident leading chain run for
+        `prompt`."""
+        return self._engine.resident_keys(prompt)
+
+    def prefix_report(self):
+        """Drain {'new', 'evicted'} prefix-chain hex keys since the
+        last call."""
+        return self._engine.prefix_report()
 
     # -- ops ---------------------------------------------------------------
     @property

@@ -1,5 +1,6 @@
 """DecodePredictor: cached prefill/decode execution over a slot pool
-(counterpart of paddle_tpu/serving/decode.py, dense ring cache only).
+(counterpart of paddle_tpu/serving/decode.py; no mesh, no sharded
+checkpoint load, no parameter digests).
 
 Scope layout:
 
@@ -8,7 +9,15 @@ Scope layout:
 
 Every clone() gets a fresh child Scope (private caches, zeroed) over the
 same parent, so N serving workers share one copy of the weights. The
-cache ops update the child Scope's tensors in place.
+cache ops update the child Scope's tensors in place, and reset() zeroes
+them in place.
+
+Weight refresh: stage_weights() puts a {name: array} update on the
+device off the decode path; install_weights() binds the staged tensors
+in the parent Scope (ServingEngine.request_swap runs it at a step
+boundary). A captured graph reads the tensors it captured, so each
+worker's next replay copies the newly bound value into them
+(executor.Executor._replay): no worker captures again for a swap.
 """
 from __future__ import annotations
 
@@ -22,22 +31,33 @@ __all__ = ['DecodePredictor']
 
 
 class DecodePredictor(object):
+    paged = False
+    speculative = False
+
     def __init__(self, predictor, slots=None, prefill_batch=None,
                  _clone_of=None):
         """predictor: a loaded Predictor/AnalysisPredictor whose program
         is a decoder-only LM (prefer AnalysisPredictor.prepare_decoding).
         slots / prefill_batch default to FLAGS_serving_slots /
         FLAGS_serving_prefill_batch."""
-        self._base = predictor
         if _clone_of is not None:
-            self._pair = _clone_of._pair
+            pair = _clone_of._pair
         else:
             from ..transpiler.decode_transpiler import DecodeTranspiler
-            self._pair = DecodeTranspiler().transpile(
+            pair = DecodeTranspiler().transpile(
                 predictor._program,
                 slots=int(slots or get_flag('serving_slots')),
                 prefill_batch=int(prefill_batch
                                   or get_flag('serving_prefill_batch')))
+        self._setup(predictor, pair, check=_clone_of is None)
+
+    def _setup(self, predictor, pair, check):
+        """Bind the transpiled `pair` to the predictor's weight Scope
+        (checked unless this is a clone), with a private executor and
+        cache Scope."""
+        self._base = predictor
+        self._pair = pair
+        if check:
             self._check_weights(predictor._scope)
         self._weight_scope = predictor._scope
         self._exe = Executor(predictor._place)
@@ -79,13 +99,62 @@ class DecodePredictor(object):
         programs (prefill, decode), each captured once on the card."""
         return self._exe.jit_cache_stats()
 
+    # -- weights -----------------------------------------------------------
+    def param_names(self):
+        """The refreshable weight names: every transpile-referenced
+        param minus the runtime cache vars."""
+        cache_names = set(self._pair.cache_names)
+        return [n for n in self._pair.spec.param_names()
+                if n not in cache_names]
+
+    def stage_weights(self, params):
+        """Stage a {name: host array} weight update for install: names
+        are checked against the decode programs' params, shapes against
+        the served values, and every array is copied to the device OFF
+        the decode path. Returns an opaque staged dict for
+        install_weights; raises (staging nothing) on an unknown name or
+        a shape mismatch."""
+        known = set(self.param_names())
+        staged = {}
+        for name, val in params.items():
+            if name not in known:
+                raise KeyError(
+                    'refresh carries unknown param %r (this predictor '
+                    'serves %d params)' % (name, len(known)))
+            arr = np.ascontiguousarray(val)
+            cur = self._weight_scope.find_var(name)
+            if tuple(cur.shape) != arr.shape:
+                raise ValueError(
+                    'refresh shape mismatch for %r: got %r, serving %r'
+                    % (name, arr.shape, tuple(cur.shape)))
+            staged[name] = torch.from_numpy(arr).to(device=self.device,
+                                                    dtype=cur.dtype)
+        return staged
+
+    def install_weights(self, staged):
+        """Bind staged tensors in the PARENT weight Scope: a few dict
+        writes, cheap enough for the serving engine's step-boundary swap
+        gate. Every clone reads the new weights from its next step on
+        (shared parent Scope; a captured graph gets them copied in at
+        its next replay)."""
+        for name, val in staged.items():
+            self._weight_scope.set_var(name, val)
+
     # -- lifecycle ---------------------------------------------------------
+    def _zero_state(self, shape):
+        """Zero every cache var in place (a captured graph reads that
+        storage), creating it on first use."""
+        for name in self._pair.cache_names:
+            cur = self._scope.find_var(name)
+            if isinstance(cur, torch.Tensor) and tuple(cur.shape) == shape:
+                cur.zero_()
+            else:
+                self._scope.set_var(name, torch.zeros(
+                    shape, dtype=torch.float32, device=self.device))
+
     def reset(self):
         """Zero every ring cache (all slots forget everything)."""
-        shape = self._pair.spec.cache_shape(self.slots)
-        for name in self._pair.cache_names:
-            self._scope.set_var(name, torch.zeros(shape, dtype=torch.float32,
-                                                  device=self.device))
+        self._zero_state(self._pair.spec.cache_shape(self.slots))
 
     def clone(self):
         """A worker sharing this one's weights and programs, with a

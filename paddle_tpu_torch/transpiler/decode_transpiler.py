@@ -1,6 +1,7 @@
-"""DecodeTranspiler: loaded LM program -> prefill + decode pair
-(counterpart of paddle_tpu/transpiler/decode_transpiler.py, dense pair
-only).
+"""DecodeTranspiler: loaded LM program -> prefill + decode pair, its
+paged form, and the speculative target / draft / verify set
+(counterpart of paddle_tpu/transpiler/decode_transpiler.py; no mesh
+sharding recovery).
 
 It READS the loaded language-model program, walking the op sequence
 models/transformer.py emits, to recover the architecture (dims, heads,
@@ -17,11 +18,15 @@ Anything else raises DecodeTranspileError naming what is missing.
 """
 from __future__ import annotations
 
+from ..flags import get_flag
 from ..models.transformer import (DecodeSpec, build_prefill_program,
-                                  build_decode_program)
+                                  build_decode_program,
+                                  build_paged_prefill_program,
+                                  build_paged_decode_program,
+                                  build_verify_program)
 
-__all__ = ['DecodeTranspileError', 'DecodePair', 'DecodeTranspiler',
-           'extract_decode_spec']
+__all__ = ['DecodeTranspileError', 'DecodePair', 'PagedDecodePair',
+           'SpecDecodePair', 'DecodeTranspiler', 'extract_decode_spec']
 
 
 class DecodeTranspileError(ValueError):
@@ -50,6 +55,82 @@ class DecodePair(object):
     @property
     def cache_names(self):
         return self.spec.cache_names()
+
+    paged = False
+
+
+class PagedDecodePair(DecodePair):
+    """Paged transpile result: the cache state is per-layer page POOLS
+    ([num_pages, page_tokens, H, dh]) instead of per-slot rings, the
+    prefill program runs one `prefill_chunk`-token chunk through one
+    stream's page table, and both programs take the page index as a
+    feed (serving/paged.py computes it)."""
+
+    paged = True
+
+    def __init__(self, spec, slots, page_tokens, pages_per_slot,
+                 num_pages, prefill_chunk,
+                 prefill_program, prefill_feeds, prefill_fetches,
+                 decode_program, decode_feeds, decode_fetches):
+        DecodePair.__init__(self, spec, slots, 1,
+                            prefill_program, prefill_feeds,
+                            prefill_fetches, decode_program,
+                            decode_feeds, decode_fetches)
+        self.page_tokens = page_tokens
+        self.pages_per_slot = pages_per_slot
+        self.num_pages = num_pages
+        self.prefill_chunk = prefill_chunk
+
+    @property
+    def cache_names(self):
+        return self.spec.pool_names()
+
+    @property
+    def pool_shape(self):
+        return self.spec.pool_shape(self.num_pages, self.page_tokens)
+
+
+class SpecDecodePair(object):
+    """Speculative transpile result: the TARGET PagedDecodePair, a
+    verify program over K1 = spec_k + 1 rows a slot, and a DRAFT
+    PagedDecodePair: transpiled from an explicit draft program (its own
+    weights) or a self-draft, the target spec cut to its first
+    `draft_layers` blocks, whose parameter names are a subset of the
+    target's, so one weight scope serves both. The verify program binds
+    the target's pool names (target prefill / decode / verify share one
+    cache scope); the draft's pools live in the draft predictor's own
+    scope."""
+
+    def __init__(self, target, draft, spec_k, verify_program,
+                 verify_feeds, verify_fetches, self_draft):
+        self.target = target
+        self.draft = draft
+        self.spec_k = int(spec_k)
+        self.verify_program = verify_program
+        self.verify_feeds = verify_feeds
+        self.verify_fetches = verify_fetches
+        self.self_draft = bool(self_draft)
+
+    @property
+    def spec(self):
+        return self.target.spec
+
+
+def _truncate_spec(spec, draft_layers):
+    """Self-draft spec: the target's first `draft_layers` blocks with
+    the same embedding, final-norm and head names."""
+    draft_layers = int(draft_layers)
+    if not 1 <= draft_layers <= spec.layers:
+        raise DecodeTranspileError(
+            'spec_draft_layers %d outside [1, %d] (target layers)'
+            % (draft_layers, spec.layers))
+    return DecodeSpec(vocab=spec.vocab, dim=spec.dim, heads=spec.heads,
+                      layers=draft_layers, ffn=spec.ffn,
+                      max_len=spec.max_len, pos_len=spec.pos_len,
+                      emb_w=spec.emb_w, pos_w=spec.pos_w,
+                      blocks=spec.blocks[:draft_layers],
+                      final_ln=spec.final_ln, head=spec.head,
+                      use_flash=spec.use_flash)
 
 
 def _fail(msg):
@@ -146,16 +227,90 @@ def extract_decode_spec(program):
 
 
 class DecodeTranspiler(object):
-    def transpile(self, program, slots=8, prefill_batch=1):
+    def transpile(self, program, slots=8, prefill_batch=1, paged=False,
+                  page_tokens=None, kv_pages=None, prefill_chunk=None):
         """program: a loaded inference Program (AnalysisPredictor's).
         Returns a DecodePair over a `slots`-slot ring cache whose prefill
-        takes `prefill_batch` prompts per call."""
+        takes `prefill_batch` prompts per call, or with paged=True a
+        PagedDecodePair whose cache is a page pool sized by page_tokens
+        / kv_pages and whose prefill runs prefill_chunk-token chunks
+        (each None defaults from FLAGS_serving_*; kv_pages 0 auto-sizes
+        to slots * pages_per_slot + 1)."""
         if slots < 1:
             raise ValueError('slots must be >= 1, got %r' % (slots,))
         if not 1 <= prefill_batch <= slots:
             raise ValueError('prefill_batch must be in [1, slots]')
         spec = extract_decode_spec(program)
+        if paged:
+            return self._transpile_paged(spec, slots, page_tokens,
+                                         kv_pages, prefill_chunk)
         pp, pf, pv = build_prefill_program(spec, slots, batch=prefill_batch)
         dp, df, dv = build_decode_program(spec, slots)
         return DecodePair(spec, slots, prefill_batch,
                           pp, pf, pv, dp, df, dv)
+
+    def transpile_spec(self, program, draft_program=None, slots=8,
+                       spec_k=None, draft_layers=None, page_tokens=None,
+                       kv_pages=None, prefill_chunk=None):
+        """Speculative-decoding transpile: target program (+ optional
+        draft program) -> SpecDecodePair. With no draft_program the
+        draft is the target cut to its first `draft_layers` (default
+        FLAGS_spec_draft_layers) blocks, sharing the target's weight
+        scope. spec_k defaults from FLAGS_spec_k. The draft pair takes
+        the target's page geometry."""
+        spec_k = int(spec_k if spec_k is not None else get_flag('spec_k'))
+        if spec_k < 1:
+            raise ValueError('spec_k must be >= 1, got %r' % spec_k)
+        target = self.transpile(program, slots=slots, paged=True,
+                                page_tokens=page_tokens,
+                                kv_pages=kv_pages,
+                                prefill_chunk=prefill_chunk)
+        spec = target.spec
+        if draft_program is not None:
+            draft_spec = extract_decode_spec(draft_program)
+            if draft_spec.vocab != spec.vocab:
+                raise DecodeTranspileError(
+                    'draft vocab %d != target vocab %d: proposals would '
+                    'not index the target logits'
+                    % (draft_spec.vocab, spec.vocab))
+            if draft_spec.max_len < spec.max_len:
+                raise DecodeTranspileError(
+                    'draft max_len %d < target max_len %d: the draft '
+                    'cannot cover the target window'
+                    % (draft_spec.max_len, spec.max_len))
+        else:
+            draft_spec = _truncate_spec(
+                spec, draft_layers if draft_layers is not None
+                else get_flag('spec_draft_layers'))
+        draft = self._transpile_paged(draft_spec, target.slots,
+                                      target.page_tokens, kv_pages,
+                                      prefill_chunk)
+        vp, vf, vv = build_verify_program(
+            spec, target.slots, spec_k + 1, target.num_pages,
+            target.page_tokens, target.pages_per_slot)
+        return SpecDecodePair(target, draft, spec_k, vp, vf, vv,
+                              self_draft=draft_program is None)
+
+    def _transpile_paged(self, spec, slots, page_tokens, kv_pages,
+                         prefill_chunk):
+        pt = int(page_tokens or get_flag('serving_page_tokens'))
+        if pt < 1:
+            raise ValueError('page_tokens must be >= 1, got %r' % pt)
+        pages_per_slot = -(-spec.max_len // pt)         # ceil
+        num_pages = int(kv_pages if kv_pages is not None
+                        else get_flag('serving_kv_pages'))
+        if num_pages == 0:
+            # every slot can hold a full window, plus the null page
+            num_pages = slots * pages_per_slot + 1
+        if num_pages < 2:
+            raise ValueError('kv_pages must be >= 2 (page 0 is the '
+                             'reserved null page), got %d' % num_pages)
+        chunk = int(prefill_chunk or get_flag('serving_prefill_chunk'))
+        chunk = max(1, min(chunk, spec.max_len))
+        pp, pf, pv = build_paged_prefill_program(
+            spec, chunk, num_pages, pt, pages_per_slot)
+        dp, df, dv = build_paged_decode_program(
+            spec, slots, num_pages, pt, pages_per_slot)
+        return PagedDecodePair(spec, slots, pt, pages_per_slot,
+                               num_pages, chunk,
+                               pp, pf, pv, dp, df, dv)

@@ -10,8 +10,11 @@ refuses a rate 1e-4 off, a beta power one step behind and a wrong step
 counter, and its update measure forgives sign flips where the gradient
 is rounding noise but refuses a step 10% short, a3 refuses one update element 1e-3 off, a4's table covers every
 op type of the training core and refuses an output 1e-4 off, its
-dropout and truncated-normal checks pass on the CPU); and the script's
-refusal to run without a card."""
+dropout and truncated-normal checks pass on the CPU); the margin rule of
+phases v1-v4 (equal streams, a near tie inside MARGIN_TOL, a divergence
+outside it failing the phase), v1-v6 wired into main(), and v1-v5 run
+end to end on the CPU at a tiny width; and the script's refusal to run
+without a card."""
 import os
 import re
 import shutil
@@ -1363,3 +1366,91 @@ def test_s2d_filter_and_the_fp64_statistics_are_exact_yardsticks():
         assert m2.dtype == v2.dtype == torch.float32
         np.testing.assert_allclose(m2.numpy(), m.numpy(), atol=1e-6)
         np.testing.assert_allclose(v2.numpy(), v.numpy(), rtol=1e-5)
+
+
+# -- v1-v6: paged serving, preemption, speculation, weight swap ---------------
+
+def test_margin_rule_passes_equal_streams_and_near_ties_only():
+    """Equal streams pass; streams that first differ where the reference
+    path's logits for both tokens are within MARGIN_TOL of the best pass
+    (index and gap returned); a divergence outside it fails, and inside
+    a phase that failure is the phase's."""
+    ref, same = [5, 9, 2, 7], [5, 9, 2, 7]
+    logits = np.zeros(16)
+    logits[2], logits[3] = 4.0, 4.0 - 0.5 * chip_smoke.MARGIN_TOL
+    seen = []
+
+    def logits_at(i):
+        seen.append(i)
+        return logits
+    assert chip_smoke.margin_rule(ref, same, logits_at) is None
+    assert seen == []
+    i, gap = chip_smoke.margin_rule(ref, [5, 9, 3, 1], logits_at)
+    assert (i, seen) == (2, [2])
+    assert gap == pytest.approx(0.5 * chip_smoke.MARGIN_TOL)
+    logits[3] = 4.0 - 2 * chip_smoke.MARGIN_TOL
+    with pytest.raises(AssertionError, match='outside the margin rule'):
+        chip_smoke.margin_rule(ref, [5, 9, 3, 1], logits_at)
+    with pytest.raises(AssertionError, match='streams of 4 and 3'):
+        chip_smoke.margin_rule(ref, ref[:3], logits_at)
+    held = chip_smoke.phase('v1: a stand-in')(chip_smoke.margin_rule)
+    with pytest.raises(chip_smoke.PhaseError, match='phase v1: '):
+        held(ref, [5, 9, 3, 1], logits_at)
+
+
+def test_paged_phases_exist_run_in_order_and_fail_the_run():
+    """v1-v6 are phases, called by main() after x2 on the serving
+    predictor's weights and before the LM is freed."""
+    import inspect
+    for fn, name in ((chip_smoke.paged_serving, 'v1'),
+                     (chip_smoke.prefix_sharing, 'v2'),
+                     (chip_smoke.preemption, 'v3'),
+                     (chip_smoke.speculative, 'v4'),
+                     (chip_smoke.weight_swap, 'v5'),
+                     (chip_smoke.paged_timing, 'v6')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * len(inspect.signature(fn).parameters))
+    src = inspect.getsource(chip_smoke.main)
+    order = ['check_serving_capture(', 'paged_serving(', 'prefix_sharing(',
+             'preemption(', 'speculative(', 'weight_swap(', 'paged_timing(',
+             'del pred, dec, pdec', 'train_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+
+
+def test_paged_phases_run_on_the_cpu_at_a_tiny_width(tmp_path):
+    """v1-v5 end to end on the CPU at a tiny width (vocab 64, dim 32, 2
+    layers, max_len 512): the dense streams of c3's prompts, then every
+    check of v1-v5 on the plain ops."""
+    import paddle_tpu_torch as tfluid
+    cfg = TransformerConfig(vocab=64, dim=32, heads=2, layers=2, ffn=64,
+                            max_len=512, flash_attention=True, use_tp=False,
+                            use_sp=False)
+    place = tfluid.CPUPlace()
+    chip_smoke.build_and_save(cfg, place, str(tmp_path))
+    pred, dec = chip_smoke.load_and_prepare(str(tmp_path), place)
+    prompts = chip_smoke.prompts_for(cfg.vocab, cfg.max_len)
+    with tfluid.serving.LMServer(dec) as srv:
+        hs = [srv.submit(p, max_new_tokens=chip_smoke.NEW_TOKENS)
+              for p in prompts]
+        streams = [srv.result(h, 600) for h in hs]
+    counters = {chip_smoke.KERNELS[k][0]: getattr(fa,
+                                                  chip_smoke.KERNELS[k][0])
+                for k in chip_smoke.KERNELS}
+
+    def sync():
+        pass
+    v1 = chip_smoke.paged_serving(pred, dec, prompts, streams, counters,
+                                  sync)
+    pdec = v1.pop('dec')
+    assert v1['captures']['prepared_programs'] == 2
+    v2 = chip_smoke.prefix_sharing(pdec, sync)
+    assert (v2['hits'], v2['reused'], v2['warm_chunks']) == \
+        (7, 7 * chip_smoke.SYSTEM_PROMPT, 7)
+    v3 = chip_smoke.preemption(pred, pdec, sync)
+    assert v3['swap']['preemptions'] >= 1 and v3['swap']['swap_bytes'] > 0
+    v4 = chip_smoke.speculative(pred, prompts, v1['streams'], pdec, sync)
+    assert set(v4) == {1, cfg.layers}
+    assert v4[cfg.layers]['accept_rate'] > v4[1]['accept_rate']
+    v5 = chip_smoke.weight_swap(pred, pdec, sync)
+    assert len(v5['checked']) == 4

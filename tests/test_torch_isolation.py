@@ -70,6 +70,8 @@ def test_import_leaves_jax_out_of_sys_modules():
             'import paddle_tpu_torch.kernels.conv_bn\n'
             'import paddle_tpu_torch.models.resnet\n'
             'import paddle_tpu_torch.tools.probe_exp2\n'
+            'import paddle_tpu_torch.obs.telemetry\n'
+            'import paddle_tpu_torch.serving.speculative\n'
             'bad = [m for m in sys.modules if m.split(".")[0] in '
             '("jax", "jaxlib", "paddle_tpu")]\n'
             'print(bad)\n')
@@ -89,6 +91,10 @@ def test_entry_points_raise_without_a_card_and_a_place(tmp_path):
             tfluid.inference.AnalysisConfig(str(tmp_path)))
     with pytest.raises(RuntimeError, match='CPUPlace'):
         tfluid.serving.LMServer(str(tmp_path))
+    with pytest.raises(RuntimeError, match='CPUPlace'):
+        tfluid.serving.LMServer(str(tmp_path), paged=True)
+    with pytest.raises(RuntimeError, match='CPUPlace'):
+        tfluid.serving.LMServer(str(tmp_path), speculative=True)
     with pytest.raises(RuntimeError, match='CPUPlace'):
         tfluid.Executor(tfluid.CUDAPlace(0))
 

@@ -96,6 +96,43 @@ def _cases():
          {}, ['Out']),
         ('sharding_constraint', {'X': _f(r, 2, 3)},
          {'spec': [None, None]}, ['Out']),
+        # the paged-cache ops: at most one dead row a case (dead rows
+        # all land on the null page's row 0, in no set order)
+        ('kv_page_cow', {'Pool': _f(r, 4, 2, 2, 2),
+                         'Src': np.array([2, 0, 3], 'int32'),
+                         'Dst': np.array([1, 0, 2], 'int32')},
+         {}, ['Out']),
+        ('kv_page_write', {'Pool': _f(r, 5, 2, 2, 3),
+                           'X': _f(r, 1, 4, 2, 3),
+                           'Table': np.array([[3, 1]], 'int32'),
+                           'Positions': np.array([1, 2, 3, 4], 'int32'),
+                           'Len': np.array([3], 'int32')},
+         {}, ['Out']),
+        ('kv_page_append', {'Pool': _f(r, 4, 2, 2, 2),
+                            'X': _f(r, 3, 1, 2, 2),
+                            'Table': np.array([[2, 3], [0, 0], [1, 0]],
+                                              'int32'),
+                            'Positions': np.array([3, 0, 1], 'int32')},
+         {}, ['Out']),
+        ('kv_page_append', {'Pool': _f(r, 6, 2, 2, 2),
+                            'X': _f(r, 2, 3, 2, 2),
+                            'Table': np.array([[2, 3], [4, 5]], 'int32'),
+                            'Positions': np.array([[1, 2, 3], [2, 3, 4]],
+                                                  'int32')},
+         {}, ['Out']),
+        ('kv_page_gather', {'Pool': _f(r, 4, 2, 2, 2),
+                            'Table': np.array([[1, 3], [2, 0]], 'int32')},
+         {}, ['Out']),
+        ('paged_decode_mask', {'X': _f(r, 2, 2, 1, 6),
+                               'Positions': np.array([1, 5], 'int32')},
+         {}, ['Out']),
+        ('spec_verify_mask', {'X': _f(r, 2, 2, 3, 6),
+                              'Positions': np.array([[1, 2, 3], [3, 4, 9]],
+                                                    'int32')},
+         {}, ['Out']),
+        ('paged_prefill_mask', {'X': _f(r, 1, 2, 3, 6),
+                                'Positions': np.array([2, 3, 4], 'int32')},
+         {}, ['Out']),
     ]
 
 
@@ -123,7 +160,9 @@ def _run_one_op(fluid, op_type, inputs, attrs, out_slots):
     return [np.asarray(g) for g in got], declared
 
 
-@pytest.mark.parametrize('case', CASES, ids=[c[0] for c in CASES])
+@pytest.mark.parametrize('case', CASES, ids=[
+    c[0] + ('_rows' if c[0] == 'kv_page_append' and c[1]['Positions'].ndim
+            == 2 else '') for c in CASES])
 def test_op_matches_jax(case):
     op_type, inputs, attrs, out_slots = case
     want, want_decl = _run_one_op(jfluid, op_type,
