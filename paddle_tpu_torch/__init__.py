@@ -21,6 +21,13 @@ mirrors the JAX package:
     pe = fluid.ParallelExecutor(use_cuda=True, loss_name=avg_cost.name)
     loss, = pe.run(fetch_list=[avg_cost.name])
 
+    trainer = fluid.Trainer(train_func, optimizer_func,   # CUDAPlace(0)
+                            checkpoint_config=fluid.CheckpointConfig(
+                                checkpoint_dir=ckpt, step_interval=100))
+    trainer.train(num_epochs=1, event_handler=handler, reader=reader,
+                  feed_order=['tokens', 'labels'])
+    outs = fluid.Inferencer(param_path=model_dir).infer(feed)
+
 This package imports neither jax nor paddle_tpu. What is ported so far
 is the serving path; the training step of the transformer LM (py_reader
 feed, backward, bf16 AMP, one device; the default TransformerConfig's
@@ -31,8 +38,13 @@ Momentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
 Ftrl, ProximalGD, ProximalAdagrad) on dense gradients, the six
 learning-rate schedules, the Variable operators, and the math, tensor,
 loss and dropout ops with their layers; rematerialization
-(layers.recompute, TransformerConfig(remat=)). ROADMAP.md lists the
-rest.
+(layers.recompute, TransformerConfig(remat=)); the high-level Trainer
+(step and epoch events, checkpoints with exact resume, the anomaly guard,
+step-fault retry and rollback) and Inferencer; and `obs`, the
+observability they and the Executor report into (telemetry, trace
+spans, the merged report, the perf and device-memory gauges, the SLO
+watchdog), with `memory` and `distributed.{statefile,resilience}`.
+ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint
@@ -64,6 +76,13 @@ from . import models
 from . import transpiler
 from .transpiler import InferenceTranspiler
 from . import serving
+from . import obs
+from . import memory
+from . import distributed
+from .trainer import (Trainer, CheckpointConfig, BeginEpochEvent,
+                      EndEpochEvent, BeginStepEvent, EndStepEvent,
+                      FaultEvent)
+from .inferencer import Inferencer
 
 __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter',
@@ -74,5 +93,8 @@ __all__ = [
     'set_flags', 'get_flag', 'get_flags', 'inference', 'models',
     'transpiler', 'serving', 'backward', 'append_backward',
     'calc_gradient', 'regularizer', 'clip', 'optimizer', 'contrib',
-    'reader', 'core', 'ParallelExecutor', 'InferenceTranspiler',
+    'reader', 'core', 'ParallelExecutor', 'InferenceTranspiler', 'obs',
+    'memory', 'distributed', 'Trainer', 'CheckpointConfig',
+    'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
+    'FaultEvent', 'Inferencer',
 ]

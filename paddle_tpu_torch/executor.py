@@ -26,6 +26,11 @@ device segment of a block into one XLA computation and replays it; here:
   back and scanned: the first NaN or Inf raises OpExecutionError naming
   the op and the output, with the JAX package's message. These per-op
   host reads happen in this mode only.
+Each run reports into obs/perf.py when telemetry is on: step latency,
+MFU and device memory around Executor.run (step_begin / step_end), a
+hit or a miss per segment dispatch, an `xla.compile` span around each
+warm-up and capture, and the segment's FLOPs counted during its warm-up
+(PreparedProgram.cost_flops).
 Each op's emitter (registry.py) computes with PyTorch on the place's
 tensors. Feeds go numpy -> tensor on the place; fetches come back as
 numpy unless return_numpy=False (then, on the captured path, a copy: the
@@ -57,8 +62,10 @@ CPU is used only when the caller passes CPUPlace().
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import os
 import threading
+import time
 
 import numpy as np
 import torch
@@ -66,6 +73,8 @@ import torch
 from . import kernels, registry
 from .flags import get_flag, get_flags
 from .framework import default_main_program, Program, Variable
+from .obs import perf as _perf
+from .obs import trace as _trace
 from .reader.pipeline import EOFException
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
@@ -460,7 +469,7 @@ class _DeviceSegment(object):
     generators its ops draw from (-> an op's seed)."""
 
     __slots__ = ('ops', 'op_offsets', 'in_names', 'out_names', 'runs',
-                 'graphs', 'generators', 'op_generators')
+                 'graphs', 'generators', 'op_generators', 'warm_s')
 
     def __init__(self, ops, op_offsets):
         self.ops = ops
@@ -471,6 +480,9 @@ class _DeviceSegment(object):
         self.graphs = {}
         self.generators = {}
         self.op_generators = {}
+        # signature -> seconds its warm-up took (obs/perf.py's compile
+        # latency on the card is warm-up + capture)
+        self.warm_s = {}
 
     def signature(self, local):
         """(name, shape, dtype) of each run-local input."""
@@ -524,6 +536,11 @@ class PreparedProgram(object):
         self.block = program.blocks[block_id]
         self.feed_names = list(feed_names)
         self.fetch_names = list(fetch_names)
+        # obs/perf.py: the fingerprint tags this program's xla.compile
+        # spans; cost_flops sums the FLOPs of each segment's warm-up (the
+        # first signature of each), the work model behind perf.mfu
+        self.fingerprint = None
+        self.cost_flops = 0.0
         self.steps = []          # list of _DeviceSegment | _HostStep
         self._build_segments()
         self._analyze_dataflow()
@@ -746,6 +763,7 @@ class Executor(object):
         device segments run eagerly once, are captured as CUDA graphs on
         the next run and replayed from then on. use_program_cache=False
         runs every op eagerly and keeps nothing."""
+        t0_perf = _perf.step_begin()
         program = program or default_main_program()
         if not isinstance(program, Program):
             raise TypeError('Executor.run expects a Program')
@@ -764,6 +782,11 @@ class Executor(object):
             prepared = self._prepared_cache.pop(key, None)
         if prepared is None:
             prepared = PreparedProgram(program, 0, local.keys(), fetch_names)
+            prepared.fingerprint = hashlib.md5(repr(
+                (program._uid, program._version, sorted(
+                    (n, tuple(t.shape), str(t.dtype))
+                    for n, t in local.items()), fetch_names)).encode()
+            ).hexdigest()[:12]
         if use_program_cache:
             self._prepared_cache[key] = prepared
             while len(self._prepared_cache) > PREPARED_LIMIT:
@@ -772,12 +795,19 @@ class Executor(object):
         results = self._run_prepared(prepared, local, scope, program,
                                      captured)
         if return_numpy:
-            return [_to_numpy(r) for r in results]
+            # the host copy is the sync: stamp the step after it
+            results = [_to_numpy(r) for r in results]
+            _perf.step_end(t0_perf, prepared, device=self.device,
+                           scope=scope)
+            return results
         # detached: a fetch carries no autograd record of the step; on
         # the captured path a copy, as the next replay writes the
         # graph's tensors
-        return [(r.detach().clone() if captured else r.detach())
-                if isinstance(r, torch.Tensor) else r for r in results]
+        results = [(r.detach().clone() if captured else r.detach())
+                   if isinstance(r, torch.Tensor) else r for r in results]
+        _perf.step_end(t0_perf, prepared, device=self.device, scope=scope,
+                       sync=results)
+        return results
 
     def _run_prepared(self, prepared, local, scope, program, captured):
         ctx = EmitContext(self, program, prepared.block, scope, local)
@@ -785,7 +815,7 @@ class Executor(object):
         drop = prepared.drop
         check_nan_inf = get_flag('check_nan_inf')
         with torch.no_grad():
-            for step in prepared.steps:
+            for step_idx, step in enumerate(prepared.steps):
                 if isinstance(step, _HostStep):
                     run_op(ctx, step.op, step.op_offset)
                     for name in drop.get(step.op_offset, ()):
@@ -802,16 +832,24 @@ class Executor(object):
                 runs = step.runs.get(sig, 0)
                 if runs:
                     self._segment_hits += 1
+                    _perf.jit_cache_hit()
                 else:
                     self._segment_misses += 1
-                if not captured:
-                    self._run_ops(step, ctx, drop)
-                elif sig in step.graphs:
+                    _perf.jit_cache_miss()
+                if sig in step.graphs:
                     self._replay(step, step.graphs[sig], ctx)
+                elif runs and captured:
+                    step.graphs[sig] = self._compiled(
+                        prepared, step_idx, step, sig, 'capture',
+                        lambda: self._capture(step, ctx, drop))
                 elif runs:
-                    step.graphs[sig] = self._capture(step, ctx, drop)
+                    self._run_ops(step, ctx, drop)
                 else:
-                    self._warm_up(step, ctx, drop)
+                    run = (lambda: self._warm_up(step, ctx, drop)) \
+                        if captured else \
+                        (lambda: self._run_ops(step, ctx, drop))
+                    self._compiled(prepared, step_idx, step, sig,
+                                   'warm_up' if captured else 'compile', run)
                 step.runs[sig] = runs + 1
         results = []
         for name in prepared.fetch_names:
@@ -823,6 +861,30 @@ class Executor(object):
                     raise KeyError('fetch var %r was not produced' % name)
             results.append(val)
         return results
+
+    def _compiled(self, prepared, step_idx, step, sig, phase, run):
+        """run() a segment's warm-up or capture and return what it
+        returns, inside an xla.compile span when telemetry or tracing is
+        on (obs/perf.py). The first signature's warm-up counts the
+        segment's FLOPs into prepared.cost_flops. The compile latency is
+        observed once a signature: at the capture on the card (warm-up +
+        capture), at the first run elsewhere."""
+        if not (_perf.enabled() or _trace.enabled()):
+            return run()
+        out = None
+        t0 = time.perf_counter()
+        with _perf.compile_span(prepared.fingerprint, step_idx,
+                                len(step.ops), phase=phase):
+            if phase != 'capture' and not step.runs and _perf.enabled():
+                prepared.cost_flops += _perf.segment_cost(run)
+            else:
+                out = run()
+        dt = time.perf_counter() - t0
+        if phase == 'warm_up':
+            step.warm_s[sig] = dt
+        else:
+            _perf.record_compile(dt + step.warm_s.pop(sig, 0.0))
+        return out
 
     @staticmethod
     def _run_ops(step, ctx, drop, checked=False):

@@ -69,8 +69,38 @@ Known flags:
                          snapshot line is appended every
                          obs_flush_secs seconds; '' = off
   obs_flush_secs         telemetry export period in seconds
-  obs_role               role name in the telemetry file name ('' = the
-                         process id)
+  obs_role               role name in the telemetry and trace file names
+                         ('' = the process id)
+  fault_plan             deterministic fault injection at the Trainer's
+                         step boundary (distributed/resilience.py): a
+                         JSON FaultPlan, a path to one, or "seed:N" for
+                         a generated plan; read once at import
+  trainer_step_retries / trainer_max_rollbacks
+                         Trainer.train fault handling: re-run a step
+                         this many times on a retryable failure, and
+                         roll back to the last SUCCESS checkpoint at
+                         most this many times on a fatal one
+  anomaly_action         Trainer numeric-anomaly guard: 'none' (off,
+                         default), 'rollback' (skip the step; after
+                         anomaly_skip_steps consecutive anomalies, roll
+                         back to the last SUCCESS checkpoint), or
+                         'fatal' (raise once the skip budget is spent)
+  anomaly_skip_steps     consecutive anomalous steps tolerated (as
+                         skipped steps) before the anomaly_action
+                         escalation fires
+  perf_sync_steps        synchronise on the fetched tensors of an
+                         Executor.run with return_numpy=False before
+                         stamping perf.step_latency (obs/perf.py)
+  perf_peak_tflops       peak dense bf16 TFLOP/s used as the perf.mfu
+                         denominator (0 = the card's entry in
+                         obs/perf.py's table; must be set for a nonzero
+                         MFU on the CPU)
+  slo_rules              declarative SLO rule list for obs/slo.py:
+                         inline JSON (a list of {name, metric, kind,
+                         threshold[, min_count]}) or @/path/rules.json
+                         ('' = no watchdog); breaches emit slo.breach
+                         trace events and the slo.breaches counter
+  slo_check_secs         SLOWatchdog evaluation period in seconds
 """
 from __future__ import annotations
 
@@ -99,6 +129,15 @@ _DEFAULTS = {
     'obs_dir': '',
     'obs_flush_secs': 2.0,
     'obs_role': '',
+    'fault_plan': '',
+    'trainer_step_retries': 2,
+    'trainer_max_rollbacks': 2,
+    'anomaly_action': 'none',
+    'anomaly_skip_steps': 1,
+    'perf_sync_steps': True,
+    'perf_peak_tflops': 0.0,
+    'slo_rules': '',
+    'slo_check_secs': 5.0,
 }
 
 _FLAGS = dict(_DEFAULTS)

@@ -71,6 +71,13 @@ its design does about that.
   `_note_extra_flops` / `take_extra_flops`, :126-146). The tiles are
   the kernels': 128 x 128 for bf16 (the tensor-core K4a, K4b), 64 x 64
   for fp32. The plain versions note nothing.
+- `priced()` prices the attention for obs/perf.py's FLOP count: inside
+  it every FlashAttention forward adds the 2-matmul model's 4·BH·T²·d
+  FLOP and every backward twice that (bench.py's convention: the full
+  T x T square, forward + backward three times the forward), and runs
+  its body out of sight of the torch dispatch modes, so a FlopCounterMode
+  around it counts neither the plain versions' matmuls nor anything
+  twice.
 - `kernel_takes(q)` is the one route between kernels and plain
   versions: the kernels take a CUDA q of a dtype in SUPPORTED_DTYPES
   with a head dim in SUPPORTED_HEAD_DIMS (and BH within the grid);
@@ -84,6 +91,7 @@ its design does about that.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import os
 import threading
@@ -99,6 +107,7 @@ __all__ = ['flash_attention', 'flash_attention_fwd',
            'flash_attention_bwd_dq', 'flash_attention_bwd_dkv',
            'flash_attention_bwd_onepass', 'flash_attention_bwd_reference',
            'FlashAttention', 'bwd_arm', 'fwd_arm', 'take_extra_flops',
+           'priced',
            'kernel_takes', 'SUPPORTED_HEAD_DIMS', 'SUPPORTED_DTYPES']
 
 SUPPORTED_HEAD_DIMS = (64, 128)
@@ -157,6 +166,50 @@ def take_extra_flops():
     with _count_lock:
         flops, _extra_flops = _extra_flops, 0.0
     return flops
+
+
+class _Priced(object):
+    __slots__ = ('flops',)
+
+    def __init__(self):
+        self.flops = 0.0
+
+
+# the priced() accumulators open now (module-wide: a backward runs on the
+# autograd engine's thread)
+_pricing = []
+
+
+@contextlib.contextmanager
+def priced():
+    """Yield an accumulator whose `flops` sums the attention work model
+    of every FlashAttention forward (4·BH·T²·d) and backward (twice
+    that) run inside the block; their own ops run with the torch
+    dispatch modes suspended (module docstring)."""
+    acc = _Priced()
+    with _count_lock:
+        _pricing.append(acc)
+    try:
+        yield acc
+    finally:
+        with _count_lock:
+            _pricing.remove(acc)
+
+
+@contextlib.contextmanager
+def _priced_call(q, passes):
+    """One FlashAttention pass (1: forward, 2: backward) inside priced():
+    add its model FLOPs and hide its ops from the dispatch modes."""
+    if not _pricing:
+        yield
+        return
+    BH, T, d = q.shape
+    with _count_lock:
+        for acc in _pricing:
+            acc.flops += passes * 4.0 * BH * T * T * d
+    from torch.utils._python_dispatch import _disable_current_modes
+    with _disable_current_modes():
+        yield
 
 
 def _check(who, ref, named):
@@ -488,6 +541,15 @@ class FlashAttention(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal, sm_scale, force_plain):
+        with _priced_call(q, 1):
+            o, lse, plain = FlashAttention._forward(q, k, v, causal,
+                                                    sm_scale, force_plain)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.causal, ctx.sm_scale, ctx.plain = causal, sm_scale, plain
+        return o
+
+    @staticmethod
+    def _forward(q, k, v, causal, sm_scale, force_plain):
         twopass = fwd_arm() == 'twopass'
         plain = force_plain or not kernel_takes(q)
         if plain and q.device.type == 'cuda':
@@ -504,17 +566,21 @@ class FlashAttention(torch.autograd.Function):
             o, lse = flash_attention_reference(q, k, v, causal, sm_scale)
         else:
             o, lse = flash_attention_fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, o, lse)
-        ctx.causal, ctx.sm_scale, ctx.plain = causal, sm_scale, plain
-        return o
+        return o, lse, plain
 
     @staticmethod
     def backward(ctx, do):
         q, k, v, o, lse = ctx.saved_tensors
-        causal, scale = ctx.causal, ctx.sm_scale
+        with _priced_call(q, 2):
+            dq, dk, dv = FlashAttention._backward(
+                q, k, v, o, lse, do, ctx.causal, ctx.sm_scale, ctx.plain)
+        return dq, dk, dv, None, None, None
+
+    @staticmethod
+    def _backward(q, k, v, o, lse, do, causal, scale, plain):
         arm = bwd_arm()
         do = do.to(q.dtype).contiguous()
-        if ctx.plain:
+        if plain:
             dq, dk, dv = flash_attention_bwd_reference(q, k, v, o, lse, do,
                                                        causal, scale)
         else:
@@ -530,7 +596,7 @@ class FlashAttention(torch.autograd.Function):
                                             scale)
                 dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta,
                                                  causal, scale)
-        return dq, dk, dv, None, None, None
+        return dq, dk, dv
 
 
 def flash_attention(q, k, v, causal=True, sm_scale=None, force_plain=False):

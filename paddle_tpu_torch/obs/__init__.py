@@ -1,12 +1,24 @@
-"""Observability (counterpart of paddle_tpu/obs/, telemetry only):
+"""Observability (counterpart of paddle_tpu/obs/):
 
 - `obs.telemetry`: process-wide Counters / Gauges / Histograms with a
-  near-free disabled path, `snapshot()`, and periodic JSONL export
-  when `FLAGS_obs_dir` is set.
+  near-free disabled path, `snapshot()`, and periodic JSONL export.
+- `obs.trace`: spans, fault and SLO-breach events in one per-process
+  JSONL event log.
+- `obs.report`: merges the per-role logs into one chrome://tracing
+  timeline (clock offsets from RPC span midpoints) plus a metrics
+  rollup.
+- `obs.perf`: capture (the card's compile) telemetry
+  (xla.compile spans, xla.compile_latency, xla.jit_cache.{hit,miss}),
+  per-step perf.step_latency / perf.mfu / perf.achieved_tflops, and the
+  hbm.* device-memory gauges; wired into Executor/ParallelExecutor.
+- `obs.slo`: declarative threshold rules over the registry, evaluated by
+  a watchdog that emits slo.breach events (the serving engine owns one;
+  training arms one from perf.step_end).
 
-The JAX package's trace spans, cluster report, device perf observatory
-and SLO watchdog are not ported (ROADMAP.md).
+Everything is off unless `FLAGS_obs_dir` is set (or enable() is called).
+Device lanes from a profiler capture wait for the port's profiler.py
+(ROADMAP.md, Queue 1 item 8).
 """
-from . import telemetry
+from . import telemetry, trace, report, perf, slo
 
-__all__ = ['telemetry']
+__all__ = ['telemetry', 'trace', 'report', 'perf', 'slo']

@@ -1,11 +1,11 @@
 """ServingEngine: continuous batching over a fixed slot pool
 (counterpart of paddle_tpu/serving/engine.py).
 
-Not ported yet (ROADMAP.md Queue 1): the SLO watchdog and trace spans
-(obs/slo.py, obs/trace.py), mesh-sharded serving (serving/mesh.py: the
-stats keep mesh_shape '' and mesh_devices 1), replicas, the fleet router
-and disaggregated prefill (serving/{replica,fleet,disagg}.py), and
-online weight refresh (LMServer.enable_refresh, online/subscriber).
+Not ported yet (ROADMAP.md Queue 1): mesh-sharded serving
+(serving/mesh.py: the stats keep mesh_shape '' and mesh_devices 1),
+replicas, the fleet router and disaggregated prefill
+(serving/{replica,fleet,disagg}.py), and online weight refresh
+(LMServer.enable_refresh, online/subscriber).
 
 Iteration-level scheduling: the decode step is ONE program over all
 `slots` lanes, so admission and eviction never change a shape. A
@@ -33,7 +33,10 @@ serving.decode_steps, serving.prefills, serving.weight_swaps,
 serving.cache_exhausted, serving.deadline_expired counters;
 serving.queue_depth, serving.slot_occupancy gauges; serving.ttft,
 serving.token_latency, serving.decode_batch, serving.swap_wait
-histograms; plus serving/preempt.py's preemption series. stats() also
+histograms; plus serving/preempt.py's preemption series. When
+FLAGS_slo_rules is set, start() arms an SLO watchdog (obs/slo.py) over
+these series for the engine's lifetime, and stop() runs its final
+check and releases it. stats() also
 keeps its own lifetime counts (submitted, admitted, completed,
 cancelled, failed, rejected, prefills, decode_steps, tokens_generated),
 telemetry on or off.
@@ -231,6 +234,7 @@ class ServingEngine(object):
         self._preemptions_n = 0
         self._resumes_n = 0
         self._counts = collections.Counter()
+        self._slo = None
 
     def _count(self, name, n=1):
         with self._cond:
@@ -243,6 +247,14 @@ class ServingEngine(object):
             return self
         self._running = True
         self._accepting = True
+        # serving SLOs (obs/slo.py): when FLAGS_slo_rules is set, a
+        # watchdog re-checks TTFT/token-latency percentiles and token
+        # rates against the declared thresholds for the engine's
+        # lifetime, emitting slo.breach events
+        from ..obs import slo as _slo
+        self._slo = _slo.watchdog_from_flags()
+        if self._slo is not None:
+            self._slo.start()
         self._threads = [
             threading.Thread(target=self._worker_loop, args=(i, p),
                              name='serving-worker-%d' % i, daemon=True)
@@ -307,6 +319,11 @@ class ServingEngine(object):
                 # process — surfacing a False beats hanging the caller
                 clean = False
         self._threads = []
+        if self._slo is not None:
+            # final check covers the tail between the last periodic
+            # evaluation and drain
+            self._slo.stop(final_check=True)
+            self._slo = None
         return clean
 
     close = stop

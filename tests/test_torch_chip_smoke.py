@@ -61,16 +61,63 @@ def test_sdpa_yardstick_takes_a_fused_backend_on_3d_inputs(dtype):
 
 
 def test_device_time_takes_a_second_window_before_giving_up(monkeypatch):
-    """The profiler has returned an empty window for a kernel that a
-    later window traced (twice in a row once): a window with no device
-    events is taken again, up to DEVICE_MS_WINDOWS (three) windows, and
-    only then is the device time not measured (None). On the CPU every
-    window is empty: one warm-up call and three windows."""
+    """The profiler has returned windows with no device event for kernels
+    that a later window traced (up to ten in a row once): a window with
+    no device events is taken again, padded longer each time
+    (WINDOW_PADS_S, one window each; the first is padded too), and only
+    then is the device time not measured (None). On the CPU every window
+    is empty: one warm-up call and six windows, each padded on both
+    sides."""
     monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+    waits = []
+    monkeypatch.setattr(chip_smoke.time, 'sleep', waits.append)
     calls = []
-    assert chip_smoke.DEVICE_MS_WINDOWS == 3
+    assert chip_smoke.DEVICE_MS_WINDOWS == 6
+    assert chip_smoke.WINDOW_PADS_S[0] > 0 and \
+        list(chip_smoke.WINDOW_PADS_S) == sorted(chip_smoke.WINDOW_PADS_S)
     assert chip_smoke._device_ms(lambda: calls.append(1), iters=3) is None
     assert len(calls) == 1 + 3 * chip_smoke.DEVICE_MS_WINDOWS
+    assert waits == [p for p in chip_smoke.WINDOW_PADS_S for _ in (0, 1)]
+
+
+def test_device_time_refuses_a_window_that_lost_a_counted_launch(
+        monkeypatch):
+    """A window that kept a kernel's small neighbours (a memset) but lost
+    the launches its wrapper counted is taken again, padded longer; the
+    time is read from the first window that saw every counted launch, and
+    is not measured (None) where none did."""
+    import contextlib
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+    counts = {n: 0 for names in chip_smoke.LAUNCH_GROUPS.values()
+              for n in names}
+
+    def fn():
+        counts['matmul_bn_stats_kernel'] += 1
+
+    def event(key, n, us):
+        return SimpleNamespace(device_type=DeviceType.CUDA, key=key, count=n,
+                               self_device_time_total=us)
+    memset = event('Memset (Device)', 10, 1.0)
+    for windows, want in (([[memset], [memset, event('K6', 10, 500.0)]],
+                           0.0501),
+                          ([[memset]] * chip_smoke.DEVICE_MS_WINDOWS, None)):
+        left, pads = list(windows), []
+
+        @contextlib.contextmanager
+        def window(pad):
+            pads.append(pad)
+            events = left.pop(0)
+            yield SimpleNamespace(key_averages=lambda: events)
+        monkeypatch.setattr(torch.cuda, 'synchronize', lambda *a: None)
+        monkeypatch.setattr(chip_smoke, 'device_window', window)
+        monkeypatch.setattr(chip_smoke, 'launch_group',
+                            lambda key: key if key == 'K6' else None)
+        monkeypatch.setattr(chip_smoke, 'wrapper_counts',
+                            lambda: dict(counts))
+        got = chip_smoke._device_ms(fn, iters=10)
+        assert got == pytest.approx(want) if want else got is None
+        assert pads == list(chip_smoke.WINDOW_PADS_S[:len(windows)])
 
 
 def test_library_time_is_device_time_or_raises(monkeypatch):
@@ -1151,7 +1198,7 @@ def test_launch_groups_name_every_kernel_a_wrapper_launches():
                            for n in names}
 
 
-def test_replay_launch_check_refuses_a_mismatch_and_no_events():
+def test_replay_launch_check_refuses_a_mismatch_and_no_events(monkeypatch):
     """The counts a replay adds back must be what the profiler saw
     launch; with no device event in any window (the CPU) the check
     fails rather than pass unchecked."""
@@ -1165,11 +1212,55 @@ def test_replay_launch_check_refuses_a_mismatch_and_no_events():
         {'K2/K5': (0, 12)}
     assert chip_smoke.launch_mismatch(
         {'K1': 12, 'K2/K5': 12, 'K6': 1}, before, after) == {'K6': (1, 0)}
-    calls = []
+    calls, waits = [], []
+    monkeypatch.setattr(chip_smoke.time, 'sleep', waits.append)
     with pytest.raises(AssertionError, match='no device events'):
         chip_smoke.check_replay_launches('t', lambda: calls.append(1),
                                          lambda: None)
     assert len(calls) == chip_smoke.DEVICE_MS_WINDOWS
+    assert waits == [p for p in chip_smoke.WINDOW_PADS_S for _ in (0, 1)]
+
+
+@pytest.mark.parametrize('windows,want', [
+    ([3, 4], 2),                  # a shortfall, then every launch
+    ([3] * chip_smoke.DEVICE_MS_WINDOWS, 'all'),  # every window short
+    ([5], 1),                     # a launch the wrappers did not count
+])
+def test_replay_launch_check_retries_a_shortfall_only(monkeypatch, windows,
+                                                      want):
+    """A window that saw fewer K1 launches than the 4 counted is taken
+    again, padded longer, and passes once a window sees all 4; a
+    shortfall in every window fails after DEVICE_MS_WINDOWS windows, and
+    a launch more than counted fails at once."""
+    import contextlib
+    from types import SimpleNamespace
+    from torch.autograd import DeviceType
+    seen_windows = list(windows)
+    pads, steps = [], []
+    counts = {n: 0 for names in chip_smoke.LAUNCH_GROUPS.values()
+              for n in names}
+
+    def step():
+        steps.append(1)
+        counts['flash_attention_fwd'] += 4
+
+    @contextlib.contextmanager
+    def window(pad):
+        pads.append(pad)
+        n = seen_windows.pop(0)
+        yield SimpleNamespace(key_averages=lambda: [SimpleNamespace(
+            device_type=DeviceType.CUDA, key='K1', count=n)])
+    monkeypatch.setattr(chip_smoke, 'device_window', window)
+    monkeypatch.setattr(chip_smoke, 'launch_group', lambda key: key)
+    monkeypatch.setattr(chip_smoke, 'wrapper_counts', lambda: dict(counts))
+    if want == 2:
+        assert chip_smoke.check_replay_launches('t', step, lambda: None) == \
+            {'K1': 4}
+    else:
+        with pytest.raises(AssertionError, match='other launches'):
+            chip_smoke.check_replay_launches('t', step, lambda: None)
+    n = chip_smoke.DEVICE_MS_WINDOWS if want == 'all' else want
+    assert pads == list(chip_smoke.WINDOW_PADS_S[:n]) and len(steps) == n
 
 
 def test_seeded_dropout_check_passes_on_the_cpu_and_refuses_a_new_mask(
@@ -1454,3 +1545,112 @@ def test_paged_phases_run_on_the_cpu_at_a_tiny_width(tmp_path):
     assert v4[cfg.layers]['accept_rate'] > v4[1]['accept_rate']
     v5 = chip_smoke.weight_swap(pred, pdec, sync)
     assert len(v5['checked']) == 4
+
+
+def test_trainer_and_obs_phases_exist_run_in_order_and_fail_the_run():
+    """tr1-tr4 and o1-o2 are phases (a failure is a PhaseError, which
+    main() turns into exit 1 with no result line), called by main() in
+    this order after x4 and before the Adam LM."""
+    import inspect
+    for fn, name in ((chip_smoke.trainer_steps, 'tr1'),
+                     (chip_smoke.trainer_resume, 'tr2'),
+                     (chip_smoke.trainer_faults, 'tr3'),
+                     (chip_smoke.trainer_test_and_infer, 'tr4'),
+                     (chip_smoke.trainer_telemetry, 'o1'),
+                     (chip_smoke.serving_slo, 'o2')):
+        n = len([p for p in inspect.signature(fn).parameters.values()
+                 if p.default is p.empty])
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * n)
+    src = inspect.getsource(chip_smoke.main)
+    order = ['remat_steps(', 'trainer_steps(', 'trainer_resume(',
+             'trainer_faults(', 'trainer_test_and_infer(',
+             'trainer_telemetry(', 'serving_slo(', 'adam_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    # the scratch directories (serving model, checkpoints, obs logs) go
+    # however main() ends
+    assert 'remove_scratch()' in src[src.index('except PhaseError'):]
+
+
+def test_the_lm_helper_is_lmrun_and_fluid_trainer_is_the_ports():
+    """The step helper of t1-t4, a1, l1 and x1-x4 is LMRun (it was named
+    Trainer, which shadowed fluid.Trainer); each phase still builds it
+    with the same arguments, and ResNetTrainer still extends it."""
+    import inspect
+    import paddle_tpu_torch as tfluid
+    assert not hasattr(chip_smoke, 'Trainer')
+    assert issubclass(chip_smoke.ResNetTrainer, chip_smoke.LMRun)
+    assert tfluid.Trainer.__module__ == 'paddle_tpu_torch.trainer'
+    src = inspect.getsource(chip_smoke)
+    for call in ("LMRun(cfg, place, TRAIN_BATCH, HEAD_CHUNK, 'tfm_reader')",
+                 "LMRun(cfg, place, TRAIN_BATCH, HEAD_CHUNK, 'adam_reader',",
+                 'LMRun(cfg, place, LC_BATCH, LC_HEAD_CHUNK, LC_READER)',
+                 'LMRun(TransformerConfig(remat=policy, **MODEL), place,'):
+        assert src.count(call) == 1, call
+    # every other Trainer built is the port's
+    assert sorted(re.findall(r'(\S*)Trainer\(', src)) == \
+        ['ResNet'] * src.count('ResNetTrainer(') + \
+        ['fluid.'] * src.count('fluid.Trainer(')
+    assert list(inspect.signature(chip_smoke.LMRun).parameters) == \
+        ['cfg', 'place', 'batch', 'head_chunk', 'reader_name', 'adam']
+
+
+def test_trainer_phase_checks_refuse_what_they_bound(monkeypatch):
+    """tr2/tr3's same-bits rule refuses one loss one ulp off; tr1/tr2's
+    launch check refuses a step one launch short; the disk check fails,
+    stating the numbers, where fewer checkpoints fit than asked."""
+    import shutil
+    losses = {s: np.float32(1.5 + s).item() for s in range(8)}
+    chip_smoke.same_bits('ok', dict(losses), losses, range(8))
+    off = dict(losses)
+    off[6] = float(np.nextafter(np.float32(off[6]), np.float32(9)))
+    with pytest.raises(AssertionError, match=r'\(6, '):
+        chip_smoke.same_bits('tr2', off, losses, range(4, 8))
+    run = {'launches': {0: {'flash_attention_fwd': 12,
+                            'flash_attention_bwd_kvmajor': 12,
+                            'flash_attention_bwd_dq': 0}}}
+    kinds = ('flash_attention_fwd', 'flash_attention_bwd_kvmajor')
+    chip_smoke.check_step_launches('tr1', run, 12, kinds)
+    run['launches'][1] = dict(run['launches'][0],
+                              flash_attention_bwd_kvmajor=11)
+    with pytest.raises(AssertionError, match='step 1'):
+        chip_smoke.check_step_launches('tr1', run, 12, kinds)
+
+    class Usage(object):
+        free = 10 * 10 ** 9
+    monkeypatch.setattr(shutil, 'disk_usage', lambda root: Usage())
+    chip_smoke.check_disk('/x', 3 * 10 ** 9, 3)
+    with pytest.raises(AssertionError, match='10000000000 bytes free'):
+        chip_smoke.check_disk('/x', 6 * 10 ** 9, 3)
+
+
+def test_trainer_phases_run_on_the_cpu_at_a_tiny_width(tmp_path):
+    """tr2-tr4 end to end on the CPU at a tiny width (vocab 64, dim 32, 2
+    layers, max_len 16), on the plain versions: the killed run resumed
+    to the same bits, the flipped byte quarantined, tr3's events and
+    bits, the Inferencer within TR4_TOL of the fp32 test program."""
+    import paddle_tpu_torch as tfluid
+    cfg = TransformerConfig(vocab=64, dim=32, heads=2, layers=2, ffn=64,
+                            max_len=16, flash_attention=True, use_tp=False,
+                            use_sp=False)
+    place = tfluid.CPUPlace()
+    counters = {chip_smoke.KERNELS[k][0]: getattr(fa,
+                                                  chip_smoke.KERNELS[k][0])
+                for k in chip_smoke.KERNELS}
+    root, obs_dir = str(tmp_path / 'ck'), str(tmp_path / 'obs')
+
+    def sync():
+        pass
+    tr2 = chip_smoke.trainer_resume(cfg, place, counters, root, sync)
+    assert sorted(tr2['losses']) == list(range(chip_smoke.TR_STEPS))
+    assert [s for s, _, _ in tr2['saves']] == [3, 7]
+    assert os.path.isdir(os.path.join(root, 'tr2', 'checkpoint_1.corrupt'))
+    run, tr3 = chip_smoke.trainer_faults(cfg, place, counters, root, obs_dir,
+                                         tr2['losses'], tr2['ms'], sync)
+    assert tr3['faults'][0] == ('retry', 1, 1)
+    assert [e for e in os.listdir(obs_dir) if e.startswith('events-trainer')]
+    tr4 = chip_smoke.trainer_test_and_infer(cfg, run, str(tmp_path), sync,
+                                            place=place)
+    assert tr4['rel'] <= chip_smoke.TR4_TOL
+    assert 'trainer' not in run

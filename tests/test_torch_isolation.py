@@ -164,3 +164,42 @@ def test_parallel_executor_raises_without_a_card():
     pe = tfluid.ParallelExecutor(use_cuda=False,
                                  main_program=tfluid.Program())
     assert pe.device.type == 'cpu'
+
+
+def test_trainer_and_obs_modules_leave_jax_out_of_sys_modules():
+    code = ('import sys\n'
+            'import paddle_tpu_torch\n'
+            'import paddle_tpu_torch.trainer, paddle_tpu_torch.inferencer\n'
+            'import paddle_tpu_torch.memory\n'
+            'import paddle_tpu_torch.obs.trace, paddle_tpu_torch.obs.report\n'
+            'import paddle_tpu_torch.obs.slo, paddle_tpu_torch.obs.perf\n'
+            'import paddle_tpu_torch.distributed.resilience\n'
+            'import paddle_tpu_torch.distributed.statefile\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "paddle_tpu")]\n'
+            'print(bad)\n')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]'
+
+
+def test_trainer_and_inferencer_raise_without_a_card(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default place is valid')
+
+    def train_func():
+        x = tfluid.layers.data(name='x', shape=[4], dtype='float32')
+        return tfluid.layers.mean(tfluid.layers.fc(input=x, size=1))
+
+    def opt():
+        return tfluid.optimizer.SGD(0.1)
+
+    with pytest.raises(RuntimeError, match='CPUPlace'):
+        tfluid.Trainer(train_func, opt)
+    with pytest.raises(RuntimeError, match='CPUPlace'):
+        tfluid.Trainer(train_func, opt, parallel=True)
+    with pytest.raises(RuntimeError, match='CPUPlace'):
+        tfluid.Inferencer(param_path=str(tmp_path))
+    trainer = tfluid.Trainer(train_func, opt, place=tfluid.CPUPlace())
+    assert trainer.exe.device.type == 'cpu'

@@ -1,0 +1,418 @@
+"""paddle_tpu_torch's high-level Trainer and Inferencer against the JAX
+package's, on the CPU.
+
+The same scripts run through both packages: the fc model and reader of
+tests/test_trainer.py, and an L2/D64/H4/T16 flash LM (the JAX package's
+Pallas kernel in interpret mode) with a dropout before its head. The
+JAX package's initial persistables carry over through
+`Trainer(param_path=...)` from a directory its `save_params` wrote.
+
+- losses, step by step: fp32 within 1e-5 relative (fc); the LM within
+  1e-4 in fp32 and 2e-2 under AMP (at dropout 0: the two packages draw
+  their masks from different generators);
+- the events, as (type, epoch, step), are equal;
+- the checkpoint layout (directories and file names) is equal;
+- the port's own kill-and-resume gives the same bits as an
+  uninterrupted run, for the fc model and for the dropout LM (the
+  executor's generator state rides in TRAINER_METADATA), through
+  Executor and ParallelExecutor;
+- partial checkpoints are never resumed, unusable ones are skipped, and
+  with none valid training starts fresh; Trainer.test matches the JAX
+  package's; the Inferencer loads what the port's Trainer saved and a
+  directory the JAX package saved, within 1e-5 of the JAX package's
+  Inferencer;
+- the arguments that wait for later items raise NotImplementedError.
+"""
+import json
+import os
+
+import numpy as np
+import pytest
+
+import paddle_tpu as jfluid
+from paddle_tpu.models import transformer as jtransformer
+import paddle_tpu_torch as tfluid
+from paddle_tpu_torch import framework as tframework
+from paddle_tpu_torch import unique_name as tunique_name
+from paddle_tpu_torch.models import transformer as ttransformer
+
+FC_RTOL = 1e-5
+LM_TOL = {False: 1e-4, True: 2e-2}       # keyed by AMP
+LM_CFG = dict(vocab=64, dim=64, heads=4, layers=2, ffn=128, max_len=16,
+              use_tp=False, use_sp=False, flash_attention=True)
+LM_DROPOUT = 0.1
+LM_SEED = 5
+
+
+@pytest.fixture(autouse=True)
+def fresh_torch_programs():
+    """The JAX package's fixture (conftest.py) resets only its own
+    default programs; reset the port's too."""
+    prev_main = tframework.switch_main_program(tframework.Program())
+    prev_startup = tframework.switch_startup_program(tframework.Program())
+    old_gen = tunique_name.switch()
+    with tfluid.scope_guard(tfluid.Scope()):
+        yield
+    tframework.switch_main_program(prev_main)
+    tframework.switch_startup_program(prev_startup)
+    tunique_name.switch(old_gen)
+
+
+@pytest.fixture
+def pallas_interpret():
+    jfluid.set_flags({'pallas_interpret': True})
+    try:
+        yield
+    finally:
+        jfluid.set_flags({'pallas_interpret': False})
+
+
+# -- the scripts ---------------------------------------------------------------
+
+def fc_train_func(fluid):
+    def train_func():
+        x = fluid.layers.data(name='x', shape=[4], dtype='float32')
+        y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+        pred = fluid.layers.fc(input=x, size=1,
+                               param_attr=fluid.ParamAttr(
+                                   name='tw',
+                                   initializer=fluid.initializer.Normal(
+                                       scale=0.1, seed=3)))
+        return fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+    return train_func
+
+
+def fc_reader():
+    rng = np.random.RandomState(7)
+    w = np.linspace(-1, 1, 4).astype('float32')[:, None]
+    for _ in range(10):
+        x = rng.randn(8, 4).astype('float32')
+        yield [x, x @ w]
+
+
+def lm_train_func(fluid, transformer, dropout):
+    """The flash LM: trunk, a dropout, the fused head, mean."""
+    def train_func():
+        fluid.default_main_program().random_seed = LM_SEED
+        fluid.default_startup_program().random_seed = LM_SEED
+        cfg = transformer.TransformerConfig(**LM_CFG)
+        tokens = fluid.layers.data(name='tokens', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        labels = fluid.layers.data(name='labels', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        trunk = fluid.layers.dropout(
+            transformer.language_model_trunk(tokens, cfg), dropout)
+        cost = fluid.layers.fused_softmax_cross_entropy(
+            trunk, labels, cfg.vocab, chunk=16, name='lm_head')
+        return fluid.layers.mean(cost)
+    return train_func
+
+
+def lm_reader():
+    rng = np.random.RandomState(11)
+    for _ in range(6):
+        toks = rng.randint(0, LM_CFG['vocab'], size=(2, LM_CFG['max_len'], 1))
+        yield [toks.astype('int64'), np.roll(toks, -1, axis=1).astype('int64')]
+
+
+def optimizer_func(fluid, kind, amp=False):
+    def make():
+        opt = (fluid.optimizer.Adam(0.02) if kind == 'adam' else
+               fluid.optimizer.Momentum(learning_rate=0.05, momentum=0.9))
+        return fluid.contrib.mixed_precision.decorate(opt) if amp else opt
+    return make
+
+
+class _Abort(Exception):
+    pass
+
+
+def run_trainer(fluid, train_func, opt_func, reader, feed_order, ckpt_dir=None,
+                epochs=2, abort_at=None, max_num_checkpoints=2,
+                step_interval=3, param_path=None, parallel=False,
+                save_init=None):
+    """One Trainer life on the CPU; abort_at=(epoch, step) simulates a
+    kill. Each life gets a fresh name generator, as a restart would.
+    Returns (events, {(epoch, step): loss}, trainer)."""
+    fluid.unique_name.switch()
+    cfg = None
+    if ckpt_dir is not None:
+        cfg = fluid.CheckpointConfig(checkpoint_dir=ckpt_dir,
+                                     max_num_checkpoints=max_num_checkpoints,
+                                     step_interval=step_interval)
+    trainer = fluid.Trainer(train_func, opt_func, place=fluid.CPUPlace(),
+                            param_path=param_path, parallel=parallel,
+                            checkpoint_config=cfg)
+    if save_init is not None:
+        trainer.save_params(save_init)
+    events, losses = [], {}
+
+    def handler(event):
+        events.append((type(event).__name__, getattr(event, 'epoch', None),
+                       getattr(event, 'step', None)))
+        if isinstance(event, fluid.EndStepEvent):
+            losses[(event.epoch, event.step)] = float(
+                np.asarray(event.metrics[0]))
+            if abort_at is not None and (event.epoch, event.step) == abort_at:
+                raise _Abort()
+    try:
+        trainer.train(num_epochs=epochs, event_handler=handler, reader=reader,
+                      feed_order=feed_order)
+    except _Abort:
+        pass
+    return events, losses, trainer
+
+
+def layout(ckpt_dir):
+    """{checkpoint dir: sorted file names}."""
+    return {os.path.relpath(d, ckpt_dir): sorted(fs)
+            for d, _, fs in os.walk(ckpt_dir) if d != ckpt_dir}
+
+
+def run_both(tmp_path, jax_script, port_script, **kw):
+    """The JAX package's run (saving its initial persistables), then the
+    port's from them."""
+    init = str(tmp_path / 'init')
+    jrun = run_trainer(jfluid, *jax_script, ckpt_dir=str(tmp_path / 'jax'),
+                       save_init=init, **kw)
+    trun = run_trainer(tfluid, *port_script, ckpt_dir=str(tmp_path / 'port'),
+                       param_path=init, **kw)
+    return jrun, trun
+
+
+def fc_scripts(fluid, kind='adam'):
+    return (fc_train_func(fluid), optimizer_func(fluid, kind), fc_reader,
+            ['x', 'y'])
+
+
+def lm_scripts(fluid, transformer, dropout, amp=False):
+    return (lm_train_func(fluid, transformer, dropout),
+            optimizer_func(fluid, 'momentum', amp), lm_reader,
+            ['tokens', 'labels'])
+
+
+# -- against the JAX package ---------------------------------------------------
+
+@pytest.mark.parametrize('epochs', [1, 2])
+def test_fc_trainer_matches_jax(tmp_path, epochs):
+    """Losses within FC_RTOL step by step, the same events and the same
+    checkpoint layout (step_interval 3 over 10 steps + the epoch end,
+    pruned to the newest 2)."""
+    (jev, jloss, _), (tev, tloss, _) = run_both(
+        tmp_path, fc_scripts(jfluid), fc_scripts(tfluid), epochs=epochs)
+    assert tev == jev
+    assert len(tloss) == 10 * epochs
+    assert sorted(tloss) == sorted(jloss)
+    for key, v in jloss.items():
+        np.testing.assert_allclose(tloss[key], v, rtol=FC_RTOL, atol=0,
+                                   err_msg='step %s' % (key,))
+    assert tloss[(epochs - 1, 9)] < tloss[(0, 0)]
+    tl, jl = layout(str(tmp_path / 'port')), layout(str(tmp_path / 'jax'))
+    assert tl == jl
+    assert len(tl) == 2 and all('_SUCCESS' in fs and 'TRAINER_METADATA' in fs
+                                and 'CHECKPOINT_DIGESTS' in fs
+                                for fs in tl.values())
+
+
+@pytest.mark.parametrize('amp', [False, True], ids=['fp32', 'amp_bf16'])
+def test_flash_lm_trainer_matches_jax(tmp_path, pallas_interpret, amp):
+    (jev, jloss, _), (tev, tloss, _) = run_both(
+        tmp_path, lm_scripts(jfluid, jtransformer, 0.0, amp),
+        lm_scripts(tfluid, ttransformer, 0.0, amp), epochs=1)
+    assert tev == jev
+    keys = sorted(jloss)
+    assert sorted(tloss) == keys and len(keys) == 6
+    got = np.array([tloss[k] for k in keys])
+    want = np.array([jloss[k] for k in keys])
+    assert np.isfinite(got).all()
+    np.testing.assert_allclose(got, want, atol=LM_TOL[amp], rtol=0)
+    assert layout(str(tmp_path / 'port')) == layout(str(tmp_path / 'jax'))
+
+
+def test_trainer_test_matches_jax(tmp_path):
+    (_, _, jtr), (_, _, ttr) = run_both(
+        tmp_path, fc_scripts(jfluid), fc_scripts(tfluid), epochs=1)
+    want = jtr.test(reader=fc_reader, feed_order=['x', 'y'])
+    got = ttr.test(reader=fc_reader, feed_order=['x', 'y'])
+    assert len(got) == len(want) == 1
+    np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=0)
+    # the eval program is cloned once and kept
+    assert ttr.test(reader=fc_reader, feed_order=['x', 'y'])[0] == got[0]
+
+
+# -- the port's own exact resume -------------------------------------------------
+
+@pytest.mark.parametrize('parallel', [False, True],
+                         ids=['executor', 'parallel_executor'])
+@pytest.mark.parametrize('model', ['fc', 'dropout_lm'])
+def test_kill_and_exact_resume_gives_the_same_bits(tmp_path, model, parallel):
+    """Kill mid-epoch after a checkpoint; a fresh Trainer resumes at the
+    exact next step with the same loss bits as an uninterrupted run:
+    parameters, optimizer state and the executor's random state (the
+    dropout masks) were all restored."""
+    scripts = (fc_scripts(tfluid) if model == 'fc' else
+               lm_scripts(tfluid, ttransformer, LM_DROPOUT))
+    steps = 10 if model == 'fc' else 6
+    abort_at, resume_at = ((0, 7), (0, 6)) if model == 'fc' else \
+        ((1, 4), (1, 3))
+    _, full, _ = run_trainer(tfluid, *scripts, ckpt_dir=str(tmp_path / 'full'),
+                             parallel=parallel)
+    ckpt = str(tmp_path / 'ck')
+    _, part, _ = run_trainer(tfluid, *scripts, ckpt_dir=ckpt,
+                             abort_at=abort_at, parallel=parallel)
+    assert part == {k: v for k, v in full.items() if k <= abort_at}
+    events, resumed, trainer = run_trainer(tfluid, *scripts, ckpt_dir=ckpt,
+                                           parallel=parallel)
+    assert trainer._resumed
+    assert min(resumed) == resume_at
+    assert max(resumed) == (1, steps - 1)
+    for key, v in resumed.items():
+        assert v == full[key], 'step %s: %r vs %r' % (key, v, full[key])
+    if model == 'dropout_lm':
+        with open(os.path.join(ckpt, sorted(os.listdir(ckpt))[-1],
+                               'TRAINER_METADATA')) as f:
+            rng = json.load(f)['rng']
+        assert rng['random_seed'] == LM_SEED
+        assert rng['generator'] and rng['remat'] == []
+
+
+def test_dropout_lm_draws_another_mask_without_the_restored_state(tmp_path):
+    """The resume above is exact because of the generator state: the
+    same resume with it dropped from TRAINER_METADATA gives other
+    losses."""
+    scripts = lm_scripts(tfluid, ttransformer, LM_DROPOUT)
+    _, full, _ = run_trainer(tfluid, *scripts, ckpt_dir=str(tmp_path / 'full'))
+    ckpt = str(tmp_path / 'ck')
+    run_trainer(tfluid, *scripts, ckpt_dir=ckpt, abort_at=(1, 4))
+    newest = os.path.join(ckpt, sorted(os.listdir(ckpt))[-1])
+    meta_path = os.path.join(newest, 'TRAINER_METADATA')
+    with open(meta_path) as f:
+        meta = json.load(f)
+    meta['rng']['generator'] = None
+    with open(meta_path, 'w') as f:
+        json.dump(meta, f)
+    os.remove(os.path.join(newest, 'CHECKPOINT_DIGESTS'))
+    _, resumed, _ = run_trainer(tfluid, *scripts, ckpt_dir=ckpt)
+    assert any(v != full[k] for k, v in resumed.items())
+
+
+# -- bad checkpoints (tests/test_trainer.py, the same scripts) ------------------
+
+def _fresh(ckpt):
+    tfluid.unique_name.switch()
+    return tfluid.Trainer(fc_train_func(tfluid),
+                          optimizer_func(tfluid, 'adam'),
+                          place=tfluid.CPUPlace(),
+                          checkpoint_config=tfluid.CheckpointConfig(
+                              checkpoint_dir=ckpt))
+
+
+def _ckpt_dirs(ckpt):
+    return sorted((d for d in os.listdir(ckpt) if d.startswith('checkpoint')),
+                  key=lambda d: int(d.split('_')[-1]))
+
+
+def _step_of(ckpt, d):
+    with open(os.path.join(ckpt, d, 'TRAINER_METADATA')) as f:
+        return json.load(f)['step_id']
+
+
+def test_partial_checkpoint_is_never_resumed(tmp_path):
+    ckpt = str(tmp_path / 'ck')
+    run_trainer(tfluid, *fc_scripts(tfluid), ckpt_dir=ckpt, epochs=1)
+    dirs = _ckpt_dirs(ckpt)
+    os.remove(os.path.join(ckpt, dirs[-1], '_SUCCESS'))
+    t = _fresh(ckpt)
+    assert t._resumed
+    assert t.step_id == _step_of(ckpt, dirs[-2]) + 1
+
+
+def test_resume_skips_every_unusable_checkpoint(tmp_path):
+    ckpt = str(tmp_path / 'ck')
+    run_trainer(tfluid, *fc_scripts(tfluid), ckpt_dir=ckpt, epochs=1,
+                max_num_checkpoints=3)
+    dirs = _ckpt_dirs(ckpt)
+    assert len(dirs) == 3, dirs
+    os.remove(os.path.join(ckpt, dirs[-1], '_SUCCESS'))
+    meta = os.path.join(ckpt, dirs[-2], 'TRAINER_METADATA')
+    with open(meta, 'w') as f:
+        f.write('{not json')
+    # the manifest would quarantine the torn metadata; without one the
+    # load itself fails and the checkpoint is skipped
+    os.remove(os.path.join(ckpt, dirs[-2], 'CHECKPOINT_DIGESTS'))
+    t = _fresh(ckpt)
+    assert t._resumed
+    assert t.step_id == _step_of(ckpt, dirs[-3]) + 1
+
+
+def test_no_valid_checkpoint_starts_fresh(tmp_path):
+    ckpt = str(tmp_path / 'ck')
+    run_trainer(tfluid, *fc_scripts(tfluid), ckpt_dir=ckpt, epochs=1)
+    for d in _ckpt_dirs(ckpt):
+        os.remove(os.path.join(ckpt, d, '_SUCCESS'))
+    t = _fresh(ckpt)
+    assert not t._resumed
+    assert t.epoch_id == 0 and t.step_id == 0
+
+
+def test_stop_ends_training_at_the_next_event(tmp_path):
+    tfluid.unique_name.switch()
+    trainer = tfluid.Trainer(fc_train_func(tfluid),
+                             optimizer_func(tfluid, 'adam'),
+                             place=tfluid.CPUPlace())
+    seen = []
+
+    def handler(event):
+        if isinstance(event, tfluid.EndStepEvent):
+            seen.append(event.step)
+            if event.step == 2:
+                trainer.stop()
+    trainer.train(num_epochs=2, event_handler=handler, reader=fc_reader,
+                  feed_order=['x', 'y'])
+    assert seen == [0, 1, 2]
+
+
+# -- the Inferencer ----------------------------------------------------------------
+
+def _infer_feed():
+    return {'x': np.random.RandomState(3).randn(5, 4).astype('float32')}
+
+
+def _save_fc_inference(fluid, trainer, dirname):
+    with fluid.scope_guard(trainer.scope):
+        pred = trainer.train_program.global_block().var('fc_0.tmp_1')
+        fluid.io.save_inference_model(dirname, ['x'], [pred], trainer.exe,
+                                      main_program=trainer.train_program)
+
+
+def test_inferencer_loads_both_packages_models(tmp_path):
+    (_, _, jtr), (_, _, ttr) = run_both(
+        tmp_path, fc_scripts(jfluid), fc_scripts(tfluid), epochs=1)
+    jdir, tdir = str(tmp_path / 'jax_model'), str(tmp_path / 'port_model')
+    _save_fc_inference(jfluid, jtr, jdir)
+    _save_fc_inference(tfluid, ttr, tdir)
+    feed = _infer_feed()
+    want = jfluid.Inferencer(param_path=jdir,
+                             place=jfluid.CPUPlace()).infer(feed)
+    for d in (jdir, tdir):
+        inf = tfluid.Inferencer(param_path=d, place=tfluid.CPUPlace())
+        assert inf.feed_target_names == ['x']
+        got = inf.infer(feed)
+        assert len(got) == 1 and got[0].shape == (5, 1)
+        np.testing.assert_allclose(got[0], want[0], rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match='map'):
+        tfluid.Inferencer(param_path=tdir,
+                          place=tfluid.CPUPlace()).infer([feed['x']])
+
+
+# -- what waits for later items ------------------------------------------------------
+
+def test_deferred_arguments_raise():
+    with pytest.raises(NotImplementedError, match='item 7'):
+        tfluid.CheckpointConfig(checkpoint_dir='x', sharded=True)
+    with pytest.raises(NotImplementedError, match='item 6'):
+        tfluid.CheckpointConfig(checkpoint_dir='x',
+                                pserver_endpoints=['127.0.0.1:1'])
+    with pytest.raises(NotImplementedError, match='item 7'):
+        tfluid.Trainer(fc_train_func(tfluid), optimizer_func(tfluid, 'adam'),
+                       place=tfluid.CPUPlace(), strategy=object())
