@@ -240,6 +240,37 @@ then
       the same bits; p50 and p99 ms a call from a host feed, and device
       images/s from a device-resident feed, N/2N differenced as
       bench.py's serving_throughput does.
+Then the dense book chapters, fed through fluid.batch + DataFeeder
+from the synthetic datasets, and the small one-device modules:
+  (bk1) image_classification: models.resnet.resnet_cifar10(depth=32) at
+      32 px, batch 128, fp32, Adam(0.001), fed from
+      dataset.cifar.train10(): 10 steps through the Executor's default
+      path (eager, captured, replayed) against the same steps op by op
+      from one saved state by x1's rule; the capture count equal to the
+      program's device segments (x1's Adam measure: a2's gradient-
+      weighted updates; cuDNN's deterministic algorithms in bk1, bk2 and
+      mo1); step ms, images/s, DataFeeder ms a batch, device ms and busy
+      share of a replayed step;
+  (bk2) the same network built under FLAGS_use_pallas_fused_ops from
+      bk1's initial parameters (each conv + BN one conv2d_bn op): 10
+      captured steps launch K6 exactly BK2_K6_PER_STEP (its two 1x1
+      projections, fp32 on the generic kernel) times a step; a replayed
+      step's profiled launches equal the count; the captured steps vs
+      op by op by x1's rule; K6 against its plain version at the two
+      shapes (as b6) and its ms there; one fused step against bk1's
+      unfused step by r2's rule (updates by a2's measure);
+  (bk3) fit_a_line (uci_housing, SGD, then the save_inference_model /
+      load_inference_model round trip within SAVE_TOL), recognize_digits
+      (models.mnist through py_reader, fed fluid.batch's batches by
+      decorate_paddle_reader) and word2vec (imikolov N=5, embedding 32):
+      BK3_STEPS steps each, the loss falling;
+  (mo1) memory_optimize on bk1's program: MO1_STEPS captured steps the
+      same bits and peak allocated memory no higher; release_memory on
+      fit_a_line: the same losses, its delete_var host steps splitting
+      the block into more captured segments; a layers.Print of a feed
+      and of an fc's output: the JAX package's text on stderr
+      (expected_print_text) for PRINT_FIRST_N runs only, and every
+      device segment captured.
 ResNet-50 is freed, then the long-context LM (bench.py's
 bench_long_context: vocab 32768, dim 1024, 8 heads, 4 layers, ffn 4096,
 max_len 8192, batch 2, fused LM head with chunk 8192, reader lc_reader,
@@ -3073,6 +3104,12 @@ A4_HELD_ELSEWHERE = {
                                  'stream is not the CPU\'s',
     'remat_block': 'x4: the flagship LM with each block a remat scope, '
                    'against remat=None',
+    'uniform_random_batch_size_like': 'a4\'s own check of the draw\'s shape '
+                                      'and moments',
+    'gaussian_random_batch_size_like': 'a4\'s own check of the draw\'s '
+                                       'shape and moments',
+    'print': 'mo1: its text on stderr, first_n, the captured segments',
+    'delete_var': 'mo1: release_memory on fit_a_line, the same losses',
 }
 for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
@@ -3208,6 +3245,23 @@ def training_op_cases(rng):
     add('paged_prefill_mask', {'X': f(1, 2, 3, 6),
                                'Positions': np.array([2, 3, 4], i32)},
         check=())
+    # the dense ops of the book chapters (bk1-bk3 run none of them)
+    add('conv2d_transpose', {'Input': f(2, 3, 5, 5), 'Filter': f(3, 2, 3, 3)},
+        {'strides': [2, 2], 'paddings': [1, 1], 'dilations': [1, 1],
+         'groups': 1}, {'Output': ['out']}, check=('in_input', 'in_filter'))
+    add('huber_loss', {'X': x, 'Y': y}, {'delta': 0.8},
+        {'Out': ['out'], 'Residual': ['hl_res']}, check=('in_x', 'in_y'))
+    add('smooth_l1_loss', {'X': x, 'Y': y}, {'sigma': 1.5},
+        {'Diff': ['sl_diff'], 'Out': ['out']})
+    add('prelu', {'X': f(2, 3, 4, 4), 'Alpha': pos(1, 3, 1, 1)},
+        {'mode': 'channel'}, check=('in_x', 'in_alpha'))
+    add('lrn', {'X': f(2, 6, 4, 4)}, {'n': 5, 'k': 1.0, 'alpha': 1e-4,
+                                      'beta': 0.75},
+        {'Out': ['out'], 'MidOut': ['lrn_mid']})
+    add('argmin', {'X': f(5, 7)}, {'axis': 1}, check=())
+    add('fill_constant_batch_size_like', {'Input': f(5, 2)},
+        {'shape': [-1, 3], 'dtype': 'float32', 'value': 2.5,
+         'input_dim_idx': 0, 'output_dim_idx': 0}, check=())
     return cases
 
 
@@ -3246,7 +3300,8 @@ def run_op_case(fluid, place, case):
         block.append_op(type=op_type, inputs=ins, outputs=outs,
                         attrs=dict(attrs))
         if check:
-            targets = outs.get('Loss') or outs.get('Out') or outs['Y']
+            targets = outs.get('Loss') or outs.get('Out') or \
+                outs.get('Output') or outs['Y']
             cots = []
             for i, t in enumerate(targets):
                 cot = block.create_var(name='cot_%d' % i, shape=t.shape,
@@ -3383,6 +3438,34 @@ def check_truncated_normal(place):
     return float(w.mean()), float(w.std())
 
 
+def check_batch_size_like(place):
+    """The card's uniform and gaussian *_batch_size_like draws: the
+    shape from the input's batch, within the uniform's bounds, and
+    moments within 0.02 of the asked ones."""
+    import paddle_tpu_torch as fluid
+    prog = fluid.Program()
+    prog.random_seed = SEED
+    with fluid.program_guard(prog, fluid.Program()):
+        x = fluid.layers.data(name='x', shape=[7], dtype='float32')
+        u = fluid.layers.uniform_random_batch_size_like(
+            x, shape=[-1, 4096], min=-2.0, max=3.0)
+        g = fluid.layers.gaussian_random_batch_size_like(
+            x, shape=[-1, 4096], mean=1.0, std=0.5)
+    uv, gv = fluid.Executor(place).run(
+        prog, feed={'x': np.zeros((64, 7), 'float32')}, fetch_list=[u, g],
+        scope=fluid.Scope())
+    ok = (uv.shape == gv.shape == (64, 4096) and uv.min() >= -2.0 and
+          uv.max() < 3.0 and abs(uv.mean() - 0.5) < 0.02 and
+          abs(uv.std() - 5 / 12 ** 0.5) < 0.02 and
+          abs(gv.mean() - 1.0) < 0.02 and abs(gv.std() - 0.5) < 0.02)
+    if not ok:
+        raise AssertionError('*_batch_size_like draws: shapes %s %s, uniform '
+                             'mean %.4f std %.4f, gaussian mean %.4f std %.4f'
+                             % (uv.shape, gv.shape, uv.mean(), uv.std(),
+                                gv.mean(), gv.std()))
+    return float(uv.mean()), float(gv.std())
+
+
 @phase('a4: the training core\'s op types on the card vs on CPU copies, '
        'forward and grads')
 def check_training_ops(place):
@@ -3399,6 +3482,7 @@ def check_training_ops(place):
         worst[case[0]] = check_op_outputs(case[0], got, want)
     shares = check_dropout(place)
     mean_std = check_truncated_normal(place)
+    check_batch_size_like(place)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     log('%d op cases on the card vs CPU copies (%d op types), worst error '
         'over the tolerance (rtol %g, atol %g): %s; dropout kept shares %s '
@@ -6067,6 +6151,693 @@ def serving_slo(model_dir, place, prompts, streams, obs_dir, sync):
         timeline['traceEvents']), 'series': series}
 
 
+# -- (bk1)-(bk3), (mo1): the dense book chapters fed through fluid.batch +
+# DataFeeder, and memory_optimize, release_memory and Print on the card ------
+
+# bk1, bk2: image_classification's ResNet at the book's width and input
+BOOK = dict(depth=32, batch=128, steps=10, hw=32, classes=10)
+# resnet_cifar10(depth=32)'s 1x1 conv2d_bn ops, each of which _route
+# sends to a kernel (fp32: the generic one); counted from the port's own
+# program on the CPU (tests/test_torch_chip_smoke.py)
+BK2_K6_PER_STEP = 2
+BK3_STEPS = 5
+MO1_STEPS = 3                # mo1: warm-up, capture, replay
+PRINT_FIRST_N = 2
+PRINT_RUNS = 4
+SAVE_TOL = 1e-5              # bk3: a loaded inference program vs its source
+
+
+def expected_print_text(name, arr, message=''):
+    """What the JAX package's print op writes for `arr` (its io_ops.py
+    _print_emit with the layer's attrs): the message, the var's name,
+    shape and dtype, then np.array2string(threshold=20)."""
+    lines = [message] if message else []
+    lines += ['Variable: %s' % name, 'shape: %s' % (list(arr.shape),),
+              'dtype: %s' % arr.dtype,
+              'data: %s' % np.array2string(arr, threshold=20)]
+    return '\n'.join(lines) + '\n'
+
+
+def book_params_compared(program):
+    """The parameters bk1, bk2 and mo1 compare, named as in the unfused
+    program (bk2's fused names are mapped by op order): the stem conv's
+    filter, the last 1x1 conv's (the stage-3 projection, K6's in bk2)
+    and fc's weight."""
+    block = program.global_block()
+    filters = [op.single_input('Filter') for op in block.ops
+               if op.type == 'conv2d']
+    ones = [f for f in filters if tuple(block.var(f).shape[2:]) == (1, 1)]
+    return (filters[0], ones[-1], 'fc_0.w_0')
+
+
+def book_k6_launches(program, batch):
+    """K6 launches one training step of `program` makes: its 1x1
+    conv2d_bn ops (k6_path_shapes) that conv_bn._route sends to a
+    kernel, in the program's dtype."""
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    dtype = _torch_dtype('bfloat16' if program._use_bf16 else 'float32')
+    return sum(n for (M, K, N), n in k6_path_shapes(program, batch).items()
+               if k6._route(M, K, N, dtype) is not None)
+
+
+def book_image_net(fluid, depth=None):
+    """image_classification's ResNet (models.resnet.resnet_cifar10) under
+    the book's Adam(0.001): (feed names, prediction, loss)."""
+    from paddle_tpu_torch.models import resnet
+    img = fluid.layers.data(name='pixel', shape=[3, BOOK['hw'], BOOK['hw']],
+                            dtype='float32')
+    lbl = fluid.layers.data(name='label', shape=[1], dtype='int64')
+    pred = resnet.resnet_cifar10(img, class_dim=BOOK['classes'],
+                                 depth=depth or BOOK['depth'])
+    loss = fluid.layers.mean(fluid.layers.cross_entropy(input=pred,
+                                                        label=lbl))
+    fluid.optimizer.Adam(learning_rate=0.001).minimize(loss)
+    return ['pixel', 'label'], pred, loss
+
+
+def book_fit_a_line(fluid):
+    x = fluid.layers.data(name='x', shape=[13], dtype='float32')
+    y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+    pred = fluid.layers.fc(input=x, size=1, act=None)
+    loss = fluid.layers.mean(fluid.layers.square_error_cost(input=pred,
+                                                            label=y))
+    fluid.optimizer.SGD(learning_rate=0.01).minimize(loss)
+    return ['x', 'y'], pred, loss
+
+
+def book_word2vec(fluid, embed=32, hidden=256):
+    """The word2vec chapter: four context words' shared embeddings,
+    concatenated, a sigmoid hidden layer and a softmax over the dict."""
+    dict_size = len(fluid.dataset.imikolov.build_dict())
+    names = ['firstw', 'secondw', 'thirdw', 'forthw', 'nextw']
+    words = [fluid.layers.data(name=n, shape=[1], dtype='int64')
+             for n in names]
+    embs = [fluid.layers.embedding(
+        input=w, size=[dict_size, embed],
+        param_attr=fluid.ParamAttr(name='shared_w')) for w in words[:4]]
+    concat = fluid.layers.reshape(fluid.layers.concat(input=embs, axis=-1),
+                                  shape=[-1, 4 * embed])
+    hid = fluid.layers.fc(input=concat, size=hidden, act='sigmoid')
+    pred = fluid.layers.fc(input=hid, size=dict_size, act='softmax')
+    loss = fluid.layers.mean(fluid.layers.cross_entropy(input=pred,
+                                                        label=words[4]))
+    fluid.optimizer.Adam(learning_rate=0.005).minimize(loss)
+    return names, pred, loss
+
+
+class BookRun(object):
+    """A book chapter's program with its state on `place`, fed batches
+    of `reader` through fluid.batch + DataFeeder, run by one Executor
+    (its default path: eager, captured, replayed on the card)."""
+
+    def __init__(self, place, build, reader, batch):
+        import paddle_tpu_torch as fluid
+        self.fluid, self.place = fluid, place
+        self.main, self.startup = fluid.Program(), fluid.Program()
+        self.main.random_seed = self.startup.random_seed = SEED
+        with fluid.unique_name.guard(), \
+                fluid.program_guard(self.main, self.startup):
+            self.feed_names, self.pred, self.loss = build(fluid)
+        self.scope = fluid.Scope()
+        fluid.Executor(place).run(self.startup, scope=self.scope)
+        self.exe = fluid.Executor(place)
+        self.feeder = fluid.DataFeeder(feed_list=self.feed_names,
+                                       place=place, program=self.main)
+        self.batches = fluid.batch(reader, batch, drop_last=True)
+        self.persistables = [v.name for v in self.main.list_vars()
+                             if v.persistable and
+                             self.scope.find_var(v.name) is not None]
+
+    def feeds(self, n):
+        """The first n batches through DataFeeder, and the ms one took."""
+        import itertools
+        t0 = time.perf_counter()
+        out = [self.feeder.feed(b)
+               for b in itertools.islice(self.batches(), n)]
+        return out, (time.perf_counter() - t0) / max(len(out), 1) * 1e3
+
+    def step(self, feed, eager=False):
+        return float(np.asarray(self.exe.run(
+            self.main, feed=feed, fetch_list=[self.loss], scope=self.scope,
+            use_program_cache=not eager)[0]))
+
+    def snapshot(self):
+        return {n: self.scope.find_var(n).clone() for n in self.persistables}
+
+    def restore(self, saved):
+        for n, t in saved.items():
+            self.scope.find_var(n).copy_(t)
+
+    def fresh_executor(self):
+        self.exe.close()
+        self.exe = self.fluid.Executor(self.place)
+
+
+def _book_run(run, saved, feeds, sync, eager, names):
+    """From `saved`, one step per feed; returns the losses, the ms per
+    step after the first two (the warm-up and the capture), the values
+    of `names` after the steps and the peak allocated device memory
+    above what was allocated when the run began (after a collection)."""
+    import torch
+    run.restore(saved)
+    on_card = run.place.device.type == 'cuda'
+    base = 0
+    if on_card:
+        sync()
+        free_device_memory()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+    losses, t0 = [], None
+    for i, feed in enumerate(feeds):
+        if i == min(2, len(feeds) - 1):
+            sync()
+            t0 = time.perf_counter()
+        losses.append(run.step(feed, eager=eager))
+    sync()
+    timed = len(feeds) - min(2, len(feeds) - 1)
+    ms = (time.perf_counter() - t0) / timed * 1e3
+    state = {n: run.scope.find_var(n).clone() for n in names}
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9 \
+        if on_card else 0.0
+    return dict(losses=losses, ms=ms, state=state, peak_gb=peak)
+
+
+@contextlib.contextmanager
+def deterministic_convs():
+    """cuDNN's deterministic algorithms for the body (no atomics in the
+    filter gradients), the earlier settings restored after: bk1, bk2
+    and mo1 hold runs of one program to each other's bits."""
+    import torch
+    prev = torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark
+    torch.backends.cudnn.deterministic = True
+    torch.backends.cudnn.benchmark = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic, \
+            torch.backends.cudnn.benchmark = prev
+
+
+def book_moments(run, params):
+    """{param: its Adam first-moment var}."""
+    return {p: [n for n in run.persistables
+                if n.startswith(p + '_moment1_')][0] for p in params}
+
+
+def _book_x1(label, eager, captured, saved, params, moments):
+    """x1's rule for Adam: every loss within TRAIN_LOSS_TOL, each update
+    within TRAIN_UPDATE_TOL by a2's gradient-weighted measure (g the
+    eager run's first moment). Returns (loss diff, updates, same
+    bits)."""
+    loss_diff = max(abs(a - b) for a, b in zip(captured['losses'],
+                                               eager['losses']))
+    got = _first_order_diffs(
+        {n: (captured['state'][n] - saved[n]).float() for n in params},
+        {n: (eager['state'][n] - saved[n]).float() for n in params},
+        {n: eager['state'][moments[n]].float() for n in params}, params)
+    bits = captured['losses'] == eager['losses'] and all(
+        bool((captured['state'][n] == eager['state'][n]).all())
+        for n in captured['state'])
+    log('%s captured vs eager: loss max |diff| %.3e (tol %g); updates '
+        'sum |g|·|diff| / sum |g|·|update|: %s (tol %g); the same bits: %s'
+        % (label, loss_diff, TRAIN_LOSS_TOL,
+           ', '.join('%s %.3e' % kv for kv in got.items()),
+           TRAIN_UPDATE_TOL, bits))
+    if not all(np.isfinite(captured['losses'])) or \
+            loss_diff > TRAIN_LOSS_TOL or \
+            any(v > TRAIN_UPDATE_TOL for v in got.values()):
+        raise AssertionError('%s: the captured steps disagree with the eager '
+                             'steps beyond the stated tolerance' % label)
+    return loss_diff, got, bits
+
+
+def _book_captured(run, label, params, sync, profile=True):
+    """BOOK['steps'] batches through run's executor (eager, captured,
+    replayed) and op by op from one saved state: _book_x1, the capture
+    count equal to the device segments, step ms, images/s and (one more
+    step under torch.profiler) device ms and busy share."""
+    feeds, feed_ms = run.feeds(BOOK['steps'])
+    saved = run.snapshot()
+    moments = book_moments(run, params)
+    names = list(params) + list(moments.values())
+    run.fresh_executor()
+    captured = _book_run(run, saved, feeds, sync, False, names)
+    compiled = run.exe.jit_cache_stats()['compiled_segments']
+    device_ms = busy = None
+    if profile and run.place.device.type == 'cuda':
+        device_ms, busy = _profile_steps(None, captured['ms'], sync,
+                                         label, steps=1,
+                                         step=lambda: run.step(feeds[-1]))
+    eager = _book_run(run, saved, feeds, sync, True, names)
+    run.restore(saved)
+    out = _book_x1(label, eager, captured, saved, params, moments)
+    n_seg = device_segments(run.main)
+    batch = len(next(iter(feeds[0].values())))
+    img_s = batch / captured['ms'] * 1e3
+    log('%s: %d steps, losses %s; captured %.3f ms a step (%.1f images/s), '
+        'op by op %.3f ms; the reader and DataFeeder %.3f ms a batch (host, '
+        'before the steps); %d segments captured (the program has %d); '
+        'peak %.4f GB allocated over the run\'s start'
+        % (label, len(feeds), ', '.join('%.6f' % x for x in
+                                        captured['losses']),
+           captured['ms'], img_s, eager['ms'], feed_ms, compiled, n_seg,
+           captured['peak_gb']))
+    if run.place.device.type == 'cuda' and compiled != n_seg:
+        raise AssertionError('%s: %d segments captured, the program has %d'
+                             % (label, compiled, n_seg))
+    return dict(losses=captured['losses'], ms=captured['ms'], img_s=img_s,
+                eager_ms=eager['ms'], feed_ms=feed_ms, loss_diff=out[0],
+                updates=out[1], bits=out[2], device_ms=device_ms,
+                busy=busy, saved=saved, feeds=feeds,
+                peak_gb=captured['peak_gb'])
+
+
+@phase('bk1: image_classification (resnet_cifar10, Adam) fed by fluid.batch '
+       '+ DataFeeder, captured')
+def book_image_steps(place, sync, depth=None, batch=None):
+    """resnet_cifar10(depth=BOOK['depth']) at 32 px, batch BOOK['batch'],
+    fp32, Adam(0.001), fed from dataset.cifar.train10() through
+    fluid.batch and DataFeeder: BOOK['steps'] steps captured vs op by
+    op (x1's rule). Returns the run and its numbers."""
+    import paddle_tpu_torch as fluid
+    with flags_set({'FLAGS_use_pallas_fused_ops': False}), \
+            deterministic_convs():
+        run = BookRun(place, lambda f: book_image_net(f, depth),
+                      fluid.dataset.cifar.train10(), batch or BOOK['batch'])
+        ops = run.main.global_block().ops
+        log('image_classification: %d ops (%d conv2d, %d batch_norm), '
+            'resnet_cifar10 depth %d, batch %d x 3 x %d x %d, fp32'
+            % (len(ops), sum(o.type == 'conv2d' for o in ops),
+               sum(o.type == 'batch_norm' for o in ops),
+               depth or BOOK['depth'], batch or BOOK['batch'], BOOK['hw'],
+               BOOK['hw']))
+        out = _book_captured(run, 'bk1 image_classification',
+                             book_params_compared(run.main), sync)
+    out.update(run=run, depth=depth or BOOK['depth'],
+               batch=batch or BOOK['batch'])
+    return out
+
+
+def _fused_names(unfused, fused):
+    """{unfused persistable: fused persistable}: the i-th conv2d and the
+    batch_norm after it against the i-th conv2d_bn (Filter, Scale, Bias,
+    Mean, Variance); every other parameter by its own name."""
+    ub, fb = unfused.global_block(), fused.global_block()
+    convs = [o for o in ub.ops if o.type == 'conv2d']
+    bns = [o for o in ub.ops if o.type == 'batch_norm']
+    fused_ops = [o for o in fb.ops if o.type == 'conv2d_bn']
+    if not (len(convs) == len(bns) == len(fused_ops)):
+        raise AssertionError('%d conv2d, %d batch_norm, %d conv2d_bn'
+                             % (len(convs), len(bns), len(fused_ops)))
+    out = {}
+    for c, b, f in zip(convs, bns, fused_ops):
+        out[c.single_input('Filter')] = f.single_input('Filter')
+        for slot in ('Scale', 'Bias', 'Mean', 'Variance'):
+            out[b.single_input(slot)] = f.single_input(slot)
+    for p in ub.all_parameters():
+        if p.name not in out and fb.has_var(p.name):
+            out[p.name] = p.name
+    return out
+
+
+@phase('bk2: image_classification under FLAGS_use_pallas_fused_ops: K6 '
+       'at the cifar shapes, the fused step vs bk1\'s')
+def book_fused_steps(bk1, place, sync):
+    """bk1's network built with the fused flag (every conv + BN one
+    conv2d_bn op; its 1x1 projections run K6), from bk1's initial
+    parameters: K6 launches exactly BK2_K6_PER_STEP a step over
+    BOOK['steps'] captured steps, K6 held against its plain version at
+    each of those shapes (as b6) and timed there, the captured steps vs
+    op by op (x1's rule), and one fused step vs bk1's unfused step by
+    r2's rule."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    urun, batch = bk1['run'], bk1['batch']
+    on_card = place.device.type == 'cuda'
+    with flags_set({'FLAGS_use_pallas_fused_ops': True}), \
+            deterministic_convs():
+        run = BookRun(place, lambda f: book_image_net(f, bk1['depth']),
+                      fluid.dataset.cifar.train10(), batch)
+        names = _fused_names(urun.main, run.main)
+        for u, f in names.items():
+            run.scope.find_var(f).copy_(bk1['saved'][u])
+        shapes = k6_path_shapes(run.main, batch)
+        per_step = book_k6_launches(run.main, batch)
+        log('bk2: %d conv2d_bn ops, %d of them 1x1 on K6: %s'
+            % (sum(o.type == 'conv2d_bn' for o in run.main.global_block().ops),
+               per_step, ', '.join('[%d, %d, %d] x %d' % (s + (n,))
+                                   for s, n in sorted(shapes.items()))))
+        if per_step != BK2_K6_PER_STEP:
+            raise AssertionError('the fused program has %d 1x1 conv2d_bn ops '
+                                 'on K6, want %d' % (per_step,
+                                                     BK2_K6_PER_STEP))
+        params = [names[n] for n in book_params_compared(urun.main)]
+        feeds = bk1['feeds']
+        saved = run.snapshot()
+        moments = book_moments(run, params)
+        state_names = params + list(moments.values())
+        # the main path: BOOK['steps'] captured steps, K6 counted from 0
+        run.fresh_executor()
+        k6.reset_launches()
+        captured = _book_run(run, saved, feeds, sync, False, state_names)
+        launches = k6.matmul_bn_stats_kernel.launches
+        by_kernel = dict(k6.matmul_bn_stats_kernel.launches_by_kernel)
+        # the CPU runs K6's plain version, which launches nothing
+        want = BK2_K6_PER_STEP * len(feeds) if on_card else 0
+        log('bk2 fused steps: losses %s; %.3f ms a step (%.1f images/s); K6 '
+            'launches %d (want %d x %d; by kernel %s)'
+            % (', '.join('%.6f' % x for x in captured['losses']),
+               captured['ms'], batch / captured['ms'] * 1e3,
+               launches, BK2_K6_PER_STEP, len(feeds),
+               ', '.join('%s %d' % kv for kv in by_kernel.items())))
+        if launches != want:
+            raise AssertionError('K6 launched %d times in %d fused steps, '
+                                 'want %d' % (launches, len(feeds), want))
+        device_ms = busy = None
+        if on_card:
+            check_replay_launches('bk2', lambda: run.step(feeds[-1]), sync)
+            device_ms, busy = _profile_steps(
+                None, captured['ms'], sync, 'bk2 fused step', steps=1,
+                step=lambda: run.step(feeds[-1]))
+        eager = _book_run(run, saved, feeds, sync, True, state_names)
+        x1 = _book_x1('bk2 fused', eager, captured, saved, params, moments)
+        run.exe.close()
+        k6_ms = _book_k6_shapes(k6, shapes, place)
+        r2 = _book_fused_vs_unfused(run, urun, bk1['saved'], saved, names,
+                                    feeds[0])
+    run.restore(saved)
+    return dict(launches=launches, shapes=shapes, k6_ms=k6_ms, r2=r2,
+                x1=x1, ms=captured['ms'], losses=captured['losses'],
+                device_ms=device_ms, busy=busy)
+
+
+def _book_k6_shapes(k6, shapes, place):
+    """K6 against its plain version at each of bk2's shapes, in the
+    program's dtype (fp32: the generic kernel, as _route sends it), and
+    its ms there beside the plain version's. Returns {shape: (kernel,
+    ms, plain ms)}."""
+    import torch
+    if place.device.type != 'cuda':
+        return {}
+    dev = torch.device('cuda', 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + 5)
+    out = {}
+    for (M, K, N) in sorted(shapes):
+        kernel = k6._route(M, K, N, torch.float32)
+        _k6_check(k6, gen, dev, M, K, N, 'float32', kernel)
+        x, w = _k6_inputs(gen, M, K, N, 'float32', dev)
+        times = bracketed_ms({
+            'ms': lambda: k6.matmul_bn_stats_kernel(x, w),
+            'plain_ms': lambda: k6.matmul_bn_stats_reference(x, w)})
+        t_bytes, t_ops = k6_bound_ms(M, K, N, 'float32')
+        log('K6 [%d, %d, %d] fp32 (bk2) on %s: kernel %.4f ms, plain %.4f '
+            'ms, bound %.4f ms (%s)'
+            % (M, K, N, kernel, times['ms'], times['plain_ms'],
+               max(t_bytes, t_ops),
+               'bytes' if t_bytes >= t_ops else 'operations'))
+        out[(M, K, N)] = (kernel, times['ms'], times['plain_ms'])
+    return out
+
+
+def _book_fused_vs_unfused(run, urun, usaved, fsaved, names, feed):
+    """r2's rule between programs: one fused step with K6, the same step
+    with the fused flag cleared (K6's plain version), and with the plain
+    version's column sums in fp64, against bk1's unfused step from the
+    same parameters, op by op. The updates are compared by a2's
+    gradient-weighted measure (an Adam step is ~lr·sign(g), so an
+    element whose gradient is near 0 may step either way; g is the
+    unfused step's first moment): the fused step's to the unfused one's
+    within the larger of TRAIN_UPDATE_TOL and RESNET_SPREAD_FACTOR x
+    the plain fused step's own spread under the fp64 sums; the losses
+    within TRAIN_LOSS_TOL."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    params = list(book_params_compared(urun.main))
+
+    def step(r, saved, mapped):
+        moments = book_moments(r, [mapped[u] for u in params])
+        r.restore(saved)
+        loss = r.step(feed, eager=True)
+        ups = {u: (r.scope.find_var(mapped[u]) - saved[mapped[u]]).float()
+               for u in params}
+        g = {u: r.scope.find_var(moments[mapped[u]]).float().clone()
+             for u in params}
+        r.restore(saved)
+        return loss, ups, g
+    kernel = step(run, fsaved, names)
+    plain_fn = k6.matmul_bn_stats_reference
+    fluid.set_flags({'FLAGS_use_pallas_fused_ops': False})
+    try:
+        plain = step(run, fsaved, names)
+        k6.matmul_bn_stats_reference = _reordered_reference
+        reordered = step(run, fsaved, names)
+    finally:
+        k6.matmul_bn_stats_reference = plain_fn
+        fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
+    unfused = step(urun, usaved, {u: u for u in params})
+    spread = _first_order_diffs(reordered[1], plain[1], plain[2], params)
+    got = _first_order_diffs(kernel[1], unfused[1], unfused[2], params)
+    loss_diff = abs(kernel[0] - unfused[0])
+    log('bk2 fused step (K6) vs bk1 unfused step: loss %.6f vs %.6f (|diff| '
+        '%.3e, tol %g; K6\'s plain version %.6f); updates sum |g|·|diff| / '
+        'sum |g|·|update|: %s; the plain fused step\'s spread under fp64 '
+        'sums: %s (tol: the larger of %g and %g x that spread)'
+        % (kernel[0], unfused[0], loss_diff, TRAIN_LOSS_TOL, plain[0],
+           ', '.join('%s %.3e' % kv for kv in got.items()),
+           ', '.join('%s %.3e' % kv for kv in spread.items()),
+           TRAIN_UPDATE_TOL, RESNET_SPREAD_FACTOR))
+    bad = [n for n in params if not got[n] <= max(
+        TRAIN_UPDATE_TOL, RESNET_SPREAD_FACTOR * spread[n])]
+    if not np.isfinite(kernel[0]) or loss_diff > TRAIN_LOSS_TOL or bad:
+        raise AssertionError('the fused step and the unfused step disagree '
+                             'beyond the stated tolerance (%s)' % bad)
+    return dict(loss_diff=loss_diff, updates=got, spread=spread)
+
+
+def _round_trip(run, feed, model_dir):
+    """save_inference_model, load_inference_model and the loaded
+    program's outputs against the trained program's (cloned for test)
+    on the same rows. Returns the max abs difference."""
+    fluid = run.fluid
+    with fluid.scope_guard(run.scope):
+        fluid.io.save_inference_model(model_dir, [run.feed_names[0]],
+                                      [run.pred], run.exe,
+                                      main_program=run.main)
+        prog, feed_names, fetch = fluid.io.load_inference_model(model_dir,
+                                                                run.exe)
+        loaded = np.asarray(run.exe.run(
+            prog, feed={feed_names[0]: feed[run.feed_names[0]]},
+            fetch_list=fetch)[0])
+    direct = np.asarray(run.exe.run(
+        run.main.clone(for_test=True), feed=feed, fetch_list=[run.pred],
+        scope=run.scope)[0])
+    err = float(np.abs(loaded - direct).max())
+    log('save/load inference round trip: %d outputs, max |loaded - direct| '
+        '%.3e (tol %g x max(1, |direct|))' % (loaded.size, err, SAVE_TOL))
+    if loaded.shape != direct.shape or not np.all(
+            np.abs(loaded - direct) <= SAVE_TOL *
+            np.maximum(1.0, np.abs(direct))):
+        raise AssertionError('the loaded inference program disagrees with '
+                             'its source beyond %g' % SAVE_TOL)
+    return err
+
+
+def _lowers(label, losses):
+    log('%s: losses %s' % (label, ', '.join('%.6f' % x for x in losses)))
+    if not (all(np.isfinite(losses)) and losses[-1] < losses[0]):
+        raise AssertionError('%s: the loss did not fall over %d steps: %r'
+                             % (label, len(losses), losses))
+
+
+@phase('bk3: fit_a_line, recognize_digits (py_reader) and word2vec, '
+       '5 steps each')
+def book_chapter_steps(place, sync, model_dir, scale=1):
+    """fit_a_line (uci_housing, SGD, DataFeeder; then the inference round
+    trip), recognize_digits (models.mnist's LeNet through py_reader, fed
+    fluid.batch's batches by decorate_paddle_reader, Adam) and word2vec
+    (imikolov N=5, embedding 32, DataFeeder, Adam): BK3_STEPS steps
+    each, captured, every loss finite and the last below the first.
+    scale shrinks the batches (a CPU rehearsal)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import mnist
+    out = {}
+    t0 = time.perf_counter()
+    fit = BookRun(place, book_fit_a_line, fluid.dataset.uci_housing.train(),
+                  20)
+    feeds, _ = fit.feeds(BK3_STEPS)
+    losses = [fit.step(f) for f in feeds]
+    _lowers('fit_a_line', losses)
+    out['fit_a_line'] = dict(losses=losses, round_trip=_round_trip(
+        fit, {n: v[:5] for n, v in feeds[0].items()}, model_dir),
+        s=time.perf_counter() - t0)
+    fit.exe.close()
+
+    t0 = time.perf_counter()
+    batch = max(64 // scale, 4)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        reader = fluid.layers.py_reader(
+            capacity=4, shapes=[(-1, 1, 28, 28), (-1, 1)],
+            dtypes=['float32', 'int64'], name='bk3_digits',
+            use_double_buffer=True)
+        img, label = fluid.layers.read_file(reader)
+        _, avg_cost, acc = mnist.train_network(img, label)
+        fluid.optimizer.Adam(learning_rate=0.001).minimize(avg_cost)
+    samples = fluid.reader.map_readers(
+        lambda s: (s[0].reshape(1, 28, 28), [s[1]]),
+        fluid.dataset.mnist.train())
+    reader.decorate_paddle_reader(fluid.batch(samples, batch,
+                                              drop_last=True))
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    reader.start()
+    try:
+        losses = [float(np.asarray(exe.run(main, fetch_list=[avg_cost],
+                                           scope=scope)[0]))
+                  for _ in range(BK3_STEPS)]
+    finally:
+        reader.reset()
+    exe.close()
+    _lowers('recognize_digits', losses)
+    out['recognize_digits'] = dict(losses=losses,
+                                   s=time.perf_counter() - t0)
+
+    t0 = time.perf_counter()
+    w2v = BookRun(place, book_word2vec,
+                  fluid.dataset.imikolov.train(
+                      fluid.dataset.imikolov.build_dict(), 5),
+                  max(100 // scale, 4))
+    feeds, _ = w2v.feeds(BK3_STEPS)
+    losses = [w2v.step(f) for f in feeds]
+    w2v.exe.close()
+    _lowers('word2vec', losses)
+    out['word2vec'] = dict(losses=losses, s=time.perf_counter() - t0)
+    sync()
+    log('bk3: %s' % ', '.join('%s %.1f s' % (k, v['s'])
+                              for k, v in out.items()))
+    return out
+
+
+@phase('mo1: memory_optimize, release_memory and Print on the card')
+def memory_modules(bk1, place, sync):
+    """memory_optimize on bk1's program: MO1_STEPS captured steps the same
+    bits as without it, peak allocated memory no higher; release_memory
+    on fit_a_line: the same bits as the plain program, its segments
+    logged; a layers.Print between two fcs writes the JAX package's text
+    to stderr for the first PRINT_FIRST_N runs only, and the step still
+    captures each of its device segments."""
+    import io
+    import paddle_tpu_torch as fluid
+    on_card = place.device.type == 'cuda'
+    run = bk1['run']
+    feeds = bk1['feeds'][:MO1_STEPS]
+    names = list(book_params_compared(run.main))
+    out = {}
+    runs = {}
+    with flags_set({'FLAGS_use_pallas_fused_ops': False}), \
+            deterministic_convs():
+        for label in ('plain', 'memory_optimize'):
+            if label == 'memory_optimize':
+                plan = fluid.memory_optimize(run.main)
+                log('memory_optimize: %d vars could reuse a dead buffer'
+                    % len(plan))
+            run.fresh_executor()
+            runs[label] = _book_run(run, bk1['saved'], feeds, sync, False,
+                                    names)
+        run.exe.close()
+    run.restore(bk1['saved'])
+    a, b = runs['plain'], runs['memory_optimize']
+    bits = a['losses'] == b['losses'] and all(
+        bool((a['state'][n] == b['state'][n]).all()) for n in names)
+    log('mo1 memory_optimize: %d captured steps the same bits %s; peak '
+        'allocated over the run\'s start %.4f GB with it, %.4f GB without'
+        % (len(feeds), bits, b['peak_gb'], a['peak_gb']))
+    if not bits or b['peak_gb'] > a['peak_gb']:
+        raise AssertionError('memory_optimize changed the steps (bits %s) '
+                             'or raised the peak' % bits)
+    out['memory_optimize'] = (a['peak_gb'], b['peak_gb'])
+
+    fits = {}
+    for label in ('plain', 'release_memory'):
+        fit = BookRun(place, book_fit_a_line,
+                      fluid.dataset.uci_housing.train(), 20)
+        if label == 'release_memory':
+            fluid.release_memory(fit.main)
+            fit.restore(fits['plain'][1])
+        f, _ = fit.feeds(BK3_STEPS)
+        saved = fit.snapshot()
+        fits[label] = ([fit.step(x) for x in f], saved,
+                       device_segments(fit.main),
+                       fit.exe.jit_cache_stats()['compiled_segments'])
+        fit.exe.close()
+    log('mo1 release_memory on fit_a_line: losses %s the same bits as '
+        'without it: %s; device segments %d (without it %d), %d captured'
+        % (', '.join('%.6f' % x for x in fits['release_memory'][0]),
+           fits['release_memory'][0] == fits['plain'][0],
+           fits['release_memory'][2], fits['plain'][2],
+           fits['release_memory'][3]))
+    if fits['release_memory'][0] != fits['plain'][0]:
+        raise AssertionError('release_memory changed fit_a_line\'s losses')
+    if on_card and fits['release_memory'][3] != fits['release_memory'][2]:
+        raise AssertionError('release_memory: %d of %d device segments '
+                             'captured' % (fits['release_memory'][3],
+                                           fits['release_memory'][2]))
+    out['release_memory'] = dict(segments=fits['release_memory'][2],
+                                 plain_segments=fits['plain'][2])
+
+    # Print between two fcs, over a feed and an activation
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[6], dtype='float32')
+        y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+        h = fluid.layers.fc(input=x, size=8, act='relu')
+        fluid.layers.Print(x, message='the feed', first_n=PRINT_FIRST_N)
+        fluid.layers.Print(h, first_n=PRINT_FIRST_N)
+        pred = fluid.layers.fc(input=h, size=1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(
+            input=pred, label=y))
+        fluid.optimizer.SGD(learning_rate=0.05).minimize(loss)
+    scope = fluid.Scope()
+    exe = fluid.Executor(place)
+    exe.run(startup, scope=scope)
+    rng = np.random.RandomState(SEED + 7)
+    want, printed = '', io.StringIO()
+    prev, sys.stderr = sys.stderr, printed
+    try:
+        for i in range(PRINT_RUNS):
+            xv = rng.randn(3, 6).astype('float32')
+            yv = rng.randn(3, 1).astype('float32')
+            _, hv = exe.run(main, feed={'x': xv, 'y': yv},
+                            fetch_list=[loss, h], scope=scope)
+            if i < PRINT_FIRST_N:
+                want += expected_print_text('x', xv, 'the feed')
+                want += expected_print_text(h.name, np.asarray(hv))
+    finally:
+        sys.stderr = prev
+    text = printed.getvalue()
+    n_seg = device_segments(main)
+    compiled = exe.jit_cache_stats()['compiled_segments']
+    exe.close()
+    log('mo1 Print: %d runs, %d characters printed, the JAX package\'s text '
+        'for the first %d runs and nothing after: %s; %d device segments, '
+        '%d captured' % (PRINT_RUNS, len(text), PRINT_FIRST_N, text == want,
+                         n_seg, compiled))
+    sys.stderr.write(text)
+    if text != want:
+        raise AssertionError('the print ops wrote other text than the JAX '
+                             'package\'s format')
+    if n_seg < 2 or (on_card and compiled != n_seg):
+        raise AssertionError('%d device segments captured, the Print '
+                             'program has %d' % (compiled, n_seg))
+    out['print'] = dict(segments=n_seg, chars=len(text))
+    return out
+
+
 _SCRATCH_DIRS = []
 
 
@@ -6263,6 +7034,14 @@ def main():
         i1 = inference_leg(place, sync)
         free_device_memory()
 
+        bk1 = book_image_steps(place, sync)
+        bk2 = book_fused_steps(bk1, place, sync)
+        mo1 = memory_modules(bk1, place, sync)
+        bk3 = book_chapter_steps(place, sync, scratch(
+            tempfile.mkdtemp(dir=build_root)))
+        del bk1['run']
+        free_device_memory()
+
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
          l_extra) = lc_steps(lc_cfg, place, counters, sync)
         l_diffs, l_arm_ms, l_arm_launches, l_arm_dev = check_lc_arms(
@@ -6306,7 +7085,8 @@ def main():
     for r in long_rows:
         r['launches'] = long_launches[r['name']]
     rows += long_rows
-    k6_row['launches'] = r_launches
+    # r1's timed ResNet-50 steps and bk2's fused cifar steps
+    k6_row['launches'] = r_launches + bk2['launches']
     rows += [k6_row, probe_row]
     log('serving: %.3f s for %d requests x %d tokens, prefill %.3f ms, '
         'decode step %.3f ms, peak device memory %.2f GB'
@@ -6429,6 +7209,28 @@ def main():
         % (o1['on_ms'], tr1['ms'], o1['on_ms'] - tr1['ms'], o1['mfu'],
            o1['tflops'], 100 * o1['cost_rel'], o2['breaches'],
            sorted(O2_BREACHING), o2['events'], o2['series']))
+    log('book chapters (fed by fluid.batch + DataFeeder): bk1 '
+        'image_classification resnet_cifar10 depth %d, batch %d, fp32 Adam: '
+        'step %.3f ms captured (%.1f images/s), %.3f ms op by op, device %s '
+        'ms, busy %s, reader + DataFeeder %.3f ms a batch, captured vs '
+        'eager loss |diff| %.3e, the same bits %s; bk2 fused: step %.3f ms, '
+        'device %s '
+        'ms, K6 %d launches, K6 ms at %s, fused vs unfused loss |diff| '
+        '%.3e; bk3 losses %s; mo1 peak %.4f GB with memory_optimize vs %.4f '
+        'without, release_memory %d segments (plain %d), Print %d segments'
+        % (BOOK['depth'], BOOK['batch'], bk1['ms'], bk1['img_s'],
+           bk1['eager_ms'], _fmt_ms(bk1['device_ms'] or None),
+           _fmt_busy(bk1['busy']), bk1['feed_ms'], bk1['loss_diff'],
+           bk1['bits'], bk2['ms'], _fmt_ms(bk2['device_ms'] or None),
+           bk2['launches'],
+           ', '.join('[%d, %d, %d] %.4f (plain %.4f)' % (s + v[1:])
+                     for s, v in sorted(bk2['k6_ms'].items())),
+           bk2['r2']['loss_diff'],
+           '; '.join('%s %s' % (k, ' '.join('%.4f' % x for x in v['losses']))
+                     for k, v in bk3.items()),
+           mo1['memory_optimize'][1], mo1['memory_optimize'][0],
+           mo1['release_memory']['segments'],
+           mo1['release_memory']['plain_segments'], mo1['print']['segments']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -43,19 +43,22 @@ loss and dropout ops with their layers; rematerialization
 step-fault retry and rollback) and Inferencer; and `obs`, the
 observability they and the Executor report into (telemetry, trace
 spans, the merged report, the perf and device-memory gauges, the SLO
-watchdog), with `memory` and `distributed.{statefile,resilience}`.
-ROADMAP.md lists the rest.
+watchdog), with `memory` and `distributed.{statefile,resilience}`; the
+small one-device modules (memory_optimize, Print, average, op, the dot
+drawers) and the dense book chapters with their feeding (fluid.batch,
+DataFeeder, the reader decorators, the synthetic datasets, nets, the
+image models). ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint
 from . import framework
 from .framework import (Program, Block, Operator, Variable, Parameter,
                         default_main_program, default_startup_program,
-                        program_guard, get_var)
+                        program_guard, name_scope, grad_var_name, get_var)
 from . import layers
 from . import initializer
 from . import unique_name
-from .param_attr import ParamAttr
+from .param_attr import ParamAttr, WeightNormParamAttr
 from . import executor
 from .executor import (Executor, Scope, global_scope, scope_guard,
                        CPUPlace, CUDAPlace, fetch_var, OpExecutionError)
@@ -67,14 +70,21 @@ from . import clip
 from . import optimizer
 from . import contrib
 from . import reader
+from .batch import batch  # noqa: F401
+from . import dataset
+from . import nets
+from .data_feeder import DataFeeder
 from . import core
-from .parallel_executor import ParallelExecutor
+from . import parallel_executor
+from .parallel_executor import (ParallelExecutor, ExecutionStrategy,
+                                BuildStrategy)
 from . import flags
 from .flags import set_flags, get_flag, get_flags
 from . import inference
 from . import models
 from . import transpiler
-from .transpiler import InferenceTranspiler
+from .transpiler import (InferenceTranspiler, memory_optimize,
+                         release_memory)
 from . import serving
 from . import obs
 from . import memory
@@ -83,18 +93,29 @@ from .trainer import (Trainer, CheckpointConfig, BeginEpochEvent,
                       EndEpochEvent, BeginStepEvent, EndStepEvent,
                       FaultEvent)
 from .inferencer import Inferencer
+from . import average
+from . import annotations
+from . import default_scope_funcs
+from . import debugger
+from . import graphviz
+from . import net_drawer
+from . import op
 
 __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter',
     'default_main_program', 'default_startup_program', 'program_guard',
-    'get_var', 'layers', 'initializer', 'unique_name', 'ParamAttr',
+    'name_scope', 'grad_var_name', 'get_var', 'layers', 'initializer',
+    'unique_name', 'ParamAttr', 'WeightNormParamAttr',
     'Executor', 'Scope', 'global_scope', 'scope_guard', 'CPUPlace',
     'CUDAPlace', 'fetch_var', 'OpExecutionError', 'io', 'flags',
     'set_flags', 'get_flag', 'get_flags', 'inference', 'models',
     'transpiler', 'serving', 'backward', 'append_backward',
     'calc_gradient', 'regularizer', 'clip', 'optimizer', 'contrib',
-    'reader', 'core', 'ParallelExecutor', 'InferenceTranspiler', 'obs',
+    'reader', 'batch', 'dataset', 'nets', 'DataFeeder', 'core',
+    'ParallelExecutor', 'ExecutionStrategy', 'BuildStrategy',
+    'InferenceTranspiler', 'memory_optimize', 'release_memory', 'obs',
     'memory', 'distributed', 'Trainer', 'CheckpointConfig',
     'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
-    'FaultEvent', 'Inferencer',
+    'FaultEvent', 'Inferencer', 'average', 'annotations',
+    'default_scope_funcs', 'graphviz', 'net_drawer', 'op',
 ]

@@ -176,6 +176,7 @@ class Scope(object):
     def __init__(self, parent=None):
         self._vars = {}
         self.parent = parent
+        self._kids = []
 
     def var(self, name):
         """Find-or-create."""
@@ -204,6 +205,18 @@ class Scope(object):
 
     def erase(self, name):
         self._vars.pop(name, None)
+
+    def new_scope(self):
+        """A child scope: it reads its parent's vars and keeps its own."""
+        kid = Scope(parent=self)
+        self._kids.append(kid)
+        return kid
+
+    def drop_kids(self):
+        self._kids = []
+
+    def local_var_names(self):
+        return list(self._vars)
 
 
 _global_scope = Scope()

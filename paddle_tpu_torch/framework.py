@@ -23,6 +23,7 @@ __all__ = [
     'default_main_program', 'default_startup_program', 'program_guard',
     'switch_main_program', 'switch_startup_program',
     'convert_np_dtype', 'get_var', 'grad_var_name', 'GRAD_VAR_SUFFIX',
+    'name_scope',
 ]
 
 GRAD_VAR_SUFFIX = '@GRAD'
@@ -68,7 +69,8 @@ class Variable(object):
 
     def __init__(self, block, name=None, shape=None, dtype=None, lod_level=None,
                  persistable=False, stop_gradient=False, type=VarType.LOD_TENSOR,
-                 is_data=False, is_cache=False):
+                 is_data=False, is_cache=False, initializer=None,
+                 error_clip=None):
         self.block = block
         if name is None:
             name = unique_name.generate('_generated_var')
@@ -84,6 +86,9 @@ class Variable(object):
         # executor writes it back to the Scope across run() calls, but
         # excluded from save/load_persistables (io.py predicate)
         self.is_cache = is_cache
+        # taken as the JAX package's Variable takes them: the initializer
+        # is not run here (LayerHelper.set_variable_initializer does that)
+        self.error_clip = error_clip
 
     def to_string(self):
         flags = []
@@ -99,6 +104,10 @@ class Variable(object):
 
     __repr__ = to_string
     __str__ = to_string
+
+    def astype(self, dtype):
+        from .layers import tensor as tensor_layers
+        return tensor_layers.cast(self, dtype)
 
     @property
     def ndim(self):
@@ -188,6 +197,18 @@ class Operator(object):
     def has_attr(self, name):
         return name in self.attrs
 
+    def set_attr(self, name, val):
+        self.attrs[name] = val
+        self.block.program._bump_version()
+
+    def rename_input(self, old, new):
+        for slot, names in self.inputs.items():
+            self.inputs[slot] = [new if n == old else n for n in names]
+
+    def rename_output(self, old, new):
+        for slot, names in self.outputs.items():
+            self.outputs[slot] = [new if n == old else n for n in names]
+
     def to_string(self):
         ins = ', '.join('%s=%s' % (k, v) for k, v in self.inputs.items())
         outs = ', '.join('%s=%s' % (k, v) for k, v in self.outputs.items())
@@ -269,6 +290,20 @@ class Block(object):
     def all_parameters(self):
         return [v for v in self.program.global_block().vars.values()
                 if isinstance(v, Parameter)]
+
+    def rename_var(self, old, new):
+        v = self.vars.pop(old)
+        v.name = new
+        self.vars[new] = v
+        for op in self.ops:
+            op.rename_input(old, new)
+            op.rename_output(old, new)
+        self.program._bump_version()
+        return v
+
+    def remove_var(self, name):
+        self.vars.pop(name, None)
+        self.program._bump_version()
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
         return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
@@ -511,6 +546,19 @@ def program_guard(main_program, startup_program=None):
         switch_main_program(prev_main)
         if prev_startup is not None:
             switch_startup_program(prev_startup)
+
+
+_name_scope_stack = []
+
+
+@contextlib.contextmanager
+def name_scope(prefix=None):
+    """Op-name scoping for debugging and drawing; names nothing."""
+    _name_scope_stack.append(prefix or '')
+    try:
+        yield
+    finally:
+        _name_scope_stack.pop()
 
 
 def get_var(name, program=None):

@@ -15,7 +15,8 @@ from __future__ import annotations
 from . import io as io_mod
 from .executor import Executor, Scope, scope_guard
 
-__all__ = ['Config', 'Predictor', 'create_predictor', 'AnalysisConfig',
+__all__ = ['Config', 'Predictor', 'create_predictor',
+           'create_paddle_predictor', 'AnalysisConfig',
            'AnalysisPredictor', 'create_analysis_predictor']
 
 
@@ -95,6 +96,9 @@ class Predictor(object):
 
 def create_predictor(config):
     return Predictor(config)
+
+
+create_paddle_predictor = create_predictor
 
 
 class AnalysisConfig(Config):

@@ -80,7 +80,12 @@ class LayerHelper(object):
     def create_parameter(self, attr, shape, dtype, is_bias=False,
                          default_initializer=None):
         """Create the Parameter var in the main program's global block AND
-        append its init op to the startup program."""
+        append its init op to the startup program. A WeightNormParamAttr
+        gives the weight-normalised w = g * v / ||v|| instead."""
+        from .param_attr import WeightNormParamAttr
+        if isinstance(attr, WeightNormParamAttr):
+            return self._create_weight_normalized(
+                attr, shape, dtype, default_initializer)
         attr = copy.deepcopy(attr) if attr is not None else ParamAttr()
         if attr is False:
             return None
@@ -104,6 +109,43 @@ class LayerHelper(object):
         return main_block.create_parameter(
             name=attr.name, shape=shape, dtype=dtype,
             **{k: v for k, v in attr.to_kwargs().items() if k != 'name'})
+
+    def _create_weight_normalized(self, attr, shape, dtype,
+                                  default_initializer):
+        """Parameters v (the weight's shape) and g (shape[dim], or [1]
+        when dim is None), named <name>.wn.v and <name>.wn.g, and the
+        ops that make w from them in the main program, so autograd
+        reaches both. g starts at 1, as in the JAX package."""
+        base = attr.name or unique_name.generate(
+            '.'.join([self.name, 'w']))
+        dim = attr.dim
+        if dim is not None and dim < 0:
+            dim = dim % len(shape)
+        v = self.create_parameter(
+            ParamAttr(name=base + '.wn.v', initializer=attr.initializer,
+                      learning_rate=attr.learning_rate,
+                      regularizer=attr.regularizer,
+                      trainable=attr.trainable,
+                      gradient_clip=attr.gradient_clip),
+            shape, dtype, default_initializer=default_initializer)
+        g = self.create_parameter(
+            ParamAttr(name=base + '.wn.g',
+                      learning_rate=attr.learning_rate,
+                      trainable=attr.trainable,
+                      initializer=Constant(1.0)),
+            [1] if dim is None else [shape[dim]], dtype)
+        from . import layers as L
+        sq = L.elementwise_mul(v, v)
+        if dim is None:
+            norm_sq = L.reduce_sum(sq, dim=None, keep_dim=False)
+        else:
+            axes = [i for i in range(len(shape)) if i != dim]
+            norm_sq = L.reduce_sum(sq, dim=axes, keep_dim=False)
+        norm = L.sqrt(norm_sq)
+        scale = L.elementwise_div(g, L.scale(norm, scale=1.0, bias=1e-12))
+        if dim is None:
+            return L.elementwise_mul(v, scale)
+        return L.elementwise_mul(v, scale, axis=dim)
 
     def set_variable_initializer(self, var, initializer):
         """Also create the var + its init op in the startup program."""

@@ -1,17 +1,50 @@
 """Control-flow layers (counterpart of paddle_tpu/layers/control_flow.py):
-increment (:108), the rematerialization scope recompute (:28-90) and the
-block-building helpers BlockGuard and _external_deps (:186-215). While,
-Switch, IfElse, StaticRNN and the rest wait (ROADMAP.md, Queue 1)."""
+the comparisons (:89-105), increment (:108), Print (:122), the
+rematerialization scope recompute (:28-90) and the block-building
+helpers BlockGuard and _external_deps (:186-215). While, Switch, IfElse,
+StaticRNN and the rest wait (ROADMAP.md, Queue 1)."""
 from __future__ import annotations
 
 from ..framework import default_main_program
+from ..layer_helper import LayerHelper
 
-__all__ = ['increment', 'recompute']
+__all__ = ['less_than', 'less_equal', 'greater_than', 'greater_equal',
+           'equal', 'not_equal', 'increment', 'Print', 'recompute']
+
+
+def _compare(op_type):
+    def layer(x, y, cond=None, force_cpu=None, name=None):
+        from .nn import binary_bool_op
+        return binary_bool_op(op_type, x, y, out=cond, name=name)
+    layer.__name__ = op_type
+    return layer
+
+
+less_than = _compare('less_than')
+less_equal = _compare('less_equal')
+greater_than = _compare('greater_than')
+greater_equal = _compare('greater_equal')
+equal = _compare('equal')
+not_equal = _compare('not_equal')
 
 
 def increment(x, value=1.0, in_place=True):
     from . import ops as _ops
     return _ops.increment(x, value=value, in_place=in_place)
+
+
+def Print(input, first_n=-1, message=None, summarize=-1,
+          print_tensor_name=True, print_tensor_type=True,
+          print_tensor_shape=True, print_tensor_lod=False,
+          print_phase='both'):
+    """A print host op over `input` (writes its value to stderr at each
+    run, the first `first_n` runs when first_n > 0); returns `input`."""
+    helper = LayerHelper('print')
+    helper.append_op(
+        type='print', inputs={'In': [input]}, outputs={'Out': [input]},
+        attrs={'first_n': first_n, 'message': message or '',
+               'summarize': summarize})
+    return input
 
 
 def recompute(build_fn, *inputs, **kwargs):

@@ -1,8 +1,7 @@
 """NN layer functions (counterpart of paddle_tpu/layers/nn.py, with the
 JAX package's signatures and defaults). Each layer appends ops to the
-current block; nothing executes here. conv2d_transpose, prelu, lrn,
-smooth_l1, huber_loss and the sequence, detection and sampling layers
-are not ported (ROADMAP.md, Queue 1)."""
+current block; nothing executes here. The sequence, detection and
+sampling layers are not ported (ROADMAP.md, Queue 1)."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,6 +24,7 @@ __all__ = [
     'scatter', 'slice', 'shape', 'autoincreased_step_counter',
     'logical_and', 'logical_or', 'logical_xor', 'logical_not',
     'where_select', 'causal_mask_bias', 'position_embedding',
+    'conv2d_transpose', 'smooth_l1', 'huber_loss', 'prelu', 'lrn',
 ]
 
 
@@ -127,6 +127,47 @@ def _append_channel_bias(helper, pre_bias, data_format='NCHW'):
                      inputs={'X': [pre_bias], 'Y': [b]},
                      outputs={'Out': [tmp]}, attrs={'axis': ch_axis})
     return tmp
+
+
+def conv2d_transpose(input, num_filters, output_size=None, filter_size=None,
+                     padding=0, stride=1, dilation=1, groups=None,
+                     param_attr=None, bias_attr=None, use_cudnn=True,
+                     act=None, name=None):
+    """2-D transposed convolution, NCHW; the filter is [C_in,
+    num_filters / groups, kh, kw]. Without filter_size it is the one
+    that maps the input to output_size."""
+    helper = LayerHelper('conv2d_transpose', param_attr=param_attr,
+                         bias_attr=bias_attr, act=act, name=name)
+    dtype = input.dtype
+    num_channels = input.shape[1]
+    groups = groups or 1
+    stride = _pair(stride)
+    padding = _pair(padding)
+    dilation = _pair(dilation)
+    if filter_size is None:
+        if output_size is None:
+            raise ValueError('output_size or filter_size must be set')
+        output_size = _pair(output_size)
+        h, w_ = input.shape[2], input.shape[3]
+        filter_size = [
+            (output_size[0] - (h - 1) * stride[0] + 2 * padding[0]
+             - 1) // dilation[0] + 1,
+            (output_size[1] - (w_ - 1) * stride[1] + 2 * padding[1]
+             - 1) // dilation[1] + 1]
+    else:
+        filter_size = _pair(filter_size)
+    filter_shape = [num_channels, num_filters // groups] + filter_size
+    w = helper.create_parameter(attr=helper.param_attr, shape=filter_shape,
+                                dtype=dtype)
+    pre_bias = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='conv2d_transpose',
+        inputs={'Input': [input], 'Filter': [w]},
+        outputs={'Output': [pre_bias]},
+        attrs={'strides': stride, 'paddings': padding, 'dilations': dilation,
+               'groups': groups})
+    pre_act = _append_channel_bias(helper, pre_bias)
+    return helper.append_activation(pre_act)
 
 
 def pool2d(input, pool_size=-1, pool_type='max', pool_stride=1,
@@ -570,6 +611,63 @@ def l2_normalize(x, axis, epsilon=1e-12, name=None):
 def fill_const_like(x, value):
     from .tensor import fill_constant
     return fill_constant(shape=list(x.shape), dtype=x.dtype, value=value)
+
+
+def smooth_l1(x, y, inside_weight=None, outside_weight=None, sigma=None):
+    helper = LayerHelper('smooth_l1_loss')
+    diff = helper.create_variable_for_type_inference(dtype=x.dtype)
+    loss = helper.create_variable_for_type_inference(dtype=x.dtype)
+    inputs = {'X': [x], 'Y': [y]}
+    if inside_weight is not None:
+        inputs['InsideWeight'] = [inside_weight]
+    if outside_weight is not None:
+        inputs['OutsideWeight'] = [outside_weight]
+    helper.append_op(type='smooth_l1_loss', inputs=inputs,
+                     outputs={'Diff': [diff], 'Out': [loss]},
+                     attrs={'sigma': sigma if sigma is not None else 1.0})
+    return loss
+
+
+def huber_loss(input, label, delta):
+    helper = LayerHelper('huber_loss')
+    residual = helper.create_variable_for_type_inference(dtype=input.dtype)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='huber_loss',
+                     inputs={'X': [input], 'Y': [label]},
+                     outputs={'Out': [out], 'Residual': [residual]},
+                     attrs={'delta': delta})
+    return out
+
+
+def prelu(x, mode, param_attr=None, name=None):
+    """mode 'all' (one alpha), 'channel' (one per channel, NCHW) or
+    'element' (one per element); alphas start at 0.25."""
+    helper = LayerHelper('prelu', param_attr=param_attr, name=name)
+    if mode not in ('all', 'channel', 'element'):
+        raise ValueError("mode must be one of all|channel|element")
+    alpha_shape = [1]
+    if mode == 'channel':
+        alpha_shape = [1, x.shape[1], 1, 1]
+    elif mode == 'element':
+        alpha_shape = list(x.shape)
+    alpha = helper.create_parameter(
+        attr=helper.param_attr, shape=alpha_shape, dtype='float32',
+        is_bias=False, default_initializer=Constant(0.25))
+    out = helper.create_variable_for_type_inference(dtype=x.dtype)
+    helper.append_op(type='prelu', inputs={'X': [x], 'Alpha': [alpha]},
+                     outputs={'Out': [out]}, attrs={'mode': mode})
+    return out
+
+
+def lrn(input, n=5, k=1.0, alpha=1e-4, beta=0.75, name=None):
+    helper = LayerHelper('lrn', name=name)
+    mid_out = helper.create_variable_for_type_inference(
+        dtype=input.dtype, stop_gradient=True)
+    out = helper.create_variable_for_type_inference(dtype=input.dtype)
+    helper.append_op(type='lrn', inputs={'X': [input]},
+                     outputs={'Out': [out], 'MidOut': [mid_out]},
+                     attrs={'n': n, 'k': k, 'alpha': alpha, 'beta': beta})
+    return out
 
 
 def pad(x, paddings, pad_value=0.0, name=None):

@@ -89,6 +89,27 @@ def gaussian_random(shape, mean=0.0, std=1.0, seed=0, dtype='float32'):
     return out
 
 
+def _random_batch_size_like(op_type):
+    def layer(input, shape, input_dim_idx=0, output_dim_idx=0,
+              dtype='float32', **kwargs):
+        helper = LayerHelper(op_type)
+        out = helper.create_variable_for_type_inference(dtype)
+        attrs = {'shape': list(shape), 'input_dim_idx': input_dim_idx,
+                 'output_dim_idx': output_dim_idx, 'dtype': dtype}
+        attrs.update(kwargs)
+        helper.append_op(type=op_type, inputs={'Input': [input]},
+                         outputs={'Out': [out]}, attrs=attrs)
+        return out
+    layer.__name__ = op_type
+    return layer
+
+
+uniform_random_batch_size_like = _random_batch_size_like(
+    'uniform_random_batch_size_like')
+gaussian_random_batch_size_like = _random_batch_size_like(
+    'gaussian_random_batch_size_like')
+
+
 def sum(x):
     """Elementwise sum of a list of tensors (the sum op, which backward.py
     also uses for fan-out grads)."""
@@ -100,4 +121,5 @@ def sum(x):
     return out
 
 
-__all__ += ['gaussian_random', 'sum']
+__all__ += ['gaussian_random', 'uniform_random_batch_size_like',
+            'gaussian_random_batch_size_like', 'sum']

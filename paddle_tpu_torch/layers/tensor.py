@@ -1,6 +1,5 @@
 """Tensor layers (counterpart of paddle_tpu/layers/tensor.py, with the
-JAX package's signatures and defaults; fill_constant_batch_size_like and
-argmin are not ported)."""
+JAX package's signatures and defaults)."""
 from __future__ import annotations
 
 import numpy as np
@@ -13,6 +12,7 @@ __all__ = [
     'create_tensor', 'create_parameter', 'create_global_var', 'cast',
     'concat', 'sums', 'assign', 'fill_constant', 'ones', 'zeros',
     'reverse', 'argmax', 'argsort', 'zeros_like',
+    'fill_constant_batch_size_like', 'argmin',
 ]
 
 
@@ -144,3 +144,25 @@ def argsort(x, axis=-1, name=None):
                      outputs={'Out': [out], 'Indices': [ids]},
                      attrs={'axis': axis})
     return out, ids
+
+
+def fill_constant_batch_size_like(input, shape, dtype, value,
+                                  input_dim_idx=0, output_dim_idx=0):
+    """fill_constant with one dim copied from input's batch size."""
+    helper = LayerHelper('fill_constant_batch_size_like')
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='fill_constant_batch_size_like',
+                     inputs={'Input': [input]}, outputs={'Out': [out]},
+                     attrs={'shape': list(shape), 'dtype': dtype,
+                            'value': float(value),
+                            'input_dim_idx': input_dim_idx,
+                            'output_dim_idx': output_dim_idx})
+    return out
+
+
+def argmin(x, axis=0):
+    helper = LayerHelper('argmin')
+    out = helper.create_variable_for_type_inference('int32')
+    helper.append_op(type='argmin', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'axis': axis})
+    return out

@@ -1,5 +1,5 @@
-"""save / load / save_combine / load_combine and the py_reader's read op
-(counterpart of paddle_tpu/ops/io_ops.py).
+"""save / load / save_combine / load_combine, print, delete_var and the
+py_reader's read op (counterpart of paddle_tpu/ops/io_ops.py).
 
 The tensor file format is the JAX package's, byte for byte
 (io_ops.py:29-48): a 4-byte magic, a little-endian uint32 header length,
@@ -12,6 +12,7 @@ from __future__ import annotations
 import json
 import os
 import struct
+import sys
 
 import numpy as np
 import torch
@@ -94,6 +95,44 @@ register_op('save_combine', emit=_save_combine_emit, host=True,
             no_grad=True)
 register_op('load_combine', emit=_load_combine_emit, host=True,
             no_grad=True)
+
+
+def print_text(name, arr, message=''):
+    """What a print op writes: the JAX package's lines (message, name,
+    shape, dtype, then the values by np.array2string(threshold=20))."""
+    parts = [message] if message else []
+    parts.append('Variable: %s' % name)
+    parts.append('shape: %s' % (list(arr.shape),))
+    parts.append('dtype: %s' % arr.dtype)
+    parts.append('data: %s' % np.array2string(arr, threshold=20))
+    return '\n'.join(parts) + '\n'
+
+
+def _print_emit(ctx, op):
+    """Write the input to stderr, the first `first_n` runs only when
+    first_n > 0 (counted on the op), and pass it on unchanged. A host
+    step: on the card it reads the tensor back."""
+    name = op.single_input('In')
+    x = ctx.get(name)
+    count = getattr(op, '_print_count', 0)
+    op._print_count = count + 1
+    first_n = op.attr('first_n', -1)
+    if first_n <= 0 or count < first_n:
+        sys.stderr.write(print_text(name, _host(ctx, name),
+                                    op.attr('message', '')))
+    if op.output('Out'):
+        ctx.set(op.single_output('Out'), x)
+
+
+def _delete_var_emit(ctx, op):
+    """Erase the vars from the scope, as the JAX package does. Run-local
+    values need no op: the Executor drops each after its last reader."""
+    for name in op.input('X'):
+        ctx.scope.erase(name)
+
+
+register_op('print', emit=_print_emit, host=True, no_grad=True)
+register_op('delete_var', emit=_delete_var_emit, host=True, no_grad=True)
 
 
 def _read_emit(ctx, op):

@@ -647,3 +647,152 @@ def _position_embedding_infer(op, block):
 register_op('position_embedding', infer_shape=_position_embedding_infer)
 register_vjp_grad('position_embedding', in_slots=('Pos',),
                   nondiff_slots=('X',))
+
+
+# -- conv2d_transpose ---------------------------------------------------------
+
+@op_emitter('conv2d_transpose')
+def _conv2d_transpose_emit(ctx, op):
+    """The filter is [C_in, C_out / groups, kh, kw], the layout
+    F.conv_transpose2d takes."""
+    x = ctx.get(op.single_input('Input'))
+    w = ctx.get(op.single_input('Filter'))
+    x, w = amp_cast(ctx, x, w)
+    out_dtype = x.dtype
+    if x.dtype == torch.bfloat16 and x.device.type == 'cpu':
+        x, w = x.float(), w.float()
+    out = F.conv_transpose2d(
+        x, w, None, stride=tuple(op.attr('strides', [1, 1])),
+        padding=tuple(op.attr('paddings', [0, 0])),
+        groups=op.attr('groups', 1) or 1,
+        dilation=tuple(op.attr('dilations', [1, 1])))
+    ctx.set(op.single_output('Output'), out.to(out_dtype))
+
+
+def _conv2d_transpose_infer(op, block):
+    x = block.var_recursive(op.single_input('Input'))
+    w = block.var_recursive(op.single_input('Filter'))
+    strides = op.attr('strides', [1, 1])
+    paddings = op.attr('paddings', [0, 0])
+    dilations = op.attr('dilations', [1, 1])
+    n, _, h, wd = x.shape
+    _, oc, kh, kw = w.shape
+
+    def osz(i, k, p, s, d):
+        return -1 if i < 0 else (i - 1) * s - 2 * p + d * (k - 1) + 1
+    out = block.var_recursive(op.single_output('Output'))
+    out.shape = (n, oc * (op.attr('groups', 1) or 1),
+                 osz(h, kh, paddings[0], strides[0], dilations[0]),
+                 osz(wd, kw, paddings[1], strides[1], dilations[1]))
+    out.dtype = x.dtype
+
+
+register_op('conv2d_transpose', infer_shape=_conv2d_transpose_infer)
+register_vjp_grad('conv2d_transpose', in_slots=('Input', 'Filter'),
+                  out_slots=('Output',))
+
+
+# -- huber_loss / smooth_l1_loss ------------------------------------------------
+
+@op_emitter('huber_loss')
+def _huber_loss_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    y = ctx.get(op.single_input('Y'))
+    delta = op.attr('delta', 1.0)
+    r = y - x
+    a = r.abs()
+    ctx.set(op.single_output('Out'),
+            torch.where(a <= delta, 0.5 * r * r, delta * (a - 0.5 * delta)))
+    if op.output('Residual'):
+        ctx.set(op.single_output('Residual'), r)
+
+
+def _huber_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    for slot in ('Out', 'Residual'):
+        if op.output(slot):
+            v = block.var_recursive(op.single_output(slot))
+            v.shape, v.dtype = x.shape, x.dtype
+
+
+register_op('huber_loss', infer_shape=_huber_infer)
+register_vjp_grad('huber_loss', in_slots=('X', 'Y'), out_slots=('Out',))
+
+
+@op_emitter('smooth_l1_loss')
+def _smooth_l1_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    y = ctx.get(op.single_input('Y'))
+    sigma = op.attr('sigma', 1.0)
+    s2 = sigma * sigma
+    diff = x - y
+    if op.input('InsideWeight'):
+        diff = diff * ctx.get(op.single_input('InsideWeight'))
+    a = diff.abs()
+    val = torch.where(a < 1.0 / s2, 0.5 * s2 * diff * diff, a - 0.5 / s2)
+    if op.input('OutsideWeight'):
+        val = val * ctx.get(op.single_input('OutsideWeight'))
+    ctx.set(op.single_output('Out'),
+            val.reshape(val.shape[0], -1).sum(1, keepdim=True))
+    if op.output('Diff'):
+        ctx.set(op.single_output('Diff'), diff)
+
+
+def _smooth_l1_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape, out.dtype = (x.shape[0], 1), x.dtype
+    if op.output('Diff'):
+        d = block.var_recursive(op.single_output('Diff'))
+        d.shape, d.dtype = x.shape, x.dtype
+
+
+register_op('smooth_l1_loss', infer_shape=_smooth_l1_infer)
+register_vjp_grad('smooth_l1_loss', in_slots=('X',), out_slots=('Out',))
+
+
+# -- prelu / lrn ----------------------------------------------------------------
+
+@op_emitter('prelu')
+def _prelu_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    alpha = ctx.get(op.single_input('Alpha'))
+    mode = op.attr('mode', 'all')
+    if mode == 'all':
+        a = alpha.reshape(())
+    elif mode == 'channel':
+        a = alpha.reshape((1, -1) + (1,) * (x.ndim - 2))
+    else:
+        a = alpha.reshape((1,) + tuple(x.shape[1:]))
+    ctx.set(op.single_output('Out'), torch.where(x >= 0, x, a * x))
+
+
+register_op('prelu', infer_shape=same_shape_infer())
+register_vjp_grad('prelu', in_slots=('X', 'Alpha'))
+
+
+@op_emitter('lrn')
+def _lrn_emit(ctx, op):
+    """Local response normalisation across channels: x / (k + alpha ·
+    Σ x² over the n channels around each)^beta (MidOut is the base)."""
+    x = ctx.get(op.single_input('X'))
+    n = op.attr('n', 5)
+    half = n // 2
+    sq = F.pad(x * x, (0, 0, 0, 0, half, half))
+    acc = sum(sq[:, i:i + x.shape[1]] for i in range(n))
+    mid = op.attr('k', 2.0) + op.attr('alpha', 1e-4) * acc
+    ctx.set(op.single_output('Out'), x / mid.pow(op.attr('beta', 0.75)))
+    if op.output('MidOut'):
+        ctx.set(op.single_output('MidOut'), mid)
+
+
+def _lrn_infer(op, block):
+    x = block.var_recursive(op.single_input('X'))
+    for slot in ('Out', 'MidOut'):
+        if op.output(slot):
+            v = block.var_recursive(op.single_output(slot))
+            v.shape, v.dtype = x.shape, x.dtype
+
+
+register_op('lrn', infer_shape=_lrn_infer)
+register_vjp_grad('lrn', in_slots=('X',))

@@ -3,7 +3,7 @@ from __future__ import annotations
 
 from .initializer import Initializer
 
-__all__ = ['ParamAttr']
+__all__ = ['ParamAttr', 'WeightNormParamAttr']
 
 
 class ParamAttr(object):
@@ -47,3 +47,13 @@ class ParamAttr(object):
             'gradient_clip_attr': self.gradient_clip,
             'do_model_average': self.do_model_average,
         }
+
+
+class WeightNormParamAttr(ParamAttr):
+    """A parameter built as w = g * v / ||v|| (weight normalization): v
+    has the parameter's shape, g one value per index of `dim` (one value
+    when dim is None); LayerHelper makes both parameters and the ops."""
+
+    def __init__(self, dim=None, **kwargs):
+        super(WeightNormParamAttr, self).__init__(**kwargs)
+        self.dim = dim

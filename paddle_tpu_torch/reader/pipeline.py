@@ -25,14 +25,34 @@ import threading
 import numpy as np
 import torch
 
-__all__ = ['PyReader', 'get_reader', 'EOFException']
+__all__ = ['PyReader', 'get_reader', 'EOFException', 'leaked_threads',
+           'note_leak']
+
+# worker threads that outlived their join timeout (a thread blocked in a
+# user generator cannot be interrupted from Python)
+_leaked = 0
+_leak_lock = threading.Lock()
 
 
-def _note_leak(reader_name, thread):
+def leaked_threads():
+    """Process-wide count of reader worker threads that missed their
+    join deadline (monotonic)."""
+    return _leaked
+
+
+def note_leak(reader_name, thread):
+    """Count a worker that missed its join deadline and say so on
+    stderr. The py_reader and the reader decorators' workers report
+    here."""
+    global _leaked
+    with _leak_lock:
+        _leaked += 1
+        n = _leaked
     sys.stderr.write(
-        'WARNING: py_reader %r worker %s did not exit within its join '
+        'WARNING: reader %r worker %s did not exit within its join '
         'timeout and was leaked (likely blocked in the user data '
-        'generator)\n' % (reader_name, thread.name))
+        'generator; %d leaked so far this process)\n'
+        % (reader_name, thread.name, n))
 
 
 class EOFException(Exception):
@@ -49,6 +69,13 @@ class _SourceError(object):
 
 
 _readers = {}
+
+
+def stack_samples(batch, dtypes):
+    """Stack a list of per-sample slot tuples into one array per slot."""
+    slots = list(zip(*batch))
+    return [np.stack([np.asarray(s, dtype=dt) for s in slot])
+            for slot, dt in zip(slots, dtypes)]
 
 
 def get_reader(name):
@@ -101,6 +128,17 @@ class PyReader(object):
         self._source = source
         return self
 
+    decorate_batch_generator = decorate_tensor_provider
+
+    def decorate_paddle_reader(self, reader):
+        """reader(): generator of batches, each a list of per-sample
+        tuples (fluid.batch's form), stacked into one array per slot."""
+        def source():
+            for batch in reader():
+                yield stack_samples(batch, self.dtypes)
+        self._source = source
+        return self
+
     # -- lifecycle ---------------------------------------------------------
     def _target_device(self):
         if self.device is not None:
@@ -147,7 +185,7 @@ class PyReader(object):
         for t in self._threads:
             t.join(timeout=self.join_timeout)
             if t.is_alive():
-                _note_leak(self.name, t)
+                note_leak(self.name, t)
         self._threads = []
         self._started = False
 
@@ -170,7 +208,7 @@ class PyReader(object):
             for t in self._threads:
                 t.join(timeout=self.join_timeout)
                 if t.is_alive():
-                    _note_leak(self.name, t)
+                    note_leak(self.name, t)
             self._threads = []
             raise EOFException('pass end in py_reader %r' % self.name)
         if not self.use_double_buffer:

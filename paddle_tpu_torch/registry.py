@@ -38,8 +38,9 @@ import torch
 
 from .framework import grad_var_name
 
-__all__ = ['OpDef', 'register_op', 'get_op', 'infer_shape',
-           'op_emitter', 'same_shape_infer', 'simple_grad_maker',
+__all__ = ['OpDef', 'register_op', 'get_op', 'has_op', 'infer_shape',
+           'op_emitter', 'op_infer_shape', 'op_grad_maker',
+           'same_shape_infer', 'simple_grad_maker',
            'elementwise_unary_grad', 'register_vjp_grad', 'vjp_grad_maker',
            'input_grads', 'write_input_grads', 'record_key', 'amp_cast']
 
@@ -86,9 +87,27 @@ def get_op(type):
     return opdef
 
 
+def has_op(type):
+    return type in _REGISTRY
+
+
 def op_emitter(type, host=False):
     def deco(fn):
         register_op(type, emit=fn, host=host)
+        return fn
+    return deco
+
+
+def op_infer_shape(type):
+    def deco(fn):
+        register_op(type, infer_shape=fn)
+        return fn
+    return deco
+
+
+def op_grad_maker(type):
+    def deco(fn):
+        register_op(type, grad=fn)
         return fn
     return deco
 

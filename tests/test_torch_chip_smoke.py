@@ -1008,6 +1008,7 @@ def test_training_op_table_covers_every_new_op_type(monkeypatch):
     shares = chip_smoke.check_dropout(place)
     assert all(abs(v - 0.7) < 0.01 for v in shares.values())
     chip_smoke.check_truncated_normal(place)
+    chip_smoke.check_batch_size_like(place)
 
 
 def test_adam_model_is_the_flagship_with_the_parallel_layers():
@@ -1654,3 +1655,88 @@ def test_trainer_phases_run_on_the_cpu_at_a_tiny_width(tmp_path):
                                             place=place)
     assert tr4['rel'] <= chip_smoke.TR4_TOL
     assert 'trainer' not in run
+
+
+# -- bk1-bk3, mo1: the book chapters and the small modules --------------------
+
+def test_book_k6_launches_are_counted_from_the_port_program():
+    """bk2's BK2_K6_PER_STEP: the 1x1 conv2d_bn ops of the fused
+    resnet_cifar10(depth=32) program that _route sends to a kernel (its
+    two projection shortcuts, fp32: the generic kernel)."""
+    import paddle_tpu_torch as tfluid
+    prev = tfluid.get_flags(['use_pallas_fused_ops'])
+    tfluid.set_flags({'use_pallas_fused_ops': True})
+    try:
+        main = tfluid.Program()
+        with tfluid.unique_name.guard(), \
+                tfluid.program_guard(main, tfluid.Program()):
+            chip_smoke.book_image_net(tfluid)
+    finally:
+        tfluid.set_flags(prev)
+    batch = chip_smoke.BOOK['batch']
+    assert chip_smoke.book_k6_launches(main, batch) == \
+        chip_smoke.BK2_K6_PER_STEP
+    shapes = chip_smoke.k6_path_shapes(main, batch)
+    assert shapes == {(batch * 16 * 16, 16, 32): 1, (batch * 8 * 8, 32, 64): 1}
+    assert {k6._route(*s, torch.float32) for s in shapes} == \
+        {k6.GENERIC_KERNEL}
+    unfused = tfluid.Program()
+    with tfluid.unique_name.guard(), \
+            tfluid.program_guard(unfused, tfluid.Program()):
+        chip_smoke.book_image_net(tfluid)
+    assert chip_smoke.book_params_compared(unfused) == \
+        ('conv2d_0.w_0', 'conv2d_22.w_0', 'fc_0.w_0')
+    filters = [op.single_input('Filter') for op in main.global_block().ops
+               if op.type == 'conv2d_bn']
+    assert filters[22] == 'conv_bn_22.w_0'
+    assert tuple(main.global_block().var(filters[22]).shape) == (64, 32, 1, 1)
+
+
+@pytest.mark.parametrize('arr', [
+    np.arange(6, dtype='float32').reshape(2, 3) / 3.0,
+    np.linspace(-1, 1, 64, dtype='float32').reshape(4, 16),
+    np.array([[3, -1, 7]], dtype='int64')], ids=['small', 'summarized', 'int'])
+@pytest.mark.parametrize('message', ['', 'the feed'])
+def test_expected_print_text_is_the_jax_packages(capfd, arr, message):
+    """mo1 holds the port's print ops to expected_print_text on the card;
+    here that text against what the JAX package's Print writes."""
+    import paddle_tpu as jfluid
+    main = jfluid.Program()
+    with jfluid.program_guard(main, jfluid.Program()):
+        x = jfluid.layers.data(name='x', shape=list(arr.shape[1:]),
+                               dtype=arr.dtype.name)
+        jfluid.layers.Print(x, message=message or None)
+    capfd.readouterr()
+    jfluid.Executor(jfluid.CPUPlace()).run(main, feed={'x': arr},
+                                           scope=jfluid.Scope())
+    err = capfd.readouterr().err
+    if arr.dtype == np.int64:   # the JAX package runs with x64 off
+        arr = arr.astype('int32')
+    assert err == chip_smoke.expected_print_text('x', arr, message)
+
+
+def test_book_phases_run_on_the_cpu_at_a_small_width(tmp_path):
+    """bk1, bk2, bk3 and mo1 end to end on the CPU (depth 8, batch 8; the
+    kernels' plain versions): x1's rule, the fused step vs the unfused
+    one by r2's rule, every chapter's loss falling, the inference round
+    trip, memory_optimize and release_memory the same bits, and the
+    Print text."""
+    import paddle_tpu_torch as tfluid
+    place = tfluid.CPUPlace()
+
+    def sync():
+        pass
+    bk1 = chip_smoke.book_image_steps(place, sync, depth=8, batch=8)
+    assert len(bk1['losses']) == chip_smoke.BOOK['steps']
+    assert bk1['bits'] and np.isfinite(bk1['losses']).all()
+    bk2 = chip_smoke.book_fused_steps(bk1, place, sync)
+    assert bk2['launches'] == 0 and bk2['k6_ms'] == {}
+    assert bk2['r2']['loss_diff'] <= chip_smoke.TRAIN_LOSS_TOL
+    bk3 = chip_smoke.book_chapter_steps(place, sync, str(tmp_path / 'fit'),
+                                        scale=8)
+    assert sorted(bk3) == ['fit_a_line', 'recognize_digits', 'word2vec']
+    assert bk3['fit_a_line']['round_trip'] <= chip_smoke.SAVE_TOL
+    mo1 = chip_smoke.memory_modules(bk1, place, sync)
+    assert mo1['release_memory']['segments'] > \
+        mo1['release_memory']['plain_segments'] == 1
+    assert mo1['print']['segments'] >= 2 and mo1['print']['chars'] > 0

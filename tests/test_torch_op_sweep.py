@@ -178,6 +178,17 @@ def _own_configs():
             check=['X'])
     add('round-half-even', 'round',
         inputs={'X': np.array([0.5, 1.5, 2.5, -0.5, -1.5, 0.49], 'f4')})
+    add('argmin', 'argmin', inputs={'X': _f(r, 3, 5)}, attrs={'axis': 1})
+    add('argmin-axis0', 'argmin', inputs={'X': _f(r, 4, 2)},
+        attrs={'axis': 0})
+    add('fill_constant_batch_size_like', 'fill_constant_batch_size_like',
+        inputs={'Input': _f(r, 5, 2)},
+        attrs={'shape': [-1, 3], 'dtype': 'float32', 'value': 2.5,
+               'input_dim_idx': 0, 'output_dim_idx': 0})
+    add('fill_constant_batch_size_like-int', 'fill_constant_batch_size_like',
+        inputs={'Input': _f(r, 2, 6)},
+        attrs={'shape': [4, -1], 'dtype': 'int64', 'value': 7,
+               'input_dim_idx': 1, 'output_dim_idx': 1})
     return cfg
 
 
@@ -421,6 +432,16 @@ COVERED_ELSEWHERE = {
                                   "torch's stream is not jax.random's"),
     'read': ('test_torch_training', 'test_lm_momentum_steps_match_jax',
              'py_reader feeds the LM steps'),
+    'print': ('test_torch_modules', 'test_print_text_matches_jax',
+              'host op: its stderr text against the JAX package\'s'),
+    'delete_var': ('test_torch_modules', 'test_release_memory_matches_jax',
+                   'host op: release_memory\'s programs and losses'),
+    'uniform_random_batch_size_like': (
+        'test_torch_book', 'test_random_batch_size_like_draws',
+        "torch's stream is not jax.random's: shapes and moments"),
+    'gaussian_random_batch_size_like': (
+        'test_torch_book', 'test_random_batch_size_like_draws',
+        "torch's stream is not jax.random's: shapes and moments"),
 }
 for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
