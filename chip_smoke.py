@@ -265,12 +265,49 @@ from the synthetic datasets, and the small one-device modules:
       decorate_paddle_reader) and word2vec (imikolov N=5, embedding 32):
       BK3_STEPS steps each, the loss falling;
   (mo1) memory_optimize on bk1's program: MO1_STEPS captured steps the
-      same bits and peak allocated memory no higher; release_memory on
+      same bits and peak allocated memory no higher (each arm measured
+      on its fresh executor's second pass, so the stream's cuBLAS
+      workspace counts in neither); release_memory on
       fit_a_line: the same losses, its delete_var host steps splitting
       the block into more captured segments; a layers.Print of a feed
       and of an fc's output: the JAX package's text on stderr
       (expected_print_text) for PRINT_FIRST_N runs only, and every
       device segment captured.
+Then sequences, padded with a lengths companion (no kernel: the LSTM,
+GRU and CRF recurrences are plain PyTorch over T); each phase runs 10
+steps over SQ_BATCHES batches twice through the Executor's default path
+against the same steps op by op from one saved state, by x1's rule and
+to the same bits (the embedding grad sums in one order), the loss of
+the second pass below the first's, one capture a device segment and
+feed signature (jit_cache_stats logged), the steady step timed on the
+last feed:
+  (sq1) models.stacked_lstm.train_network at tools/bench_suite.py's
+      --full shapes (SQ1: vocab 30000, emb 512, hid 512 (H = 128), 3
+      LSTMs of alternating direction, T 128, batch 64, fp32 Adam(1e-3)),
+      fed as (padded, lengths) with every length T: step ms, samples/s,
+      tokens/s, op by op ms, device busy and ms by kind, peak memory, op
+      and segment counts; then one step on the card against one on the
+      CPU port from the same state on a feed whose lengths are drawn
+      from 1..T (loss within SQ_CPU_RTOL, updates by a2's measure);
+  (sq2) understand_sentiment's convolution net (two sequence_conv_pool,
+      filter 3 and 4, sqrt pool) and stacked LSTM net at the chapter's
+      widths (SENTIMENT: emb 128, hid 512, 3 LSTMs, batch 128,
+      Adagrad(0.002), embedding is_sparse) fed from dataset.imdb
+      through DataFeeder's LoD branch; step ms, samples/s, DataFeeder ms
+      a batch, the padded lengths and graphs captured;
+  (sq3) recommender at the chapter's widths (RECOMMENDER: the user and
+      movie towers, categories sum-pooled, titles through
+      sequence_conv_pool, cos_sim, scale 5, SGD(0.2), batch 256) fed
+      from dataset.movielens;
+  (sq4) label_semantic_roles at the chapter's widths (SRL: word_dim
+      32, mark_dim 5, hidden 512, depth 8, relu candidates, sigmoid
+      gates and cells, batch 10), the word embedding loaded from
+      conll05.get_embedding() and frozen (unchanged after the steps),
+      linear_chain_crf with crfw at mix_hidden_lr, SGD under
+      exponential_decay; one step against the CPU port; the card's
+      crf_decoding path against the CPU port's on the same emission and
+      transition by the margin rule (viterbi_margin: equal, or both
+      within VITERBI_TOL of the best path's fp64 score).
 ResNet-50 is freed, then the long-context LM (bench.py's
 bench_long_context: vocab 32768, dim 1024, 8 heads, 4 layers, ffn 4096,
 max_len 8192, batch 2, fused LM head with chunk 8192, reader lc_reader,
@@ -374,9 +411,10 @@ room first, each phase's removed as soon as it has checked them):
       series.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
-line, the serving and training numbers (an Adam line among them), its
-own wall time, and as its last line {"ok": true, "device": {...}}. Without a CUDA device, or
-without the package beside it, it exits non-zero and prints no result.
+line, the serving and training numbers (an Adam line and a sequences
+line among them), its own wall time, and as its last line {"ok": true,
+"device": {...}}. Without a CUDA device, or without the package beside
+it, it exits non-zero and prints no result.
 """
 from __future__ import annotations
 
@@ -2763,7 +2801,7 @@ def check_untaken_flash(place, counters):
     fa.FlashAttention.plain_cuda_calls = 0
 
 
-# -- (a1)-(a4): the training core ----------------------------------------------
+# -- (a1)-(a4): the training core ---------------------------------------------
 
 def noam_rate(step, d_model):
     """noam_decay's rate in the step-th step (the counter reads step)."""
@@ -3262,6 +3300,76 @@ def training_op_cases(rng):
     add('fill_constant_batch_size_like', {'Input': f(5, 2)},
         {'shape': [-1, 3], 'dtype': 'float32', 'value': 2.5,
          'input_dim_idx': 0, 'output_dim_idx': 0}, check=())
+    # the 19 sequence op types (sq1-sq4 run them at the chapters' widths)
+    # over ragged lengths with 1 and T among them
+    lens = np.array([5, 1, 3], i32)
+    xs = f(3, 5, 4)
+    for pool in ('SUM', 'AVERAGE', 'SQRT', 'MAX', 'LAST', 'FIRST'):
+        add('sequence_pool', {'X': xs, 'SeqLens': lens}, {'pooltype': pool},
+            {'Out': ['out'], 'MaxIndex': ['sp_idx']},
+            name='sequence_pool_' + pool.lower())
+    add('sequence_softmax', {'X': f(3, 5, 1), 'SeqLens': lens})
+    add('sequence_expand', {'X': f(3, 4), 'Y': f(3, 5, 2)})
+    add('sequence_conv', {'X': xs, 'Filter': f(12, 6), 'SeqLens': lens},
+        {'contextLength': 3, 'contextStart': -1, 'contextStride': 1},
+        check=('in_x', 'in_filter'))
+    H = 4
+    add('lstm', {'Input': 0.5 * f(3, 5, 4 * H), 'Weight': 0.5 * f(H, 4 * H),
+                 'Bias': 0.5 * f(1, 7 * H), 'H0': f(3, H), 'C0': f(3, H),
+                 'SeqLens': lens},
+        {'use_peepholes': True, 'is_reverse': True,
+         'gate_activation': 'sigmoid', 'cell_activation': 'tanh',
+         'candidate_activation': 'tanh'},
+        {'Hidden': ['hidden'], 'Cell': ['cell']},
+        check=('in_input', 'in_weight', 'in_bias', 'in_h0', 'in_c0'))
+    add('gru', {'Input': f(3, 5, 3 * H), 'Weight': f(H, 3 * H),
+                'Bias': f(1, 3 * H), 'H0': f(3, H), 'SeqLens': lens},
+        {'is_reverse': True, 'gate_activation': 'sigmoid',
+         'activation': 'tanh'}, {'Hidden': ['hidden']},
+        check=('in_input', 'in_weight', 'in_bias', 'in_h0'))
+    add('cos_sim', {'X': x, 'Y': y}, check=('in_x', 'in_y'))
+    crf = {'Emission': f(3, 5, 4), 'Transition': f(6, 4),
+           'Label': rng.randint(0, 4, (3, 5, 1)).astype('int64'),
+           'SeqLens': lens}
+    add('linear_chain_crf', crf, outputs={
+        'LogLikelihood': ['crf_ll'], 'Alpha': ['crf_alpha'],
+        'EmissionExps': ['crf_eexps'], 'TransitionExps': ['crf_texps']},
+        check=('in_emission', 'in_transition'))
+    add('crf_decoding', {k: v for k, v in crf.items() if k != 'Label'},
+        outputs={'ViterbiPath': ['path']}, check=())
+    add('sequence_concat',
+        {'X': [('sc_a', f(3, 5, 2)), ('sc_b', f(3, 4, 2))],
+         'SeqLens': [('sc_la', lens), ('sc_lb', np.array([2, 4, 1], i32))]},
+        outputs={'Out': ['out'], 'OutLens': ['sc_lens']},
+        check=('sc_a', 'sc_b'))
+    add('sequence_mask', {'X': lens}, {'maxlen': 6, 'out_dtype': 'int64'},
+        {'Y': ['y']}, check=())
+    add('sequence_pad', {'X': f(3, 5, 2), 'SeqLens': lens,
+                         'PadValue': np.array([-2.5], 'float32')},
+        {'padded_length': 7}, {'Out': ['out'], 'Length': ['spad_len']})
+    add('sequence_unpad', {'X': f(3, 5, 2), 'Length': lens.astype('int64')})
+    add('sequence_erase', {'X': rng.randint(0, 5, (3, 5, 1)).astype('int64'),
+                           'SeqLens': lens}, {'tokens': [2, 3]},
+        {'Out': ['out'], 'OutLens': ['se_lens']}, check=())
+    add('sequence_reshape', {'X': f(3, 4, 6),
+                             'SeqLens': np.array([4, 1, 2], i32)},
+        {'new_dim': 3}, {'Out': ['out'], 'OutLens': ['sr_lens']})
+    add('sequence_slice', {'X': f(3, 5, 2),
+                           'Offset': np.array([[1], [0], [2]], 'int64'),
+                           'Length': np.array([[3], [1], [1]], 'int64'),
+                           'SeqLens': lens},
+        outputs={'Out': ['out'], 'OutLens': ['ssl_lens']})
+    add('row_conv', {'X': xs, 'Filter': f(3, 4), 'SeqLens': lens},
+        check=('in_x', 'in_filter'))
+    add('im2sequence', {'X': f(2, 3, 5, 6)},
+        {'kernels': [2, 3], 'strides': [1, 2], 'paddings': [1, 0, 0, 1]},
+        {'Out': ['out'], 'OutLens': ['i2s_lens']})
+    add('edit_distance', {'Hyps': rng.randint(0, 4, (3, 5, 1)).astype('int64'),
+                          'Refs': rng.randint(0, 4, (3, 6, 1)).astype('int64'),
+                          'HypLens': lens,
+                          'RefLens': np.array([6, 2, 0], i32)},
+        {'normalized': True}, {'Out': ['out'], 'SequenceNum': ['ed_num']},
+        check=())
     return cases
 
 
@@ -3277,7 +3385,7 @@ def uncovered_op_types(cases):
 def run_op_case(fluid, place, case):
     """One case's op on `place`, fed copies: {var name: numpy array} of
     its outputs and of the held inputs' grads against a fixed cotangent
-    on its Loss, Out or Y outputs."""
+    on its Loss, Out, Output, Hidden, LogLikelihood or Y outputs."""
     import torch
     _, op_type, inputs, attrs, outputs, check = case
     prog = fluid.Program()
@@ -3301,14 +3409,21 @@ def run_op_case(fluid, place, case):
                         attrs=dict(attrs))
         if check:
             targets = outs.get('Loss') or outs.get('Out') or \
-                outs.get('Output') or outs['Y']
+                outs.get('Output') or outs.get('Hidden') or \
+                outs.get('LogLikelihood') or outs['Y']
+            # the cotangents take the outputs' run-time shapes (a sequence
+            # op's declared shape can differ: sequence_pool keeps its
+            # input's, the CRF's is [-1, 1])
+            shapes = [tuple(np.shape(v)) for v in fluid.Executor(
+                fluid.CPUPlace()).run(prog, feed=feed, fetch_list=targets,
+                                      scope=fluid.Scope())]
             cots = []
-            for i, t in enumerate(targets):
-                cot = block.create_var(name='cot_%d' % i, shape=t.shape,
+            for i, (t, shape) in enumerate(zip(targets, shapes)):
+                cot = block.create_var(name='cot_%d' % i, shape=shape,
                                        dtype='float32', is_data=True,
                                        stop_gradient=True)
                 feed[cot.name] = np.asarray(np.random.RandomState(
-                    i + 1).randn(*t.shape), 'float32')
+                    i + 1).randn(*shape), 'float32')
                 cots.append(cot)
             grads = fluid.backward.calc_gradient(
                 targets, [block.var(n) for n in check],
@@ -4362,7 +4477,7 @@ def check_nan_inf_mode(tr, sync):
     return dict(loss_diff=diff, checked_ms=checked_ms, message=msg)
 
 
-# -- (s1): the space-to-depth stem ----------------------------------------------
+# -- (s1): the space-to-depth stem --------------------------------------------
 
 def s2d_filter(w):
     """[O, C, 7, 7] -> [O, 4C, 4, 4]: the space-to-depth stem's filter,
@@ -4463,7 +4578,7 @@ def s2d_steps(place, sync):
                 launches=launches)
 
 
-# -- (i1): bench_inference's ResNet-50 leg ----------------------------------------
+# -- (i1): bench_inference's ResNet-50 leg ------------------------------------
 
 def inference_model(model_dir, place, batch, hw, classes, depth, seed):
     """bench_inference's ResNet program (resnet_imagenet(is_test=True,
@@ -6344,17 +6459,19 @@ def book_moments(run, params):
                 if n.startswith(p + '_moment1_')][0] for p in params}
 
 
-def _book_x1(label, eager, captured, saved, params, moments):
-    """x1's rule for Adam: every loss within TRAIN_LOSS_TOL, each update
-    within TRAIN_UPDATE_TOL by a2's gradient-weighted measure (g the
-    eager run's first moment). Returns (loss diff, updates, same
-    bits)."""
+def _book_x1(label, eager, captured, saved, params, moments, grads=None):
+    """x1's rule: every loss within TRAIN_LOSS_TOL, each update within
+    TRAIN_UPDATE_TOL by a2's gradient-weighted measure (g: `grads`, or
+    for Adam the eager run's first moment, named by `moments`). Returns
+    (loss diff, updates, same bits)."""
     loss_diff = max(abs(a - b) for a, b in zip(captured['losses'],
                                                eager['losses']))
+    if grads is None:
+        grads = {n: eager['state'][moments[n]].float() for n in params}
     got = _first_order_diffs(
         {n: (captured['state'][n] - saved[n]).float() for n in params},
         {n: (eager['state'][n] - saved[n]).float() for n in params},
-        {n: eager['state'][moments[n]].float() for n in params}, params)
+        grads, params)
     bits = captured['losses'] == eager['losses'] and all(
         bool((captured['state'][n] == eager['state'][n]).all())
         for n in captured['state'])
@@ -6746,6 +6863,14 @@ def memory_modules(bk1, place, sync):
                 log('memory_optimize: %d vars could reuse a dead buffer'
                     % len(plan))
             run.fresh_executor()
+            # a first pass allocates what the new executor's stream keeps
+            # for the process (cuBLAS's workspace is 32 MiB on the H100;
+            # PyTorch keeps one a stream); the measured pass, its graphs
+            # dropped, starts from a warm stream, so each arm's peak counts
+            # its own steps only (two arms of one program read 0.0336 GB
+            # apart when one arm's stream was new)
+            _book_run(run, bk1['saved'], feeds, sync, False, [])
+            run.exe.close()
             runs[label] = _book_run(run, bk1['saved'], feeds, sync, False,
                                     names)
         run.exe.close()
@@ -6835,6 +6960,543 @@ def memory_modules(bk1, place, sync):
         raise AssertionError('%d device segments captured, the Print '
                              'program has %d' % (compiled, n_seg))
     out['print'] = dict(segments=n_seg, chars=len(text))
+    return out
+
+
+# -- sq1-sq4: the stacked LSTM and the sequence book chapters -----------------
+
+# tools/bench_suite.py --full's stacked_lstm (:75-90): vocab 30000, T 128,
+# batch 64, models.stacked_lstm's default emb 512 and hid 512 (H = 128),
+# Adam(1e-3), fp32, fed as (padded, lengths) with every length T
+SQ1 = dict(vocab=30000, T=128, batch=64, emb=512, hid=512)
+# Paddle book 06.understand_sentiment
+SENTIMENT = dict(emb=128, hid=512, stacked=3, batch=128, lr=0.002)
+# Paddle book 05.recommender_system
+RECOMMENDER = dict(batch=256, lr=0.2)
+# Paddle book 07.label_semantic_roles
+SRL = dict(word_dim=32, mark_dim=5, hidden=512, depth=8, batch=10,
+           mix_hidden_lr=1e-3)
+SRL_FEEDS = ['word_data', 'ctx_n2_data', 'ctx_n1_data', 'ctx_0_data',
+             'ctx_p1_data', 'ctx_p2_data', 'verb_data', 'mark_data',
+             'target']
+SQ_BATCHES = 5               # distinct batches; the steps pass over them twice
+SQ_CPU_RTOL = 1e-4           # one step's loss, the card vs the CPU (fp32)
+VITERBI_TOL = 1e-4           # sq4: a path's score vs the best (margin rule)
+
+
+def _sq_falls(label, losses):
+    """Two passes over the same batches: the second pass's mean loss must
+    be below the first's."""
+    half = len(losses) // 2
+    first, second = float(np.mean(losses[:half])), \
+        float(np.mean(losses[half:]))
+    log('%s: losses %s; mean over the first pass %.6f, the second %.6f'
+        % (label, ', '.join('%.6f' % x for x in losses), first, second))
+    if not (all(np.isfinite(losses)) and second < first):
+        raise AssertionError('%s: the loss did not fall over %d steps'
+                             % (label, len(losses)))
+    return first, second
+
+
+def _sq_accumulators(run, params, optimizer):
+    """The accumulator of each parameter that tells its gradient's size:
+    Adam's first moment, Adagrad's sum of squares; none for SGD."""
+    if optimizer == 'sgd':
+        return []
+    mark = '_moment1_' if optimizer == 'adam' else '_moment_'
+    return [[m for m in run.persistables if m.startswith(n + mark)][0]
+            for n in params]
+
+
+def sq_grad_weights(run, params, optimizer, eager, saved):
+    """|g| per compared parameter for x1's weighted update measure: Adam's
+    first moment, the square root of Adagrad's accumulator, SGD's own
+    update (it is lr·g)."""
+    if optimizer == 'sgd':
+        return {n: (eager['state'][n] - saved[n]).float() for n in params}
+    accs = _sq_accumulators(run, params, optimizer)
+    return {n: (eager['state'][a].float() if optimizer == 'adam'
+                else eager['state'][a].float().sqrt())
+            for n, a in zip(params, accs)}
+
+
+def sq_params(program, *prefixes):
+    """The first parameter of each name prefix, a weight (.w_) where the
+    prefix has one; a trailing '$' takes the last one instead."""
+    names = [p.name for p in program.global_block().all_parameters()]
+    out = []
+    for pre in prefixes:
+        hits = [n for n in names if n.startswith(pre.rstrip('$'))]
+        hits = [n for n in hits if '.w_' in n] or hits
+        out.append(hits[-1] if pre.endswith('$') else hits[0])
+    return tuple(out)
+
+
+def _steady_ms(run, feed, sync, eager, n=3):
+    """ms a step over n steps of one feed whose signature the executor
+    has captured (or op by op with eager)."""
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run.step(feed, eager=eager)
+    sync()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+def feed_signatures(program, feeds):
+    """The distinct shapes the Executor sees for `feeds` once each LoD
+    feed is padded: each is its own capture of every device segment."""
+    from paddle_tpu_torch.executor import _expand_sequence_feeds
+    return len({tuple(sorted((k, tuple(np.shape(v))) for k, v in
+                             _expand_sequence_feeds(program, f).items()))
+                for f in feeds})
+
+
+def _sq_captured(run, label, feeds, params, optimizer, sync, profile=False):
+    """feeds through run's executor (eager, captured, replayed) and op by
+    op from one saved state: the losses fall, x1's rule, and the same
+    bits (every op of these programs sums in one order: the embedding
+    grad's index_put_ included), the captures and their signatures.
+    Returns the numbers."""
+    saved = run.snapshot()
+    names = list(params) + _sq_accumulators(run, params, optimizer)
+    run.fresh_executor()
+    captured = _book_run(run, saved, feeds, sync, False, names)
+    stats = run.exe.jit_cache_stats()
+    # the last feed's signature was warmed up and captured in the steps:
+    # its steps from here on replay
+    captured['ms'] = _steady_ms(run, feeds[-1], sync, False)
+    device_ms = busy = None
+    if profile and run.place.device.type == 'cuda':
+        device_ms, busy = _profile_steps(None, captured['ms'], sync, label,
+                                         steps=1,
+                                         step=lambda: run.step(feeds[-1]))
+    eager = _book_run(run, saved, feeds, sync, True, names)
+    eager['ms'] = _steady_ms(run, feeds[-1], sync, True)
+    run.restore(saved)
+    loss_diff, upd, bits = _book_x1(
+        label, eager, captured, saved, params, None,
+        grads=sq_grad_weights(run, params, optimizer, eager, saved))
+    signatures = feed_signatures(run.main, feeds)
+    n_seg = device_segments(run.main)
+    log('%s: jit_cache_stats %s (%d device segments x %d feed signatures)'
+        % (label, json.dumps(stats), n_seg, signatures))
+    if not bits:
+        raise AssertionError('%s: the captured steps are not the eager '
+                             'steps\' bits' % label)
+    if run.place.device.type == 'cuda' and \
+            stats['compiled_segments'] != n_seg * signatures:
+        raise AssertionError('%s: %d segments captured, expected %d'
+                             % (label, stats['compiled_segments'],
+                                n_seg * signatures))
+    falls = _sq_falls(label, captured['losses'])
+    return dict(losses=captured['losses'], ms=captured['ms'],
+                eager_ms=eager['ms'], loss_diff=loss_diff, updates=upd,
+                bits=bits, stats=stats, segments=n_seg,
+                signatures=signatures, device_ms=device_ms, busy=busy,
+                peak_gb=captured['peak_gb'], saved=saved,
+                falls=falls, n_ops=len(run.main.global_block().ops))
+
+
+def card_vs_cpu(run, build, saved, feed, params, optimizer, label):
+    """One step of the port on the card and one on the CPU from the same
+    parameters and feed: the losses within SQ_CPU_RTOL relative, the
+    updates within TRAIN_UPDATE_TOL by x1's weighted measure (g from the
+    card's step). Returns (relative loss difference, updates)."""
+    import paddle_tpu_torch as fluid
+    cpu = BookRun(fluid.CPUPlace(), build, None, 1)
+    cpu.restore({n: t.cpu() for n, t in saved.items()})
+    names = list(params) + _sq_accumulators(cpu, params, optimizer)
+    run.restore(saved)
+    card_loss = run.step(feed, eager=True)
+    card = dict(state={n: run.scope.find_var(n).cpu() for n in names})
+    cpu_loss = cpu.step(feed)
+    cpu_state = {n: cpu.scope.find_var(n).clone() for n in names}
+    run.restore(saved)
+    host_saved = {n: saved[n].cpu() for n in params}
+    grads = sq_grad_weights(run, params, optimizer, card, host_saved)
+    upd = _first_order_diffs(
+        {n: (cpu_state[n] - host_saved[n]).float() for n in params},
+        {n: (card['state'][n] - host_saved[n]).float() for n in params},
+        grads, params)
+    rel = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-30)
+    log('%s: one step on the card vs the CPU: loss %.7f vs %.7f (relative '
+        '%.3e, tol %g); updates %s (tol %g)'
+        % (label, card_loss, cpu_loss, rel, SQ_CPU_RTOL,
+           ', '.join('%s %.3e' % kv for kv in upd.items()),
+           TRAIN_UPDATE_TOL))
+    if not (np.isfinite(card_loss) and rel <= SQ_CPU_RTOL and
+            all(v <= TRAIN_UPDATE_TOL for v in upd.values())):
+        raise AssertionError('%s: the card and the CPU disagree' % label)
+    return rel, upd
+
+
+def stacked_lstm_build(sq1):
+    def build(fluid):
+        from paddle_tpu_torch.models import stacked_lstm
+        data = fluid.layers.data(name='words', shape=[1], dtype='int64',
+                                 lod_level=1)
+        label = fluid.layers.data(name='label', shape=[1], dtype='int64')
+        pred, loss, _ = stacked_lstm.train_network(
+            data, label, sq1['vocab'], emb_dim=sq1['emb'],
+            hid_dim=sq1['hid'])
+        fluid.optimizer.Adam(learning_rate=1e-3).minimize(loss)
+        return ['words', 'label'], pred, loss
+    return build
+
+
+def stacked_lstm_feed(rng, sq1, lens=None):
+    """bench_suite's feed: ids in [1, vocab), (padded, lengths) with every
+    length T unless `lens` is given (the ids past a length stay, so the
+    masking must hide them)."""
+    B, T = sq1['batch'], sq1['T']
+    ids = rng.randint(1, sq1['vocab'], (B, T, 1)).astype('int64')
+    lens = np.full((B,), T, 'int32') if lens is None else lens
+    return {'words': (ids, lens),
+            'label': rng.randint(0, 2, (B, 1)).astype('int64')}
+
+
+@phase('sq1: the stacked LSTM at bench_suite --full shapes (vocab 30000, '
+       'hid 512, T 128, batch 64), captured')
+def stacked_lstm_steps(place, sync, sq1=None):
+    """models.stacked_lstm.train_network under Adam(1e-3), fp32: 10 steps
+    over SQ_BATCHES batches twice, captured vs op by op (x1), the loss
+    falling; its step ms, samples/s, tokens/s, device busy share and
+    time by kind, peak memory, ops and segments; then one step on the
+    card vs the CPU on a feed whose lengths are drawn from 1..T."""
+    sq1 = sq1 or SQ1
+    build = stacked_lstm_build(sq1)
+    run = BookRun(place, build, None, sq1['batch'])
+    rng = np.random.RandomState(SEED + 30)
+    feeds = [stacked_lstm_feed(rng, sq1) for _ in range(SQ_BATCHES)] * 2
+    params = sq_params(run.main, 'embedding_', 'lstm_', 'lstm_$', 'fc_$')
+    out = _sq_captured(run, 'sq1 stacked LSTM', feeds, params, 'adam', sync,
+                       profile=True)
+    B, T = sq1['batch'], sq1['T']
+    out.update(samples_s=B / out['ms'] * 1e3,
+               tokens_s=B * T / out['ms'] * 1e3)
+    log('sq1 stacked LSTM (vocab %d, emb %d, hid %d, T %d, batch %d, fp32 '
+        'Adam): %d ops, %d device segments; captured %.3f ms a step (%.1f '
+        'samples/s, %.1f tokens/s), op by op %.3f ms; device %s ms, busy %s; '
+        'peak %.4f GB allocated over the run\'s start'
+        % (sq1['vocab'], sq1['emb'], sq1['hid'], T, B, out['n_ops'],
+           out['segments'], out['ms'], out['samples_s'], out['tokens_s'],
+           out['eager_ms'], _fmt_ms(out['device_ms'] or None),
+           _fmt_busy(out['busy']), out['peak_gb']))
+    ragged = stacked_lstm_feed(np.random.RandomState(SEED + 31), sq1,
+                               lens=np.random.RandomState(SEED + 32).randint(
+                                   1, T + 1, B).astype('int32'))
+    out['cpu'] = card_vs_cpu(run, build, out.pop('saved'), ragged, params,
+                             'adam', 'sq1 stacked LSTM, lengths 1..%d' % T)
+    run.exe.close()
+    return out
+
+
+def sentiment_build(kind, w=None):
+    """The chapter's convolution_net or stacked_lstm_net (embedding
+    is_sparse=True, as the chapter sets it), cross entropy, Adagrad."""
+    w = w or SENTIMENT
+
+    def build(fluid):
+        L = fluid.layers
+        data = L.data(name='words', shape=[1], dtype='int64', lod_level=1)
+        label = L.data(name='label', shape=[1], dtype='int64')
+        dict_dim = len(fluid.dataset.imdb.word_dict())
+        emb = L.embedding(input=data, size=[dict_dim, w['emb']],
+                          is_sparse=True)
+        if kind == 'conv':
+            convs = [fluid.nets.sequence_conv_pool(
+                input=emb, num_filters=w['hid'], filter_size=fs, act='tanh',
+                pool_type='sqrt') for fs in (3, 4)]
+            pred = L.fc(input=convs, size=2, act='softmax')
+        else:
+            fc1 = L.fc(input=emb, size=w['hid'])
+            lstm1, _ = L.dynamic_lstm(input=fc1, size=w['hid'])
+            inputs = [fc1, lstm1]
+            for i in range(2, w['stacked'] + 1):
+                fc = L.fc(input=inputs, size=w['hid'])
+                lstm, _ = L.dynamic_lstm(input=fc, size=w['hid'],
+                                         is_reverse=(i % 2) == 0)
+                inputs = [fc, lstm]
+            pred = L.fc(input=[L.sequence_pool(input=inputs[0],
+                                               pool_type='max'),
+                               L.sequence_pool(input=inputs[1],
+                                               pool_type='max')],
+                        size=2, act='softmax')
+        loss = L.mean(L.cross_entropy(input=pred, label=label))
+        fluid.optimizer.Adagrad(learning_rate=w['lr']).minimize(loss)
+        return ['words', 'label'], pred, loss
+    return build
+
+
+@phase('sq2: understand_sentiment (both nets) fed by fluid.batch + '
+       'DataFeeder, captured')
+def sentiment_steps(place, sync, w=None):
+    """Both nets of the chapter at its widths (emb 128, hid 512, 3
+    stacked LSTMs, batch 128, Adagrad(0.002)), fed from dataset.imdb
+    through the LoD branch of DataFeeder: 10 steps over SQ_BATCHES
+    batches twice, captured vs op by op, the loss falling."""
+    import paddle_tpu_torch as fluid
+    w = w or SENTIMENT
+    out = {}
+    for kind in ('conv', 'stacked_lstm'):
+        label = 'sq2 understand_sentiment %s' % kind
+        run = BookRun(place, sentiment_build(kind, w),
+                      fluid.dataset.imdb.train(), w['batch'])
+        feeds, feed_ms = run.feeds(SQ_BATCHES)
+        params = sq_params(run.main, 'embedding_', 'fc_$') if \
+            kind == 'conv' else sq_params(run.main, 'embedding_', 'lstm_',
+                                          'fc_$')
+        r = _sq_captured(run, label, feeds * 2, params, 'adagrad', sync)
+        r.pop('saved')
+        lens = [max(f['words'].recursive_sequence_lengths()[0])
+                for f in feeds]
+        r.update(feed_ms=feed_ms, samples_s=w['batch'] / r['ms'] * 1e3,
+                 longest=lens)
+        log('%s: %d ops; captured %.3f ms a step (%.1f samples/s), op by op '
+            '%.3f ms; DataFeeder %.3f ms a batch; padded lengths %s; %d '
+            'graphs captured'
+            % (label, r['n_ops'], r['ms'], r['samples_s'], r['eager_ms'],
+               feed_ms, lens, r['stats']['compiled_segments']))
+        run.exe.close()
+        out[kind] = r
+    return out
+
+
+def recommender_build(w=None):
+    """The chapter's user and movie towers, cos_sim, scale(5),
+    square_error_cost, SGD(0.2)."""
+    w = w or RECOMMENDER
+
+    def build(fluid):
+        L = fluid.layers
+        ml = fluid.dataset.movielens
+
+        def feature(name, vocab, emb, fc, table):
+            ids = L.data(name=name, shape=[1], dtype='int64')
+            e = L.embedding(input=ids, size=[vocab, emb], is_sparse=True,
+                            param_attr=table)
+            return L.fc(input=e, size=fc)
+
+        usr = L.fc(input=L.concat(input=[
+            feature('user_id', ml.max_user_id() + 1, 32, 32, 'user_table'),
+            feature('gender_id', 2, 16, 16, 'gender_table'),
+            feature('age_id', len(ml.age_table), 16, 16, 'age_table'),
+            feature('job_id', ml.max_job_id() + 1, 16, 16, 'job_table')],
+            axis=1), size=200, act='tanh')
+        mov_fc = feature('movie_id', ml.max_movie_id() + 1, 32, 32,
+                         'movie_table')
+        cats = L.data(name='category_id', shape=[1], dtype='int64',
+                      lod_level=1)
+        cat_emb = L.embedding(input=cats, size=[len(ml.movie_categories()),
+                                                32], is_sparse=True)
+        cat_hidden = L.sequence_pool(input=cat_emb, pool_type='sum')
+        title = L.data(name='movie_title', shape=[1], dtype='int64',
+                       lod_level=1)
+        title_emb = L.embedding(
+            input=title, size=[len(ml.get_movie_title_dict()), 32],
+            is_sparse=True)
+        title_conv = fluid.nets.sequence_conv_pool(
+            input=title_emb, num_filters=32, filter_size=3, act='tanh',
+            pool_type='sum')
+        mov = L.fc(input=L.concat(input=[mov_fc, cat_hidden, title_conv],
+                                  axis=1), size=200, act='tanh')
+        pred = L.scale(x=L.cos_sim(X=usr, Y=mov), scale=5.0)
+        score = L.data(name='score', shape=[1], dtype='float32')
+        loss = L.mean(L.square_error_cost(input=pred, label=score))
+        fluid.optimizer.SGD(learning_rate=w['lr']).minimize(loss)
+        return ['user_id', 'gender_id', 'age_id', 'job_id', 'movie_id',
+                'category_id', 'movie_title', 'score'], pred, loss
+    return build
+
+
+@phase('sq3: recommender fed by fluid.batch + DataFeeder, captured')
+def recommender_steps(place, sync, w=None):
+    """The chapter at its widths (batch 256, SGD(0.2)) fed from
+    dataset.movielens through DataFeeder (categories and titles are LoD
+    slots): 10 steps over SQ_BATCHES batches twice, captured vs op by
+    op, the loss falling."""
+    import paddle_tpu_torch as fluid
+    w = w or RECOMMENDER
+    samples = fluid.reader.map_readers(lambda s: s[:7] + ([s[7]],),
+                                       fluid.dataset.movielens.train())
+    run = BookRun(place, recommender_build(w), samples, w['batch'])
+    feeds, feed_ms = run.feeds(SQ_BATCHES)
+    params = sq_params(run.main, 'user_table', 'sequence_conv_', 'fc_$')
+    out = _sq_captured(run, 'sq3 recommender', feeds * 2, params, 'sgd',
+                       sync)
+    out.pop('saved')
+    out.update(feed_ms=feed_ms, samples_s=w['batch'] / out['ms'] * 1e3)
+    log('sq3 recommender: %d ops; captured %.3f ms a step (%.1f samples/s), '
+        'op by op %.3f ms; DataFeeder %.3f ms a batch; %d graphs captured'
+        % (out['n_ops'], out['ms'], out['samples_s'], out['eager_ms'],
+           feed_ms, out['stats']['compiled_segments']))
+    run.exe.close()
+    return out
+
+
+def srl_build(w=None):
+    """db_lstm at the chapter's widths: 8 embedded features (the word
+    embedding 'emb' frozen), depth LSTMs of alternating direction with
+    relu candidates and sigmoid gates and cells, a linear-chain CRF whose
+    transition 'crfw' learns at mix_hidden_lr, crf_decoding, SGD under
+    exponential_decay(0.01, 100000, 0.5, staircase)."""
+    w = w or SRL
+
+    def build(fluid):
+        L = fluid.layers
+        word_dict, verb_dict, label_dict = fluid.dataset.conll05.get_dict()
+        feeds = [L.data(name=n, shape=[1], dtype='int64', lod_level=1)
+                 for n in SRL_FEEDS]
+        word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2, verb, mark, target = \
+            feeds
+        embs = [L.embedding(input=x, size=[len(word_dict), w['word_dim']],
+                            param_attr=fluid.ParamAttr(name='emb',
+                                                       trainable=False))
+                for x in (word, ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2)]
+        embs.append(L.embedding(input=verb, size=[len(verb_dict),
+                                                  w['word_dim']],
+                                is_sparse=True, param_attr='vemb'))
+        embs.append(L.embedding(input=mark, size=[2, w['mark_dim']],
+                                is_sparse=True))
+        hidden_0 = L.sums(input=[L.fc(input=e, size=w['hidden'], act='tanh')
+                                 for e in embs])
+        kw = dict(candidate_activation='relu', gate_activation='sigmoid',
+                  cell_activation='sigmoid')
+        lstm_0, _ = L.dynamic_lstm(input=hidden_0, size=w['hidden'], **kw)
+        tmp = [hidden_0, lstm_0]
+        for i in range(1, w['depth']):
+            mix = L.sums(input=[
+                L.fc(input=tmp[0], size=w['hidden'], act='tanh'),
+                L.fc(input=tmp[1], size=w['hidden'], act='tanh')])
+            lstm, _ = L.dynamic_lstm(input=mix, size=w['hidden'],
+                                     is_reverse=(i % 2) == 1, **kw)
+            tmp = [mix, lstm]
+        feature_out = L.sums(input=[
+            L.fc(input=tmp[0], size=len(label_dict), act='tanh'),
+            L.fc(input=tmp[1], size=len(label_dict), act='tanh')])
+        crf_cost = L.linear_chain_crf(
+            input=feature_out, label=target,
+            param_attr=fluid.ParamAttr(name='crfw',
+                                       learning_rate=w['mix_hidden_lr']))
+        loss = L.mean(crf_cost)
+        fluid.optimizer.SGD(learning_rate=L.exponential_decay(
+            learning_rate=0.01, decay_steps=100000, decay_rate=0.5,
+            staircase=True)).minimize(loss)
+        decode = L.crf_decoding(input=feature_out,
+                                param_attr=fluid.ParamAttr(name='crfw'))
+        return SRL_FEEDS, (feature_out, decode), loss
+    return build
+
+
+def path_score(emission, transition, path, length):
+    """A label path's CRF score over its first `length` steps, in fp64:
+    the start row, the emissions, the transitions, the stop row."""
+    e = np.asarray(emission, np.float64)
+    tr = np.asarray(transition, np.float64)
+    s = tr[0, path[0]] + e[0, path[0]] + tr[1, path[length - 1]]
+    for t in range(1, length):
+        s += tr[2 + path[t - 1], path[t]] + e[t, path[t]]
+    return s
+
+
+def best_path_score(emission, transition, length):
+    """The Viterbi maximum over all paths of the first `length` steps,
+    in fp64 on the host."""
+    e = np.asarray(emission, np.float64)
+    tr = np.asarray(transition, np.float64)
+    delta = tr[0] + e[0]
+    for t in range(1, length):
+        delta = (delta[:, None] + tr[2:]).max(0) + e[t]
+    return float((delta + tr[1]).max())
+
+
+def viterbi_margin(emission, transition, lens, got, want, tol=VITERBI_TOL):
+    """Two decoders' paths [B, T] for the same emission [B, T, N] and
+    transition: each sequence's paths equal, or, where they differ, both
+    scoring within tol (relative to max(1, |best|)) of the best path.
+    Returns (sequences equal, the largest shortfall seen)."""
+    equal, worst = 0, 0.0
+    for b, L in enumerate(lens):
+        L = int(L)
+        if np.array_equal(got[b, :L], want[b, :L]):
+            equal += 1
+            continue
+        best = best_path_score(emission[b], transition, L)
+        for path in (got[b], want[b]):
+            gap = (best - path_score(emission[b], transition, path, L)) / \
+                max(1.0, abs(best))
+            worst = max(worst, gap)
+            if gap > tol:
+                raise AssertionError(
+                    'sequence %d: a path scores %.3e below the best '
+                    '(relative), beyond %g' % (b, gap, tol))
+    return equal, worst
+
+
+def cpu_viterbi(emission, transition, lens):
+    """The CPU port's crf_decoding on the same emission and transition."""
+    import paddle_tpu_torch as fluid
+    prog = fluid.Program()
+    block = prog.global_block()
+    ins = {}
+    for slot, arr in (('Emission', emission), ('Transition', transition),
+                      ('SeqLens', lens)):
+        ins[slot] = [block.create_var(name=slot.lower(), shape=arr.shape,
+                                      dtype=arr.dtype.name, is_data=True)]
+    path = block.create_var(name='path')
+    block.append_op(type='crf_decoding', inputs=ins,
+                    outputs={'ViterbiPath': [path]})
+    return np.asarray(fluid.Executor(fluid.CPUPlace()).run(
+        prog, feed={'emission': emission, 'transition': transition,
+                    'seqlens': lens},
+        fetch_list=[path], scope=fluid.Scope())[0])
+
+
+@phase('sq4: label_semantic_roles fed by fluid.batch + DataFeeder, '
+       'captured, the CRF and Viterbi on the card')
+def srl_steps(place, sync, w=None):
+    """The chapter at its widths (word_dim 32, mark_dim 5, hidden 512,
+    depth 8, batch 10), the word embedding loaded from
+    conll05.get_embedding() and frozen: 10 steps over SQ_BATCHES batches
+    twice, captured vs op by op, the CRF loss falling; one step on the
+    card vs the CPU; the card's Viterbi path vs the CPU port's by the
+    margin rule."""
+    import torch
+    import paddle_tpu_torch as fluid
+    w = w or SRL
+    build = srl_build(w)
+    run = BookRun(place, build, fluid.dataset.conll05.test(), w['batch'])
+    emb = fluid.dataset.conll05.get_embedding()
+    run.scope.find_var('emb').copy_(torch.from_numpy(emb))
+    feeds, feed_ms = run.feeds(SQ_BATCHES)
+    params = sq_params(run.main, 'crfw', 'lstm_', 'fc_$')
+    out = _sq_captured(run, 'sq4 label_semantic_roles', feeds * 2, params,
+                       'sgd', sync)
+    if not np.array_equal(run.scope.find_var('emb').cpu().numpy(), emb):
+        raise AssertionError('sq4: the frozen embedding changed')
+    saved = out.pop('saved')
+    out['cpu'] = card_vs_cpu(run, build, saved, feeds[0], params, 'sgd',
+                             'sq4 label_semantic_roles')
+    feature_out, decode = run.pred
+    run.restore(saved)
+    emission, path, transition = run.exe.run(
+        run.main, feed=feeds[0], fetch_list=[feature_out, decode, 'crfw'],
+        scope=run.scope)
+    run.restore(saved)
+    lens = np.asarray(feeds[0]['target'].recursive_sequence_lengths()[0],
+                      'int32')
+    want = cpu_viterbi(emission, transition, lens)
+    out['viterbi'] = viterbi_margin(emission, transition, lens,
+                                    path[..., 0], want[..., 0])
+    log('sq4 label_semantic_roles: %d ops; captured %.3f ms a step, op by op '
+        '%.3f ms; DataFeeder %.3f ms a batch; %d graphs captured; Viterbi: '
+        '%d of %d paths equal to the CPU port\'s, largest shortfall %.3e'
+        % (out['n_ops'], out['ms'], out['eager_ms'], feed_ms,
+           out['stats']['compiled_segments'], out['viterbi'][0], len(lens),
+           out['viterbi'][1]))
+    out['feed_ms'] = feed_ms
+    run.exe.close()
     return out
 
 
@@ -7042,6 +7704,15 @@ def main():
         del bk1['run']
         free_device_memory()
 
+        t_sq = time.perf_counter()
+        sq1 = stacked_lstm_steps(place, sync)
+        free_device_memory()
+        sq2 = sentiment_steps(place, sync)
+        sq3 = recommender_steps(place, sync)
+        sq4 = srl_steps(place, sync)
+        sq_s = time.perf_counter() - t_sq
+        free_device_memory()
+
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
          l_extra) = lc_steps(lc_cfg, place, counters, sync)
         l_diffs, l_arm_ms, l_arm_launches, l_arm_dev = check_lc_arms(
@@ -7231,6 +7902,23 @@ def main():
            mo1['memory_optimize'][1], mo1['memory_optimize'][0],
            mo1['release_memory']['segments'],
            mo1['release_memory']['plain_segments'], mo1['print']['segments']))
+    log('sequences (%.1f s for sq1-sq4): sq1 stacked LSTM (vocab %d, hid %d, '
+        'T %d, batch %d, Adam): step %.3f ms captured (%.1f samples/s, %.1f '
+        'tokens/s), %.3f ms op by op, device %s ms, busy %s, peak %.4f GB, '
+        '%d ops, %d segments, captured vs eager loss |diff| %.3e, card vs '
+        'CPU %.3e; sq2 sentiment conv %.3f ms (%.1f samples/s), stacked '
+        'LSTM %.3f ms (%.1f samples/s), DataFeeder %.3f / %.3f ms a batch; '
+        'sq3 recommender %.3f ms (%.1f samples/s); sq4 label_semantic_roles '
+        '%.3f ms, card vs CPU %.3e, Viterbi %d of %d equal'
+        % (sq_s, SQ1['vocab'], SQ1['hid'], SQ1['T'], SQ1['batch'], sq1['ms'],
+           sq1['samples_s'], sq1['tokens_s'], sq1['eager_ms'],
+           _fmt_ms(sq1['device_ms'] or None), _fmt_busy(sq1['busy']),
+           sq1['peak_gb'], sq1['n_ops'], sq1['segments'], sq1['loss_diff'],
+           sq1['cpu'][0], sq2['conv']['ms'], sq2['conv']['samples_s'],
+           sq2['stacked_lstm']['ms'], sq2['stacked_lstm']['samples_s'],
+           sq2['conv']['feed_ms'], sq2['stacked_lstm']['feed_ms'], sq3['ms'],
+           sq3['samples_s'], sq4['ms'], sq4['cpu'][0], sq4['viterbi'][0],
+           SRL['batch']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

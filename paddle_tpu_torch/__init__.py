@@ -47,7 +47,11 @@ watchdog), with `memory` and `distributed.{statefile,resilience}`; the
 small one-device modules (memory_optimize, Print, average, op, the dot
 drawers) and the dense book chapters with their feeding (fluid.batch,
 DataFeeder, the reader decorators, the synthetic datasets, nets, the
-image models). ROADMAP.md lists the rest.
+image models); and sequences: LoD feeds (LoDTensor, a (padded, lengths)
+tuple, DataFeeder's LoD slots) lowered to a padded tensor with a lengths
+companion, the sequence ops and layers (LSTM, GRU, CRF, sequence
+pooling and convolution, ...), models.stacked_lstm and the sequence
+book chapters. ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint
@@ -62,6 +66,10 @@ from .param_attr import ParamAttr, WeightNormParamAttr
 from . import executor
 from .executor import (Executor, Scope, global_scope, scope_guard,
                        CPUPlace, CUDAPlace, fetch_var, OpExecutionError)
+from . import lod_tensor
+from .lod_tensor import (LoDTensor, create_lod_tensor,
+                         create_random_int_lodtensor)
+Tensor = LoDTensor      # fluid.Tensor is LoDTensor, as in the JAX package
 from . import io
 from . import backward
 from .backward import append_backward, calc_gradient
@@ -107,7 +115,8 @@ __all__ = [
     'name_scope', 'grad_var_name', 'get_var', 'layers', 'initializer',
     'unique_name', 'ParamAttr', 'WeightNormParamAttr',
     'Executor', 'Scope', 'global_scope', 'scope_guard', 'CPUPlace',
-    'CUDAPlace', 'fetch_var', 'OpExecutionError', 'io', 'flags',
+    'CUDAPlace', 'fetch_var', 'OpExecutionError', 'LoDTensor', 'Tensor',
+    'create_lod_tensor', 'create_random_int_lodtensor', 'io', 'flags',
     'set_flags', 'get_flag', 'get_flags', 'inference', 'models',
     'transpiler', 'serving', 'backward', 'append_backward',
     'calc_gradient', 'regularizer', 'clip', 'optimizer', 'contrib',

@@ -1,6 +1,6 @@
 """`fluid.core` for the port (counterpart of paddle_tpu/core.py): the
-places, the Scope, the reader's end-of-pass exception and the device
-queries that user scripts touch through `fluid.core`.
+places, the Scope, LoDTensor, the reader's end-of-pass exception and
+the device queries that user scripts touch through `fluid.core`.
 
 The device queries answer for CUDA, from torch.cuda: the port runs on
 NVIDIA cards, so `is_compiled_with_cuda()` is whether this torch build
@@ -11,6 +11,7 @@ from __future__ import annotations
 import torch
 
 from .executor import CPUPlace, CUDAPlace, Scope  # noqa: F401
+from .lod_tensor import LoDTensor  # noqa: F401
 from .reader.pipeline import EOFException  # noqa: F401
 
 

@@ -1,23 +1,22 @@
-"""DataFeeder (counterpart of paddle_tpu/data_feeder.py:13-78, the dense
-branch): a minibatch (a list of per-sample tuples, fluid.batch's form)
-becomes a feed dict of numpy arrays in each var's declared dtype, which
-Executor.run places on its device. A var with lod_level > 0 raises: the
-port has no LoD tensors yet (ROADMAP.md Queue 1 item 3)."""
+"""DataFeeder (counterpart of paddle_tpu/data_feeder.py:13-78): a
+minibatch (a list of per-sample tuples, fluid.batch's form) becomes a
+feed dict of numpy arrays in each var's declared dtype, which
+Executor.run places on its device. A slot of a lod_level > 0 var takes
+one sequence per sample: its rows are flattened, cast and joined into a
+LoDTensor (create_lod_tensor), which Executor.run pads to the batch's
+longest sequence with a lengths companion."""
 from __future__ import annotations
 
 import numpy as np
 
 from .framework import Variable, default_main_program
+from .lod_tensor import create_lod_tensor
 
 __all__ = ['DataFeeder']
 
 
 class _Converter(object):
     def __init__(self, var):
-        if var.lod_level > 0:
-            raise NotImplementedError(
-                'DataFeeder: %r has lod_level %d; LoD feeds are not ported '
-                'yet (ROADMAP.md Queue 1 item 3)' % (var.name, var.lod_level))
         self.var = var
         self.data = []
 
@@ -26,6 +25,14 @@ class _Converter(object):
 
     def done(self):
         shape = list(self.var.shape or [])
+        if self.var.lod_level > 0:
+            flat = np.concatenate(
+                [d.reshape(len(d), -1) for d in self.data], axis=0)
+            if self.var.dtype is not None and self.var.dtype != 'bfloat16':
+                flat = flat.astype(self.var.dtype)
+            if shape and all(s == 1 for s in shape[1:]):
+                flat = flat.reshape(-1, *[1] * (len(shape) - 1))
+            return create_lod_tensor(flat, [[len(d) for d in self.data]])
         sample_shape = shape[1:] if shape and shape[0] in (-1, None) \
             else shape
         arr = np.stack([d.reshape(sample_shape) for d in self.data])

@@ -80,7 +80,7 @@ from .reader.pipeline import EOFException
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
            'CPUPlace', 'CUDAPlace', 'fetch_var', 'OpExecutionError',
            'torch_dtype', 'PreparedProgram', 'rebound_persistables',
-           'run_time_switches']
+           'run_time_switches', 'pad_lod_to_batch']
 
 
 class OpExecutionError(RuntimeError):
@@ -249,9 +249,72 @@ def fetch_var(name, scope=None, return_numpy=True):
     return _to_numpy(val) if return_numpy else val
 
 
+def pad_lod_to_batch(flat, lod_level0_offsets):
+    """Flat LoD rows [N, ...] and level-0 offsets -> (padded [B, T, ...],
+    lengths [B] int32), T the longest sequence (at least 1). The lengths
+    carry the raggedness, so the device sees static shapes."""
+    offs = list(lod_level0_offsets)
+    lens = np.diff(offs).astype('int32')
+    B, T = len(lens), (int(lens.max()) if len(lens) else 0)
+    padded = np.zeros((B, max(T, 1)) + flat.shape[1:], dtype=flat.dtype)
+    for b in range(B):
+        padded[b, :lens[b]] = flat[offs[b]:offs[b + 1]]
+    return padded, lens
+
+
+def _expand_sequence_feeds(program, feed):
+    """Each feed of a lod_level > 0 var becomes the padded tensor and its
+    `<name>@SEQ_LEN` lengths. A var takes a LoDTensor (one level), a
+    (padded, lengths) tuple, or a padded array of rank declared + 1 (all
+    lengths T). Torch tensors pass as they are."""
+    from .lod_tensor import LoDTensor
+    out = {}
+    for name, value in feed.items():
+        var = program.global_block().vars.get(name)
+        if var is None or var.lod_level == 0:
+            out[name] = value
+            continue
+        lens_name = name + '@SEQ_LEN'
+        if isinstance(value, LoDTensor) and value.lod():
+            lod = value.lod()
+            if len(lod) != 1:
+                raise NotImplementedError(
+                    'only lod_level=1 feeds are supported (got %d levels '
+                    'for %r)' % (len(lod), name))
+            padded, lens = pad_lod_to_batch(value.numpy(), lod[0])
+            out[name] = padded
+            out.setdefault(lens_name, lens)
+        elif isinstance(value, tuple) and len(value) == 2:
+            padded, lens = value
+            out[name] = padded if isinstance(padded, torch.Tensor) \
+                else np.asarray(padded)
+            out.setdefault(lens_name, lens.to(torch.int32)
+                           if isinstance(lens, torch.Tensor)
+                           else np.asarray(lens, dtype='int32'))
+        else:
+            arr = value if isinstance(value, torch.Tensor) \
+                else np.asarray(value)
+            declared = len(var.shape or ())
+            if arr.ndim != declared + 1:
+                raise ValueError(
+                    'feed %r is a lod_level=%d var: feed a LoDTensor, a '
+                    '(padded, lengths) tuple, or a padded array of rank %d '
+                    '(got rank %d)' % (name, var.lod_level, declared + 1,
+                                       arr.ndim))
+            out[name] = arr
+            out.setdefault(lens_name,
+                           np.full((arr.shape[0],), arr.shape[1], 'int32'))
+    return out
+
+
 def _to_numpy(value):
+    """A fetch on the host; a bf16 tensor comes back as fp32 (numpy has
+    no bf16, and every bf16 value is exact in fp32)."""
     if isinstance(value, torch.Tensor):
-        return value.detach().cpu().numpy()
+        value = value.detach()
+        if value.dtype == torch.bfloat16:
+            value = value.float()
+        return value.cpu().numpy()
     return np.asarray(value)
 
 
@@ -786,6 +849,7 @@ class Executor(object):
         fetch_names = [v.name if isinstance(v, Variable) else str(v)
                        for v in fetch_list]
 
+        feed = _expand_sequence_feeds(program, feed)
         local = {name: self._feed_tensor(program, name, value)
                  for name, value in feed.items()}
         prepared = None

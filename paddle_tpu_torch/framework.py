@@ -89,6 +89,10 @@ class Variable(object):
         # taken as the JAX package's Variable takes them: the initializer
         # is not run here (LayerHelper.set_variable_initializer does that)
         self.error_clip = error_clip
+        # a sequence var's [B] int32 lengths companion (set for
+        # lod_level > 0 feeds; layers carry it through the ops that keep
+        # the time axis, LayerHelper._propagate_seq_lens)
+        self.seq_lens = None
 
     def to_string(self):
         flags = []

@@ -34,7 +34,37 @@ class LayerHelper(object):
         return default_startup_program()
 
     def append_op(self, *args, **kwargs):
-        return self.main_program.current_block().append_op(*args, **kwargs)
+        block = self.main_program.current_block()
+        op = block.append_op(*args, **kwargs)
+        self._propagate_seq_lens(block, op)
+        return op
+
+    @staticmethod
+    def _propagate_seq_lens(block, op):
+        """The first input var that carries a lengths companion hands it
+        to every output that has none (elementwise ops, activations, fc
+        keep the time axis); a layer that reduces the time axis
+        (sequence_pool) clears it on its output afterwards."""
+        def var(name):
+            try:
+                return block.var_recursive(name)
+            except KeyError:
+                return None
+
+        lens = None
+        for n in op.input_arg_names():
+            v = var(n)
+            if v is not None and v.seq_lens is not None:
+                lens = v.seq_lens
+                break
+        if lens is None:
+            return
+        for n in op.output_arg_names():
+            v = var(n)
+            if v is not None and v.seq_lens is None and v.name != lens.name:
+                v.seq_lens = lens
+                if v.lod_level == 0:
+                    v.lod_level = 1
 
     # -- inputs ------------------------------------------------------------
     def multiple_input(self, input_param_name='input'):
@@ -171,6 +201,9 @@ class LayerHelper(object):
         if block.has_var(name):
             return block.var(name)
         return self.create_global_variable(name=name, **kwargs)
+
+    def get_parameter(self, name):
+        return self.main_program.global_block().var(name)
 
     # -- intermediate vars -------------------------------------------------
     def create_variable_for_type_inference(self, dtype, stop_gradient=False):

@@ -1,20 +1,22 @@
 """Data-input layers (counterpart of paddle_tpu/layers/io.py: data :14,
-py_reader :46, read_file :73, double_buffer :91)."""
+py_reader :46, read_file :73, double_buffer :91, load :309)."""
 from __future__ import annotations
 
 from .. import unique_name
 from ..framework import default_main_program
 from ..layer_helper import LayerHelper
 
-__all__ = ['data', 'py_reader', 'read_file', 'double_buffer']
+__all__ = ['data', 'py_reader', 'read_file', 'double_buffer', 'load']
 
 
 def data(name, shape, append_batch_size=True, dtype='float32', lod_level=0,
          type=None, stop_gradient=True):
     """Declare a feed variable. With append_batch_size=True a leading -1
-    batch dim is added. Sequence (lod_level > 0) feeds are not ported."""
-    if lod_level:
-        raise NotImplementedError('lod_level > 0 feeds are not ported')
+    batch dim is added. A sequence var (lod_level > 0) is fed as a
+    padded [B, T, ...] tensor, its runtime rank the declared rank plus
+    one (the time axis at position 1), with a [B] int32 lengths
+    companion `<name>@SEQ_LEN` attached as var.seq_lens; Executor.run
+    expands a LoDTensor or a (padded, lengths) feed into the pair."""
     LayerHelper('data', name=name)
     shape = list(shape)
     if append_batch_size:
@@ -22,9 +24,14 @@ def data(name, shape, append_batch_size=True, dtype='float32', lod_level=0,
     main_block = default_main_program().global_block()
     if main_block.has_var(name):
         return main_block.var(name)
-    return main_block.create_var(
+    var = main_block.create_var(
         name=name, shape=shape, dtype=dtype, lod_level=lod_level,
         is_data=True, stop_gradient=stop_gradient)
+    if lod_level > 0:
+        var.seq_lens = main_block.create_var(
+            name=name + '@SEQ_LEN', shape=[-1], dtype='int32',
+            is_data=True, stop_gradient=True)
+    return var
 
 
 def py_reader(capacity, shapes, dtypes, lod_levels=None, name=None,
@@ -74,3 +81,15 @@ def double_buffer(reader, place=None, name=None):
     if place is not None:
         reader.device = place.device
     return reader
+
+
+def load(out, file_path, load_as_fp16=None):
+    """Append a load op that restores `out` from a tensor file written
+    by io.save_vars (a host step)."""
+    helper = LayerHelper('load')
+    attrs = {'file_path': file_path}
+    if load_as_fp16 is not None:
+        attrs['load_as_fp16'] = bool(load_as_fp16)
+    helper.append_op(type='load', inputs={}, outputs={'Out': [out]},
+                     attrs=attrs)
+    return out

@@ -19,9 +19,9 @@ __all__ = [
     'elementwise_max', 'elementwise_min', 'elementwise_pow', 'reduce_sum',
     'reduce_mean', 'reduce_max', 'reduce_min', 'reduce_prod', 'reshape',
     'transpose', 'split', 'topk', 'matmul', 'scale', 'clip', 'clip_by_norm',
-    'one_hot', 'relu', 'log', 'l2_normalize', 'pad', 'label_smooth',
-    'flatten', 'stack', 'expand', 'squeeze', 'unsqueeze', 'gather',
-    'scatter', 'slice', 'shape', 'autoincreased_step_counter',
+    'one_hot', 'lookup_table', 'relu', 'log', 'l2_normalize', 'pad',
+    'label_smooth', 'flatten', 'stack', 'expand', 'squeeze', 'unsqueeze',
+    'gather', 'scatter', 'slice', 'shape', 'autoincreased_step_counter',
     'logical_and', 'logical_or', 'logical_xor', 'logical_not',
     'where_select', 'causal_mask_bias', 'position_embedding',
     'conv2d_transpose', 'smooth_l1', 'huber_loss', 'prelu', 'lrn',
@@ -78,6 +78,9 @@ def embedding(input, size, is_sparse=False, is_distributed=False,
         attrs={'is_sparse': is_sparse, 'is_distributed': is_distributed,
                'padding_idx': padding_idx})
     return tmp
+
+
+lookup_table = embedding
 
 
 def conv2d(input, num_filters, filter_size, stride=1, padding=0, dilation=1,

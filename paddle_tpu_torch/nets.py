@@ -1,9 +1,7 @@
-"""Composite networks (counterpart of paddle_tpu/nets.py:12-118):
-simple_img_conv_pool, img_conv_group, glu and
-scaled_dot_product_attention, built from the same layers in the same
-order, so the Programs and parameter names are the JAX package's.
-sequence_conv_pool needs the sequence layers (ROADMAP.md Queue 1
-item 3)."""
+"""Composite networks (counterpart of paddle_tpu/nets.py):
+simple_img_conv_pool, img_conv_group, glu, scaled_dot_product_attention
+and sequence_conv_pool, built from the same layers in the same order,
+so the Programs and parameter names are the JAX package's."""
 from __future__ import annotations
 
 from . import layers
@@ -122,7 +120,8 @@ def scaled_dot_product_attention(queries, keys, values, num_heads=1,
 
 def sequence_conv_pool(input, num_filters, filter_size, param_attr=None,
                        act='sigmoid', pool_type='max'):
-    """Conv over time, then pool: needs the sequence layers."""
-    raise NotImplementedError(
-        'nets.sequence_conv_pool needs sequence_conv and sequence_pool, '
-        'which the port does not have yet (ROADMAP.md Queue 1 item 3)')
+    """A convolution over time (sequence_conv), then a pool over it."""
+    conv_out = layers.sequence_conv(input=input, num_filters=num_filters,
+                                    filter_size=filter_size,
+                                    param_attr=param_attr, act=act)
+    return layers.sequence_pool(input=conv_out, pool_type=pool_type)

@@ -9,3 +9,4 @@ from . import fused_ops     # noqa: F401
 from . import optimizer_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import misc_ops      # noqa: F401
+from . import sequence_ops  # noqa: F401

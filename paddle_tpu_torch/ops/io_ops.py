@@ -72,7 +72,10 @@ def _save_emit(ctx, op):
 
 def _load_emit(ctx, op):
     with open(op.attr('file_path'), 'rb') as f:
-        ctx.set(op.single_output('Out'), _device(ctx, read_tensor(f)))
+        arr = read_tensor(f)
+    if op.attr('load_as_fp16', False):
+        arr = arr.astype(np.float16)
+    ctx.set(op.single_output('Out'), _device(ctx, arr))
 
 
 def _save_combine_emit(ctx, op):

@@ -27,13 +27,29 @@ from ..registry import (register_op, op_emitter, same_shape_infer,
                         register_vjp_grad, amp_cast)
 
 
-def _broadcast_y(x, y, axis):
+def _declared_rank(ctx, op, slot):
+    """The rank shape inference recorded for an input var, or None."""
+    try:
+        v = ctx.var(op.single_input(slot))
+    except (KeyError, AttributeError):
+        return None
+    return len(v.shape) if v.shape is not None else None
+
+
+def _broadcast_y(x, y, axis, x_declared_rank=None):
     """Paddle's elementwise `axis` contract: Y's shape matches a
     contiguous window of X's shape starting at `axis`; axis == -1 aligns
-    trailing dims."""
+    trailing dims. A sequence var's runtime rank is its declared rank
+    plus one (the padded time axis at position 1), so an axis >= 1 moves
+    one to the right there: decided from the declared rank, never from
+    the runtime shape (a T equal to a bias dim must not change what
+    lines up)."""
     if x.ndim == y.ndim:
         return y
     if axis != -1:
+        if x_declared_rank is not None and x.ndim == x_declared_rank + 1 \
+                and axis >= 1:
+            axis += 1
         new_shape = [1] * axis + list(y.shape) + \
             [1] * (x.ndim - axis - y.ndim)
         if len(new_shape) == x.ndim:
@@ -56,7 +72,8 @@ def _register_elementwise(name, fn):
             elif y.dtype == torch.bfloat16 and x.dtype == torch.float32 \
                     and ctx.is_persistable(op.single_input('X')):
                 x = x.to(torch.bfloat16)
-        res = fn(x, _broadcast_y(x, y, op.attr('axis', -1)))
+        res = fn(x, _broadcast_y(x, y, op.attr('axis', -1),
+                                 _declared_rank(ctx, op, 'X')))
         # X-major contract: Out.shape == X.shape; fold pure-1 padding
         # that broadcasting added back to x's shape
         if res.shape != x.shape and res.numel() == x.numel():
@@ -101,13 +118,23 @@ def dot_operands(ctx, op):
         xnc = op.attr('x_num_col_dims', 1)
         ync = op.attr('y_num_col_dims', 1)
         y2 = y.reshape(int(np.prod(y.shape[:ync])), -1)
-        k = int(np.prod(x.shape[xnc:]))
+        # the contracted trailing dims come from the DECLARED rank: a
+        # sequence x carries a runtime time axis at position 1 ([B, T, D]
+        # declared [-1, D] contracts D alone, also where T is 1)
+        declared = _declared_rank(ctx, op, 'X')
+        if declared is not None and x.ndim == declared + 1 and xnc >= 1:
+            nd = declared - xnc
+        else:
+            nd = x.ndim - xnc
+        lead = x.ndim - nd
+        k = int(np.prod(x.shape[lead:]))
         if k != y2.shape[0]:
-            raise ValueError('mul: cannot align x shape %s (x_num_col_dims '
-                             '%d) with contraction size %d'
-                             % (tuple(x.shape), xnc, y2.shape[0]))
+            raise ValueError('mul: cannot align x shape %s (declared rank '
+                             '%s, x_num_col_dims %d) with contraction size '
+                             '%d' % (tuple(x.shape), declared, xnc,
+                                     y2.shape[0]))
         a, b = amp_cast(ctx, x.reshape(-1, k), y2)
-        return a, b, 1.0, tuple(x.shape[:xnc]) + tuple(y.shape[ync:])
+        return a, b, 1.0, tuple(x.shape[:lead]) + tuple(y.shape[ync:])
     if op.attr('transpose_X', False) and x.ndim > 1:
         x = x.transpose(-1, -2)
     if op.attr('transpose_Y', False) and y.ndim > 1:

@@ -272,14 +272,21 @@ def test_data_feeder_matches_jax():
 
 
 def test_data_feeder_refuses_lod_slots():
-    main = tfluid.Program()
-    with tfluid.program_guard(main, tfluid.Program()):
-        v = tfluid.layers.data(name='w', shape=[1], dtype='int64')
-    v.lod_level = 1
-    feeder = tfluid.DataFeeder(feed_list=[v], place=tfluid.CPUPlace(),
-                               program=main)
-    with pytest.raises(NotImplementedError, match='item 3'):
-        feeder.feed([([1, 2, 3],)])
+    """A LoD slot was refused until the port had LoD feeds; it now gives
+    the JAX package's LoDTensor (tests/test_torch_lod.py holds the
+    rest)."""
+    got = {}
+    for fluid in (jfluid, tfluid):
+        main = fluid.Program()
+        with fluid.program_guard(main, fluid.Program()):
+            v = fluid.layers.data(name='w', shape=[1], dtype='int64')
+        v.lod_level = 1
+        feeder = fluid.DataFeeder(feed_list=[v], place=fluid.CPUPlace(),
+                                  program=main)
+        got[fluid] = feeder.feed([([1, 2, 3],), ([4],)])['w']
+    assert got[tfluid].lod() == got[jfluid].lod() == [[0, 3, 4]]
+    np.testing.assert_array_equal(got[tfluid].numpy(),
+                                  got[jfluid].numpy())
 
 
 # -- ops the chapters reach beside the sweep ----------------------------------------
@@ -402,8 +409,21 @@ def test_nets_match_jax(name):
 
 
 def test_sequence_conv_pool_waits_for_sequences():
-    with pytest.raises(NotImplementedError, match='item 3'):
-        tfluid.nets.sequence_conv_pool(None, 4, 3)
+    """sequence_conv_pool raised until the port had the sequence layers;
+    it now builds the JAX package's Program (its steps:
+    tests/test_torch_book_seq.py)."""
+    progs = []
+    for fluid, unique_name in ((jfluid, junique_name),
+                               (tfluid, tunique_name)):
+        with unique_name.guard():
+            main = fluid.Program()
+            with fluid.program_guard(main, fluid.Program()):
+                x = fluid.layers.data(name='x', shape=[6], dtype='float32',
+                                      lod_level=1)
+                out = fluid.nets.sequence_conv_pool(x, 4, 3)
+        assert tuple(out.shape) == (-1, 4) and out.lod_level == 0
+        progs.append(main.to_string())
+    assert progs[1] == progs[0]
 
 
 MODELS = {

@@ -13,7 +13,10 @@ op type of the training core and refuses an output 1e-4 off, its
 dropout and truncated-normal checks pass on the CPU); the margin rule of
 phases v1-v4 (equal streams, a near tie inside MARGIN_TOL, a divergence
 outside it failing the phase), v1-v6 wired into main(), and v1-v5 run
-end to end on the CPU at a tiny width; and the script's refusal to run
+end to end on the CPU at a tiny width; the sequence phases sq1-sq4 (the
+Viterbi margin rule, the feed signatures, the parameters compared, the
+weights of the update measure, the wiring into main() and an end-to-end
+run on the CPU at a tiny width); and the script's refusal to run
 without a card."""
 import os
 import re
@@ -1740,3 +1743,142 @@ def test_book_phases_run_on_the_cpu_at_a_small_width(tmp_path):
     assert mo1['release_memory']['segments'] > \
         mo1['release_memory']['plain_segments'] == 1
     assert mo1['print']['segments'] >= 2 and mo1['print']['chars'] > 0
+
+
+# -- sq1-sq4: the stacked LSTM and the sequence chapters ----------------------------
+
+def _crf_case(seed, B=3, T=6, N=4):
+    r = np.random.RandomState(seed)
+    return (r.randn(B, T, N).astype('float32'),
+            r.randn(N + 2, N).astype('float32'),
+            np.array([6, 1, 4], 'int32'))
+
+
+def _brute_best(emission, transition, L):
+    import itertools
+    return max(chip_smoke.path_score(emission, transition, p, L)
+               for p in itertools.product(range(emission.shape[1]),
+                                          repeat=L))
+
+
+def test_path_scores_and_the_best_path():
+    em, tr, lens = _crf_case(1)
+    for b, L in enumerate(lens):
+        best = chip_smoke.best_path_score(em[b], tr, L)
+        assert abs(best - _brute_best(em[b], tr, L)) < 1e-9
+    path = chip_smoke.cpu_viterbi(em, tr, lens)[..., 0]
+    assert path.shape == (3, 6) and not path[1, 1:].any()
+    for b, L in enumerate(lens):
+        assert abs(chip_smoke.path_score(em[b], tr, path[b], L) -
+                   chip_smoke.best_path_score(em[b], tr, L)) < 1e-5
+
+
+def test_viterbi_margin_rule():
+    """Equal paths pass; a path that differs from the other but ties the
+    best score passes; one that scores 1e-3 below the best fails."""
+    em, tr, lens = _crf_case(2)
+    want = chip_smoke.cpu_viterbi(em, tr, lens)[..., 0]
+    assert chip_smoke.viterbi_margin(em, tr, lens, want, want.copy()) == \
+        (3, 0.0)
+    # a tie: labels y and z twins (one emission at t = 0, the same
+    # transitions), so a path that swaps them at t = 0 scores the same
+    tied_em, tied_tr = em.copy(), tr.copy()
+    y = int(want[0, 0])
+    z = (y + 1) % em.shape[2]
+    tied_em[0, 0, z] = tied_em[0, 0, y]
+    tied_tr[:, z] = tied_tr[:, y]
+    tied_tr[2 + z] = tied_tr[2 + y]
+    tied = chip_smoke.cpu_viterbi(tied_em, tied_tr, lens)[..., 0]
+    other = tied.copy()
+    other[0, 0] = z if tied[0, 0] == y else y
+    equal, worst = chip_smoke.viterbi_margin(tied_em, tied_tr, lens, other,
+                                             tied)
+    assert equal == 2 and worst < 1e-6
+    # a worse path: its score short of the best beyond the tolerance
+    worse = want.copy()
+    worse[0, 2] = (worse[0, 2] + 1) % em.shape[2]
+    gap = chip_smoke.best_path_score(em[0], tr, 6) - \
+        chip_smoke.path_score(em[0], tr, worse[0], 6)
+    assert gap > 1e-3
+    with pytest.raises(AssertionError, match='below the best'):
+        chip_smoke.viterbi_margin(em, tr, lens, worse, want)
+
+
+def test_feed_signatures_count_padded_shapes():
+    import paddle_tpu_torch as tfluid
+    main = tfluid.Program()
+    with tfluid.program_guard(main, tfluid.Program()):
+        tfluid.layers.data(name='w', shape=[1], dtype='int64', lod_level=1)
+    lod = tfluid.create_lod_tensor
+    feeds = [{'w': lod(np.ones((5, 1), 'int64'), [[2, 3]])},
+             {'w': lod(np.ones((4, 1), 'int64'), [[1, 3]])},
+             {'w': lod(np.ones((4, 1), 'int64'), [[2, 2]])},
+             {'w': (np.ones((2, 3, 1), 'int64'), [3, 1])}]
+    # padded [2, 3, 1] three times, [2, 2, 1] once
+    assert chip_smoke.feed_signatures(main, feeds) == 2
+
+
+def test_sq_parameters_and_update_weights():
+    import torch
+    import paddle_tpu_torch as tfluid
+    run = chip_smoke.BookRun(tfluid.CPUPlace(), chip_smoke.stacked_lstm_build(
+        dict(vocab=50, T=4, batch=2, emb=8, hid=8)), None, 2)
+    params = chip_smoke.sq_params(run.main, 'embedding_', 'lstm_',
+                                  'lstm_$', 'fc_$')
+    assert params[0] == 'embedding_0.w_0' and params[1] == 'lstm_0.w_0'
+    assert params[2].startswith('lstm_2.w') and params[3].startswith('fc_3.w')
+    accs = chip_smoke._sq_accumulators(run, params, 'adam')
+    assert [a.split('_moment1_')[0] for a in accs] == list(params)
+    state = {n: torch.full((2,), -3.0) for n in accs}
+    state.update({n: torch.full((2,), 1.0) for n in params})
+    saved = {n: torch.zeros(2) for n in params}
+    g = chip_smoke.sq_grad_weights(run, params, 'adam', dict(state=state),
+                                   saved)
+    assert all(bool((v == -3.0).all()) for v in g.values())
+    g = chip_smoke.sq_grad_weights(run, params, 'sgd', dict(state=state),
+                                   saved)
+    assert all(bool((v == 1.0).all()) for v in g.values())
+
+
+def test_sequence_phases_are_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = ['book_chapter_steps(', 'stacked_lstm_steps(',
+             'sentiment_steps(', 'recommender_steps(', 'srl_steps(',
+             'lc_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    assert chip_smoke.SQ1 == dict(vocab=30000, T=128, batch=64, emb=512,
+                                  hid=512)
+    for fn, name in ((chip_smoke.stacked_lstm_steps, 'sq1'),
+                     (chip_smoke.sentiment_steps, 'sq2'),
+                     (chip_smoke.recommender_steps, 'sq3'),
+                     (chip_smoke.srl_steps, 'sq4')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(None, None)
+
+
+def test_sequence_phases_run_on_the_cpu_at_a_tiny_width():
+    """sq1-sq4 end to end on the CPU at tiny widths: x1's rule, the loss
+    falling on the second pass, the card-vs-CPU comparison (here the CPU
+    twice: the same bits), the frozen embedding and the Viterbi margin
+    rule."""
+    import paddle_tpu_torch as tfluid
+    place = tfluid.CPUPlace()
+
+    def sync():
+        pass
+    sq1 = chip_smoke.stacked_lstm_steps(
+        place, sync, dict(vocab=100, T=6, batch=4, emb=8, hid=8))
+    assert sq1['bits'] and sq1['cpu'][0] == 0.0
+    assert len(sq1['losses']) == 2 * chip_smoke.SQ_BATCHES
+    sq2 = chip_smoke.sentiment_steps(place, sync, dict(
+        emb=8, hid=8, stacked=3, batch=4, lr=0.05))
+    assert sorted(sq2) == ['conv', 'stacked_lstm']
+    assert all(r['signatures'] >= 1 for r in sq2.values())
+    sq3 = chip_smoke.recommender_steps(place, sync, dict(batch=8, lr=0.2))
+    assert sq3['falls'][1] < sq3['falls'][0]
+    sq4 = chip_smoke.srl_steps(place, sync, dict(
+        word_dim=32, mark_dim=5, hidden=8, depth=2, batch=3,
+        mix_hidden_lr=1e-3))
+    assert sq4['viterbi'] == (3, 0.0) and sq4['cpu'][0] == 0.0

@@ -192,12 +192,22 @@ def _own_configs():
     return cfg
 
 
+# output slots a CONFIGS case declares that the JAX emitter never writes
+# (so neither package can fetch them): cos_sim writes Out alone
+UNWRITTEN_OUTPUTS = {'cos_sim': ('XNorm', 'YNorm')}
+
+
 def _cases():
     registered = tregistry._REGISTRY
     cases = []
     for op_type, cfg in sorted(CONFIGS.items()):
         if op_type in registered:
-            cases.append((op_type, dict(cfg, type=op_type)))
+            cfg = dict(cfg, type=op_type)
+            if op_type in UNWRITTEN_OUTPUTS:
+                cfg['outputs'] = {
+                    slot: names for slot, names in cfg['outputs'].items()
+                    if slot not in UNWRITTEN_OUTPUTS[op_type]}
+            cases.append((op_type, cfg))
     cases += sorted(_own_configs().items())
     return cases
 
@@ -447,6 +457,15 @@ for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
     COVERED_ELSEWHERE[_t] = ('test_torch_optimizers',
                              'test_update_op_matches_jax', 'update parity')
+for _t in ('sequence_pool', 'sequence_softmax', 'sequence_expand',
+           'sequence_conv', 'lstm', 'gru', 'linear_chain_crf',
+           'crf_decoding', 'sequence_concat', 'sequence_mask',
+           'sequence_pad', 'sequence_unpad', 'sequence_erase',
+           'sequence_reshape', 'sequence_slice', 'row_conv',
+           'edit_distance'):
+    COVERED_ELSEWHERE[_t] = (
+        'test_torch_sequence', 'test_op_forward_and_grads_match_jax',
+        'one-op programs over ragged lengths, forward and grads')
 COVERED_ELSEWHERE['remat_block'] = (
     'test_torch_recompute', 'test_adam_steps_match_the_jax_package',
     'LM steps with every block a remat scope, and its grad, vs the JAX '

@@ -1,4 +1,4 @@
-"""Seven public-surface faults of the port against the JAX package,
+"""Nine public-surface faults of the port against the JAX package,
 repaired. Each was a public name or argument of a module the port
 counted as done that raised in the port where the JAX package runs.
 Every test builds the same thing in both packages and compares them;
@@ -19,7 +19,10 @@ ops and attrs and by the draws' moments.
    not_equal;
 7. inference.create_paddle_predictor, registry.has_op, op_infer_shape,
    op_grad_maker, reader.pipeline.leaked_threads and
-   PyReader.decorate_batch_generator.
+   PyReader.decorate_batch_generator;
+8. layers.lookup_table, the alias of layers.embedding;
+9. layers.load, which appends a load op (a host step) restoring a var
+   that io.save_vars wrote.
 """
 import threading
 
@@ -453,3 +456,86 @@ def test_decorate_batch_generator_feeds_the_read_op():
     finally:
         rdr.reset()
     np.testing.assert_array_equal(out, batch * 2)
+
+
+# -- 8: layers.lookup_table ------------------------------------------------------
+
+def _lookup_program(fluid, unique_name):
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            ids = fluid.layers.data(name='ids', shape=[1], dtype='int64')
+            out = fluid.layers.lookup_table(input=ids, size=[11, 6],
+                                            padding_idx=2)
+    return main, startup, out
+
+
+def test_lookup_table_is_embedding_as_in_jax():
+    for fluid in (jfluid, tfluid):
+        assert fluid.layers.lookup_table is fluid.layers.embedding
+        assert 'lookup_table' in fluid.layers.__all__
+    jmain, jstartup, jout = _lookup_program(jfluid, junique_name)
+    tmain, tstartup, tout = _lookup_program(tfluid, tunique_name)
+    assert tmain.to_string() == jmain.to_string()
+    init = _startup_values(jfluid, jstartup)
+    ids = np.array([[0], [2], [10], [2]], 'int64')
+    jscope = jfluid.Scope()
+    for name, val in init.items():
+        jscope.set_var(name, val)
+    want, = jfluid.Executor(jfluid.CPUPlace()).run(
+        jmain, feed={'ids': ids}, fetch_list=[jout], scope=jscope)
+    tscope = tfluid.Scope()
+    tfluid.io.load_numpy_params(tscope, init, tfluid.CPUPlace(),
+                                program=tmain)
+    got, = tfluid.Executor(tfluid.CPUPlace()).run(
+        tmain, feed={'ids': ids}, fetch_list=[tout], scope=tscope)
+    np.testing.assert_array_equal(got, np.asarray(want))
+    assert not got[1].any() and not got[3].any()
+
+
+# -- 9: layers.load --------------------------------------------------------------
+
+def _saved_var(fluid, unique_name, dirname):
+    """Save the startup value of a [3, 4] parameter with io.save_vars."""
+    with unique_name.guard():
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.program_guard(main, startup):
+            x = fluid.layers.data(name='x', shape=[4], dtype='float32')
+            fluid.layers.fc(input=x, size=3, bias_attr=False)
+    scope = fluid.Scope()
+    exe = fluid.Executor(fluid.CPUPlace())
+    exe.run(startup, scope=scope)
+    w = main.global_block().all_parameters()[0]
+    with fluid.scope_guard(scope):
+        fluid.io.save_vars(exe, dirname, main_program=main, vars=[w])
+    return w.name, np.asarray(scope.find_var(w.name))
+
+
+def _loaded(fluid, path, load_as_fp16):
+    main = fluid.Program()
+    with fluid.program_guard(main, fluid.Program()):
+        out = main.global_block().create_var(name='restored',
+                                             dtype='float32')
+        kw = {} if load_as_fp16 is None else {'load_as_fp16': load_as_fp16}
+        ret = fluid.layers.load(out, path, **kw)
+    assert ret is out
+    got, = fluid.Executor(fluid.CPUPlace()).run(
+        main, fetch_list=[out], scope=fluid.Scope())
+    return main, np.asarray(got)
+
+
+@pytest.mark.parametrize('load_as_fp16', [None, True])
+def test_load_layer_restores_a_saved_var_like_jax(tmp_path, load_as_fp16):
+    jname, jval = _saved_var(jfluid, junique_name, str(tmp_path / 'j'))
+    tname, tval = _saved_var(tfluid, tunique_name, str(tmp_path / 't'))
+    assert tname == jname
+    jmain, want = _loaded(jfluid, str(tmp_path / 'j' / jname), load_as_fp16)
+    tmain, got = _loaded(tfluid, str(tmp_path / 't' / tname), load_as_fp16)
+    assert tmain.to_string() == jmain.to_string()
+    assert [op.type for op in tmain.global_block().ops] == ['load']
+    assert got.dtype == want.dtype
+    np.testing.assert_array_equal(got, tval.astype(got.dtype))
+    np.testing.assert_array_equal(want, jval.astype(want.dtype))
+    # each package reads the other's file to the same values
+    _, cross = _loaded(tfluid, str(tmp_path / 'j' / jname), load_as_fp16)
+    np.testing.assert_array_equal(cross, want)
