@@ -308,6 +308,36 @@ last feed:
       crf_decoding path against the CPU port's on the same emission and
       transition by the margin rule (viterbi_margin: equal, or both
       within VITERBI_TOL of the best path's fp64 score).
+Then control flow and the machine_translation chapter (no kernel runs on
+these paths: while, conditional_block, recurrent and beam_search are
+plain PyTorch, the JAX package's plain JAX):
+  (cf1) a While whose trip count is a fed limit (1, 7 and 50 trips, each
+      twice), its body an fc at [64, 512] fp32, a fed table row and an
+      accumulator, on the card (the loop a host step between captured
+      segments, its body captured once and replayed every trip) against
+      the CPU port within CF_TOL: trips + 1 host reads a run, a second
+      run of each trip count captures nothing new, ms a trip replayed
+      and op by op; a Switch writing the
+      persistable cf_lr, an IfElse at [64, 512] and the tensor arrays,
+      the last runs replayed, against the CPU port;
+  (mt1) the chapter's model (MT: dict 30000 = wmt14.N, word and hidden
+      512, batch 64, fp32 Adam(1e-3)) fed from dataset.wmt14 through
+      DataFeeder's LoD branch, sq1's rules: captured vs op by op the same
+      bits, the loss falling, one step vs the CPU port (its gradients
+      and updates within MT_STEP_TOL), the trained log-probabilities vs
+      the CPU port (MT_LOGP_TOL); step ms,
+      samples/s, device busy and ms by kind, DataFeeder ms, peak memory;
+  (mt2) the chapter's unrolled beam decoder (12 steps, batch 64) from
+      mt1's trained scope at beam 1 and 4: card vs CPU port by
+      beam_margin (the same beams at every step and the same sentences,
+      or a near tie; scores within MT_SCORE_TOL), beam 4's best score at
+      least beam 1's in every row (within MT_BEAM_TOL of max(1, |score|):
+      the widths run the head's GEMM at other shapes, so one sentence's
+      score differs in its last bits); ms a decoded batch;
+  (mt3) the contrib TrainingDecoder (a DynamicRNN: recurrent and
+      recurrent_grad over T up to 12, a layers.gru_unit cell, hidden
+      512, batch 64) by sq1's rules, then the BeamSearchDecoder at beam
+      4 from its trained scope against the CPU port by beam_margin.
 ResNet-50 is freed, then the long-context LM (bench.py's
 bench_long_context: vocab 32768, dim 1024, 8 heads, 4 layers, ffn 4096,
 max_len 8192, batch 2, fused LM head with chunk 8192, reader lc_reader,
@@ -3148,6 +3178,20 @@ A4_HELD_ELSEWHERE = {
                                        'shape and moments',
     'print': 'mo1: its text on stderr, first_n, the captured segments',
     'delete_var': 'mo1: release_memory on fit_a_line, the same losses',
+    'nce': 'a4\'s own check: one SGD step is -lr times the grad of the '
+           'sampled loss rebuilt from the same draw',
+    'sampling_id': 'a4\'s own check of the draw\'s distribution',
+    'while': 'cf1: fed trip counts, vs the CPU port',
+    'conditional_block': 'cf1: the Switch, vs the CPU port',
+    'recurrent': 'mt3: the TrainingDecoder\'s steps and grads, vs op by op '
+                 'and the CPU port',
+    'write_to_array': 'cf1: the arrays, vs the CPU port',
+    'read_from_array': 'cf1: the arrays, vs the CPU port',
+    'lod_array_length': 'cf1: the arrays, vs the CPU port',
+    'array_to_lod_tensor': 'tests/test_torch_control_flow.py (CPU): a '
+                           'stack, no other device work',
+    'lod_tensor_to_array': 'tests/test_torch_control_flow.py (CPU): an '
+                           'unbind, no other device work',
 }
 for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
@@ -3370,6 +3414,85 @@ def training_op_cases(rng):
                           'RefLens': np.array([6, 2, 0], i32)},
         {'normalized': True}, {'Out': ['out'], 'SequenceNum': ['ed_num']},
         check=())
+    # the two repaired sequence op types (the JAX package gives them no
+    # grad), the RNN units, CTC, the remaining losses, the rank table and
+    # the beam ops (cf1 and mt1-mt3 run the rest of the slice's new types)
+    add('sequence_first_step', {'X': xs, 'SeqLens': lens}, check=())
+    add('sequence_last_step', {'X': xs, 'SeqLens': lens}, check=())
+    add('lstm_unit', {'X': f(3, 4 * H), 'C_prev': f(3, H)},
+        {'forget_bias': 0.5}, {'C': ['luc'], 'H': ['luh']},
+        check=('in_x', 'in_c_prev'))
+    add('gru_unit', {'Input': f(3, 3 * H), 'HiddenPrev': f(3, H),
+                     'Weight': f(H, 3 * H), 'Bias': f(1, 3 * H)},
+        {'activation': 'tanh', 'gate_activation': 'sigmoid'},
+        {'Hidden': ['hidden'], 'Gate': ['gu_gate'],
+         'ResetHiddenPrev': ['gu_reset']},
+        check=('in_input', 'in_hiddenprev', 'in_weight', 'in_bias'))
+    add('lstmp', {'Input': 0.5 * f(3, 5, 4 * H), 'Weight': 0.5 * f(3, 4 * H),
+                  'ProjWeight': 0.5 * f(H, 3), 'Bias': 0.5 * f(1, 7 * H),
+                  'H0': f(3, H), 'C0': f(3, H), 'SeqLens': lens},
+        {'use_peepholes': True, 'is_reverse': True,
+         'gate_activation': 'sigmoid', 'cell_activation': 'tanh',
+         'candidate_activation': 'tanh', 'proj_activation': 'tanh'},
+        {'Projection': ['proj'], 'Cell': ['cell']},
+        check=('in_input', 'in_weight', 'in_projweight', 'in_bias', 'in_h0',
+               'in_c0'))
+    for blank, norm in ((0, False), (2, True)):
+        labels = rng.randint(0, 4, (4, 3))
+        add('warpctc', {'Logits': f(4, 6, 5),
+                        'Label': np.where(labels >= blank, labels + 1,
+                                          labels).astype(i32),
+                        'SeqLens': np.array([6, 5, 2, 4], i32),
+                        'LabelLens': np.array([3, 2, 1, 0], i32)},
+            {'blank': blank, 'norm_by_times': norm}, {'Loss': ['loss']},
+            check=('in_logits',), name='warpctc_blank%d' % blank)
+    add('ctc_align', {'Input': rng.randint(0, 4, (3, 6)).astype(i32),
+                      'SeqLens': np.array([6, 5, 3], i32)},
+        {'blank': 0, 'padding_value': 0},
+        {'Output': ['out'], 'OutLens': ['ca_lens']}, check=())
+    add('hinge_loss', {'Logits': f(4, 1),
+                       'Labels': (rng.rand(4, 1) < 0.5).astype('float32')},
+        outputs={'Loss': ['loss']}, check=('in_logits',))
+    add('log_loss', {'Predicted': pos(4, 1) * 0.9,
+                     'Labels': (rng.rand(4, 1) < 0.5).astype('float32')},
+        {'epsilon': 1e-4}, {'Loss': ['loss']}, check=('in_predicted',))
+    add('margin_rank_loss', {'X1': f(4, 1), 'X2': f(4, 1),
+                             'Label': np.sign(f(4, 1))},
+        {'margin': 0.1}, {'Out': ['out'], 'Activated': ['mr_act']},
+        check=('in_x1', 'in_x2'))
+    add('squared_l2_distance', {'X': f(3, 4), 'Y': f(1, 4)},
+        outputs={'Out': ['out'], 'sub_result': ['sq_sub']},
+        check=('in_x', 'in_y'))
+    add('maxout', {'X': f(2, 6, 3, 3)}, {'groups': 3})
+    add('hierarchical_sigmoid', {'X': f(4, 5), 'W': f(6, 5), 'Bias': f(6),
+                                 'Label': np.array([[0], [6], [2], [3]],
+                                                   'int64')},
+        {'num_classes': 7}, check=('in_x', 'in_w', 'in_bias'))
+    add('lod_rank_table', {'X': xs, 'SeqLens': lens}, check=())
+    add('reorder_lod_tensor_by_rank',
+        {'X': xs, 'RankTable': np.array([0, 2, 1], i32), 'SeqLens': lens},
+        outputs={'Out': ['out'], 'OutLens': ['ro_lens']})
+    add('max_sequence_len', {'RankTable': lens}, check=())
+    add('is_empty', {'X': x}, check=())
+    logp = np.log(rng.dirichlet(np.ones(7), (3, 4))).astype('float32')
+    logp[1, 2] = logp[1, 1]                       # a tie across beams
+    add('beam_search', {'PreIds': np.array([[1, 0, 2, 3], [4, 5, 6, 1],
+                                            [0, 0, 0, 0]], 'int64'),
+                        'PreScores': np.array([[0., -1e9, -1e9, -1e9],
+                                               [-1., -2., -2., -3.],
+                                               [-1., -1., -2., -2.]],
+                                              'float32'),
+                        'Scores': logp},
+        {'beam_size': 4, 'end_id': 0},
+        {'SelectedIds': ['bs_ids'], 'SelectedScores': ['bs_scores'],
+         'ParentIdx': ['bs_parents']}, check=())
+    add('beam_search_decode', {'Ids': rng.randint(0, 9, (5, 3, 4)).astype(
+        'int64'), 'ParentIdx': rng.randint(0, 4, (5, 3, 4)).astype(i32),
+        'Scores': f(3, 4)},
+        outputs={'SentenceIds': ['bsd_ids'], 'SentenceScores': ['bsd_sc']},
+        check=())
+    add('beam_gather', {'X': f(3, 4, 6),
+                        'Indices': rng.randint(0, 4, (3, 4)).astype(i32)})
     return cases
 
 
@@ -3410,7 +3533,8 @@ def run_op_case(fluid, place, case):
         if check:
             targets = outs.get('Loss') or outs.get('Out') or \
                 outs.get('Output') or outs.get('Hidden') or \
-                outs.get('LogLikelihood') or outs['Y']
+                outs.get('LogLikelihood') or outs.get('Projection') or \
+                outs.get('H') or outs['Y']
             # the cotangents take the outputs' run-time shapes (a sequence
             # op's declared shape can differ: sequence_pool keeps its
             # input's, the CRF's is [-1, 1])
@@ -3581,6 +3705,136 @@ def check_batch_size_like(place):
     return float(uv.mean()), float(gv.std())
 
 
+AMP_TOL = 2e-2               # a4: lstmp under AMP, the card vs the CPU
+
+
+def check_lstmp_amp(place):
+    """lstmp behind an fc under AMP (the bf16 stream; its H0 projection
+    cast to it): the card's projection, cell and grads within AMP_TOL
+    of the CPU port's. Returns the largest difference."""
+    import paddle_tpu_torch as fluid
+    rng = np.random.RandomState(SEED + 12)
+    B, T, H, P = 3, 5, 4, 3
+
+    def build(fluid):
+        L = fluid.layers
+        x = L.data(name='x', shape=[B, T, 6], dtype='float32',
+                   append_batch_size=False)
+        h0 = L.data(name='h0', shape=[B, H], dtype='float32',
+                    append_batch_size=False)
+        lens = L.data(name='lens', shape=[B], dtype='int32',
+                      append_batch_size=False)
+        proj = L.fc(input=x, size=4 * H, num_flatten_dims=2)
+        helper = fluid.layer_helper.LayerHelper('lstmp')
+        w = helper.create_parameter(attr=None, shape=[P, 4 * H],
+                                    dtype='float32')
+        pw = helper.create_parameter(attr=None, shape=[H, P],
+                                     dtype='float32')
+        b = helper.create_parameter(attr=None, shape=[1, 7 * H],
+                                    dtype='float32', is_bias=True)
+        out = [helper.create_variable_for_type_inference('float32')
+               for _ in range(2)]
+        helper.append_op(type='lstmp', inputs={
+            'Input': [proj], 'Weight': [w], 'ProjWeight': [pw], 'Bias': [b],
+            'H0': [h0], 'SeqLens': [lens]},
+            outputs={'Projection': [out[0]], 'Cell': [out[1]]},
+            attrs={'use_peepholes': True, 'is_reverse': False,
+                   'gate_activation': 'sigmoid', 'cell_activation': 'tanh',
+                   'candidate_activation': 'tanh',
+                   'proj_activation': 'tanh'})
+        loss = L.reduce_sum(L.cast(out[0], 'float32'))
+        grads = fluid.backward.calc_gradient(loss, [w, pw])
+        return out + grads
+
+    main, startup, fetch = _cf_program(build)
+    main._use_bf16 = True
+    feed = {'x': rng.randn(B, T, 6).astype('float32'),
+            'h0': rng.randn(B, H).astype('float32'),
+            'lens': np.array([5, 1, 3], 'int32')}
+    got = []
+    for p in (place, fluid.CPUPlace()):
+        scope = fluid.Scope()
+        if got:
+            for n, t in saved.items():
+                scope.set_var(n, t.cpu().clone())
+        else:
+            fluid.Executor(p).run(startup, scope=scope)
+            saved = {v.name: scope.find_var(v.name) for v in
+                     startup.list_vars() if v.persistable}
+        got.append([np.asarray(v, np.float32) for v in fluid.Executor(p).run(
+            main, feed=feed, fetch_list=fetch, scope=scope)])
+    err = max(float(np.abs(g - w).max() / max(1.0, np.abs(w).max()))
+              for g, w in zip(*got))
+    if not err <= AMP_TOL:
+        raise AssertionError('lstmp under AMP: the card is %.3e from the '
+                             'CPU port (tol %g)' % (err, AMP_TOL))
+    return err
+
+
+def check_sampled_ops(place):
+    """nce and sampling_id on the card, by the JAX package's properties:
+    one SGD step through nce equals -lr times the gradient of the
+    sampled loss rebuilt from the same draw (the op's first draw of a
+    generator seeded from the program's random_seed), so its grad saw
+    its forward's negatives; sampling_id's draws follow their
+    distribution."""
+    import torch
+    import torch.nn.functional as F
+    import paddle_tpu_torch as fluid
+    V, D, Bn, S, LR, seed = 1000, 64, 256, 16, 0.1, SEED + 13
+    rng = np.random.RandomState(seed)
+    tv = rng.randint(0, V, (Bn, 1)).astype('int64')
+    xv = rng.randn(Bn, D).astype('float32')
+
+    def build(fluid):
+        L = fluid.layers
+        x = L.data(name='x', shape=[D], dtype='float32')
+        t = L.data(name='t', shape=[1], dtype='int64')
+        loss = L.mean(L.nce(x, t, num_total_classes=V, num_neg_samples=S,
+                            param_attr=_attr(fluid, 'nw'),
+                            bias_attr=_attr(fluid, 'nb')))
+        fluid.optimizer.SGD(LR).minimize(loss)
+        return [loss]
+    main, startup, fetch = _cf_program(build, seed=seed)
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    w0, b0 = scope.find_var('nw').clone(), scope.find_var('nb').clone()
+    fluid.Executor(place).run(main, feed={'x': xv, 't': tv},
+                              fetch_list=fetch, scope=scope)
+    dev = w0.device
+    negs = torch.randint(0, V, (Bn, S), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(
+                             seed))
+    w = w0.clone().requires_grad_()
+    lab = torch.from_numpy(tv.reshape(-1)).to(dev)
+    x = torch.from_numpy(xv).to(dev)
+    log_nq = float(np.log(np.float32(S / V)))
+    s_pos = (x * w[lab]).sum(-1) + b0[lab] - log_nq
+    s_neg = (x[:, None] * w[negs]).sum(-1) + b0[negs] - log_nq
+    ref = (F.softplus(-s_pos) + F.softplus(s_neg).sum(1)).mean()
+    gw, = torch.autograd.grad(ref, w)
+    err = float((scope.find_var('nw') - (w0 - LR * gw)).abs().max())
+    if not err <= 1e-6 + 1e-4 * float(w0.abs().max()):
+        raise AssertionError('nce on the card: the step is %.3e from -lr x '
+                             'the sampled loss\'s grad' % err)
+
+    def sample(fluid):
+        return [fluid.layers.sampling_id(fluid.layers.data(
+            name='p', shape=[3], dtype='float32'))]
+    main, _, fetch = _cf_program(sample, seed=seed)
+    probs = np.tile(np.array([[0.05, 0.9, 0.05]], 'float32'), (4096, 1))
+    exe = fluid.Executor(place)
+    draws = [exe.run(main, feed={'p': probs}, fetch_list=fetch)[0]
+             for _ in range(3)]
+    share = float((draws[-1] == 1).mean())
+    if not (0.88 < share < 0.92 and (draws[0] != draws[-1]).any()):
+        raise AssertionError('sampling_id on the card: share %.4f of the '
+                             '0.9 class, or the replays drew alike' % share)
+    log('a4 sampled ops: nce step within %.3e of -lr x the grad of its '
+        'sampled loss; sampling_id share %.4f of the 0.9 class over 4096 '
+        'rows (the third run a replay)' % (err, share))
+
+
 @phase('a4: the training core\'s op types on the card vs on CPU copies, '
        'forward and grads')
 def check_training_ops(place):
@@ -3598,13 +3852,16 @@ def check_training_ops(place):
     shares = check_dropout(place)
     mean_std = check_truncated_normal(place)
     check_batch_size_like(place)
+    amp_err = check_lstmp_amp(place)
+    check_sampled_ops(place)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     log('%d op cases on the card vs CPU copies (%d op types), worst error '
         'over the tolerance (rtol %g, atol %g): %s; dropout kept shares %s '
-        '(1 - p = %.2f); truncated normal mean %.4f, std %.4f'
+        '(1 - p = %.2f); truncated normal mean %.4f, std %.4f; lstmp under '
+        'AMP within %.3e of the CPU (tol %g)'
         % (len(cases), len({c[1] for c in cases}), OP_RTOL, OP_ATOL,
            ', '.join('%s %.3f' % kv for kv in top), json.dumps(shares),
-           1.0 - DROPOUT_P, mean_std[0], mean_std[1]))
+           1.0 - DROPOUT_P, mean_std[0], mean_std[1], amp_err, AMP_TOL))
     return max(worst.values())
 
 
@@ -7098,18 +7355,23 @@ def _sq_captured(run, label, feeds, params, optimizer, sync, profile=False):
                 falls=falls, n_ops=len(run.main.global_block().ops))
 
 
-def card_vs_cpu(run, build, saved, feed, params, optimizer, label):
+def card_vs_cpu(run, build, saved, feed, params, optimizer, label,
+                update_tol=TRAIN_UPDATE_TOL, grad_tol=None):
     """One step of the port on the card and one on the CPU from the same
     parameters and feed: the losses within SQ_CPU_RTOL relative, the
-    updates within TRAIN_UPDATE_TOL by x1's weighted measure (g from the
-    card's step). Returns (relative loss difference, updates)."""
+    updates within update_tol by x1's weighted measure (g from the
+    card's step) and, with grad_tol, each parameter's gradient (Adam's
+    first moment after its first step, from zero) within grad_tol by
+    sum |g_card - g_cpu| / sum |g_cpu|. Returns (relative loss
+    difference, updates)."""
     import paddle_tpu_torch as fluid
     cpu = BookRun(fluid.CPUPlace(), build, None, 1)
     cpu.restore({n: t.cpu() for n, t in saved.items()})
     names = list(params) + _sq_accumulators(cpu, params, optimizer)
     run.restore(saved)
     card_loss = run.step(feed, eager=True)
-    card = dict(state={n: run.scope.find_var(n).cpu() for n in names})
+    card = dict(state={n: run.scope.find_var(n).cpu().clone()
+                       for n in names})
     cpu_loss = cpu.step(feed)
     cpu_state = {n: cpu.scope.find_var(n).clone() for n in names}
     run.restore(saved)
@@ -7119,14 +7381,23 @@ def card_vs_cpu(run, build, saved, feed, params, optimizer, label):
         {n: (cpu_state[n] - host_saved[n]).float() for n in params},
         {n: (card['state'][n] - host_saved[n]).float() for n in params},
         grads, params)
+    gdiff = {}
+    if grad_tol is not None:
+        for n, m in zip(params, _sq_accumulators(run, params, optimizer)):
+            a, b = card['state'][m].double(), cpu_state[m].double()
+            gdiff[n] = ((a - b).abs().sum() /
+                        b.abs().sum().clamp_min(1e-30)).item()
     rel = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-30)
     log('%s: one step on the card vs the CPU: loss %.7f vs %.7f (relative '
-        '%.3e, tol %g); updates %s (tol %g)'
+        '%.3e, tol %g); updates %s (tol %g)%s'
         % (label, card_loss, cpu_loss, rel, SQ_CPU_RTOL,
-           ', '.join('%s %.3e' % kv for kv in upd.items()),
-           TRAIN_UPDATE_TOL))
+           ', '.join('%s %.3e' % kv for kv in upd.items()), update_tol,
+           '; gradients sum |diff| / sum |g|: %s (tol %g)'
+           % (', '.join('%s %.3e' % kv for kv in gdiff.items()), grad_tol)
+           if gdiff else ''))
     if not (np.isfinite(card_loss) and rel <= SQ_CPU_RTOL and
-            all(v <= TRAIN_UPDATE_TOL for v in upd.values())):
+            all(v <= update_tol for v in upd.values()) and
+            all(v <= grad_tol for v in gdiff.values())):
         raise AssertionError('%s: the card and the CPU disagree' % label)
     return rel, upd
 
@@ -7500,6 +7771,768 @@ def srl_steps(place, sync, w=None):
     return out
 
 
+# -- cf1, mt1-mt3: control flow, machine_translation and the contrib decoders
+
+# cf1: a While whose trip count is a fed limit, its body an fc over
+# [batch, width] fp32 and an accumulator
+CF1 = dict(batch=64, width=512, trips=(1, 7, 50))
+CF_TOL = 1e-5                # cf1: card vs CPU port, relative to max(1, |x|)
+# machine_translation (tests/test_book_machine_translation.py's model) at
+# the reference's dict size (dataset.wmt14.N) and sq1's width; wmt14's
+# own lengths (3-11 source tokens, 4-12 target tokens with <s> or <e>)
+MT = dict(dict_size=30000, word=512, hidden=512, batch=64, lr=1e-3,
+          max_len=12, beam=4)
+MT_SCORE_TOL = 1e-4          # mt2, mt3: beam scores, card vs CPU (relative)
+MT_LOGP_TOL = 1e-5           # mt1, mt3: log-probabilities, card vs CPU (abs)
+MT_STEP_TOL = 1e-4           # mt1, mt3: one step's updates and gradients
+MT_BEAM_TOL = 1e-5           # mt2: beam 4's best score vs beam 1's (relative)
+MT_START, MT_END = 0, 1      # wmt14's <s> and <e>
+
+
+def _attr(fluid, name):
+    return fluid.ParamAttr(name=name)
+
+
+def cf_loop_build(w):
+    """cf1's loop program: h = x, then limit times h = tanh(fc(h) +
+    table[i]) and acc += h; a reduce_sum after the loop (a second device
+    segment). Each trip adds a row of the fed table, drawn at std 1, so
+    every trip's h is O(1) and its own: a trip that replays stale inputs
+    or reads the wrong row is O(1) off in acc and h, on the fiftieth trip
+    as on the first. The fc's weights are drawn with std 0.25 /
+    sqrt(width), so the map contracts (spectral norm ~0.5) and the
+    card's and the CPU's rounding do not grow over the trips; with the
+    default Xavier init it about doubles a trip (3.4e-5 apart after 7
+    trips)."""
+    def build(fluid):
+        L = fluid.layers
+        x = L.data(name='x', shape=[w['width']], dtype='float32')
+        table = L.data(name='table', shape=[w['width']], dtype='float32')
+        limit = L.data(name='limit', shape=[1], dtype='int64',
+                       append_batch_size=False)
+        i = L.fill_constant(shape=[1], dtype='int64', value=0)
+        h = L.scale(x, scale=1.0)
+        acc = L.fill_constant_batch_size_like(
+            x, shape=[-1, w['width']], dtype='float32', value=0.0)
+        cond = L.less_than(x=i, y=limit)
+        loop = L.While(cond=cond)
+        with loop.block():
+            row = L.reshape(L.gather(table, i), shape=[w['width']])
+            pre = L.fc(input=h, size=w['width'],
+                       param_attr=fluid.ParamAttr(
+                           name='cf_w', initializer=fluid.initializer.Normal(
+                               0.0, 0.25 / w['width'] ** 0.5)),
+                       bias_attr=_attr(fluid, 'cf_b'))
+            new_h = L.tanh(L.elementwise_add(pre, row))
+            L.assign(new_h, output=h)
+            L.assign(L.elementwise_add(acc, new_h), output=acc)
+            L.increment(x=i, value=1, in_place=True)
+            L.less_than(x=i, y=limit, cond=cond)
+        return [acc, h, i, L.reduce_sum(acc, dim=1)]
+    return build
+
+
+def cf_select_build(w):
+    """cf1's select program: a Switch piecewise schedule writing the
+    persistable 'cf_lr', an IfElse over [batch, width] (an fc where a
+    row's sum is positive, -x elsewhere) and the tensor arrays."""
+    def build(fluid):
+        L = fluid.layers
+        step = L.data(name='step', shape=[1], dtype='float32',
+                      append_batch_size=False)
+        x = L.data(name='x', shape=[w['width']], dtype='float32')
+        lr = L.create_global_var(shape=[1], value=0.0, dtype='float32',
+                                 persistable=True, name='cf_lr')
+        bounds = [L.fill_constant(shape=[1], dtype='float32', value=v)
+                  for v in (10.0, 20.0)]
+        with L.Switch() as switch:
+            for b, v in zip(bounds, (1.0, 0.5)):
+                with switch.case(L.less_than(step, b)):
+                    L.assign(L.fill_constant(shape=[1], dtype='float32',
+                                             value=v), output=lr)
+            with switch.default():
+                L.assign(L.fill_constant(shape=[1], dtype='float32',
+                                         value=0.1), output=lr)
+        zero = L.fill_constant(shape=[1], dtype='float32', value=0.0)
+        ie = L.IfElse(L.greater_than(L.reduce_sum(x, dim=1, keep_dim=True),
+                                     zero))
+        with ie.true_block():
+            ie.output(L.fc(input=x, size=w['width'], act='tanh',
+                           param_attr=_attr(fluid, 'cf_ie_w'),
+                           bias_attr=_attr(fluid, 'cf_ie_b')))
+        with ie.false_block():
+            ie.output(L.scale(x, scale=-1.0))
+        sel, = ie()
+        i0 = L.fill_constant(shape=[1], dtype='int64', value=0)
+        i1 = L.fill_constant(shape=[1], dtype='int64', value=1)
+        arr = L.array_write(sel, i0)
+        L.array_write(L.scale(sel, scale=2.0), i1, array=arr)
+        return [lr, sel, L.array_read(arr, i1), L.array_length(arr)]
+    return build
+
+
+def _cf_program(build, seed=SEED):
+    import paddle_tpu_torch as fluid
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        fetch = build(fluid)
+    return main, startup, fetch
+
+
+def _cf_close(label, got, want, tol=CF_TOL, scales=None):
+    """Each output within tol of the CPU's, relative to max(1, |x|) or,
+    where `scales` gives one, to max(1, scale): a sum is held relative
+    to the sum of its terms' magnitudes, which its rounding follows
+    (a row sum that cancels to near 0 keeps the rounding of its terms).
+    Returns the largest such difference."""
+    worst = 0.0
+    scales = scales or [None] * len(got)
+    for k, (g, w, scale) in enumerate(zip(got, want, scales)):
+        g, w = np.asarray(g, np.float64), np.asarray(w, np.float64)
+        if g.shape != w.shape:
+            raise AssertionError('%s: output %d: the card gave shape %s, the '
+                                 'CPU port %s' % (label, k, g.shape, w.shape))
+        ref = np.abs(w) if scale is None else np.asarray(scale, np.float64)
+        d = float((np.abs(g - w) / np.maximum(1.0, ref)).max()) \
+            if g.size else 0.0
+        if not d <= tol:
+            raise AssertionError('%s: output %d: the card and the CPU port '
+                                 'disagree (%.3e relative to max(1, %s))'
+                                 % (label, k, d, '|x|' if scale is None
+                                    else 'the magnitudes summed'))
+        worst = max(worst, d)
+    return worst
+
+
+@phase('cf1: control flow on the card (a While with a fed trip count, '
+       'Switch, IfElse, tensor arrays) vs the CPU port')
+def control_flow_steps(place, sync, w=None):
+    """cf1_loop: the While at CF1's shape for each trip count of
+    w['trips'], twice each, on the card (segments captured, the body
+    captured once a signature and replayed each trip) and on the CPU
+    port from the same parameters: outputs within CF_TOL, the host reads
+    trips + 1 a run, a second run of each trip count captures nothing
+    new; ms a replayed trip, and ms a trip op by op (the body eager).
+    cf1_select: the Switch, IfElse and arrays
+    program, three runs (warm-up, capture, replay) at steps 5, 15, 25:
+    the persistable cf_lr written under replay, outputs within CF_TOL."""
+    import paddle_tpu_torch as fluid
+    w = w or CF1
+    rng = np.random.RandomState(SEED + 40)
+    out = {}
+    main, startup, fetch = _cf_program(cf_loop_build(w))
+    scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    for n in ('cf_w', 'cf_b'):
+        cpu_scope.set_var(n, scope.find_var(n).cpu().clone())
+    exe, cpu = fluid.Executor(place), fluid.Executor(fluid.CPUPlace())
+    x = rng.randn(w['batch'], w['width']).astype('float32')
+    table = rng.randn(max(w['trips']), w['width']).astype('float32')
+    n_seg = device_segments(main)
+    runs, err = [], 0.0
+    for rep in range(2):
+        for trips in w['trips']:
+            feed = {'x': x, 'table': table,
+                    'limit': np.array([trips], 'int64')}
+            before = exe.loop_stats()
+            compiled = exe.jit_cache_stats()['compiled_segments']
+            sync()
+            t0 = time.perf_counter()
+            got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+            ms = (time.perf_counter() - t0) * 1e3
+            after = exe.loop_stats()
+            new = exe.jit_cache_stats()['compiled_segments'] - compiled
+            want = cpu.run(main, feed=feed, fetch_list=fetch,
+                           scope=cpu_scope)
+            # the row sums: relative to each row's sum of |acc|
+            err = max(err, _cf_close(
+                'cf1 loop, %d trips' % trips, got, want,
+                scales=[None] * 3 + [np.abs(np.asarray(want[0])).sum(1)]))
+            reads = after['host_reads'] - before['host_reads']
+            if int(np.asarray(got[2])[0]) != trips or reads != trips + 1:
+                raise AssertionError('cf1: %d trips ran, %d host reads'
+                                     % (int(np.asarray(got[2])[0]), reads))
+            if rep and new:
+                raise AssertionError('cf1: a second run of %d trips '
+                                     'captured %d graphs' % (trips, new))
+            runs.append(dict(trips=trips, ms=ms, reads=reads, captured=new))
+    stats = exe.jit_cache_stats()
+    # the segments before and after the loop, and the body once
+    if place.device.type == 'cuda' and \
+            stats['compiled_segments'] != n_seg + 1:
+        raise AssertionError('cf1: %d graphs captured, expected %d segments '
+                             '+ 1 body' % (stats['compiled_segments'], n_seg))
+    long_trips, short_trips = max(w['trips']), min(w['trips'])
+    feeds = {t: {'x': x, 'table': table, 'limit': np.array([t], 'int64')}
+             for t in (long_trips, short_trips)}
+
+    def trip_ms(eager):
+        # the long run less the short, over the trips between them
+        timed = {}
+        for t in (long_trips, short_trips, long_trips, short_trips):
+            sync()
+            t0 = time.perf_counter()
+            exe.run(main, feed=feeds[t], fetch_list=fetch, scope=scope,
+                    use_program_cache=not eager)
+            sync()
+            timed.setdefault(t, []).append((time.perf_counter() - t0) * 1e3)
+        return (min(timed[long_trips]) - min(timed[short_trips])) / \
+            (long_trips - short_trips)
+    replay_ms, eager_ms = trip_ms(False), trip_ms(True)
+    log('cf1 loop (fc [%d, %d] fp32 + a table row + accumulator a trip): '
+        '%s; %d device segments + 1 body, jit_cache_stats %s, loop_stats '
+        '%s; %.4f ms a replayed trip, %.4f ms a trip op by op; card vs CPU '
+        '%.3e relative to max(1, |x|) (tol %g)'
+        % (w['batch'], w['width'],
+           '; '.join('%d trips %.3f ms, %d host reads, %d captured'
+                     % (r['trips'], r['ms'], r['reads'], r['captured'])
+                     for r in runs), n_seg, json.dumps(stats),
+           json.dumps(exe.loop_stats()), replay_ms, eager_ms, err, CF_TOL))
+    out['loop'] = dict(runs=runs, stats=stats, trip_ms=replay_ms,
+                       eager_trip_ms=eager_ms, err=err, segments=n_seg)
+
+    main, startup, fetch = _cf_program(cf_select_build(w))
+    scope, cpu_scope = fluid.Scope(), fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    for v in startup.list_vars():
+        if v.persistable and scope.find_var(v.name) is not None:
+            cpu_scope.set_var(v.name, scope.find_var(v.name).cpu().clone())
+    exe = fluid.Executor(place)
+    err = 0.0
+    for step, lr in ((5.0, 1.0), (15.0, 0.5), (25.0, 0.1), (3.0, 1.0)):
+        feed = {'step': np.array([step], 'float32'),
+                'x': rng.randn(w['batch'], w['width']).astype('float32')}
+        got = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+        want = cpu.run(main, feed=feed, fetch_list=fetch, scope=cpu_scope)
+        err = max(err, _cf_close('cf1 select, step %g' % step, got, want))
+        held = float(scope.find_var('cf_lr').cpu()[0])
+        if np.asarray(got[0])[0] != np.float32(lr) or \
+                np.float32(held) != np.float32(lr):
+            raise AssertionError('cf1: the Switch gave %g (the scope holds '
+                                 '%g) at step %g, want %g'
+                                 % (float(np.asarray(got[0])[0]), held, step,
+                                    lr))
+    sel_stats = exe.jit_cache_stats()
+    log('cf1 select (Switch writing the persistable cf_lr, IfElse over [%d, '
+        '%d], arrays): 4 runs, the last two replayed, cf_lr 1.0 / 0.5 / 0.1 '
+        '/ 1.0 in the scope; jit_cache_stats %s; card vs CPU %.3e relative '
+        'to max(1, |x|)' % (w['batch'], w['width'], json.dumps(sel_stats),
+                            err))
+    out['select'] = dict(stats=sel_stats, err=err)
+    return out
+
+
+def mt_encoder(fluid, src, w):
+    """The chapter's encoder: embedding -> fc -> dynamic_gru, with its
+    shared parameter names."""
+    L = fluid.layers
+    emb = L.embedding(input=src, size=[w['dict_size'], w['word']],
+                      param_attr=_attr(fluid, 'src_emb_w'))
+    fc1 = L.fc(input=emb, size=w['hidden'] * 3,
+               param_attr=_attr(fluid, 'enc_fc_w'),
+               bias_attr=_attr(fluid, 'enc_fc_b'))
+    return L.dynamic_gru(input=fc1, size=w['hidden'],
+                         param_attr=_attr(fluid, 'enc_gru_w'),
+                         bias_attr=_attr(fluid, 'enc_gru_b'))
+
+
+def mt_head(fluid, emb, encoded, w, flatten):
+    """The chapter's attention decoder at one position: the query, the
+    attention over the encoder's states, the tanh state and the softmax
+    over the target dict."""
+    L = fluid.layers
+    kw = dict(num_flatten_dims=2) if flatten else {}
+    q = L.fc(input=emb, size=w['hidden'], param_attr=_attr(fluid, 'dec_q_w'),
+             bias_attr=_attr(fluid, 'dec_q_b'), **kw)
+    att = L.softmax(L.matmul(q, encoded, transpose_y=True))
+    ctx = L.matmul(att, encoded)
+    hidden = L.fc(input=L.concat([emb, ctx], axis=-1), size=w['hidden'],
+                  act='tanh', param_attr=_attr(fluid, 'dec_h_w'),
+                  bias_attr=_attr(fluid, 'dec_h_b'), **kw)
+    return L.fc(input=hidden, size=w['dict_size'], act='softmax',
+                param_attr=_attr(fluid, 'dec_o_w'),
+                bias_attr=_attr(fluid, 'dec_o_b'), **kw)
+
+
+MT_FEEDS = ['src_word_id', 'target_language_word',
+            'target_language_next_word']
+
+
+def _mt_data(fluid):
+    return [fluid.layers.data(name=n, shape=[1], dtype='int64', lod_level=1)
+            for n in MT_FEEDS]
+
+
+def _mt_loss(fluid, probs, nxt):
+    """The chapter's loss: cross entropy, averaged over each target's
+    length, then over the batch."""
+    L = fluid.layers
+    cost = L.cross_entropy(input=probs, label=nxt)
+    cost.seq_lens = nxt.seq_lens
+    cost.lod_level = 1
+    return L.mean(L.sequence_pool(cost, 'average'))
+
+
+def mt_train_build(w):
+    def build(fluid):
+        src, trg, nxt = _mt_data(fluid)
+        encoded = mt_encoder(fluid, src, w)
+        emb = fluid.layers.embedding(input=trg,
+                                     size=[w['dict_size'], w['word']],
+                                     param_attr=_attr(fluid, 'trg_emb_w'))
+        predict = mt_head(fluid, emb, encoded, w, flatten=False)
+        loss = _mt_loss(fluid, predict, nxt)
+        fluid.optimizer.Adam(learning_rate=w['lr']).minimize(loss)
+        return MT_FEEDS, predict, loss
+    return build
+
+
+def mt_decode_build(w, beam):
+    """tests/test_book_machine_translation.py's _decode_program: max_len
+    unrolled steps of the head over the beams, beam_search (end_id 0, as
+    there), beam_search_decode."""
+    def build(fluid):
+        L = fluid.layers
+        src = L.data(name='src_word_id', shape=[1], dtype='int64',
+                     lod_level=1)
+        ids = L.data(name='init_ids', shape=[beam], dtype='int64')
+        scores = L.data(name='init_scores', shape=[beam], dtype='float32')
+        encoded = mt_encoder(fluid, src, w)
+        step_ids, step_parents = [], []
+        for _ in range(w['max_len']):
+            emb = L.embedding(input=L.unsqueeze(ids, axes=[2]),
+                              size=[w['dict_size'], w['word']],
+                              param_attr=_attr(fluid, 'trg_emb_w'))
+            probs = mt_head(fluid, emb, encoded, w, flatten=True)
+            logp = L.log(L.scale(probs, scale=1.0, bias=1e-9))
+            ids, scores, parents = L.beam_search(ids, scores, logp,
+                                                 beam_size=beam, end_id=0)
+            step_ids.append(ids)
+            step_parents.append(parents)
+        return list(L.beam_search_decode(L.stack(step_ids, axis=0),
+                                         L.stack(step_parents, axis=0),
+                                         scores))
+    return build
+
+
+def beam_steps(main):
+    """The outputs of every beam_search op of `main`, in program order:
+    each step's selected ids, selected scores and parents, to fetch
+    beside the sentences for beam_margin."""
+    return [op.single_output(slot) for op in main.global_block().ops
+            if op.type == 'beam_search'
+            for slot in ('SelectedIds', 'SelectedScores', 'ParentIdx')]
+
+
+def _beam_decode(fetched):
+    """(sentence ids, sentence scores, the steps) from a run that fetched
+    the sentences, their scores and then beam_steps()."""
+    rest = [np.asarray(v) for v in fetched[2:]]
+    return (np.asarray(fetched[0]), np.asarray(fetched[1]),
+            [tuple(rest[k:k + 3]) for k in range(0, len(rest), 3)])
+
+
+def beam_margin(label, got, want, tol=MT_SCORE_TOL):
+    """The margin rule for two beam decodes of one batch. got and want
+    are (sentence ids [B, beam, T], sentence scores [B, beam], the steps:
+    each beam_search op's (selected ids, selected scores, parents), each
+    [B, beam]). A row agrees if both decodes take the same beams (ids and
+    parents) at every step, their selected scores within tol (relative
+    to max(1, |score|)), and then give the same sentences, their scores
+    within tol: the backtrack and the state shuffle saw the same lattice.
+    Where a row's beams first differ at a step, the scores the two took
+    there must lie within tol of each other, rank by rank (a near tie
+    that another summation order breaks the other way), and the row is
+    compared no further, as margin_rule stops at a stream's first
+    difference; at most a quarter of the rows may end so. Returns (rows
+    that agree, rows ending at a near tie, the largest relative score
+    difference); raises AssertionError otherwise."""
+    def rel(a, b):
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        return float((np.abs(a - b) / np.maximum(1.0, np.abs(b))).max())
+    g_ids, g_scores, g_steps = got
+    w_ids, w_scores, w_steps = want
+    if len(g_steps) != len(w_steps) or not w_steps:
+        raise AssertionError('%s: %d and %d beam steps'
+                             % (label, len(g_steps), len(w_steps)))
+    batch = len(w_scores)
+    equal, ties, worst = 0, [], 0.0
+    for r in range(batch):
+        for t, (g, w) in enumerate(zip(g_steps, w_steps)):
+            d = rel(g[1][r], w[1][r])
+            if not d <= tol:
+                raise AssertionError(
+                    '%s: row %d, step %d: the selected beam scores %.3e '
+                    'apart (relative), over %g' % (label, r, t, d, tol))
+            worst = max(worst, d)
+            if not (np.array_equal(g[0][r], w[0][r]) and
+                    np.array_equal(g[2][r], w[2][r])):
+                ties.append((r, t))
+                break
+        else:
+            d = rel(g_scores[r], w_scores[r])
+            if not (d <= tol and np.array_equal(g_ids[r], w_ids[r])):
+                raise AssertionError(
+                    '%s: row %d takes the same beams at every step, but '
+                    'its sentences differ (ids equal: %s, scores %.3e '
+                    'apart)' % (label, r, np.array_equal(g_ids[r], w_ids[r]),
+                                d))
+            worst = max(worst, d)
+            equal += 1
+    if len(ties) > batch // 4:
+        raise AssertionError('%s: %d of %d rows end at a near tie (rows and '
+                             'steps %s)' % (label, len(ties), batch, ties))
+    return equal, len(ties), worst
+
+
+def _decode_feed(feed, beam, batch):
+    scores = np.full((batch, beam), -1e9, 'float32')
+    scores[:, 0] = 0.0
+    return {'src_word_id': feed['src_word_id'],
+            'init_ids': np.full((batch, beam), MT_END, 'int64'),
+            'init_scores': scores}
+
+
+def _cpu_scope_of(run, names):
+    import paddle_tpu_torch as fluid
+    scope = fluid.Scope()
+    for n in names:
+        scope.set_var(n, run.scope.find_var(n).cpu().clone())
+    return scope
+
+
+def mt_forward_vs_cpu(run, feed, label, lengths):
+    """The log-probabilities of run's prediction on the card and on the
+    CPU port from run's present parameters (the test clone of its
+    program: the forward alone), over each target's own positions
+    (`lengths`, [B]): within MT_LOGP_TOL absolute. Their spread over the
+    dict (the standard deviation, averaged over the positions) must be
+    at least 100 x the tolerance, or the check could not tell the model
+    from a constant. Returns (max |diff|, the spread)."""
+    import paddle_tpu_torch as fluid
+    test = run.main.clone(for_test=True)
+    name = run.pred.name
+    got = fluid.Executor(run.place).run(test, feed=feed, fetch_list=[name],
+                                        scope=run.scope,
+                                        use_program_cache=False)[0]
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        test, feed=feed, fetch_list=[name],
+        scope=_cpu_scope_of(run, _param_names(run)))[0]
+    got, want = (np.log(np.maximum(np.asarray(v, np.float64), 1e-30))
+                 for v in (got, want))
+    lengths = np.asarray(lengths).reshape(-1)
+    if got.shape != want.shape or got.ndim != 3 or \
+            got.shape[0] != len(lengths):
+        raise AssertionError('%s: predictions of shapes %s and %s'
+                             % (label, got.shape, want.shape))
+    valid = np.arange(got.shape[1])[None, :] < lengths[:, None]
+    diff = float(np.abs(got - want)[valid].max())
+    spread = float(want[valid].std(axis=-1).mean())
+    log('%s: log-probabilities on the card vs the CPU from the trained '
+        'parameters, over %d target positions: max |diff| %.3e (tol %g); '
+        'their spread over the dict %.4f' % (label, int(valid.sum()), diff,
+                                             MT_LOGP_TOL, spread))
+    if not (diff <= MT_LOGP_TOL and spread >= 100 * MT_LOGP_TOL):
+        raise AssertionError('%s: the card\'s and the CPU\'s predictions '
+                             'disagree (%.3e), or spread %.3e over the dict'
+                             % (label, diff, spread))
+    return diff, spread
+
+
+def _param_names(run):
+    """run's persistables but the optimizer's accumulators."""
+    return [n for n in run.persistables
+            if '_moment' not in n and '_pow_acc' not in n]
+
+
+def _timed_runs(exe, main, feed, fetch, scope, sync, n=3):
+    """Two runs (the warm-up and the capture), then the ms of each of n
+    replays; returns the last run's fetches and the mean ms."""
+    for _ in range(2):
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        out = exe.run(main, feed=feed, fetch_list=fetch, scope=scope)
+    sync()
+    return out, (time.perf_counter() - t0) / n * 1e3
+
+
+@phase('mt1: machine_translation (dict 30000, word and hidden 512, batch 64, '
+       'Adam) fed by fluid.batch + DataFeeder, captured')
+def mt_steps(place, sync, w=None):
+    """The chapter's encoder (embedding -> fc -> dynamic_gru) and its
+    attention decoder under Adam, fp32, fed from dataset.wmt14 through
+    DataFeeder's LoD branch: 10 steps over SQ_BATCHES batches twice,
+    captured vs op by op (the same bits), the loss falling; step ms,
+    samples/s, device busy and ms by kind, graphs captured, DataFeeder ms
+    a batch, peak memory; one step on the card vs the CPU port (loss
+    within SQ_CPU_RTOL, updates and gradients within MT_STEP_TOL); after
+    the 10 steps, the log-probabilities on the card vs the CPU port
+    (mt_forward_vs_cpu). Leaves the run trained over the 10 steps for
+    mt2."""
+    import paddle_tpu_torch as fluid
+    w = w or MT
+    build = mt_train_build(w)
+    run = BookRun(place, build, fluid.dataset.wmt14.train(w['dict_size']),
+                  w['batch'])
+    feeds, feed_ms = run.feeds(SQ_BATCHES)
+    params = ('src_emb_w', 'enc_gru_w', 'dec_h_w', 'dec_o_w')
+    out = _sq_captured(run, 'mt1 machine_translation', feeds * 2, params,
+                       'adam', sync, profile=True)
+    saved = out.pop('saved')
+    out['cpu'] = card_vs_cpu(run, build, saved, feeds[0], params, 'adam',
+                             'mt1 machine_translation',
+                             update_tol=MT_STEP_TOL, grad_tol=MT_STEP_TOL)
+    run.restore(saved)
+    for f in feeds * 2:
+        run.step(f)
+    out['logp'] = mt_forward_vs_cpu(
+        run, feeds[0], 'mt1 machine_translation',
+        feeds[0]['target_language_word'].recursive_sequence_lengths()[0])
+    lens = [max(f['target_language_word'].recursive_sequence_lengths()[0])
+            for f in feeds]
+    out.update(feed_ms=feed_ms, samples_s=w['batch'] / out['ms'] * 1e3,
+               run=run, feeds=feeds, longest=lens)
+    log('mt1 machine_translation (dict %d, word %d, hidden %d, batch %d, '
+        'fp32 Adam): %d ops, %d device segments; captured %.3f ms a step '
+        '(%.1f samples/s), op by op %.3f ms; device %s ms, busy %s; '
+        'DataFeeder %.3f ms a batch; padded target lengths %s; %d graphs '
+        'captured; peak %.4f GB allocated over the run\'s start'
+        % (w['dict_size'], w['word'], w['hidden'], w['batch'], out['n_ops'],
+           out['segments'], out['ms'], out['samples_s'], out['eager_ms'],
+           _fmt_ms(out['device_ms'] or None), _fmt_busy(out['busy']),
+           feed_ms, lens, out['stats']['compiled_segments'],
+           out['peak_gb']))
+    return out
+
+
+@phase('mt2: machine_translation beam decoding from mt1\'s scope (beam 1 '
+       'and 4, 12 steps, batch 64), captured')
+def mt_decode(mt1, place, sync, w=None):
+    """tests/test_book_machine_translation.py's unrolled beam decoder
+    from mt1's trained parameters on its first batch's sources, at beam 1
+    and beam 4: on the card (the third run on are replays, timed) and on
+    the CPU port: the beams by beam_margin (every step's beams and the
+    sentences; scores within MT_SCORE_TOL),
+    and beam 4's best score at least beam 1's in every row (within
+    MT_BEAM_TOL relative). Logs ms a decoded batch."""
+    import paddle_tpu_torch as fluid
+    w = w or MT
+    run, feed = mt1['run'], mt1['feeds'][0]
+    batch = len(feed['src_word_id'].recursive_sequence_lengths()[0])
+    cpu_scope = _cpu_scope_of(run, _param_names(run))
+    out, best = {}, {}
+    for beam in (1, w['beam']):
+        main, _, fetch = _cf_program(mt_decode_build(w, beam))
+        dfeed = _decode_feed(feed, beam, batch)
+        exe = fluid.Executor(place)
+        fetch = fetch + beam_steps(main)
+        got, ms = _timed_runs(exe, main, dfeed, fetch, run.scope, sync)
+        got = _beam_decode(got)
+        want = _beam_decode(fluid.Executor(fluid.CPUPlace()).run(
+            main, feed=dfeed, fetch_list=fetch, scope=cpu_scope))
+        equal, ties, rel = beam_margin('mt2 beam %d' % beam, got, want)
+        ids, scores, _ = got
+        best[beam] = (scores[:, 0], ids[:, 0])
+        out[beam] = dict(ms=ms, equal=equal, ties=ties, rel=rel,
+                         compiled=exe.jit_cache_stats()['compiled_segments'])
+        log('mt2 beam %d: %.3f ms a decoded batch (%d sentences x %d steps, '
+            'replayed), %d graphs captured; %d of %d rows take the CPU '
+            'port\'s beams at every step and give its sentences, %d end at '
+            'a near tie; scores within %.3e (relative)'
+            % (beam, ms, batch, w['max_len'], out[beam]['compiled'], equal,
+               batch, ties, rel))
+        exe.close()
+    # relative: the two widths run the head's GEMM at other shapes, so
+    # one sentence's score differs between them in its last bits
+    (greedy, gids), (wide, wids) = best[1], best[w['beam']]
+    short = (greedy - wide) / np.maximum(1.0, np.abs(greedy))
+    if not (short <= MT_BEAM_TOL).all():
+        raise AssertionError('mt2: beam %d\'s best score falls %.3e '
+                             '(relative) below greedy\'s in a row'
+                             % (w['beam'], float(short.max())))
+    same = int((gids == wids).all(-1).sum())
+    log('mt2: beam %d\'s best score at least beam 1\'s in every row (mean '
+        'gain %.4f, largest relative shortfall %.3e); %d of %d rows the '
+        'same best sentence' % (w['beam'], float((wide - greedy).mean()),
+                                float(short.max()), same, len(greedy)))
+    out['same_best'] = same
+    run.exe.close()
+    return out
+
+
+def mt3_cell(fluid, context, w, beam=None):
+    """A StateCell whose updater steps layers.gru_unit: the word's
+    projection (no bias) into the three gates, the previous hidden in;
+    over [B, beam, ...] in the beam decoder, row by row."""
+    dec = fluid.contrib.decoder.beam_search_decoder
+    L = fluid.layers
+    H = w['hidden']
+    cell = dec.StateCell(inputs={'x': None},
+                         states={'h': dec.InitState(init=context,
+                                                    need_reorder=True)},
+                         out_state='h')
+
+    @cell.state_updater
+    def updater(cell):
+        word, prev_h = cell.get_input('x'), cell.get_state('h')
+        flat = len(word.shape) - 1
+        gates = L.fc(input=word, size=3 * H, num_flatten_dims=flat,
+                     param_attr=_attr(fluid, 'mt3_wx'), bias_attr=False)
+        if flat > 1:
+            gates = L.reshape(gates, shape=[-1, 3 * H])
+            prev_h = L.reshape(prev_h, shape=[-1, H])
+        h, _, _ = L.gru_unit(gates, prev_h, 3 * H,
+                             param_attr=_attr(fluid, 'mt3_wh'),
+                             bias_attr=_attr(fluid, 'mt3_b'))
+        if flat > 1:
+            h = L.reshape(h, shape=[-1, beam, H])
+        cell.set_state('h', h)
+    return cell
+
+
+MT3_FEEDS = ['src_word_id', 'trg', 'trg_next', 'trg_len']
+
+
+def mt3_reader(w):
+    """wmt14 samples with the targets padded to max_len and their
+    lengths: the TrainingDecoder steps over a fixed T (a sequence var's
+    declared shape has no time axis to step over)."""
+    import paddle_tpu_torch as fluid
+    T = w['max_len']
+
+    def pad(seq):
+        return list(seq[:T]) + [0] * (T - len(seq[:T]))
+    return fluid.reader.map_readers(
+        lambda s: (s[0], pad(s[1]), [[t] for t in pad(s[2])],
+                   [min(len(s[1]), T)]),
+        fluid.dataset.wmt14.train(w['dict_size']))
+
+
+def mt3_train_build(w):
+    """The contrib TrainingDecoder (a DynamicRNN: a recurrent op and its
+    grad, rows masked past their target length) over the padded target,
+    its initial state the encoder's last state, the step's softmax over
+    the target dict; the chapter's loss, Adam."""
+    def build(fluid):
+        L = fluid.layers
+        dec = fluid.contrib.decoder.beam_search_decoder
+        T = w['max_len']
+        src = L.data(name='src_word_id', shape=[1], dtype='int64',
+                     lod_level=1)
+        trg = L.data(name='trg', shape=[T], dtype='int64')
+        nxt = L.data(name='trg_next', shape=[T, 1], dtype='int64')
+        lens = L.data(name='trg_len', shape=[1], dtype='int32')
+        context = L.sequence_last_step(mt_encoder(fluid, src, w))
+        cell = mt3_cell(fluid, context, w)
+        emb = L.embedding(input=L.unsqueeze(trg, axes=[2]),
+                          size=[w['dict_size'], w['word']],
+                          param_attr=_attr(fluid, 'trg_emb_w'))
+        emb.seq_lens = lens
+        decoder = dec.TrainingDecoder(cell)
+        with decoder.block():
+            cur = decoder.step_input(emb)
+            decoder.state_cell.compute_state(inputs={'x': cur})
+            score = L.fc(input=decoder.state_cell.get_state('h'),
+                         size=w['dict_size'], act='softmax',
+                         param_attr=_attr(fluid, 'mt3_decoder_out_w'),
+                         bias_attr=_attr(fluid, 'mt3_decoder_out_b'))
+            decoder.state_cell.update_states()
+            decoder.output(score)
+        probs = decoder()
+        nxt.seq_lens = lens
+        loss = _mt_loss(fluid, probs, nxt)
+        fluid.optimizer.Adam(learning_rate=w['lr']).minimize(loss)
+        return MT3_FEEDS, probs, loss
+    return build
+
+
+def mt3_decode_build(w):
+    """The contrib BeamSearchDecoder over mt3's cell and parameters:
+    max_len steps at w['beam'], from <s>, ending on <e>."""
+    def build(fluid):
+        L = fluid.layers
+        dec = fluid.contrib.decoder.beam_search_decoder
+        beam = w['beam']
+        src = L.data(name='src_word_id', shape=[1], dtype='int64',
+                     lod_level=1)
+        context = L.sequence_last_step(mt_encoder(fluid, src, w))
+        cell = mt3_cell(fluid, context, w, beam=beam)
+        init_ids = L.data(name='init_ids', shape=[beam], dtype='int64')
+        init_scores = L.data(name='init_scores', shape=[beam],
+                             dtype='float32')
+        bs = dec.BeamSearchDecoder(
+            state_cell=cell, init_ids=init_ids, init_scores=init_scores,
+            target_dict_dim=w['dict_size'], word_dim=w['word'],
+            max_len=w['max_len'], beam_size=beam, end_id=MT_END,
+            sparse_emb=False, name='mt3_decoder')
+        bs._embedding_param = 'trg_emb_w'
+        bs.decode()
+        return list(bs())
+    return build
+
+
+@phase('mt3: the contrib TrainingDecoder (recurrent, gru_unit) and '
+       'BeamSearchDecoder at machine_translation\'s widths, captured')
+def mt_contrib_steps(place, sync, w=None):
+    """mt3_train_build over dataset.wmt14 through DataFeeder at MT's
+    widths (T up to 12, hidden 512, batch 64): 10 steps captured vs op by
+    op (the same bits, recurrent and recurrent_grad in the step), the
+    loss falling; one step vs the CPU port (as mt1's) and, after the 10
+    steps, the log-probabilities vs the CPU port; then the
+    BeamSearchDecoder at beam w['beam'] from the trained scope, card vs
+    CPU port by beam_margin, its ms a decoded batch."""
+    import paddle_tpu_torch as fluid
+    w = w or MT
+    build = mt3_train_build(w)
+    run = BookRun(place, build, mt3_reader(w), w['batch'])
+    types = [op.type for op in run.main.global_block().ops]
+    if 'recurrent' not in types or 'recurrent_grad' not in types:
+        raise AssertionError('mt3: the step has no recurrent op or grad')
+    feeds, feed_ms = run.feeds(SQ_BATCHES)
+    params = ('src_emb_w', 'mt3_wh', 'mt3_wx', 'mt3_decoder_out_w')
+    out = _sq_captured(run, 'mt3 TrainingDecoder', feeds * 2, params, 'adam',
+                       sync)
+    saved = out.pop('saved')
+    out['cpu'] = card_vs_cpu(run, build, saved, feeds[0], params, 'adam',
+                             'mt3 TrainingDecoder',
+                             update_tol=MT_STEP_TOL, grad_tol=MT_STEP_TOL)
+    run.restore(saved)
+    for f in feeds * 2:
+        run.step(f)
+    out['logp'] = mt_forward_vs_cpu(run, feeds[0], 'mt3 TrainingDecoder',
+                                    feeds[0]['trg_len'])
+    main, _, fetch = _cf_program(mt3_decode_build(w))
+    fetch = fetch + beam_steps(main)
+    batch = len(feeds[0]['src_word_id'].recursive_sequence_lengths()[0])
+    dfeed = _decode_feed(feeds[0], w['beam'], batch)
+    dfeed['init_ids'][:] = MT_START
+    exe = fluid.Executor(place)
+    got, dec_ms = _timed_runs(exe, main, dfeed, fetch, run.scope, sync)
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed=dfeed, fetch_list=fetch,
+        scope=_cpu_scope_of(run, _param_names(run)))
+    out['beams'] = beam_margin('mt3 BeamSearchDecoder', _beam_decode(got),
+                               _beam_decode(want))
+    out.update(feed_ms=feed_ms, samples_s=w['batch'] / out['ms'] * 1e3,
+               dec_ms=dec_ms)
+    log('mt3 TrainingDecoder (gru_unit cell, hidden %d, batch %d, T up to '
+        '%d): %d ops; captured %.3f ms a step (%.1f samples/s), op by op '
+        '%.3f ms; %d graphs captured; BeamSearchDecoder beam %d: %.3f ms a '
+        'decoded batch, %d of %d rows take the CPU port\'s beams at every '
+        'step and give its sentences, %d end at a near tie; scores within '
+        '%.3e (relative)'
+        % (w['hidden'], w['batch'], w['max_len'], out['n_ops'], out['ms'],
+           out['samples_s'], out['eager_ms'],
+           out['stats']['compiled_segments'], w['beam'], dec_ms,
+           out['beams'][0], batch, out['beams'][1], out['beams'][2]))
+    exe.close()
+    run.exe.close()
+    return out
+
+
 _SCRATCH_DIRS = []
 
 
@@ -7713,6 +8746,16 @@ def main():
         sq_s = time.perf_counter() - t_sq
         free_device_memory()
 
+        t_mt = time.perf_counter()
+        cf1 = control_flow_steps(place, sync)
+        mt1 = mt_steps(place, sync)
+        mt2 = mt_decode(mt1, place, sync)
+        del mt1['run']
+        free_device_memory()
+        mt3 = mt_contrib_steps(place, sync)
+        mt_s = time.perf_counter() - t_mt
+        free_device_memory()
+
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
          l_extra) = lc_steps(lc_cfg, place, counters, sync)
         l_diffs, l_arm_ms, l_arm_launches, l_arm_dev = check_lc_arms(
@@ -7919,6 +8962,33 @@ def main():
            sq2['conv']['feed_ms'], sq2['stacked_lstm']['feed_ms'], sq3['ms'],
            sq3['samples_s'], sq4['ms'], sq4['cpu'][0], sq4['viterbi'][0],
            SRL['batch']))
+    log('control flow and machine_translation (%.1f s for cf1 and mt1-mt3): '
+        'cf1 While %s trips %s host reads, %.4f ms a replayed trip (%.4f op '
+        'by op), %d segments + 1 body captured, card vs CPU %.3e; '
+        'Switch/IfElse/arrays '
+        'card vs CPU %.3e; mt1 (dict %d, word %d, hidden %d, batch %d, Adam) '
+        'step %.3f ms captured (%.1f samples/s), %.3f ms op by op, device %s '
+        'ms, busy %s, peak %.4f GB, DataFeeder %.3f ms a batch, captured vs '
+        'eager the same bits %s, card vs CPU loss %.3e, log-probabilities '
+        '%.3e; mt2 beam 1 %.3f ms, beam %d %.3f ms a decoded batch (%d '
+        'steps), rows equal to the CPU %d / %d (near ties %d / %d); mt3 '
+        'TrainingDecoder step %.3f ms captured, %.3f ms op by op, the same '
+        'bits %s, card vs CPU loss %.3e, log-probabilities %.3e, '
+        'BeamSearchDecoder %.3f ms a decoded batch, rows equal %d (near ties '
+        '%d)'
+        % (mt_s, '/'.join(str(r['trips']) for r in cf1['loop']['runs'][:3]),
+           '/'.join(str(r['reads']) for r in cf1['loop']['runs'][:3]),
+           cf1['loop']['trip_ms'], cf1['loop']['eager_trip_ms'],
+           cf1['loop']['segments'], cf1['loop']['err'],
+           cf1['select']['err'], MT['dict_size'], MT['word'], MT['hidden'],
+           MT['batch'], mt1['ms'], mt1['samples_s'], mt1['eager_ms'],
+           _fmt_ms(mt1['device_ms'] or None), _fmt_busy(mt1['busy']),
+           mt1['peak_gb'], mt1['feed_ms'], mt1['bits'], mt1['cpu'][0],
+           mt1['logp'][0], mt2[1]['ms'], MT['beam'], mt2[MT['beam']]['ms'],
+           MT['max_len'], mt2[1]['equal'], mt2[MT['beam']]['equal'],
+           mt2[1]['ties'], mt2[MT['beam']]['ties'], mt3['ms'],
+           mt3['eager_ms'], mt3['bits'], mt3['cpu'][0], mt3['logp'][0],
+           mt3['dec_ms'], mt3['beams'][0], mt3['beams'][1]))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

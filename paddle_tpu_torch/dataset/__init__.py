@@ -2,8 +2,8 @@
 downloaded: each module serves deterministic synthetic data with the
 sample format, dtypes, vocab objects and reader-creator API of the
 original, the same samples as the JAX package's module (common.py's
-synthetic_rng). The other dataset modules wait for the items of
-ROADMAP.md Queue 1 that need them (control flow, detection)."""
+synthetic_rng). The other dataset modules wait for the item of
+ROADMAP.md Queue 1 that needs them (detection)."""
 from . import common  # noqa: F401
 from . import uci_housing  # noqa: F401
 from . import mnist  # noqa: F401
@@ -13,7 +13,9 @@ from . import imikolov  # noqa: F401
 from . import movielens  # noqa: F401
 from . import conll05  # noqa: F401
 from . import sentiment  # noqa: F401
+from . import wmt14  # noqa: F401
+from . import wmt16  # noqa: F401
 from . import uci_housing as housing  # noqa: F401
 
 __all__ = ['common', 'uci_housing', 'mnist', 'cifar', 'imdb', 'imikolov',
-           'movielens', 'conll05', 'sentiment']
+           'movielens', 'conll05', 'sentiment', 'wmt14', 'wmt16']

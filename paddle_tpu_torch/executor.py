@@ -332,12 +332,15 @@ class EmitContext(object):
 
     `capturing` is True while the ops run into a CUDA graph: an emitter
     must then launch work only, never read a value back to the host.
+    `graphs` is True where this run's device work is captured and
+    replayed (the card's default path): a while op's host step then
+    captures its body (Executor.run_loop).
     A sub-block's context (sub_context) writes only its own values,
     never the scope, and draws from its own generator (`rng`)."""
 
     __slots__ = ('local', 'scope', 'block', 'device', 'amp', 'is_test',
-                 'records', 'overrides', 'wanted', 'capturing', 'rng',
-                 'generators', 'op_generators', 'writes_scope',
+                 'records', 'overrides', 'wanted', 'capturing', 'graphs',
+                 'rng', 'generators', 'op_generators', 'writes_scope',
                  '_executor', '_program')
 
     def __init__(self, executor, program, block, scope, local):
@@ -355,6 +358,7 @@ class EmitContext(object):
         self.overrides = None
         self.wanted = frozenset()
         self.capturing = False
+        self.graphs = False
         self.rng = None
         # generator -> its op's seed (0: not re-seeded): every generator
         # the current segment draws from, registered with its graph
@@ -457,9 +461,10 @@ def _recorded_keys(block):
     """Record keys of the forward ops that the block's grad ops consume."""
     keys = set()
     for op in block.ops:
-        if op.type.endswith('_grad') and op.has_attr('__fwd_outputs__'):
-            keys.add(registry.record_key(op.type[:-len('_grad')],
-                                         op.attr('__fwd_outputs__')))
+        if op.type.endswith('_grad'):
+            key = registry.grad_record_key(op)
+            if key is not None:
+                keys.add(key)
     return frozenset(keys)
 
 
@@ -562,9 +567,37 @@ class _DeviceSegment(object):
 
     def signature(self, local):
         """(name, shape, dtype) of each run-local input."""
-        return tuple((n, tuple(getattr(local[n], 'shape', ())),
-                      getattr(local[n], 'dtype', None))
+        return tuple((n,) + value_signature(local[n])
                      for n in self.in_names if n in local)
+
+
+def value_signature(v):
+    """(shape, dtype) of a tensor; of a tensor array (a list), its
+    elements' signatures."""
+    if isinstance(v, list):
+        return ('array', tuple(value_signature(x) for x in v))
+    return (tuple(getattr(v, 'shape', ())), getattr(v, 'dtype', None))
+
+
+def _clone_value(v):
+    return [_clone_value(x) for x in v] if isinstance(v, list) else v.clone()
+
+
+def _copy_value(dst, src):
+    """Copy src into the static tensor(s) dst (a no-op where src is dst)."""
+    if isinstance(dst, list):
+        for d, x in zip(dst, src):
+            _copy_value(d, x)
+    elif dst is not src:
+        dst.copy_(src)
+
+
+def _tensors_of(values):
+    for v in values:
+        if isinstance(v, list):
+            yield from _tensors_of(v)
+        elif isinstance(v, torch.Tensor):
+            yield v
 
 
 class _Graph(object):
@@ -590,6 +623,49 @@ class _Graph(object):
         self.scope_out = scope_out
         self.outs = outs
         self.counts = counts
+
+
+class _LoopBody(object):
+    """A while op's body on the captured path (Executor.run_loop): the
+    trips run of each input signature, the graph of each, and the
+    generators its random ops draw from (-> an op's seed)."""
+
+    __slots__ = ('runs', 'graphs', 'generators', 'op_generators')
+
+    def __init__(self):
+        self.runs = {}
+        self.graphs = {}
+        self.generators = {}
+        self.op_generators = {}
+
+
+class _BodyGraph(object):
+    """A while body captured as a CUDA graph: its static carried values
+    (which each replay updates in place), its static external inputs and
+    the kernel launches of one trip."""
+
+    __slots__ = ('graph', 'carried', 'ext', 'counts')
+
+    def __init__(self, graph, carried, ext, counts):
+        self.graph = graph
+        self.carried = carried
+        self.ext = ext
+        self.counts = counts
+
+
+def _copy_back(name, static, new):
+    """A trip's new value of a carried var into its static tensor(s),
+    inside the body's graph; the var keeps its shape and dtype."""
+    if isinstance(static, list):
+        if not isinstance(new, list) or len(new) != len(static):
+            raise OpExecutionError('while-loop array %r changed its length '
+                                   'in the body' % name)
+        for s_, x in zip(static, new):
+            _copy_back(name, s_, x)
+        return
+    _same_layout(name, new, static, 'while-loop var')
+    if new is not static:
+        static.copy_(new)
 
 
 class _HostStep(object):
@@ -754,6 +830,14 @@ class Executor(object):
         self._compile_count = 0
         self._segment_hits = 0
         self._segment_misses = 0
+        # the while bodies of run_loop, and the memory pool of their
+        # graphs (apart from the segments': a body replays inside a run
+        # after segments captured later than it)
+        self._loops = {}
+        self._loop_pool = None
+        # every while op's trips and condition reads (trips + 1 a loop)
+        self._loop_trips = 0
+        self._loop_reads = 0
 
     def jit_cache_stats(self):
         """{'prepared_programs', 'compiled_segments', 'segment_hits',
@@ -774,6 +858,14 @@ class Executor(object):
         jit_cache_stats() go on."""
         self._prepared_cache.clear()
         self._pool = None
+        self._loops.clear()
+        self._loop_pool = None
+
+    def loop_stats(self):
+        """{'trips', 'host_reads'}: the while trips this executor ran and
+        the condition values they read back to the host (each loop reads
+        one more than its trips)."""
+        return {'trips': self._loop_trips, 'host_reads': self._loop_reads}
 
     def _generator(self, program):
         seed = program.random_seed
@@ -891,6 +983,7 @@ class Executor(object):
         ctx.wanted = prepared.wanted
         drop = prepared.drop
         check_nan_inf = get_flag('check_nan_inf')
+        ctx.graphs = captured and not check_nan_inf
         with torch.no_grad():
             for step_idx, step in enumerate(prepared.steps):
                 if isinstance(step, _HostStep):
@@ -987,9 +1080,8 @@ class Executor(object):
         current = torch.cuda.current_stream(self.device)
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
-            for n in step.in_names:
-                t = ctx.local.get(n)
-                if isinstance(t, torch.Tensor) and t.device.type == 'cuda':
+            for t in _tensors_of(ctx.local.get(n) for n in step.in_names):
+                if t.device.type == 'cuda':
                     t.record_stream(stream)
             self._run_ops(step, ctx, drop)
         current.wait_stream(stream)
@@ -1003,7 +1095,7 @@ class Executor(object):
         static_in = {}
         for n in step.in_names:
             if n in local:
-                static_in[n] = local[n] = local[n].clone()
+                static_in[n] = local[n] = _clone_value(local[n])
         scope_in = {n: ctx.get(n) for n in step.in_names if n not in local}
         before = {n: scope.find_var(n) for n in step.out_names
                   if ctx.is_persistable(n)}
@@ -1054,12 +1146,108 @@ class Executor(object):
                       {n: local[n] for n in step.out_names if n in local},
                       counts)
 
+    def run_loop(self, ctx, op, sub_block, carried, vals, ext):
+        """A while op's trips on the captured path. Each input signature
+        of its body runs eagerly on its first trip (on the capture
+        stream), is captured as a CUDA graph on its next and replayed on
+        every later trip, of this run and of later runs. The graph copies
+        each trip's carried values back into its static inputs, so a
+        replayed trip is one launch and one host read of the condition.
+        A body that fails to capture raises. Returns (the carried
+        values, the trips)."""
+        from .ops.control_flow_ops import _loop_trip, cond_value
+        program = ctx._program
+        key = (program._uid, program._version, op.attr('sub_block'),
+               run_time_switches())
+        body = self._loops.get(key)
+        if body is None:
+            body = self._loops[key] = _LoopBody()
+
+        def trip(v, e, capturing):
+            return _loop_trip(ctx, sub_block, carried, v, e,
+                              (body.generators, body.op_generators),
+                              capturing)
+        bound, trips = None, 0
+        while cond_value(vals[carried[0]]):
+            sig = tuple((n,) + value_signature(v) for n, v in vals.items()) \
+                + tuple((n,) + value_signature(v) for n, v in ext.items())
+            g = body.graphs.get(sig)
+            if g is None and body.runs.get(sig):
+                g = body.graphs[sig] = self._capture_body(body, op, trip,
+                                                          vals, ext)
+                bound = g
+            if g is not None:
+                if bound is not g:
+                    for n, v in vals.items():
+                        _copy_value(g.carried[n], v)
+                    for n, v in ext.items():
+                        _copy_value(g.ext[n], v)
+                    bound = g
+                _reseed(body)
+                g.graph.replay()
+                kernels.count_add(g.counts)
+                vals = dict(g.carried)
+            else:
+                vals = self._warm_up_body(trip, vals, ext)
+            body.runs[sig] = body.runs.get(sig, 0) + 1
+            trips += 1
+        if bound is not None:
+            # the static inputs are the next run's: hand out copies
+            vals = {n: _clone_value(v) for n, v in vals.items()}
+        return vals, trips
+
+    def _warm_up_body(self, trip, vals, ext):
+        stream = self._capture_stream()
+        current = torch.cuda.current_stream(self.device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            for t in _tensors_of(list(vals.values()) + list(ext.values())):
+                if t.device.type == 'cuda':
+                    t.record_stream(stream)
+            new = trip(vals, ext, False)
+        current.wait_stream(stream)
+        return new
+
+    def _capture_body(self, body, op, trip, vals, ext):
+        carried = {n: _clone_value(v) for n, v in vals.items()}
+        ext_in = {n: _clone_value(v) for n, v in ext.items()}
+        graph = torch.cuda.CUDAGraph()
+        for gen in body.generators:
+            graph.register_generator_state(gen)
+        if self._loop_pool is None:
+            self._loop_pool = torch.cuda.graph_pool_handle()
+        stream = self._capture_stream()
+        error = None
+        try:
+            with _CAPTURE_LOCK, \
+                    kernels.recording(self.device,
+                                      stream.cuda_stream) as counts, \
+                    torch.cuda.graph(graph, pool=self._loop_pool,
+                                     stream=stream,
+                                     capture_error_mode='thread_local'):
+                try:
+                    for n, v in trip(carried, ext_in, True).items():
+                        _copy_back(n, carried[n], v)
+                except Exception as e:     # noqa: BLE001 — raised below
+                    error = e
+        except Exception as e:             # noqa: BLE001 — raised below
+            if error is None:
+                error = e
+        if error is not None:
+            if isinstance(error, OpExecutionError):
+                raise error
+            raise OpExecutionError(
+                'capturing the body of the while op (sub_block %d) as a '
+                'CUDA graph failed\n  cause: %s: %s'
+                % (op.attr('sub_block'), type(error).__name__,
+                   error)) from error
+        self._compile_count += 1
+        return _BodyGraph(graph, carried, ext_in, counts)
+
     def _replay(self, step, g, ctx):
         local, scope = ctx.local, ctx.scope
         for n, static in g.static_in.items():
-            val = local[n]
-            if val is not static:
-                static.copy_(val)
+            _copy_value(static, local[n])
         for n, captured in g.scope_in.items():
             cur = scope.find_var(n)
             if cur is not captured:

@@ -60,7 +60,14 @@ def convert_np_dtype(dtype):
 
 
 class VarType:
+    """Variable kinds (the JAX package's subset of the reference's)."""
     LOD_TENSOR = 'lod_tensor'
+    SELECTED_ROWS = 'selected_rows'
+    LOD_TENSOR_ARRAY = 'lod_tensor_array'
+    READER = 'reader'
+    RAW = 'raw'
+    STEP_SCOPES = 'step_scopes'
+    LOD_RANK_TABLE = 'lod_rank_table'
 
 
 class Variable(object):

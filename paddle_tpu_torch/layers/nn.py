@@ -1,7 +1,7 @@
 """NN layer functions (counterpart of paddle_tpu/layers/nn.py, with the
 JAX package's signatures and defaults). Each layer appends ops to the
-current block; nothing executes here. The sequence, detection and
-sampling layers are not ported (ROADMAP.md, Queue 1)."""
+current block; nothing executes here. The detection layers are not
+ported (ROADMAP.md, Queue 1)."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,6 +25,9 @@ __all__ = [
     'logical_and', 'logical_or', 'logical_xor', 'logical_not',
     'where_select', 'causal_mask_bias', 'position_embedding',
     'conv2d_transpose', 'smooth_l1', 'huber_loss', 'prelu', 'lrn',
+    'beam_search', 'beam_search_decode', 'hinge_loss', 'log_loss',
+    'margin_rank_loss', 'squared_l2_distance', 'maxout', 'sampling_id',
+    'nce', 'hsigmoid',
 ]
 
 
@@ -828,3 +831,154 @@ def autoincreased_step_counter(counter_name=None, begin=1, step=1):
             outputs={'Out': [counter]}, attrs={'step': float(step)})
         counter.stop_gradient = True
     return counter
+
+
+# -- beam search (the JAX package's layers/nn.py:853-892) ----------------------
+
+def beam_search(pre_ids, pre_scores, scores, beam_size, end_id=0,
+                name=None):
+    """One beam expansion step over the static [batch, beam] lattice;
+    finished beams re-emit end_id with frozen scores. pre_ids and
+    pre_scores [B, beam]; scores [B, beam, V] log-probs. Returns
+    (selected_ids, selected_scores, parent_idx), each [B, beam]. For the
+    first step feed pre_scores [0, -inf, ...] so identical start beams
+    do not repeat."""
+    helper = LayerHelper('beam_search', name=name)
+    ids = helper.create_variable_for_type_inference(pre_ids.dtype)
+    sel_scores = helper.create_variable_for_type_inference('float32')
+    parents = helper.create_variable_for_type_inference('int32')
+    helper.append_op(
+        type='beam_search',
+        inputs={'PreIds': [pre_ids], 'PreScores': [pre_scores],
+                'Scores': [scores]},
+        outputs={'SelectedIds': [ids], 'SelectedScores': [sel_scores],
+                 'ParentIdx': [parents]},
+        attrs={'beam_size': beam_size, 'end_id': end_id})
+    return ids, sel_scores, parents
+
+
+def beam_search_decode(ids, parent_idx, scores, name=None):
+    """Backtrack the stacked steps' beams into sentences. ids and
+    parent_idx [T, B, beam]; scores [B, beam] the final cumulative
+    scores. Returns (sentence_ids [B, beam, T], sentence_scores)."""
+    helper = LayerHelper('beam_search_decode', name=name)
+    sent = helper.create_variable_for_type_inference(ids.dtype)
+    sent_scores = helper.create_variable_for_type_inference('float32')
+    helper.append_op(
+        type='beam_search_decode',
+        inputs={'Ids': [ids], 'ParentIdx': [parent_idx],
+                'Scores': [scores]},
+        outputs={'SentenceIds': [sent], 'SentenceScores': [sent_scores]})
+    return sent, sent_scores
+
+
+# -- the remaining losses (the JAX package's layers/nn.py:894-1008) -------------
+
+def hinge_loss(input, label, name=None):
+    helper = LayerHelper('hinge_loss', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='hinge_loss',
+                     inputs={'Logits': [input], 'Labels': [label]},
+                     outputs={'Loss': [out]})
+    return out
+
+
+def log_loss(input, label, epsilon=1e-4, name=None):
+    helper = LayerHelper('log_loss', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='log_loss',
+                     inputs={'Predicted': [input], 'Labels': [label]},
+                     outputs={'Loss': [out]}, attrs={'epsilon': epsilon})
+    return out
+
+
+def margin_rank_loss(label, left, right, margin=0.1, name=None):
+    helper = LayerHelper('margin_rank_loss', name=name)
+    out = helper.create_variable_for_type_inference(left.dtype)
+    act = helper.create_variable_for_type_inference(left.dtype)
+    helper.append_op(type='margin_rank_loss',
+                     inputs={'X1': [left], 'X2': [right], 'Label': [label]},
+                     outputs={'Out': [out], 'Activated': [act]},
+                     attrs={'margin': margin})
+    return out
+
+
+def squared_l2_distance(x, y, name=None):
+    helper = LayerHelper('squared_l2_distance', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    sub = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='squared_l2_distance', inputs={'X': [x], 'Y': [y]},
+                     outputs={'Out': [out], 'sub_result': [sub]})
+    return out
+
+
+def maxout(x, groups, name=None):
+    helper = LayerHelper('maxout', name=name)
+    out = helper.create_variable_for_type_inference(x.dtype)
+    helper.append_op(type='maxout', inputs={'X': [x]},
+                     outputs={'Out': [out]}, attrs={'groups': groups})
+    return out
+
+
+def sampling_id(x, min=0.0, max=1.0, seed=0, dtype='int64', name=None):
+    """One categorical draw per row of probabilities. min, max and seed
+    are taken for the reference's signature; the draw comes from the
+    executor's generator."""
+    helper = LayerHelper('sampling_id', name=name)
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='sampling_id', inputs={'X': [x]},
+                     outputs={'Out': [out]})
+    return out
+
+
+def nce(input, label, num_total_classes, sample_weight=None,
+        param_attr=None, bias_attr=None, num_neg_samples=10, name=None):
+    """Noise-contrastive estimation with uniform negatives from the
+    executor's generator; a cost [B, 1] per example. rng_tag is the
+    JAX package's per-op key of the draw (its grad re-traces the
+    forward); the port's grad uses the recorded forward."""
+    import zlib
+    helper = LayerHelper('nce', param_attr=param_attr, bias_attr=bias_attr,
+                         name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_total_classes, dim],
+                                dtype=input.dtype)
+    inputs = {'Input': [input], 'Label': [label], 'Weight': [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr,
+                                    shape=[num_total_classes],
+                                    dtype=input.dtype, is_bias=True)
+        inputs['Bias'] = [b]
+    if sample_weight is not None:
+        inputs['SampleWeight'] = [sample_weight]
+    cost = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='nce', inputs=inputs, outputs={'Cost': [cost]},
+                     attrs={'num_total_classes': num_total_classes,
+                            'num_neg_samples': num_neg_samples,
+                            'rng_tag': zlib.crc32(cost.name.encode())
+                            & 0x7FFFFFFF})
+    return cost
+
+
+def hsigmoid(input, label, num_classes, param_attr=None, bias_attr=None,
+             name=None):
+    """Hierarchical sigmoid over a complete binary code tree of
+    num_classes leaves."""
+    helper = LayerHelper('hierarchical_sigmoid', param_attr=param_attr,
+                         bias_attr=bias_attr, name=name)
+    dim = input.shape[-1]
+    w = helper.create_parameter(attr=helper.param_attr,
+                                shape=[num_classes - 1, dim],
+                                dtype=input.dtype)
+    inputs = {'X': [input], 'Label': [label], 'W': [w]}
+    if bias_attr is not False:
+        b = helper.create_parameter(attr=helper.bias_attr,
+                                    shape=[num_classes - 1],
+                                    dtype=input.dtype, is_bias=True)
+        inputs['Bias'] = [b]
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='hierarchical_sigmoid', inputs=inputs,
+                     outputs={'Out': [out]},
+                     attrs={'num_classes': num_classes})
+    return out

@@ -10,3 +10,6 @@ from . import optimizer_ops  # noqa: F401
 from . import control_flow_ops  # noqa: F401
 from . import misc_ops      # noqa: F401
 from . import sequence_ops  # noqa: F401
+from . import ctc_rnn_ops   # noqa: F401
+from . import array_ops     # noqa: F401
+from . import beam_search_ops  # noqa: F401

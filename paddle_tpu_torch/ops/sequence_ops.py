@@ -1,5 +1,5 @@
 """Sequence ops over padded batches and their lengths (counterpart of
-paddle_tpu/ops/sequence_ops.py, its 19 op types).
+paddle_tpu/ops/sequence_ops.py, its 21 op types).
 
 A sequence tensor is a padded [B, T, ...] tensor with a [B] int32
 lengths input ('SeqLens'; absent: every row has length T), never a
@@ -519,6 +519,24 @@ def _sequence_concat_infer(op, block):
 register_op('sequence_concat', infer_shape=_sequence_concat_infer)
 register_vjp_grad('sequence_concat', in_slots=('X',),
                   nondiff_slots=('SeqLens',))
+
+
+# -- sequence_first_step / sequence_last_step: one row of each sequence -------
+# The JAX package registers emitters alone (paddle_tpu/ops/sequence_ops.py:
+# 613-627): no shape inference and no grad op, so backward stops at them.
+# The layers of these names build sequence_pool instead.
+
+@op_emitter('sequence_first_step')
+def _sequence_first_step_emit(ctx, op):
+    ctx.set(op.single_output('Out'), ctx.get(op.single_input('X'))[:, 0])
+
+
+@op_emitter('sequence_last_step')
+def _sequence_last_step_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    B, T = x.shape[0], x.shape[1]
+    idx = (_lens(ctx, op, T, B, x.device) - 1).clamp(min=0).reshape(B, 1)
+    ctx.set(op.single_output('Out'), _take_time(x, idx)[:, 0])
 
 
 # -- sequence_mask: lengths -> [B, maxlen] ------------------------------------

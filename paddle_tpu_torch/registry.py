@@ -42,7 +42,8 @@ __all__ = ['OpDef', 'register_op', 'get_op', 'has_op', 'infer_shape',
            'op_emitter', 'op_infer_shape', 'op_grad_maker',
            'same_shape_infer', 'simple_grad_maker',
            'elementwise_unary_grad', 'register_vjp_grad', 'vjp_grad_maker',
-           'input_grads', 'write_input_grads', 'record_key', 'amp_cast']
+           'input_grads', 'write_input_grads', 'record_key',
+           'grad_record_key', 'amp_cast']
 
 
 class OpDef(object):
@@ -170,6 +171,23 @@ def record_key(fwd_type, fwd_outputs):
                             for slot, names in sorted(fwd_outputs.items())))
 
 
+# grad op type -> fn(grad op) -> the forward's output wiring, for the grad
+# ops whose text is the JAX package's and so carries no __fwd_outputs__
+# (recurrent_grad: ops/control_flow_ops.py)
+_FWD_OUTPUTS_OF = {}
+
+
+def grad_record_key(grad_op):
+    """The record key a grad op takes, or None if it takes no record."""
+    if grad_op.has_attr('__fwd_outputs__'):
+        return record_key(grad_op.type[:-len('_grad')],
+                          grad_op.attr('__fwd_outputs__'))
+    fn = _FWD_OUTPUTS_OF.get(grad_op.type)
+    if fn is None:
+        return None
+    return record_key(grad_op.type[:-len('_grad')], fn(grad_op))
+
+
 def diff_input_names(inputs, in_slots):
     """The distinct names fed to the differentiable slots: a var in two
     slots (mul(x, x)) is ONE input with one total gradient."""
@@ -239,14 +257,16 @@ def input_grads(ctx, op, out_names, outs, leaves):
             for (n, x), g in zip(leaves.items(), grads)}
 
 
-def write_input_grads(ctx, op, in_slots, grad_by_input):
+def write_input_grads(ctx, op, in_slots, grad_by_input, fwd_inputs=None):
     """Write each forward input's grad to the grad op's ACTUAL output
     name: backward.py may have renamed it (fan-out) or blanked it
-    (no-grad inputs). FLAGS_amp_bf16_param_grads: under AMP, an fp32
-    PARAMETER grad is rounded to bf16 where this op is its sole
-    producer (the canonical @GRAD name); fan-out parts stay fp32 until
-    their sum."""
-    fwd_inputs = op.attr('__fwd_inputs__')
+    (no-grad inputs). fwd_inputs: the forward's input wiring (default
+    the grad op's __fwd_inputs__ attr). FLAGS_amp_bf16_param_grads:
+    under AMP, an fp32 PARAMETER grad is rounded to bf16 where this op
+    is its sole producer (the canonical @GRAD name); fan-out parts stay
+    fp32 until their sum."""
+    if fwd_inputs is None:
+        fwd_inputs = op.attr('__fwd_inputs__')
     bf16_param_grads = False
     if ctx.amp:
         from .flags import get_flag

@@ -16,8 +16,10 @@ outside it failing the phase), v1-v6 wired into main(), and v1-v5 run
 end to end on the CPU at a tiny width; the sequence phases sq1-sq4 (the
 Viterbi margin rule, the feed signatures, the parameters compared, the
 weights of the update measure, the wiring into main() and an end-to-end
-run on the CPU at a tiny width); and the script's refusal to run
-without a card."""
+run on the CPU at a tiny width); the control-flow and
+machine_translation phases cf1 and mt1-mt3 (their wiring into main(),
+beam_margin, the chapter's Program, an end-to-end run on the CPU at a
+tiny width); and the script's refusal to run without a card."""
 import os
 import re
 import shutil
@@ -1882,3 +1884,132 @@ def test_sequence_phases_run_on_the_cpu_at_a_tiny_width():
         word_dim=32, mark_dim=5, hidden=8, depth=2, batch=3,
         mix_hidden_lr=1e-3))
     assert sq4['viterbi'] == (3, 0.0) and sq4['cpu'][0] == 0.0
+
+
+def test_control_flow_and_mt_phases_are_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = ['srl_steps(', 'control_flow_steps(', 'mt_steps(', 'mt_decode(',
+             'mt_contrib_steps(', 'lc_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    assert chip_smoke.MT['dict_size'] == 30000 and \
+        chip_smoke.MT['hidden'] == chip_smoke.MT['word'] == 512 and \
+        chip_smoke.MT['batch'] == 64 and chip_smoke.MT['beam'] == 4
+    assert chip_smoke.CF1 == dict(batch=64, width=512, trips=(1, 7, 50))
+    for fn, name in ((chip_smoke.control_flow_steps, 'cf1'),
+                     (chip_smoke.mt_steps, 'mt1'),
+                     (chip_smoke.mt_decode, 'mt2'),
+                     (chip_smoke.mt_contrib_steps, 'mt3')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * len(inspect.signature(fn).parameters))
+
+
+def _beam_lattice():
+    """A decode of 4 rows, beam 2, 2 steps: (sentences, scores, steps)."""
+    ids0 = np.array([[3, 5], [2, 7], [4, 6], [8, 9]])
+    ids1 = np.array([[4, 1], [1, 0], [5, 5], [1, 2]])
+    par1 = np.array([[0, 1], [0, 1], [1, 0], [0, 0]], 'int32')
+    s0 = np.array([[-1.0, -1.5], [-2.0, -2.5], [-0.5, -0.7], [-3.0, -4.0]],
+                  'float32')
+    s1 = s0 - 1.0
+    sent = np.stack([np.stack([ids0[r, par1[r]], ids1[r]], -1)
+                     for r in range(4)])
+    return sent, s1.copy(), [(ids0, s0, np.zeros((4, 2), 'int32')),
+                             (ids1, s1, par1)]
+
+
+def _copy_lattice(lat):
+    sent, scores, steps = lat
+    return sent.copy(), scores.copy(), [tuple(v.copy() for v in st)
+                                        for st in steps]
+
+
+def test_beam_margin_passes_equal_beams_and_near_ties_only():
+    """beam_margin holds every step's beams and the sentences: equal
+    decodes pass; a row whose sentences differ though its steps agree
+    (a wrong backtrack or state shuffle) fails even at equal scores; a
+    step whose beams differ ends the row only where the scores it took
+    lie within the tolerance (a near tie), for at most a quarter of the
+    rows; scores beyond the tolerance fail."""
+    lat = _beam_lattice()
+    assert chip_smoke.beam_margin('x', lat, lat) == (4, 0, 0.0)
+    # the sentences of a row swapped between its beams, the scores equal
+    swapped = _copy_lattice(lat)
+    swapped[0][1] = swapped[0][1][::-1]
+    with pytest.raises(AssertionError, match='row 1 takes the same beams'):
+        chip_smoke.beam_margin('x', swapped, lat)
+    # a backtrack through the wrong parent in one position
+    wrong = _copy_lattice(lat)
+    wrong[0][2, 0, 0] = 6 if wrong[0][2, 0, 0] != 6 else 4
+    with pytest.raises(AssertionError, match='row 2 takes the same beams'):
+        chip_smoke.beam_margin('x', wrong, lat)
+    # a near tie at step 1 of row 0: the beams differ, the scores within
+    tie = _copy_lattice(lat)
+    tie[2][1][0][0] = [1, 4]
+    tie[2][1][1][0] += 5e-5
+    tie[0][0] = tie[0][0][::-1]
+    equal, ties, rel = chip_smoke.beam_margin('x', tie, lat)
+    assert (equal, ties) == (3, 1) and 0 < rel <= chip_smoke.MT_SCORE_TOL
+    # the same beams taken at a score far from the other's
+    far_step = _copy_lattice(tie)
+    far_step[2][1][1][0, 0] -= 1e-2
+    with pytest.raises(AssertionError, match='row 0, step 1'):
+        chip_smoke.beam_margin('x', far_step, lat)
+    # two rows of four ending at a near tie
+    two = _copy_lattice(tie)
+    two[2][0][2][3] = [1, 0]
+    with pytest.raises(AssertionError, match='2 of 4 rows end at a near tie'):
+        chip_smoke.beam_margin('x', two, lat)
+    # a sentence's score beyond the tolerance
+    far = _copy_lattice(lat)
+    far[1][0, 0] -= 1e-3
+    with pytest.raises(AssertionError, match='row 0 takes the same beams'):
+        chip_smoke.beam_margin('x', far, lat)
+
+
+def test_mt_program_is_the_chapters():
+    """mt1's program at the chapter test's widths is the Program of
+    tests/test_torch_book_mt.py (the JAX chapter's, text for text)."""
+    import paddle_tpu_torch as tfluid
+    import test_torch_book_mt as book
+    w = dict(dict_size=book.DICT_SIZE, word=book.WORD_DIM, hidden=book.HID,
+             batch=book.BATCH, lr=0.02, max_len=book.TRG_T, beam=4)
+    progs = []
+    for build in (lambda f: chip_smoke.mt_train_build(w)(f),
+                  book.train_program):
+        main, startup = tfluid.Program(), tfluid.Program()
+        with tfluid.unique_name.guard(), \
+                tfluid.program_guard(main, startup):
+            build(tfluid)
+        progs.append(main.to_string())
+    assert progs[0] == progs[1]
+
+
+def test_control_flow_and_mt_phases_run_on_the_cpu_at_a_tiny_width():
+    """cf1 and mt1-mt3 end to end on the CPU at tiny widths: the loop's
+    host reads, the Switch's scope var, the same bits captured and op by
+    op (here op by op twice), the card-vs-CPU comparisons (the CPU
+    twice), beam 4 at least greedy, beam_margin."""
+    import paddle_tpu_torch as tfluid
+    place = tfluid.CPUPlace()
+
+    def sync():
+        pass
+    cf1 = chip_smoke.control_flow_steps(place, sync, dict(batch=4, width=8,
+                                                          trips=(1, 3, 6)))
+    assert [r['reads'] for r in cf1['loop']['runs']] == [2, 4, 7] * 2
+    assert cf1['loop']['err'] == 0.0 and cf1['select']['err'] == 0.0
+    # timed both ways (at this width the difference of two runs is noise)
+    assert np.isfinite([cf1['loop']['trip_ms'], cf1['loop']['eager_trip_ms']]
+                       ).all()
+    w = dict(dict_size=50, word=8, hidden=8, batch=4, lr=1e-2, max_len=6,
+             beam=3)
+    mt1 = chip_smoke.mt_steps(place, sync, w)
+    assert mt1['bits'] and mt1['cpu'][0] == 0.0 and mt1['logp'][0] == 0.0
+    mt2 = chip_smoke.mt_decode(mt1, place, sync, w)
+    assert mt2[1]['equal'] == mt2[3]['equal'] == 4
+    assert mt2[1]['ties'] == mt2[3]['ties'] == 0
+    mt3 = chip_smoke.mt_contrib_steps(place, sync, w)
+    assert mt3['bits'] and mt3['beams'] == (4, 0, 0.0)
+    assert mt3['logp'][0] == 0.0

@@ -261,7 +261,8 @@ def _run_case(fluid, cfg):
         if checked:
             target_name = cfg.get('kwargs', {}).get('output_names')
             targets = [block.var(target_name)] if target_name else \
-                [v for v in outs.get('Out', outs.get('Y', []))]
+                [v for v in outs.get('Out', outs.get('Y', outs.get(
+                    'Loss', [])))]
             cots = []
             for i, t in enumerate(targets):
                 cot = block.create_var(name='cot_%d' % i, shape=t.shape,
@@ -466,6 +467,45 @@ for _t in ('sequence_pool', 'sequence_softmax', 'sequence_expand',
     COVERED_ELSEWHERE[_t] = (
         'test_torch_sequence', 'test_op_forward_and_grads_match_jax',
         'one-op programs over ragged lengths, forward and grads')
+for _t in ('lstm_unit', 'gru_unit', 'lstmp', 'warpctc', 'ctc_align',
+           'margin_rank_loss', 'maxout', 'hierarchical_sigmoid'):
+    COVERED_ELSEWHERE[_t] = (
+        'test_torch_rnn_units', 'test_op_forward_and_grads_match_jax',
+        'one-op programs, forward and grads')
+COVERED_ELSEWHERE['nce'] = (
+    'test_torch_rnn_units', 'test_nce_grad_uses_the_forward_negatives',
+    "torch's stream is not jax.random's: the grad of the sampled loss")
+COVERED_ELSEWHERE['sampling_id'] = (
+    'test_torch_rnn_units', 'test_sampling_id_follows_its_distribution',
+    "torch's stream is not jax.random's: the distribution")
+COVERED_ELSEWHERE['sequence_first_step'] = (
+    'test_torch_surface', 'test_first_and_last_step_op_types_match_jax',
+    'one-op programs over ragged lengths; no grad in either package')
+COVERED_ELSEWHERE['sequence_last_step'] = (
+    'test_torch_surface', 'test_first_and_last_step_op_types_match_jax',
+    'one-op programs over ragged lengths; no grad in either package')
+for _t in ('while', 'conditional_block', 'write_to_array', 'read_from_array',
+           'lod_array_length', 'array_to_lod_tensor', 'lod_tensor_to_array',
+           'max_sequence_len', 'lod_rank_table', 'reorder_lod_tensor_by_rank',
+           'is_empty', 'beam_search', 'beam_search_decode'):
+    COVERED_ELSEWHERE[_t] = (
+        'test_torch_control_flow',
+        {'while': 'test_while_trip_count_from_a_feed_matches_jax',
+         'conditional_block': 'test_switch_piecewise',
+         'beam_search': 'test_beam_search_ties_take_the_lower_index_first',
+         'beam_search_decode': 'test_beam_search_decode_backtracks_like_jax',
+         'lod_rank_table': 'test_rank_table_and_max_sequence_len_match_jax',
+         'reorder_lod_tensor_by_rank':
+             'test_rank_table_and_max_sequence_len_match_jax',
+         'max_sequence_len': 'test_rank_table_and_max_sequence_len_match_jax',
+         'is_empty': 'test_rank_table_and_max_sequence_len_match_jax',
+         }.get(_t, 'test_array_write_read'), 'programs vs the JAX package')
+COVERED_ELSEWHERE['recurrent'] = (
+    'test_torch_control_flow', 'test_static_rnn_fc_trains',
+    'StaticRNN Adam steps and their grads vs the JAX package')
+COVERED_ELSEWHERE['beam_gather'] = (
+    'test_torch_book_mt', 'test_contrib_decoder_matches_jax',
+    "the BeamSearchDecoder's state shuffle vs the JAX package")
 COVERED_ELSEWHERE['remat_block'] = (
     'test_torch_recompute', 'test_adam_steps_match_the_jax_package',
     'LM steps with every block a remat scope, and its grad, vs the JAX '

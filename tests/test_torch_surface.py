@@ -22,7 +22,10 @@ ops and attrs and by the draws' moments.
    PyReader.decorate_batch_generator;
 8. layers.lookup_table, the alias of layers.embedding;
 9. layers.load, which appends a load op (a host step) restoring a var
-   that io.save_vars wrote.
+   that io.save_vars wrote;
+10. the sequence_first_step and sequence_last_step op types, which the
+   JAX package registers (a Program that appends them, as one loaded
+   from a saved __model__ may, raised KeyError in the port).
 """
 import threading
 
@@ -539,3 +542,46 @@ def test_load_layer_restores_a_saved_var_like_jax(tmp_path, load_as_fp16):
     # each package reads the other's file to the same values
     _, cross = _loaded(tfluid, str(tmp_path / 'j' / jname), load_as_fp16)
     np.testing.assert_array_equal(cross, want)
+
+
+# -- 10: sequence_first_step and sequence_last_step ------------------------------
+
+@pytest.mark.parametrize('op_type', ['sequence_first_step',
+                                     'sequence_last_step'])
+def test_first_and_last_step_op_types_match_jax(op_type):
+    """A one-op Program of each type over one seeded input with ragged
+    lengths (1 and T among them), in both packages: the forward within
+    1e-5, and the same backward: the JAX package registers no grad for
+    these types, so calc_gradient of the input is None in both."""
+    rng = np.random.RandomState(18)
+    x = rng.randn(4, 5, 3).astype('float32')
+    lens = np.array([5, 1, 3, 2], 'int32')
+    got = {}
+    for fluid in (jfluid, tfluid):
+        prog = fluid.Program()
+        block = prog.global_block()
+        with fluid.program_guard(prog, fluid.Program()):
+            xv = block.create_var(name='x', shape=x.shape, dtype='float32',
+                                  is_data=True, stop_gradient=False)
+            lv = block.create_var(name='lens', shape=lens.shape,
+                                  dtype='int32', is_data=True)
+            out = block.create_var(name='out')
+            block.append_op(type=op_type, inputs={'X': [xv], 'SeqLens': [lv]},
+                            outputs={'Out': [out]})
+            cot = block.create_var(name='cot', shape=(4, 3),
+                                   dtype='float32', is_data=True)
+            grads = fluid.backward.calc_gradient([out], [xv],
+                                                 target_gradients=[cot])
+        r, = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed={'x': x, 'lens': lens, 'cot': np.ones((4, 3),
+                                                            'float32')},
+            fetch_list=['out'], scope=fluid.Scope())
+        got[fluid.__name__] = (np.asarray(r), grads,
+                               [op.type for op in block.ops])
+    want, jgrads, jops = got['paddle_tpu']
+    have, tgrads, tops = got['paddle_tpu_torch']
+    idx = np.zeros(4, int) if op_type == 'sequence_first_step' else lens - 1
+    np.testing.assert_array_equal(want, x[np.arange(4), idx])
+    np.testing.assert_allclose(have, want, rtol=1e-5, atol=1e-5)
+    assert jgrads == [None] and tgrads == [None]
+    assert tops == jops
