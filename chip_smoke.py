@@ -338,6 +338,35 @@ plain PyTorch, the JAX package's plain JAX):
       recurrent_grad over T up to 12, a layers.gru_unit cell, hidden
       512, batch 64) by sq1's rules, then the BeamSearchDecoder at beam
       4 from its trained scope against the CPU port by beam_margin.
+Then sparse gradients and detection (no kernel: SelectedRows and the
+detection ops are plain PyTorch, the JAX package's plain JAX):
+  (sp1) mt1's program with both embeddings is_sparse (their grads
+      SelectedRows) under Adam(lazy_mode=True): 10 steps captured vs op
+      by op the same bits, each step's untouched rows of both tables,
+      parameter and both moments, the same bits (lazy_rows_check), one
+      step vs the CPU port (MT_STEP_TOL); the program dense and sparse
+      under default Adam and SGD, and the word2vec chapter (four lookups
+      into one table, the fan-out sum of four SelectedRows) under the
+      book's SGD: one step each, updates within SP_TOL of the dense
+      one's largest (sparse_vs_dense); step ms sparse and dense;
+  (det1) SSD300 (ssd_build at SSD: VGG-16's conv groups by
+      nets.img_conv_group, six maps, multi_box_head at SSD300's settings,
+      ssd_loss, Momentum(1e-3, 0.9) + L2Decay(5e-4), 300 px, batch 32) on
+      seeded synthetic scenes: 10 steps captured vs op by op the same
+      bits under cuDNN's deterministic algorithms, the loss falling, one
+      2-image step vs the CPU port (SSD_STEP_TOL, or SSD_SPREAD_FACTOR x
+      the CPU's own spread between two convolution algorithms, as r2's
+      rule); step ms, images/s, busy, peak memory, the map sizes and
+      priors;
+  (det2) det1's test clone with detection_output (NMS 0.45, top 400,
+      keep 200, score 0.01) and detection_map (11point) at batch 8,
+      replayed and timed; its detections against the CPU port's decode
+      of the same head outputs by detection_margin, the mAP within
+      DET_SCORE_TOL.
+a4 also holds every detection op type at small shapes, the Faster R-CNN
+ops at their published shapes (check_detection_ops) and the SelectedRows
+branches of scale, clip, clip_by_norm, sum and squared_l2_norm
+(check_sparse_math) on the card against CPU copies.
 ResNet-50 is freed, then the long-context LM (bench.py's
 bench_long_context: vocab 32768, dim 1024, 8 heads, 4 layers, ffn 4096,
 max_len 8192, batch 2, fused LM head with chunk 8192, reader lc_reader,
@@ -3192,6 +3221,8 @@ A4_HELD_ELSEWHERE = {
                            'stack, no other device work',
     'lod_tensor_to_array': 'tests/test_torch_control_flow.py (CPU): an '
                            'unbind, no other device work',
+    'rpn_target_assign': 'a4\'s own check at Faster R-CNN\'s shapes: the '
+                         'draw by its properties (check_detection_ops)',
 }
 for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
@@ -3493,7 +3524,7 @@ def training_op_cases(rng):
         check=())
     add('beam_gather', {'X': f(3, 4, 6),
                         'Indices': rng.randint(0, 4, (3, 4)).astype(i32)})
-    return cases
+    return cases + detection_op_cases(rng)
 
 
 def uncovered_op_types(cases):
@@ -3505,10 +3536,12 @@ def uncovered_op_types(cases):
     return sorted(new - {c[1] for c in cases} - set(A4_HELD_ELSEWHERE))
 
 
-def run_op_case(fluid, place, case):
+def run_op_case(fluid, place, case, shapes=None):
     """One case's op on `place`, fed copies: {var name: numpy array} of
     its outputs and of the held inputs' grads against a fixed cotangent
-    on its Loss, Out, Output, Hidden, LogLikelihood or Y outputs."""
+    on its Loss, Out, Output, OutputBox, Hidden, LogLikelihood or Y
+    outputs. shapes: the targets' run-time shapes where the caller knows
+    them (else a forward run on the CPU finds them)."""
     import torch
     _, op_type, inputs, attrs, outputs, check = case
     prog = fluid.Program()
@@ -3532,15 +3565,18 @@ def run_op_case(fluid, place, case):
                         attrs=dict(attrs))
         if check:
             targets = outs.get('Loss') or outs.get('Out') or \
-                outs.get('Output') or outs.get('Hidden') or \
+                outs.get('Output') or outs.get('OutputBox') or \
+                outs.get('Hidden') or \
                 outs.get('LogLikelihood') or outs.get('Projection') or \
                 outs.get('H') or outs['Y']
             # the cotangents take the outputs' run-time shapes (a sequence
             # op's declared shape can differ: sequence_pool keeps its
             # input's, the CRF's is [-1, 1])
-            shapes = [tuple(np.shape(v)) for v in fluid.Executor(
-                fluid.CPUPlace()).run(prog, feed=feed, fetch_list=targets,
-                                      scope=fluid.Scope())]
+            if shapes is None:
+                shapes = [tuple(np.shape(v)) for v in fluid.Executor(
+                    fluid.CPUPlace()).run(prog, feed=feed,
+                                          fetch_list=targets,
+                                          scope=fluid.Scope())]
             cots = []
             for i, (t, shape) in enumerate(zip(targets, shapes)):
                 cot = block.create_var(name='cot_%d' % i, shape=shape,
@@ -3835,6 +3871,379 @@ def check_sampled_ops(place):
         'rows (the third run a replay)' % (err, share))
 
 
+def _det_boxes(rng, n, scale=1.0, size=0.4):
+    xy = rng.rand(n, 2) * scale
+    wh = (0.05 + rng.rand(n, 2) * size) * scale
+    return np.concatenate([xy, xy + wh], -1).astype('float32')
+
+
+def detection_op_cases(rng):
+    """a4's cases of the detection op types at small shapes (as
+    training_op_cases); rpn_target_assign draws, so check_detection_ops
+    holds it by its properties."""
+    def f(*s):
+        return rng.randn(*s).astype('float32')
+    i32 = 'int32'
+    cases = []
+
+    def add(name, op, inputs, attrs=None, outputs=None, check=()):
+        cases.append((name, op, inputs, attrs or {}, outputs, list(check)))
+    add('iou_similarity', 'iou_similarity',
+        {'X': _det_boxes(rng, 5), 'Y': _det_boxes(rng, 6)},
+        check=('in_x', 'in_y'))
+    add('prior_box', 'prior_box', {'Input': np.zeros((1, 4, 3, 5), 'f4'),
+                                   'Image': np.zeros((1, 3, 48, 80), 'f4')},
+        {'min_sizes': [16.0], 'max_sizes': [32.0],
+         'aspect_ratios': [1.0, 2.0, 3.0], 'flip': True, 'clip': True},
+        {'Boxes': ['pb_boxes'], 'Variances': ['pb_var']})
+    priors = _det_boxes(rng, 6)
+    add('box_coder encode', 'box_coder',
+        {'PriorBox': priors, 'PriorBoxVar': np.full((6, 4), 0.1, 'f4'),
+         'TargetBox': _det_boxes(rng, 3)},
+        {'code_type': 'encode_center_size'}, {'OutputBox': ['bc_out']},
+        check=('in_targetbox',))
+    add('box_coder decode', 'box_coder',
+        {'PriorBox': priors, 'PriorBoxVar': np.full((6, 4), 0.2, 'f4'),
+         'TargetBox': 0.5 * f(3, 6, 4)},
+        {'code_type': 'decode_center_size'}, {'OutputBox': ['bc_out']},
+        check=('in_targetbox',))
+    boxes = np.stack([_det_boxes(rng, 20, size=0.5) for _ in range(2)])
+    scores = rng.dirichlet(np.ones(3), (2, 20)).transpose(0, 2, 1).astype(
+        'float32')
+    scores[:, 1, :6] = 0.5                        # ties
+    add('multiclass_nms', 'multiclass_nms', {'BBoxes': boxes,
+                                             'Scores': scores},
+        {'score_threshold': 0.05, 'nms_top_k': 10, 'keep_top_k': 12,
+         'nms_threshold': 0.4},
+        {'Out': ['nms_out'], 'ValidCount': ['nms_count']})
+    dist = rng.rand(2, 3, 7).astype('float32')
+    dist[0, 1, 2] = dist[0, 0, 4] = dist.max() + 0.1      # a tie
+    add('bipartite_match', 'bipartite_match', {'DistMat': dist},
+        {'match_type': 'per_prediction', 'dist_threshold': 0.4},
+        {'ColToRowMatchIndices': ['bm_idx'], 'ColToRowMatchDist': ['bm_d']})
+    add('target_assign', 'target_assign',
+        {'X': f(2, 3, 4), 'MatchIndices': rng.randint(-1, 3, (2, 6)).astype(
+            i32)}, {'mismatch_value': -7},
+        {'Out': ['ta_out'], 'OutWeight': ['ta_w']})
+    add('anchor_generator', 'anchor_generator',
+        {'Input': np.zeros((1, 4, 3, 5), 'f4')},
+        {'anchor_sizes': [32.0, 64.0], 'aspect_ratios': [0.5, 1.0, 2.0],
+         'stride': [16.0, 16.0]},
+        {'Anchors': ['ag_anchors'], 'Variances': ['ag_var']})
+    g = np.arange(4) / 4.0
+    gx, gy = np.meshgrid(g, g)
+    grid = np.stack([gx.ravel(), gy.ravel(), gx.ravel() + 0.25,
+                     gy.ravel() + 0.25], -1).astype('float32')
+    labels = rng.randint(1, 3, (2, 3)).astype('int64')
+    labels[1, 2] = -1
+    add('ssd_loss', 'ssd_loss',
+        {'Location': 0.1 * f(2, 16, 4), 'Confidence': f(2, 16, 3),
+         'GtBox': np.stack([_det_boxes(rng, 3, size=0.3)
+                            for _ in range(2)]),
+         'GtLabel': labels, 'PriorBox': grid,
+         'PriorBoxVar': np.full((16, 4), 0.1, 'f4')},
+        {'overlap_threshold': 0.3}, {'Loss': ['ssd_loss_out']},
+        check=('in_location', 'in_confidence'))
+    match = rng.randint(-1, 3, (2, 10)).astype(i32)
+    add('mine_hard_examples', 'mine_hard_examples',
+        {'ClsLoss': np.round(rng.rand(2, 10), 1).astype('float32'),
+         'MatchIndices': match},
+        {'neg_pos_ratio': 1.0},
+        {'NegMask': ['mh_neg'], 'UpdatedMatchIndices': ['mh_upd']})
+    x = f(2, 3, 8, 9)
+    rois = np.array([[0, 0, 16, 18], [4, 2, 10, 12], [-3, -2, 6, 5],
+                     [10, 8, 30, 20]], 'float32')
+    bidx = np.array([0, 1, 1, 0], i32)
+    for op, ph in (('roi_align', 3), ('roi_pool', 2)):
+        add(op, op, {'X': x, 'ROIs': rois, 'RoisBatchIdx': bidx},
+            {'pooled_height': ph, 'pooled_width': 2, 'spatial_scale': 0.5,
+             'sampling_ratio': 2}, check=('in_x',))
+    A, H, W = 3, 4, 5
+    add('generate_proposals', 'generate_proposals',
+        {'Scores': rng.rand(1, A, H, W).astype('float32'),
+         'BboxDeltas': 0.2 * f(1, 4 * A, H, W),
+         'ImInfo': np.array([[30.0, 38.0, 1.0]], 'float32'),
+         'Anchors': frcnn_anchors(H, W, [8.0, 16.0, 24.0], [1.0], 8.0),
+         'Variances': np.ones((H, W, A, 4), 'float32')},
+        {'pre_nms_topN': 30, 'post_nms_topN': 10, 'nms_thresh': 0.5,
+         'min_size': 2.0},
+        {'RpnRois': ['gp_rois'], 'RpnRoiProbs': ['gp_probs'],
+         'RpnRoisNum': ['gp_num']})
+    add('polygon_box_transform', 'polygon_box_transform',
+        {'Input': f(2, 4, 3, 5)}, outputs={'Output': ['pbt_out']})
+    det = np.zeros((2, 6, 6), 'float32')
+    det[..., 0] = [[1, 2, 1, 3, -1, 2], [3, 3, 1, -1, -1, 2]]
+    det[..., 1] = rng.rand(2, 6)
+    det[..., 2:] = np.stack([_det_boxes(rng, 6, size=0.5) for _ in range(2)])
+    gt = np.zeros((2, 3, 5), 'float32')
+    gt[..., 0] = [[1, 2, 3], [3, 1, 0]]
+    gt[..., 1:] = det[:, :3, 2:] + 0.02 * f(2, 3, 4)
+    gt[1, 2, 1:] = 0
+    add('detection_map', 'detection_map', {'DetectRes': det, 'Label': gt},
+        {'class_num': 4, 'ap_type': '11point'}, {'MAP': ['dm_map']})
+    return cases
+
+
+# Faster R-CNN (Ren et al., 2015) as its Fluid config runs it: the C4 map
+# of an 800 x 1333 image at stride 16, 15 anchors, the RPN's proposal and
+# sampling settings, 512 RoIs a batch for the box head
+FRCNN = dict(image=(800.0, 1333.0), feat=(1, 1024, 50, 84), stride=16.0,
+             sizes=(32.0, 64.0, 128.0, 256.0, 512.0),
+             ratios=(0.5, 1.0, 2.0), pre_nms=6000, post_nms=1000, nms=0.7,
+             min_size=0.1, rois=512, align=14, pool=7, sampling=2,
+             rpn_batch=256, fg_fraction=0.5, gts=8,
+             sparse=(30000, 512, 768))    # check_sparse_math: mt1's table
+
+
+def frcnn_anchors(H, W, sizes, ratios, stride):
+    """anchor_generator's anchors [H, W, A, 4] in pixels (the port's own
+    numpy grid)."""
+    from paddle_tpu_torch.ops.detection_ops import _anchors_np
+    return _anchors_np(H, W, list(sizes), list(ratios), [stride, stride],
+                       0.5)
+
+
+def check_scaled_outputs(label, got, want):
+    """Each output within OP_ATOL + OP_RTOL x its largest |element|
+    (a grad summed over hundreds of RoIs cancels: an element's own size
+    says nothing of its sum's rounding); integer outputs equal. Returns
+    the worst error over that bound."""
+    if sorted(got) != sorted(want):
+        raise AssertionError('%s: outputs %s, want %s'
+                             % (label, sorted(got), sorted(want)))
+    worst = 0.0
+    for n, w in want.items():
+        g = got[n]
+        if g.shape != w.shape or g.dtype != w.dtype:
+            raise AssertionError('%s: %s is %s %s, want %s %s'
+                                 % (label, n, g.dtype, g.shape, w.dtype,
+                                    w.shape))
+        if w.dtype.kind in 'biu':
+            if not np.array_equal(g, w):
+                raise AssertionError('%s: %s differs' % (label, n))
+            continue
+        bound = OP_ATOL + OP_RTOL * float(np.abs(w).max() if w.size else 0)
+        err = float(np.abs(g.astype('float64') - w).max()) / bound \
+            if w.size else 0.0
+        worst = max(worst, err)
+        if not err <= 1.0:
+            raise AssertionError('%s: %s is %.3g x the tolerance off'
+                                 % (label, n, err))
+    return worst
+
+
+def rpn_label_properties(label, anchors, gts, labels, tgt, batch, fg_frac,
+                         pos, neg, valid=None):
+    """rpn_target_assign's draw, held by what any draw must hold: at most
+    `batch` labels, at most fg_frac of them fg; fg only where an anchor
+    reaches pos IoU or is a valid gt's best anchor; bg only under neg
+    IoU; where the fg budget holds every candidate, every anchor over
+    pos and a best anchor of each gt fg; each anchor's target the box of
+    a gt it overlaps best. IoUs in fp64; a tie within 1e-6 may go either
+    way."""
+    a = anchors.reshape(-1, 4).astype('float64')
+    budget = int(batch * fg_frac)
+    for n in range(len(gts)):
+        g = gts[n].astype('float64')
+        ok_gt = np.ones(len(g), bool) if valid is None else valid[n] > 0
+        ix = np.clip(np.minimum(g[:, None, 2], a[None, :, 2]) -
+                     np.maximum(g[:, None, 0], a[None, :, 0]), 0, None)
+        iy = np.clip(np.minimum(g[:, None, 3], a[None, :, 3]) -
+                     np.maximum(g[:, None, 1], a[None, :, 1]), 0, None)
+        inter = ix * iy
+        union = ((g[:, 2] - g[:, 0]) * (g[:, 3] - g[:, 1]))[:, None] + \
+            ((a[:, 2] - a[:, 0]) * (a[:, 3] - a[:, 1]))[None] - inter
+        iou = np.where(ok_gt[:, None], inter / union, -1.0)    # [G, M]
+        best, top = iou.max(0), iou.max(1)
+        near_best = (iou >= top[:, None] - 1e-6) & \
+            (ok_gt & (top > 0))[:, None]
+        allowed = (best >= pos - 1e-6) | near_best.any(0)
+        lab = labels[n]
+        fg = lab == 1
+        n_fg, n_lab = int(fg.sum()), int((lab >= 0).sum())
+        match = np.all(np.abs(gts[n][:, None, :] - tgt[n][None]) <= 1e-4, -1)
+        ok = (n_lab <= batch and n_fg <= budget and
+              not fg[~allowed].any() and
+              not (lab == 0)[~(best < neg + 1e-6)].any() and
+              (match & (iou >= best[None] - 1e-6)).any(0).all())
+        if ok and allowed.sum() <= budget:
+            ok = fg[best >= pos + 1e-6].all() and all(
+                fg[row].any() for row in near_best if row.any())
+        if not ok:
+            raise AssertionError('%s: image %d\'s labels break the rule (%d '
+                                 'fg, %d labelled)' % (label, n, n_fg, n_lab))
+    return int((labels == 1).sum()), int((labels >= 0).sum())
+
+
+def _sparse_math_program(fluid, V, D):
+    """Two sparse lookup grads of one table (fed ids and cotangents) and
+    the ops that take a SelectedRows: scale, clip, clip_by_norm, sum,
+    squared_l2_norm. Returns (program, fetch names)."""
+    prog = fluid.Program()
+    block = prog.global_block()
+    w = block.create_var(name='sm_w', shape=(V, D), dtype='float32',
+                         persistable=True)
+    grads = []
+    for k in range(2):
+        ids = block.create_var(name='sm_ids%d' % k, shape=(-1,),
+                               dtype='int64', is_data=True)
+        cot = block.create_var(name='sm_cot%d' % k, shape=(-1, D),
+                               dtype='float32', is_data=True)
+        g = block.create_var(name='sm_g%d' % k)
+        block.append_op(type='lookup_table_grad',
+                        inputs={'Ids': [ids], 'W': [w], 'Out@GRAD': [cot]},
+                        outputs={'W@GRAD': [g]},
+                        attrs={'is_sparse': True, 'padding_idx': -1})
+        grads.append(g)
+    outs = []
+    for op, ins, attrs in (
+            ('scale', {'X': [grads[0]]}, {'scale': 0.5}),
+            ('clip', {'X': [grads[0]]}, {'min': -0.1, 'max': 0.1}),
+            ('clip_by_norm', {'X': [grads[0]]}, {'max_norm': 0.5}),
+            ('sum', {'X': grads}, {}),
+            ('squared_l2_norm', {'X': [grads[0]]}, {})):
+        out = block.create_var(name='sm_' + op)
+        block.append_op(type=op, inputs=ins, outputs={'Out': [out]},
+                        attrs=attrs)
+        outs.append(out.name)
+    return prog, outs
+
+
+def check_sparse_math(place, rng, V=30000, D=512, N=768):
+    """The SelectedRows branches of scale, clip, clip_by_norm, sum and
+    squared_l2_norm on the card against the CPU on the same grads (ids
+    drawn with repeats, mt1's sizes): SelectedRows rows equal and values,
+    dense outputs within OP_ATOL + OP_RTOL·|ref|. Returns the worst."""
+    import paddle_tpu_torch as fluid
+    feed = {}
+    for k in range(2):
+        feed['sm_ids%d' % k] = rng.randint(0, V // 100, N).astype('int64')
+        feed['sm_cot%d' % k] = (rng.randn(N, D) * 0.01).astype('float32')
+    table = np.zeros((V, D), 'float32')
+    res = {}
+    for p in (place, fluid.CPUPlace()):
+        prog, fetch = _sparse_math_program(fluid, V, D)
+        scope = fluid.Scope()
+        fluid.io.load_numpy_params(scope, {'sm_w': table}, p)
+        got = fluid.Executor(p).run(prog, feed=feed, fetch_list=fetch,
+                                    scope=scope)
+        res[p.device.type] = dict(zip(fetch, got))
+    worst = 0.0
+    for n, want in res['cpu'].items():
+        got = res[place.device.type][n]
+        kinds = (want.dtype == object, got.dtype == object)
+        if kinds[0] != kinds[1] or kinds[0] != (n in (
+                'sm_scale', 'sm_clip_by_norm', 'sm_sum')):
+            raise AssertionError('a4 sparse %s: SelectedRows %s on the card, '
+                                 '%s on the CPU' % (n, kinds[1], kinds[0]))
+        if kinds[0]:
+            got, want = got[()], want[()]
+            if not np.array_equal(got.rows, want.rows):
+                raise AssertionError('a4 sparse %s: rows differ' % n)
+            got, want = got.values, want.values
+        worst = max(worst, check_op_outputs('a4 sparse ' + n,
+                                            {n: np.asarray(got)},
+                                            {n: np.asarray(want)}))
+    return worst
+
+
+def check_detection_ops(place, fr=None):
+    """The detection ops at Faster R-CNN's published shapes (FRCNN), on
+    the card against CPU copies by check_scaled_outputs: anchor_generator
+    (15 anchors on the 50 x 84 map), generate_proposals (pre 6000, post
+    1000, NMS 0.7; its deltas' dw and dh 0, so the decoded boxes are the
+    same bits on both: exp's last bit differs between them, and a box
+    within it of the IoU threshold would flip), roi_align 14x14 (sampling
+    2) and roi_pool 7x7 over 512 RoIs, forward and X's grad;
+    rpn_target_assign by rpn_label_properties, twice (a replay draws
+    anew); check_sparse_math. Returns the worst error and the ms of each
+    op's card run."""
+    import paddle_tpu_torch as fluid
+    fr = fr or FRCNN
+    rng = np.random.RandomState(SEED + 14)
+    N, C, H, W = fr['feat']
+    anchors = frcnn_anchors(H, W, fr['sizes'], fr['ratios'], fr['stride'])
+    A = anchors.shape[2]
+    deltas = (0.1 * rng.randn(N, A, 4, H, W)).astype('float32')
+    deltas[:, :, 2:] = 0.0
+    x1 = rng.uniform(0, fr['image'][1] - 64, fr['rois'])
+    y1 = rng.uniform(0, fr['image'][0] - 64, fr['rois'])
+    rois = np.stack([x1, y1, x1 + rng.uniform(16, 400, fr['rois']),
+                     y1 + rng.uniform(16, 400, fr['rois'])], -1).astype(
+        'float32')
+    feat = rng.randn(*fr['feat']).astype('float32')
+    cases = [
+        ('frcnn anchor_generator', 'anchor_generator',
+         {'Input': np.zeros((1, 1, H, W), 'float32')},
+         {'anchor_sizes': list(fr['sizes']),
+          'aspect_ratios': list(fr['ratios']),
+          'stride': [fr['stride']] * 2},
+         {'Anchors': ['anchors'], 'Variances': ['var']}, []),
+        ('frcnn generate_proposals', 'generate_proposals',
+         {'Scores': (1 / (1 + np.exp(-rng.randn(N, A, H, W)))).astype('f4'),
+          'BboxDeltas': deltas.reshape(N, 4 * A, H, W),
+          'ImInfo': np.array([[fr['image'][0], fr['image'][1], 1.0]], 'f4'),
+          'Anchors': anchors,
+          'Variances': np.tile(np.array([0.1, 0.1, 0.2, 0.2], 'f4'),
+                               (H, W, A, 1))},
+         {'pre_nms_topN': fr['pre_nms'], 'post_nms_topN': fr['post_nms'],
+          'nms_thresh': fr['nms'], 'min_size': fr['min_size']},
+         {'RpnRois': ['rois'], 'RpnRoiProbs': ['probs'],
+          'RpnRoisNum': ['num']}, []),
+        ('frcnn roi_align', 'roi_align', {'X': feat, 'ROIs': rois},
+         {'pooled_height': fr['align'], 'pooled_width': fr['align'],
+          'spatial_scale': 1.0 / fr['stride'],
+          'sampling_ratio': fr['sampling']}, None, ['in_x']),
+        ('frcnn roi_pool', 'roi_pool', {'X': feat, 'ROIs': rois},
+         {'pooled_height': fr['pool'], 'pooled_width': fr['pool'],
+          'spatial_scale': 1.0 / fr['stride']}, None, ['in_x']),
+    ]
+    out_shape = {'roi_align': [(fr['rois'], C, fr['align'], fr['align'])],
+                 'roi_pool': [(fr['rois'], C, fr['pool'], fr['pool'])]}
+    worst, ms = {}, {}
+    for case in cases:
+        shapes = out_shape.get(case[1])
+        t0 = time.perf_counter()
+        got = run_op_case(fluid, place, case, shapes)
+        ms[case[0]] = (time.perf_counter() - t0) * 1e3
+        want = run_op_case(fluid, fluid.CPUPlace(), case, shapes)
+        worst[case[0]] = check_scaled_outputs(case[0], got, want)
+        if case[1] == 'generate_proposals' and not 0 < got['num'][0] <= \
+                fr['post_nms']:
+            raise AssertionError('a4 frcnn: %d proposals' % got['num'][0])
+    gts = np.stack([_det_boxes(rng, fr['gts'], scale=700.0, size=0.4)])
+    prog = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(prog,
+                                                        fluid.Program()):
+        g = fluid.layers.data(name='g', shape=[fr['gts'], 4],
+                              dtype='float32')
+        labels, tgt = fluid.layers.rpn_target_assign(
+            fluid.layers.assign(anchors), g,
+            rpn_batch_size_per_im=fr['rpn_batch'],
+            rpn_fg_fraction=fr['fg_fraction'])
+    exe = fluid.Executor(place)
+    draws = []
+    for _ in range(3):
+        lab, tg = (np.asarray(v) for v in exe.run(
+            prog, feed={'g': gts}, fetch_list=[labels, tgt],
+            scope=fluid.Scope()))
+        draws.append(rpn_label_properties(
+            'a4 frcnn rpn_target_assign', anchors, gts, lab, tg,
+            fr['rpn_batch'], fr['fg_fraction'], 0.7, 0.3))
+    exe.close()
+    worst['sparse math'] = check_sparse_math(place, rng, *fr['sparse'])
+    log('a4 detection ops at Faster R-CNN\'s shapes (C4 map %s, %d '
+        'anchors, %d RoIs) on the card vs CPU copies, worst error over '
+        'OP_ATOL + OP_RTOL x max|ref|: %s; card ms (one eager run with the '
+        'grads, feeds and fetches included): %s; rpn_target_assign (fg, labelled) of three draws %s; '
+        'SelectedRows math within %.3f of its tolerance'
+        % (list(fr['feat']), H * W * A, fr['rois'],
+           ', '.join('%s %.3f' % kv for kv in worst.items()),
+           ', '.join('%s %.1f' % kv for kv in ms.items()), draws,
+           worst['sparse math']))
+    return max(worst.values())
+
+
 @phase('a4: the training core\'s op types on the card vs on CPU copies, '
        'forward and grads')
 def check_training_ops(place):
@@ -3854,6 +4263,8 @@ def check_training_ops(place):
     check_batch_size_like(place)
     amp_err = check_lstmp_amp(place)
     check_sampled_ops(place)
+    worst['detection ops at Faster R-CNN\'s shapes'] = \
+        check_detection_ops(place)
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     log('%d op cases on the card vs CPU copies (%d op types), worst error '
         'over the tolerance (rtol %g, atol %g): %s; dropout kept shares %s '
@@ -6597,15 +7008,18 @@ def book_fit_a_line(fluid):
     return ['x', 'y'], pred, loss
 
 
-def book_word2vec(fluid, embed=32, hidden=256):
+def book_word2vec(fluid, embed=32, hidden=256, is_sparse=False, sgd_lr=None):
     """The word2vec chapter: four context words' shared embeddings,
-    concatenated, a sigmoid hidden layer and a softmax over the dict."""
+    concatenated, a sigmoid hidden layer and a softmax over the dict;
+    Adam(0.005), or the book's SGD at sgd_lr (with is_sparse, as the
+    book sets it, the four lookups' grads are SelectedRows that
+    backward's fan-out sum concatenates)."""
     dict_size = len(fluid.dataset.imikolov.build_dict())
     names = ['firstw', 'secondw', 'thirdw', 'forthw', 'nextw']
     words = [fluid.layers.data(name=n, shape=[1], dtype='int64')
              for n in names]
     embs = [fluid.layers.embedding(
-        input=w, size=[dict_size, embed],
+        input=w, size=[dict_size, embed], is_sparse=is_sparse,
         param_attr=fluid.ParamAttr(name='shared_w')) for w in words[:4]]
     concat = fluid.layers.reshape(fluid.layers.concat(input=embs, axis=-1),
                                   shape=[-1, 4 * embed])
@@ -6613,7 +7027,10 @@ def book_word2vec(fluid, embed=32, hidden=256):
     pred = fluid.layers.fc(input=hid, size=dict_size, act='softmax')
     loss = fluid.layers.mean(fluid.layers.cross_entropy(input=pred,
                                                         label=words[4]))
-    fluid.optimizer.Adam(learning_rate=0.005).minimize(loss)
+    if sgd_lr is None:
+        fluid.optimizer.Adam(learning_rate=0.005).minimize(loss)
+    else:
+        fluid.optimizer.SGD(learning_rate=sgd_lr).minimize(loss)
     return names, pred, loss
 
 
@@ -7257,22 +7674,24 @@ def _sq_falls(label, losses):
 
 def _sq_accumulators(run, params, optimizer):
     """The accumulator of each parameter that tells its gradient's size:
-    Adam's first moment, Adagrad's sum of squares; none for SGD."""
+    Adam's first moment, Adagrad's sum of squares, Momentum's velocity;
+    none for SGD."""
     if optimizer == 'sgd':
         return []
-    mark = '_moment1_' if optimizer == 'adam' else '_moment_'
+    mark = {'adam': '_moment1_', 'momentum': '_velocity_'}.get(
+        optimizer, '_moment_')
     return [[m for m in run.persistables if m.startswith(n + mark)][0]
             for n in params]
 
 
 def sq_grad_weights(run, params, optimizer, eager, saved):
     """|g| per compared parameter for x1's weighted update measure: Adam's
-    first moment, the square root of Adagrad's accumulator, SGD's own
-    update (it is lr·g)."""
+    first moment, Momentum's velocity, the square root of Adagrad's
+    accumulator, SGD's own update (it is lr·g)."""
     if optimizer == 'sgd':
         return {n: (eager['state'][n] - saved[n]).float() for n in params}
     accs = _sq_accumulators(run, params, optimizer)
-    return {n: (eager['state'][a].float() if optimizer == 'adam'
+    return {n: (eager['state'][a].float() if optimizer in ('adam', 'momentum')
                 else eager['state'][a].float().sqrt())
             for n, a in zip(params, accs)}
 
@@ -7356,14 +7775,15 @@ def _sq_captured(run, label, feeds, params, optimizer, sync, profile=False):
 
 
 def card_vs_cpu(run, build, saved, feed, params, optimizer, label,
-                update_tol=TRAIN_UPDATE_TOL, grad_tol=None):
+                update_tol=TRAIN_UPDATE_TOL, grad_tol=None, floors=None):
     """One step of the port on the card and one on the CPU from the same
     parameters and feed: the losses within SQ_CPU_RTOL relative, the
     updates within update_tol by x1's weighted measure (g from the
     card's step) and, with grad_tol, each parameter's gradient (Adam's
     first moment after its first step, from zero) within grad_tol by
-    sum |g_card - g_cpu| / sum |g_cpu|. Returns (relative loss
-    difference, updates)."""
+    sum |g_card - g_cpu| / sum |g_cpu|. floors: {param: a bound} that
+    raises a parameter's two tolerances to it (det1: the CPU's own
+    spread). Returns (relative loss difference, updates)."""
     import paddle_tpu_torch as fluid
     cpu = BookRun(fluid.CPUPlace(), build, None, 1)
     cpu.restore({n: t.cpu() for n, t in saved.items()})
@@ -7388,16 +7808,22 @@ def card_vs_cpu(run, build, saved, feed, params, optimizer, label,
             gdiff[n] = ((a - b).abs().sum() /
                         b.abs().sum().clamp_min(1e-30)).item()
     rel = abs(card_loss - cpu_loss) / max(abs(cpu_loss), 1e-30)
+    floors = floors or {}
     log('%s: one step on the card vs the CPU: loss %.7f vs %.7f (relative '
-        '%.3e, tol %g); updates %s (tol %g)%s'
+        '%.3e, tol %g); updates %s (tol %g)%s%s'
         % (label, card_loss, cpu_loss, rel, SQ_CPU_RTOL,
            ', '.join('%s %.3e' % kv for kv in upd.items()), update_tol,
            '; gradients sum |diff| / sum |g|: %s (tol %g)'
            % (', '.join('%s %.3e' % kv for kv in gdiff.items()), grad_tol)
-           if gdiff else ''))
+           if gdiff else '',
+           '; raised to %s' % ', '.join('%s %.3e' % kv
+                                        for kv in floors.items())
+           if floors else ''))
     if not (np.isfinite(card_loss) and rel <= SQ_CPU_RTOL and
-            all(v <= update_tol for v in upd.values()) and
-            all(v <= grad_tol for v in gdiff.values())):
+            all(v <= max(update_tol, floors.get(n, 0.0))
+                for n, v in upd.items()) and
+            all(v <= max(grad_tol, floors.get(n, 0.0))
+                for n, v in gdiff.items())):
         raise AssertionError('%s: the card and the CPU disagree' % label)
     return rel, upd
 
@@ -8028,6 +8454,7 @@ def mt_encoder(fluid, src, w):
     shared parameter names."""
     L = fluid.layers
     emb = L.embedding(input=src, size=[w['dict_size'], w['word']],
+                      is_sparse=w.get('sparse', False),
                       param_attr=_attr(fluid, 'src_emb_w'))
     fc1 = L.fc(input=emb, size=w['hidden'] * 3,
                param_attr=_attr(fluid, 'enc_fc_w'),
@@ -8080,12 +8507,23 @@ def mt_train_build(w):
         encoded = mt_encoder(fluid, src, w)
         emb = fluid.layers.embedding(input=trg,
                                      size=[w['dict_size'], w['word']],
+                                     is_sparse=w.get('sparse', False),
                                      param_attr=_attr(fluid, 'trg_emb_w'))
         predict = mt_head(fluid, emb, encoded, w, flatten=False)
         loss = _mt_loss(fluid, predict, nxt)
-        fluid.optimizer.Adam(learning_rate=w['lr']).minimize(loss)
+        mt_optimizer(fluid, w).minimize(loss)
         return MT_FEEDS, predict, loss
     return build
+
+
+def mt_optimizer(fluid, w):
+    """mt1's Adam(w['lr']); w['optimizer'] 'adam_lazy' takes its
+    lazy_mode, 'sgd' SGD(w['sgd_lr']) (sp1)."""
+    kind = w.get('optimizer', 'adam')
+    if kind == 'sgd':
+        return fluid.optimizer.SGD(learning_rate=w['sgd_lr'])
+    return fluid.optimizer.Adam(learning_rate=w['lr'],
+                                lazy_mode=kind == 'adam_lazy')
 
 
 def mt_decode_build(w, beam):
@@ -8533,6 +8971,610 @@ def mt_contrib_steps(place, sync, w=None):
     return out
 
 
+# -- (sp1), (det1), (det2): sparse gradients and the detection ops ----------------
+
+SP_TOL = 1e-6                # sp1 (b), (c): sparse vs dense, relative to
+#                              the update's largest element
+SP_SGD_LR = 0.1              # sp1 (b): mt1's program under SGD
+W2V = dict(embed=32, hidden=256, batch=100, lr=0.001)   # the book's word2vec
+# SSD300 (Liu et al., 2016) as upstream Fluid's multi_box_head documents
+# it, over VGG-16's conv groups as models/vgg.py builds them (batch
+# norm): conv1-conv3 pooled, conv4's three convs the first map, pool,
+# conv5's three convs, fc6 (3x3, 1024) and fc7 (1x1, 1024) the second,
+# then four extra 1x1 -> 3x3 layers, stride 2 but the last
+SSD = dict(hw=300, classes=21, batch=32, max_boxes=8, lr=1e-3, momentum=0.9,
+           l2=5e-4, vgg=((64, 2, 2), (128, 2, 2), (256, 3, 2), (512, 3, 1)),
+           conv5=(512, 3), fc=1024,
+           extras=((256, 512, 2, 1), (128, 256, 2, 1), (128, 256, 2, 1),
+                   (128, 256, 1, 0)),
+           base_size=300, min_ratio=20, max_ratio=90,
+           aspect_ratios=[[2.], [2., 3.], [2., 3.], [2., 3.], [2.], [2.]],
+           decode_batch=8, nms_threshold=0.45, nms_top_k=400,
+           keep_top_k=200, score_threshold=0.01)
+# the CPU tests' SSD: 64 px, three maps, 5 classes
+SSD_TINY = dict(SSD, hw=64, classes=5, batch=2, max_boxes=4,
+                vgg=((8, 1, 2), (8, 1, 2), (16, 1, 1)), conv5=(16, 1),
+                fc=16, extras=((8, 16, 2, 1),), base_size=64,
+                aspect_ratios=[[2.], [2., 3.], [2.]], decode_batch=2,
+                nms_top_k=20, keep_top_k=10)
+SSD_BATCHES = 5              # det1: distinct batches, each twice
+SSD_CPU_BATCH = 2            # det1: the card-vs-CPU step's images
+SSD_STEP_TOL = 1e-4          # det1: one step's gradients and updates,
+SSD_SPREAD_FACTOR = 2.0      # or this x the CPU's own spread (as r2's rule)
+DET_SCORE_TOL = 1e-5         # det2: detections and mAP, card vs CPU
+
+
+def sparse_touched(program, feed, names):
+    """The table rows a feed's ids look up, by the ids feeds `names`
+    (padded as the Executor pads them: a padded position looks up id 0
+    too)."""
+    from paddle_tpu_torch.executor import _expand_sequence_feeds
+    fed = _expand_sequence_feeds(program, feed)
+    return np.unique(np.concatenate([np.asarray(fed[n]).reshape(-1)
+                                     for n in names]))
+
+
+def lazy_rows_check(run, feeds, tables, sync):
+    """One step per feed through run's executor (eager, captured,
+    replayed): every row of each table the step's ids miss keeps its
+    parameter and both Adam moments to the bit, and some touched row
+    moves. tables: {table: the feed names whose ids it looks up}.
+    Returns (steps, the rows held a step on average)."""
+    held = []
+    for feed in feeds:
+        names = {t: [t] + [n for n in run.persistables
+                           if n.startswith((t + '_moment1_',
+                                            t + '_moment2_'))]
+                 for t in tables}
+        before = {n: run.scope.find_var(n).clone()
+                  for ns in names.values() for n in ns}
+        run.step(feed)
+        sync()
+        for t, ids in tables.items():
+            touched = sparse_touched(run.main, feed, ids)
+            keep = np.ones(before[t].shape[0], bool)
+            keep[touched] = False
+            rows = torch_index(keep, before[t].device)
+            for n in names[t]:
+                a, b = before[n][rows], run.scope.find_var(n)[rows]
+                if not bool((a == b).all()):
+                    raise AssertionError(
+                        'sp1: %s moved at rows this step did not touch' % n)
+            touched = torch_index(~keep, before[t].device)
+            if bool((run.scope.find_var(t)[touched] ==
+                     before[t][touched]).all()):
+                raise AssertionError('sp1: no touched row of %s moved' % t)
+            held.append(int(keep.sum()))
+    return len(feeds), float(np.mean(held))
+
+
+def torch_index(mask, device):
+    import torch
+    return torch.from_numpy(np.flatnonzero(mask)).to(device)
+
+
+def sparse_vs_dense(place, sync, build_of, reader, batch, feeds, label,
+                    init=None):
+    """The same program built dense and sparse (build_of(is_sparse)), one
+    step each from one parameter state on feeds[0], then 3 more replayed
+    steps for their ms: every parameter's update within SP_TOL of the
+    dense one's largest element. Returns ({name: relative difference},
+    dense ms, sparse ms)."""
+    runs, ms = {}, {}
+    for sparse in (False, True):
+        run = BookRun(place, build_of(sparse), reader, batch)
+        if init is None:
+            init = {n: run.scope.find_var(n).clone()
+                    for n in run.persistables}
+        run.restore({n: t for n, t in init.items()
+                     if n in run.persistables})
+        before = {p.name: run.scope.find_var(p.name).clone()
+                  for p in run.main.global_block().all_parameters()}
+        run.step(feeds[0])
+        runs[sparse] = {n: (run.scope.find_var(n) - t).double().cpu()
+                        for n, t in before.items()}
+        run.step(feeds[0])
+        ms[sparse] = _steady_ms(run, feeds[0], sync, False)
+        run.exe.close()
+        del run
+        if place.device.type == 'cuda':
+            free_device_memory()
+    rel = {}
+    for n, d in runs[False].items():
+        rel[n] = float((runs[True][n] - d).abs().max() /
+                       max(float(d.abs().max()), 1e-30))
+    worst = max(rel.values())
+    log('%s: sparse vs dense one step, max |update diff| / max |update| '
+        '%.3e (tol %g; per parameter %s); step ms dense %.3f, sparse %.3f'
+        % (label, worst, SP_TOL, ', '.join('%s %.3e' % kv for kv in
+                                           sorted(rel.items())),
+           ms[False], ms[True]))
+    if not worst <= SP_TOL:
+        raise AssertionError('%s: the sparse step is not the dense one'
+                             % label)
+    return rel, ms[False], ms[True]
+
+
+@phase('sp1: sparse embeddings (SelectedRows) under lazy Adam, Adam and SGD '
+       '(machine_translation) and the word2vec chapter\'s shared table')
+def sparse_steps(place, sync, w=None, w2v=None):
+    """(a) mt1's program (MT) with both embeddings is_sparse=True under
+    Adam(lazy_mode=True): each of 10 captured steps leaves every row its
+    ids miss, parameter and both moments, the same bits, and moves a
+    touched one (lazy_rows_check); captured vs op by op the same bits
+    (sq1's rules); one step vs the CPU port (gradients and updates within
+    MT_STEP_TOL, gradient-weighted as mt1). (b) the program dense and
+    sparse under default Adam and under SGD(SP_SGD_LR): one step each
+    from one state, the updates within SP_TOL (sparse_vs_dense). (c) the
+    word2vec chapter (four lookups into one shared table, the fan-out
+    sum of four SelectedRows) dense and sparse under the book's SGD.
+    Logs step ms sparse and dense."""
+    import paddle_tpu_torch as fluid
+    w = dict(w or MT, sparse=True, optimizer='adam_lazy')
+    w2v = w2v or W2V
+    build = mt_train_build(w)
+    reader = fluid.dataset.wmt14.train(w['dict_size'])
+    run = BookRun(place, build, reader, w['batch'])
+    feeds, _ = run.feeds(SQ_BATCHES)
+    grads = [op for op in run.main.global_block().ops
+             if op.type == 'lookup_table_grad']
+    if len(grads) != 2 or not all(op.attr('is_sparse') for op in grads):
+        raise AssertionError('sp1: the program has no sparse lookup grads')
+    params = ('src_emb_w', 'trg_emb_w', 'enc_gru_w', 'dec_o_w')
+    out = _sq_captured(run, 'sp1 lazy Adam', feeds * 2, params, 'adam',
+                       sync)
+    saved = out.pop('saved')
+    run.restore(saved)
+    fetched = run.exe.run(run.main, feed=feeds[0],
+                          fetch_list=['src_emb_w@GRAD'], scope=run.scope,
+                          return_numpy=False)[0]
+    if type(fetched).__name__ != 'SelectedRows':
+        raise AssertionError('sp1: src_emb_w@GRAD is a %s'
+                             % type(fetched).__name__)
+    run.restore(saved)
+    out['lazy'] = lazy_rows_check(
+        run, feeds * 2, {'src_emb_w': ['src_word_id'],
+                         'trg_emb_w': ['target_language_word']}, sync)
+    out['cpu'] = card_vs_cpu(run, build, saved, feeds[0], params, 'adam',
+                             'sp1 lazy Adam', update_tol=MT_STEP_TOL,
+                             grad_tol=MT_STEP_TOL)
+    init = {n: t for n, t in saved.items() if '_moment' not in n and
+            '_pow_acc' not in n}
+    run.exe.close()
+    del run
+    if place.device.type == 'cuda':
+        free_device_memory()
+    out['adam'] = sparse_vs_dense(
+        place, sync, lambda sp: mt_train_build(dict(w, sparse=sp,
+                                                    optimizer='adam')),
+        reader, w['batch'], feeds, 'sp1 Adam', init)
+    out['sgd'] = sparse_vs_dense(
+        place, sync, lambda sp: mt_train_build(dict(
+            w, sparse=sp, optimizer='sgd', sgd_lr=SP_SGD_LR)),
+        reader, w['batch'], feeds, 'sp1 SGD', init)
+    w2v_reader = fluid.dataset.imikolov.train(
+        fluid.dataset.imikolov.build_dict(), 5)
+
+    def w2v_build(sparse):
+        return lambda f: book_word2vec(f, w2v['embed'], w2v['hidden'],
+                                       is_sparse=sparse, sgd_lr=w2v['lr'])
+    probe = BookRun(place, w2v_build(True), w2v_reader, w2v['batch'])
+    w2v_feeds, _ = probe.feeds(1)
+    sums = [op for op in probe.main.global_block().ops if op.type == 'sum'
+            and op.output('Out') == ['shared_w@GRAD']]
+    if len(sums) != 1 or len(sums[0].input('X')) != 4:
+        raise AssertionError('sp1: word2vec has no fan-out sum of the four '
+                             'lookups\' grads')
+    g = probe.exe.run(probe.main, feed=w2v_feeds[0],
+                      fetch_list=['shared_w@GRAD'], scope=probe.scope,
+                      return_numpy=False)[0]
+    if type(g).__name__ != 'SelectedRows' or \
+            g.rows.shape[0] != 4 * w2v['batch']:
+        raise AssertionError('sp1: the fan-out sum is not a SelectedRows of '
+                             '4 x batch rows')
+    probe.exe.close()
+    out['word2vec'] = sparse_vs_dense(place, sync, w2v_build, w2v_reader,
+                                      w2v['batch'], w2v_feeds,
+                                      'sp1 word2vec SGD')
+    log('sp1 sparse embeddings: lazy Adam %d steps, %.1f rows a table held '
+        'a step; card vs CPU loss %.3e; step ms (dense / sparse): Adam '
+        '%.3f / %.3f, SGD %.3f / %.3f, word2vec SGD %.3f / %.3f, lazy Adam '
+        'captured %.3f (%s)'
+        % (out['lazy'][0], out['lazy'][1], out['cpu'][0], out['adam'][1],
+           out['adam'][2], out['sgd'][1], out['sgd'][2],
+           out['word2vec'][1], out['word2vec'][2], out['ms'],
+           gpu_name_and_power_limit() if place.device.type == 'cuda'
+           else 'CPU'))
+    return out
+
+
+def ssd_net(fluid, img, w):
+    """The six (SSD_TINY: three) feature maps: VGG-16's conv groups by
+    nets.img_conv_group with batch norm (a group of pool 1 keeps its
+    size), pool, conv5's group, fc6 and fc7, then the extra layers."""
+    L = fluid.layers
+    net = img
+    for width, convs, pool in w['vgg']:
+        net = fluid.nets.img_conv_group(
+            input=net, conv_num_filter=[width] * convs, pool_size=pool,
+            pool_stride=pool, conv_filter_size=3, conv_act='relu',
+            conv_with_batchnorm=True, pool_type='max')
+    maps = [net]
+    net = L.pool2d(net, pool_size=2, pool_stride=2, pool_type='max')
+    width, convs = w['conv5']
+    net = fluid.nets.img_conv_group(
+        input=net, conv_num_filter=[width] * convs, pool_size=1,
+        pool_stride=1, conv_filter_size=3, conv_act='relu',
+        conv_with_batchnorm=True, pool_type='max')
+    net = L.conv2d(net, num_filters=w['fc'], filter_size=3, padding=1,
+                   act='relu')
+    net = L.conv2d(net, num_filters=w['fc'], filter_size=1, act='relu')
+    maps.append(net)
+    for mid, width, stride, pad in w['extras']:
+        net = L.conv2d(net, num_filters=mid, filter_size=1, act='relu')
+        net = L.conv2d(net, num_filters=width, filter_size=3, stride=stride,
+                       padding=pad, act='relu')
+        maps.append(net)
+    return maps
+
+
+SSD_FEEDS = ['image', 'gt_box', 'gt_label']
+
+
+def ssd_build(w):
+    """SSD over ssd_net's maps: multi_box_head (SSD300's settings, w's
+    aspect ratios), ssd_loss, mean, Momentum(w['lr'], w['momentum']) with
+    L2Decay(w['l2']). build(fluid) returns {feeds, loss, locs, confs,
+    priors, vars, maps}."""
+    def build(fluid):
+        L = fluid.layers
+        img = L.data(name='image', shape=[3, w['hw'], w['hw']],
+                     dtype='float32')
+        gt_box = L.data(name='gt_box', shape=[w['max_boxes'], 4],
+                        dtype='float32')
+        gt_label = L.data(name='gt_label', shape=[w['max_boxes']],
+                          dtype='int64')
+        maps = ssd_net(fluid, img, w)
+        locs, confs, priors, pvars = L.multi_box_head(
+            maps, img, base_size=w['base_size'], num_classes=w['classes'],
+            min_ratio=w['min_ratio'], max_ratio=w['max_ratio'],
+            aspect_ratios=w['aspect_ratios'], offset=0.5, flip=True)
+        loss = L.mean(L.ssd_loss(locs, confs, gt_box, gt_label, priors,
+                                 pvars))
+        fluid.optimizer.Momentum(
+            learning_rate=w['lr'], momentum=w['momentum'],
+            regularization=fluid.regularizer.L2Decay(w['l2'])).minimize(loss)
+        return dict(feeds=list(SSD_FEEDS), loss=loss, locs=locs,
+                    confs=confs, priors=priors, vars=pvars, maps=maps)
+    return build
+
+
+def ssd_book_build(w):
+    """ssd_build for BookRun: (feed names, the outputs, the loss)."""
+    def build(fluid):
+        out = ssd_build(w)(fluid)
+        return out['feeds'], out, out['loss']
+    return build
+
+
+def ssd_feed(rng, w, batch=None):
+    """A seeded batch of synthetic scenes: 1..max_boxes boxes an image,
+    labels 1..classes-1, each box a filled rectangle in its label's
+    colour over noise; gt padded to max_boxes with label -1 and a zero
+    box, the detection_map label [B, G, 5] (label, box) beside them."""
+    B, hw, G = batch or w['batch'], w['hw'], w['max_boxes']
+    colours = np.random.RandomState(SEED).rand(w['classes'], 3) * 2 - 1
+    img = (rng.randn(B, 3, hw, hw) * 0.3).astype('float32')
+    box = np.zeros((B, G, 4), 'float32')
+    label = np.full((B, G), -1, 'int64')
+    for b in range(B):
+        for g in range(rng.randint(1, G + 1)):
+            lo = rng.uniform(0.0, 0.7, 2)
+            hi = np.minimum(lo + rng.uniform(0.1, 0.5, 2), 1.0)
+            box[b, g] = [lo[0], lo[1], hi[0], hi[1]]
+            label[b, g] = rng.randint(1, w['classes'])
+            x0, y0, x1, y1 = (box[b, g] * hw).astype(int)
+            img[b, :, y0:y1 + 1, x0:x1 + 1] += \
+                colours[label[b, g]][:, None, None].astype('float32')
+    gt = np.concatenate([np.maximum(label, 0)[..., None].astype('float32'),
+                         box], -1)
+    return {'image': img, 'gt_box': box, 'gt_label': label, 'gt': gt}
+
+
+def ssd_train_feed(feed):
+    return {n: feed[n] for n in SSD_FEEDS}
+
+
+def ssd_map_sizes(run):
+    """The feature maps' sizes and the prior count the program gives."""
+    sizes = [tuple(m.shape[2:]) for m in run.pred['maps']]
+    return sizes, int(run.pred['priors'].shape[0])
+
+
+def ssd_params(program, n_maps):
+    """The first and a middle backbone conv, and the first map's two head
+    convs (multi_box_head's loc and conf convs, two a map)."""
+    convs = [p.name for p in program.global_block().all_parameters()
+             if p.name.startswith('conv2d_') and p.name.endswith('.w_0')]
+    return (convs[0], convs[len(convs) // 3], convs[-2 * n_maps],
+            convs[-2 * n_maps + 1])
+
+
+def cpu_conv_spread(build, saved, feed, params, optimizer):
+    """The CPU port's own spread on one step: the step with oneDNN's
+    convolutions against the step with PyTorch's native ones, from the
+    same state and feed. {param: the larger of its gradient's (the first
+    velocity, sum |diff| / sum |g|) and its update's (gradient-weighted)
+    relative differences}."""
+    import torch
+    import paddle_tpu_torch as fluid
+    cpu = BookRun(fluid.CPUPlace(), build, None, 1)
+    host = {n: t.cpu() for n, t in saved.items()}
+    accs = _sq_accumulators(cpu, params, optimizer)
+    states = []
+    prev = torch.backends.mkldnn.enabled
+    try:
+        for onednn in (True, False):
+            torch.backends.mkldnn.enabled = onednn
+            cpu.restore(host)
+            cpu.step(feed)
+            states.append({n: cpu.scope.find_var(n).clone()
+                           for n in list(params) + accs})
+    finally:
+        torch.backends.mkldnn.enabled = prev
+    a, b = states
+    upd = _first_order_diffs(
+        {n: (b[n] - host[n]).float() for n in params},
+        {n: (a[n] - host[n]).float() for n in params},
+        {n: a[m].float() for n, m in zip(params, accs)}, params)
+    out = {}
+    for n, m in zip(params, accs):
+        g = ((a[m].double() - b[m].double()).abs().sum() /
+             b[m].double().abs().sum().clamp_min(1e-30)).item()
+        out[n] = max(g, upd[n])
+    log('the CPU\'s own spread on one step (oneDNN vs native convolutions): '
+        '%s' % ', '.join('%s %.3e' % kv for kv in out.items()))
+    return out
+
+
+@phase('det1: SSD300 (VGG-16 conv groups, six maps, 21 classes, batch 32) '
+       'trained under Momentum + L2Decay, captured')
+def ssd_steps(place, sync, w=None):
+    """ssd_build at SSD (300 px, batch 32) on seeded synthetic scenes:
+    10 steps over SSD_BATCHES batches twice, captured vs op by op the
+    same bits (under cuDNN's deterministic algorithms), the loss falling,
+    one capture a device segment; step ms, images/s, device busy, peak
+    memory, graphs captured; the map sizes and prior count; then one
+    step on SSD_CPU_BATCH images vs the CPU port (loss within
+    SQ_CPU_RTOL, gradients (the first velocity) and updates within
+    SSD_STEP_TOL or SSD_SPREAD_FACTOR x the CPU's own spread between two
+    convolution algorithms, whichever is larger, as r2's rule: the first
+    conv's gradient sums ~180,000 products a weight into a small
+    difference, where two CPU algorithms already disagree by more than
+    SSD_STEP_TOL). Returns the run for det2."""
+    w = w or SSD
+    with deterministic_convs():
+        run = BookRun(place, ssd_book_build(w), None, w['batch'])
+        sizes, priors = ssd_map_sizes(run)
+        log('det1 SSD (%d px, %d classes): feature maps %s, %d priors'
+            % (w['hw'], w['classes'], sizes, priors))
+        rng = np.random.RandomState(SEED + 40)
+        feeds = [ssd_train_feed(ssd_feed(rng, w))
+                 for _ in range(SSD_BATCHES)]
+        params = ssd_params(run.main, len(sizes))
+        out = _sq_captured(run, 'det1 SSD', feeds * 2, params, 'momentum',
+                           sync, profile=True)
+        saved = out.pop('saved')
+        small = ssd_train_feed(ssd_feed(np.random.RandomState(SEED + 41), w,
+                                        SSD_CPU_BATCH))
+        spread = cpu_conv_spread(ssd_book_build(w), saved, small, params,
+                                 'momentum')
+        out['cpu'] = card_vs_cpu(
+            run, ssd_book_build(w), saved, small, params, 'momentum',
+            'det1 SSD', update_tol=SSD_STEP_TOL, grad_tol=SSD_STEP_TOL,
+            floors={n: SSD_SPREAD_FACTOR * v for n, v in spread.items()})
+        out['spread'] = spread
+        run.restore(saved)
+        for f in feeds * 2:
+            run.step(f)
+    out.update(run=run, sizes=sizes, priors=priors,
+               img_s=w['batch'] / out['ms'] * 1e3)
+    log('det1 SSD (batch %d, %d px, fp32 Momentum + L2Decay): %d ops, %d '
+        'device segments; captured %.3f ms a step (%.1f images/s), op by op '
+        '%.3f ms; device %s ms, busy %s; %d graphs captured; peak %.4f GB '
+        'allocated over the run\'s start'
+        % (w['batch'], w['hw'], out['n_ops'], out['segments'], out['ms'],
+           out['img_s'], out['eager_ms'], _fmt_ms(out['device_ms'] or None),
+           _fmt_busy(out['busy']), out['stats']['compiled_segments'],
+           out['peak_gb']))
+    return out
+
+
+def ssd_decode_program(fluid, w):
+    """detection_output (w's NMS settings) and detection_map ('11point',
+    overlap 0.5) over fed head outputs: (program, feed names, fetches)."""
+    main = fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main,
+                                                        fluid.Program()):
+        L = fluid.layers
+        locs = L.data(name='locs', shape=[-1, 4], dtype='float32')
+        scores = L.data(name='scores', shape=[w['classes'], -1],
+                        dtype='float32')
+        priors = L.data(name='priors', shape=[4], dtype='float32')
+        pvars = L.data(name='pvars', shape=[4], dtype='float32')
+        gt = L.data(name='gt', shape=[w['max_boxes'], 5], dtype='float32')
+        dets, count = L.detection_output(
+            locs, scores, priors, pvars, nms_threshold=w['nms_threshold'],
+            nms_top_k=w['nms_top_k'], keep_top_k=w['keep_top_k'],
+            score_threshold=w['score_threshold'])
+        m_ap = L.detection_map(dets, gt, class_num=w['classes'],
+                               overlap_threshold=0.5, ap_version='11point')
+    return main, [dets, count, m_ap]
+
+
+def ssd_test_program(run, w):
+    """The trained program's test clone with softmax, detection_output
+    and detection_map appended: (program, fetches: the decode's inputs,
+    the detections, the valid counts, the mAP)."""
+    fluid = run.fluid
+    test = run.main.clone(for_test=True)
+    block = test.global_block()
+    with fluid.unique_name.guard('decode_'), \
+            fluid.program_guard(test, fluid.Program()):
+        L = fluid.layers
+        gt = L.data(name='gt', shape=[w['max_boxes'], 5], dtype='float32')
+        locs = block.var(run.pred['locs'].name)
+        scores = L.transpose(L.softmax(block.var(run.pred['confs'].name)),
+                             perm=[0, 2, 1])
+        priors = block.var(run.pred['priors'].name)
+        pvars = block.var(run.pred['vars'].name)
+        dets, count = L.detection_output(
+            locs, scores, priors, pvars, nms_threshold=w['nms_threshold'],
+            nms_top_k=w['nms_top_k'], keep_top_k=w['keep_top_k'],
+            score_threshold=w['score_threshold'])
+        m_ap = L.detection_map(dets, gt, class_num=w['classes'],
+                               overlap_threshold=0.5, ap_version='11point')
+    return test, [locs, scores, priors, pvars, dets, count, m_ap]
+
+
+def detection_margin(label, got, want, tol=DET_SCORE_TOL):
+    """The margin rule for two detection batches (det2): got and want are
+    [B, K, 6] rows (label, score, box) in score order. An image agrees if
+    every row has the other's label and its score and box within tol.
+    Where an image's rows first differ, both scores there must differ by
+    at most tol and not be equal (a near tie in the score order: equal
+    scores sort by index alike on both devices, so a different row at an
+    equal score is an error), and the image is compared no further; at
+    most a quarter of the images may end so. Returns (images that agree,
+    images ending at a near tie, the largest score difference); raises
+    AssertionError otherwise."""
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    if got.shape != want.shape:
+        raise AssertionError('%s: detections of shapes %s and %s'
+                             % (label, got.shape, want.shape))
+    equal, ties, worst = 0, [], 0.0
+    for b in range(want.shape[0]):
+        for k in range(want.shape[1]):
+            g, t = got[b, k], want[b, k]
+            ds = abs(g[1] - t[1])
+            if g[0] == t[0] and ds <= tol and \
+                    np.abs(g[2:] - t[2:]).max() <= tol:
+                worst = max(worst, ds)
+                continue
+            if not (0.0 < ds <= tol):
+                raise AssertionError(
+                    '%s: image %d, row %d: %s against %s (score difference '
+                    '%.3e, tol %g)' % (label, b, k, g.tolist(), t.tolist(),
+                                       ds, tol))
+            worst = max(worst, ds)
+            ties.append((b, k))
+            break
+        else:
+            equal += 1
+    if len(ties) > want.shape[0] // 4:
+        raise AssertionError('%s: %d of %d images end at a near tie (%s)'
+                             % (label, len(ties), want.shape[0], ties))
+    return equal, len(ties), worst
+
+
+@phase('det2: SSD300 decoding (detection_output: NMS 0.45, top 400, keep '
+       '200) and detection_map from det1\'s scope, batch 8, captured')
+def ssd_decode(det1, place, sync, w=None):
+    """det1's trained program's test clone with softmax, detection_output
+    and detection_map (11point, overlap 0.5) at w['decode_batch'] images
+    on the card (the third run on replays, timed), then the CPU port's
+    detection_output and detection_map (ssd_decode_program) on the head
+    outputs the card computed: the detections by detection_margin, the
+    valid counts equal, the mAP within DET_SCORE_TOL; then the mAP of
+    the ground truths mixed into the decoded rows (map_of_mixed). Logs
+    ms a decoded batch."""
+    import paddle_tpu_torch as fluid
+    w = w or SSD
+    run = det1['run']
+    test, fetch = ssd_test_program(run, w)
+    feed = ssd_feed(np.random.RandomState(SEED + 42), w, w['decode_batch'])
+    exe = fluid.Executor(place)
+    with deterministic_convs():
+        got, dec_ms = _timed_runs(exe, test, feed, fetch, run.scope, sync)
+    locs, scores, priors, pvars, dets, count, m_ap = (np.asarray(v)
+                                                      for v in got)
+    main, cpu_fetch = ssd_decode_program(fluid, w)
+    want = fluid.Executor(fluid.CPUPlace()).run(
+        main, feed={'locs': locs, 'scores': scores, 'priors': priors,
+                    'pvars': pvars, 'gt': feed['gt']},
+        fetch_list=cpu_fetch, scope=fluid.Scope())
+    wdets, wcount, wmap = (np.asarray(v) for v in want)
+    margin = detection_margin('det2 detections', dets, wdets)
+    map_diff = float(np.abs(m_ap - wmap).max())
+    log('det2 SSD decode (batch %d, %d priors, %d classes): %.3f ms a '
+        'decoded batch (test clone, replayed); valid detections %s; %d of %d '
+        'images equal to the CPU port\'s, %d end at a near tie, scores '
+        'within %.3e; mAP (11point) %.6f on the card, %.6f on the CPU '
+        '(|diff| %.3e, tol %g)'
+        % (w['decode_batch'], priors.shape[0], w['classes'], dec_ms,
+           count.tolist(), margin[0], w['decode_batch'], margin[1],
+           margin[2], float(m_ap[0]), float(wmap[0]), map_diff,
+           DET_SCORE_TOL))
+    if not (np.array_equal(count, wcount) and map_diff <= DET_SCORE_TOL and
+            np.isfinite(m_ap).all() and (count > 0).all()):
+        raise AssertionError('det2: the valid counts or the mAP differ from '
+                             'the CPU port\'s (counts %s vs %s)'
+                             % (count.tolist(), wcount.tolist()))
+    exe.close()
+    scored = map_of_mixed(place, dets, feed['gt'], w)
+    return dict(ms=dec_ms, margin=margin, map=float(m_ap[0]),
+                map_diff=map_diff, count=count.tolist(), mixed=scored)
+
+
+def mixed_detections(dets, gt):
+    """The ground truths as detections (their boxes nudged by 1% of the
+    image), each scored just under the decoder's row 3g+1 of its image,
+    beside the decoder's own rows: a batch whose mAP lies between 0 and
+    1 (after 10 steps the decoder's rows alone score 0)."""
+    B, K, _ = dets.shape
+    G = gt.shape[1]
+    rng = np.random.RandomState(SEED + 43)
+    own = np.full((B, G, 6), -1.0, 'float32')
+    valid = np.abs(gt[..., 1:]).sum(-1) > 0
+    own[..., 0] = np.where(valid, gt[..., 0], -1)
+    at = np.minimum(3 * np.arange(G) + 1, K - 1)
+    near = dets[:, at, 1]
+    own[..., 1] = np.where(valid, np.where(near > 0, near - 1e-3, 0.5), -1)
+    own[..., 2:] = np.where(valid[..., None], gt[..., 1:] + 0.01 *
+                            rng.randn(B, G, 4), -1)
+    return np.concatenate([own, dets[:, :K - G]], 1).astype('float32')
+
+
+def map_of_mixed(place, dets, gt, w):
+    """detection_map (11point, overlap 0.5) of mixed_detections on the
+    card and on the CPU: equal within DET_SCORE_TOL, and strictly
+    between 0 and 1. Returns (the card's mAP, |diff|)."""
+    import paddle_tpu_torch as fluid
+    mixed = mixed_detections(dets, gt)
+    got = {}
+    for p in (place, fluid.CPUPlace()):
+        main = fluid.Program()
+        with fluid.unique_name.guard(), \
+                fluid.program_guard(main, fluid.Program()):
+            d = fluid.layers.data(name='d', shape=list(mixed.shape[1:]),
+                                  dtype='float32')
+            g = fluid.layers.data(name='g', shape=list(gt.shape[1:]),
+                                  dtype='float32')
+            m = fluid.layers.detection_map(d, g, class_num=w['classes'],
+                                           overlap_threshold=0.5,
+                                           ap_version='11point')
+        got[p.device.type] = float(np.asarray(fluid.Executor(p).run(
+            main, feed={'d': mixed, 'g': gt}, fetch_list=[m],
+            scope=fluid.Scope())[0])[0])
+    card, cpu = got[place.device.type], got['cpu']
+    log('det2 detection_map of the ground truths mixed into the decoded '
+        'rows: %.6f on the card, %.6f on the CPU' % (card, cpu))
+    if not (abs(card - cpu) <= DET_SCORE_TOL and 0.0 < card < 1.0):
+        raise AssertionError('det2: the mixed batch\'s mAP %.6f on the card, '
+                             '%.6f on the CPU' % (card, cpu))
+    return card, abs(card - cpu)
+
+
 _SCRATCH_DIRS = []
 
 
@@ -8754,6 +9796,15 @@ def main():
         free_device_memory()
         mt3 = mt_contrib_steps(place, sync)
         mt_s = time.perf_counter() - t_mt
+        free_device_memory()
+
+        t_det = time.perf_counter()
+        sp1 = sparse_steps(place, sync)
+        free_device_memory()
+        det1 = ssd_steps(place, sync)
+        det2 = ssd_decode(det1, place, sync)
+        del det1['run']
+        det_s = time.perf_counter() - t_det
         free_device_memory()
 
         (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
@@ -8989,6 +10040,30 @@ def main():
            mt2[1]['ties'], mt2[MT['beam']]['ties'], mt3['ms'],
            mt3['eager_ms'], mt3['bits'], mt3['cpu'][0], mt3['logp'][0],
            mt3['dec_ms'], mt3['beams'][0], mt3['beams'][1]))
+    log('sparse gradients and detection (%.1f s for sp1, det1 and det2): '
+        'sp1 lazy Adam (mt1\'s program, both tables sparse) step %.3f ms '
+        'captured, %.3f ms op by op, the same bits %s, %d steps each holding '
+        '%.1f untouched rows a table to the bit, card vs CPU loss %.3e; '
+        'sparse vs dense ms (and update difference): Adam %.3f vs %.3f '
+        '(%.3e), SGD %.3f vs %.3f (%.3e), word2vec SGD %.3f vs %.3f (%.3e); '
+        'det1 SSD (%d px, batch %d, maps %s, %d priors) step %.3f ms '
+        'captured (%.1f images/s), %.3f ms op by op, device %s ms, busy %s, '
+        'peak %.4f GB, %d graphs, the same bits %s, card vs CPU loss %.3e; '
+        'det2 decode batch %d %.3f ms, %d of %d images equal (%d near ties), '
+        'mAP %.6f (card vs CPU %.3e), with the ground truths mixed in %.6f '
+        '(%.3e)'
+        % (det_s, sp1['ms'], sp1['eager_ms'], sp1['bits'], sp1['lazy'][0],
+           sp1['lazy'][1], sp1['cpu'][0], sp1['adam'][2], sp1['adam'][1],
+           max(sp1['adam'][0].values()), sp1['sgd'][2], sp1['sgd'][1],
+           max(sp1['sgd'][0].values()), sp1['word2vec'][2],
+           sp1['word2vec'][1], max(sp1['word2vec'][0].values()),
+           SSD['hw'], SSD['batch'], det1['sizes'], det1['priors'],
+           det1['ms'], det1['img_s'], det1['eager_ms'],
+           _fmt_ms(det1['device_ms'] or None), _fmt_busy(det1['busy']),
+           det1['peak_gb'], det1['stats']['compiled_segments'], det1['bits'],
+           det1['cpu'][0], SSD['decode_batch'], det2['ms'], det2['margin'][0],
+           SSD['decode_batch'], det2['margin'][1], det2['map'],
+           det2['map_diff'], det2['mixed'][0], det2['mixed'][1]))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -35,7 +35,8 @@ tensor- and sequence-parallel layers in their one-device form); ResNet
 training through the fused conv + BN op (models.resnet, NCHW); and the
 training core a plain Fluid program reaches: the eleven optimizers (SGD,
 Momentum, Adagrad, Adam, Adamax, DecayedAdagrad, Adadelta, RMSProp,
-Ftrl, ProximalGD, ProximalAdagrad) on dense gradients, the six
+Ftrl, ProximalGD, ProximalAdagrad), on dense gradients and on a sparse
+embedding's SelectedRows (lazy Adam and Adagrad touch its rows only), the six
 learning-rate schedules, the Variable operators, and the math, tensor,
 loss and dropout ops with their layers; rematerialization
 (layers.recompute, TransformerConfig(remat=)); the high-level Trainer
@@ -51,7 +52,10 @@ image models); and sequences: LoD feeds (LoDTensor, a (padded, lengths)
 tuple, DataFeeder's LoD slots) lowered to a padded tensor with a lengths
 companion, the sequence ops and layers (LSTM, GRU, CRF, sequence
 pooling and convolution, ...), models.stacked_lstm and the sequence
-book chapters. ROADMAP.md lists the rest.
+book chapters; control flow, beam search and machine_translation; and
+the detection ops and layers (SSD's multi_box_head, ssd_loss and
+detection_output, detection_map, Faster R-CNN's anchors, proposals and
+RoI ops). ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint

@@ -31,6 +31,12 @@ MFU and device memory around Executor.run (step_begin / step_end), a
 hit or a miss per segment dispatch, an `xla.compile` span around each
 warm-up and capture, and the segment's FLOPs counted during its warm-up
 (PreparedProgram.cost_flops).
+A sparse gradient (selected_rows.SelectedRows) is a run-local value
+like a tensor: it crosses segments, a graph's static inputs and outputs
+and the prepared-program cache as its (values, rows) pair with a static
+height, check_nan_inf scans its values, and a fetch gives it as the JAX
+package does (a 0-d object array holding it, its arrays on the host;
+itself with return_numpy=False).
 Each op's emitter (registry.py) computes with PyTorch on the place's
 tensors. Feeds go numpy -> tensor on the place; fetches come back as
 numpy unless return_numpy=False (then, on the captured path, a copy: the
@@ -76,6 +82,7 @@ from .framework import default_main_program, Program, Variable
 from .obs import perf as _perf
 from .obs import trace as _trace
 from .reader.pipeline import EOFException
+from .selected_rows import SelectedRows
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
            'CPUPlace', 'CUDAPlace', 'fetch_var', 'OpExecutionError',
@@ -309,7 +316,13 @@ def _expand_sequence_feeds(program, feed):
 
 def _to_numpy(value):
     """A fetch on the host; a bf16 tensor comes back as fp32 (numpy has
-    no bf16, and every bf16 value is exact in fp32)."""
+    no bf16, and every bf16 value is exact in fp32); a SelectedRows as a
+    0-d object array holding it with its arrays on the host, as
+    np.asarray gives it in the JAX package."""
+    if isinstance(value, SelectedRows):
+        out = np.empty((), dtype=object)
+        out[()] = value.map(_to_numpy)
+        return out
     if isinstance(value, torch.Tensor):
         value = value.detach()
         if value.dtype == torch.bfloat16:
@@ -388,7 +401,7 @@ class EmitContext(object):
             raise RuntimeError(
                 'var %r used before initialization -- did you run the '
                 'startup program?' % name)
-        if not isinstance(val, torch.Tensor):
+        if not isinstance(val, (torch.Tensor, SelectedRows)):
             # a host value put in the scope by hand: move it to the place
             # once, in the scope that holds it
             val = torch.as_tensor(np.asarray(val), device=self.device)
@@ -447,6 +460,16 @@ class EmitContext(object):
     def remat_generators(self, op):
         """(forward, recompute) generators of a remat_block op."""
         return self._executor._remat_generators(self._program, op)
+
+
+def _detached(value, copy):
+    """A fetch returned as tensors: detached, and a copy with `copy`
+    (the next replay writes a graph's tensors)."""
+    if isinstance(value, SelectedRows):
+        return value.map(lambda t: _detached(t, copy))
+    if isinstance(value, torch.Tensor):
+        return value.detach().clone() if copy else value.detach()
+    return value
 
 
 def _rebind(scope, name, value):
@@ -509,6 +532,8 @@ def check_finite(ctx, op, pos):
     read per output)."""
     for name in op.output_arg_names():
         val = ctx.local.get(name)
+        if isinstance(val, SelectedRows):
+            val = val.values
         if isinstance(val, torch.Tensor) and val.is_floating_point() and \
                 not bool(torch.isfinite(val).all()):
             raise OpExecutionError(
@@ -573,14 +598,22 @@ class _DeviceSegment(object):
 
 def value_signature(v):
     """(shape, dtype) of a tensor; of a tensor array (a list), its
-    elements' signatures."""
+    elements' signatures; of a SelectedRows, its values' and rows' and
+    its height."""
     if isinstance(v, list):
         return ('array', tuple(value_signature(x) for x in v))
+    if isinstance(v, SelectedRows):
+        return ('rows', value_signature(v.values), value_signature(v.rows),
+                v.height)
     return (tuple(getattr(v, 'shape', ())), getattr(v, 'dtype', None))
 
 
 def _clone_value(v):
-    return [_clone_value(x) for x in v] if isinstance(v, list) else v.clone()
+    if isinstance(v, list):
+        return [_clone_value(x) for x in v]
+    if isinstance(v, SelectedRows):
+        return v.map(torch.Tensor.clone)
+    return v.clone()
 
 
 def _copy_value(dst, src):
@@ -588,6 +621,9 @@ def _copy_value(dst, src):
     if isinstance(dst, list):
         for d, x in zip(dst, src):
             _copy_value(d, x)
+    elif isinstance(dst, SelectedRows):
+        _copy_value(dst.values, src.values)
+        _copy_value(dst.rows, src.rows)
     elif dst is not src:
         dst.copy_(src)
 
@@ -596,6 +632,8 @@ def _tensors_of(values):
     for v in values:
         if isinstance(v, list):
             yield from _tensors_of(v)
+        elif isinstance(v, SelectedRows):
+            yield from _tensors_of((v.values, v.rows))
         elif isinstance(v, torch.Tensor):
             yield v
 
@@ -662,6 +700,13 @@ def _copy_back(name, static, new):
                                    'in the body' % name)
         for s_, x in zip(static, new):
             _copy_back(name, s_, x)
+        return
+    if isinstance(static, SelectedRows):
+        if not isinstance(new, SelectedRows) or new.height != static.height:
+            raise OpExecutionError('while-loop var %r changed from '
+                                   'SelectedRows in the body' % name)
+        _copy_back(name, static.values, new.values)
+        _copy_back(name, static.rows, new.rows)
         return
     _same_layout(name, new, static, 'while-loop var')
     if new is not static:
@@ -972,8 +1017,7 @@ class Executor(object):
         # detached: a fetch carries no autograd record of the step; on
         # the captured path a copy, as the next replay writes the
         # graph's tensors
-        results = [(r.detach().clone() if captured else r.detach())
-                   if isinstance(r, torch.Tensor) else r for r in results]
+        results = [_detached(r, captured) for r in results]
         _perf.step_end(t0_perf, prepared, device=self.device, scope=scope,
                        sync=results)
         return results

@@ -16,7 +16,10 @@ from . import learning_rate_scheduler
 from .learning_rate_scheduler import *  # noqa: F401,F403
 from . import sequence
 from .sequence import *    # noqa: F401,F403
+from . import detection
+from .detection import *   # noqa: F401,F403
 
 __all__ = (io.__all__ + nn.__all__ + nn_extra.__all__ + tensor.__all__
            + ops.__all__ + control_flow.__all__
-           + learning_rate_scheduler.__all__ + sequence.__all__)
+           + learning_rate_scheduler.__all__ + sequence.__all__
+           + detection.__all__)

@@ -67,8 +67,10 @@ def fc(input, size, num_flatten_dims=1, param_attr=None, bias_attr=None,
 
 def embedding(input, size, is_sparse=False, is_distributed=False,
               padding_idx=None, param_attr=None, dtype='float32'):
-    """Embedding lookup; is_sparse/is_distributed are recorded as attrs
-    and do not change the forward."""
+    """Embedding lookup. is_sparse makes the table's gradient a
+    SelectedRows of the step's rows (selected_rows.py), which the
+    optimizers apply to those rows; is_distributed is recorded as an
+    attr. Neither changes the forward."""
     helper = LayerHelper('embedding', param_attr=param_attr)
     w = helper.create_parameter(attr=helper.param_attr, shape=size,
                                 dtype=dtype)

@@ -1,14 +1,15 @@
 """Counterpart of paddle_tpu/layers/nn_extra.py: the RNN units and CTC
 layers (:95-208: gru_unit, lstm_unit, dynamic_lstmp, warpctc,
-ctc_greedy_decoder), fused_softmax_cross_entropy :236 and
-flash_attention :551."""
+ctc_greedy_decoder), fused_softmax_cross_entropy :236,
+polygon_box_transform :542 and flash_attention :551."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper
 from .sequence import _seq_inputs
 
 __all__ = ['flash_attention', 'fused_softmax_cross_entropy', 'gru_unit',
-           'lstm_unit', 'dynamic_lstmp', 'warpctc', 'ctc_greedy_decoder']
+           'lstm_unit', 'dynamic_lstmp', 'warpctc', 'ctc_greedy_decoder',
+           'polygon_box_transform']
 
 
 def gru_unit(input, hidden, size, param_attr=None, bias_attr=None,
@@ -120,6 +121,15 @@ def ctc_greedy_decoder(input, blank, name=None):
                      attrs={'blank': blank, 'padding_value': 0})
     out.seq_lens = out_lens
     out.lod_level = 1
+    return out
+
+
+def polygon_box_transform(input, name=None):
+    helper = LayerHelper('polygon_box_transform', name=name)
+    out = helper.create_variable_for_type_inference(input.dtype)
+    helper.append_op(type='polygon_box_transform',
+                     inputs={'Input': [input]},
+                     outputs={'Output': [out]})
     return out
 
 

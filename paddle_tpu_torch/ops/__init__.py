@@ -13,3 +13,4 @@ from . import sequence_ops  # noqa: F401
 from . import ctc_rnn_ops   # noqa: F401
 from . import array_ops     # noqa: F401
 from . import beam_search_ops  # noqa: F401
+from . import detection_ops  # noqa: F401

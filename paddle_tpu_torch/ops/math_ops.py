@@ -16,7 +16,16 @@ Attr defaults are the JAX emitters', not those of the PyTorch function
 of the same name: hard_sigmoid's slope 0.2 and offset 0.5, leaky_relu's
 alpha 0.02, stanh's scale_a 2/3 and scale_b 1.7159, gelu's tanh form.
 elementwise_mod is floor-mod (jnp.mod, torch.remainder),
-elementwise_floordiv floors, and round rounds half to even."""
+elementwise_floordiv floors, and round rounds half to even.
+
+A SelectedRows input (a sparse embedding's grad on its way through the
+clip and regularizer ops) keeps its rows where the op is linear per row
+(elementwise mul and div by a 0-d y, scale without a bias, clip_by_norm's
+rescale, sum over SelectedRows alone, which concatenates rows and
+values: backward's fan-out sum of a shared table); everywhere else it
+takes its dense form first (the merged rows: clip, squared_l2_norm, the
+norm of clip_by_norm, any other elementwise op, sum with a dense
+input), as the JAX package does."""
 from __future__ import annotations
 
 import numpy as np
@@ -25,6 +34,7 @@ import torch.nn.functional as F
 
 from ..registry import (register_op, op_emitter, same_shape_infer,
                         register_vjp_grad, amp_cast)
+from ..selected_rows import SelectedRows
 
 
 def _declared_rank(ctx, op, slot):
@@ -63,6 +73,16 @@ def _register_elementwise(name, fn):
     def emit(ctx, op):
         x = ctx.get(op.single_input('X'))
         y = ctx.get(op.single_input('Y'))
+        if isinstance(y, SelectedRows):
+            y = y.to_dense()
+        if isinstance(x, SelectedRows):
+            # mul and div by a scalar are linear per row, so the rows
+            # survive (the grad-clip scale); anything else merges them
+            if name in ('mul', 'div') and y.ndim == 0:
+                ctx.set(op.single_output('Out'), SelectedRows(
+                    fn(x.values, y), x.rows, x.height))
+                return
+            x = x.to_dense()
         if ctx.amp:
             # a bf16 activation meeting an fp32 PARAMETER (bias add)
             # casts the parameter down instead of promoting the stream
@@ -263,6 +283,15 @@ def _scale_emit(ctx, op):
     x = ctx.get(op.single_input('X'))
     scale = op.attr('scale', 1.0)
     bias = op.attr('bias', 0.0)
+    if isinstance(x, SelectedRows):
+        # scales the rows; a bias would densify, which the JAX package
+        # refuses
+        if bias != 0.0:
+            raise NotImplementedError(
+                'scale with nonzero bias on a SelectedRows grad')
+        ctx.set(op.single_output('Out'),
+                SelectedRows(x.values * scale, x.rows, x.height))
+        return
     if op.attr('bias_after_scale', True):
         out = x * scale + bias
     else:
@@ -276,9 +305,12 @@ register_vjp_grad('scale')
 
 @op_emitter('clip')
 def _clip_emit(ctx, op):
+    x = ctx.get(op.single_input('X'))
+    if isinstance(x, SelectedRows):
+        # nonlinear: repeated rows merge before the clip
+        x = x.to_dense()
     ctx.set(op.single_output('Out'),
-            torch.clamp(ctx.get(op.single_input('X')), op.attr('min'),
-                        op.attr('max')))
+            torch.clamp(x, op.attr('min'), op.attr('max')))
 
 
 register_op('clip', infer_shape=same_shape_infer())
@@ -289,10 +321,16 @@ register_vjp_grad('clip')
 def _clip_by_norm_emit(ctx, op):
     x = ctx.get(op.single_input('X'))
     max_norm = op.attr('max_norm')
-    norm = torch.sqrt(torch.sum(torch.square(x)))
+    # a SelectedRows' norm is its merged rows'; the rescale keeps its rows
+    dense = x.to_dense() if isinstance(x, SelectedRows) else x
+    norm = torch.sqrt(torch.sum(torch.square(dense)))
     scale = torch.where(norm > max_norm,
                         max_norm / torch.clamp(norm, min=1e-12),
                         torch.ones_like(norm))
+    if isinstance(x, SelectedRows):
+        ctx.set(op.single_output('Out'),
+                SelectedRows(x.values * scale, x.rows, x.height))
+        return
     ctx.set(op.single_output('Out'), x * scale)
 
 
@@ -305,6 +343,13 @@ register_vjp_grad('clip_by_norm')
 @op_emitter('sum')
 def _sum_emit(ctx, op):
     xs = [ctx.get(n) for n in op.input('X')]
+    if all(isinstance(x, SelectedRows) for x in xs):
+        # rows and values concatenated; the consumer's scatter merges
+        ctx.set(op.single_output('Out'), SelectedRows(
+            torch.cat([x.values for x in xs]),
+            torch.cat([x.rows.to(torch.int32) for x in xs]), xs[0].height))
+        return
+    xs = [x.to_dense() if isinstance(x, SelectedRows) else x for x in xs]
     out = xs[0]
     for x in xs[1:]:
         out = out + x
@@ -439,6 +484,9 @@ register_op('isfinite', infer_shape=_isfinite_infer, no_grad=True)
 @op_emitter('squared_l2_norm')
 def _squared_l2_norm_emit(ctx, op):
     x = ctx.get(op.single_input('X'))
+    if isinstance(x, SelectedRows):
+        # repeated rows sum before the square
+        x = x.to_dense()
     ctx.set(op.single_output('Out'), torch.sum(torch.square(x)))
 
 

@@ -7,7 +7,8 @@ softmax_with_cross_entropy :607, sigmoid_cross_entropy_with_logits
 
 Grads: recorded forwards (registry.register_vjp_grad), except
 lookup_table, whose grad op is a plain scatter-add (index_put_ with
-accumulate, which sums in one order), batch_norm, whose grad op is the
+accumulate, which sums in one order) or, with is_sparse, a SelectedRows
+of the step's rows (selected_rows.py), batch_norm, whose grad op is the
 JAX package's closed form, and dropout, whose grad op multiplies by the
 forward's Mask output.
 
@@ -31,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from ..framework import grad_var_name
+from ..selected_rows import SelectedRows
 from ..registry import (register_op, op_emitter, same_shape_infer,
                         register_vjp_grad, amp_cast)
 
@@ -563,9 +565,10 @@ def _lookup_table_grad_maker(op, block):
 
 @op_emitter('lookup_table_grad')
 def _lookup_table_grad_emit(ctx, op):
-    """Dense scatter-add of the upstream rows into a zero table. The JAX
-    package's is_sparse=True SelectedRows grad is not ported: its dense
-    form (the merged rows) is computed instead. index_put_ with
+    """is_sparse=True: W@GRAD is a SelectedRows of the step's rows (the
+    ids, repeats kept) and their upstream grad rows, padding_idx rows
+    zeroed; its row count is the step's lookups, a static shape. Dense:
+    the upstream rows scatter-added into a zero table. index_put_ with
     accumulate sorts the ids and sums each row's part in one order, so
     two runs give the same bits on the card (index_add_ sums with
     atomics: 10 Adagrad steps of an LSTM over its rows drifted 2e-2
@@ -575,12 +578,17 @@ def _lookup_table_grad_emit(ctx, op):
     gout = ctx.get(op.single_input('Out@GRAD'))
     squeeze_last = ids.ndim > 1 and ids.shape[-1] == 1
     flat = (ids.reshape(ids.shape[:-1]) if squeeze_last else ids)
-    flat = flat.reshape(-1).long()
+    flat = flat.reshape(-1)
     rows_g = gout.reshape((flat.numel(),) + tuple(w.shape[1:])).to(w.dtype)
     pad = op.attr('padding_idx', -1)
     if pad != -1:
         rows_g = rows_g.masked_fill((flat == pad).unsqueeze(-1), 0.0)
-    gw = torch.zeros_like(w).index_put_((flat,), rows_g, accumulate=True)
+    if op.attr('is_sparse', False):
+        ctx.set(op.single_output('W@GRAD'),
+                SelectedRows(rows_g, flat.to(torch.int32), w.shape[0]))
+        return
+    gw = torch.zeros_like(w).index_put_((flat.long(),), rows_g,
+                                        accumulate=True)
     ctx.set(op.single_output('W@GRAD'), gw)
 
 

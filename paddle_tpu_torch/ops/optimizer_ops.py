@@ -1,8 +1,15 @@
 """Optimizer update ops (counterpart of paddle_tpu/ops/optimizer_ops.py:
 sgd :47, momentum :67-90, adam :91-147, adagrad :150, decayed_adagrad
 :178, adamax :197, adadelta :223, rmsprop :246, ftrl :269, proximal_gd
-:311, proximal_adagrad :326; dense gradients only: the port has no
-SelectedRows, so Adam's lazy_mode is the dense update).
+:311, proximal_adagrad :326).
+
+A SelectedRows gradient (a sparse embedding's, selected_rows.py) takes
+the JAX package's sparse kernels: sgd subtracts the touched rows' grads
+(a repeated row's parts merged first, in the dense grad's order, so the
+result is the dense update's bits); adam under lazy_mode and adagrad
+update the touched rows only (a [height, 1] row mask), so an untouched
+row keeps its parameter and accumulators to the bit; adam without
+lazy_mode and every other optimizer take its dense form (_densify).
 
 The JAX package computes every output as a fresh value and relies on
 buffer donation to reuse the memory; here the Scope's tensors are
@@ -20,6 +27,39 @@ from __future__ import annotations
 import torch
 
 from ..registry import register_op
+from ..selected_rows import SelectedRows
+
+
+def _densify(g):
+    """A SelectedRows grad's dense form (repeated rows summed), for the
+    optimizers without a sparse kernel; a dense grad as it is."""
+    return g.to_dense() if isinstance(g, SelectedRows) else g
+
+
+def _merged(g, dtype):
+    """(rows, grads): the rows of a SelectedRows sorted, and at each one
+    the sum of all its parts (its dense grad's row, the same bits: the
+    parts add in their order in g, from zero). A repeated row appears as
+    often as in g, with the same sum each time, so a write at `rows`
+    with accumulate=False writes one value. Static shapes, no host
+    read."""
+    rows = g.rows.long()
+    order = torch.argsort(rows, stable=True)
+    rows = rows[order]
+    start = torch.ones_like(rows, dtype=torch.bool)
+    start[1:] = rows[1:] != rows[:-1]
+    seg = torch.cumsum(start.long(), 0) - 1
+    sums = torch.zeros_like(g.values, dtype=dtype).index_put_(
+        (seg,), g.values[order].to(dtype), accumulate=True)
+    return rows, sums[seg]
+
+
+def _row_mask(g, like):
+    """[height, 1, ...] bool mask of the rows a SelectedRows grad touches,
+    shaped to broadcast against `like` (the parameter)."""
+    m = torch.zeros(g.height, dtype=torch.bool, device=like.device)
+    m.index_fill_(0, g.rows.long(), True)
+    return m.reshape((g.height,) + (1,) * (like.ndim - 1))
 
 
 def _passthrough_infer(pairs):
@@ -41,7 +81,14 @@ def _lr(ctx, op, p):
 def _sgd_emit(ctx, op):
     p = ctx.get(op.single_input('Param'))
     g = ctx.get(op.single_input('Grad'))
-    p.sub_(_lr(ctx, op, p) * g.to(p.dtype))
+    if isinstance(g, SelectedRows):
+        # the touched rows only: a repeated row's parts merged first, in
+        # the order the dense grad sums them, then subtracted once, so
+        # every row takes the dense update's bits
+        rows, merged = _merged(g, p.dtype)
+        p.index_put_((rows,), p[rows] - _lr(ctx, op, p) * merged)
+    else:
+        p.sub_(_lr(ctx, op, p) * g.to(p.dtype))
     ctx.set(op.single_output('ParamOut'), p)
 
 
@@ -51,7 +98,7 @@ register_op('sgd', emit=_sgd_emit, no_grad=True,
 
 def _momentum_emit(ctx, op):
     p = ctx.get(op.single_input('Param'))
-    g = ctx.get(op.single_input('Grad')).to(p.dtype)
+    g = _densify(ctx.get(op.single_input('Grad'))).to(p.dtype)
     v = ctx.get(op.single_input('Velocity'))
     lr = _lr(ctx, op, p)
     mu = op.attr('mu')
@@ -92,24 +139,32 @@ def _dense_inputs(ctx, op, *slots):
     """Param, Grad (in the param's dtype), the learning rate as a
     0-d tensor, then the named accumulators."""
     p = ctx.get(op.single_input('Param'))
-    g = ctx.get(op.single_input('Grad')).to(p.dtype)
+    g = _densify(ctx.get(op.single_input('Grad'))).to(p.dtype)
     accs = [ctx.get(op.single_input(s)) for s in slots]
     return [p, g, _lr(ctx, op, p)] + accs
 
 
 def _adam_emit(ctx, op):
+    sparse = ctx.get(op.single_input('Grad'))
     p, g, lr, m1, m2, b1p, b2p = _dense_inputs(
         ctx, op, 'Moment1', 'Moment2', 'Beta1Pow', 'Beta2Pow')
     b1 = op.attr('beta1', 0.9)
     b2 = op.attr('beta2', 0.999)
     eps = op.attr('epsilon', 1e-8)
-    # lazy_mode only changes the SelectedRows update; on a dense grad
-    # it is this one
     m1_new = b1 * m1 + (1 - b1) * g
     m2_new = b2 * m2 + (1 - b2) * torch.square(g)
     lr_t = (lr * torch.sqrt(1 - b2p) / (1 - b1p)).reshape(())
-    _store(ctx, op, 'Param', 'ParamOut',
-           p - lr_t * m1_new / (torch.sqrt(m2_new) + eps))
+    p_new = p - lr_t * m1_new / (torch.sqrt(m2_new) + eps)
+    if isinstance(sparse, SelectedRows) and op.attr('lazy_mode', False):
+        # lazy: a row this step's ids miss keeps its parameter and both
+        # moments; a touched row takes the full update with its merged
+        # grad. Without lazy_mode a SelectedRows grad is its dense form:
+        # every row's moments decay
+        mask = _row_mask(sparse, p)
+        m1_new = torch.where(mask, m1_new, m1)
+        m2_new = torch.where(mask, m2_new, m2)
+        p_new = torch.where(mask, p_new, p)
+    _store(ctx, op, 'Param', 'ParamOut', p_new)
     _store(ctx, op, 'Moment1', 'Moment1Out', m1_new)
     _store(ctx, op, 'Moment2', 'Moment2Out', m2_new)
     _store(ctx, op, 'Beta1Pow', 'Beta1PowOut', b1p * b1)
@@ -124,11 +179,17 @@ register_op('adam', emit=_adam_emit, no_grad=True,
 
 
 def _adagrad_emit(ctx, op):
+    sparse = ctx.get(op.single_input('Grad'))
     p, g, lr, m = _dense_inputs(ctx, op, 'Moment')
     eps = op.attr('epsilon', 1e-6)
     m_new = m + torch.square(g)
-    _store(ctx, op, 'Param', 'ParamOut',
-           p - lr * g / (torch.sqrt(m_new) + eps))
+    p_new = p - lr * g / (torch.sqrt(m_new) + eps)
+    if isinstance(sparse, SelectedRows):
+        # the touched rows only (the JAX package's sparse kernel)
+        mask = _row_mask(sparse, p)
+        m_new = torch.where(mask, m_new, m)
+        p_new = torch.where(mask, p_new, p)
+    _store(ctx, op, 'Param', 'ParamOut', p_new)
     _store(ctx, op, 'Moment', 'MomentOut', m_new)
 
 
@@ -174,7 +235,7 @@ register_op('adamax', emit=_adamax_emit, no_grad=True,
 
 def _adadelta_emit(ctx, op):
     p = ctx.get(op.single_input('Param'))
-    g = ctx.get(op.single_input('Grad')).to(p.dtype)
+    g = _densify(ctx.get(op.single_input('Grad'))).to(p.dtype)
     avg_sq_grad = ctx.get(op.single_input('AvgSquaredGrad'))
     avg_sq_upd = ctx.get(op.single_input('AvgSquaredUpdate'))
     rho = op.attr('rho', 0.95)

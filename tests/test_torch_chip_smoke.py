@@ -19,7 +19,10 @@ weights of the update measure, the wiring into main() and an end-to-end
 run on the CPU at a tiny width); the control-flow and
 machine_translation phases cf1 and mt1-mt3 (their wiring into main(),
 beam_margin, the chapter's Program, an end-to-end run on the CPU at a
-tiny width); and the script's refusal to run without a card."""
+tiny width); the sparse and detection phases sp1, det1, det2 and a4's
+detection ops (their wiring into main(), detection_margin, the rpn
+label rule, end-to-end runs on the CPU at a tiny width); and the
+script's refusal to run without a card."""
 import os
 import re
 import shutil
@@ -2013,3 +2016,150 @@ def test_control_flow_and_mt_phases_run_on_the_cpu_at_a_tiny_width():
     mt3 = chip_smoke.mt_contrib_steps(place, sync, w)
     assert mt3['bits'] and mt3['beams'] == (4, 0, 0.0)
     assert mt3['logp'][0] == 0.0
+
+
+def test_sparse_and_detection_phases_are_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = ['mt_contrib_steps(', 'sparse_steps(', 'ssd_steps(',
+             'ssd_decode(', 'lc_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    ssd = chip_smoke.SSD
+    assert (ssd['hw'], ssd['classes'], ssd['batch'], ssd['max_boxes']) == \
+        (300, 21, 32, 8)
+    assert (ssd['base_size'], ssd['min_ratio'], ssd['max_ratio']) == \
+        (300, 20, 90)
+    assert ssd['aspect_ratios'] == [[2.], [2., 3.], [2., 3.], [2., 3.],
+                                    [2.], [2.]]
+    assert (ssd['nms_threshold'], ssd['nms_top_k'], ssd['keep_top_k'],
+            ssd['score_threshold'], ssd['decode_batch']) == \
+        (0.45, 400, 200, 0.01, 8)
+    assert chip_smoke.FRCNN['feat'] == (1, 1024, 50, 84)
+    for fn, name in ((chip_smoke.sparse_steps, 'sp1'),
+                     (chip_smoke.ssd_steps, 'det1'),
+                     (chip_smoke.ssd_decode, 'det2')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * (3 if name == 'det2' else 2))
+
+
+def test_ssd300_maps_and_priors_at_300_px():
+    """det1's network at SSD300's settings: six maps of the sizes the
+    repo's pool2d gives at 300 px (conv4's 37, fc7's 18, then 9, 5, 3,
+    1) and 8096 priors (4, 6, 6, 6, 4, 4 a cell)."""
+    import paddle_tpu_torch as tfluid
+    main = tfluid.Program()
+    with tfluid.unique_name.guard(), \
+            tfluid.program_guard(main, tfluid.Program()):
+        out = chip_smoke.ssd_build(chip_smoke.SSD)(tfluid)
+    assert [tuple(m.shape[2:]) for m in out['maps']] == \
+        [(37, 37), (18, 18), (9, 9), (5, 5), (3, 3), (1, 1)]
+    assert tuple(out['priors'].shape) == (8096, 4)
+    assert out['confs'].shape[-1] == 21
+
+
+def _dets():
+    """Two images of 3 detections each (label, score, box), sorted."""
+    d = np.full((4, 3, 6), -1.0)
+    for b in range(4):
+        for k in range(3):
+            d[b, k] = [1 + k, 0.9 - 0.2 * k, 0.1 * k, 0.1, 0.2 + 0.1 * k,
+                       0.3]
+    return d
+
+
+def test_detection_margin_passes_equal_rows_and_near_ties_only():
+    """detection_margin: equal detections pass; where an image's rows
+    first differ at scores within the tolerance (and not equal) it ends
+    at a near tie; a different box at an equal score, a score beyond
+    the tolerance, and more than a quarter of the images at ties fail."""
+    want = _dets()
+    assert chip_smoke.detection_margin('x', want, want) == (4, 0, 0.0)
+    near = want.copy()
+    near[0, 1, 1] += 3e-6                  # the same row, its score close
+    assert chip_smoke.detection_margin('x', near, want)[:2] == (4, 0)
+    tie = want.copy()
+    tie[1, 1] = [2, 0.7 + 5e-6, 0.5, 0.5, 0.6, 0.6]   # another box
+    equal, ties, worst = chip_smoke.detection_margin('x', tie, want)
+    assert (equal, ties) == (3, 1) and 0 < worst <= chip_smoke.DET_SCORE_TOL
+    swapped = want.copy()
+    swapped[2, 0, 2:] = swapped[2, 1, 2:]      # a box swapped, score equal
+    with pytest.raises(AssertionError, match='image 2, row 0'):
+        chip_smoke.detection_margin('x', swapped, want)
+    far = want.copy()
+    far[3, 2, 1] -= 1e-3
+    with pytest.raises(AssertionError, match='image 3, row 2'):
+        chip_smoke.detection_margin('x', far, want)
+    two = tie.copy()
+    two[2, 0] = [1, 0.9 - 4e-6, 0.0, 0.0, 0.1, 0.1]
+    with pytest.raises(AssertionError, match='2 of 4 images end at a near'):
+        chip_smoke.detection_margin('x', two, want)
+
+
+def test_rpn_label_rule_refuses_what_it_bounds():
+    """rpn_label_properties: a draw of the op passes; a bg label on a
+    gt's best anchor, too many fg, and a wrong target fail."""
+    import paddle_tpu_torch as tfluid
+    anchors = chip_smoke.frcnn_anchors(5, 6, (8.0, 16.0, 32.0), (1.0,), 8.0)
+    gts = np.array([[[2, 2, 14, 14], [20, 10, 40, 30]]], 'float32')
+    prog = tfluid.Program()
+    with tfluid.unique_name.guard(), \
+            tfluid.program_guard(prog, tfluid.Program()):
+        g = tfluid.layers.data(name='g', shape=[2, 4], dtype='float32')
+        labels, tgt = tfluid.layers.rpn_target_assign(
+            tfluid.layers.assign(anchors), g, rpn_batch_size_per_im=16,
+            rpn_fg_fraction=0.25)
+    lab, tg = (np.asarray(v) for v in tfluid.Executor(
+        tfluid.CPUPlace()).run(prog, feed={'g': gts},
+                               fetch_list=[labels, tgt]))
+    fg, n = chip_smoke.rpn_label_properties('x', anchors, gts, lab, tg, 16,
+                                            0.25, 0.7, 0.3)
+    assert 0 < fg <= 4 and n <= 16
+    best = lab.copy()
+    best[0, np.flatnonzero(lab[0] == 1)[0]] = 0
+    many = lab.copy()
+    many[0, :] = 1
+    target = tg.copy()
+    target[0, 0] += 1.0
+    for bad in ((best, tg), (many, tg), (lab, target)):
+        with pytest.raises(AssertionError, match='break the rule'):
+            chip_smoke.rpn_label_properties('x', anchors, gts, bad[0],
+                                            bad[1], 16, 0.25, 0.7, 0.3)
+
+
+def test_detection_ops_check_passes_on_the_cpu_at_a_small_shape():
+    """a4's detection check end to end on the CPU (both sides) at a small
+    Faster R-CNN-shaped config."""
+    import paddle_tpu_torch as tfluid
+    fr = dict(chip_smoke.FRCNN, image=(160.0, 240.0), feat=(1, 16, 10, 15),
+              pre_nms=200, post_nms=50, rois=24, align=4, pool=3,
+              rpn_batch=32, gts=4, sparse=(200, 8, 40))
+    assert chip_smoke.check_detection_ops(tfluid.CPUPlace(), fr) == 0.0
+
+
+def test_sparse_and_detection_phases_run_on_the_cpu_at_a_tiny_width():
+    """sp1, det1 and det2 end to end on the CPU at tiny widths: lazy
+    Adam's untouched rows, captured vs op by op (op by op twice here),
+    sparse vs dense (the same bits), the word2vec fan-out, the SSD step
+    vs the CPU, detection_margin on the decode."""
+    import paddle_tpu_torch as tfluid
+    place = tfluid.CPUPlace()
+
+    def sync():
+        pass
+    w = dict(dict_size=50, word=8, hidden=8, batch=4, lr=1e-2, max_len=6,
+             beam=3)
+    sp1 = chip_smoke.sparse_steps(place, sync, w, dict(embed=8, hidden=16,
+                                                       batch=8, lr=0.05))
+    assert sp1['bits'] and sp1['cpu'][0] == 0.0
+    assert sp1['lazy'][0] == 2 * chip_smoke.SQ_BATCHES and \
+        sp1['lazy'][1] > 0
+    for k in ('adam', 'sgd', 'word2vec'):
+        assert max(sp1[k][0].values()) == 0.0
+    det1 = chip_smoke.ssd_steps(place, sync, chip_smoke.SSD_TINY)
+    assert det1['bits'] and det1['cpu'][0] == 0.0
+    assert det1['sizes'] == [(16, 16), (8, 8), (4, 4)]
+    det2 = chip_smoke.ssd_decode(det1, place, sync, chip_smoke.SSD_TINY)
+    assert det2['margin'][:2] == (chip_smoke.SSD_TINY['decode_batch'], 0)
+    assert det2['map_diff'] == 0.0 and min(det2['count']) > 0
+    assert 0.0 < det2['mixed'][0] < 1.0 and det2['mixed'][1] == 0.0

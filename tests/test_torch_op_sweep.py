@@ -506,6 +506,16 @@ COVERED_ELSEWHERE['recurrent'] = (
 COVERED_ELSEWHERE['beam_gather'] = (
     'test_torch_book_mt', 'test_contrib_decoder_matches_jax',
     "the BeamSearchDecoder's state shuffle vs the JAX package")
+for _t in ('iou_similarity', 'prior_box', 'box_coder', 'multiclass_nms',
+           'bipartite_match', 'target_assign', 'anchor_generator',
+           'ssd_loss', 'mine_hard_examples', 'roi_align', 'roi_pool',
+           'generate_proposals', 'polygon_box_transform', 'detection_map'):
+    COVERED_ELSEWHERE[_t] = (
+        'test_torch_detection', 'test_op_forward_and_grads_match_jax',
+        'one-op programs vs the JAX package, forward and grads, ties')
+COVERED_ELSEWHERE['rpn_target_assign'] = (
+    'test_torch_detection', 'test_rpn_target_assign_holds_the_jax_properties',
+    "torch's stream is not jax.random's: the draw's properties")
 COVERED_ELSEWHERE['remat_block'] = (
     'test_torch_recompute', 'test_adam_steps_match_the_jax_package',
     'LM steps with every block a remat scope, and its grad, vs the JAX '

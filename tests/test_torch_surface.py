@@ -25,7 +25,12 @@ ops and attrs and by the draws' moments.
    that io.save_vars wrote;
 10. the sequence_first_step and sequence_last_step op types, which the
    JAX package registers (a Program that appends them, as one loaded
-   from a saved __model__ may, raised KeyError in the port).
+   from a saved __model__ may, raised KeyError in the port);
+11. Adam(lazy_mode=True) on an is_sparse=True embedding: the port
+   ignored is_sparse and applied the dense update to every row, so a
+   row touched in one step and missed in the next kept moving on its
+   decayed moments (0.0335 from the JAX package after two steps);
+12. the detection layers and op types, which the JAX package has.
 """
 import threading
 
@@ -585,3 +590,93 @@ def test_first_and_last_step_op_types_match_jax(op_type):
     np.testing.assert_allclose(have, want, rtol=1e-5, atol=1e-5)
     assert jgrads == [None] and tgrads == [None]
     assert tops == jops
+
+
+# -- 11: lazy Adam on a sparse embedding ---------------------------------------
+
+def _lazy_adam_probe(fluid, init):
+    """An embedding [50, 8] with is_sparse=True, mean-pooled into an fc,
+    under Adam(0.05, lazy_mode=True), from `init`: step 1 draws its ids
+    from 0-19, step 2 from 0-9. Returns every persistable after each
+    step."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.program_guard(main, startup):
+        ids = fluid.layers.data(name='ids', shape=[4], dtype='int64')
+        label = fluid.layers.data(name='label', shape=[1], dtype='float32')
+        emb = fluid.layers.embedding(
+            ids, size=[50, 8], is_sparse=True,
+            param_attr=fluid.ParamAttr(name='emb_w'))
+        pred = fluid.layers.fc(fluid.layers.reduce_mean(emb, dim=1), size=1,
+                               param_attr=fluid.ParamAttr(name='fc_w'),
+                               bias_attr=fluid.ParamAttr(name='fc_b'))
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, label))
+        fluid.optimizer.Adam(0.05, lazy_mode=True).minimize(loss)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    names = [v.name for v in main.list_vars() if v.persistable]
+    for n, v in init.items():
+        scope.set_var(n, torch.tensor(v) if fluid is tfluid else v)
+    rng = np.random.RandomState(5)
+    after = []
+    for high in (20, 10):
+        feed = {'ids': rng.randint(0, high, (16, 4)).astype('int64'),
+                'label': rng.rand(16, 1).astype('float32')}
+        exe.run(main, feed=feed, fetch_list=[loss], scope=scope)
+        after.append({n: np.array(scope.find_var(n)) for n in names})
+    return after
+
+
+def test_lazy_adam_on_a_sparse_embedding_matches_jax():
+    """Both packages from one seeded numpy init: after the two steps
+    every persistable (table, moments, fc) within 1e-5 of the JAX
+    package, and the rows step 2 missed (10-19) hold step 1's bits in
+    the table and in both moments."""
+    rng = np.random.RandomState(11)
+    init = {'emb_w': rng.randn(50, 8).astype('float32'),
+            'fc_w': rng.randn(8, 1).astype('float32'),
+            'fc_b': np.zeros((1,), 'float32')}
+    jafter = _lazy_adam_probe(jfluid, init)
+    tafter = _lazy_adam_probe(tfluid, init)
+    for n, want in jafter[-1].items():
+        np.testing.assert_allclose(tafter[-1][n], want, rtol=1e-5,
+                                   atol=1e-5, err_msg=n)
+    table = [n for n in tafter[-1] if n == 'emb_w' or
+             n.startswith(('emb_w_moment1', 'emb_w_moment2'))]
+    assert len(table) == 3      # the table and its two moments
+    for n in table:
+        np.testing.assert_array_equal(tafter[1][n][10:20],
+                                      tafter[0][n][10:20], err_msg=n)
+    assert np.abs(tafter[1]['emb_w'][:10] - tafter[0]['emb_w'][:10]).max() \
+        > 1e-4
+
+
+# -- 12: the detection layers and op types -------------------------------------
+
+def test_detection_layers_and_op_types_exist_as_in_jax():
+    """Every public name of the JAX package's layers/detection.py, the
+    module name `detection` and polygon_box_transform are the port's
+    too, and every op type of its ops/detection_ops.py is registered,
+    grad or not as there. The port shares at least 214 of the JAX
+    package's public layer names and 224 of its non-grad op types."""
+    from paddle_tpu import registry as jregistry
+    from paddle_tpu.layers import detection as jdetection
+    from paddle_tpu.ops import detection_ops as jdetection_ops
+    from paddle_tpu_torch import registry as tregistry
+    names = set(jdetection.__all__) | {'detection', 'polygon_box_transform'}
+    assert len(names) == 17
+    assert names <= set(dir(tfluid.layers))
+    types = {t for t, d in jregistry._REGISTRY.items()
+             if getattr(d.emit, '__module__', '') == jdetection_ops.__name__}
+    assert len(types) == 15
+    for t in types:
+        assert tregistry.has_op(t)
+        assert tregistry.has_op(t + '_grad') == jregistry.has_op(t + '_grad')
+
+    def public(mod):
+        return {n for n in dir(mod) if not n.startswith('_')}
+    assert len(public(jfluid.layers) & public(tfluid.layers)) >= 214
+
+    def op_types(reg):
+        return {t for t in reg._REGISTRY if not t.endswith('_grad')}
+    assert len(op_types(jregistry) & op_types(tregistry)) >= 224
