@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Drive paddle_tpu_torch's serving path, the LM training step (under
-Momentum and under the Transformer recipe's Adam, and with every block a
-rematerialization scope, and through the high-level Trainer with its
+Momentum and under the Transformer recipe's Adam, with every block a
+rematerialization scope, in its mixture-of-experts form, and through
+the high-level Trainer with its
 checkpoints, resume, anomaly guard and fault handling, the Inferencer,
 and the observability they and the server report into), the ResNet-50
 training step, the long-context LM training step and the exp/exp2 probe
@@ -159,8 +160,29 @@ set_gradient_clip, under contrib.mixed_precision.decorate:
       and bool outputs exact; the script fails if such an op type has no
       case and no entry in A4_HELD_ELSEWHERE); dropout (is_test bits,
       kept entries and share over DROPOUT_N elements, grad dOut·Mask)
-      and truncated_gaussian_random's draw.
-The Adam LM is freed, then ResNet-50 (bench.py's bench_resnet, NCHW,
+      and truncated_gaussian_random's draw; ROADMAP item 6's op types at
+      published shapes (check_item6_ops: C3D's convs and pools, SegNet's
+      first pool with index and its unpool, SPP-net's pyramid,
+      fake_quantize's three modes on ResNet-50's res2 output, auc's state
+      over three batches at batch 4096) and random_crop's draw.
+The Adam LM is freed, then the flagship LM in its mixture-of-experts
+form (MOE_MODEL: moe_experts=4, top-1, capacity factor 2.0):
+  (moe1) t1's recipe (py_reader, batch 8, AMP Momentum, ParallelExecutor)
+      for MOE_WARMUP + MOE_TIMED steps over two batches in turn: the
+      loss falls on each; K1 and K2 launch 12 times a step (the
+      wrappers' counts and check_replay_launches), no plain flash call;
+      reserved memory under MOE_PEAK_GB; step ms, tokens/s, device busy
+      and ms by kind, the executed FLOPs of one op-by-op step; three
+      steps captured and op by op from one saved state under the split
+      arm (its backward has no atomics): the same bits;
+  (moe2) moe_ffn + moe_aux_loss over one [512, 2048] sequence with 4
+      experts of [2048, 8192] in fp32, forward and grads, on the card
+      against the CPU port within MOE_CPU_RTOL (sum |diff| / sum |cpu|);
+      the same top-1 experts but at ties within MOE_TIE; the same dropped
+      tokens; top-k at ample capacity against dense within
+      MOE_DENSE_TOL; counted FLOPs at 4 and 8 experts within
+      MOE_FLOPS_RTOL.
+The MoE LM is freed, then ResNet-50 (bench.py's bench_resnet, NCHW,
 built with FLAGS_use_pallas_fused_ops so every conv + BN is one
 conv2d_bn op):
   (r1) the training step at 224 px, 1000 classes, batch RESNET_BATCH
@@ -307,7 +329,10 @@ last feed:
       exponential_decay; one step against the CPU port; the card's
       crf_decoding path against the CPU port's on the same emission and
       transition by the margin rule (viterbi_margin: equal, or both
-      within VITERBI_TOL of the best path's fp64 score).
+      within VITERBI_TOL of the best path's fp64 score); the chapter's
+      evaluation, chunk_eval (IOB, conll05's chunk types) over the card's
+      paths of each batch, built up in metrics.ChunkEvaluator: the
+      counts, precision, recall and F1 the CPU port's.
 Then control flow and the machine_translation chapter (no kernel runs on
 these paths: while, conditional_block, recurrent and beam_search are
 plain PyTorch, the JAX package's plain JAX):
@@ -362,7 +387,9 @@ detection ops are plain PyTorch, the JAX package's plain JAX):
       keep 200, score 0.01) and detection_map (11point) at batch 8,
       replayed and timed; its detections against the CPU port's decode
       of the same head outputs by detection_margin, the mAP within
-      DET_SCORE_TOL.
+      DET_SCORE_TOL; evaluator.DetectionMAP over two batches of the
+      ground truths mixed into the decoded rows, within DET_SCORE_TOL of
+      the CPU port's.
 a4 also holds every detection op type at small shapes, the Faster R-CNN
 ops at their published shapes (check_detection_ops) and the SelectedRows
 branches of scale, clip, clip_by_norm, sum and squared_l2_norm
@@ -2352,8 +2379,9 @@ class LMRun(object):
             opt.minimize(self.avg_cost)
         self.scope = fluid.Scope()
         fluid.Executor(place).run(startup, scope=self.scope)
+        self.use_cuda = place.device.type == 'cuda'
         self.pe = fluid.ParallelExecutor(
-            use_cuda=True, loss_name=self.avg_cost.name,
+            use_cuda=self.use_cuda, loss_name=self.avg_cost.name,
             main_program=self.main, scope=self.scope)
         self.persistables = [v.name for v in self.main.list_vars()
                              if v.persistable and
@@ -2380,14 +2408,15 @@ class LMRun(object):
         """Close self.pe: its captured graphs, and the memory pool they
         hold, go back to the card (the next step prepares anew)."""
         self.pe.close()
-        free_device_memory()
+        if self.use_cuda:
+            free_device_memory()
 
     def fresh_executor(self):
         """A new ParallelExecutor in place of self.pe, which is closed
         first: its jit_cache_stats() count from 0."""
         self.drop_graphs()
         self.pe = self.fluid.ParallelExecutor(
-            use_cuda=True, loss_name=self.avg_cost.name,
+            use_cuda=self.use_cuda, loss_name=self.avg_cost.name,
             main_program=self.main, scope=self.scope)
 
     def batch_of(self, rng):
@@ -3227,6 +3256,21 @@ A4_HELD_ELSEWHERE = {
 for _t in ('adam', 'adagrad', 'decayed_adagrad', 'adamax', 'adadelta',
            'rmsprop', 'ftrl', 'proximal_gd', 'proximal_adagrad'):
     A4_HELD_ELSEWHERE[_t] = 'a3'
+A4_HELD_ELSEWHERE.update({
+    'feed': 'a marker with no emitter: the Executor consumes it',
+    'fetch': 'a marker with no emitter: the Executor consumes it',
+    'chunk_eval': 'sq4: a host op over the card\'s Viterbi paths, vs the '
+                  'CPU port',
+    'random_crop': 'a4\'s own check of the draw\'s properties '
+                   '(check_random_crop)',
+    'auc': 'a4\'s own check at batch 4096, its state over three batches '
+           '(check_item6_ops)',
+    'fake_quantize': 'a4\'s own check in its three modes at ResNet-50\'s '
+                     'conv outputs (check_item6_ops)',
+    'moe_ffn': 'moe1 (the MoE LM) and moe2 (one full-width sequence, vs '
+               'the CPU port)',
+    'moe_aux_loss': 'moe2: vs the CPU port',
+})
 
 _UNARY_CASES = {
     'sigmoid': {}, 'logsigmoid': {}, 'tanh': {}, 'tanh_shrink': {},
@@ -3524,7 +3568,108 @@ def training_op_cases(rng):
         check=())
     add('beam_gather', {'X': f(3, 4, 6),
                         'Indices': rng.randint(0, 4, (3, 4)).astype(i32)})
-    return cases + detection_op_cases(rng)
+    return cases + detection_op_cases(rng) + item6_op_cases(rng)
+
+
+def item6_op_cases(rng):
+    """a4's cases of ROADMAP item 6's op types at small shapes (as
+    training_op_cases): the misc tensor ops, the 3-D and indexed pooling
+    and convolution, precision_recall, positive_negative_pair and
+    fake_dequantize_max_abs. check_item6_ops holds them again at
+    published shapes."""
+    def f(*s):
+        return rng.randn(*s).astype('float32')
+    cases = []
+
+    def add(op, inputs=None, attrs=None, outputs=None, check=('in_x',),
+            name=None):
+        cases.append((name or op, op, inputs or {}, attrs or {}, outputs,
+                      list(check)))
+    add('sign', {'X': f(4, 5)}, check=())
+    add('minus', {'X': f(4, 5), 'Y': f(4, 5)}, check=('in_x', 'in_y'))
+    add('multiplex', {'X': [('mx%d' % i, f(4, 5)) for i in range(3)],
+                      'Ids': np.array([[2], [0], [1], [2]], 'int32')},
+        check=('mx0', 'mx1', 'mx2'))
+    add('rank_loss', {'Label': (rng.rand(6, 1) > 0.5).astype('float32'),
+                      'Left': f(6, 1), 'Right': f(6, 1)},
+        check=('in_left', 'in_right'))
+    add('modified_huber_loss',
+        {'X': 2 * f(8, 1), 'Y': (rng.rand(8, 1) > 0.5).astype('float32')},
+        outputs={'Out': ['out'], 'IntermediateVal': ['mh_inter']})
+    add('l1_norm', {'X': f(3, 4)})
+    add('norm', {'X': f(2, 3, 4)}, {'axis': 1, 'epsilon': 1e-6},
+        {'Out': ['out'], 'Norm': ['norm_n']})
+    add('mean_iou', {'Predictions': rng.randint(0, 4, (3, 7)).astype(
+        'int32'), 'Labels': rng.randint(0, 4, (3, 7)).astype('int32')},
+        {'num_classes': 5}, {'OutMeanIou': ['miou'], 'OutWrong': ['mw'],
+                             'OutCorrect': ['mc']}, check=())
+    add('flatten', {'X': f(2, 3, 4, 5)}, {'axis': 2})
+    add('crop', {'X': f(3, 5, 6)}, {'shape': [2, 3, 4],
+                                    'offsets': [1, 2, 1]})
+    add('crop', {'X': f(3, 5, 6), 'Offsets': np.array([1, 4, 3], 'int32')},
+        {'shape': [2, 3, 4]}, name='crop offsets')
+    add('pad_constant_like', {'X': f(4, 5, 6), 'Y': f(2, 5, 3)},
+        {'pad_value': 1.5}, check=('in_y',))
+    add('unstack', {'X': f(3, 4, 2)}, {'axis': 1},
+        {'Y': ['us%d' % i for i in range(4)]})
+    add('bilinear_tensor_product', {'X': f(4, 3), 'Y': f(4, 5),
+                                    'Weight': f(6, 3, 5), 'Bias': f(1, 6)},
+        check=('in_x', 'in_y', 'in_weight', 'in_bias'))
+    add('bilinear_interp', {'X': f(2, 3, 5, 7)}, {'out_h': 9, 'out_w': 4})
+    add('fill', {}, {'value': [0.5, -1.0, 2.0, 3.25], 'shape': [2, 2],
+                     'dtype': 'float32'}, check=())
+    add('lod_reset', {'X': f(3, 4, 2),
+                      'TargetLens': np.array([0, 2, 6, 7], 'int32')},
+        {'target_is_offsets': True}, {'Out': ['out'], 'OutLens': ['lr_lens']})
+    add('conv3d', {'Input': f(2, 3, 4, 5, 6), 'Filter': 0.3 * f(4, 3, 3, 3,
+                                                               3)},
+        {'paddings': [1, 1, 1], 'strides': [1, 2, 1]},
+        {'Output': ['out']}, check=('in_input', 'in_filter'))
+    add('conv3d_transpose', {'Input': f(2, 3, 3, 4, 3),
+                             'Filter': f(3, 2, 3, 3, 2)},
+        {'strides': [2, 1, 2], 'paddings': [1, 0, 0]},
+        {'Output': ['out']}, check=('in_input', 'in_filter'))
+    add('depthwise_conv2d_transpose', {'Input': f(2, 3, 4, 5),
+                                       'Filter': f(3, 1, 3, 3)},
+        {'strides': [2, 2], 'paddings': [1, 0]}, {'Output': ['out']},
+        check=('in_input', 'in_filter'))
+    for ptype in ('max', 'avg'):
+        add('pool3d', {'X': f(2, 3, 5, 6, 7)},
+            {'pooling_type': ptype, 'ksize': [2, 2, 3], 'strides': [2, 2, 2],
+             'paddings': [0, 1, 1], 'ceil_mode': True},
+            name='pool3d %s' % ptype)
+    add('max_pool2d_with_index', {'X': f(2, 3, 7, 8)},
+        {'ksize': [3, 3], 'strides': [2, 2], 'paddings': [1, 1]},
+        {'Out': ['out'], 'Mask': ['mp2_mask']})
+    add('max_pool3d_with_index', {'X': f(2, 3, 4, 5, 6)},
+        {'ksize': [2, 3, 2], 'strides': [2, 2, 2], 'paddings': [1, 1, 0]},
+        {'Out': ['out'], 'Mask': ['mp3_mask']})
+    add('unpool', {'X': f(2, 3, 3, 3), 'Indices': rng.randint(
+        0, 36, (2, 3, 3, 3)).astype('int32')},
+        {'unpooled_height': 6, 'unpooled_width': 6})
+    add('spp', {'X': f(2, 3, 7, 9)}, {'pyramid_height': 3,
+                                      'pooling_type': 'max'})
+    add('conv_shift', {'X': f(3, 8), 'Y': f(3, 5)}, check=('in_x', 'in_y'))
+    add('precision_recall',
+        {'Indices': rng.randint(0, 5, (16, 1)).astype('int64'),
+         'Labels': rng.randint(0, 5, (16, 1)).astype('int64'),
+         'Weights': rng.rand(16, 1).astype('float32'),
+         'StatesInfo': (3 * rng.rand(5, 4)).astype('float32')},
+        {'class_number': 5},
+        {'BatchMetrics': ['pr_batch'], 'AccumMetrics': ['pr_accum'],
+         'AccumStatesInfo': ['pr_states']}, check=())
+    add('positive_negative_pair',
+        {'Score': rng.rand(24, 3).astype('float32'),
+         'Label': rng.randint(0, 3, (24, 1)).astype('float32'),
+         'QueryID': rng.randint(0, 4, (24, 1)).astype('int64'),
+         'Weight': rng.rand(24, 1).astype('float32')}, {'column': 1},
+        {'PositivePair': ['pnp_pos'], 'NegativePair': ['pnp_neg'],
+         'NeutralPair': ['pnp_neu']}, check=())
+    add('fake_dequantize_max_abs',
+        {'X': rng.randint(-127, 128, (5, 7)).astype('float32'),
+         'Scale': np.array([3.7], 'float32')}, {'max_range': 127.0},
+        check=())
+    return cases
 
 
 def uncovered_op_types(cases):
@@ -3536,12 +3681,13 @@ def uncovered_op_types(cases):
     return sorted(new - {c[1] for c in cases} - set(A4_HELD_ELSEWHERE))
 
 
-def run_op_case(fluid, place, case, shapes=None):
+def run_op_case(fluid, place, case, shapes=None, host=True):
     """One case's op on `place`, fed copies: {var name: numpy array} of
     its outputs and of the held inputs' grads against a fixed cotangent
     on its Loss, Out, Output, OutputBox, Hidden, LogLikelihood or Y
     outputs. shapes: the targets' run-time shapes where the caller knows
-    them (else a forward run on the CPU finds them)."""
+    them (else a forward run on the CPU finds them). host=False: the
+    tensors as the run left them, on `place`."""
     import torch
     _, op_type, inputs, attrs, outputs, check = case
     prog = fluid.Program()
@@ -3591,6 +3737,8 @@ def run_op_case(fluid, place, case, shapes=None):
             fetch += [g.name for g in grads]
     got = fluid.Executor(place).run(prog, feed=feed, fetch_list=fetch,
                                     scope=fluid.Scope(), return_numpy=False)
+    if not host:
+        return dict(zip(fetch, got))
     return {n: (g.detach().float() if g.dtype == torch.bfloat16 else
                 g.detach()).cpu().numpy() for n, g in zip(fetch, got)}
 
@@ -4244,6 +4392,236 @@ def check_detection_ops(place, fr=None):
     return max(worst.values())
 
 
+# a4 at published shapes (ROADMAP item 6's op types, which no model of
+# the repo runs): C3D (Tran et al., 2015) clips of 16 x 112 x 112 at batch
+# 8, conv1a-conv3b 3x3x3 and pool1 (1x2x2), pool2-pool3 (2x2x2); SegNet
+# (Badrinarayanan et al., 2017) the first encoder pool and its decoder
+# unpool at 360 x 480, 64 channels, batch 4; SPP-net (He et al., 2014) a
+# 3-level pyramid over conv5's 13 x 13 x 256 at batch 32; fake_quantize
+# on ResNet-50's res2 output [32, 256, 56, 56]; auc at batch 4096 with
+# 200 thresholds over three batches
+C3D = dict(batch=8, frames=16, hw=112, cmp_batch=1,
+           convs=(('conv1a', 3, 64, 16, 112), ('conv2a', 64, 128, 16, 56),
+                  ('conv3a', 128, 256, 8, 28), ('conv3b', 256, 256, 8, 28)),
+           pools=(('pool1', 64, 16, 112, [1, 2, 2]),
+                  ('pool2', 128, 16, 56, [2, 2, 2]),
+                  ('pool3', 256, 8, 28, [2, 2, 2])))
+SEGNET = dict(batch=4, channels=64, hw=(360, 480))
+SPPNET = dict(batch=32, channels=256, hw=13, levels=3)
+QUANT = dict(shape=(32, 256, 56, 56), bits=8)
+AUC = dict(batch=4096, thresholds=200, batches=3)
+
+
+def _timed_case(fluid, place, case, sync, host=True):
+    """run_op_case on `place`, with its wall ms (one eager run: feeds,
+    grads and fetches included)."""
+    t0 = time.perf_counter()
+    got = run_op_case(fluid, place, case, host=host)
+    sync()
+    return got, (time.perf_counter() - t0) * 1e3
+
+
+def item6_published_cases(rng, c3d=None, seg=None, spp=None, quant=None):
+    """[(case at the compared batch, the same case at the published batch
+    or None)] of check_item6_ops."""
+    c3d, seg = c3d or C3D, seg or SEGNET
+    spp, quant = spp or SPPNET, quant or QUANT
+
+    def f(*shape, scale=1.0):
+        return (scale * rng.randn(*shape)).astype('float32')
+    out = []
+
+    def both(name, op, make, attrs, outputs, check):
+        small, full = make(c3d['cmp_batch']), make(c3d['batch'])
+        out.append(((name, op, small, attrs, outputs, list(check)),
+                    (name, op, full, attrs, outputs, list(check))))
+    for name, cin, cout, t, hw in c3d['convs']:
+        w = f(cout, cin, 3, 3, 3, scale=(cin * 27) ** -0.5)
+        both('C3D %s' % name, 'conv3d',
+             lambda b, cin=cin, t=t, hw=hw, w=w: {
+                 'Input': f(b, cin, t, hw, hw), 'Filter': w},
+             {'paddings': [1, 1, 1]}, {'Output': ['out']},
+             ('in_input', 'in_filter'))
+    for name, ch, t, hw, k in c3d['pools']:
+        for op, attrs, outputs in (
+                ('pool3d', {'pooling_type': 'max', 'ksize': k,
+                            'strides': k}, None),
+                ('pool3d', {'pooling_type': 'avg', 'ksize': k,
+                            'strides': k}, None),
+                ('max_pool3d_with_index', {'ksize': k, 'strides': k},
+                 {'Out': ['out'], 'Mask': ['mask']})):
+            label = 'C3D %s %s' % (name, op if op != 'pool3d'
+                                   else attrs['pooling_type'])
+            both(label, op, lambda b, ch=ch, t=t, hw=hw: {
+                'X': f(b, ch, t, hw, hw)}, attrs, outputs, ('in_x',))
+    n, ch, (h, w) = seg['batch'], seg['channels'], seg['hw']
+    x = f(n, ch, h, w)
+    pool = ('SegNet pool1 with index', 'max_pool2d_with_index', {'X': x},
+            {'ksize': [2, 2], 'strides': [2, 2]},
+            {'Out': ['out'], 'Mask': ['mask']}, ['in_x'])
+    out.append((pool, None))
+    n, ch, hw = spp['batch'], spp['channels'], spp['hw']
+    out.append((('SPP-net spp over conv5', 'spp', {'X': f(n, ch, hw, hw)},
+                 {'pyramid_height': spp['levels'], 'pooling_type': 'max'},
+                 None, ['in_x']), None))
+    y = f(*quant['shape'])
+    for mode, prev in (('abs_max', None), ('range_abs_max', 5.0),
+                       ('moving_average_abs_max', 5.0)):
+        inputs = {'X': y}
+        if prev is not None:
+            inputs['InMovingScale'] = np.array([prev], 'float32')
+        out.append((('ResNet-50 res2 fake_quantize %s' % mode,
+                     'fake_quantize', inputs,
+                     {'quantize_type': mode, 'bit_length': quant['bits']},
+                     {'Out': ['out'], 'OutMovingScale': ['scale']},
+                     ['in_x']), None))
+    return out
+
+
+def check_unpool_at(place, fluid, x, seg_label):
+    """SegNet's decoder unpool of pool1's values at pool1's Mask (from the
+    card's pool; the same Mask on both), forward and grad, card vs CPU."""
+    pooled, mask = (np.asarray(v) for v in fluid.Executor(place).run(
+        *_pool_program(fluid, x), scope=fluid.Scope()))
+    case = (seg_label, 'unpool', {'X': pooled, 'Indices': mask},
+            {'unpooled_height': x.shape[2], 'unpooled_width': x.shape[3]},
+            None, ['in_x'])
+    got = run_op_case(fluid, place, case)
+    want = run_op_case(fluid, fluid.CPUPlace(), case)
+    return check_scaled_outputs(seg_label, got, want)
+
+
+def _pool_program(fluid, x):
+    prog = fluid.Program()
+    block = prog.global_block()
+    xv = block.create_var(name='x', shape=x.shape, dtype='float32',
+                          is_data=True)
+    out, mask = block.create_var(name='out'), block.create_var(name='mask')
+    block.append_op(type='max_pool2d_with_index', inputs={'X': [xv]},
+                    outputs={'Out': [out], 'Mask': [mask]},
+                    attrs={'ksize': [2, 2], 'strides': [2, 2]})
+    return prog, {'x': x}, ['out', 'mask']
+
+
+def check_auc_state(place, w=None):
+    """The auc layer at w's batch and thresholds: w['batches'] runs of one
+    program on `place` (on the card the third is a replay) and on the
+    CPU port: after each run the AUC and the TP/FP/TN/FN state equal
+    within OP_ATOL + OP_RTOL x max |ref| (counts exact). Returns the
+    worst error."""
+    import paddle_tpu_torch as fluid
+    w = w or AUC
+    rng = np.random.RandomState(SEED + 15)
+    feeds = []
+    for _ in range(w['batches']):
+        y = rng.randint(0, 2, (w['batch'], 1)).astype('int64')
+        s = np.clip(0.35 * y[:, 0] + 0.65 * rng.rand(w['batch']), 0, 1)
+        feeds.append({'p': np.stack([1 - s, s], 1).astype('float32'),
+                      'y': y})
+    runs = {}
+    for p in (place, fluid.CPUPlace()):
+        prog, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+            pv = fluid.layers.data(name='p', shape=[2], dtype='float32')
+            yv = fluid.layers.data(name='y', shape=[1], dtype='int64')
+            a = fluid.layers.auc(pv, yv, num_thresholds=w['thresholds'])
+        fetch = [a] + ['auc_0.%s' % t for t in ('tp', 'fp', 'tn', 'fn')]
+        exe, scope = fluid.Executor(p), fluid.Scope()
+        exe.run(startup, scope=scope)
+        runs[p.device.type] = [
+            {f.name if hasattr(f, 'name') else f: np.asarray(v)
+             for f, v in zip(fetch, exe.run(prog, feed=fd, fetch_list=fetch,
+                                            scope=scope))}
+            for fd in feeds]
+    worst = 0.0
+    for i, (got, want) in enumerate(zip(runs[place.device.type],
+                                        runs['cpu'])):
+        worst = max(worst, check_scaled_outputs('a4 auc run %d' % i, got,
+                                                want))
+    tp = runs[place.device.type][-1]['auc_0.tp']
+    n_pos = sum(int(fd['y'].sum()) for fd in feeds)
+    if tp[0] != n_pos:
+        raise AssertionError('a4 auc: the state holds %d positives after '
+                             '%d batches, want %d' % (tp[0], w['batches'],
+                                                      n_pos))
+    return worst
+
+
+def check_random_crop(place, shape=(64, 3, 40, 40), crop=(32, 32), runs=3):
+    """random_crop on the card (runs after the first are replays): each
+    example's crop is a window of its input at an offset in range,
+    offsets vary across examples, and each run draws anew."""
+    import paddle_tpu_torch as fluid
+    x = np.arange(int(np.prod(shape)), dtype='float32').reshape(shape)
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        xv = fluid.layers.data(name='x', shape=list(shape), dtype='float32',
+                               append_batch_size=False)
+        out = fluid.layers.random_crop(xv, list(crop))
+    exe, scope = fluid.Executor(place), fluid.Scope()
+    outs = [np.asarray(exe.run(prog, feed={'x': x}, fetch_list=[out],
+                               scope=scope)[0]) for _ in range(runs)]
+    H, W = shape[-2:]
+    offsets = set()
+    for got in outs:
+        first = got[..., 0, 0] - x[..., 0, 0]
+        oy, ox = (first // W).astype(int), (first % W).astype(int)
+        if not ((0 <= oy) & (oy <= H - crop[0]) & (0 <= ox) &
+                (ox <= W - crop[1])).all():
+            raise AssertionError('a4 random_crop: an offset out of range')
+        for idx in np.ndindex(*shape[:-2]):
+            want = x[idx][oy[idx]:oy[idx] + crop[0], ox[idx]:ox[idx] + crop[1]]
+            if not np.array_equal(got[idx], want):
+                raise AssertionError('a4 random_crop: crop %s is not a '
+                                     'window of its input' % (idx,))
+        offsets |= set(zip(oy.ravel().tolist(), ox.ravel().tolist()))
+    if len(offsets) < 10 or np.array_equal(outs[0], outs[1]) or \
+            np.array_equal(outs[1], outs[2]):
+        raise AssertionError('a4 random_crop: the draws do not vary')
+    return len(offsets)
+
+
+def check_item6_ops(place, sync, c3d=None, seg=None, spp=None, quant=None,
+                    auc=None):
+    """ROADMAP item 6's op types at published shapes (C3D, SEGNET, SPPNET,
+    QUANT, AUC), on the card against CPU copies by check_scaled_outputs,
+    forward and grads: C3D's convs and pools compared at one clip, and
+    timed on the card at the published batch; the rest compared at the
+    published shape. Then random_crop's draw (check_random_crop). Returns
+    the worst error and {case: card ms}."""
+    import paddle_tpu_torch as fluid
+    seg = seg or SEGNET
+    rng = np.random.RandomState(SEED + 16)
+    worst, ms = {}, {}
+    for small, full in item6_published_cases(rng, c3d, seg, spp, quant):
+        got, ms[small[0]] = _timed_case(fluid, place, small, sync)
+        want = run_op_case(fluid, fluid.CPUPlace(), small)
+        worst[small[0]] = check_scaled_outputs(small[0], got, want)
+        if full is not None:
+            label = '%s at batch %d' % (full[0], len(full[2].get(
+                'Input', full[2].get('X'))))
+            # left on the card: only their finiteness is read back
+            got, ms[label] = _timed_case(fluid, place, full, sync,
+                                         host=False)
+            bad = [n for n, v in got.items() if v.is_floating_point() and
+                   not bool(v.isfinite().all())]
+            if bad:
+                raise AssertionError('%s at the published batch: %s not '
+                                     'finite' % (full[0], bad))
+    n, ch, (h, w) = seg['batch'], seg['channels'], seg['hw']
+    x = np.random.RandomState(SEED + 17).randn(n, ch, h, w).astype('float32')
+    worst['SegNet unpool'] = check_unpool_at(place, fluid, x,
+                                             'SegNet unpool')
+    worst['auc'] = check_auc_state(place, auc)
+    offsets = check_random_crop(place)
+    log('a4 item 6 at published shapes, worst error over OP_ATOL + OP_RTOL '
+        'x max|ref|: %s; card ms (one eager run, grads, feeds and fetches '
+        'included): %s; random_crop %d distinct offsets'
+        % (', '.join('%s %.3f' % kv for kv in worst.items()),
+           ', '.join('%s %.1f' % kv for kv in ms.items()), offsets))
+    return max(worst.values()), ms
+
+
 @phase('a4: the training core\'s op types on the card vs on CPU copies, '
        'forward and grads')
 def check_training_ops(place):
@@ -4265,6 +4643,8 @@ def check_training_ops(place):
     check_sampled_ops(place)
     worst['detection ops at Faster R-CNN\'s shapes'] = \
         check_detection_ops(place)
+    worst['item 6 at published shapes'] = check_item6_ops(
+        place, torch_sync(place))[0]
     top = sorted(worst.items(), key=lambda kv: -kv[1])[:5]
     log('%d op cases on the card vs CPU copies (%d op types), worst error '
         'over the tolerance (rtol %g, atol %g): %s; dropout kept shares %s '
@@ -4347,8 +4727,9 @@ class ResNetTrainer(LMRun):
          self.avg_cost) = resnet_program(nhwc, space_to_depth, reader_name)
         self.scope = fluid.Scope()
         fluid.Executor(place).run(startup, scope=self.scope)
+        self.use_cuda = place.device.type == 'cuda'
         self.pe = fluid.ParallelExecutor(
-            use_cuda=True, loss_name=self.avg_cost.name,
+            use_cuda=self.use_cuda, loss_name=self.avg_cost.name,
             main_program=self.main, scope=self.scope)
         self.persistables = [v.name for v in self.main.list_vars()
                              if v.persistable and
@@ -8150,6 +8531,67 @@ def cpu_viterbi(emission, transition, lens):
         fetch_list=[path], scope=fluid.Scope())[0])
 
 
+def _chunk_program(fluid, B, T, num_chunk_types):
+    """chunk_eval (IOB) of fed [B, T] paths against fed labels over fed
+    lengths: (program, fetches: the six outputs)."""
+    prog = fluid.Program()
+    with fluid.program_guard(prog, fluid.Program()):
+        L = fluid.layers
+        path = L.data(name='path', shape=[B, T], dtype='int64',
+                      append_batch_size=False)
+        label = L.data(name='label', shape=[B, T], dtype='int64',
+                       append_batch_size=False)
+        path.seq_lens = L.data(name='lens', shape=[B], dtype='int32',
+                               append_batch_size=False)
+        outs = L.chunk_eval(path, label, chunk_scheme='IOB',
+                            num_chunk_types=num_chunk_types)
+    return prog, list(outs)
+
+
+def srl_chunk_eval(run, decode, feeds, saved, place):
+    """label_semantic_roles' evaluation, as upstream's chapter does it:
+    chunk_eval (IOB; conll05's ceil((labels - 1) / 2) chunk types) over
+    the card's Viterbi paths of each batch (a host step on the card,
+    from the saved state), built up in metrics.ChunkEvaluator; the CPU
+    port's chunk_eval on the same paths, in a second ChunkEvaluator.
+    Fails unless every batch's counts and the accumulated precision,
+    recall and F1 are equal. Returns (precision, recall, F1)."""
+    import paddle_tpu_torch as fluid
+    labels = fluid.dataset.conll05.get_dict()[2]
+    n_types = int(np.ceil((len(labels) - 1) / 2.0))
+    evs = [fluid.metrics.ChunkEvaluator(), fluid.metrics.ChunkEvaluator()]
+    for feed in feeds:
+        run.restore(saved)
+        paths, = run.exe.run(run.main, feed=feed, fetch_list=[decode],
+                             scope=run.scope)
+        lens = np.asarray(feed['target'].recursive_sequence_lengths()[0],
+                          'int32')
+        B, T = len(lens), paths.shape[1]
+        tags = np.full((B, T), n_types * 2, 'int64')
+        flat = np.asarray(feed['target'].numpy()).reshape(-1)
+        offs = np.concatenate([[0], np.cumsum(lens)])
+        for b in range(B):
+            tags[b, :lens[b]] = flat[offs[b]:offs[b + 1]]
+        chunk_feed = {'path': paths[..., 0].astype('int64'),
+                      'label': tags, 'lens': lens}
+        counts = []
+        for p, ev in zip((place, fluid.CPUPlace()), evs):
+            prog, fetch = _chunk_program(fluid, B, T, n_types)
+            got = [np.asarray(v) for v in fluid.Executor(p).run(
+                prog, feed=chunk_feed, fetch_list=fetch, scope=fluid.Scope())]
+            ev.update(got[3], got[4], got[5])
+            counts.append([int(v[0]) for v in got[3:]])
+        if counts[0] != counts[1]:
+            raise AssertionError('sq4 chunk_eval: chunk counts %s on the '
+                                 'card, %s on the CPU' % tuple(counts))
+    run.restore(saved)
+    card, cpu = (tuple(float(v) for v in ev.eval()) for ev in evs)
+    if card != cpu or evs[0].num_label_chunks == 0:
+        raise AssertionError('sq4 chunk_eval: P/R/F1 %s on the card, %s on '
+                             'the CPU' % (card, cpu))
+    return card
+
+
 @phase('sq4: label_semantic_roles fed by fluid.batch + DataFeeder, '
        'captured, the CRF and Viterbi on the card')
 def srl_steps(place, sync, w=None):
@@ -8186,12 +8628,15 @@ def srl_steps(place, sync, w=None):
     want = cpu_viterbi(emission, transition, lens)
     out['viterbi'] = viterbi_margin(emission, transition, lens,
                                     path[..., 0], want[..., 0])
+    out['chunks'] = srl_chunk_eval(run, decode, feeds, saved, place)
     log('sq4 label_semantic_roles: %d ops; captured %.3f ms a step, op by op '
         '%.3f ms; DataFeeder %.3f ms a batch; %d graphs captured; Viterbi: '
-        '%d of %d paths equal to the CPU port\'s, largest shortfall %.3e'
+        '%d of %d paths equal to the CPU port\'s, largest shortfall %.3e; '
+        'chunk_eval (IOB) over the paths of %d batches: precision %.6f, '
+        'recall %.6f, F1 %.6f, the CPU port\'s'
         % (out['n_ops'], out['ms'], out['eager_ms'], feed_ms,
            out['stats']['compiled_segments'], out['viterbi'][0], len(lens),
-           out['viterbi'][1]))
+           out['viterbi'][1], len(feeds), *out['chunks']))
     out['feed_ms'] = feed_ms
     run.exe.close()
     return out
@@ -9522,8 +9967,51 @@ def ssd_decode(det1, place, sync, w=None):
                              % (count.tolist(), wcount.tolist()))
     exe.close()
     scored = map_of_mixed(place, dets, feed['gt'], w)
+    evaluated = detection_map_evaluator(place, dets, feed['gt'], w)
     return dict(ms=dec_ms, margin=margin, map=float(m_ap[0]),
-                map_diff=map_diff, count=count.tolist(), mixed=scored)
+                map_diff=map_diff, count=count.tolist(), mixed=scored,
+                evaluator=evaluated)
+
+
+def detection_map_evaluator(place, dets, gt, w):
+    """fluid.evaluator.DetectionMAP (11point, overlap 0.5) over two
+    batches, the two halves of mixed_detections' batch, on the card and
+    on the CPU port: reset, two runs, eval(); the two mAPs within
+    DET_SCORE_TOL and strictly between 0 and 1. Returns (the card's,
+    |diff|)."""
+    import paddle_tpu_torch as fluid
+    mixed = mixed_detections(dets, gt)
+    half = len(mixed) // 2
+    got = []
+    for p in (place, fluid.CPUPlace()):
+        main, startup = fluid.Program(), fluid.Program()
+        with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+            L = fluid.layers
+            d = L.data(name='d', shape=list(mixed.shape[1:]),
+                       dtype='float32')
+            gl = L.data(name='gl', shape=[gt.shape[1], 1], dtype='float32')
+            gb = L.data(name='gb', shape=[gt.shape[1], 4], dtype='float32')
+            ev = fluid.evaluator.DetectionMAP(
+                d, gl, gb, class_num=w['classes'], overlap_threshold=0.5,
+                ap_version='11point')
+        exe = fluid.Executor(p)
+        with fluid.scope_guard(fluid.Scope()):
+            exe.run(startup)
+            ev.reset(exe)
+            for part in (slice(0, half), slice(half, None)):
+                exe.run(main, feed={'d': mixed[part],
+                                    'gl': gt[part, :, :1],
+                                    'gb': gt[part, :, 1:]},
+                        fetch_list=ev.metrics)
+            got.append(float(ev.eval(exe)))
+        exe.close()
+    card, cpu = got
+    log('det2 evaluator.DetectionMAP over two batches of %d images: %.6f '
+        'on the card, %.6f on the CPU' % (half, card, cpu))
+    if not (abs(card - cpu) <= DET_SCORE_TOL and 0.0 < card < 1.0):
+        raise AssertionError('det2: DetectionMAP %.6f on the card, %.6f on '
+                             'the CPU' % (card, cpu))
+    return card, abs(card - cpu)
 
 
 def mixed_detections(dets, gt):
@@ -9575,6 +10063,351 @@ def map_of_mixed(place, dets, gt, w):
     return card, abs(card - cpu)
 
 
+# -- moe1, moe2: the flagship LM's mixture-of-experts form ----------------------
+
+# TransformerConfig(moe_experts=4): each block's FFN a top-1 mixture of 4
+# experts of [2048, 8192] at capacity factor 2.0 (moe_layer's defaults);
+# t1's recipe otherwise (py_reader, batch 8, AMP Momentum,
+# ParallelExecutor, captured), MOE_STEPS steps over two batches in turn
+MOE_MODEL = dict(MODEL, moe_experts=4)
+MOE_WARMUP, MOE_TIMED = 2, 8
+MOE_BITS_STEPS = 3           # captured vs op by op from one saved state
+MOE_PEAK_GB = RESNET_PEAK_GB  # reserved memory, r1's rule
+# moe2: one full-width sequence through moe_ffn + moe_aux_loss in fp32
+MOE2 = dict(S=512, D=2048, H=8192, E=4, k=1, cf=2.0)
+MOE_CPU_RTOL = 1e-4          # card vs CPU: sum |diff| / sum |cpu|
+MOE_DENSE_TOL = 1e-5         # top-k at ample capacity vs dense, / max |dense|
+MOE_TIE = 1e-6               # a top-1 flip only where the top two gates tie
+MOE_FLOPS_RTOL = 0.10        # counted FLOPs at E and 2E
+
+
+def moe_checksums(scope, names):
+    """{name: the int64 sum of the tensor's 32- (or 16-) bit words}: two
+    states with equal checksums for every name hold the same bits but by
+    a vanishing chance."""
+    import torch
+    out = {}
+    for n in names:
+        t = scope.find_var(n).detach().contiguous()
+        words = t.view(torch.int16 if t.element_size() == 2 else torch.int32)
+        out[n] = int(words.to(torch.int64).sum())
+    return out
+
+
+def moe_bits(tr, batches, place, sync):
+    """MOE_BITS_STEPS steps of the MoE LM from one saved state (a host
+    copy) under the split arm, whose backward kernels have no atomics:
+    through a fresh ParallelExecutor (eager, captured, replayed) and op
+    by op (use_program_cache=False). Returns (the same bits: losses and
+    every persistable's checksum; the losses of each run)."""
+    import itertools
+    import paddle_tpu_torch as fluid
+    saved = {n: tr.scope.find_var(n).detach().cpu().clone()
+             for n in tr.persistables}
+    runs = {}
+    with flash_arms(None, 'split'):
+        for form in ('captured', 'op by op'):
+            tr.restore(saved)
+            tr.feed(lambda: itertools.cycle(batches))
+            if form == 'captured':
+                tr.fresh_executor()
+                step = tr.step
+            else:
+                tr.drop_graphs()
+                exe = fluid.Executor(place)
+
+                def step():
+                    return float(np.asarray(exe.run(
+                        tr.main, fetch_list=[tr.avg_cost.name],
+                        scope=tr.scope, use_program_cache=False)[0]))
+            losses = [step() for _ in range(MOE_BITS_STEPS)]
+            sync()
+            runs[form] = (losses, moe_checksums(tr.scope, tr.persistables))
+            tr.reader.reset()
+    tr.restore(saved)
+    del saved
+    same = runs['captured'] == runs['op by op']
+    log('moe1 captured vs op by op, %d steps from one state (split arm): '
+        'losses %s vs %s; every persistable the same bits: %s'
+        % (MOE_BITS_STEPS, runs['captured'][0], runs['op by op'][0], same))
+    if not same:
+        bad = [n for n in tr.persistables
+               if runs['captured'][1][n] != runs['op by op'][1][n]]
+        raise AssertionError('moe1: the captured steps differ from the op by '
+                             'op steps (%d persistables, %s ...)'
+                             % (len(bad), bad[:4]))
+    return same, runs['captured'][0]
+
+
+@phase('moe1: train the flagship LM in its mixture-of-experts form (4 '
+       'experts, top-1, AMP Momentum, py_reader, ParallelExecutor)')
+def moe_steps(place, counters, sync, model=None, batch=None):
+    """TransformerConfig(**MOE_MODEL) trained with t1's recipe:
+    MOE_WARMUP + MOE_TIMED steps over two batches in turn (the loss
+    falls on each), timed on the replays; on the card K1 and K2 launch
+    `layers` times a step (the wrappers' counts and
+    check_replay_launches), the flash path never runs its plain version,
+    reserved memory stays under MOE_PEAK_GB, and the step is profiled
+    (device ms, busy share, ms by kind). Then moe_bits, and the executed
+    FLOPs of one op-by-op step (FlopCounterMode with the flash pricing,
+    obs/perf.py's segment_cost)."""
+    import itertools
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    from paddle_tpu_torch.obs import perf
+    on_card = place.device.type == 'cuda'
+    cfg = TransformerConfig(**(model or MOE_MODEL))
+    batch = batch or TRAIN_BATCH
+    t0 = time.perf_counter()
+    tr = LMRun(cfg, place, batch, HEAD_CHUNK, 'moe_reader')
+    params = [v for v in tr.main.list_vars()
+              if v.persistable and getattr(v, 'trainable', False)]
+    n_params = sum(int(np.prod(v.shape)) for v in params)
+    n_expert = sum(int(np.prod(v.shape)) for v in params
+                   if len(v.shape) == 3)
+    ops = tr.main.global_block().ops
+    log('moe1 program: %d ops (%d moe_ffn), %d parameters (%d in the '
+        'experts, %.2f GB fp32), batch %d x %d tokens; built and '
+        'initialised in %.1f s'
+        % (len(ops), sum(o.type == 'moe_ffn' for o in ops), n_params,
+           n_expert, n_params * 4 / 1e9, batch, cfg.max_len,
+           time.perf_counter() - t0))
+    rng = np.random.RandomState(SEED + 50)
+    batches = [tr.batch_of(rng) for _ in range(2)]
+    tr.feed(lambda: itertools.cycle(batches))
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    losses = [tr.step(sync_checked=on_card)]
+    losses += [tr.step() for _ in range(MOE_WARMUP - 1)]
+    sync()
+    for c in counters.values():
+        c.launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
+    t0 = time.perf_counter()
+    losses += [tr.step() for _ in range(MOE_TIMED)]
+    sync()
+    step_ms = (time.perf_counter() - t0) / MOE_TIMED * 1e3
+    launches = {name: c.launches for name, c in counters.items()}
+    tokens = batch * cfg.max_len
+    out = dict(losses=losses, ms=step_ms, tok_s=tokens / step_ms * 1e3,
+               n_params=n_params, n_expert=n_expert, launches=launches)
+    log('moe1 losses: %s; %d timed steps %.3f ms a step, %.1f tokens/s; '
+        'launches %s' % (', '.join('%.6f' % x for x in losses), MOE_TIMED,
+                         step_ms, out['tok_s'], json.dumps(launches)))
+    if not all(np.isfinite(losses)):
+        raise AssertionError('moe1: a loss is not finite: %r' % losses)
+    n = len(losses)
+    if not (losses[n - 2] < losses[0] and losses[n - 1] < losses[1]):
+        raise AssertionError('moe1: the loss does not fall on each batch: %r'
+                             % losses)
+    if on_card:
+        out['peak_gb'] = peak_memory_gb()
+        out['reserved_gb'] = torch.cuda.max_memory_reserved() / 1e9
+        if out['reserved_gb'] > MOE_PEAK_GB:
+            raise AssertionError('moe1: %.2f GB reserved, over %g GB'
+                                 % (out['reserved_gb'], MOE_PEAK_GB))
+        require_no_plain(fa, 'moe1')
+        need = cfg.layers * MOE_TIMED
+        for kind in ('fwd', 'k2'):
+            name = KERNELS[kind][0]
+            if launches[name] != need:
+                raise AssertionError('moe1: %s launched %d times in %d '
+                                     'steps, want %d' % (name,
+                                                         launches[name],
+                                                         MOE_TIMED, need))
+        others = [KERNELS[kd][0] for kd in ('k3a', 'k3b', 'k4a', 'k4b',
+                                            'k5')]
+        if any(launches[n] for n in others):
+            raise AssertionError('moe1: K3, K4 or K5 launched: %r'
+                                 % launches)
+        kinds = {}
+        out['device_ms'], out['busy'] = _profile_steps(
+            tr, step_ms, sync, 'moe1 step', by_kind_out=kinds)
+        out['kinds'] = kinds
+        seen = check_replay_launches('moe1', tr.step, sync)
+        if (seen.get('K1'), seen.get('K2/K5')) != (cfg.layers, cfg.layers):
+            raise AssertionError('moe1: a replayed step launched K1 %s and '
+                                 'K2 %s times, want %d each'
+                                 % (seen.get('K1'), seen.get('K2/K5'),
+                                    cfg.layers))
+    tr.reader.reset()
+    out['bits'], out['bits_losses'] = moe_bits(tr, batches, place, sync)
+    tr.drop_graphs()
+    exe = fluid.Executor(place)
+    tr.feed(lambda: itertools.cycle(batches))
+    out['flops'] = perf.segment_cost(lambda: exe.run(
+        tr.main, fetch_list=[tr.avg_cost.name], scope=tr.scope,
+        use_program_cache=False))
+    tr.reader.reset()
+    exe.close()
+    log('moe1: %.4f TFLOP executed a step (FlopCounterMode and the flash '
+        'work model), %.1f TFLOP/s at the timed step'
+        % (out['flops'] / 1e12, out['flops'] / step_ms / 1e9))
+    return out
+
+
+def moe2_program(fluid, w, dispatch='topk', capacity_factor=None,
+                 loss='out'):
+    """One [S, D] sequence: a softmax gate from a fed [D, E] weight,
+    moe_ffn over fed experts and moe_aux_loss. loss 'out': sum(out *
+    cot) and the grads of x and both experts (the gate weight's grad on
+    this path is rounding noise: top-1's renormalised weight is 1);
+    loss 'aux': the aux loss and the gate weight's grad.
+    (program, fetches)."""
+    S, D, H, E = w['S'], w['D'], w['H'], w['E']
+    prog = fluid.Program()
+    block = prog.global_block()
+    with fluid.program_guard(prog, fluid.Program()):
+        L = fluid.layers
+
+        def data(name, shape, grad=True):
+            return L.data(name=name, shape=list(shape), dtype='float32',
+                          append_batch_size=False, stop_gradient=not grad)
+        x, gw = data('x', (S, D)), data('gate_w', (D, E))
+        w_up, w_down = data('w_up', (E, D, H)), data('w_down', (E, H, D))
+        cot = data('cot', (S, D), grad=False)
+        gate = L.softmax(L.matmul(x, gw))
+        out, aux = block.create_var(name='moe_out'), \
+            block.create_var(name='moe_aux')
+        block.append_op(type='moe_ffn',
+                        inputs={'X': [x], 'Gate': [gate], 'WUp': [w_up],
+                                'WDown': [w_down]},
+                        outputs={'Out': [out]},
+                        attrs={'k': w['k'], 'dispatch': dispatch,
+                               'capacity_factor': capacity_factor or w['cf'],
+                               'act': 'gelu'})
+        block.append_op(type='moe_aux_loss', inputs={'Gate': [gate]},
+                        outputs={'Out': [aux]})
+        if loss == 'aux':
+            grads = fluid.backward.calc_gradient(aux, [gw])
+            return prog, [gate, aux] + grads
+        grads = fluid.backward.calc_gradient(
+            L.reduce_sum(L.elementwise_mul(out, cot)), [x, w_up, w_down])
+    return prog, [gate, out] + grads
+
+
+def moe2_feed(w, seed=SEED + 51):
+    rng = np.random.RandomState(seed)
+    S, D, H, E = w['S'], w['D'], w['H'], w['E']
+    return {'x': rng.randn(S, D).astype('float32'),
+            'gate_w': (rng.randn(D, E) * D ** -0.5).astype('float32'),
+            'w_up': (rng.randn(E, D, H) * D ** -0.5).astype('float32'),
+            'w_down': (rng.randn(E, H, D) * H ** -0.5).astype('float32'),
+            'cot': rng.randn(S, D).astype('float32')}
+
+
+def moe2_routing(label, gate_card, gate_cpu, w):
+    """Top-1 experts of the two gates equal, or where they differ, the
+    two largest gates within MOE_TIE of each other on both sides; the
+    tokens dropped past capacity equal. Returns (flips, dropped)."""
+    import math
+    C = max(1, int(math.ceil(w['S'] * w['k'] * w['cf'] / w['E'])))
+    flips, dropped = 0, []
+    for g in (gate_card, gate_cpu):
+        top = np.argmax(g, -1)
+        dropped.append(int(sum(max(0, int((top == e).sum()) - C)
+                               for e in range(w['E']))))
+    a, b = np.argmax(gate_card, -1), np.argmax(gate_cpu, -1)
+    for s in np.nonzero(a != b)[0]:
+        for g in (gate_card, gate_cpu):
+            top2 = np.sort(g[s])[-2:]
+            if top2[1] - top2[0] > MOE_TIE:
+                raise AssertionError('%s: token %d goes to expert %d on the '
+                                     'card, %d on the CPU, gates %.3e apart'
+                                     % (label, s, a[s], b[s],
+                                        top2[1] - top2[0]))
+        flips += 1
+    if flips == 0 and dropped[0] != dropped[1]:
+        raise AssertionError('%s: %d tokens dropped on the card, %d on the '
+                             'CPU' % (label, dropped[0], dropped[1]))
+    return flips, dropped[0]
+
+
+@phase('moe2: moe_ffn and moe_aux_loss at one full-width sequence (S 512, '
+       'D 2048, H 8192, 4 experts, fp32), forward and grads, vs the CPU port')
+def moe_op_check(place, sync, w=None):
+    """moe2_program's two paths on the card (the third run replayed and
+    timed) against the CPU port on the same feed: each output and grad
+    within MOE_CPU_RTOL by sum |diff| / sum |cpu|; the routing by moe2_routing;
+    top-k at ample capacity (capacity factor E) against dense on the
+    card, forward, within MOE_DENSE_TOL of max |dense|; the FLOPs
+    FlopCounterMode counts for one op-by-op run at E and 2E experts
+    (capacity halving) within MOE_FLOPS_RTOL."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import perf
+    w = w or MOE2
+    feed = moe2_feed(w)
+    diffs, ms, finite = {}, {}, True
+    for path in ('out', 'aux'):
+        prog, fetch = moe2_program(fluid, w, loss=path)
+        exe = fluid.Executor(place)
+        for _ in range(2):
+            exe.run(prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
+        sync()
+        t0 = time.perf_counter()
+        card = exe.run(prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
+        sync()
+        ms[path] = (time.perf_counter() - t0) * 1e3
+        exe.close()
+        cpu = fluid.Executor(fluid.CPUPlace()).run(
+            prog, feed=feed, fetch_list=fetch, scope=fluid.Scope())
+        for v, a, b in zip(fetch, card, cpu):
+            a, b = np.asarray(a, 'float64'), np.asarray(b, 'float64')
+            diffs['%s %s' % (path, v.name)] = float(
+                np.abs(a - b).sum() / max(np.abs(b).sum(), 1e-30))
+        finite = finite and all(np.isfinite(np.asarray(v)).all()
+                                for v in card)
+        if path == 'out':
+            gates = np.asarray(card[0]), np.asarray(cpu[0])
+    ms = ms['out']
+    flips, dropped = moe2_routing('moe2', gates[0], gates[1], w)
+    dense_prog, dense_fetch = moe2_program(fluid, w, 'dense')
+    ample_prog, ample_fetch = moe2_program(fluid, w, 'topk',
+                                           capacity_factor=float(w['E']))
+    exe = fluid.Executor(place)
+    dense = np.asarray(exe.run(dense_prog, feed=feed,
+                               fetch_list=dense_fetch[1:2],
+                               scope=fluid.Scope())[0])
+    ample = np.asarray(exe.run(ample_prog, feed=feed,
+                               fetch_list=ample_fetch[1:2],
+                               scope=fluid.Scope())[0])
+    exe.close()
+    dense_err = float(np.abs(ample - dense).max() /
+                      max(np.abs(dense).max(), 1e-30))
+    flops = {}
+    for e in (w['E'], 2 * w['E']):
+        we = dict(w, E=e)
+        p, f = moe2_program(fluid, we)
+        fd = moe2_feed(we)
+        ex = fluid.Executor(place)
+        flops[e] = perf.segment_cost(lambda: ex.run(
+            p, feed=fd, fetch_list=f, scope=fluid.Scope(),
+            use_program_cache=False))
+        ex.close()
+    flops_rel = abs(flops[2 * w['E']] - flops[w['E']]) / flops[w['E']]
+    log('moe2 (S %d, D %d, H %d, E %d, top-%d, capacity factor %g, fp32): '
+        'forward + grads %.3f ms replayed (the out path); card vs CPU sum '
+        '|diff| / sum |cpu| of the out path (sum(out * cot): gate, out, '
+        'x, experts) and the aux path (aux loss, gate weight): %s (tol %g); '
+        'top-1 flips %d (near ties), %d tokens dropped '
+        'on both; top-k at ample capacity vs dense %.3e of max |dense| (tol '
+        '%g); counted FLOPs %.4f TFLOP at E %d, %.4f at E %d (%.2f%% apart, '
+        'tol %g%%)'
+        % (w['S'], w['D'], w['H'], w['E'], w['k'], w['cf'], ms,
+           ', '.join('%s %.3e' % kv for kv in diffs.items()), MOE_CPU_RTOL,
+           flips, dropped, dense_err, MOE_DENSE_TOL,
+           flops[w['E']] / 1e12, w['E'], flops[2 * w['E']] / 1e12,
+           2 * w['E'], 100 * flops_rel, 100 * MOE_FLOPS_RTOL))
+    if not (all(v <= MOE_CPU_RTOL for v in diffs.values()) and
+            dense_err <= MOE_DENSE_TOL and flops_rel <= MOE_FLOPS_RTOL and
+            finite):
+        raise AssertionError('moe2: beyond the stated tolerance')
+    return dict(ms=ms, diffs=diffs, flips=flips, dropped=dropped,
+                dense_err=dense_err, flops=flops)
+
+
 _SCRATCH_DIRS = []
 
 
@@ -9608,6 +10441,13 @@ def peak_memory_gb():
         % (torch.cuda.max_memory_allocated() / 1e9,
            torch.cuda.max_memory_reserved() / 1e9))
     return torch.cuda.max_memory_allocated() / 1e9
+
+
+def torch_sync(place):
+    """torch.cuda.synchronize on a card's place, a no-op on the CPU."""
+    import torch
+    return torch.cuda.synchronize if place.device.type == 'cuda' else \
+        (lambda: None)
 
 
 def free_device_memory():
@@ -9738,6 +10578,13 @@ def main():
         free_device_memory()
         opt_worst = check_optimizer_ops(place)
         op_worst = check_training_ops(place)
+        free_device_memory()
+        t_moe = time.perf_counter()
+        moe1 = moe_steps(place, counters, sync)
+        free_device_memory()
+        moe2 = moe_op_check(place, sync)
+        moe_s = time.perf_counter() - t_moe
+        free_device_memory()
 
         fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
         torch.cuda.reset_peak_memory_stats()
@@ -10064,6 +10911,28 @@ def main():
            det1['cpu'][0], SSD['decode_batch'], det2['ms'], det2['margin'][0],
            SSD['decode_batch'], det2['margin'][1], det2['map'],
            det2['map_diff'], det2['mixed'][0], det2['mixed'][1]))
+    log('mixture of experts (%.1f s for moe1 and moe2): moe1 the flagship LM '
+        'with %d experts a block, top-1 (%d parameters, %d in the experts), '
+        'batch %d, AMP Momentum: step %.3f ms, %.1f tokens/s, %.4f TFLOP '
+        'executed a step (%.1f TFLOP/s), device %s ms, busy %s, by kind %s, '
+        'peak %.2f GB allocated / %.2f GB reserved, K1 %d and K2 %d launches '
+        'in %d steps, captured vs op by op the same bits %s, loss %.6f -> '
+        '%.6f; moe2 forward + grads %.3f ms, card vs CPU worst %.3e, top-1 '
+        'flips %d, dropped %d, top-k vs dense %.3e, FLOPs at E %s'
+        % (moe_s, MOE_MODEL['moe_experts'], moe1['n_params'],
+           moe1['n_expert'], TRAIN_BATCH, moe1['ms'], moe1['tok_s'],
+           moe1['flops'] / 1e12, moe1['flops'] / moe1['ms'] / 1e9,
+           _fmt_ms(moe1['device_ms'] or None), _fmt_busy(moe1['busy']),
+           ', '.join('%s %.3f' % kv for kv in sorted(
+               moe1['kinds'].items(), key=lambda kv: -kv[1])),
+           moe1['peak_gb'], moe1['reserved_gb'],
+           moe1['launches']['flash_attention_fwd'],
+           moe1['launches']['flash_attention_bwd_kvmajor'], MOE_TIMED,
+           moe1['bits'], moe1['losses'][0], moe1['losses'][-1], moe2['ms'],
+           max(moe2['diffs'].values()), moe2['flips'], moe2['dropped'],
+           moe2['dense_err'],
+           ', '.join('%d %.4f TFLOP' % (e, f / 1e12)
+                     for e, f in moe2['flops'].items())))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -55,7 +55,11 @@ pooling and convolution, ...), models.stacked_lstm and the sequence
 book chapters; control flow, beam search and machine_translation; and
 the detection ops and layers (SSD's multi_box_head, ssd_loss and
 detection_output, detection_map, Faster R-CNN's anchors, proposals and
-RoI ops). ROADMAP.md lists the rest.
+RoI ops); the 3-D and indexed pooling ops, the misc tensor layers, the
+evaluation ops with `metrics` and `evaluator`, fake quantization, the
+one-device mixture-of-experts FFN (parallel.layers.moe_layer,
+TransformerConfig(moe_experts=)) and the flowers, voc2012, mq2007 and
+image dataset modules. ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint
@@ -112,6 +116,8 @@ from . import debugger
 from . import graphviz
 from . import net_drawer
 from . import op
+from . import metrics
+from . import evaluator
 
 __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter',
@@ -130,5 +136,6 @@ __all__ = [
     'memory', 'distributed', 'Trainer', 'CheckpointConfig',
     'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
     'FaultEvent', 'Inferencer', 'average', 'annotations',
-    'default_scope_funcs', 'graphviz', 'net_drawer', 'op',
+    'default_scope_funcs', 'graphviz', 'net_drawer', 'op', 'metrics',
+    'evaluator',
 ]

@@ -2,7 +2,7 @@
 paddle_tpu/distributed/): `statefile` (atomic state files, digests,
 quarantine) and the step half of `resilience` (the failure taxonomy,
 RetryPolicy, FaultPlan and the Trainer's step hook). The wire, RPC,
-parameter service and master wait for ROADMAP.md, Queue 1 item 6."""
+parameter service and master wait for ROADMAP.md, Queue 1 item 7."""
 from . import resilience, statefile
 
 __all__ = ['resilience', 'statefile']

@@ -39,7 +39,7 @@ raise per the rule's retryable classification.
 
 The wire hooks (`on_send`, `on_recv`, `on_send_vars`, `on_recv_vars`,
 `SendEffect`) wait for the port's distributed stack (ROADMAP.md, Queue 1
-item 6); until then a rule naming a message type never matches, and
+item 7); until then a rule naming a message type never matches, and
 `send`/`recv` rules never fire.
 """
 from __future__ import annotations
@@ -135,7 +135,7 @@ _WHENS = ('send', 'recv', 'step')
 def _type_names():
     """Message-type name -> its wire value. The wire and master
     namespaces come with the port's distributed stack (ROADMAP.md, Queue
-    1 item 6); until then only '*' is known, and a rule naming a message
+    1 item 7); until then only '*' is known, and a rule naming a message
     type matches nothing."""
     return {'*': '*'}
 

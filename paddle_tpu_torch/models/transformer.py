@@ -3,8 +3,9 @@ prefill/decode programs (counterpart of paddle_tpu/models/transformer.py:
 26-188, 216-520).
 
 One device: the tensor- and sequence-parallel annotations of the
-default config (use_tp, use_sp) are built and inert; expert and
-pipeline parallelism and ring attention are not ported.
+default config (use_tp, use_sp) are built and inert; with moe_experts
+each block's FFN is parallel.layers.moe_layer, its experts on the one
+card; pipeline parallelism and ring attention are not ported.
 TransformerConfig(remat=) runs each block in a rematerialization scope
 (layers.recompute), as in the JAX package. Programs built with the same config and names are the same
 Program text as the JAX package's, so weights carry across by name.
@@ -47,7 +48,7 @@ from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
 from ..parallel.api import sharding_constraint
 from ..parallel.layers import (column_parallel_fc, row_parallel_fc,
-                               vocab_parallel_embedding,
+                               vocab_parallel_embedding, moe_layer,
                                sequence_parallel_scope)
 
 
@@ -55,8 +56,10 @@ class TransformerConfig(object):
     """The JAX package's config with its defaults (use_tp=True,
     use_sp=True): on one card the tensor- and sequence-parallel
     annotations are inert (parallel/layers.py), so the default config
-    builds and trains the same Program as the JAX package. Expert and
-    pipeline parallelism and ring attention are not ported and raise.
+    builds and trains the same Program as the JAX package.
+    moe_experts=E makes each block's FFN a top-1 mixture of E experts
+    (moe_layer's defaults). Pipeline parallelism and ring attention are
+    not ported and raise.
     remat: None (keep every activation), 'nothing' (each block keeps
     only its output; the backward runs the block again) or 'dots' (it
     also keeps the matrix products' outputs); any other truthy value
@@ -66,13 +69,12 @@ class TransformerConfig(object):
                  max_len=64, moe_experts=0, use_tp=True, use_sp=True,
                  pp_stages=0, ring_attention=False,
                  flash_attention=False, remat=None):
-        for name, value in (
-                ('moe_experts', moe_experts), ('pp_stages', pp_stages),
-                ('ring_attention', ring_attention)):
+        for name, value in (('pp_stages', pp_stages),
+                            ('ring_attention', ring_attention)):
             if value:
                 raise NotImplementedError(
                     'TransformerConfig(%s=%r) is not ported (ROADMAP.md, '
-                    'Queue 1 item 7)' % (name, value))
+                    'Queue 1 item 8)' % (name, value))
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.ffn, self.max_len = layers, ffn, max_len
         self.moe_experts, self.pp_stages = moe_experts, pp_stages
@@ -121,6 +123,8 @@ def _attention(x, cfg, prefix):
 
 
 def _ffn(x, cfg, prefix):
+    if cfg.moe_experts:
+        return moe_layer(x, cfg.moe_experts, cfg.ffn)
     if cfg.use_tp:
         h = column_parallel_fc(x, cfg.ffn, act='gelu', name=prefix + '_up')
         return row_parallel_fc(h, cfg.dim, name=prefix + '_down')

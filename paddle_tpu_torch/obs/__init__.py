@@ -17,7 +17,7 @@
 
 Everything is off unless `FLAGS_obs_dir` is set (or enable() is called).
 Device lanes from a profiler capture wait for the port's profiler.py
-(ROADMAP.md, Queue 1 item 8).
+(ROADMAP.md, Queue 1 item 9).
 """
 from . import telemetry, trace, report, perf, slo
 

@@ -25,7 +25,7 @@ as 'X' duration events, client->server RPC links as 's'/'f' flow events
 `device_events_to_records` turns (label, start_ns, dur_ns[, plane])
 tuples into device lanes on the same unix-epoch clock. Reading them
 from a profiler capture (`write_report(xplane_dir=...)`) waits for the
-port's profiler.py (ROADMAP.md, Queue 1 item 8).
+port's profiler.py (ROADMAP.md, Queue 1 item 9).
 """
 from __future__ import annotations
 
@@ -330,7 +330,7 @@ def write_report(obs_root, timeline_path=None, rollup_path=None,
         raise NotImplementedError(
             'write_report(xplane_dir=, hlo_dir=) reads device lanes from a '
             'profiler capture; profiler.py is not ported yet (ROADMAP.md, '
-            'Queue 1 item 8)')
+            'Queue 1 item 9)')
     events, metric_lasts = collect(obs_root)
     tl = build_timeline(events)
     ru = rollup(metric_lasts)

@@ -16,7 +16,7 @@ file so one merge produces one timeline (obs/report.py):
 optional `trace` field of the request's meta dict, so report.py can link
 a client span to the server's handling of it and estimate clock offsets
 from their midpoints; their RPC callers come with the port's
-distributed stack (ROADMAP.md, Queue 1 item 6).
+distributed stack (ROADMAP.md, Queue 1 item 7).
 
 Parent ids come from a thread-local span stack: a span opened inside
 another records that span's sid as `psid`.

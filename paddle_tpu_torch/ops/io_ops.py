@@ -1,5 +1,5 @@
-"""save / load / save_combine / load_combine, print, delete_var and the
-py_reader's read op (counterpart of paddle_tpu/ops/io_ops.py).
+"""save / load / save_combine / load_combine, print, delete_var, the
+feed and fetch markers and the py_reader's read op (counterpart of paddle_tpu/ops/io_ops.py).
 
 The tensor file format is the JAX package's, byte for byte
 (io_ops.py:29-48): a 4-byte magic, a little-endian uint32 header length,
@@ -134,6 +134,10 @@ def _delete_var_emit(ctx, op):
         ctx.scope.erase(name)
 
 
+# feed and fetch are markers with no emitter, as in the JAX package
+# (paddle_tpu/ops/io_ops.py:52-53): the Executor consumes them itself
+register_op('feed', host=True, no_grad=True)
+register_op('fetch', host=True, no_grad=True)
 register_op('print', emit=_print_emit, host=True, no_grad=True)
 register_op('delete_var', emit=_delete_var_emit, host=True, no_grad=True)
 

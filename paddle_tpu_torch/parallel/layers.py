@@ -1,11 +1,12 @@
 """Model-parallel layers, one-device forms (counterpart of
-paddle_tpu/parallel/layers.py:43-103): the same ops, parameter names and
+paddle_tpu/parallel/layers.py:43-150): the same ops, parameter names and
 sharding annotations as the JAX package builds, so a program built with
-TransformerConfig(use_tp=True, use_sp=True) is the same Program in both
-packages. On one card the annotations are inert (api.py).
+TransformerConfig(use_tp=True, use_sp=True) or TransformerConfig(
+moe_experts=) is the same Program in both packages. On one card the
+annotations are inert (api.py); moe_layer's experts all live on it.
 
-moe_layer and ring_attention raise NotImplementedError: expert and
-context parallelism are not ported (ROADMAP.md, Queue 1 item 7).
+ring_attention raises NotImplementedError: context parallelism is not
+ported (ROADMAP.md, Queue 1 item 8).
 """
 from __future__ import annotations
 
@@ -19,8 +20,8 @@ __all__ = ['column_parallel_fc', 'row_parallel_fc',
            'vocab_parallel_embedding', 'sequence_parallel_scope',
            'moe_layer', 'ring_attention']
 
-_NOT_PORTED = ('%s is not ported: expert and context parallelism wait '
-               '(ROADMAP.md, Queue 1 item 7)')
+_NOT_PORTED = ('%s is not ported: context parallelism waits (ROADMAP.md, '
+               'Queue 1 item 8)')
 
 
 def _fc(input, size, param_spec, act=None, param_attr=None, bias_attr=None,
@@ -75,8 +76,45 @@ def sequence_parallel_scope(x, axis='sp'):
     return sharding_constraint(x, ('dp', axis, None))
 
 
-def moe_layer(input, num_experts, hidden_size, *args, **kwargs):
-    raise NotImplementedError(_NOT_PORTED % 'moe_layer')
+def moe_layer(input, num_experts, hidden_size, act='gelu', k=1,
+              dispatch='topk', capacity_factor=2.0, aux_loss=False,
+              param_attr=None, axis='ep', name=None):
+    """A mixture-of-experts FFN (ops/moe_ops.py): a softmax gate fc over
+    the last dim, then moe_ffn over experts stacked [E, D, H] and
+    [E, H, D], annotated as sharded over `axis` (inert on one card).
+    dispatch 'topk' routes each token to its top k experts within a
+    capacity of ceil(S * k * capacity_factor / E) tokens an expert;
+    'dense' runs every expert on every token. aux_loss=True also returns
+    GShard's load-balance loss (add it to the objective, typically
+    weighted 1e-2)."""
+    helper = LayerHelper('moe', param_attr=param_attr, name=name)
+    D = input.shape[-1]
+    dtype = input.dtype
+    gate = L.fc(input=input, size=num_experts, act='softmax',
+                num_flatten_dims=max(len(input.shape) - 1, 1))
+    w_up = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_experts, D, hidden_size],
+        dtype=dtype)
+    shard_tensor(w_up, (axis, None, None))
+    w_down = helper.create_parameter(
+        attr=helper.param_attr, shape=[num_experts, hidden_size, D],
+        dtype=dtype)
+    shard_tensor(w_down, (axis, None, None))
+    out = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(
+        type='moe_ffn',
+        inputs={'X': [input], 'Gate': [gate], 'WUp': [w_up],
+                'WDown': [w_down]},
+        outputs={'Out': [out]},
+        attrs={'act': act, 'k': k, 'dispatch': dispatch,
+               'capacity_factor': capacity_factor})
+    out.lod_level = input.lod_level
+    if not aux_loss:
+        return out
+    aux = helper.create_variable_for_type_inference(dtype)
+    helper.append_op(type='moe_aux_loss', inputs={'Gate': [gate]},
+                     outputs={'Out': [aux]})
+    return out, aux
 
 
 def ring_attention(q, k, v, causal=True, sm_scale=None, name=None):

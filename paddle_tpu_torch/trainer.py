@@ -41,8 +41,8 @@ the storage its graph captured before the next replay (executor.py
 `_replay`), so the replay trains the restored weights.
 
 Not ported: CheckpointConfig(sharded=True) and `strategy=` (the mesh
-path; ROADMAP.md, Queue 1 item 7) and `pserver_endpoints` (pserver
-checkpoints; item 6) raise NotImplementedError.
+path; ROADMAP.md, Queue 1 item 8) and `pserver_endpoints` (pserver
+checkpoints; item 7) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -132,12 +132,12 @@ class CheckpointConfig(object):
             raise NotImplementedError(
                 'CheckpointConfig(sharded=True) is the mesh checkpoint path '
                 '(checkpoint/sharded.py); not ported yet (ROADMAP.md, Queue 1 '
-                'item 7)')
+                'item 8)')
         if pserver_endpoints:
             raise NotImplementedError(
                 'CheckpointConfig(pserver_endpoints=) checkpoints the '
                 'parameter servers; not ported yet (ROADMAP.md, Queue 1 '
-                'item 6)')
+                'item 7)')
         self.checkpoint_dir = checkpoint_dir
         self.max_num_checkpoints = max(1, int(max_num_checkpoints))
         self.epoch_interval = max(1, int(epoch_interval))
@@ -201,7 +201,7 @@ class Trainer(object):
         if strategy is not None:
             raise NotImplementedError(
                 'Trainer(strategy=) shards the step over a device mesh; not '
-                'ported yet (ROADMAP.md, Queue 1 item 7)')
+                'ported yet (ROADMAP.md, Queue 1 item 8)')
         self.place = place if place is not None else CUDAPlace(0)
         self.parallel = parallel
         self.checkpoint_cfg = checkpoint_config

@@ -625,3 +625,49 @@ def test_chapter_steps_match_jax(name, tmp_path):
         np.testing.assert_allclose(loaded, direct, rtol=1e-5, atol=1e-6)
         assert sorted(os.listdir(str(tmp_path / 't'))) == \
             sorted(os.listdir(str(tmp_path / 'j')))
+
+
+# -- flowers, voc2012, mq2007, image -------------------------------------------
+
+LATER_READERS = {
+    'flowers.train': (lambda d: d.flowers.train(), 24),
+    'flowers.test': (lambda d: d.flowers.test(), 24),
+    'flowers.valid': (lambda d: d.flowers.valid(use_xmap=False), 24),
+    'voc2012.train': (lambda d: d.voc2012.train(), None),
+    'voc2012.test': (lambda d: d.voc2012.test(), None),
+    'voc2012.val': (lambda d: d.voc2012.val(), None),
+    'mq2007.train-pairwise': (lambda d: d.mq2007.train(), None),
+    'mq2007.test-pointwise': (lambda d: d.mq2007.test('pointwise'), None),
+    'mq2007.train-listwise': (lambda d: d.mq2007.train('listwise'), None),
+}
+
+
+@pytest.mark.parametrize('name', sorted(LATER_READERS))
+def test_later_dataset_reader_yields_the_jax_samples(name):
+    """The same seeded synthetic samples bit for bit (flowers' first 24 of
+    its 224 x 224 images)."""
+    import itertools
+    make, n = LATER_READERS[name]
+    _same_samples(itertools.islice(make(jdataset)(), n),
+                  itertools.islice(make(tfluid.dataset)(), n))
+
+
+def test_image_transforms_match_jax():
+    """dataset.image's transforms on a seeded image: the same arrays
+    (random_crop from the same numpy generator; resize_short through
+    Pillow)."""
+    from paddle_tpu.dataset import image as jimage
+    from paddle_tpu_torch.dataset import image as timage
+    im = np.random.RandomState(3).randint(0, 256, (37, 53, 3)).astype(
+        'uint8')
+    for fn in (lambda m: m.to_chw(im), lambda m: m.center_crop(im, 20),
+               lambda m: m.left_right_flip(im),
+               lambda m: m.random_crop(im, 16,
+                                       rng=np.random.RandomState(4)),
+               lambda m: m.resize_short(im, 24),
+               lambda m: m.simple_transform(im, 30, 24, True,
+                                            mean=[1.0, 2.0, 3.0],
+                                            rng=np.random.RandomState(5))):
+        w, g = fn(jimage), fn(timage)
+        assert w.dtype == g.dtype and w.shape == g.shape
+        np.testing.assert_array_equal(g, w)

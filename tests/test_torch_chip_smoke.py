@@ -21,8 +21,12 @@ machine_translation phases cf1 and mt1-mt3 (their wiring into main(),
 beam_margin, the chapter's Program, an end-to-end run on the CPU at a
 tiny width); the sparse and detection phases sp1, det1, det2 and a4's
 detection ops (their wiring into main(), detection_margin, the rpn
-label rule, end-to-end runs on the CPU at a tiny width); and the
-script's refusal to run without a card."""
+label rule, end-to-end runs on the CPU at a tiny width); the item-6 and
+MoE phases (a4's item-6 cases and its published-shape check, random_crop's
+draw, moe1 and moe2, sq4's chunk_eval and det2's DetectionMAP: their
+wiring into main(), end-to-end runs on the CPU at a tiny width, and each
+refusing a wrong result); and the script's refusal to run without a
+card."""
 import os
 import re
 import shutil
@@ -2163,3 +2167,186 @@ def test_sparse_and_detection_phases_run_on_the_cpu_at_a_tiny_width():
     assert det2['margin'][:2] == (chip_smoke.SSD_TINY['decode_batch'], 0)
     assert det2['map_diff'] == 0.0 and min(det2['count']) > 0
     assert 0.0 < det2['mixed'][0] < 1.0 and det2['mixed'][1] == 0.0
+
+
+# -- item 6 and the MoE LM: a4's new cases, moe1, moe2, sq4's chunk_eval,
+# det2's DetectionMAP ------------------------------------------------------------
+
+MOE_TINY = dict(vocab=256, dim=64, heads=2, layers=2, ffn=128, max_len=64,
+                flash_attention=True, use_tp=False, use_sp=False,
+                moe_experts=4)
+MOE2_TINY = dict(S=64, D=32, H=64, E=4, k=1, cf=2.0)
+C3D_TINY = dict(chip_smoke.C3D, batch=2, frames=4, hw=8,
+                convs=(('conv1a', 3, 4, 4, 8), ('conv2a', 4, 8, 4, 4)),
+                pools=(('pool1', 4, 4, 8, [1, 2, 2]),
+                       ('pool2', 8, 4, 4, [2, 2, 2])))
+SMALL_ITEM6 = dict(c3d=C3D_TINY, seg=dict(batch=2, channels=3, hw=(12, 16)),
+                   spp=dict(batch=2, channels=4, hw=13, levels=3),
+                   quant=dict(shape=(2, 4, 6, 6), bits=8),
+                   auc=dict(batch=64, thresholds=20, batches=3))
+
+
+def test_moe_and_item6_phases_are_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = ['check_training_ops(', 'moe_steps(', 'moe_op_check(',
+             'resnet_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    assert chip_smoke.MOE_MODEL == dict(chip_smoke.MODEL, moe_experts=4)
+    assert chip_smoke.MOE_WARMUP + chip_smoke.MOE_TIMED == 10
+    assert chip_smoke.MOE2 == dict(S=512, D=2048, H=8192, E=4, k=1, cf=2.0)
+    assert chip_smoke.C3D['batch'] == 8 and chip_smoke.SEGNET['hw'] == \
+        (360, 480) and chip_smoke.SPPNET['hw'] == 13
+    assert chip_smoke.AUC == dict(batch=4096, thresholds=200, batches=3)
+    text = open(chip_smoke.__file__).read()
+
+    def body(name):
+        start = text.index('def %s(' % name)
+        return text[start:text.index('\n\n\n', start)]
+    assert 'check_item6_ops(' in body('check_training_ops')
+    assert 'srl_chunk_eval(' in body('srl_steps')
+    assert 'detection_map_evaluator(' in body('ssd_decode')
+    for fn, name, n in ((chip_smoke.moe_steps, 'moe1', 3),
+                        (chip_smoke.moe_op_check, 'moe2', 2)):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * n)
+
+
+def test_a4_covers_item6_and_its_small_cases_pass_on_the_cpu():
+    import paddle_tpu_torch as tfluid
+    cases = chip_smoke.training_op_cases(np.random.RandomState(1))
+    assert chip_smoke.uncovered_op_types(cases) == []
+    for case in chip_smoke.item6_op_cases(np.random.RandomState(2)):
+        got = chip_smoke.run_op_case(tfluid, tfluid.CPUPlace(), case)
+        want = chip_smoke.run_op_case(tfluid, tfluid.CPUPlace(), case)
+        assert chip_smoke.check_op_outputs(case[0], got, want) == 0.0
+
+
+def test_item6_published_shape_check_runs_and_refuses(monkeypatch):
+    """check_item6_ops end to end on the CPU (both sides) at small
+    shapes; then an output 1e-3 off on one side fails it."""
+    import paddle_tpu_torch as tfluid
+    worst, ms = chip_smoke.check_item6_ops(tfluid.CPUPlace(), lambda: None,
+                                           **SMALL_ITEM6)
+    assert worst == 0.0 and 'C3D conv1a at batch 2' in ms
+    run = chip_smoke.run_op_case
+    calls = []
+
+    def off(fluid, place, case, shapes=None, host=True):
+        got = run(fluid, place, case, shapes, host)
+        calls.append(case[0])
+        if len(calls) == 1:
+            got = {n: v * 1.001 if v.dtype.kind == 'f' else v
+                   for n, v in got.items()}
+        return got
+    monkeypatch.setattr(chip_smoke, 'run_op_case', off)
+    with pytest.raises(AssertionError, match='tolerance'):
+        chip_smoke.check_item6_ops(tfluid.CPUPlace(), lambda: None,
+                                   **SMALL_ITEM6)
+
+
+def test_random_crop_check_refuses_a_fixed_draw(monkeypatch):
+    import paddle_tpu_torch as tfluid
+    assert chip_smoke.check_random_crop(tfluid.CPUPlace()) >= 10
+    monkeypatch.setattr(torch, 'randint',
+                        lambda lo, hi, size, **kw: torch.zeros(
+                            size, dtype=torch.long, device=kw.get('device')))
+    with pytest.raises(AssertionError, match='do not vary'):
+        chip_smoke.check_random_crop(tfluid.CPUPlace())
+
+
+def test_moe_phases_run_on_the_cpu_at_a_tiny_width():
+    import paddle_tpu_torch as tfluid
+    counters = {chip_smoke.KERNELS[k][0]: getattr(fa, chip_smoke.KERNELS[k][0])
+                for k in chip_smoke.KERNELS}
+    moe1 = chip_smoke.moe_steps(tfluid.CPUPlace(), counters, lambda: None,
+                                MOE_TINY, 2)
+    assert moe1['bits'] and len(moe1['losses']) == 10
+    assert moe1['losses'][-1] < moe1['losses'][1]
+    assert moe1['n_expert'] == 2 * 2 * 4 * 64 * 128 and moe1['flops'] > 0
+    moe2 = chip_smoke.moe_op_check(tfluid.CPUPlace(), lambda: None,
+                                   MOE2_TINY)
+    assert max(moe2['diffs'].values()) == 0.0 and moe2['flips'] == 0
+    assert moe2['dense_err'] == 0.0
+    assert abs(moe2['flops'][8] - moe2['flops'][4]) < 0.1 * moe2['flops'][4]
+
+
+def test_moe1_refuses_other_bits(monkeypatch):
+    import paddle_tpu_torch as tfluid
+    counters = {chip_smoke.KERNELS[k][0]: getattr(fa, chip_smoke.KERNELS[k][0])
+                for k in chip_smoke.KERNELS}
+    sums = chip_smoke.moe_checksums
+    calls = []
+
+    def shifted(scope, names):
+        out = sums(scope, names)
+        calls.append(1)
+        if len(calls) == 2:
+            out[names[0]] += 1
+        return out
+    monkeypatch.setattr(chip_smoke, 'moe_checksums', shifted)
+    with pytest.raises(chip_smoke.PhaseError, match='differ from the op by'):
+        chip_smoke.moe_steps(tfluid.CPUPlace(), counters, lambda: None,
+                             MOE_TINY, 2)
+
+
+def test_moe2_routing_rule_passes_ties_only():
+    w = dict(MOE2_TINY, S=4, E=3)
+    g = np.array([[0.5, 0.3, 0.2], [0.2, 0.4, 0.4], [0.6, 0.2, 0.2],
+                  [0.1, 0.1, 0.8]], 'float32')
+    assert chip_smoke.moe2_routing('t', g, g, w) == (0, 0)
+    tie = g.copy()
+    tie[1] = [0.2, 0.4 - 3e-7, 0.4 + 3e-7]     # flips inside MOE_TIE
+    assert chip_smoke.moe2_routing('t', g, tie, w)[0] == 1
+    far = g.copy()
+    far[0] = [0.3, 0.5, 0.2]                   # a flip with a wide gap
+    with pytest.raises(AssertionError, match='goes to expert'):
+        chip_smoke.moe2_routing('t', g, far, w)
+
+
+def test_sq4_chunk_eval_runs_and_refuses_other_counts(monkeypatch):
+    import paddle_tpu_torch as tfluid
+    w = dict(word_dim=32, mark_dim=5, hidden=8, depth=2, batch=3,
+             mix_hidden_lr=1e-3)
+    sq4 = chip_smoke.srl_steps(tfluid.CPUPlace(), lambda: None, w)
+    assert len(sq4['chunks']) == 3 and all(0 <= v <= 1 for v in
+                                           sq4['chunks'])
+    program = chip_smoke._chunk_program
+    calls = []
+
+    def other(fluid, B, T, n):
+        calls.append(1)
+        # the first batch's card side counts one chunk type fewer
+        return program(fluid, B, T, n - (len(calls) == 1))
+    monkeypatch.setattr(chip_smoke, '_chunk_program', other)
+    with pytest.raises(chip_smoke.PhaseError, match='chunk_eval'):
+        chip_smoke.srl_steps(tfluid.CPUPlace(), lambda: None, w)
+
+
+def test_det2_detection_map_evaluator_runs_and_refuses(monkeypatch):
+    import paddle_tpu_torch as tfluid
+    rng = np.random.RandomState(3)
+    B, K, G = 4, 12, 3
+    gt = np.zeros((B, G, 5), 'float32')
+    gt[..., 0] = rng.randint(1, 3, (B, G))
+    xy = rng.rand(B, G, 2) * 0.6
+    gt[..., 1:3], gt[..., 3:] = xy, xy + 0.2 + 0.1 * rng.rand(B, G, 2)
+    dets = np.full((B, K, 6), -1.0, 'float32')
+    dets[:, :, 0] = rng.randint(1, 3, (B, K))
+    dets[:, :, 1] = np.sort(rng.rand(B, K))[:, ::-1]
+    xy = rng.rand(B, K, 2) * 0.7
+    dets[:, :, 2:4], dets[:, :, 4:] = xy, xy + 0.2
+    w = dict(chip_smoke.SSD_TINY, classes=3)
+    card, diff = chip_smoke.detection_map_evaluator(tfluid.CPUPlace(), dets,
+                                                    gt, w)
+    assert 0.0 < card < 1.0 and diff == 0.0
+    evaluate = tfluid.evaluator.DetectionMAP.eval
+    calls = []
+
+    def off(self, exe, eval_program=None):
+        calls.append(1)
+        return evaluate(self, exe) + (1e-3 if len(calls) == 1 else 0.0)
+    monkeypatch.setattr(tfluid.evaluator.DetectionMAP, 'eval', off)
+    with pytest.raises(AssertionError, match='DetectionMAP'):
+        chip_smoke.detection_map_evaluator(tfluid.CPUPlace(), dets, gt, w)

@@ -189,6 +189,16 @@ def _own_configs():
         inputs={'Input': _f(r, 2, 6)},
         attrs={'shape': [4, -1], 'dtype': 'int64', 'value': 7,
                'input_dim_idx': 1, 'output_dim_idx': 1})
+    # the experts: [E, D, H] and [E, H, D] inputs and their grads
+    gate = np.exp(_f(r, 6, 4))
+    gate /= gate.sum(-1, keepdims=True)
+    add('moe_ffn', 'moe_ffn',
+        inputs={'X': _f(r, 6, 8), 'Gate': gate,
+                'WUp': 0.3 * _f(r, 4, 8, 12), 'WDown': 0.3 * _f(r, 4, 12, 8)},
+        attrs={'k': 2, 'capacity_factor': 1.5},
+        check=['X', 'Gate', 'WUp', 'WDown'])
+    add('moe_aux_loss', 'moe_aux_loss', inputs={'Gate': gate},
+        check=['Gate'])
     return cfg
 
 
@@ -520,6 +530,43 @@ COVERED_ELSEWHERE['remat_block'] = (
     'test_torch_recompute', 'test_adam_steps_match_the_jax_package',
     'LM steps with every block a remat scope, and its grad, vs the JAX '
     'package')
+
+for _t in ('feed', 'fetch'):
+    COVERED_ELSEWHERE[_t] = (
+        'test_torch_surface', 'test_feed_and_fetch_registered_as_in_jax',
+        'markers with no emitter (the Executor consumes them), host and '
+        'no-grad as in the JAX package')
+for _module, _types in (
+        ('test_torch_nn3d', ('conv3d', 'conv3d_transpose', 'conv_shift',
+                             'depthwise_conv2d_transpose',
+                             'max_pool2d_with_index', 'max_pool3d_with_index',
+                             'pool3d', 'spp', 'unpool')),
+        ('test_torch_misc_ops', ('bilinear_interp', 'bilinear_tensor_product',
+                                 'crop', 'fill', 'flatten', 'l1_norm',
+                                 'lod_reset', 'mean_iou', 'minus',
+                                 'modified_huber_loss', 'multiplex', 'norm',
+                                 'pad_constant_like', 'rank_loss', 'sign',
+                                 'unstack'))):
+    for _t in _types:
+        COVERED_ELSEWHERE[_t] = (_module,
+                                 'test_op_forward_and_grads_match_jax',
+                                 'one-op programs, forward and grads')
+COVERED_ELSEWHERE['random_crop'] = (
+    'test_torch_misc_ops', 'test_random_crop_properties',
+    "torch's stream is not jax.random's: the crop's properties")
+for _t, _test in (('chunk_eval', 'test_chunk_eval_matches_jax'),
+                  ('auc', 'test_auc_state_over_three_runs_matches_jax'),
+                  ('precision_recall', 'test_precision_recall_matches_jax'),
+                  ('positive_negative_pair',
+                   'test_positive_negative_pair_matches_jax')):
+    COVERED_ELSEWHERE[_t] = ('test_torch_eval', _test,
+                             'programs vs the JAX package, state over runs')
+for _t in ('fake_quantize', 'fake_dequantize_max_abs'):
+    COVERED_ELSEWHERE[_t] = (
+        'test_torch_quant', {'fake_quantize':
+                             'test_fake_quantize_steps_match_jax'}.get(
+            _t, 'test_fake_dequantize_matches_jax'),
+        'steps of the moving scale and the straight-through grad')
 
 EXCEPTIONS = {
     'reshape_grad_helper': 'the grad op of reshape2 and reshape, run by '

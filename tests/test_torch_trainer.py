@@ -408,11 +408,12 @@ def test_inferencer_loads_both_packages_models(tmp_path):
 # -- what waits for later items ------------------------------------------------------
 
 def test_deferred_arguments_raise():
-    with pytest.raises(NotImplementedError, match='item 7'):
+    # ROADMAP Queue 1: meshes are item 8, host-side distribution item 7
+    with pytest.raises(NotImplementedError, match='item 8'):
         tfluid.CheckpointConfig(checkpoint_dir='x', sharded=True)
-    with pytest.raises(NotImplementedError, match='item 6'):
+    with pytest.raises(NotImplementedError, match='item 7'):
         tfluid.CheckpointConfig(checkpoint_dir='x',
                                 pserver_endpoints=['127.0.0.1:1'])
-    with pytest.raises(NotImplementedError, match='item 7'):
+    with pytest.raises(NotImplementedError, match='item 8'):
         tfluid.Trainer(fc_train_func(tfluid), optimizer_func(tfluid, 'adam'),
                        place=tfluid.CPUPlace(), strategy=object())
