@@ -496,6 +496,36 @@ room first, each phase's removed as soon as it has checked them):
       serving) and a rollup with the serving.*, perf.* and trainer.*
       series.
 
+Two phases drive the profiler and the record files:
+  (pf1) after t4: the verify skill's fit_a_line drive through
+      fluid.Executor(fluid.TPUPlace()); then PF_STEPS replayed steps of
+      t1's program, each a RecordEvent('train_step'), under
+      fluid.profiler.profiler('All', 'total', path) with obs tracing on:
+      the host trace holds the train_step, device_segment: and
+      host_op:read events, the device trace counts K1 and K2 t1's
+      launches a step each, as the wrappers count them (a short window
+      is taken again padded longer); the timeline tool
+      (--xplane_dir, --hlo_dir) and report.write_report(xplane_dir=)
+      put every kernel slice inside a train_step span, on one clock,
+      within PF_SLACK_MS; then a fresh prepared program of the same LM
+      profiled from its first run (warm-up, capture, PF_STEPS replays):
+      every K1 and K2 launch of its graphs carries its flash op's
+      `<type>.<idx>` through the op map of the warm-up, and the labeled
+      share of the replays' device time is logged;
+  (rf1) after r1, its graphs freed: r1's ResNet-50 fed from RF['files']
+      RecordIO shards of RF['records'] u8 records (written with
+      max_num_records=RF['per_chunk'], removed after the phase) through
+      open_files(thread_num=RF['threads'], pass_num=0, image_norm=the
+      ImageNet mean/std) -> batch -> double_buffer -> read_file, as
+      tools/bench_input_pipeline.py builds it: the native decode's rate
+      at 1, 2 and RF['threads'] threads; step ms from the shards and
+      from a pre-placed feed by N/2N differencing, device busy; K6 r1's
+      launches a step; a fed batch's images (x/255 - mean)/std of their
+      records within RF_IMAGE_ATOL and their labels equal; and, under
+      cuDNN's deterministic algorithms, a replayed shard-fed step from a
+      saved state the same bits (loss and every persistable) as the
+      pre-placed program's replay fed that batch through py_reader.
+
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line and a sequences
 line among them), its own wall time, and as its last line {"ok": true,
@@ -508,6 +538,7 @@ import contextlib
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -10408,6 +10439,619 @@ def moe_op_check(place, sync, w=None):
                 dense_err=dense_err, flops=flops)
 
 
+# -- pf1: fluid.profiler over the captured flagship LM step -------------------
+
+PF_STEPS = 3                 # replayed steps under the profiler
+# a kernel slice in the merged timeline or the report lies inside a
+# train_step span within this (the host and device clocks are converted
+# apart: perf_counter + its offset, the trace's baseTimeNanoseconds)
+PF_SLACK_MS = 1.0
+FLASH_LABELS = {'K1': re.compile(r'^flash_attention\.\d+$'),
+                'K2/K5': re.compile(r'^flash_attention_grad\.\d+$')}
+OP_LABEL = re.compile(r'^[A-Za-z_]\w*\.\d+$')
+
+
+def tpu_place_drive(fluid, place=None, steps=200):
+    """The verify skill's canonical drive as written for the JAX package
+    (fit_a_line: fc over 13 features, SGD(0.01), 200 batches of 32), run
+    through fluid.Executor(fluid.TPUPlace()) (here CUDAPlace(0)). Returns
+    (first loss, last loss); the last must be under 5% of the first."""
+    main, startup = fluid.Program(), fluid.Program()
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        x = fluid.layers.data(name='x', shape=[13], dtype='float32')
+        y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+        pred = fluid.layers.fc(input=x, size=1)
+        loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+        fluid.optimizer.SGD(0.01).minimize(loss)
+    exe = fluid.Executor(place or fluid.TPUPlace())
+    scope = fluid.Scope()
+    rng = np.random.RandomState(0)
+    w = rng.randn(13, 1).astype('f4')
+    losses = []
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        for _ in range(steps):
+            xb = rng.randn(32, 13).astype('f4')
+            l, = exe.run(main, feed={'x': xb, 'y': xb @ w},
+                         fetch_list=[loss])
+            losses.append(float(np.asarray(l)))
+    if not losses[-1] < 0.05 * losses[0]:
+        raise AssertionError('the TPUPlace drive did not converge: %r'
+                             % losses[::50])
+    return losses[0], losses[-1]
+
+
+def flash_counts(events):
+    """{launch group: launches} among device events (dicts of
+    fluid.profiler.device_events), by kernel name."""
+    out = {}
+    for e in events:
+        group = launch_group(e['name'])
+        if group:
+            out[group] = out.get(group, 0) + 1
+    return out
+
+
+def unlabeled_flash(events):
+    """The K1 and K2 launches of graph runs (phase capture or replay)
+    whose label is not their flash op's `<type>.<idx>`: [(group, name,
+    label)]."""
+    bad = []
+    for e in events:
+        group = launch_group(e['name'])
+        if group in FLASH_LABELS and e['phase'] in ('capture', 'replay') \
+                and not FLASH_LABELS[group].match(e['label']):
+            bad.append((group, e['name'], e['label']))
+    return bad
+
+
+def labeled_share(events):
+    """The share of the replays' device time that carries an op label
+    (`<type>.<idx>`), or None if there is no replay."""
+    total = labeled = 0
+    for e in events:
+        if e['phase'] == 'replay':
+            total += e['dur_ns']
+            if OP_LABEL.match(e['label']):
+                labeled += e['dur_ns']
+    return labeled / total if total else None
+
+
+def is_kernel_slice(name):
+    """A device slice that is a kernel, not a copy or a memset (the
+    double buffer's host-to-device copies run between the steps)."""
+    return not name.startswith(('Memcpy', 'Memset'))
+
+
+def outside_spans(slices, spans, slack_us):
+    """The largest distance (us) by which a slice (ts, dur) leaves every
+    span (ts, dur) that overlaps it, 0.0 if each lies inside one; a
+    slice that overlaps no span counts by its distance to the nearest."""
+    worst = 0.0
+    for s0, sd in slices:
+        s1 = s0 + sd
+        best = None
+        for t0, td in spans:
+            t1 = t0 + td
+            out = max(t0 - s0, s1 - t1, 0.0)
+            best = out if best is None else min(best, out)
+        worst = max(worst, best if best is not None else float('inf'))
+    return worst if worst > slack_us else 0.0
+
+
+def check_profiled_steps(host_trace, events, counted, per_step, steps):
+    """pf1's checks of one profiled window: the host trace holds `steps`
+    train_step events, device_segment: events and the read op's
+    host_op:read; the device trace counts K1 and K2 per_step x steps
+    times each, which the wrappers counted (`counted`, {group:
+    launches}) too. Returns the device counts; raises otherwise."""
+    names = [e['name'] for e in host_trace['traceEvents']
+             if e.get('ph') == 'X']
+    n_steps = names.count('train_step')
+    if n_steps != steps or 'host_op:read' not in names or not any(
+            n.startswith('device_segment:') for n in names):
+        raise AssertionError('the host trace holds %d train_step events '
+                             '(want %d), host_op:read %s, device_segment: %s'
+                             % (n_steps, steps, 'host_op:read' in names,
+                                any(n.startswith('device_segment:')
+                                    for n in names)))
+    seen = flash_counts(events)
+    want = {g: per_step * steps for g in FLASH_LABELS}
+    got = {g: (seen.get(g, 0), counted[g]) for g in FLASH_LABELS}
+    if any(s != w or c != w for (s, c), w in
+           zip(got.values(), want.values())):
+        raise ShortWindow('K1, K2 {group: (profiled, counted)} %r, want %r '
+                          'each' % (got, want))
+    return {g: seen.get(g, 0) for g in FLASH_LABELS}
+
+
+class ShortWindow(AssertionError):
+    """A profiled window whose device counts fell short of the wrappers'
+    (the profiler drops events near a window's edge late in a long
+    process): taken again with a longer pad."""
+
+
+def _counted(before, after, groups=FLASH_LABELS):
+    return {g: sum(after[n] - before[n] for n in LAUNCH_GROUPS[g])
+            for g in groups}
+
+
+def _profiled_window(prof, path, pad, run, steps):
+    """`steps` calls of run(), each a RecordEvent('train_step'), inside
+    fluid.profiler.profiler('All', 'total', path), padded by `pad`
+    seconds inside the block. Returns the wrappers' counts before and
+    after."""
+    before = wrapper_counts()
+    with prof.profiler('All', 'total', path):
+        time.sleep(pad)
+        for _ in range(steps):
+            with prof.RecordEvent('train_step'):
+                run()
+        time.sleep(pad)
+    return before, wrapper_counts()
+
+
+def _retrying(label, attempt):
+    """attempt(pad) for each pad of WINDOW_PADS_S until it returns; a
+    ShortWindow, or a session that lost its device trace, is taken again
+    with the next pad; the last one raises."""
+    for i, pad in enumerate(WINDOW_PADS_S):
+        try:
+            return attempt(pad)
+        except (ShortWindow, RuntimeError) as e:
+            if not isinstance(e, ShortWindow) and \
+                    'no device activity' not in str(e):
+                raise
+            if i == len(WINDOW_PADS_S) - 1:
+                raise
+            log('%s: %s (window padded by %g s); trying again'
+                % (label, e, pad))
+    raise AssertionError('unreachable')
+
+
+@phase('pf1: fluid.profiler over the captured flagship LM step (3 replays), '
+       'the timeline and the report; a fresh prepared program from its '
+       'first run')
+def profile_lm_steps(tr, per_step, sync, build_root, place=None):
+    fluid = tr.fluid
+    prof = fluid.profiler
+    from paddle_tpu_torch.tools import timeline
+    t0 = time.perf_counter()
+    root = scratch(tempfile.mkdtemp(dir=build_root))
+    drive = tpu_place_drive(fluid, place)
+    log('the verify skill\'s drive through fluid.Executor(fluid.TPUPlace()): '
+        'loss %.4f -> %.6f in 200 steps' % drive)
+    tr.feed(bench_provider(tr.cfg, tr.batch, np.random.RandomState(2)))
+    tr.step()
+    sync()
+    path = os.path.join(root, 'replayed')
+    obs_dir = os.path.join(root, 'obs')
+
+    def replayed(pad):
+        shutil.rmtree(obs_dir, ignore_errors=True)
+        fluid.obs.trace.enable(obs_dir, role='pf1')
+        try:
+            before, after = _profiled_window(prof, path, pad, tr.step,
+                                             PF_STEPS)
+        finally:
+            fluid.obs.trace.disable()
+        with open(path) as f:
+            host = json.load(f)
+        events = prof.device_events(path + '.xplane',
+                                    prof.read_op_maps(path + '.hlo'))
+        counted = _counted(before, after)
+        return check_profiled_steps(host, events, counted, per_step,
+                                    PF_STEPS), events, counted
+    seen, events, counted = _retrying('pf1 replays', replayed)
+    log('pf1: %d replayed steps under fluid.profiler: K1 %d, K2 %d device '
+        'launches (%d a step, as the wrappers counted and as t1), %d device '
+        'events in all' % (PF_STEPS, seen['K1'], seen['K2/K5'], per_step,
+                           len(events)))
+    # the timeline tool and the report on that capture: the device lane,
+    # its kernels inside the train_step spans on one clock
+    tl_path = os.path.join(root, 'timeline.json')
+    timeline.main(['--profile_path', path, '--timeline_path', tl_path,
+                   '--xplane_dir', path + '.xplane', '--hlo_dir',
+                   path + '.hlo'])
+    with open(tl_path) as f:
+        tl = json.load(f)['traceEvents']
+    steps = [(e['ts'], e['dur']) for e in tl
+             if e.get('name') == 'train_step']
+    kernels = [(e['ts'], e['dur']) for e in tl if e.get('pid') == 1 and
+               e.get('ph') == 'X' and is_kernel_slice(e['name'])]
+    tl_out = outside_spans(kernels, steps, PF_SLACK_MS * 1e3)
+    report, _ = fluid.obs.report.write_report(
+        obs_dir, xplane_dir=path + '.xplane', hlo_dir=path + '.hlo')
+    lanes = {e['pid']: e['args']['name'] for e in report['traceEvents']
+             if e.get('ph') == 'M'}
+    spans = [e for e in report['traceEvents'] if e.get('ph') == 'X']
+    device_lane = 'device:%s:0' % ('GPU' if tr.use_cuda else 'CPU')
+    r_steps = [(e['ts'], e['dur']) for e in spans
+               if e['name'] == 'train_step' and lanes[e['pid']] == 'pf1']
+    r_kernels = [(e['ts'], e['dur']) for e in spans
+                 if lanes[e['pid']] == device_lane and
+                 is_kernel_slice(e['name'])]
+    r_out = outside_spans(r_kernels, r_steps, PF_SLACK_MS * 1e3)
+    log('pf1: timeline %d train_step spans, %d kernel slices on the device '
+        'lane, outside by %.1f us; report lanes %s, %d train_step spans, '
+        '%d kernel slices, outside by %.1f us'
+        % (len(steps), len(kernels), tl_out, sorted(lanes.values()),
+           len(r_steps), len(r_kernels), r_out))
+    if len(steps) != PF_STEPS or not kernels or tl_out or \
+            len(r_steps) != PF_STEPS or not r_kernels or r_out or \
+            device_lane not in lanes.values():
+        raise AssertionError('the merged timeline or the report does not '
+                             'hold the device lane inside the train_step '
+                             'spans')
+
+    # a fresh prepared program from its first run: warm-up (eager, the
+    # op ranges), capture, then replays labeled through the op maps
+    fresh = os.path.join(root, 'fresh')
+    n_runs = WARMUP_STEPS + PF_STEPS
+
+    def first_runs(pad):
+        tr.drop_graphs()
+        before, after = _profiled_window(prof, fresh, pad, tr.step, n_runs)
+        with open(fresh) as f:
+            host = json.load(f)
+        events = prof.device_events(fresh + '.xplane',
+                                    prof.read_op_maps(fresh + '.hlo'))
+        counted = _counted(before, after)
+        return check_profiled_steps(host, events, counted, per_step,
+                                    n_runs), events, counted
+    seen2, events2, counted2 = _retrying('pf1 fresh program', first_runs)
+    bad = unlabeled_flash(events2)
+    replays = flash_counts([e for e in events2 if e['phase'] == 'replay'])
+    share = labeled_share(events2)
+    maps = prof.read_op_maps(fresh + '.hlo')
+    log('pf1: a fresh prepared program, %d runs (warm-up, capture, %d '
+        'replays): K1 %d, K2 %d launches, %d of them in replays; op maps of '
+        '%d segments (%d kernels); K1/K2 graph launches without their flash '
+        'op\'s label: %d; labeled share of the replays\' device time %s'
+        % (n_runs, PF_STEPS, seen2['K1'], seen2['K2/K5'],
+           sum(replays.get(g, 0) for g in FLASH_LABELS), len(maps),
+           sum(len(k) for k in maps.values()), len(bad),
+           'not measured' if share is None else '%.1f%%' % (100 * share)))
+    if bad or any(replays.get(g, 0) != per_step * PF_STEPS
+                  for g in FLASH_LABELS):
+        raise AssertionError('K1/K2 replay launches unlabeled %r or short: '
+                             '%r' % (bad[:5], replays))
+    tr.reader.reset()
+    tr.drop_graphs()
+    seconds = time.perf_counter() - t0
+    return dict(counts=seen, fresh=seen2, share=share, tl_out=tl_out,
+                r_out=r_out, drive=drive, seconds=seconds,
+                maps=len(maps), launches={
+                    g: counted[g] + counted2[g] for g in FLASH_LABELS})
+
+
+# -- rf1: ResNet-50 trained from record shards --------------------------------
+
+# tools/bench_input_pipeline.py's full configuration, at 128 records a
+# file: 8 shards of u8 CHW records written with max_num_records=64 (154 MB),
+# open_files(thread_num=4, pass_num=0, image_norm=ImageNet mean/std)
+RF = dict(files=8, records=128, per_chunk=64, threads=4, decode_s=2.0,
+          warmup=3, iters=5)
+IMAGENET_NORM = dict(mean=[0.485, 0.456, 0.406], std=[0.229, 0.224, 0.225])
+RF_IMAGE_ATOL = 1e-6         # a fed image vs (x/255 - mean)/std of a record
+
+
+def write_image_shards(dirname, n_files, recs_per_file, shape, per_chunk,
+                       seed=SEED):
+    """tools/bench_input_pipeline.py's write_shards (:35-47): u8 CHW
+    images and int64 labels in [0, 1000) from a seeded stream, one
+    RecordIOWriter(max_num_records=per_chunk) a file. Returns (paths,
+    {md5 of a record's image bytes: (u8 image, label)})."""
+    import hashlib
+    from paddle_tpu_torch.recordio import RecordIOWriter
+    rng = np.random.RandomState(seed)
+    paths, records = [], {}
+    for f in range(n_files):
+        p = os.path.join(dirname, 'imagenet-%03d.recordio' % f)
+        with RecordIOWriter(p, max_num_records=per_chunk) as w:
+            for _ in range(recs_per_file):
+                img = rng.randint(0, 256, shape, dtype='uint8')
+                label = rng.randint(0, 1000, (1,)).astype('int64')
+                w.append_sample([img, label])
+                records[hashlib.md5(img.tobytes()).hexdigest()] = \
+                    (img, int(label[0]))
+        paths.append(p)
+    return paths, records
+
+
+def normalized(img, norm):
+    """(x/255 - mean[c]) / std[c] in fp32, as the native decode does."""
+    mean = np.asarray(norm['mean'], 'f4').reshape(-1, 1, 1)
+    std = np.asarray(norm['std'], 'f4').reshape(-1, 1, 1)
+    return (img.astype('f4') / np.float32(255.0) - mean) / std
+
+
+def check_read_slots(images, labels, records, norm, atol=RF_IMAGE_ATOL):
+    """Each fed image is (x/255 - mean)/std of a record within atol, and
+    its label that record's: the record is found by the u8 bytes the
+    image rounds back to. Returns the worst |diff|; raises naming the
+    first image no record gave, or whose label or values differ."""
+    import hashlib
+    mean = np.asarray(norm['mean'], 'f4').reshape(-1, 1, 1)
+    std = np.asarray(norm['std'], 'f4').reshape(-1, 1, 1)
+    labels = np.asarray(labels).reshape(-1)
+    worst = 0.0
+    for i, img in enumerate(np.asarray(images)):
+        u8 = np.clip(np.rint((img * std + mean) * 255.0), 0, 255)
+        rec = records.get(hashlib.md5(u8.astype('uint8').tobytes())
+                          .hexdigest())
+        if rec is None:
+            raise AssertionError('fed image %d is no record of the shards'
+                                 % i)
+        if int(labels[i]) != rec[1]:
+            raise AssertionError('fed image %d has label %d, its record %d'
+                                 % (i, int(labels[i]), rec[1]))
+        worst = max(worst, float(np.abs(img - normalized(rec[0], norm))
+                                 .max()))
+    if worst > atol:
+        raise AssertionError('a fed image is %.3e from its record\'s '
+                             'decode, over %g' % (worst, atol))
+    return worst
+
+
+def decode_throughput(paths, shape, n_threads, seconds, norm):
+    """tools/bench_input_pipeline.py's decode_throughput (:50): samples
+    a second drained from the native decode scanner at `n_threads`."""
+    from paddle_tpu_torch.recordio import ParallelImageScanner
+    n = 0
+    t0 = time.perf_counter()
+    with ParallelImageScanner(paths, shape, mean=norm['mean'],
+                              std=norm['std'], n_threads=n_threads,
+                              capacity=8, loop=True) as sc:
+        for imgs, _ in sc:
+            n += imgs.shape[0]
+            if time.perf_counter() - t0 > seconds:
+                break
+    return n / (time.perf_counter() - t0)
+
+
+def rf_program(paths, threads, norm, batch):
+    """tools/bench_input_pipeline.py's `pipeline` chain (:73-82) over r1's
+    network, built as resnet_program builds r1's: open_files(thread_num,
+    pass_num=0, image_norm) -> batch -> double_buffer -> read_file ->
+    train_network(depth=50, NCHW) -> AMP Momentum(0.01, 0.9). Returns
+    (main, startup, reader, avg_cost)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import resnet
+    hw = RESNET['image_hw']
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        rdr = fluid.layers.open_files(
+            paths, shapes=[(-1, 3, hw, hw), (-1, 1)],
+            dtypes=['float32', 'int64'], thread_num=threads, pass_num=0,
+            image_norm=norm)
+        rdr = fluid.layers.batch(rdr, batch_size=batch)
+        rdr = fluid.layers.double_buffer(rdr)
+        image, label = fluid.layers.read_file(rdr)
+        _, avg_cost, _ = resnet.train_network(
+            image, label, class_dim=RESNET['class_dim'],
+            depth=RESNET['depth'])
+        opt = fluid.optimizer.Momentum(learning_rate=0.01, momentum=0.9)
+        opt = fluid.contrib.mixed_precision.decorate(opt)
+        opt.minimize(avg_cost)
+    return main, startup, rdr, avg_cost
+
+
+def read_slots(program):
+    """The output names of a program's read op (the reader's slots)."""
+    op, = [o for o in program.global_block().ops if o.type == 'read']
+    return list(op.output('Out'))
+
+
+def run_steps(step, warmup, iters, sync):
+    """tools/bench_input_pipeline.py's run_steps (:97): seconds a step by
+    N/2N differencing after `warmup` steps (what the two timings share,
+    the launch of the first and the wait for the last, cancels)."""
+    for _ in range(warmup):
+        step()
+    sync()
+
+    def timed(n):
+        t0 = time.perf_counter()
+        for _ in range(n):
+            step()
+        sync()
+        return time.perf_counter() - t0
+    t1 = timed(iters)
+    t2 = timed(2 * iters)
+    return max(t2 - t1, 1e-9) / iters
+
+
+def _persistables(program, scope):
+    return sorted(v.name for v in program.list_vars()
+                  if v.persistable and scope.find_var(v.name) is not None)
+
+
+@phase('rf1: ResNet-50 trained from RecordIO shards (open_files with the '
+       'native decode, batch, double_buffer, read_file) beside a pre-placed '
+       'feed')
+def record_file_steps(place, sync, build_root, r1_per_step,
+                      batch=RESNET_BATCH):
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import recordio
+    from paddle_tpu_torch.kernels import conv_bn as k6
+    t_phase = time.perf_counter()
+    hw = RESNET['image_hw']
+    shape = (3, hw, hw)
+    cuda = place.device.type == 'cuda'
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    shard_dir = scratch(tempfile.mkdtemp(dir=build_root))
+    try:
+        t0 = time.perf_counter()
+        paths, records = write_image_shards(shard_dir, RF['files'],
+                                            RF['records'], shape,
+                                            RF['per_chunk'])
+        mb = sum(os.path.getsize(p) for p in paths) / 1e6
+        log('rf1: %d shards of %d u8 %s records (%d a chunk), %.1f MB on '
+            'disk, written in %.1f s (the writer\'s g++ build included)'
+            % (RF['files'], RF['records'], 'x'.join(map(str, shape)),
+               RF['per_chunk'], mb, time.perf_counter() - t0))
+        # the prefetcher's build (g++, once a source) stays out of the
+        # decode rates
+        t0 = time.perf_counter()
+        recordio._prefetch_lib()
+        log('rf1: the native prefetcher built and loaded in %.1f s'
+            % (time.perf_counter() - t0))
+        rates = {n: decode_throughput(paths, shape, n, RF['decode_s'],
+                                      IMAGENET_NORM)
+                 for n in (1, 2, RF['threads'])}
+        log('rf1: native decode %s samples/s'
+            % ', '.join('%.1f at %d threads' % (r, n)
+                        for n, r in rates.items()))
+        with flags_set({'FLAGS_use_pallas_fused_ops': True}):
+            out = _rf_legs(fluid, place, sync, paths, records, batch,
+                           r1_per_step, k6)
+    finally:
+        shutil.rmtree(shard_dir, ignore_errors=True)
+    reserved_gb = torch.cuda.max_memory_reserved() / 1e9 if cuda else 0.0
+    peak_gb = peak_memory_gb() if cuda else 0.0
+    out.update(rates=rates, mb=mb, reserved_gb=reserved_gb, peak_gb=peak_gb,
+               u8_mb=batch * int(np.prod(shape)) / 1e6,
+               f32_mb=batch * int(np.prod(shape)) * 4 / 1e6,
+               seconds=time.perf_counter() - t_phase)
+    log('rf1: step %.3f ms from the shards, %.3f ms pre-placed (%+.1f%%), '
+        'device busy %s; the host inflates %.1f MB of u8 and copies %.1f MB '
+        'of fp32 to the card a batch; reserved %.2f GB'
+        % (out['rec_ms'], out['pre_ms'],
+           100 * (out['rec_ms'] / out['pre_ms'] - 1), _fmt_busy(out['busy']),
+           out['u8_mb'], out['f32_mb'], reserved_gb))
+    if reserved_gb > RESNET_PEAK_GB:
+        raise AssertionError('rf1 reserved %.2f GB, over %g GB'
+                             % (reserved_gb, RESNET_PEAK_GB))
+    return out
+
+
+def _rf_legs(fluid, place, sync, paths, records, batch, r1_per_step, k6):
+    import torch
+    pre_main, pre_startup, pre_rdr, _, pre_cost = resnet_program(
+        reader_name='rf_preplaced')
+    rec_main, _, rec_rdr, rec_cost = rf_program(
+        paths, RF['threads'], IMAGENET_NORM, batch)
+    scope = fluid.Scope()
+    fluid.Executor(place).run(pre_startup, scope=scope)
+    names = _persistables(pre_main, scope)
+    if names != _persistables(rec_main, scope):
+        raise AssertionError('the shard-fed program\'s persistables are not '
+                             'the pre-placed one\'s')
+    pre_fetch = [pre_cost.name] + read_slots(pre_main)
+    rec_fetch = [rec_cost.name] + read_slots(rec_main)
+
+    cuda = place.device.type == 'cuda'
+
+    def executor(main, cost):
+        return fluid.ParallelExecutor(use_cuda=cuda, loss_name=cost.name,
+                                      main_program=main, scope=scope)
+
+    # the pre-placed feed: one batch on the card, served every step
+    # (bench.py's MFU-isolation path)
+    dev_batch = image_batch(np.random.RandomState(0), batch,
+                            place.device if cuda else None)
+    pre_rdr.decorate_tensor_provider(lambda: iter(lambda: dev_batch, None))
+    pre_rdr.start()
+    pe = executor(pre_main, pre_cost)
+    pre_s = run_steps(lambda: pe.run(fetch_list=pre_fetch,
+                                     return_numpy=False),
+                      RF['warmup'], RF['iters'], sync)
+    pre_rdr.reset()
+    pe.close()
+    del pe
+    free_device_memory()
+
+    # the shards: native decode on RF['threads'] workers, batches sliced
+    # from its chunks, the double buffer's side-stream copy
+    rec_rdr.start()
+    pe = executor(rec_main, rec_cost)
+
+    def rec_step():
+        return pe.run(fetch_list=rec_fetch, return_numpy=False)
+    for _ in range(RF['warmup']):
+        rec_step()
+    sync()
+    k6.reset_launches()
+    rec_s = run_steps(rec_step, 0, RF['iters'], sync)
+    launches = k6.matmul_bn_stats_kernel.launches
+    by_kernel = dict(k6.matmul_bn_stats_kernel.launches_by_kernel)
+    per_step = launches / (3 * RF['iters'])
+    log('rf1: step %.3f ms from the shards, %.3f ms pre-placed (N/2N, %d '
+        'and %d steps after %d)' % (rec_s * 1e3, pre_s * 1e3, RF['iters'],
+                                    2 * RF['iters'], RF['warmup']))
+    device_ms, busy = _profile_steps(None, rec_s * 1e3, sync,
+                                     'rf1 shard-fed step', step=rec_step)
+    loss, images, labels = pe.run(fetch_list=rec_fetch)
+    worst = check_read_slots(images, labels, records, IMAGENET_NORM)
+    log('rf1: K6 %d launches in %d timed steps (%g a step, r1 %d); a fed '
+        'batch: %d images, each its record\'s decode within %.3e, labels '
+        'equal; loss %.6f' % (launches, 3 * RF['iters'], per_step,
+                              r1_per_step, len(images), worst,
+                              float(np.asarray(loss))))
+    if per_step != r1_per_step or (
+            cuda and by_kernel.get(k6.WGMMA_KERNEL) != launches):
+        raise AssertionError('K6 launched %g a step from the shards, r1 %d '
+                             '(by kernel %r)' % (per_step, r1_per_step,
+                                                 by_kernel))
+    if not np.isfinite(float(np.asarray(loss))):
+        raise AssertionError('the shard-fed loss is not finite')
+    pe.close()
+    del pe
+    free_device_memory()
+
+    # the same step from the batches the reader gave: one saved state, a
+    # replayed shard-fed step, then the pre-placed program's replay fed
+    # those arrays through its py_reader; under cuDNN's deterministic
+    # algorithms both give the same bits
+    with deterministic_convs():
+        saved = {n: scope.find_var(n).clone() for n in names}
+
+        def restore():
+            for n in names:
+                scope.find_var(n).copy_(saved[n])
+
+        def three_runs(main, cost, fetch):
+            pe = executor(main, cost)
+            for _ in range(3):       # warm-up, capture, replay
+                restore()
+                out = pe.run(fetch_list=fetch, return_numpy=False)
+            stats = pe.jit_cache_stats()
+            state = {n: scope.find_var(n).clone() for n in names}
+            pe.close()
+            return out, state, stats
+        (a_loss, a_img, a_lbl), a_state, a_stats = three_runs(
+            rec_main, rec_cost, rec_fetch)
+        rec_rdr.reset()
+        free_device_memory()
+        fed = [a_img, a_lbl]
+        pre_rdr.decorate_tensor_provider(lambda: iter(lambda: fed, None))
+        pre_rdr.start()
+        (b_loss, _, _), b_state, b_stats = three_runs(pre_main, pre_cost,
+                                                      pre_fetch)
+        pre_rdr.reset()
+        restore()
+        del saved
+    differ = [n for n in names if not torch.equal(a_state[n], b_state[n])]
+    same = bool(torch.equal(a_loss, b_loss)) and not differ
+    log('rf1: the replayed shard-fed step vs the pre-placed program fed the '
+        'same batch through py_reader (both captured, %d and %d graphs): '
+        'loss %.6f / %.6f, %d of %d persistables differ, the same bits %s'
+        % (a_stats['compiled_segments'], b_stats['compiled_segments'],
+           float(a_loss), float(b_loss), len(differ), len(names), same))
+    if not same:
+        raise AssertionError('the shard-fed step and the py_reader step '
+                             'differ: loss %r vs %r, persistables %r'
+                             % (float(a_loss), float(b_loss), differ[:5]))
+    free_device_memory()
+    return dict(pre_ms=pre_s * 1e3, rec_ms=rec_s * 1e3, busy=busy,
+                device_ms=device_ms, launches=launches, per_step=per_step,
+                img_err=worst, bits=same)
+
+
 _SCRATCH_DIRS = []
 
 
@@ -10537,6 +11181,9 @@ def main():
             check_split_step(tr, saved, batch, kernel_step, counters, sync)
         del saved
         tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
+        pf1 = profile_lm_steps(
+            tr, train_launches['flash_attention_bwd_kvmajor'] // TIMED_STEPS,
+            sync, build_root)
         with flash_arms(None, 'split'):
             x1 = {'Momentum': check_captured_steps(
                 tr, 'the Momentum step (split arm)', PARAMS_COMPARED, 'max',
@@ -10603,6 +11250,9 @@ def main():
         # not fit on the card together
         rtr.drop_graphs()
         del rtr
+        free_device_memory()
+        rf1 = record_file_steps(place, sync, build_root,
+                                r_launches // TIMED_STEPS)
         free_device_memory()
 
         with flags_set(N1_FLAGS):
@@ -10679,11 +11329,14 @@ def main():
     # bf16 and K2 in the timed training steps, K3a/K3b in the split step,
     # K4a/K4b/K5 in the timed long-context steps, K1 bf16 at T = 8192 in
     # l2's default-arm step
+    # (and pf1's profiled runs of the same step)
     path_launches = {'flash_attention_fwd': launches['flash_attention_fwd'],
                      'flash_attention_fwd_bf16':
-                         train_launches['flash_attention_fwd'],
+                         train_launches['flash_attention_fwd'] +
+                         pf1['launches']['K1'],
                      'flash_attention_bwd_kvmajor':
-                         train_launches['flash_attention_bwd_kvmajor'],
+                         train_launches['flash_attention_bwd_kvmajor'] +
+                         pf1['launches']['K2/K5'],
                      'flash_attention_bwd_dq':
                          split_launches['flash_attention_bwd_dq'],
                      'flash_attention_bwd_dkv':
@@ -10697,8 +11350,9 @@ def main():
     for r in long_rows:
         r['launches'] = long_launches[r['name']]
     rows += long_rows
-    # r1's timed ResNet-50 steps and bk2's fused cifar steps
-    k6_row['launches'] = r_launches + bk2['launches']
+    # r1's timed ResNet-50 steps, rf1's shard-fed steps and bk2's fused
+    # cifar steps
+    k6_row['launches'] = r_launches + rf1['launches'] + bk2['launches']
     rows += [k6_row, probe_row]
     log('serving: %.3f s for %d requests x %d tokens, prefill %.3f ms, '
         'decode step %.3f ms, peak device memory %.2f GB'
@@ -10933,6 +11587,29 @@ def main():
            moe2['dense_err'],
            ', '.join('%d %.4f TFLOP' % (e, f / 1e12)
                      for e, f in moe2['flops'].items())))
+    log('profiler and record files (%.1f s pf1, %.1f s rf1): pf1 %d replayed '
+        'LM steps under fluid.profiler, K1 %d and K2 %d device launches (the '
+        'wrappers\' counts), kernel slices outside the train_step spans by '
+        '%.1f us (timeline) and %.1f us (report); a fresh program from its '
+        'first run: every K1/K2 graph launch labeled by its op, labeled '
+        'share of the replays\' device time %s, op maps of %d segments; '
+        'the TPUPlace drive %.4f -> %.6f; rf1 ResNet-50 (batch %d, 224 px) '
+        'from %d RecordIO shards (%.1f MB): step %.3f ms from the shards, '
+        '%.3f ms pre-placed (%+.1f%%), device busy %s, K6 %g a step, fed '
+        'images within %.3e of their records\' decode, the same bits as '
+        'the batches fed through py_reader %s; native decode %s samples/s; '
+        'the host inflates %.1f MB and copies %.1f MB to the card a batch'
+        % (pf1['seconds'], rf1['seconds'], PF_STEPS, pf1['counts']['K1'],
+           pf1['counts']['K2/K5'], pf1['tl_out'], pf1['r_out'],
+           'not measured' if pf1['share'] is None
+           else '%.1f%%' % (100 * pf1['share']), pf1['maps'],
+           pf1['drive'][0], pf1['drive'][1], RESNET_BATCH, RF['files'],
+           rf1['mb'], rf1['rec_ms'], rf1['pre_ms'],
+           100 * (rf1['rec_ms'] / rf1['pre_ms'] - 1), _fmt_busy(rf1['busy']),
+           rf1['per_step'], rf1['img_err'], rf1['bits'],
+           ' / '.join('%.1f at %d threads' % (r, n)
+                      for n, r in rf1['rates'].items()),
+           rf1['u8_mb'], rf1['f32_mb']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -59,7 +59,13 @@ RoI ops); the 3-D and indexed pooling ops, the misc tensor layers, the
 evaluation ops with `metrics` and `evaluator`, fake quantization, the
 one-device mixture-of-experts FFN (parallel.layers.moe_layer,
 TransformerConfig(moe_experts=)) and the flowers, voc2012, mq2007 and
-image dataset modules. ROADMAP.md lists the rest.
+image dataset modules; `profiler` (the host table and chrome trace, a
+torch.profiler device trace whose kernels carry the ops that launched
+them, tools.timeline and tools.obs_report), RecordIO files with their
+native readers (recordio, layers.open_files with the native image
+decode, the datasets' convert) and the CSP channels (make_channel, Go).
+The JAX package's place names TPUPlace and XLAPlace are CUDAPlace here.
+ROADMAP.md lists the rest.
 """
 from . import ops            # registers every operator (import side effect)
 from . import parallel       # registers sharding_constraint
@@ -73,7 +79,9 @@ from . import unique_name
 from .param_attr import ParamAttr, WeightNormParamAttr
 from . import executor
 from .executor import (Executor, Scope, global_scope, scope_guard,
-                       CPUPlace, CUDAPlace, fetch_var, OpExecutionError)
+                       _switch_scope, CPUPlace, CUDAPlace, TPUPlace,
+                       XLAPlace, CUDAPinnedPlace, fetch_var,
+                       OpExecutionError)
 from . import lod_tensor
 from .lod_tensor import (LoDTensor, create_lod_tensor,
                          create_random_int_lodtensor)
@@ -118,14 +126,23 @@ from . import net_drawer
 from . import op
 from . import metrics
 from . import evaluator
+from . import profiler
+from . import recordio
+from .recordio import (convert_reader_to_recordio_file,
+                       convert_reader_to_recordio_files)
+from . import recordio_writer
+from . import channels
+from .channels import make_channel
+from . import concurrency
+from .concurrency import Go
 
 __all__ = [
     'Program', 'Block', 'Operator', 'Variable', 'Parameter',
     'default_main_program', 'default_startup_program', 'program_guard',
     'name_scope', 'grad_var_name', 'get_var', 'layers', 'initializer',
     'unique_name', 'ParamAttr', 'WeightNormParamAttr',
-    'Executor', 'Scope', 'global_scope', 'scope_guard', 'CPUPlace',
-    'CUDAPlace', 'fetch_var', 'OpExecutionError', 'LoDTensor', 'Tensor',
+    'Executor', 'Scope', 'global_scope', 'scope_guard', '_switch_scope',
+    'CPUPlace', 'TPUPlace', 'XLAPlace', 'CUDAPlace', 'fetch_var', 'OpExecutionError', 'LoDTensor', 'Tensor',
     'create_lod_tensor', 'create_random_int_lodtensor', 'io', 'flags',
     'set_flags', 'get_flag', 'get_flags', 'inference', 'models',
     'transpiler', 'serving', 'backward', 'append_backward',
@@ -137,5 +154,5 @@ __all__ = [
     'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
     'FaultEvent', 'Inferencer', 'average', 'annotations',
     'default_scope_funcs', 'graphviz', 'net_drawer', 'op', 'metrics',
-    'evaluator',
+    'evaluator', 'profiler', 'Go',
 ]

@@ -15,7 +15,8 @@ from __future__ import annotations
 
 import json
 import os
-import zlib
+
+from ..integrity import crc32_file
 
 __all__ = ['DIGESTS_FILE', 'CheckpointCorruptError', 'crc32_file',
            'write_digests', 'read_digests', 'verify_digests',
@@ -25,7 +26,6 @@ DIGESTS_FILE = 'CHECKPOINT_DIGESTS'
 
 # never digested: commit markers and the manifest itself
 _MARKERS = (DIGESTS_FILE, '_SUCCESS', 'COMMIT', 'OWNER')
-_CHUNK = 1 << 20
 
 
 class CheckpointCorruptError(RuntimeError):
@@ -38,19 +38,6 @@ class CheckpointCorruptError(RuntimeError):
         self.path = path
         self.file = file
         self.var = var
-
-
-def crc32_file(path):
-    """Streaming zlib crc32 over a file's bytes, as an unsigned 32-bit
-    int -> (crc, size) (paddle_tpu/integrity.py's definition)."""
-    crc, size = 0, 0
-    with open(path, 'rb') as f:
-        while True:
-            block = f.read(_CHUNK)
-            if not block:
-                return crc, size
-            crc = zlib.crc32(block, crc) & 0xFFFFFFFF
-            size += len(block)
 
 
 def _walk_payload_files(dirname):

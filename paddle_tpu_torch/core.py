@@ -10,7 +10,8 @@ from __future__ import annotations
 
 import torch
 
-from .executor import CPUPlace, CUDAPlace, Scope  # noqa: F401
+from .executor import (CPUPlace, CUDAPlace, TPUPlace, XLAPlace,  # noqa: F401
+                       Scope)
 from .lod_tensor import LoDTensor  # noqa: F401
 from .reader.pipeline import EOFException  # noqa: F401
 

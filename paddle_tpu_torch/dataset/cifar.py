@@ -1,7 +1,6 @@
 """CIFAR-10/100 (counterpart of paddle_tpu/dataset/cifar.py): samples
 are (3072 float32 in [0,1] laid out CHW, int label). Synthetic
-class-blob data. convert() waits for the port's RecordIO writer
-(dataset.common.convert)."""
+class-blob data."""
 from __future__ import annotations
 
 import numpy as np

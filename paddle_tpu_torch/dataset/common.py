@@ -1,9 +1,8 @@
 """Dataset plumbing (counterpart of paddle_tpu/dataset/common.py): the
 cache dir, md5 checks, and the synthetic-data convention of every
 dataset module. synthetic_rng hashes the same '<module>/<split>' strings
-as the JAX package, so both packages serve the same samples.
-convert() waits for the port's RecordIO writer (ROADMAP.md Queue 1
-item 7)."""
+as the JAX package, so both packages serve the same samples. convert()
+writes a reader's samples to RecordIO shards, as the JAX package's does."""
 from __future__ import annotations
 
 import hashlib
@@ -99,6 +98,31 @@ def cluster_files_reader(files_pattern, trainer_count, trainer_id,
 
 
 def convert(output_path, reader, line_count, name_prefix):
-    raise NotImplementedError(
-        'dataset.common.convert writes RecordIO shards, which the port '
-        'does not write yet (ROADMAP.md Queue 1 item 7)')
+    """Write a reader's samples to RecordIO shard files of `line_count`
+    pickled records each, `<output_path>/<name_prefix>-00000`, ...
+    (every dataset module's convert(path) comes here). Read them back
+    with reader.creator.recordio(paths)."""
+    import pickle
+    from ..recordio import RecordIOWriter
+    if line_count < 1:
+        raise ValueError('line_count must be at least 1')
+    must_mkdirs(output_path)
+    indx_f = 0
+    lines = []
+
+    def write_chunk():
+        nonlocal lines, indx_f
+        filename = '%s/%s-%05d' % (output_path, name_prefix, indx_f)
+        with RecordIOWriter(filename) as w:
+            for line in lines:
+                w.append_record(pickle.dumps(
+                    line, protocol=pickle.HIGHEST_PROTOCOL))
+        lines = []
+        indx_f += 1
+
+    for d in reader():
+        lines.append(d)
+        if len(lines) >= line_count:
+            write_chunk()
+    if lines:
+        write_chunk()

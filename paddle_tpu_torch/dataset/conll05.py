@@ -2,8 +2,7 @@
 label_semantic_roles book config. test() yields 9-tuples (word_ids,
 ctx_n2, ctx_n1, ctx_0, ctx_p1, ctx_p2, verb_ids, mark, labels) of
 synthetic sequences; get_embedding() is a synthetic [7477, 32] word
-table. convert() waits for the port's RecordIO writer
-(dataset.common.convert)."""
+table."""
 from __future__ import annotations
 
 from . import common

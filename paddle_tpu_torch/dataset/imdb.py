@@ -1,8 +1,7 @@
 """IMDB sentiment (counterpart of paddle_tpu/dataset/imdb.py): samples
 are (list of word ids, 0/1 label). Synthetic: two vocab regions are
 biased by class so sentiment models learn; word_dict() maps word -> id
-with '<unk>' included. convert() waits for the port's RecordIO writer
-(dataset.common.convert)."""
+with '<unk>' included."""
 from __future__ import annotations
 
 import numpy as np

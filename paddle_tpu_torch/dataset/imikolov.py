@@ -1,8 +1,7 @@
 """imikolov / PTB n-gram LM data (counterpart of
 paddle_tpu/dataset/imikolov.py): build_dict() -> word->id;
 train(word_idx, n) yields n-gram id tuples (the word2vec book config).
-Synthetic Markov-like id streams. convert() waits for the port's
-RecordIO writer (dataset.common.convert)."""
+Synthetic Markov-like id streams."""
 from __future__ import annotations
 
 import numpy as np

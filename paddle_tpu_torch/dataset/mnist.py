@@ -1,7 +1,6 @@
 """MNIST (counterpart of paddle_tpu/dataset/mnist.py): samples are
 (784 float32 in [-1, 1], int label). Synthetic: each class k draws from
-a distinct gaussian blob pattern, so classifiers learn. convert()
-waits for the port's RecordIO writer (dataset.common.convert)."""
+a distinct gaussian blob pattern, so classifiers learn."""
 from __future__ import annotations
 
 import numpy as np

@@ -1,8 +1,7 @@
 """MovieLens-1M (counterpart of paddle_tpu/dataset/movielens.py): the
 recommender book config. Samples: (user_id, gender_id, age_id, job_id,
 movie_id, category_ids, title_ids, score), synthetic, with the original's
-vocab sizes. convert() waits for the port's RecordIO writer
-(dataset.common.convert)."""
+vocab sizes."""
 from __future__ import annotations
 
 from . import common

@@ -1,6 +1,5 @@
 """Movie-review sentiment (counterpart of paddle_tpu/dataset/
-sentiment.py): imdb's samples under their own module name. convert()
-waits for the port's RecordIO writer (dataset.common.convert)."""
+sentiment.py): imdb's samples under their own module name."""
 from __future__ import annotations
 
 from . import common, imdb

@@ -2,8 +2,7 @@
 machine_translation chapter's data. Samples: (src_ids, trg_ids with <s>
 (id 0) first, trg_ids with <e> (id 1) last). Synthetic: the target is a
 fixed transform of the reversed source, so attention has something to
-learn; the JAX package's samples from the same seeds. convert() waits
-for the port's RecordIO writer (dataset.common.convert)."""
+learn; the JAX package's samples from the same seeds."""
 from __future__ import annotations
 
 from . import common

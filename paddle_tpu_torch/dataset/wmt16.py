@@ -1,7 +1,6 @@
 """WMT-16 en<->de (counterpart of paddle_tpu/dataset/wmt16.py): wmt14's
 synthetic scheme with the reference's (src, trg, trg_next) samples, the
-JAX package's from the same seeds. convert() waits for the port's
-RecordIO writer (dataset.common.convert)."""
+JAX package's from the same seeds."""
 from __future__ import annotations
 
 from . import common

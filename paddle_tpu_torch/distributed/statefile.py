@@ -15,8 +15,8 @@ load, and `quarantine` renames a file that fails verification aside
 (`<path>.corrupt`), loudly, leaving the bytes on disk for post-mortem,
 so recovery falls back to an older generation instead of loading
 garbage. `quarantine_dir` does the same for a whole checkpoint
-directory (the Trainer's resume). The crc32 is the port's own
-(checkpoint/manifest.py `crc32_file`, the JAX package's definition).
+directory (the Trainer's resume). The crc32 is the port's one
+definition (integrity.py `crc32_file`, the JAX package's).
 """
 from __future__ import annotations
 
@@ -25,7 +25,7 @@ import json
 import os
 import sys
 
-from ..checkpoint.manifest import crc32_file
+from ..integrity import crc32_file
 
 
 @contextlib.contextmanager

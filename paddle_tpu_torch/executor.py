@@ -31,6 +31,13 @@ MFU and device memory around Executor.run (step_begin / step_end), a
 hit or a miss per segment dispatch, an `xla.compile` span around each
 warm-up and capture, and the segment's FLOPs counted during its warm-up
 (PreparedProgram.cost_flops).
+Each host step runs inside profiler.RecordEvent('host_op:<type>') and
+each device segment's run inside RecordEvent('device_segment:<i>(<n>
+ops)'), as in the JAX package; while fluid.profiler's torch.profiler
+session is on (profiler.tracing), each op run eagerly is a
+record_function('<type>.<idx>') range and each segment run a
+`segment@<key>:<phase>` range, from which the profiler names the
+kernels, a replay's through the op map of its segment's warm-up.
 A sparse gradient (selected_rows.SelectedRows) is a run-local value
 like a tensor: it crosses segments, a graph's static inputs and outputs
 and the prepared-program cache as its (values, rows) pair with a static
@@ -76,7 +83,7 @@ import time
 import numpy as np
 import torch
 
-from . import kernels, registry
+from . import kernels, profiler as _prof, registry
 from .flags import get_flag, get_flags
 from .framework import default_main_program, Program, Variable
 from .obs import perf as _perf
@@ -85,7 +92,8 @@ from .reader.pipeline import EOFException
 from .selected_rows import SelectedRows
 
 __all__ = ['Executor', 'Scope', 'global_scope', 'scope_guard',
-           'CPUPlace', 'CUDAPlace', 'fetch_var', 'OpExecutionError',
+           'CPUPlace', 'CUDAPlace', 'TPUPlace', 'XLAPlace',
+           'CUDAPinnedPlace', 'fetch_var', 'OpExecutionError',
            'torch_dtype', 'PreparedProgram', 'rebound_persistables',
            'run_time_switches', 'pad_lod_to_batch']
 
@@ -161,6 +169,16 @@ class CUDAPlace(Place):
     @property
     def device(self):
         return torch.device('cuda', self.device_id)
+
+
+# the JAX package's place names: its accelerator place is TPUPlace, with
+# XLAPlace and CUDAPlace as aliases, and CUDAPinnedPlace is its host
+# place; here the accelerator place is CUDAPlace (a divergence by
+# design), so scripts written as fluid.Executor(fluid.TPUPlace()) run on
+# the card unchanged
+TPUPlace = CUDAPlace
+XLAPlace = CUDAPlace
+CUDAPinnedPlace = CPUPlace
 
 
 def _resolve_place(place):
@@ -541,6 +559,14 @@ def check_finite(ctx, op, pos):
                 % (name, _describe_op(op, ctx.block, pos)))
 
 
+def _emit(ctx, opdef, op):
+    if opdef.vjp_slots is not None and ctx.wanted and \
+            registry.record_key(op.type, op.outputs) in ctx.wanted:
+        _run_recorded(ctx, opdef, op)
+    else:
+        opdef.emit(ctx, op)
+
+
 def run_op(ctx, op, pos):
     """Run one op's emitter (recorded where a grad op of the block takes
     its record); any failure becomes an OpExecutionError naming the op."""
@@ -548,11 +574,12 @@ def run_op(ctx, op, pos):
     if opdef.emit is None:
         raise KeyError('op %r has no emitter registered' % op.type)
     try:
-        if opdef.vjp_slots is not None and ctx.wanted and \
-                registry.record_key(op.type, op.outputs) in ctx.wanted:
-            _run_recorded(ctx, opdef, op)
+        if _prof.tracing:
+            # the op's label on what it launches (profiler.py)
+            with _prof.op_range(op.type, pos):
+                _emit(ctx, opdef, op)
         else:
-            opdef.emit(ctx, op)
+            _emit(ctx, opdef, op)
     except (OpExecutionError, EOFException):
         raise
     except Exception as e:
@@ -575,7 +602,8 @@ class _DeviceSegment(object):
     generators its ops draw from (-> an op's seed)."""
 
     __slots__ = ('ops', 'op_offsets', 'in_names', 'out_names', 'runs',
-                 'graphs', 'generators', 'op_generators', 'warm_s')
+                 'graphs', 'generators', 'op_generators', 'warm_s',
+                 'op_maps')
 
     def __init__(self, ops, op_offsets):
         self.ops = ops
@@ -589,6 +617,9 @@ class _DeviceSegment(object):
         # signature -> seconds its warm-up took (obs/perf.py's compile
         # latency on the card is warm-up + capture)
         self.warm_s = {}
+        # profiler key -> the op map of its kernels, built from an eager
+        # run under the profiler and applied to the graph's replays
+        self.op_maps = {}
 
     def signature(self, local):
         """(name, shape, dtype) of each run-local input."""
@@ -1031,40 +1062,15 @@ class Executor(object):
         with torch.no_grad():
             for step_idx, step in enumerate(prepared.steps):
                 if isinstance(step, _HostStep):
-                    run_op(ctx, step.op, step.op_offset)
+                    with _prof.RecordEvent('host_op:%s' % step.op.type):
+                        run_op(ctx, step.op, step.op_offset)
                     for name in drop.get(step.op_offset, ()):
                         local.pop(name, None)
                     continue
-                if check_nan_inf:
-                    # op by op, never captured, as the JAX package runs
-                    # the segment eagerly in this mode
-                    self._run_ops(step, ctx, drop, checked=True)
-                    continue
-                ctx.generators = step.generators
-                ctx.op_generators = step.op_generators
-                sig = step.signature(local)
-                runs = step.runs.get(sig, 0)
-                if runs:
-                    self._segment_hits += 1
-                    _perf.jit_cache_hit()
-                else:
-                    self._segment_misses += 1
-                    _perf.jit_cache_miss()
-                if sig in step.graphs:
-                    self._replay(step, step.graphs[sig], ctx)
-                elif runs and captured:
-                    step.graphs[sig] = self._compiled(
-                        prepared, step_idx, step, sig, 'capture',
-                        lambda: self._capture(step, ctx, drop))
-                elif runs:
-                    self._run_ops(step, ctx, drop)
-                else:
-                    run = (lambda: self._warm_up(step, ctx, drop)) \
-                        if captured else \
-                        (lambda: self._run_ops(step, ctx, drop))
-                    self._compiled(prepared, step_idx, step, sig,
-                                   'warm_up' if captured else 'compile', run)
-                step.runs[sig] = runs + 1
+                with _prof.RecordEvent('device_segment:%d(%d ops)'
+                                       % (step_idx, len(step.ops))):
+                    self._run_segment(prepared, step_idx, step, ctx, drop,
+                                      captured, check_nan_inf)
         results = []
         for name in prepared.fetch_names:
             if name in local:
@@ -1075,6 +1081,62 @@ class Executor(object):
                     raise KeyError('fetch var %r was not produced' % name)
             results.append(val)
         return results
+
+    def _run_segment(self, prepared, step_idx, step, ctx, drop, captured,
+                     check_nan_inf):
+        """One run of a device segment: op by op under check_nan_inf,
+        else its replay, its capture, its warm-up (its first run of a
+        signature on the card) or, on the CPU, its ops. While the
+        profiler traces, the run is a `segment@<key>:<phase>` range."""
+        local = ctx.local
+        if check_nan_inf:
+            # op by op, never captured, as the JAX package runs the
+            # segment eagerly in this mode
+            with self._segment_range(prepared, step_idx, step,
+                                     step.signature(local), 'eager'):
+                self._run_ops(step, ctx, drop, checked=True)
+            return
+        ctx.generators = step.generators
+        ctx.op_generators = step.op_generators
+        sig = step.signature(local)
+        runs = step.runs.get(sig, 0)
+        if runs:
+            self._segment_hits += 1
+            _perf.jit_cache_hit()
+        else:
+            self._segment_misses += 1
+            _perf.jit_cache_miss()
+        if sig in step.graphs:
+            with self._segment_range(prepared, step_idx, step, sig,
+                                     'replay'):
+                self._replay(step, step.graphs[sig], ctx)
+        elif runs and captured:
+            with self._segment_range(prepared, step_idx, step, sig,
+                                     'capture'):
+                step.graphs[sig] = self._compiled(
+                    prepared, step_idx, step, sig, 'capture',
+                    lambda: self._capture(step, ctx, drop))
+        else:
+            with self._segment_range(prepared, step_idx, step, sig,
+                                     'eager'):
+                if runs:
+                    self._run_ops(step, ctx, drop)
+                else:
+                    run = (lambda: self._warm_up(step, ctx, drop)) \
+                        if captured else \
+                        (lambda: self._run_ops(step, ctx, drop))
+                    self._compiled(prepared, step_idx, step, sig,
+                                   'warm_up' if captured else 'compile',
+                                   run)
+        step.runs[sig] = runs + 1
+
+    @staticmethod
+    def _segment_range(prepared, step_idx, step, sig, phase):
+        if not _prof.tracing:
+            return contextlib.nullcontext()
+        return _prof.segment_range(
+            _prof.segment_key(prepared.fingerprint, step_idx, sig), phase,
+            step)
 
     def _compiled(self, prepared, step_idx, step, sig, phase, run):
         """run() a segment's warm-up or capture and return what it

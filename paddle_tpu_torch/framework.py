@@ -77,7 +77,7 @@ class Variable(object):
     def __init__(self, block, name=None, shape=None, dtype=None, lod_level=None,
                  persistable=False, stop_gradient=False, type=VarType.LOD_TENSOR,
                  is_data=False, is_cache=False, initializer=None,
-                 error_clip=None):
+                 error_clip=None, **kwargs):
         self.block = block
         if name is None:
             name = unique_name.generate('_generated_var')
@@ -94,7 +94,8 @@ class Variable(object):
         # excluded from save/load_persistables (io.py predicate)
         self.is_cache = is_cache
         # taken as the JAX package's Variable takes them: the initializer
-        # is not run here (LayerHelper.set_variable_initializer does that)
+        # is not run here (LayerHelper.set_variable_initializer does that),
+        # and any other keyword (capacity=, ...) is taken and ignored
         self.error_clip = error_clip
         # a sequence var's [B] int32 lengths companion (set for
         # lod_level > 0 feeds; layers carry it through the ops that keep

@@ -6,7 +6,8 @@
   JSONL event log.
 - `obs.report`: merges the per-role logs into one chrome://tracing
   timeline (clock offsets from RPC span midpoints) plus a metrics
-  rollup.
+  rollup, with device lanes from a fluid.profiler trace
+  (`write_report(xplane_dir=, hlo_dir=)`).
 - `obs.perf`: capture (the card's compile) telemetry
   (xla.compile spans, xla.compile_latency, xla.jit_cache.{hit,miss}),
   per-step perf.step_latency / perf.mfu / perf.achieved_tflops, and the
@@ -16,8 +17,6 @@
   training arms one from perf.step_end).
 
 Everything is off unless `FLAGS_obs_dir` is set (or enable() is called).
-Device lanes from a profiler capture wait for the port's profiler.py
-(ROADMAP.md, Queue 1 item 9).
 """
 from . import telemetry, trace, report, perf, slo
 

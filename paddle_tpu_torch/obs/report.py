@@ -23,9 +23,10 @@ Timeline output is chrome://tracing JSON: one pid lane per role, spans
 as 'X' duration events, client->server RPC links as 's'/'f' flow events
 (same `id` = span id), faults and SLO breaches as instant events.
 `device_events_to_records` turns (label, start_ns, dur_ns[, plane])
-tuples into device lanes on the same unix-epoch clock. Reading them
-from a profiler capture (`write_report(xplane_dir=...)`) waits for the
-port's profiler.py (ROADMAP.md, Queue 1 item 9).
+tuples into device lanes on the same unix-epoch clock; with
+`write_report(xplane_dir=...)` they come from a torch.profiler trace
+that fluid.profiler wrote (profiler.device_op_events, which reads the
+trace's own time base), labeled through the op maps of `hlo_dir`.
 """
 from __future__ import annotations
 
@@ -222,8 +223,9 @@ def device_events_to_records(device_events, role='device',
     plane) 4-tuples (one timeline lane PER PLANE — per device chip).
 
     Device timestamps are unix-epoch nanoseconds (the clock host spans
-    stamp with time.time()), so t0 = start_ns/1e9 lands directly on the
-    merged clock;
+    stamp with time.time(); profiler.device_op_events converts a
+    torch.profiler trace's times from its baseTimeNanoseconds), so t0 =
+    start_ns/1e9 lands directly on the merged clock;
     `clock_offset` is there for captures known to be shifted."""
     recs = []
     for i, ev in enumerate(device_events):
@@ -324,14 +326,19 @@ def write_report(obs_root, timeline_path=None, rollup_path=None,
     """Merge everything under obs_root; optionally write the timeline
     and rollup JSON files. -> (timeline dict, rollup dict).
 
-    xplane_dir / hlo_dir (device lanes from a profiler capture) raise
-    NotImplementedError: they wait for the port's profiler.py."""
-    if xplane_dir or hlo_dir:
-        raise NotImplementedError(
-            'write_report(xplane_dir=, hlo_dir=) reads device lanes from a '
-            'profiler capture; profiler.py is not ported yet (ROADMAP.md, '
-            'Queue 1 item 9)')
+    With xplane_dir (the torch.profiler trace directory that
+    fluid.profiler.profiler writes, `<profile_path>.xplane`), its device
+    events join the timeline as one lane a device; hlo_dir (the op maps
+    it writes, `<profile_path>.hlo`) labels a replayed graph's kernels
+    with the ops that launched them."""
     events, metric_lasts = collect(obs_root)
+    if xplane_dir:
+        from .. import profiler
+        op_map = {}
+        if hlo_dir and os.path.isdir(hlo_dir):
+            op_map = profiler.read_op_maps(hlo_dir)
+        events = events + device_events_to_records(
+            profiler.device_op_events(xplane_dir, op_map, with_plane=True))
     tl = build_timeline(events)
     ru = rollup(metric_lasts)
     indent = 2 if pretty else None

@@ -863,7 +863,7 @@ def _ranks(keys):
     return _rank_of(torch.sort(keys, dim=1, stable=True)[1])
 
 
-@op_emitter('rpn_target_assign')
+@op_emitter('rpn_target_assign', stateful=True)
 def _rpn_target_assign_emit(ctx, op):
     """Anchors labelled fg (1) where their best IoU reaches
     rpn_positive_overlap or they are a gt's best anchor, bg (0) below

@@ -217,7 +217,7 @@ register_vjp_grad('maxout', in_slots=('X',))
 
 # -- sampling_id: one categorical draw per row ----------------------------------
 
-@op_emitter('sampling_id')
+@op_emitter('sampling_id', stateful=True)
 def _sampling_id_emit(ctx, op):
     """The Gumbel-max draw jax.random.categorical makes: argmax of
     log(p) plus Gumbel noise, from the executor's generator (no host
@@ -242,7 +242,7 @@ register_op('sampling_id', infer_shape=_sampling_id_infer, no_grad=True)
 
 # -- nce: noise-contrastive estimation with uniform noise -----------------------
 
-@op_emitter('nce')
+@op_emitter('nce', stateful=True)
 def _nce_emit(ctx, op):
     x = ctx.get(op.single_input('Input'))         # [B, D]
     label = ctx.get(op.single_input('Label'))     # [B] or [B, 1]

@@ -359,7 +359,7 @@ def _fill_cbsl_emit(ctx, op):
                        dtype=_bsl_dtype(op), device=ctx.device))
 
 
-@op_emitter('uniform_random_batch_size_like')
+@op_emitter('uniform_random_batch_size_like', stateful=True)
 def _uniform_random_bsl_emit(ctx, op):
     x = ctx.get(op.single_input('Input'))
     out = torch.empty(_bsl_shape(op, x), dtype=torch.float32,
@@ -369,7 +369,7 @@ def _uniform_random_bsl_emit(ctx, op):
     ctx.set(op.single_output('Out'), out.to(_bsl_dtype(op)))
 
 
-@op_emitter('gaussian_random_batch_size_like')
+@op_emitter('gaussian_random_batch_size_like', stateful=True)
 def _gaussian_random_bsl_emit(ctx, op):
     x = ctx.get(op.single_input('Input'))
     out = torch.empty(_bsl_shape(op, x), dtype=torch.float32,
@@ -484,7 +484,7 @@ def _fill_infer(op, block):
 register_op('fill', infer_shape=_fill_infer, no_grad=True)
 
 
-@op_emitter('random_crop')
+@op_emitter('random_crop', stateful=True)
 def _random_crop_emit(ctx, op):
     """Crop the trailing len(shape) dims of each example at its own random
     offsets: a draw in [0, 2^30) from the executor's generator modulo the

@@ -476,7 +476,7 @@ register_vjp_grad('square_error_cost', in_slots=('X', 'Y'))
 
 # -- dropout: the mask comes from the executor's generator -------------------
 
-@op_emitter('dropout')
+@op_emitter('dropout', stateful=True)
 def _dropout_emit(ctx, op):
     """Out and Mask (grad = dOut·Mask). downgrade_in_infer: Out = x·keep
     in training, x·(1 − p) in test; upscale_in_train: Out = x·keep/(1 −

@@ -542,7 +542,7 @@ def _random_out(ctx, op):
                        device=ctx.device)
 
 
-@op_emitter('uniform_random')
+@op_emitter('uniform_random', stateful=True)
 def _uniform_random_emit(ctx, op):
     out = _random_out(ctx, op).uniform_(op.attr('min', -1.0),
                                         op.attr('max', 1.0),
@@ -551,7 +551,7 @@ def _uniform_random_emit(ctx, op):
             out.to(torch_dtype(op.attr('dtype', 'float32'))))
 
 
-@op_emitter('gaussian_random')
+@op_emitter('gaussian_random', stateful=True)
 def _gaussian_random_emit(ctx, op):
     out = _random_out(ctx, op).normal_(op.attr('mean', 0.0),
                                        op.attr('std', 1.0),
@@ -570,7 +570,7 @@ register_op('uniform_random', infer_shape=_random_infer)
 register_op('gaussian_random', infer_shape=_random_infer)
 
 
-@op_emitter('truncated_gaussian_random')
+@op_emitter('truncated_gaussian_random', stateful=True)
 def _truncated_gaussian_random_emit(ctx, op):
     """A normal draw truncated to two standard deviations (the JAX
     package's truncated_normal(-2, 2)), by the inverse CDF of a uniform

@@ -1,6 +1,6 @@
 """Reader creators (counterpart of paddle_tpu/reader/creator.py): build
-readers from in-memory arrays and text files. Readers over RecordIO
-files wait for the port's recordio module (ROADMAP.md Queue 1 item 7)."""
+readers from in-memory arrays, text files and the RecordIO shards that
+dataset.common.convert() writes."""
 from __future__ import annotations
 
 __all__ = ['np_array', 'text_file', 'recordio']
@@ -33,6 +33,24 @@ def text_file(path):
 
 
 def recordio(paths, buf_size=100):
-    raise NotImplementedError(
-        'reader.creator.recordio needs the RecordIO files, which the port '
-        'does not read yet (ROADMAP.md Queue 1 item 7)')
+    """Reader over RecordIO files written by dataset.common.convert():
+    yields the unpickled samples, read ahead `buf_size` deep
+    (reader.decorator.buffered). `paths` is a path, a comma-separated
+    list of paths or a sequence of paths."""
+    import pickle
+
+    from ..recordio import RecordIOScanner
+    from .decorator import buffered
+
+    if isinstance(paths, str):
+        path_list = paths.split(',')
+    else:
+        path_list = list(paths)
+
+    def reader():
+        for path in path_list:
+            with RecordIOScanner(path) as s:
+                for rec in s:
+                    yield pickle.loads(rec)
+
+    return buffered(reader, buf_size)

@@ -47,8 +47,8 @@ __all__ = ['OpDef', 'register_op', 'get_op', 'has_op', 'infer_shape',
 
 
 class OpDef(object):
-    __slots__ = ('type', 'infer_shape', 'emit', 'grad', 'host', 'no_grad',
-                 'vjp_slots')
+    __slots__ = ('type', 'infer_shape', 'emit', 'grad', 'host',
+                 'stateful', 'no_grad', 'vjp_slots')
 
     def __init__(self, type):
         self.type = type
@@ -56,6 +56,9 @@ class OpDef(object):
         self.emit = None          # fn(ctx, op) -> None (reads/writes ctx)
         self.grad = None          # fn(op, block) -> list[op-spec dict]
         self.host = False         # True: a host op (read, save, load)
+        # True: the op draws random numbers (kept as the JAX package keeps
+        # it; the port's random ops draw from the Executor's generators)
+        self.stateful = False
         self.no_grad = False      # True: terminal for backward
         # (in_slots, out_slots) of a forward op whose grad op consumes a
         # recorded forward (register_vjp_grad); None otherwise
@@ -66,7 +69,7 @@ _REGISTRY = {}
 
 
 def register_op(type, infer_shape=None, emit=None, grad=None, host=False,
-                no_grad=False):
+                stateful=False, no_grad=False):
     opdef = _REGISTRY.get(type)
     if opdef is None:
         opdef = _REGISTRY[type] = OpDef(type)
@@ -77,6 +80,7 @@ def register_op(type, infer_shape=None, emit=None, grad=None, host=False,
     if grad is not None:
         opdef.grad = grad
     opdef.host = opdef.host or host
+    opdef.stateful = opdef.stateful or stateful
     opdef.no_grad = opdef.no_grad or no_grad
     return opdef
 
@@ -92,9 +96,9 @@ def has_op(type):
     return type in _REGISTRY
 
 
-def op_emitter(type, host=False):
+def op_emitter(type, stateful=False, host=False):
     def deco(fn):
-        register_op(type, emit=fn, host=host)
+        register_op(type, emit=fn, stateful=stateful, host=host)
         return fn
     return deco
 

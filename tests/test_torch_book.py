@@ -115,8 +115,16 @@ def test_dataset_common_matches_jax(tmp_path):
     for common in (tcommon, jcommon):
         with pytest.raises(IOError, match='not cached'):
             common.download('http://example.invalid/x.tgz', 'probe', 'md5')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tfluid.dataset.cifar.convert(str(tmp_path / 'rio'))
+    # convert: the same shard files, byte for byte
+    shards = tfluid.reader.firstn(tfluid.dataset.uci_housing.test(), 25)
+    tcommon.convert(str(tmp_path / 'trio'), shards, 10, 'uci')
+    jcommon.convert(str(tmp_path / 'jrio'), shards, 10, 'uci')
+    names = sorted(os.listdir(tmp_path / 'trio'))
+    assert names == sorted(os.listdir(tmp_path / 'jrio')) == \
+        ['uci-00000', 'uci-00001', 'uci-00002']
+    for n in names:
+        assert (tmp_path / 'trio' / n).read_bytes() == \
+            (tmp_path / 'jrio' / n).read_bytes()
     path = tmp_path / 'f.bin'
     path.write_bytes(b'abc' * 1000)
     assert tcommon.md5file(str(path)) == jcommon.md5file(str(path))
@@ -239,8 +247,17 @@ def test_text_file_and_pipe_reader_match_jax(tmp_path):
     cmd = 'cat %s' % path
     assert list(tfluid.reader.PipeReader(cmd).get_line()) == \
         list(jdecorator.PipeReader(cmd).get_line())
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tfluid.reader.creator.recordio(str(path))
+    # recordio over shards the JAX package's convert wrote
+    shards = [(np.arange(3, dtype='f4') + i, i) for i in range(12)]
+    jdataset.common.convert(str(tmp_path / 'rio'), lambda: iter(shards), 5,
+                            'part')
+    paths = sorted(str(p) for p in (tmp_path / 'rio').iterdir())
+    got = list(tfluid.reader.creator.recordio(','.join(paths))())
+    want = list(jcreator.recordio(paths)())
+    assert len(got) == len(want) == 12
+    for (ga, gi), (wa, wi) in zip(got, want):
+        np.testing.assert_array_equal(ga, wa)
+        assert gi == wi
 
 
 def _feeder_script(fluid, dataset):

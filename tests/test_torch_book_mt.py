@@ -18,9 +18,10 @@ against the JAX package on the CPU.
   same ids and scores within 1e-4. The port alone learns the task, and
   StateCell keeps the JAX package's guards.
 - dataset.wmt14 and wmt16 serve the JAX package's samples bit for bit;
-  their convert() raises naming ROADMAP item 7.
+  their convert() writes the JAX package's shard files byte for byte.
 """
 import itertools
+import os
 
 import numpy as np
 import pytest
@@ -415,13 +416,17 @@ def test_wmt_samples_are_the_jax_packages(name, args):
     assert 3 <= len(src) <= 11 and trg[0] == 0 and nxt[-1] == 1
 
 
-def test_wmt_dicts_and_convert():
+def test_wmt_dicts_and_convert(tmp_path):
     assert tfluid.dataset.wmt14.get_dict(50) == jdataset.wmt14.get_dict(50)
     assert tfluid.dataset.wmt16.get_dict('de', 50, reverse=True) == \
         jdataset.wmt16.get_dict('de', 50, reverse=True)
     assert tfluid.dataset.wmt14.N == 30000
     assert tfluid.dataset.wmt16.fetch() is None
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tfluid.dataset.wmt14.convert('unused')
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tfluid.dataset.wmt16.convert('unused')
+    for mod in ('wmt14', 'wmt16'):
+        tdir, jdir = tmp_path / ('t' + mod), tmp_path / ('j' + mod)
+        getattr(tfluid.dataset, mod).convert(str(tdir))
+        getattr(jdataset, mod).convert(str(jdir))
+        names = sorted(os.listdir(tdir))
+        assert names and names == sorted(os.listdir(jdir))
+        for n in names:
+            assert (tdir / n).read_bytes() == (jdir / n).read_bytes(), n

@@ -25,8 +25,13 @@ label rule, end-to-end runs on the CPU at a tiny width); the item-6 and
 MoE phases (a4's item-6 cases and its published-shape check, random_crop's
 draw, moe1 and moe2, sq4's chunk_eval and det2's DetectionMAP: their
 wiring into main(), end-to-end runs on the CPU at a tiny width, and each
-refusing a wrong result); and the script's refusal to run without a
-card."""
+refusing a wrong result); the profiler and record-file phases pf1 and
+rf1 (rf1's shard writer against tools/bench_input_pipeline.py's, byte
+for byte, and its read-slot check refusing another image, label or
+value; pf1's count, label, share and span checks on a synthetic CUDA
+trace, refusing a short window and an unlabeled replay; their wiring
+into main(); both end to end on the CPU at a tiny width); and the
+script's refusal to run without a card."""
 import os
 import re
 import shutil
@@ -2350,3 +2355,211 @@ def test_det2_detection_map_evaluator_runs_and_refuses(monkeypatch):
     monkeypatch.setattr(tfluid.evaluator.DetectionMAP, 'eval', off)
     with pytest.raises(AssertionError, match='DetectionMAP'):
         chip_smoke.detection_map_evaluator(tfluid.CPUPlace(), dets, gt, w)
+
+
+# -- pf1 and rf1: the profiler and the record files ---------------------------
+
+def test_rf1_shards_are_the_bench_tools_byte_for_byte(tmp_path):
+    sys.path.insert(0, os.path.join(ROOT, 'tools'))
+    try:
+        import bench_input_pipeline
+    finally:
+        sys.path.pop(0)
+    from paddle_tpu_torch import recordio
+    shape = (3, 5, 4)
+    mine, want = tmp_path / 'port', tmp_path / 'jax'
+    mine.mkdir()
+    want.mkdir()
+    paths, records = chip_smoke.write_image_shards(str(mine), 2, 70, shape,
+                                                   64, seed=3)
+    jpaths = bench_input_pipeline.write_shards(str(want), 2, 70, shape,
+                                               seed=3)
+    assert [os.path.basename(p) for p in paths] == \
+        [os.path.basename(p) for p in jpaths]
+    for p, q in zip(paths, jpaths):
+        assert open(p, 'rb').read() == open(q, 'rb').read()
+    assert recordio.verify_file(paths[0]) == (2, 70)
+    assert len(records) == 140
+    img, label = next(recordio.reader(paths[0])())
+    import hashlib
+    rec = records[hashlib.md5(img.tobytes()).hexdigest()]
+    assert np.array_equal(rec[0], img) and rec[1] == int(label[0])
+
+
+def _decoded_batch(tmp_path, shape=(3, 6, 6), n=24):
+    from paddle_tpu_torch.recordio import ParallelImageScanner
+    paths, records = chip_smoke.write_image_shards(str(tmp_path), 2, n // 2,
+                                                   shape, 4)
+    norm = chip_smoke.IMAGENET_NORM
+    imgs, labels = [], []
+    with ParallelImageScanner(paths, shape, mean=norm['mean'],
+                              std=norm['std'], n_threads=2) as sc:
+        for i, l in sc:
+            imgs.append(i.copy())
+            labels.append(l.copy())
+    return np.concatenate(imgs), np.concatenate(labels), records, norm
+
+
+def test_rf1_read_slot_check_holds_the_decode_and_refuses(tmp_path):
+    images, labels, records, norm = _decoded_batch(tmp_path)
+    assert len(images) == 24
+    worst = chip_smoke.check_read_slots(images, labels, records, norm)
+    assert worst <= chip_smoke.RF_IMAGE_ATOL
+    # the native decode's worst case over every u8 value stays inside the
+    # tolerance (x * (1/255) - mean) * (1/std) against (x/255 - mean)/std
+    x = np.arange(256, dtype='f4').reshape(1, 1, 256)
+    u8 = np.repeat(np.arange(256, dtype='uint8').reshape(1, 1, 256), 3, 0)
+    mean = np.asarray(norm['mean'], 'f4').reshape(-1, 1, 1)
+    inv = np.float32(1) / np.asarray(norm['std'], 'f4').reshape(-1, 1, 1)
+    native = (x * np.float32(1 / 255.0) - mean) * inv
+    assert np.abs(native - chip_smoke.normalized(u8, norm)).max() <= \
+        chip_smoke.RF_IMAGE_ATOL
+    bad = images.copy()
+    bad[3, 1, 2, 2] += 1.5 / 255 / norm['std'][1]
+    with pytest.raises(AssertionError, match='image 3 is no record'):
+        chip_smoke.check_read_slots(bad, labels, records, norm)
+    wrong = labels.copy()
+    wrong[5] = (wrong[5] + 1) % 1000
+    with pytest.raises(AssertionError, match='image 5 has label'):
+        chip_smoke.check_read_slots(images, wrong, records, norm)
+    off = images.copy()
+    off[7] += 2e-6
+    with pytest.raises(AssertionError, match='decode'):
+        chip_smoke.check_read_slots(off, labels, records, norm)
+
+
+K1_NAME = 'void tc::flash_fwd_wgmma_kernel<128>(tc::Params)'
+K2_NAME = 'void tc::flash_bwd_wgmma_kernel<128>(tc::BwdParams)'
+LM_WARM = [('fill_constant.0', 'memset_first_use'), ('mul.3', 'gemm'),
+           ('flash_attention.4', K1_NAME), ('mul.5', 'gemm'),
+           ('flash_attention_grad.9', K2_NAME), ('mul_grad.10', 'gemm'),
+           ('momentum.12', 'axpy')]
+
+
+def _pf1_trace(tmp_path, replays=2, name='pf1', maps=True):
+    from test_torch_profiler import gpu_trace, write_trace
+    from paddle_tpu_torch import profiler
+    graph = [(None, n) for _, n in LM_WARM[1:]]
+    runs = [('lm/1/aa', 'eager', LM_WARM)] + \
+        [('lm/1/aa', 'replay', graph)] * replays
+    trace_dir = write_trace(tmp_path, gpu_trace(runs, backward_tid=77),
+                            name=name)
+    op_map = profiler.kernel_op_map(trace_dir) if maps else {}
+    return profiler.device_events(trace_dir, op_map)
+
+
+def _host(steps, read=True):
+    names = ['train_step'] * steps + ['device_segment:1(9 ops)'] * steps
+    if read:
+        names += ['host_op:read'] * steps
+    return {'traceEvents': [{'ph': 'X', 'name': n, 'ts': 0.0, 'dur': 1.0}
+                            for n in names]}
+
+
+def test_pf1_count_and_label_checks_on_a_synthetic_trace(tmp_path):
+    events = _pf1_trace(tmp_path)
+    counted = {'K1': 3, 'K2/K5': 3}
+    assert chip_smoke.check_profiled_steps(_host(3), events, counted, 1,
+                                           3) == counted
+    assert chip_smoke.unlabeled_flash(events) == []
+    labels = [e['label'] for e in events if e['phase'] == 'replay']
+    assert labels.count('flash_attention.4') == 2
+    assert labels.count('flash_attention_grad.9') == 2
+    share = chip_smoke.labeled_share(events)
+    assert share == 1.0
+    # the wrappers counted more than the trace holds: a short window
+    with pytest.raises(chip_smoke.ShortWindow, match='profiled, counted'):
+        chip_smoke.check_profiled_steps(_host(3), events,
+                                        {'K1': 4, 'K2/K5': 3}, 1, 3)
+    with pytest.raises(AssertionError, match='host_op:read'):
+        chip_smoke.check_profiled_steps(_host(3, read=False), events,
+                                        counted, 1, 3)
+    with pytest.raises(AssertionError, match='train_step'):
+        chip_smoke.check_profiled_steps(_host(2), events, counted, 1, 3)
+    # replays read without the segment's map carry raw kernel names
+    bare = _pf1_trace(tmp_path, name='bare', maps=False)
+    bad = chip_smoke.unlabeled_flash(bare)
+    assert sorted(g for g, _, _ in bad) == ['K1', 'K1', 'K2/K5', 'K2/K5']
+    assert chip_smoke.labeled_share(bare) == 0.0
+    assert chip_smoke.labeled_share([]) is None
+
+
+def test_pf1_span_check_and_retry():
+    spans = [(0.0, 100.0), (200.0, 100.0)]
+    assert chip_smoke.outside_spans([(10.0, 5.0), (250.0, 40.0)], spans,
+                                    1.0) == 0.0
+    assert chip_smoke.outside_spans([(298.0, 2.5)], spans, 1.0) == 0.0
+    assert chip_smoke.outside_spans([(150.0, 10.0)], spans, 1.0) == 50.0
+    assert chip_smoke.outside_spans([(95.0, 20.0)], spans, 1.0) == 15.0
+    assert chip_smoke.is_kernel_slice(K1_NAME)
+    assert not chip_smoke.is_kernel_slice('Memcpy HtoD (Pinned -> Device)')
+    pads = []
+
+    def attempt(pad):
+        pads.append(pad)
+        if len(pads) < 3:
+            raise chip_smoke.ShortWindow('short')
+        return pad
+    assert chip_smoke._retrying('x', attempt) == chip_smoke.WINDOW_PADS_S[2]
+
+    def lost(pad):
+        raise RuntimeError('torch.profiler saw 3 kernel launches on the '
+                           'host and no device activity')
+    with pytest.raises(RuntimeError, match='no device activity'):
+        chip_smoke._retrying('x', lost)
+
+    def broken(pad):
+        raise RuntimeError('something else')
+    pads.clear()
+    with pytest.raises(RuntimeError, match='something else'):
+        chip_smoke._retrying('x', lambda pad: pads.append(pad) or
+                             broken(pad))
+    assert len(pads) == 1
+
+
+def test_pf1_and_rf1_are_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    order = ['profile_train(', 'profile_lm_steps(', 'check_captured_steps(',
+             'rtr.drop_graphs()', 'record_file_steps(', 'nhwc_steps(']
+    pos = [src.index(s) for s in order]
+    assert pos == sorted(pos)
+    assert chip_smoke.RF == dict(files=8, records=128, per_chunk=64,
+                                 threads=4, decode_s=2.0, warmup=3, iters=5)
+    assert chip_smoke.PF_STEPS == 3
+    for fn, name in ((chip_smoke.profile_lm_steps, 'pf1'),
+                     (chip_smoke.record_file_steps, 'rf1')):
+        with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
+            fn(*[None] * 4)
+
+
+def test_pf1_and_rf1_run_on_the_cpu_at_a_tiny_width(tmp_path, monkeypatch):
+    import paddle_tpu_torch as tfluid
+    place = tfluid.CPUPlace()
+    cfg = TransformerConfig(vocab=64, dim=32, heads=2, layers=2, ffn=64,
+                            max_len=16, flash_attention=True, use_tp=False,
+                            use_sp=False)
+    tr = chip_smoke.LMRun(cfg, place, 2, 64, 'pf1_tiny_reader')
+    tr.feed(chip_smoke.bench_provider(cfg, 2, np.random.RandomState(0)))
+    for _ in range(3):
+        tr.step()
+    try:
+        pf1 = chip_smoke.profile_lm_steps(tr, 0, lambda: None,
+                                          str(tmp_path), place)
+    finally:
+        chip_smoke.remove_scratch()
+    assert pf1['maps'] == 1 and pf1['tl_out'] == pf1['r_out'] == 0.0
+    assert pf1['drive'][1] < 0.05 * pf1['drive'][0]
+    monkeypatch.setattr(chip_smoke, 'RESNET',
+                        dict(depth=50, image_hw=32, class_dim=1000))
+    monkeypatch.setattr(chip_smoke, 'RF',
+                        dict(files=2, records=8, per_chunk=4, threads=2,
+                             decode_s=0.2, warmup=2, iters=1))
+    try:
+        rf1 = chip_smoke.record_file_steps(place, lambda: None,
+                                           str(tmp_path), 0, batch=4)
+    finally:
+        chip_smoke.remove_scratch()
+    assert rf1['bits'] and rf1['img_err'] <= chip_smoke.RF_IMAGE_ATOL
+    assert set(rf1['rates']) == {1, 2} and min(rf1['rates'].values()) > 0
+    assert rf1['pre_ms'] > 0 and rf1['rec_ms'] > 0

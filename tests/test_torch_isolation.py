@@ -203,3 +203,39 @@ def test_trainer_and_inferencer_raise_without_a_card(tmp_path):
         tfluid.Inferencer(param_path=str(tmp_path))
     trainer = tfluid.Trainer(train_func, opt, place=tfluid.CPUPlace())
     assert trainer.exe.device.type == 'cpu'
+
+
+def test_profiler_record_files_and_channels_stand_alone():
+    """The profiler, the record files with their native sources, the
+    channels and the tools that read their output import neither jax nor
+    paddle_tpu, and the copied C++ sources include nothing of the JAX
+    package."""
+    for rel in ('profiler.py', 'recordio.py', 'recordio_writer.py',
+                'integrity.py', 'channels.py', 'concurrency.py',
+                'native/__init__.py', 'tools/timeline.py',
+                'tools/obs_report.py', 'layers/io.py'):
+        path = os.path.join(PKG, rel)
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, (rel, bad)
+    for name in ('recordio.cc', 'prefetcher.cc'):
+        src = open(os.path.join(PKG, 'native', name)).read()
+        includes = [line for line in src.splitlines()
+                    if line.startswith('#include')]
+        assert includes and not any('paddle_tpu' in line
+                                    for line in includes), includes
+    code = ('import sys\n'
+            'import paddle_tpu_torch\n'
+            'import paddle_tpu_torch.profiler, paddle_tpu_torch.recordio\n'
+            'import paddle_tpu_torch.recordio_writer\n'
+            'import paddle_tpu_torch.channels, paddle_tpu_torch.concurrency\n'
+            'import paddle_tpu_torch.native, paddle_tpu_torch.integrity\n'
+            'import paddle_tpu_torch.tools.timeline\n'
+            'import paddle_tpu_torch.tools.obs_report\n'
+            'paddle_tpu_torch.recordio._lib()\n'
+            'bad = [m for m in sys.modules if m.split(".")[0] in '
+            '("jax", "jaxlib", "paddle_tpu")]\n'
+            'print(bad)\n')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]'

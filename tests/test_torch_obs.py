@@ -16,8 +16,11 @@ socket, profiler or tool run here against both packages:
   (test_perf_obs.py:84, 135, 147, 194, 217, 228, 241, 249, 272, 290);
 - the three SLO rule tests and watchdog_from_flags (test_perf_obs.py:350,
   378, 388, 395), each against the JAX package's breach list.
-Device lanes from a profiler capture (write_report(xplane_dir=)) wait for
-the port's profiler.py and raise.
+Device lanes from a profiler capture (write_report(xplane_dir=)) come
+from the torch.profiler trace that fluid.profiler writes: on the CPU
+one lane of the ATen ops each program op ran, labeled `<type>.<idx>`,
+inside the host span that ran them (tests/test_torch_profiler.py holds
+the profiler itself).
 """
 import json
 import os
@@ -359,9 +362,39 @@ def test_write_report_merges_and_writes(tmp_path):
             json.loads(json.dumps(tl))['traceEvents']
     with open(ru_path) as f:
         assert json.load(f)['totals'] == ru['totals']
-    # the profiler is ROADMAP Queue 1 item 9
-    with pytest.raises(NotImplementedError, match='item 9'):
-        report.write_report(root, xplane_dir=str(tmp_path))
+    # device lanes from a fluid.profiler capture of a CPUPlace run, on the
+    # clock of the host spans RecordEvent sends to obs.trace
+    prof_root = str(tmp_path / 'prof_obs')
+    path = str(tmp_path / 'profile')
+    main, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(main, startup):
+        x = tfluid.layers.data(name='x', shape=[8], dtype='float32')
+        loss = tfluid.layers.mean(tfluid.layers.fc(input=x, size=4))
+        tfluid.optimizer.SGD(0.1).minimize(loss)
+    exe = tfluid.Executor(tfluid.CPUPlace())
+    exe.run(startup)
+    trace.enable(prof_root, role='trainer0')
+    try:
+        with tfluid.profiler.profiler('All', profile_path=path):
+            with tfluid.profiler.RecordEvent('step'):
+                exe.run(main, feed={'x': np.ones((4, 8), 'f4')},
+                        fetch_list=[loss])
+    finally:
+        trace.disable()
+    tl, _ = report.write_report(prof_root, xplane_dir=path + '.xplane',
+                                hlo_dir=path + '.hlo')
+    lanes = {e['pid']: e['args']['name'] for e in tl['traceEvents']
+             if e.get('ph') == 'M'}
+    assert set(lanes.values()) == {'trainer0', 'device:CPU:0'}
+    spans = [e for e in tl['traceEvents'] if e.get('ph') == 'X']
+    step = [e for e in spans if e['name'] == 'step']
+    dev = [e for e in spans if lanes[e['pid']] == 'device:CPU:0']
+    assert len(step) == 1 and dev
+    assert {e['name'].rsplit('.', 1)[0] for e in dev} >= \
+        {'mul', 'mean', 'mul_grad', 'sgd'}
+    for e in dev:
+        assert step[0]['ts'] - 1 <= e['ts'] and \
+            e['ts'] + e['dur'] <= step[0]['ts'] + step[0]['dur'] + 1
 
 
 # -- the SLO watchdog (test_perf_obs.py:350, 378, 388, 395) ---------------------------

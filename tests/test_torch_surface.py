@@ -30,7 +30,15 @@ ops and attrs and by the draws' moments.
    ignored is_sparse and applied the dense update to every row, so a
    row touched in one step and missed in the next kept moving on its
    decayed moments (0.0335 from the JAX package after two steps);
-12. the detection layers and op types, which the JAX package has.
+12. the detection layers and op types, which the JAX package has;
+13. the place names TPUPlace, XLAPlace (aliases of CUDAPlace, a
+   divergence by design: the JAX package's accelerator place is
+   TPUPlace) and CUDAPinnedPlace (a host place), with _switch_scope, at
+   the top level and TPUPlace, XLAPlace in fluid.core;
+14. registry.op_emitter(type, stateful=) and register_op(stateful=),
+   kept on OpDef.stateful, with the JAX package's random ops marked;
+15. Block.create_var with a keyword Variable does not read
+   (capacity=...), which the JAX package's Variable takes and ignores.
 """
 import threading
 
@@ -717,8 +725,7 @@ NOT_PORTED = {
         pserver_endpoints=['127.0.0.1:1'])),
     'trainer_strategy': (8, lambda: tfluid.Trainer(None, None,
                                                    strategy=object())),
-    'xplane_report': (9, lambda: tfluid.obs.report.write_report(
-        '.', xplane_dir='x')),
+    'collective_audit': (8, lambda: tfluid.profiler.collective_audit([])),
 }
 
 
@@ -730,15 +737,17 @@ def test_not_ported_messages_name_their_item(name):
 
 def test_not_ported_docs_name_their_item():
     """The module texts that send a reader to the ROADMAP name the item
-    that holds the work: host-side distribution 7, meshes 8, the
-    profiler 9."""
+    that holds the work: host-side distribution 7, meshes 8; the
+    profiler (item 9) is ported, and obs and obs.report name no item."""
     import re
-    from paddle_tpu_torch import checkpoint, distributed, obs, trainer
+    from paddle_tpu_torch import (checkpoint, distributed, obs, profiler,
+                                  trainer)
     from paddle_tpu_torch.distributed import resilience
     from paddle_tpu_torch.obs import report, trace
     from paddle_tpu_torch.parallel import layers as players
     want = {distributed: {7}, resilience: {7}, trace: {7}, checkpoint: {8},
-            trainer: {7, 8}, obs: {9}, report: {9}, players: {8}}
+            trainer: {7, 8}, obs: set(), report: set(), players: {8},
+            profiler: {8}}
     for mod, items in want.items():
         text = open(mod.__file__).read()
         found = {int(n) for n in re.findall(r'Queue\s+1\s+item\s+(\d)',
@@ -764,15 +773,15 @@ LEFT_TYPES = {'checkpoint_notify', 'fetch_barrier', 'listen_and_serv',
               'merge_ids', 'prefetch', 'recv', 'send', 'send_barrier',
               'slice_rows', 'split_ids', 'split_selected_rows',
               'ring_attention'}
-LEFT_LAYERS = {'Recv', 'Send', 'batch', 'open_files', 'open_recordio_file',
-               'random_data_generator', 'shuffle'}
+LEFT_LAYERS = {'Recv', 'Send'}
 
 
 def test_item6_op_types_and_layers_exist_as_in_jax():
     """Item 6's 34 op types are registered, each with a grad exactly
     where the JAX package has one and with its host and no_grad flags;
-    the port has 260 of the JAX package's 272 non-grad op types and 238
-    of its 245 layer names, the rest items 7 and 8's."""
+    the port has 260 of the JAX package's 272 non-grad op types and 243
+    of its 245 layer names (since item 7's file readers), the rest items
+    7 and 8's."""
     from paddle_tpu import registry as jregistry
     from paddle_tpu_torch import registry as tregistry
     for t in ITEM6_TYPES:
@@ -790,7 +799,7 @@ def test_item6_op_types_and_layers_exist_as_in_jax():
     def public(mod):
         return {n for n in dir(mod) if not n.startswith('_')}
     jl, tl = public(jfluid.layers), public(tfluid.layers)
-    assert len(jl) == 245 and len(jl & tl) == 238
+    assert len(jl) == 245 and len(jl & tl) == 243
     assert jl - tl == LEFT_LAYERS
     from paddle_tpu.layers import nn_extra as jnn_extra
     assert set(jnn_extra.__all__) <= tl
@@ -807,3 +816,98 @@ def test_metrics_evaluator_and_datasets_are_exported_as_in_jax():
         jmod = importlib.import_module('paddle_tpu.dataset.' + name)
         tmod = importlib.import_module('paddle_tpu_torch.dataset.' + name)
         assert set(jmod.__all__) == set(tmod.__all__)
+
+
+# -- 13-15: ROADMAP Queue 3's three surface faults, repaired ------------------
+
+def test_place_names_and_switch_scope_exist_as_in_jax():
+    """TPUPlace and XLAPlace are CUDAPlace (the JAX package's accelerator
+    place is TPUPlace, with CUDAPlace and XLAPlace its aliases);
+    CUDAPinnedPlace is a host place in both packages; _switch_scope is
+    exported at the top level; fluid.core has TPUPlace and XLAPlace."""
+    for name in ('TPUPlace', 'XLAPlace', 'CUDAPinnedPlace', '_switch_scope'):
+        assert hasattr(jfluid, name) and hasattr(tfluid, name), name
+    for name in ('TPUPlace', 'XLAPlace', '_switch_scope'):
+        assert name in jfluid.__all__ and name in tfluid.__all__, name
+    assert tfluid.TPUPlace is tfluid.XLAPlace is tfluid.CUDAPlace
+    assert jfluid.XLAPlace is jfluid.CUDAPlace is jfluid.TPUPlace
+    assert jfluid.CUDAPinnedPlace is jfluid.CPUPlace
+    assert tfluid.CUDAPinnedPlace is tfluid.CPUPlace
+    assert tfluid.core.TPUPlace is tfluid.core.XLAPlace is tfluid.CUDAPlace
+    assert tfluid.TPUPlace(0).device == torch.device('cuda', 0)
+    assert tfluid.CUDAPinnedPlace().device.type == 'cpu'
+    scope = tfluid.Scope()
+    prev = tfluid._switch_scope(scope)
+    try:
+        assert tfluid.global_scope() is scope
+    finally:
+        tfluid._switch_scope(prev)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CPUPlace'):
+            tfluid.Executor(tfluid.TPUPlace())
+
+
+def test_fit_a_line_through_executor_of_a_pinned_place_as_in_jax():
+    """The verify skill's fit_a_line drive, written for the JAX package
+    with a place name the port lacked; CUDAPinnedPlace is the host place
+    in both packages, so the same script runs in both."""
+    rng = np.random.RandomState(0)
+    w = rng.randn(13, 1).astype('f4')
+    batches = [rng.randn(32, 13).astype('f4') for _ in range(40)]
+    losses = {}
+    for fluid, un in ((jfluid, junique_name), (tfluid, tunique_name)):
+        main, startup = fluid.Program(), fluid.Program()
+        with un.guard(), fluid.program_guard(main, startup):
+            x = fluid.layers.data(name='x', shape=[13], dtype='float32')
+            y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+            pred = fluid.layers.fc(input=x, size=1)
+            loss = fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+            fluid.optimizer.SGD(0.01).minimize(loss)
+        exe = fluid.Executor(fluid.CUDAPinnedPlace())
+        scope = fluid.Scope()
+        with fluid.scope_guard(scope):
+            exe.run(startup)
+            if fluid is tfluid:
+                tfluid.io.load_numpy_params(scope, jstate, exe.place)
+            else:
+                jstate = {v.name: np.asarray(scope.find_var(v.name))
+                          for v in startup.list_vars() if v.persistable}
+            losses[fluid] = [float(np.asarray(exe.run(
+                main, feed={'x': xb, 'y': xb @ w}, fetch_list=[loss])[0]))
+                for xb in batches]
+    np.testing.assert_allclose(losses[tfluid], losses[jfluid], rtol=1e-5,
+                               atol=1e-6)
+    assert losses[tfluid][-1] < 0.5 * losses[tfluid][0]
+
+
+def test_op_emitter_takes_stateful_as_in_jax():
+    """op_emitter(type, stateful=) and register_op(stateful=) keep the
+    flag on OpDef.stateful, and the port marks the JAX package's random
+    op types."""
+    from paddle_tpu import registry as jregistry
+    from paddle_tpu_torch import registry as tregistry
+
+    @tregistry.op_emitter('surface_probe_random', stateful=True)
+    def _emit(ctx, op):
+        pass
+    tregistry.register_op('surface_probe_plain', stateful=False)
+    try:
+        assert tregistry.get_op('surface_probe_random').stateful is True
+        assert tregistry.get_op('surface_probe_plain').stateful is False
+    finally:
+        tregistry._REGISTRY.pop('surface_probe_random')
+        tregistry._REGISTRY.pop('surface_probe_plain')
+
+    def stateful(reg):
+        return {t for t, d in reg._REGISTRY.items() if d.stateful}
+    assert stateful(tregistry) == stateful(jregistry)
+    assert 'dropout' in stateful(tregistry)
+
+
+def test_create_var_takes_unknown_keywords_as_in_jax():
+    for fluid in (jfluid, tfluid):
+        block = fluid.Program().global_block()
+        v = block.create_var(name='q', shape=[4], dtype='float32',
+                             capacity=4, some_future_attr='x')
+        assert v.name == 'q' and tuple(v.shape) == (4,)
+        assert v.dtype == 'float32'
