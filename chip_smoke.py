@@ -526,6 +526,34 @@ Two phases drive the profiler and the record files:
       saved state the same bits (loss and every persistable) as the
       pre-placed program's replay fed that batch through py_reader.
 
+Two phases train in parameter-server mode, after rf1, each a cluster of
+subprocesses of this script (`--ps-worker <role> <index>`, their phase
+and endpoints in PSW_* env) on free localhost ports: 2 pservers on the
+host and 2 trainers sharing the card; a role that fails fails the phase
+and every child is killed however the phase ends:
+  (ps1) tools/bench_suite.py's pserver row on the flagship LM at full
+      width cut to PS1['layers'] layers (fp32, flash attention, sync SGD
+      1e-3, batch 8 a trainer, one global batch PS_STEPS times): each
+      trainer's blocks after its startup (the pull) are the pservers'
+      slices (crc32), the trainers end on the same bits, within
+      PS1_LOCAL_TOL of a local run of the program on the card over the
+      same global batches, each parameter's update within PS_UPDATE_TOL
+      of the local one (gradient-weighted) and the trainers' mean loss
+      within PS_LOSS_TOL of the local one at every step, the losses
+      fall, K1 fp32 and K2 fp32 launch
+      2 a step on each trainer and no plain flash call runs; the step
+      split into the device segment, send, the barriers and recv +
+      concat, the wire's MB/s each way, the local step and the pservers'
+      rounds are logged;
+  (ps2) DeepFM at its Criteo settings (PS2) with the 10-wide table
+      is_distributed (prefetched, SelectedRows shards backward) and the
+      first-order table is_sparse, sync Adam 1e-3, batch 1000 a trainer:
+      the same startup and agreement checks (the non-table weights within
+      PS2_LOCAL_TOL, logged beside the same local run's spread on the
+      CPU), every table row a batch touched changed and every row no
+      batch touched the same bits on its pserver, the losses fall; step,
+      prefetch and the rows a step on the wire are logged.
+
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line and a sequences
 line among them), its own wall time, and as its last line {"ok": true,
@@ -542,6 +570,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -1949,12 +1978,24 @@ def _contended_run(pred, prompts, sync):
     eng._preempt_lane, eng._resume = record_preempt, record_resume
     dec.restore_stream = record_restore
     half = len(prompts) // 2
+    # the low tier's first decode step after every low stream has a
+    # token waits for the high tier's submission: however the host
+    # schedules this thread, the high tier arrives while the low tier
+    # holds the pool (it cannot decode to its end first)
+    low, high_in = [], threading.Event()
+    decode_step = dec.decode_step
+
+    def held(tokens, positions, return_logits=False):
+        if low and not high_in.is_set() and all(r.tokens for r in low):
+            high_in.wait(600)
+        return decode_step(tokens, positions, return_logits)
+    dec.decode_step = held
     telemetry.enable()
     telemetry.reset()
     try:
         eng.start()
-        low = [eng.submit(p, V3_NEW_TOKENS, priority=0)
-               for p in prompts[:half]]
+        low += [eng.submit(p, V3_NEW_TOKENS, priority=0)
+                for p in prompts[:half]]
         deadline = time.monotonic() + 600
         while not all(r.tokens for r in low):
             if time.monotonic() > deadline:
@@ -1962,13 +2003,16 @@ def _contended_run(pred, prompts, sync):
             time.sleep(0.002)
         high = [eng.submit(p, V3_NEW_TOKENS, priority=1)
                 for p in prompts[half:]]
+        high_in.set()
         reqs = low + high
         streams = [r.result(600) for r in reqs]
         sync()
         stats = eng.stats()
         swap_bytes = telemetry.snapshot()['counters']['serving.swap_bytes']
     finally:
+        high_in.set()
         eng.stop(timeout=60)
+        del dec.decode_step
         telemetry.disable(final_flush=False)
         telemetry.reset()
     _drain_prefix(dec)
@@ -2040,8 +2084,12 @@ def preemption(pred, ref_dec, sync):
     # deadlines: spent at submit, and spent mid-decode
     decode_step = ref_dec.decode_step
     spend = {}
+    # the request's first decode step waits until this thread holds it,
+    # so that it cannot decode to its end before its deadline is spent
+    armed = threading.Event()
 
     def step_then_spend(tokens, positions, return_logits=False):
+        armed.wait(600)
         ids = decode_step(tokens, positions, return_logits)
         req = spend.get('req')
         if req is not None and len(req.tokens) >= 3:
@@ -2057,6 +2105,7 @@ def preemption(pred, ref_dec, sync):
             raise AssertionError('a spent deadline_ms was admitted')
         h = srv.submit(prompts[0], V3_NEW_TOKENS, deadline_ms=600000.0)
         spend['req'] = srv._req(h)
+        armed.set()
         try:
             srv.result(h, timeout=600)
         except RuntimeError as e:
@@ -2230,6 +2279,18 @@ def weight_swap(pred, dec, sync):
         w.reset()
     epoch = [0]
     logs = [_step_log(w, epoch) for w in workers]
+    # a worker's third step on the old weights waits until the swap is
+    # requested (a writer waits at the step gate): however the host
+    # schedules this thread, every worker still has steps to run on
+    # the new weights
+    for w, lg in zip(workers, logs):
+        def held(tokens, positions, return_logits=False,
+                 _step=w.decode_step, _lg=lg):
+            while epoch[0] == 0 and not eng._gate._writers_waiting and \
+                    eng._running and sum(1 for s in _lg if s[0] == 0) >= 2:
+                time.sleep(0.001)
+            return _step(tokens, positions, return_logits)
+        w.decode_step = held
     before = [_capture_stats(w) for w in workers]
     waited = []
 
@@ -3301,6 +3362,26 @@ A4_HELD_ELSEWHERE.update({
     'moe_ffn': 'moe1 (the MoE LM) and moe2 (one full-width sequence, vs '
                'the CPU port)',
     'moe_aux_loss': 'moe2: vs the CPU port',
+})
+# the parameter-server host ops: on the card's trainers in ps1 and ps2,
+# on the host's pservers by design; each also against the JAX package on
+# the CPU (tests/test_torch_dist_*.py, test_torch_supervisor.py)
+A4_HELD_ELSEWHERE.update({
+    t: 'ps1, ps2: %s' % what for t, what in (
+        ('send', 'each trainer\'s gradients, pinned and sent'),
+        ('recv', 'the pulls into the captured segments\' tensors'),
+        ('send_barrier', 'the sync rounds'),
+        ('fetch_barrier', 'the sync rounds'),
+        ('prefetch', 'ps2\'s distributed table rows'),
+        ('split_ids', 'ps2\'s table gradients by shard'),
+        ('split_selected_rows', 'ps2\'s first-order table by block'),
+        ('slice_rows', 'the pservers\' startups (the host)'),
+        ('listen_and_serv', 'the pservers (the host)'))})
+A4_HELD_ELSEWHERE.update({
+    'merge_ids': 'tests/test_torch_dist_transpiler.py (CPU): a host op, '
+                 'vs the JAX package (prefetch merges its own rows)',
+    'checkpoint_notify': 'tests/test_torch_supervisor.py (CPU): a host '
+                         'op, the pservers\' shards saved',
 })
 
 _UNARY_CASES = {
@@ -11052,6 +11133,672 @@ def _rf_legs(fluid, place, sync, paths, records, batch, r1_per_step, k6):
                 img_err=worst, bits=same)
 
 
+# -- (ps1, ps2): parameter-server training, the pservers on the host --------
+
+PS_TRAINERS, PS_PSERVERS, PS_STEPS = 2, 2, 4
+# tools/bench_suite.py's pserver row (:465-563): SGD 1e-3, sync mode, 2
+# pservers; 2 trainers at batch 8 each; the flagship LM at full width
+# (MODEL, fp32, flash_attention=True) cut to 2 layers for the time limit
+PS1 = dict(layers=2, batch=8, lr=1e-3)
+PS1_LOCAL_TOL = 1e-4       # tests/test_dist_pserver.py's claim at the LM's width
+# DeepFM (Guo et al., 2017) at its Criteo settings: 39 fields (13 dense,
+# 26 categorical), embedding 10, a 400-400-400 deep tower, ids hashed to
+# 1,000,001 (PaddlePaddle models' ctr/deepfm); Adam 1e-3, sync, 2
+# trainers at batch 1000; categorical ids Zipf(1.1); no dropout (cut
+# from the model, so that the distributed and local runs draw nothing)
+PS2 = dict(dense=13, sparse=26, emb=10, hidden=(400, 400, 400),
+           ids=1000001, batch=1000, lr=1e-3, zipf=1.1, click_rate=0.25)
+# The distributed run against the local run, with fixed limits set from
+# readings on the card of sound clusters (3 seeds) and of clusters with
+# one fault planted: a trainer's gradient dropped from the merge, the
+# merge not divided by the trainer count, one received block kept stale,
+# prefetched rows cached stale (PERF.md, the parameter-server findings):
+# - each parameter's update, gradient-weighted (_first_order_diffs: sum
+#   |g|·|update difference| over sum |g|·|local update|, g the local
+#   run's gradients summed over its steps): sound <= 1.318e-06 (ps1) and
+#   8.764e-05 (ps2), the faults >= 0.496 (ps1) and 0.0213 (ps2);
+# - the mean of the trainers' losses, step by step, against the local
+#   run's: sound <= 9.537e-07, the faults >= 3.195e-05;
+# - the largest weight difference: ps1 within PS1_LOCAL_TOL (sound
+#   3.725e-09); ps2 within PS2_LOCAL_TOL (sound <= 2.335e-04, the faults
+#   >= 1.820e-03): Adam (eps 1e-8) steps deep_w0, whose gradients are
+#   below epsilon, linearly in them and so amplifies any fp32 reordering
+#   (the same local run on the card and on the CPU are as far apart)
+PS_UPDATE_TOL = 1e-3
+PS_LOSS_TOL = 1e-5
+PS2_LOCAL_TOL = 1e-3
+PS_TIMEOUT = 300           # seconds a cluster may take, start to end
+# ps1 trains PS_STEPS steps on one global batch drawn from the seed, so
+# that its losses fall by the optimizer's steps, not by batch-to-batch
+# noise (4 steps of SGD at 1e-3 move an LM's loss by less than its
+# spread over batches); ps2 draws a global batch a step (Adam's steps
+# lower the loss by more than that spread; on one batch repeated its
+# update of a weight whose gradient is within rounding of Adam's
+# epsilon would take the same rounding difference 4 times)
+
+
+def ps_lm_cfg(spec):
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    cfg = dict(MODEL, layers=PS1['layers'])
+    cfg.update(spec.get('model', {}))
+    return TransformerConfig(**cfg)
+
+
+def ps_lm_program(spec):
+    """ps1's program: tokens and labels fed, the trunk, the fused LM
+    head, mean, SGD(PS1['lr']); fp32, flash attention. Returns (main,
+    startup, loss name, the global batches)."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tfm
+    cfg = ps_lm_cfg(spec)
+    seed = spec.get('seed', SEED)
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tokens = fluid.layers.data(name='tokens', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        labels = fluid.layers.data(name='labels', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        trunk = tfm.language_model_trunk(tokens, cfg)
+        cost = fluid.layers.fused_softmax_cross_entropy(
+            trunk, labels, cfg.vocab, chunk=spec.get('head_chunk',
+                                                     HEAD_CHUNK),
+            name='lm_head')
+        loss = fluid.layers.mean(cost)
+        fluid.optimizer.SGD(PS1['lr']).minimize(loss)
+    rng = np.random.RandomState(seed + 41)
+    toks = rng.randint(0, cfg.vocab, size=(
+        PS_TRAINERS * spec.get('batch', PS1['batch']), cfg.max_len,
+        1)).astype('int64')
+    # one global batch, a step each time, with a learnable next token:
+    # the loss falls by the optimizer's steps alone
+    batch = {'tokens': toks, 'labels': (7 * toks + 3) % cfg.vocab}
+    return main, startup, loss.name, [batch] * PS_STEPS
+
+
+def deepfm_batches(ps2, steps, batch, seed=SEED):
+    """Criteo-shaped CTR batches from the seed: the dense fields at their
+    own ids with values in [0, 1), the categorical ones hashed into the
+    table from Zipf(ps2['zipf']) draws with value 1, labels clicked at
+    ps2['click_rate']."""
+    rng = np.random.RandomState(seed + 43)
+    nd, ns, n = ps2['dense'], ps2['sparse'], ps2['ids']
+    out = []
+    for _ in range(steps):
+        idx = np.empty((batch, nd + ns), 'int64')
+        idx[:, :nd] = np.arange(nd)
+        z = np.minimum(rng.zipf(ps2['zipf'], size=(batch, ns)), 1 << 40)
+        idx[:, nd:] = nd + (z * 1000003 + np.arange(ns) * 7919) % (n - nd)
+        val = np.ones((batch, nd + ns), 'float32')
+        val[:, :nd] = rng.rand(batch, nd)
+        label = (rng.rand(batch, 1) < ps2['click_rate']).astype('float32')
+        out.append({'feat_idx': idx, 'feat_value': val, 'label': label})
+    return out
+
+
+def deepfm_program(spec):
+    """ps2's program: DeepFM over feat_idx / feat_value, the 10-wide
+    table `fm_emb` is_distributed (mod-sharded over the pservers,
+    prefetched), the first-order table `fm_w1` is_sparse; every
+    initializer seeded, so that the CPU draws of any program holding a
+    parameter are one; Adam(PS2['lr']). Returns (main, startup, loss
+    name, the global batches)."""
+    import paddle_tpu_torch as fluid
+    ps2 = dict(PS2, **spec.get('ps2', {}))
+    seed = spec.get('seed', SEED)
+    L = fluid.layers
+    nf, emb_w = ps2['dense'] + ps2['sparse'], ps2['emb']
+
+    def attr(name, scale, k):
+        return fluid.ParamAttr(name=name, initializer=fluid.initializer.Normal(
+            scale=scale, seed=seed + k))
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = seed
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        idx = L.data(name='feat_idx', shape=[nf], dtype='int64')
+        val = L.data(name='feat_value', shape=[nf], dtype='float32')
+        label = L.data(name='label', shape=[1], dtype='float32')
+        first = L.embedding(idx, size=[ps2['ids'], 1], is_sparse=True,
+                            param_attr=attr('fm_w1', 1e-2, 1))
+        first = L.reduce_sum(L.elementwise_mul(
+            L.reshape(first, [-1, nf]), val), dim=1, keep_dim=True)
+        emb = L.embedding(idx, size=[ps2['ids'], emb_w], is_sparse=True,
+                          is_distributed=True,
+                          param_attr=attr('fm_emb', 1e-2, 2))
+        emb = L.elementwise_mul(emb, val, axis=0)          # [B, F, 10]
+        summed = L.reduce_sum(emb, dim=1)
+        second = L.scale(L.reduce_sum(L.elementwise_sub(
+            L.square(summed), L.reduce_sum(L.square(emb), dim=1)),
+            dim=1, keep_dim=True), scale=0.5)
+        h = L.reshape(emb, [-1, nf * emb_w])
+        width = nf * emb_w
+        for i, w in enumerate(ps2['hidden']):
+            h = L.fc(h, w, act='relu',
+                     param_attr=attr('deep_w%d' % i, width ** -0.5, 10 + i),
+                     bias_attr=fluid.ParamAttr(
+                         name='deep_b%d' % i,
+                         initializer=fluid.initializer.Constant(0.0)))
+            width = w
+        deep = L.fc(h, 1, param_attr=attr('deep_out_w', width ** -0.5, 20),
+                    bias_attr=fluid.ParamAttr(
+                        name='deep_out_b',
+                        initializer=fluid.initializer.Constant(0.0)))
+        logit = L.elementwise_add(L.elementwise_add(first, second), deep)
+        loss = L.mean(L.sigmoid_cross_entropy_with_logits(logit, label))
+        fluid.optimizer.Adam(ps2['lr']).minimize(loss)
+    return main, startup, loss.name, deepfm_batches(
+        ps2, PS_STEPS, PS_TRAINERS * spec.get('batch', ps2['batch']), seed)
+
+
+PS_PROGRAMS = {'ps1': ps_lm_program, 'ps2': deepfm_program}
+
+
+def _crc_rows(t, offset=0, rows=None):
+    """crc32 of rows [offset, offset + rows) of a tensor's bytes."""
+    from paddle_tpu_torch.integrity import crc32
+    t = t.detach()
+    if rows is not None:
+        t = t[offset:offset + rows]
+    return crc32(t.contiguous().cpu().numpy().tobytes())
+
+
+def _host_events(path):
+    """The events of fluid.profiler's host trace at `path` (what
+    stop_profiler wrote): [(name, start us, duration us)]."""
+    with open(path) as f:
+        return [(e['name'], e['ts'], e['dur'])
+                for e in json.load(f)['traceEvents']]
+
+
+def _step_parts(events):
+    """A trainer step split by part, in ms, from the profiler's host
+    events of that step: device (the segments before recv, and send's
+    wait for the last of them), send, the barriers, recv, concat (the
+    segments after recv), prefetch and the split ops."""
+    recv = min([t for n, t, _ in events if n == 'host_op:recv'] or
+               [float('inf')])
+
+    def ms(pred):
+        return sum(d for n, t, d in events if pred(n, t)) / 1e3
+    wait = ms(lambda n, t: n == 'send:wait_for_device')
+    seg = 'device_segment:'
+    return {'device': ms(lambda n, t: n.startswith(seg) and t < recv) +
+            wait,
+            'concat': ms(lambda n, t: n.startswith(seg) and t > recv),
+            'send': ms(lambda n, t: n == 'host_op:send') - wait,
+            'barriers': ms(lambda n, t: n in ('host_op:send_barrier',
+                                              'host_op:fetch_barrier')),
+            'recv': ms(lambda n, t: n == 'host_op:recv'),
+            'prefetch': ms(lambda n, t: n == 'host_op:prefetch'),
+            'split': ms(lambda n, t: n in ('host_op:split_ids',
+                                           'host_op:split_selected_rows'))}
+
+
+def _ps_transpiled(phase, spec, trainer_id, eps):
+    import paddle_tpu_torch as fluid
+    main, startup, loss, batches = PS_PROGRAMS[phase](spec)
+    t = fluid.DistributeTranspiler()
+    t.transpile(trainer_id, program=main, pservers=eps,
+                trainers=PS_TRAINERS, sync_mode=True,
+                startup_program=startup)
+    return t, loss, batches
+
+
+def ps_pserver(phase, index, eps, spec):
+    """One pserver on the host: its startup on the CPU, the owned blocks'
+    crc32s, then listen_and_serv until both trainers complete; each
+    round's ms (the profiler's param_service:round: merge to snapshot); for ps2, which
+    rows of its table shard changed."""
+    import torch
+    import paddle_tpu_torch as fluid
+    t, _, batches = _ps_transpiled(phase, spec, 0, eps)
+    ep = eps.split(',')[index]
+    main, startup = t.get_pserver_programs(ep)
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    t0 = time.perf_counter()
+    exe.run(startup, scope=scope)
+    startup_s = time.perf_counter() - t0
+    digests = {i.pname: _crc_rows(scope.find_var(i.pname))
+               for i in t.var_blocks if i.ep == ep}
+    table = t.table_name
+    table0 = scope.find_var(table).clone() if table else None
+    trace = os.path.join(os.environ['PSW_OUT'], 'pserver%d.trace' % index)
+    fluid.profiler.start_profiler('CPU')
+    t0 = time.perf_counter()
+    exe.run(main, scope=scope)
+    serve_s = time.perf_counter() - t0
+    fluid.profiler.stop_profiler(None, trace)
+    rounds = [d / 1e3 for n, _, d in _host_events(trace)
+              if n == 'param_service:round']
+    out = dict(startup_s=startup_s, serve_s=serve_s, digests=digests,
+               round_ms=rounds)
+    if table:
+        n = len(t.pserver_endpoints)
+        changed = (scope.find_var(table) != table0).any(dim=1)
+        changed_ids = (torch.nonzero(changed).reshape(-1) * n + index)
+        touched = set()
+        for b in batches:
+            touched.update(int(i) for i in np.unique(b['feat_idx'])
+                           if int(i) % n == index)
+        changed_ids = set(int(i) for i in changed_ids.tolist())
+        out['table'] = dict(rows=int(table0.shape[0]),
+                            touched=len(touched), changed=len(changed_ids),
+                            changed_untouched=len(changed_ids - touched),
+                            touched_unchanged=len(touched - changed_ids))
+    return out
+
+
+def ps_trainer(phase, index, eps, spec, place):
+    """One trainer on `place`: its startup (ending with the pull from the
+    pservers) and the blocks' crc32s, PS_STEPS steps of its half of each
+    global batch, the last split by part (the profiler's host events of
+    it), the kernel launches, every parameter's crc32; trainer 0 then
+    runs the same program locally on the same place from the same
+    initial values over the whole global batches (_ps_local)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    t, loss, batches = _ps_transpiled(phase, spec, index, eps)
+    prog = t.get_trainer_program()
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    sync = torch_sync(place)
+    t0 = time.perf_counter()
+    exe.run(t.get_trainer_startup_program(), scope=scope)
+    sync()
+    startup_s = time.perf_counter() - t0
+    params = [p.name for p in t.origin_program.global_block()
+              .all_parameters() if scope.find_var(p.name) is not None]
+    digests = {i.pname: _crc_rows(scope.find_var(i.param.name), i.offset,
+                                  i.rows) for i in t.var_blocks}
+    initial = {p: scope.find_var(p).clone() for p in params} \
+        if index == 0 else None
+    counters = {KERNELS[k][0]: getattr(fa, KERNELS[k][0]) for k in KERNELS}
+    for c in counters.values():
+        c.launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
+    trace = os.path.join(os.environ['PSW_OUT'], 'trainer%d.trace' % index)
+    per = batches[0][next(iter(batches[0]))].shape[0] // PS_TRAINERS
+    losses, step_ms = [], []
+    for step, gb in enumerate(batches):
+        feed = {k: v[index * per:(index + 1) * per] for k, v in gb.items()}
+        if step == len(batches) - 1:
+            fluid.profiler.start_profiler('CPU')
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    fluid.profiler.stop_profiler(None, trace)
+    launches = {n: c.launches for n, c in counters.items()}
+    plain = fa.FlashAttention.plain_cuda_calls
+    final = {p: _crc_rows(scope.find_var(p)) for p in params}
+    param_bytes = sum(scope.find_var(p).numel() *
+                      scope.find_var(p).element_size() for p in params)
+    exe.close()              # COMPLETE to every pserver
+    out = dict(startup_s=startup_s, digests=digests, final=final,
+               losses=losses, step_ms=step_ms,
+               parts=_step_parts(_host_events(trace)),
+               launches=launches, plain=plain, param_bytes=param_bytes)
+    if phase == 'ps2':
+        # the table rows a step moves each way: prefetched in, their
+        # gradients out as SelectedRows (one row a lookup)
+        out['rows'] = int(np.prod(feed['feat_idx'].shape))
+    if index == 0:
+        out['local'] = _ps_local(phase, spec, place, scope, params, initial,
+                                 batches, sync)
+    return out
+
+
+def _ps_local(phase, spec, place, dist_scope, params, initial, batches,
+              sync):
+    """The same program trained locally on `place` over the whole global
+    batches from the distributed run's initial values: ps1 from the
+    values the trainer pulled, ps2 from a CPU run of its startup (which
+    also holds the distributed table, as the pservers drew it); ps2's
+    pulled values must be that run's exactly. Each parameter's largest
+    difference from the distributed run and the gradient-weighted
+    difference of the two runs' updates (_first_order_diffs, the local
+    run's |g| summed over its steps); for ps2 on the card also the
+    largest difference between this run and the same run on the CPU
+    (the card's own rounding under Adam, logged beside it)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.selected_rows import SelectedRows
+    main, startup, loss, _ = PS_PROGRAMS[phase](spec)
+
+    def train(run_place, init_from):
+        scope = fluid.Scope()
+        exe = fluid.Executor(run_place)
+        exe.run(startup, scope=scope)
+        for n, v in init_from.items():
+            scope.find_var(n).copy_(v)
+        start = {p: scope.find_var(p).clone() for p in params}
+        grads = [p + '@GRAD' for p in params]
+        gsum = {p: torch.zeros_like(start[p]) for p in params}
+        losses, step_ms = [], []
+        for gb in batches:
+            t0 = time.perf_counter()
+            out = exe.run(main, feed=gb, fetch_list=[loss] + grads,
+                          scope=scope, return_numpy=False)
+            losses.append(float(out[0]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            for p, g in zip(params, out[1:]):
+                g = g.to_dense() if isinstance(g, SelectedRows) else g
+                gsum[p] += g.abs().to(gsum[p].device)
+        exe.close()
+        return scope, start, gsum, losses, step_ms
+    pulled_mismatch = []
+    if phase == 'ps2':
+        cpu = fluid.Scope()
+        fluid.Executor(fluid.CPUPlace()).run(startup, scope=cpu)
+        init = {v.name: cpu.find_var(v.name)
+                for v in startup.global_block().vars.values()
+                if v.persistable and cpu.find_var(v.name) is not None}
+        pulled_mismatch = [p for p in params if not torch.equal(
+            initial[p].cpu(), init[p])]
+    else:
+        init = {p: initial[p] for p in params}
+    scope, start, gsum, losses, step_ms = train(place, init)
+    sync()
+    diffs = {p: float((scope.find_var(p) - dist_scope.find_var(p)).abs()
+                      .max()) for p in params}
+    upd = {p: scope.find_var(p) - start[p] for p in params}
+    dist_upd = {p: dist_scope.find_var(p) - start[p] for p in params}
+    out = dict(diffs=diffs, losses=losses, step_ms=step_ms,
+               pulled_mismatch=pulled_mismatch,
+               weighted=_first_order_diffs(dist_upd, upd, gsum, params))
+    if phase == 'ps2' and place.device.type == 'cuda':
+        cpu_scope = train(fluid.CPUPlace(), init)[0]
+        out['cpu_spread'] = {p: float(
+            (cpu_scope.find_var(p) - scope.find_var(p).cpu()).abs()
+            .max()) for p in params}
+    return out
+
+
+def ps_worker_main(role, index):
+    """`chip_smoke.py --ps-worker <role> <index>`: one role of a ps1 or
+    ps2 cluster (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT, PSW_SPEC,
+    PSW_PLACE); its result goes to PSW_OUT/<role><index>.json."""
+    import torch
+    import paddle_tpu_torch as fluid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase, eps = os.environ['PSW_PHASE'], os.environ['PSW_ENDPOINTS']
+    spec = json.loads(os.environ.get('PSW_SPEC') or '{}')
+    if role == 'pserver':
+        out = ps_pserver(phase, index, eps, spec)
+    else:
+        place = fluid.CPUPlace() if os.environ.get('PSW_PLACE') == 'cpu' \
+            else fluid.CUDAPlace(0)
+        out = ps_trainer(phase, index, eps, spec, place)
+    with open(os.path.join(os.environ['PSW_OUT'],
+                           '%s%d.json' % (role, index)), 'w') as f:
+        json.dump(out, f)
+    return 0
+
+
+def _free_ports(n):
+    import socket
+    socks = []
+    for _ in range(n):
+        s = socket.socket()
+        s.bind(('127.0.0.1', 0))
+        socks.append(s)
+    ports = [s.getsockname()[1] for s in socks]
+    for s in socks:        # all held before any is freed: no repeats
+        s.close()
+    return ports
+
+
+def run_ps_cluster(phase, work_dir, spec=None, place_name='cuda'):
+    """PS_PSERVERS pservers and PS_TRAINERS trainers of `phase` as
+    subprocesses of this script on free localhost ports (the trainers on
+    the card, the pservers on its host); returns {role<i>: result}.
+    A role that fails or outlives PS_TIMEOUT fails the phase; every
+    child is killed however this ends."""
+    eps = ','.join('127.0.0.1:%d' % p for p in _free_ports(PS_PSERVERS))
+    env = dict(os.environ, PSW_PHASE=phase, PSW_ENDPOINTS=eps,
+               PSW_OUT=work_dir, PSW_SPEC=json.dumps(spec or {}),
+               PSW_PLACE=place_name)
+    roles = [('pserver', i) for i in range(PS_PSERVERS)] + \
+        [('trainer', i) for i in range(PS_TRAINERS)]
+    procs = {}
+    logs = {}
+    deadline = time.monotonic() + PS_TIMEOUT
+    try:
+        for role, i in roles:
+            name = '%s%d' % (role, i)
+            logs[name] = os.path.join(work_dir, name + '.log')
+            with open(logs[name], 'wb') as lf:
+                procs[name] = subprocess.Popen(
+                    [sys.executable, os.path.abspath(__file__),
+                     '--ps-worker', role, str(i)],
+                    env=env, cwd=HERE, stdout=lf, stderr=subprocess.STDOUT)
+        while any(p.poll() is None for p in procs.values()):
+            bad = [n for n, p in procs.items()
+                   if p.poll() not in (None, 0)]
+            if bad or time.monotonic() > deadline:
+                raise AssertionError(
+                    '%s: %s\n%s' % (phase, 'roles %s failed' % bad if bad
+                                    else 'timed out after %d s' % PS_TIMEOUT,
+                                    '\n'.join('--- %s:\n%s' % (
+                                        n, open(logs[n], errors='replace')
+                                        .read()[-3000:]) for n in
+                                        (bad or sorted(procs)))))
+            time.sleep(0.1)
+        bad = [n for n, p in procs.items() if p.returncode != 0]
+        if bad:
+            raise AssertionError('%s: roles %s failed\n%s' % (
+                phase, bad, '\n'.join(open(logs[n], errors='replace')
+                                      .read()[-3000:] for n in bad)))
+    finally:
+        for p in procs.values():
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    out = {}
+    for name in procs:
+        with open(os.path.join(work_dir, name + '.json')) as f:
+            out[name] = json.load(f)
+    return out
+
+
+def _ps_common_checks(phase, res):
+    """Each trainer's blocks after startup are the pservers' exactly,
+    the trainers end on the same bits and their losses fall. Returns the
+    number of blocks."""
+    served = {}
+    for i in range(PS_PSERVERS):
+        served.update(res['pserver%d' % i]['digests'])
+    for i in range(PS_TRAINERS):
+        got = res['trainer%d' % i]['digests']
+        if got != served:
+            bad = sorted(k for k in served if got.get(k) != served[k])
+            raise AssertionError('%s: trainer %d after startup differs from '
+                                 'the pservers\' slices in %s'
+                                 % (phase, i, bad[:8]))
+    f0, f1 = res['trainer0']['final'], res['trainer1']['final']
+    if f0 != f1:
+        raise AssertionError('%s: the trainers end on different parameters '
+                             '(%s): want the same bits'
+                             % (phase, sorted(k for k in f0
+                                              if f0[k] != f1.get(k))[:8]))
+    for i in range(PS_TRAINERS):
+        losses = res['trainer%d' % i]['losses']
+        if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+            raise AssertionError('%s: trainer %d losses %s do not fall'
+                                 % (phase, i, losses))
+    return len(served)
+
+
+def _ps_local_check(phase, res):
+    """Trainer 0's local run against the cluster: ps2's pulled values
+    are the startup's CPU draws; every parameter's gradient-weighted
+    update difference within PS_UPDATE_TOL; the trainers' mean loss
+    within PS_LOSS_TOL of the local run's at every step; the largest
+    weight difference within PS1_LOCAL_TOL / PS2_LOCAL_TOL. Returns (the
+    largest weight difference, the largest weighted update difference,
+    the largest loss difference)."""
+    local = res['trainer0']['local']
+    if local['pulled_mismatch']:
+        raise AssertionError('%s: the pulled %s are not the startup\'s CPU '
+                             'draws' % (phase, local['pulled_mismatch']))
+    bad = sorted(p for p, d in local['weighted'].items()
+                 if not d <= PS_UPDATE_TOL)
+    if bad:
+        raise AssertionError('%s: the updates of %s differ from the local '
+                             'run\'s by %s gradient-weighted, want <= %g'
+                             % (phase, bad[:8], [local['weighted'][p]
+                                                 for p in bad[:8]],
+                                PS_UPDATE_TOL))
+    mean = np.mean([res['trainer%d' % i]['losses']
+                    for i in range(PS_TRAINERS)], axis=0)
+    loss_diff = float(np.max(np.abs(mean - np.asarray(local['losses']))))
+    if not loss_diff <= PS_LOSS_TOL:
+        raise AssertionError('%s: the trainers\' mean losses %s differ from '
+                             'the local run\'s %s by %.3e, want <= %g'
+                             % (phase, mean.tolist(), local['losses'],
+                                loss_diff, PS_LOSS_TOL))
+    worst = max(local['diffs'].values())
+    tol = PS1_LOCAL_TOL if phase == 'ps1' else PS2_LOCAL_TOL
+    if not worst <= tol:
+        raise AssertionError('%s: parameters differ from the local run by '
+                             '%.3e (%s), want <= %g'
+                             % (phase, worst, local['diffs'], tol))
+    return worst, max(local['weighted'].values()), loss_diff
+
+
+@phase('ps1: the flagship LM in parameter-server mode (2 trainers on the '
+       'card x 2 pservers on the host, sync SGD)')
+def ps_lm_steps(work_root, spec=None, place_name='cuda'):
+    """bench_suite's pserver row on MODEL cut to PS1['layers'] layers:
+    the trainers start from the pservers' slices exactly, end on the
+    same bits, within PS1_LOCAL_TOL of a local run on the card over the
+    same global batches, each parameter's update and the losses as the
+    local run's (_ps_local_check), and their losses fall; K1 fp32 and
+    K2 fp32
+    launch cfg.layers times a step on each trainer and no plain flash
+    call runs. Logs the step split by part, the wire's MB/s each way,
+    the local step's ms and the pservers' round ms."""
+    spec = spec or {}
+    t0 = time.perf_counter()
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    res = run_ps_cluster('ps1', work, spec, place_name)
+    nblocks = _ps_common_checks('ps1', res)
+    worst, weighted, loss_diff = _ps_local_check('ps1', res)
+    layers = ps_lm_cfg(spec).layers
+    launches = {'K1': 0, 'K2': 0}
+    for i in range(PS_TRAINERS):
+        r = res['trainer%d' % i]
+        k1 = r['launches'][KERNELS['fwd'][0]]
+        k2 = r['launches'][KERNELS['k2'][0]]
+        if place_name == 'cuda' and (k1 != layers * PS_STEPS or
+                                     k2 != layers * PS_STEPS or r['plain']):
+            raise AssertionError(
+                'ps1: trainer %d launched K1 %d and K2 %d times in %d steps '
+                'with %d plain flash calls; want %d, %d and 0'
+                % (i, k1, k2, PS_STEPS, r['plain'], layers * PS_STEPS,
+                   layers * PS_STEPS))
+        others = [n for n, c in r['launches'].items()
+                  if c and n not in (KERNELS['fwd'][0], KERNELS['k2'][0])]
+        if others:
+            raise AssertionError('ps1: trainer %d launched %s' % (i, others))
+        launches['K1'] += k1
+        launches['K2'] += k2
+    r0 = res['trainer0']
+    parts = r0['parts']
+    mb = r0['param_bytes'] / 1e6
+    rounds = [ms for i in range(PS_PSERVERS)
+              for ms in res['pserver%d' % i]['round_ms']]
+    wall = time.perf_counter() - t0
+    log('ps1: %d parameter blocks on %d pservers, %.1f MB of gradients '
+        'out and of parameters in a trainer step; startup (the pull) %.3f s '
+        'on the trainers, %.3f s on the pservers; trainer 0 step ms %s '
+        '(the last: device %.3f, send %.3f, barriers %.3f, recv + concat '
+        '%.3f); the '
+        'wire %.1f MB/s out, %.1f MB/s in; the local step on the card '
+        '(batch %d) %s ms; pserver rounds %s ms; losses %s; launches a '
+        'trainer %d K1 + %d K2; vs the local run: max |diff| %.3e, updates '
+        '%.3e gradient-weighted, mean losses %.3e; %.1f s'
+        % (nblocks, PS_PSERVERS, mb,
+           max(res['trainer%d' % i]['startup_s'] for i in range(2)),
+           max(res['pserver%d' % i]['startup_s'] for i in range(2)),
+           ' '.join('%.3f' % x for x in r0['step_ms']), parts['device'],
+           parts['send'], parts['barriers'], parts['recv'] + parts['concat'],
+           mb / max(parts['send'], 1e-9) * 1e3,
+           mb / max(parts['recv'], 1e-9) * 1e3,
+           PS_TRAINERS * spec.get('batch', PS1['batch']),
+           ' '.join('%.3f' % x for x in r0['local']['step_ms']),
+           ' '.join('%.3f' % x for x in rounds),
+           ' '.join('%.6f' % x for x in r0['losses']),
+           launches['K1'] // PS_TRAINERS, launches['K2'] // PS_TRAINERS,
+           worst, weighted, loss_diff, wall))
+    return dict(launches=launches, seconds=wall, worst=worst,
+                weighted=weighted, parts=parts,
+                step_ms=r0['step_ms'], local_ms=r0['local']['step_ms'],
+                round_ms=rounds, mb=mb, losses=r0['losses'])
+
+
+@phase('ps2: DeepFM CTR in parameter-server mode with a distributed lookup '
+       'table (2 trainers on the card x 2 pservers on the host, sync Adam)')
+def ps_deepfm_steps(work_root, spec=None, place_name='cuda'):
+    """PS2's DeepFM: the trainers start from the pservers' slices
+    exactly, which are a CPU run of the startup's draws; the non-table
+    weights, their updates and the losses as a local run's on the card
+    over the same global batches (_ps_local_check); every table row no
+    batch touched the same bits on its pserver and every row one touched
+    changed; the losses fall. Logs
+    step ms, prefetch ms, the rows a step on the wire and the largest
+    weight difference from the local run beside the same local run's
+    on the CPU."""
+    spec = spec or {}
+    t0 = time.perf_counter()
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    res = run_ps_cluster('ps2', work, spec, place_name)
+    nblocks = _ps_common_checks('ps2', res)
+    local = res['trainer0']['local']
+    worst, weighted, loss_diff = _ps_local_check('ps2', res)
+    spread = max(local['cpu_spread'].values()) \
+        if local.get('cpu_spread') else None
+    tables = [res['pserver%d' % i]['table'] for i in range(PS_PSERVERS)]
+    if any(t['changed_untouched'] or t['touched_unchanged']
+           for t in tables):
+        raise AssertionError('ps2: table rows no batch touched changed, or '
+                             'rows a batch touched did not: %s' % tables)
+    r0 = res['trainer0']
+    parts = r0['parts']
+    rounds = [ms for i in range(PS_PSERVERS)
+              for ms in res['pserver%d' % i]['round_ms']]
+    wall = time.perf_counter() - t0
+    per_step = r0['rows']
+    log('ps2: %d parameter blocks and a %d-row table on %d pservers (%s); '
+        'trainer 0 step ms %s (the last: prefetch %.3f, device %.3f, '
+        'split_ids %.3f, send %.3f, barriers %.3f, recv + concat %.3f); %d '
+        'rows a step on the wire '
+        'each way (prefetched in, SelectedRows out); the local step on the '
+        'card %s ms; pserver rounds %s ms; losses %s; vs the local run: '
+        'updates %.3e gradient-weighted, mean losses %.3e, max |diff| '
+        '%.3e (the local run on the card vs on the CPU: %s); %.1f s'
+        % (nblocks, sum(t['rows'] for t in tables), PS_PSERVERS,
+           ', '.join('%d rows touched, %d changed, %d changed untouched'
+                     % (t['touched'], t['changed'], t['changed_untouched'])
+                     for t in tables),
+           ' '.join('%.3f' % x for x in r0['step_ms']), parts['prefetch'],
+           parts['device'], parts['split'], parts['send'], parts['barriers'],
+           parts['recv'] + parts['concat'], per_step,
+           ' '.join('%.3f' % x for x in local['step_ms']),
+           ' '.join('%.3f' % x for x in rounds),
+           ' '.join('%.6f' % x for x in r0['losses']), weighted,
+           loss_diff, worst,
+           'not measured' if spread is None else '%.3e' % spread, wall))
+    return dict(seconds=wall, worst=worst, weighted=weighted,
+                spread=spread, parts=parts,
+                tables=tables,
+                step_ms=r0['step_ms'], local_ms=local['step_ms'],
+                round_ms=rounds, rows=per_step, losses=r0['losses'])
+
+
 _SCRATCH_DIRS = []
 
 
@@ -11110,6 +11857,11 @@ def main():
     except ImportError:
         print('chip_smoke: torch is not installed', file=sys.stderr)
         return 2
+    if len(sys.argv) == 4 and sys.argv[1] == '--ps-worker' and \
+            os.path.isdir(os.path.join(HERE, 'paddle_tpu_torch')):
+        # one role of ps1's or ps2's cluster, started by run_ps_cluster
+        sys.path.insert(0, HERE)
+        return ps_worker_main(sys.argv[2], int(sys.argv[3]))
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device (torch.cuda.is_available() is '
               'false); nothing run', file=sys.stderr)
@@ -11254,6 +12006,10 @@ def main():
         rf1 = record_file_steps(place, sync, build_root,
                                 r_launches // TIMED_STEPS)
         free_device_memory()
+        t_ps = time.perf_counter()
+        ps1 = ps_lm_steps(build_root)
+        ps2 = ps_deepfm_steps(build_root)
+        ps_s = time.perf_counter() - t_ps
 
         with flags_set(N1_FLAGS):
             ntr, n1 = nhwc_steps(place, sync)
@@ -11330,13 +12086,15 @@ def main():
     # K4a/K4b/K5 in the timed long-context steps, K1 bf16 at T = 8192 in
     # l2's default-arm step
     # (and pf1's profiled runs of the same step)
-    path_launches = {'flash_attention_fwd': launches['flash_attention_fwd'],
+    # (ps1's fp32 K1 and K2 on its two trainers too)
+    path_launches = {'flash_attention_fwd': launches['flash_attention_fwd']
+                     + ps1['launches']['K1'],
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'] +
                          pf1['launches']['K1'],
                      'flash_attention_bwd_kvmajor':
                          train_launches['flash_attention_bwd_kvmajor'] +
-                         pf1['launches']['K2/K5'],
+                         pf1['launches']['K2/K5'] + ps1['launches']['K2'],
                      'flash_attention_bwd_dq':
                          split_launches['flash_attention_bwd_dq'],
                      'flash_attention_bwd_dkv':
@@ -11610,6 +12368,27 @@ def main():
            ' / '.join('%.1f at %d threads' % (r, n)
                       for n, r in rf1['rates'].items()),
            rf1['u8_mb'], rf1['f32_mb']))
+    log('parameter-server training (%.1f s for ps1 and ps2, imports and '
+        'CUDA start-up of their 8 processes included): ps1 the flagship LM '
+        '(%d layers, 2 x batch %d, sync SGD) trainer step %s ms (device '
+        '%.3f, send %.3f, barriers %.3f, recv %.3f) against %s ms local, '
+        '%.1f MB each way a trainer step, pserver rounds %s ms, vs local '
+        'max |diff| %.3e, updates %.3e gradient-weighted, K1 %d and K2 %d '
+        'launches; ps2 DeepFM (2 x batch %d, sync Adam, a %d-row '
+        'distributed table) step %s ms (prefetch %.3f), %d rows a step '
+        'each way, vs local updates %.3e gradient-weighted (max |diff| '
+        '%.3e), untouched rows the same bits'
+        % (ps_s, PS1['layers'], PS1['batch'],
+           ' '.join('%.1f' % x for x in ps1['step_ms']),
+           ps1['parts']['device'], ps1['parts']['send'],
+           ps1['parts']['barriers'], ps1['parts']['recv'],
+           ' '.join('%.1f' % x for x in ps1['local_ms']), ps1['mb'],
+           ' '.join('%.1f' % x for x in ps1['round_ms']), ps1['worst'],
+           ps1['weighted'], ps1['launches']['K1'], ps1['launches']['K2'],
+           PS2['batch'], PS2['ids'],
+           ' '.join('%.1f' % x for x in ps2['step_ms']),
+           ps2['parts']['prefetch'], ps2['rows'], ps2['weighted'],
+           ps2['worst']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

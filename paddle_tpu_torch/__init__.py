@@ -63,7 +63,11 @@ image dataset modules; `profiler` (the host table and chrome trace, a
 torch.profiler device trace whose kernels carry the ops that launched
 them, tools.timeline and tools.obs_report), RecordIO files with their
 native readers (recordio, layers.open_files with the native image
-decode, the datasets' convert) and the CSP channels (make_channel, Go).
+decode, the datasets' convert) and the CSP channels (make_channel, Go);
+and parameter-server training (`distributed`: the wire, RPC, parameter
+service, master and supervisor; the send/recv/prefetch/listen_and_serv
+ops; DistributeTranspiler), whose pservers run on the host while the
+trainers run on the card.
 The JAX package's place names TPUPlace and XLAPlace are CUDAPlace here.
 ROADMAP.md lists the rest.
 """
@@ -108,7 +112,8 @@ from . import inference
 from . import models
 from . import transpiler
 from .transpiler import (InferenceTranspiler, memory_optimize,
-                         release_memory)
+                         release_memory, DistributeTranspiler,
+                         DistributeTranspilerConfig)
 from . import serving
 from . import obs
 from . import memory
@@ -149,7 +154,8 @@ __all__ = [
     'calc_gradient', 'regularizer', 'clip', 'optimizer', 'contrib',
     'reader', 'batch', 'dataset', 'nets', 'DataFeeder', 'core',
     'ParallelExecutor', 'ExecutionStrategy', 'BuildStrategy',
-    'InferenceTranspiler', 'memory_optimize', 'release_memory', 'obs',
+    'InferenceTranspiler', 'memory_optimize', 'release_memory',
+    'DistributeTranspiler', 'DistributeTranspilerConfig', 'obs',
     'memory', 'distributed', 'Trainer', 'CheckpointConfig',
     'BeginEpochEvent', 'EndEpochEvent', 'BeginStepEvent', 'EndStepEvent',
     'FaultEvent', 'Inferencer', 'average', 'annotations',

@@ -1,28 +1,38 @@
-"""The step half of the resilience layer (counterpart of
-paddle_tpu/distributed/resilience.py): the failure taxonomy, the retry
-policy and deterministic fault injection at the Trainer's step boundary.
+"""Resilience layer for the distributed stack (counterpart of
+paddle_tpu/distributed/resilience.py): deterministic fault injection,
+the retry policy and the failure taxonomy, at the wire layer and at the
+Trainer's step boundary.
 
-**Failure taxonomy** -- every failure the Trainer reacts to is either
+**Failure taxonomy** -- every RPC failure is either
 
-- `RetryableRPCError` (subclass of ConnectionError): transient; the
-  Trainer re-runs the step in place (FLAGS_trainer_step_retries);
-- `FatalRPCError` (subclass of RuntimeError): replaying cannot help;
-  `Trainer.train` rolls back to the last SUCCESS-marked checkpoint
-  (FLAGS_trainer_max_rollbacks).
+- `RetryableRPCError` (subclass of ConnectionError): transport-level or
+  explicitly transient -- a reconnect + idempotent replay is safe and is
+  performed transparently by `PSClient`/`MasterClient`; the Trainer
+  re-runs a step that raised one in place (FLAGS_trainer_step_retries);
+- `FatalRPCError` (subclass of RuntimeError): the server executed the
+  request and rejected it (zombie trainer, optimize failure, bad
+  message), retries were escalated, or the Trainer's anomaly guard gave
+  up -- replaying cannot help; `Trainer.train` rolls back to the last
+  SUCCESS-marked checkpoint (FLAGS_trainer_max_rollbacks).
 
-**RetryPolicy** -- the exponential-backoff-plus-jitter schedule the JAX
-package's reconnecting RPC clients share.
+`REPLY_ERR` wire metas carry a `retryable` bool so the classification
+crosses the wire.
 
-**FaultPlan** -- a declarative, seeded description of faults to inject,
-enabled per process by `FLAGS_fault_plan` (a JSON plan, a path to one,
-``seed:N``, ``kill:ROLE:N``, ``corrupt:N`` or ``grayfail:ROLE:N``), with
-the JAX package's schema::
+**RetryPolicy** -- the exponential-backoff-plus-jitter schedule every
+reconnecting client shares (flags: `rpc_max_retries`,
+`rpc_retry_backoff`, `rpc_retry_max_backoff`, `rpc_reconnect_secs`).
+
+**FaultPlan** -- a declarative, seeded description of faults to inject
+at the wire layer (hooks in `wire.write_msg`/`read_msg`) and at the
+Trainer step boundary, enabled per process by `FLAGS_fault_plan` (a JSON
+plan, a path to one, ``seed:N``, ``kill:ROLE:N``, ``corrupt:N`` or
+``grayfail:ROLE:N``), with the JAX package's schema::
 
     {"rules": [
-       {"when": "step",           # send | recv | step
-        "type": "*",              # wire/master msg-type name, or "*"
+       {"when": "send",           # send | recv | step
+        "type": "SEND_VAR",       # wire/master msg-type name, or "*"
         "nth": 3,                 # fire on the Nth matching event
-        "action": "error",        # drop | close | delay | error | exit
+        "action": "drop",         # drop | close | delay | error | exit
                                   #   | corrupt | nan | stall
         "secs": 0.2,              # delay / stall only
         "retryable": true,        # error only (default true)
@@ -30,17 +40,37 @@ the JAX package's schema::
         "bits": 1}]}              # corrupt only: bits to flip (default 1)
 
 Plans parse and print exactly as the JAX package's (`from_spec`,
-`to_dict`, `to_json`). Counting is per process and per (when, type).
-`on_step` fires the ``step`` rules in `Trainer.train` just before a step
-runs: ``delay`` sleeps, ``nan`` returns 'nan' (the Trainer poisons one
-float feed value so the numeric-anomaly guard sees a non-finite loss),
-``exit`` is `os._exit(code)` (kill -9 at an exact step), and the rest
-raise per the rule's retryable classification.
+`to_dict`, `to_json`), and a rule fires at the same message as there:
+counting is per process and per (when, type), and the host-side RPC ops
+emit their messages in a deterministic order. Actions:
 
-The wire hooks (`on_send`, `on_recv`, `on_send_vars`, `on_recv_vars`,
-`SendEffect`) wait for the port's distributed stack (ROADMAP.md, Queue 1
-item 7); until then a rule naming a message type never matches, and
-`send`/`recv` rules never fire.
+- ``drop``  (send): the message is never sent; the connection is closed
+  so the failure surfaces immediately -- replay must re-apply it.
+- ``close`` (send): the message IS sent, then the connection closes
+  before the reply -- replay of an applied mutation must be deduped.
+- ``delay``: sleep `secs`, then proceed normally.
+- ``error``: raise `RetryableRPCError` or `FatalRPCError` in place.
+- ``exit``: `os._exit(code)` -- the process dies instantly, no cleanup:
+  kill -9 at an exact point in the message sequence.
+- ``corrupt`` (send only): the frame is sent with `bits` bits flipped
+  inside its CRC-covered region; the receiver's CRC check rejects it
+  (FrameCorruptError) and the retry resends a clean copy.
+- ``nan`` (send or step): on send, the dense float payload is replaced
+  with NaNs BEFORE framing (a valid CRC: a numeric fault, not a
+  transport fault) so the pserver's finite-gradient guard rejects it;
+  on step, the Trainer poisons one float feed value so the
+  numeric-anomaly guard sees a non-finite loss.
+- ``stall`` (send or recv): hold the connection open for `secs`
+  without letting the message proceed -- the gray-failure primitive;
+  it writes an audit line to stderr when it fires.
+
+The wire layer cooperates on ``close``/``corrupt``/``nan``: `on_send`
+returns a `SendEffect` whose `action` tells `wire.write_msg` what to do
+to the frame. The hook fires exactly once per send, so the counters
+advance past a fired rule and the retry goes clean. On the recv side,
+``drop`` discards the parsed message and reads the next one. ``step``
+rules fire in `Trainer.train` just before a step executes (`on_step`
+returns ``'nan'`` when a nan step rule fires).
 """
 from __future__ import annotations
 
@@ -52,8 +82,9 @@ import time
 
 __all__ = ['RetryableRPCError', 'FatalRPCError', 'TransientError',
            'StaleIncarnationError', 'RetryPolicy', 'FaultRule',
-           'FaultPlan', 'install_plan', 'clear_plan', 'active_plan',
-           'current_plan', 'fired_faults', 'on_step']
+           'FaultPlan', 'SendEffect', 'install_plan', 'clear_plan',
+           'active_plan', 'current_plan', 'fired_faults', 'on_send',
+           'on_recv', 'on_send_vars', 'on_recv_vars', 'on_step']
 
 
 class RetryableRPCError(ConnectionError):
@@ -133,11 +164,14 @@ _WHENS = ('send', 'recv', 'step')
 
 
 def _type_names():
-    """Message-type name -> its wire value. The wire and master
-    namespaces come with the port's distributed stack (ROADMAP.md, Queue
-    1 item 7); until then only '*' is known, and a rule naming a message
-    type matches nothing."""
-    return {'*': '*'}
+    """Message-type name -> int over the wire + master namespaces."""
+    from . import wire, master
+    names = {'*': '*'}
+    for mod in (wire, master):
+        for k, v in vars(mod).items():
+            if not k.startswith('_') and k.isupper() and isinstance(v, int):
+                names[k] = v
+    return names
 
 
 class FaultRule(object):
@@ -423,12 +457,64 @@ def _match_locked(when, msg_type):
     return hit
 
 
+def _close_quietly(sock):
+    try:
+        sock.close()
+    except OSError:
+        pass
+
+
+class SendEffect(object):
+    """Returned by on_send for the actions the wire layer must
+    cooperate on. `action` is one of 'close' (send the frame, then run
+    post_send), 'corrupt' (send mutate_frame(frame)) or 'nan' (poison
+    the float payload before framing)."""
+
+    def __init__(self, rule, sock, index=0):
+        self.action = rule.action
+        self.rule = rule
+        # for batched sends: which contained var's rule fired ('nan'
+        # poisons only that var's bytes; frame-scoped actions ignore it)
+        self.index = index
+        self._sock = sock
+
+    def post_send(self):
+        _close_quietly(self._sock)
+
+    def mutate_frame(self, frame, lo):
+        """Deterministically flip `rule.bits` bits in frame[lo:] — the
+        CRC-covered body region. (Flipping header length fields instead
+        would desync the stream, a failure the read deadline surfaces;
+        body flips are what the CRC exists to catch.)"""
+        rng = random.Random(
+            ('corrupt-bits', self.rule.type, self.rule.nth,
+             self.rule.bits).__repr__())
+        buf = bytearray(frame)
+        for _ in range(self.rule.bits):
+            pos = rng.randrange(lo, len(buf))
+            buf[pos] ^= 1 << rng.randrange(8)
+        return bytes(buf)
+
+
 def _raise_for(rule, where):
     msg = 'fault injection: %s at %s (rule %s)' % (rule.action, where,
                                                    rule.to_dict())
     if rule.action == 'error' and not rule.retryable:
         raise FatalRPCError(msg)
     raise RetryableRPCError(msg)
+
+
+def _stall_for(rule, where):
+    """The 'stall' action: freeze this connection for rule.secs while
+    the process stays alive and every other connection keeps serving.
+    The audit line lands on stderr BEFORE the sleep — a chaos harness
+    greps for it to prove the gray failure actually fired even when the
+    watchdog unwedges the victim long before the stall expires."""
+    import sys
+    sys.stderr.write('fault injection: stall %.1fs at %s (rule %s)\n'
+                     % (rule.secs, where, rule.to_dict()))
+    sys.stderr.flush()
+    time.sleep(rule.secs)
 
 
 def _exit_for(rule, where):
@@ -441,6 +527,148 @@ def _exit_for(rule, where):
                      % (rule.code, where, rule.to_dict()))
     sys.stderr.flush()
     os._exit(rule.code)
+
+
+def on_send(sock, msg_type, meta):
+    """wire.write_msg hook, called BEFORE the frame hits the socket.
+    Returns None, or a SendEffect the wire layer applies ('close':
+    frame delivered then connection dies; 'corrupt': bits flipped in
+    the outbound frame; 'nan': float payload poisoned before
+    framing)."""
+    if _plan is None:
+        return None
+    with _lock:
+        rule = _match_locked('send', msg_type)
+    if rule is None:
+        return None
+    if rule.action == 'delay':
+        time.sleep(rule.secs)
+        return None
+    if rule.action == 'stall':
+        _stall_for(rule, 'send of msg type %s' % msg_type)
+        return None
+    if rule.action == 'drop':
+        _close_quietly(sock)
+        raise RetryableRPCError(
+            'fault injection: dropped msg type %s (rule %s)'
+            % (msg_type, rule.to_dict()))
+    if rule.action in ('close', 'corrupt', 'nan'):
+        return SendEffect(rule, sock)
+    if rule.action == 'exit':
+        _exit_for(rule, 'send of msg type %s' % msg_type)
+    _raise_for(rule, 'send of msg type %s' % msg_type)
+
+
+def on_send_vars(sock, msg_type, entries):
+    """wire.write_vars_msg hook: a SEND_VARS batch advances the 'send'
+    counters once PER CONTAINED VAR — the exact logical firing points a
+    per-var send loop would hit — so a seeded plan faults the same Nth
+    gradient whether or not batching is on. The frame is a single
+    physical send, so frame-scoped actions apply once to the whole
+    batch, with precedence when several rules land in one batch: every
+    'exit' first (kill determinism), 'delay' sleeps accumulate, then
+    the first drop/close/corrupt/nan/error in entry order wins. A 'nan'
+    SendEffect carries the index of the entry whose rule fired so only
+    that var's payload is poisoned."""
+    if _plan is None:
+        return None
+    fired = []
+    with _lock:
+        for i in range(len(entries)):
+            rule = _match_locked('send', msg_type)
+            if rule is not None:
+                fired.append((i, rule))
+    if not fired:
+        return None
+    for i, rule in fired:
+        if rule.action == 'exit':
+            _exit_for(rule, 'send of msg type %s (batch var %d)'
+                      % (msg_type, i))
+    for i, rule in fired:
+        if rule.action == 'delay':
+            time.sleep(rule.secs)
+        elif rule.action == 'stall':
+            _stall_for(rule, 'send of msg type %s (batch var %d)'
+                       % (msg_type, i))
+    for i, rule in fired:
+        if rule.action == 'drop':
+            _close_quietly(sock)
+            raise RetryableRPCError(
+                'fault injection: dropped batch of %d (msg type %s, '
+                'rule %s)' % (len(entries), msg_type, rule.to_dict()))
+        if rule.action in ('close', 'corrupt', 'nan'):
+            return SendEffect(rule, sock, index=i)
+        if rule.action == 'error':
+            _raise_for(rule, 'send of msg type %s (batch var %d)'
+                       % (msg_type, i))
+    return None
+
+
+def on_recv_vars(sock, msg_type, count):
+    """wire.read_msg hook for an inbound SEND_VARS frame: advances the
+    'recv' counters once per contained var (mirroring on_send_vars).
+    'drop' discards the WHOLE batch frame — per-var dedup tokens make
+    the client's replay apply each var at-most-once; exit/delay/close/
+    error follow the same precedence as on_send_vars."""
+    if _plan is None:
+        return None
+    fired = []
+    with _lock:
+        for i in range(count):
+            rule = _match_locked('recv', msg_type)
+            if rule is not None:
+                fired.append((i, rule))
+    if not fired:
+        return None
+    for i, rule in fired:
+        if rule.action == 'exit':
+            _exit_for(rule, 'recv of msg type %s (batch var %d)'
+                      % (msg_type, i))
+    for i, rule in fired:
+        if rule.action == 'delay':
+            time.sleep(rule.secs)
+        elif rule.action == 'stall':
+            _stall_for(rule, 'recv of msg type %s (batch var %d)'
+                       % (msg_type, i))
+    for i, rule in fired:
+        if rule.action == 'drop':
+            return 'drop'
+        if rule.action == 'close':
+            _close_quietly(sock)
+            raise ConnectionError(
+                'fault injection: closed on recv of msg type %s '
+                '(batch var %d)' % (msg_type, i))
+        if rule.action == 'error':
+            _raise_for(rule, 'recv of msg type %s (batch var %d)'
+                       % (msg_type, i))
+    return None
+
+
+def on_recv(sock, msg_type, meta):
+    """wire.read_msg hook, called AFTER a full frame was parsed (framing
+    stays intact). Returns 'drop' to discard the message and read the
+    next one, else None."""
+    if _plan is None:
+        return None
+    with _lock:
+        rule = _match_locked('recv', msg_type)
+    if rule is None:
+        return None
+    if rule.action == 'delay':
+        time.sleep(rule.secs)
+        return None
+    if rule.action == 'stall':
+        _stall_for(rule, 'recv of msg type %s' % msg_type)
+        return None
+    if rule.action == 'drop':
+        return 'drop'
+    if rule.action == 'close':
+        _close_quietly(sock)
+        raise ConnectionError(
+            'fault injection: closed on recv of msg type %s' % msg_type)
+    if rule.action == 'exit':
+        _exit_for(rule, 'recv of msg type %s' % msg_type)
+    _raise_for(rule, 'recv of msg type %s' % msg_type)
 
 
 def on_step():

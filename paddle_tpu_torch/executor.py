@@ -931,11 +931,38 @@ class Executor(object):
         memory pool they hold (returned to the card by the caching
         allocator when it needs the room, or by torch.cuda.empty_cache);
         the next run of a program prepares it again. The counts of
-        jit_cache_stats() go on."""
+        jit_cache_stats() go on. Tells every parameter server this
+        process talked to that its trainer is done (COMPLETE) and drops
+        the connections (reference executor.cc:48 Executor::Close ->
+        SendComplete)."""
+        from .distributed.rpc import close_all_clients
         self._prepared_cache.clear()
         self._pool = None
         self._loops.clear()
         self._loop_pool = None
+        close_all_clients(send_complete=True)
+
+    def run_block(self, program, block_id, scope, fetch_names=()):
+        """Run one block (no feeds) against `scope` -- the nested-executor
+        entry of host ops that run sub-blocks themselves (listen_and_serv's
+        optimize blocks; reference listen_and_serv_op.cc:148
+        ParallelExecuteBlocks). Its prepared program is cached under a
+        'block_run' key, which never shares an entry with run()'s.
+        Returns the fetched values (tensors)."""
+        fetch_names = [v.name if isinstance(v, Variable) else str(v)
+                       for v in fetch_names]
+        key = ('block_run', program._uid, program._version, block_id,
+               tuple(fetch_names), scope, run_time_switches())
+        prepared = self._prepared_cache.pop(key, None)
+        if prepared is None:
+            prepared = PreparedProgram(program, block_id, (), fetch_names)
+            prepared.fingerprint = hashlib.md5(repr(
+                key[:5]).encode()).hexdigest()[:12]
+        self._prepared_cache[key] = prepared
+        while len(self._prepared_cache) > PREPARED_LIMIT:
+            del self._prepared_cache[next(iter(self._prepared_cache))]
+        return self._run_prepared(prepared, {}, scope, program,
+                                  self.device.type == 'cuda')
 
     def loop_stats(self):
         """{'trips', 'host_reads'}: the while trips this executor ran and

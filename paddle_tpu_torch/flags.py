@@ -71,10 +71,11 @@ Known flags:
   obs_flush_secs         telemetry export period in seconds
   obs_role               role name in the telemetry and trace file names
                          ('' = the process id)
-  fault_plan             deterministic fault injection at the Trainer's
-                         step boundary (distributed/resilience.py): a
-                         JSON FaultPlan, a path to one, or "seed:N" for
-                         a generated plan; read once at import
+  fault_plan             deterministic fault injection for the RPC layer
+                         and the Trainer's step boundary
+                         (distributed/resilience.py): a JSON FaultPlan,
+                         a path to one, or "seed:N" for a generated
+                         plan; read once at import
   trainer_step_retries / trainer_max_rollbacks
                          Trainer.train fault handling: re-run a step
                          this many times on a retryable failure, and
@@ -101,6 +102,59 @@ Known flags:
                          ('' = no watchdog); breaches emit slo.breach
                          trace events and the slo.breaches counter
   slo_check_secs         SLOWatchdog evaluation period in seconds
+  rpc_deadline           seconds of trainer silence before a pserver
+                         declares it dead and retires it from sync
+                         rounds (distributed/param_service.py)
+  rpc_max_retries / rpc_retry_backoff / rpc_retry_max_backoff /
+  rpc_reconnect_secs     shared RetryPolicy for PSClient/MasterClient
+                         transparent reconnect (attempts, initial and
+                         max backoff seconds, per-attempt reconnect
+                         budget)
+  rpc_dedup_window       per-trainer replayed-request dedup window on
+                         the ParameterService (entries, not seconds)
+  trainer_incarnation    logical restart counter of this trainer
+                         process (elastic recovery): pservers fence
+                         messages from lower incarnations and rejoin
+                         higher ones; the supervisor bumps it per
+                         restart
+  ps_state_path          pserver durability: atomic snapshot file for
+                         params + round/replay state ('' = off);
+                         mutations since the snapshot journal to
+                         <path>.journal
+  ps_snapshot_every      rounds between pserver snapshots
+  ps_average_live        average merged gradients over the LIVE
+                         trainer set instead of the original
+                         num_trainers (see ParameterService._merge)
+  ps_check_grad_finite   pserver-side guard (default on): reject a
+                         SEND_VAR with NaN/Inf in its float payload
+                         with a retryable error BEFORE journaling or
+                         applying it -- the client retry resends the
+                         value it actually computed
+  rpc_read_deadline      socket read deadline (seconds) for PSClient /
+                         MasterClient: a peer that accepts but never
+                         replies surfaces as RetryableRPCError instead
+                         of a silent hang
+  rpc_inflight_window    pipelined PSClient: max unacked requests
+                         riding one connection (the *_async APIs);
+                         1 degrades to stop-and-wait
+  rpc_batch_bytes        dense gradients up to this many bytes bound
+                         for one endpoint coalesce into a single
+                         SEND_VARS frame (0 disables batching)
+  rpc_batch_max_bytes /
+  rpc_batch_max_vars     flush thresholds for one SEND_VARS frame
+                         (total payload bytes / contained vars)
+  sup_healthy_secs       Supervisor (distributed/supervisor.py): a role
+                         that stayed up this long before dying gets its
+                         restart BUDGET (and backoff exponent) reset --
+                         a replica that crashes once a day is not a
+                         crash loop. Lifetime restart counts (and the
+                         incarnation fence they feed) are unaffected
+  wire_binary_meta       frame the wire meta header in the compact
+                         binary codec (wire version 3) instead of JSON
+                         -- negotiated per connection: a sender
+                         advertises in its JSON meta, and only
+                         upgrades after the peer has proven it speaks
+                         v3, so old peers keep working
 """
 from __future__ import annotations
 
@@ -138,6 +192,24 @@ _DEFAULTS = {
     'perf_peak_tflops': 0.0,
     'slo_rules': '',
     'slo_check_secs': 5.0,
+    'rpc_deadline': 180.0,
+    'rpc_max_retries': 5,
+    'rpc_retry_backoff': 0.05,
+    'rpc_retry_max_backoff': 2.0,
+    'rpc_reconnect_secs': 3.0,
+    'rpc_dedup_window': 512,
+    'trainer_incarnation': 0,
+    'ps_state_path': '',
+    'ps_snapshot_every': 1,
+    'ps_check_grad_finite': True,
+    'rpc_read_deadline': 120.0,
+    'rpc_inflight_window': 32,
+    'rpc_batch_bytes': 65536,
+    'rpc_batch_max_bytes': 1 << 20,
+    'rpc_batch_max_vars': 64,
+    'ps_average_live': False,
+    'sup_healthy_secs': 300.0,
+    'wire_binary_meta': False,
 }
 
 _FLAGS = dict(_DEFAULTS)

@@ -9,7 +9,7 @@ from ..layer_helper import LayerHelper
 
 __all__ = ['data', 'py_reader', 'read_file', 'double_buffer',
            'open_recordio_file', 'open_files', 'random_data_generator',
-           'shuffle', 'batch', 'load']
+           'shuffle', 'batch', 'load', 'Send', 'Recv']
 
 
 def data(name, shape, append_batch_size=True, dtype='float32', lod_level=0,
@@ -287,3 +287,41 @@ def load(out, file_path, load_as_fp16=None):
     helper.append_op(type='load', inputs={}, outputs={'Out': [out]},
                      attrs=attrs)
     return out
+
+
+def Send(endpoints, send_vars, dummy_output=None, sync=True):
+    """Ship variables to parameter servers (reference layers/io.py:212
+    Send -> send_op): one epmap entry per var, optional send barrier."""
+    if not isinstance(send_vars, list):
+        raise TypeError('send_vars must be a list')
+    helper = LayerHelper('Send')
+    eps = endpoints.split(',') if isinstance(endpoints, str) \
+        else list(endpoints)
+    epmap = (eps * ((len(send_vars) + len(eps) - 1) // len(eps)))[
+        :len(send_vars)]
+    helper.append_op(type='send',
+                     inputs={'X': [v for v in send_vars]},
+                     outputs={},
+                     attrs={'epmap': epmap})
+    if sync:
+        helper.append_op(type='send_barrier', inputs={}, outputs={},
+                         attrs={'endpoints': sorted(set(epmap))})
+
+
+def Recv(endpoints, get_vars, dummy_input=None, sync=True):
+    """Pull variables from parameter servers (reference layers/io.py:256
+    Recv -> recv_op). Returns get_vars."""
+    if not isinstance(get_vars, list):
+        raise TypeError('get_vars must be a list')
+    helper = LayerHelper('Recv')
+    eps = endpoints.split(',') if isinstance(endpoints, str) \
+        else list(endpoints)
+    epmap = (eps * ((len(get_vars) + len(eps) - 1) // len(eps)))[
+        :len(get_vars)]
+    helper.append_op(type='recv', inputs={},
+                     outputs={'Out': [v for v in get_vars]},
+                     attrs={'epmap': epmap})
+    if sync:
+        helper.append_op(type='fetch_barrier', inputs={}, outputs={},
+                         attrs={'endpoints': sorted(set(epmap))})
+    return get_vars

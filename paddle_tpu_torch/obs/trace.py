@@ -15,8 +15,9 @@ file so one merge produces one timeline (obs/report.py):
 `wire_trace` and `server_span` carry a span id across an RPC as an
 optional `trace` field of the request's meta dict, so report.py can link
 a client span to the server's handling of it and estimate clock offsets
-from their midpoints; their RPC callers come with the port's
-distributed stack (ROADMAP.md, Queue 1 item 7).
+from their midpoints: PSClient and MasterClient put their call's span on
+the wire (distributed/rpc.py, master.py), and PSServer and MasterServer
+open each handler's span under it.
 
 Parent ids come from a thread-local span stack: a span opened inside
 another records that span's sid as `psid`.

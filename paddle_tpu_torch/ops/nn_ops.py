@@ -31,8 +31,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..executor import torch_dtype
 from ..framework import grad_var_name
-from ..selected_rows import SelectedRows
+from ..selected_rows import SelectedRows, scatter_add_rows
 from ..registry import (register_op, op_emitter, same_shape_infer,
                         register_vjp_grad, amp_cast)
 
@@ -568,27 +569,33 @@ def _lookup_table_grad_emit(ctx, op):
     """is_sparse=True: W@GRAD is a SelectedRows of the step's rows (the
     ids, repeats kept) and their upstream grad rows, padding_idx rows
     zeroed; its row count is the step's lookups, a static shape. Dense:
-    the upstream rows scatter-added into a zero table. index_put_ with
-    accumulate sorts the ids and sums each row's part in one order, so
-    two runs give the same bits on the card (index_add_ sums with
-    atomics: 10 Adagrad steps of an LSTM over its rows drifted 2e-2
-    apart)."""
-    w = ctx.get(op.single_input('W'))
+    the upstream rows scatter-added into a zero table, each row's parts
+    in one order (scatter_add_rows), so two runs give the same bits
+    (atomics on the card drifted 10 Adagrad steps of an LSTM 2e-2
+    apart). A distributed lookup table's trainer never holds W: the
+    transpiler removed the input and recorded the table's shape and
+    dtype as attrs."""
     ids = ctx.get(op.single_input('Ids'))
+    if op.input('W'):
+        w = ctx.get(op.single_input('W'))
+        w_shape, w_dtype = tuple(w.shape), w.dtype
+    else:
+        w_shape = tuple(op.attr('__table_shape__'))
+        w_dtype = torch_dtype(op.attr('__table_dtype__', 'float32'))
     gout = ctx.get(op.single_input('Out@GRAD'))
     squeeze_last = ids.ndim > 1 and ids.shape[-1] == 1
     flat = (ids.reshape(ids.shape[:-1]) if squeeze_last else ids)
     flat = flat.reshape(-1)
-    rows_g = gout.reshape((flat.numel(),) + tuple(w.shape[1:])).to(w.dtype)
+    rows_g = gout.reshape((flat.numel(),) + w_shape[1:]).to(w_dtype)
     pad = op.attr('padding_idx', -1)
     if pad != -1:
         rows_g = rows_g.masked_fill((flat == pad).unsqueeze(-1), 0.0)
     if op.attr('is_sparse', False):
         ctx.set(op.single_output('W@GRAD'),
-                SelectedRows(rows_g, flat.to(torch.int32), w.shape[0]))
+                SelectedRows(rows_g, flat.to(torch.int32), w_shape[0]))
         return
-    gw = torch.zeros_like(w).index_put_((flat.long(),), rows_g,
-                                        accumulate=True)
+    gw = scatter_add_rows(torch.zeros(w_shape, dtype=w_dtype,
+                                      device=rows_g.device), flat, rows_g)
     ctx.set(op.single_output('W@GRAD'), gw)
 
 

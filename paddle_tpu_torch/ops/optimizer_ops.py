@@ -27,7 +27,7 @@ from __future__ import annotations
 import torch
 
 from ..registry import register_op
-from ..selected_rows import SelectedRows
+from ..selected_rows import SelectedRows, scatter_add_rows
 
 
 def _densify(g):
@@ -49,8 +49,8 @@ def _merged(g, dtype):
     start = torch.ones_like(rows, dtype=torch.bool)
     start[1:] = rows[1:] != rows[:-1]
     seg = torch.cumsum(start.long(), 0) - 1
-    sums = torch.zeros_like(g.values, dtype=dtype).index_put_(
-        (seg,), g.values[order].to(dtype), accumulate=True)
+    sums = scatter_add_rows(torch.zeros_like(g.values, dtype=dtype), seg,
+                            g.values[order].to(dtype))
     return rows, sums[seg]
 
 

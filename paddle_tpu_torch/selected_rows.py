@@ -14,7 +14,21 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ['SelectedRows']
+__all__ = ['SelectedRows', 'scatter_add_rows']
+
+
+def scatter_add_rows(dst, rows, values):
+    """dst[rows[i]] += values[i] for each i, in place, summing a repeated
+    row's parts in the order they come, so that two runs give the same
+    bits: on the card `index_put_` with accumulate (it sorts the rows,
+    stably, and adds each row's parts in turn; `index_add_` there adds
+    with atomics), on the CPU `index_add_` (serial in that order;
+    `index_put_` with accumulate adds with atomics there). Returns
+    dst."""
+    rows = rows.long()
+    if dst.device.type == 'cuda':
+        return dst.index_put_((rows,), values, accumulate=True)
+    return dst.index_add_(0, rows, values)
 
 
 class SelectedRows(object):
@@ -34,15 +48,14 @@ class SelectedRows(object):
         return (self.height,) + tuple(self.values.shape[1:])
 
     def to_dense(self):
-        """Dense [height, ...] with repeated rows summed. index_put_ with
-        accumulate sorts the rows and sums each row's parts in one order,
-        so two runs give the same bits on the card (index_add_ sums with
-        atomics)."""
+        """Dense [height, ...] with repeated rows summed, each row's parts
+        in their order (scatter_add_rows: the same bits on every run, on
+        the card and on the CPU)."""
         values = torch.as_tensor(self.values)
-        rows = torch.as_tensor(self.rows, device=values.device).long()
+        rows = torch.as_tensor(self.rows, device=values.device)
         z = torch.zeros(self.dense_shape, dtype=values.dtype,
                         device=values.device)
-        return z.index_put_((rows,), values, accumulate=True)
+        return scatter_add_rows(z, rows, values)
 
     def numpy(self):
         return _host(self.to_dense())

@@ -40,9 +40,12 @@ holds its captured graphs; the executor copies each loaded tensor into
 the storage its graph captured before the next replay (executor.py
 `_replay`), so the replay trains the restored weights.
 
+With CheckpointConfig(pserver_endpoints=), trainer 0 has every
+parameter server save its shard into each checkpoint before its SUCCESS
+marker (checkpoint_notify), as the JAX package does.
+
 Not ported: CheckpointConfig(sharded=True) and `strategy=` (the mesh
-path; ROADMAP.md, Queue 1 item 8) and `pserver_endpoints` (pserver
-checkpoints; item 7) raise NotImplementedError.
+path; ROADMAP.md, Queue 1 item 8) raise NotImplementedError.
 """
 from __future__ import annotations
 
@@ -123,7 +126,10 @@ class FaultEvent(object):
 class CheckpointConfig(object):
     """(reference trainer.py:100) checkpoint_dir=None disables
     checkpointing; step_interval counts steps within an epoch.
-    sharded=True and pserver_endpoints are not ported and raise."""
+    pserver_endpoints: the parameter servers trainer `trainer_id` 0 asks
+    to save their shards at each checkpoint (checkpoint_notify, under
+    `<checkpoint>/pserver_shards/`). sharded=True is not ported and
+    raises."""
 
     def __init__(self, checkpoint_dir=None, max_num_checkpoints=3,
                  epoch_interval=1, step_interval=10,
@@ -133,16 +139,15 @@ class CheckpointConfig(object):
                 'CheckpointConfig(sharded=True) is the mesh checkpoint path '
                 '(checkpoint/sharded.py); not ported yet (ROADMAP.md, Queue 1 '
                 'item 8)')
-        if pserver_endpoints:
-            raise NotImplementedError(
-                'CheckpointConfig(pserver_endpoints=) checkpoints the '
-                'parameter servers; not ported yet (ROADMAP.md, Queue 1 '
-                'item 7)')
         self.checkpoint_dir = checkpoint_dir
         self.max_num_checkpoints = max(1, int(max_num_checkpoints))
         self.epoch_interval = max(1, int(epoch_interval))
         self.step_interval = max(1, int(step_interval))
-        self.pserver_endpoints = []
+        # pserver mode: endpoints to checkpoint_notify at each save
+        # (reference trainer.py wires checkpoint_notify into the save
+        # flow; DistributeTranspiler.checkpoint_notify_program builds
+        # the same op for manual loops)
+        self.pserver_endpoints = list(pserver_endpoints or [])
         self.trainer_id = int(trainer_id)
         self.sharded = False
 
@@ -304,9 +309,23 @@ class Trainer(object):
                                      main_program=self.train_program)
         with open(os.path.join(path, _METADATA_FILE), 'w') as f:
             json.dump(self._train_state_extras(epoch_id, step_id), f)
-        # digest manifest next-to-last: it covers every payload file, so
-        # resume can tell corruption from a clean save (the SUCCESS
-        # marker alone only proves the save COMPLETED)
+        if cfg.pserver_endpoints and cfg.trainer_id == 0:
+            # pserver mode: have each parameter server save its shard
+            # (params + server-side optimizer state) under this
+            # checkpoint before the SUCCESS marker commits it; restore
+            # happens pserver-side via
+            # get_pserver_programs(checkpoint_dir=...)
+            from .transpiler.distribute_transpiler import \
+                build_checkpoint_notify_program
+            notify = build_checkpoint_notify_program(
+                os.path.join(path, 'pserver_shards'),
+                cfg.pserver_endpoints, cfg.trainer_id)
+            with scope_guard(self.scope):
+                self.exe.run(notify)
+        # digest manifest next-to-last: it covers every payload file in
+        # the checkpoint (tensors, metadata, pserver shards), so resume
+        # can tell corruption from a clean save (the SUCCESS marker
+        # alone only proves the save COMPLETED)
         self._write_digests(path)
         # SUCCESS marker last: a partial checkpoint must never be resumed
         with open(os.path.join(path, _SUCCESS_FILE), 'w') as f:

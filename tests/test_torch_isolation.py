@@ -184,6 +184,36 @@ def test_trainer_and_obs_modules_leave_jax_out_of_sys_modules():
     assert out.stdout.strip() == '[]'
 
 
+PS_MODULES = ['distributed', 'distributed.wire', 'distributed.rpc',
+              'distributed.param_service', 'distributed.master',
+              'distributed.supervisor', 'distributed.env',
+              'distributed.resilience', 'ops.dist_ops',
+              'transpiler.distribute_transpiler', 'transpiler.ps_dispatcher']
+
+
+def test_parameter_server_modules_leave_jax_out_of_sys_modules():
+    """Every module of the parameter-server slice imports, with its
+    worker script, and none of them brings in jax or the JAX package;
+    the static scan above covers their sources."""
+    for mod in PS_MODULES:
+        assert os.path.exists(os.path.join(
+            PKG, *mod.split('.')) + ('.py' if '.' in mod else
+                                     os.sep + '__init__.py')), mod
+    code = ('import sys\n'
+            + ''.join('import paddle_tpu_torch.%s\n' % m for m in PS_MODULES)
+            + 'sys.path.insert(0, "tests")\n'
+              'import torch_ps_worker\n'
+              'bad = [m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "jaxlib", "paddle_tpu")]\n'
+              'print(bad)\n')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]'
+    worker = os.path.join(ROOT, 'tests', 'torch_ps_worker.py')
+    assert not [m for m in _imported_roots(worker) if m in FORBIDDEN]
+
+
 def test_trainer_and_inferencer_raise_without_a_card(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present: the default place is valid')

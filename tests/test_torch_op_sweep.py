@@ -568,6 +568,44 @@ for _t in ('fake_quantize', 'fake_dequantize_max_abs'):
             _t, 'test_fake_dequantize_matches_jax'),
         'steps of the moving scale and the straight-through grad')
 
+# the parameter-server host ops (no grads): each against the JAX package
+for _t, (_module, _test, _why) in {
+        'send': ('test_torch_rpc',
+                 'test_a_client_of_one_package_trains_against_the_others_server',
+                 'frames to the JAX package\'s service; the clusters'),
+        'recv': ('test_torch_dist_pserver',
+                 'test_port_trainers_against_jax_pservers_match_the_jax_local_run',
+                 'port trainers pulling from JAX pservers'),
+        'send_barrier': ('test_torch_dist_pserver',
+                         'test_sync_cluster_matches_the_local_run',
+                         'sync rounds vs the local run'),
+        'fetch_barrier': ('test_torch_dist_pserver',
+                          'test_sync_cluster_matches_the_local_run',
+                          'sync rounds vs the local run'),
+        'prefetch': ('test_torch_dist_pserver',
+                     'test_sync_cluster_matches_the_local_run',
+                     'the distributed table (table case) vs the local run'),
+        'listen_and_serv': ('test_torch_dist_pserver',
+                            'test_sync_cluster_matches_the_local_run',
+                            'the port\'s pservers vs the local run'),
+        'checkpoint_notify': ('test_torch_supervisor',
+                              'test_trainer_checkpoints_save_the_pservers_shards',
+                              'the pservers\' shards saved and restored'),
+        'split_ids': ('test_torch_dist_transpiler',
+                      'test_routing_ops_match_the_jax_packages',
+                      'one-op programs vs the JAX package'),
+        'merge_ids': ('test_torch_dist_transpiler',
+                      'test_routing_ops_match_the_jax_packages',
+                      'one-op programs vs the JAX package'),
+        'slice_rows': ('test_torch_dist_transpiler',
+                       'test_routing_ops_match_the_jax_packages',
+                       'one-op programs vs the JAX package'),
+        'split_selected_rows': ('test_torch_dist_transpiler',
+                                'test_routing_ops_match_the_jax_packages',
+                                'one-op programs vs the JAX package'),
+}.items():
+    COVERED_ELSEWHERE[_t] = (_module, _test, _why)
+
 EXCEPTIONS = {
     'reshape_grad_helper': 'the grad op of reshape2 and reshape, run by '
                            'their grad cases in this sweep',

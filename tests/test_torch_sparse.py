@@ -412,3 +412,26 @@ def test_capture_helpers_take_a_selected_rows():
     assert torch.equal(dense, want)
     assert sr.dense_shape == (10, 3) and sr.dtype == torch.float32
     np.testing.assert_array_equal(sr.numpy(), want.numpy())
+
+
+def test_scatter_adds_are_deterministic_on_the_cpu():
+    """A repeated row's parts add in their order on the CPU (index_add_,
+    numpy's np.add.at order), not with index_put_'s atomics: to_dense,
+    sparse SGD's merge and the dense lookup_table_grad give the same bits
+    on every run."""
+    import torch
+    from paddle_tpu_torch.ops.optimizer_ops import _merged
+    from paddle_tpu_torch.selected_rows import (SelectedRows,
+                                                scatter_add_rows)
+    gen = torch.Generator().manual_seed(0)
+    rows = torch.randint(0, 500, (60000,), generator=gen)
+    vals = torch.randn(60000, 10, generator=gen)
+    want = np.zeros((500, 10), 'float32')
+    np.add.at(want, rows.numpy(), vals.numpy())
+    sr = SelectedRows(vals, rows.to(torch.int32), 500)
+    for _ in range(4):
+        assert np.array_equal(sr.to_dense().numpy(), want)
+        got = scatter_add_rows(torch.zeros(500, 10), rows, vals)
+        assert np.array_equal(got.numpy(), want)
+    merged = [_merged(sr, torch.float32)[1] for _ in range(4)]
+    assert all(torch.equal(m, merged[0]) for m in merged)

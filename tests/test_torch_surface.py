@@ -709,8 +709,8 @@ def _raises_naming(item, fn):
         fn()
 
 
-# (ROADMAP.md Queue 1 item, call): host-side distribution is item 7,
-# meshes item 8, the profiler item 9
+# (ROADMAP.md Queue 1 item, call): meshes are item 8; host-side
+# distribution (item 7) and the profiler (item 9) are ported
 NOT_PORTED = {
     'pp_stages': (8, lambda: __import__(
         'paddle_tpu_torch.models.transformer', fromlist=['x'])
@@ -721,8 +721,6 @@ NOT_PORTED = {
     'ring_attention_layer': (8, lambda: tfluid.parallel.layers
                              .ring_attention(None, None, None)),
     'sharded_checkpoint': (8, lambda: tfluid.CheckpointConfig(sharded=True)),
-    'pserver_checkpoint': (7, lambda: tfluid.CheckpointConfig(
-        pserver_endpoints=['127.0.0.1:1'])),
     'trainer_strategy': (8, lambda: tfluid.Trainer(None, None,
                                                    strategy=object())),
     'collective_audit': (8, lambda: tfluid.profiler.collective_audit([])),
@@ -737,17 +735,18 @@ def test_not_ported_messages_name_their_item(name):
 
 def test_not_ported_docs_name_their_item():
     """The module texts that send a reader to the ROADMAP name the item
-    that holds the work: host-side distribution 7, meshes 8; the
-    profiler (item 9) is ported, and obs and obs.report name no item."""
+    that holds the work: meshes 8; host-side distribution (item 7) and
+    the profiler (item 9) are ported, so distributed, resilience, trace,
+    obs and obs.report name no item, and the trainer only item 8."""
     import re
     from paddle_tpu_torch import (checkpoint, distributed, obs, profiler,
                                   trainer)
     from paddle_tpu_torch.distributed import resilience
     from paddle_tpu_torch.obs import report, trace
     from paddle_tpu_torch.parallel import layers as players
-    want = {distributed: {7}, resilience: {7}, trace: {7}, checkpoint: {8},
-            trainer: {7, 8}, obs: set(), report: set(), players: {8},
-            profiler: {8}}
+    want = {distributed: set(), resilience: set(), trace: set(),
+            checkpoint: {8}, trainer: {8}, obs: set(), report: set(),
+            players: {8}, profiler: {8}}
     for mod, items in want.items():
         text = open(mod.__file__).read()
         found = {int(n) for n in re.findall(r'Queue\s+1\s+item\s+(\d)',
@@ -768,20 +767,18 @@ ITEM6_TYPES = {
     'max_pool3d_with_index', 'pool3d', 'spp', 'unpool', 'auc',
     'chunk_eval', 'positive_negative_pair', 'precision_recall',
     'fake_quantize', 'fake_dequantize_max_abs', 'moe_ffn', 'moe_aux_loss'}
-# what is left: item 7's host-side distribution, item 8's ring attention
-LEFT_TYPES = {'checkpoint_notify', 'fetch_barrier', 'listen_and_serv',
-              'merge_ids', 'prefetch', 'recv', 'send', 'send_barrier',
-              'slice_rows', 'split_ids', 'split_selected_rows',
-              'ring_attention'}
-LEFT_LAYERS = {'Recv', 'Send'}
+# what is left: item 8's ring attention (item 7's host-side
+# distribution is ported)
+LEFT_TYPES = {'ring_attention'}
+LEFT_LAYERS = set()
 
 
 def test_item6_op_types_and_layers_exist_as_in_jax():
     """Item 6's 34 op types are registered, each with a grad exactly
     where the JAX package has one and with its host and no_grad flags;
-    the port has 260 of the JAX package's 272 non-grad op types and 243
-    of its 245 layer names (since item 7's file readers), the rest items
-    7 and 8's."""
+    the port has 271 of the JAX package's 272 non-grad op types and all
+    245 of its layer names (since item 7's parameter-server ops and
+    Send/Recv), the one left item 8's."""
     from paddle_tpu import registry as jregistry
     from paddle_tpu_torch import registry as tregistry
     for t in ITEM6_TYPES:
@@ -793,13 +790,13 @@ def test_item6_op_types_and_layers_exist_as_in_jax():
     def op_types(reg):
         return {t for t in reg._REGISTRY if not t.endswith('_grad')}
     jtypes, ttypes = op_types(jregistry), op_types(tregistry)
-    assert len(jtypes) == 272 and len(jtypes & ttypes) == 260
+    assert len(jtypes) == 272 and len(jtypes & ttypes) == 271
     assert jtypes - ttypes == LEFT_TYPES
 
     def public(mod):
         return {n for n in dir(mod) if not n.startswith('_')}
     jl, tl = public(jfluid.layers), public(tfluid.layers)
-    assert len(jl) == 245 and len(jl & tl) == 243
+    assert len(jl) == 245 and len(jl & tl) == 245
     assert jl - tl == LEFT_LAYERS
     from paddle_tpu.layers import nn_extra as jnn_extra
     assert set(jnn_extra.__all__) <= tl

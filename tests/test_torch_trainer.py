@@ -408,12 +408,18 @@ def test_inferencer_loads_both_packages_models(tmp_path):
 # -- what waits for later items ------------------------------------------------------
 
 def test_deferred_arguments_raise():
-    # ROADMAP Queue 1: meshes are item 8, host-side distribution item 7
+    # ROADMAP Queue 1: meshes are item 8; host-side distribution (item 7)
+    # is ported, so pserver_endpoints is kept as the JAX package keeps it
     with pytest.raises(NotImplementedError, match='item 8'):
         tfluid.CheckpointConfig(checkpoint_dir='x', sharded=True)
-    with pytest.raises(NotImplementedError, match='item 7'):
-        tfluid.CheckpointConfig(checkpoint_dir='x',
-                                pserver_endpoints=['127.0.0.1:1'])
+    cfg = tfluid.CheckpointConfig(checkpoint_dir='x',
+                                  pserver_endpoints=('127.0.0.1:1',),
+                                  trainer_id=1)
+    jcfg = jfluid.CheckpointConfig(checkpoint_dir='x',
+                                   pserver_endpoints=('127.0.0.1:1',),
+                                   trainer_id=1)
+    assert (cfg.pserver_endpoints, cfg.trainer_id) == \
+        (jcfg.pserver_endpoints, jcfg.trainer_id) == (['127.0.0.1:1'], 1)
     with pytest.raises(NotImplementedError, match='item 8'):
         tfluid.Trainer(fc_train_func(tfluid), optimizer_func(tfluid, 'adam'),
                        place=tfluid.CPUPlace(), strategy=object())
