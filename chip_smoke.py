@@ -287,9 +287,10 @@ from the synthetic datasets, and the small one-device modules:
       decorate_paddle_reader) and word2vec (imikolov N=5, embedding 32):
       BK3_STEPS steps each, the loss falling;
   (mo1) memory_optimize on bk1's program: MO1_STEPS captured steps the
-      same bits and peak allocated memory no higher (each arm measured
-      on its fresh executor's second pass, so the stream's cuBLAS
-      workspace counts in neither); release_memory on
+      same bits and a peak of requested memory no higher (the bytes the
+      steps ask for, which the caching allocator's history does not
+      change; each arm measured on its fresh executor's second pass, so
+      the stream's cuBLAS workspace counts in neither); release_memory on
       fit_a_line: the same losses, its delete_var host steps splitting
       the block into more captured segments; a layers.Print of a feed
       and of an fc's output: the JAX package's text on stderr
@@ -553,6 +554,50 @@ and every child is killed however the phase ends:
       CPU), every table row a batch touched changed and every row no
       batch touched the same bits on its pserver, the losses fall; step,
       prefetch and the rows a step on the wire are logged.
+
+Three phases serve from processes of their own, last (after v6 and o2,
+which hold c1's model in this process), each process
+started fresh (never forked from this one), replicas through the entry
+point users run, `python -m paddle_tpu_torch.tools.serve_replica`, each
+waited on by its READY line:
+  (on1) tests/test_online.py's cluster at the LM's width: ps1's program
+      (PS1['layers'] layers, sync SGD 1e-3) trained ON_ROUNDS rounds by
+      one trainer on the card with 2 pservers on the host (the same
+      `--ps-worker <role> <index>` roles), while one serving process on the
+      card runs an LMServer with enable_refresh(pservers): it installs
+      version ON_ROUNDS, every parameter it serves has the digest of the
+      trainer's pull after the last round, one process did it all
+      (weight_swaps >= 1, no refresh failure), and its streams after the
+      refresh are held to a fresh LMServer on that round's values by the
+      margin rule; the trainer launched K1 fp32 and K2 fp32 2 a round,
+      the serving process K1 fp32, and neither a plain flash call; the
+      refresh latency, bytes and MB/s are logged;
+  (fl1) c1's saved model (full width and depth, fp32) in 2 dense
+      replicas behind a FleetRouter in this process: FL1_STREAMS streams
+      of FL1_NEW_TOKENS over FL1_SESSIONS sessions while replica 1 exits
+      at its FL1_KILL_POLL-th SRV_POLL (a FLAGS_fault_plan exit rule):
+      every stream DONE, failovers >= 1, every stream held by the margin
+      rule to its prompt served alone by an in-process LMServer over the
+      same bytes; then
+      a rolling deploy of version 1 (c1's weights plus a seeded
+      perturbation, published by a ParameterService in this process) to
+      2 fresh replicas with paused subscribers under live traffic: no
+      stream dropped, each replica's digests the manifest's, the streams
+      after it held to solo streams of the in-process server on version
+      1; each clean
+      replica's K1 fp32 launches (its LAUNCHES line at exit) > 0 with no
+      plain flash call; tokens/s, TTFT, the failover's and each deploy's
+      time (from the router's fleet.drain spans) are logged;
+  (fl2) a prefill replica and 2 paged decode replicas: the pages shipped
+      for a SYSTEM_PROMPT-token system prompt held to the rows this
+      process's own paged server exports for it (bit-equal, else within
+      RECOMPUTE_TOL), the prefix prefilled once on the prefill tier for
+      4 fetches, then two bursts through the router's prefill tier,
+      the prefill replica exiting at its FL2_KILL_REPLY-th page reply
+      during the second: every stream DONE, local re-prefills >= 1,
+      every stream held by the margin rule to its prompt served alone by
+      this process's paged server, no kernel launched on the decode
+      replicas; the bytes shipped and the ship time are logged.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line and a sequences
@@ -7578,16 +7623,21 @@ class BookRun(object):
 def _book_run(run, saved, feeds, sync, eager, names):
     """From `saved`, one step per feed; returns the losses, the ms per
     step after the first two (the warm-up and the capture), the values
-    of `names` after the steps and the peak allocated device memory
-    above what was allocated when the run began (after a collection)."""
+    of `names` after the steps and the peak device memory above what was
+    held when the run began (after a collection): allocated (`peak_gb`,
+    the caching allocator's blocks) and requested (`requested_gb`, the
+    bytes the program asked for, which the allocator's history does not
+    round up)."""
     import torch
     run.restore(saved)
     on_card = run.place.device.type == 'cuda'
-    base = 0
+    base = base_req = 0
     if on_card:
         sync()
         free_device_memory()
         base = torch.cuda.memory_allocated()
+        base_req = torch.cuda.memory_stats().get(
+            'requested_bytes.all.current', 0)
         torch.cuda.reset_peak_memory_stats()
     losses, t0 = [], None
     for i, feed in enumerate(feeds):
@@ -7599,9 +7649,13 @@ def _book_run(run, saved, feeds, sync, eager, names):
     timed = len(feeds) - min(2, len(feeds) - 1)
     ms = (time.perf_counter() - t0) / timed * 1e3
     state = {n: run.scope.find_var(n).clone() for n in names}
-    peak = (torch.cuda.max_memory_allocated() - base) / 1e9 \
-        if on_card else 0.0
-    return dict(losses=losses, ms=ms, state=state, peak_gb=peak)
+    peak = req = 0.0
+    if on_card:
+        peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        req = (torch.cuda.memory_stats()['requested_bytes.all.peak']
+               - base_req) / 1e9
+    return dict(losses=losses, ms=ms, state=state, peak_gb=peak,
+                requested_gb=req)
 
 
 @contextlib.contextmanager
@@ -8045,13 +8099,20 @@ def memory_modules(bk1, place, sync):
     a, b = runs['plain'], runs['memory_optimize']
     bits = a['losses'] == b['losses'] and all(
         bool((a['state'][n] == b['state'][n]).all()) for n in names)
+    # the peak held is the program's requested bytes: the allocated
+    # peak also counts how the caching allocator rounds and reuses its
+    # blocks, which earlier phases' allocations change (one program read
+    # 0.5654 GB allocated in one arm and 0.5638 GB in the other after the
+    # fleet phases had loaded and freed c1's model in this process)
     log('mo1 memory_optimize: %d captured steps the same bits %s; peak '
-        'allocated over the run\'s start %.4f GB with it, %.4f GB without'
-        % (len(feeds), bits, b['peak_gb'], a['peak_gb']))
-    if not bits or b['peak_gb'] > a['peak_gb']:
+        'requested over the run\'s start %.6f GB with it, %.6f GB without '
+        '(allocated %.4f GB and %.4f GB)'
+        % (len(feeds), bits, b['requested_gb'], a['requested_gb'],
+           b['peak_gb'], a['peak_gb']))
+    if not bits or b['requested_gb'] > a['requested_gb']:
         raise AssertionError('memory_optimize changed the steps (bits %s) '
                              'or raised the peak' % bits)
-    out['memory_optimize'] = (a['peak_gb'], b['peak_gb'])
+    out['memory_optimize'] = (a['requested_gb'], b['requested_gb'])
 
     fits = {}
     for label in ('plain', 'release_memory'):
@@ -11517,23 +11578,29 @@ def _ps_local(phase, spec, place, dist_scope, params, initial, batches,
 
 
 def ps_worker_main(role, index):
-    """`chip_smoke.py --ps-worker <role> <index>`: one role of a ps1 or
-    ps2 cluster (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT, PSW_SPEC,
+    """`chip_smoke.py --ps-worker <role> <index>`: one role of a ps1, ps2
+    or on1 cluster (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT, PSW_SPEC,
     PSW_PLACE); its result goes to PSW_OUT/<role><index>.json."""
     import torch
     import paddle_tpu_torch as fluid
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     phase, eps = os.environ['PSW_PHASE'], os.environ['PSW_ENDPOINTS']
+    work = os.environ['PSW_OUT']
     spec = json.loads(os.environ.get('PSW_SPEC') or '{}')
     if role == 'pserver':
-        out = ps_pserver(phase, index, eps, spec)
+        out = on_pserver(index, eps, spec) if phase == 'on1' else \
+            ps_pserver(phase, index, eps, spec)
     else:
         place = fluid.CPUPlace() if os.environ.get('PSW_PLACE') == 'cpu' \
             else fluid.CUDAPlace(0)
-        out = ps_trainer(phase, index, eps, spec, place)
-    with open(os.path.join(os.environ['PSW_OUT'],
-                           '%s%d.json' % (role, index)), 'w') as f:
+        if phase != 'on1':
+            out = ps_trainer(phase, index, eps, spec, place)
+        elif role == 'trainer':
+            out = on_trainer(eps, spec, place, work)
+        else:
+            out = on_serving(eps, spec, place, work)
+    with open(os.path.join(work, '%s%d.json' % (role, index)), 'w') as f:
         json.dump(out, f)
     return 0
 
@@ -11551,20 +11618,25 @@ def _free_ports(n):
     return ports
 
 
-def run_ps_cluster(phase, work_dir, spec=None, place_name='cuda'):
-    """PS_PSERVERS pservers and PS_TRAINERS trainers of `phase` as
-    subprocesses of this script on free localhost ports (the trainers on
-    the card, the pservers on its host); returns {role<i>: result}.
-    A role that fails or outlives PS_TIMEOUT fails the phase; every
-    child is killed however this ends."""
+def run_ps_cluster(phase, work_dir, spec=None, place_name='cuda',
+                   roles=None):
+    """The (role, index) pairs of `phase` (by default PS_PSERVERS
+    pservers and PS_TRAINERS trainers) as subprocesses of this script
+    (`--ps-worker <role> <index>`) on free localhost ports, each with its
+    output in work_dir/<role><index>.log (the pservers on the host, the
+    other roles on the card); returns {role<i>: result}. A role that
+    fails or outlives PS_TIMEOUT fails the phase with the logs' tails;
+    every child is killed however this ends."""
     eps = ','.join('127.0.0.1:%d' % p for p in _free_ports(PS_PSERVERS))
     env = dict(os.environ, PSW_PHASE=phase, PSW_ENDPOINTS=eps,
                PSW_OUT=work_dir, PSW_SPEC=json.dumps(spec or {}),
                PSW_PLACE=place_name)
-    roles = [('pserver', i) for i in range(PS_PSERVERS)] + \
+    if place_name == 'cpu':
+        # a rehearsal's roles share the host's cores
+        env.setdefault('OMP_NUM_THREADS', '1')
+    roles = roles or [('pserver', i) for i in range(PS_PSERVERS)] + \
         [('trainer', i) for i in range(PS_TRAINERS)]
-    procs = {}
-    logs = {}
+    procs, logs = {}, {}
     deadline = time.monotonic() + PS_TIMEOUT
     try:
         for role, i in roles:
@@ -11576,22 +11648,16 @@ def run_ps_cluster(phase, work_dir, spec=None, place_name='cuda'):
                      '--ps-worker', role, str(i)],
                     env=env, cwd=HERE, stdout=lf, stderr=subprocess.STDOUT)
         while any(p.poll() is None for p in procs.values()):
-            bad = [n for n, p in procs.items()
-                   if p.poll() not in (None, 0)]
-            if bad or time.monotonic() > deadline:
-                raise AssertionError(
-                    '%s: %s\n%s' % (phase, 'roles %s failed' % bad if bad
-                                    else 'timed out after %d s' % PS_TIMEOUT,
-                                    '\n'.join('--- %s:\n%s' % (
-                                        n, open(logs[n], errors='replace')
-                                        .read()[-3000:]) for n in
-                                        (bad or sorted(procs)))))
-            time.sleep(0.1)
-        bad = [n for n, p in procs.items() if p.returncode != 0]
+            if any(p.poll() not in (None, 0) for p in procs.values()) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.05)
+        bad = [n for n, p in procs.items() if p.poll() != 0]
         if bad:
-            raise AssertionError('%s: roles %s failed\n%s' % (
-                phase, bad, '\n'.join(open(logs[n], errors='replace')
-                                      .read()[-3000:] for n in bad)))
+            raise AssertionError('%s: roles %s failed or timed out after %d '
+                                 's\n%s' % (phase, bad, PS_TIMEOUT, '\n'.join(
+                                     '--- %s:\n%s' % (n, _tail(logs[n]))
+                                     for n in bad)))
     finally:
         for p in procs.values():
             if p.poll() is None:
@@ -11602,6 +11668,14 @@ def run_ps_cluster(phase, work_dir, spec=None, place_name='cuda'):
         with open(os.path.join(work_dir, name + '.json')) as f:
             out[name] = json.load(f)
     return out
+
+
+def _tail(path, n=3000):
+    try:
+        with open(path, errors='replace') as f:
+            return f.read()[-n:]
+    except OSError as e:
+        return '(no log: %s)' % e
 
 
 def _ps_common_checks(phase, res):
@@ -11691,21 +11765,13 @@ def ps_lm_steps(work_root, spec=None, place_name='cuda'):
     launches = {'K1': 0, 'K2': 0}
     for i in range(PS_TRAINERS):
         r = res['trainer%d' % i]
-        k1 = r['launches'][KERNELS['fwd'][0]]
-        k2 = r['launches'][KERNELS['k2'][0]]
-        if place_name == 'cuda' and (k1 != layers * PS_STEPS or
-                                     k2 != layers * PS_STEPS or r['plain']):
-            raise AssertionError(
-                'ps1: trainer %d launched K1 %d and K2 %d times in %d steps '
-                'with %d plain flash calls; want %d, %d and 0'
-                % (i, k1, k2, PS_STEPS, r['plain'], layers * PS_STEPS,
-                   layers * PS_STEPS))
-        others = [n for n, c in r['launches'].items()
-                  if c and n not in (KERNELS['fwd'][0], KERNELS['k2'][0])]
-        if others:
-            raise AssertionError('ps1: trainer %d launched %s' % (i, others))
-        launches['K1'] += k1
-        launches['K2'] += k2
+        _check_flash_launches(
+            'ps1: trainer %d in %d steps' % (i, PS_STEPS),
+            dict(r['launches'], plain_cuda_calls=r['plain']),
+            {KERNELS['fwd'][0]: layers * PS_STEPS,
+             KERNELS['k2'][0]: layers * PS_STEPS}, place_name)
+        launches['K1'] += r['launches'][KERNELS['fwd'][0]]
+        launches['K2'] += r['launches'][KERNELS['k2'][0]]
     r0 = res['trainer0']
     parts = r0['parts']
     mb = r0['param_bytes'] / 1e6
@@ -11799,6 +11865,953 @@ def ps_deepfm_steps(work_root, spec=None, place_name='cuda'):
                 round_ms=rounds, rows=per_step, losses=r0['losses'])
 
 
+# -- on1, fl1, fl2: online refresh and fleet serving --------------------------
+
+# on1: tests/test_online.py's trainer x pserver x serving cluster at the
+# flagship LM's width, cut to PS1['layers'] layers as ps1 is: one trainer
+# on the card and PS_PSERVERS pservers on the host train ps1's program
+# (sync SGD PS1['lr'], batch PS1['batch']) for ON_ROUNDS rounds while one
+# serving process on the card runs an LMServer over the same weights with
+# enable_refresh(pserver endpoints) and tracks the published versions
+ON_ROUNDS = 3
+ON_PROMPTS, ON_NEW_TOKENS = 4, 16
+ON_POLL_SECS = 0.1
+FLEET_TIMEOUT = 300     # seconds a cluster, a replica start or a wait may take
+# fl1: c1's saved model (MODEL: full width and depth, fp32) served by
+# replica processes (`python -m paddle_tpu_torch.tools.serve_replica`, a
+# dense LMServer on the card each) behind a FleetRouter in this process.
+# Failover: FL1_STREAMS seeded streams of FL1_NEW_TOKENS over FL1_SESSIONS
+# sessions on 2 replicas; replica 1 exits at its FL1_KILL_POLL-th SRV_POLL
+# (a FLAGS_fault_plan exit rule, as tools/chaos_sweep.py --fleet plants
+# it): the router polls each replica once a FLAGS_fleet_poll_secs tick, so
+# the rule fires a few hundred ms into the burst, with every stream live
+# (8 a replica, 64 tokens each). Rolling deploy: 2 fresh replicas with
+# paused subscribers on a ParameterService in this process that hosts c1's
+# parameters; version 1 is c1's weights plus FL1_PERTURB x N(0, 1) from
+# the seed, deployed under FL1_DEPLOY_STREAMS streams of live traffic
+FL1_STREAMS, FL1_NEW_TOKENS, FL1_SESSIONS = 16, 64, 8
+FL1_KILL_POLL = 30
+FL1_PERTURB = 2e-3
+FL1_DEPLOY_STREAMS, FL1_DEPLOY_TOKENS = 8, 32
+# fl2: one prefill replica and 2 paged decode replicas (16-token pages,
+# the auto pool), all on the card; every other stream opens with one of
+# two SYSTEM_PROMPT-token system prompts and a suffix shorter than a page,
+# so its shippable chain is the system prompt's 16 pages. The prefill
+# replica exits at its FL2_KILL_REPLY-th SRV_PAGES reply: the first fetch
+# of the second system prompt (replies 1-2 are this script's own fetches,
+# 3-4 the decode replicas' warm-up ships of the first)
+FL2_STREAMS = 8             # a burst; two bursts
+FL2_KILL_REPLY = 5
+
+
+def on_serving_program(spec):
+    """on1's serving program: language_model_logits over ps1's config on
+    one fed sequence; its parameter names are the trainer program's."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tfm
+    cfg = ps_lm_cfg(spec)
+    prog, startup = fluid.Program(), fluid.Program()
+    prog.random_seed = startup.random_seed = spec.get('seed', SEED) + 51
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        toks = fluid.layers.data(name='tokens', shape=[1, cfg.max_len, 1],
+                                 dtype='int64', append_batch_size=False)
+        logits = tfm.language_model_logits(toks, cfg)
+    return prog, startup, logits
+
+
+def _on_transpiled(spec, eps):
+    import paddle_tpu_torch as fluid
+    main, startup, loss, batches = ps_lm_program(spec)
+    t = fluid.DistributeTranspiler()
+    t.transpile(0, program=main, pservers=eps, trainers=1, sync_mode=True,
+                startup_program=startup)
+    return t, loss, batches
+
+
+def _wire_digest(value):
+    from paddle_tpu_torch.distributed import wire
+    from paddle_tpu_torch.integrity import crc32
+    return crc32(wire._payload_of(value)[1])
+
+
+def _wait_file(path, timeout=FLEET_TIMEOUT):
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise AssertionError('timed out waiting for %s' % path)
+        time.sleep(0.05)
+
+
+def on_pserver(index, eps, spec):
+    """One pserver on the host: listen_and_serv until the trainer
+    completes (the service publishes a version a closed round). With
+    spec['plant'] == 'digest' it stamps one parameter's digest wrong: a
+    sound subscriber then refuses every pull of that shard."""
+    import paddle_tpu_torch as fluid
+    if spec.get('plant') == 'digest':
+        from paddle_tpu_torch.distributed import param_service
+        orig = param_service.ParameterService._manifest_locked
+
+        def bad(self):
+            out = dict(orig(self))
+            name = sorted(out)[0]
+            out[name] ^= 1
+            return out
+        param_service.ParameterService._manifest_locked = bad
+    t, _, _ = _on_transpiled(spec, eps)
+    main, startup = t.get_pserver_programs(eps.split(',')[index])
+    exe = fluid.Executor(fluid.CPUPlace())
+    scope = fluid.Scope()
+    exe.run(startup, scope=scope)
+    exe.run(main, scope=scope)
+    return {}
+
+
+def on_trainer(eps, spec, place, work):
+    """The trainer on `place`: ON_ROUNDS sync rounds of ps1's program on
+    batch PS1['batch'], then each parameter's digest as pulled after the
+    last round (the pservers' version ON_ROUNDS) and its values for the
+    serving side's reference, and the flash kernels' launches of the
+    rounds; COMPLETE only once serving is done."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.tools.serve_replica import launch_counts
+    t, loss, batches = _on_transpiled(spec, eps)
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    exe.run(t.get_trainer_startup_program(), scope=scope)
+    prog = t.get_trainer_program()
+    per = spec.get('batch', PS1['batch'])
+    losses, step_ms = [], []
+    # the rounds start once the serving process subscribes
+    _wait_file(os.path.join(work, 'SERVING_SUBSCRIBED'))
+    for step in range(ON_ROUNDS):
+        feed = {k: v[:per] for k, v in batches[step].items()}
+        t0 = time.perf_counter()
+        losses.append(float(exe.run(prog, feed=feed, fetch_list=[loss],
+                                    scope=scope)[0]))
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+    params = [p.name for p in t.origin_program.global_block()
+              .all_parameters() if scope.find_var(p.name) is not None]
+    digests = {p: _wire_digest(scope.find_var(p)) for p in params}
+    torch.save({p: scope.find_var(p).cpu() for p in params},
+               os.path.join(work, 'round%d.pt' % ON_ROUNDS))
+    with open(os.path.join(work, 'TRAINER_DONE'), 'w') as f:
+        f.write('done')
+    _wait_file(os.path.join(work, 'SERVING_DONE'))
+    exe.close()                 # COMPLETE to both pservers
+    return dict(losses=losses, step_ms=step_ms, digests=digests,
+                launches=launch_counts())
+
+
+def on_serving(eps, spec, place, work):
+    """The serving process on `place`: its own model directory from the
+    serving program's startup (other weights than the trainer's), an
+    LMServer over it, streams before; enable_refresh(pservers) and wait
+    for version ON_ROUNDS (failing on the first refresh failure); streams
+    after, the installed parameters' digests and the server's stats, then
+    the same streams from a fresh LMServer whose weights are the trainer's
+    round-ON_ROUNDS values, read from its file; the flash kernels'
+    launches of all of it."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.obs import telemetry
+    from paddle_tpu_torch.tools.serve_replica import launch_counts
+    prog, startup, logits = on_serving_program(spec)
+    model_dir = os.path.join(work, 'serving_model')
+    exe = fluid.Executor(place)
+    scope = fluid.Scope()
+    with fluid.scope_guard(scope):
+        exe.run(startup)
+        fluid.io.save_inference_model(model_dir, ['tokens'], [logits], exe,
+                                      main_program=prog)
+    del scope
+    cfg = ps_lm_cfg(spec)
+    prompts = seeded_prompts(
+        SEED + 52, np.linspace(8, spec.get('max_prompt', 64), ON_PROMPTS),
+        cfg.vocab)
+    new = spec.get('new_tokens', ON_NEW_TOKENS)
+
+    def server(weights=None):
+        pred = fluid.inference.AnalysisPredictor(
+            fluid.inference.AnalysisConfig(model_dir, place=place))
+        if weights is not None:
+            for n, v in weights.items():
+                pred._scope.find_var(n).copy_(v)
+        dec = pred.prepare_decoding(slots=ON_PROMPTS, prefill_batch=1)
+        return dec, fluid.serving.LMServer(dec)
+
+    def streams(srv):
+        hs = [srv.submit(p, max_new_tokens=new) for p in prompts]
+        return [srv.result(h, timeout=FLEET_TIMEOUT) for h in hs]
+    telemetry.enable()
+    _, srv = server()
+    try:
+        before = streams(srv)
+        t0 = time.perf_counter()
+        sub = srv.enable_refresh(eps.split(','), poll_secs=ON_POLL_SECS)
+        with open(os.path.join(work, 'SERVING_SUBSCRIBED'), 'w') as f:
+            f.write('subscribed')
+        deadline = time.monotonic() + spec.get('refresh_timeout',
+                                               FLEET_TIMEOUT)
+        while sub.installed_version < ON_ROUNDS:
+            if sub.failures or time.monotonic() > deadline:
+                raise AssertionError(
+                    'on1: refresh stopped at version %d of %d: %r'
+                    % (sub.installed_version, ON_ROUNDS, sub.stats()))
+            time.sleep(0.02)
+        track_s = time.perf_counter() - t0
+        after = streams(srv)
+        digests = srv.param_digests()
+        stats = srv.stats()
+        snap = telemetry.snapshot()
+    finally:
+        with open(os.path.join(work, 'SERVING_DONE'), 'w') as f:
+            f.write('done')
+        srv.close()
+    _wait_file(os.path.join(work, 'TRAINER_DONE'))
+    weights = torch.load(os.path.join(work, 'round%d.pt' % ON_ROUNDS))
+    served = set(digests)
+    ref_dec, ref = server({n: v for n, v in weights.items() if n in served})
+    with ref:
+        refs = streams(ref)
+    held = hold_streams('on1: streams after the refresh vs a fresh '
+                        'LMServer on round %d\'s values' % ON_ROUNDS,
+                        prompts, refs, after, ref_dec)
+    lat = snap['hists']['online.refresh_latency']
+    nbytes = snap['hists']['online.refresh_bytes']
+    return dict(installed=sub.installed_version, digests=digests,
+                weight_swaps=stats['weight_swaps'],
+                refreshes=stats['refreshes'],
+                refresh_failures=stats['refresh_failures'],
+                param_version=stats['param_version'],
+                before=before, after=after, equal=held['equal'],
+                ties=held['ties'], track_s=track_s,
+                refresh_s=[lat['count'], lat['sum'], lat['max']],
+                refresh_bytes=[nbytes['count'], nbytes['sum']],
+                launches=launch_counts())
+
+
+@phase('on1: online refresh (1 trainer on the card x 2 pservers on the '
+       'host, sync SGD; one serving process on the card tracks the '
+       'published versions with LMServer.enable_refresh)')
+def online_refresh(work_root, spec=None, place_name='cuda'):
+    """tests/test_online.py:671's cluster at the LM's width: the serving
+    process installs version ON_ROUNDS; every parameter it serves has
+    the digest of the trainer's pull after the last round, byte for
+    byte; one serving process did it all (weight_swaps >= 1, no refresh
+    failure); its streams after the refresh are held to a fresh
+    LMServer on round ON_ROUNDS's values by the margin rule. The trainer
+    starts its rounds once the server has subscribed, so the server
+    follows them as they close. Logs the refresh latency, the bytes
+    pulled and MB/s."""
+    spec = spec or {}
+    t0 = time.perf_counter()
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    res = run_ps_cluster('on1', work, spec, place_name, roles=[
+        ('pserver', i) for i in range(PS_PSERVERS)] + [('trainer', 0),
+                                                       ('serving', 0)])
+    tr, sv = res['trainer0'], res['serving0']
+    if sv['installed'] != ON_ROUNDS or sv['param_version'] != ON_ROUNDS:
+        raise AssertionError('on1: installed version %r (stats %r), want %d'
+                             % (sv['installed'], sv['param_version'],
+                                ON_ROUNDS))
+    if not sv['digests']:
+        raise AssertionError('on1: the server reports no parameter')
+    bad = sorted(n for n, d in sv['digests'].items()
+                 if tr['digests'].get(n) != d)
+    if bad:
+        raise AssertionError('on1: served %s differ from the trainer\'s '
+                             'version-%d bytes' % (bad[:8], ON_ROUNDS))
+    if sv['weight_swaps'] < 1 or sv['refresh_failures'] != 0:
+        raise AssertionError('on1: weight_swaps %d, refresh_failures %d; '
+                             'want >= 1 and 0' % (sv['weight_swaps'],
+                                                  sv['refresh_failures']))
+    if not all(np.isfinite(tr['losses'])):
+        raise AssertionError('on1: losses %s' % tr['losses'])
+    rounds = ps_lm_cfg(spec).layers * ON_ROUNDS
+    _check_flash_launches('on1: the trainer', tr['launches'], {
+        KERNELS['fwd'][0]: rounds, KERNELS['k2'][0]: rounds}, place_name)
+    _check_flash_launches('on1: the serving process', sv['launches'],
+                          {KERNELS['fwd'][0]: None}, place_name)
+    n, lat, lat_max = sv['refresh_s']
+    nb = sv['refresh_bytes'][1]
+    wall = time.perf_counter() - t0
+    log('on1: %d parameters served, every digest equal to the trainer\'s '
+        'pull after round %d; %d refreshes (version %d), %d weight swaps, '
+        '0 failures, in one serving process; from enable_refresh to version '
+        '%d %.3f s; a refresh %.3f s on average (the longest %.3f s), %.1f '
+        'MB pulled, %.1f MB/s; trainer step ms %s, losses %s; streams after '
+        'the refresh vs the fresh server: %d of %d equal (bit-exact %s); '
+        'K1 fp32 launches %d in the trainer and %d in the serving process, '
+        'K2 %d in the trainer, plain flash calls 0; %.1f s'
+        % (len(sv['digests']), ON_ROUNDS, sv['refreshes'], sv['installed'],
+           sv['weight_swaps'], ON_ROUNDS, sv['track_s'], lat / max(n, 1),
+           lat_max, nb / 1e6, nb / 1e6 / max(lat, 1e-9),
+           ' '.join('%.1f' % x for x in tr['step_ms']),
+           ' '.join('%.6f' % x for x in tr['losses']), sv['equal'],
+           ON_PROMPTS, sv['equal'] == ON_PROMPTS,
+           tr['launches'][KERNELS['fwd'][0]],
+           sv['launches'][KERNELS['fwd'][0]],
+           tr['launches'][KERNELS['k2'][0]], wall))
+    return dict(seconds=wall, refreshes=sv['refreshes'],
+                refresh_s=lat / max(n, 1), mb=nb / 1e6 / max(n, 1),
+                mb_s=nb / 1e6 / max(lat, 1e-9), equal=sv['equal'],
+                track_s=sv['track_s'], n_params=len(sv['digests']),
+                launches={'K1': tr['launches'][KERNELS['fwd'][0]]
+                          + sv['launches'][KERNELS['fwd'][0]],
+                          'K2': tr['launches'][KERNELS['k2'][0]]})
+
+
+# -- replica processes --------------------------------------------------------
+
+def start_replicas(label, specs, work, model_dir, place_name,
+                   timeout=FLEET_TIMEOUT):
+    """Start one `python -m paddle_tpu_torch.tools.serve_replica` process
+    per (name, env overrides) of `specs`, all at once, each serving
+    `model_dir` on an ephemeral port, and wait for every READY line.
+    Returns {name: {'proc', 'ep', 'log'}}; a replica that exits or is not
+    ready within `timeout` fails `label` (every child is killed then)."""
+    reps = {}
+    try:
+        for name, extra in specs:
+            logp = os.path.join(work, name + '.log')
+            env = dict(os.environ, SERVE_MODEL_DIR=model_dir,
+                       SERVE_ENDPOINT='127.0.0.1:0',
+                       SERVE_PLACE='cpu' if place_name == 'cpu' else 'cuda')
+            if place_name == 'cpu':
+                # a rehearsal's replicas share the host's cores
+                env.setdefault('OMP_NUM_THREADS', '1')
+            env.update(extra)
+            with open(logp, 'wb') as lf:
+                proc = subprocess.Popen(
+                    [sys.executable, '-m',
+                     'paddle_tpu_torch.tools.serve_replica'],
+                    env=env, cwd=HERE, stdout=lf, stderr=subprocess.STDOUT)
+            reps[name] = {'proc': proc, 'ep': None, 'log': logp}
+        deadline = time.monotonic() + timeout
+        while any(r['ep'] is None for r in reps.values()):
+            for name, r in reps.items():
+                if r['ep'] is not None:
+                    continue
+                m = re.search(r'^READY (\d+)$', _tail(r['log'], 1 << 20),
+                              re.M)
+                if m:
+                    r['ep'] = '127.0.0.1:%s' % m.group(1)
+                elif r['proc'].poll() is not None or \
+                        time.monotonic() > deadline:
+                    raise AssertionError('%s: replica %s %s\n%s' % (
+                        label, name, 'exited %s' % r['proc'].returncode
+                        if r['proc'].poll() is not None else
+                        'not ready after %d s' % timeout, _tail(r['log'])))
+            time.sleep(0.05)
+    except BaseException:
+        stop_replicas(reps)
+        raise
+    return reps
+
+
+def stop_replicas(reps, timeout=60):
+    """COMPLETE every live replica (a clean exit 0 that prints its
+    LAUNCHES line), kill any that does not exit within `timeout`, and
+    return {name: (exit code, launch counts or None)}."""
+    from paddle_tpu_torch.distributed import wire
+    import socket
+    for r in reps.values():
+        if r['ep'] is None or r['proc'].poll() is not None:
+            continue
+        host, port = r['ep'].rsplit(':', 1)
+        try:
+            with socket.create_connection((host, int(port)),
+                                          timeout=5.0) as s:
+                s.settimeout(timeout)
+                wire.write_msg(s, wire.COMPLETE, {'seq': 0})
+                wire.read_msg(s)
+        except OSError:
+            pass
+    out = {}
+    for name, r in reps.items():
+        try:
+            r['proc'].wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            r['proc'].kill()
+            r['proc'].wait()
+        m = re.search(r'^LAUNCHES (\{.*\})$', _tail(r['log'], 1 << 20), re.M)
+        out[name] = (r['proc'].returncode,
+                     json.loads(m.group(1)) if m else None)
+    return out
+
+
+def _replica_call(ep, msg_type, meta=None, value=None, timeout=FLEET_TIMEOUT):
+    """One request to a replica on a connection of its own -> (reply
+    type, meta, value)."""
+    from paddle_tpu_torch.distributed import wire
+    import socket
+    host, port = ep.rsplit(':', 1)
+    with socket.create_connection((host, int(port)), timeout=10.0) as s:
+        s.settimeout(timeout)
+        wire.write_msg(s, msg_type, dict(meta or {}, seq=0), value)
+        return wire.read_msg(s)
+
+
+def warm_replica(ep, prompt, budget, extra=None, timeout=FLEET_TIMEOUT):
+    """One throwaway stream on a replica over a direct connection,
+    watched through SRV_HEALTH until the replica is idle (never SRV_POLL:
+    a fault rule counting SRV_POLLs keeps its count): the replica's
+    programs run once and are captured before the measured traffic."""
+    from paddle_tpu_torch.distributed import wire
+    meta = dict({'rid': 'warm%d' % len(prompt), 'mnt': int(budget)},
+                **(extra or {}))
+    rt, m, _ = _replica_call(ep, wire.SRV_SUBMIT, meta,
+                             np.asarray(prompt, np.int64))
+    if rt != wire.REPLY_OK:
+        raise AssertionError('warm-up submit to %s: %r' % (ep, m))
+    deadline = time.monotonic() + timeout
+    while True:
+        _, h, _ = _replica_call(ep, wire.SRV_HEALTH)
+        if not h.get('active') and not h.get('queue_depth'):
+            return h
+        if time.monotonic() > deadline:
+            raise AssertionError('warm-up of %s timed out' % ep)
+        time.sleep(0.02)
+
+
+def ship_warm(ep, prompt, peer, timeout=FLEET_TIMEOUT):
+    """One stream on a paged decode replica naming `peer` as its prefill
+    replica, as the router dispatches one (the replica ships the
+    prompt's pages from the peer, then decodes 2 tokens); polled to DONE
+    over SRV_POLL. Returns the replica's SRV_HEALTH after it."""
+    from paddle_tpu_torch.distributed import wire
+    rid = 'ship%d' % len(prompt)
+    rt, m, _ = _replica_call(ep, wire.SRV_SUBMIT,
+                             {'rid': rid, 'mnt': 2, 'prefill_from': peer},
+                             np.asarray(prompt, np.int64))
+    if rt != wire.REPLY_OK:
+        raise AssertionError('ship warm-up submit to %s: %r' % (ep, m))
+    deadline = time.monotonic() + timeout
+    while True:
+        st = _replica_call(ep, wire.SRV_POLL, {'rids': [rid]})[1][
+            'streams'][rid]
+        if st['state'] == 'DONE':
+            return _replica_call(ep, wire.SRV_HEALTH)[1]
+        if st['state'] not in ('QUEUED', 'RUNNING') or \
+                time.monotonic() > deadline:
+            raise AssertionError('ship warm-up on %s: %r' % (ep, st))
+        time.sleep(0.01)
+
+
+def _check_flash_launches(label, launches, want, place_name):
+    """On the card: of the flash wrappers' counts in `launches` (with
+    'plain_cuda_calls'), each named in `want` is its count there (None:
+    at least one), every other is 0, and no plain flash call ran."""
+    if place_name != 'cuda':
+        return
+    bad = launches['plain_cuda_calls'] != 0 or any(
+        c != want.get(n, 0) and not (n in want and want[n] is None and c > 0)
+        for n, c in launches.items() if n != 'plain_cuda_calls') or \
+        not set(want) <= set(launches)
+    if bad:
+        raise AssertionError(
+            '%s launched %s: want %s, no other flash kernel and no plain '
+            'flash call' % (label, launches, ', '.join(
+                '%s %s' % (n, '> 0' if c is None else c)
+                for n, c in sorted(want.items())) or 'none'))
+
+
+def _check_replica_launches(label, exits, names, place_name, flash):
+    """Each named replica exited 0 with its LAUNCHES line, and launched
+    the flash forward (flash=True: > 0 times) or no flash kernel at all
+    and no plain flash call on the card."""
+    out = {}
+    for name in names:
+        code, launches = exits[name]
+        if code != 0 or launches is None:
+            raise AssertionError('%s: replica %s exited %s without its '
+                                 'LAUNCHES line' % (label, name, code))
+        out[name] = launches
+        _check_flash_launches('%s: replica %s' % (label, name), launches,
+                              {KERNELS['fwd'][0]: None} if flash else {},
+                              place_name)
+    return out
+
+
+def _fleet_streams(label, reqs, budgets, timeout=FLEET_TIMEOUT):
+    """Wait for every FleetRequest: each DONE with its whole budget."""
+    for r, n in zip(reqs, budgets):
+        if not r.wait(timeout=timeout):
+            raise AssertionError('%s: request %d still %s after %d s'
+                                 % (label, r.id, r.state, timeout))
+        if r.state != 'DONE' or len(r.tokens) != n:
+            raise AssertionError('%s: request %d %s with %d of %d tokens '
+                                 '(%s)' % (label, r.id, r.state,
+                                           len(r.tokens), n, r.error))
+    return [list(r.tokens) for r in reqs]
+
+
+def _solo_streams(srv, prompts, budgets):
+    """Each prompt alone on `srv`: the next is submitted once the last
+    is done."""
+    return [srv.result(srv.submit(p, max_new_tokens=n), timeout=FLEET_TIMEOUT)
+            for p, n in zip(prompts, budgets)]
+
+
+def _deploy_parts(obs_dir, endpoints):
+    """{endpoint: seconds} of each replica's turn in a rolling deploy,
+    read from the router's trace under `obs_dir`: from its fleet.drain
+    span's start to the next replica's (the last: to the fleet.deploy
+    span's end), which covers its drain, refresh, health check and
+    rejoin."""
+    spans = []
+    for name in os.listdir(obs_dir):
+        with open(os.path.join(obs_dir, name)) as f:
+            spans += [e for e in map(json.loads, f) if e['type'] == 'span']
+    deploy = [e for e in spans if e['name'] == 'fleet.deploy']
+    drains = sorted((e['t0'], e['endpoint']) for e in spans
+                    if e['name'] == 'fleet.drain')
+    if len(deploy) != 1 or [ep for _, ep in drains] != list(endpoints):
+        raise AssertionError('the router traced %d deploys and drains of '
+                             '%s, want 1 and %s' % (
+                                 len(deploy), [ep for _, ep in drains],
+                                 list(endpoints)))
+    ends = [t for t, _ in drains[1:]] + [deploy[0]['t1']]
+    return {ep: t1 - t0 for (t0, ep), t1 in zip(drains, ends)}
+
+
+def _fl_place(place_name):
+    import paddle_tpu_torch as fluid
+    return fluid.CPUPlace() if place_name == 'cpu' else fluid.CUDAPlace(0)
+
+
+@phase('fl1: a fleet of dense replicas (2 replica processes on the card '
+       'behind a FleetRouter, one killed mid-stream; then a rolling '
+       'deploy of version 1 to 2 fresh replicas under live traffic)')
+def fleet_serving(model_dir, work_root, spec=None, place_name='cuda'):
+    """Failover: FL1_STREAMS streams over 2 replicas, replica 1 killed at
+    its FL1_KILL_POLL-th SRV_POLL: every stream DONE, failovers >= 1, and
+    every stream held by the margin rule to its prompt served alone by an
+    in-process LMServer over c1's bytes (re-prefill vs uninterrupted).
+    Rolling deploy: zero drops, each replica's param_digests() the
+    published manifest, and the streams after the deploy held to solo
+    streams of an in-process server on version 1. Each clean replica
+    launched K1 fp32 and never the plain version. Logs tokens/s, TTFT,
+    the failover and each replica's deploy (from the router's trace)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import wire
+    from paddle_tpu_torch.distributed.param_service import ParameterService
+    from paddle_tpu_torch.distributed.rpc import PSClient, PSServer
+    from paddle_tpu_torch.obs import trace
+    from paddle_tpu_torch.serving import FleetRouter
+    spec = spec or {}
+    t_phase = time.perf_counter()
+    place = _fl_place(place_name)
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    n_streams = spec.get('streams', FL1_STREAMS)
+    new = spec.get('new_tokens', FL1_NEW_TOKENS)
+    sessions = spec.get('sessions', FL1_SESSIONS)
+    slots = spec.get('slots', SLOTS)
+    kill = json.dumps({'rules': [{'when': 'recv', 'type': 'SRV_POLL',
+                                  'nth': spec.get('kill_poll', FL1_KILL_POLL),
+                                  'action': 'exit'}]})
+    params = {}
+    svc = ParameterService(num_trainers=1, sync_mode=True,
+                           get_param=lambda n: params[n],
+                           run_round=lambda merged: None, rpc_deadline=600.0,
+                           param_names=[])
+    ps = PSServer('127.0.0.1:0', svc)
+    ps_thread = threading.Thread(target=ps.serve_forever, daemon=True)
+    ps_thread.start()
+    ps_ep = '127.0.0.1:%d' % ps.port
+    base = {'SERVE_SLOTS': str(slots)}
+    deploy_env = dict(base, SERVE_PS_ENDPOINTS=ps_ep,
+                      FLAGS_online_pull_timeout='600')
+    t0 = time.perf_counter()
+    reps = start_replicas('fl1', [
+        ('r0', base), ('r1', dict(base, FLAGS_fault_plan=kill)),
+        ('d0', dict(deploy_env, SERVE_SUBSCRIBER_ID='1')),
+        ('d1', dict(deploy_env, SERVE_SUBSCRIBER_ID='2'))],
+        work, model_dir, place_name)
+    start_s = time.perf_counter() - t0
+    routers = []
+    try:
+        # the in-process reference over the same bytes, and the
+        # parameter service's copy of them (version 0)
+        pred = fluid.inference.AnalysisPredictor(
+            fluid.inference.AnalysisConfig(model_dir, place=place))
+        ref_dec = pred.prepare_decoding(slots=slots, prefill_batch=1)
+        names = ref_dec.param_names()
+        for n in names:
+            params[n] = ref_dec._weight_scope.find_var(n).detach().cpu()
+        svc.param_names = sorted(names)
+        vocab = ref_dec.vocab
+        warm = seeded_prompts(SEED + 60, [8], vocab)[0]
+        ths = [threading.Thread(target=warm_replica,
+                                 args=(r['ep'], warm, 4)) for r in
+               reps.values()]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+
+        # -- failover ---------------------------------------------------
+        prompts = seeded_prompts(
+            SEED + 61, np.linspace(16, spec.get('max_prompt', 200), n_streams),
+            vocab)
+        router = FleetRouter([reps['r0']['ep'], reps['r1']['ep']],
+                             probe_secs=0.05, probe_fail_threshold=2)
+        routers.append(router)
+        router.start()
+        router.wait_healthy(timeout=FLEET_TIMEOUT)
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, max_new_tokens=new, session=i % sessions)
+                for i, p in enumerate(prompts)]
+        # the failover's time: from the router's first failover to the
+        # first new token of the last stream it moved
+        fo = {}
+        while not all(r.wait(0) for r in reqs):
+            if 'at' not in fo and router.stats()['failovers']:
+                fo['at'] = time.perf_counter()
+                fo['moved'] = {r.id: len(r.tokens) for r in reqs
+                               if r.segment and not r.wait(0)}
+            if 'at' in fo and 'done' not in fo and all(
+                    len(r.tokens) > fo['moved'][r.id] or r.wait(0)
+                    for r in reqs if r.id in fo['moved']):
+                fo['done'] = time.perf_counter()
+            if time.perf_counter() - t0 > FLEET_TIMEOUT:
+                break
+            time.sleep(0.002)
+        gots = _fleet_streams('fl1 failover', reqs, [new] * n_streams)
+        wall = time.perf_counter() - t0
+        fst = router.stats()
+        router.stop()
+        if fst['failovers'] < 1:
+            raise AssertionError('fl1: no failover (stats %r): replica 1 '
+                                 'was not killed mid-stream' % (fst,))
+        if reps['r1']['proc'].wait(timeout=60) == 0:
+            raise AssertionError('fl1: replica 1 exited cleanly; its fault '
+                                 'rule did not fire')
+        ttft = sorted((r.first_token_at - r.submitted_at) * 1e3
+                      for r in reqs)
+        moved = sum(1 for r in reqs if r.segment)
+        with fluid.serving.LMServer(ref_dec) as srv:
+            refs = _solo_streams(srv, prompts, [new] * n_streams)
+        fo_held = hold_streams('fl1 failover: streams vs solo streams in '
+                               'process', prompts, refs, gots, ref_dec)
+
+        # -- rolling deploy of version 1 --------------------------------
+        gen = torch.Generator(device=ref_dec.device).manual_seed(SEED + 71)
+        for n in svc.param_names:
+            w = ref_dec._weight_scope.find_var(n)
+            params[n] = (w + FL1_PERTURB * torch.randn(
+                w.shape, generator=gen, device=w.device,
+                dtype=w.dtype)).cpu()
+        want = {n: _wire_digest(params[n]) for n in svc.param_names}
+        d_eps = [reps['d0']['ep'], reps['d1']['ep']]
+        router = FleetRouter(d_eps, probe_secs=0.05)
+        routers.append(router)
+        router.start()
+        router.wait_healthy(timeout=FLEET_TIMEOUT)
+        lens = np.linspace(16, spec.get('max_prompt', 96), FL1_DEPLOY_STREAMS)
+        live = seeded_prompts(SEED + 72, lens, vocab)
+        during, stop_traffic = [], threading.Event()
+
+        def traffic():
+            # one replica's slots of streams in flight at any time: the
+            # other replica is drained for its deploy
+            i = 0
+            while not stop_traffic.is_set():
+                if sum(not r.wait(0) for r in during) < slots:
+                    during.append(router.submit(
+                        live[i % len(live)],
+                        max_new_tokens=FL1_DEPLOY_TOKENS))
+                    i += 1
+                stop_traffic.wait(0.005)
+        feeder = threading.Thread(target=traffic, daemon=True)
+        feeder.start()
+        # the deploy starts once streams are live on both replicas
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while not all(router.stats()['replicas'][ep]['active']
+                      for ep in d_eps):
+            if time.monotonic() > deadline:
+                raise AssertionError('fl1: traffic never reached both '
+                                     'deploy replicas')
+            time.sleep(0.005)
+        svc.on_send_var('fl1@GRAD', 0, torch.zeros(1), seq=('fl1', 1))
+        svc.on_batch_barrier(0, seq=('fl1', 2))          # version 1
+        obs_dir = os.path.join(work, 'deploy_trace')
+        trace.enable(obs_dir, role='fl1')
+        t0 = time.perf_counter()
+        try:
+            out = router.rolling_deploy(min_version=1,
+                                        timeout=spec.get('deploy_timeout',
+                                                         FLEET_TIMEOUT))
+        finally:
+            trace.disable()
+        deploy_s = time.perf_counter() - t0
+        stop_traffic.set()
+        feeder.join(timeout=60)
+        if out != {ep: 1 for ep in d_eps}:
+            raise AssertionError('fl1: rolling_deploy returned %r' % (out,))
+        _fleet_streams('fl1 deploy traffic', during,
+                       [FL1_DEPLOY_TOKENS] * len(during))
+        post = seeded_prompts(SEED + 73, lens, vocab)
+        after = [router.submit(p, max_new_tokens=FL1_DEPLOY_TOKENS)
+                 for p in post]
+        after = _fleet_streams('fl1 after the deploy', after,
+                               [FL1_DEPLOY_TOKENS] * len(post))
+        dst = router.stats()
+        if dst['failed'] or dst['shed']:
+            raise AssertionError('fl1: the deploy dropped streams: %r'
+                                 % (dst,))
+        for name in ('d0', 'd1'):
+            _, h, _ = _replica_call(reps[name]['ep'], wire.SRV_HEALTH,
+                                    {'digests': True})
+            bad = sorted(n for n in want if h['digests'].get(n) != want[n])
+            if bad or set(h['digests']) != set(want) or \
+                    h['param_version'] != 1:
+                raise AssertionError(
+                    'fl1: replica %s (version %r) serves %s not as '
+                    'published' % (name, h['param_version'],
+                                   bad[:8] or sorted(set(h['digests'])
+                                                     ^ set(want))[:8]))
+        router.stop()
+        deploy_each = _deploy_parts(obs_dir, d_eps)
+        for n in svc.param_names:
+            ref_dec._weight_scope.find_var(n).copy_(params[n])
+        with fluid.serving.LMServer(ref_dec) as srv:
+            refs1 = _solo_streams(srv, post, [FL1_DEPLOY_TOKENS] * len(post))
+        dep_held = hold_streams('fl1 deploy: streams after it vs solo '
+                                'streams in process on version 1', post,
+                                refs1, after, ref_dec)
+    finally:
+        for r in routers:
+            r.stop()
+        exits = stop_replicas(reps)
+        cli = PSClient(ps_ep, trainer_id=0)
+        cli.complete()
+        cli.close()
+        ps_thread.join(timeout=30)
+    launches = _check_replica_launches('fl1', exits, ('r0', 'd0', 'd1'),
+                                       place_name, flash=True)
+    del ref_dec, pred
+    wall_phase = time.perf_counter() - t_phase
+    tokens = n_streams * new
+    log('fl1: %d replicas ready %.1f s after their start; failover burst %d '
+        'streams x %d tokens over %d sessions: %.3f s, %.1f tokens/s '
+        'through the router over the burst (the failover included), TTFT '
+        'p50 %.1f ms, the longest of %d %.1f ms; replica 1 '
+        'killed at its SRV_POLL %d (exit %s), %d streams moved (%d '
+        'failovers), the last of them on its next token %s ms after the '
+        'router\'s first failover; %d of %d streams equal to the solo '
+        'streams in process; rolling deploy %.3f s (%s, each from its '
+        'fleet.drain span to the next), %d streams of live traffic through '
+        'it, none dropped, both replicas\' digests the manifest\'s (%d '
+        'parameters); %d of %d streams after it equal to the solo streams '
+        'in process on version 1; K1 fp32 launches %s (replica 1 killed: not '
+        'read), plain flash calls 0; %.1f s'
+        % (len(reps), start_s, n_streams, new, sessions, wall,
+           tokens / wall, ttft[len(ttft) // 2], len(ttft), ttft[-1],
+           spec.get('kill_poll', FL1_KILL_POLL), exits['r1'][0], moved,
+           fst['failovers'], _fmt_ms((fo['done'] - fo['at']) * 1e3)
+           if 'done' in fo else 'not measured', fo_held['equal'], n_streams,
+           deploy_s, ', '.join('%s %.3f s' % (n, deploy_each[reps[n]['ep']])
+                               for n in ('d0', 'd1')),
+           len(during), len(want), dep_held['equal'], len(post),
+           ', '.join('%s %d' % (n, v['flash_attention_fwd'])
+                     for n, v in launches.items()), wall_phase))
+    return dict(seconds=wall_phase, start_s=start_s, wall=wall,
+                tok_s=tokens / wall, ttft_p50=ttft[len(ttft) // 2],
+                ttft_max=ttft[-1], failovers=fst['failovers'], moved=moved,
+                failover_ms=(fo['done'] - fo['at']) * 1e3
+                if 'done' in fo else None,
+                equal=fo_held['equal'], deploy_s=deploy_s,
+                deploy_each={n: deploy_each[reps[n]['ep']]
+                             for n in ('d0', 'd1')},
+                deploy_equal=dep_held['equal'], during=len(during),
+                launches={n: v['flash_attention_fwd']
+                          for n, v in launches.items()})
+
+
+@phase('fl2: disaggregated prefill (a prefill replica and 2 paged decode '
+       'replicas on the card; the prefill replica killed mid-ship)')
+def disagg_serving(model_dir, work_root, spec=None, place_name='cuda'):
+    """The pages the prefill replica ships for a system prompt are held
+    to the rows this process's own paged server exports for the same
+    prefix (bit-equal, else within RECOMPUTE_TOL); the prefill tier
+    prefills that prefix once for 2 fetches of this script and the 2
+    decode replicas' warm-up ships; a burst over it and a burst over a
+    second system prompt, during which the prefill replica exits at its
+    FL2_KILL_REPLY-th SRV_PAGES reply: every stream DONE, local
+    re-prefills >= 1, and every stream held by the margin rule to its
+    prompt served alone by this process's paged server. The decode
+    replicas launch no kernel.
+    Logs the bytes shipped and the ship time."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.distributed import wire
+    from paddle_tpu_torch.serving import FleetRouter, disagg
+    spec = spec or {}
+    t_phase = time.perf_counter()
+    place = _fl_place(place_name)
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    new = spec.get('new_tokens', NEW_TOKENS)
+    slots = spec.get('slots', SLOTS)
+    page_tokens = spec.get('page_tokens', PAGE_TOKENS)
+    system_len = spec.get('system', SYSTEM_PROMPT)
+    paged = {'SERVE_SLOTS': str(slots), 'SERVE_PAGED': '1',
+             'SERVE_PAGE_TOKENS': str(page_tokens),
+             'SERVE_PREFILL_CHUNK': str(spec.get('chunk', PREFILL_CHUNK))}
+    kill = json.dumps({'rules': [{'when': 'send', 'type': 'SRV_PAGES',
+                                  'nth': FL2_KILL_REPLY, 'action': 'exit'}]})
+    t0 = time.perf_counter()
+    reps = start_replicas('fl2', [
+        ('p0', dict(paged, FLAGS_fault_plan=kill)), ('d0', paged),
+        ('d1', paged)], work, model_dir, place_name)
+    start_s = time.perf_counter() - t0
+    router = None
+    try:
+        pred = fluid.inference.AnalysisPredictor(
+            fluid.inference.AnalysisConfig(model_dir, place=place))
+        dec = pred.prepare_decoding(
+            slots=slots, paged=True, page_tokens=page_tokens,
+            prefill_chunk=spec.get('chunk', PREFILL_CHUNK))
+        vocab = dec.vocab
+        systems = seeded_prompts(SEED + 81, [system_len, system_len], vocab)
+        warm = seeded_prompts(SEED + 82, [page_tokens // 2], vocab)[0]
+        ths = [threading.Thread(target=warm_replica,
+                                 args=(r['ep'], warm, 4))
+               for r in reps.values()]
+        for t in ths:
+            t.start()
+        for t in ths:
+            t.join()
+        p_ep = reps['p0']['ep']
+
+        def burst(seed, system):
+            out = []
+            rng = np.random.RandomState(seed)
+            for i in range(spec.get('streams', FL2_STREAMS)):
+                if i % 2 == 0:
+                    out.append(system + rng.randint(
+                        1, vocab, size=int(rng.randint(
+                            2, page_tokens))).tolist())
+                else:
+                    # shorter than a page: no shippable chain
+                    out.append(rng.randint(1, vocab, size=int(
+                        rng.randint(2, page_tokens))).tolist())
+            return out
+        first = burst(SEED + 83, systems[0])
+        second = burst(SEED + 84, systems[1])
+        misses0 = _replica_call(p_ep, wire.SRV_HEALTH)[1]['prefix_misses']
+
+        # this process's own fetches of the first system prompt: cold
+        # (the prefill replica prefills it), then warm (a pure ship)
+        fetch_ms, shipped = [], None
+        for _ in range(2):
+            t0 = time.perf_counter()
+            rt, meta, value = _replica_call(
+                p_ep, wire.SRV_PAGE_FETCH, {'have': []},
+                np.asarray(first[0], np.int64))
+            fetch_ms.append((time.perf_counter() - t0) * 1e3)
+            if rt != wire.SRV_PAGES or value is None:
+                raise AssertionError('fl2: the page fetch answered %d %r'
+                                     % (rt, meta))
+            shipped = (meta, disagg.unpack_rows(meta, value))
+        ship_bytes = int(value.numel() * value.element_size())
+        meta, rows = shipped
+        with fluid.serving.LMServer(dec) as srv:
+            srv.generate(first[0], 1, timeout=FLEET_TIMEOUT)
+            export = srv.export_prefix(first[0])
+        if export is None or export['keys'] != meta['keys'] or \
+                len(rows) != len(export['data']):
+            raise AssertionError('fl2: shipped keys %s vs the local '
+                                 'export\'s %s' % (
+                                     meta['keys'][:2], None if export is None
+                                     else export['keys'][:2]))
+        row_err = max(float(np.abs(np.asarray(a, np.float64) - b).max())
+                      for a, b in zip(rows, export['data']))
+        bit_equal = all(np.array_equal(a, b)
+                        for a, b in zip(rows, export['data']))
+        if not row_err <= RECOMPUTE_TOL:
+            raise AssertionError('fl2: shipped page rows differ from the '
+                                 'local export by %.3e, want <= %g'
+                                 % (row_err, RECOMPUTE_TOL))
+        # each decode replica ships the chain once, as the router's
+        # dispatch would (SRV_SUBMIT naming the prefill peer)
+        # (the stream then hits the shipped chain in its prefix cache)
+        for name in ('d0', 'd1'):
+            h = ship_warm(reps[name]['ep'], first[0], p_ep)
+            if h['local_reprefills'] or h['prefix_hits'] < 1 or \
+                    h['prefix_entries'] < len(meta['keys']):
+                raise AssertionError(
+                    'fl2: replica %s after its ship: %d local re-prefills, '
+                    '%d prefix hits, %d chain entries; want 0, >= 1 and %d'
+                    % (name, h['local_reprefills'], h['prefix_hits'],
+                       h['prefix_entries'], len(meta['keys'])))
+        misses = _replica_call(p_ep, wire.SRV_HEALTH)[1]['prefix_misses']
+        if misses - misses0 != 1:
+            raise AssertionError('fl2: the prefill tier prefilled the system '
+                                 'prompt %d times for 4 fetches, want once'
+                                 % (misses - misses0))
+
+        router = FleetRouter([reps['d0']['ep'], reps['d1']['ep']],
+                             prefill_replicas=[p_ep], probe_secs=0.05)
+        router.start()
+        router.wait_healthy(timeout=FLEET_TIMEOUT)
+        t0 = time.perf_counter()
+        reqs = [router.submit(p, max_new_tokens=new) for p in first]
+        got_a = _fleet_streams('fl2 first burst', reqs, [new] * len(first))
+        wall_a = time.perf_counter() - t0
+        reqs = [router.submit(p, max_new_tokens=new) for p in second]
+        got_b = _fleet_streams('fl2 second burst', reqs,
+                               [new] * len(second))
+        if reps['p0']['proc'].wait(timeout=60) == 0:
+            raise AssertionError('fl2: the prefill replica exited cleanly; '
+                                 'its fault rule did not fire')
+        deadline = time.monotonic() + FLEET_TIMEOUT
+        while router.stats()['local_reprefills'] < 1:
+            if time.monotonic() > deadline:
+                raise AssertionError('fl2: no local re-prefill after the '
+                                     'prefill replica died: %r'
+                                     % (router.stats(),))
+            time.sleep(0.01)
+        st = router.stats()
+        router.stop()
+        prompts = first + second
+        with fluid.serving.LMServer(dec) as srv:
+            refs = _solo_streams(srv, prompts, [new] * len(prompts))
+        held = hold_streams('fl2: streams vs solo streams on this process\'s '
+                            'paged server',
+                            prompts, refs, got_a + got_b, dec)
+    finally:
+        if router is not None:
+            router.stop()
+        exits = stop_replicas(reps)
+    _check_replica_launches('fl2', exits, ('d0', 'd1'), place_name,
+                            flash=False)
+    del dec, pred
+    wall_phase = time.perf_counter() - t_phase
+    log('fl2: %d replicas ready %.1f s after their start; the %d-token '
+        'system prompt\'s %d pages (%d pools) shipped in %d bytes: fetch '
+        '%.3f ms cold (prefill included), %.3f ms warm (%.1f MB/s); the '
+        'rows vs the local export: bit-equal %s, max |diff| %.3e; prefilled '
+        'once on the prefill tier for 4 fetches; first burst %d streams x '
+        '%d tokens %.3f s; the prefill replica killed at its SRV_PAGES reply '
+        '%d (exit %s) during the second: every stream DONE, local '
+        're-prefills %d, pages shipped %d, %d ship bytes (the router\'s sum); '
+        '%d of %d streams equal to solo streams on the local paged server; '
+        '%.1f s'
+        % (len(reps), start_s, system_len, len(meta['keys']), len(rows),
+           ship_bytes, fetch_ms[0], fetch_ms[1],
+           ship_bytes / 1e3 / max(fetch_ms[1], 1e-9), bit_equal, row_err,
+           len(first), new, wall_a, FL2_KILL_REPLY, exits['p0'][0],
+           st['local_reprefills'], st['pages_shipped'], st['ship_bytes'],
+           held['equal'], len(prompts), wall_phase))
+    return dict(seconds=wall_phase, start_s=start_s, ship_bytes=ship_bytes,
+                fetch_ms=fetch_ms, bit_equal=bit_equal, row_err=row_err,
+                local_reprefills=st['local_reprefills'],
+                equal=held['equal'], streams=len(prompts))
+
+
 _SCRATCH_DIRS = []
 
 
@@ -11859,7 +12872,8 @@ def main():
         return 2
     if len(sys.argv) == 4 and sys.argv[1] == '--ps-worker' and \
             os.path.isdir(os.path.join(HERE, 'paddle_tpu_torch')):
-        # one role of ps1's or ps2's cluster, started by run_ps_cluster
+        # one role of ps1's, ps2's or on1's cluster, started by
+        # run_ps_cluster
         sys.path.insert(0, HERE)
         return ps_worker_main(sys.argv[2], int(sys.argv[3]))
     if not torch.cuda.is_available():
@@ -12074,6 +13088,14 @@ def main():
         free_device_memory()
 
         probe_row, probe_rows, exp_over_exp2 = check_probe()
+        # the fleet phases come after v6 and o2, which hold c1's model
+        # in this process, and their replica processes need the card's
+        # memory that the phases before them free
+        free_device_memory()
+        on1 = online_refresh(build_root)
+        fl1 = fleet_serving(model_dir, build_root)
+        free_device_memory()
+        fl2 = disagg_serving(model_dir, build_root)
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
@@ -12086,15 +13108,19 @@ def main():
     # K4a/K4b/K5 in the timed long-context steps, K1 bf16 at T = 8192 in
     # l2's default-arm step
     # (and pf1's profiled runs of the same step)
-    # (ps1's fp32 K1 and K2 on its two trainers too)
+    # (ps1's fp32 K1 and K2 on its two trainers too, on1's in its trainer
+    # and serving process, and fl1's fp32 K1 in its replica processes
+    # that exited cleanly)
     path_launches = {'flash_attention_fwd': launches['flash_attention_fwd']
-                     + ps1['launches']['K1'],
+                     + ps1['launches']['K1'] + on1['launches']['K1']
+                     + sum(fl1['launches'].values()),
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'] +
                          pf1['launches']['K1'],
                      'flash_attention_bwd_kvmajor':
                          train_launches['flash_attention_bwd_kvmajor'] +
-                         pf1['launches']['K2/K5'] + ps1['launches']['K2'],
+                         pf1['launches']['K2/K5'] + ps1['launches']['K2']
+                         + on1['launches']['K2'],
                      'flash_attention_bwd_dq':
                          split_launches['flash_attention_bwd_dq'],
                      'flash_attention_bwd_dkv':
@@ -12240,8 +13266,9 @@ def main():
         'eager loss |diff| %.3e, the same bits %s; bk2 fused: step %.3f ms, '
         'device %s '
         'ms, K6 %d launches, K6 ms at %s, fused vs unfused loss |diff| '
-        '%.3e; bk3 losses %s; mo1 peak %.4f GB with memory_optimize vs %.4f '
-        'without, release_memory %d segments (plain %d), Print %d segments'
+        '%.3e; bk3 losses %s; mo1 peak requested %.6f GB with '
+        'memory_optimize vs %.6f without, release_memory %d segments '
+        '(plain %d), Print %d segments'
         % (BOOK['depth'], BOOK['batch'], bk1['ms'], bk1['img_s'],
            bk1['eager_ms'], _fmt_ms(bk1['device_ms'] or None),
            _fmt_busy(bk1['busy']), bk1['feed_ms'], bk1['loss_diff'],
@@ -12389,6 +13416,20 @@ def main():
            ' '.join('%.1f' % x for x in ps2['step_ms']),
            ps2['parts']['prefetch'], ps2['rows'], ps2['weighted'],
            ps2['worst']))
+    log('online refresh and fleet serving (%.1f s for on1, fl1 and fl2, '
+        'their processes\' start included): on1 %.1f s, a refresh %.3f s '
+        'for %.1f MB (%.1f MB/s), %d of %d streams after it equal to the '
+        'fresh server; fl1 %.1f s, %.1f tokens/s through the router, TTFT '
+        'p50 %.1f ms, failover %s ms, deploys %s, K1 fp32 launches %s; fl2 '
+        '%.1f s, %d bytes shipped in %.3f ms, rows bit-equal %s, %d local '
+        're-prefills'
+        % (on1['seconds'] + fl1['seconds'] + fl2['seconds'], on1['seconds'],
+           on1['refresh_s'], on1['mb'], on1['mb_s'], on1['equal'],
+           ON_PROMPTS, fl1['seconds'], fl1['tok_s'], fl1['ttft_p50'],
+           _fmt_ms(fl1['failover_ms']),
+           ', '.join('%s %.3f s' % kv for kv in fl1['deploy_each'].items()),
+           json.dumps(fl1['launches']), fl2['seconds'], fl2['ship_bytes'],
+           fl2['fetch_ms'][1], fl2['bit_equal'], fl2['local_reprefills']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -149,6 +149,92 @@ Known flags:
                          a replica that crashes once a day is not a
                          crash loop. Lifetime restart counts (and the
                          incarnation fence they feed) are unaffected
+  online_poll_secs       ParamSubscriber (paddle_tpu_torch/online/) version-
+                         poll period in seconds -- how often serving
+                         asks its pservers for the published param
+                         version between refreshes
+  online_pull_timeout    seconds one refresh (version poll + shard
+                         pulls + verify + stage) may take before it is
+                         abandoned; the previously installed verified
+                         version keeps serving
+  fleet_poll_secs        FleetRouter (serving/fleet.py) stream-pump
+                         period: dispatch held requests + SRV_POLL
+                         progress of every in-flight stream
+  fleet_probe_secs       FleetRouter control period: SRV_HEALTH probe
+                         of every replica + admission-rule evaluation +
+                         autoscaler tick
+  fleet_probe_fails      consecutive failed probes before a quiet
+                         replica (no in-flight streams to trip the
+                         pump) is declared dead; a failed poll/submit
+                         kills it immediately
+  fleet_max_hold         FleetRouter hold-queue bound -- submissions
+                         past this raise OverloadError regardless of
+                         the admission rules
+  fleet_shed_consecutive control periods a breached admission rule must
+                         persist before the router starts shedding
+                         (typed OverloadError on submit)
+  fleet_admission_rules  obs/slo.py rule list (same format as
+                         slo_rules) evaluated against the router's OWN
+                         fleet.* snapshot as the admission-control
+                         trigger; '' = the built-in fleet.queue_depth
+                         gauge_max rule at fleet_max_hold / 2
+  fleet_deploy_timeout   seconds rolling_deploy() may spend per replica
+                         on drain + refresh + health-check before the
+                         deploy aborts (the replica is un-drained)
+  fleet_connect_timeout  cap (seconds) on the TCP connect step of one
+                         router->replica call; the effective connect
+                         timeout is min(per-call timeout, this) so a
+                         short probe call can never spend longer
+                         connecting than it was given overall
+  fleet_probe_timeout    SRV_HEALTH probe RPC timeout (seconds) on the
+                         router's DEDICATED per-replica probe
+                         connection -- deliberately far below
+                         call_timeout so one stalled replica delays the
+                         probe loop by at most this, not 10s
+  fleet_progress_timeout_secs  gray-failure watchdog (serving/fleet.py):
+                         a dispatched stream with no new token for this
+                         long -- or a router->replica RPC in flight this
+                         long -- gray-marks the replica and fails its
+                         streams over through the re-prefill path
+                         (bit-exact by greedy determinism). 0 = off
+  fleet_hedge_ms         hedged dispatch: a stream with no first token
+                         this many ms after dispatch is duplicated to a
+                         second replica; first token wins, the loser is
+                         SRV_CANCELled. Greedy determinism makes both
+                         streams identical, so hedging can never change
+                         output. 0 = off
+  fleet_gray_probes      clean (in-time) SRV_HEALTH probes a gray-marked
+                         replica must answer consecutively before it
+                         rejoins dispatch (the half-open probation
+                         length); a slow or failed probe resets the
+                         count
+  fleet_cache_shed_budget  cross-replica retries a stream that FAILED
+                         with CacheExhaustedError gets (the router
+                         requeues it onto a cooler replica) before the
+                         failure is final -- bounds the livelock when
+                         the whole fleet is saturated; counted in
+                         fleet.cache_sheds
+  fleet_prefill_endpoints  disaggregated serving (serving/disagg.py):
+                         comma-separated ReplicaServer endpoints that
+                         form the PREFILL tier. When set, the router
+                         routes each stream's prefill to this tier and
+                         the computed KV pages are shipped over the
+                         wire (SRV_PAGES) to the decode replica that
+                         owns the stream; '' (default) keeps today's
+                         colocated path
+  disagg_ship_timeout    seconds one page ship (SRV_PAGE_FETCH prefill
+                         + SRV_PAGES transfer + install) may take on
+                         the decode replica before it gives up and
+                         re-prefills locally (bit-exact by greedy
+                         determinism)
+  fleet_prefix_affinity  weight of the prefix-affinity term in the
+                         router's dispatch score: the fraction of a
+                         request's hash-chain prefix already resident
+                         on a replica (per the fleet-wide prefix
+                         directory) is subtracted from its load score
+                         scaled by this, so shared-prefix requests
+                         land where the pages live. 0 disables the
+                         term
   wire_binary_meta       frame the wire meta header in the compact
                          binary codec (wire version 3) instead of JSON
                          -- negotiated per connection: a sender
@@ -209,6 +295,36 @@ _DEFAULTS = {
     'rpc_batch_max_vars': 64,
     'ps_average_live': False,
     'sup_healthy_secs': 300.0,
+    # online refresh (online/): subscriber version-poll cadence, and
+    # the wall budget one refresh (poll + pull + verify + stage) gets
+    # before it is abandoned in favour of the installed version
+    'online_poll_secs': 0.5,
+    'online_pull_timeout': 30.0,
+    'fleet_poll_secs': 0.01,
+    'fleet_probe_secs': 0.25,
+    'fleet_probe_fails': 2,
+    'fleet_max_hold': 512,
+    'fleet_shed_consecutive': 2,
+    'fleet_admission_rules': '',
+    'fleet_deploy_timeout': 120.0,
+    'fleet_cache_shed_budget': 5,
+    # disaggregated prefill/decode serving (serving/disagg.py): the
+    # prefill-tier endpoints ('' = colocated), the per-ship wall budget
+    # on the decode side before local re-prefill, and the weight of the
+    # prefix-directory affinity term in dispatch scoring (0 = off)
+    'fleet_prefill_endpoints': '',
+    'disagg_ship_timeout': 15.0,
+    'fleet_prefix_affinity': 0.5,
+    # gray-failure tolerance (serving/fleet.py): connect-step cap and
+    # the dedicated probe-connection timeout (both seconds), the
+    # no-progress watchdog horizon (0 = off), the hedged-dispatch
+    # trigger in ms (0 = off), and the half-open probation length in
+    # clean probes before a gray-marked replica rejoins dispatch
+    'fleet_connect_timeout': 2.0,
+    'fleet_probe_timeout': 1.0,
+    'fleet_progress_timeout_secs': 0.0,
+    'fleet_hedge_ms': 0.0,
+    'fleet_gray_probes': 3,
     'wire_binary_meta': False,
 }
 

@@ -4,13 +4,17 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled on its
 own, at first use, into `build/paddle_tpu_torch/<name>-<hash>.so` at the
 root of the checkout. The hash covers the source, the shared headers
 (`csrc/*.cuh`) and the flags, so an edited source rebuilds and an
-unchanged one is reused. Nothing here runs
+unchanged one is reused. Processes that start together (a fleet's
+replicas) build under one file lock in the build directory, so a
+source is compiled once and the others load it. Nothing here runs
 when the module is imported: the CPU tests import every module, and a
 machine without nvcc never reaches a build.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import shutil
@@ -56,17 +60,30 @@ def _target(name):
     return src, BUILD_DIR / ('%s-%s.so' % (name, digest))
 
 
+@contextlib.contextmanager
+def _build_dir_lock():
+    """An exclusive lock on BUILD_DIR/.lock, held across processes."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with open(BUILD_DIR / '.lock', 'w') as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def build(*names):
     """Compile every named source that is not built yet: one nvcc
     process per source, all started together. Returns {name: path}."""
-    out, procs = {}, []
-    with _lock:
+    out = {name: _target(name)[1] for name in names}
+    if all(so.exists() for so in out.values()):
+        return out
+    procs = []
+    with _lock, _build_dir_lock():
         for name in names:
             src, so = _target(name)
-            out[name] = so
-            if so.exists():
+            if so.exists():     # another process built it meanwhile
                 continue
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = so.with_suffix('.so.tmp%d' % os.getpid())
             cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(src)]
             procs.append((name, so, tmp, subprocess.Popen(

@@ -1,6 +1,6 @@
-"""KV-cache incremental decoding + continuous-batching serving
-(counterpart of paddle_tpu/serving/; no mesh, replicas, fleet router or
-disaggregated prefill).
+"""KV-cache incremental decoding, continuous-batching serving and fleet
+serving (counterpart of paddle_tpu/serving/; no mesh: each replica
+serves from one card).
 
 - decode.py       DecodePredictor: a loaded LM transpiled into a
                   prefill + decode program pair with per-layer
@@ -30,7 +30,25 @@ disaggregated prefill).
                   weight swaps; worker threads share weights via
                   clone().
 - api.py          LMServer: blocking generate() and async
-                  submit/poll/result, dense, paged or speculative.
+                  submit/poll/result, dense, paged or speculative;
+                  enable_refresh() attaches an online.ParamSubscriber
+                  that installs the pservers' published versions at
+                  step boundaries, param_digests() proves which.
+- replica.py      ReplicaServer: one LMServer on the wire (the SRV_*
+                  message types), the process
+                  `python -m paddle_tpu_torch.tools.serve_replica` runs.
+- disagg.py       Disaggregated prefill/decode: KV pages as wire objects
+                  (SRV_PAGES / SRV_PAGE_FETCH); a prefill tier computes
+                  pages once per unique prefix and ships them
+                  content-addressed to paged decode replicas; every ship
+                  failure falls back to local re-prefill.
+- fleet.py        FleetRouter: health-checked dispatch over N replicas
+                  with session affinity and priority tiers, mid-stream
+                  failover (greedy re-prefill from the accumulated
+                  prefix), SLO-rule admission control (typed
+                  OverloadError), the gray-failure watchdog, hedging,
+                  zero-drop rolling weight deploys and the prefill tier;
+                  FleetAutoscaler drives replica count.
 """
 from .decode import DecodePredictor
 from .paging import (CacheExhaustedError, PagePool, PageTable,
@@ -40,9 +58,16 @@ from .speculative import DraftModel, SpeculativeDecodePredictor
 from .engine import ServingEngine, Request, DeadlineExceededError
 from .preempt import HostSwapBudget
 from .api import LMServer
+from .replica import ReplicaServer
+from .disagg import ShipError
+from .fleet import (FleetRouter, FleetAutoscaler, FleetRequest,
+                    OverloadError, FleetDeployError)
 
 __all__ = ['DecodePredictor', 'PagedDecodePredictor',
            'DraftModel', 'SpeculativeDecodePredictor',
            'CacheExhaustedError', 'PagePool', 'PageTable', 'PrefixCache',
-           'chain_keys', 'ServingEngine', 'Request',
-           'DeadlineExceededError', 'HostSwapBudget', 'LMServer']
+           'chain_keys', 'ShipError',
+           'ServingEngine', 'Request', 'DeadlineExceededError',
+           'HostSwapBudget', 'LMServer',
+           'ReplicaServer', 'FleetRouter', 'FleetAutoscaler',
+           'FleetRequest', 'OverloadError', 'FleetDeployError']

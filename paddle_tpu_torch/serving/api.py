@@ -1,5 +1,5 @@
 """LMServer: the user-facing serving surface (counterpart of
-paddle_tpu/serving/api.py; no mesh, no online refresh).
+paddle_tpu/serving/api.py; no mesh).
 
 Construct from a saved-model directory (or an AnalysisPredictor, or a
 prepared DecodePredictor), then either block in generate() or go async
@@ -50,7 +50,47 @@ class LMServer(object):
         self._engine = ServingEngine(dec, workers=workers,
                                      max_queue=max_queue)
         self._requests = {}
+        self._subscriber = None
         self._engine.start()
+
+    # -- online refresh ----------------------------------------------------
+    def enable_refresh(self, endpoints, subscriber_id=0, poll_secs=None,
+                       pull_timeout=None, start=True, paused=False):
+        """Attach a ParamSubscriber (online/): serving tracks the
+        pserver fleet's published param versions and installs fresh
+        weights at decode step boundaries. Returns the
+        subscriber (started unless start=False). paused=True starts the
+        poll loop but freezes automatic installs — the fleet-replica
+        posture, where only an orchestrator-driven refresh_once() (a
+        rolling deploy's SRV_REFRESH) installs, while staleness keeps
+        being measured."""
+        if self._subscriber is not None:
+            return self._subscriber
+        from ..online import ParamSubscriber
+        self._subscriber = ParamSubscriber(
+            endpoints, self._decode, engine=self._engine,
+            subscriber_id=subscriber_id, poll_secs=poll_secs,
+            pull_timeout=pull_timeout)
+        if start:
+            self._subscriber.start()
+        if paused:
+            self._subscriber.pause()
+        return self._subscriber
+
+    @property
+    def subscriber(self):
+        """The attached ParamSubscriber, or None."""
+        return self._subscriber
+
+    def refresh_once(self):
+        """One orchestrator-driven refresh (pull + verify + install at
+        a step boundary); returns the installed version. Raises
+        RuntimeError when no refresh machinery is attached, RefreshError
+        (old weights untouched) on a failed pull."""
+        if self._subscriber is None:
+            raise RuntimeError('no refresh attached — call '
+                               'enable_refresh(endpoints) first')
+        return self._subscriber.refresh_once()
 
     # -- blocking ----------------------------------------------------------
     def generate(self, prompt, max_new_tokens=16, eos_id=None,
@@ -95,7 +135,7 @@ class LMServer(object):
     def cancel(self, handle):
         self._engine.cancel(self._req(handle))
 
-    # -- prefix pages --------------------------------------------------------
+    # -- disaggregated page shipping (serving/disagg.py) -------------------
     @property
     def paged(self):
         """True when serving from the page-pool cache."""
@@ -127,15 +167,37 @@ class LMServer(object):
         """Context-window bound: prompt + generated tokens per stream."""
         return self._decode.max_len
 
+    def param_digests(self):
+        """{param name: crc32 of its wire payload} for every served
+        weight — what a rolling deploy's convergence check compares
+        against the pserver manifest."""
+        return self._decode.param_digests()
+
     def drain(self, timeout=None):
         return self._engine.drain(timeout)
 
     def stats(self):
-        return self._engine.stats()
+        """Engine stats plus the online-refresh position: param_version
+        (installed; None before any refresh machinery is attached) and
+        staleness_rounds (rounds behind the newest published version)."""
+        out = self._engine.stats()
+        if self._subscriber is not None:
+            sub = self._subscriber.stats()
+            out['param_version'] = sub['installed_version']
+            out['staleness_rounds'] = sub['staleness_rounds']
+            out['refreshes'] = sub['refreshes']
+            out['refresh_failures'] = sub['failures']
+        else:
+            out['param_version'] = None
+            out['staleness_rounds'] = None
+        return out
 
     def close(self, drain=True, timeout=None):
         """drain=True waits for in-flight streams; past `timeout` it
         cancels them instead. True for a clean drain."""
+        if self._subscriber is not None:
+            self._subscriber.stop()
+            self._subscriber = None
         return self._engine.stop(drain=drain, timeout=timeout)
 
     def __enter__(self):

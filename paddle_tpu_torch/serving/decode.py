@@ -1,6 +1,6 @@
 """DecodePredictor: cached prefill/decode execution over a slot pool
 (counterpart of paddle_tpu/serving/decode.py; no mesh, no sharded
-checkpoint load, no parameter digests).
+checkpoint load).
 
 Scope layout:
 
@@ -12,11 +12,13 @@ same parent, so N serving workers share one copy of the weights. The
 cache ops update the child Scope's tensors in place, and reset() zeroes
 them in place.
 
-Weight refresh: stage_weights() puts a {name: array} update on the
-device off the decode path; install_weights() binds the staged tensors
-in the parent Scope (ServingEngine.request_swap runs it at a step
-boundary). A captured graph reads the tensors it captured, so each
-worker's next replay copies the newly bound value into them
+Weight refresh: stage_weights() puts a {name: tensor or array} update
+on the device off the decode path; install_weights() binds the staged
+tensors in the parent Scope (ServingEngine.request_swap runs it at a
+step boundary). param_digests() is the crc32 of each served weight's
+wire payload, the digest a parameter server stamps into its manifest.
+A captured graph reads the tensors it captured, so each worker's next
+replay copies the newly bound value into them
 (executor.Executor._replay): no worker captures again for a swap.
 """
 from __future__ import annotations
@@ -107,11 +109,26 @@ class DecodePredictor(object):
         return [n for n in self._pair.spec.param_names()
                 if n not in cache_names]
 
+    def param_digests(self):
+        """{name: crc32 of the param's wire payload} over the served
+        weights: the digest a pserver stamps into its manifest, so a
+        fleet deploy can prove a replica converged to a published
+        version without shipping the bytes again. A weight on the card
+        is read through its host copy; bf16 hashes its 2-byte pattern,
+        as the JAX package's does."""
+        from ..distributed import wire
+        from ..integrity import crc32
+        return {name: crc32(wire._payload_of(
+                    self._weight_scope.find_var(name))[1])
+                for name in self.param_names()}
+
     def stage_weights(self, params):
-        """Stage a {name: host array} weight update for install: names
-        are checked against the decode programs' params, shapes against
-        the served values, and every array is copied to the device OFF
-        the decode path. Returns an opaque staged dict for
+        """Stage a {name: tensor or array} weight update for install:
+        names are checked against the decode programs' params, shapes
+        against the served values, and every value is copied to the
+        device OFF the decode path (a CPU tensor from the wire goes to
+        the card as it is, bf16 included; a numpy array through
+        torch.from_numpy). Returns an opaque staged dict for
         install_weights; raises (staging nothing) on an unknown name or
         a shape mismatch."""
         known = set(self.param_names())
@@ -121,14 +138,15 @@ class DecodePredictor(object):
                 raise KeyError(
                     'refresh carries unknown param %r (this predictor '
                     'serves %d params)' % (name, len(known)))
-            arr = np.ascontiguousarray(val)
+            if not isinstance(val, torch.Tensor):
+                val = torch.from_numpy(np.ascontiguousarray(val))
             cur = self._weight_scope.find_var(name)
-            if tuple(cur.shape) != arr.shape:
+            if tuple(cur.shape) != tuple(val.shape):
                 raise ValueError(
                     'refresh shape mismatch for %r: got %r, serving %r'
-                    % (name, arr.shape, tuple(cur.shape)))
-            staged[name] = torch.from_numpy(arr).to(device=self.device,
-                                                    dtype=cur.dtype)
+                    % (name, tuple(val.shape), tuple(cur.shape)))
+            staged[name] = val.detach().to(device=self.device,
+                                           dtype=cur.dtype, copy=True)
         return staged
 
     def install_weights(self, staged):

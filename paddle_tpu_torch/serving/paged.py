@@ -228,8 +228,8 @@ class PagedDecodePredictor(DecodePredictor):
         self._tables[slot] = table
         self._update_gauges()
 
-    # -- prefix export / install (the JAX package ships pages between
-    #    replicas with these; replicas are not ported) ---------------------
+    # -- prefix export / install (serving/disagg.py ships pages between
+    #    replicas with these) ---------------------------------------------
     def export_prefix(self, prompt):
         """Gather the full-page hash chain this cache holds for
         `prompt` (capped at prompt[:-1], the sharing limit) into host

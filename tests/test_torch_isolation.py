@@ -269,3 +269,54 @@ def test_profiler_record_files_and_channels_stand_alone():
                          text=True, timeout=120, cwd=ROOT)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip() == '[]'
+
+
+FLEET_MODULES = ['online', 'online.subscriber', 'serving.replica',
+                 'serving.fleet', 'serving.disagg', 'tools.serve_replica']
+
+
+def test_online_and_fleet_modules_leave_jax_out_of_sys_modules():
+    """The online refresh, the replica, the router, disaggregation and
+    the replica entry point import, with the tests' fleet helper, and
+    none of them brings in jax or the JAX package; their sources import
+    neither."""
+    for mod in FLEET_MODULES:
+        path = os.path.join(PKG, *mod.split('.'))
+        path = path + '.py' if os.path.exists(path + '.py') else \
+            os.path.join(path, '__init__.py')
+        assert os.path.exists(path), mod
+        bad = [m for m in _imported_roots(path) if m in FORBIDDEN]
+        assert not bad, (mod, bad)
+    code = ('import sys\n'
+            + ''.join('import paddle_tpu_torch.%s\n' % m
+                      for m in FLEET_MODULES)
+            + 'sys.path.insert(0, "tests")\n'
+              'import torch_fleet_worker\n'
+              'bad = [m for m in sys.modules if m.split(".")[0] in '
+              '("jax", "jaxlib", "paddle_tpu")]\n'
+              'print(bad)\n')
+    out = subprocess.run([sys.executable, '-c', code], capture_output=True,
+                         text=True, timeout=120, cwd=ROOT)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == '[]'
+
+
+def test_serve_replica_raises_without_a_card_unless_told_the_cpu(tmp_path):
+    """The replica entry point serves on CUDAPlace(0) and raises without
+    a card; only SERVE_PLACE=cpu serves on the host."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present: the default place is valid')
+    env = dict(os.environ, SERVE_MODEL_DIR=str(tmp_path))
+    env.pop('SERVE_PLACE', None)
+    out = subprocess.run(
+        [sys.executable, '-m', 'paddle_tpu_torch.tools.serve_replica'],
+        capture_output=True, text=True, timeout=120, cwd=ROOT, env=env)
+    assert out.returncode != 0
+    assert 'SERVE_PLACE=cpu' in out.stderr
+    assert 'READY' not in out.stdout
+    from paddle_tpu_torch.tools import serve_replica
+    os.environ['SERVE_PLACE'] = 'cpu'
+    try:
+        assert serve_replica.place_from_env().device.type == 'cpu'
+    finally:
+        del os.environ['SERVE_PLACE']

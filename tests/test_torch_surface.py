@@ -724,7 +724,24 @@ NOT_PORTED = {
     'trainer_strategy': (8, lambda: tfluid.Trainer(None, None,
                                                    strategy=object())),
     'collective_audit': (8, lambda: tfluid.profiler.collective_audit([])),
+    'serve_replica_mesh': (8, lambda: _serve_replica_with(
+        {'SERVE_MESH_SHAPE': 'tp=2'})),
 }
+
+
+def _serve_replica_with(env):
+    import os
+    from paddle_tpu_torch.tools import serve_replica
+    old = {k: os.environ.get(k) for k in env}
+    os.environ.update(env)
+    try:
+        serve_replica.main()
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
 
 
 @pytest.mark.parametrize('name', sorted(NOT_PORTED))
@@ -908,3 +925,72 @@ def test_create_var_takes_unknown_keywords_as_in_jax():
                              capacity=4, some_future_attr='x')
         assert v.name == 'q' and tuple(v.shape) == (4,)
         assert v.dtype == 'float32'
+
+
+# -- 23: ROADMAP Queue 1 item 7's last bullet, done ----------------------------
+
+def test_serving_and_online_exports_equal_the_jax_packages():
+    import paddle_tpu.online as jonline
+    import paddle_tpu.serving as jserving
+    import paddle_tpu_torch.online as tonline
+    import paddle_tpu_torch.serving as tserving
+    assert tserving.__all__ == jserving.__all__
+    assert tonline.__all__ == jonline.__all__ == ['ParamSubscriber',
+                                                  'RefreshError']
+    for mod in (tserving, tonline):
+        for name in mod.__all__:
+            assert hasattr(mod, name), name
+
+
+@pytest.mark.parametrize('name', ['enable_refresh', 'subscriber',
+                                  'refresh_once', 'param_digests',
+                                  'stats', 'close'])
+def test_lmserver_refresh_surface_matches_jax(name):
+    """LMServer's online-refresh members take the JAX package's
+    arguments (subscriber is a property in both)."""
+    import inspect
+    from paddle_tpu.serving import LMServer as J
+    from paddle_tpu_torch.serving import LMServer as T
+    j, t = inspect.getattr_static(J, name), inspect.getattr_static(T, name)
+    assert isinstance(t, property) == isinstance(j, property)
+    if not isinstance(j, property):
+        assert inspect.signature(t) == inspect.signature(j)
+
+
+@pytest.mark.parametrize('module,names', [
+    ('online.subscriber', ['ParamSubscriber']),
+    ('serving.replica', ['ReplicaServer']),
+    ('serving.fleet', ['FleetRouter', 'FleetAutoscaler', 'FleetRequest']),
+    ('serving.disagg', ['pack_pages', 'unpack_rows', 'install_shipment',
+                        'serve_page_fetch', 'fetch_and_install',
+                        'count_local_reprefill'])])
+def test_fleet_module_signatures_match_jax(module, names):
+    """The ported classes and functions take the JAX package's arguments,
+    method for method."""
+    import importlib
+    import inspect
+    jmod = importlib.import_module('paddle_tpu.' + module)
+    tmod = importlib.import_module('paddle_tpu_torch.' + module)
+    assert tmod.__all__ == jmod.__all__
+    for name in names:
+        j, t = getattr(jmod, name), getattr(tmod, name)
+        if inspect.isclass(j):
+            jm = {k for k, v in vars(j).items() if callable(v)}
+            assert {k for k, v in vars(t).items() if callable(v)} == jm
+            for k in jm:
+                assert inspect.signature(getattr(t, k)) == \
+                    inspect.signature(getattr(j, k)), (name, k)
+        else:
+            assert inspect.signature(t) == inspect.signature(j), name
+
+
+def test_online_and_fleet_flags_match_jax():
+    """The online_* and fleet_* flags (and disagg_ship_timeout) exist in
+    the port with the JAX package's defaults."""
+    from paddle_tpu import flags as jflags
+    from paddle_tpu_torch import flags as tflags
+    names = [k for k in jflags._DEFAULTS
+             if k.startswith(('online_', 'fleet_', 'disagg_'))]
+    assert len(names) == 18
+    for k in names:
+        assert tflags._DEFAULTS[k] == jflags._DEFAULTS[k], k
