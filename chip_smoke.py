@@ -455,7 +455,9 @@ and feed_order, one epoch of TR_STEPS batches; every Trainer built in a
 fresh name scope with a fresh executor, closed before the next one;
 checkpoints, ~5.9 GB each, in a tempfile.mkdtemp() directory checked for
 room first, each phase's removed as soon as it has checked them):
-  (tr1) fluid.Trainer on its default place under CheckpointConfig(
+  (tr1) fluid.Trainer (the flagship LM at full width cut to TR_MODEL's
+      6 layers since PR 24, for the script's time with mp1 and mp2; its
+      checkpoints ~3.4 GB) on its default place under CheckpointConfig(
       step_interval=TR_INTERVAL, max_num_checkpoints=TR_KEEP): K1 and K2
       cfg.layers launches every step, no plain flash call; its losses
       within TRAIN_LOSS_TOL of a bare Executor loop's over the same
@@ -598,6 +600,25 @@ waited on by its READY line:
       every stream held by the margin rule to its prompt served alone by
       this process's paged server, no kernel launched on the decode
       replicas; the bytes shipped and the ship time are logged.
+  (mp1) the mesh, ring attention: the gloo probes (MP_PROBES on CUDA
+      tensors in two processes, as parallel/collectives.py's table says)
+      beside the ring's blocks at [16, 2048, 128] bf16 against their
+      plain versions (a diagonal and an off-diagonal block's K1 and K2,
+      one rank's merged (o, lse)) and the one-process step of l1's
+      program; then bench_long_context's LM with ring_attention=True on
+      DistributedStrategy(sp=4), 4 ranks sharing the card under gloo
+      (`--ps-worker rank <r>` processes), 3 AMP Momentum steps: K1 and
+      K2 4(r + 1) each a step on rank r, no plain flash call, the loss
+      within TRAIN_LOSS_TOL and the first step's updates within
+      TRAIN_UPDATE_TOL (gradient-weighted) of the one-process step,
+      the ranks' reserved memory under MP_RESERVED_GB summed; each
+      rank's step ms, rotation and collective seconds, bytes, memory and
+      collective_audit logged;
+  (mp2) the flagship LM at full width cut to 2 layers, use_tp and use_sp,
+      on DistributedStrategy(dp=2, tp=2), batch 8, 3 AMP Momentum steps
+      against the same program in one process (the same bounds); every
+      tp weight held as its half by its placements, all-reduces in the
+      audit and no tp weight gathered.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line and a sequences
@@ -3407,6 +3428,9 @@ A4_HELD_ELSEWHERE.update({
     'moe_ffn': 'moe1 (the MoE LM) and moe2 (one full-width sequence, vs '
                'the CPU port)',
     'moe_aux_loss': 'moe2: vs the CPU port',
+    'ring_attention': 'mp1: the ring of 4 ranks on the card (each block\'s '
+                      'K1 and K2 vs their plain versions, the step vs the '
+                      'one-process step)',
 })
 # the parameter-server host ops: on the card's trainers in ps1 and ps2,
 # on the host's pservers by design; each also against the JAX package on
@@ -6855,6 +6879,9 @@ def check_second_shape(tr, place, sync):
 
 # -- (tr1)-(tr4): the high-level Trainer and Inferencer ----------------------
 
+# tr1-tr4 and o1 train MODEL at full width cut to 6 layers (PR 24): the
+# script keeps under its 1200 s with the mesh phases (PERF.md §6)
+TR_MODEL = dict(MODEL, layers=6)
 TR_STEPS = 8                 # one epoch of tr1-tr3 and o1
 TR_INTERVAL = 4              # a checkpoint after steps 3 and 7
 TR_KEEP = 2                  # CheckpointConfig(max_num_checkpoints=)
@@ -11579,8 +11606,9 @@ def _ps_local(phase, spec, place, dist_scope, params, initial, batches,
 
 def ps_worker_main(role, index):
     """`chip_smoke.py --ps-worker <role> <index>`: one role of a ps1, ps2
-    or on1 cluster (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT, PSW_SPEC,
-    PSW_PLACE); its result goes to PSW_OUT/<role><index>.json."""
+    or on1 cluster, or a rank of mp1's or mp2's mesh (role 'rank'; role
+    'probe' for the gloo probes) (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT,
+    PSW_SPEC, PSW_PLACE); its result goes to PSW_OUT/<role><index>.json."""
     import torch
     import paddle_tpu_torch as fluid
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -11588,7 +11616,21 @@ def ps_worker_main(role, index):
     phase, eps = os.environ['PSW_PHASE'], os.environ['PSW_ENDPOINTS']
     work = os.environ['PSW_OUT']
     spec = json.loads(os.environ.get('PSW_SPEC') or '{}')
-    if role == 'pserver':
+    if role == 'probe':
+        out = mp_probe_rank(index, work)
+    elif role == 'probesr':
+        out = mp_probe_sendrecv(index, work)
+    elif role == 'rank':
+        # a rank of mp1's or mp2's mesh: the env contract of
+        # init_parallel_env, the rendezvous a file in the work dir
+        os.environ.update(
+            PADDLE_TRAINER_ID=str(index),
+            PADDLE_TRAINERS_NUM=str(spec['world']),
+            PADDLE_DIST_INIT_METHOD='file://' + os.path.join(work, 'store'))
+        place = fluid.CPUPlace() if os.environ.get('PSW_PLACE') == 'cpu' \
+            else fluid.CUDAPlace(0)
+        out = mesh_rank(phase, index, spec, place, work)
+    elif role == 'pserver':
         out = on_pserver(index, eps, spec) if phase == 'on1' else \
             ps_pserver(phase, index, eps, spec)
     else:
@@ -12815,6 +12857,549 @@ def disagg_serving(model_dir, work_root, spec=None, place_name='cuda'):
 _SCRATCH_DIRS = []
 
 
+# ---------------------------------------------------------------------------
+# mp1, mp2: the device mesh. The ranks of a mesh are processes of this
+# script (`--ps-worker rank <r>`, started by run_ps_cluster) that share the
+# one card under gloo; each holds its shards, runs its ops by their layout
+# rules (paddle_tpu_torch/parallel/layout.py) and meets the others in the
+# collectives. What crosses between them is measured here; it is not a
+# multi-card speed.
+# ---------------------------------------------------------------------------
+
+# mp1: bench_long_context's model with ring attention, sp=4 (T/4 = 2048
+# tokens a rank: K/V blocks [16, 2048, 128] bf16); mp2: the flagship LM at
+# full width cut to 2 layers (as ps1), use_tp and use_sp, dp=2 x tp=2
+MP1 = dict(model=dict(LC_MODEL, ring_attention=True), batch=LC_BATCH,
+           head_chunk=LC_HEAD_CHUNK, mesh=dict(sp=4))
+MP2 = dict(model=dict(MODEL, layers=2, use_tp=True, use_sp=True),
+           batch=TRAIN_BATCH, head_chunk=HEAD_CHUNK, mesh=dict(dp=2, tp=2))
+MP_STEPS = 3
+# the ranks' reserved device memory, summed, stays under this (PERF.md §2)
+MP_RESERVED_GB = 70.0
+# the gloo probes: each collective of the slice on CUDA tensors; the ones
+# parallel/collectives.py stages through the host must refuse, the others
+# must give the right sums
+MP_PROBES = ('all_reduce', 'all_gather_into_tensor', 'reduce_scatter_tensor',
+             'all_to_all_single', 'send_recv')
+
+
+def mp_spec(name, spec):
+    base = dict(MP1 if name == 'mp1' else MP2)
+    spec = dict(spec or {})
+    if 'model' in spec:
+        spec['model'] = dict(base['model'], **spec['model'])
+    base.update(spec)
+    return base
+
+
+def mp_program(cfg, head_chunk):
+    """bench.py's LM step (trunk, fused head, mean, AMP Momentum(0.001,
+    0.9)) fed by a feed dict; the same seed as every LM phase."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tfm
+    main, startup = fluid.Program(), fluid.Program()
+    main.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(main, startup):
+        tokens = fluid.layers.data(name='tokens', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        labels = fluid.layers.data(name='labels', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        trunk = tfm.language_model_trunk(tokens, cfg)
+        cost = fluid.layers.fused_softmax_cross_entropy(
+            trunk, labels, cfg.vocab, chunk=head_chunk, name='lm_head')
+        avg = fluid.layers.mean(cost)
+        opt = fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.Momentum(learning_rate=0.001, momentum=0.9))
+        opt.minimize(avg)
+    return main, startup, avg
+
+
+def mp_batches(cfg, batch):
+    rng = np.random.RandomState(SEED)
+    out = []
+    for _ in range(MP_STEPS):
+        toks = rng.randint(0, cfg.vocab, size=(batch, cfg.max_len, 1)
+                           ).astype('int64')
+        out.append({'tokens': toks, 'labels': np.roll(toks, -1, axis=1)})
+    return out
+
+
+def mp_compared(cfg):
+    """The first qkv weight, the last down weight and the head (the
+    parallel layers' names under use_tp)."""
+    w = '_0.w' if cfg.use_tp else '.w_0'
+    return ('layer0_qkv' + w, 'layer%d_down' % (cfg.layers - 1) + w,
+            'lm_head.w_0')
+
+
+def _mp_steps(pe, avg, batches, params, read, sync):
+    """MP_STEPS steps: the losses, each step's ms, and after the first
+    the compared parameters and their velocities (the first step's
+    gradients) read by `read`."""
+    losses, ms, first = [], [], None
+    for i, feed in enumerate(batches):
+        sync()
+        t0 = time.perf_counter()
+        losses.append(float(np.asarray(pe.run(
+            fetch_list=[avg.name], feed=feed)[0]).reshape(-1)[0]))
+        sync()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if i == 0:
+            first = {n: read(n) for n in params}
+            first.update({n + '_velocity_0': read(n + '_velocity_0')
+                          for n in params})
+    return losses, ms, first
+
+
+def mp_reference(name, spec, place):
+    """The same program in one process (mp1: full attention over T
+    through K1, l1's program), from the same weights and batches."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    kw = dict(spec['model'], ring_attention=False)
+    cfg = TransformerConfig(**kw)
+    main, startup, avg = mp_program(cfg, spec['head_chunk'])
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    pe = fluid.ParallelExecutor(use_cuda=place.device.type == 'cuda',
+                                loss_name=avg.name, main_program=main,
+                                scope=scope)
+    params = mp_compared(cfg)
+    start = {n: scope.find_var(n).float().cpu().clone() for n in params}
+    losses, ms, first = _mp_steps(
+        pe, avg, mp_batches(cfg, spec['batch']), params,
+        lambda n: scope.find_var(n).float().cpu().clone(), torch_sync(place))
+    pe.close()
+    del pe, scope
+    if place.device.type == 'cuda':
+        free_device_memory()
+    return dict(losses=losses, ms=ms, first=first, start=start)
+
+
+def mesh_rank(name, index, spec, place, work):
+    """One rank of mp1 or mp2 (in its own process): the mesh program's
+    MP_STEPS steps through ParallelExecutor(strategy=); returns its
+    losses, step ms, launches, collectives and memory. Rank 0 also
+    saves the compared parameters after the first step (whole values)."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    from paddle_tpu_torch.parallel import DistributedStrategy
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    cfg = TransformerConfig(**spec['model'])
+    main, startup, avg = mp_program(cfg, spec['head_chunk'])
+    scope = fluid.Scope()
+    fluid.Executor(place).run(startup, scope=scope)
+    params = mp_compared(cfg)
+    start = {n: float(scope.find_var(n).double().sum()) for n in params}
+    cuda = place.device.type == 'cuda'
+    pe = fluid.ParallelExecutor(
+        use_cuda=cuda, loss_name=avg.name, main_program=main, scope=scope,
+        strategy=DistributedStrategy(**spec['mesh']))
+    sync = torch_sync(place)
+    names = [KERNELS[k][0] for k in KERNELS]
+    for n in names:
+        getattr(fa, n).launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
+    ra.RingCounters.fwd_blocks = ra.RingCounters.bwd_blocks = 0
+    if cuda:
+        torch.cuda.reset_peak_memory_stats()
+    losses, ms, first = _mp_steps(
+        pe, avg, mp_batches(cfg, spec['batch']), params,
+        lambda n: pe.global_value(n).float().cpu().clone(), sync)
+    recs = pe.collective_records()
+    if index == 0:
+        torch.save(first, os.path.join(work, 'first.pt'))
+    shards = {}
+    for p in main.global_block().all_parameters():
+        if pe.storage_spec(p.name):
+            shards[p.name] = dict(
+                local=list(scope.find_var(p.name).shape),
+                full=list(p.shape),
+                placements=[str(x) for x in pe.placements(p.name)])
+    audit = fluid.profiler.collective_audit(recs)
+    return dict(
+        losses=losses, ms=ms, start=start,
+        launches={n: getattr(fa, n).launches for n in names},
+        plain=fa.FlashAttention.plain_cuda_calls,
+        blocks=[ra.RingCounters.fwd_blocks, ra.RingCounters.bwd_blocks],
+        audit={k: [len(v), int(sum(v))] for k, v in audit.items()},
+        permute_s=sum(r['seconds'] for r in recs
+                      if r['kind'] == 'collective-permute'),
+        coll_s=sum(r['seconds'] for r in recs),
+        sent=int(sum(r['bytes'] for r in recs)),
+        param_gathers=[list(g) for g in pe.param_gathers()],
+        shards=shards,
+        peak_gb=torch.cuda.max_memory_allocated() / 1e9 if cuda else 0.0,
+        reserved_gb=torch.cuda.max_memory_reserved() / 1e9 if cuda else 0.0)
+
+
+def mp_probe_rank(index, work):
+    """`--ps-worker probe <i>`: each collective of MP_PROBES on CUDA
+    tensors under gloo, unstaged; returns {name: 'ok' | error} with the
+    sums checked. send/recv runs last (a refused send breaks the pair)."""
+    import torch
+    import torch.distributed as dist
+    import datetime
+    dist.init_process_group('gloo', init_method='file://' + os.path.join(
+        work, 'probe_store'), rank=index, world_size=2,
+        timeout=datetime.timedelta(seconds=30))
+    dev = torch.device('cuda', 0)
+    out = {}
+
+    def attempt(name, fn, want):
+        try:
+            got = fn()
+            torch.cuda.synchronize()
+            ok = torch.equal(got.cpu(), want)
+            out[name] = 'ok' if ok else 'wrong values'
+        except Exception as e:
+            out[name] = '%s: %s' % (type(e).__name__, str(e)[:160])
+    x = torch.full((4,), float(index + 1), device=dev)
+
+    def ar():
+        t = x.clone()
+        dist.all_reduce(t)
+        return t
+    attempt('all_reduce', ar, torch.full((4,), 3.0))
+
+    def ag():
+        t = torch.empty(8, device=dev)
+        dist.all_gather_into_tensor(t, x)
+        return t
+    attempt('all_gather_into_tensor', ag,
+            torch.tensor([1.0] * 4 + [2.0] * 4))
+
+    def rs():
+        t = torch.empty(2, device=dev)
+        dist.reduce_scatter_tensor(t, torch.arange(4.0, device=dev))
+        return t
+    attempt('reduce_scatter_tensor', rs,
+            torch.arange(4.0)[2 * index:2 * index + 2] * 2)
+
+    def a2a():
+        t = torch.empty(4, device=dev)
+        dist.all_to_all_single(t, torch.arange(4.0, device=dev) +
+                               10 * index)
+        return t
+    attempt('all_to_all_single', a2a, torch.tensor(
+        [2.0 * index, 2.0 * index + 1, 10 + 2.0 * index,
+         11 + 2.0 * index]))
+
+    dist.barrier()
+    dist.destroy_process_group()
+    # a refused send aborts its process (gloo throws from its own
+    # thread), so the pair runs in child processes of its own
+    try:
+        child = subprocess.run(
+            [sys.executable, os.path.abspath(__file__), '--ps-worker',
+             'probesr', str(index)], cwd=HERE, capture_output=True,
+            text=True, timeout=90)
+        tail = (child.stdout + child.stderr).strip().splitlines()
+        out['send_recv'] = 'ok' if child.returncode == 0 else \
+            'exit %d: %s' % (child.returncode, (tail or [''])[-1][:160])
+    except subprocess.TimeoutExpired:
+        out['send_recv'] = 'timed out'
+    return out
+
+
+def mp_probe_sendrecv(index, work):
+    """`--ps-worker probesr <i>`: send/recv of a CUDA tensor under gloo,
+    unstaged (rank 0 sends ones to rank 1); exits 0 only if it works."""
+    import datetime
+    import torch
+    import torch.distributed as dist
+    dist.init_process_group('gloo', init_method='file://' + os.path.join(
+        work, 'probe_sr_store'), rank=index, world_size=2,
+        timeout=datetime.timedelta(seconds=30))
+    t = torch.full((4,), float(index == 0), device='cuda')
+    if index == 0:
+        dist.send(t, 1)
+    else:
+        dist.recv(t, 0)
+        torch.cuda.synchronize()
+        if not bool((t == 1).all()):
+            raise AssertionError('send/recv delivered %s' % t.tolist())
+    dist.barrier()
+    return {'send_recv': 'ok'}
+
+
+def check_gloo_probes(work_root):
+    """MP_PROBES on CUDA tensors under gloo in two processes: the ones
+    collectives.GLOO_CUDA_HOST_STAGED names must be refused, every other
+    must give the right values (so the fixed table is the truth)."""
+    from paddle_tpu_torch.parallel import collectives as C
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    res = run_ps_cluster('mp0', work, {}, 'cuda',
+                         roles=[('probe', 0), ('probe', 1)])
+    staged = {'send_recv'} if {'send', 'recv'} <= C.GLOO_CUDA_HOST_STAGED \
+        else set()
+    out = {}
+    for name in MP_PROBES:
+        got = [res['probe%d' % i][name] for i in range(2)]
+        refused = any(g != 'ok' for g in got)
+        out[name] = 'refused' if refused else 'ok'
+        log('gloo probe on CUDA tensors: %s: %s' % (name, ' | '.join(got)))
+        if refused != (name in staged):
+            raise AssertionError(
+                'gloo probe %s: %s, but parallel/collectives.py %s it '
+                'through the host' % (name, got, 'stages' if name in staged
+                                      else 'does not stage'))
+    return out
+
+
+def _mp_ranks(name, spec, place_name, work):
+    world = 1
+    for v in spec['mesh'].values():
+        world *= v
+    spec = dict(spec, world=world)
+    return run_ps_cluster(name, work, spec, place_name,
+                          roles=[('rank', i) for i in range(world)]), world
+
+
+def _mp_check_steps(name, res, world, ref, work, place_name):
+    """The ranks agree, start from the reference's weights, and their
+    losses and first-step updates are the one-process run's within
+    TRAIN_LOSS_TOL and TRAIN_UPDATE_TOL (updates weighted by the
+    gradient, _first_order_diffs)."""
+    import torch
+    r0 = res['rank0']
+    for i in range(1, world):
+        if res['rank%d' % i]['losses'] != r0['losses']:
+            raise AssertionError('%s: rank %d fetched losses %s, rank 0 %s'
+                                 % (name, i, res['rank%d' % i]['losses'],
+                                    r0['losses']))
+    start = {n: float(t.double().sum()) for n, t in ref['start'].items()}
+    if any(abs(start[n] - r0['start'][n]) > 1e-6 * max(1.0, abs(start[n]))
+           for n in start):
+        raise AssertionError('%s: the ranks did not start from the '
+                             'reference\'s weights: %s vs %s'
+                             % (name, r0['start'], start))
+    loss_diff = max(abs(a - b) for a, b in zip(r0['losses'], ref['losses']))
+    first = torch.load(os.path.join(work, 'first.pt'))
+    params = [n for n in ref['start']]
+    grads = {n: ref['first'][n + '_velocity_0'] for n in params}
+    upd_ring = {n: first[n] - ref['start'][n] for n in params}
+    upd_ref = {n: ref['first'][n] - ref['start'][n] for n in params}
+    upd = _first_order_diffs(upd_ring, upd_ref, grads, params)
+    log('%s: losses %s vs the one-process run %s (max |diff| %.3e, tol '
+        '%g); first-step updates vs it, gradient-weighted: %s (tol %g)'
+        % (name, ' '.join('%.6f' % x for x in r0['losses']),
+           ' '.join('%.6f' % x for x in ref['losses']), loss_diff,
+           TRAIN_LOSS_TOL, ', '.join('%s %.3e' % kv for kv in upd.items()),
+           TRAIN_UPDATE_TOL))
+    if not (all(np.isfinite(r0['losses'])) and loss_diff <= TRAIN_LOSS_TOL
+            and max(upd.values()) <= TRAIN_UPDATE_TOL):
+        raise AssertionError('%s: the mesh step disagrees with the one-'
+                             'process step beyond the stated tolerance'
+                             % name)
+    reserved = sum(res['rank%d' % i]['reserved_gb'] for i in range(world))
+    if place_name == 'cuda' and reserved > MP_RESERVED_GB:
+        raise AssertionError('%s: the ranks reserved %.2f GB together, over '
+                             '%g GB' % (name, reserved, MP_RESERVED_GB))
+    return loss_diff, upd, reserved
+
+
+def _mp_log_ranks(name, res, world):
+    for i in range(world):
+        r = res['rank%d' % i]
+        log('%s rank %d: step ms %s (rotation %.3f s, all collectives %.3f '
+            's in the last step), %.1f MB sent in the last step, peak %.2f '
+            'GB allocated / %.2f GB reserved, launches %s, blocks %s'
+            % (name, i, ' '.join('%.3f' % x for x in r['ms']),
+               r['permute_s'], r['coll_s'], r['sent'] / 1e6, r['peak_gb'],
+               r['reserved_gb'], json.dumps({k: v for k, v in
+                                             r['launches'].items() if v}),
+               r['blocks']))
+    log('%s: collective_audit of one step (rank 0): %s'
+        % (name, json.dumps(res['rank0']['audit'])))
+
+
+def check_ring_blocks(spec):
+    """K1 on a diagonal (causal) and an off-diagonal block, K2 on both,
+    and one rank's merged (o, lse) at mp1's block shape, against their
+    plain versions on the same inputs on the card (KERNEL_ATOL, O_RTOL,
+    G_RTOL: the bf16 training bounds)."""
+    import torch
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.parallel import ring_attention as ra
+    m = spec['model']
+    sp = spec['mesh']['sp']
+    BH = spec['batch'] * m['heads']
+    Tl, d = m['max_len'] // sp, m['dim'] // m['heads']
+    g = torch.Generator(device='cuda').manual_seed(SEED)
+    q, k0, k1, v0, v1, do = (torch.randn(BH, Tl, d, device='cuda',
+                                         generator=g).to(torch.bfloat16)
+                             for _ in range(6))
+    scale = d ** -0.5
+    out = {}
+    for tag, kb, vb, causal in (('diagonal', k1, v1, True),
+                                ('off-diagonal', k0, v0, False)):
+        o, lse = fa.flash_attention_fwd(q, kb, vb, causal, scale)
+        o_ref, lse_ref = fa.flash_attention_reference(q, kb, vb, causal,
+                                                      scale)
+        o_err, o_rel, lse_err, ok = check_fwd_output(o, lse, o_ref, lse_ref,
+                                                     'bfloat16')
+        delta = fa.bwd_delta(o_ref, do)
+        got = fa.flash_attention_bwd_kvmajor(q, kb, vb, do, lse_ref, delta,
+                                             causal, scale)
+        want = fa.flash_attention_bwd_reference(q, kb, vb, o_ref, lse_ref,
+                                                do, causal, scale)
+        g_err, g_rels, g_ok = check_grads(got, want, 'bfloat16')
+        out[tag] = dict(k1=[o_err, lse_err], k2=g_err)
+        log('mp1 %s block [%d, %d, %d] bf16: K1 o max |err| %.3e (rel %.3e), '
+            'lse %.3e; K2 max |err| %.3e (rel %s)'
+            % (tag, BH, Tl, d, o_err, o_rel, lse_err, g_err,
+               ' '.join('%.2e' % x for x in g_rels)))
+        if not (ok and g_ok):
+            raise AssertionError('mp1: the %s block disagrees with its '
+                                 'plain version' % tag)
+    # rank 1's merged partial: its diagonal block and rank 0's block
+    o_a, l_a = fa.flash_attention_fwd(q, k1, v1, True, scale)
+    o_b, l_b = fa.flash_attention_fwd(q, k0, v0, False, scale)
+    o_m, l_m = ra.merge_partials(o_a.float(), l_a, o_b, l_b)
+    p_a = fa.flash_attention_reference(q, k1, v1, True, scale)
+    p_b = fa.flash_attention_reference(q, k0, v0, False, scale)
+    r_m, rl_m = ra.merge_partials(p_a[0].float(), p_a[1], *p_b)
+    o_err, o_rel, lse_err, ok = check_fwd_output(
+        o_m.to(torch.bfloat16), l_m, r_m.to(torch.bfloat16), rl_m,
+        'bfloat16')
+    out['merged'] = [o_err, lse_err]
+    log('mp1 rank 1 merged (o, lse): o max |err| %.3e (rel %.3e), lse %.3e'
+        % (o_err, o_rel, lse_err))
+    if not ok:
+        raise AssertionError('mp1: the merged partial disagrees with its '
+                             'plain version')
+    return out
+
+
+@phase('mp1: ring attention at full width (bench_long_context\'s LM, '
+       'sp=4 ranks sharing the card under gloo, K1 and K2 per block)')
+def mesh_ring_steps(work_root, spec=None, place_name='cuda'):
+    import paddle_tpu_torch as fluid
+    t0 = time.perf_counter()
+    spec = mp_spec('mp1', spec)
+    place = fluid.CUDAPlace(0) if place_name == 'cuda' else fluid.CPUPlace()
+    blocks = probes = None
+    probe_out = {}
+    if place_name == 'cuda':
+        # the probes' four processes run beside the checks and the
+        # reference step here (they move a few bytes each)
+        import threading
+
+        def run_probes():
+            try:
+                probe_out['ok'] = check_gloo_probes(work_root)
+            except Exception as e:      # re-raised below, in the phase
+                probe_out['error'] = e
+        prober = threading.Thread(target=run_probes)
+        prober.start()
+        try:
+            blocks = check_ring_blocks(spec)
+            ref = mp_reference('mp1', spec, place)
+        finally:
+            prober.join()
+        if 'error' in probe_out:
+            raise probe_out['error']
+        probes = probe_out['ok']
+    else:
+        ref = mp_reference('mp1', spec, place)
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    t_ranks = time.perf_counter()
+    res, world = _mp_ranks('mp1', spec, place_name, work)
+    ranks_s = time.perf_counter() - t_ranks
+    layers = spec['model']['layers']
+    launches = {'K1': 0, 'K2': 0}
+    for i in range(world):
+        r = res['rank%d' % i]
+        n = layers * (i + 1) * MP_STEPS
+        _check_flash_launches(
+            'mp1: rank %d in %d steps' % (i, MP_STEPS),
+            dict(r['launches'], plain_cuda_calls=r['plain']),
+            {KERNELS['fwd'][0]: n, KERNELS['k2'][0]: n}, place_name)
+        if r['blocks'] != [n, n]:
+            raise AssertionError('mp1: rank %d computed %s blocks, want %d '
+                                 'each way' % (i, r['blocks'], n))
+        launches['K1'] += r['launches'][KERNELS['fwd'][0]]
+        launches['K2'] += r['launches'][KERNELS['k2'][0]]
+    _mp_log_ranks('mp1', res, world)
+    loss_diff, upd, reserved = _mp_check_steps('mp1', res, world, ref, work,
+                                               place_name)
+    wall = time.perf_counter() - t0
+    log('mp1: %d ranks, K1 %d and K2 %d launches in %d steps (%d each a '
+        'step), the one-process step %s ms; ranks %.1f s, phase %.1f s'
+        % (world, launches['K1'], launches['K2'], MP_STEPS,
+           launches['K1'] // MP_STEPS, ' '.join('%.3f' % x
+                                                for x in ref['ms']),
+           ranks_s, wall))
+    return dict(launches=launches, seconds=wall, loss_diff=loss_diff,
+                upd=upd, reserved=reserved, blocks=blocks, probes=probes,
+                ms=[res['rank%d' % i]['ms'] for i in range(world)],
+                ref_ms=ref['ms'])
+
+
+@phase('mp2: tensor, sequence and data parallelism (the flagship LM at '
+       'full width cut to 2 layers, dp=2 x tp=2 ranks sharing the card)')
+def mesh_tp_steps(work_root, spec=None, place_name='cuda'):
+    import paddle_tpu_torch as fluid
+    t0 = time.perf_counter()
+    spec = mp_spec('mp2', spec)
+    place = fluid.CUDAPlace(0) if place_name == 'cuda' else fluid.CPUPlace()
+    ref = mp_reference('mp2', spec, place)
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    res, world = _mp_ranks('mp2', spec, place_name, work)
+    layers = spec['model']['layers']
+    _mp_log_ranks('mp2', res, world)
+    launches = {'K1': 0, 'K2': 0}
+    for i in range(world):
+        r = res['rank%d' % i]
+        _check_flash_launches(
+            'mp2: rank %d in %d steps' % (i, MP_STEPS),
+            dict(r['launches'], plain_cuda_calls=r['plain']),
+            {KERNELS['fwd'][0]: layers * MP_STEPS,
+             KERNELS['k2'][0]: layers * MP_STEPS}, place_name)
+        launches['K1'] += r['launches'][KERNELS['fwd'][0]]
+        launches['K2'] += r['launches'][KERNELS['k2'][0]]
+        # every tp weight is its dim's half, read from the placements
+        for pname, sh in r['shards'].items():
+            half = list(sh['full'])
+            for pl in sh['placements']:
+                if pl.startswith('S('):
+                    half[int(pl[2:-1])] //= spec['mesh']['tp']
+            if sh['local'] != half:
+                raise AssertionError('mp2: rank %d holds %s as %s, want %s '
+                                     '(placements %s)'
+                                     % (i, pname, sh['local'], half,
+                                        sh['placements']))
+        bad = [g for g in r['param_gathers'] if 'tp' in g[1]]
+        if bad:
+            raise AssertionError('mp2: rank %d all-gathered a whole tp '
+                                 'weight: %s' % (i, bad))
+        if 'all-reduce' not in r['audit']:
+            raise AssertionError('mp2: no all-reduce in rank %d\'s audit'
+                                 % i)
+    tp_names = sorted(res['rank0']['shards'])
+    if not tp_names:
+        raise AssertionError('mp2: no weight is sharded over tp')
+    loss_diff, upd, reserved = _mp_check_steps('mp2', res, world, ref, work,
+                                               place_name)
+    r0 = res['rank0']
+    wall = time.perf_counter() - t0
+    log('mp2: %d tp-sharded weights held as halves (%s, ...); rank 0 step '
+        '%.3f ms, of it %.3f ms in collectives (the rest device work and '
+        'the host); the one-process step %s ms; K1 %d, K2 %d launches; '
+        'phase %.1f s'
+        % (len(tp_names), ', '.join(tp_names[:3]), r0['ms'][-1],
+           r0['coll_s'] * 1e3, ' '.join('%.3f' % x for x in ref['ms']),
+           launches['K1'], launches['K2'], wall))
+    return dict(launches=launches, seconds=wall, loss_diff=loss_diff,
+                upd=upd, reserved=reserved, ms=r0['ms'],
+                coll_ms=r0['coll_s'] * 1e3, ref_ms=ref['ms'],
+                audit=r0['audit'])
+
+
 def scratch(path):
     """Register a temporary directory (the saved serving model, the
     checkpoints, the obs logs) for remove_scratch()."""
@@ -12969,15 +13554,17 @@ def main():
         # each phase's checkpoints (~12 GB) are removed once it has
         # checked them, so they do not sit in the host's page cache and
         # temporary space through the later phases
-        tr1 = trainer_steps(cfg, place, counters, ckpt_root, sync)
+        tr_cfg = TransformerConfig(**TR_MODEL)
+        tr1 = trainer_steps(tr_cfg, place, counters, ckpt_root, sync)
         drop_checkpoints(ckpt_root, 'tr1')
-        tr2 = trainer_resume(cfg, place, counters, ckpt_root, sync)
+        tr2 = trainer_resume(tr_cfg, place, counters, ckpt_root, sync)
         drop_checkpoints(ckpt_root, 'tr2')
-        tr3_run, tr3 = trainer_faults(cfg, place, counters, ckpt_root,
+        tr3_run, tr3 = trainer_faults(tr_cfg, place, counters, ckpt_root,
                                       obs_dir, tr2['losses'], tr2['ms'], sync)
         drop_checkpoints(ckpt_root, 'tr3')
-        tr4 = trainer_test_and_infer(cfg, tr3_run, build_root, sync)
-        o1 = trainer_telemetry(cfg, place, counters, obs_dir, tr1['ms'], sync)
+        tr4 = trainer_test_and_infer(tr_cfg, tr3_run, build_root, sync)
+        o1 = trainer_telemetry(tr_cfg, place, counters, obs_dir, tr1['ms'],
+                               sync)
         o2 = serving_slo(model_dir, place, prompts, streams, obs_dir, sync)
 
         adam = adam_steps(adam_cfg, place, counters, sync)
@@ -13096,6 +13683,13 @@ def main():
         fl1 = fleet_serving(model_dir, build_root)
         free_device_memory()
         fl2 = disagg_serving(model_dir, build_root)
+        free_device_memory()
+        # the mesh: ranks on the card after every one-process phase
+        t_mp = time.perf_counter()
+        mp1 = mesh_ring_steps(build_root)
+        free_device_memory()
+        mp2 = mesh_tp_steps(build_root)
+        mp_s = time.perf_counter() - t_mp
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
@@ -13116,11 +13710,13 @@ def main():
                      + sum(fl1['launches'].values()),
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'] +
-                         pf1['launches']['K1'],
+                         pf1['launches']['K1'] + mp1['launches']['K1'] +
+                         mp2['launches']['K1'],
                      'flash_attention_bwd_kvmajor':
                          train_launches['flash_attention_bwd_kvmajor'] +
                          pf1['launches']['K2/K5'] + ps1['launches']['K2']
-                         + on1['launches']['K2'],
+                         + on1['launches']['K2'] + mp1['launches']['K2']
+                         + mp2['launches']['K2'],
                      'flash_attention_bwd_dq':
                          split_launches['flash_attention_bwd_dq'],
                      'flash_attention_bwd_dkv':
@@ -13430,6 +14026,21 @@ def main():
            ', '.join('%s %.3f s' % kv for kv in fl1['deploy_each'].items()),
            json.dumps(fl1['launches']), fl2['seconds'], fl2['ship_bytes'],
            fl2['fetch_ms'][1], fl2['bit_equal'], fl2['local_reprefills']))
+    log('the mesh (%.1f s for mp1 and mp2, their processes\' start '
+        'included; ranks share the card under gloo): mp1 %.1f s, the ring '
+        'step ms by rank %s vs the one-process step %s ms, loss |diff| '
+        '%.3e, updates %s, ranks reserved %.2f GB together, gloo probes '
+        '%s; mp2 %.1f s, step %s ms (%.3f ms of it in collectives) vs '
+        'one process %s ms, loss |diff| %.3e, updates %s, audit %s'
+        % (mp_s, mp1['seconds'], ' | '.join(
+            ' '.join('%.1f' % x for x in ms) for ms in mp1['ms']),
+           ' '.join('%.1f' % x for x in mp1['ref_ms']), mp1['loss_diff'],
+           ', '.join('%s %.3e' % kv for kv in mp1['upd'].items()),
+           mp1['reserved'], json.dumps(mp1['probes']), mp2['seconds'],
+           ' '.join('%.1f' % x for x in mp2['ms']), mp2['coll_ms'],
+           ' '.join('%.1f' % x for x in mp2['ref_ms']), mp2['loss_diff'],
+           ', '.join('%s %.3e' % kv for kv in mp2['upd'].items()),
+           json.dumps(mp2['audit'])))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

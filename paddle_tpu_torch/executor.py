@@ -367,12 +367,14 @@ class EmitContext(object):
     replayed (the card's default path): a while op's host step then
     captures its body (Executor.run_loop).
     A sub-block's context (sub_context) writes only its own values,
-    never the scope, and draws from its own generator (`rng`)."""
+    never the scope, and draws from its own generator (`rng`); it keeps
+    the parent's mesh, so a sub-block re-run for a gradient stays on
+    the mesh (the JAX package's registry._SandboxCtx.mesh)."""
 
     __slots__ = ('local', 'scope', 'block', 'device', 'amp', 'is_test',
                  'records', 'overrides', 'wanted', 'capturing', 'graphs',
                  'rng', 'generators', 'op_generators', 'writes_scope',
-                 '_executor', '_program')
+                 'mesh', 'bn_local_stats', 'dist', '_executor', '_program')
 
     def __init__(self, executor, program, block, scope, local):
         self._executor = executor
@@ -397,6 +399,13 @@ class EmitContext(object):
         # id(op) -> the generator of an op with its own seed attr
         self.op_generators = {}
         self.writes_scope = True
+        # a mesh run (ParallelExecutor over ranks): the Mesh, the
+        # executor's batch-norm override (None: FLAGS_bn_local_stats),
+        # and the run's layouts (parallel/layout.py DistState), through
+        # which every op is emitted; None on one device
+        self.mesh = getattr(executor, 'mesh', None)
+        self.bn_local_stats = getattr(executor, '_bn_local_stats', None)
+        self.dist = None
 
     def sub_context(self, block, local, rng):
         """The context of a control-flow sub-block run on `local`."""
@@ -537,7 +546,7 @@ def _run_recorded(ctx, opdef, op):
     ctx.overrides = leaves
     try:
         with torch.enable_grad():
-            opdef.emit(ctx, op)
+            _call_emit(ctx, opdef, op)
     finally:
         ctx.overrides = None
     outs = {n: ctx.local[n] for n in op.output_arg_names() if n in ctx.local}
@@ -559,12 +568,20 @@ def check_finite(ctx, op, pos):
                 % (name, _describe_op(op, ctx.block, pos)))
 
 
+def _call_emit(ctx, opdef, op):
+    """The op's emitter; on a mesh through its layout rule."""
+    if ctx.dist is not None:
+        ctx.dist.emit(ctx, opdef, op)
+    else:
+        opdef.emit(ctx, op)
+
+
 def _emit(ctx, opdef, op):
     if opdef.vjp_slots is not None and ctx.wanted and \
             registry.record_key(op.type, op.outputs) in ctx.wanted:
         _run_recorded(ctx, opdef, op)
     else:
-        opdef.emit(ctx, op)
+        _call_emit(ctx, opdef, op)
 
 
 def run_op(ctx, op, pos):
@@ -1080,8 +1097,10 @@ class Executor(object):
                        sync=results)
         return results
 
-    def _run_prepared(self, prepared, local, scope, program, captured):
+    def _run_prepared(self, prepared, local, scope, program, captured,
+                      dist=None):
         ctx = EmitContext(self, program, prepared.block, scope, local)
+        ctx.dist = dist
         ctx.wanted = prepared.wanted
         drop = prepared.drop
         check_nan_inf = get_flag('check_nan_inf')

@@ -250,6 +250,10 @@ __all__ = ['set_flags', 'get_flag', 'get_flags']
 
 _DEFAULTS = {
     'check_nan_inf': False,
+    # MeshConfig.from_flags axis spec, e.g. 'dp=2,tp=2' ('' = dp over
+    # every rank); per-rank batch_norm statistics on a dp mesh
+    'mesh_shape': '',
+    'bn_local_stats': False,
     'use_flash_attention': True,
     'use_pallas_fused_ops': False,
     'amp_bf16_param_grads': False,

@@ -2,10 +2,12 @@
 prefill/decode programs (counterpart of paddle_tpu/models/transformer.py:
 26-188, 216-520).
 
-One device: the tensor- and sequence-parallel annotations of the
-default config (use_tp, use_sp) are built and inert; with moe_experts
-each block's FFN is parallel.layers.moe_layer, its experts on the one
-card; pipeline parallelism and ring attention are not ported.
+The tensor- and sequence-parallel annotations of the default config
+(use_tp, use_sp) are built always: inert on one card, the layouts of a
+ParallelExecutor over ranks on a mesh; with moe_experts each block's FFN
+is parallel.layers.moe_layer (its experts over 'ep' on a mesh); with
+ring_attention the attention is the sp ring. Pipeline parallelism is
+not ported.
 TransformerConfig(remat=) runs each block in a rematerialization scope
 (layers.recompute), as in the JAX package. Programs built with the same config and names are the same
 Program text as the JAX package's, so weights carry across by name.
@@ -58,8 +60,10 @@ class TransformerConfig(object):
     annotations are inert (parallel/layers.py), so the default config
     builds and trains the same Program as the JAX package.
     moe_experts=E makes each block's FFN a top-1 mixture of E experts
-    (moe_layer's defaults). Pipeline parallelism and ring attention are
-    not ported and raise.
+    (moe_layer's defaults). ring_attention=True runs attention through
+    the sp ring (parallel.layers.ring_attention; ordinary attention off
+    a mesh). Pipeline parallelism (pp_stages) is not ported and
+    raises.
     remat: None (keep every activation), 'nothing' (each block keeps
     only its output; the backward runs the block again) or 'dots' (it
     also keeps the matrix products' outputs); any other truthy value
@@ -69,12 +73,11 @@ class TransformerConfig(object):
                  max_len=64, moe_experts=0, use_tp=True, use_sp=True,
                  pp_stages=0, ring_attention=False,
                  flash_attention=False, remat=None):
-        for name, value in (('pp_stages', pp_stages),
-                            ('ring_attention', ring_attention)):
-            if value:
-                raise NotImplementedError(
-                    'TransformerConfig(%s=%r) is not ported (ROADMAP.md, '
-                    'Queue 1 item 8)' % (name, value))
+        if pp_stages:
+            raise NotImplementedError(
+                'TransformerConfig(pp_stages=%r) is not ported: the '
+                'pipeline engine waits (ROADMAP.md, Queue 1 item 8, the '
+                'pipeline bullet)' % (pp_stages,))
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.ffn, self.max_len = layers, ffn, max_len
         self.moe_experts, self.pp_stages = moe_experts, pp_stages
@@ -104,11 +107,16 @@ def _attention(x, cfg, prefix):
         part = L.reshape(part, shape=[-1, T, H, dh])
         part = L.transpose(part, perm=[0, 2, 1, 3])        # [B, H, T, dh]
         if cfg.use_tp:
-            part = sharding_constraint(part, ('dp', 'tp', None, None))
+            # under ring attention T stays sharded over sp
+            t_ax = 'sp' if (cfg.ring_attention and cfg.use_sp) else None
+            part = sharding_constraint(part, ('dp', 'tp', t_ax, None))
         return part
 
     q, k, v = heads(0, D), heads(D, 2 * D), heads(2 * D, 3 * D)
-    if cfg.flash_attention:
+    if cfg.ring_attention:
+        from ..parallel.layers import ring_attention
+        ctx = ring_attention(q, k, v, causal=True)         # [B, H, T, dh]
+    elif cfg.flash_attention:
         ctx = L.flash_attention(q, k, v, causal=True)      # [B, H, T, dh]
     else:
         scores = L.matmul(q, k, transpose_y=True, alpha=1.0 / np.sqrt(dh))

@@ -1,5 +1,6 @@
 """Attention and KV-cache ops (counterpart of
-paddle_tpu/ops/attention_ops.py: flash_attention :57, kv_cache_write :84,
+paddle_tpu/ops/attention_ops.py: ring_attention :20, flash_attention :57,
+kv_cache_write :84,
 kv_cache_append :96, decode_mask :113, position_embedding_at :134,
 gather_time :149, and the paged-cache ops :177-315: kv_page_cow,
 kv_page_write, kv_page_append, kv_page_gather, paged_decode_mask,
@@ -23,6 +24,46 @@ import torch
 from ..flags import get_flag
 from ..kernels import flash_attention as fa
 from ..registry import register_op, op_emitter, register_vjp_grad, amp_cast
+
+
+@op_emitter('ring_attention')
+def _ring_attention_emit(ctx, op):
+    """Context-parallel attention. On a mesh with an 'sp' axis the op
+    runs by its layout rule (parallel/layout.py): the ring of
+    parallel/ring_attention.py, through K1 and the backward arm per
+    block with FLAGS_use_flash_attention, else the plain ring fold.
+    Off the mesh (or where sp does not divide T) it is ordinary
+    attention: the flash path (fa.flash_attention) with the flag, else
+    plain fp32 softmax attention in q's dtype."""
+    q, k, v = amp_cast(ctx, ctx.get(op.single_input('Q')),
+                       ctx.get(op.single_input('K')),
+                       ctx.get(op.single_input('V')))
+    causal = op.attr('causal', True)
+    sm_scale = op.attr('sm_scale', None)
+    if get_flag('use_flash_attention'):
+        out = fa.flash_attention(q, k, v, causal=causal, sm_scale=sm_scale)
+    else:
+        scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+        s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+        if causal:
+            T = q.shape[-2]
+            mask = torch.ones((T, T), dtype=torch.bool,
+                              device=q.device).tril()
+            s = s.masked_fill(~mask, -1e30)
+        out = torch.matmul(torch.softmax(s, -1), v.float()).to(q.dtype)
+    ctx.set(op.single_output('Out'), out)
+
+
+def _ring_infer(op, block):
+    q = block.var_recursive(op.single_input('Q'))
+    out = block.var_recursive(op.single_output('Out'))
+    out.shape = q.shape
+    out.dtype = q.dtype
+    out.lod_level = q.lod_level
+
+
+register_op('ring_attention', infer_shape=_ring_infer)
+register_vjp_grad('ring_attention', in_slots=('Q', 'K', 'V'))
 
 
 @op_emitter('flash_attention')

@@ -205,16 +205,20 @@ def _bn_axes(x, layout):
     return tuple(i for i in range(x.ndim) if i != ch), ch_shape
 
 
-def _bn_batch_stats(x, axes):
+def _bn_batch_stats(x, axes, reduce=None):
     """Single-pass batch statistics in fp32: sum and sum of squares, with
-    the clamp that guards E[x²] - E[x]² against cancellation."""
+    the clamp that guards E[x²] - E[x]² against cancellation. reduce:
+    fn(sum, sum of squares, count) -> the same over the whole batch (a
+    mesh's synchronised batch norm, parallel/layout.py)."""
     xf = x.float()
     m = 1
     for i in axes:
         m *= x.shape[i]
-    mean = torch.sum(xf, dim=axes) / m
-    var = torch.clamp(torch.sum(xf * xf, dim=axes) / m - mean * mean,
-                      min=0.0)
+    s1, s2 = torch.sum(xf, dim=axes), torch.sum(xf * xf, dim=axes)
+    if reduce is not None:
+        s1, s2, m = reduce(s1, s2, m)
+    mean = s1 / m
+    var = torch.clamp(s2 / m - mean * mean, min=0.0)
     return mean, var
 
 
@@ -233,7 +237,9 @@ def _batch_norm_emit(ctx, op):
         use_mean, use_var = mean, var
         mean_out, var_out = mean, var
     else:
-        use_mean, use_var = _bn_batch_stats(x, axes)
+        reduce = ctx.dist.bn_reduce if ctx.dist is not None else None
+        use_mean, use_var = (_bn_batch_stats(x, axes) if reduce is None
+                             else _bn_batch_stats(x, axes, reduce))
         mean_out = mean * momentum + use_mean * (1 - momentum)
         var_out = var * momentum + use_var * (1 - momentum)
     # the affine folded into one per-channel (a, b): y = x·a + b
@@ -302,18 +308,24 @@ def _batch_norm_grad_emit(ctx, op):
     for i in axes:
         m *= x.shape[i]
     xf, gyf, scale_f = x.float(), gy.float(), scale.float()
+    # a mesh's synchronised batch norm sums over the whole batch
+    reduce = ctx.dist.bn_reduce if ctx.dist is not None else None
     if is_test:
         mean = ctx.get(fwd_inputs['Mean'][0]).float()
         var = ctx.get(fwd_inputs['Variance'][0]).float()
     elif op.input('SavedMean') and op.input('SavedVariance'):
         mean = ctx.get(op.single_input('SavedMean')).float()
         var = ctx.get(op.single_input('SavedVariance')).float()
-    else:
+    elif reduce is None:
         mean, var = _bn_batch_stats(x, axes)
+    else:
+        mean, var = _bn_batch_stats(x, axes, reduce)
     inv_std = torch.rsqrt(var + eps)
     xhat = (xf - mean.reshape(ch_shape)) * inv_std.reshape(ch_shape)
     sum_dy = torch.sum(gyf, dim=axes)
     sum_dy_xhat = torch.sum(gyf * xhat, dim=axes)
+    if reduce is not None and not is_test:
+        sum_dy, sum_dy_xhat, m = reduce(sum_dy, sum_dy_xhat, m)
     if is_test:
         gx = gyf * (scale_f * inv_std).reshape(ch_shape)
     else:

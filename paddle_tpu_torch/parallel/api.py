@@ -1,10 +1,14 @@
-"""Sharding annotations (counterpart of paddle_tpu/parallel/api.py:21-62).
+"""Sharding annotations (counterpart of paddle_tpu/parallel/api.py:21-71).
 
-Only the single-device case is ported: shard_tensor records its spec on
-the Variable, as the JAX package does, and a sharding_constraint op is
-the identity, so programs that carry the annotations (the LM built with
-use_tp / use_sp, every cached serving program) run unchanged on one
-card."""
+shard_tensor records a spec on a Variable (a parameter or a feed), as
+the JAX package does; a ParallelExecutor over ranks stores the value by
+it (each rank its shard). A sharding_constraint op pins a value's
+layout: on a mesh it redistributes the value to its spec (the layout
+rule in parallel/layout.py: gathers and chunks over the mesh's axes),
+off the mesh it is the identity, so programs that carry the annotations
+(the LM built with use_tp / use_sp, every cached serving program) run
+unchanged on one card. pipeline_stage_guard waits for the pipeline
+engine (ROADMAP.md Queue 1 item 8's pipeline bullet)."""
 from __future__ import annotations
 
 from ..framework import grad_var_name
@@ -22,6 +26,7 @@ def shard_tensor(var, spec):
 
 
 def _sharding_constraint_emit(ctx, op):
+    """Off a mesh: the identity (on a mesh the layout rule runs)."""
     ctx.set(op.single_output('Out'), ctx.get(op.single_input('X')))
 
 

@@ -1,12 +1,13 @@
-"""Model-parallel layers, one-device forms (counterpart of
-paddle_tpu/parallel/layers.py:43-150): the same ops, parameter names and
-sharding annotations as the JAX package builds, so a program built with
-TransformerConfig(use_tp=True, use_sp=True) or TransformerConfig(
-moe_experts=) is the same Program in both packages. On one card the
-annotations are inert (api.py); moe_layer's experts all live on it.
-
-ring_attention raises NotImplementedError: context parallelism is not
-ported (ROADMAP.md, Queue 1 item 8).
+"""Model-parallel layers (counterpart of paddle_tpu/parallel/layers.py:
+26-150): the same ops, parameter names and sharding annotations as the
+JAX package builds, so a program built with TransformerConfig(use_tp=
+True, use_sp=True, ring_attention=, moe_experts=) is the same Program
+in both packages. On one card the annotations are inert; on a mesh
+(ParallelExecutor over ranks) the weights are stored by them and the
+ops run by their layout rules (parallel/layout.py): column- and
+row-parallel products with their all-reduces, a vocab-sharded lookup,
+the sequence split, the ring, and MoE's experts over 'ep'
+(parallel/moe.py).
 """
 from __future__ import annotations
 
@@ -19,10 +20,6 @@ from .api import shard_tensor, sharding_constraint
 __all__ = ['column_parallel_fc', 'row_parallel_fc',
            'vocab_parallel_embedding', 'sequence_parallel_scope',
            'moe_layer', 'ring_attention']
-
-_NOT_PORTED = ('%s is not ported: context parallelism waits (ROADMAP.md, '
-               'Queue 1 item 8)')
-
 
 def _fc(input, size, param_spec, act=None, param_attr=None, bias_attr=None,
         num_flatten_dims=None, name=None):
@@ -118,4 +115,16 @@ def moe_layer(input, num_experts, hidden_size, act='gelu', k=1,
 
 
 def ring_attention(q, k, v, causal=True, sm_scale=None, name=None):
-    raise NotImplementedError(_NOT_PORTED % 'ring_attention')
+    """Context-parallel attention (parallel/ring_attention.py): q, k, v
+    [B, H, T, dh] with T sharded over 'sp'; the K/V blocks travel the
+    ring and each is folded into the result. Exactly full softmax
+    attention. Off the mesh it is ordinary attention."""
+    helper = LayerHelper('ring_attention', name=name)
+    out = helper.create_variable_for_type_inference(q.dtype)
+    helper.append_op(
+        type='ring_attention',
+        inputs={'Q': [q], 'K': [k], 'V': [v]},
+        outputs={'Out': [out]},
+        attrs={'causal': causal, 'sm_scale': sm_scale})
+    out.lod_level = q.lod_level
+    return out

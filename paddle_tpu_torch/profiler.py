@@ -338,11 +338,23 @@ def cuda_profiler(output_file, output_mode=None, config=None):
             _stop_session(session, output_file)
 
 
-def collective_audit(hlo_texts):
-    raise NotImplementedError(
-        'profiler.collective_audit counts the collectives of a sharded '
-        'program, which the port does not run yet '
-        '(ROADMAP.md Queue 1 item 8)')
+def collective_audit(records):
+    """kind -> [payload bytes] for every collective a mesh run issued,
+    in the JAX package's five kind names ('all-reduce', 'all-gather',
+    'reduce-scatter', 'collective-permute', 'all-to-all'); kinds with
+    none are left out. Its input is the port's record of the
+    collectives (ParallelExecutor.collective_records(), or the list
+    parallel.collectives.recording() collects): one dict a collective
+    with its 'kind' and 'bytes' (the result's bytes, as the JAX
+    package counts an HLO instruction's result shape). The JAX package
+    reads the same counts out of compiled HLO texts."""
+    from .parallel.collectives import KINDS
+    colls = {k: [] for k in KINDS}
+    for r in records:
+        if r['kind'] not in colls:
+            raise ValueError('unknown collective kind %r' % (r['kind'],))
+        colls[r['kind']].append(int(r['bytes']))
+    return {k: v for k, v in colls.items() if v}
 
 
 # ---------------------------------------------------------------------------

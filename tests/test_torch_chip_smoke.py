@@ -2563,3 +2563,36 @@ def test_pf1_and_rf1_run_on_the_cpu_at_a_tiny_width(tmp_path, monkeypatch):
     assert rf1['bits'] and rf1['img_err'] <= chip_smoke.RF_IMAGE_ATOL
     assert set(rf1['rates']) == {1, 2} and min(rf1['rates'].values()) > 0
     assert rf1['pre_ms'] > 0 and rf1['rec_ms'] > 0
+
+
+# -- mp1, mp2: the device mesh ------------------------------------------------
+
+MP_TINY = dict(vocab=512, dim=64, heads=2, ffn=128, max_len=64, layers=2)
+
+
+@pytest.mark.parametrize('name', ['mp1', 'mp2'])
+def test_mesh_phases_run_on_the_cpu_at_a_tiny_width(tmp_path, name):
+    """mp1 (the ring LM on sp=4) and mp2 (the flagship LM on dp=2 x tp=2)
+    through the one runner and worker entry, 4 CPU ranks, at 2 layers,
+    D 64, T 64: the ranks agree, start from the one-process run's
+    weights, and their losses and first-step updates are within its
+    bounds; mp1's ranks compute r + 1 blocks each way a step."""
+    fn = chip_smoke.mesh_ring_steps if name == 'mp1' else \
+        chip_smoke.mesh_tp_steps
+    spec = {'model': dict(MP_TINY), 'batch': 4, 'head_chunk': 128}
+    try:
+        out = fn(str(tmp_path), spec=spec, place_name='cpu')
+    finally:
+        chip_smoke.remove_scratch()
+    assert out['loss_diff'] <= chip_smoke.TRAIN_LOSS_TOL
+    assert max(out['upd'].values()) <= chip_smoke.TRAIN_UPDATE_TOL
+    if name == 'mp2':
+        assert 'all-reduce' in out['audit']
+
+
+def test_mesh_phases_are_wired_into_main():
+    import inspect
+    src = inspect.getsource(chip_smoke.main)
+    assert src.index('disagg_serving(') < src.index('mesh_ring_steps(') < \
+        src.index('mesh_tp_steps(')
+    assert "mp1['launches']['K1']" in src and "mp1['launches']['K2']" in src

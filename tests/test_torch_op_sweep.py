@@ -606,6 +606,12 @@ for _t, (_module, _test, _why) in {
 }.items():
     COVERED_ELSEWHERE[_t] = (_module, _test, _why)
 
+# item 8's ring attention: the op off the mesh vs the JAX package; on a
+# mesh the ring against ring_attention_global, forward and gradients
+COVERED_ELSEWHERE['ring_attention'] = (
+    'test_torch_ring_attention', 'test_ring_attention_op_off_mesh_fallback',
+    'the op vs the JAX package; the ring across ranks in the same file')
+
 EXCEPTIONS = {
     'reshape_grad_helper': 'the grad op of reshape2 and reshape, run by '
                            'their grad cases in this sweep',

@@ -117,19 +117,43 @@ def test_default_config_builds_the_jax_program():
                        None) == v.dist_attr, v.name
 
 
-# the ids the two cases had beside the moe_experts case (kw0), ported now
+# the ids the two cases had beside the moe_experts case (kw0), ported
+# now: pp_stages still raises naming item 8's pipeline bullet; the ring
+# config builds the JAX package's Program
 @pytest.mark.parametrize('kw', [dict(pp_stages=2), dict(ring_attention=True)],
                          ids=['kw1', 'kw2'])
 def test_unported_parallelism_raises(kw):
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-        ttransformer.TransformerConfig(**kw)
+    if 'pp_stages' in kw:
+        with pytest.raises(NotImplementedError,
+                           match='Queue 1 item 8, the pipeline bullet'):
+            ttransformer.TransformerConfig(**kw)
+        return
+    cfg = dict(vocab=64, dim=16, heads=2, layers=1, ffn=32, max_len=8,
+               use_tp=True, use_sp=True, **kw)
+    texts = []
+    for fl, tr, un in ((jfluid, jtransformer, junique_name),
+                       (tfluid, ttransformer, tunique_name)):
+        prog, startup = fl.Program(), fl.Program()
+        with un.guard(), fl.program_guard(prog, startup):
+            toks = fl.layers.data(name='t', shape=[8, 1], dtype='int64')
+            tr.language_model_trunk(toks, tr.TransformerConfig(**cfg))
+        texts.append(prog.to_string())
+    assert texts[1] == texts[0]
+    assert 'ring_attention' in texts[1]
 
 
 @pytest.mark.parametrize('name', ['ring_attention'])
 def test_unported_parallel_layers_raise(name):
+    """Ported: the layer appends the JAX package's op (it raised before
+    this slice)."""
     from paddle_tpu_torch.parallel import layers as pl
-    with pytest.raises(NotImplementedError, match='Queue 1 item 8'):
-        getattr(pl, name)(None, None, None)
+    prog, startup = tfluid.Program(), tfluid.Program()
+    with tfluid.program_guard(prog, startup):
+        q = tfluid.layers.data(name='q', shape=[2, 8, 4], dtype='float32')
+        out = getattr(pl, name)(q, q, q, causal=False)
+    op = prog.global_block().ops[-1]
+    assert op.type == 'ring_attention' and op.attr('causal') is False
+    assert out.shape == q.shape
 
 
 def test_default_config_lm_trains_like_jax():
