@@ -166,10 +166,11 @@ set_gradient_clip, under contrib.mixed_precision.decorate:
       fake_quantize's three modes on ResNet-50's res2 output, auc's state
       over three batches at batch 4096) and random_crop's draw.
 The Adam LM is freed, then the flagship LM in its mixture-of-experts
-form (MOE_MODEL: moe_experts=4, top-1, capacity factor 2.0):
+form (MOE_MODEL: moe_experts=4, top-1, capacity factor 2.0, cut to 6
+layers for the script's time):
   (moe1) t1's recipe (py_reader, batch 8, AMP Momentum, ParallelExecutor)
       for MOE_WARMUP + MOE_TIMED steps over two batches in turn: the
-      loss falls on each; K1 and K2 launch 12 times a step (the
+      loss falls on each; K1 and K2 launch 6 times a step (the
       wrappers' counts and check_replay_launches), no plain flash call;
       reserved memory under MOE_PEAK_GB; step ms, tokens/s, device busy
       and ms by kind, the executed FLOPs of one op-by-op step; three
@@ -456,8 +457,8 @@ fresh name scope with a fresh executor, closed before the next one;
 checkpoints, ~5.9 GB each, in a tempfile.mkdtemp() directory checked for
 room first, each phase's removed as soon as it has checked them):
   (tr1) fluid.Trainer (the flagship LM at full width cut to TR_MODEL's
-      6 layers since PR 24, for the script's time with mp1 and mp2; its
-      checkpoints ~3.4 GB) on its default place under CheckpointConfig(
+      4 layers, for the script's time with the mesh phases;
+      its checkpoints ~2.6 GB) on its default place under CheckpointConfig(
       step_interval=TR_INTERVAL, max_num_checkpoints=TR_KEEP): K1 and K2
       cfg.layers launches every step, no plain flash call; its losses
       within TRAIN_LOSS_TOL of a bare Executor loop's over the same
@@ -605,7 +606,8 @@ waited on by its READY line:
       beside the ring's blocks at [16, 2048, 128] bf16 against their
       plain versions (a diagonal and an off-diagonal block's K1 and K2,
       one rank's merged (o, lse)) and the one-process step of l1's
-      program; then bench_long_context's LM with ring_attention=True on
+      program; then bench_long_context's LM (cut to 2 layers) with
+      ring_attention=True on
       DistributedStrategy(sp=4), 4 ranks sharing the card under gloo
       (`--ps-worker rank <r>` processes), 3 AMP Momentum steps: K1 and
       K2 4(r + 1) each a step on rank r, no plain flash call, the loss
@@ -619,6 +621,33 @@ waited on by its READY line:
       against the same program in one process (the same bounds); every
       tp weight held as its half by its placements, all-reduces in the
       audit and no tp weight gathered.
+  (pp1) the pipeline engine: the flagship LM at full width cut to 4
+      layers, pp_stages=2 (2 layers a stage), on DistributedStrategy(
+      pp=2, dp=2, micro_batches=4), 4 ranks sharing the card under gloo,
+      batch 8, 3 AMP Momentum steps against the same program in one
+      process (mp2's bounds); K1 bf16 and K2 each (layers a stage) x
+      (microbatches a rank) = 8 a step on every rank, 32 over the 4,
+      no plain flash call; each rank's step ms, the seconds it waited in
+      the pp receives, the activation and cotangent bytes it sent, the
+      pp gradient sum's bytes, memory and collective_audit logged;
+  (ck1) sharded checkpoints and the kill: mp2's model on
+      DistributedStrategy(dp=2, sharded_params=True) (ZeRO-3) under AMP
+      Adam, a fluid.Trainer(strategy=) with CheckpointConfig(
+      sharded=True, step_interval=CK1['interval']) on 2 ranks (`--ps-
+      worker ckrank <r>` processes) under a Supervisor, CK1['steps']
+      steps, twice, beside a3 and a4 (which check values only): fault-free, and with rank 1 killed at its
+      CK1['kill_step']-th step (rank 0 then fails in gloo, both restart
+      at incarnation 1 on a fresh rendezvous and resume from the last
+      committed generation): every final weight and Adam moment the
+      same bits as the fault-free run's (sha1 of each rank's part of
+      each var), the root's
+      OWNER at incarnation 1; the last generation restored in this
+      process on the card (no mesh) the same bits; under
+      PADDLE_FLASH_BWD=split (the deterministic backward, as tr2), K1,
+      K3a and K3b layers a step on each rank of the fault-free run; a
+      save's blocking and
+      async ms, its bytes and files a rank, its largest host buffer (at
+      most one shard) and the restore's ms logged.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line and a sequences
@@ -6879,9 +6908,9 @@ def check_second_shape(tr, place, sync):
 
 # -- (tr1)-(tr4): the high-level Trainer and Inferencer ----------------------
 
-# tr1-tr4 and o1 train MODEL at full width cut to 6 layers (PR 24): the
-# script keeps under its 1200 s with the mesh phases (PERF.md §6)
-TR_MODEL = dict(MODEL, layers=6)
+# tr1-tr4 and o1 train MODEL at full width cut to 4 layers: the script
+# keeps under its 1200 s with the mesh phases (PERF.md §6)
+TR_MODEL = dict(MODEL, layers=4)
 TR_STEPS = 8                 # one epoch of tr1-tr3 and o1
 TR_INTERVAL = 4              # a checkpoint after steps 3 and 7
 TR_KEEP = 2                  # CheckpointConfig(max_num_checkpoints=)
@@ -10266,10 +10295,11 @@ def map_of_mixed(place, dets, gt, w):
 # -- moe1, moe2: the flagship LM's mixture-of-experts form ----------------------
 
 # TransformerConfig(moe_experts=4): each block's FFN a top-1 mixture of 4
-# experts of [2048, 8192] at capacity factor 2.0 (moe_layer's defaults);
+# experts of [2048, 8192] at capacity factor 2.0 (moe_layer's defaults),
+# the LM cut to 6 layers (for the script's time);
 # t1's recipe otherwise (py_reader, batch 8, AMP Momentum,
 # ParallelExecutor, captured), MOE_STEPS steps over two batches in turn
-MOE_MODEL = dict(MODEL, moe_experts=4)
+MOE_MODEL = dict(MODEL, moe_experts=4, layers=6)
 MOE_WARMUP, MOE_TIMED = 2, 8
 MOE_BITS_STEPS = 3           # captured vs op by op from one saved state
 MOE_PEAK_GB = RESNET_PEAK_GB  # reserved memory, r1's rule
@@ -11606,8 +11636,8 @@ def _ps_local(phase, spec, place, dist_scope, params, initial, batches,
 
 def ps_worker_main(role, index):
     """`chip_smoke.py --ps-worker <role> <index>`: one role of a ps1, ps2
-    or on1 cluster, or a rank of mp1's or mp2's mesh (role 'rank'; role
-    'probe' for the gloo probes) (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT,
+    or on1 cluster, or a rank of mp1's, mp2's or pp1's mesh (role 'rank';
+    role 'probe' for the gloo probes), or of ck1's job (role 'ckrank') (env PSW_PHASE, PSW_ENDPOINTS, PSW_OUT,
     PSW_SPEC, PSW_PLACE); its result goes to PSW_OUT/<role><index>.json."""
     import torch
     import paddle_tpu_torch as fluid
@@ -11620,6 +11650,19 @@ def ps_worker_main(role, index):
         out = mp_probe_rank(index, work)
     elif role == 'probesr':
         out = mp_probe_sendrecv(index, work)
+    elif role == 'ckrank':
+        # a rank of ck1's Trainer job, run by a Supervisor: a failure
+        # exits at once (its checkpoint threads must not hold the exit)
+        place = fluid.CPUPlace() if os.environ.get('PSW_PLACE') == 'cpu' \
+            else fluid.CUDAPlace(0)
+        try:
+            out = ck_rank(index, spec, place, work)
+        except BaseException:
+            import traceback
+            traceback.print_exc()
+            sys.stdout.flush()
+            sys.stderr.flush()
+            os._exit(1)
     elif role == 'rank':
         # a rank of mp1's or mp2's mesh: the env contract of
         # init_parallel_env, the rendezvous a file in the work dir
@@ -11914,8 +11957,9 @@ def ps_deepfm_steps(work_root, spec=None, place_name='cuda'):
 # on the card and PS_PSERVERS pservers on the host train ps1's program
 # (sync SGD PS1['lr'], batch PS1['batch']) for ON_ROUNDS rounds while one
 # serving process on the card runs an LMServer over the same weights with
-# enable_refresh(pserver endpoints) and tracks the published versions
-ON_ROUNDS = 3
+# enable_refresh(pserver endpoints) and tracks the published versions;
+# 2 rounds, for the script's time
+ON_ROUNDS = 2
 ON_PROMPTS, ON_NEW_TOKENS = 4, 16
 ON_POLL_SECS = 0.1
 FLEET_TIMEOUT = 300     # seconds a cluster, a replica start or a wait may take
@@ -12867,12 +12911,17 @@ _SCRATCH_DIRS = []
 # ---------------------------------------------------------------------------
 
 # mp1: bench_long_context's model with ring attention, sp=4 (T/4 = 2048
-# tokens a rank: K/V blocks [16, 2048, 128] bf16); mp2: the flagship LM at
+# tokens a rank: K/V blocks [16, 2048, 128] bf16), cut to 2 layers (for
+# the script's time); mp2: the flagship LM at
 # full width cut to 2 layers (as ps1), use_tp and use_sp, dp=2 x tp=2
-MP1 = dict(model=dict(LC_MODEL, ring_attention=True), batch=LC_BATCH,
-           head_chunk=LC_HEAD_CHUNK, mesh=dict(sp=4))
+MP1 = dict(model=dict(LC_MODEL, layers=2, ring_attention=True),
+           batch=LC_BATCH, head_chunk=LC_HEAD_CHUNK, mesh=dict(sp=4))
 MP2 = dict(model=dict(MODEL, layers=2, use_tp=True, use_sp=True),
            batch=TRAIN_BATCH, head_chunk=HEAD_CHUNK, mesh=dict(dp=2, tp=2))
+# pp1: the flagship LM at full width cut to 4 layers, 2 a stage, on
+# pp=2 x dp=2: each dp rank's 4 rows in 4 microbatches of one row
+PP1 = dict(model=dict(MODEL, layers=4, pp_stages=2), batch=TRAIN_BATCH,
+           head_chunk=HEAD_CHUNK, mesh=dict(pp=2, dp=2, micro_batches=4))
 MP_STEPS = 3
 # the ranks' reserved device memory, summed, stays under this (PERF.md §2)
 MP_RESERVED_GB = 70.0
@@ -12884,7 +12933,7 @@ MP_PROBES = ('all_reduce', 'all_gather_into_tensor', 'reduce_scatter_tensor',
 
 
 def mp_spec(name, spec):
-    base = dict(MP1 if name == 'mp1' else MP2)
+    base = dict({'mp1': MP1, 'mp2': MP2, 'pp1': PP1}[name])
     spec = dict(spec or {})
     if 'model' in spec:
         spec['model'] = dict(base['model'], **spec['model'])
@@ -12914,10 +12963,10 @@ def mp_program(cfg, head_chunk):
     return main, startup, avg
 
 
-def mp_batches(cfg, batch):
+def mp_batches(cfg, batch, steps=MP_STEPS):
     rng = np.random.RandomState(SEED)
     out = []
-    for _ in range(MP_STEPS):
+    for _ in range(steps):
         toks = rng.randint(0, cfg.vocab, size=(batch, cfg.max_len, 1)
                            ).astype('int64')
         out.append({'tokens': toks, 'labels': np.roll(toks, -1, axis=1)})
@@ -12978,10 +13027,11 @@ def mp_reference(name, spec, place):
 
 
 def mesh_rank(name, index, spec, place, work):
-    """One rank of mp1 or mp2 (in its own process): the mesh program's
-    MP_STEPS steps through ParallelExecutor(strategy=); returns its
-    losses, step ms, launches, collectives and memory. Rank 0 also
-    saves the compared parameters after the first step (whole values)."""
+    """One rank of mp1, mp2 or pp1 (in its own process): the mesh
+    program's MP_STEPS steps through ParallelExecutor(strategy=); returns
+    its losses, step ms, launches, collectives, the pipeline's counts of
+    the last step (pp1) and memory. Rank 0 also saves the compared
+    parameters after the first step (whole values)."""
     import torch
     import paddle_tpu_torch as fluid
     from paddle_tpu_torch.kernels import flash_attention as fa
@@ -13010,6 +13060,7 @@ def mesh_rank(name, index, spec, place, work):
         pe, avg, mp_batches(cfg, spec['batch']), params,
         lambda n: pe.global_value(n).float().cpu().clone(), sync)
     recs = pe.collective_records()
+    pp = pe.pp_stats()
     if index == 0:
         torch.save(first, os.path.join(work, 'first.pt'))
     shards = {}
@@ -13028,6 +13079,9 @@ def mesh_rank(name, index, spec, place, work):
         audit={k: [len(v), int(sum(v))] for k, v in audit.items()},
         permute_s=sum(r['seconds'] for r in recs
                       if r['kind'] == 'collective-permute'),
+        pp=None if pp is None else dict(
+            act_bytes=pp.act_bytes, cot_bytes=pp.cot_bytes,
+            grad_bytes=pp.grad_bytes, recv_wait_s=pp.recv_wait_s),
         coll_s=sum(r['seconds'] for r in recs),
         sent=int(sum(r['bytes'] for r in recs)),
         param_gathers=[list(g) for g in pe.param_gathers()],
@@ -13152,8 +13206,8 @@ def check_gloo_probes(work_root):
 
 def _mp_ranks(name, spec, place_name, work):
     world = 1
-    for v in spec['mesh'].values():
-        world *= v
+    for ax in ('pp', 'dp', 'ep', 'sp', 'tp'):
+        world *= spec['mesh'].get(ax, 1)
     spec = dict(spec, world=world)
     return run_ps_cluster(name, work, spec, place_name,
                           roles=[('rank', i) for i in range(world)]), world
@@ -13400,6 +13454,332 @@ def mesh_tp_steps(work_root, spec=None, place_name='cuda'):
                 audit=r0['audit'])
 
 
+@phase('pp1: the pipeline engine (the flagship LM at full width cut to 4 '
+       'layers, 2 a stage, pp=2 x dp=2 ranks sharing the card, 4 '
+       'microbatches a dp rank)')
+def pipeline_steps(work_root, spec=None, place_name='cuda'):
+    import paddle_tpu_torch as fluid
+    t0 = time.perf_counter()
+    spec = mp_spec('pp1', spec)
+    place = fluid.CUDAPlace(0) if place_name == 'cuda' else fluid.CPUPlace()
+    ref = mp_reference('pp1', spec, place)
+    work = scratch(tempfile.mkdtemp(dir=work_root))
+    res, world = _mp_ranks('pp1', spec, place_name, work)
+    _mp_log_ranks('pp1', res, world)
+    m = spec['mesh']
+    n_micro = max(m.get('micro_batches', 1), m['pp'])
+    per_step = spec['model']['layers'] // spec['model']['pp_stages'] * \
+        n_micro
+    launches = {'K1': 0, 'K2': 0}
+    for i in range(world):
+        r = res['rank%d' % i]
+        _check_flash_launches(
+            'pp1: rank %d in %d steps' % (i, MP_STEPS),
+            dict(r['launches'], plain_cuda_calls=r['plain']),
+            {KERNELS['fwd'][0]: per_step * MP_STEPS,
+             KERNELS['k2'][0]: per_step * MP_STEPS}, place_name)
+        launches['K1'] += r['launches'][KERNELS['fwd'][0]]
+        launches['K2'] += r['launches'][KERNELS['k2'][0]]
+        pp = r['pp']
+        log('pp1 rank %d: step ms %s; the last step waited %.3f s in pp '
+            'receives (%.1f%% of it), sent %.2f MB of activations and %.2f '
+            'MB of cotangents, summed %.2f MB of gradients over pp'
+            % (i, ' '.join('%.1f' % x for x in r['ms']), pp['recv_wait_s'],
+               100 * pp['recv_wait_s'] * 1e3 / r['ms'][-1],
+               pp['act_bytes'] / 1e6, pp['cot_bytes'] / 1e6,
+               pp['grad_bytes'] / 1e6))
+        if not pp['grad_bytes'] or not (pp['act_bytes'] or pp['cot_bytes']):
+            raise AssertionError('pp1: rank %d moved nothing over pp: %s'
+                                 % (i, pp))
+    loss_diff, upd, reserved = _mp_check_steps('pp1', res, world, ref, work,
+                                               place_name)
+    wall = time.perf_counter() - t0
+    log('pp1: %d ranks, K1 %d and K2 %d launches in %d steps (%d each a '
+        'step), the one-process step %s ms; phase %.1f s'
+        % (world, launches['K1'], launches['K2'], MP_STEPS,
+           launches['K1'] // MP_STEPS,
+           ' '.join('%.1f' % x for x in ref['ms']), wall))
+    return dict(launches=launches, seconds=wall, loss_diff=loss_diff,
+                upd=upd, reserved=reserved, ref_ms=ref['ms'],
+                ms=[res['rank%d' % i]['ms'] for i in range(world)],
+                pp=[res['rank%d' % i]['pp'] for i in range(world)])
+
+
+# ck1: mp2's model (the flagship LM at full width cut to 2 layers) on dp=2
+# ranks with ZeRO-3 under AMP Adam: a Trainer with sharded checkpoints
+# every `interval` steps trains `steps` steps; in the second run rank 1
+# exits at its `kill_step`-th step
+CK1 = dict(model=dict(MODEL, layers=2, use_tp=True, use_sp=True),
+           batch=TRAIN_BATCH, head_chunk=HEAD_CHUNK, dp=2, steps=6,
+           interval=2, kill_step=5)
+CK_DIST_TIMEOUT = 300     # seconds a rank's collective may wait
+CK_TIMEOUT = 900          # seconds one run of ck1's job may take
+
+
+def ck_train_func(cfg, head_chunk):
+    """mp_program's LM (trunk, fused head, mean) as a Trainer's
+    train_func, seeded as every LM phase is."""
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.models import transformer as tfm
+
+    def train_func():
+        fluid.default_main_program().random_seed = SEED
+        fluid.default_startup_program().random_seed = SEED
+        tokens = fluid.layers.data(name='tokens', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        labels = fluid.layers.data(name='labels', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        trunk = tfm.language_model_trunk(tokens, cfg)
+        return fluid.layers.mean(fluid.layers.fused_softmax_cross_entropy(
+            trunk, labels, cfg.vocab, chunk=head_chunk, name='lm_head'))
+    return train_func
+
+
+def var_digest(t):
+    """sha1 of a tensor's raw bytes (bf16 as its 16-bit words)."""
+    import hashlib
+    import torch
+    t = t.detach().cpu().contiguous()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return hashlib.sha1(t.numpy().tobytes()).hexdigest()
+
+
+def ck_rank(index, spec, place, work):
+    """One rank of ck1's job (`--ps-worker ckrank <r>`): the Trainer's
+    epoch of spec['steps'] steps on the rendezvous of its incarnation
+    (a save every spec['interval'] steps, none at the epoch's end: it
+    would repeat the last); returns its step ms, the last save's stats,
+    its largest local shard, its launches, whether it resumed, and the
+    digest and storage spec of every checkpointed var's final local
+    part on this rank."""
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models.transformer import TransformerConfig
+    from paddle_tpu_torch.parallel import DistributedStrategy
+    inc = int(os.environ.get('FLAGS_trainer_incarnation', 0))
+    os.environ.update(
+        PADDLE_TRAINER_ID=str(index), PADDLE_TRAINERS_NUM=str(spec['dp']),
+        PADDLE_DIST_INIT_METHOD='file://' + os.path.join(
+            work, 'store.%d' % inc),
+        PADDLE_DIST_TIMEOUT=str(CK_DIST_TIMEOUT))
+    cfg = TransformerConfig(**spec['model'])
+    names = [KERNELS[k][0] for k in KERNELS]
+    for n in names:
+        getattr(fa, n).launches = 0
+    fa.FlashAttention.plain_cuda_calls = 0
+    trainer = fluid.Trainer(
+        ck_train_func(cfg, spec['head_chunk']),
+        lambda: fluid.contrib.mixed_precision.decorate(
+            fluid.optimizer.Adam(learning_rate=1e-4)),
+        place=place, checkpoint_config=fluid.CheckpointConfig(
+            checkpoint_dir=spec['root'], step_interval=spec['interval'],
+            epoch_interval=2, sharded=True),
+        strategy=DistributedStrategy(dp=spec['dp'], sharded_params=True))
+    sync = torch_sync(place)
+    batches = mp_batches(cfg, spec['batch'], spec['steps'])
+    marks = []
+
+    def handler(event):
+        if isinstance(event, (fluid.BeginStepEvent, fluid.EndEpochEvent)):
+            sync()
+            marks.append(time.perf_counter())
+
+    def reader():
+        for b in batches:
+            yield [b['tokens'], b['labels']]
+    trainer.train(num_epochs=1, event_handler=handler, reader=reader,
+                  feed_order=['tokens', 'labels'])
+    mc = trainer._mesh_checkpointer
+    mc.wait()
+    stats = dict(mc.last_stats)
+    mc.close()
+    pe = trainer._pe
+    local = mc.checkpoint_vars(trainer.scope, trainer.train_program)
+    local_max = max(t.numel() * t.element_size() for t in local.values())
+    # each var's local part and its spec: the same layout in every run
+    digests = {n: [var_digest(t), pe.storage_spec(n)]
+               for n, t in sorted(local.items())}
+    return dict(
+        resumed=bool(trainer._resumed), incarnation=inc,
+        ms=[(b - a) * 1e3 for a, b in zip(marks, marks[1:])],
+        stats=stats, local_max=int(local_max), digests=digests,
+        launches={n: getattr(fa, n).launches for n in names},
+        plain=fa.FlashAttention.plain_cuda_calls)
+
+
+def _ck_job(spec, place_name, work, kill):
+    """One run of ck1's job: spec['dp'] `--ps-worker ckrank` processes
+    under a Supervisor (rank 1 with a fault plan that exits at its
+    spec['kill_step']-th step when `kill`); every process is gone when
+    it returns. Returns (states, restarts, {rank: result}, seconds)."""
+    from paddle_tpu_torch.distributed.supervisor import Supervisor
+    # the split backward (K3a + K3b) is the deterministic arm: K2's dq
+    # sums by atomics, so two runs of it differ in the last bits
+    env = dict(os.environ, PSW_PHASE='ck1', PSW_ENDPOINTS='', PSW_OUT=work,
+               PSW_SPEC=json.dumps(spec), PSW_PLACE=place_name,
+               PADDLE_FLASH_FWD='', PADDLE_FLASH_BWD='split')
+    if place_name == 'cpu':
+        env.setdefault('OMP_NUM_THREADS', '1')
+    sup = Supervisor(max_restarts=2, backoff=0.5, log_dir=work)
+    for i in range(spec['dp']):
+        e = dict(env)
+        if kill and i == 1:
+            e['FLAGS_fault_plan'] = json.dumps({'rules': [
+                {'when': 'step', 'type': '*', 'nth': spec['kill_step'],
+                 'action': 'exit'}]})
+        sup.add_role('ckrank%d' % i, [sys.executable,
+                                      os.path.abspath(__file__),
+                                      '--ps-worker', 'ckrank', str(i)],
+                     env=e)
+    t0 = time.perf_counter()
+    sup.start()
+    try:
+        states = sup.wait(timeout=CK_TIMEOUT)
+    finally:
+        sup.stop()
+    wall = time.perf_counter() - t0
+    restarts = sup.restarts
+    if any(v != 'done' for v in states.values()):
+        raise AssertionError('ck1: the job ended %s after %.1f s (restarts '
+                             '%s)\n%s' % (states, wall, restarts, '\n'.join(
+                                 '--- %s:\n%s' % (n, sup.output(n)[-3000:])
+                                 for n in sorted(states))))
+    out = {}
+    for i in range(spec['dp']):
+        with open(os.path.join(work, 'ckrank%d.json' % i)) as f:
+            out[i] = json.load(f)
+    return states, restarts, out, wall
+
+
+@phase('ck1: sharded checkpoints and the kill (mp2\'s model on dp=2 ranks '
+       'with ZeRO-3 under AMP Adam, a fluid.Trainer(strategy=) under a '
+       'Supervisor)')
+def checkpoint_kill_steps(work_root, spec=None, place_name='cuda'):
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch import checkpoint
+    t0 = time.perf_counter()
+    spec = dict(CK1, **(spec or {}))
+    spec['model'] = dict(CK1['model'], **spec['model'])
+    place = fluid.CUDAPlace(0) if place_name == 'cuda' else fluid.CPUPlace()
+    runs = {}
+    for tag in ('base', 'kill'):
+        work = scratch(tempfile.mkdtemp(dir=work_root))
+        root = os.path.join(work, 'ckpt')
+        states, restarts, res, wall = _ck_job(dict(spec, root=root),
+                                              place_name, work,
+                                              tag == 'kill')
+        want = {'ckrank%d' % i: int(tag == 'kill')
+                for i in range(spec['dp'])}
+        if restarts != want:
+            raise AssertionError('ck1 %s: restarts %s, want %s'
+                                 % (tag, restarts, want))
+        runs[tag] = dict(res=res, wall=wall, root=root)
+        log('ck1 %s run: %.1f s, restarts %s, step ms by rank %s, the last '
+            'save: %s'
+            % (tag, wall, restarts, ' | '.join(
+                ' '.join('%.1f' % x for x in r['ms'])
+                for r in res.values()), ' | '.join(json.dumps(
+                    {k: r['stats'][k] for k in ('generation', 'bytes',
+                                                'files', 'max_host_bytes',
+                                                'snapshot_ms', 'latency')})
+                    for r in res.values())))
+        if tag == 'base':
+            # only its digests are kept: the disk holds one root at a time
+            shutil.rmtree(root, ignore_errors=True)
+    base, kill = runs['base']['res'], runs['kill']['res']
+    if not all(r['resumed'] and r['incarnation'] == 1
+               for r in kill.values()):
+        raise AssertionError('ck1: the killed job did not resume at '
+                             'incarnation 1: %s' % {
+                                 i: (r['resumed'], r['incarnation'])
+                                 for i, r in kill.items()})
+    for i in base:
+        d_base, d_kill = base[i]['digests'], kill[i]['digests']
+        if not d_base or d_base != d_kill:
+            raise AssertionError(
+                'ck1: rank %s of the resumed job ends on other bits than the '
+                'fault-free one in %s' % (i, sorted(
+                    n for n in set(d_base) | set(d_kill)
+                    if d_base.get(n) != d_kill.get(n))[:8]))
+    d_kill = kill[0]['digests']
+    if not any('moment' in n for n in d_kill):
+        raise AssertionError('ck1: no Adam moment among %s' % sorted(d_kill))
+    with open(os.path.join(runs['kill']['root'], 'OWNER')) as f:
+        owner = json.load(f)['incarnation']
+    if owner != 1:
+        raise AssertionError('ck1: the root\'s OWNER is incarnation %s'
+                             % owner)
+    for i, r in list(base.items()) + list(kill.items()):
+        if r['stats']['max_host_bytes'] > r['local_max']:
+            raise AssertionError(
+                'ck1: rank %s\'s save held a %d-byte host buffer, over its '
+                'largest shard (%d bytes)' % (i, r['stats']['max_host_bytes'],
+                                              r['local_max']))
+    layers = spec['model']['layers']
+    launches = {'K1': 0, 'K3a': 0, 'K3b': 0}
+    for i, r in base.items():
+        _check_flash_launches(
+            'ck1: rank %s in %d steps' % (i, spec['steps']),
+            dict(r['launches'], plain_cuda_calls=r['plain']),
+            {KERNELS[k][0]: layers * spec['steps']
+             for k in ('fwd', 'k3a', 'k3b')}, place_name)
+        for kind, k in (('K1', 'fwd'), ('K3a', 'k3a'), ('K3b', 'k3b')):
+            launches[kind] += r['launches'][KERNELS[k][0]]
+    sync = torch_sync(place)
+    sync()
+    t_r = time.perf_counter()
+    vals, extras, gen = checkpoint.restore_sharded(runs['kill']['root'],
+                                                   device=place.device)
+    sync()
+    restore_ms = (time.perf_counter() - t_r) * 1e3
+    restored_bytes = sum(v.numel() * v.element_size() for v in vals.values())
+    # each restored whole value, cut by each rank's layout, is that rank's
+    # final part, bit for bit
+    from paddle_tpu_torch.parallel.layout import local_part, normalize
+    from paddle_tpu_torch.parallel.mesh import MeshConfig
+    mesh = MeshConfig(dp=spec['dp']).build()
+    bad = set(vals) ^ set(d_kill)
+    for i, r in kill.items():
+        for n, (digest, sp) in r['digests'].items():
+            v = vals.get(n)
+            if v is None or var_digest(local_part(
+                    v, normalize(sp, v.ndim, mesh), mesh, int(i))) != digest:
+                bad.add(n)
+    del vals
+    if bad:
+        raise AssertionError('ck1: the one-process restore of generation %d '
+                             'differs from the mesh\'s final values in %s'
+                             % (gen, sorted(bad)[:8]))
+    wall = time.perf_counter() - t0
+    log('ck1: the killed job (rank 1 at its step %d) resumed from the last '
+        'committed generation and ends on the fault-free bits in all %d '
+        'vars; OWNER incarnation %d; generation %d (step %s) restored in '
+        'one process on %s in %.1f ms (%.1f MB), the same bits; K1 %d, K3a '
+        '%d and K3b %d launches in the fault-free run; phase %.1f s'
+        % (spec['kill_step'], len(d_kill), owner, gen, extras.get('step_id'),
+           place.device, restore_ms, restored_bytes / 1e6, launches['K1'],
+           launches['K3a'], launches['K3b'], wall))
+    return dict(seconds=wall, launches=launches, restore_ms=restore_ms,
+                restored_mb=restored_bytes / 1e6, n_vars=len(d_kill),
+                walls={k: v['wall'] for k, v in runs.items()},
+                stats={k: {i: r['stats'] for i, r in v['res'].items()}
+                       for k, v in runs.items()},
+                ms={i: r['ms'] for i, r in base.items()})
+
+
+def run_beside(out, fn, *args):
+    """Run the phase fn(*args) in this thread, for a caller that runs it
+    beside its own work: out['result'] holds what it returns, or
+    out['error'] the PhaseError it raised, for the caller to raise."""
+    try:
+        out['result'] = fn(*args)
+    except PhaseError as e:
+        out['error'] = e
+
+
 def scratch(path):
     """Register a temporary directory (the saved serving model, the
     checkpoints, the obs logs) for remove_scratch()."""
@@ -13576,8 +13956,20 @@ def main():
             sync)
         del atr
         free_device_memory()
-        opt_worst = check_optimizer_ops(place)
-        op_worst = check_training_ops(place)
+        # ck1's ranks run beside a3 and a4, which check values only (ck1's
+        # own readings are taken beside them); its failure fails the run
+        ck1_out = {}
+        ck1_thread = threading.Thread(target=run_beside, args=(
+            ck1_out, checkpoint_kill_steps, build_root))
+        ck1_thread.start()
+        try:
+            opt_worst = check_optimizer_ops(place)
+            op_worst = check_training_ops(place)
+        finally:
+            ck1_thread.join()
+        if 'error' in ck1_out:
+            raise ck1_out['error']
+        ck1 = ck1_out['result']
         free_device_memory()
         t_moe = time.perf_counter()
         moe1 = moe_steps(place, counters, sync)
@@ -13690,6 +14082,8 @@ def main():
         free_device_memory()
         mp2 = mesh_tp_steps(build_root)
         mp_s = time.perf_counter() - t_mp
+        free_device_memory()
+        pp1 = pipeline_steps(build_root)
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
@@ -13711,16 +14105,19 @@ def main():
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'] +
                          pf1['launches']['K1'] + mp1['launches']['K1'] +
-                         mp2['launches']['K1'],
+                         mp2['launches']['K1'] + pp1['launches']['K1'] +
+                         ck1['launches']['K1'],
                      'flash_attention_bwd_kvmajor':
                          train_launches['flash_attention_bwd_kvmajor'] +
                          pf1['launches']['K2/K5'] + ps1['launches']['K2']
                          + on1['launches']['K2'] + mp1['launches']['K2']
-                         + mp2['launches']['K2'],
+                         + mp2['launches']['K2'] + pp1['launches']['K2'],
                      'flash_attention_bwd_dq':
-                         split_launches['flash_attention_bwd_dq'],
+                         split_launches['flash_attention_bwd_dq'] +
+                         ck1['launches']['K3a'],
                      'flash_attention_bwd_dkv':
-                         split_launches['flash_attention_bwd_dkv']}
+                         split_launches['flash_attention_bwd_dkv'] +
+                         ck1['launches']['K3b']}
     long_launches = {'flash_attention_fwd_bf16':
                      l_arm_launches['online/kvmajor']['flash_attention_fwd']}
     for kind in ('k4a', 'k4b', 'k5'):
@@ -14041,6 +14438,31 @@ def main():
            ' '.join('%.1f' % x for x in mp2['ref_ms']), mp2['loss_diff'],
            ', '.join('%s %.3e' % kv for kv in mp2['upd'].items()),
            json.dumps(mp2['audit'])))
+    log('the pipeline and the sharded checkpoints (their processes\' start '
+        'included; ranks share the card under gloo): pp1 %.1f s, step ms '
+        'by rank %s vs the one-process step %s ms, loss |diff| %.3e, '
+        'updates %s, pp receive waits %s s, sent activations %s MB and '
+        'cotangents %s MB, pp gradient sums %s MB, K1 %d and K2 %d '
+        'launches; ck1 %.1f s beside a3 and a4 (fault-free run %.1f s, '
+        'killed run %.1f s), the last save a rank %s, restore %.1f ms for '
+        '%.1f MB, K1 %d, K3a %d and K3b %d launches'
+        % (pp1['seconds'], ' | '.join(
+            ' '.join('%.1f' % x for x in ms) for ms in pp1['ms']),
+           ' '.join('%.1f' % x for x in pp1['ref_ms']), pp1['loss_diff'],
+           ', '.join('%s %.3e' % kv for kv in pp1['upd'].items()),
+           ' '.join('%.3f' % r['recv_wait_s'] for r in pp1['pp']),
+           ' '.join('%.1f' % (r['act_bytes'] / 1e6) for r in pp1['pp']),
+           ' '.join('%.1f' % (r['cot_bytes'] / 1e6) for r in pp1['pp']),
+           ' '.join('%.1f' % (r['grad_bytes'] / 1e6) for r in pp1['pp']),
+           pp1['launches']['K1'], pp1['launches']['K2'], ck1['seconds'],
+           ck1['walls']['base'], ck1['walls']['kill'], ' | '.join(
+               'snapshot %.1f ms, async %.3f s, %.1f MB in %d files, host '
+               'buffer %.1f MB' % (st['snapshot_ms'], st['latency'],
+                                   st['bytes'] / 1e6, st['files'],
+                                   st['max_host_bytes'] / 1e6)
+               for st in ck1['stats']['base'].values()),
+           ck1['restore_ms'], ck1['restored_mb'], ck1['launches']['K1'],
+           ck1['launches']['K3a'], ck1['launches']['K3b']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

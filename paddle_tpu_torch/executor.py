@@ -620,7 +620,7 @@ class _DeviceSegment(object):
 
     __slots__ = ('ops', 'op_offsets', 'in_names', 'out_names', 'runs',
                  'graphs', 'generators', 'op_generators', 'warm_s',
-                 'op_maps')
+                 'op_maps', 'pp_runner')
 
     def __init__(self, ops, op_offsets):
         self.ops = ops
@@ -637,6 +637,9 @@ class _DeviceSegment(object):
         # profiler key -> the op map of its kernels, built from an eager
         # run under the profiler and applied to the graph's replays
         self.op_maps = {}
+        # a pipelined segment's runner (parallel/pp_lowering.py), built
+        # at its first run on a pp mesh
+        self.pp_runner = None
 
     def signature(self, local):
         """(name, shape, dtype) of each run-local input."""

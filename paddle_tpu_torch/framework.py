@@ -318,15 +318,22 @@ class Block(object):
         self.program._bump_version()
 
     def append_op(self, type, inputs=None, outputs=None, attrs=None):
-        return self._insert_op(len(self.ops), type, inputs, outputs, attrs)
+        return self._insert_op(len(self.ops), type, inputs, outputs, attrs,
+                               stamp=True)
 
     def _prepend_op(self, type, inputs=None, outputs=None, attrs=None):
         """An op that runs first in the block (the step counter's
         increment, layers.autoincreased_step_counter)."""
         return self._insert_op(0, type, inputs, outputs, attrs)
 
-    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None):
+    def _insert_op(self, index, type, inputs=None, outputs=None, attrs=None,
+                   stamp=False):
         op = Operator(self, type, inputs, outputs, attrs)
+        # pipeline-stage annotation (parallel.api.pipeline_stage_guard):
+        # an appended op built under an active guard carries its stage id
+        stage = getattr(self.program, '_pp_stage', None) if stamp else None
+        if stage is not None and 'pp_stage' not in op.attrs:
+            op.attrs['pp_stage'] = stage
         self.ops.insert(index, op)
         self.program._bump_version()
         from . import registry

@@ -48,7 +48,7 @@ from .. import unique_name
 from ..framework import Program, default_main_program, program_guard
 from ..layer_helper import LayerHelper
 from ..param_attr import ParamAttr
-from ..parallel.api import sharding_constraint
+from ..parallel.api import sharding_constraint, pipeline_stage_guard
 from ..parallel.layers import (column_parallel_fc, row_parallel_fc,
                                vocab_parallel_embedding, moe_layer,
                                sequence_parallel_scope)
@@ -62,8 +62,9 @@ class TransformerConfig(object):
     moe_experts=E makes each block's FFN a top-1 mixture of E experts
     (moe_layer's defaults). ring_attention=True runs attention through
     the sp ring (parallel.layers.ring_attention; ordinary attention off
-    a mesh). Pipeline parallelism (pp_stages) is not ported and
-    raises.
+    a mesh). pp_stages=S groups the blocks into S uniform pipeline
+    stages (the layers must divide; checked when the program is built,
+    as in the JAX package).
     remat: None (keep every activation), 'nothing' (each block keeps
     only its output; the backward runs the block again) or 'dots' (it
     also keeps the matrix products' outputs); any other truthy value
@@ -73,11 +74,6 @@ class TransformerConfig(object):
                  max_len=64, moe_experts=0, use_tp=True, use_sp=True,
                  pp_stages=0, ring_attention=False,
                  flash_attention=False, remat=None):
-        if pp_stages:
-            raise NotImplementedError(
-                'TransformerConfig(pp_stages=%r) is not ported: the '
-                'pipeline engine waits (ROADMAP.md, Queue 1 item 8, the '
-                'pipeline bullet)' % (pp_stages,))
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.ffn, self.max_len = layers, ffn, max_len
         self.moe_experts, self.pp_stages = moe_experts, pp_stages
@@ -161,6 +157,21 @@ def _trunk(tokens, cfg):
     else:
         emb = L.embedding(tokens, size=[cfg.vocab, cfg.dim])
     x = L.elementwise_add(emb, L.position_embedding(emb, cfg.max_len))
+    return L.layer_norm(_blocks(x, cfg), begin_norm_axis=2)
+
+
+def _blocks(x, cfg):
+    """Every block; with cfg.pp_stages, grouped into uniform pipeline
+    stages by pipeline_stage_guard (remat is not applied there, as in
+    the JAX package)."""
+    if cfg.pp_stages:
+        if cfg.layers % cfg.pp_stages:
+            raise ValueError('layers %d not divisible by pp_stages %d'
+                             % (cfg.layers, cfg.pp_stages))
+        for i in range(cfg.layers):
+            with pipeline_stage_guard(i * cfg.pp_stages // cfg.layers):
+                x = _block(x, cfg, i)
+        return x
     for i in range(cfg.layers):
         if cfg.remat:
             policy = 'dots' if cfg.remat == 'dots' else 'nothing'
@@ -168,7 +179,7 @@ def _trunk(tokens, cfg):
                             policy=policy)
         else:
             x = _block(x, cfg, i)
-    return L.layer_norm(x, begin_norm_axis=2)
+    return x
 
 
 def language_model_trunk(tokens, cfg):

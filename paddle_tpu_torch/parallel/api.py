@@ -7,15 +7,19 @@ layout: on a mesh it redistributes the value to its spec (the layout
 rule in parallel/layout.py: gathers and chunks over the mesh's axes),
 off the mesh it is the identity, so programs that carry the annotations
 (the LM built with use_tp / use_sp, every cached serving program) run
-unchanged on one card. pipeline_stage_guard waits for the pipeline
-engine (ROADMAP.md Queue 1 item 8's pipeline bullet)."""
+unchanged on one card. pipeline_stage_guard stamps the ops built inside
+it with their pipeline stage, the unit parallel/pp_lowering.py splits a
+training step on (paddle_tpu/parallel/api.py:74-86)."""
 from __future__ import annotations
+
+import contextlib
 
 from ..framework import grad_var_name
 from ..layer_helper import LayerHelper
 from ..registry import register_op, same_shape_infer
 
-__all__ = ['shard_tensor', 'sharding_constraint']
+__all__ = ['shard_tensor', 'sharding_constraint',
+           'pipeline_stage_guard']
 
 
 def shard_tensor(var, spec):
@@ -49,3 +53,18 @@ def sharding_constraint(x, spec, name=None):
     helper.append_op(type='sharding_constraint', inputs={'X': [x]},
                      outputs={'Out': [out]}, attrs={'spec': list(spec)})
     return out
+
+
+@contextlib.contextmanager
+def pipeline_stage_guard(stage):
+    """Ops appended inside carry attrs['pp_stage'] = stage (the JAX
+    package's attr); the previous stage is restored on exit, also when
+    the body raises."""
+    from ..framework import default_main_program
+    prog = default_main_program()
+    prev = getattr(prog, '_pp_stage', None)
+    prog._pp_stage = int(stage)
+    try:
+        yield
+    finally:
+        prog._pp_stage = prev

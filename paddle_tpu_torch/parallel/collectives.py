@@ -31,6 +31,11 @@ shard.
 - chunk: forward the rank's chunk of a replicated value, backward
   all-gather;
 - all_to_all: forward and backward the same exchange of dim-0 chunks.
+
+isend and irecv are the pipeline's point-to-point path (parallel/
+pipeline.py): one tensor to or from one rank of an axis, started at once
+and completed by the handle's wait(); under gloo a CUDA tensor goes
+through a pinned host buffer, as the ring's does.
 """
 from __future__ import annotations
 
@@ -43,7 +48,8 @@ import torch.distributed as dist
 
 __all__ = ['Axis', 'axis', 'record', 'recording', 'all_reduce_sum',
            'sync_sum', 'copy_in', 'gather', 'gather_summed', 'chunk',
-           'all_to_all', 'ring_shift', 'GLOO_CUDA_HOST_STAGED']
+           'all_to_all', 'ring_shift', 'isend', 'irecv',
+           'GLOO_CUDA_HOST_STAGED']
 
 # collectives that gloo refuses on CUDA tensors (module docstring)
 GLOO_CUDA_HOST_STAGED = frozenset({'send', 'recv'})
@@ -70,11 +76,12 @@ def recording():
             prev.extend(out)
 
 
-def record(kind, axis_name, nbytes, seconds=0.0, staged=False):
+def record(kind, axis_name, nbytes, seconds=0.0, staged=False, **extra):
     if _RECORDS is not None:
-        _RECORDS.append({'kind': kind, 'axis': axis_name,
-                         'bytes': int(nbytes), 'seconds': float(seconds),
-                         'staged': bool(staged)})
+        rec = {'kind': kind, 'axis': axis_name, 'bytes': int(nbytes),
+               'seconds': float(seconds), 'staged': bool(staged)}
+        rec.update(extra)
+        _RECORDS.append(rec)
 
 
 def _nbytes(t):
@@ -202,6 +209,62 @@ def ring_shift(tensors, ax):
         record('collective-permute', ax.name, _nbytes(r), dt / len(recvs),
                staged)
     return recvs
+
+
+class _P2P(object):
+    """One started send or receive; wait() completes it (a receive
+    returns the tensor on its device) and records it as a
+    'collective-permute' with the seconds this rank waited and its
+    direction."""
+
+    def __init__(self, work, host, out, device, ax, nbytes, staged, dir_):
+        self.work, self.host, self.out = work, host, out
+        self.device, self.ax, self.nbytes = device, ax, nbytes
+        self.staged, self.dir = staged, dir_
+
+    def wait(self):
+        t0 = time.perf_counter()
+        self.work.wait()
+        out = self.out
+        if self.dir == 'recv' and self.staged:
+            out = self.host.to(self.device, non_blocking=True)
+        record('collective-permute', self.ax.name, self.nbytes,
+               time.perf_counter() - t0, self.staged, dir=self.dir)
+        self.work = self.host = None
+        return out
+
+
+def _p2p_staged(ax, device):
+    return ax.gloo and device.type == 'cuda' and \
+        {'send', 'recv'} <= GLOO_CUDA_HOST_STAGED
+
+
+def isend(t, ax, dst_index, tag=0):
+    """Start sending `t` to the rank at index `dst_index` of `ax`."""
+    t = t.detach().contiguous()
+    staged = _p2p_staged(ax, t.device)
+    buf = t
+    if staged:
+        # a blocking copy: the tensor's producers are done before it
+        buf = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        buf.copy_(t)
+    work = dist.isend(buf, ax.ranks[dst_index], group=ax.group, tag=tag)
+    return _P2P(work, buf, None, t.device, ax, _nbytes(t), staged, 'send')
+
+
+def irecv(shape, dtype, device, ax, src_index, tag=0):
+    """Start receiving a tensor of `shape` and `dtype` for `device` from
+    the rank at index `src_index` of `ax`."""
+    device = torch.device(device)
+    staged = _p2p_staged(ax, device)
+    if staged:
+        host = torch.empty(tuple(shape), dtype=dtype, pin_memory=True)
+        out = None
+    else:
+        host = out = torch.empty(tuple(shape), dtype=dtype, device=device)
+    work = dist.irecv(host, ax.ranks[src_index], group=ax.group, tag=tag)
+    return _P2P(work, host, out, device, ax, host.numel() *
+                host.element_size(), staged, 'recv')
 
 
 # -- autograd forms -----------------------------------------------------------

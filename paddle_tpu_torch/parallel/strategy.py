@@ -18,8 +18,9 @@ class DistributedStrategy(object):
         sharded_optimizer); a parameter is gathered where an op reads it
         and its gradient reduce-scattered into the shard. Parameters
         whose no dim divides dp stay replicated.
-    micro_batches: pipeline microbatch count (the pipeline engine is not
-        ported: pp > 1 raises in ParallelExecutor).
+    micro_batches: pipeline microbatch count: each dp rank splits its
+        rows into max(micro_batches, pp) microbatches (parallel/
+        pp_lowering.py).
     """
 
     def __init__(self, dp=1, tp=1, sp=1, pp=1, ep=1,

@@ -7,10 +7,12 @@ CPU, and the strategies' fields mean nothing but
 `num_iteration_per_drop_scope` and `debug_graphviz_path`.
 
 Over ranks it is the JAX package's mesh engine, one process a rank:
-- `strategy=DistributedStrategy(dp=, tp=, sp=, ep=)`, `num_trainers=`
-  or a process group already up (parallel.init_parallel_env) make a
-  mesh of the world's ranks
-  (parallel/mesh.py; the pipeline axis is not ported: pp > 1 raises);
+- `strategy=DistributedStrategy(dp=, tp=, sp=, pp=, ep=)`,
+  `num_trainers=` or a process group already up
+  (parallel.init_parallel_env) make a mesh of the world's ranks
+  (parallel/mesh.py); under pp > 1 a device segment whose ops carry
+  pipeline stages runs through the GPipe engine (parallel/pp_lowering.py)
+  and counts into jit_cache_stats() as any segment;
   the process group is opened from the PADDLE_* env contract
   (parallel/distributed.init_parallel_env) if it is not up;
 - a rank's place is devices[rank] if `devices=` is given (the world's
@@ -100,11 +102,6 @@ class ParallelExecutor(Executor):
                     raise TypeError(
                         'strategy must be a DistributedStrategy, got %r'
                         % (strategy,))
-            if strategy.pp > 1:
-                raise NotImplementedError(
-                    'DistributedStrategy(pp=%d): the pipeline engine is not '
-                    'ported yet (ROADMAP.md, Queue 1 item 8, the pipeline '
-                    'bullet)' % strategy.pp)
             world = strategy.world_size
         elif num_trainers > 1:
             world = num_trainers
@@ -164,6 +161,7 @@ class ParallelExecutor(Executor):
         self._storage = {}
         self._params_placed = False
         self._records = []
+        self._pp_stats = None
         self._run_count = 0
         if self._build_strategy.debug_graphviz_path:
             from .debugger import program_to_dot
@@ -339,6 +337,45 @@ class ParallelExecutor(Executor):
         if drop_every and self._run_count % drop_every == 0:
             self._scope.drop_kids()
         return result
+
+    def _run_segment(self, prepared, step_idx, step, ctx, drop, captured,
+                     check_nan_inf):
+        """A pp-annotated segment under pp > 1 runs through the pipeline
+        engine (the JAX package's _compile_segment -> build_pp_segment_fn);
+        every other segment as the Executor runs it. Under
+        FLAGS_check_nan_inf a pp segment too runs op by op, every output
+        scanned, as the JAX package's checked path runs it: its backward
+        ops then give the gradients, with each pp rank running every
+        stage on its dp rows."""
+        from .obs import perf as _perf
+        from .parallel.pp_lowering import build_pp_segment_fn, segment_has_pp
+        st = self._strategy
+        if ctx.dist is None or st is None or st.pp <= 1 or \
+                check_nan_inf or not segment_has_pp(step):
+            return super(ParallelExecutor, self)._run_segment(
+                prepared, step_idx, step, ctx, drop, captured, check_nan_inf)
+        runner = step.pp_runner
+        if runner is None:
+            runner = step.pp_runner = build_pp_segment_fn(
+                self, step, prepared.block, prepared.program)
+            self._compile_count += 1
+            self._segment_misses += 1
+            _perf.jit_cache_miss()
+        else:
+            self._segment_hits += 1
+            _perf.jit_cache_hit()
+        with self._segment_range(prepared, step_idx, step,
+                                 step.signature(ctx.local), 'eager'):
+            runner(ctx)
+        # the locals whose last use lies in this segment
+        for pos in step.op_offsets:
+            for name in drop.get(pos, ()):
+                ctx.local.pop(name, None)
+
+    def pp_stats(self):
+        """What the last pipelined step moved (parallel/pp_lowering.py
+        PPStats), or None."""
+        return self._pp_stats
 
     def _run_mesh(self, fetch_list, feed, return_numpy):
         from .executor import PreparedProgram, PREPARED_LIMIT

@@ -44,8 +44,25 @@ With CheckpointConfig(pserver_endpoints=), trainer 0 has every
 parameter server save its shard into each checkpoint before its SUCCESS
 marker (checkpoint_notify), as the JAX package does.
 
-Not ported: CheckpointConfig(sharded=True) and `strategy=` (the mesh
-path; ROADMAP.md, Queue 1 item 8) raise NotImplementedError.
+The mesh path. Trainer(strategy=DistributedStrategy(...)) runs its step
+through ParallelExecutor(strategy=) on every rank of the job (one
+process a rank, SPMD; the process group is opened from the PADDLE_*
+env contract, parallel.init_parallel_env); the Trainer of rank 0 alone
+reports through EndStepEvent, as trainer_id 0 does in the pserver mode.
+(In the JAX package a strategy counts only with parallel=True; here it
+implies the ParallelExecutor, since a rank that ignored it would train
+alone.) CheckpointConfig(sharded=True) makes checkpoint_dir a
+two-generation sharded root (checkpoint/sharded.py): each rank writes
+its own shards, async, with no host gather; resume pours the last
+committed generation into the scope and the ParallelExecutor places it
+on whatever mesh the restarted job builds. Its extras carry the port's
+random state (`rng`) where the JAX package carries `rng_seed`. Without
+sharded=True a mesh job keeps the host checkpoints above: every rank
+gathers each persistable's whole value (ParallelExecutor.global_value,
+a collective), rank 0 alone writes them, as the JAX package's one
+controller writes its global arrays, and the ranks then meet at a
+barrier, so no rank reads a checkpoint that is not whole yet.
+Trainer.save_params writes the same way.
 """
 from __future__ import annotations
 
@@ -128,17 +145,16 @@ class CheckpointConfig(object):
     checkpointing; step_interval counts steps within an epoch.
     pserver_endpoints: the parameter servers trainer `trainer_id` 0 asks
     to save their shards at each checkpoint (checkpoint_notify, under
-    `<checkpoint>/pserver_shards/`). sharded=True is not ported and
-    raises."""
+    `<checkpoint>/pserver_shards/`).
+
+    sharded=True switches to the mesh-native path (checkpoint/):
+    checkpoint_dir becomes a two-generation sharded root (current/ +
+    current.prev/) written per shard with no host gather, and resume
+    reshards onto whatever mesh the restarted job builds."""
 
     def __init__(self, checkpoint_dir=None, max_num_checkpoints=3,
                  epoch_interval=1, step_interval=10,
                  pserver_endpoints=None, trainer_id=0, sharded=False):
-        if sharded:
-            raise NotImplementedError(
-                'CheckpointConfig(sharded=True) is the mesh checkpoint path '
-                '(checkpoint/sharded.py); not ported yet (ROADMAP.md, Queue 1 '
-                'item 8)')
         self.checkpoint_dir = checkpoint_dir
         self.max_num_checkpoints = max(1, int(max_num_checkpoints))
         self.epoch_interval = max(1, int(epoch_interval))
@@ -149,7 +165,7 @@ class CheckpointConfig(object):
         # the same op for manual loops)
         self.pserver_endpoints = list(pserver_endpoints or [])
         self.trainer_id = int(trainer_id)
-        self.sharded = False
+        self.sharded = bool(sharded)
 
 
 def _poison_feed(feed):
@@ -197,19 +213,20 @@ class Trainer(object):
     train_func() -> loss Variable (or [loss, ...metrics]) builds the
     forward graph; optimizer_func() -> an Optimizer. place=None is
     CUDAPlace(0), which raises without a card; pass CPUPlace() for the
-    CPU.
+    CPU. strategy: a DistributedStrategy; the step runs through
+    ParallelExecutor(strategy=) on every rank (module docstring).
     """
 
     def __init__(self, train_func, optimizer_func, place=None,
                  param_path=None, parallel=False, checkpoint_config=None,
                  strategy=None):
-        if strategy is not None:
-            raise NotImplementedError(
-                'Trainer(strategy=) shards the step over a device mesh; not '
-                'ported yet (ROADMAP.md, Queue 1 item 8)')
         self.place = place if place is not None else CUDAPlace(0)
-        self.parallel = parallel
+        self.parallel = parallel or strategy is not None
         self.checkpoint_cfg = checkpoint_config
+        # DistributedStrategy for the ParallelExecutor (a mesh over the
+        # job's ranks, ZeRO sharding); None = the one-device executor
+        self._strategy = strategy
+        self._mesh_checkpointer = None
         self.scope = Scope()
         self.train_program = Program()
         self.startup_program = Program()
@@ -275,6 +292,18 @@ class Trainer(object):
         return os.path.join(self.checkpoint_cfg.checkpoint_dir,
                             '%s_%d' % (_CHECKPOINT_PREFIX, ckpt_id))
 
+    def _mesh_ckpt(self):
+        if self._mesh_checkpointer is None:
+            from .checkpoint import MeshCheckpointer
+            self._mesh_checkpointer = MeshCheckpointer(
+                self.checkpoint_cfg.checkpoint_dir)
+        return self._mesh_checkpointer
+
+    def _rank(self):
+        """This process's rank in a mesh run (0 off a mesh)."""
+        pe = self._pe
+        return pe._rank if pe is not None and pe.mesh is not None else 0
+
     def _rng_state(self, executor):
         """The executor's random state for TRAINER_METADATA: the train
         program's random_seed, its generator's state (None before any
@@ -293,6 +322,30 @@ class Trainer(object):
                 'generator': None if gen is None else _gen_state(gen),
                 'remat': remat}
 
+    def _whole_values(self):
+        """(scope, writes): the scope that holds each persistable's whole
+        value, and whether this rank writes it. Off a mesh, the trainer's
+        scope and True. On a mesh the scope holds each rank's part, so
+        every rank gathers every whole value (a collective, in one order
+        on every rank) into a new scope, and rank 0 alone writes."""
+        pe = self._executor() if self._strategy is not None else self._pe
+        if pe is None or pe.mesh is None:
+            return self.scope, True
+        whole = Scope()
+        names = sorted(set(v.name for v in self.train_program.list_vars()
+                           if io_mod.is_persistable(v) and
+                           self.scope.find_var(v.name) is not None))
+        for name in names:
+            whole.set_var(name, pe.global_value(name))
+        return whole, pe._rank == 0
+
+    def _mesh_barrier(self):
+        """On a mesh, every rank waits here for the others (after a save,
+        for rank 0's files)."""
+        if self._pe is not None and self._pe.mesh is not None:
+            import torch.distributed as dist
+            dist.barrier()
+
     def _train_state_extras(self, epoch_id, step_id):
         active = self._pe if self._pe is not None else self.exe
         return {'epoch_id': epoch_id, 'step_id': step_id,
@@ -300,11 +353,27 @@ class Trainer(object):
 
     def _save_checkpoint(self, epoch_id, step_id):
         cfg = self.checkpoint_cfg
+        if cfg.sharded:
+            # the mesh path: this rank's shards straight from the scope,
+            # async (checkpoint/sharded.py); the step blocks only for the
+            # device -> host copies
+            self._mesh_ckpt().save_scope(
+                self.scope, self.train_program,
+                extras=self._train_state_extras(epoch_id, step_id),
+                pe=self._pe)
+            return
+        whole, writes = self._whole_values()
+        if writes:
+            self._save_host_checkpoint(whole, epoch_id, step_id)
+        self._mesh_barrier()
+
+    def _save_host_checkpoint(self, whole, epoch_id, step_id):
+        cfg = self.checkpoint_cfg
         ids = _checkpoint_ids(cfg.checkpoint_dir)
         new_id = (ids[-1] + 1) if ids else 0
         path = self._ckpt_path(new_id)
         os.makedirs(path, exist_ok=True)
-        with scope_guard(self.scope):
+        with scope_guard(whole):
             io_mod.save_persistables(self.exe, path,
                                      main_program=self.train_program)
         with open(os.path.join(path, _METADATA_FILE), 'w') as f:
@@ -357,6 +426,8 @@ class Trainer(object):
         cfg = self.checkpoint_cfg
         if cfg is None or not cfg.checkpoint_dir:
             return False
+        if cfg.sharded:
+            return self._maybe_resume_sharded()
         for ckpt_id in reversed(_checkpoint_ids(cfg.checkpoint_dir)):
             path = self._ckpt_path(ckpt_id)
             try:
@@ -385,8 +456,35 @@ class Trainer(object):
             self._apply_rng_state(self.exe)
             if self._pe is not None:
                 self._apply_rng_state(self._pe)
+                # the loaded whole values go back to their mesh layouts
+                self._pe._params_placed = False
             return True
         return False
+
+    def _maybe_resume_sharded(self):
+        """The mesh path's resume: pour the last committed generation
+        (digest-verified; the .prev fallback and the quarantine are
+        checkpoint/restore.py's) into the scope as whole values on the
+        trainer's place, and restore the train-state extras. A
+        ParallelExecutor places them on its next run."""
+        extras = self._mesh_ckpt().restore_scope(self.scope,
+                                                 self.train_program)
+        if extras is None:
+            return False
+        for name in self._mesh_ckpt().checkpoint_vars(self.scope,
+                                                      self.train_program):
+            val = self.scope.find_var(name)
+            if isinstance(val, torch.Tensor):
+                self.scope.set_var(name, val.to(self.place.device))
+        self.epoch_id = int(extras.get('epoch_id', 0))
+        self.step_id = int(extras.get('step_id', -1)) + 1
+        self._restored_rng = extras.get('rng')
+        self._apply_rng_state(self.exe)
+        if self._pe is not None:
+            self._apply_rng_state(self._pe)
+            # the restored whole values go back to their mesh layouts
+            self._pe._params_placed = False
+        return True
 
     def _apply_rng_state(self, executor):
         """Set the checkpointed random state on `executor`, in place on
@@ -420,7 +518,7 @@ class Trainer(object):
             self._pe = ParallelExecutor(
                 use_cuda=not isinstance(self.place, CPUPlace),
                 loss_name=self.loss.name, main_program=self.train_program,
-                scope=self.scope)
+                scope=self.scope, strategy=self._strategy)
             self._apply_rng_state(self._pe)
         return self._pe
 
@@ -441,8 +539,16 @@ class Trainer(object):
         rollbacks = 0
         while True:
             try:
-                return self._train_loop(num_epochs, event_handler,
-                                        reader, feed_order)
+                result = self._train_loop(num_epochs, event_handler,
+                                          reader, feed_order)
+                if self._mesh_checkpointer is not None:
+                    # drain the in-flight async commits (and surface an
+                    # async save failure) before the caller believes the
+                    # training and its checkpoints are done; on a mesh
+                    # rank 0 commits, so every rank waits for it
+                    self._mesh_checkpointer.wait()
+                    self._mesh_barrier()
+                return result
             except FatalRPCError as e:
                 cfg = self.checkpoint_cfg
                 if cfg is None or not cfg.checkpoint_dir or \
@@ -518,7 +624,8 @@ class Trainer(object):
                         self.epoch_id, self.step_id = epoch_id, step_id
                         continue
                     self._anomaly_streak = 0
-                event_handler(EndStepEvent(epoch_id, step_id, metrics))
+                if self._rank() == 0:
+                    event_handler(EndStepEvent(epoch_id, step_id, metrics))
                 self.epoch_id, self.step_id = epoch_id, step_id
                 if cfg and cfg.checkpoint_dir and \
                         (step_id + 1) % cfg.step_interval == 0:
@@ -570,9 +677,12 @@ class Trainer(object):
         self._stop_requested = True
 
     def save_params(self, param_path):
-        with scope_guard(self.scope):
-            io_mod.save_persistables(self.exe, param_path,
-                                     main_program=self.train_program)
+        whole, writes = self._whole_values()
+        if writes:
+            with scope_guard(whole):
+                io_mod.save_persistables(self.exe, param_path,
+                                         main_program=self.train_program)
+        self._mesh_barrier()
 
     def test(self, reader, feed_order):
         """Mean metrics of the eval-mode program over the reader."""

@@ -30,8 +30,11 @@ rf1 (rf1's shard writer against tools/bench_input_pipeline.py's, byte
 for byte, and its read-slot check refusing another image, label or
 value; pf1's count, label, share and span checks on a synthetic CUDA
 trace, refusing a short window and an unlabeled replay; their wiring
-into main(); both end to end on the CPU at a tiny width); and the
-script's refusal to run without a card."""
+into main()); and the script's refusal to run without a card. The
+end-to-end CPU runs of v1-v5, bk1-bk3 with mo1, sq1-sq4 (with sq4's
+chunk_eval check), sp1 with det1 and det2, pf1 with rf1, and the mesh
+phases mp1, mp2, pp1 and ck1 live in test_torch_chip_smoke_{paged,
+book,seq,sparse_det,pf1,mesh}.py."""
 import os
 import re
 import shutil
@@ -46,6 +49,7 @@ from torch.nn.attention import SDPBackend, sdpa_kernel
 
 import bench
 import chip_smoke
+from torch_threads import one_torch_thread  # noqa: F401
 from paddle_tpu_torch.kernels import conv_bn as k6
 from paddle_tpu_torch.kernels import flash_attention as fa
 from paddle_tpu_torch.models.transformer import TransformerConfig
@@ -1527,44 +1531,6 @@ def test_paged_phases_exist_run_in_order_and_fail_the_run():
     assert pos == sorted(pos)
 
 
-def test_paged_phases_run_on_the_cpu_at_a_tiny_width(tmp_path):
-    """v1-v5 end to end on the CPU at a tiny width (vocab 64, dim 32, 2
-    layers, max_len 512): the dense streams of c3's prompts, then every
-    check of v1-v5 on the plain ops."""
-    import paddle_tpu_torch as tfluid
-    cfg = TransformerConfig(vocab=64, dim=32, heads=2, layers=2, ffn=64,
-                            max_len=512, flash_attention=True, use_tp=False,
-                            use_sp=False)
-    place = tfluid.CPUPlace()
-    chip_smoke.build_and_save(cfg, place, str(tmp_path))
-    pred, dec = chip_smoke.load_and_prepare(str(tmp_path), place)
-    prompts = chip_smoke.prompts_for(cfg.vocab, cfg.max_len)
-    with tfluid.serving.LMServer(dec) as srv:
-        hs = [srv.submit(p, max_new_tokens=chip_smoke.NEW_TOKENS)
-              for p in prompts]
-        streams = [srv.result(h, 600) for h in hs]
-    counters = {chip_smoke.KERNELS[k][0]: getattr(fa,
-                                                  chip_smoke.KERNELS[k][0])
-                for k in chip_smoke.KERNELS}
-
-    def sync():
-        pass
-    v1 = chip_smoke.paged_serving(pred, dec, prompts, streams, counters,
-                                  sync)
-    pdec = v1.pop('dec')
-    assert v1['captures']['prepared_programs'] == 2
-    v2 = chip_smoke.prefix_sharing(pdec, sync)
-    assert (v2['hits'], v2['reused'], v2['warm_chunks']) == \
-        (7, 7 * chip_smoke.SYSTEM_PROMPT, 7)
-    v3 = chip_smoke.preemption(pred, pdec, sync)
-    assert v3['swap']['preemptions'] >= 1 and v3['swap']['swap_bytes'] > 0
-    v4 = chip_smoke.speculative(pred, prompts, v1['streams'], pdec, sync)
-    assert set(v4) == {1, cfg.layers}
-    assert v4[cfg.layers]['accept_rate'] > v4[1]['accept_rate']
-    v5 = chip_smoke.weight_swap(pred, pdec, sync)
-    assert len(v5['checked']) == 4
-
-
 def test_trainer_and_obs_phases_exist_run_in_order_and_fail_the_run():
     """tr1-tr4 and o1-o2 are phases (a failure is a PhaseError, which
     main() turns into exit 1 with no result line), called by main() in
@@ -1732,33 +1698,6 @@ def test_expected_print_text_is_the_jax_packages(capfd, arr, message):
     assert err == chip_smoke.expected_print_text('x', arr, message)
 
 
-def test_book_phases_run_on_the_cpu_at_a_small_width(tmp_path):
-    """bk1, bk2, bk3 and mo1 end to end on the CPU (depth 8, batch 8; the
-    kernels' plain versions): x1's rule, the fused step vs the unfused
-    one by r2's rule, every chapter's loss falling, the inference round
-    trip, memory_optimize and release_memory the same bits, and the
-    Print text."""
-    import paddle_tpu_torch as tfluid
-    place = tfluid.CPUPlace()
-
-    def sync():
-        pass
-    bk1 = chip_smoke.book_image_steps(place, sync, depth=8, batch=8)
-    assert len(bk1['losses']) == chip_smoke.BOOK['steps']
-    assert bk1['bits'] and np.isfinite(bk1['losses']).all()
-    bk2 = chip_smoke.book_fused_steps(bk1, place, sync)
-    assert bk2['launches'] == 0 and bk2['k6_ms'] == {}
-    assert bk2['r2']['loss_diff'] <= chip_smoke.TRAIN_LOSS_TOL
-    bk3 = chip_smoke.book_chapter_steps(place, sync, str(tmp_path / 'fit'),
-                                        scale=8)
-    assert sorted(bk3) == ['fit_a_line', 'recognize_digits', 'word2vec']
-    assert bk3['fit_a_line']['round_trip'] <= chip_smoke.SAVE_TOL
-    mo1 = chip_smoke.memory_modules(bk1, place, sync)
-    assert mo1['release_memory']['segments'] > \
-        mo1['release_memory']['plain_segments'] == 1
-    assert mo1['print']['segments'] >= 2 and mo1['print']['chars'] > 0
-
-
 # -- sq1-sq4: the stacked LSTM and the sequence chapters ----------------------------
 
 def _crf_case(seed, B=3, T=6, N=4):
@@ -1870,32 +1809,6 @@ def test_sequence_phases_are_wired_into_main():
                      (chip_smoke.srl_steps, 'sq4')):
         with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
             fn(None, None)
-
-
-def test_sequence_phases_run_on_the_cpu_at_a_tiny_width():
-    """sq1-sq4 end to end on the CPU at tiny widths: x1's rule, the loss
-    falling on the second pass, the card-vs-CPU comparison (here the CPU
-    twice: the same bits), the frozen embedding and the Viterbi margin
-    rule."""
-    import paddle_tpu_torch as tfluid
-    place = tfluid.CPUPlace()
-
-    def sync():
-        pass
-    sq1 = chip_smoke.stacked_lstm_steps(
-        place, sync, dict(vocab=100, T=6, batch=4, emb=8, hid=8))
-    assert sq1['bits'] and sq1['cpu'][0] == 0.0
-    assert len(sq1['losses']) == 2 * chip_smoke.SQ_BATCHES
-    sq2 = chip_smoke.sentiment_steps(place, sync, dict(
-        emb=8, hid=8, stacked=3, batch=4, lr=0.05))
-    assert sorted(sq2) == ['conv', 'stacked_lstm']
-    assert all(r['signatures'] >= 1 for r in sq2.values())
-    sq3 = chip_smoke.recommender_steps(place, sync, dict(batch=8, lr=0.2))
-    assert sq3['falls'][1] < sq3['falls'][0]
-    sq4 = chip_smoke.srl_steps(place, sync, dict(
-        word_dim=32, mark_dim=5, hidden=8, depth=2, batch=3,
-        mix_hidden_lr=1e-3))
-    assert sq4['viterbi'] == (3, 0.0) and sq4['cpu'][0] == 0.0
 
 
 def test_control_flow_and_mt_phases_are_wired_into_main():
@@ -2146,36 +2059,7 @@ def test_detection_ops_check_passes_on_the_cpu_at_a_small_shape():
     assert chip_smoke.check_detection_ops(tfluid.CPUPlace(), fr) == 0.0
 
 
-def test_sparse_and_detection_phases_run_on_the_cpu_at_a_tiny_width():
-    """sp1, det1 and det2 end to end on the CPU at tiny widths: lazy
-    Adam's untouched rows, captured vs op by op (op by op twice here),
-    sparse vs dense (the same bits), the word2vec fan-out, the SSD step
-    vs the CPU, detection_margin on the decode."""
-    import paddle_tpu_torch as tfluid
-    place = tfluid.CPUPlace()
-
-    def sync():
-        pass
-    w = dict(dict_size=50, word=8, hidden=8, batch=4, lr=1e-2, max_len=6,
-             beam=3)
-    sp1 = chip_smoke.sparse_steps(place, sync, w, dict(embed=8, hidden=16,
-                                                       batch=8, lr=0.05))
-    assert sp1['bits'] and sp1['cpu'][0] == 0.0
-    assert sp1['lazy'][0] == 2 * chip_smoke.SQ_BATCHES and \
-        sp1['lazy'][1] > 0
-    for k in ('adam', 'sgd', 'word2vec'):
-        assert max(sp1[k][0].values()) == 0.0
-    det1 = chip_smoke.ssd_steps(place, sync, chip_smoke.SSD_TINY)
-    assert det1['bits'] and det1['cpu'][0] == 0.0
-    assert det1['sizes'] == [(16, 16), (8, 8), (4, 4)]
-    det2 = chip_smoke.ssd_decode(det1, place, sync, chip_smoke.SSD_TINY)
-    assert det2['margin'][:2] == (chip_smoke.SSD_TINY['decode_batch'], 0)
-    assert det2['map_diff'] == 0.0 and min(det2['count']) > 0
-    assert 0.0 < det2['mixed'][0] < 1.0 and det2['mixed'][1] == 0.0
-
-
-# -- item 6 and the MoE LM: a4's new cases, moe1, moe2, sq4's chunk_eval,
-# det2's DetectionMAP ------------------------------------------------------------
+# -- item 6 and the MoE LM: a4's new cases, moe1, moe2, det2's DetectionMAP ----
 
 MOE_TINY = dict(vocab=256, dim=64, heads=2, layers=2, ffn=128, max_len=64,
                 flash_attention=True, use_tp=False, use_sp=False,
@@ -2198,7 +2082,8 @@ def test_moe_and_item6_phases_are_wired_into_main():
              'resnet_steps(']
     pos = [src.index(s) for s in order]
     assert pos == sorted(pos)
-    assert chip_smoke.MOE_MODEL == dict(chip_smoke.MODEL, moe_experts=4)
+    assert chip_smoke.MOE_MODEL == dict(chip_smoke.MODEL, moe_experts=4,
+                                        layers=6)
     assert chip_smoke.MOE_WARMUP + chip_smoke.MOE_TIMED == 10
     assert chip_smoke.MOE2 == dict(S=512, D=2048, H=8192, E=4, k=1, cf=2.0)
     assert chip_smoke.C3D['batch'] == 8 and chip_smoke.SEGNET['hw'] == \
@@ -2308,25 +2193,6 @@ def test_moe2_routing_rule_passes_ties_only():
     far[0] = [0.3, 0.5, 0.2]                   # a flip with a wide gap
     with pytest.raises(AssertionError, match='goes to expert'):
         chip_smoke.moe2_routing('t', g, far, w)
-
-
-def test_sq4_chunk_eval_runs_and_refuses_other_counts(monkeypatch):
-    import paddle_tpu_torch as tfluid
-    w = dict(word_dim=32, mark_dim=5, hidden=8, depth=2, batch=3,
-             mix_hidden_lr=1e-3)
-    sq4 = chip_smoke.srl_steps(tfluid.CPUPlace(), lambda: None, w)
-    assert len(sq4['chunks']) == 3 and all(0 <= v <= 1 for v in
-                                           sq4['chunks'])
-    program = chip_smoke._chunk_program
-    calls = []
-
-    def other(fluid, B, T, n):
-        calls.append(1)
-        # the first batch's card side counts one chunk type fewer
-        return program(fluid, B, T, n - (len(calls) == 1))
-    monkeypatch.setattr(chip_smoke, '_chunk_program', other)
-    with pytest.raises(chip_smoke.PhaseError, match='chunk_eval'):
-        chip_smoke.srl_steps(tfluid.CPUPlace(), lambda: None, w)
 
 
 def test_det2_detection_map_evaluator_runs_and_refuses(monkeypatch):
@@ -2531,68 +2397,3 @@ def test_pf1_and_rf1_are_wired_into_main():
                      (chip_smoke.record_file_steps, 'rf1')):
         with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
             fn(*[None] * 4)
-
-
-def test_pf1_and_rf1_run_on_the_cpu_at_a_tiny_width(tmp_path, monkeypatch):
-    import paddle_tpu_torch as tfluid
-    place = tfluid.CPUPlace()
-    cfg = TransformerConfig(vocab=64, dim=32, heads=2, layers=2, ffn=64,
-                            max_len=16, flash_attention=True, use_tp=False,
-                            use_sp=False)
-    tr = chip_smoke.LMRun(cfg, place, 2, 64, 'pf1_tiny_reader')
-    tr.feed(chip_smoke.bench_provider(cfg, 2, np.random.RandomState(0)))
-    for _ in range(3):
-        tr.step()
-    try:
-        pf1 = chip_smoke.profile_lm_steps(tr, 0, lambda: None,
-                                          str(tmp_path), place)
-    finally:
-        chip_smoke.remove_scratch()
-    assert pf1['maps'] == 1 and pf1['tl_out'] == pf1['r_out'] == 0.0
-    assert pf1['drive'][1] < 0.05 * pf1['drive'][0]
-    monkeypatch.setattr(chip_smoke, 'RESNET',
-                        dict(depth=50, image_hw=32, class_dim=1000))
-    monkeypatch.setattr(chip_smoke, 'RF',
-                        dict(files=2, records=8, per_chunk=4, threads=2,
-                             decode_s=0.2, warmup=2, iters=1))
-    try:
-        rf1 = chip_smoke.record_file_steps(place, lambda: None,
-                                           str(tmp_path), 0, batch=4)
-    finally:
-        chip_smoke.remove_scratch()
-    assert rf1['bits'] and rf1['img_err'] <= chip_smoke.RF_IMAGE_ATOL
-    assert set(rf1['rates']) == {1, 2} and min(rf1['rates'].values()) > 0
-    assert rf1['pre_ms'] > 0 and rf1['rec_ms'] > 0
-
-
-# -- mp1, mp2: the device mesh ------------------------------------------------
-
-MP_TINY = dict(vocab=512, dim=64, heads=2, ffn=128, max_len=64, layers=2)
-
-
-@pytest.mark.parametrize('name', ['mp1', 'mp2'])
-def test_mesh_phases_run_on_the_cpu_at_a_tiny_width(tmp_path, name):
-    """mp1 (the ring LM on sp=4) and mp2 (the flagship LM on dp=2 x tp=2)
-    through the one runner and worker entry, 4 CPU ranks, at 2 layers,
-    D 64, T 64: the ranks agree, start from the one-process run's
-    weights, and their losses and first-step updates are within its
-    bounds; mp1's ranks compute r + 1 blocks each way a step."""
-    fn = chip_smoke.mesh_ring_steps if name == 'mp1' else \
-        chip_smoke.mesh_tp_steps
-    spec = {'model': dict(MP_TINY), 'batch': 4, 'head_chunk': 128}
-    try:
-        out = fn(str(tmp_path), spec=spec, place_name='cpu')
-    finally:
-        chip_smoke.remove_scratch()
-    assert out['loss_diff'] <= chip_smoke.TRAIN_LOSS_TOL
-    assert max(out['upd'].values()) <= chip_smoke.TRAIN_UPDATE_TOL
-    if name == 'mp2':
-        assert 'all-reduce' in out['audit']
-
-
-def test_mesh_phases_are_wired_into_main():
-    import inspect
-    src = inspect.getsource(chip_smoke.main)
-    assert src.index('disagg_serving(') < src.index('mesh_ring_steps(') < \
-        src.index('mesh_tp_steps(')
-    assert "mp1['launches']['K1']" in src and "mp1['launches']['K2']" in src

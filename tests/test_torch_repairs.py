@@ -118,18 +118,13 @@ def test_default_config_builds_the_jax_program():
 
 
 # the ids the two cases had beside the moe_experts case (kw0), ported
-# now: pp_stages still raises naming item 8's pipeline bullet; the ring
-# config builds the JAX package's Program
+# now: the pp_stages config and the ring config build the JAX package's
+# Program
 @pytest.mark.parametrize('kw', [dict(pp_stages=2), dict(ring_attention=True)],
                          ids=['kw1', 'kw2'])
 def test_unported_parallelism_raises(kw):
-    if 'pp_stages' in kw:
-        with pytest.raises(NotImplementedError,
-                           match='Queue 1 item 8, the pipeline bullet'):
-            ttransformer.TransformerConfig(**kw)
-        return
-    cfg = dict(vocab=64, dim=16, heads=2, layers=1, ffn=32, max_len=8,
-               use_tp=True, use_sp=True, **kw)
+    cfg = dict(vocab=64, dim=16, heads=2, layers=2 if 'pp_stages' in kw
+               else 1, ffn=32, max_len=8, use_tp=True, use_sp=True, **kw)
     texts = []
     for fl, tr, un in ((jfluid, jtransformer, junique_name),
                        (tfluid, ttransformer, tunique_name)):
@@ -139,7 +134,8 @@ def test_unported_parallelism_raises(kw):
             tr.language_model_trunk(toks, tr.TransformerConfig(**cfg))
         texts.append(prog.to_string())
     assert texts[1] == texts[0]
-    assert 'ring_attention' in texts[1]
+    assert ('pp_stage' if 'pp_stages' in kw else 'ring_attention') in \
+        texts[1]
 
 
 @pytest.mark.parametrize('name', ['ring_attention'])

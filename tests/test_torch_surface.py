@@ -725,19 +725,10 @@ def _raises_naming(item, fn):
         fn()
 
 
-# (ROADMAP.md Queue 1 item, call): what is left of item 8 (the pipeline
-# engine, sharded checkpoints, Trainer(strategy=) and mesh serving);
-# host-side distribution (item 7) and the profiler (item 9) are ported
+# (ROADMAP.md Queue 1 item, call): what is left of item 8 (mesh
+# serving); host-side distribution (item 7) and the profiler (item 9)
+# are ported
 NOT_PORTED = {
-    'pp_stages': (8, lambda: __import__(
-        'paddle_tpu_torch.models.transformer', fromlist=['x'])
-        .TransformerConfig(pp_stages=2)),
-    'pp_strategy': (8, lambda: tfluid.ParallelExecutor(
-        use_cuda=False, main_program=tfluid.Program(),
-        strategy=tfluid.parallel.DistributedStrategy(pp=2))),
-    'sharded_checkpoint': (8, lambda: tfluid.CheckpointConfig(sharded=True)),
-    'trainer_strategy': (8, lambda: tfluid.Trainer(None, None,
-                                                   strategy=object())),
     'serve_replica_mesh': (8, lambda: _serve_replica_with(
         {'SERVE_MESH_SHAPE': 'tp=2'})),
 }
@@ -751,7 +742,17 @@ def _ring_program():
     return prog, out
 
 
-# item 8's entry points this slice ported (they raised before it): each
+def _fc_trainer(**kw):
+    def train_func():
+        x = tfluid.layers.data(name='x', shape=[4], dtype='float32')
+        y = tfluid.layers.data(name='y', shape=[1], dtype='float32')
+        return tfluid.layers.mean(tfluid.layers.square_error_cost(
+            tfluid.layers.fc(input=x, size=1), y))
+    return tfluid.Trainer(train_func, lambda: tfluid.optimizer.SGD(0.1),
+                          place=tfluid.CPUPlace(), **kw)
+
+
+# item 8's entry points the mesh slices ported (they raised before): each
 # now builds or runs
 PORTED_NOW = {
     'ring_attention': lambda: __import__(
@@ -762,6 +763,16 @@ PORTED_NOW = {
     ['ring_attention'],
     'collective_audit': lambda: tfluid.profiler.collective_audit(
         [{'kind': 'all-reduce', 'bytes': 16}]) == {'all-reduce': [16]},
+    'pp_stages': lambda: __import__(
+        'paddle_tpu_torch.models.transformer', fromlist=['x'])
+    .TransformerConfig(pp_stages=2).pp_stages == 2,
+    'pp_strategy': lambda: tfluid.parallel.DistributedStrategy(
+        pp=2, dp=2, micro_batches=4).mesh_config().build().shape ==
+    {'pp': 2, 'dp': 2},
+    'sharded_checkpoint': lambda: tfluid.CheckpointConfig(
+        sharded=True).sharded,
+    'trainer_strategy': lambda: _fc_trainer(
+        strategy=tfluid.parallel.DistributedStrategy()).parallel,
 }
 
 
@@ -793,11 +804,11 @@ def test_not_ported_messages_name_their_item(name):
 
 def test_not_ported_docs_name_their_item():
     """The module texts that send a reader to the ROADMAP name the item
-    that holds the work: meshes 8; host-side distribution (item 7) and
-    the profiler (item 9) are ported, so distributed, resilience, trace,
-    obs and obs.report name no item, and the trainer only item 8; the
-    parallel layers and the profiler's collective_audit are item 8's
-    ported part and name none."""
+    that holds the work: host-side distribution (item 7), the profiler
+    (item 9) and item 8's training half are ported, so distributed,
+    resilience, trace, obs, obs.report, the checkpoints and the trainer
+    name no item; the parallel layers and the profiler's
+    collective_audit are item 8's ported part and name none."""
     import re
     from paddle_tpu_torch import (checkpoint, distributed, obs, profiler,
                                   trainer)
@@ -805,7 +816,7 @@ def test_not_ported_docs_name_their_item():
     from paddle_tpu_torch.obs import report, trace
     from paddle_tpu_torch.parallel import layers as players
     want = {distributed: set(), resilience: set(), trace: set(),
-            checkpoint: {8}, trainer: {8}, obs: set(), report: set(),
+            checkpoint: set(), trainer: set(), obs: set(), report: set(),
             players: set(), profiler: set()}
     for mod, items in want.items():
         text = open(mod.__file__).read()

@@ -408,10 +408,11 @@ def test_inferencer_loads_both_packages_models(tmp_path):
 # -- what waits for later items ------------------------------------------------------
 
 def test_deferred_arguments_raise():
-    # ROADMAP Queue 1: meshes are item 8; host-side distribution (item 7)
-    # is ported, so pserver_endpoints is kept as the JAX package keeps it
-    with pytest.raises(NotImplementedError, match='item 8'):
-        tfluid.CheckpointConfig(checkpoint_dir='x', sharded=True)
+    # ported: host-side distribution (item 7) and item 8's sharded
+    # checkpoints and Trainer(strategy=); each argument is kept as the
+    # JAX package keeps it
+    for F in (tfluid, jfluid):
+        assert F.CheckpointConfig(checkpoint_dir='x', sharded=True).sharded
     cfg = tfluid.CheckpointConfig(checkpoint_dir='x',
                                   pserver_endpoints=('127.0.0.1:1',),
                                   trainer_id=1)
@@ -420,6 +421,7 @@ def test_deferred_arguments_raise():
                                    trainer_id=1)
     assert (cfg.pserver_endpoints, cfg.trainer_id) == \
         (jcfg.pserver_endpoints, jcfg.trainer_id) == (['127.0.0.1:1'], 1)
-    with pytest.raises(NotImplementedError, match='item 8'):
-        tfluid.Trainer(fc_train_func(tfluid), optimizer_func(tfluid, 'adam'),
-                       place=tfluid.CPUPlace(), strategy=object())
+    strategy = tfluid.parallel.DistributedStrategy()
+    tr = tfluid.Trainer(fc_train_func(tfluid), optimizer_func(tfluid, 'adam'),
+                        place=tfluid.CPUPlace(), strategy=strategy)
+    assert tr._strategy is strategy and tr.parallel

@@ -1,6 +1,7 @@
 """One rank of a port mesh job on the CPU, for the mesh tests
 (tests/test_torch_mesh.py, test_torch_parallel_axes.py,
-test_torch_ring_attention.py).
+test_torch_ring_attention.py, test_torch_pipeline.py,
+test_torch_sharded_ckpt.py).
 
 The test process (which holds JAX) spawns the ranks as fresh
 interpreters with the PADDLE_* env contract and a FileStore rendezvous
@@ -570,6 +571,389 @@ def ring(inp):
             out['%s/blocks' % tag] = np.array(
                 [RingCounters.fwd_blocks, RingCounters.bwd_blocks])
     return out
+
+
+def pp_program(cfg_kw, F=fluid, clip=False, seed=11, lr=1e-2):
+    """tests/test_pipeline_program.py::_progs (SGD), with its grad-clip
+    case."""
+    transformer = importlib.import_module(F.__name__ +
+                                          '.models.transformer')
+    cfg = transformer.TransformerConfig(**cfg_kw)
+    prog, startup = F.Program(), F.Program()
+    prog.random_seed = startup.random_seed = seed
+    with F.program_guard(prog, startup):
+        tokens = F.layers.data(name='tokens', shape=[cfg.max_len, 1],
+                               dtype='int64')
+        labels = F.layers.data(name='labels', shape=[cfg.max_len, 1],
+                               dtype='int64')
+        _, avg_cost = transformer.train_network(tokens, labels, cfg)
+        if clip:
+            F.clip.set_gradient_clip(F.clip.GradientClipByGlobalNorm(1.0))
+        F.optimizer.SGD(learning_rate=lr).minimize(avg_cost)
+    return prog, startup, avg_cost
+
+
+def _pp(inp, tag, clip=False):
+    """The pipelined LM of inp['<tag>/cfg'] on the mesh inp['<tag>/mesh']
+    (pp and micro_batches among its entries), 3 SGD steps on the batch
+    inp['pp/tokens'], from the weights inp['<tag>/p/...']."""
+    _fresh()
+    prog, startup, loss = pp_program(inp_cfg(inp, tag + '/cfg'), clip=clip)
+    scope = fluid.Scope()
+    _startup(startup, scope, _params(inp, tag + '/p/'))
+    pe = _pe(prog, scope, loss, strategy=DistributedStrategy(
+        **inp_cfg(inp, tag + '/mesh')))
+    feed = {'tokens': inp['pp/tokens'], 'labels': inp['pp/labels']}
+    out = {'losses': _losses(pe, loss, [feed] * 3)}
+    stats = pe.pp_stats()
+    out['stats'] = np.array([stats.act_bytes, stats.cot_bytes,
+                             stats.grad_bytes])
+    out['cache'] = np.array([pe.jit_cache_stats()[k] for k in (
+        'compiled_segments', 'segment_hits', 'segment_misses')])
+    for p in prog.global_block().all_parameters():
+        out['w/' + p.name] = pe.global_value(p.name).numpy()
+    return out
+
+
+@case
+def pp_dp(inp):
+    """test_pipeline_program.py::test_pp_matches_serial on pp=2 x dp=2."""
+    return _pp(inp, 'pp_dp')
+
+
+@case
+def pp_tp(inp):
+    """test_pp_dp_tp_matches_serial's use_tp program on pp=2 x tp=2."""
+    return _pp(inp, 'pp_tp')
+
+
+@case
+def pp_layers(inp):
+    """test_pp_multilayer_stages: 4 layers over 2 stages, pp=2 x dp=2."""
+    return _pp(inp, 'pp_layers')
+
+
+@case
+def pp4(inp):
+    """4 layers over 4 stages on pp=4."""
+    return _pp(inp, 'pp4')
+
+
+@case
+def pp_clip(inp):
+    """test_pp_rejects_grad_clip on pp=2 x dp=2."""
+    try:
+        _pp(inp, 'pp_dp', clip=True)
+    except NotImplementedError as e:
+        return {'refused': np.array(str(e))}
+    return {'refused': np.array('')}
+
+
+
+def _pp_batch_refusal(inp, rows, micro_batches):
+    """The message of the first run of pp_dp's program on pp=2 x dp=2
+    at `rows` rows over `micro_batches` microbatches ('' if it ran)."""
+    _fresh()
+    prog, startup, loss = pp_program(inp_cfg(inp, 'pp_dp/cfg'))
+    scope = fluid.Scope()
+    _startup(startup, scope, _params(inp, 'pp_dp/p/'))
+    pe = _pe(prog, scope, loss, strategy=DistributedStrategy(
+        pp=2, dp=2, micro_batches=micro_batches))
+    feed = {'tokens': inp['pp/tokens'][:rows],
+            'labels': inp['pp/labels'][:rows]}
+    try:
+        pe.run(fetch_list=[loss.name], feed=feed)
+    except ValueError as e:
+        return np.array(str(e))
+    return np.array('')
+
+
+@case
+def pp_batches(inp):
+    """The batch refusals on pp=2 x dp=2: 6 rows over 4 microbatches
+    (the JAX package's), and 8 rows over 8, where a dp rank's 4 rows do
+    not divide into 8 microbatches (the port's own)."""
+    return {'undivided': _pp_batch_refusal(inp, 6, 4),
+            'dp_rows': _pp_batch_refusal(inp, 8, 8)}
+
+
+@case
+def pp_checked(inp):
+    """FLAGS_check_nan_inf on pp=2 x dp=2: the segment runs op by op
+    (every output scanned), as the JAX package runs a checked segment;
+    one step's loss, then a NaN weight named at its first op."""
+    from paddle_tpu_torch.flags import set_flags
+    _fresh()
+    prog, startup, loss = pp_program(inp_cfg(inp, 'pp_dp/cfg'))
+    scope = fluid.Scope()
+    _startup(startup, scope, _params(inp, 'pp_dp/p/'))
+    pe = _pe(prog, scope, loss, strategy=DistributedStrategy(
+        **inp_cfg(inp, 'pp_dp/mesh')))
+    feed = {'tokens': inp['pp/tokens'], 'labels': inp['pp/labels']}
+    set_flags({'FLAGS_check_nan_inf': True})
+    try:
+        out = {'loss': np.asarray(pe.run(fetch_list=[loss.name],
+                                         feed=feed)[0])}
+        stage1 = [op for op in prog.global_block().ops
+                  if op.attr('pp_stage', None) == 1]
+        w = [n for n in stage1[0].input_arg_names()
+             if prog.global_block().var(n).persistable][0]
+        val = scope.find_var(w)
+        scope.set_var(w, torch.full_like(val, float('nan')))
+        try:
+            pe.run(fetch_list=[loss.name], feed=feed)
+            out['nan'] = np.array('')
+        except fluid.OpExecutionError as e:
+            out['nan'] = np.array(str(e))
+        out['weight'] = np.array(w)
+    finally:
+        set_flags({'FLAGS_check_nan_inf': False})
+    return out
+
+
+def pp_train_func(cfg_kw):
+    """train_func of the pipelined LM of pp_program, for a Trainer."""
+    def train_func():
+        transformer = importlib.import_module(
+            'paddle_tpu_torch.models.transformer')
+        cfg = transformer.TransformerConfig(**cfg_kw)
+        fluid.default_main_program().random_seed = 11
+        fluid.default_startup_program().random_seed = 11
+        tokens = fluid.layers.data(name='tokens', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        labels = fluid.layers.data(name='labels', shape=[cfg.max_len, 1],
+                                   dtype='int64')
+        return transformer.train_network(tokens, labels, cfg)[1]
+    return train_func
+
+
+@case
+def pp_trainer(inp):
+    """Trainer(strategy=DistributedStrategy(pp=2, dp=2, micro_batches=4))
+    with CheckpointConfig(sharded=True): 3 SGD steps of pp_dp's LM, the
+    resume from a generation written on the pp mesh continuing to the
+    uninterrupted run's bits."""
+    from paddle_tpu_torch.parallel import distributed as D
+    D.init_parallel_env()
+    batch = [inp['pp/tokens'], inp['pp/labels']]
+    return _trainer_resume(
+        pp_train_func(inp_cfg(inp, 'pp_dp/cfg')),
+        lambda: fluid.optimizer.SGD(learning_rate=1e-2),
+        DistributedStrategy(**inp_cfg(inp, 'pp_dp/mesh')),
+        str(inp['pt/root']), True, [batch] * 3, 2, ['tokens', 'labels'])
+
+
+@case
+def pipe_apply(inp):
+    """test_parallel_axes.py::test_pipeline_parallel_matches_serial_and_
+    trains: pipeline_apply over pp=world, forward and gradients."""
+    from paddle_tpu_torch.parallel.mesh import Mesh
+    from paddle_tpu_torch.parallel.pipeline import (
+        finish_backward, pipeline_apply, stack_stage_params)
+    from paddle_tpu_torch.parallel import distributed as D
+    D.init_parallel_env()
+    S = int(os.environ['PADDLE_TRAINERS_NUM'])
+    mesh = Mesh(('pp',), (S,))
+    mesh.device_mesh
+    per_stage = [{'w': torch.from_numpy(inp['pa/w%d' % i]).requires_grad_(),
+                  'b': torch.from_numpy(inp['pa/b%d' % i]).requires_grad_()}
+                 for i in range(S)]
+    stacked = stack_stage_params(per_stage)
+    x = torch.from_numpy(inp['pa/x'])
+
+    def stage_fn(p, v):
+        return torch.tanh(v @ p['w'] + p['b'])
+    out = pipeline_apply(stage_fn, mesh, x.shape[0], stacked, x)
+    loss = torch.mean(out ** 2)
+    loss.backward()
+    finish_backward()
+    res = {'out': out.detach().numpy(), 'loss': loss.detach().numpy()}
+    for i, p in enumerate(per_stage):
+        for k in ('w', 'b'):
+            g = p[k].grad
+            res['g%s%d' % (k, i)] = np.zeros(tuple(p[k].shape), 'float32') \
+                if g is None else g.numpy()
+    return res
+
+
+@case
+def ckpt_save(inp):
+    """One real save of 4 ranks on dp=2 x tp=2: one AMP-free Adam step of
+    the use_tp LM, then MeshCheckpointer.save_scope with each rank's
+    shards (the files' handshake across processes); rank 0 returns every
+    saved var's whole value and the saver's stats."""
+    from paddle_tpu_torch.checkpoint import MeshCheckpointer
+    _fresh()
+    prog, startup, loss = lm_program(dict(LM_SMALL, use_tp=True,
+                                          use_sp=True))
+    scope = fluid.Scope()
+    _startup(startup, scope, _params(inp, 'ck/p/'))
+    pe = _pe(prog, scope, loss, strategy=DistributedStrategy(dp=2, tp=2))
+    feed = {'tokens': inp['lm/tokens'], 'labels': inp['lm/labels']}
+    _losses(pe, loss, [feed])
+    mc = MeshCheckpointer(str(inp['ck/root']), incarnation=0)
+    names = sorted(mc.checkpoint_vars(scope, prog))
+    whole = {n: pe.global_value(n).numpy() for n in names}
+    mc.save_scope(scope, prog, extras={'step_id': 0}, block=True, pe=pe)
+    stats = mc.last_stats
+    mc.close()
+    out = {'stats': np.array([stats['bytes'], stats['files'],
+                              stats['max_host_bytes']])}
+    out['max_local'] = np.array(max(
+        scope.find_var(n).numel() * scope.find_var(n).element_size()
+        for n in names))
+    if pe._rank == 0:
+        out.update({'v/' + n: v for n, v in whole.items()})
+    return out
+
+
+def mesh_trainer_program():
+    """tests/mesh_worker.py::train_func."""
+    fluid.default_main_program().random_seed = 17
+    fluid.default_startup_program().random_seed = 17
+    x = fluid.layers.data(name='x', shape=[8], dtype='float32')
+    y = fluid.layers.data(name='y', shape=[1], dtype='float32')
+    h = fluid.layers.fc(input=x, size=16, act='relu',
+                        param_attr=fluid.ParamAttr(
+                            name='mw1', initializer=fluid.initializer.Normal(
+                                scale=0.1, seed=7)),
+                        bias_attr=fluid.ParamAttr(
+                            name='mb1',
+                            initializer=fluid.initializer.Constant(0.1)))
+    pred = fluid.layers.fc(input=h, size=1, param_attr=fluid.ParamAttr(
+        name='mw2', initializer=fluid.initializer.Normal(scale=0.1,
+                                                         seed=11)))
+    return fluid.layers.mean(fluid.layers.square_error_cost(pred, y))
+
+
+@case
+def mesh_trainer(inp):
+    """A rank of tests/mesh_worker.py's job, run by a Supervisor: a
+    Trainer(strategy=DistributedStrategy(dp=, sharded_params=True)) with
+    CheckpointConfig(sharded=True, step_interval=MESH_CKPT_EVERY) trains
+    MESH_STEPS steps of one epoch under Adam(0.02). The rendezvous is
+    keyed by FLAGS_trainer_incarnation, so a restarted job never meets a
+    rank of the one before; the group's timeout is MESH_DIST_TIMEOUT, so
+    the survivors of a killed rank raise. Any failure exits non-zero at
+    once (the Supervisor restarts the rank). Rank 0 returns every final
+    float persistable (weights and Adam moments) and the losses."""
+    import traceback as tb
+    try:
+        work = os.environ['MESH_WORK']
+        inc = int(os.environ.get('FLAGS_trainer_incarnation', 0))
+        os.environ['PADDLE_DIST_INIT_METHOD'] = 'file://' + os.path.join(
+            work, 'store.%d' % inc)
+        os.environ['PADDLE_DIST_TIMEOUT'] = os.environ.get(
+            'MESH_DIST_TIMEOUT', '30')
+        _fresh()
+        steps = int(os.environ.get('MESH_STEPS', 6))
+        dp = int(os.environ.get('MESH_DP', 2))
+        cfg = fluid.CheckpointConfig(
+            checkpoint_dir=os.environ['MESH_CKPT'],
+            step_interval=int(os.environ.get('MESH_CKPT_EVERY', 2)),
+            sharded=True)
+        trainer = fluid.Trainer(
+            mesh_trainer_program, lambda: fluid.optimizer.Adam(0.02),
+            place=fluid.CPUPlace(), checkpoint_config=cfg,
+            strategy=DistributedStrategy(dp=dp, sharded_params=True))
+
+        def reader():
+            rng = np.random.RandomState(0)
+            w = np.linspace(-1, 1, 8).astype('float32')[:, None]
+            for _ in range(steps):
+                x = rng.randn(16, 8).astype('float32')
+                yield [x, (x @ w + 0.1).astype('float32')]
+        losses = []
+
+        def handler(event):
+            if isinstance(event, fluid.EndStepEvent):
+                losses.append(float(np.asarray(event.metrics[0])))
+        trainer.train(num_epochs=1, event_handler=handler, reader=reader,
+                      feed_order=['x', 'y'])
+        trainer._mesh_checkpointer.close()
+        pe = trainer._pe
+        out = {'losses': np.array(losses), 'rank': np.array(pe._rank)}
+        for var in trainer.train_program.list_vars():
+            if var.persistable and trainer.scope.find_var(var.name) \
+                    is not None:
+                v = pe.global_value(var.name)
+                if v.is_floating_point():
+                    out['w/' + var.name] = v.numpy()
+        return out
+    except BaseException:
+        tb.print_exc()
+        sys.stdout.flush()
+        os._exit(1)
+
+
+
+def _trainer_resume(train_func, opt_func, strategy, root, sharded,
+                    batches, stop_at, feed_order):
+    """Three Trainer(strategy=) runs on the job's ranks, one after the
+    other in each rank's process: A trains batches[:stop_at] with a
+    checkpoint after every step into `root`, B resumes from it and
+    trains the rest, C trains every batch with no checkpoint. Returns
+    A's final whole values ('a/'), B's values right after its resume,
+    before any step ('b0/'), B's and C's final whole values ('b/', 'c/')
+    and the losses of B and C (rank 0 alone sees EndStepEvent)."""
+    out = {}
+
+    def run(tag, cfg, stop=None):
+        _fresh()
+        trainer = fluid.Trainer(train_func, opt_func,
+                                place=fluid.CPUPlace(),
+                                checkpoint_config=cfg, strategy=strategy)
+        names = sorted(v.name for v in trainer.train_program.list_vars()
+                       if v.persistable and
+                       isinstance(trainer.scope.find_var(v.name),
+                                  torch.Tensor) and
+                       trainer.scope.find_var(v.name).is_floating_point())
+        if tag == 'b':
+            for n in names:
+                out['b0/' + n] = trainer.scope.find_var(n).numpy().copy()
+        losses = []
+
+        def handler(event):
+            if isinstance(event, fluid.BeginStepEvent) and \
+                    event.step == stop:
+                trainer.stop()
+            if isinstance(event, fluid.EndStepEvent):
+                losses.append(float(np.asarray(event.metrics[0])))
+        trainer.train(num_epochs=1, event_handler=handler,
+                      reader=lambda: iter(batches), feed_order=feed_order)
+        if trainer._mesh_checkpointer is not None:
+            trainer._mesh_checkpointer.close()
+        for n in names:
+            out['%s/%s' % (tag, n)] = trainer._pe.global_value(n).numpy()
+        out[tag + '_losses'] = np.array(losses)
+        out[tag + '_resumed'] = np.array(trainer._resumed)
+
+    cfg = lambda: fluid.CheckpointConfig(  # noqa: E731
+        checkpoint_dir=root, step_interval=1, sharded=sharded)
+    run('a', cfg(), stop=stop_at)
+    run('b', cfg())
+    run('c', None)
+    return out
+
+
+@case
+def host_trainer(inp):
+    """Trainer(strategy=) with the host checkpoints (no sharded=True) on
+    dp=4 ZeRO-3 Adam: rank 0 alone writes each persistable's whole
+    value, and a resume on the mesh continues to the uninterrupted
+    run's bits."""
+    from paddle_tpu_torch.parallel import distributed as D
+    D.init_parallel_env()
+    rng = np.random.RandomState(0)
+    w = np.linspace(-1, 1, 8).astype('float32')[:, None]
+    batches = []
+    for _ in range(4):
+        x = rng.randn(16, 8).astype('float32')
+        batches.append([x, (x @ w + 0.1).astype('float32')])
+    return _trainer_resume(
+        mesh_trainer_program, lambda: fluid.optimizer.Adam(0.02),
+        DistributedStrategy(dp=4, sharded_params=True),
+        str(inp['ht/root']), False, batches, 2, ['x', 'y'])
 
 
 def spawn(tmp_dir, world, cases, inputs, timeout=240):
