@@ -19,6 +19,21 @@ no_host_sync (torch.cuda.set_sync_debug_mode('error')): a device op
 that synchronises with the host fails the run. r2 runs its steps op by
 op, since its stand-in kernel must run where Python runs.
 
+The run has two lanes. After (a), (b), (b4), (h), (p) and (b6), which
+time every kernel on an otherwise idle card, and (c1), two worker
+processes of the script (`--second-lane`, started after (a) and idle
+until then) run the phases whose work runs in processes of their own,
+as units they take in this order of preference: ck1 beside a3 and a4,
+fl1, mp1, pp1 then sv1, ps1 and ps2, fl2, mp2, on1. This process runs
+every other phase meanwhile, then waits for the workers and reads their
+results. The card's memory is shared by card_share: each block of this
+process's phases and each unit of the second lane holds a share of
+CARD_BUDGET_GB while it runs, and a unit starts only where it fits
+beside the most this process holds, waits for or takes with its next
+block. So step times after (c1) are read while the other lane's
+processes use the card and the host's cores; the kernels line's times
+are not.
+
 Phases, each of which fails the run (non-zero exit, no final "ok" line):
   (a) build every CUDA kernel of the paths with nvcc (one process per
       source, started together): the flash-attention forwards K1, K4a,
@@ -450,7 +465,9 @@ The captured path itself:
       step ms and peak device memory (logged, with whether 'nothing' <
       'dots' < None holds).
 
-After x4, the high-level Trainer and Inferencer on the flagship LM
+After the serving phases (before t1, so that the second lane's longest
+unit runs beside this small block), the high-level Trainer and
+Inferencer on the flagship LM
 (AMP Momentum(0.001, 0.9), batch TRAIN_BATCH, fed through layers.data
 and feed_order, one epoch of TR_STEPS batches; every Trainer built in a
 fresh name scope with a fresh executor, closed before the next one;
@@ -635,7 +652,8 @@ waited on by its READY line:
       Adam, a fluid.Trainer(strategy=) with CheckpointConfig(
       sharded=True, step_interval=CK1['interval']) on 2 ranks (`--ps-
       worker ckrank <r>` processes) under a Supervisor, CK1['steps']
-      steps, twice, beside a3 and a4 (which check values only): fault-free, and with rank 1 killed at its
+      steps, as two jobs at once, beside a3 and a4 (which check values
+      only): fault-free, and with rank 1 killed at its
       CK1['kill_step']-th step (rank 0 then fails in gloo, both restart
       at incarnation 1 on a fresh rendezvous and resume from the last
       committed generation): every final weight and Adam moment the
@@ -648,6 +666,20 @@ waited on by its READY line:
       save's blocking and
       async ms, its bytes and files a rank, its largest host buffer (at
       most one shard) and the restore's ms logged.
+  (sv1) mesh serving: c1's model built with use_tp (its saved program
+      carries the column and row constraints) at c1's 12 layers, saved,
+      loaded once; its 8 requests x NEW_TOKENS through LMServer in this
+      process (the reference), then through LMServer on a tp=2 serving
+      mesh (prepare_decoding(mesh='tp=2'): 2 rank processes sharing the
+      card under gloo, one rank group and one weight upload for both
+      legs), dense then paged: every stream equal to the reference's or
+      parting at a near tie (margin_rule), stats mesh_shape 'tp=2' and
+      mesh_devices 2, each rank holding half the columns of every qkv
+      and up weight, each rank's K1 fp32 launches layers x prompts in
+      the dense leg (a flash spec runs every head on every rank) and no
+      plain flash call, the ranks gone once their predictors close; a
+      prefill's and a decode step's ms, the collectives' seconds and
+      bytes in a step and each rank's peak memory logged.
 
 It prints the card's name and power limit (nvidia-smi), the kernels
 line, the serving and training numbers (an Adam line and a sequences
@@ -13664,31 +13696,48 @@ def checkpoint_kill_steps(work_root, spec=None, place_name='cuda'):
     spec = dict(CK1, **(spec or {}))
     spec['model'] = dict(CK1['model'], **spec['model'])
     place = fluid.CUDAPlace(0) if place_name == 'cuda' else fluid.CPUPlace()
-    runs = {}
-    for tag in ('base', 'kill'):
+    # the fault-free and the killed job run at once, each its own
+    # Supervisor, work directory, rendezvous and root (their ranks share
+    # the card: times are loaded-card readings)
+    runs, errors = {}, {}
+
+    def job(tag):
         work = scratch(tempfile.mkdtemp(dir=work_root))
         root = os.path.join(work, 'ckpt')
-        states, restarts, res, wall = _ck_job(dict(spec, root=root),
-                                              place_name, work,
-                                              tag == 'kill')
+        try:
+            states, restarts, res, wall = _ck_job(dict(spec, root=root),
+                                                  place_name, work,
+                                                  tag == 'kill')
+            runs[tag] = dict(res=res, wall=wall, root=root,
+                             restarts=restarts)
+        except Exception as e:        # re-raised below, in the phase
+            errors[tag] = e
+    jobs = [threading.Thread(target=job, args=(tag,))
+            for tag in ('base', 'kill')]
+    for t in jobs:
+        t.start()
+    for t in jobs:
+        t.join()
+    for tag in ('base', 'kill'):
+        if tag in errors:
+            raise errors[tag]
+        restarts, res = runs[tag]['restarts'], runs[tag]['res']
         want = {'ckrank%d' % i: int(tag == 'kill')
                 for i in range(spec['dp'])}
         if restarts != want:
             raise AssertionError('ck1 %s: restarts %s, want %s'
                                  % (tag, restarts, want))
-        runs[tag] = dict(res=res, wall=wall, root=root)
         log('ck1 %s run: %.1f s, restarts %s, step ms by rank %s, the last '
             'save: %s'
-            % (tag, wall, restarts, ' | '.join(
+            % (tag, runs[tag]['wall'], restarts, ' | '.join(
                 ' '.join('%.1f' % x for x in r['ms'])
                 for r in res.values()), ' | '.join(json.dumps(
                     {k: r['stats'][k] for k in ('generation', 'bytes',
                                                 'files', 'max_host_bytes',
                                                 'snapshot_ms', 'latency')})
                     for r in res.values())))
-        if tag == 'base':
-            # only its digests are kept: the disk holds one root at a time
-            shutil.rmtree(root, ignore_errors=True)
+    # only the fault-free run's digests are kept
+    shutil.rmtree(runs['base']['root'], ignore_errors=True)
     base, kill = runs['base']['res'], runs['kill']['res']
     if not all(r['resumed'] and r['incarnation'] == 1
                for r in kill.values()):
@@ -13770,6 +13819,233 @@ def checkpoint_kill_steps(work_root, spec=None, place_name='cuda'):
                 ms={i: r['ms'] for i, r in base.items()})
 
 
+# sv1: mesh serving. c1's width with use_tp (the saved program carries
+# the column and row constraints the decode transpiler reads), served
+# through LMServer by one process on the card (the reference) and on tp=2
+# rank processes sharing the card under gloo, dense then paged, the one
+# rank group and one weight upload serving both legs
+SV1 = dict(model=dict(MODEL, use_tp=True), mesh='tp=2', slots=SLOTS,
+           new_tokens=NEW_TOKENS, timed=5)
+
+
+def start_serving_group(out, mesh_spec, place):
+    """Start the rank processes of the serving mesh `mesh_spec` on
+    `place` (serving.mesh.group_for), for a thread beside another phase:
+    out['seconds'] is how long they took to come up, or out['error'] the
+    PhaseError for the caller to raise. mesh_serving then finds them up."""
+    try:
+        from paddle_tpu_torch.serving import mesh as smesh
+        t0 = time.perf_counter()
+        smesh.group_for(smesh.serving_mesh(mesh_spec)[0], place)
+        out['seconds'] = time.perf_counter() - t0
+    except Exception as e:
+        out['error'] = PhaseError('sv1: starting its rank processes: %s: %s'
+                                  % (type(e).__name__, e))
+
+
+def rank_flash_counts(reset=False):
+    """This process's flash-attention launch counts and plain calls (a
+    serving rank's, through RemoteExecutor.call), zeroed after reading
+    when `reset`."""
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.tools.serve_replica import launch_counts
+    out = launch_counts()
+    if reset:
+        for k in KERNELS.values():
+            getattr(fa, k[0]).launches = 0
+        fa.FlashAttention.plain_cuda_calls = 0
+    return out
+
+
+def _sv1_serve(dec, prompts, n_new):
+    """prompts through LMServer(dec): streams, wall s, stats."""
+    import paddle_tpu_torch as fluid
+    t0 = time.perf_counter()
+    with fluid.serving.LMServer(dec) as srv:
+        handles = [srv.submit(p, max_new_tokens=n_new) for p in prompts]
+        streams = [[int(t) for t in srv.result(h, timeout=900)]
+                   for h in handles]
+        wall = time.perf_counter() - t0
+        stats = srv.stats()
+    if stats['completed'] != len(prompts) or any(
+            len(s) != n_new for s in streams):
+        raise AssertionError('engine stats %r, stream lengths %s'
+                             % (stats, [len(s) for s in streams]))
+    return streams, wall, stats
+
+
+def _sv1_step_times(dec, prompts, timed, sync):
+    """Mean wall ms of a prefill (the first prompt) and of a decode step
+    over every slot, and every rank's collectives in the last step."""
+    dec.reset()
+    dec.prefill([prompts[0]], [0])
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        dec.prefill([prompts[0]], [0])
+    sync()
+    prefill_ms = (time.perf_counter() - t0) * 1e3 / timed
+    toks = np.ones((dec.slots,), np.int64)
+    poss = np.full((dec.slots,), len(prompts[0]), np.int32)
+    dec.decode_step(toks, poss)
+    t0 = time.perf_counter()
+    for _ in range(timed):
+        dec.decode_step(toks, poss)
+    sync()
+    step_ms = (time.perf_counter() - t0) * 1e3 / timed
+    ranks = dec._exe.last_runs()
+    dec.reset()
+    return prefill_ms, step_ms, ranks
+
+
+@phase('sv1: mesh serving (c1\'s width with use_tp, LMServer on tp=2 rank '
+       'processes sharing the card under gloo, dense and paged, against one '
+       'process)')
+def mesh_serving(work_root, spec=None, place_name='cuda', group_s=None):
+    import torch
+    import paddle_tpu_torch as fluid
+    from paddle_tpu_torch.kernels import flash_attention as fa
+    from paddle_tpu_torch.models import transformer
+    from paddle_tpu_torch.serving import mesh as smesh
+    t0 = time.perf_counter()
+    spec = dict(SV1, **(spec or {}))
+    spec['model'] = dict(SV1['model'], **spec.get('model', {}))
+    cfg = transformer.TransformerConfig(**spec['model'])
+    place = fluid.CUDAPlace(0) if place_name == 'cuda' else fluid.CPUPlace()
+    sync = torch_sync(place)
+    prompts = prompts_for(cfg.vocab, cfg.max_len)
+    n_new = spec['new_tokens']
+    model_dir = scratch(tempfile.mkdtemp(dir=work_root))
+    prog, startup = fluid.Program(), fluid.Program()
+    prog.random_seed = startup.random_seed = SEED
+    with fluid.unique_name.guard(), fluid.program_guard(prog, startup):
+        toks = fluid.layers.data(name='tokens', shape=[1, cfg.max_len, 1],
+                                 dtype='int64', append_batch_size=False)
+        logits = transformer.language_model_logits(toks, cfg)
+    with fluid.scope_guard(fluid.Scope()):
+        exe = fluid.Executor(place)
+        exe.run(startup)
+        fluid.io.save_inference_model(model_dir, ['tokens'], [logits], exe,
+                                      main_program=prog)
+        exe.close()
+    del exe
+    t_saved = time.perf_counter()
+    # one loaded model serves the three legs: the one-process reference
+    # and both mesh legs (one weight upload to the ranks)
+    pred = fluid.inference.AnalysisPredictor(
+        fluid.inference.AnalysisConfig(model_dir, place=place))
+    ref_dec = pred.prepare_decoding(slots=spec['slots'],
+                                    prefill_batch=PREFILL_BATCH, mesh='')
+    refs, ref_wall, _ = _sv1_serve(ref_dec, prompts, n_new)
+    t_ref = time.perf_counter()
+    dec = pred.prepare_decoding(slots=spec['slots'],
+                                prefill_batch=PREFILL_BATCH,
+                                mesh=spec['mesh'])
+    t_up = time.perf_counter()
+    world = dec.mesh_devices
+    # the served weights: qkv and up split by columns on every rank
+    serve = dec._pair.spec.serve_param_specs()
+    names = sorted(dec.param_names())
+    whole = {n: tuple(pred._scope.find_var(n).shape) for n in names}
+    halves = {n for n in serve if '_qkv_' in n or '_up_' in n}
+    if len(halves) != 2 * cfg.layers:
+        raise AssertionError('sv1: serve specs %s' % sorted(serve))
+    for r, shapes in enumerate(dec._exe.weight_shapes(names)):
+        for n, got in zip(names, shapes):
+            want = (whole[n][0], whole[n][1] // world) if n in serve \
+                else whole[n]
+            if got != want:
+                raise AssertionError('sv1: rank %d holds %s of %s, want %s'
+                                     % (r, got, n, want))
+    dec._exe.call('chip_smoke:rank_flash_counts', True)
+    dense, dense_wall, dense_stats = _sv1_serve(dec, prompts, n_new)
+    counts = dec._exe.call('chip_smoke:rank_flash_counts')
+    for key in ('mesh_shape', 'mesh_devices'):
+        if dense_stats[key] != {'mesh_shape': spec['mesh'],
+                                'mesh_devices': world}[key]:
+            raise AssertionError('sv1: stats %s = %r' % (key,
+                                                         dense_stats[key]))
+    want_k1 = cfg.layers * len(prompts) if cfg.flash_attention else 0
+    for r, c in enumerate(counts):
+        _check_flash_launches('sv1: rank %d in the dense leg' % r, c,
+                              {KERNELS['fwd'][0]: want_k1} if want_k1
+                              else {}, place_name)
+    dense_hold = hold_streams('sv1 dense tp=2 vs one process', prompts,
+                              refs, dense, ref_dec)
+    prefill_ms, step_ms, ranks = _sv1_step_times(dec, prompts, spec['timed'],
+                                                 sync)
+    coll = [sum(rec['seconds'] for rec in r['records']) for r in ranks]
+    coll_bytes = [sum(rec['bytes'] for rec in r['records']) for r in ranks]
+    mem = dec._exe.call('paddle_tpu_torch.serving.mesh:rank_memory')
+    # a prompt prefills in one chunk: on the mesh every chunk pays its
+    # gathers' round trips through gloo, whatever its length
+    pdec = pred.prepare_decoding(slots=spec['slots'], paged=True,
+                                 page_tokens=PAGE_TOKENS,
+                                 prefill_chunk=cfg.max_len,
+                                 mesh=spec['mesh'])
+    if pdec._exe.group is not dec._exe.group:
+        raise AssertionError('sv1: the paged leg started another rank group')
+    paged, paged_wall, paged_stats = _sv1_serve(pdec, prompts, n_new)
+    if paged_stats['mesh_shape'] != spec['mesh']:
+        raise AssertionError('sv1: paged stats %r' % paged_stats)
+    layout = pdec._exe.layout()
+    pool = pdec._pair.pool_shape
+    for r, got in enumerate(layout):
+        # a flash spec serves its K/V state replicated (DecodeSpec._tp_ax)
+        heads = pool[2] // world if got['spec'][2] else pool[2]
+        if got['shapes'][0] != (pool[0], pool[1], heads, pool[3]):
+            raise AssertionError('sv1: rank %d pools %s' % (r, got))
+    paged_hold = hold_streams('sv1 paged tp=2 vs one process', prompts,
+                              refs, paged, ref_dec)
+    launches = sum(c[KERNELS['fwd'][0]] for c in counts)
+    plain = sum(c['plain_cuda_calls'] for c in counts)
+    pids = [int(p) for p in dec._exe.call('os:getpid')]
+    pdec.close()
+    dec.close()
+    ref_dec.close()
+    del pred, ref_dec, dec, pdec
+    deadline = time.time() + 30
+    while smesh._GROUPS and time.time() < deadline:
+        time.sleep(0.1)
+    for pid in pids:
+        try:
+            os.kill(pid, 0)
+            alive = open('/proc/%d/stat' % pid).read().split(')')[-1] \
+                .split()[0] != 'Z'
+        except (OSError, IndexError):
+            alive = False
+        if alive:
+            raise AssertionError('sv1: rank process %d outlived its '
+                                 'predictors' % pid)
+    wall = time.perf_counter() - t0
+    log('sv1: %s, %d layers, flash %s, %d requests x %d tokens on %s '
+        '(%d ranks sharing %s under gloo); the one-process reference %.3f s; '
+        'save %.1f s, reference leg %.1f s, %s %.1f s; dense leg %.3f s '
+        '(%d prefills, %d decode steps), '
+        'paged leg %.3f s (%d prefill chunks); a prefill %.3f ms, a decode '
+        'step %.3f ms over %d slots, its collectives %s s (%s of the step) '
+        'and %s bytes by rank; peak allocated / reserved GB by rank %s; K1 '
+        'fp32 %d launches over the ranks in the dense leg (%d plain calls); '
+        'streams equal dense %d, paged %d of %d; phase %.1f s'
+        % (spec['mesh'], cfg.layers, cfg.flash_attention, len(prompts),
+           n_new, place.device, world, place.device, ref_wall,
+           t_saved - t0, t_ref - t_saved,
+           'the weight upload (the ranks started beside pp1 in %.1f s)'
+           % group_s if group_s is not None else
+           'the rank group and the weight upload', t_up - t_ref, dense_wall,
+           dense_stats['prefills'], dense_stats['decode_steps'], paged_wall,
+           paged_stats['prefills'], prefill_ms, step_ms,
+           spec['slots'], ' / '.join('%.4f' % c for c in coll),
+           ' / '.join('%.1f%%' % (100 * c / (step_ms / 1e3)) for c in coll),
+           ' / '.join(str(b) for b in coll_bytes),
+           ' | '.join('%.2f / %.2f' % (m['allocated'] / 1e9,
+                                       m['reserved'] / 1e9) for m in mem),
+           launches, plain, dense_hold['equal'], paged_hold['equal'],
+           len(prompts), wall))
+    return dict(seconds=wall, launches={'K1': launches}, prefill_ms=prefill_ms,
+                step_ms=step_ms, collective_s=coll, memory=mem,
+                dense=dense_hold, paged=paged_hold, world=world)
+
+
 def run_beside(out, fn, *args):
     """Run the phase fn(*args) in this thread, for a caller that runs it
     beside its own work: out['result'] holds what it returns, or
@@ -13828,6 +14104,370 @@ def free_device_memory():
     torch.cuda.empty_cache()
 
 
+# -- the two lanes ------------------------------------------------------------
+#
+# The phases whose work runs in processes of their own (ck1's Trainer ranks
+# beside a3 and a4, the pserver clusters, online refresh, the fleets, the
+# mesh ranks, the serving mesh) are the units of the second lane: two
+# worker processes of this script (`--second-lane`) take them beside the
+# one-process phases of main(), once main() has timed the kernels and c1
+# has saved the model. The card's memory is shared by card_share: each
+# block of main() and each unit holds a share of CARD_BUDGET_GB while it
+# runs, and a unit starts only where it fits beside the most main() holds,
+# waits for or takes with its next block, so main() goes first.
+
+# GB (1e9 bytes) of the card's 85.5 GB that the two lanes' shares may
+# hold together: the rest stays free, since near a full card cuDNN falls
+# back to algorithms that need less workspace, and a program's eager and
+# captured steps then part (det1 did, beside fl1, at 81.6 GB used)
+CARD_BUDGET_GB = 80.0
+SHARES_ENV = 'CHIP_SMOKE_SHARES'
+T0_ENV = 'CHIP_SMOKE_T0'
+
+# main()'s blocks, in their order (the two small ones first, beside the
+# second lane's longest unit): GB of the card a block uses at most on an
+# H100 80GB HBM3 (its process's reserved memory, cuDNN's and cuBLAS's
+# workspaces and the captured graphs' pools among it, read beside the
+# card's used memory by CardSampler; and its CUDA context)
+MAIN_SHARES_GB = {'serving': 16, 'trainer': 16, 'lm': 49, 'remat': 23,
+                  'adam': 48, 'moe': 25, 'resnet': 63, 'nhwc': 53,
+                  'book': 9, 'seq': 10, 'det': 74, 'lc': 42}
+# the second lane's units, in the order its workers prefer them (the
+# long and large first, the small kept for beside main()'s large
+# blocks): GB of the card over all of a unit's processes, the worker's
+# own among them (the card's used memory less main()'s, read the same
+# way)
+SECOND_SHARES_GB = {'ck1': 34, 'fl1': 31, 'mp1': 43, 'pp1': 43, 'ps': 26,
+                    'fl2': 23, 'mp2': 28, 'on1': 17}
+
+
+def _pid_alive(pid):
+    try:
+        os.kill(pid, 0)
+    except ProcessLookupError:
+        return False
+    except PermissionError:
+        return True
+    return True
+
+
+def _shares_io(path, update):
+    """Under an exclusive lock on path + '.lock': read the shares file
+    ({'held': {key: GB}, 'want': {key: GB}, 'next': {pid: GB}, a key
+    '<pid>:<name>'; 'go' once main() lets the second lane start, and
+    'claimed', the units its workers have taken), drop the entries of
+    processes that have exited, apply update(state) and write the state
+    back; returns what update returned."""
+    import fcntl
+    with open(path + '.lock', 'a') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        try:
+            with open(path) as f:
+                state = json.load(f)
+        except (OSError, ValueError):
+            state = {'held': {}, 'want': {}}
+        for part in ('held', 'want', 'next'):
+            for key in list(state.setdefault(part, {})):
+                if not _pid_alive(int(key.split(':')[0])):
+                    del state[part][key]
+        out = update(state)
+        with open(path + '.tmp', 'w') as f:
+            json.dump(state, f)
+        os.replace(path + '.tmp', path)
+        return out
+
+
+def _take_share(state, key, gb, lead, next_gb=0):
+    """Take `gb` for `key` ('<pid>:<name>') if it fits. main()'s lane
+    (`lead`) takes it beside what is held, or alone, records `next_gb`,
+    what its next block will take, and where it does not fit is recorded
+    as waiting. The second lane takes it beside the most each other
+    process holds, waits for or takes next, or where no other process
+    has any."""
+    pid = key.split(':')[0]
+    held, want = state['held'], state['want']
+    nxt = state.setdefault('next', {})
+    if lead:
+        fits = not held or sum(held.values()) + gb <= CARD_BUDGET_GB
+        if fits:
+            want.pop(key, None)
+            held[key] = gb
+            nxt.pop(pid, None)
+            if next_gb:
+                nxt[pid] = next_gb
+        else:
+            want[key] = gb
+        return fits
+    others, mine = {}, 0
+    for part in (held, want, nxt):
+        for k, g in part.items():
+            p = k.split(':')[0]
+            if p != pid:
+                others[p] = max(others.get(p, 0), g)
+            elif part is held:
+                mine += g
+    fits = (not others and not mine) or \
+        sum(others.values()) + mine + gb <= CARD_BUDGET_GB
+    if fits:
+        held[key] = gb
+    return fits
+
+
+def _lane_clock():
+    return time.time() - float(os.environ.get(T0_ENV, time.time()))
+
+
+def _release_share(path, key, name, since, sampler=None):
+    import torch
+    if torch.cuda.is_initialized():
+        free_device_memory()
+    _shares_io(path, lambda st: st['held'].pop(key, None))
+    peaks = sampler.take_window() if sampler else None
+    log('card share %s released at %.1f s after %.1f s%s'
+        % (name, _lane_clock(), time.perf_counter() - since,
+           '' if peaks is None else
+           '; meanwhile the card\'s used memory peaked at %.2f GB (both '
+           'lanes, nvidia-smi), this process\'s reserved at %.2f GB, the '
+           'rest at %.2f GB' % peaks))
+
+
+@contextlib.contextmanager
+def card_share(name, gb, check=None, sampler=None, next_gb=0):
+    """main()'s block `name` holding `gb` GB of CARD_BUDGET_GB: waits
+    until it fits beside what the second lane holds (calling check()
+    while it waits, which raises if that lane has failed), records that
+    its next block takes `next_gb`, runs the body, then returns its
+    cached blocks to the card and the share. A no-op where SHARES_ENV is
+    not set (one lane)."""
+    path = os.environ.get(SHARES_ENV)
+    if not path:
+        yield
+        return
+    key = '%d:%s' % (os.getpid(), name)
+    t0 = time.perf_counter()
+    while not _shares_io(path, lambda st: _take_share(st, key, gb, True,
+                                                      next_gb)):
+        if check:
+            check()
+        time.sleep(0.1)
+    log('card share %s (%g GB) taken at %.1f s after a wait of %.1f s'
+        % (name, gb, _lane_clock(), time.perf_counter() - t0))
+    t1 = time.perf_counter()
+    try:
+        yield
+    finally:
+        _release_share(path, key, name, t1, sampler)
+
+
+class CardSampler:
+    """The card's used memory (both lanes, every process) every 0.5 s
+    from one `nvidia-smi --query-gpu=memory.used -lms 500` process, read
+    by a thread beside this process's reserved memory (the caching
+    allocator's count, no call to the card): each sample is written to
+    `series` (seconds on the lanes' clock, used GB, reserved GB), and
+    take_window() returns the peaks of the used memory, of the reserved
+    and of the rest (used less reserved) since the last window, or None
+    where nvidia-smi gave no reading."""
+
+    def __init__(self, series):
+        self.peak, self._window = None, None
+        self.series = open(series, 'w')
+        try:
+            self.proc = subprocess.Popen(
+                ['nvidia-smi', '--query-gpu=memory.used',
+                 '--format=csv,noheader,nounits', '-i', '0', '-lms', '500'],
+                stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        except OSError:
+            self.proc = None
+            return
+        self.thread = threading.Thread(target=self._read, daemon=True)
+        self.thread.start()
+
+    def _read(self):
+        import torch
+        for line in self.proc.stdout:
+            try:
+                used = float(line.strip()) * 1048576 / 1e9      # MiB
+            except ValueError:
+                continue
+            mine = torch.cuda.memory_reserved(0) / 1e9
+            self.series.write('%.1f\t%.3f\t%.3f\n'
+                              % (_lane_clock(), used, mine))
+            self.peak = used if self.peak is None else max(self.peak, used)
+            w = self._window or (0.0, 0.0, 0.0)
+            self._window = (max(w[0], used), max(w[1], mine),
+                            max(w[2], used - mine))
+
+    def take_window(self):
+        out, self._window = self._window, None
+        return out
+
+    def stop(self):
+        if self.proc is not None and self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.series.close()
+
+
+class SecondLane:
+    """A worker of the second lane: this script as `--second-lane
+    <model_dir> <work_root> <out>` in a process group of its own, its
+    output on this process's, its results pickled to <out>. check()
+    raises a PhaseError once it has failed; join() waits for it and
+    returns its results; stop() kills its process group (its phases'
+    processes too)."""
+
+    def __init__(self, model_dir, work_root, worker=1):
+        self.out = os.path.join(work_root, 'second_lane_%d.pkl' % worker)
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), '--second-lane',
+             model_dir, work_root, self.out], cwd=HERE,
+            start_new_session=True)
+
+    def check(self):
+        rc = self.proc.poll()
+        if rc not in (None, 0):
+            raise PhaseError('the second lane failed (exit %d; its error is '
+                             'above)' % rc)
+
+    def join(self):
+        import pickle
+        t0 = time.perf_counter()
+        self.proc.wait()
+        self.check()
+        log('a worker of the second lane ended %.1f s after it started '
+            '(main() waited %.1f s for it)'
+            % (time.perf_counter() - self.t0, time.perf_counter() - t0))
+        with open(self.out, 'rb') as f:
+            return pickle.load(f)
+
+    def stop(self):
+        import signal
+        try:
+            os.killpg(self.proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        self.proc.wait()
+
+
+def _ck1_beside_a3_a4(work_root, place):
+    """ck1's ranks beside a3 and a4, which check values only (ck1's own
+    readings are taken beside them); either's failure fails the unit."""
+    ck1_out = {}
+    ck1_thread = threading.Thread(target=run_beside, args=(
+        ck1_out, checkpoint_kill_steps, work_root))
+    ck1_thread.start()
+    try:
+        opt_worst = check_optimizer_ops(place)
+        op_worst = check_training_ops(place)
+    finally:
+        ck1_thread.join()
+    if 'error' in ck1_out:
+        raise ck1_out['error']
+    return {'ck1': ck1_out['result'], 'opt_worst': opt_worst,
+            'op_worst': op_worst}
+
+
+def _pp1_then_sv1(work_root, place):
+    """pp1, with sv1's rank processes starting beside it and waiting idle
+    for their first command (their start overlaps pp1 by design); then
+    sv1."""
+    sv1_group = {}
+    starter = threading.Thread(target=start_serving_group, args=(
+        sv1_group, SV1['mesh'], place))
+    starter.start()
+    try:
+        pp1 = pipeline_steps(work_root)
+    finally:
+        starter.join()
+    if 'error' in sv1_group:
+        raise sv1_group['error']
+    free_device_memory()
+    return {'pp1': pp1,
+            'sv1': mesh_serving(work_root, group_s=sv1_group['seconds'])}
+
+
+def second_lane_units(model_dir, work_root, place):
+    """The second lane's units in the order it prefers them: (share name,
+    fn() -> {result name: result})."""
+    return [
+        ('ck1', lambda: _ck1_beside_a3_a4(work_root, place)),
+        ('fl1', lambda: {'fl1': fleet_serving(model_dir, work_root)}),
+        ('mp1', lambda: {'mp1': mesh_ring_steps(work_root)}),
+        ('pp1', lambda: _pp1_then_sv1(work_root, place)),
+        ('ps', lambda: {'ps1': ps_lm_steps(work_root),
+                        'ps2': ps_deepfm_steps(work_root)}),
+        ('fl2', lambda: {'fl2': disagg_serving(model_dir, work_root)}),
+        ('mp2', lambda: {'mp2': mesh_tp_steps(work_root)}),
+        ('on1', lambda: {'on1': online_refresh(work_root)}),
+    ]
+
+
+def _claim_unit(state, pid, names):
+    """For the second lane's worker `pid`: the first of `names` (in the
+    order the workers prefer) that no worker has claimed and whose share
+    fits (_take_share's rule for the second lane), claimed and taken;
+    '' where every unit is claimed; None where none fits yet, or main()
+    has not let the lane start."""
+    claimed = state.setdefault('claimed', [])
+    left = [n for n in names if n not in claimed]
+    if not left:
+        return ''
+    if not state.get('go'):
+        return None
+    for name in left:
+        if _take_share(state, '%d:%s' % (pid, name), SECOND_SHARES_GB[name],
+                       False):
+            claimed.append(name)
+            return name
+    return None
+
+
+def second_lane(model_dir, work_root, out_path):
+    """`chip_smoke.py --second-lane <model_dir> <work_root> <out>`: one
+    worker of the second lane. Once main() lets the lane start, it takes
+    unit after unit of second_lane_units that no other worker has taken,
+    each as soon as its share of the card fits, until none is left, and
+    pickles their results to out_path. A phase's failure exits 1 with
+    its error."""
+    import pickle
+    import torch
+    import paddle_tpu_torch as fluid
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    place = fluid.CUDAPlace(0)
+    path = os.environ[SHARES_ENV]
+    units = dict(second_lane_units(model_dir, work_root, place))
+    names, pid = list(units), os.getpid()
+    results = {}
+    try:
+        while True:
+            name = _shares_io(path, lambda st: _claim_unit(st, pid, names))
+            if name == '':
+                break
+            if name is None:
+                time.sleep(0.1)
+                continue
+            log('card share %s (%g GB) taken by the second lane at %.1f s'
+                % (name, SECOND_SHARES_GB[name], _lane_clock()))
+            t0 = time.perf_counter()
+            try:
+                results.update(units[name]())
+            finally:
+                _release_share(path, '%d:%s' % (pid, name), name, t0)
+    except PhaseError as e:
+        print('chip_smoke: %s' % e, file=sys.stderr)
+        import traceback
+        traceback.print_exception(e.__cause__, file=sys.stderr)
+        return 1
+    finally:
+        remove_scratch()
+    with open(out_path, 'wb') as f:
+        pickle.dump(results, f)
+    return 0
+
+
 def main():
     t_start = time.perf_counter()
     try:
@@ -13850,6 +14490,9 @@ def main():
               'it from a checkout of the repository', file=sys.stderr)
         return 2
     sys.path.insert(0, HERE)
+    if len(sys.argv) == 5 and sys.argv[1] == '--second-lane':
+        # the second lane's phases, started by main() (SecondLane)
+        return second_lane(*sys.argv[2:])
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -13868,63 +14511,79 @@ def main():
     lc_cfg = TransformerConfig(**LC_MODEL)
     place = fluid.CUDAPlace(0)
     sync = torch.cuda.synchronize
+    second = third = sampler = None
     try:
         build_kernels()
+        build_root = os.path.join(HERE, 'build')
+        os.makedirs(build_root, exist_ok=True)
+        # kept for o2's server and the second lane's fleets
+        model_dir = scratch(tempfile.mkdtemp(dir=build_root))
+        # the second lane's two workers start now and wait, their imports
+        # beside the kernels' timing, until c1 has saved the model
+        shares = os.path.join(build_root, 'card_shares.json')
+        for stale in (shares, shares + '.lock', shares + '.tmp'):
+            if os.path.exists(stale):
+                os.remove(stale)
+        os.environ[SHARES_ENV] = shares
+        os.environ[T0_ENV] = repr(time.time() - (time.perf_counter()
+                                                 - t_start))
+        second = SecondLane(model_dir, build_root)
+        third = SecondLane(model_dir, build_root, 2)
         rows = check_kernels(cfg)
         long_rows = check_long_kernels(lc_cfg)
         check_untaken_flash(place, counters)
+        # every kernel is timed here, before the second lane puts other
+        # processes' work on the card: P, then K6 at the 1x1 shapes of
+        # r1's program (r1 checks that its program has these)
+        probe_row, probe_rows, exp_over_exp2 = check_probe()
+        with flags_set({'FLAGS_use_pallas_fused_ops': True}):
+            k6_shapes = k6_path_shapes(
+                resnet_program(reader_name='k6_shapes_reader')[0],
+                RESNET_BATCH)
+        k6_row = check_k6(k6_shapes)
+        free_device_memory()
         prompts = prompts_for(cfg.vocab, cfg.max_len)
-        build_root = os.path.join(HERE, 'build')
-        os.makedirs(build_root, exist_ok=True)
-        # kept for o2's server
-        model_dir = scratch(tempfile.mkdtemp(dir=build_root))
         build_and_save(cfg, place, model_dir)
         torch.cuda.empty_cache()
-        pred, dec = load_and_prepare(model_dir, place)
-        torch.cuda.reset_peak_memory_stats()
-        streams, launches, wall, stats = serve(dec, prompts, counters, sync)
-        check_recompute(pred, dec, prompts, streams)
-        check_solo(dec, prompts, streams)
-        prefill_ms, step_ms = time_path(dec, prompts, sync)
-        g_device = profile_path(dec, prompts, {'prefill': prefill_ms,
-                                               'decode_step': step_ms}, sync)
-        serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
-        x2 = check_serving_capture(dec, prompts, streams, sync,
-                                   {'prefill': prefill_ms,
-                                    'decode_step': step_ms})
-        v1 = paged_serving(pred, dec, prompts, streams, counters, sync)
-        pdec = v1.pop('dec')
-        v2 = prefix_sharing(pdec, sync)
-        v3 = preemption(pred, pdec, sync)
-        v4 = speculative(pred, prompts, v1['streams'], pdec, sync)
-        v5 = weight_swap(pred, pdec, sync)
-        v6 = paged_timing(pdec, prompts,
-                          {'step_ms': step_ms,
-                           'device_ms': g_device.get('decode_step')}, sync)
-        del pred, dec, pdec
-        free_device_memory()
+        sampler = CardSampler(os.path.join(build_root, 'card_memory.tsv'))
+        _shares_io(shares, lambda st: st.update(go=True))
 
-        tr, losses, train_ms, train_launches, train_peak_gb = train_steps(
-            cfg, place, counters, sync)
-        saved, batch, kernel_step, plain_diffs = check_plain_step(
-            tr, counters)
-        split_launches, split_diffs, split_ms, split_device_ms = \
-            check_split_step(tr, saved, batch, kernel_step, counters, sync)
-        del saved
-        tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
-        pf1 = profile_lm_steps(
-            tr, train_launches['flash_attention_bwd_kvmajor'] // TIMED_STEPS,
-            sync, build_root)
-        with flash_arms(None, 'split'):
-            x1 = {'Momentum': check_captured_steps(
-                tr, 'the Momentum step (split arm)', PARAMS_COMPARED, 'max',
-                place, sync)}
-        x3 = check_cache_key(tr, counters, place, sync)
-        # the LM is freed before the remat LMs, those before the Adam LM,
-        # and that one before ResNet
-        del tr
-        free_device_memory()
-        x4 = remat_steps(place, counters, sync)
+        def check():
+            second.check()
+            third.check()
+
+        def block(name):
+            names = list(MAIN_SHARES_GB)
+            nxt = names[names.index(name) + 1:]
+            return card_share(name, MAIN_SHARES_GB[name], check, sampler,
+                              MAIN_SHARES_GB[nxt[0]] if nxt else 0)
+
+        with block('serving'):
+            pred, dec = load_and_prepare(model_dir, place)
+            torch.cuda.reset_peak_memory_stats()
+            streams, launches, wall, stats = serve(dec, prompts, counters,
+                                                   sync)
+            check_recompute(pred, dec, prompts, streams)
+            check_solo(dec, prompts, streams)
+            prefill_ms, step_ms = time_path(dec, prompts, sync)
+            g_device = profile_path(dec, prompts, {'prefill': prefill_ms,
+                                                   'decode_step': step_ms},
+                                    sync)
+            serve_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+            x2 = check_serving_capture(dec, prompts, streams, sync,
+                                       {'prefill': prefill_ms,
+                                        'decode_step': step_ms})
+            v1 = paged_serving(pred, dec, prompts, streams, counters, sync)
+            pdec = v1.pop('dec')
+            v2 = prefix_sharing(pdec, sync)
+            v3 = preemption(pred, pdec, sync)
+            v4 = speculative(pred, prompts, v1['streams'], pdec, sync)
+            v5 = weight_swap(pred, pdec, sync)
+            v6 = paged_timing(pdec, prompts,
+                              {'step_ms': step_ms,
+                               'device_ms': g_device.get('decode_step')},
+                              sync)
+            del pred, dec, pdec
 
         # the high-level Trainer and Inferencer, then the observability
         # they and the server report into; checkpoints (~6 GB each) go to
@@ -13935,173 +14594,188 @@ def main():
         # checked them, so they do not sit in the host's page cache and
         # temporary space through the later phases
         tr_cfg = TransformerConfig(**TR_MODEL)
-        tr1 = trainer_steps(tr_cfg, place, counters, ckpt_root, sync)
-        drop_checkpoints(ckpt_root, 'tr1')
-        tr2 = trainer_resume(tr_cfg, place, counters, ckpt_root, sync)
-        drop_checkpoints(ckpt_root, 'tr2')
-        tr3_run, tr3 = trainer_faults(tr_cfg, place, counters, ckpt_root,
-                                      obs_dir, tr2['losses'], tr2['ms'], sync)
-        drop_checkpoints(ckpt_root, 'tr3')
-        tr4 = trainer_test_and_infer(tr_cfg, tr3_run, build_root, sync)
-        o1 = trainer_telemetry(tr_cfg, place, counters, obs_dir, tr1['ms'],
-                               sync)
-        o2 = serving_slo(model_dir, place, prompts, streams, obs_dir, sync)
+        with block('trainer'):
+            tr1 = trainer_steps(tr_cfg, place, counters, ckpt_root, sync)
+            drop_checkpoints(ckpt_root, 'tr1')
+            tr2 = trainer_resume(tr_cfg, place, counters, ckpt_root, sync)
+            drop_checkpoints(ckpt_root, 'tr2')
+            tr3_run, tr3 = trainer_faults(tr_cfg, place, counters, ckpt_root,
+                                          obs_dir, tr2['losses'], tr2['ms'],
+                                          sync)
+            drop_checkpoints(ckpt_root, 'tr3')
+            tr4 = trainer_test_and_infer(tr_cfg, tr3_run, build_root, sync)
+            o1 = trainer_telemetry(tr_cfg, place, counters, obs_dir,
+                                   tr1['ms'], sync)
+            o2 = serving_slo(model_dir, place, prompts, streams, obs_dir,
+                             sync)
 
-        adam = adam_steps(adam_cfg, place, counters, sync)
-        atr = adam.pop('tr')
-        adam_worst, adam_diffs, adam_upd = check_adam_step(
-            atr, adam['records'], counters)
-        x1['Adam'] = check_captured_steps(
-            atr, 'the Adam step', ADAM_PARAMS_COMPARED, 'weighted', place,
-            sync)
-        del atr
-        free_device_memory()
-        # ck1's ranks run beside a3 and a4, which check values only (ck1's
-        # own readings are taken beside them); its failure fails the run
-        ck1_out = {}
-        ck1_thread = threading.Thread(target=run_beside, args=(
-            ck1_out, checkpoint_kill_steps, build_root))
-        ck1_thread.start()
-        try:
-            opt_worst = check_optimizer_ops(place)
-            op_worst = check_training_ops(place)
-        finally:
-            ck1_thread.join()
-        if 'error' in ck1_out:
-            raise ck1_out['error']
-        ck1 = ck1_out['result']
-        free_device_memory()
-        t_moe = time.perf_counter()
-        moe1 = moe_steps(place, counters, sync)
-        free_device_memory()
-        moe2 = moe_op_check(place, sync)
-        moe_s = time.perf_counter() - t_moe
-        free_device_memory()
+        with block('lm'):
+            tr, losses, train_ms, train_launches, train_peak_gb = \
+                train_steps(cfg, place, counters, sync)
+            saved, batch, kernel_step, plain_diffs = check_plain_step(
+                tr, counters)
+            split_launches, split_diffs, split_ms, split_device_ms = \
+                check_split_step(tr, saved, batch, kernel_step, counters,
+                                 sync)
+            del saved
+            tok_s, mfu, device_ms, busy = profile_train(tr, train_ms, sync)
+            pf1 = profile_lm_steps(
+                tr,
+                train_launches['flash_attention_bwd_kvmajor'] // TIMED_STEPS,
+                sync, build_root)
+            with flash_arms(None, 'split'):
+                x1 = {'Momentum': check_captured_steps(
+                    tr, 'the Momentum step (split arm)', PARAMS_COMPARED,
+                    'max', place, sync)}
+            x3 = check_cache_key(tr, counters, place, sync)
+            # the LM is freed before the remat LMs, those before the Adam
+            # LM, and that one before ResNet
+            del tr
+        with block('remat'):
+            x4 = remat_steps(place, counters, sync)
 
-        fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
-        torch.cuda.reset_peak_memory_stats()
-        (rtr, path_shapes, r_losses, r_step_ms, r_launches,
-         r_peak_gb) = resnet_steps(place, sync)
-        k6_row = check_k6(path_shapes)
-        x5 = check_second_shape(rtr, place, sync)
-        r_plain_diffs = check_resnet_plain_step(rtr)
-        pair_diffs = check_fused_pair(place)
-        img_s, r_mfu, r_device_ms, r_busy, r_kinds = profile_resnet(
-            rtr, r_step_ms, sync)
-        x1['ResNet-50'] = check_captured_steps(
-            rtr, 'the ResNet-50 step', RESNET_PARAMS_COMPARED, 'spread',
-            place, sync)
-        # r1's executor is closed before n1: two batch-256 graph pools do
-        # not fit on the card together
-        rtr.drop_graphs()
-        del rtr
-        free_device_memory()
-        rf1 = record_file_steps(place, sync, build_root,
-                                r_launches // TIMED_STEPS)
-        free_device_memory()
-        t_ps = time.perf_counter()
-        ps1 = ps_lm_steps(build_root)
-        ps2 = ps_deepfm_steps(build_root)
-        ps_s = time.perf_counter() - t_ps
+        with block('adam'):
+            adam = adam_steps(adam_cfg, place, counters, sync)
+            atr = adam.pop('tr')
+            adam_worst, adam_diffs, adam_upd = check_adam_step(
+                atr, adam['records'], counters)
+            x1['Adam'] = check_captured_steps(
+                atr, 'the Adam step', ADAM_PARAMS_COMPARED, 'weighted',
+                place, sync)
+            del atr
+        with block('moe'):
+            t_moe = time.perf_counter()
+            moe1 = moe_steps(place, counters, sync)
+            free_device_memory()
+            moe2 = moe_op_check(place, sync)
+            moe_s = time.perf_counter() - t_moe
 
-        with flags_set(N1_FLAGS):
-            ntr, n1 = nhwc_steps(place, sync)
-            n_img_s, n_mfu, n_device_ms, n_busy, n_kinds = profile_nhwc(
-                ntr, n1['step_ms'], sync)
-            n2 = check_nhwc_vs_nchw(ntr, place)
-            i2 = check_nan_inf_mode(ntr, sync)
-        del ntr
-        free_device_memory()
-        s1 = s2d_steps(place, sync)
-        free_device_memory()
-        i1 = inference_leg(place, sync)
-        free_device_memory()
+        with block('resnet'):
+            fluid.set_flags({'FLAGS_use_pallas_fused_ops': True})
+            torch.cuda.reset_peak_memory_stats()
+            (rtr, path_shapes, r_losses, r_step_ms, r_launches,
+             r_peak_gb) = resnet_steps(place, sync)
+            if path_shapes != k6_shapes:
+                raise PhaseError('r1: the 1x1 shapes of its program %s are '
+                                 'not the ones b6 timed %s'
+                                 % (path_shapes, k6_shapes))
+            x5 = check_second_shape(rtr, place, sync)
+            r_plain_diffs = check_resnet_plain_step(rtr)
+            pair_diffs = check_fused_pair(place)
+            img_s, r_mfu, r_device_ms, r_busy, r_kinds = profile_resnet(
+                rtr, r_step_ms, sync)
+            x1['ResNet-50'] = check_captured_steps(
+                rtr, 'the ResNet-50 step', RESNET_PARAMS_COMPARED, 'spread',
+                place, sync)
+            # r1's executor is closed before n1: two batch-256 graph pools
+            # do not fit on the card together
+            rtr.drop_graphs()
+            del rtr
+            free_device_memory()
+            rf1 = record_file_steps(place, sync, build_root,
+                                    r_launches // TIMED_STEPS)
 
-        bk1 = book_image_steps(place, sync)
-        bk2 = book_fused_steps(bk1, place, sync)
-        mo1 = memory_modules(bk1, place, sync)
-        bk3 = book_chapter_steps(place, sync, scratch(
-            tempfile.mkdtemp(dir=build_root)))
-        del bk1['run']
-        free_device_memory()
+        with block('nhwc'):
+            with flags_set(N1_FLAGS):
+                ntr, n1 = nhwc_steps(place, sync)
+                n_img_s, n_mfu, n_device_ms, n_busy, n_kinds = profile_nhwc(
+                    ntr, n1['step_ms'], sync)
+                n2 = check_nhwc_vs_nchw(ntr, place)
+                i2 = check_nan_inf_mode(ntr, sync)
+            del ntr
+            free_device_memory()
+            s1 = s2d_steps(place, sync)
+            free_device_memory()
+            i1 = inference_leg(place, sync)
 
-        t_sq = time.perf_counter()
-        sq1 = stacked_lstm_steps(place, sync)
-        free_device_memory()
-        sq2 = sentiment_steps(place, sync)
-        sq3 = recommender_steps(place, sync)
-        sq4 = srl_steps(place, sync)
-        sq_s = time.perf_counter() - t_sq
-        free_device_memory()
+        with block('book'):
+            bk1 = book_image_steps(place, sync)
+            bk2 = book_fused_steps(bk1, place, sync)
+            mo1 = memory_modules(bk1, place, sync)
+            bk3 = book_chapter_steps(place, sync, scratch(
+                tempfile.mkdtemp(dir=build_root)))
+            del bk1['run']
 
-        t_mt = time.perf_counter()
-        cf1 = control_flow_steps(place, sync)
-        mt1 = mt_steps(place, sync)
-        mt2 = mt_decode(mt1, place, sync)
-        del mt1['run']
-        free_device_memory()
-        mt3 = mt_contrib_steps(place, sync)
-        mt_s = time.perf_counter() - t_mt
-        free_device_memory()
+        with block('seq'):
+            t_sq = time.perf_counter()
+            sq1 = stacked_lstm_steps(place, sync)
+            free_device_memory()
+            sq2 = sentiment_steps(place, sync)
+            sq3 = recommender_steps(place, sync)
+            sq4 = srl_steps(place, sync)
+            sq_s = time.perf_counter() - t_sq
+            free_device_memory()
 
-        t_det = time.perf_counter()
-        sp1 = sparse_steps(place, sync)
-        free_device_memory()
-        det1 = ssd_steps(place, sync)
-        det2 = ssd_decode(det1, place, sync)
-        del det1['run']
-        det_s = time.perf_counter() - t_det
-        free_device_memory()
+            t_mt = time.perf_counter()
+            cf1 = control_flow_steps(place, sync)
+            mt1 = mt_steps(place, sync)
+            mt2 = mt_decode(mt1, place, sync)
+            del mt1['run']
+            free_device_memory()
+            mt3 = mt_contrib_steps(place, sync)
+            mt_s = time.perf_counter() - t_mt
 
-        (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
-         l_extra) = lc_steps(lc_cfg, place, counters, sync)
-        l_diffs, l_arm_ms, l_arm_launches, l_arm_dev = check_lc_arms(
-            ltr, counters, sync)
-        l_tok_s, l_mfu, l_mfu_exec, l_device_ms, l_busy = profile_lc(
-            ltr, l_step_ms, l_extra, sync)
-        with flash_arms(*LC_ARMS):
-            x1['long-context'] = check_captured_steps(
-                ltr, 'the long-context step (twopass/onepass)',
-                LC_PARAMS_COMPARED, 'max', place, sync)
-        del ltr
-        free_device_memory()
+        with block('det'):
+            t_det = time.perf_counter()
+            sp1 = sparse_steps(place, sync)
+            free_device_memory()
+            det1 = ssd_steps(place, sync)
+            det2 = ssd_decode(det1, place, sync)
+            del det1['run']
+            det_s = time.perf_counter() - t_det
 
-        probe_row, probe_rows, exp_over_exp2 = check_probe()
-        # the fleet phases come after v6 and o2, which hold c1's model
-        # in this process, and their replica processes need the card's
-        # memory that the phases before them free
-        free_device_memory()
-        on1 = online_refresh(build_root)
-        fl1 = fleet_serving(model_dir, build_root)
-        free_device_memory()
-        fl2 = disagg_serving(model_dir, build_root)
-        free_device_memory()
-        # the mesh: ranks on the card after every one-process phase
-        t_mp = time.perf_counter()
-        mp1 = mesh_ring_steps(build_root)
-        free_device_memory()
-        mp2 = mesh_tp_steps(build_root)
-        mp_s = time.perf_counter() - t_mp
-        free_device_memory()
-        pp1 = pipeline_steps(build_root)
+        with block('lc'):
+            (ltr, l_losses, l_step_ms, l_launches, l_peak_gb,
+             l_extra) = lc_steps(lc_cfg, place, counters, sync)
+            l_diffs, l_arm_ms, l_arm_launches, l_arm_dev = check_lc_arms(
+                ltr, counters, sync)
+            l_tok_s, l_mfu, l_mfu_exec, l_device_ms, l_busy = profile_lc(
+                ltr, l_step_ms, l_extra, sync)
+            with flash_arms(*LC_ARMS):
+                x1['long-context'] = check_captured_steps(
+                    ltr, 'the long-context step (twopass/onepass)',
+                    LC_PARAMS_COMPARED, 'max', place, sync)
+            del ltr
+
+        # the second lane's phases: ck1 beside a3 and a4; the pserver
+        # clusters; online refresh; the fleets (their replicas load c1's
+        # model); the mesh ranks; pp1 with sv1's ranks starting beside it,
+        # then sv1; each unit in one of the lane's two workers
+        lane = second.join()
+        lane.update(third.join())
+        ck1, opt_worst, op_worst = (lane['ck1'], lane['opt_worst'],
+                                    lane['op_worst'])
+        ps1, ps2, on1 = lane['ps1'], lane['ps2'], lane['on1']
+        fl1, fl2 = lane['fl1'], lane['fl2']
+        mp1, mp2, pp1, sv1 = lane['mp1'], lane['mp2'], lane['pp1'], \
+            lane['sv1']
+        mp_s = mp1['seconds'] + mp2['seconds']
+        ps_s = ps1['seconds'] + ps2['seconds']
     except PhaseError as e:
         print('chip_smoke: %s' % e, file=sys.stderr)
         import traceback
         traceback.print_exception(e.__cause__, file=sys.stderr)
         return 1
     finally:
+        for proc in (second, third, sampler):
+            if proc is not None:
+                proc.stop()
         remove_scratch()
+    if sampler.peak is not None:
+        log('the card\'s used memory peaked at %.2f GB over the run (both '
+            'lanes, nvidia-smi)' % sampler.peak)
     # launches on each kernel's own main path: K1 fp32 in serving, K1
     # bf16 and K2 in the timed training steps, K3a/K3b in the split step,
     # K4a/K4b/K5 in the timed long-context steps, K1 bf16 at T = 8192 in
     # l2's default-arm step
     # (and pf1's profiled runs of the same step)
     # (ps1's fp32 K1 and K2 on its two trainers too, on1's in its trainer
-    # and serving process, and fl1's fp32 K1 in its replica processes
-    # that exited cleanly)
+    # and serving process, fl1's fp32 K1 in its replica processes
+    # that exited cleanly, and sv1's in its ranks' dense leg)
     path_launches = {'flash_attention_fwd': launches['flash_attention_fwd']
                      + ps1['launches']['K1'] + on1['launches']['K1']
-                     + sum(fl1['launches'].values()),
+                     + sum(fl1['launches'].values())
+                     + sv1['launches']['K1'],
                      'flash_attention_fwd_bf16':
                          train_launches['flash_attention_fwd'] +
                          pf1['launches']['K1'] + mp1['launches']['K1'] +
@@ -14463,6 +15137,15 @@ def main():
                for st in ck1['stats']['base'].values()),
            ck1['restore_ms'], ck1['restored_mb'], ck1['launches']['K1'],
            ck1['launches']['K3a'], ck1['launches']['K3b']))
+    log('mesh serving (sv1, %d ranks sharing the card under gloo, their '
+        'start included): %.1f s, a prefill %.3f ms, a decode step %.3f ms '
+        '(collectives %s s by rank), K1 fp32 %d launches over the ranks, '
+        'streams equal dense %d and paged %d of %d (near ties %s, %s)'
+        % (sv1['world'], sv1['seconds'], sv1['prefill_ms'], sv1['step_ms'],
+           ' / '.join('%.4f' % c for c in sv1['collective_s']),
+           sv1['launches']['K1'], sv1['dense']['equal'],
+           sv1['paged']['equal'], N_REQUESTS, sv1['dense']['ties'],
+           sv1['paged']['ties']))
     log('chip_smoke wall time: %.1f s' % (time.perf_counter() - t_start))
     log(json.dumps({'kernels': rows}))
     log(card)

@@ -1046,6 +1046,20 @@ class Executor(object):
         return (program._uid, program._version, program._use_bf16,
                 feed_sig, tuple(fetch_names), scope, run_time_switches())
 
+    def _cached_prepared(self, program, local, fetch_names, scope):
+        """The prepared program of a mesh run's key: prepared at its first
+        run, then cached (the newest PREPARED_LIMIT kept)."""
+        key = self._cache_key(program, local, fetch_names, scope)
+        prepared = self._prepared_cache.pop(key, None)
+        if prepared is None:
+            prepared = PreparedProgram(program, 0, local.keys(), fetch_names)
+            prepared.fingerprint = hashlib.md5(repr(key[:4]).encode()
+                                               ).hexdigest()[:12]
+        self._prepared_cache[key] = prepared
+        while len(self._prepared_cache) > PREPARED_LIMIT:
+            del self._prepared_cache[next(iter(self._prepared_cache))]
+        return prepared
+
     def run(self, program=None, feed=None, fetch_list=None,
             feed_var_name='feed', fetch_var_name='fetch', scope=None,
             return_numpy=True, use_program_cache=True):

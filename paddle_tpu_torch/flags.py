@@ -55,6 +55,13 @@ Known flags:
                          KV pages; a preemption past the budget
                          degrades to the re-prefill path instead of
                          growing host memory unboundedly
+  serve_mesh_shape       mesh-sharded serving (serving/mesh.py): the
+                         MeshConfig axis spec the decode, prefill and
+                         verify programs run over ('tp=2', 'dp=1,tp=4';
+                         '' = one device). The K/V state shards its
+                         heads axis over tp; an axis that does not
+                         divide (heads % tp != 0) falls back to
+                         replicated via fit_spec, never an error
   spec_k                 speculative decoding (serving/speculative.py):
                          draft proposals per verify pass (the ceiling:
                          the predictor adapts k between 1 and this from
@@ -268,6 +275,7 @@ _DEFAULTS = {
     'serving_prefill_chunk': 64,
     'serving_preempt_policy': 'swap',
     'serving_swap_host_mb': 64,
+    'serve_mesh_shape': '',
     'spec_k': 4,
     'spec_draft_layers': 1,
     'obs_dir': '',

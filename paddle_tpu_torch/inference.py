@@ -132,7 +132,7 @@ class AnalysisPredictor(Predictor):
                          paged=False, page_tokens=None, kv_pages=None,
                          prefill_chunk=None, speculative=False,
                          spec_k=None, draft_layers=None,
-                         draft_predictor=None):
+                         draft_predictor=None, mesh=None):
         """Transpile the loaded LM into the KV-cached prefill + decode
         pair and return a serving.DecodePredictor over this predictor's
         weight Scope. slots / prefill_batch default to
@@ -144,8 +144,11 @@ class AnalysisPredictor(Predictor):
         serving.SpeculativeDecodePredictor: draft/verify greedy
         speculation (spec_k / draft_layers default from FLAGS_spec_*;
         draft_predictor supplies an explicit smaller draft LM instead
-        of the layer-cut self-draft). Raises
-        transpiler.DecodeTranspileError if the program is not a
+        of the layer-cut self-draft). mesh (None: FLAGS_serve_mesh_shape;
+        '' = one device; 'tp=2', a MeshConfig or a Mesh) serves every
+        program over a mesh of rank processes (serving/mesh.py): the K/V
+        state sharded on heads, the weights by the recovered serve specs.
+        Raises transpiler.DecodeTranspileError if the program is not a
         decoder-only LM."""
         if speculative:
             from .serving import SpeculativeDecodePredictor
@@ -154,16 +157,17 @@ class AnalysisPredictor(Predictor):
                 draft_layers=draft_layers,
                 draft_predictor=draft_predictor,
                 page_tokens=page_tokens, kv_pages=kv_pages,
-                prefill_chunk=prefill_chunk)
+                prefill_chunk=prefill_chunk, mesh=mesh)
         if paged:
             from .serving import PagedDecodePredictor
             return PagedDecodePredictor(self, slots=slots,
                                         page_tokens=page_tokens,
                                         kv_pages=kv_pages,
-                                        prefill_chunk=prefill_chunk)
+                                        prefill_chunk=prefill_chunk,
+                                        mesh=mesh)
         from .serving import DecodePredictor
         return DecodePredictor(self, slots=slots,
-                               prefill_batch=prefill_batch)
+                               prefill_batch=prefill_batch, mesh=mesh)
 
 
 def create_analysis_predictor(config):

@@ -1,6 +1,6 @@
 """Generated layer functions of the activation ops, cumsum, increment,
-gaussian_random and sum (counterpart of paddle_tpu/layers/ops.py; the
-*_batch_size_like random layers are not ported)."""
+gaussian_random, sum and the uniform_random / gaussian_random
+*_batch_size_like layers (counterpart of paddle_tpu/layers/ops.py)."""
 from __future__ import annotations
 
 from ..layer_helper import LayerHelper

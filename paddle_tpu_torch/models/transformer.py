@@ -6,8 +6,9 @@ The tensor- and sequence-parallel annotations of the default config
 (use_tp, use_sp) are built always: inert on one card, the layouts of a
 ParallelExecutor over ranks on a mesh; with moe_experts each block's FFN
 is parallel.layers.moe_layer (its experts over 'ep' on a mesh); with
-ring_attention the attention is the sp ring. Pipeline parallelism is
-not ported.
+ring_attention the attention is the sp ring; with pp_stages the blocks
+are split into pipeline stages (pipeline_stage_guard), which
+ParallelExecutor runs through the GPipe engine on a pp mesh.
 TransformerConfig(remat=) runs each block in a rematerialization scope
 (layers.recompute), as in the JAX package. Programs built with the same config and names are the same
 Program text as the JAX package's, so weights carry across by name.
@@ -35,9 +36,13 @@ ops (kv_page_gather, matmul, a mask op, softmax, matmul), as in the JAX
 package, which reaches no Pallas kernel on this path either.
 
 Every shape is fixed when the programs are built; slot liveness is a
-mask (decode_mask), never a shape. The JAX builders also emit
-sharding_constraint ops for mesh serving; on one device those are the
-identity and are left out here.
+mask (decode_mask), never a shape. Each program carries the JAX
+package's sharding_constraint ops and is its program op for op: on one
+device a constraint is the identity; on a serving mesh
+(serving/mesh.py) it pins q/k/v and the K/V state heads-sharded
+(DecodeSpec.cache_spec) and gathers every sharded contraction input
+whole before its fc, so each output element reduces in one-device
+order.
 """
 from __future__ import annotations
 
@@ -221,10 +226,17 @@ class DecodeSpec(object):
     qkv/proj/up/down -> (w_name, b_name); final_ln is (scale, bias);
     head is (w_name, b_name_or_None). pos_len is the positional TABLE
     length (>= max_len, the sequence length the programs are built for).
+
+    param_specs maps weight name -> its recovered training sharding
+    spec in tuple form (None = replicated); the transpiler fills it from
+    dist_attr and the surviving sharding_constraint ops, so mesh serving
+    can shard the same scope. mesh is the serving mesh spec string
+    ('tp=2'; '' = one device), stamped by the predictor.
     """
 
     def __init__(self, vocab, dim, heads, layers, ffn, max_len, pos_len,
-                 emb_w, pos_w, blocks, final_ln, head, use_flash=False):
+                 emb_w, pos_w, blocks, final_ln, head, use_flash=False,
+                 param_specs=None, mesh=''):
         self.vocab, self.dim, self.heads = vocab, dim, heads
         self.layers, self.ffn = layers, ffn
         self.max_len, self.pos_len = max_len, pos_len
@@ -234,6 +246,8 @@ class DecodeSpec(object):
         self.final_ln = final_ln
         self.head = head
         self.use_flash = use_flash
+        self.param_specs = dict(param_specs or {})
+        self.mesh = mesh
 
     def cache_names(self, layer=None):
         """Ring-cache var names, shared by the prefill/decode pair."""
@@ -261,6 +275,30 @@ class DecodeSpec(object):
     def pool_shape(self, num_pages, page_tokens):
         return (num_pages, page_tokens, self.heads, self.dh)
 
+    def cache_spec(self):
+        """The sharding spec (tuple form) of the K/V state: the heads
+        axis over tp. Dim 2 is H in both layouts (rings [slots, T, H, dh]
+        and pools [pages, pt, H, dh]), so one spec covers dense and paged
+        serving. A flash spec serves replicated (_tp_ax)."""
+        return (None, None, _tp_ax(self), None)
+
+    def serve_param_specs(self):
+        """param_specs cut to the layouts that keep greedy decode in
+        one-device order: column-style only (last dim sharded, the
+        contraction dim whole), so every output element is reduced on one
+        rank in the one-device order and the gathers are pure data
+        movement. A row-parallel weight (dim 0 sharded) would split the
+        contraction into a sum in another order, so it is served
+        replicated."""
+        out = {}
+        for name, spec in self.param_specs.items():
+            if not spec or len(spec) < 2:
+                continue
+            if spec[-1] is not None and \
+                    all(s is None for s in spec[:-1]):
+                out[name] = tuple(spec)
+        return out
+
     def param_names(self):
         names = [self.emb_w, self.pos_w,
                  self.final_ln[0], self.final_ln[1], self.head[0]]
@@ -270,6 +308,13 @@ class DecodeSpec(object):
             for key in ('ln1', 'ln2', 'qkv', 'proj', 'up', 'down'):
                 names.extend(n for n in blk[key] if n)
         return names
+
+
+def _tp_ax(spec):
+    """The model axis the cached programs shard on: None (replicated)
+    for a flash spec, whose kernel runs every head of its input, as the
+    JAX package's Pallas kernel is opaque to GSPMD."""
+    return None if spec.use_flash else 'tp'
 
 
 def _named_attr(name):
@@ -312,19 +357,33 @@ def _create_cache_vars(spec, slots):
 
 def _qkv_parts(x, spec, blk, t):
     """qkv fc + per-part slice/reshape to [-1, t, H, dh], the caches'
-    storage layout."""
+    storage layout, each part pinned to the K/V state's layout (heads
+    over tp on a mesh; the identity on one device). The qkv contraction
+    dim stays whole either way."""
     qkv = _named_fc(x, 3 * spec.dim, blk['qkv'])
     D = spec.dim
 
     def part(s, e):
         p = L.slice(qkv, axes=[2], starts=[s], ends=[e])
-        return L.reshape(p, shape=[-1, t, spec.heads, spec.dh])
+        p = L.reshape(p, shape=[-1, t, spec.heads, spec.dh])
+        return sharding_constraint(p, (None, None, _tp_ax(spec), None))
 
     return part(0, D), part(D, 2 * D), part(2 * D, 3 * D)
 
 
-def _heads_first(x):
-    return L.transpose(x, perm=[0, 2, 1, 3])
+def _heads_first(x, spec):
+    """[B, t, H, dh] -> [B, H, t, dh], pinned heads-sharded on a mesh."""
+    return sharding_constraint(L.transpose(x, perm=[0, 2, 1, 3]),
+                               (None, _tp_ax(spec), None, None))
+
+
+def _gathered_ctx(ctx, spec, rows):
+    """[B, H, rows, dh] -> [B, rows, D], replicated before the proj
+    contraction: the gather of the per-head context is data movement,
+    and the full-D dot then reduces in one-device order."""
+    ctx = L.transpose(ctx, perm=[0, 2, 1, 3])
+    ctx = L.reshape(ctx, shape=[-1, rows, spec.dim])
+    return sharding_constraint(ctx, (None, None, None))
 
 
 def _prefill_attention(x, spec, blk, cache, slot_idx):
@@ -334,15 +393,16 @@ def _prefill_attention(x, spec, blk, cache, slot_idx):
                   inputs={'Cache': [cache_var], 'X': [new],
                           'Slots': [slot_idx]},
                   outputs={'Out': [cache_var]})
-    q, k, v = _heads_first(q4), _heads_first(k4), _heads_first(v4)
+    q, k, v = (_heads_first(q4, spec), _heads_first(k4, spec),
+               _heads_first(v4, spec))
     if spec.use_flash:
         ctx = L.flash_attention(q, k, v, causal=True)  # [pb, H, T, dh]
     else:
         scores = L.matmul(q, k, transpose_y=True,
                           alpha=1.0 / np.sqrt(spec.dh))
         ctx = L.matmul(L.softmax(L.causal_mask_bias(scores)), v)
-    ctx = L.reshape(_heads_first(ctx), shape=[-1, spec.max_len, spec.dim])
-    return _named_fc(ctx, spec.dim, blk['proj'])
+    return _named_fc(_gathered_ctx(ctx, spec, spec.max_len), spec.dim,
+                     blk['proj'])
 
 
 def _decode_attention(x, spec, blk, cache, step_idx):
@@ -352,15 +412,16 @@ def _decode_attention(x, spec, blk, cache, step_idx):
                   inputs={'Cache': [cache_var], 'X': [new],
                           'StepIdx': [step_idx]},
                   outputs={'Out': [cache_var]})
-    scores = L.matmul(_heads_first(q1), _heads_first(cache[0]),
-                      transpose_y=True,
+    q = _heads_first(q1, spec)                         # [S, H, 1, dh]
+    kt = _heads_first(cache[0], spec)                  # [S, H, T, dh]
+    vt = _heads_first(cache[1], spec)
+    scores = L.matmul(q, kt, transpose_y=True,
                       alpha=1.0 / np.sqrt(spec.dh))    # [S, H, 1, T]
     masked = _tmp_var()
     _block_op('decode_mask', inputs={'X': [scores], 'StepIdx': [step_idx]},
               outputs={'Out': [masked]})
-    ctx = L.matmul(L.softmax(masked), _heads_first(cache[1]))
-    ctx = L.reshape(_heads_first(ctx), shape=[-1, 1, spec.dim])
-    return _named_fc(ctx, spec.dim, blk['proj'])
+    ctx = L.matmul(L.softmax(masked), vt)              # [S, H, 1, dh]
+    return _named_fc(_gathered_ctx(ctx, spec, 1), spec.dim, blk['proj'])
 
 
 def _cached_block(x, spec, i, attention):
@@ -368,6 +429,10 @@ def _cached_block(x, spec, i, attention):
     x = L.elementwise_add(x, attention(_named_ln(x, blk['ln1']), blk))
     ffn = _named_fc(_named_ln(x, blk['ln2']), spec.ffn, blk['up'],
                     act='gelu')
+    # a column-sharded up weight leaves the gelu output ffn-sharded: it
+    # is gathered whole before the down contraction, which then reduces
+    # in one-device order
+    ffn = sharding_constraint(ffn, (None, None, None))
     return L.elementwise_add(x, _named_fc(ffn, spec.dim, blk['down']))
 
 
@@ -473,12 +538,12 @@ def _create_pool_vars(spec, num_pages, page_tokens):
         for i in range(spec.layers)]
 
 
-def _paged_gather(pool_var, table):
+def _paged_gather(pool_var, table, spec):
     g = _tmp_var()
     _block_op('kv_page_gather', inputs={'Pool': [pool_var],
                                         'Table': [table]},
               outputs={'Out': [g]})                    # [B, J, H, dh]
-    return _heads_first(g)                             # [B, H, J, dh]
+    return _heads_first(g, spec)                       # [B, H, J, dh]
 
 
 def _paged_attention(x, spec, blk, pool, table, positions, cow_src,
@@ -498,15 +563,17 @@ def _paged_attention(x, spec, blk, pool, table, positions, cow_src,
                   'Positions': [positions]}
         inputs.update(extra)
         _block_op(op_type, inputs=inputs, outputs={'Out': [pool_var]})
-    scores = L.matmul(_heads_first(q4), _paged_gather(pool[0], table),
-                      transpose_y=True,
+    q = _heads_first(q4, spec)
+    kt = _paged_gather(pool[0], table, spec)           # [B, H, J, dh]
+    vt = _paged_gather(pool[1], table, spec)
+    scores = L.matmul(q, kt, transpose_y=True,
                       alpha=1.0 / np.sqrt(spec.dh))    # [B, H, rows, J]
     masked = _tmp_var()
     _block_op(mask, inputs={'X': [scores], 'Positions': [positions]},
               outputs={'Out': [masked]})
-    ctx = L.matmul(L.softmax(masked), _paged_gather(pool[1], table))
-    ctx = L.reshape(_heads_first(ctx), shape=[-1, rows, spec.dim])
-    return _named_fc(ctx, spec.dim, blk['proj'])
+    ctx = L.matmul(L.softmax(masked), vt)              # [B, H, rows, dh]
+    return _named_fc(_gathered_ctx(ctx, spec, rows), spec.dim,
+                     blk['proj'])
 
 
 def _paged_pos_embedding(spec, index):
@@ -524,10 +591,12 @@ def _paged_pos_embedding(spec, index):
     return pos
 
 
-def _paged_trunk(spec, tokens, pos, attention):
-    x = L.elementwise_add(L.embedding(tokens, size=[spec.vocab, spec.dim],
-                                      param_attr=_named_attr(spec.emb_w)),
-                          pos)
+def _paged_trunk(spec, tokens, pos_fn, attention):
+    """The token embedding, then the positional rows (`pos_fn()`), in
+    the JAX package's op order, the blocks and the final norm."""
+    emb = L.embedding(tokens, size=[spec.vocab, spec.dim],
+                      param_attr=_named_attr(spec.emb_w))
+    x = L.elementwise_add(emb, pos_fn())
     for i in range(spec.layers):
         x = _cached_block(x, spec, i,
                           lambda ln, blk, _i=i: attention(ln, blk, _i))
@@ -568,10 +637,10 @@ def build_paged_prefill_program(spec, chunk, num_pages, page_tokens,
         cow_src = _int_data('prefill_cow_src', [1])
         cow_dst = _int_data('prefill_cow_dst', [1])
         pools = _create_pool_vars(spec, num_pages, page_tokens)
-        pos = L.reshape(_paged_pos_embedding(spec, positions),
-                        shape=[-1, chunk, spec.dim])         # [1, C, D]
         write = ('kv_page_write', {'Len': [length]})
-        x = _paged_trunk(spec, tokens, pos, lambda ln, blk, i:
+        x = _paged_trunk(spec, tokens, lambda: L.reshape(
+            _paged_pos_embedding(spec, positions),
+            shape=[-1, chunk, spec.dim]), lambda ln, blk, i:
                          _paged_attention(ln, spec, blk, pools[i], table,
                                           positions, cow_src, cow_dst,
                                           chunk, write,
@@ -610,9 +679,9 @@ def build_paged_decode_program(spec, slots, num_pages, page_tokens,
         cow_src = _int_data('decode_cow_src', [slots])
         cow_dst = _int_data('decode_cow_dst', [slots])
         pools = _create_pool_vars(spec, num_pages, page_tokens)
-        pos = _paged_pos_embedding(spec, step_idx)           # [S, 1, D]
         write = ('kv_page_append', {})
-        x = _paged_trunk(spec, tokens, pos, lambda ln, blk, i:
+        x = _paged_trunk(spec, tokens, lambda: _paged_pos_embedding(
+            spec, step_idx), lambda ln, blk, i:
                          _paged_attention(ln, spec, blk, pools[i], table,
                                           step_idx, cow_src, cow_dst, 1,
                                           write, 'paged_decode_mask'))
@@ -649,9 +718,9 @@ def build_verify_program(spec, slots, k1, num_pages, page_tokens,
         cow_src = _int_data('verify_cow_src', [slots])
         cow_dst = _int_data('verify_cow_dst', [slots])
         pools = _create_pool_vars(spec, num_pages, page_tokens)
-        pos = _paged_pos_embedding(spec, positions)          # [S, K1, D]
         write = ('kv_page_append', {})
-        x = _paged_trunk(spec, tokens, pos, lambda ln, blk, i:
+        x = _paged_trunk(spec, tokens, lambda: _paged_pos_embedding(
+            spec, positions), lambda ln, blk, i:
                          _paged_attention(ln, spec, blk, pools[i], table,
                                           positions, cow_src, cow_dst, k1,
                                           write, 'spec_verify_mask'))

@@ -1165,3 +1165,81 @@ def _moe_aux(io):
     from . import moe
     moe.moe_aux_rule(io)
 
+
+
+# -- the serving ops (ops/attention_ops.py) -----------------------------------
+#
+# On a serving mesh (serving/mesh.py) the K/V state is sharded on its
+# heads dim (dim 2 of a ring [slots, T, H, dh] and of a pool
+# [pages, pt, H, dh]) and every feed (tokens, positions, page tables,
+# COW plans) is replicated. The cache ops write their rank's heads in
+# place, the gathers and the masks keep the heads split, and nothing of
+# the state crosses ranks. A state sharded on another dim has no local
+# form: such an op runs replicated (the state gathered and written back
+# to its layout).
+
+def _local(io, wants, out):
+    """Run the op on local shards: each input named in `wants` moved to
+    its spec, every other tensor input replicated; every output takes
+    `out`."""
+    for _, n in io.inputs():
+        want = wants.get(n, (REPL,) * len(io.spec(n)))
+        if io.spec(n) != tuple(want):
+            io.use(n, tuple(want))
+    io.emit()
+    for n in io.op.output_arg_names():
+        if _is_tensor(io.ctx.local.get(n)):
+            io.out(n, tuple(out))
+
+
+def _state_rule(state_slot, x_slot=None):
+    def fn(io):
+        op = io.op
+        sn = op.single_input(state_slot)
+        ss = io.spec(sn)
+        if any(ss[:2]):
+            return replicated(io)
+        wants = {sn: ss}
+        if x_slot is not None:
+            xn = op.single_input(x_slot)
+            wants[xn] = (REPL,) * (io.val(xn).ndim - 2) + tuple(ss[2:])
+        _local(io, wants, ss)
+    return fn
+
+
+rule('kv_cache_write', 'kv_cache_append')(_state_rule('Cache', 'X'))
+rule('kv_page_write', 'kv_page_append')(_state_rule('Pool', 'X'))
+rule('kv_page_cow')(_state_rule('Pool'))
+
+
+@rule('kv_page_gather')
+def _page_gather(io):
+    pn = io.op.single_input('Pool')
+    ss = io.spec(pn)
+    if any(ss[:2]):
+        return replicated(io)
+    _local(io, {pn: ss}, (REPL, REPL) + tuple(ss[2:]))
+
+
+@rule('decode_mask', 'paged_decode_mask', 'spec_verify_mask',
+      'paged_prefill_mask')
+def _score_mask(io):
+    """Scores [B, H, rows, J] keep their heads split; the positions they
+    are masked by are replicated feeds."""
+    xn = io.op.single_input('X')
+    keep = (REPL, io.spec(xn)[1], REPL, REPL)
+    _local(io, {xn: keep}, keep)
+
+
+@rule('gather_time')
+def _gather_time(io):
+    xn = io.op.single_input('X')
+    xs = io.spec(xn)
+    _local(io, {xn: (REPL, REPL) + tuple(xs[2:])}, (REPL,) + tuple(xs[2:]))
+
+
+@rule('position_embedding_at')
+def _position_embedding_at(io):
+    pn = io.op.single_input('Pos')
+    d = io.spec(pn)[1]
+    _local(io, {pn: (REPL, d)}, (REPL, REPL, d))

@@ -378,11 +378,9 @@ class ParallelExecutor(Executor):
         return self._pp_stats
 
     def _run_mesh(self, fetch_list, feed, return_numpy):
-        from .executor import PreparedProgram, PREPARED_LIMIT
         from .parallel import collectives as C
         from .parallel.layout import DistState
         from .flags import get_flag
-        import hashlib
         if not self._params_placed:
             self._bcast_params()
         program = self._main_program
@@ -393,15 +391,8 @@ class ParallelExecutor(Executor):
         for name, value in feed.items():
             t = self._feed_tensor(program, name, value)
             local[name], specs[name] = self._put_feed(name, t)
-        key = self._cache_key(program, local, fetch_names, self._scope)
-        prepared = self._prepared_cache.pop(key, None)
-        if prepared is None:
-            prepared = PreparedProgram(program, 0, local.keys(), fetch_names)
-            prepared.fingerprint = hashlib.md5(repr(key[:4]).encode()
-                                               ).hexdigest()[:12]
-        self._prepared_cache[key] = prepared
-        while len(self._prepared_cache) > PREPARED_LIMIT:
-            del self._prepared_cache[next(iter(self._prepared_cache))]
+        prepared = self._cached_prepared(program, local, fetch_names,
+                                         self._scope)
         bn_local = self._bn_local_stats
         if bn_local is None:
             bn_local = bool(get_flag('bn_local_stats'))

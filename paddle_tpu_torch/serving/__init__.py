@@ -1,6 +1,5 @@
-"""KV-cache incremental decoding, continuous-batching serving and fleet
-serving (counterpart of paddle_tpu/serving/; no mesh: each replica
-serves from one card).
+"""KV-cache incremental decoding, continuous-batching serving, fleet
+serving and mesh-sharded serving (counterpart of paddle_tpu/serving/).
 
 - decode.py       DecodePredictor: a loaded LM transpiled into a
                   prefill + decode program pair with per-layer
@@ -49,6 +48,11 @@ serves from one card).
                   OverloadError), the gray-failure watchdog, hedging,
                   zero-drop rolling weight deploys and the prefill tier;
                   FleetAutoscaler drives replica count.
+- mesh.py         Mesh-sharded serving: a predictor's programs run on a
+                  group of rank processes (serving_mesh, the
+                  controller's RemoteExecutor, the ranks'
+                  MeshDecodeExecutor), the K/V state sharded on heads,
+                  the weights by their serve specs.
 """
 from .decode import DecodePredictor
 from .paging import (CacheExhaustedError, PagePool, PageTable,

@@ -1,5 +1,5 @@
 """LMServer: the user-facing serving surface (counterpart of
-paddle_tpu/serving/api.py; no mesh).
+paddle_tpu/serving/api.py).
 
 Construct from a saved-model directory (or an AnalysisPredictor, or a
 prepared DecodePredictor), then either block in generate() or go async
@@ -25,7 +25,7 @@ class LMServer(object):
                  prefill_batch=None, workers=1, max_queue=None,
                  paged=False, page_tokens=None, kv_pages=None,
                  prefill_chunk=None, speculative=False, spec_k=None,
-                 draft_layers=None):
+                 draft_layers=None, mesh=None):
         """model_dir_or_predictor: a save_inference_model directory, an
         AnalysisPredictor, or an already-prepared DecodePredictor.
         paged=True serves from the page-pool cache (serving/paged.py):
@@ -33,8 +33,13 @@ class LMServer(object):
         page_tokens / kv_pages / prefill_chunk (each None defaults from
         FLAGS_serving_*). speculative=True (implies paged) serves
         through draft/verify speculation (serving/speculative.py);
-        spec_k / draft_layers default from FLAGS_spec_*."""
+        spec_k / draft_layers default from FLAGS_spec_*. mesh (None:
+        FLAGS_serve_mesh_shape; '' = one device; 'tp=2') serves over a
+        mesh of rank processes (serving/mesh.py); stats() carries its
+        mesh_shape and mesh_devices. close() releases the predictors
+        this server made (their ranks exit with the last user)."""
         obj = model_dir_or_predictor
+        self._owns_decode = not isinstance(obj, DecodePredictor)
         if isinstance(obj, DecodePredictor):
             dec = obj
         else:
@@ -45,7 +50,7 @@ class LMServer(object):
                 slots=slots, prefill_batch=prefill_batch, paged=paged,
                 page_tokens=page_tokens, kv_pages=kv_pages,
                 prefill_chunk=prefill_chunk, speculative=speculative,
-                spec_k=spec_k, draft_layers=draft_layers)
+                spec_k=spec_k, draft_layers=draft_layers, mesh=mesh)
         self._decode = dec
         self._engine = ServingEngine(dec, workers=workers,
                                      max_queue=max_queue)
@@ -198,7 +203,15 @@ class LMServer(object):
         if self._subscriber is not None:
             self._subscriber.stop()
             self._subscriber = None
-        return self._engine.stop(drain=drain, timeout=timeout)
+        clean = self._engine.stop(drain=drain, timeout=timeout)
+        # the engine's clones are this server's; the first predictor too
+        # when the server prepared it
+        preds = self._engine._predictors
+        for p in (preds if self._owns_decode else preds[1:]):
+            close = getattr(p, 'close', None)
+            if close is not None:
+                close()
+        return clean
 
     def __enter__(self):
         return self

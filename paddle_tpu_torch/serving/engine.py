@@ -1,11 +1,6 @@
 """ServingEngine: continuous batching over a fixed slot pool
-(counterpart of paddle_tpu/serving/engine.py).
-
-Not ported yet (ROADMAP.md Queue 1): mesh-sharded serving
-(serving/mesh.py: the stats keep mesh_shape '' and mesh_devices 1),
-replicas, the fleet router and disaggregated prefill
-(serving/{replica,fleet,disagg}.py), and online weight refresh
-(LMServer.enable_refresh, online/subscriber).
+(counterpart of paddle_tpu/serving/engine.py). stats() carries the
+predictors' serving mesh (mesh_shape, mesh_devices; serving/mesh.py).
 
 Iteration-level scheduling: the decode step is ONE program over all
 `slots` lanes, so admission and eviction never change a shape. A
@@ -485,9 +480,10 @@ class ServingEngine(object):
                'preempted_streams': preempted,
                'swap_host_bytes': self._swap_budget.used_bytes,
                'paged': paged,
-               # mesh serving is not ported: one device
-               'mesh_shape': '',
-               'mesh_devices': 1,
+               # the serving mesh the predictors run over ('' and 1:
+               # one device)
+               'mesh_shape': getattr(p0, 'mesh_shape', ''),
+               'mesh_devices': int(getattr(p0, 'mesh_devices', 1)),
                # per-worker {slot: tokens held}: actual cache pressure
                'slot_tokens': slot_tokens,
                'cache_tokens': sum(sum(d.values()) for d in slot_tokens),

@@ -1,5 +1,5 @@
 """PagedDecodePredictor: page-table cached decoding over a shared pool
-(counterpart of paddle_tpu/serving/paged.py; no mesh).
+(counterpart of paddle_tpu/serving/paged.py).
 
 The DecodePredictor contract (prefill / decode_step / generate /
 clone, weights pinned once in the parent Scope) re-based onto the
@@ -74,10 +74,12 @@ class PagedDecodePredictor(DecodePredictor):
 
     def __init__(self, predictor, slots=None, page_tokens=None,
                  kv_pages=None, prefill_chunk=None, _clone_of=None,
-                 pair=None):
+                 pair=None, mesh=None):
         """With `pair` (an already-transpiled PagedDecodePair) the
         transpile is skipped: the speculative path builds its target
-        and draft pairs in one transpile_spec and hands them here."""
+        and draft pairs in one transpile_spec and hands them here.
+        mesh: as DecodePredictor's; on a serving mesh each rank holds
+        its heads of every page of the pools."""
         if _clone_of is not None:
             pair = _clone_of._pair
         elif pair is None:
@@ -87,7 +89,11 @@ class PagedDecodePredictor(DecodePredictor):
                 slots=int(slots or get_flag('serving_slots')), paged=True,
                 page_tokens=page_tokens, kv_pages=kv_pages,
                 prefill_chunk=prefill_chunk)
-        self._setup(predictor, pair, check=_clone_of is None)
+        self._setup(predictor, pair, check=_clone_of is None, mesh=mesh,
+                    clone_of=_clone_of)
+
+    def _state_shape(self):
+        return self._pair.pool_shape
 
     # -- introspection -----------------------------------------------------
     @property
@@ -150,6 +156,28 @@ class PagedDecodePredictor(DecodePredictor):
         return [self._scope.find_var(name)
                 for name in self._pair.cache_names]
 
+    def _save_pages(self, pages):
+        """The rows `pages` of every pool as whole host float32 arrays (on
+        a mesh gathered from every rank's heads)."""
+        if not self._remote:
+            return self._pool.save_pages(self._pools(), pages)
+        return self._exe.read_rows(self._pool._check_live(pages))
+
+    def _restore_pages(self, data):
+        """Allocate fresh pages for host rows `data` (all or nothing) and
+        write them in place (on a mesh each rank its heads). Returns the
+        page ids."""
+        if not self._remote:
+            return self._pool.restore_pages(self._pools(), data)[0]
+        ids = self._pool.alloc_many(len(data[0]) if data else 0)
+        try:
+            self._exe.write_rows(ids, data)
+        except BaseException:
+            for p in ids:
+                self._pool.unref(p)
+            raise
+        return ids
+
     # -- streams -----------------------------------------------------------
     def open_stream(self, slot, prompt):
         """Begin a stream on `slot`: match the prefix cache and adopt
@@ -203,7 +231,7 @@ class PagedDecodePredictor(DecodePredictor):
                                'it, there is nothing worth swapping'
                                % slot)
         table = self._tables[slot]
-        data = self._pool.save_pages(self._pools(), table.pages)
+        data = self._save_pages(table.pages)
         return {'length': table.length, 'pages': len(table.pages),
                 'data': data,
                 'nbytes': int(sum(d.nbytes for d in data))}
@@ -221,7 +249,7 @@ class PagedDecodePredictor(DecodePredictor):
         if slot in self._tables:
             raise RuntimeError('slot %d already holds a stream — '
                                'release() it first' % slot)
-        ids, _ = self._pool.restore_pages(self._pools(), snapshot['data'])
+        ids = self._restore_pages(snapshot['data'])
         table = PageTable(self._pool, self.pages_per_slot)
         table.pages = list(ids)
         table.length = int(snapshot['length'])
@@ -243,7 +271,7 @@ class PagedDecodePredictor(DecodePredictor):
                                             limit=len(prompt) - 1)
         if not digests:
             return None
-        data = self._pool.save_pages(self._pools(), pages)
+        data = self._save_pages(pages)
         return {'keys': [d.hex() for d in digests],
                 'tokens': len(digests) * self.page_tokens,
                 'data': data,
@@ -294,8 +322,8 @@ class PagedDecodePredictor(DecodePredictor):
             raise ValueError(
                 'shipment skipped %d pages but only %d are still '
                 'resident — the graft parent was evicted' % (skip, have))
-        ids, _ = self._pool.restore_pages(
-            self._pools(), [rows[have - skip:n - skip] for rows in data])
+        ids = self._restore_pages(
+            [rows[have - skip:n - skip] for rows in data])
         parent = resident[have - 1] if have else b''
         self._prefix.extend_chain(
             parent, [bytes.fromhex(k) for k in keys[have:n]], ids)

@@ -1,5 +1,5 @@
 """Speculative decoding over the paged KV cache: draft k, verify once
-(counterpart of paddle_tpu/serving/speculative.py; no mesh).
+(counterpart of paddle_tpu/serving/speculative.py).
 
 A small DRAFT model proposes `k` tokens per stream with k cheap
 sequential decode steps, then the TARGET model scores all k+1 proposed
@@ -79,9 +79,9 @@ class DraftModel(PagedDecodePredictor):
     draft's parameter names resolve to the target's own pinned
     weights."""
 
-    def __init__(self, predictor, pair=None, _clone_of=None):
+    def __init__(self, predictor, pair=None, _clone_of=None, mesh=None):
         PagedDecodePredictor.__init__(self, predictor, pair=pair,
-                                      _clone_of=_clone_of)
+                                      _clone_of=_clone_of, mesh=mesh)
 
     def clone(self):
         return DraftModel(self._base, _clone_of=self)
@@ -107,7 +107,9 @@ class SpeculativeDecodePredictor(PagedDecodePredictor):
     def __init__(self, predictor, slots=None, spec_k=None,
                  draft_layers=None, draft_predictor=None,
                  page_tokens=None, kv_pages=None, prefill_chunk=None,
-                 _clone_of=None):
+                 _clone_of=None, mesh=None):
+        """mesh: as DecodePredictor's; the draft and the target serve on
+        the one mesh (the target's ranks hold the draft's station too)."""
         if _clone_of is not None:
             self._spair = _clone_of._spair
             self._draft = _clone_of._draft.clone()
@@ -123,10 +125,13 @@ class SpeculativeDecodePredictor(PagedDecodePredictor):
             spec_k=spec_k, draft_layers=draft_layers,
             page_tokens=page_tokens, kv_pages=kv_pages,
             prefill_chunk=prefill_chunk)
+        from .mesh import serving_mesh
+        mesh, _ = serving_mesh(mesh)
         self._spair = spair
         self._draft = DraftModel(draft_predictor or predictor,
-                                 pair=spair.draft)
-        PagedDecodePredictor.__init__(self, predictor, pair=spair.target)
+                                 pair=spair.draft, mesh=mesh or '')
+        PagedDecodePredictor.__init__(self, predictor, pair=spair.target,
+                                      mesh=mesh or '')
 
     # -- introspection -----------------------------------------------------
     @property
@@ -182,6 +187,10 @@ class SpeculativeDecodePredictor(PagedDecodePredictor):
 
     def clone(self):
         return SpeculativeDecodePredictor(self._base, _clone_of=self)
+
+    def close(self):
+        PagedDecodePredictor.close(self)
+        self._draft.close()
 
     # -- streams -----------------------------------------------------------
     def open_stream(self, slot, prompt):

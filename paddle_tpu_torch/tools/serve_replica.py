@@ -26,8 +26,11 @@ Environment contract (the JAX package's, plus SERVE_PLACE):
                         sharing + chunked prefill); sized by
                         SERVE_PAGE_TOKENS / SERVE_KV_PAGES /
                         SERVE_PREFILL_CHUNK   (defaults from flags)
-  SERVE_MESH_SHAPE      a mesh axis spec: not ported (one card a
-                        replica); a non-empty value raises
+  SERVE_MESH_SHAPE      a mesh axis spec ('tp=2'): the replica serves
+                        over a mesh of rank processes on its place
+                        (serving/mesh.py); SRV_HEALTH carries
+                        mesh_shape / mesh_devices   (default '': one
+                        device)
   SERVE_PS_ENDPOINTS    comma-separated pserver endpoints; attaches a
                         ParamSubscriber. Default posture is PAUSED --
                         staleness is measured but only an
@@ -40,7 +43,8 @@ Environment contract (the JAX package's, plus SERVE_PLACE):
 Prints 'READY <port>' on stdout once serving, and on a clean exit one
 line 'LAUNCHES <json>': the flash-attention kernels' launch counts of
 this process and the forwards that ran the plain version on a CUDA
-tensor (`plain_cuda_calls`, 0 on a sound replica). The kernels are
+tensor (`plain_cuda_calls`, 0 on a sound replica); on a mesh the
+kernels run in the rank processes, not counted here. The kernels are
 built from csrc/ at first use into the checkout's build directory (a
 file lock there keeps replicas that start together from building at
 once). Fault plans (FLAGS_fault_plan) apply to the wire layer as
@@ -85,11 +89,6 @@ def launch_counts():
 def main():
     from ..serving import LMServer, ReplicaServer
     mesh = os.environ.get('SERVE_MESH_SHAPE', '')
-    if mesh:
-        raise NotImplementedError(
-            'SERVE_MESH_SHAPE=%r: mesh-sharded serving is not ported '
-            '(ROADMAP Queue 1 item 8); a replica serves from one card'
-            % mesh)
     model_dir = os.environ['SERVE_MODEL_DIR']
     place = place_from_env()
     endpoint = os.environ.get('SERVE_ENDPOINT', '127.0.0.1:0')
@@ -106,7 +105,8 @@ def main():
                    workers=workers, paged=paged,
                    page_tokens=int(page_tokens) if page_tokens else None,
                    kv_pages=int(kv_pages) if kv_pages else None,
-                   prefill_chunk=int(chunk) if chunk else None)
+                   prefill_chunk=int(chunk) if chunk else None,
+                   mesh=mesh)
     ps_eps = os.environ.get('SERVE_PS_ENDPOINTS')
     if ps_eps:
         srv.enable_refresh(

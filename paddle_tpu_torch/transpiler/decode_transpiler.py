@@ -1,7 +1,6 @@
 """DecodeTranspiler: loaded LM program -> prefill + decode pair, its
 paged form, and the speculative target / draft / verify set
-(counterpart of paddle_tpu/transpiler/decode_transpiler.py; no mesh
-sharding recovery).
+(counterpart of paddle_tpu/transpiler/decode_transpiler.py).
 
 It READS the loaded language-model program, walking the op sequence
 models/transformer.py emits, to recover the architecture (dims, heads,
@@ -15,6 +14,11 @@ lookup_table, position_embedding, per block [layer_norm, qkv mul, proj
 mul, layer_norm, up mul, down mul] (+ flash_attention or the
 matmul/causal_mask/softmax triple), final layer_norm, lm_head mul.
 Anything else raises DecodeTranspileError naming what is missing.
+
+For mesh serving it also recovers each weight's training sharding spec
+(DecodeSpec.param_specs): from var.dist_attr while the trained program
+is in memory, else from the sharding_constraint ops parallel/layers.py
+appends after each parallel fc, which survive save_inference_model.
 """
 from __future__ import annotations
 
@@ -124,20 +128,100 @@ def _truncate_spec(spec, draft_layers):
         raise DecodeTranspileError(
             'spec_draft_layers %d outside [1, %d] (target layers)'
             % (draft_layers, spec.layers))
-    return DecodeSpec(vocab=spec.vocab, dim=spec.dim, heads=spec.heads,
-                      layers=draft_layers, ffn=spec.ffn,
-                      max_len=spec.max_len, pos_len=spec.pos_len,
-                      emb_w=spec.emb_w, pos_w=spec.pos_w,
-                      blocks=spec.blocks[:draft_layers],
-                      final_ln=spec.final_ln, head=spec.head,
-                      use_flash=spec.use_flash)
+    truncated = DecodeSpec(vocab=spec.vocab, dim=spec.dim,
+                           heads=spec.heads, layers=draft_layers,
+                           ffn=spec.ffn, max_len=spec.max_len,
+                           pos_len=spec.pos_len, emb_w=spec.emb_w,
+                           pos_w=spec.pos_w,
+                           blocks=spec.blocks[:draft_layers],
+                           final_ln=spec.final_ln, head=spec.head,
+                           use_flash=spec.use_flash)
+    # the draft's params are a subset of the target's: they carry their
+    # recovered specs, so the self-draft shards the same way
+    names = set(truncated.param_names())
+    truncated.param_specs = {n: s for n, s in spec.param_specs.items()
+                             if n in names}
+    return truncated
 
 
 def _fail(msg):
     raise DecodeTranspileError(
         'cannot transpile program for cached decoding: %s (expected a '
-        'decoder-only LM from models.transformer.language_model_logits)'
-        % msg)
+        'decoder-only LM from models.transformer.language_model'
+        '[_logits])' % msg)
+
+
+# the mesh axes a recovered spec may name (parallel/mesh.py AXIS_ORDER)
+_SERVABLE_AXES = ('dp', 'tp', 'sp', 'ep', 'pp')
+
+
+def _recover_param_specs(block, spec, muls, add_out_of, act_out_of,
+                         constraints):
+    """Each weight's sharding spec (tuple form) for mesh serving, from,
+    in order of preference:
+
+    1. var.dist_attr: present while the trained program is in memory
+       (shard_tensor wrote it), lost on save/load;
+    2. the sharding_constraint ops parallel/layers.py appends right after
+       each parallel fc's bias add, which survive save_inference_model: a
+       constraint (.., ax) after a mul's add means column parallel (w
+       sharded (None, ax)); (.., None) means row parallel (w sharded
+       ('tp', None)).
+
+    Unannotated weights map to None (replicated). An axis outside the
+    mesh axes is a layout nothing can serve: DecodeTranspileError naming
+    the weight and the axis."""
+    specs = {}
+
+    def record(name, wspec):
+        if wspec is None:
+            specs[name] = None
+            return
+        wspec = tuple(wspec)
+        for ax in wspec:
+            for a in (ax if isinstance(ax, (tuple, list)) else (ax,)):
+                if a is not None and a not in _SERVABLE_AXES:
+                    _fail('weight %r is sharded on unknown mesh axis '
+                          '%r (valid: %s)' % (name, a, _SERVABLE_AXES))
+        specs[name] = wspec
+
+    def infer(name, out_name):
+        try:
+            var = block.var_recursive(name)
+        except KeyError:
+            var = None
+        dist = getattr(var, 'dist_attr', None)
+        if dist is not None:
+            record(name, dist)
+            return
+        out = add_out_of.get(out_name, out_name)
+        out = act_out_of.get(out, out)
+        cspec = constraints.get(out)
+        if cspec is None or len(cspec) < 2:
+            specs[name] = None
+            return
+        ax = cspec[-1]
+        if isinstance(ax, (tuple, list)):
+            ax = ax[0] if ax else None
+        if ax is not None:
+            record(name, (None, ax))        # column parallel
+        else:
+            # a trailing-None constraint right after a mul is the
+            # row-parallel signature; its contraction dim was sharded
+            # over the model axis the net uses (tp)
+            record(name, ('tp', None))
+
+    for mul_w, mul_out in muls:
+        infer(mul_w, mul_out)
+    # the embedding: dist_attr only (vocab_parallel_embedding emits no
+    # constraint); after save/load it serves replicated
+    try:
+        emb_var = block.var_recursive(spec.emb_w)
+    except KeyError:
+        emb_var = None
+    dist = getattr(emb_var, 'dist_attr', None)
+    record(spec.emb_w, tuple(dist) if dist is not None else None)
+    spec.param_specs = {n: specs.get(n) for n in spec.param_names()}
 
 
 def extract_decode_spec(program):
@@ -147,6 +231,9 @@ def extract_decode_spec(program):
     lns = []          # (scale_name, bias_name) in op order
     muls = []         # (w_name, out_name) in op order
     bias_of = {}      # mul out name -> persistable bias name
+    add_out_of = {}   # mul out name -> its bias add's out name
+    act_out_of = {}   # fc activation's in name -> its out name
+    constraints = {}  # constrained var name -> sharding spec tuple
     reshape4 = None
     use_flash = False
 
@@ -165,8 +252,21 @@ def extract_decode_spec(program):
             muls.append((op.single_input('Y'), op.single_output('Out')))
         elif t == 'flash_attention':
             use_flash = True
-        elif t in ('moe_ffn', 'ring_attention'):
-            _fail('op %s has no cached-decode equivalent in this port' % t)
+        elif t == 'moe_ffn':
+            _fail('op moe_ffn: expert-sharded (ep) MoE FFN has no '
+                  'cached-decode equivalent')
+        elif t == 'ring_attention':
+            _fail('op ring_attention: sp-ring attention has no '
+                  'cached-decode equivalent (serve with the paged '
+                  'cache instead)')
+        elif t == 'sharding_constraint':
+            spec = op.attr('spec')
+            if spec is not None:
+                constraints[op.single_input('X')] = tuple(spec)
+        elif t in ('gelu', 'relu', 'tanh', 'sigmoid'):
+            # fc applies its act after the bias add, so a parallel fc's
+            # constraint sits one hop past the add's output
+            act_out_of[op.single_input('X')] = op.single_output('Out')
         elif t == 'reshape2' and reshape4 is None:
             shp = op.attr('shape') or []
             if len(shp) == 4:
@@ -177,7 +277,9 @@ def extract_decode_spec(program):
             except KeyError:
                 continue
             if yv.persistable:
-                bias_of[op.single_input('X')] = yv.name
+                x = op.single_input('X')
+                bias_of[x] = yv.name
+                add_out_of[x] = op.single_output('Out')
 
     if emb_w is None:
         _fail('no lookup_table op (token embedding)')
@@ -219,11 +321,14 @@ def extract_decode_spec(program):
                   % (i, blk['qkv'][0], tuple(qkv_shape), dim, 3 * dim))
         blocks.append(blk)
 
-    return DecodeSpec(vocab=vocab, dim=dim, heads=heads, layers=layers,
+    spec = DecodeSpec(vocab=vocab, dim=dim, heads=heads, layers=layers,
                       ffn=ffn, max_len=max_len, pos_len=pos_len,
                       emb_w=emb_w, pos_w=pos_w, blocks=blocks,
                       final_ln=lns[-1], head=pair(len(muls) - 1),
                       use_flash=use_flash)
+    _recover_param_specs(block, spec, muls, add_out_of, act_out_of,
+                         constraints)
+    return spec
 
 
 class DecodeTranspiler(object):

@@ -1076,10 +1076,13 @@ def test_captured_path_phases_exist_run_in_order_and_fail_the_run():
         with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
             fn(*[None] * len(inspect.signature(fn).parameters))
     src = inspect.getsource(chip_smoke.main)
-    order = ['profile_path(', 'check_serving_capture(', 'profile_train(',
+    # b6 times K6 at r1's shapes before the second lane starts
+    order = ['SecondLane(', 'check_k6(', 'update(go=True)', 'profile_path(',
+             'check_serving_capture(', 'profile_train(',
              "'the Momentum step", 'check_cache_key(', 'remat_steps(',
              'adam_steps(', 'check_adam_step(', "'the Adam step'",
-             'check_k6(', 'check_second_shape(', 'check_resnet_plain_step(',
+             'resnet_steps(', 'path_shapes != k6_shapes',
+             'check_second_shape(', 'check_resnet_plain_step(',
              'profile_resnet(', "'the ResNet-50 step'", 'lc_steps(',
              'profile_lc(', "'the long-context step"]
     pos = [src.index(s) for s in order]
@@ -1534,7 +1537,8 @@ def test_paged_phases_exist_run_in_order_and_fail_the_run():
 def test_trainer_and_obs_phases_exist_run_in_order_and_fail_the_run():
     """tr1-tr4 and o1-o2 are phases (a failure is a PhaseError, which
     main() turns into exit 1 with no result line), called by main() in
-    this order after x4 and before the Adam LM."""
+    this order after the serving phases and before the LM's (their block
+    is a small one, beside the second lane's longest unit)."""
     import inspect
     for fn, name in ((chip_smoke.trainer_steps, 'tr1'),
                      (chip_smoke.trainer_resume, 'tr2'),
@@ -1547,9 +1551,10 @@ def test_trainer_and_obs_phases_exist_run_in_order_and_fail_the_run():
         with pytest.raises(chip_smoke.PhaseError, match='phase %s: ' % name):
             fn(*[None] * n)
     src = inspect.getsource(chip_smoke.main)
-    order = ['remat_steps(', 'trainer_steps(', 'trainer_resume(',
+    order = ['paged_timing(', 'trainer_steps(', 'trainer_resume(',
              'trainer_faults(', 'trainer_test_and_infer(',
-             'trainer_telemetry(', 'serving_slo(', 'adam_steps(']
+             'trainer_telemetry(', 'serving_slo(', 'train_steps(',
+             'remat_steps(', 'adam_steps(']
     pos = [src.index(s) for s in order]
     assert pos == sorted(pos)
     # the scratch directories (serving model, checkpoints, obs logs) go
@@ -2078,10 +2083,13 @@ SMALL_ITEM6 = dict(c3d=C3D_TINY, seg=dict(batch=2, channels=3, hw=(12, 16)),
 def test_moe_and_item6_phases_are_wired_into_main():
     import inspect
     src = inspect.getsource(chip_smoke.main)
-    order = ['check_training_ops(', 'moe_steps(', 'moe_op_check(',
-             'resnet_steps(']
+    order = ['moe_steps(', 'moe_op_check(', 'resnet_steps(']
     pos = [src.index(s) for s in order]
     assert pos == sorted(pos)
+    # a3 and a4 run in the second lane, ck1 beside them
+    lane = inspect.getsource(chip_smoke._ck1_beside_a3_a4)
+    assert lane.index('check_optimizer_ops(') < \
+        lane.index('check_training_ops(')
     assert chip_smoke.MOE_MODEL == dict(chip_smoke.MODEL, moe_experts=4,
                                         layers=6)
     assert chip_smoke.MOE_WARMUP + chip_smoke.MOE_TIMED == 10

@@ -45,8 +45,14 @@ def model_dir(tmp_path_factory):
 
 def test_fleet_phases_are_wired_into_main_last(tmp_path):
     src = inspect.getsource(chip_smoke.main)
-    order = ['ps_deepfm_steps(', 'nhwc_steps(', 'check_probe(',
-             'online_refresh(', 'fleet_serving(', 'disagg_serving(',
+    # on1, fl1 and fl2 are units of the second lane, which main() lets
+    # start once c1 has saved the model the fleets load, and joins last
+    units = inspect.getsource(chip_smoke.second_lane_units)
+    for call in ('online_refresh(', 'fleet_serving(model_dir',
+                 'disagg_serving(model_dir'):
+        assert call in units
+    order = ['SecondLane(model_dir', 'check_probe(', 'build_and_save(',
+             'update(go=True)', 'nhwc_steps(', 'second.join()',
              'except PhaseError']
     pos = [src.index(s) for s in order]
     assert pos == sorted(pos)

@@ -20,10 +20,11 @@ import paddle_tpu_torch as tfluid
 
 def test_ps_phases_are_wired_into_main_after_rf1(tmp_path):
     src = inspect.getsource(chip_smoke.main)
-    order = ['record_file_steps(', 'ps_lm_steps(', 'ps_deepfm_steps(',
-             'nhwc_steps(']
-    pos = [src.index(s) for s in order]
-    assert pos == sorted(pos)
+    # ps1 then ps2, one unit of the second lane, beside main()'s phases
+    units = inspect.getsource(chip_smoke.second_lane_units)
+    assert units.index('ps_lm_steps(') < units.index('ps_deepfm_steps(')
+    assert src.index('SecondLane(') < src.index('record_file_steps(') < \
+        src.index('second.join()')
     # ps1's fp32 K1 and K2 join their kernel rows' launches
     assert "ps1['launches']['K1']" in src and "ps1['launches']['K2']" in src
     assert "'--ps-worker'" in src

@@ -2,12 +2,14 @@
 restore,elastic}.py, CheckpointConfig(sharded=True), Trainer(strategy=))
 held to the JAX package on the CPU.
 
-The oracle is tests/test_sharded_ckpt.py, case for case (its serving
-and chaos-sweep cases belong to other slices): the reshard matrix, no
-host gather, the digests with the quarantine and the .prev fallback,
-the COMMIT discipline, the rotation, the OWNER fence,
-MeshCheckpointer's scope round trip, the Trainer's in-process resume and
-the ckpt.* instruments and spans. The port's saver takes its rank and
+The oracle is tests/test_sharded_ckpt.py, case for case (its
+chaos-sweep case belongs to the chaos sweep's slice): the reshard
+matrix, no host gather, the digests with the quarantine and the .prev
+fallback, the COMMIT discipline, the rotation, the OWNER fence,
+MeshCheckpointer's scope round trip, the Trainer's in-process resume,
+a one-device predictor serving from a dp2tp2 checkpoint through
+DecodePredictor.load_sharded (dense and paged) and the ckpt.*
+instruments and spans. The port's saver takes its rank and
 its local shards explicitly, so each simulated rank of a mesh drives the
 per-rank write path here without a process group; rank 0 commits last.
 The format is the JAX package's: a generation it saves on a dp2tp2 mesh
@@ -148,6 +150,76 @@ def _check_rank_values(ckpt, values, axes):
             got = ckpt.as_torch(name, mesh, rank=r)
             assert tuple(got.shape) == tuple(part.shape), (name, r)
             assert np.array_equal(_bits(got), _bits(part)), (name, r)
+
+
+# -- serving: DecodePredictor.load_sharded after a reshard ---------------------
+
+@pytest.mark.parametrize('paged', [False, True], ids=['dense', 'paged'])
+def test_serve_after_reshard_parity(tmp_path, paged):
+    """Weights saved sharded on a dp=2 x tp=2 training mesh, loaded by a
+    one-device predictor (the dense DecodePredictor and the paged one):
+    the stream is the one of the predictor's own weights, the caches are
+    never in the checkpoint, and a missing param raises naming it."""
+    from test_paged import _save_lm
+    from paddle_tpu.models.transformer import TransformerConfig
+    cfg = TransformerConfig(vocab=32, dim=16, heads=2, layers=1, ffn=32,
+                            max_len=8, use_tp=False, use_sp=False)
+    model_dir = str(tmp_path / 'model')
+    _save_lm(model_dir, cfg, 7)
+    predictor = tfluid.inference.AnalysisPredictor(
+        tfluid.inference.AnalysisConfig(model_dir, place=tfluid.CPUPlace()))
+    if paged:
+        dec = predictor.prepare_decoding(slots=2, paged=True,
+                                         page_tokens=4, kv_pages=8,
+                                         prefill_chunk=cfg.max_len)
+    else:
+        dec = predictor.prepare_decoding(slots=2, prefill_batch=1)
+    prompt = [3, 1, 4]
+    ref_tokens = dec.generate(prompt, 4)
+
+    cache_names = set(dec._pair.cache_names)
+    names = dec.param_names()
+    values = {n: dec._weight_scope.find_var(n).detach().clone()
+              for n in names}
+    specs = {n: ('tp',) if v.ndim and v.shape[0] % 2 == 0 else None
+             for n, v in values.items()}
+    mesh = _tmesh(dict(dp=2, tp=2))
+
+    def save(root, vals):
+        savers = [checkpoint.AsyncShardedSaver(root, incarnation=0, rank=r,
+                                               world=mesh.size)
+                  for r in range(mesh.size)]
+        for r in reversed(range(mesh.size)):
+            arrays = {}
+            for n, t in vals.items():
+                sp = tmesh.fit_spec(specs[n], tuple(t.shape), mesh)
+                part = local_part(t, normalize(sp, t.ndim, mesh), mesh, r)
+                arrays[n] = ckpt_sharded.local_shard(part.clone(), sp, mesh,
+                                                     r)
+            savers[r].save(arrays, block=True)
+        for sv in savers:
+            sv.close()
+    root = str(tmp_path / 'ckpt')
+    save(root, values)
+    ckpt = checkpoint.load_checkpoint(root)
+    assert not (set(ckpt.var_names()) & cache_names)
+
+    # scramble the live weights, then roll to the sharded checkpoint
+    for n, v in values.items():
+        dec._weight_scope.set_var(n, torch.zeros_like(v))
+    assert dec.generate(prompt, 4) != ref_tokens
+    dec.load_sharded(root)
+    dec.reset()
+    assert dec.generate(prompt, 4) == ref_tokens
+
+    # a checkpoint missing a referenced param raises, naming it
+    partial = dict(values)
+    missing = sorted(partial)[0]
+    del partial[missing]
+    root2 = str(tmp_path / 'partial')
+    save(root2, partial)
+    with pytest.raises(RuntimeError, match='missing param %r' % missing):
+        dec.load_sharded(root2)
 
 
 # -- the reshard matrix --------------------------------------------------------
